@@ -17,7 +17,9 @@ exits non-zero):
 4. parity   -- qwen2_0_5b at full width, depth 2, fp32: the port on the CPU
                (plain versions) against the port on the card (kernels);
 5. serve    -- full qwen2_0_5b in bf16 through ServeEngine, with every
-               kernel's launch count over that run.
+               kernel's launch count over that run, a profile of one
+               prefill and four decode steps, and a check that a decode
+               step never makes the host wait on the card.
 
 Then a summary line of the kernels, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -379,7 +381,9 @@ def phase_serve(torch, dev):
 def profile_steps(torch, bundle, params, prompts, ecfg, n_decode=4):
     """torch.profiler over one prefill and ``n_decode`` decode steps of the
     served batch: host wall time, the union of device kernel time, the idle
-    share of the device, and the kernels that take the most device time."""
+    share of the device, and the kernels that take the most device time.
+    Then, unprofiled, the host's enqueue time and the wall time of a decode
+    step, and a check that a step never waits on the card."""
     import numpy as np
     from repro_torch.serve import seed_decode_cache
     from torch.profiler import ProfilerActivity, profile
@@ -435,6 +439,37 @@ def profile_steps(torch, bundle, params, prompts, ecfg, n_decode=4):
                                             "cuda")
         decode()  # warm
         out["decode"] = measure(decode, n_decode)
+        # Unprofiled, as served but with no copy of the tokens to the host:
+        # the host's time to enqueue a step, and the wall time until the
+        # card has run it.  Where enqueueing takes longer, the host bounds
+        # the step.
+        tok = torch.argmax(state["logits"], dim=-1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(4 * n_decode):
+            logits, _ = bundle.decode(params, state["caches"], tok, S + i)
+            tok = torch.argmax(logits, dim=-1)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        out["decode_unprofiled"] = {
+            "steps": 4 * n_decode,
+            "host_enqueue_ms_per_step": (t1 - t0) / (4 * n_decode) * 1e3,
+            "wall_ms_per_step": (t2 - t0) / (4 * n_decode) * 1e3}
+        # A host wait inside the step (a copy from host memory, an .item())
+        # would stop the host from enqueueing ahead of the card: one more
+        # step with PyTorch's sync check raising on any such wait.
+        tok = torch.argmax(state["logits"], dim=-1)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            bundle.decode(params, state["caches"], tok, S + n_decode)
+        except RuntimeError as e:
+            raise AssertionError(f"the decode step waits on the card: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        out["decode_host_syncs"] = 0
     return out
 
 

@@ -94,7 +94,10 @@ def attention_forward(cfg, p: Params, x: torch.Tensor, *,
     q, k, v = _project_qkv(cfg, p, x)
 
     if cache is not None:
-        posv = torch.tensor([cache_pos], device=x.device)
+        # Filled on the device: a tensor copied from host memory here would
+        # make the host wait for the card once per layer.
+        posv = torch.full((1,), cache_pos, dtype=torch.float32,
+                          device=x.device)
         q = apply_rope(q, posv, cfg.rope_theta)
         k = apply_rope(k, posv, cfg.rope_theta)
         cache = update_cache(cache, k, v, cache_pos)

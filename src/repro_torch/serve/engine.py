@@ -30,7 +30,6 @@ class Request:
 class EngineConfig:
     batch_size: int = 4
     max_seq: int = 256
-    greedy: bool = True
 
 
 def seed_decode_cache(bundle, prefill_caches, batch_size: int, max_seq: int,

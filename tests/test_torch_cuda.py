@@ -24,6 +24,8 @@ MATMUL_SHAPES = [(64, 128, 64), (128, 384, 256), (100, 60, 40),
 FLASH_CASES = [(S, hd, causal) for S in (128, 256) for hd in (64, 128)
                for causal in (True, False)] + [(77, 64, True)]
 DECODE_CASES = [(256, 100), (512, 512), (512, 1), (1024, 513)]
+# (query heads, KV heads): groups of 7 (qwen2) and of 4 (llama3_2_1b, qwen3_4b)
+HEADS = [(14, 2), (32, 8)]
 
 
 @pytest.fixture
@@ -61,8 +63,9 @@ def test_cuda_matmul_matches_plain(card, shape, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("S,hd,causal", FLASH_CASES)
-def test_cuda_flash_attention_matches_plain(card, S, hd, causal, dtype):
-    B, H, KV = 2, 14, 2
+@pytest.mark.parametrize("H,KV", HEADS)
+def test_cuda_flash_attention_matches_plain(card, S, hd, causal, H, KV, dtype):
+    B = 2
     q, k, v = _on(card, dtype, 1, (B, S, H, hd), (B, S, KV, hd),
                   (B, S, KV, hd))
     _close(ops.flash_attention(q, k, v, causal=causal),
@@ -73,8 +76,10 @@ def test_cuda_flash_attention_matches_plain(card, S, hd, causal, dtype):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("S,length", DECODE_CASES)
 @pytest.mark.parametrize("hd", [64, 128])
-def test_cuda_decode_attention_matches_plain(card, S, length, hd, dtype):
-    B, H, KV = 3, 14, 2
+@pytest.mark.parametrize("H,KV", HEADS)
+def test_cuda_decode_attention_matches_plain(card, S, length, hd, H, KV,
+                                             dtype):
+    B = 3
     q, k, v = _on(card, dtype, 2, (B, H, hd), (B, S, KV, hd), (B, S, KV, hd))
     _close(ops.decode_attention(q, k, v, length),
            decode_attention_plain(q, k, v, length), DTYPES[dtype][1])

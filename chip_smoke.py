@@ -9,15 +9,19 @@ exits non-zero):
 1. device   -- the card (nvidia-smi name and power limit), TF32 off;
 2. build    -- nvcc builds the hand-written kernels of src/repro_torch;
 3. kernels  -- each kernel against its plain PyTorch version on the card
-               at the shapes of qwen2_0_5b's serving path, fp32 (2e-4) and
-               bf16 (2e-2), with CUDA-event times of the kernel, the plain
-               version and one PyTorch library call, and the least time
-               the card could take (bound_ms); the summary line sums the
-               bf16 cases, the type the model is served in;
-4. parity   -- qwen2_0_5b at full width, depth 2, fp32: the port on the CPU
+               at the shapes of the serving paths of qwen2_0_5b and
+               mamba2_1_3b, fp32 and bf16 (matmul and attention: 2e-4 and
+               2e-2 of 1 + |plain|; ssd_scan: 1e-4 and 5e-2 of max |plain|),
+               with CUDA-event times of the kernel, the plain version and,
+               where one exists, one PyTorch library call, and the least
+               time the card could take (bound_ms); the summary line sums
+               the bf16 cases, the type the models are served in;
+4. parity   -- per model, at full width, depth 2, fp32: the port on the CPU
                (plain versions) against the port on the card (kernels);
-5. serve    -- full qwen2_0_5b in bf16 through ServeEngine, with every
-               kernel's launch count over that run, a profile of one
+5. serve    -- per model, full width and depth in bf16 through ServeEngine
+               (qwen2_0_5b: matmul, flash and decode attention; mamba2_1_3b:
+               matmul and ssd_scan), with every kernel's launch count over
+               that run (counts set to 0 just before it), a profile of one
                prefill and four decode steps, and a check that a decode
                step never makes the host wait on the card.
 
@@ -39,8 +43,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 SEED = 0
-MODEL = "qwen2_0_5b"
+MODELS = ("qwen2_0_5b", "mamba2_1_3b")  # the served paths, in run order
 TOL = {"float32": 2e-4, "bfloat16": 2e-2}
+SSD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}  # tests/test_kernels.py's
 SLEEP_CYCLES = 2_000_000  # ~1 ms of GPU spin ahead of each timed call
 
 # Published peaks (NVIDIA data sheets; dense, no sparsity): bytes/s, and
@@ -58,6 +63,8 @@ KERNELS = {
                         "replaces": "src/repro/kernels/flash_attention.py:67"},
     "decode_attention": {"source": "src/repro_torch/kernels/csrc/decode_attention.cu",
                          "replaces": "src/repro/kernels/decode_attention.py:54"},
+    "ssd_scan": {"source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+                 "replaces": "src/repro/kernels/ssd_scan.py:63"},
 }
 
 
@@ -79,23 +86,26 @@ def main() -> int:
     dev = phase_device(torch)
     phase_build()
     cases = phase_kernels(torch, dev)
-    phase_parity(torch)
-    launches = phase_serve(torch, dev)
+    for model in MODELS:
+        phase_parity(torch, model)
+    launches = {model: phase_serve(torch, dev, model) for model in MODELS}
     summary = []
     for name, meta in KERNELS.items():
         mine = [c for c in cases if c["name"] == name]
         timed = [c for c in mine if c["dtype"] == "bfloat16"]  # as served
         by_bytes = sum(c["bytes_ms"] for c in timed)
         by_ops = sum(c["ops_ms"] for c in timed)
+        library = [c["library_ms"] for c in timed]
         summary.append({
             "name": name, "route": "cuda", **meta,
-            "launches": launches[name],
+            "launches": sum(n[name] for n in launches.values()),
+            "launches_by_path": {m: n[name] for m, n in launches.items()},
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "ms": sum(c["kernel_ms"] for c in timed),
             "plain_ms": sum(c["plain_ms"] for c in timed),
             "bound_ms": sum(c["bound_ms"] for c in timed),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-            "library_ms": sum(c["library_ms"] for c in timed),
+            "library_ms": None if None in library else sum(library),
             "shapes": [c["shape"] for c in timed],
         })
     emit({"kernels": summary})
@@ -145,6 +155,7 @@ def phase_kernels(torch, dev):
     from repro_torch.kernels import ops
     from repro_torch.kernels.decode_attention import decode_attention_plain
     from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.kernels.ssd_scan import ssd_scan_plain
     from repro_torch.kernels.streamed_matmul import matmul_plain
 
     peaks = dev["peaks"]
@@ -177,36 +188,55 @@ def phase_kernels(torch, dev):
 
     cases = []
 
-    def check(name, shape, dtype, got, want, n_bytes, n_ops, fns):
+    def check(name, shape, dtype, got, want, n_bytes, n_ops, fns,
+              relative=False):
+        """got/want: a tensor or a tuple of them (ssd_scan: y and the
+        state).  relative: the rule of tests/test_kernels.py's SSD test."""
         torch.cuda.synchronize()
-        diff = (got.float() - want.float()).abs()
-        tol = TOL[str(dtype).split(".")[-1]]
-        excess = (diff - tol * (1 + want.float().abs())).max().item()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        dname = str(dtype).split(".")[-1]
+        tol = (SSD_TOL if relative else TOL)[dname]
+        err, excess = 0.0, float("-inf")
+        for g, w in zip(got, want):
+            diff = (g.float() - w.float()).abs()
+            err = max(err, diff.max().item())
+            if relative:
+                excess = max(excess, diff.max().item()
+                             - tol * w.float().abs().max().item())
+            else:
+                excess = max(excess, (diff - tol * (1 + w.float().abs()))
+                             .max().item())
         case = {"phase": "kernels", "name": name, "shape": shape,
-                "dtype": str(dtype).split(".")[-1],
-                "max_abs_err": diff.max().item(), "tol": tol,
-                "tol_rule": "|kernel - plain| <= tol * (1 + |plain|)"}
+                "dtype": dname, "max_abs_err": err, "tol": tol,
+                "tol_rule": ("max |kernel - plain| <= tol * max |plain|"
+                             if relative else
+                             "|kernel - plain| <= tol * (1 + |plain|)")}
         bytes_ms = n_bytes / peaks["bytes"] * 1e3
         ops_ms = n_ops / peaks[case["dtype"]] * 1e3
         case.update(bytes_ms=bytes_ms, ops_ms=ops_ms,
                     bound_ms=max(bytes_ms, ops_ms),
                     bound_by="bytes" if bytes_ms >= ops_ms else "operations")
         for key, fn in zip(("kernel_ms", "plain_ms", "library_ms"), fns):
-            case[key] = time_ms(fn)
+            case[key] = None if fn is None else time_ms(fn)
         emit(case)
         if not excess <= 0:
             raise AssertionError(f"{name} {shape} {dtype}: kernel disagrees "
                                  f"with its plain version by {case['max_abs_err']}")
         cases.append(case)
 
-    # streamed_matmul: the five (K, N) of qwen2_0_5b at decode and prefill M
-    pairs = [(896, 896), (896, 128), (896, 4864), (4864, 896), (896, 152064)]
+    # streamed_matmul: the (K, N) of qwen2_0_5b and of mamba2_1_3b at decode
+    # and prefill M; the last of each is the tied unembedding
+    pairs = [(896, 896), (896, 128), (896, 4864), (4864, 896), (896, 152064),
+             (2048, 4096), (2048, 128), (2048, 64), (4096, 2048),
+             (2048, 50432)]
+    tied = {152064, 50432}
     for dtype in (torch.float32, torch.bfloat16):
         es = torch.tensor([], dtype=dtype).element_size()
         for M in (8, 4096):
             for K, N in pairs:
                 x = randn(M, K, dtype=dtype)
-                if N == 152064:  # the tied unembedding: embed.t(), in place
+                if N in tied:  # the tied unembedding: embed.t(), in place
                     w = randn(N, K, dtype=dtype, scale=K ** -0.5).t()
                 else:
                     w = randn(K, N, dtype=dtype, scale=K ** -0.5)
@@ -253,6 +283,34 @@ def phase_kernels(torch, dev):
                   decode_attention_plain(q, k, v, length),
                   es * (2 * B * H * hd + 2 * B * length * KV * hd),
                   4 * B * H * length * hd, fns)
+
+    # ssd_scan: mamba2_1_3b's prefill scan (64 heads of P 64, N 128, one
+    # group) at b 8; 449 is prime, so the last sub-chunk is ragged.  The
+    # least operations form C B^T once per (batch row, chunk of 256) and
+    # the rest per head; no PyTorch call computes the scan (library: none).
+    b, H, P, N, chunk = 8, 64, 64, 128, 256
+    for dtype in (torch.float32, torch.bfloat16):
+        es = torch.tensor([], dtype=dtype).element_size()
+        for S in (512, 449):
+            x = randn(b, S, H, P, dtype=dtype, scale=0.5)
+            dt = F.softplus(randn(b, S, H, dtype=torch.float32))
+            A = -torch.exp(randn(H, dtype=torch.float32, scale=0.3))
+            Bm = randn(b, S, N, dtype=dtype, scale=0.5)
+            Cm = randn(b, S, N, dtype=dtype, scale=0.5)
+            args = (x, dt, A, Bm, Cm)
+            fns = (lambda: ops.ssd_scan(*args, chunk=chunk),
+                   lambda: ssd_scan_plain(*args, chunk=chunk), None)
+            n_ops = 0
+            for c0 in range(0, S, chunk):
+                q = min(chunk, S - c0)
+                n_ops += b * (2 * q * q * N + H * (2 * q * q * P + 4 * q * P * N))
+            check("ssd_scan", [b, S, H, P, N], dtype,
+                  ops.ssd_scan(*args, chunk=chunk),
+                  ssd_scan_plain(*args, chunk=chunk),
+                  es * (2 * b * S * H * P + 2 * b * S * N)
+                  + 4 * (b * S * H + H + b * H * P * N), n_ops, fns,
+                  relative=True)
+            del x, Bm, Cm, args
     del flush
     emit({"phase": "kernels", "names": list(KERNELS), "cases": len(cases)})
     return cases
@@ -266,13 +324,13 @@ def _to(tree, device):
     return tree.to(device)
 
 
-def phase_parity(torch):
+def phase_parity(torch, model):
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.models import build
     from repro_torch.serve import EngineConfig, ServeEngine
 
-    cfg = dataclasses.replace(get_config(MODEL), n_layers=2,
+    cfg = dataclasses.replace(get_config(model), n_layers=2,
                               param_dtype="float32", compute_dtype="float32")
     bundle = build(cfg)
     p_card = bundle.init(SEED, device="cuda")
@@ -295,7 +353,7 @@ def phase_parity(torch):
         for pr in prompts:
             eng.submit(pr, max_new_tokens=9)  # prefill + 8 decode steps
         tokens[device] = [r.out_tokens for r in eng.run()]
-    emit({"phase": "parity", "model": MODEL, "n_layers": 2, "dtype": "float32",
+    emit({"phase": "parity", "model": model, "n_layers": 2, "dtype": "float32",
           "prefill_logits_max_abs_err": diff.max().item(), "tol": tol,
           "tokens_card": tokens["cuda"], "tokens_cpu": tokens["cpu"]})
     if not ok_logits:
@@ -304,14 +362,28 @@ def phase_parity(torch):
         raise AssertionError("card and CPU greedy tokens differ")
 
 
-def phase_serve(torch, dev):
+def expected_launches(cfg, prefills: int, decode_steps: int):
+    """Kernel launches of a served run: the matmuls of every forward (the
+    projections of each layer and the unembedding), the prefill kernel of
+    each layer per prefill, the decode kernel of each layer per step."""
+    L, forwards = cfg.n_layers, prefills + decode_steps
+    if cfg.family == "ssm":  # w_z, w_x, w_B, w_C, w_dt, w_out; the SSD scan
+        return {"streamed_matmul": (6 * L + 1) * forwards,
+                "flash_attention": 0, "decode_attention": 0,
+                "ssd_scan": L * prefills}
+    return {"streamed_matmul": (7 * L + 1) * forwards,  # q k v o, gate up down
+            "flash_attention": L * prefills,
+            "decode_attention": L * decode_steps, "ssd_scan": 0}
+
+
+def phase_serve(torch, dev, model):
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import build
     from repro_torch.serve import EngineConfig, ServeEngine
 
-    cfg = get_config(MODEL)
+    cfg = get_config(model)
     bundle = build(cfg)
     params = bundle.init(SEED, device="cuda")
     finite = []
@@ -350,12 +422,9 @@ def phase_serve(torch, dev):
     breakdown = profile_steps(torch, bundle, params, prompts, ecfg)
 
     st = eng.stats
-    per_forward = 7 * cfg.n_layers + 1
-    expect = {"streamed_matmul": per_forward * (st["prefills"] + st["decode_steps"]),
-              "flash_attention": cfg.n_layers * st["prefills"],
-              "decode_attention": cfg.n_layers * st["decode_steps"]}
+    expect = expected_launches(cfg, st["prefills"], st["decode_steps"])
     all_finite = bool(torch.stack(finite).all())
-    emit({"phase": "serve", "model": MODEL, "n_layers": cfg.n_layers,
+    emit({"phase": "serve", "model": model, "n_layers": cfg.n_layers,
           "dtype": cfg.param_dtype, "batch": ecfg.batch_size,
           "max_seq": ecfg.max_seq, "prompt_lens": [int(n) for n in lengths],
           "new_tokens": 32, "nvidia_smi": dev["smi"],
@@ -373,7 +442,8 @@ def phase_serve(torch, dev):
         raise AssertionError("a token outside the vocabulary")
     if not all_finite:
         raise AssertionError("non-finite logits")
-    if launches != expect or not all(launches.values()):
+    if launches != expect or not all(launches[k] for k, n in expect.items()
+                                     if n):
         raise AssertionError(f"launch counts {launches} != {expect}")
     return launches
 

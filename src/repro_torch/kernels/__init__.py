@@ -3,4 +3,5 @@
 The CUDA sources are built at first use (``_build``), never at import.
 """
 from . import ops
-from .ops import LAUNCHES, decode_attention, flash_attention, matmul, reset_launches
+from .ops import (LAUNCHES, decode_attention, flash_attention, matmul,
+                  reset_launches, ssd_scan)

@@ -34,6 +34,8 @@ SIGNATURES = {
                          _I, _F, _I, _P],
     "decode_attention_chunk": [],
     "decode_attention_max_group": [],
+    "ssd_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                 _I, _I, _I, _P],
 }
 
 

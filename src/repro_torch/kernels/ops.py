@@ -7,16 +7,17 @@ wrappers, so a run can show that its main path went through the kernels.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from .decode_attention import decode_attention_cuda, decode_attention_plain
 from .flash_attention import flash_attention_cuda, flash_attention_plain
+from .ssd_scan import ssd_scan_cuda, ssd_scan_plain
 from .streamed_matmul import matmul_cuda, matmul_plain
 
 LAUNCHES: Dict[str, int] = {"streamed_matmul": 0, "flash_attention": 0,
-                            "decode_attention": 0}
+                            "decode_attention": 0, "ssd_scan": 0}
 
 
 def reset_launches() -> None:
@@ -58,4 +59,18 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return decode_attention_plain(q, k, v, length)
     out = decode_attention_cuda(q, k, v, length)
     LAUNCHES["decode_attention"] += 1
+    return out
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             B: torch.Tensor, C: torch.Tensor, *, chunk: int = 256,
+             init_state: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (b,S,H,P), dt (b,S,H) fp32, A (H,) fp32, B/C (b,S,N), optional
+    init_state (b,H,P,N) fp32 -> (y (b,S,H,P), final state (b,H,P,N) fp32)."""
+    if not _on_card(x):
+        return ssd_scan_plain(x, dt, A, B, C, chunk=chunk,
+                              init_state=init_state)
+    out = ssd_scan_cuda(x, dt, A, B, C, chunk=chunk, init_state=init_state)
+    LAUNCHES["ssd_scan"] += 1
     return out

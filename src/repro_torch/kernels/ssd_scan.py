@@ -1,0 +1,122 @@
+"""Mamba-2 SSD chunk scan with one B/C group, returning the final state.
+
+The port of the JAX package's ``kernels/ssd_scan.py`` (and of the
+``return_state`` / ``init_state`` options of ``models/ssd.py:ssd_scan_ref``,
+which the Pallas kernel lacks): x (b, S, H, P) in x.dtype, dt (b, S, H)
+fp32, A (H,) fp32, B and C (b, S, N) in x.dtype, shared by the H heads;
+returns y (b, S, H, P) in x.dtype and the final state (b, H, P, N) in fp32.
+
+The sequence is cut into chunks of ``chunk`` rows and a ragged last chunk
+is padded with rows of dt = 0 and x = 0, which leave the carried state
+untouched; the JAX package instead shrinks the chunk to a divisor of S
+(down to 1 for a prime S).  ``chunk`` is a blocking parameter: in exact
+arithmetic the result does not depend on it.  ``ssd_scan_plain`` is the
+plain PyTorch version in fp32 (the CPU path, and what the kernel is held
+against on the card); ``ssd_scan_cuda`` launches the hand-written kernel of
+``csrc/ssd_scan.cu``, which walks the sequence in sub-chunks of its own
+(64 rows) and takes P = 64, N = 128 only.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from . import _build
+from .streamed_matmul import DTYPE_CODES
+
+HEAD_DIM = 64    # P the kernel takes
+STATE_DIM = 128  # N the kernel takes
+
+
+def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                   B: torch.Tensor, C: torch.Tensor, *, chunk: int = 256,
+                   init_state: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    b, S, H, P = x.shape
+    N = B.shape[-1]
+    q = max(1, min(chunk, S))
+    nc = -(-S // q)
+    pad = nc * q - S
+    xdt = x.float() * dt.float()[..., None]            # fold dt into x
+    dtf, Bf, Cf = dt.float(), B.float(), C.float()
+    if pad:
+        xdt = F.pad(xdt, (0, 0, 0, 0, 0, pad))
+        dtf = F.pad(dtf, (0, 0, 0, pad))
+        Bf = F.pad(Bf, (0, 0, 0, pad))
+        Cf = F.pad(Cf, (0, 0, 0, pad))
+    xdt = xdt.reshape(b, nc, q, H, P)
+    dtf = dtf.reshape(b, nc, q, H)
+    Bf = Bf.reshape(b, nc, q, N)
+    Cf = Cf.reshape(b, nc, q, N)
+    state = (torch.zeros((b, H, P, N), dtype=torch.float32, device=x.device)
+             if init_state is None else init_state.float())
+    tril = torch.ones(q, q, dtype=torch.bool, device=x.device).tril()
+    ys = []
+    for c in range(nc):
+        xc, Bc, Cc = xdt[:, c], Bf[:, c], Cf[:, c]
+        cum = torch.cumsum(dtf[:, c] * A, dim=1)                  # (b,q,H)
+        seg = cum[:, :, None, :] - cum[:, None, :, :]             # (b,i,j,H)
+        L = torch.exp(torch.where(tril[None, :, :, None], seg,
+                                  torch.full_like(seg, float("-inf"))))
+        scores = torch.einsum("bin,bjn->bij", Cc, Bc)
+        y = torch.einsum("bijh,bjhp->bihp", scores[..., None] * L, xc)
+        y = y + torch.einsum("bin,bhpn->bihp", Cc, state) * \
+            torch.exp(cum)[..., None]
+        dec = torch.exp(cum[:, -1:, :] - cum)                     # (b,q,H)
+        state = state * torch.exp(cum[:, -1])[..., None, None] + \
+            torch.einsum("bjn,bjhp->bhpn", Bc, xc * dec[..., None])
+        ys.append(y)
+    y = torch.cat(ys, dim=1)[:, :S]
+    return y.to(x.dtype), state
+
+
+def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                  B: torch.Tensor, C: torch.Tensor, *, chunk: int = 256,
+                  init_state: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x, dt, A and init_state contiguous; B and C may be views with any
+    batch and sequence strides (the two halves of the conv output), read in
+    place.  ``chunk`` is not read: the kernel blocks by 64 rows."""
+    tensors = [x, dt, A, B, C] + ([init_state] if init_state is not None
+                                  else [])
+    if not (x.is_cuda and all(t.device == x.device for t in tensors)):
+        raise ValueError("ssd_scan: all inputs must be on one CUDA device")
+    if x.dtype not in DTYPE_CODES or B.dtype != x.dtype or \
+            C.dtype != x.dtype or dt.dtype != torch.float32 or \
+            A.dtype != torch.float32 or \
+            (init_state is not None and init_state.dtype != torch.float32):
+        raise TypeError(f"ssd_scan: dtypes x {x.dtype}, dt {dt.dtype}, "
+                        f"A {A.dtype}, B {B.dtype}, C {C.dtype}")
+    if x.dim() != 4:
+        raise ValueError(f"ssd_scan: x shape {tuple(x.shape)}")
+    b, S, H, P = x.shape
+    N = B.shape[-1]
+    if dt.shape != (b, S, H) or A.shape != (H,) or B.shape != (b, S, N) or \
+            C.shape != (b, S, N) or \
+            (init_state is not None and init_state.shape != (b, H, P, N)):
+        raise ValueError(f"ssd_scan: shapes x {tuple(x.shape)}, dt "
+                         f"{tuple(dt.shape)}, A {tuple(A.shape)}, B "
+                         f"{tuple(B.shape)}, C {tuple(C.shape)}")
+    if (P, N) != (HEAD_DIM, STATE_DIM):
+        raise ValueError(f"ssd_scan: (P, N) = {(P, N)}; the kernel takes "
+                         f"{(HEAD_DIM, STATE_DIM)}")
+    if not (x.is_contiguous() and dt.is_contiguous() and A.is_contiguous()
+            and (init_state is None or init_state.is_contiguous())):
+        raise ValueError("ssd_scan: x, dt, A and init_state must be "
+                         "contiguous")
+    if B.stride(2) != 1 or C.stride(2) != 1 or \
+            max(B.stride(0), B.stride(1), C.stride(0), C.stride(1)) >= 2 ** 31:
+        raise ValueError(f"ssd_scan: B strides {B.stride()}, C strides "
+                         f"{C.stride()}: the state dim must be contiguous")
+    y = torch.empty_like(x)
+    state = torch.empty((b, H, P, N), dtype=torch.float32, device=x.device)
+    lib = _build.load()
+    _build.check(lib.ssd_scan(
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
+        init_state.data_ptr() if init_state is not None else None,
+        y.data_ptr(), state.data_ptr(), b, S, H, P, N, B.stride(0),
+        B.stride(1), C.stride(0), C.stride(1), DTYPE_CODES[x.dtype],
+        torch.cuda.current_stream(x.device).cuda_stream), "ssd_scan")
+    return y, state

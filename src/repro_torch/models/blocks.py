@@ -1,9 +1,10 @@
-"""The dense transformer block with its SwiGLU MLP:
+"""The dense transformer block with its SwiGLU MLP, and the SSM block:
 
-    norm -> attn -> +res ; norm -> mlp -> +res
+    dense : norm -> attn -> +res ; norm -> mlp -> +res
+    ssm   : norm -> ssd  -> +res                          (mamba2: no FFN)
 
-Ported from the JAX package's ``models/blocks.py`` (``"dense"`` kind only;
-MoE, SSM, hybrid and encoder-decoder blocks are not ported yet).
+Ported from the JAX package's ``models/blocks.py`` (``"dense"`` and
+``"ssm"`` kinds; MoE, hybrid and encoder-decoder blocks are not ported yet).
 """
 from __future__ import annotations
 
@@ -14,12 +15,14 @@ import torch.nn.functional as F
 
 from .attention import _linear, attention_forward, attention_init, init_kv_cache
 from .common import Params, apply_norm, dense_init, norm_init
+from .ssd import init_ssd_cache, ssd_decode_step, ssd_forward, ssd_init
 
 
 def _check_kind(cfg, kind: str) -> None:
-    if kind != "dense" or cfg.mlp != "swiglu":
-        raise NotImplementedError(f"block kind {kind!r} with mlp {cfg.mlp!r} "
-                                  "is not ported yet")
+    if kind == "ssm" or (kind == "dense" and cfg.mlp == "swiglu"):
+        return
+    raise NotImplementedError(f"block kind {kind!r} with mlp {cfg.mlp!r} "
+                              "is not ported yet")
 
 
 def mlp_init(cfg, gen: torch.Generator, dtype, device) -> Params:
@@ -39,6 +42,9 @@ def mlp_forward(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
 def block_init(cfg, gen: torch.Generator, dtype, device,
                kind: str = "dense") -> Params:
     _check_kind(cfg, kind)
+    if kind == "ssm":
+        return {"ln1": norm_init(cfg, cfg.d_model, dtype, device),
+                "ssd": ssd_init(cfg, gen, dtype, device)}
     return {"ln1": norm_init(cfg, cfg.d_model, dtype, device),
             "attn": attention_init(cfg, gen, dtype, device),
             "ln2": norm_init(cfg, cfg.d_model, dtype, device),
@@ -49,10 +55,17 @@ def block_forward(cfg, p: Params, x: torch.Tensor, kind: str = "dense", *,
                   cache: Optional[Dict] = None,
                   cache_pos: Optional[int] = None
                   ) -> Tuple[torch.Tensor, Dict]:
-    """Returns (y, cache).  Prefill returns this layer's K/V (to seed the
-    decode cache); decode returns ``cache`` updated in place."""
+    """Returns (y, cache).  Prefill returns this layer's K/V, or its SSM
+    state and conv tails (to seed the decode cache); decode returns
+    ``cache`` updated in place."""
     _check_kind(cfg, kind)
     h = apply_norm(cfg, x, p["ln1"])
+    if kind == "ssm":
+        if cache is not None:
+            y, new_cache = ssd_decode_step(cfg, p["ssd"], h, cache)
+        else:
+            y, new_cache = ssd_forward(cfg, p["ssd"], h)
+        return x + y, new_cache
     if cache is not None:
         y, new_cache = attention_forward(cfg, p["attn"], h, cache=cache,
                                          cache_pos=cache_pos)
@@ -67,4 +80,6 @@ def block_forward(cfg, p: Params, x: torch.Tensor, kind: str = "dense", *,
 def init_block_cache(cfg, kind: str, batch: int, max_seq: int, dtype,
                      device) -> Dict:
     _check_kind(cfg, kind)
+    if kind == "ssm":
+        return init_ssd_cache(cfg, batch, dtype, device)
     return init_kv_cache(cfg, batch, max_seq, dtype, device)

@@ -1,7 +1,8 @@
 """The decoder-only language model: embed, the stacked layers, unembed,
 prefill and decode.
 
-Ported from the JAX package's ``models/lm.py`` for the ``dense`` family.
+Ported from the JAX package's ``models/lm.py`` for the ``dense`` and
+``ssm`` families.
 Parameters keep the JAX layout: ``stacks`` is a list with one tree per
 homogeneous stack, each leaf with a leading layer dim; PyTorch runs the
 stack as a loop over layer views instead of a scan.
@@ -22,6 +23,8 @@ def layer_plan(cfg) -> List[Tuple[Tuple[str, ...], int]]:
     """[(kinds-per-step, count), ...] — homogeneous stacks."""
     if cfg.family == "dense":
         return [(("dense",), cfg.n_layers)]
+    if cfg.family == "ssm":
+        return [(("ssm",), cfg.n_layers)]
     raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
 
 
@@ -56,8 +59,9 @@ def unembed(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
 
 def _run_stacks(cfg, p: Params, x: torch.Tensor, caches=None,
                 cache_pos=None) -> Tuple[torch.Tensor, List[Any]]:
-    """All layers in order.  Without caches, returns the prefill K/V stacked
-    per stack; with caches (updated in place), returns them."""
+    """All layers in order.  Without caches, returns the prefill caches (K/V,
+    or SSM state and conv tails) stacked per stack; with caches (updated in
+    place through the per-layer views), returns them."""
     out = []
     for si, (kinds, count) in enumerate(layer_plan(cfg)):
         sp = p["stacks"][si]
@@ -84,7 +88,8 @@ def forward(cfg, p: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
 
 
 def prefill(cfg, p: Params, batch: Dict[str, torch.Tensor]):
-    """Returns (last-position logits (B,1,V), caches with the prompt's K/V).
+    """Returns (last-position logits (B,1,V), caches with the prompt's K/V
+    or SSM states).
 
     Only the last position is unembedded: the JAX package unembeds every
     position and keeps the last, which gives the same logits at the cost

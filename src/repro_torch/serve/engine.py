@@ -3,7 +3,8 @@ whole batch one token per tick.
 
 Ported from the JAX package's ``serve/engine.py``.  As there, prompts are
 left-padded with token 0 and no padding mask is applied, so a shorter
-prompt also attends to the pad embeddings.
+prompt also attends to the pad embeddings, and in an SSM model the pad
+tokens also run through the recurrence.
 """
 from __future__ import annotations
 
@@ -36,15 +37,22 @@ def seed_decode_cache(bundle, prefill_caches, batch_size: int, max_seq: int,
                       device=None):
     """Copy the prefill K/V (length S) into fresh ``max_seq`` decode caches.
 
-    Caches are stacked (L, B, S, KV, hd): the sequence is axis 2.
+    K/V caches are stacked (L, B, S, KV, hd): the sequence is axis 2.  A
+    leaf whose shape the decode cache already has (the SSM state
+    (L, B, H, P, N) and conv tails (L, B, K-1, C)) is taken as it is, as
+    the JAX package does.
     """
     caches = bundle.init_cache(batch_size, max_seq, device)
 
     def seed(dst, src):
         if isinstance(dst, dict):
             return {k: seed(dst[k], src[k]) for k in dst}
-        n = min(src.shape[2], dst.shape[2])
-        dst[:, :, :n] = src[:, :, src.shape[2] - n:]
+        if src.shape == dst.shape:
+            return src
+        if dst.dim() >= 4 and src.dim() == dst.dim() and \
+                src.shape[2] != dst.shape[2]:
+            n = min(src.shape[2], dst.shape[2])
+            dst[:, :, :n] = src[:, :, src.shape[2] - n:]
         return dst
 
     return [seed(d, s) for d, s in zip(caches, prefill_caches)]
@@ -77,7 +85,7 @@ class ServeEngine:
         return req
 
     def _pad_batch(self, reqs: List[Request]):
-        if self.cfg.family != "dense":
+        if self.cfg.family not in ("dense", "ssm"):
             raise NotImplementedError(f"serving {self.cfg.family!r} models is "
                                       "not ported yet")
         B = self.ecfg.batch_size

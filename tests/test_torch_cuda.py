@@ -14,6 +14,7 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.kernels.decode_attention import decode_attention_plain
 from repro_torch.kernels.flash_attention import flash_attention_plain
+from repro_torch.kernels.ssd_scan import ssd_scan_plain
 from repro_torch.kernels.streamed_matmul import matmul_plain
 
 DTYPES = {"float32": (torch.float32, 2e-4), "bfloat16": (torch.bfloat16, 2e-2)}
@@ -26,6 +27,10 @@ FLASH_CASES = [(S, hd, causal) for S in (128, 256) for hd in (64, 128)
 DECODE_CASES = [(256, 100), (512, 512), (512, 1), (1024, 513)]
 # (query heads, KV heads): groups of 7 (qwen2) and of 4 (llama3_2_1b, qwen3_4b)
 HEADS = [(14, 2), (32, 8)]
+# ssd_scan: relative to max |plain|, the tolerances of tests/test_kernels.py;
+# S = 449 and 97 are prime (a ragged last sub-chunk), 64 heads is mamba2's
+SSD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+SSD_LENGTHS = [256, 512, 449, 97]
 
 
 @pytest.fixture
@@ -85,6 +90,45 @@ def test_cuda_decode_attention_matches_plain(card, S, length, hd, H, KV,
            decode_attention_plain(q, k, v, length), DTYPES[dtype][1])
 
 
+def _ssd_on(card, dtype, seed, b, S, H, with_init):
+    """x, dt, A, B, C (B and C halves of one (b, S, 2N) tensor, as the model
+    passes them) and an initial state or None, on the card."""
+    P, N = 64, 128
+    rng = np.random.default_rng(seed)
+    tdt = DTYPES[dtype][0]
+    x = torch.tensor(rng.standard_normal((b, S, H, P)).astype(np.float32)
+                     * 0.5).to(tdt).to(card)
+    dt = torch.tensor(np.log1p(np.exp(rng.standard_normal((b, S, H))))
+                      .astype(np.float32)).to(card)
+    A = torch.tensor(-np.exp(rng.standard_normal(H) * 0.3)
+                     .astype(np.float32)).to(card)
+    BC = torch.tensor(rng.standard_normal((b, S, 2 * N)).astype(np.float32)
+                      * 0.5).to(tdt).to(card)
+    init = (torch.tensor(rng.standard_normal((b, H, P, N)).astype(np.float32)
+                         ).to(card) if with_init else None)
+    return x, dt, A, BC[..., :N], BC[..., N:], init
+
+
+def _rel_err(got, want):
+    want = want.float()
+    return ((got.float() - want).abs().max() /
+            (want.abs().max() + 1e-6)).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_init", [False, True], ids=["zero", "init"])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("S", SSD_LENGTHS)
+@pytest.mark.parametrize("H", [4, 64])
+def test_cuda_ssd_scan_matches_plain(card, H, S, dtype, with_init):
+    x, dt, A, B, C, init = _ssd_on(card, dtype, 8, 2, S, H, with_init)
+    y, st = ops.ssd_scan(x, dt, A, B, C, chunk=256, init_state=init)
+    y_p, st_p = ssd_scan_plain(x, dt, A, B, C, chunk=256, init_state=init)
+    assert y.dtype == x.dtype and st.dtype == torch.float32
+    assert _rel_err(y, y_p) < SSD_TOL[dtype]
+    assert _rel_err(st, st_p) < SSD_TOL[dtype]
+
+
 @pytest.mark.cuda
 def test_cuda_launches_are_counted(card):
     ops.reset_launches()
@@ -94,9 +138,10 @@ def test_cuda_launches_are_counted(card):
                   (1, 70, 2, 64))
     ops.flash_attention(q, k, v)
     ops.decode_attention(q[:, 0].contiguous(), k, v, 70)
+    ops.ssd_scan(*_ssd_on(card, "bfloat16", 9, 1, 70, 4, False)[:5])
     torch.cuda.synchronize()
     assert ops.LAUNCHES == {"streamed_matmul": 1, "flash_attention": 1,
-                            "decode_attention": 1}
+                            "decode_attention": 1, "ssd_scan": 1}
 
 
 @pytest.mark.cuda
@@ -114,3 +159,8 @@ def test_cuda_rejects_what_the_kernels_do_not_take(card):
                   (1, 8, 2, 64))
     with pytest.raises(ValueError):
         ops.decode_attention(q, k, v, 9)  # length beyond the cache
+    x, dt, A, B, C, _ = _ssd_on(card, "bfloat16", 10, 1, 16, 4, False)
+    with pytest.raises(TypeError):
+        ops.ssd_scan(x, dt.bfloat16(), A, B, C)  # dt must be fp32
+    with pytest.raises(ValueError):
+        ops.ssd_scan(x[..., :8].contiguous(), dt, A, B, C)  # P = 8

@@ -16,6 +16,7 @@ from repro.configs import get_config as ref_get_config
 from repro.kernels import ops as ref_ops
 from repro.kernels import ref
 from repro.models import attention as ref_attention
+from repro.models.ssd import ssd_scan_ref
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.streamed_matmul import k_splits
@@ -29,6 +30,10 @@ MATMUL_SHAPES = [(64, 128, 64), (128, 384, 256), (100, 60, 40),
 FLASH_CASES = [(S, hd, causal) for S in (128, 256) for hd in (64, 128)
                for causal in (True, False)]
 DECODE_CASES = [(256, 100), (512, 512), (512, 1)]
+# (S, chunk) of tests/test_kernels.py, and a prime S where the JAX op
+# shrinks its chunk to 1 while the port masks a ragged last chunk
+SSD_CASES = [(64, 16), (128, 32), (96, 32), (61, 16)]
+SSD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}  # relative to max |ref|
 
 
 def _inputs(seed, dtype, *shapes):
@@ -127,6 +132,73 @@ def test_decode_gqa_matches_model_decode(S, pos):
     _close(ops.decode_attention(tq[:, 0], tk, tv, pos + 1), want[:, 0], 2e-4)
 
 
+def _ssd_inputs(seed, dtype, b, S, H, P, N):
+    """x, dt, A, B, C (and the same in torch) as tests/test_kernels.py draws
+    them: x, B, C in ``dtype``, dt = softplus(normal) and A in fp32."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, S, H, P)).astype(np.float32) * 0.5
+    dt = np.log1p(np.exp(rng.standard_normal((b, S, H)))).astype(np.float32)
+    A = -np.exp(rng.standard_normal(H) * 0.3).astype(np.float32)
+    B = rng.standard_normal((b, S, N)).astype(np.float32) * 0.5
+    C = rng.standard_normal((b, S, N)).astype(np.float32) * 0.5
+    jdt, tdt, _ = DTYPES[dtype]
+    typed = (True, False, False, True, True)
+    jx = [jnp.asarray(a, jdt if t else jnp.float32) for a, t in
+          zip((x, dt, A, B, C), typed)]
+    tx = [torch.tensor(a).to(tdt if t else torch.float32) for a, t in
+          zip((x, dt, A, B, C), typed)]
+    return jx, tx
+
+
+def _rel_err(got, want):
+    want = np.asarray(want, np.float32)
+    return float(np.abs(np.asarray(got, np.float32) - want).max()) / \
+        (float(np.abs(want).max()) + 1e-6)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("S,chunk", SSD_CASES)
+def test_ssd_scan_matches_reference(S, chunk, dtype):
+    b, H, P, N = (1, 2, 16, 32) if S == 61 else (2, 4, 16, 32)
+    jx, tx = _ssd_inputs(8, dtype, b, S, H, P, N)
+    y, state = ops.ssd_scan(*tx, chunk=chunk)
+    assert y.dtype == tx[0].dtype and y.shape == (b, S, H, P)
+    assert state.dtype == torch.float32 and state.shape == (b, H, P, N)
+    tol = SSD_TOL[dtype]
+    assert _rel_err(_np(y), ref_ops.ssd_scan(*jx, chunk=chunk)) < tol
+    assert _rel_err(_np(y), ref.ssd_scan_kernel_ref(*jx, chunk)) < tol
+
+
+@pytest.mark.parametrize("with_init", [False, True], ids=["zero", "init"])
+@pytest.mark.parametrize("S,chunk", [(64, 16), (61, 16)])
+def test_ssd_scan_state_matches_model_reference(S, chunk, with_init):
+    """The final state, from zero or a given initial state, against
+    ``models.ssd.ssd_scan_ref(..., return_state=True)`` (fp32)."""
+    b, H, P, N = 2, 4, 16, 32
+    jx, tx = _ssd_inputs(9, "float32", b, S, H, P, N)
+    init = (np.random.default_rng(10).standard_normal((b, H, P, N))
+            .astype(np.float32) if with_init else None)
+    x, dt, A, B, C = jx
+    y_ref, st_ref = ssd_scan_ref(
+        x, dt, A, B[:, :, None], C[:, :, None], chunk, return_state=True,
+        init_state=None if init is None else jnp.asarray(init))
+    y, st = ops.ssd_scan(*tx, chunk=chunk, init_state=None if init is None
+                         else torch.tensor(init))
+    assert _rel_err(_np(y), y_ref) < 1e-4
+    assert _rel_err(_np(st), st_ref) < 1e-4
+
+
+@pytest.mark.parametrize("S", [64, 61])
+def test_ssd_scan_chunk_invariance(S):
+    """Chunks of 16, 64 and a ragged 24 give the same y and state."""
+    jx, tx = _ssd_inputs(11, "float32", 1, S, 2, 8, 16)
+    y16, st16 = ops.ssd_scan(*tx, chunk=16)
+    for chunk in (64, 24):
+        y, st = ops.ssd_scan(*tx, chunk=chunk)
+        _close(_np(y), _np(y16), 1e-5)
+        _close(_np(st), _np(st16), 1e-5)
+
+
 def test_cpu_dispatch_launches_no_kernel():
     ops.reset_launches()
     (_, _), (tx, tw) = _inputs(5, "float32", (8, 16), (16, 8))
@@ -135,8 +207,10 @@ def test_cpu_dispatch_launches_no_kernel():
     (_, _), (tk, tv) = _inputs(7, "float32", (1, 8, 2, 64), (1, 8, 2, 64))
     ops.flash_attention(tq, tk, tv)
     ops.decode_attention(tq[:, 0].contiguous(), tk, tv, 5)
+    _, tx = _ssd_inputs(12, "float32", 1, 8, 2, 8, 16)
+    ops.ssd_scan(*tx, chunk=4)
     assert ops.LAUNCHES == {"streamed_matmul": 0, "flash_attention": 0,
-                            "decode_attention": 0}
+                            "decode_attention": 0, "ssd_scan": 0}
 
 
 @pytest.mark.parametrize("M,K,N,splits", [

@@ -16,16 +16,18 @@ from repro.configs.base import reduce_for_smoke as ref_reduce
 from repro.models import blocks as ref_blocks
 from repro.models import build as ref_build
 from repro.models import common as ref_common
+from repro.models import ssd as ref_ssd
 from repro.serve import seed_decode_cache as ref_seed_decode_cache
 
 from repro_torch import convert
 from repro_torch.configs import ALIASES, ARCH_IDS, get_config, reduce_for_smoke
-from repro_torch.models import blocks, build, common
+from repro_torch.models import blocks, build, common, ssd
 from repro_torch.serve import seed_decode_cache
 
 torch.set_num_threads(2)
 
 DENSE_ARCHS = ["llama3_2_1b", "qwen2_0_5b", "qwen3_4b", "qwen2_7b"]
+PORTED_ARCHS = DENSE_ARCHS + ["mamba2_1_3b"]
 
 
 def _fp32(cfg):
@@ -33,13 +35,33 @@ def _fp32(cfg):
                                compute_dtype="float32")
 
 
+# The JAX init sets A_log = dt_bias = 0 and D = 1 for every SSD head, which
+# would hide a head-indexing error: the pair gets per-head random values.
+SSD_HEAD_LEAVES = {"A_log": 0.5, "dt_bias": 0.5, "D": 1.0}
+
+
+def _randomize_ssd_heads(ref_params, seed):
+    rng = np.random.default_rng(seed + 100)
+
+    def leaf(path, v):
+        name = getattr(path[-1], "key", None)
+        if name not in SSD_HEAD_LEAVES:
+            return v
+        return jnp.asarray(rng.standard_normal(v.shape).astype(np.float32)
+                           * SSD_HEAD_LEAVES[name])
+
+    return jax.tree_util.tree_map_with_path(leaf, ref_params)
+
+
 def _pair(arch, seed=0):
     """(ref cfg, ref bundle, ref params, cfg, bundle, params): reduced, fp32,
-    the port's weights converted from the JAX init."""
+    the port's weights converted from the JAX init (SSD head leaves
+    randomized in both)."""
     ref_cfg = _fp32(ref_reduce(ref_get_config(arch)))
     cfg = _fp32(reduce_for_smoke(get_config(arch)))
     ref_bundle = ref_build(ref_cfg)
-    ref_params = ref_bundle.init(jax.random.PRNGKey(seed))
+    ref_params = _randomize_ssd_heads(
+        ref_bundle.init(jax.random.PRNGKey(seed)), seed)
     flat = {n: np.asarray(leaf) for n, leaf in _flatten(ref_params)}
     return (ref_cfg, ref_bundle, ref_params, cfg, build(cfg),
             convert.from_reference(flat, device="cpu"))
@@ -92,6 +114,31 @@ def test_convert_round_trips(dtype):
             np.testing.assert_array_equal(t.numpy(), arr)
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_convert_round_trips_ssm_tree(dtype):
+    """The mamba2 tree: A_log, D and dt_bias stay fp32 inside a bf16 tree."""
+    cfg = dataclasses.replace(ref_reduce(ref_get_config("mamba2_1_3b")),
+                              param_dtype=dtype)
+    params = ref_build(cfg).init(jax.random.PRNGKey(1))
+    flat = {n: np.asarray(leaf) for n, leaf in _flatten(params)}
+    back = convert.flatten(convert.from_reference(flat, device="cpu"))
+    assert set(back) == set(flat)
+    assert "stacks/0/b0/ssd/A_log" in back
+    for name, arr in flat.items():
+        t = back[name]
+        want = "float32" if name.split("/")[-1] in SSD_HEAD_LEAVES else dtype
+        assert t.shape == arr.shape and str(t.dtype) == f"torch.{want}"
+        if want == "bfloat16":
+            np.testing.assert_array_equal(t.view(torch.int16).numpy(),
+                                          arr.view(np.int16))
+        else:
+            np.testing.assert_array_equal(t.numpy(), arr)
+    ours = convert.flatten(build(reduce_for_smoke(dataclasses.replace(
+        get_config("mamba2_1_3b"), param_dtype=dtype))).init(0, device="cpu"))
+    assert {n: (tuple(t.shape), str(t.dtype)) for n, t in ours.items()} == \
+        {n: (tuple(t.shape), str(t.dtype)) for n, t in back.items()}
+
+
 # ---------------------------------------------------------------------------
 # layers
 # ---------------------------------------------------------------------------
@@ -134,11 +181,85 @@ def test_dense_block_matches_reference(arch):
     _close(kv["v"], kv_ref["v"], 1e-4)
 
 
+def _ssd_layer(seed=0):
+    """(ref cfg, JAX ssd params, cfg, port ssd params) of layer 0."""
+    ref_cfg, _, ref_params, cfg, _, params = _pair("mamba2_1_3b", seed)
+    ref_layer = jax.tree.map(lambda t: t[0], ref_params["stacks"][0]["b0"])
+    return (ref_cfg, ref_layer, cfg,
+            common.layer_slice(params["stacks"][0]["b0"], 0))
+
+
+def _ssd_cache(cfg, B, seed):
+    """A random decode cache as (numpy dict)."""
+    rng = np.random.default_rng(seed)
+    H, P, N, K = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state, \
+        cfg.ssm_conv_width
+    return {"state": rng.standard_normal((B, H, P, N)).astype(np.float32),
+            "conv_x": rng.standard_normal((B, K - 1, cfg.d_inner)
+                                          ).astype(np.float32),
+            "conv_BC": rng.standard_normal((B, K - 1, 2 * N)
+                                           ).astype(np.float32)}
+
+
+@pytest.mark.parametrize("S", [12, 19])
+@pytest.mark.parametrize("with_init", [False, True], ids=["zero", "init"])
+def test_ssd_forward_matches_reference(S, with_init):
+    """y and the decode cache (final state, conv tails) of one SSD layer;
+    S = 19 leaves a ragged last chunk (the reduced chunk is 8)."""
+    ref_cfg, ref_layer, cfg, layer = _ssd_layer()
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((2, S, cfg.d_model)).astype(np.float32)
+    init = _ssd_cache(cfg, 2, 7)["state"] if with_init else None
+    y_ref, c_ref = ref_ssd.ssd_forward(
+        ref_cfg, ref_layer["ssd"], jnp.asarray(x), return_state=True,
+        init_state=None if init is None else jnp.asarray(init))
+    y, c = ssd.ssd_forward(cfg, layer["ssd"], torch.tensor(x),
+                           init_state=None if init is None
+                           else torch.tensor(init))
+    _close(y, y_ref, 1e-4)
+    assert set(c) == set(c_ref)
+    for k in c:
+        assert c[k].shape == c_ref[k].shape
+        _close(c[k], c_ref[k], 1e-4)
+
+
+def test_ssd_decode_steps_match_reference():
+    """Two recurrent steps from a random cache: the port's step updates the
+    cache in place, JAX's returns a new one."""
+    ref_cfg, ref_layer, cfg, layer = _ssd_layer()
+    rng = np.random.default_rng(8)
+    cache_np = _ssd_cache(cfg, 2, 9)
+    ref_cache = {k: jnp.asarray(v) for k, v in cache_np.items()}
+    cache = {k: torch.tensor(v) for k, v in cache_np.items()}
+    for _ in range(2):
+        x = rng.standard_normal((2, 1, cfg.d_model)).astype(np.float32)
+        y_ref, ref_cache = ref_ssd.ssd_decode_step(ref_cfg, ref_layer["ssd"],
+                                                   jnp.asarray(x), ref_cache)
+        y, out = ssd.ssd_decode_step(cfg, layer["ssd"], torch.tensor(x),
+                                     cache)
+        assert out is cache
+        _close(y, y_ref, 1e-4)
+        for k in cache:
+            _close(cache[k], ref_cache[k], 1e-4)
+
+
+def test_ssm_block_matches_reference():
+    ref_cfg, ref_layer, cfg, layer = _ssd_layer()
+    x = np.random.default_rng(10).standard_normal(
+        (2, 12, cfg.d_model)).astype(np.float32)
+    y_ref, c_ref, _ = ref_blocks.block_forward(ref_cfg, ref_layer,
+                                               jnp.asarray(x), "ssm")
+    y, c = blocks.block_forward(cfg, layer, torch.tensor(x), "ssm")
+    _close(y, y_ref, 1e-4)
+    for k in c_ref:
+        _close(c[k], c_ref[k], 1e-4)
+
+
 # ---------------------------------------------------------------------------
 # the model
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", DENSE_ARCHS)
+@pytest.mark.parametrize("arch", PORTED_ARCHS)
 def test_forward_logits_match_reference(arch):
     _, ref_bundle, ref_params, cfg, bundle, params = _pair(arch)
     toks = np.random.default_rng(3).integers(0, cfg.vocab_size - 1, (2, 24))
@@ -148,7 +269,7 @@ def test_forward_logits_match_reference(arch):
     _close(out, ref, 2e-3)
 
 
-@pytest.mark.parametrize("arch", DENSE_ARCHS)
+@pytest.mark.parametrize("arch", PORTED_ARCHS)
 def test_prefill_decode_consistency(arch):
     """The port's copy of tests/test_archs_smoke.py's check: next-token
     logits from prefill -> decode match the full forward."""
@@ -188,6 +309,33 @@ def test_prefill_cache_and_decode_match_reference():
     _close(dec, ref_dec, 2e-3)
 
 
+def test_ssm_prefill_cache_and_decode_steps_match_reference():
+    """mamba2: the seeded decode cache and two greedy decode steps against
+    JAX.  A second step catches a stacked cache that does not advance."""
+    _, ref_bundle, ref_params, cfg, bundle, params = _pair("mamba2_1_3b")
+    B, S = 2, 11
+    toks = np.random.default_rng(11).integers(0, cfg.vocab_size - 1, (B, S))
+    ref_last, ref_caches = ref_bundle.prefill(ref_params,
+                                              {"tokens": jnp.asarray(toks)})
+    last, caches = bundle.prefill(params, {"tokens": torch.tensor(toks)})
+    _close(last, ref_last, 2e-3)
+    ref_caches = ref_seed_decode_cache(ref_bundle, ref_caches, B, S + 4)
+    caches = seed_decode_cache(bundle, caches, B, S + 4, device="cpu")
+    V = cfg.vocab_size
+    for step in range(2):
+        ref_flat = dict(_flatten(ref_caches))
+        flat = convert.flatten(caches)
+        assert set(flat) == set(ref_flat)
+        for name in flat:
+            _close(flat[name], ref_flat[name], 1e-4)
+        nxt = np.argmax(np.asarray(ref_last[:, :, :V]), -1)
+        ref_last, ref_caches = ref_bundle.decode(
+            ref_params, ref_caches, jnp.asarray(nxt), jnp.int32(S + step))
+        last, caches = bundle.decode(params, caches, torch.tensor(nxt),
+                                     S + step)
+        _close(last, ref_last, 2e-3)
+
+
 def test_unported_family_raises():
     with pytest.raises(NotImplementedError):
-        build(reduce_for_smoke(get_config("mamba2_1_3b")))
+        build(reduce_for_smoke(get_config("hymba_1_5b")))

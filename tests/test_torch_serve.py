@@ -23,6 +23,7 @@ from repro_torch.serve import EngineConfig, ServeEngine
 torch.set_num_threads(2)
 
 SERVE_MODELS = ["qwen2_0_5b", "llama3_2_1b", "qwen2_7b"]  # SERVE_PROFILES
+SERVED_ARCHS = SERVE_MODELS + ["mamba2_1_3b"]  # and the SSD path
 
 
 def _fp32(cfg):
@@ -32,7 +33,7 @@ def _fp32(cfg):
 
 @pytest.mark.parametrize("lengths", [(8, 8), (5, 8)],
                          ids=["equal", "unequal"])
-@pytest.mark.parametrize("arch", SERVE_MODELS)
+@pytest.mark.parametrize("arch", SERVED_ARCHS)
 def test_greedy_tokens_match_reference(arch, lengths):
     ref_cfg = _fp32(ref_reduce(ref_get_config(arch)))
     cfg = _fp32(reduce_for_smoke(get_config(arch)))
@@ -80,3 +81,11 @@ def test_launcher_runs_on_cpu(capsys):
                               "--new-tokens", "3", "--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert out.count("req ") == 2 and "'decode_steps': 2" in out
+
+
+def test_launcher_serves_ssm_on_cpu(capsys):
+    assert launch_serve.main(["--arch", "mamba2_1_3b", "--reduced",
+                              "--requests", "2", "--prompt-len", "9",
+                              "--new-tokens", "4", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert out.count("req ") == 2 and "'decode_steps': 3" in out

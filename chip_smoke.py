@@ -7,10 +7,15 @@ Phases, each printing one JSON line (a failing phase raises and the script
 exits non-zero):
 
 1. device   -- the card (nvidia-smi name and power limit), TF32 off;
-2. build    -- nvcc builds the hand-written kernels of src/repro_torch;
+2. build    -- nvcc builds the hand-written kernels of src/repro_torch; the
+               SASS instruction counts of each kernel (cuobjdump), which
+               must show wgmma (HGMMA) and TMA loads (UTMALDG) in the
+               prefill matmul and the bf16 flash attention kernels;
 3. kernels  -- each kernel against its plain PyTorch version on the card
                at the shapes of the serving paths of qwen2_0_5b and
-               mamba2_1_3b, fp32 and bf16 (matmul and attention: 2e-4 and
+               mamba2_1_3b, with a served prefill's ragged length (8 x 455
+               rows for the matmul, S 455 for flash attention), fp32 and
+               bf16 (matmul and attention: 2e-4 and
                2e-2 of 1 + |plain|; ssd_scan: 1e-4 and 5e-2 of max |plain|),
                with CUDA-event times of the kernel, the plain version and,
                where one exists, one PyTorch library call, and the least
@@ -21,9 +26,11 @@ exits non-zero):
 5. serve    -- per model, full width and depth in bf16 through ServeEngine
                (qwen2_0_5b: matmul, flash and decode attention; mamba2_1_3b:
                matmul and ssd_scan), with every kernel's launch count over
-               that run (counts set to 0 just before it), a profile of one
-               prefill and four decode steps, and a check that a decode
-               step never makes the host wait on the card.
+               that run (counts set to 0 just before it), a check that
+               every matmul of 64 rows or more (the prefills') took the
+               wgmma kernel, a profile of one prefill and four decode
+               steps, and a check that a decode step never makes the host
+               wait on the card.
 
 Then a summary line of the kernels, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -34,6 +41,9 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -145,9 +155,52 @@ def phase_build():
     t0 = time.perf_counter()
     so = _build.build()
     _build.load()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+    seconds = time.perf_counter() - t0
+    sass = sass_counts(so)
+    emit({"phase": "build", "seconds": seconds,
           "library": str(so.relative_to(ROOT)),
-          "ptxas_log": str(so.relative_to(ROOT)) + ".log"})
+          "ptxas_log": str(so.relative_to(ROOT)) + ".log", "sass": sass})
+    for kernel in ("matmul_wgmma_kernel", "flash_wgmma_kernel"):
+        mine = [c for name, c in sass.items() if kernel in name]
+        if not mine or not all(c["HGMMA"] and c["UTMALDG"] for c in mine):
+            raise AssertionError(f"{kernel}: no wgmma or TMA load in its SASS")
+
+
+SASS_OPS = ("HGMMA", "UTMALDG", "HMMA", "LDGSTS")
+
+
+def sass_counts(so):
+    """Per kernel of the built library, how many of its SASS instructions
+    are wgmma (HGMMA), TMA loads (UTMALDG), mma.sync (HMMA) and cp.async
+    (LDGSTS), from ``cuobjdump -sass``."""
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    tool = shutil.which("cuobjdump") or os.path.join(cuda_home, "bin",
+                                                     "cuobjdump")
+    dump = subprocess.run([tool, "-sass", str(so)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, name = {}, None
+    for line in dump.splitlines():
+        head = re.match(r"\s*Function : (\S+)", line)
+        if head:
+            name = head.group(1)
+            counts[name] = dict.fromkeys(SASS_OPS, 0)
+        elif name:
+            op = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)",
+                          line)
+            if op and op.group(1) in counts[name]:
+                counts[name][op.group(1)] += 1
+    return {_kernel_name(k): v for k, v in counts.items()}
+
+
+def _kernel_name(mangled):
+    """``matmul_wgmma_kernel<true>``-style names from mangled ones."""
+    filt = shutil.which("c++filt")
+    if filt:
+        name = subprocess.run([filt, mangled], capture_output=True, text=True,
+                              timeout=60).stdout.strip()
+        name = name.replace("(anonymous namespace)::", "")
+        return re.sub(r"^void |\(.*\)$", "", name)
+    return mangled
 
 
 def phase_kernels(torch, dev):
@@ -233,8 +286,10 @@ def phase_kernels(torch, dev):
     tied = {152064, 50432}
     for dtype in (torch.float32, torch.bfloat16):
         es = torch.tensor([], dtype=dtype).element_size()
-        for M in (8, 4096):
+        for M in (8, 4096, 8 * 455):  # decode, prefill, a ragged prefill
             for K, N in pairs:
+                if M == 8 * 455 and N in tied:  # prefill unembeds 8 rows
+                    continue
                 x = randn(M, K, dtype=dtype)
                 if N in tied:  # the tied unembedding: embed.t(), in place
                     w = randn(N, K, dtype=dtype, scale=K ** -0.5).t()
@@ -251,21 +306,24 @@ def phase_kernels(torch, dev):
         return lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=causal, enable_gqa=True)
 
-    # flash_attention: prefill at B=8, S=512, qwen2_0_5b's heads
-    B, S, H, KV, hd = 8, 512, 14, 2, 64
+    # flash_attention: prefill at B=8, S=512, qwen2_0_5b's heads, and at a
+    # served prefill's ragged S 455
+    B, H, KV, hd = 8, 14, 2, 64
     for dtype in (torch.float32, torch.bfloat16):
         es = torch.tensor([], dtype=dtype).element_size()
-        q = randn(B, S, H, hd, dtype=dtype)
-        k, v = randn(B, S, KV, hd, dtype=dtype), randn(B, S, KV, hd, dtype=dtype)
-        fns = (lambda: ops.flash_attention(q, k, v, causal=True),
-               lambda: flash_attention_plain(q, k, v, causal=True),
-               sdpa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                    True))
-        check("flash_attention", [B, S, H, KV, hd], dtype,
-              ops.flash_attention(q, k, v, causal=True),
-              flash_attention_plain(q, k, v, causal=True),
-              es * (2 * B * S * H * hd + 2 * B * S * KV * hd),
-              4 * hd * B * H * S * (S + 1) // 2, fns)
+        for S in (512, 455):
+            q = randn(B, S, H, hd, dtype=dtype)
+            k = randn(B, S, KV, hd, dtype=dtype)
+            v = randn(B, S, KV, hd, dtype=dtype)
+            fns = (lambda: ops.flash_attention(q, k, v, causal=True),
+                   lambda: flash_attention_plain(q, k, v, causal=True),
+                   sdpa(q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), True))
+            check("flash_attention", [B, S, H, KV, hd], dtype,
+                  ops.flash_attention(q, k, v, causal=True),
+                  flash_attention_plain(q, k, v, causal=True),
+                  es * (2 * B * S * H * hd + 2 * B * S * KV * hd),
+                  4 * hd * B * H * S * (S + 1) // 2, fns)
 
     # decode_attention: one token against a 1k cache, three lengths
     B, S = 8, 1024
@@ -380,6 +438,7 @@ def phase_serve(torch, dev, model):
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
+    from repro_torch.kernels.streamed_matmul import ROUTE_LAUNCHES
     from repro_torch.models import build
     from repro_torch.serve import EngineConfig, ServeEngine
 
@@ -387,6 +446,11 @@ def phase_serve(torch, dev, model):
     bundle = build(cfg)
     params = bundle.init(SEED, device="cuda")
     finite = []
+    tall = [0]  # matmuls of 64 rows or more in the served run
+
+    def counted_matmul(x, w, _matmul=ops.matmul):
+        tall[0] += x.shape[0] >= 64
+        return _matmul(x, w)
 
     def prefill(p, batch):
         logits, caches = bundle.prefill(p, batch)
@@ -416,8 +480,12 @@ def phase_serve(torch, dev, model):
         eng.submit(pr, max_new_tokens=32)
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
-    reqs = eng.run()
-    launches = dict(ops.LAUNCHES)
+    plain_matmul, ops.matmul = ops.matmul, counted_matmul
+    try:
+        reqs = eng.run()
+    finally:
+        ops.matmul = plain_matmul
+    launches, routes = dict(ops.LAUNCHES), dict(ROUTE_LAUNCHES)
 
     breakdown = profile_steps(torch, bundle, params, prompts, ecfg)
 
@@ -434,6 +502,7 @@ def phase_serve(torch, dev, model):
           "decode_step_ms": 1e3 * st["decode_s"] / st["decode_steps"],
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
           "launches": launches, "expected_launches": expect,
+          "matmul_routes": routes, "matmuls_of_64_rows_or_more": tall[0],
           "logits_finite": all_finite,
           "first_tokens": reqs[0].out_tokens[:8], "profile": breakdown})
     if any(len(r.out_tokens) != 32 for r in reqs):
@@ -445,6 +514,9 @@ def phase_serve(torch, dev, model):
     if launches != expect or not all(launches[k] for k, n in expect.items()
                                      if n):
         raise AssertionError(f"launch counts {launches} != {expect}")
+    if not tall[0] or routes["wgmma"] != tall[0] or routes["fp32"]:
+        raise AssertionError(f"{tall[0]} matmuls of 64 rows or more, routes "
+                             f"{routes}: not all on the wgmma kernel")
     return launches
 
 

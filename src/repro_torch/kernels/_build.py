@@ -29,6 +29,7 @@ _F = ctypes.c_float
 # C entry points of csrc/*.cu: name -> argument types (all return int)
 SIGNATURES = {
     "streamed_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "streamed_matmul_wgmma": [_P, _P, _P, _I, _I, _I, _I, _P],
     "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     "decode_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                          _I, _F, _I, _P],

@@ -10,21 +10,32 @@
 //
 // What bounds it on an H100: at prefill lengths (S = 512, hd = 64) each
 // (q, kv) pair costs 4*hd operations on 4*hd bytes of tile traffic that stays
-// in shared memory, so it is bound by operations, on the CUDA cores here.
+// in shared memory, so it is bound by tensor-core operations, and only wgmma
+// reaches their full rate.
 //
-// What the design does about it: one block per (q tile of 64 rows, q head,
-// batch row) keeps the online-softmax state (m, l, acc) in fp32 registers and
-// walks K/V in 32-key tiles staged in shared memory, so q, k and v are each
-// read from device memory once per block and the (S, S) score matrix is never
-// written.  Causal blocks stop the kv loop at the diagonal instead of masking
-// the tiles above it.  Two threads share one query row and split head_dim
-// into interleaved float2 pairs, so a warp's shared-memory reads are
-// broadcasts.  Products run on the CUDA cores in fp32; tensor cores (wgmma)
-// are later work.
+// What the design does about it (bf16, flash_wgmma_kernel, close to
+// FlashAttention-3's forward without fp8): one block per (q tile of 128
+// rows, q head, batch row), the longest causal tiles launched first.  A
+// producer warp loads the q tile once by TMA and streams 64-key K and V
+// tiles through a ring of F_STAGES shared-memory stages (4D tensor maps
+// over the tensors in place, 128-byte swizzle, a full and an empty mbarrier
+// per stage).  Two consumer warpgroups own 64 query rows each: S = Q K^T by
+// wgmma m64n64k16 with both operands K-major in shared memory; the online
+// softmax runs in fp32 on the accumulator fragments (a row's max and sum
+// across the four threads that hold it by two shuffles, exp2 with
+// log2(e)/sqrt(hd) folded into the scale); P is rounded to bf16 in registers
+// and fed back as wgmma's register A operand against V, an MN-major B
+// operand in shared memory.  Causal blocks stop the key loop at the
+// diagonal, and a warpgroup skips the tiles above its own; only the diagonal
+// tile and the tile holding key S-1 are masked (TMA zero-fills keys beyond
+// S, which would score 0, not -inf).  Query rows beyond S are not stored.
+// fp32 (flash_kernel) stays on the CUDA cores: two threads share one query
+// row and walk K/V in 32-key tiles; it exists for parity runs.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -131,18 +142,226 @@ void launch(const void* q, const void* k, const void* v, void* out, int B, int S
       static_cast<T*>(out), S, H, KV, scale, causal);
 }
 
+// ------------------------------------------------------- bf16 path, wgmma
+constexpr int F_BQ = 128, F_BKV = 64, F_STAGES = 2, F_CONSUMERS = 2;
+constexpr int F_THREADS = F_CONSUMERS * 128 + 32;  // and one producer warp
+
+template <int HD>
+struct FlashTiles {
+  static constexpr int ATOMS = HD / 64;           // 64-wide column blocks of hd
+  static constexpr int Q_ATOM = F_BQ * 128;       // bytes of one block of the q tile
+  static constexpr int KV_ATOM = F_BKV * 128;
+  static constexpr int Q_BYTES = ATOMS * Q_ATOM;
+  static constexpr int KV_BYTES = ATOMS * KV_ATOM;
+  static constexpr int STAGE = 2 * KV_BYTES;      // K then V
+  static constexpr int SMEM = Q_BYTES + F_STAGES * STAGE + (1 + 2 * F_STAGES) * 8 + 1024;
+};
+
+template <int HD>
+__global__ void __launch_bounds__(F_THREADS, HD == 64 ? 2 : 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                   const __grid_constant__ CUtensorMap kmap,
+                   const __grid_constant__ CUtensorMap vmap,
+                   __nv_bfloat16* __restrict__ out, int S, int H, int KV,
+                   float scale_log2, int causal) {
+  using namespace hopper;
+  using T = FlashTiles<HD>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* qs = smem;
+  unsigned char* kvs = smem + T::Q_BYTES;  // stage s: K at s * STAGE, V after it
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(kvs + F_STAGES * T::STAGE);
+  uint64_t* full = qbar + 1;
+  uint64_t* empty = full + F_STAGES;
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * F_BQ;  // longest causal tiles first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (H / KV);
+  const int kv_end = causal ? min(S, q0 + F_BQ) : S;
+  const int ntiles = (kv_end + F_BKV - 1) / F_BKV;
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < F_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], F_CONSUMERS * 4);  // one arrival per consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wgi = threadIdx.x / 128;
+  if (wgi == F_CONSUMERS) {  // producer warp: one thread issues every load
+    if (threadIdx.x == F_CONSUMERS * 128) {
+      tma_prefetch_map(&qmap);
+      tma_prefetch_map(&kmap);
+      tma_prefetch_map(&vmap);
+      mbar_arrive_expect_tx(qbar, T::Q_BYTES);
+#pragma unroll
+      for (int a = 0; a < T::ATOMS; ++a)
+        tma_load_4d(qs + a * T::Q_ATOM, &qmap, qbar, 64 * a, h, q0, b);
+      for (int t = 0; t < ntiles; ++t) {
+        const int s = t % F_STAGES;
+        if (t >= F_STAGES) mbar_wait(&empty[s], ((t / F_STAGES) + 1) & 1);
+        unsigned char* ks = kvs + s * T::STAGE;
+        mbar_arrive_expect_tx(&full[s], T::STAGE);
+#pragma unroll
+        for (int a = 0; a < T::ATOMS; ++a) {
+          tma_load_4d(ks + a * T::KV_ATOM, &kmap, &full[s], 64 * a, kvh, t * F_BKV, b);
+          tma_load_4d(ks + T::KV_BYTES + a * T::KV_ATOM, &vmap, &full[s], 64 * a, kvh,
+                      t * F_BKV, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wgi: query rows r0 .. r0 + 63
+  const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
+  const int r0 = q0 + wgi * 64;
+  const int my_tiles = ((causal ? min(S, r0 + 64) : S) + F_BKV - 1) / F_BKV;
+  const int row_a = r0 + warp * 16 + lane / 4;  // this thread's rows: row_a, row_a + 8
+  const unsigned char* qw = qs + wgi * 64 * 128;
+
+  float o[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  mbar_wait(qbar, 0);
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int s = t % F_STAGES;
+    mbar_wait(&full[s], (t / F_STAGES) & 1);
+    if (t < my_tiles) {
+      const unsigned char* ks = kvs + s * T::STAGE;
+      const unsigned char* vs = ks + T::KV_BYTES;
+      float sc[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+      fence_regs(sc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const uint64_t da = make_desc(qw + (kk / 4) * T::Q_ATOM + (kk % 4) * 32, 16, 1024);
+        const uint64_t db = make_desc(ks + (kk / 4) * T::KV_ATOM + (kk % 4) * 32, 16, 1024);
+        wgmma_ss_n64<0>(sc, da, db, kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+
+      const int k0 = t * F_BKV;
+      const bool edge = (causal && k0 + F_BKV > r0) || k0 + F_BKV > S;
+      float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float v = sc[4 * j + 2 * hh + e] * scale_log2;
+            if (edge) {
+              const int key = k0 + 8 * j + 2 * (lane % 4) + e;
+              if (key >= S || (causal && key > row_a + 8 * hh)) v = NEG_INF;
+            }
+            sc[4 * j + 2 * hh + e] = v;
+            mx[hh] = fmaxf(mx[hh], v);
+          }
+      float corr[2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+        mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+        const float mn = fmaxf(m[hh], mx[hh]);
+        corr[hh] = exp2f(m[hh] - mn);
+        m[hh] = mn;
+        l[hh] *= corr[hh];
+      }
+      uint32_t pa[16];  // P as wgmma's A fragments, four k16 steps of keys
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const float p0 = exp2f(sc[4 * j + 2 * hh] - m[hh]);
+          const float p1 = exp2f(sc[4 * j + 2 * hh + 1] - m[hh]);
+          l[hh] += p0 + p1;
+          pa[4 * (j / 2) + 2 * (j % 2) + hh] = pack_bf16(p0, p1);
+        }
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) o[4 * j + i] *= corr[i / 2];
+      fence_regs(o);
+      wgmma_fence();
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const uint32_t a4[4] = {pa[4 * c], pa[4 * c + 1], pa[4 * c + 2], pa[4 * c + 3]};
+        const uint64_t db = make_desc(vs + c * 2048, T::KV_ATOM, 1024);
+        if constexpr (HD == 64) wgmma_rs_n64<1>(o, a4, db, 1);
+        else wgmma_rs_n128<1>(o, a4, db, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+  }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = row_a + 8 * hh;
+    if (row >= S) continue;
+    const float inv = 1.f / fmaxf(l[hh], 1e-30f);
+    __nv_bfloat16* orow = out + (((size_t)b * S + row) * H + h) * HD;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * (lane % 4)) =
+          __floats2bfloat162_rn(o[4 * j + 2 * hh] * inv, o[4 * j + 2 * hh + 1] * inv);
+  }
+}
+
+template <int HD>
+int launch_wgmma(const void* q, const void* k, const void* v, void* out, int B, int S, int H,
+                 int KV, int causal, float scale, cudaStream_t stream) {
+  using T = FlashTiles<HD>;
+  CUtensorMap qmap, kmap, vmap;
+  const uint64_t qdims[4] = {HD, (uint64_t)H, (uint64_t)S, (uint64_t)B};
+  const uint64_t qstr[3] = {HD * 2, (uint64_t)H * HD * 2, (uint64_t)S * H * HD * 2};
+  const uint32_t qbox[4] = {64, 1, F_BQ, 1};
+  const uint64_t kdims[4] = {HD, (uint64_t)KV, (uint64_t)S, (uint64_t)B};
+  const uint64_t kstr[3] = {HD * 2, (uint64_t)KV * HD * 2, (uint64_t)S * KV * HD * 2};
+  const uint32_t kbox[4] = {64, 1, F_BKV, 1};
+  if (!hopper::make_map_bf16(&qmap, q, 4, qdims, qstr, qbox) ||
+      !hopper::make_map_bf16(&kmap, k, 4, kdims, kstr, kbox) ||
+      !hopper::make_map_bf16(&vmap, v, 4, kdims, kstr, kbox))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = hopper::allow_smem(flash_wgmma_kernel<HD>, T::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((S + F_BQ - 1) / F_BQ, H, B);
+  flash_wgmma_kernel<HD><<<grid, F_THREADS, T::SMEM, stream>>>(
+      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(out), S, H, KV,
+      scale * 1.4426950408889634f, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// dtype: 0 = fp32, 1 = bf16; hd: 64 or 128.  Returns the cudaError_t of the
-// launch.
+// dtype: 0 = fp32, 1 = bf16; hd: 64 or 128.  bf16 tensors must be 16-byte
+// aligned (TMA).  Returns the cudaError_t of the launch, or
+// cudaErrorInvalidValue for what the kernels do not take.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* out, int B, int S, int H, int KV, int hd,
                                int causal, float scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1 && hd == 64) return launch_wgmma<64>(q, k, v, out, B, S, H, KV, causal, scale, s);
+  if (dtype == 1 && hd == 128) return launch_wgmma<128>(q, k, v, out, B, S, H, KV, causal, scale, s);
   if (dtype == 0 && hd == 64) launch<float, 64>(q, k, v, out, B, S, H, KV, causal, scale, s);
   else if (dtype == 0 && hd == 128) launch<float, 128>(q, k, v, out, B, S, H, KV, causal, scale, s);
-  else if (dtype == 1 && hd == 64) launch<__nv_bfloat16, 64>(q, k, v, out, B, S, H, KV, causal, scale, s);
-  else if (dtype == 1 && hd == 128) launch<__nv_bfloat16, 128>(q, k, v, out, B, S, H, KV, causal, scale, s);
   else return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,20 +8,28 @@
 // whole weight matrix from device memory once and does 2*M operations per
 // weight element, far below the ~295 operations per byte where the tensor
 // cores become the limit, so it is bound by bytes.  At prefill (M = B*S, in
-// the thousands) it is bound by tensor-core operations.
+// the thousands) it is bound by tensor-core operations, and only wgmma
+// reaches the tensor cores' full rate.
 //
-// What the design does about it: one block per 64x64 output tile walks K in
-// 32-wide steps through shared memory; bf16 tiles go through the tensor cores
-// (mma.sync via nvcuda::wmma) into fp32 accumulators, with 16-byte loads where
-// the shapes and pointers allow.  The weight may be given transposed (w_t=1:
-// w is the transpose of a contiguous (N,K) array), so the tied unembedding
-// reads the (vocab, d) embedding table in place instead of copying it.  Ragged
-// edges are masked, so any M, N, K is taken.  When the output tiles alone
-// would leave most SMs idle (decode: M = 8 and N = 896 is 14 tiles), the
-// caller splits K over blockIdx.z: each split writes an fp32 partial tile to
-// a workspace and a second pass sums them.  fp32 runs on the CUDA cores
-// (plain FMA tiles): it exists for parity runs, not for speed.  No TMA,
-// wgmma or multi-stage pipeline yet.
+// What the design does about it.  Prefill (bf16, M >= 64, 16-byte strides:
+// matmul_wgmma_kernel): one block per 128x128 output tile; a producer warp
+// keeps a ring of STAGES shared-memory stages filled by TMA (x and w tiles
+// 64 deep in k, 128-byte swizzled), with a full and an empty mbarrier per
+// stage, and two consumer warpgroups each run wgmma m64n128k16 over a 64-row
+// strip into fp32 registers, keeping one k step's wgmmas in flight while the
+// next is issued.  w is read in either layout: row-major (K, N) is an
+// MN-major B operand (transpose bit set), the transposed view of an (N, K)
+// array (the tied unembedding) a K-major one.  TMA zero-fills the ragged
+// edges of M, N and K; the epilogue rounds to bf16 and masks M and N.
+// Decode (M < 64: matmul_bf16_kernel): one block per 64x64 output tile walks
+// K in 32-wide steps through shared memory with wmma (mma.sync) into fp32
+// accumulators; when the output tiles alone would leave most SMs idle
+// (M = 8 and N = 896 is 14 tiles), the caller splits K over blockIdx.z: each
+// split writes an fp32 partial tile to a workspace and a second pass sums
+// them.  The weight may be given transposed (w_t=1: w is the transpose of a
+// contiguous (N,K) array), so the tied unembedding reads the (vocab, d)
+// embedding table in place instead of copying it.  fp32 runs on the CUDA
+// cores (plain FMA tiles): it exists for parity runs, not for speed.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -30,6 +38,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 using namespace nvcuda;
 
@@ -178,6 +187,108 @@ matmul_bf16_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
+// ------------------------------------------------------- bf16 path, wgmma
+constexpr int G_BM = 128, G_BN = 128, G_BK = 64;  // BK: one 128-byte swizzle row
+constexpr int G_STAGES = 4;
+constexpr int G_CONSUMERS = 2;                 // warpgroups, 64 rows each
+constexpr int G_THREADS = G_CONSUMERS * 128 + 32;  // and one producer warp
+constexpr int G_A_BYTES = G_BM * G_BK * 2;         // 128 rows of 128 B
+constexpr int G_B_BYTES = G_BN * G_BK * 2;
+constexpr int G_STAGE_BYTES = G_A_BYTES + G_B_BYTES;
+constexpr int G_SMEM_BYTES = G_STAGES * G_STAGE_BYTES + 2 * G_STAGES * 8 + 1024;  // + alignment
+
+template <bool WT>
+__global__ void __launch_bounds__(G_THREADS)
+matmul_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                    const __grid_constant__ CUtensorMap wmap,
+                    __nv_bfloat16* __restrict__ out, int M, int N, int K) {
+  using namespace hopper;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + G_STAGES * G_STAGE_BYTES);
+  uint64_t* empty = full + G_STAGES;
+
+  const int n0 = blockIdx.x * G_BN, m0 = blockIdx.y * G_BM;
+  const int ksteps = (K + G_BK - 1) / G_BK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < G_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], G_CONSUMERS * 4);  // one arrival per consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wgi = threadIdx.x / 128;
+  if (wgi == G_CONSUMERS) {  // producer warp: one thread issues every load
+    if (threadIdx.x == G_CONSUMERS * 128) {
+      tma_prefetch_map(&xmap);
+      tma_prefetch_map(&wmap);
+      for (int i = 0; i < ksteps; ++i) {
+        const int s = i % G_STAGES;
+        if (i >= G_STAGES) mbar_wait(&empty[s], ((i / G_STAGES) + 1) & 1);
+        unsigned char* a = smem + s * G_STAGE_BYTES;
+        unsigned char* b = a + G_A_BYTES;
+        mbar_arrive_expect_tx(&full[s], G_STAGE_BYTES);
+        tma_load_2d(a, &xmap, &full[s], i * G_BK, m0);
+        if (WT) {  // (N, K) rows, k contiguous: one 128 x 64 box
+          tma_load_2d(b, &wmap, &full[s], i * G_BK, n0);
+        } else {   // (K, N) rows, n contiguous: two 64 (k) x 64 (n) boxes
+          tma_load_2d(b, &wmap, &full[s], n0, i * G_BK);
+          tma_load_2d(b + G_B_BYTES / 2, &wmap, &full[s], n0 + 64, i * G_BK);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wgi: rows m0 + 64 wgi .. + 63 of the tile
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
+  for (int i = 0; i < ksteps; ++i) {
+    const int s = i % G_STAGES;
+    mbar_wait(&full[s], (i / G_STAGES) & 1);
+    const unsigned char* a = smem + s * G_STAGE_BYTES + wgi * (G_A_BYTES / G_CONSUMERS);
+    const unsigned char* b = smem + s * G_STAGE_BYTES + G_A_BYTES;
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < G_BK / 16; ++kk) {
+      const uint64_t da = make_desc(a + kk * 32, 16, 1024);
+      const uint64_t db = WT ? make_desc(b + kk * 32, 16, 1024)
+                             : make_desc(b + kk * 2048, G_B_BYTES / 2, 1024);
+      wgmma_ss_n128<WT ? 0 : 1>(acc, da, db, i > 0 || kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous step's wgmmas are done: free its stage
+    fence_regs(acc);
+    if (i > 0 && lane == 0) mbar_arrive(&empty[(i - 1) % G_STAGES]);
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  const int row0 = m0 + wgi * 64 + warp * 16 + lane / 4;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int col = n0 + 8 * j + 2 * (lane % 4);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 8 * h;
+      if (row >= M || col >= N) continue;
+      __nv_bfloat16* o = out + (size_t)row * N + col;
+      if (col + 1 < N && (N % 2) == 0) {
+        *reinterpret_cast<__nv_bfloat162*>(o) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      } else {
+        o[0] = __float2bfloat16(acc[4 * j + 2 * h]);
+        if (col + 1 < N) o[1] = __float2bfloat16(acc[4 * j + 2 * h + 1]);
+      }
+    }
+  }
+}
+
 // ---------------------------------------------------------------- fp32 path
 constexpr int FBM = 64, FBN = 64, FBK = 16, FTHREADS = 256;
 
@@ -291,5 +402,43 @@ extern "C" int streamed_matmul(const void* x, const void* w, void* out, void* ws
     splitk_reduce_kernel<__nv_bfloat16><<<blocks, 256, 0, s>>>(wsf, static_cast<__nv_bfloat16*>(out), MN, splits);
   else
     splitk_reduce_kernel<float><<<blocks, 256, 0, s>>>(wsf, static_cast<float*>(out), MN, splits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The prefill path: bf16 x (M, K) row-major, w as streamed_matmul's w_t.
+// The caller routes here only when M >= 64, K % 8 == 0, N % 8 == 0 for
+// w_t = 0 and x and w are 16-byte aligned (TMA's stride and address rules).
+// Returns the cudaError_t of the launch, or cudaErrorInvalidValue if a
+// tensor map is refused.
+extern "C" int streamed_matmul_wgmma(const void* x, const void* w, void* out, int M, int N,
+                                     int K, int w_t, void* stream) {
+  CUtensorMap xmap, wmap;
+  const uint64_t xdims[2] = {(uint64_t)K, (uint64_t)M}, xstr[1] = {(uint64_t)K * 2};
+  const uint32_t xbox[2] = {G_BK, G_BM};
+  bool ok = hopper::make_map_bf16(&xmap, x, 2, xdims, xstr, xbox);
+  if (w_t) {
+    const uint64_t dims[2] = {(uint64_t)K, (uint64_t)N}, str[1] = {(uint64_t)K * 2};
+    const uint32_t box[2] = {G_BK, G_BN};
+    ok = ok && hopper::make_map_bf16(&wmap, w, 2, dims, str, box);
+  } else {
+    const uint64_t dims[2] = {(uint64_t)N, (uint64_t)K}, str[1] = {(uint64_t)N * 2};
+    const uint32_t box[2] = {64, G_BK};
+    ok = ok && hopper::make_map_bf16(&wmap, w, 2, dims, str, box);
+  }
+  if (!ok || M < 1 || N < 1 || K < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid((N + G_BN - 1) / G_BN, (M + G_BM - 1) / G_BM);
+  auto ob = static_cast<__nv_bfloat16*>(out);
+  cudaError_t err;
+  if (w_t) {
+    err = hopper::allow_smem(matmul_wgmma_kernel<true>, G_SMEM_BYTES);
+    if (err == cudaSuccess)
+      matmul_wgmma_kernel<true><<<grid, G_THREADS, G_SMEM_BYTES, s>>>(xmap, wmap, ob, M, N, K);
+  } else {
+    err = hopper::allow_smem(matmul_wgmma_kernel<false>, G_SMEM_BYTES);
+    if (err == cudaSuccess)
+      matmul_wgmma_kernel<false><<<grid, G_THREADS, G_SMEM_BYTES, s>>>(xmap, wmap, ob, M, N, K);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

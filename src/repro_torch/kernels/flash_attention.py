@@ -4,7 +4,8 @@ The port of the JAX package's ``kernels/flash_attention.py``, in the
 model's layout: q (B, S, H, hd), k and v (B, S, KV, hd), out (B, S, H, hd);
 query head h reads KV head h // (H // KV).  ``flash_attention_plain`` is the
 plain PyTorch version; ``flash_attention_cuda`` launches the hand-written
-kernel of ``csrc/flash_attention.cu``.
+kernel of ``csrc/flash_attention.cu`` (bf16: wgmma and TMA; fp32: the CUDA
+cores).
 """
 from __future__ import annotations
 
@@ -53,6 +54,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention: head_dim {hd} not in {HEAD_DIMS}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: q, k, v must be contiguous")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16
+                                         for t in (q, k, v)):
+        raise ValueError("flash_attention: bf16 q, k, v must be 16-byte "
+                         "aligned (TMA)")
     out = torch.empty_like(q)
     if B * S == 0:
         return out

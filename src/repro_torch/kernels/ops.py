@@ -14,15 +14,17 @@ import torch
 from .decode_attention import decode_attention_cuda, decode_attention_plain
 from .flash_attention import flash_attention_cuda, flash_attention_plain
 from .ssd_scan import ssd_scan_cuda, ssd_scan_plain
-from .streamed_matmul import matmul_cuda, matmul_plain
+from .streamed_matmul import ROUTE_LAUNCHES, matmul_cuda, matmul_plain
 
 LAUNCHES: Dict[str, int] = {"streamed_matmul": 0, "flash_attention": 0,
                             "decode_attention": 0, "ssd_scan": 0}
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    """Set every kernel's count, and the matmul's counts by route, to 0."""
+    for counts in (LAUNCHES, ROUTE_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def _on_card(t: torch.Tensor) -> bool:

@@ -2,19 +2,43 @@
 
 The port of the JAX package's ``kernels/streamed_matmul.py``.
 ``matmul_plain`` is the plain PyTorch version (the CPU path, and what the
-kernel is held against on the card); ``matmul_cuda`` launches the
-hand-written kernel of ``csrc/streamed_matmul.cu``.
+kernels are held against on the card); ``matmul_cuda`` launches one of the
+hand-written kernels of ``csrc/streamed_matmul.cu``, chosen by shape
+(``matmul_route``), and counts its launches by route in ``ROUTE_LAUNCHES``.
 """
 from __future__ import annotations
 
 import functools
+from typing import Dict
 
 import torch
 
 from . import _build
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-TILE = 64  # output tile edge of the kernel (both dtypes)
+TILE = 64  # output tile edge of the wmma and fp32 kernels
+WGMMA_MIN_M = 64  # one wgmma row block: below it the decode kernel serves
+# launches of matmul_cuda by route (see matmul_route)
+ROUTE_LAUNCHES: Dict[str, int] = {"wgmma": 0, "wmma": 0, "fp32": 0}
+
+
+def matmul_route(M: int, N: int, K: int, w_t: int, dtype: torch.dtype,
+                 aligned: bool = True) -> str:
+    """Which kernel of ``csrc/streamed_matmul.cu`` takes a product.
+
+    ``"wgmma"`` (the prefill kernel: TMA ring, wgmma) for bf16 with
+    M >= 64 whose TMA strides are multiples of 16 bytes: K % 8 == 0, and
+    N % 8 == 0 when w is row-major (w_t = 0), with both tensors 16-byte
+    aligned (``aligned``).  ``"wmma"`` (the decode kernel, split-K) for any
+    other bf16 product, ``"fp32"`` for fp32.  A rule of shape, not a
+    fallback: a kernel that fails raises.
+    """
+    if dtype == torch.float32:
+        return "fp32"
+    if (dtype == torch.bfloat16 and M >= WGMMA_MIN_M and K % 8 == 0
+            and (w_t or N % 8 == 0) and aligned):
+        return "wgmma"
+    return "wmma"
 
 
 def k_splits(M: int, N: int, K: int, n_sms: int) -> int:
@@ -34,7 +58,11 @@ def matmul_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def matmul_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x: contiguous (M, K); w: (K, N), either contiguous or the transpose
     of a contiguous (N, K) tensor (a tied embedding's ``.t()``), read in
-    place."""
+    place.  The kernel is chosen by ``matmul_route``: bf16 with M >= 64,
+    K % 8 == 0, N % 8 == 0 for a row-major w and 16-byte aligned tensors
+    goes to the wgmma kernel, other bf16 to the wmma kernel (split-K where
+    the output tiles are fewer than the SMs), fp32 to the fp32 kernel.
+    Raises if the kernel fails to build or launch."""
     if not (x.is_cuda and w.device == x.device):
         raise ValueError(f"streamed_matmul: x on {x.device}, w on {w.device}")
     if x.dtype not in DTYPE_CODES or w.dtype != x.dtype:
@@ -58,14 +86,22 @@ def matmul_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return out
     if K == 0:
         return out.zero_()
-    splits = k_splits(M, N, K, _sm_count(x.device))
-    ws = torch.empty((splits, M, N) if splits > 1 else (0,),
-                     dtype=torch.float32, device=x.device)
+    route = matmul_route(M, N, K, w_t, x.dtype,
+                         x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
     lib = _build.load()
-    _build.check(lib.streamed_matmul(
-        x.data_ptr(), w.data_ptr(), out.data_ptr(), ws.data_ptr(), M, N, K,
-        w_t, splits, DTYPE_CODES[x.dtype],
-        torch.cuda.current_stream(x.device).cuda_stream), "streamed_matmul")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if route == "wgmma":
+        _build.check(lib.streamed_matmul_wgmma(
+            x.data_ptr(), w.data_ptr(), out.data_ptr(), M, N, K, w_t, stream),
+            "streamed_matmul_wgmma")
+    else:
+        splits = k_splits(M, N, K, _sm_count(x.device))
+        ws = torch.empty((splits, M, N) if splits > 1 else (0,),
+                         dtype=torch.float32, device=x.device)
+        _build.check(lib.streamed_matmul(
+            x.data_ptr(), w.data_ptr(), out.data_ptr(), ws.data_ptr(), M, N,
+            K, w_t, splits, DTYPE_CODES[x.dtype], stream), "streamed_matmul")
+    ROUTE_LAUNCHES[route] += 1
     return out
 
 

@@ -15,15 +15,25 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.decode_attention import decode_attention_plain
 from repro_torch.kernels.flash_attention import flash_attention_plain
 from repro_torch.kernels.ssd_scan import ssd_scan_plain
-from repro_torch.kernels.streamed_matmul import matmul_plain
+from repro_torch.kernels.streamed_matmul import (ROUTE_LAUNCHES, matmul_plain,
+                                                 matmul_route)
 
 DTYPES = {"float32": (torch.float32, 2e-4), "bfloat16": (torch.bfloat16, 2e-2)}
-# (130, 896, 200), (8, 4864, 896) and (8, 1000, 50) split K on a 132-SM card
-MATMUL_SHAPES = [(64, 128, 64), (128, 384, 256), (100, 60, 40),
-                 (130, 896, 200), (8, 896, 152064), (8, 4864, 896),
+# (M, K, N).  bf16 with M >= 64 and 16-byte strides takes the wgmma kernel:
+# M = 64 is the threshold and M = 63 just below it; (3640, 896, 4864) is a
+# served prefill's ragged M (8 x 455), (4000, 2048, 64) and (200, 896, 200)
+# ragged M and N against its 128 x 128 tiles, (192, 200, 136) a ragged K
+# against its 64-deep steps.  (100, 60, 40) has K % 8 != 0 and takes the
+# wmma kernel; (8, 4864, 896) and (8, 1000, 50) split K on a 132-SM card.
+MATMUL_SHAPES = [(64, 128, 64), (63, 896, 128), (128, 384, 256),
+                 (100, 60, 40), (130, 896, 200), (200, 896, 200),
+                 (192, 200, 136), (3640, 896, 4864), (4000, 2048, 64),
+                 (130, 4864, 896), (8, 896, 152064), (8, 4864, 896),
                  (8, 1000, 50)]
-FLASH_CASES = [(S, hd, causal) for S in (128, 256) for hd in (64, 128)
-               for causal in (True, False)] + [(77, 64, True)]
+# S = 455 and 129 are ragged against the kernel's 128-row q and 64-key tiles
+FLASH_CASES = [(S, hd, causal) for S in (128, 256, 455, 129)
+               for hd in (64, 128) for causal in (True, False)] + [
+                   (77, 64, True)]
 DECODE_CASES = [(256, 100), (512, 512), (512, 1), (1024, 513)]
 # (query heads, KV heads): groups of 7 (qwen2) and of 4 (llama3_2_1b, qwen3_4b)
 HEADS = [(14, 2), (32, 8)]
@@ -60,9 +70,12 @@ def test_cuda_matmul_matches_plain(card, shape, dtype):
     x, w = _on(card, dtype, 0, (M, K), (K, N))
     w = (w.float() / K ** 0.5).to(w.dtype)
     tol = DTYPES[dtype][1]
+    ops.reset_launches()
     _close(ops.matmul(x, w), matmul_plain(x, w), tol)
     wt = w.t().contiguous().t()  # transposed layout, as the tied unembedding
     _close(ops.matmul(x, wt), matmul_plain(x, wt), tol)
+    routes = [matmul_route(M, N, K, w_t, x.dtype) for w_t in (0, 1)]
+    assert ROUTE_LAUNCHES == {r: routes.count(r) for r in ROUTE_LAUNCHES}
 
 
 @pytest.mark.cuda
@@ -142,6 +155,7 @@ def test_cuda_launches_are_counted(card):
     torch.cuda.synchronize()
     assert ops.LAUNCHES == {"streamed_matmul": 1, "flash_attention": 1,
                             "decode_attention": 1, "ssd_scan": 1}
+    assert ROUTE_LAUNCHES == {"wgmma": 0, "wmma": 1, "fp32": 0}
 
 
 @pytest.mark.cuda

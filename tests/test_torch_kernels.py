@@ -19,7 +19,7 @@ from repro.models import attention as ref_attention
 from repro.models.ssd import ssd_scan_ref
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.streamed_matmul import k_splits
+from repro_torch.kernels.streamed_matmul import k_splits, matmul_route
 
 torch.set_num_threads(2)
 
@@ -222,3 +222,21 @@ def test_cpu_dispatch_launches_no_kernel():
 ])
 def test_matmul_k_splits(M, K, N, splits):
     assert k_splits(M, N, K, n_sms=132) == splits
+
+
+@pytest.mark.parametrize("M,K,N,w_t,dtype,aligned,route", [
+    (4096, 896, 4864, 0, torch.bfloat16, True, "wgmma"),   # prefill MLP up
+    (3640, 4864, 896, 0, torch.bfloat16, True, "wgmma"),   # ragged M
+    (4096, 2048, 64, 0, torch.bfloat16, True, "wgmma"),    # mamba2's dt
+    (64, 128, 64, 0, torch.bfloat16, True, "wgmma"),       # at the threshold
+    (63, 128, 64, 0, torch.bfloat16, True, "wmma"),        # just below it
+    (8, 896, 896, 0, torch.bfloat16, True, "wmma"),        # decode: split-K
+    (8, 896, 152064, 1, torch.bfloat16, True, "wmma"),     # decode unembed
+    (4096, 896, 896, 0, torch.float32, True, "fp32"),      # fp32 parity path
+    (100, 60, 40, 0, torch.bfloat16, True, "wmma"),        # K % 8 != 0
+    (128, 64, 100, 0, torch.bfloat16, True, "wmma"),       # row-major N % 8
+    (128, 64, 100, 1, torch.bfloat16, True, "wgmma"),      # transposed: any N
+    (4096, 896, 896, 0, torch.bfloat16, False, "wmma"),    # misaligned
+])
+def test_matmul_route(M, K, N, w_t, dtype, aligned, route):
+    assert matmul_route(M, N, K, w_t, dtype, aligned) == route

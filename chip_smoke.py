@@ -10,11 +10,14 @@ exits non-zero):
 2. build    -- nvcc builds the hand-written kernels of src/repro_torch; the
                SASS instruction counts of each kernel (cuobjdump), which
                must show wgmma (HGMMA) and TMA loads (UTMALDG) in the
-               prefill matmul and the bf16 flash attention kernels;
+               prefill and decode matmul kernels and the bf16 flash and
+               decode attention kernels;
 3. kernels  -- each kernel against its plain PyTorch version on the card
                at the shapes of the serving paths of qwen2_0_5b and
                mamba2_1_3b, with a served prefill's ragged length (8 x 455
-               rows for the matmul, S 455 for flash attention), fp32 and
+               rows for the matmul, S 455 for flash attention), decode
+               attention at served lengths and at hd 128 with groups of 4
+               (llama3_2_1b and qwen3_4b's heads), fp32 and
                bf16 (matmul and attention: 2e-4 and
                2e-2 of 1 + |plain|; ssd_scan: 1e-4 and 5e-2 of max |plain|),
                with CUDA-event times of the kernel, the plain version and,
@@ -28,7 +31,9 @@ exits non-zero):
                matmul and ssd_scan), with every kernel's launch count over
                that run (counts set to 0 just before it), a check that
                every matmul of 64 rows or more (the prefills') took the
-               wgmma kernel, a profile of one prefill and four decode
+               wgmma kernel and every one of fewer rows (the decode steps'
+               and the prefill's unembedding) the wgmma decode kernel, a
+               profile of one prefill and four decode
                steps, and a check that a decode step never makes the host
                wait on the card.
 
@@ -160,7 +165,8 @@ def phase_build():
     emit({"phase": "build", "seconds": seconds,
           "library": str(so.relative_to(ROOT)),
           "ptxas_log": str(so.relative_to(ROOT)) + ".log", "sass": sass})
-    for kernel in ("matmul_wgmma_kernel", "flash_wgmma_kernel"):
+    for kernel in ("matmul_wgmma_kernel", "matmul_decode_kernel",
+                   "flash_wgmma_kernel", "decode_wgmma_kernel"):
         mine = [c for name, c in sass.items() if kernel in name]
         if not mine or not all(c["HGMMA"] and c["UTMALDG"] for c in mine):
             raise AssertionError(f"{kernel}: no wgmma or TMA load in its SASS")
@@ -325,22 +331,28 @@ def phase_kernels(torch, dev):
                   es * (2 * B * S * H * hd + 2 * B * S * KV * hd),
                   4 * hd * B * H * S * (S + 1) // 2, fns)
 
-    # decode_attention: one token against a 1k cache, three lengths
+    # decode_attention: one token against a 1k cache; qwen2_0_5b's heads at
+    # four lengths (487 is a served one), then hd 128 with groups of 4
+    # (llama3_2_1b's and qwen3_4b's heads)
     B, S = 8, 1024
     for dtype in (torch.float32, torch.bfloat16):
         es = torch.tensor([], dtype=dtype).element_size()
-        q = randn(B, H, hd, dtype=dtype)
-        k, v = randn(B, S, KV, hd, dtype=dtype), randn(B, S, KV, hd, dtype=dtype)
-        for length in (1, 513, 1024):
-            fns = (lambda: ops.decode_attention(q, k, v, length),
-                   lambda: decode_attention_plain(q, k, v, length),
-                   sdpa(q[:, :, None], k[:, :length].transpose(1, 2),
-                        v[:, :length].transpose(1, 2), False))
-            check("decode_attention", [B, S, H, KV, hd, length], dtype,
-                  ops.decode_attention(q, k, v, length),
-                  decode_attention_plain(q, k, v, length),
-                  es * (2 * B * H * hd + 2 * B * length * KV * hd),
-                  4 * B * H * length * hd, fns)
+        for H, KV, hd, lengths in ((14, 2, 64, (1, 487, 513, 1024)),
+                                   (32, 8, 128, (487, 1024))):
+            q = randn(B, H, hd, dtype=dtype)
+            k = randn(B, S, KV, hd, dtype=dtype)
+            v = randn(B, S, KV, hd, dtype=dtype)
+            for length in lengths:
+                fns = (lambda: ops.decode_attention(q, k, v, length),
+                       lambda: decode_attention_plain(q, k, v, length),
+                       sdpa(q[:, :, None], k[:, :length].transpose(1, 2),
+                            v[:, :length].transpose(1, 2), False))
+                check("decode_attention", [B, S, H, KV, hd, length], dtype,
+                      ops.decode_attention(q, k, v, length),
+                      decode_attention_plain(q, k, v, length),
+                      es * (2 * B * H * hd + 2 * B * length * KV * hd),
+                      4 * B * H * length * hd, fns)
+            del q, k, v
 
     # ssd_scan: mamba2_1_3b's prefill scan (64 heads of P 64, N 128, one
     # group) at b 8; 449 is prime, so the last sub-chunk is ragged.  The
@@ -446,10 +458,10 @@ def phase_serve(torch, dev, model):
     bundle = build(cfg)
     params = bundle.init(SEED, device="cuda")
     finite = []
-    tall = [0]  # matmuls of 64 rows or more in the served run
+    tall = [0, 0]  # matmuls of 64 rows or more, and of fewer, in the run
 
     def counted_matmul(x, w, _matmul=ops.matmul):
-        tall[0] += x.shape[0] >= 64
+        tall[x.shape[0] < 64] += 1
         return _matmul(x, w)
 
     def prefill(p, batch):
@@ -503,6 +515,7 @@ def phase_serve(torch, dev, model):
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
           "launches": launches, "expected_launches": expect,
           "matmul_routes": routes, "matmuls_of_64_rows_or_more": tall[0],
+          "matmuls_of_fewer_rows": tall[1],
           "logits_finite": all_finite,
           "first_tokens": reqs[0].out_tokens[:8], "profile": breakdown})
     if any(len(r.out_tokens) != 32 for r in reqs):
@@ -517,6 +530,10 @@ def phase_serve(torch, dev, model):
     if not tall[0] or routes["wgmma"] != tall[0] or routes["fp32"]:
         raise AssertionError(f"{tall[0]} matmuls of 64 rows or more, routes "
                              f"{routes}: not all on the wgmma kernel")
+    if not tall[1] or routes["wgmma_decode"] != tall[1] or routes["wmma"]:
+        raise AssertionError(f"{tall[1]} matmuls of fewer than 64 rows, "
+                             f"routes {routes}: not all on the wgmma decode "
+                             "kernel")
     return launches
 
 

@@ -30,9 +30,12 @@ _F = ctypes.c_float
 SIGNATURES = {
     "streamed_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "streamed_matmul_wgmma": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "streamed_matmul_decode": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
-    "decode_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                         _I, _F, _I, _P],
+    "decode_attention_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                             _I, _I, _F, _P],
+    "decode_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                              _F, _P],
     "decode_attention_chunk": [],
     "decode_attention_max_group": [],
     "ssd_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

@@ -1,7 +1,9 @@
 // Hopper building blocks shared by the tensor-core kernels (sm_90a), written
 // from PTX: mbarriers, TMA tile loads, wgmma shared-memory descriptors, the
-// wgmma fence / commit / wait discipline and the bf16 -> fp32 wgmma
-// instructions at the widths the kernels use.  On the host: a TMA tensor map
+// wgmma fence / commit / wait discipline, the bf16 -> fp32 wgmma
+// instructions at the widths the kernels use, and the cluster barrier and
+// distributed shared-memory reads that merge a cluster's partial results.
+// On the host: a cluster launch, and a TMA tensor map
 // made per call with the driver's cuTensorMapEncodeTiled, fetched with
 // dlsym from the libcuda that the CUDA runtime has already loaded, so the
 // library links without -lcuda.  A map is passed to its kernel by value as a
@@ -84,6 +86,15 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
                                             int c0, int c1, int c2, int c3) {
   asm volatile(
@@ -96,6 +107,44 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
 
 __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// Orders this thread's ordinary shared-memory writes before later reads of
+// the same bytes by the async proxy (a wgmma operand written by threads).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Barrier `id` (1..15; 0 is __syncthreads) over the first `count` threads.
+__device__ __forceinline__ void named_bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// ------------------------------------------------------------------ clusters
+// The blocks of a thread-block cluster run at once on neighbouring SMs and
+// can read each other's shared memory (distributed shared memory).
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every block of the cluster arrives and waits; shared
+// memory written before it is visible to the cluster's blocks after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.aligned;\n"  // release semantics by default
+      "barrier.cluster.wait.aligned;\n" ::: "memory");  // acquire by default
+}
+
+// Reads the float at the address `p` has in the shared memory of block
+// `rank` of the cluster.
+__device__ __forceinline__ float ld_dsmem_f32(const float* p, uint32_t rank) {
+  uint32_t addr;
+  float v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(addr) : "r"(smem_u32(p)), "r"(rank));
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
 }
 
 // --------------------------------------------------------------------- wgmma
@@ -145,6 +194,19 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // holds d[4 j + 2 h + e] = D[16 w + l / 4 + 8 h][8 j + 2 (l % 4) + e].  The
 // A fragment from registers (bf16 pairs) of k16 is a[2 c + h] =
 // A[16 w + l / 4 + 8 h][8 c + 2 (l % 4) + {0, 1}], c = 0, 1.
+
+// D(64 x 8) (+)= A(64 x 16, shared) * B(16 x 8, shared); TA: A is MN-major,
+// TB: B is MN-major.  N = 8 holds a decode step's batch rows or the query
+// heads of one KV head, with the wide operand as the 64-row A.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n8(float (&d)[4], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1, %7, %8;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
+}
 
 // D(64 x 64) (+)= A(64 x 16, shared) * B(16 x 64, shared); TB: B is MN-major.
 template <int TB>
@@ -249,6 +311,31 @@ inline bool make_map_bf16(CUtensorMap* map, const void* ptr, int rank, const uin
 template <typename Kernel>
 inline cudaError_t allow_smem(Kernel kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+// Launches `kernel` with clusters of `cluster_x` blocks along the grid's x
+// (at most 8, the portable size; gridDim.x a multiple of it).  The error of
+// a refused launch is returned, never retried another way.
+template <typename... Params, typename... Args>
+inline cudaError_t launch_cluster(void (*kernel)(Params...), dim3 grid, int threads, int smem,
+                                  int cluster_x, cudaStream_t stream, Args... args) {
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster_x;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 }  // namespace hopper

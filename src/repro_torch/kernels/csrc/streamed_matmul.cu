@@ -21,10 +21,25 @@
 // MN-major B operand (transpose bit set), the transposed view of an (N, K)
 // array (the tied unembedding) a K-major one.  TMA zero-fills the ragged
 // edges of M, N and K; the epilogue rounds to bf16 and masks M and N.
-// Decode (M < 64: matmul_bf16_kernel): one block per 64x64 output tile walks
-// K in 32-wide steps through shared memory with wmma (mma.sync) into fp32
-// accumulators; when the output tiles alone would leave most SMs idle
-// (M = 8 and N = 896 is 14 tiles), the caller splits K over blockIdx.z: each
+// Decode (bf16, M < 64, the same TMA rules: matmul_decode_kernel): the
+// operands are swapped, out^T (N x M) = w^T . x^T, so the weight fills
+// wgmma's 64-row A and the batch rows are its N, in groups of 8
+// (m64n8k16): the tied embedding's .t() is a K-major A, a row-major w an
+// MN-major A (transpose bit), x a K-major B whose rows past M TMA
+// zero-fills.  One block per 64 output columns and a range of K: a producer
+// warp keeps a ring of D_STAGES (4) 64 x 64 weight tiles in flight, and up
+// to five blocks share an SM, so an SM keeps up to 160 KB of weight in
+// flight.  Where the
+// column tiles alone are fewer than the SMs, the K ranges of one column
+// tile form a thread-block cluster (at most 8); after a cluster barrier each
+// block sums a share of the tile over all blocks' fp32 partials through
+// distributed shared memory and writes bf16.  One launch per call, with no
+// workspace: the tied unembeddings (2376 and 788 column tiles) need no
+// split.  The host's plan (kernels/streamed_matmul.py) picks the split.
+// Other bf16 (what TMA cannot take, such as K % 8 != 0: matmul_bf16_kernel):
+// one block per 64x64 output tile walks K in 32-wide steps through shared
+// memory with wmma (mma.sync) into fp32 accumulators; when the output tiles
+// alone would leave most SMs idle, the caller splits K over blockIdx.z: each
 // split writes an fp32 partial tile to a workspace and a second pass sums
 // them.  The weight may be given transposed (w_t=1: w is the transpose of a
 // contiguous (N,K) array), so the tied unembedding reads the (vocab, d)
@@ -289,6 +304,148 @@ matmul_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
   }
 }
 
+// ------------------------------------------------ bf16 decode path, wgmma
+constexpr int D_COLS = 64;               // output columns per block: wgmma's 64 rows
+constexpr int D_BK = 64;                 // k per stage: one 128-byte swizzle row
+// Ring depth: 4 stages keep a block near 40 KB of shared memory (one group
+// of 8 rows), so five blocks fit an SM; at 8 stages (75 KB) only two fit,
+// and plans of more than two blocks per SM ran in two waves.
+constexpr int D_STAGES = 4;
+constexpr int D_THREADS = 128 + 32;      // one consumer warpgroup, one producer warp
+constexpr int D_MAX_CLUSTER = 8;         // K ranges of one column tile: a portable cluster
+constexpr int D_PSTRIDE = D_COLS + 4;    // fp32 partial rows, padded against bank conflicts
+
+template <int NG>  // groups of 8 batch rows
+struct DecodeTiles {
+  static constexpr int A_BYTES = D_COLS * D_BK * 2;  // w tile, 8 KB
+  static constexpr int B_BYTES = NG * 8 * D_BK * 2;  // x tile, 1 KB per group
+  static constexpr int STAGE = A_BYTES + B_BYTES;
+  static constexpr int PART = NG * 8 * D_PSTRIDE * 4;
+  static constexpr int SMEM = D_STAGES * STAGE + PART + 2 * D_STAGES * 8 + 1024;
+};
+
+template <bool WT, int NG>
+__global__ void __launch_bounds__(D_THREADS)
+matmul_decode_kernel(const __grid_constant__ CUtensorMap xmap,
+                     const __grid_constant__ CUtensorMap wmap,
+                     __nv_bfloat16* __restrict__ out, int M, int N, int K,
+                     int steps_per_split) {
+  using namespace hopper;
+  using T = DecodeTiles<NG>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  float* part = reinterpret_cast<float*>(smem + D_STAGES * T::STAGE);  // [8 NG][D_PSTRIDE]
+  uint64_t* full = reinterpret_cast<uint64_t*>(part + NG * 8 * D_PSTRIDE);
+  uint64_t* empty = full + D_STAGES;
+
+  const int n0 = blockIdx.y * D_COLS;
+  const int i0 = blockIdx.x * steps_per_split;
+  const int nsteps = min(steps_per_split, (K + D_BK - 1) / D_BK - i0);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < D_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);  // one arrival per consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp == 4) {  // producer warp: one thread issues every load
+    if (lane == 0) {
+      tma_prefetch_map(&xmap);
+      tma_prefetch_map(&wmap);
+      for (int i = 0; i < nsteps; ++i) {
+        const int s = i % D_STAGES;
+        if (i >= D_STAGES) mbar_wait(&empty[s], ((i / D_STAGES) + 1) & 1);
+        unsigned char* a = smem + s * T::STAGE;
+        const int k0 = (i0 + i) * D_BK;
+        mbar_arrive_expect_tx(&full[s], T::STAGE);
+        if (WT) tma_load_2d(a, &wmap, &full[s], k0, n0);  // (N, K) rows: 64 n of 64 k
+        else tma_load_2d(a, &wmap, &full[s], n0, k0);     // (K, N) rows: 64 k of 64 n
+        tma_load_2d(a + T::A_BYTES, &xmap, &full[s], k0, 0);  // x rows 0 .. 8 NG - 1
+      }
+    }
+    __syncwarp();
+  } else {
+    float acc[NG][4];
+#pragma unroll
+    for (int g = 0; g < NG; ++g)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[g][i] = 0.f;
+    for (int i = 0; i < nsteps; ++i) {
+      const int s = i % D_STAGES;
+      mbar_wait(&full[s], (i / D_STAGES) & 1);
+      const unsigned char* a = smem + s * T::STAGE;
+      const unsigned char* xb = a + T::A_BYTES;
+#pragma unroll
+      for (int g = 0; g < NG; ++g) fence_regs(acc[g]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D_BK / 16; ++kk) {
+        const uint64_t da = WT ? make_desc(a + kk * 32, 16, 1024)
+                               : make_desc(a + kk * 2048, T::A_BYTES, 1024);
+#pragma unroll
+        for (int g = 0; g < NG; ++g)
+          wgmma_ss_n8<WT ? 0 : 1, 0>(acc[g], da, make_desc(xb + g * 1024 + kk * 32, 16, 1024), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous step's wgmmas are done: free its stage
+#pragma unroll
+      for (int g = 0; g < NG; ++g) fence_regs(acc[g]);
+      if (i > 0 && lane == 0) mbar_arrive(&empty[(i - 1) % D_STAGES]);
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int g = 0; g < NG; ++g) fence_regs(acc[g]);
+    // acc[g][2 h + e] = out^T[n0 + 16 warp + lane / 4 + 8 h][8 g + 2 (lane % 4) + e]
+    const int col = 16 * warp + lane / 4, row = 2 * (lane % 4);
+#pragma unroll
+    for (int g = 0; g < NG; ++g)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) part[(8 * g + row + e) * D_PSTRIDE + col + 8 * h] = acc[g][2 * h + e];
+  }
+
+  // Block `rank` of the cluster sums every splits-th share of the tile's
+  // rows < M over all blocks' partials and writes it; the second barrier
+  // keeps each block's shared memory alive until the others have read it.
+  __syncwarp();
+  cluster_sync();
+  const int splits = gridDim.x, rank = cluster_rank();
+  const int rows = min(M, 8 * NG);
+  for (int i = rank * D_THREADS + threadIdx.x; i < rows * D_COLS; i += splits * D_THREADS) {
+    const int r = i / D_COLS, c = i % D_COLS;
+    if (n0 + c >= N) continue;
+    const float* p = part + r * D_PSTRIDE + c;
+    float sum = 0.f;
+#pragma unroll
+    for (int q = 0; q < D_MAX_CLUSTER; ++q)
+      if (q < splits) sum += ld_dsmem_f32(p, q);
+    out[(size_t)r * N + n0 + c] = __float2bfloat16(sum);
+  }
+  cluster_sync();
+}
+
+template <bool WT, int NG>
+cudaError_t launch_decode(const CUtensorMap& xmap, const CUtensorMap& wmap, void* out, int M,
+                          int N, int K, int splits, int steps_per_split, cudaStream_t s) {
+  const dim3 grid(splits, (N + D_COLS - 1) / D_COLS);
+  return hopper::launch_cluster(matmul_decode_kernel<WT, NG>, grid, D_THREADS,
+                                DecodeTiles<NG>::SMEM, splits, s, xmap, wmap,
+                                static_cast<__nv_bfloat16*>(out), M, N, K, steps_per_split);
+}
+
+template <bool WT>
+cudaError_t launch_decode_groups(const CUtensorMap& xmap, const CUtensorMap& wmap, void* out,
+                                 int M, int N, int K, int splits, int steps, cudaStream_t s) {
+  if (M <= 8) return launch_decode<WT, 1>(xmap, wmap, out, M, N, K, splits, steps, s);
+  if (M <= 16) return launch_decode<WT, 2>(xmap, wmap, out, M, N, K, splits, steps, s);
+  if (M <= 32) return launch_decode<WT, 4>(xmap, wmap, out, M, N, K, splits, steps, s);
+  return launch_decode<WT, 8>(xmap, wmap, out, M, N, K, splits, steps, s);
+}
+
 // ---------------------------------------------------------------- fp32 path
 constexpr int FBM = 64, FBN = 64, FBK = 16, FTHREADS = 256;
 
@@ -441,4 +598,38 @@ extern "C" int streamed_matmul_wgmma(const void* x, const void* w, void* out, in
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The decode path: bf16 x (M, K) row-major with 1 <= M < 64, w as
+// streamed_matmul's w_t, under the prefill path's TMA rules.  K is cut into
+// `splits` (<= 8) ranges of steps_per_split 64-deep steps, each range
+// non-empty.  One launch, no workspace.  Returns the cudaError_t of the
+// launch, or cudaErrorInvalidValue for what the kernel does not take.
+extern "C" int streamed_matmul_decode(const void* x, const void* w, void* out, int M, int N,
+                                      int K, int w_t, int splits, int steps_per_split,
+                                      void* stream) {
+  const int steps = (K + D_BK - 1) / D_BK;
+  if (M < 1 || M >= 64 || N < 1 || K < 1 || splits < 1 || splits > D_MAX_CLUSTER ||
+      steps_per_split < 1 || (splits - 1) * steps_per_split >= steps ||
+      splits * steps_per_split < steps)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap xmap, wmap;
+  const int xrows = M <= 8 ? 8 : M <= 16 ? 16 : M <= 32 ? 32 : 64;
+  const uint64_t xdims[2] = {(uint64_t)K, (uint64_t)M}, xstr[1] = {(uint64_t)K * 2};
+  const uint32_t xbox[2] = {D_BK, (uint32_t)xrows};
+  bool ok = hopper::make_map_bf16(&xmap, x, 2, xdims, xstr, xbox);
+  if (w_t) {
+    const uint64_t dims[2] = {(uint64_t)K, (uint64_t)N}, str[1] = {(uint64_t)K * 2};
+    const uint32_t box[2] = {D_BK, D_COLS};
+    ok = ok && hopper::make_map_bf16(&wmap, w, 2, dims, str, box);
+  } else {
+    const uint64_t dims[2] = {(uint64_t)N, (uint64_t)K}, str[1] = {(uint64_t)N * 2};
+    const uint32_t box[2] = {D_COLS, D_BK};
+    ok = ok && hopper::make_map_bf16(&wmap, w, 2, dims, str, box);
+  }
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      w_t ? launch_decode_groups<true>(xmap, wmap, out, M, N, K, splits, steps_per_split, s)
+          : launch_decode_groups<false>(xmap, wmap, out, M, N, K, splits, steps_per_split, s));
 }

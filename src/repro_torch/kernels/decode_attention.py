@@ -4,8 +4,11 @@ cache, over cache positions ``< length``.
 The port of the JAX package's ``kernels/decode_attention.py``: q (B, H, hd),
 cache k and v (B, S, KV, hd) read in place, GQA with query head h on KV head
 h // (H // KV), ``length`` a runtime int.  ``decode_attention_plain`` is the
-plain PyTorch version; ``decode_attention_cuda`` launches the split-sequence
-kernel and its combine pass of ``csrc/decode_attention.cu``.
+plain PyTorch version; ``decode_attention_cuda`` launches the kernels of
+``csrc/decode_attention.cu``: for bf16 one launch of the wgmma kernel, whose
+splits of the sequence (``decode_split_plan``) form a thread-block cluster
+that merges its partial results itself; for fp32 (parity runs) the
+split-sequence kernel and its combine pass.
 """
 from __future__ import annotations
 
@@ -15,7 +18,16 @@ import torch
 
 from . import _build
 from .flash_attention import HEAD_DIMS, NEG_INF
-from .streamed_matmul import DTYPE_CODES
+from .streamed_matmul import DTYPE_CODES, cluster_runs, sm_count
+
+DECODE_TILE = 64  # keys per tile of the bf16 kernel
+
+
+def decode_split_plan(length: int, B: int, KV: int, n_sms: int):
+    """(splits, tiles per split) of the bf16 kernel: ``length`` keys in
+    64-key tiles, cut into contiguous runs that form a cluster, so that
+    B * KV * splits blocks fill the ``n_sms`` SMs."""
+    return cluster_runs(-(-length // DECODE_TILE), n_sms // max(1, B * KV))
 
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -60,15 +72,26 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     if B == 0:
         return out
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if q.dtype == torch.bfloat16:
+        if any(t.data_ptr() % 16 for t in (q, k, v)):
+            raise ValueError("decode_attention: bf16 q, k, v must be 16-byte "
+                             "aligned (TMA)")
+        splits, per = decode_split_plan(length, B, KV, sm_count(q.device))
+        _build.check(lib.decode_attention_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S,
+            H, KV, hd, length, splits, per, 1.0 / math.sqrt(hd), stream),
+            "decode_attention_bf16")
+        return out
     n_splits = -(-length // lib.decode_attention_chunk())
     o_part = torch.empty((B, H, n_splits, hd), dtype=torch.float32,
                          device=q.device)
     m_part = torch.empty((B, H, n_splits), dtype=torch.float32,
                          device=q.device)
     l_part = torch.empty_like(m_part)
-    _build.check(lib.decode_attention(
+    _build.check(lib.decode_attention_f32(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         o_part.data_ptr(), m_part.data_ptr(), l_part.data_ptr(), B, S, H, KV,
-        hd, length, n_splits, 1.0 / math.sqrt(hd), DTYPE_CODES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream), "decode_attention")
+        hd, length, n_splits, 1.0 / math.sqrt(hd), stream),
+        "decode_attention_f32")
     return out

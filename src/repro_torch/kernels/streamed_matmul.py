@@ -18,26 +18,32 @@ from . import _build
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 TILE = 64  # output tile edge of the wmma and fp32 kernels
 WGMMA_MIN_M = 64  # one wgmma row block: below it the decode kernel serves
+DECODE_COLS = 64  # output columns per block of the decode kernel
+DECODE_BK = 64  # k per step of the decode kernel
+MAX_CLUSTER = 8  # blocks of a portable thread-block cluster
 # launches of matmul_cuda by route (see matmul_route)
-ROUTE_LAUNCHES: Dict[str, int] = {"wgmma": 0, "wmma": 0, "fp32": 0}
+ROUTE_LAUNCHES: Dict[str, int] = {"wgmma": 0, "wgmma_decode": 0, "wmma": 0,
+                                  "fp32": 0}
 
 
 def matmul_route(M: int, N: int, K: int, w_t: int, dtype: torch.dtype,
                  aligned: bool = True) -> str:
     """Which kernel of ``csrc/streamed_matmul.cu`` takes a product.
 
-    ``"wgmma"`` (the prefill kernel: TMA ring, wgmma) for bf16 with
-    M >= 64 whose TMA strides are multiples of 16 bytes: K % 8 == 0, and
-    N % 8 == 0 when w is row-major (w_t = 0), with both tensors 16-byte
-    aligned (``aligned``).  ``"wmma"`` (the decode kernel, split-K) for any
-    other bf16 product, ``"fp32"`` for fp32.  A rule of shape, not a
-    fallback: a kernel that fails raises.
+    bf16 products whose TMA strides are multiples of 16 bytes (K % 8 == 0,
+    and N % 8 == 0 when w is row-major, w_t = 0) with both tensors 16-byte
+    aligned (``aligned``) go to a TMA and wgmma kernel: ``"wgmma"`` (the
+    prefill kernel) for M >= 64, ``"wgmma_decode"`` (the decode kernel,
+    operands swapped, split-K inside one launch) for M < 64.  ``"wmma"``
+    (mma.sync, split-K over two launches) takes any other bf16 product,
+    ``"fp32"`` fp32.  A rule of shape, not a fallback: a kernel that fails
+    raises.
     """
     if dtype == torch.float32:
         return "fp32"
-    if (dtype == torch.bfloat16 and M >= WGMMA_MIN_M and K % 8 == 0
-            and (w_t or N % 8 == 0) and aligned):
-        return "wgmma"
+    if (dtype == torch.bfloat16 and K % 8 == 0 and (w_t or N % 8 == 0)
+            and aligned):
+        return "wgmma" if M >= WGMMA_MIN_M else "wgmma_decode"
     return "wmma"
 
 
@@ -51,6 +57,24 @@ def k_splits(M: int, N: int, K: int, n_sms: int) -> int:
     return max(1, min(-(-4 * n_sms // tiles), K // 128))
 
 
+def cluster_runs(units: int, want: int):
+    """Cut ``units`` (k steps, key tiles) into about ``want`` and at most
+    ``MAX_CLUSTER`` contiguous runs, one block of a cluster each: returns
+    (runs, units per run), every run non-empty, each unit in one run."""
+    runs = max(1, min(MAX_CLUSTER, want, units))
+    per = -(-units // runs)
+    return -(-units // per), per
+
+
+def decode_k_plan(N: int, K: int, n_sms: int):
+    """(splits, k steps per split) of the decode kernel: one block per 64
+    output columns and a range of 64-deep k steps; where the column tiles
+    are fewer than about two per SM, K is cut into ranges that form a
+    cluster and sum their partials in the same launch."""
+    tiles = -(-N // DECODE_COLS)
+    return cluster_runs(-(-K // DECODE_BK), -(-2 * n_sms // tiles))
+
+
 def matmul_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x.float() @ w.float()).to(x.dtype)
 
@@ -58,11 +82,12 @@ def matmul_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def matmul_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x: contiguous (M, K); w: (K, N), either contiguous or the transpose
     of a contiguous (N, K) tensor (a tied embedding's ``.t()``), read in
-    place.  The kernel is chosen by ``matmul_route``: bf16 with M >= 64,
-    K % 8 == 0, N % 8 == 0 for a row-major w and 16-byte aligned tensors
-    goes to the wgmma kernel, other bf16 to the wmma kernel (split-K where
-    the output tiles are fewer than the SMs), fp32 to the fp32 kernel.
-    Raises if the kernel fails to build or launch."""
+    place.  The kernel is chosen by ``matmul_route``: bf16 with K % 8 == 0,
+    N % 8 == 0 for a row-major w and 16-byte aligned tensors goes to a
+    wgmma kernel (M >= 64: prefill; M < 64: decode, one launch, no
+    workspace), other bf16 to the wmma kernel (split-K where the output
+    tiles are fewer than the SMs), fp32 to the fp32 kernel.  Raises if the
+    kernel fails to build or launch."""
     if not (x.is_cuda and w.device == x.device):
         raise ValueError(f"streamed_matmul: x on {x.device}, w on {w.device}")
     if x.dtype not in DTYPE_CODES or w.dtype != x.dtype:
@@ -94,8 +119,13 @@ def matmul_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         _build.check(lib.streamed_matmul_wgmma(
             x.data_ptr(), w.data_ptr(), out.data_ptr(), M, N, K, w_t, stream),
             "streamed_matmul_wgmma")
+    elif route == "wgmma_decode":
+        splits, per = decode_k_plan(N, K, sm_count(x.device))
+        _build.check(lib.streamed_matmul_decode(
+            x.data_ptr(), w.data_ptr(), out.data_ptr(), M, N, K, w_t, splits,
+            per, stream), "streamed_matmul_decode")
     else:
-        splits = k_splits(M, N, K, _sm_count(x.device))
+        splits = k_splits(M, N, K, sm_count(x.device))
         ws = torch.empty((splits, M, N) if splits > 1 else (0,),
                          dtype=torch.float32, device=x.device)
         _build.check(lib.streamed_matmul(
@@ -106,5 +136,5 @@ def matmul_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
+def sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count

@@ -19,24 +19,33 @@ from repro_torch.kernels.streamed_matmul import (ROUTE_LAUNCHES, matmul_plain,
                                                  matmul_route)
 
 DTYPES = {"float32": (torch.float32, 2e-4), "bfloat16": (torch.bfloat16, 2e-2)}
-# (M, K, N).  bf16 with M >= 64 and 16-byte strides takes the wgmma kernel:
-# M = 64 is the threshold and M = 63 just below it; (3640, 896, 4864) is a
-# served prefill's ragged M (8 x 455), (4000, 2048, 64) and (200, 896, 200)
-# ragged M and N against its 128 x 128 tiles, (192, 200, 136) a ragged K
-# against its 64-deep steps.  (100, 60, 40) has K % 8 != 0 and takes the
-# wmma kernel; (8, 4864, 896) and (8, 1000, 50) split K on a 132-SM card.
+# (M, K, N).  bf16 with 16-byte strides takes a wgmma kernel: the prefill
+# kernel for M >= 64 (M = 64 is the threshold), the decode kernel below it
+# (M = 63 its largest, 1 its smallest, 16 two groups of 8 rows).
+# (3640, 896, 4864) is a served prefill's ragged M (8 x 455), (4000, 2048,
+# 64) and (200, 896, 200) ragged M and N against 128 x 128 tiles,
+# (192, 200, 136) and (8, 1000, 136) a ragged K against 64-deep steps,
+# (8, 896, 200) a ragged N against the decode kernel's 64 columns.
+# (100, 60, 40) has K % 8 != 0 and takes the wmma kernel, as does
+# (8, 1000, 50) with row-major w (N % 8 != 0); (8, 4864, 896) splits K
+# into a cluster of 8 on a 132-SM card, (8, 896, 152064) does not split.
 MATMUL_SHAPES = [(64, 128, 64), (63, 896, 128), (128, 384, 256),
                  (100, 60, 40), (130, 896, 200), (200, 896, 200),
                  (192, 200, 136), (3640, 896, 4864), (4000, 2048, 64),
                  (130, 4864, 896), (8, 896, 152064), (8, 4864, 896),
-                 (8, 1000, 50)]
+                 (8, 1000, 50), (1, 896, 896), (16, 2048, 4096),
+                 (8, 896, 200), (8, 1000, 136)]
 # S = 455 and 129 are ragged against the kernel's 128-row q and 64-key tiles
 FLASH_CASES = [(S, hd, causal) for S in (128, 256, 455, 129)
                for hd in (64, 128) for causal in (True, False)] + [
                    (77, 64, True)]
-DECODE_CASES = [(256, 100), (512, 512), (512, 1), (1024, 513)]
-# (query heads, KV heads): groups of 7 (qwen2) and of 4 (llama3_2_1b, qwen3_4b)
-HEADS = [(14, 2), (32, 8)]
+# (S, length): lengths not a multiple of the 64-key tile, and caches long
+# enough that a block walks many tiles (4096 keys: 8 per split)
+DECODE_CASES = [(256, 100), (512, 512), (512, 1), (1024, 513), (1024, 487),
+                (4096, 4096), (4096, 1)]
+# (query heads, KV heads): groups of 7 (qwen2), 4 (llama3_2_1b, qwen3_4b),
+# 1 and 8 (the largest the decode kernel takes)
+HEADS = [(14, 2), (32, 8), (8, 8), (16, 2)]
 # ssd_scan: relative to max |plain|, the tolerances of tests/test_kernels.py;
 # S = 449 and 97 are prime (a ragged last sub-chunk), 64 heads is mamba2's
 SSD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
@@ -103,6 +112,21 @@ def test_cuda_decode_attention_matches_plain(card, S, length, hd, H, KV,
            decode_attention_plain(q, k, v, length), DTYPES[dtype][1])
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("length", [487, 1024])
+@pytest.mark.parametrize("H,KV,hd", [(14, 2, 64), (32, 8, 128)])
+def test_cuda_decode_attention_keeps_fp32_precision(card, H, KV, hd, length):
+    """The bf16 kernel takes P.V in fp32 as the reference does (P as a bf16
+    pair): it agrees with the plain version to about one bf16 rounding of
+    the output, where a single bf16 P would miss by ~16x that."""
+    q, k, v = _on(card, "bfloat16", 13, (8, H, hd), (8, 1024, KV, hd),
+                  (8, 1024, KV, hd))
+    np.testing.assert_allclose(
+        ops.decode_attention(q, k, v, length).float().cpu().numpy(),
+        decode_attention_plain(q, k, v, length).float().cpu().numpy(),
+        rtol=1e-2, atol=5e-5)
+
+
 def _ssd_on(card, dtype, seed, b, S, H, with_init):
     """x, dt, A, B, C (B and C halves of one (b, S, 2N) tensor, as the model
     passes them) and an initial state or None, on the card."""
@@ -155,7 +179,44 @@ def test_cuda_launches_are_counted(card):
     torch.cuda.synchronize()
     assert ops.LAUNCHES == {"streamed_matmul": 1, "flash_attention": 1,
                             "decode_attention": 1, "ssd_scan": 1}
-    assert ROUTE_LAUNCHES == {"wgmma": 0, "wmma": 1, "fp32": 0}
+    # one launch per call: the decode matmul and the bf16 decode attention
+    # merge their splits inside the launch
+    assert ROUTE_LAUNCHES == {"wgmma": 0, "wgmma_decode": 1, "wmma": 0,
+                              "fp32": 0}
+
+
+def _launches_and_allocations(fn):
+    """Device kernels that one call of ``fn`` runs (torch.profiler) and the
+    tensors it allocates (the caching allocator's request count)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()  # built and warm
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    allocated = torch.cuda.memory_stats()["allocation.all.allocated"] - before
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    return kernels, allocated
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("call", ["matmul", "decode_attention"])
+def test_cuda_decode_call_is_one_launch(card, call):
+    """A bf16 decode-step matmul (split K) and a bf16 decode attention
+    (split sequence) each run one kernel and allocate only their output."""
+    if call == "matmul":
+        x, w = _on(card, "bfloat16", 11, (8, 896), (896, 896))
+        fn = lambda: ops.matmul(x, w)  # noqa: E731
+    else:
+        q, k, v = _on(card, "bfloat16", 12, (8, 14, 64), (8, 1024, 2, 64),
+                      (8, 1024, 2, 64))
+        fn = lambda: ops.decode_attention(q, k, v, 1000)  # noqa: E731
+    kernels, allocated = _launches_and_allocations(fn)
+    assert len(kernels) == 1, kernels
+    assert allocated == 1
 
 
 @pytest.mark.cuda

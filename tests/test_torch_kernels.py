@@ -19,7 +19,9 @@ from repro.models import attention as ref_attention
 from repro.models.ssd import ssd_scan_ref
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.streamed_matmul import k_splits, matmul_route
+from repro_torch.kernels.decode_attention import decode_split_plan
+from repro_torch.kernels.streamed_matmul import (MAX_CLUSTER, decode_k_plan,
+                                                 k_splits, matmul_route)
 
 torch.set_num_threads(2)
 
@@ -229,9 +231,9 @@ def test_matmul_k_splits(M, K, N, splits):
     (3640, 4864, 896, 0, torch.bfloat16, True, "wgmma"),   # ragged M
     (4096, 2048, 64, 0, torch.bfloat16, True, "wgmma"),    # mamba2's dt
     (64, 128, 64, 0, torch.bfloat16, True, "wgmma"),       # at the threshold
-    (63, 128, 64, 0, torch.bfloat16, True, "wmma"),        # just below it
-    (8, 896, 896, 0, torch.bfloat16, True, "wmma"),        # decode: split-K
-    (8, 896, 152064, 1, torch.bfloat16, True, "wmma"),     # decode unembed
+    (63, 128, 64, 0, torch.bfloat16, True, "wgmma_decode"),  # just below it
+    (8, 896, 896, 0, torch.bfloat16, True, "wgmma_decode"),  # decode step
+    (8, 896, 152064, 1, torch.bfloat16, True, "wgmma_decode"),  # unembed
     (4096, 896, 896, 0, torch.float32, True, "fp32"),      # fp32 parity path
     (100, 60, 40, 0, torch.bfloat16, True, "wmma"),        # K % 8 != 0
     (128, 64, 100, 0, torch.bfloat16, True, "wmma"),       # row-major N % 8
@@ -240,3 +242,81 @@ def test_matmul_k_splits(M, K, N, splits):
 ])
 def test_matmul_route(M, K, N, w_t, dtype, aligned, route):
     assert matmul_route(M, N, K, w_t, dtype, aligned) == route
+
+
+# The decode route's boundary: bf16, M < 64, and the TMA rules of the
+# prefill route (K % 8, N % 8 for a row-major w, 16-byte alignment).
+@pytest.mark.parametrize("M,K,N,w_t,aligned,route", [
+    (1, 896, 896, 0, True, "wgmma_decode"),       # one row
+    (8, 4864, 896, 0, True, "wgmma_decode"),      # qwen's down-projection
+    (8, 2048, 50432, 1, True, "wgmma_decode"),    # mamba2's unembedding
+    (16, 2048, 4096, 0, True, "wgmma_decode"),    # two row groups
+    (63, 896, 128, 1, True, "wgmma_decode"),      # the largest M
+    (64, 896, 128, 1, True, "wgmma"),             # the prefill threshold
+    (8, 1000, 136, 0, True, "wgmma_decode"),      # K % 64 != 0, K % 8 == 0
+    (8, 1004, 136, 0, True, "wmma"),              # K % 8 != 0
+    (8, 896, 200, 0, True, "wgmma_decode"),       # N % 64 != 0, N % 8 == 0
+    (8, 896, 50, 0, True, "wmma"),                # row-major, N % 8 != 0
+    (8, 896, 50, 1, True, "wgmma_decode"),        # transposed: any N
+    (8, 896, 896, 0, False, "wmma"),              # misaligned
+])
+def test_matmul_route_decode(M, K, N, w_t, aligned, route):
+    assert matmul_route(M, N, K, w_t, torch.bfloat16, aligned) == route
+    assert matmul_route(M, N, K, w_t, torch.float32, aligned) == "fp32"
+
+
+def _check_cover(splits, per, units):
+    """``splits`` runs of ``per`` units cover ``units`` once, each run
+    non-empty, within a portable cluster."""
+    assert 1 <= splits <= MAX_CLUSTER and per >= 1
+    runs = [range(s * per, min(units, (s + 1) * per)) for s in range(splits)]
+    assert all(len(r) for r in runs)
+    assert sorted(u for r in runs for u in r) == list(range(units))
+
+
+@pytest.mark.parametrize("M,K,N,plan", [
+    (8, 896, 896, (7, 2)),        # qwen q/o: 14 column tiles
+    (8, 896, 128, (7, 2)),        # qwen k/v
+    (8, 896, 4864, (4, 4)),       # qwen gate/up: 76 column tiles
+    (8, 4864, 896, (8, 10)),      # qwen down
+    (8, 896, 152064, (1, 14)),    # qwen's tied unembedding: no split
+    (8, 2048, 4096, (5, 7)),      # mamba2 z/x
+    (8, 2048, 128, (8, 4)),       # mamba2 B/C
+    (8, 2048, 64, (8, 4)),        # mamba2 dt
+    (8, 4096, 2048, (8, 8)),      # mamba2 out
+    (8, 2048, 50432, (1, 32)),    # mamba2's tied unembedding: no split
+    (1, 40, 8, (1, 1)),           # one k step
+])
+def test_matmul_decode_k_plan(M, K, N, plan):
+    """The served decode shapes at 132 SMs, and the cover of K's steps."""
+    assert decode_k_plan(N, K, n_sms=132) == plan
+    _check_cover(*plan, -(-K // 64))
+
+
+@pytest.mark.parametrize("K", [8, 64, 65, 896, 1000, 4864, 4096 * 4])
+@pytest.mark.parametrize("N", [8, 64, 896, 4864, 152064])
+@pytest.mark.parametrize("n_sms", [1, 132])
+def test_matmul_decode_k_plan_covers_k(K, N, n_sms):
+    _check_cover(*decode_k_plan(N, K, n_sms), -(-K // 64))
+
+
+@pytest.mark.parametrize("length,B,KV,plan", [
+    (1024, 8, 2, (8, 2)),    # served qwen at a full 1k cache: 128 blocks
+    (487, 8, 2, (8, 1)),     # a served length: one tile per split
+    (513, 8, 2, (5, 2)),
+    (1, 8, 2, (1, 1)),
+    (1024, 8, 8, (2, 8)),    # llama3_2_1b / qwen3_4b heads: 8 KV heads
+    (4096, 3, 2, (8, 8)),    # a long cache: each block walks 8 tiles
+    (1024, 66, 2, (1, 16)),  # B * KV fills the SMs alone
+])
+def test_decode_attention_split_plan(length, B, KV, plan):
+    assert decode_split_plan(length, B, KV, n_sms=132) == plan
+    _check_cover(*plan, -(-length // 64))
+
+
+@pytest.mark.parametrize("length", [1, 63, 64, 65, 135, 487, 513, 1023,
+                                    1024, 4096])
+@pytest.mark.parametrize("B,KV", [(1, 1), (3, 2), (8, 2), (8, 8), (64, 8)])
+def test_decode_attention_split_plan_covers_keys(length, B, KV):
+    _check_cover(*decode_split_plan(length, B, KV, n_sms=132),
+                 -(-length // 64))

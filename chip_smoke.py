@@ -15,11 +15,14 @@ exits non-zero):
 3. kernels  -- each kernel against its plain PyTorch version on the card
                at the shapes of the serving paths of qwen2_0_5b and
                mamba2_1_3b, with a served prefill's ragged length (8 x 455
-               rows for the matmul, S 455 for flash attention), decode
-               attention at served lengths and at hd 128 with groups of 4
-               (llama3_2_1b and qwen3_4b's heads), fp32 and
-               bf16 (matmul and attention: 2e-4 and
-               2e-2 of 1 + |plain|; ssd_scan: 1e-4 and 5e-2 of max |plain|),
+               rows for the matmul, S 455 for flash attention), the wmma
+               matmul kernel and its split-K reduce at two bf16 shapes TMA
+               cannot take, decode attention at served lengths and at hd
+               128 with groups of 4 (llama3_2_1b and qwen3_4b's heads),
+               fp32 and bf16 (matmul and attention: 2e-4 and 2e-2 of
+               1 + |plain|; bf16 decode attention also within 5e-5 +
+               1e-2 |plain|, about one bf16 rounding of its output;
+               ssd_scan: 1e-4 and 5e-2 of max |plain|),
                with CUDA-event times of the kernel, the plain version and,
                where one exists, one PyTorch library call, and the least
                time the card could take (bound_ms); the summary line sums
@@ -61,6 +64,9 @@ SEED = 0
 MODELS = ("qwen2_0_5b", "mamba2_1_3b")  # the served paths, in run order
 TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 SSD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}  # tests/test_kernels.py's
+# bf16 decode attention keeps P.V in fp32, as its plain version: (rtol, atol)
+# of about one bf16 rounding of the output (tests/test_torch_cuda.py's)
+DECODE_FINE_TOL = (1e-2, 5e-5)
 SLEEP_CYCLES = 2_000_000  # ~1 ms of GPU spin ahead of each timed call
 
 # Published peaks (NVIDIA data sheets; dense, no sparsity): bytes/s, and
@@ -215,7 +221,9 @@ def phase_kernels(torch, dev):
     from repro_torch.kernels.decode_attention import decode_attention_plain
     from repro_torch.kernels.flash_attention import flash_attention_plain
     from repro_torch.kernels.ssd_scan import ssd_scan_plain
-    from repro_torch.kernels.streamed_matmul import matmul_plain
+    from repro_torch.kernels.streamed_matmul import (ROUTE_LAUNCHES, k_splits,
+                                                     matmul_plain,
+                                                     matmul_route, sm_count)
 
     peaks = dev["peaks"]
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -248,9 +256,10 @@ def phase_kernels(torch, dev):
     cases = []
 
     def check(name, shape, dtype, got, want, n_bytes, n_ops, fns,
-              relative=False):
+              relative=False, fine=None):
         """got/want: a tensor or a tuple of them (ssd_scan: y and the
-        state).  relative: the rule of tests/test_kernels.py's SSD test."""
+        state).  relative: the rule of tests/test_kernels.py's SSD test.
+        fine: an (rtol, atol) the kernel must also meet."""
         torch.cuda.synchronize()
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
@@ -266,11 +275,17 @@ def phase_kernels(torch, dev):
             else:
                 excess = max(excess, (diff - tol * (1 + w.float().abs()))
                              .max().item())
+            if fine:
+                excess = max(excess, (diff - fine[1] - fine[0] * w.float()
+                                      .abs()).max().item())
         case = {"phase": "kernels", "name": name, "shape": shape,
                 "dtype": dname, "max_abs_err": err, "tol": tol,
                 "tol_rule": ("max |kernel - plain| <= tol * max |plain|"
                              if relative else
                              "|kernel - plain| <= tol * (1 + |plain|)")}
+        if fine:
+            case["fine_tol"] = {"rtol": fine[0], "atol": fine[1],
+                                "rule": "|kernel - plain| <= atol + rtol |plain|"}
         bytes_ms = n_bytes / peaks["bytes"] * 1e3
         ops_ms = n_ops / peaks[case["dtype"]] * 1e3
         case.update(bytes_ms=bytes_ms, ops_ms=ops_ms,
@@ -307,6 +322,28 @@ def phase_kernels(torch, dev):
                       matmul_plain(x, w), es * (M * K + K * N + M * N),
                       2 * M * N * K, fns)
                 del x, w
+
+    # the wmma kernel and its split-K reduce: bf16 products TMA cannot take
+    # (a row-major w with N % 8 != 0; K % 8 != 0, w the tied layout), at a
+    # decode step's M, so K is split
+    for M, K, N, w_t in ((8, 1000, 50, 0), (8, 1004, 896, 1)):
+        x = randn(M, K, dtype=torch.bfloat16)
+        w = (randn(N, K, dtype=torch.bfloat16, scale=K ** -0.5).t() if w_t
+             else randn(K, N, dtype=torch.bfloat16, scale=K ** -0.5))
+        if (matmul_route(M, N, K, w_t, x.dtype) != "wmma"
+                or k_splits(M, N, K, sm_count(x.device)) < 2):
+            raise AssertionError(f"({M}, {K}, {N}): not a split-K wmma case")
+        before = ROUTE_LAUNCHES["wmma"]
+        got = ops.matmul(x, w)
+        if ROUTE_LAUNCHES["wmma"] != before + 1:
+            raise AssertionError(f"({M}, {K}, {N}): the wmma kernel did not "
+                                 "launch")
+        fns = (lambda: ops.matmul(x, w), lambda: matmul_plain(x, w),
+               lambda: torch.matmul(x, w))
+        check("streamed_matmul", [M, K, N], torch.bfloat16, got,
+              matmul_plain(x, w), 2 * (M * K + K * N + M * N), 2 * M * N * K,
+              fns)
+        del x, w
 
     def sdpa(q, k, v, causal):  # (B, H, S, hd) views
         return lambda: F.scaled_dot_product_attention(
@@ -351,7 +388,9 @@ def phase_kernels(torch, dev):
                       ops.decode_attention(q, k, v, length),
                       decode_attention_plain(q, k, v, length),
                       es * (2 * B * H * hd + 2 * B * length * KV * hd),
-                      4 * B * H * length * hd, fns)
+                      4 * B * H * length * hd, fns,
+                      fine=DECODE_FINE_TOL if dtype == torch.bfloat16
+                      else None)
             del q, k, v
 
     # ssd_scan: mamba2_1_3b's prefill scan (64 heads of P 64, N 128, one

@@ -31,6 +31,7 @@ SIGNATURES = {
     "streamed_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "streamed_matmul_wgmma": [_P, _P, _P, _I, _I, _I, _I, _P],
     "streamed_matmul_decode": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "streamed_matmul_decode_tile": [],
     "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     "decode_attention_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                              _I, _I, _F, _P],

@@ -199,7 +199,6 @@ int launch(const void* q, const void* k, const void* v, void* out, float* o_part
 constexpr int W_TILE = DCHUNK;            // keys per tile
 constexpr int W_STAGES = 4;               // ring of K/V tiles
 constexpr int W_THREADS = 128 + 32;       // one consumer warpgroup, one producer warp
-constexpr int MAX_CLUSTER = 8;            // splits of one (b, KV head): a portable cluster
 
 template <int HD>
 struct DecodeTiles {
@@ -439,6 +438,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out, int B, 
                  int KV, int length, int splits, int tiles_per_split, float scale,
                  cudaStream_t stream) {
   using T = DecodeTiles<HD>;
+  static hopper::SmemRaised raised;
   CUtensorMap qmap, kmap, vmap;
   const uint64_t qdims[3] = {HD, (uint64_t)H, (uint64_t)B};
   const uint64_t qstr[2] = {HD * 2, (uint64_t)H * HD * 2};
@@ -451,8 +451,8 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out, int B, 
       !hopper::make_map_bf16(&vmap, v, 4, kdims, kstr, kbox))
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(hopper::launch_cluster(
-      decode_wgmma_kernel<HD>, dim3(splits, KV, B), W_THREADS, T::SMEM, splits, stream, qmap,
-      kmap, vmap, static_cast<__nv_bfloat16*>(out), H, KV, length, tiles_per_split,
+      decode_wgmma_kernel<HD>, raised, dim3(splits, KV, B), W_THREADS, T::SMEM, splits, stream,
+      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(out), H, KV, length, tiles_per_split,
       scale * 1.4426950408889634f));
 }
 
@@ -481,8 +481,8 @@ extern "C" int decode_attention_f32(const void* q, const void* k, const void* v,
 }
 
 // bf16, one launch: splits * tiles_per_split 64-key tiles cover length, the
-// last split holds at least one key, splits <= MAX_CLUSTER; hd 64 or 128,
-// H / KV <= MAXG; q, k, v 16-byte aligned (TMA).  Returns the cudaError_t
+// last split holds at least one key, splits <= hopper::MAX_CLUSTER; hd 64 or
+// 128, H / KV <= MAXG; q, k, v 16-byte aligned (TMA).  Returns the cudaError_t
 // of the launch, or cudaErrorInvalidValue for what the kernel does not take.
 extern "C" int decode_attention_bf16(const void* q, const void* k, const void* v, void* out,
                                      int B, int S, int H, int KV, int hd, int length,
@@ -491,8 +491,8 @@ extern "C" int decode_attention_bf16(const void* q, const void* k, const void* v
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int tiles = (length + W_TILE - 1) / W_TILE;
   if (length < 1 || length > S || KV < 1 || H % KV || H / KV > MAXG || splits < 1 ||
-      splits > MAX_CLUSTER || tiles_per_split < 1 || (splits - 1) * tiles_per_split >= tiles ||
-      splits * tiles_per_split < tiles)
+      splits > hopper::MAX_CLUSTER || tiles_per_split < 1 ||
+      (splits - 1) * tiles_per_split >= tiles || splits * tiles_per_split < tiles)
     return static_cast<int>(cudaErrorInvalidValue);
   if (hd == 64)
     return launch_wgmma<64>(q, k, v, out, B, S, H, KV, length, splits, tiles_per_split, scale, s);

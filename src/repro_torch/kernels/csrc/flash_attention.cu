@@ -329,6 +329,7 @@ template <int HD>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out, int B, int S, int H,
                  int KV, int causal, float scale, cudaStream_t stream) {
   using T = FlashTiles<HD>;
+  static hopper::SmemRaised raised;
   CUtensorMap qmap, kmap, vmap;
   const uint64_t qdims[4] = {HD, (uint64_t)H, (uint64_t)S, (uint64_t)B};
   const uint64_t qstr[3] = {HD * 2, (uint64_t)H * HD * 2, (uint64_t)S * H * HD * 2};
@@ -340,7 +341,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out, int B, 
       !hopper::make_map_bf16(&kmap, k, 4, kdims, kstr, kbox) ||
       !hopper::make_map_bf16(&vmap, v, 4, kdims, kstr, kbox))
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err = hopper::allow_smem(flash_wgmma_kernel<HD>, T::SMEM);
+  const cudaError_t err = hopper::allow_smem(flash_wgmma_kernel<HD>, T::SMEM, raised);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((S + F_BQ - 1) / F_BQ, H, B);
   flash_wgmma_kernel<HD><<<grid, F_THREADS, T::SMEM, stream>>>(

@@ -3,11 +3,12 @@
 // wgmma fence / commit / wait discipline, the bf16 -> fp32 wgmma
 // instructions at the widths the kernels use, and the cluster barrier and
 // distributed shared-memory reads that merge a cluster's partial results.
-// On the host: a cluster launch, and a TMA tensor map
-// made per call with the driver's cuTensorMapEncodeTiled, fetched with
-// dlsym from the libcuda that the CUDA runtime has already loaded, so the
-// library links without -lcuda.  A map is passed to its kernel by value as a
-// `const __grid_constant__ CUtensorMap`, never copied to device memory.
+// On the host: a cluster launch, a kernel's shared-memory limit raised once
+// per device, and a TMA tensor map made per call with cuTensorMapEncodeTiled,
+// fetched with dlsym from the libcuda that the CUDA runtime has already
+// loaded, so the library links without -lcuda.  A map is passed to its
+// kernel by value as a `const __grid_constant__ CUtensorMap`, never copied
+// to device memory.
 //
 // Shared-memory tiles are written by TMA with the 128-byte swizzle: a tile
 // is a run of 128-byte rows (64 bf16), in 1024-byte blocks of 8 rows whose
@@ -20,6 +21,8 @@
 #include <cuda_runtime.h>
 #include <dlfcn.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace hopper {
 
@@ -122,7 +125,12 @@ __device__ __forceinline__ void named_bar_sync(int id, int count) {
 
 // ------------------------------------------------------------------ clusters
 // The blocks of a thread-block cluster run at once on neighbouring SMs and
-// can read each other's shared memory (distributed shared memory).
+// can read each other's shared memory (distributed shared memory).  A
+// cluster holds at most MAX_CLUSTER blocks, the portable size; the host's
+// split plans (kernels/streamed_matmul.py:MAX_CLUSTER) keep to it and
+// launch_cluster refuses more.
+constexpr int MAX_CLUSTER = 8;
+
 __device__ __forceinline__ uint32_t cluster_rank() {
   uint32_t r;
   asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
@@ -306,20 +314,43 @@ inline bool make_map_bf16(CUtensorMap* map, const void* ptr, int rank, const uin
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// The map of a row-major bf16 matrix of `rows` rows of `cols` elements, in
+// boxes of box_rows rows of box_cols (64) elements.
+inline bool make_map_2d(CUtensorMap* map, const void* ptr, int cols, int rows, uint32_t box_cols,
+                        uint32_t box_rows) {
+  const uint64_t dims[2] = {(uint64_t)cols, (uint64_t)rows}, strides[1] = {(uint64_t)cols * 2};
+  const uint32_t box[2] = {box_cols, box_rows};
+  return make_map_bf16(map, ptr, 2, dims, strides, box);
+}
+
+// The devices (a bit each) on which a kernel's dynamic shared-memory limit
+// has been raised: one static per kernel, kept by its launcher.
+using SmemRaised = std::atomic<uint64_t>;
+
 // Raises a kernel's dynamic shared-memory limit to what it needs (above the
-// default 48 KB).  A host-side attribute: no wait on the card.
+// default 48 KB), once per device: a function attribute, set on the host
+// with no wait on the card, and kept for later launches.
 template <typename Kernel>
-inline cudaError_t allow_smem(Kernel kernel, int bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+inline cudaError_t allow_smem(Kernel kernel, int bytes, SmemRaised& raised) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const uint64_t bit = 1ull << (dev % 64);
+  if (raised.load(std::memory_order_relaxed) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) raised.fetch_or(bit, std::memory_order_relaxed);
+  return err;
 }
 
 // Launches `kernel` with clusters of `cluster_x` blocks along the grid's x
-// (at most 8, the portable size; gridDim.x a multiple of it).  The error of
-// a refused launch is returned, never retried another way.
+// (1 to MAX_CLUSTER; gridDim.x a multiple of it).  The error of a refused
+// launch is returned, never retried another way.
 template <typename... Params, typename... Args>
-inline cudaError_t launch_cluster(void (*kernel)(Params...), dim3 grid, int threads, int smem,
-                                  int cluster_x, cudaStream_t stream, Args... args) {
-  cudaError_t err = allow_smem(kernel, smem);
+inline cudaError_t launch_cluster(void (*kernel)(Params...), SmemRaised& raised, dim3 grid,
+                                  int threads, int smem, int cluster_x, cudaStream_t stream,
+                                  Args... args) {
+  if (cluster_x < 1 || cluster_x > MAX_CLUSTER) return cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(kernel, smem, raised);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;

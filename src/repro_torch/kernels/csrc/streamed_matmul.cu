@@ -38,7 +38,8 @@
 // split.  The host's plan (kernels/streamed_matmul.py) picks the split.
 // Other bf16 (what TMA cannot take, such as K % 8 != 0: matmul_bf16_kernel):
 // one block per 64x64 output tile walks K in 32-wide steps through shared
-// memory with wmma (mma.sync) into fp32 accumulators; when the output tiles
+// memory, loaded element by element (its strides or addresses are not
+// 16-byte multiples), with wmma (mma.sync) into fp32 accumulators; when the output tiles
 // alone would leave most SMs idle, the caller splits K over blockIdx.z: each
 // split writes an fp32 partial tile to a workspace and a second pass sums
 // them.  The weight may be given transposed (w_t=1: w is the transpose of a
@@ -70,73 +71,36 @@ constexpr int SMEM_AB = (BM * LDA + (BK * LDB > BN * LDBT ? BK * LDB : BN * LDBT
 constexpr int SMEM_C = BM * LDC * 4;
 constexpr int SMEM_BYTES = SMEM_AB > SMEM_C ? SMEM_AB : SMEM_C;
 
-template <bool VEC>
+// The wmma kernel takes only products that TMA cannot (a stride not a
+// multiple of 16 bytes, a misaligned tensor), so its loads are per element.
 __device__ __forceinline__ void load_x_tile(const __nv_bfloat16* __restrict__ x,
-                                            __nv_bfloat16* As, int M, int K,
-                                            int m0, int k0) {
-  if (VEC) {
-    for (int i = threadIdx.x; i < BM * BK / 8; i += THREADS) {
-      const int r = i / (BK / 8), c = (i % (BK / 8)) * 8;
-      const int gm = m0 + r, gk = k0 + c;
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (gm < M && gk < K)
-        val = *reinterpret_cast<const uint4*>(x + (size_t)gm * K + gk);
-      *reinterpret_cast<uint4*>(As + r * LDA + c) = val;
-    }
-  } else {
-    for (int i = threadIdx.x; i < BM * BK; i += THREADS) {
-      const int r = i / BK, c = i % BK;
-      const int gm = m0 + r, gk = k0 + c;
-      As[r * LDA + c] = (gm < M && gk < K) ? x[(size_t)gm * K + gk]
-                                           : __float2bfloat16(0.f);
-    }
+                                            __nv_bfloat16* As, int M, int K, int m0, int k0) {
+  for (int i = threadIdx.x; i < BM * BK; i += THREADS) {
+    const int r = i / BK, c = i % BK;
+    const int gm = m0 + r, gk = k0 + c;
+    As[r * LDA + c] = (gm < M && gk < K) ? x[(size_t)gm * K + gk] : __float2bfloat16(0.f);
   }
 }
 
-template <bool WT, bool VEC>
+template <bool WT>
 __device__ __forceinline__ void load_w_tile(const __nv_bfloat16* __restrict__ w,
-                                            __nv_bfloat16* Bs, int N, int K,
-                                            int k0, int n0) {
+                                            __nv_bfloat16* Bs, int N, int K, int k0, int n0) {
   if (!WT) {  // w row-major (K, N): tile rows along k, n contiguous
-    if (VEC) {
-      for (int i = threadIdx.x; i < BK * BN / 8; i += THREADS) {
-        const int r = i / (BN / 8), c = (i % (BN / 8)) * 8;
-        const int gk = k0 + r, gn = n0 + c;
-        uint4 val = make_uint4(0, 0, 0, 0);
-        if (gk < K && gn < N)
-          val = *reinterpret_cast<const uint4*>(w + (size_t)gk * N + gn);
-        *reinterpret_cast<uint4*>(Bs + r * LDB + c) = val;
-      }
-    } else {
-      for (int i = threadIdx.x; i < BK * BN; i += THREADS) {
-        const int r = i / BN, c = i % BN;
-        const int gk = k0 + r, gn = n0 + c;
-        Bs[r * LDB + c] = (gk < K && gn < N) ? w[(size_t)gk * N + gn]
-                                             : __float2bfloat16(0.f);
-      }
+    for (int i = threadIdx.x; i < BK * BN; i += THREADS) {
+      const int r = i / BN, c = i % BN;
+      const int gk = k0 + r, gn = n0 + c;
+      Bs[r * LDB + c] = (gk < K && gn < N) ? w[(size_t)gk * N + gn] : __float2bfloat16(0.f);
     }
   } else {  // w = transpose of row-major (N, K): tile rows along n, k contiguous
-    if (VEC) {
-      for (int i = threadIdx.x; i < BN * BK / 8; i += THREADS) {
-        const int r = i / (BK / 8), c = (i % (BK / 8)) * 8;
-        const int gn = n0 + r, gk = k0 + c;
-        uint4 val = make_uint4(0, 0, 0, 0);
-        if (gn < N && gk < K)
-          val = *reinterpret_cast<const uint4*>(w + (size_t)gn * K + gk);
-        *reinterpret_cast<uint4*>(Bs + r * LDBT + c) = val;
-      }
-    } else {
-      for (int i = threadIdx.x; i < BN * BK; i += THREADS) {
-        const int r = i / BK, c = i % BK;
-        const int gn = n0 + r, gk = k0 + c;
-        Bs[r * LDBT + c] = (gn < N && gk < K) ? w[(size_t)gn * K + gk]
-                                              : __float2bfloat16(0.f);
-      }
+    for (int i = threadIdx.x; i < BN * BK; i += THREADS) {
+      const int r = i / BK, c = i % BK;
+      const int gn = n0 + r, gk = k0 + c;
+      Bs[r * LDBT + c] = (gn < N && gk < K) ? w[(size_t)gn * K + gk] : __float2bfloat16(0.f);
     }
   }
 }
 
-template <bool WT, bool VEC>
+template <bool WT>
 __global__ void __launch_bounds__(THREADS)
 matmul_bf16_kernel(const __nv_bfloat16* __restrict__ x,
                    const __nv_bfloat16* __restrict__ w,
@@ -163,8 +127,8 @@ matmul_bf16_kernel(const __nv_bfloat16* __restrict__ x,
   const int k_begin = blockIdx.z * k_per_split;
   const int k_end = min(K, k_begin + k_per_split);
   for (int k0 = k_begin; k0 < k_end; k0 += BK) {
-    load_x_tile<VEC>(x, As, M, K, m0, k0);
-    load_w_tile<WT, VEC>(w, Bs, N, K, k0, n0);
+    load_x_tile(x, As, M, K, m0, k0);
+    load_w_tile<WT>(w, Bs, N, K, k0, n0);
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
@@ -305,20 +269,21 @@ matmul_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
 }
 
 // ------------------------------------------------ bf16 decode path, wgmma
-constexpr int D_COLS = 64;               // output columns per block: wgmma's 64 rows
-constexpr int D_BK = 64;                 // k per stage: one 128-byte swizzle row
+// A block's weight tile: 64 output columns (wgmma's 64 rows of A) by 64 k
+// (one 128-byte swizzle row); the host's plan reads it through
+// streamed_matmul_decode_tile().
+constexpr int D_TILE = 64;
 // Ring depth: 4 stages keep a block near 40 KB of shared memory (one group
 // of 8 rows), so five blocks fit an SM; at 8 stages (75 KB) only two fit,
 // and plans of more than two blocks per SM ran in two waves.
 constexpr int D_STAGES = 4;
 constexpr int D_THREADS = 128 + 32;      // one consumer warpgroup, one producer warp
-constexpr int D_MAX_CLUSTER = 8;         // K ranges of one column tile: a portable cluster
-constexpr int D_PSTRIDE = D_COLS + 4;    // fp32 partial rows, padded against bank conflicts
+constexpr int D_PSTRIDE = D_TILE + 4;    // fp32 partial rows, padded against bank conflicts
 
 template <int NG>  // groups of 8 batch rows
 struct DecodeTiles {
-  static constexpr int A_BYTES = D_COLS * D_BK * 2;  // w tile, 8 KB
-  static constexpr int B_BYTES = NG * 8 * D_BK * 2;  // x tile, 1 KB per group
+  static constexpr int A_BYTES = D_TILE * D_TILE * 2;  // w tile, 8 KB
+  static constexpr int B_BYTES = NG * 8 * D_TILE * 2;  // x tile, 1 KB per group
   static constexpr int STAGE = A_BYTES + B_BYTES;
   static constexpr int PART = NG * 8 * D_PSTRIDE * 4;
   static constexpr int SMEM = D_STAGES * STAGE + PART + 2 * D_STAGES * 8 + 1024;
@@ -338,9 +303,9 @@ matmul_decode_kernel(const __grid_constant__ CUtensorMap xmap,
   uint64_t* full = reinterpret_cast<uint64_t*>(part + NG * 8 * D_PSTRIDE);
   uint64_t* empty = full + D_STAGES;
 
-  const int n0 = blockIdx.y * D_COLS;
+  const int n0 = blockIdx.y * D_TILE;
   const int i0 = blockIdx.x * steps_per_split;
-  const int nsteps = min(steps_per_split, (K + D_BK - 1) / D_BK - i0);
+  const int nsteps = min(steps_per_split, (K + D_TILE - 1) / D_TILE - i0);
   if (threadIdx.x == 0) {
     for (int s = 0; s < D_STAGES; ++s) {
       mbar_init(&full[s], 1);
@@ -359,7 +324,7 @@ matmul_decode_kernel(const __grid_constant__ CUtensorMap xmap,
         const int s = i % D_STAGES;
         if (i >= D_STAGES) mbar_wait(&empty[s], ((i / D_STAGES) + 1) & 1);
         unsigned char* a = smem + s * T::STAGE;
-        const int k0 = (i0 + i) * D_BK;
+        const int k0 = (i0 + i) * D_TILE;
         mbar_arrive_expect_tx(&full[s], T::STAGE);
         if (WT) tma_load_2d(a, &wmap, &full[s], k0, n0);  // (N, K) rows: 64 n of 64 k
         else tma_load_2d(a, &wmap, &full[s], n0, k0);     // (K, N) rows: 64 k of 64 n
@@ -382,7 +347,7 @@ matmul_decode_kernel(const __grid_constant__ CUtensorMap xmap,
       for (int g = 0; g < NG; ++g) fence_regs(acc[g]);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D_BK / 16; ++kk) {
+      for (int kk = 0; kk < D_TILE / 16; ++kk) {
         const uint64_t da = WT ? make_desc(a + kk * 32, 16, 1024)
                                : make_desc(a + kk * 2048, T::A_BYTES, 1024);
 #pragma unroll
@@ -415,24 +380,29 @@ matmul_decode_kernel(const __grid_constant__ CUtensorMap xmap,
   cluster_sync();
   const int splits = gridDim.x, rank = cluster_rank();
   const int rows = min(M, 8 * NG);
-  for (int i = rank * D_THREADS + threadIdx.x; i < rows * D_COLS; i += splits * D_THREADS) {
-    const int r = i / D_COLS, c = i % D_COLS;
+  for (int i = rank * D_THREADS + threadIdx.x; i < rows * D_TILE; i += splits * D_THREADS) {
+    const int r = i / D_TILE, c = i % D_TILE;
     if (n0 + c >= N) continue;
     const float* p = part + r * D_PSTRIDE + c;
     float sum = 0.f;
 #pragma unroll
-    for (int q = 0; q < D_MAX_CLUSTER; ++q)
+    for (int q = 0; q < MAX_CLUSTER; ++q)
       if (q < splits) sum += ld_dsmem_f32(p, q);
     out[(size_t)r * N + n0 + c] = __float2bfloat16(sum);
   }
   cluster_sync();
 }
 
+// Groups of 8 batch rows that the decode kernel runs for M rows (N = 8 per
+// wgmma): 1, 2, 4 or 8.
+int row_groups(int M) { return M <= 8 ? 1 : M <= 16 ? 2 : M <= 32 ? 4 : 8; }
+
 template <bool WT, int NG>
 cudaError_t launch_decode(const CUtensorMap& xmap, const CUtensorMap& wmap, void* out, int M,
                           int N, int K, int splits, int steps_per_split, cudaStream_t s) {
-  const dim3 grid(splits, (N + D_COLS - 1) / D_COLS);
-  return hopper::launch_cluster(matmul_decode_kernel<WT, NG>, grid, D_THREADS,
+  static hopper::SmemRaised raised;
+  const dim3 grid(splits, (N + D_TILE - 1) / D_TILE);
+  return hopper::launch_cluster(matmul_decode_kernel<WT, NG>, raised, grid, D_THREADS,
                                 DecodeTiles<NG>::SMEM, splits, s, xmap, wmap,
                                 static_cast<__nv_bfloat16*>(out), M, N, K, steps_per_split);
 }
@@ -440,10 +410,33 @@ cudaError_t launch_decode(const CUtensorMap& xmap, const CUtensorMap& wmap, void
 template <bool WT>
 cudaError_t launch_decode_groups(const CUtensorMap& xmap, const CUtensorMap& wmap, void* out,
                                  int M, int N, int K, int splits, int steps, cudaStream_t s) {
-  if (M <= 8) return launch_decode<WT, 1>(xmap, wmap, out, M, N, K, splits, steps, s);
-  if (M <= 16) return launch_decode<WT, 2>(xmap, wmap, out, M, N, K, splits, steps, s);
-  if (M <= 32) return launch_decode<WT, 4>(xmap, wmap, out, M, N, K, splits, steps, s);
-  return launch_decode<WT, 8>(xmap, wmap, out, M, N, K, splits, steps, s);
+  switch (row_groups(M)) {
+    case 1: return launch_decode<WT, 1>(xmap, wmap, out, M, N, K, splits, steps, s);
+    case 2: return launch_decode<WT, 2>(xmap, wmap, out, M, N, K, splits, steps, s);
+    case 4: return launch_decode<WT, 4>(xmap, wmap, out, M, N, K, splits, steps, s);
+    default: return launch_decode<WT, 8>(xmap, wmap, out, M, N, K, splits, steps, s);
+  }
+}
+
+// The map of w, read in place in the boxes of box_k k by box_n output
+// columns: w_t = 0 is row-major (K, N), w_t = 1 the transpose of a row-major
+// (N, K) array.
+bool make_w_map(CUtensorMap* map, const void* w, int N, int K, int w_t, uint32_t box_k,
+                uint32_t box_n) {
+  return w_t ? hopper::make_map_2d(map, w, K, N, box_k, box_n)
+             : hopper::make_map_2d(map, w, N, K, box_n, box_k);
+}
+
+template <bool WT>
+cudaError_t launch_prefill(const CUtensorMap& xmap, const CUtensorMap& wmap, void* out, int M,
+                           int N, int K, cudaStream_t s) {
+  static hopper::SmemRaised raised;
+  const cudaError_t err = hopper::allow_smem(matmul_wgmma_kernel<WT>, G_SMEM_BYTES, raised);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + G_BN - 1) / G_BN, (M + G_BM - 1) / G_BM);
+  matmul_wgmma_kernel<WT><<<grid, G_THREADS, G_SMEM_BYTES, s>>>(
+      xmap, wmap, static_cast<__nv_bfloat16*>(out), M, N, K);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------- fp32 path
@@ -514,8 +507,6 @@ __global__ void splitk_reduce_kernel(const float* __restrict__ ws, T* __restrict
   }
 }
 
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
-
 }  // namespace
 
 // dtype: 0 = fp32, 1 = bf16.  w_t: 0 = w row-major (K, N); 1 = w is the
@@ -531,14 +522,11 @@ extern "C" int streamed_matmul(const void* x, const void* w, void* out, void* ws
   if (dtype == 1) {
     const int k_per = ((K + BK - 1) / BK + splits - 1) / splits * BK;
     const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
-    const bool vec = K % 8 == 0 && (w_t || N % 8 == 0) && aligned16(x) && aligned16(w);
     auto xb = static_cast<const __nv_bfloat16*>(x);
     auto wb = static_cast<const __nv_bfloat16*>(w);
     auto ob = static_cast<__nv_bfloat16*>(out);
-    if (w_t && vec) matmul_bf16_kernel<true, true><<<grid, THREADS, 0, s>>>(xb, wb, ob, wsf, M, N, K, k_per);
-    else if (w_t) matmul_bf16_kernel<true, false><<<grid, THREADS, 0, s>>>(xb, wb, ob, wsf, M, N, K, k_per);
-    else if (vec) matmul_bf16_kernel<false, true><<<grid, THREADS, 0, s>>>(xb, wb, ob, wsf, M, N, K, k_per);
-    else matmul_bf16_kernel<false, false><<<grid, THREADS, 0, s>>>(xb, wb, ob, wsf, M, N, K, k_per);
+    if (w_t) matmul_bf16_kernel<true><<<grid, THREADS, 0, s>>>(xb, wb, ob, wsf, M, N, K, k_per);
+    else matmul_bf16_kernel<false><<<grid, THREADS, 0, s>>>(xb, wb, ob, wsf, M, N, K, k_per);
   } else if (dtype == 0) {
     const int k_per = ((K + FBK - 1) / FBK + splits - 1) / splits * FBK;
     const dim3 grid((N + FBN - 1) / FBN, (M + FBM - 1) / FBM, splits);
@@ -569,35 +557,15 @@ extern "C" int streamed_matmul(const void* x, const void* w, void* out, void* ws
 // tensor map is refused.
 extern "C" int streamed_matmul_wgmma(const void* x, const void* w, void* out, int M, int N,
                                      int K, int w_t, void* stream) {
+  // x in 128-row boxes; w in one 128 x 64 box per stage (w_t = 1), or two
+  // 64 x 64 boxes (w_t = 0: the 128 columns of an MN-major tile)
   CUtensorMap xmap, wmap;
-  const uint64_t xdims[2] = {(uint64_t)K, (uint64_t)M}, xstr[1] = {(uint64_t)K * 2};
-  const uint32_t xbox[2] = {G_BK, G_BM};
-  bool ok = hopper::make_map_bf16(&xmap, x, 2, xdims, xstr, xbox);
-  if (w_t) {
-    const uint64_t dims[2] = {(uint64_t)K, (uint64_t)N}, str[1] = {(uint64_t)K * 2};
-    const uint32_t box[2] = {G_BK, G_BN};
-    ok = ok && hopper::make_map_bf16(&wmap, w, 2, dims, str, box);
-  } else {
-    const uint64_t dims[2] = {(uint64_t)N, (uint64_t)K}, str[1] = {(uint64_t)N * 2};
-    const uint32_t box[2] = {64, G_BK};
-    ok = ok && hopper::make_map_bf16(&wmap, w, 2, dims, str, box);
-  }
-  if (!ok || M < 1 || N < 1 || K < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (M < 1 || N < 1 || K < 1 || !hopper::make_map_2d(&xmap, x, K, M, G_BK, G_BM) ||
+      !make_w_map(&wmap, w, N, K, w_t, G_BK, w_t ? G_BN : 64))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((N + G_BN - 1) / G_BN, (M + G_BM - 1) / G_BM);
-  auto ob = static_cast<__nv_bfloat16*>(out);
-  cudaError_t err;
-  if (w_t) {
-    err = hopper::allow_smem(matmul_wgmma_kernel<true>, G_SMEM_BYTES);
-    if (err == cudaSuccess)
-      matmul_wgmma_kernel<true><<<grid, G_THREADS, G_SMEM_BYTES, s>>>(xmap, wmap, ob, M, N, K);
-  } else {
-    err = hopper::allow_smem(matmul_wgmma_kernel<false>, G_SMEM_BYTES);
-    if (err == cudaSuccess)
-      matmul_wgmma_kernel<false><<<grid, G_THREADS, G_SMEM_BYTES, s>>>(xmap, wmap, ob, M, N, K);
-  }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(w_t ? launch_prefill<true>(xmap, wmap, out, M, N, K, s)
+                              : launch_prefill<false>(xmap, wmap, out, M, N, K, s));
 }
 
 // The decode path: bf16 x (M, K) row-major with 1 <= M < 64, w as
@@ -608,28 +576,21 @@ extern "C" int streamed_matmul_wgmma(const void* x, const void* w, void* out, in
 extern "C" int streamed_matmul_decode(const void* x, const void* w, void* out, int M, int N,
                                       int K, int w_t, int splits, int steps_per_split,
                                       void* stream) {
-  const int steps = (K + D_BK - 1) / D_BK;
-  if (M < 1 || M >= 64 || N < 1 || K < 1 || splits < 1 || splits > D_MAX_CLUSTER ||
+  const int steps = (K + D_TILE - 1) / D_TILE;
+  if (M < 1 || M >= 64 || N < 1 || K < 1 || splits < 1 || splits > hopper::MAX_CLUSTER ||
       steps_per_split < 1 || (splits - 1) * steps_per_split >= steps ||
       splits * steps_per_split < steps)
     return static_cast<int>(cudaErrorInvalidValue);
+  // x in boxes of all its row groups (rows past M read zero), w in 64 x 64
   CUtensorMap xmap, wmap;
-  const int xrows = M <= 8 ? 8 : M <= 16 ? 16 : M <= 32 ? 32 : 64;
-  const uint64_t xdims[2] = {(uint64_t)K, (uint64_t)M}, xstr[1] = {(uint64_t)K * 2};
-  const uint32_t xbox[2] = {D_BK, (uint32_t)xrows};
-  bool ok = hopper::make_map_bf16(&xmap, x, 2, xdims, xstr, xbox);
-  if (w_t) {
-    const uint64_t dims[2] = {(uint64_t)K, (uint64_t)N}, str[1] = {(uint64_t)K * 2};
-    const uint32_t box[2] = {D_BK, D_COLS};
-    ok = ok && hopper::make_map_bf16(&wmap, w, 2, dims, str, box);
-  } else {
-    const uint64_t dims[2] = {(uint64_t)N, (uint64_t)K}, str[1] = {(uint64_t)N * 2};
-    const uint32_t box[2] = {D_COLS, D_BK};
-    ok = ok && hopper::make_map_bf16(&wmap, w, 2, dims, str, box);
-  }
-  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  if (!hopper::make_map_2d(&xmap, x, K, M, D_TILE, 8 * row_groups(M)) ||
+      !make_w_map(&wmap, w, N, K, w_t, D_TILE, D_TILE))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
       w_t ? launch_decode_groups<true>(xmap, wmap, out, M, N, K, splits, steps_per_split, s)
           : launch_decode_groups<false>(xmap, wmap, out, M, N, K, splits, steps_per_split, s));
 }
+
+// The decode kernel's tile edge: output columns per block and k per step.
+extern "C" int streamed_matmul_decode_tile() { return D_TILE; }

@@ -12,6 +12,7 @@ split-sequence kernel and its combine pass.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -20,14 +21,20 @@ from . import _build
 from .flash_attention import HEAD_DIMS, NEG_INF
 from .streamed_matmul import DTYPE_CODES, cluster_runs, sm_count
 
-DECODE_TILE = 64  # keys per tile of the bf16 kernel
 
-
-def decode_split_plan(length: int, B: int, KV: int, n_sms: int):
+def decode_split_plan(length: int, B: int, KV: int, n_sms: int, tile: int):
     """(splits, tiles per split) of the bf16 kernel: ``length`` keys in
-    64-key tiles, cut into contiguous runs that form a cluster, so that
-    B * KV * splits blocks fill the ``n_sms`` SMs."""
-    return cluster_runs(-(-length // DECODE_TILE), n_sms // max(1, B * KV))
+    tiles of ``tile`` keys (``decode_tile()``), cut into contiguous runs
+    that form a cluster, so that B * KV * splits blocks fill the ``n_sms``
+    SMs."""
+    return cluster_runs(-(-length // tile), n_sms // max(1, B * KV))
+
+
+@functools.lru_cache(maxsize=None)
+def decode_tile() -> int:
+    """Keys per tile of both decode kernels, read once from the built
+    library."""
+    return _build.load().decode_attention_chunk()
 
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -77,13 +84,14 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if any(t.data_ptr() % 16 for t in (q, k, v)):
             raise ValueError("decode_attention: bf16 q, k, v must be 16-byte "
                              "aligned (TMA)")
-        splits, per = decode_split_plan(length, B, KV, sm_count(q.device))
+        splits, per = decode_split_plan(length, B, KV, sm_count(q.device),
+                                        decode_tile())
         _build.check(lib.decode_attention_bf16(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S,
             H, KV, hd, length, splits, per, 1.0 / math.sqrt(hd), stream),
             "decode_attention_bf16")
         return out
-    n_splits = -(-length // lib.decode_attention_chunk())
+    n_splits = -(-length // decode_tile())
     o_part = torch.empty((B, H, n_splits, hd), dtype=torch.float32,
                          device=q.device)
     m_part = torch.empty((B, H, n_splits), dtype=torch.float32,

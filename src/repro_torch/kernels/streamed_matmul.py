@@ -18,9 +18,9 @@ from . import _build
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 TILE = 64  # output tile edge of the wmma and fp32 kernels
 WGMMA_MIN_M = 64  # one wgmma row block: below it the decode kernel serves
-DECODE_COLS = 64  # output columns per block of the decode kernel
-DECODE_BK = 64  # k per step of the decode kernel
-MAX_CLUSTER = 8  # blocks of a portable thread-block cluster
+# blocks of a portable thread-block cluster, the most a split plan makes
+# (csrc/hopper.cuh's launch_cluster refuses more)
+MAX_CLUSTER = 8
 # launches of matmul_cuda by route (see matmul_route)
 ROUTE_LAUNCHES: Dict[str, int] = {"wgmma": 0, "wgmma_decode": 0, "wmma": 0,
                                   "fp32": 0}
@@ -66,13 +66,20 @@ def cluster_runs(units: int, want: int):
     return -(-units // per), per
 
 
-def decode_k_plan(N: int, K: int, n_sms: int):
-    """(splits, k steps per split) of the decode kernel: one block per 64
-    output columns and a range of 64-deep k steps; where the column tiles
-    are fewer than about two per SM, K is cut into ranges that form a
-    cluster and sum their partials in the same launch."""
-    tiles = -(-N // DECODE_COLS)
-    return cluster_runs(-(-K // DECODE_BK), -(-2 * n_sms // tiles))
+def decode_k_plan(N: int, K: int, n_sms: int, tile: int):
+    """(splits, k steps per split) of the decode kernel, whose blocks each
+    take ``tile`` output columns and a range of ``tile``-deep k steps
+    (``decode_tile()``); where the column tiles are fewer than about two per
+    SM, K is cut into ranges that form a cluster and sum their partials in
+    the same launch."""
+    tiles = -(-N // tile)
+    return cluster_runs(-(-K // tile), -(-2 * n_sms // tiles))
+
+
+@functools.lru_cache(maxsize=None)
+def decode_tile() -> int:
+    """The decode kernel's tile edge, read once from the built library."""
+    return _build.load().streamed_matmul_decode_tile()
 
 
 def matmul_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -120,7 +127,7 @@ def matmul_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
             x.data_ptr(), w.data_ptr(), out.data_ptr(), M, N, K, w_t, stream),
             "streamed_matmul_wgmma")
     elif route == "wgmma_decode":
-        splits, per = decode_k_plan(N, K, sm_count(x.device))
+        splits, per = decode_k_plan(N, K, sm_count(x.device), decode_tile())
         _build.check(lib.streamed_matmul_decode(
             x.data_ptr(), w.data_ptr(), out.data_ptr(), M, N, K, w_t, splits,
             per, stream), "streamed_matmul_decode")

@@ -13,10 +13,11 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.decode_attention import decode_attention_plain
+from repro_torch.kernels.decode_attention import decode_tile as keys_per_tile
 from repro_torch.kernels.flash_attention import flash_attention_plain
 from repro_torch.kernels.ssd_scan import ssd_scan_plain
-from repro_torch.kernels.streamed_matmul import (ROUTE_LAUNCHES, matmul_plain,
-                                                 matmul_route)
+from repro_torch.kernels.streamed_matmul import (ROUTE_LAUNCHES, decode_tile,
+                                                 matmul_plain, matmul_route)
 
 DTYPES = {"float32": (torch.float32, 2e-4), "bfloat16": (torch.bfloat16, 2e-2)}
 # (M, K, N).  bf16 with 16-byte strides takes a wgmma kernel: the prefill
@@ -217,6 +218,14 @@ def test_cuda_decode_call_is_one_launch(card, call):
     kernels, allocated = _launches_and_allocations(fn)
     assert len(kernels) == 1, kernels
     assert allocated == 1
+
+
+@pytest.mark.cuda
+def test_cuda_split_plans_take_the_kernels_tiles(card):
+    """The CPU tests of the split plans give them 64-wide tiles: the tile
+    edge the built kernels report."""
+    assert decode_tile() == 64
+    assert keys_per_tile() == 64
 
 
 @pytest.mark.cuda

@@ -289,7 +289,7 @@ def _check_cover(splits, per, units):
 ])
 def test_matmul_decode_k_plan(M, K, N, plan):
     """The served decode shapes at 132 SMs, and the cover of K's steps."""
-    assert decode_k_plan(N, K, n_sms=132) == plan
+    assert decode_k_plan(N, K, n_sms=132, tile=64) == plan
     _check_cover(*plan, -(-K // 64))
 
 
@@ -297,7 +297,7 @@ def test_matmul_decode_k_plan(M, K, N, plan):
 @pytest.mark.parametrize("N", [8, 64, 896, 4864, 152064])
 @pytest.mark.parametrize("n_sms", [1, 132])
 def test_matmul_decode_k_plan_covers_k(K, N, n_sms):
-    _check_cover(*decode_k_plan(N, K, n_sms), -(-K // 64))
+    _check_cover(*decode_k_plan(N, K, n_sms, tile=64), -(-K // 64))
 
 
 @pytest.mark.parametrize("length,B,KV,plan", [
@@ -310,7 +310,7 @@ def test_matmul_decode_k_plan_covers_k(K, N, n_sms):
     (1024, 66, 2, (1, 16)),  # B * KV fills the SMs alone
 ])
 def test_decode_attention_split_plan(length, B, KV, plan):
-    assert decode_split_plan(length, B, KV, n_sms=132) == plan
+    assert decode_split_plan(length, B, KV, n_sms=132, tile=64) == plan
     _check_cover(*plan, -(-length // 64))
 
 
@@ -318,5 +318,5 @@ def test_decode_attention_split_plan(length, B, KV, plan):
                                     1024, 4096])
 @pytest.mark.parametrize("B,KV", [(1, 1), (3, 2), (8, 2), (8, 8), (64, 8)])
 def test_decode_attention_split_plan_covers_keys(length, B, KV):
-    _check_cover(*decode_split_plan(length, B, KV, n_sms=132),
+    _check_cover(*decode_split_plan(length, B, KV, n_sms=132, tile=64),
                  -(-length // 64))

@@ -1,6 +1,7 @@
 """The port's ServeEngine against the JAX package's: identical greedy
 tokens with the same weights (initialized in JAX, converted), in fp32."""
 import dataclasses
+import json
 
 import jax
 import numpy as np
@@ -16,6 +17,7 @@ from repro.serve import ServeEngine as RefServeEngine
 
 from repro_torch import convert
 from repro_torch.configs import get_config, reduce_for_smoke
+from repro_torch.launch import enqueue as launch_enqueue
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import build
 from repro_torch.serve import EngineConfig, ServeEngine
@@ -89,3 +91,15 @@ def test_launcher_serves_ssm_on_cpu(capsys):
                               "--new-tokens", "4", "--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert out.count("req ") == 2 and "'decode_steps': 3" in out
+
+
+def test_enqueue_timer_runs_on_cpu(capsys):
+    """The host-enqueue timer of the decode path, at a reduced size."""
+    assert launch_enqueue.main(["--reduced", "--device", "cpu", "--max-seq",
+                                "32", "--length", "20", "--calls", "2",
+                                "--steps", "1", "--reps", "2"]) == 0
+    out = json.loads(capsys.readouterr().out)
+    runs = [*out["calls"].values(), out["decode_step"]]
+    assert len(out["calls"]) == 2 and out["device"] == "cpu"
+    assert all(len(r["host_us"]) == 2 and r["host_us_median"] > 0
+               and r["wall_us_median"] >= r["host_us_median"] for r in runs)

@@ -10,8 +10,10 @@ exits non-zero):
 2. build    -- nvcc builds the hand-written kernels of src/repro_torch; the
                SASS instruction counts of each kernel (cuobjdump), which
                must show wgmma (HGMMA) and TMA loads (UTMALDG) in the
-               prefill and decode matmul kernels and the bf16 flash and
-               decode attention kernels;
+               prefill and decode matmul kernels, the bf16 flash and
+               decode attention kernels and the bf16 SSD scan kernel; and
+               each kernel's registers and spills from ptxas's report,
+               with no spill allowed in the SSD scan kernel;
 3. kernels  -- each kernel against its plain PyTorch version on the card
                at the shapes of the serving paths of qwen2_0_5b and
                mamba2_1_3b, with a served prefill's ragged length (8 x 455
@@ -22,7 +24,9 @@ exits non-zero):
                fp32 and bf16 (matmul and attention: 2e-4 and 2e-2 of
                1 + |plain|; bf16 decode attention also within 5e-5 +
                1e-2 |plain|, about one bf16 rounding of its output;
-               ssd_scan: 1e-4 and 5e-2 of max |plain|),
+               ssd_scan: 1e-4 and 5e-2 of max |plain|, bf16 also within
+               1e-2 of it, at the served shapes and at b 1, S 4096 from an
+               initial state, each call on its route),
                with CUDA-event times of the kernel, the plain version and,
                where one exists, one PyTorch library call, and the least
                time the card could take (bound_ms); the summary line sums
@@ -35,10 +39,11 @@ exits non-zero):
                that run (counts set to 0 just before it), a check that
                every matmul of 64 rows or more (the prefills') took the
                wgmma kernel and every one of fewer rows (the decode steps'
-               and the prefill's unembedding) the wgmma decode kernel, a
-               profile of one prefill and four decode
-               steps, and a check that a decode step never makes the host
-               wait on the card.
+               and the prefill's unembedding) the wgmma decode kernel,
+               and every scan the wgmma scan kernel, a profile of one
+               prefill and four decode steps (the device time of each of
+               the port's kernels among them), and a check that a decode
+               step never makes the host wait on the card.
 
 Then a summary line of the kernels, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -64,6 +69,9 @@ SEED = 0
 MODELS = ("qwen2_0_5b", "mamba2_1_3b")  # the served paths, in run order
 TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 SSD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}  # tests/test_kernels.py's
+# and the second limit of bf16 (tests/test_torch_cuda.py's): the wgmma scan
+# rounds three operands to bf16, which 5e-2 would let pass by far
+SSD_FINE_TOL = {"bfloat16": 1e-2}
 # bf16 decode attention keeps P.V in fp32, as its plain version: (rtol, atol)
 # of about one bf16 rounding of the output (tests/test_torch_cuda.py's)
 DECODE_FINE_TOL = (1e-2, 5e-5)
@@ -168,14 +176,46 @@ def phase_build():
     _build.load()
     seconds = time.perf_counter() - t0
     sass = sass_counts(so)
+    log = Path(str(so) + ".log").read_text()
+    ptxas = ptxas_report(log)
     emit({"phase": "build", "seconds": seconds,
           "library": str(so.relative_to(ROOT)),
-          "ptxas_log": str(so.relative_to(ROOT)) + ".log", "sass": sass})
+          "ptxas_log": str(so.relative_to(ROOT)) + ".log", "sass": sass,
+          "ptxas": ptxas, "ptxas_warnings": [
+              line.strip() for line in log.splitlines()
+              if "warning" in line.lower() or "Performance" in line]})
     for kernel in ("matmul_wgmma_kernel", "matmul_decode_kernel",
-                   "flash_wgmma_kernel", "decode_wgmma_kernel"):
+                   "flash_wgmma_kernel", "decode_wgmma_kernel",
+                   "ssd_wgmma_kernel"):
         mine = [c for name, c in sass.items() if kernel in name]
         if not mine or not all(c["HGMMA"] and c["UTMALDG"] for c in mine):
             raise AssertionError(f"{kernel}: no wgmma or TMA load in its SASS")
+    mine = [r for name, r in ptxas.items() if "ssd_wgmma_kernel" in name]
+    if not mine or any(r.get("spill_stores") != 0 or r.get("spill_loads") != 0
+                       for r in mine):
+        raise AssertionError(f"ssd_wgmma_kernel: spills or no report {mine}")
+
+
+def ptxas_report(log):
+    """Per entry function of ptxas's ``-v`` report: registers, stack frame
+    and spill bytes."""
+    out, name = {}, None
+    for line in log.splitlines():
+        head = re.search(r"Compiling entry function '(\S+)'", line)
+        if head:
+            name = _kernel_name(head.group(1))
+            out[name] = {}
+            continue
+        props = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores,"
+                          r" (\d+) bytes spill loads", line)
+        if name and props and "stack" not in out[name]:
+            out[name].update(stack=int(props.group(1)),
+                             spill_stores=int(props.group(2)),
+                             spill_loads=int(props.group(3)))
+        regs = re.search(r"Used (\d+) registers", line)
+        if name and regs and "registers" not in out[name]:
+            out[name]["registers"] = int(regs.group(1))
+    return out
 
 
 SASS_OPS = ("HGMMA", "UTMALDG", "HMMA", "LDGSTS")
@@ -220,7 +260,8 @@ def phase_kernels(torch, dev):
     from repro_torch.kernels import ops
     from repro_torch.kernels.decode_attention import decode_attention_plain
     from repro_torch.kernels.flash_attention import flash_attention_plain
-    from repro_torch.kernels.ssd_scan import ssd_scan_plain
+    from repro_torch.kernels.ssd_scan import (SSD_ROUTE_LAUNCHES, ssd_route,
+                                              ssd_scan_plain)
     from repro_torch.kernels.streamed_matmul import (ROUTE_LAUNCHES, k_splits,
                                                      matmul_plain,
                                                      matmul_route, sm_count)
@@ -256,22 +297,26 @@ def phase_kernels(torch, dev):
     cases = []
 
     def check(name, shape, dtype, got, want, n_bytes, n_ops, fns,
-              relative=False, fine=None):
+              relative=False, fine=None, route=None):
         """got/want: a tensor or a tuple of them (ssd_scan: y and the
-        state).  relative: the rule of tests/test_kernels.py's SSD test.
-        fine: an (rtol, atol) the kernel must also meet."""
+        state).  relative: the rule of tests/test_kernels.py's SSD test,
+        and for bf16 also SSD_FINE_TOL.  fine: an (rtol, atol) the kernel
+        must also meet.  route: the kernel that took the call."""
         torch.cuda.synchronize()
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
         dname = str(dtype).split(".")[-1]
         tol = (SSD_TOL if relative else TOL)[dname]
-        err, excess = 0.0, float("-inf")
+        fine_rel = SSD_FINE_TOL.get(dname) if relative else None
+        err, rel_err, excess = 0.0, 0.0, float("-inf")
         for g, w in zip(got, want):
             diff = (g.float() - w.float()).abs()
             err = max(err, diff.max().item())
             if relative:
-                excess = max(excess, diff.max().item()
-                             - tol * w.float().abs().max().item())
+                rel_err = max(rel_err, diff.max().item()
+                              / w.float().abs().max().item())
+                excess = max(excess, diff.max().item() - min(
+                    tol, fine_rel or tol) * w.float().abs().max().item())
             else:
                 excess = max(excess, (diff - tol * (1 + w.float().abs()))
                              .max().item())
@@ -286,6 +331,13 @@ def phase_kernels(torch, dev):
         if fine:
             case["fine_tol"] = {"rtol": fine[0], "atol": fine[1],
                                 "rule": "|kernel - plain| <= atol + rtol |plain|"}
+        if relative:
+            case["max_rel_err"] = rel_err
+        if fine_rel:
+            case["fine_tol"] = {"tol": fine_rel,
+                                "rule": "max |kernel - plain| <= tol * max |plain|"}
+        if route:
+            case["route"] = route
         bytes_ms = n_bytes / peaks["bytes"] * 1e3
         ops_ms = n_ops / peaks[case["dtype"]] * 1e3
         case.update(bytes_ms=bytes_ms, ops_ms=ops_ms,
@@ -394,32 +446,43 @@ def phase_kernels(torch, dev):
             del q, k, v
 
     # ssd_scan: mamba2_1_3b's prefill scan (64 heads of P 64, N 128, one
-    # group) at b 8; 449 is prime, so the last sub-chunk is ragged.  The
-    # least operations form C B^T once per (batch row, chunk of 256) and
-    # the rest per head; no PyTorch call computes the scan (library: none).
-    b, H, P, N, chunk = 8, 64, 64, 128, 256
-    for dtype in (torch.float32, torch.bfloat16):
+    # group) at b 8; 449 is prime, so the last sub-chunk is ragged; and a
+    # bf16 scan of 64 sub-chunks from an initial state (b 1, S 4096), where
+    # the state's rounding error has the longest walk.  The least
+    # operations form C B^T once per (batch row, chunk of 256) and the rest
+    # per head; no PyTorch call computes the scan (library: none).
+    H, P, N, chunk = 64, 64, 128, 256
+    ssd_cases = [(torch.float32, 8, 512, False), (torch.float32, 8, 449, False),
+                 (torch.bfloat16, 8, 512, False), (torch.bfloat16, 8, 449, False),
+                 (torch.bfloat16, 1, 4096, True)]
+    for dtype, b, S, with_init in ssd_cases:
         es = torch.tensor([], dtype=dtype).element_size()
-        for S in (512, 449):
-            x = randn(b, S, H, P, dtype=dtype, scale=0.5)
-            dt = F.softplus(randn(b, S, H, dtype=torch.float32))
-            A = -torch.exp(randn(H, dtype=torch.float32, scale=0.3))
-            Bm = randn(b, S, N, dtype=dtype, scale=0.5)
-            Cm = randn(b, S, N, dtype=dtype, scale=0.5)
-            args = (x, dt, A, Bm, Cm)
-            fns = (lambda: ops.ssd_scan(*args, chunk=chunk),
-                   lambda: ssd_scan_plain(*args, chunk=chunk), None)
-            n_ops = 0
-            for c0 in range(0, S, chunk):
-                q = min(chunk, S - c0)
-                n_ops += b * (2 * q * q * N + H * (2 * q * q * P + 4 * q * P * N))
-            check("ssd_scan", [b, S, H, P, N], dtype,
-                  ops.ssd_scan(*args, chunk=chunk),
-                  ssd_scan_plain(*args, chunk=chunk),
-                  es * (2 * b * S * H * P + 2 * b * S * N)
-                  + 4 * (b * S * H + H + b * H * P * N), n_ops, fns,
-                  relative=True)
-            del x, Bm, Cm, args
+        x = randn(b, S, H, P, dtype=dtype, scale=0.5)
+        dt = F.softplus(randn(b, S, H, dtype=torch.float32))
+        A = -torch.exp(randn(H, dtype=torch.float32, scale=0.3))
+        Bm = randn(b, S, N, dtype=dtype, scale=0.5)
+        Cm = randn(b, S, N, dtype=dtype, scale=0.5)
+        init = randn(b, H, P, N, dtype=torch.float32) if with_init else None
+        args = (x, dt, A, Bm, Cm)
+        fns = (lambda: ops.ssd_scan(*args, chunk=chunk, init_state=init),
+               lambda: ssd_scan_plain(*args, chunk=chunk, init_state=init),
+               None)
+        n_ops = 0
+        for c0 in range(0, S, chunk):
+            q = min(chunk, S - c0)
+            n_ops += b * (2 * q * q * N + H * (2 * q * q * P + 4 * q * P * N))
+        route = ssd_route(dtype, H, P, N)
+        before = SSD_ROUTE_LAUNCHES[route]
+        got = ops.ssd_scan(*args, chunk=chunk, init_state=init)
+        if SSD_ROUTE_LAUNCHES[route] != before + 1:
+            raise AssertionError(f"ssd_scan ({b}, {S}) {dtype}: the {route} "
+                                 "kernel did not launch")
+        check("ssd_scan", [b, S, H, P, N] + (["init"] if with_init else []),
+              dtype, got, ssd_scan_plain(*args, chunk=chunk, init_state=init),
+              es * (2 * b * S * H * P + 2 * b * S * N)
+              + 4 * (b * S * H + H + b * H * P * N * (2 if with_init else 1)),
+              n_ops, fns, relative=True, route=route)
+        del x, Bm, Cm, init, args, got
     del flush
     emit({"phase": "kernels", "names": list(KERNELS), "cases": len(cases)})
     return cases
@@ -489,6 +552,7 @@ def phase_serve(torch, dev, model):
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
+    from repro_torch.kernels.ssd_scan import SSD_ROUTE_LAUNCHES
     from repro_torch.kernels.streamed_matmul import ROUTE_LAUNCHES
     from repro_torch.models import build
     from repro_torch.serve import EngineConfig, ServeEngine
@@ -537,6 +601,7 @@ def phase_serve(torch, dev, model):
     finally:
         ops.matmul = plain_matmul
     launches, routes = dict(ops.LAUNCHES), dict(ROUTE_LAUNCHES)
+    ssd_routes = dict(SSD_ROUTE_LAUNCHES)
 
     breakdown = profile_steps(torch, bundle, params, prompts, ecfg)
 
@@ -553,7 +618,8 @@ def phase_serve(torch, dev, model):
           "decode_step_ms": 1e3 * st["decode_s"] / st["decode_steps"],
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
           "launches": launches, "expected_launches": expect,
-          "matmul_routes": routes, "matmuls_of_64_rows_or_more": tall[0],
+          "matmul_routes": routes, "ssd_routes": ssd_routes,
+          "matmuls_of_64_rows_or_more": tall[0],
           "matmuls_of_fewer_rows": tall[1],
           "logits_finite": all_finite,
           "first_tokens": reqs[0].out_tokens[:8], "profile": breakdown})
@@ -573,6 +639,9 @@ def phase_serve(torch, dev, model):
         raise AssertionError(f"{tall[1]} matmuls of fewer than 64 rows, "
                              f"routes {routes}: not all on the wgmma decode "
                              "kernel")
+    if ssd_routes != {"wgmma": launches["ssd_scan"], "fp32": 0}:
+        raise AssertionError(f"{launches['ssd_scan']} scans, routes "
+                             f"{ssd_routes}: not all on the wgmma scan kernel")
     return launches
 
 
@@ -623,11 +692,14 @@ def profile_steps(torch, bundle, params, prompts, ecfg, n_decode=4):
             name = name.split("(")[0][:70]
             by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us()
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        port = {k: v / steps / 1e3 for k, v in by_name.items()
+                if re.match(r"(matmul|flash|decode|ssd)_\w*kernel", k)}
         return {"steps": steps, "wall_ms_per_step": wall_us / steps / 1e3,
                 "device_busy_ms_per_step": busy / steps / 1e3,
                 "device_idle_share": (1 - busy / wall_us) if kern else None,
                 "kernels_seen": len(kern),
-                "top_device_ms_per_step": {k: v / steps / 1e3 for k, v in top}}
+                "top_device_ms_per_step": {k: v / steps / 1e3 for k, v in top},
+                "port_kernels_ms_per_step": port}
 
     with torch.inference_mode():
         prefill()  # warm

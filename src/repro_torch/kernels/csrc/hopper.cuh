@@ -1,8 +1,10 @@
 // Hopper building blocks shared by the tensor-core kernels (sm_90a), written
-// from PTX: mbarriers, TMA tile loads, wgmma shared-memory descriptors, the
-// wgmma fence / commit / wait discipline, the bf16 -> fp32 wgmma
-// instructions at the widths the kernels use, and the cluster barrier and
-// distributed shared-memory reads that merge a cluster's partial results.
+// from PTX: mbarriers, TMA tile loads and stores, wgmma shared-memory
+// descriptors, the wgmma fence / commit / wait discipline, the bf16 -> fp32
+// wgmma instructions at the widths the kernels use, a transposing ldmatrix,
+// register hand-over between warpgroups (setmaxnreg), and the cluster
+// barrier and distributed shared-memory reads that merge a cluster's
+// partial results.
 // On the host: a cluster launch, a kernel's shared-memory limit raised once
 // per device, and a TMA tensor map made per call with cuTensorMapEncodeTiled,
 // fetched with dlsym from the libcuda that the CUDA runtime has already
@@ -108,6 +110,32 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// One thread stores a box of shared memory to the tensor at the given
+// coordinates; elements outside the tensor are not written.  The store joins
+// this thread's bulk group: commit it, then wait for its reads of shared
+// memory (bulk_wait_read) before the bytes are overwritten, and for the
+// whole store (bulk_wait) before the block ends.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
 }
@@ -121,6 +149,41 @@ __device__ __forceinline__ void fence_proxy_async() {
 // Barrier `id` (1..15; 0 is __syncthreads) over the first `count` threads.
 __device__ __forceinline__ void named_bar_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// Four 8 x 8 bf16 matrices, transposed: lanes 8 m .. 8 m + 7 give the
+// addresses of matrix m's eight 16-byte rows, and lane l receives, in r[m],
+// the elements (2 (l % 4), l / 4) and (2 (l % 4) + 1, l / 4) of it (row,
+// column of the stored matrix): a wgmma A fragment of a matrix stored
+// transposed.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// Four 8 x 8 bf16 matrices to shared memory: lanes 8 m .. 8 m + 7 give the
+// addresses of matrix m's eight 16-byte rows, and lane l gives, in r[m], its
+// elements (l / 4, 2 (l % 4)) and (l / 4, 2 (l % 4) + 1): an accumulator
+// fragment stored as bf16 in four instructions' worth of one.
+__device__ __forceinline__ void stmatrix_x4(void* p, uint32_t r0, uint32_t r1, uint32_t r2,
+                                            uint32_t r3) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                   smem_u32(p)),
+               "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+               : "memory");
+}
+
+// A warpgroup hands registers back (dec) or takes them (inc): every thread
+// of the warpgroup runs it, in a branch the warpgroup never leaves.
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
 }
 
 // ------------------------------------------------------------------ clusters
@@ -299,19 +362,27 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor map of `rank` dims (innermost first) with byte strides of
-// dims 1.. and a box whose innermost side is 64 elements (one 128-byte
-// swizzle row); out-of-bounds elements read as zero.  False if the driver
-// refuses it (a stride not a multiple of 16, a misaligned pointer).
-inline bool make_map_bf16(CUtensorMap* map, const void* ptr, int rank, const uint64_t* dims,
-                          const uint64_t* strides, const uint32_t* box) {
+// A tensor map of `rank` dims (innermost first) with byte strides of dims
+// 1.. and the given box; out-of-bounds elements read as zero.  False if
+// cuTensorMapEncodeTiled refuses it (a stride not a multiple of 16, a
+// misaligned pointer, a box the swizzle cannot take).
+inline bool make_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr, int rank,
+                     const uint64_t* dims, const uint64_t* strides, const uint32_t* box,
+                     CUtensorMapSwizzle swizzle) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims, strides,
-            box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  return fn(map, type, rank, const_cast<void*>(ptr), dims, strides, box, ones,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A bf16 map whose box's innermost side is 64 elements, one 128-byte
+// swizzle row.
+inline bool make_map_bf16(CUtensorMap* map, const void* ptr, int rank, const uint64_t* dims,
+                          const uint64_t* strides, const uint32_t* box) {
+  return make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ptr, rank, dims, strides, box,
+                  CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // The map of a row-major bf16 matrix of `rows` rows of `cols` elements, in

@@ -5,41 +5,65 @@
 // JAX package, with the init_state / return_state options of
 // models/ssd.py:ssd_scan_ref, which the prefill needs to seed decoding.
 //
-// Layout: x and y (b, S, H, P) in T, dt (b, S, H) fp32 and A (H,) fp32, all
-// contiguous; B and C (b, S, N) in T with the given batch and sequence
-// strides and a contiguous last dim (the two halves of the conv output, read
-// in place); init_state (or null for zeros) and the final state (b, H, P, N)
-// fp32.  P = 64 and N = 128 only.
+// Layout: x and y (b, S, H, P) in fp32 or bf16, dt (b, S, H) fp32 and A (H,)
+// fp32, all contiguous; B and C (b, S, N) in x's type with the given batch
+// and sequence strides and a contiguous last dim (views are read in place);
+// init_state (or null for zeros) and the final state (b, H, P, N) fp32.
+// P = 64 and N = 128 only.
 //
 // What bounds it on an H100: at b 8, S 512, H 64 a call moves ~87 MB (x, y
-// and the state dominate) and needs ~17 GFLOP if C.B^T is formed once per
-// (batch row, chunk) and the rest runs on the tensor cores, so the least
-// time (~26 us) is set by bytes.
+// and the final state dominate) and needs ~17 GFLOP with C.B^T formed once
+// per (batch row, sub-chunk) and shared by the heads, so on the tensor cores
+// the least time (~26 us) is set by bytes.
 //
-// What the design does about it, so far: one block per (head, batch row)
-// walks the sequence in order, in sub-chunks of Q = 64 rows, and keeps the
-// P x N fp32 state in shared memory from the first sub-chunk to the last, so
-// the state goes to device memory once, and x, B, C and dt are each read
-// once per block (B and C once per head: the heads share them).  A ragged
-// last sub-chunk reads dt = 0 and x.dt = 0 for its missing rows, which
-// neither decay nor feed the state.  Within a sub-chunk: a warp scan of
-// dt * A; G = (C B^T) o L with L[i,j] = exp(cum_i - cum_j) for j <= i;
-// y = G (x dt) + exp(cum) (C state^T); then state = exp(cum_last) state +
-// sum_j exp(cum_last - cum_j) (x dt)_j B_j^T.  All products are fp32 FMA on
-// the CUDA cores from register tiles of 4x4 (8x4 for the state) fed by
-// 16-byte shared-memory loads, so the kernel is bound by those, far from the
-// byte bound; C B^T is recomputed by every head.  Tensor cores (wgmma), a
-// C B^T shared across heads and a chunk-parallel state pass are later work.
+// What the design does about it (bf16, ssd_wgmma_kernel): one block per
+// (pair of heads, batch row) walks the sequence in sub-chunks of Q = 64
+// rows, wgmma's M.  A producer warpgroup asks TMA for each sub-chunk's x
+// tiles of its two heads (a 4D map, box 64 x 1 x 64), B and C (3D maps with
+// their own strides) and dt (a 3D fp32 map, box of 4 heads: TMA's least
+// inner extent is 16 bytes) through a ring of W_STAGES stages; TMA fills
+// rows past S with zeros, so a ragged last sub-chunk has dt = 0 and
+// x = B = C = 0, rows that neither decay nor feed the state.  Per sub-chunk
+// the producer forms G = C B^T once for both heads (wgmma m64n64k16, both
+// operands K-major), scans dt A for each head (one warp a head, in log2
+// units), and turns G into each head's G o L o dt_j, L[i,j] = exp(cum_i -
+// cum_j) for j <= i, as bf16 A fragments in shared memory (double
+// buffered, one barrier per head, so the first head starts while the second
+// converts).  L is built without an exp per element: left of a warp's 16
+// rows as exp(cum_i - cum_{16w-1}) exp(cum_{16w-1} - cum_j), two factors
+// <= 1 that cannot overflow, exactly within them.  One consumer warpgroup
+// per head holds the 64 x 128 fp32 state as a wgmma accumulator in
+// registers from the first sub-chunk to the last (setmaxnreg moves
+// registers from the producer):
+//   y_off = C state^T (m64n64k16, the state's bf16 copy in shared memory);
+//   meanwhile the A fragments of (x o w)^T, w_j = dt_j exp(cum_last -
+//   cum_j), x read transposed from its tile by ldmatrix;
+//   y = exp(cum_i) y_off + (G o L o dt) x (register A, x an MN-major B);
+//   state = exp(cum_last) state + (x o w)^T B (m64n128k16, register A, B
+//   an MN-major B), while y goes to bf16 over the head's x tile (stmatrix)
+//   and out by one TMA store (rows past S are not written).
+// The state's bf16 copy is rewritten for the next sub-chunk (stmatrix), and
+// the fp32 state is written once at the end.  Three operands are rounded to
+// bf16 where the CUDA-core kernel kept fp32: G o L o dt, the state in
+// y_off, and x o w.  Shared memory: 3 stages of 49 KB, the fragments and
+// vectors of 2 sub-chunks (40 KB) and two bf16 states of 16 KB, 220 KB, so
+// one block of 384 threads per SM, which the registers also require: a
+// consumer thread holds 64 fp32 of state, 32 of y and 32 of A fragments,
+// and two consumers at 184 registers and the producer at 104 fill the
+// SM's 64K.  At b 8 and H 64 the 256 blocks run in two waves over 132
+// SMs, each a sequence of 8 sub-chunks: latency, not bytes, bounds it.
 //
-// Shared memory (fp32, rows padded by 4 floats so that 16-byte loads of
-// neighbouring rows fall in distinct banks): C and B 2 x 64 x 132, x.dt
-// 64 x 68, G 64 x 68, state^T 128 x 68, and four 64-vectors: 138,240 bytes
-// of the 227 KB a block may have, so one block per SM.  A 256-row sub-chunk
-// would not fit: its G tile alone is 256 KB.
+// fp32 (ssd_kernel) stays on the CUDA cores and exists for parity runs: one
+// block per (head, batch row) keeps the state, transposed, in shared memory
+// (fp32, rows padded by 4 floats so that 16-byte loads of neighbouring rows
+// fall in distinct banks: C and B 2 x 64 x 132, x.dt 64 x 68, G 64 x 68,
+// state^T 128 x 68 and four 64-vectors, 138,240 bytes) and runs every
+// product as fp32 FMA from register tiles of 4x4 (8x4 for the state).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -61,12 +85,11 @@ __device__ __forceinline__ float at(const float4& v, int k) {
   return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
 }
 
-template <typename T>
 __global__ void __launch_bounds__(THREADS)
-ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-           const float* __restrict__ A, const T* __restrict__ Bm,
-           const T* __restrict__ Cm, const float* __restrict__ init,
-           T* __restrict__ y, float* __restrict__ state_out, int S, int H,
+ssd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
+           const float* __restrict__ A, const float* __restrict__ Bm,
+           const float* __restrict__ Cm, const float* __restrict__ init,
+           float* __restrict__ y, float* __restrict__ state_out, int S, int H,
            int b_sb, int b_ss, int c_sb, int c_ss) {
   extern __shared__ __align__(16) float smem[];
   float* C_s = smem;                  // [Q][NPAD]   C rows of the sub-chunk
@@ -111,15 +134,15 @@ ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
     for (int e = tid; e < Q * SP; e += THREADS) {
       const int i = e / SP, p = e % SP;
       float v = 0.f;
-      if (i < rows) v = to_float(x[(((size_t)b * S + c0 + i) * H + h) * SP + p]) * dts[i];
+      if (i < rows) v = (x[(((size_t)b * S + c0 + i) * H + h) * SP + p]) * dts[i];
       X_s[i * PPAD + p] = v;
     }
     for (int e = tid; e < Q * SN; e += THREADS) {
       const int i = e / SN, n = e % SN;
       float bv = 0.f, cv = 0.f;
       if (i < rows) {
-        bv = to_float(Bm[(size_t)b * b_sb + (size_t)(c0 + i) * b_ss + n]);
-        cv = to_float(Cm[(size_t)b * c_sb + (size_t)(c0 + i) * c_ss + n]);
+        bv = (Bm[(size_t)b * b_sb + (size_t)(c0 + i) * b_ss + n]);
+        cv = (Cm[(size_t)b * c_sb + (size_t)(c0 + i) * c_ss + n]);
       }
       B_s[i * NPAD + n] = bv;
       C_s[i * NPAD + n] = cv;
@@ -205,9 +228,9 @@ ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
         const int gi = r + 16 * i;
         if (gi < rows) {
           const float e = ecum[gi];
-          T* dst = y + (((size_t)b * S + c0 + gi) * H + h) * SP + 4 * c;
+          float* dst = y + (((size_t)b * S + c0 + gi) * H + h) * SP + 4 * c;
 #pragma unroll
-          for (int k = 0; k < 4; ++k) dst[k] = from_float<T>(fmaf(e, yo[i][k], yd[i][k]));
+          for (int k = 0; k < 4; ++k) dst[k] = fmaf(e, yo[i][k], yd[i][k]);
         }
       }
     }
@@ -253,32 +276,431 @@ ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   }
 }
 
-template <typename T>
-int launch(const void* x, const void* dt, const void* A, const void* B,
-           const void* C, const void* init, void* y, void* state, int nb, int S,
-           int H, int b_sb, int b_ss, int c_sb, int c_ss, cudaStream_t s) {
-  cudaError_t err = cudaFuncSetAttribute(
-      ssd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
+int launch(const void* x, const void* dt, const void* A, const void* B, const void* C,
+           const void* init, void* y, void* state, int nb, int S, int H, int b_sb, int b_ss,
+           int c_sb, int c_ss, cudaStream_t s) {
+  static hopper::SmemRaised raised;
+  const cudaError_t err = hopper::allow_smem(ssd_kernel, (int)SMEM_BYTES, raised);
   if (err != cudaSuccess) return static_cast<int>(err);
-  ssd_kernel<T><<<dim3(H, nb), THREADS, SMEM_BYTES, s>>>(
-      static_cast<const T*>(x), static_cast<const float*>(dt),
-      static_cast<const float*>(A), static_cast<const T*>(B),
-      static_cast<const T*>(C), static_cast<const float*>(init),
-      static_cast<T*>(y), static_cast<float*>(state), S, H, b_sb, b_ss, c_sb, c_ss);
+  ssd_kernel<<<dim3(H, nb), THREADS, SMEM_BYTES, s>>>(
+      static_cast<const float*>(x), static_cast<const float*>(dt),
+      static_cast<const float*>(A), static_cast<const float*>(B),
+      static_cast<const float*>(C), static_cast<const float*>(init),
+      static_cast<float*>(y), static_cast<float*>(state), S, H, b_sb, b_ss, c_sb, c_ss);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ------------------------------------------------------- bf16 path, wgmma
+constexpr int W_HEADS = 2;                    // heads per block, a consumer warpgroup each
+constexpr int W_STAGES = 3;                   // the TMA ring
+constexpr int W_THREADS = (W_HEADS + 1) * 128;  // the consumers, then the producer warpgroup
+constexpr int PRODUCER_REGS = 104, CONSUMER_REGS = 184;
+constexpr int DT_HEADS = 4;                   // heads in a dt box: 16 bytes, TMA's least
+constexpr int ATOM = Q * 128;                 // 64 rows of 64 bf16 (128-byte swizzle)
+constexpr int ST_X = 0;                       // stage: x of each head, B, C, dt
+constexpr int ST_B = ST_X + W_HEADS * ATOM;
+constexpr int ST_C = ST_B + 2 * ATOM;
+constexpr int ST_DT = ST_C + 2 * ATOM;
+constexpr int STAGE = ST_DT + Q * DT_HEADS * 4;
+constexpr int PA_BYTES = Q * Q * 2;           // a head's G o L o dt, bf16 A fragments
+// a head's vectors over the sub-chunk's rows, fp32: for the consumer w_j =
+// dt_j exp(cum_last - cum_j), exp(cum_i) and exp(cum_last); for the
+// producer cum, dt and, for each warp w = 1..3 of 16 rows, F_w[j] = dt_j
+// exp(cum_{16 w - 1} - cum_j) over the columns j < 16 w
+constexpr int V_W = 0, V_EC = 64, V_EL = 128, V_C = 132, V_D = 196, V_F = 260, VEC = 512;
+constexpr int SBF_BYTES = SP * SN * 2;        // a head's state in bf16
+constexpr int W_SMEM = 1024 + W_STAGES * STAGE + 2 * W_HEADS * (PA_BYTES + VEC * 4) +
+                       W_HEADS * SBF_BYTES + (2 * W_STAGES + 2 * W_HEADS + 2) * 8;
+constexpr float LOG2E = 1.4426950408889634f;
+
+static_assert(STAGE % 1024 == 0 && PA_BYTES % 1024 == 0 && SBF_BYTES % 1024 == 0 &&
+                  (2 * W_HEADS * (PA_BYTES + VEC * 4)) % 1024 == 0,
+              "tiles must stay 1024-byte aligned for the 128-byte swizzle");
+static_assert(W_SMEM <= 232448, "more shared memory than a block may have");
+static_assert(PRODUCER_REGS * 128 + CONSUMER_REGS * 128 * W_HEADS <= 168 * W_THREADS,
+              "setmaxnreg must stay within the registers the block was launched with");
+
+// Byte offset of element (row, col) of a tile of 64-column atoms (rows of
+// 128 bytes, 16-byte chunks XOR-swizzled by row % 8), as TMA lays them out
+// and wgmma reads them.
+__device__ __forceinline__ int swz(int row, int col) {
+  return (col / 64) * ATOM + row * 128 + ((((col % 64) / 8) ^ (row % 8)) << 4) + (col % 8) * 2;
+}
+
+__device__ __forceinline__ float ex2(float x) {  // 2^x, flushing results below 2^-126 to 0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__global__ void __launch_bounds__(W_THREADS, 1)
+ssd_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                 const __grid_constant__ CUtensorMap ymap,
+                 const __grid_constant__ CUtensorMap bmap,
+                 const __grid_constant__ CUtensorMap cmap,
+                 const __grid_constant__ CUtensorMap dtmap, const float* __restrict__ A,
+                 const float* __restrict__ init, float* __restrict__ state_out, int S, int H) {
+  using namespace hopper;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* stages = smem;
+  unsigned char* pa_ring = smem + W_STAGES * STAGE;             // [2][W_HEADS] tiles
+  float* vec_ring = reinterpret_cast<float*>(pa_ring + 2 * W_HEADS * PA_BYTES);  // [2][W_HEADS]
+  unsigned char* sbf = reinterpret_cast<unsigned char*>(vec_ring + 2 * W_HEADS * VEC);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sbf + W_HEADS * SBF_BYTES);
+  uint64_t* empty = full + W_STAGES;
+  uint64_t* gfull = empty + W_STAGES;  // [2][W_HEADS]: a head's fragments are ready
+  uint64_t* gempty = gfull + 2 * W_HEADS;
+
+  const int h0 = blockIdx.x * W_HEADS, b = blockIdx.y;
+  const int nsteps = (S + Q - 1) / Q;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < W_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], W_HEADS * 4);  // one arrival per consumer warp
+    }
+    for (int g = 0; g < 2; ++g) {
+      for (int hh = 0; hh < W_HEADS; ++hh) mbar_init(&gfull[g * W_HEADS + hh], 128);  // producer threads
+      mbar_init(&gempty[g], W_HEADS * 128);  // every consumer thread
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+  const int lane = t % 32, warp = t / 32;
+  // accumulator rows r and r + 8, columns 8 j + 2 q + {0, 1}; r % 8 == lane / 4
+  const int r = 16 * warp + lane / 4, q = lane % 4;
+  if (wg == W_HEADS) {
+    // ---------------- producer: the loads; per sub-chunk G = C B^T, each
+    // head's scan of dt A and its G o L o dt as bf16 A fragments
+    setmaxnreg_dec<PRODUCER_REGS>();
+    auto load = [&](int step) {
+      const int s = step % W_STAGES, row = step * Q;
+      unsigned char* st = stages + s * STAGE;
+      mbar_arrive_expect_tx(&full[s], STAGE);
+      for (int hh = 0; hh < W_HEADS; ++hh)
+        tma_load_4d(st + ST_X + hh * ATOM, &xmap, &full[s], 0, h0 + hh, row, b);
+      for (int a = 0; a < 2; ++a) {
+        tma_load_3d(st + ST_B + a * ATOM, &bmap, &full[s], 64 * a, row, b);
+        tma_load_3d(st + ST_C + a * ATOM, &cmap, &full[s], 64 * a, row, b);
+      }
+      tma_load_3d(st + ST_DT, &dtmap, &full[s], h0 - h0 % DT_HEADS, row, b);
+    };
+    if (t == 0) {
+      tma_prefetch_map(&xmap);
+      tma_prefetch_map(&ymap);
+      tma_prefetch_map(&bmap);
+      tma_prefetch_map(&cmap);
+      tma_prefetch_map(&dtmap);
+      for (int step = 0; step < min(W_STAGES, nsteps); ++step) load(step);
+    }
+    __syncwarp();
+    const float a2 = warp < W_HEADS ? A[h0 + warp] * LOG2E : 0.f;  // cum in log2 units
+    for (int step = 0; step < nsteps; ++step) {
+      const int s = step % W_STAGES, g = step & 1;
+      mbar_wait(&full[s], (step / W_STAGES) & 1);
+      const unsigned char* st = stages + s * STAGE;
+      float acc[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < SN / 16; ++kk) {
+        const int off = (kk / 4) * ATOM + (kk % 4) * 32;
+        wgmma_ss_n64<0>(acc, make_desc(st + ST_C + off, 16, 1024),
+                        make_desc(st + ST_B + off, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+      if (step >= 2) mbar_wait(&gempty[g], ((step - 2) / 2) & 1);
+
+      // warp hh < W_HEADS: head h0 + hh's inclusive scan of dt A, lane l
+      // holding rows l (c0) and l + 32 (c1), and its vectors
+      if (warp < W_HEADS) {
+        const float* dts = reinterpret_cast<const float*>(st + ST_DT);
+        const int hl = (h0 + warp) % DT_HEADS;
+        const float d0 = dts[lane * DT_HEADS + hl], d1 = dts[(lane + 32) * DT_HEADS + hl];
+        float c0 = d0 * a2, c1 = d1 * a2;
+#pragma unroll
+        for (int off = 1; off < 32; off <<= 1) {
+          const float u0 = __shfl_up_sync(0xffffffffu, c0, off);
+          const float u1 = __shfl_up_sync(0xffffffffu, c1, off);
+          if (lane >= off) {
+            c0 += u0;
+            c1 += u1;
+          }
+        }
+        c1 += __shfl_sync(0xffffffffu, c0, 31);
+        const float cl = __shfl_sync(0xffffffffu, c1, 31);
+        const float cr[3] = {__shfl_sync(0xffffffffu, c0, 15), __shfl_sync(0xffffffffu, c0, 31),
+                             __shfl_sync(0xffffffffu, c1, 15)};  // cum at rows 15, 31, 47
+        float* v = vec_ring + (g * W_HEADS + warp) * VEC;
+        v[V_W + lane] = d0 * ex2(cl - c0);
+        v[V_W + lane + 32] = d1 * ex2(cl - c1);
+        v[V_EC + lane] = ex2(c0);
+        v[V_EC + lane + 32] = ex2(c1);
+        if (lane == 0) v[V_EL] = ex2(cl);
+        v[V_C + lane] = c0;
+        v[V_C + lane + 32] = c1;
+        v[V_D + lane] = d0;
+        v[V_D + lane + 32] = d1;
+#pragma unroll
+        for (int w = 1; w < 4; ++w) {
+          if (lane < 16 * w) v[V_F + 64 * (w - 1) + lane] = d0 * ex2(cr[w - 1] - c0);
+          if (lane + 32 < 16 * w) v[V_F + 64 * (w - 1) + lane + 32] = d1 * ex2(cr[w - 1] - c1);
+        }
+      }
+      named_bar_sync(3, 128);
+      wgmma_wait<0>();
+      fence_regs(acc);
+
+      // M = G o L o dt_j, L[i,j] = exp(cum_i - cum_j) for j <= i.  This
+      // warp's rows i lie in 16 w .. 16 w + 15: left of that band L dt_j =
+      // exp(cum_i - cum_{16 w - 1}) F_w[j], both factors <= 1; in the band
+      // exactly; right of it 0.  Branch-free, so that acc's index stays a
+      // constant and the blocks of columns interleave.
+#pragma unroll
+      for (int hh = 0; hh < W_HEADS; ++hh) {
+        const float* v = vec_ring + (g * W_HEADS + hh) * VEC;
+        const float* F = v + V_F + 64 * max(warp - 1, 0);
+        const float cref = v[V_C + max(16 * warp - 1, 0)];
+        float ci[2], rf[2], band[2][2][2];
+#pragma unroll
+        for (int ih = 0; ih < 2; ++ih) {
+          ci[ih] = v[V_C + r + 8 * ih];
+          rf[ih] = ex2(ci[ih] - cref);
+        }
+#pragma unroll
+        for (int b2 = 0; b2 < 2; ++b2) {
+          const int j = 16 * warp + 8 * b2 + 2 * q;
+          const float2 cj = *reinterpret_cast<const float2*>(v + V_C + j);
+          const float2 dj = *reinterpret_cast<const float2*>(v + V_D + j);
+#pragma unroll
+          for (int ih = 0; ih < 2; ++ih) {
+            const int i = r + 8 * ih;
+            band[ih][b2][0] = j <= i ? ex2(ci[ih] - cj.x) * dj.x : 0.f;
+            band[ih][b2][1] = j + 1 <= i ? ex2(ci[ih] - cj.y) * dj.y : 0.f;
+          }
+        }
+        uint32_t pa[16];
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const float2 f = *reinterpret_cast<const float2*>(F + 8 * jj + 2 * q);
+          const bool left = jj < 2 * warp, b0 = jj == 2 * warp, b1 = jj == 2 * warp + 1;
+#pragma unroll
+          for (int ih = 0; ih < 2; ++ih) {
+            const float f0 = left ? rf[ih] * f.x : b0 ? band[ih][0][0] : b1 ? band[ih][1][0] : 0.f;
+            const float f1 = left ? rf[ih] * f.y : b0 ? band[ih][0][1] : b1 ? band[ih][1][1] : 0.f;
+            pa[4 * (jj / 2) + 2 * (jj % 2) + ih] =
+                pack_bf16(acc[4 * jj + 2 * ih] * f0, acc[4 * jj + 2 * ih + 1] * f1);
+          }
+        }
+        uint4* dst = reinterpret_cast<uint4*>(pa_ring + (g * W_HEADS + hh) * PA_BYTES);
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          dst[k * 128 + t] = make_uint4(pa[4 * k], pa[4 * k + 1], pa[4 * k + 2], pa[4 * k + 3]);
+        // the first head's consumer starts while the next head converts
+        mbar_arrive(&gfull[g * W_HEADS + hh]);
+      }
+      // the stage of the step before takes the step W_STAGES - 1 ahead
+      const int next = step - 1 + W_STAGES;
+      if (t == 0 && step >= 1 && next < nsteps) {
+        mbar_wait(&empty[(step - 1) % W_STAGES], ((step - 1) / W_STAGES) & 1);
+        load(next);
+      }
+      __syncwarp();
+    }
+  } else {
+    // ---------------- consumer wg: head h0 + wg
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int h = h0 + wg;
+    const size_t bh = (size_t)b * H + h;
+    unsigned char* sb = sbf + wg * SBF_BYTES;
+
+    float st[64];
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float2 v = make_float2(0.f, 0.f);
+        if (init) v = *reinterpret_cast<const float2*>(init + (bh * SP + r + 8 * hh) * SN + 8 * j + 2 * q);
+        st[4 * j + 2 * hh] = v.x;
+        st[4 * j + 2 * hh + 1] = v.y;
+      }
+    // an accumulator of 64 rows in bf16 to a swizzled tile: matrix m of
+    // stmatrix k holds rows 16 warp + 8 (m % 2) .., columns 8 (2 k + m / 2) ..
+    const int srow = 16 * warp + 8 * ((lane / 8) % 2) + lane % 8, scol = 8 * (lane / 16);
+    auto store_bf16 = [&](unsigned char* tile, auto& d) {
+      constexpr int n = sizeof(d) / sizeof(d[0]);  // 8 per 16 columns
+#pragma unroll
+      for (int k = 0; k < n / 8; ++k)
+        stmatrix_x4(tile + swz(srow, 16 * k + scol), pack_bf16(d[8 * k], d[8 * k + 1]),
+                    pack_bf16(d[8 * k + 2], d[8 * k + 3]), pack_bf16(d[8 * k + 4], d[8 * k + 5]),
+                    pack_bf16(d[8 * k + 6], d[8 * k + 7]));
+    };
+    store_bf16(sb, st);  // the state's bf16 copy: the B operand of y_off
+    fence_proxy_async();
+    named_bar_sync(1 + wg, 128);
+
+    for (int step = 0; step < nsteps; ++step) {
+      const int s = step % W_STAGES, g = step & 1;
+      mbar_wait(&full[s], (step / W_STAGES) & 1);
+      unsigned char* xs = stages + s * STAGE + ST_X + wg * ATOM;
+      const unsigned char* bs = stages + s * STAGE + ST_B;
+      const unsigned char* cs = stages + s * STAGE + ST_C;
+
+      // y_off = C state^T, from the state's bf16 copy
+      float y[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) y[i] = 0.f;
+      fence_regs(y);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < SN / 16; ++kk) {
+        const int off = (kk / 4) * ATOM + (kk % 4) * 32;
+        wgmma_ss_n64<0>(y, make_desc(cs + off, 16, 1024), make_desc(sb + off, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+      // warp 0 releases the stage before once its y store has left the x tile
+      if (step > 0 && warp == 0) {
+        if (t == 0) bulk_wait_read<0>();
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[(step - 1) % W_STAGES]);
+      }
+
+      // the producer's A fragments of G o L o dt and this head's vectors
+      mbar_wait(&gfull[g * W_HEADS + wg], (step / 2) & 1);
+      const float* v = vec_ring + (g * W_HEADS + wg) * VEC;
+      uint32_t pa[16];
+      const uint4* src = reinterpret_cast<const uint4*>(pa_ring + (g * W_HEADS + wg) * PA_BYTES);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const uint4 u = src[k * 128 + t];
+        pa[4 * k] = u.x;
+        pa[4 * k + 1] = u.y;
+        pa[4 * k + 2] = u.z;
+        pa[4 * k + 3] = u.w;
+      }
+      // (x o w)^T as the A fragments of the update: x^T read by ldmatrix.trans
+      // (matrix m = lane / 8: rows j of k-step kk, columns p of chunk 2 warp + m % 2)
+      uint32_t xa[16];
+#pragma unroll
+      for (int kk = 0; kk < Q / 16; ++kk) {
+        const int mi = lane / 8, jr = 16 * kk + 8 * (mi / 2) + lane % 8;
+        uint32_t u[4];
+        ldmatrix_x4_trans(u, xs + swz(jr, 8 * (2 * warp + mi % 2)));
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float2 xv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u[c]));
+          const float2 w = *reinterpret_cast<const float2*>(v + V_W + 16 * kk + 8 * (c / 2) + 2 * q);
+          xa[4 * kk + c] = pack_bf16(xv.x * w.x, xv.y * w.y);
+        }
+      }
+      const float el = v[V_EL], ec[2] = {v[V_EC + r], v[V_EC + r + 8]};
+      mbar_arrive(&gempty[g]);
+
+      wgmma_wait<0>();
+      fence_regs(y);
+      // decay the state to the sub-chunk's end, and y_off by exp(cum_i)
+#pragma unroll
+      for (int i = 0; i < 64; ++i) st[i] *= el;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          y[4 * j + 2 * hh] *= ec[hh];
+          y[4 * j + 2 * hh + 1] *= ec[hh];
+        }
+      fence_regs(y);
+      fence_regs(st);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < Q / 16; ++kk) {
+        const uint32_t a4[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3]};
+        wgmma_rs_n64<1>(y, a4, make_desc(xs + kk * 2048, ATOM, 1024), 1);
+      }
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < Q / 16; ++kk) {
+        const uint32_t a4[4] = {xa[4 * kk], xa[4 * kk + 1], xa[4 * kk + 2], xa[4 * kk + 3]};
+        wgmma_rs_n128<1>(st, a4, make_desc(bs + kk * 2048, ATOM, 1024), 1);
+      }
+      wgmma_commit();
+
+      // y in bf16 over this head's x tile (read by nothing now) while the
+      // update runs, then one TMA store; the state's bf16 copy for the next
+      // y_off
+      wgmma_wait<1>();
+      fence_regs(y);
+      store_bf16(xs, y);
+      wgmma_wait<0>();
+      fence_regs(st);
+      store_bf16(sb, st);
+      fence_proxy_async();
+      named_bar_sync(1 + wg, 128);
+      if (t == 0) {
+        tma_store_4d(&ymap, xs, 0, h, step * Q, b);
+        bulk_commit();
+      }
+      __syncwarp();
+      if (warp > 0 && lane == 0) mbar_arrive(&empty[s]);
+    }
+
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        *reinterpret_cast<float2*>(state_out + (bh * SP + r + 8 * hh) * SN + 8 * j + 2 * q) =
+            make_float2(st[4 * j + 2 * hh], st[4 * j + 2 * hh + 1]);
+    if (t == 0) bulk_wait<0>();
+  }
+}
+
+int launch_wgmma(const void* x, const void* dt, const void* A, const void* B, const void* C,
+                 const void* init, void* y, void* state, int nb, int S, int H, int b_sb,
+                 int b_ss, int c_sb, int c_ss, cudaStream_t stream) {
+  if (H % DT_HEADS != 0) return static_cast<int>(cudaErrorInvalidValue);
+  static hopper::SmemRaised raised;
+  CUtensorMap xmap, ymap, bmap, cmap, dtmap;
+  const uint64_t xdims[4] = {SP, (uint64_t)H, (uint64_t)S, (uint64_t)nb};
+  const uint64_t xstr[3] = {SP * 2, (uint64_t)H * SP * 2, (uint64_t)S * H * SP * 2};
+  const uint32_t xbox[4] = {64, 1, Q, 1};
+  const uint64_t bcdims[3] = {SN, (uint64_t)S, (uint64_t)nb};
+  const uint64_t bstr[2] = {(uint64_t)b_ss * 2, (uint64_t)b_sb * 2};
+  const uint64_t cstr[2] = {(uint64_t)c_ss * 2, (uint64_t)c_sb * 2};
+  const uint32_t bcbox[3] = {64, Q, 1};
+  const uint64_t dtdims[3] = {(uint64_t)H, (uint64_t)S, (uint64_t)nb};
+  const uint64_t dtstr[2] = {(uint64_t)H * 4, (uint64_t)S * H * 4};
+  const uint32_t dtbox[3] = {DT_HEADS, Q, 1};
+  if (!hopper::make_map_bf16(&xmap, x, 4, xdims, xstr, xbox) ||
+      !hopper::make_map_bf16(&ymap, y, 4, xdims, xstr, xbox) ||
+      !hopper::make_map_bf16(&bmap, B, 3, bcdims, bstr, bcbox) ||
+      !hopper::make_map_bf16(&cmap, C, 3, bcdims, cstr, bcbox) ||
+      !hopper::make_map(&dtmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, dt, 3, dtdims, dtstr, dtbox,
+                        CU_TENSOR_MAP_SWIZZLE_NONE))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = hopper::allow_smem(ssd_wgmma_kernel, W_SMEM, raised);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ssd_wgmma_kernel<<<dim3(H / W_HEADS, nb), W_THREADS, W_SMEM, stream>>>(
+      xmap, ymap, bmap, cmap, dtmap, static_cast<const float*>(A),
+      static_cast<const float*>(init), static_cast<float*>(state), S, H);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// dtype: 0 = fp32, 1 = bf16 (x, B, C and y); init may be null (zero state).
-// Returns the cudaError_t of the launch.
+// dtype: 0 = fp32 (the CUDA-core kernel), 1 = bf16 (x, B, C and y; the
+// wgmma kernel, which takes H % 4 == 0 and 16-byte aligned pointers and B
+// and C strides); init may be null (zero state).  Returns the cudaError_t
+// of the launch, or cudaErrorInvalidValue for what the kernels do not take.
 extern "C" int ssd_scan(const void* x, const void* dt, const void* A, const void* B,
                         const void* C, const void* init, void* y, void* state, int nb,
                         int S, int H, int P, int N, int b_sb, int b_ss, int c_sb,
                         int c_ss, int dtype, void* stream) {
   if (P != SP || N != SN) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(x, dt, A, B, C, init, y, state, nb, S, H, b_sb, b_ss, c_sb, c_ss, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(x, dt, A, B, C, init, y, state, nb, S, H, b_sb, b_ss, c_sb, c_ss, s);
+  if (dtype == 0) return launch(x, dt, A, B, C, init, y, state, nb, S, H, b_sb, b_ss, c_sb, c_ss, s);
+  if (dtype == 1) return launch_wgmma(x, dt, A, B, C, init, y, state, nb, S, H, b_sb, b_ss, c_sb, c_ss, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -13,7 +13,7 @@ import torch
 
 from .decode_attention import decode_attention_cuda, decode_attention_plain
 from .flash_attention import flash_attention_cuda, flash_attention_plain
-from .ssd_scan import ssd_scan_cuda, ssd_scan_plain
+from .ssd_scan import SSD_ROUTE_LAUNCHES, ssd_scan_cuda, ssd_scan_plain
 from .streamed_matmul import ROUTE_LAUNCHES, matmul_cuda, matmul_plain
 
 LAUNCHES: Dict[str, int] = {"streamed_matmul": 0, "flash_attention": 0,
@@ -21,8 +21,9 @@ LAUNCHES: Dict[str, int] = {"streamed_matmul": 0, "flash_attention": 0,
 
 
 def reset_launches() -> None:
-    """Set every kernel's count, and the matmul's counts by route, to 0."""
-    for counts in (LAUNCHES, ROUTE_LAUNCHES):
+    """Set every kernel's count, and the matmul's and the scan's counts by
+    route, to 0."""
+    for counts in (LAUNCHES, ROUTE_LAUNCHES, SSD_ROUTE_LAUNCHES):
         for name in counts:
             counts[name] = 0
 

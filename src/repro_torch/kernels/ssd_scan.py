@@ -11,14 +11,15 @@ is padded with rows of dt = 0 and x = 0, which leave the carried state
 untouched; the JAX package instead shrinks the chunk to a divisor of S
 (down to 1 for a prime S).  ``chunk`` is a blocking parameter: in exact
 arithmetic the result does not depend on it.  ``ssd_scan_plain`` is the
-plain PyTorch version in fp32 (the CPU path, and what the kernel is held
-against on the card); ``ssd_scan_cuda`` launches the hand-written kernel of
-``csrc/ssd_scan.cu``, which walks the sequence in sub-chunks of its own
-(64 rows) and takes P = 64, N = 128 only.
+plain PyTorch version in fp32 (the CPU path, and what the kernels are held
+against on the card); ``ssd_scan_cuda`` launches one of the hand-written
+kernels of ``csrc/ssd_scan.cu``, chosen by ``ssd_route``, which walk the
+sequence in sub-chunks of their own (64 rows) and take P = 64, N = 128
+only, and counts its launches by route in ``SSD_ROUTE_LAUNCHES``.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -26,8 +27,40 @@ import torch.nn.functional as F
 from . import _build
 from .streamed_matmul import DTYPE_CODES
 
-HEAD_DIM = 64    # P the kernel takes
-STATE_DIM = 128  # N the kernel takes
+HEAD_DIM = 64    # P the kernels take
+STATE_DIM = 128  # N the kernels take
+DT_BOX_HEADS = 4  # heads in the wgmma kernel's dt box (16 bytes, TMA's least)
+# launches of ssd_scan_cuda by route (see ssd_route)
+SSD_ROUTE_LAUNCHES: Dict[str, int] = {"wgmma": 0, "fp32": 0}
+
+
+def ssd_route(dtype: torch.dtype, H: int, P: int, N: int,
+              bc_strides: Sequence[int] = (), aligned: bool = True) -> str:
+    """Which kernel of ``csrc/ssd_scan.cu`` takes a scan; raises for what
+    neither takes.
+
+    ``"fp32"`` (the CUDA-core kernel, for parity runs) takes fp32 at P 64,
+    N 128.  ``"wgmma"`` (TMA and wgmma) takes bf16 at P 64, N 128 with H a
+    multiple of 4 (dt's TMA box), the batch and sequence strides of B and C
+    (``bc_strides``, in elements) multiples of 8 (16 bytes) and every
+    tensor 16-byte aligned (``aligned``): TMA maps them in place, and there
+    is no other bf16 kernel to fall back on.
+    """
+    if (P, N) != (HEAD_DIM, STATE_DIM):
+        raise ValueError(f"ssd_scan: (P, N) = {(P, N)}; the kernels take "
+                         f"{(HEAD_DIM, STATE_DIM)}")
+    if dtype == torch.float32:
+        return "fp32"
+    if dtype != torch.bfloat16:
+        raise TypeError(f"ssd_scan: no kernel for {dtype}")
+    if H % DT_BOX_HEADS:
+        raise ValueError(f"ssd_scan: H = {H}; the bf16 kernel takes a "
+                         f"multiple of {DT_BOX_HEADS}")
+    if any(s % 8 for s in bc_strides) or not aligned:
+        raise ValueError(f"ssd_scan: B/C strides {tuple(bc_strides)} or "
+                         "alignment that TMA cannot map (strides must be "
+                         "multiples of 8 elements, pointers of 16 bytes)")
+    return "wgmma"
 
 
 def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -77,8 +110,10 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                   init_state: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x, dt, A and init_state contiguous; B and C may be views with any
-    batch and sequence strides (the two halves of the conv output), read in
-    place.  ``chunk`` is not read: the kernel blocks by 64 rows."""
+    batch and sequence strides (the two halves of a conv output), read in
+    place.  The kernel is chosen by ``ssd_route``, which raises for what
+    neither kernel takes.  ``chunk`` is not read: the kernels block by 64
+    rows."""
     tensors = [x, dt, A, B, C] + ([init_state] if init_state is not None
                                   else [])
     if not (x.is_cuda and all(t.device == x.device for t in tensors)):
@@ -99,24 +134,24 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError(f"ssd_scan: shapes x {tuple(x.shape)}, dt "
                          f"{tuple(dt.shape)}, A {tuple(A.shape)}, B "
                          f"{tuple(B.shape)}, C {tuple(C.shape)}")
-    if (P, N) != (HEAD_DIM, STATE_DIM):
-        raise ValueError(f"ssd_scan: (P, N) = {(P, N)}; the kernel takes "
-                         f"{(HEAD_DIM, STATE_DIM)}")
     if not (x.is_contiguous() and dt.is_contiguous() and A.is_contiguous()
             and (init_state is None or init_state.is_contiguous())):
         raise ValueError("ssd_scan: x, dt, A and init_state must be "
                          "contiguous")
-    if B.stride(2) != 1 or C.stride(2) != 1 or \
-            max(B.stride(0), B.stride(1), C.stride(0), C.stride(1)) >= 2 ** 31:
+    bc_strides = (B.stride(0), B.stride(1), C.stride(0), C.stride(1))
+    if B.stride(2) != 1 or C.stride(2) != 1 or max(bc_strides) >= 2 ** 31:
         raise ValueError(f"ssd_scan: B strides {B.stride()}, C strides "
                          f"{C.stride()}: the state dim must be contiguous")
+    route = ssd_route(x.dtype, H, P, N, bc_strides,
+                      all(t.data_ptr() % 16 == 0 for t in tensors if t is not A))
     y = torch.empty_like(x)
     state = torch.empty((b, H, P, N), dtype=torch.float32, device=x.device)
     lib = _build.load()
     _build.check(lib.ssd_scan(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
         init_state.data_ptr() if init_state is not None else None,
-        y.data_ptr(), state.data_ptr(), b, S, H, P, N, B.stride(0),
-        B.stride(1), C.stride(0), C.stride(1), DTYPE_CODES[x.dtype],
+        y.data_ptr(), state.data_ptr(), b, S, H, P, N, *bc_strides,
+        DTYPE_CODES[x.dtype],
         torch.cuda.current_stream(x.device).cuda_stream), "ssd_scan")
+    SSD_ROUTE_LAUNCHES[route] += 1
     return y, state

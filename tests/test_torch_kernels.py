@@ -20,6 +20,7 @@ from repro.models.ssd import ssd_scan_ref
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.decode_attention import decode_split_plan
+from repro_torch.kernels.ssd_scan import SSD_ROUTE_LAUNCHES, ssd_route
 from repro_torch.kernels.streamed_matmul import (MAX_CLUSTER, decode_k_plan,
                                                  k_splits, matmul_route)
 
@@ -199,6 +200,90 @@ def test_ssd_scan_chunk_invariance(S):
         y, st = ops.ssd_scan(*tx, chunk=chunk)
         _close(_np(y), _np(y16), 1e-5)
         _close(_np(st), _np(st16), 1e-5)
+
+
+def _wgmma_ssd_rounding_model(x, dt, A, B, C, init):
+    """The bf16 wgmma kernel's arithmetic (csrc/ssd_scan.cu) in plain torch:
+    64-row sub-chunks, fp32 sums, state and C B^T, and bf16 rounding where
+    the kernel rounds: G o L o dt_j (the A operand of y_diag), the state as
+    the B operand of y_off, x o w (the A operand of the state update), and
+    y at the end."""
+    def bf(t):
+        return t.to(torch.bfloat16).float()
+
+    b, S, H, P = x.shape
+    x, B, C = x.float(), B.float(), C.float()
+    state = init.clone()
+    ys = []
+    for c0 in range(0, S, 64):
+        xc, dtc = x[:, c0:c0 + 64], dt[:, c0:c0 + 64]
+        Bc, Cc = B[:, c0:c0 + 64], C[:, c0:c0 + 64]
+        q = xc.shape[1]
+        cum = torch.cumsum(dtc * A, dim=1)                      # (b,q,H)
+        seg = cum[:, :, None, :] - cum[:, None, :, :]           # (b,i,j,H)
+        tril = torch.ones(q, q, dtype=torch.bool).tril()[None, :, :, None]
+        L = torch.exp(torch.where(tril, seg, torch.full_like(seg, -torch.inf)))
+        G = torch.einsum("bin,bjn->bij", Cc, Bc)
+        M = bf(G[..., None] * L * dtc[:, None, :, :])
+        y = torch.einsum("bijh,bjhp->bihp", M, xc) + torch.einsum(
+            "bin,bhpn->bihp", Cc, bf(state)) * torch.exp(cum)[..., None]
+        w = dtc * torch.exp(cum[:, -1:] - cum)                  # (b,j,H)
+        state = state * torch.exp(cum[:, -1])[..., None, None] + torch.einsum(
+            "bjhp,bjn->bhpn", bf(xc * w[..., None]), Bc)
+        ys.append(y)
+    return bf(torch.cat(ys, dim=1)), state
+
+
+@pytest.mark.parametrize("with_init", [False, True], ids=["zero", "init"])
+def test_wgmma_ssd_rounding_keeps_the_fine_limit(with_init):
+    """Where the bf16 wgmma kernel rounds to bf16, at mamba2's P 64 and
+    N 128 over 8 sub-chunks, y and the final state stay within 1e-2 of max
+    |reference| of the fp32 ``models.ssd.ssd_scan_ref`` on the same
+    (bf16-valued) inputs: the card's second limit, rehearsed here."""
+    b, S, H, P, N = 1, 512, 4, 64, 128
+    _, tx = _ssd_inputs(14, "bfloat16", b, S, H, P, N)
+    x, dt, A, B, C = tx
+    init = torch.tensor(np.random.default_rng(15).standard_normal(
+        (b, H, P, N)).astype(np.float32)) if with_init else \
+        torch.zeros((b, H, P, N))
+    y, st = _wgmma_ssd_rounding_model(x, dt, A, B, C, init)
+    j = [jnp.asarray(t.float().numpy()) for t in (x, dt, A, B, C)]
+    y_ref, st_ref = ssd_scan_ref(j[0], j[1], j[2], j[3][:, :, None],
+                                 j[4][:, :, None], 256, return_state=True,
+                                 init_state=jnp.asarray(init.numpy()))
+    assert _rel_err(_np(y), y_ref) < 1e-2
+    assert _rel_err(_np(st), st_ref) < 1e-2
+
+
+@pytest.mark.parametrize("dtype,H,P,N,strides,aligned,route", [
+    (torch.bfloat16, 64, 64, 128, (512 * 128, 128) * 2, True, "wgmma"),
+    (torch.bfloat16, 4, 64, 128, (512 * 256, 256) * 2, True, "wgmma"),  # halves
+    (torch.float32, 64, 64, 128, (512 * 128, 128) * 2, True, "fp32"),
+    (torch.float32, 6, 64, 128, (449 * 257, 257) * 2, False, "fp32"),   # any
+])
+def test_ssd_route(dtype, H, P, N, strides, aligned, route):
+    assert ssd_route(dtype, H, P, N, strides, aligned) == route
+
+
+@pytest.mark.parametrize("dtype,H,P,N,strides,aligned,error", [
+    (torch.bfloat16, 6, 64, 128, (512 * 128, 128) * 2, True, ValueError),
+    (torch.bfloat16, 64, 64, 128, (512 * 257, 257) * 2, True, ValueError),
+    (torch.bfloat16, 64, 64, 128, (512 * 128, 128) * 2, False, ValueError),
+    (torch.bfloat16, 4, 8, 8, (64, 8) * 2, True, ValueError),   # reduced
+    (torch.float32, 4, 8, 8, (64, 8) * 2, True, ValueError),    # config
+    (torch.float16, 64, 64, 128, (512 * 128, 128) * 2, True, TypeError),
+])
+def test_ssd_route_raises_for_what_no_kernel_takes(dtype, H, P, N, strides,
+                                                   aligned, error):
+    with pytest.raises(error):
+        ssd_route(dtype, H, P, N, strides, aligned)
+
+
+def test_reset_launches_zeroes_the_ssd_routes():
+    SSD_ROUTE_LAUNCHES["wgmma"] = 3
+    SSD_ROUTE_LAUNCHES["fp32"] = 1
+    ops.reset_launches()
+    assert SSD_ROUTE_LAUNCHES == {"wgmma": 0, "fp32": 0}
 
 
 def test_cpu_dispatch_launches_no_kernel():

@@ -15,12 +15,16 @@ exits non-zero):
                each kernel's registers and spills from ptxas's report,
                with no spill allowed in the SSD scan kernel;
 3. kernels  -- each kernel against its plain PyTorch version on the card
-               at the shapes of the serving paths of qwen2_0_5b and
-               mamba2_1_3b, with a served prefill's ragged length (8 x 455
-               rows for the matmul, S 455 for flash attention), the wmma
-               matmul kernel and its split-K reduce at two bf16 shapes TMA
-               cannot take, decode attention at served lengths and at hd
-               128 with groups of 4 (llama3_2_1b and qwen3_4b's heads),
+               at the shapes of the serving paths of the four served
+               models (qwen2_0_5b, llama3_2_1b, qwen2_7b, mamba2_1_3b, each
+               at its served batch), with a served prefill's ragged length
+               (8 x 455 rows for the matmul, S 455 for flash attention), the
+               wmma matmul kernel and its split-K reduce at two bf16 shapes
+               TMA cannot take, decode attention at served lengths, each
+               with the length a host int and read from device memory (as
+               the captured decode step passes it; also lengths 1, 64 and
+               65, where most splits of the cluster are empty), and at hd
+               128 with groups of 4 (qwen3_4b's heads),
                fp32 and bf16 (matmul and attention: 2e-4 and 2e-2 of
                1 + |plain|; bf16 decode attention also within 5e-5 +
                1e-2 |plain|, about one bf16 rounding of its output;
@@ -32,18 +36,27 @@ exits non-zero):
                time the card could take (bound_ms); the summary line sums
                the bf16 cases, the type the models are served in;
 4. parity   -- per model, at full width, depth 2, fp32: the port on the CPU
-               (plain versions) against the port on the card (kernels);
-5. serve    -- per model, full width and depth in bf16 through ServeEngine
-               (qwen2_0_5b: matmul, flash and decode attention; mamba2_1_3b:
-               matmul and ssd_scan), with every kernel's launch count over
-               that run (counts set to 0 just before it), a check that
-               every matmul of 64 rows or more (the prefills') took the
-               wgmma kernel and every one of fewer rows (the decode steps'
-               and the prefill's unembedding) the wgmma decode kernel,
-               and every scan the wgmma scan kernel, a profile of one
-               prefill and four decode steps (the device time of each of
-               the port's kernels among them), and a check that a decode
-               step never makes the host wait on the card.
+               (plain versions) against the port on the card (kernels, the
+               engine's decode step replayed from its captured graph):
+               logits, and greedy tokens at max_seq 128 and at max_seq 48,
+               where one prompt is longer than the cache and the other
+               decodes past its end;
+5. serve    -- per model, full width and depth in bf16 through ServeEngine,
+               every decode step a replay of the engine's one captured CUDA
+               graph (the dense models: matmul, flash and decode attention;
+               mamba2_1_3b: matmul and ssd_scan), with every kernel's launch
+               count over that run (counts set to 0 just before it), a
+               check that every matmul of 64 rows or more (the prefills')
+               took the wgmma kernel and every one of fewer rows (the
+               decode steps' and the prefill's unembedding) the wgmma
+               decode kernel, and every scan the wgmma scan kernel; the
+               graph's tokens against the same batch decoded eagerly
+               through bundle.decode, all 32 of every request; a profile of
+               one prefill and of four decode steps, eager and replayed
+               (the device time of each of the port's kernels among them);
+               wall, host and device ms per decode step, eager and graph
+               alternating; and a check that a replay never makes the host
+               wait on the card.
 
 Then a summary line of the kernels, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -53,6 +66,7 @@ checkout of the repository.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -66,7 +80,13 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 SEED = 0
-MODELS = ("qwen2_0_5b", "mamba2_1_3b")  # the served paths, in run order
+# the served paths, in run order: SERVE_PROFILES' three models and the SSD
+# path, each at a served batch, SERVE_PROFILES' max_batch (the JAX
+# package's serve/requests.py:179-197; mamba2_1_3b has no profile and is
+# served at 8, as the two small ones)
+MODELS = ("qwen2_0_5b", "llama3_2_1b", "qwen2_7b", "mamba2_1_3b")
+SERVE_BATCH = {"qwen2_0_5b": 8, "llama3_2_1b": 8, "qwen2_7b": 4,
+               "mamba2_1_3b": 8}
 TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 SSD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}  # tests/test_kernels.py's
 # and the second limit of bf16 (tests/test_torch_cuda.py's): the wgmma scan
@@ -351,29 +371,44 @@ def phase_kernels(torch, dev):
                                  f"with its plain version by {case['max_abs_err']}")
         cases.append(case)
 
+    def matmul_case(M, K, N, tied, dtype):
+        es = torch.tensor([], dtype=dtype).element_size()
+        x = randn(M, K, dtype=dtype)
+        if tied:  # a tied unembedding: embed.t(), read in place
+            w = randn(N, K, dtype=dtype, scale=K ** -0.5).t()
+        else:
+            w = randn(K, N, dtype=dtype, scale=K ** -0.5)
+        fns = (lambda: ops.matmul(x, w), lambda: matmul_plain(x, w),
+               lambda: torch.matmul(x, w))
+        check("streamed_matmul", [M, K, N], dtype, ops.matmul(x, w),
+              matmul_plain(x, w), es * (M * K + K * N + M * N),
+              2 * M * N * K, fns)
+
     # streamed_matmul: the (K, N) of qwen2_0_5b and of mamba2_1_3b at decode
     # and prefill M; the last of each is the tied unembedding
     pairs = [(896, 896), (896, 128), (896, 4864), (4864, 896), (896, 152064),
              (2048, 4096), (2048, 128), (2048, 64), (4096, 2048),
              (2048, 50432)]
     tied = {152064, 50432}
+    # llama3_2_1b at batch 8 and qwen2_7b at its batch 4: q/o, k/v, gate/up
+    # and down at the decode M and a 512-token prefill's, and the
+    # unembedding at the decode M (a prefill unembeds the last position):
+    # llama3_2_1b's tied, qwen2_7b's a row-major lm_head
+    served = [(8, 4096, [(2048, 2048), (2048, 512), (2048, 8192),
+                         (8192, 2048)], (2048, 128256, True)),
+              (4, 2048, [(3584, 3584), (3584, 512), (3584, 18944),
+                         (18944, 3584)], (3584, 152064, False))]
     for dtype in (torch.float32, torch.bfloat16):
-        es = torch.tensor([], dtype=dtype).element_size()
         for M in (8, 4096, 8 * 455):  # decode, prefill, a ragged prefill
             for K, N in pairs:
                 if M == 8 * 455 and N in tied:  # prefill unembeds 8 rows
                     continue
-                x = randn(M, K, dtype=dtype)
-                if N in tied:  # the tied unembedding: embed.t(), in place
-                    w = randn(N, K, dtype=dtype, scale=K ** -0.5).t()
-                else:
-                    w = randn(K, N, dtype=dtype, scale=K ** -0.5)
-                fns = (lambda: ops.matmul(x, w), lambda: matmul_plain(x, w),
-                       lambda: torch.matmul(x, w))
-                check("streamed_matmul", [M, K, N], dtype, ops.matmul(x, w),
-                      matmul_plain(x, w), es * (M * K + K * N + M * N),
-                      2 * M * N * K, fns)
-                del x, w
+                matmul_case(M, K, N, N in tied, dtype)
+        for m_decode, m_prefill, model_pairs, (K, N, is_tied) in served:
+            for M in (m_decode, m_prefill):
+                for Kp, Np in model_pairs:
+                    matmul_case(M, Kp, Np, False, dtype)
+            matmul_case(m_decode, K, N, is_tied, dtype)
 
     # the wmma kernel and its split-K reduce: bf16 products TMA cannot take
     # (a row-major w with N % 8 != 0; K % 8 != 0, w the tied layout), at a
@@ -402,11 +437,13 @@ def phase_kernels(torch, dev):
             q, k, v, is_causal=causal, enable_gqa=True)
 
     # flash_attention: prefill at B=8, S=512, qwen2_0_5b's heads, and at a
-    # served prefill's ragged S 455
-    B, H, KV, hd = 8, 14, 2, 64
+    # served prefill's ragged S 455; llama3_2_1b's heads (32 over 8, hd 64)
+    # at B 8 and qwen2_7b's (28 over 4, hd 128) at its B 4, S 512
+    flash_cases = [(8, S, 14, 2, 64) for S in (512, 455)] + [
+        (8, 512, 32, 8, 64), (4, 512, 28, 4, 128)]
     for dtype in (torch.float32, torch.bfloat16):
         es = torch.tensor([], dtype=dtype).element_size()
-        for S in (512, 455):
+        for B, S, H, KV, hd in flash_cases:
             q = randn(B, S, H, hd, dtype=dtype)
             k = randn(B, S, KV, hd, dtype=dtype)
             v = randn(B, S, KV, hd, dtype=dtype)
@@ -421,23 +458,35 @@ def phase_kernels(torch, dev):
                   4 * hd * B * H * S * (S + 1) // 2, fns)
 
     # decode_attention: one token against a 1k cache; qwen2_0_5b's heads at
-    # four lengths (487 is a served one), then hd 128 with groups of 4
-    # (llama3_2_1b's and qwen3_4b's heads)
-    B, S = 8, 1024
+    # four lengths (487 is a served one), llama3_2_1b's (32 over 8, hd 64),
+    # qwen2_7b's at its B 4 (28 over 4, hd 128) and qwen3_4b's (32 over 8,
+    # hd 128).  Each length twice: a host int (the plan of its own keys),
+    # and a 0-d int32 on the card, as the captured decode step passes it
+    # (the plan of all S keys, splits past the length empty; shape tag
+    # "device"); lengths 1, 64 and 65 on the card leave most of a cluster's
+    # splits empty.
+    S = 1024
     for dtype in (torch.float32, torch.bfloat16):
         es = torch.tensor([], dtype=dtype).element_size()
-        for H, KV, hd, lengths in ((14, 2, 64, (1, 487, 513, 1024)),
-                                   (32, 8, 128, (487, 1024))):
+        for B, H, KV, hd, lengths in (
+                (8, 14, 2, 64, (1, 487, 513, 1024)),
+                (8, 32, 8, 64, (487, 1024)),
+                (4, 28, 4, 128, (487, 1024)),
+                (8, 32, 8, 128, (487, 1024))):
             q = randn(B, H, hd, dtype=dtype)
             k = randn(B, S, KV, hd, dtype=dtype)
             v = randn(B, S, KV, hd, dtype=dtype)
-            for length in lengths:
-                fns = (lambda: ops.decode_attention(q, k, v, length),
-                       lambda: decode_attention_plain(q, k, v, length),
+            runs = [(n, n) for n in lengths] + [
+                (n, torch.full((), n, dtype=torch.int32, device="cuda"))
+                for n in sorted(set(lengths) | {1, 64, 65})]
+            for length, arg in runs:
+                tag = ["device"] if isinstance(arg, torch.Tensor) else []
+                fns = (lambda: ops.decode_attention(q, k, v, arg),
+                       lambda: decode_attention_plain(q, k, v, arg),
                        sdpa(q[:, :, None], k[:, :length].transpose(1, 2),
                             v[:, :length].transpose(1, 2), False))
-                check("decode_attention", [B, S, H, KV, hd, length], dtype,
-                      ops.decode_attention(q, k, v, length),
+                check("decode_attention", [B, S, H, KV, hd, length] + tag,
+                      dtype, ops.decode_attention(q, k, v, arg),
                       decode_attention_plain(q, k, v, length),
                       es * (2 * B * H * hd + 2 * B * length * KV * hd),
                       4 * B * H * length * hd, fns,
@@ -517,21 +566,42 @@ def phase_parity(torch, model):
     ok_logits = bool((diff <= tol * (1 + want.abs())).all())
     prompts = [rng.integers(0, cfg.vocab_size - 1, n).astype(np.int32)
                for n in (40, 64)]
-    tokens = {}
-    for device, params in (("cuda", p_card), ("cpu", p_cpu)):
-        eng = ServeEngine(bundle, params, EngineConfig(batch_size=2,
-                                                       max_seq=128),
-                          device=device)
-        for pr in prompts:
-            eng.submit(pr, max_new_tokens=9)  # prefill + 8 decode steps
-        tokens[device] = [r.out_tokens for r in eng.run()]
+    # max_seq 128 holds both requests; at 48 the prompt of 64 is longer
+    # than the cache and the prompt of 40 decodes past its end
+    tokens, replays = {}, {}
+    for max_seq in (128, 48):
+        for device, params in (("cuda", p_card), ("cpu", p_cpu)):
+            eng = ServeEngine(bundle, params, EngineConfig(batch_size=2,
+                                                           max_seq=max_seq),
+                              device=device)
+            for pr in prompts:
+                eng.submit(pr, max_new_tokens=9)  # prefill + 8 decode steps
+            tokens[device, max_seq] = [r.out_tokens for r in eng.run()]
+            replays[device, max_seq] = eng.decoder.replays
+            del eng
     emit({"phase": "parity", "model": model, "n_layers": 2, "dtype": "float32",
           "prefill_logits_max_abs_err": diff.max().item(), "tol": tol,
-          "tokens_card": tokens["cuda"], "tokens_cpu": tokens["cpu"]})
+          "prompt_lens": [len(p) for p in prompts], "new_tokens": 9,
+          **{f"tokens_{'card' if d == 'cuda' else d}_max_seq_{n}": t
+             for (d, n), t in tokens.items()},
+          "card_graph_replays": {n: replays["cuda", n] for n in (128, 48)}})
+    del p_card, p_cpu
+    free(torch)
     if not ok_logits:
         raise AssertionError("card and CPU logits disagree")
-    if tokens["cuda"] != tokens["cpu"]:
-        raise AssertionError("card and CPU greedy tokens differ")
+    for n in (128, 48):
+        if tokens["cuda", n] != tokens["cpu", n]:
+            raise AssertionError(f"card and CPU greedy tokens differ at "
+                                 f"max_seq {n}")
+        if replays["cuda", n] != 8 or replays["cpu", n] != 0:
+            raise AssertionError(f"replays {replays}: the card engine did not "
+                                 "replay its graph for every decode step")
+
+
+def free(torch):
+    """Give the card's memory back between models."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def expected_launches(cfg, prefills: int, decode_steps: int):
@@ -548,6 +618,16 @@ def expected_launches(cfg, prefills: int, decode_steps: int):
             "decode_attention": L * decode_steps, "ssd_scan": 0}
 
 
+def pad_prompts(prompts, batch_size):
+    """The engine's batch: prompts left-padded with token 0 to the longest."""
+    import numpy as np
+    S = max(len(p) for p in prompts)
+    toks = np.zeros((batch_size, S), np.int64)
+    for i, p in enumerate(prompts):
+        toks[i, S - len(p):] = p
+    return toks
+
+
 def phase_serve(torch, dev, model):
     import numpy as np
     from repro_torch.configs import get_config
@@ -560,83 +640,109 @@ def phase_serve(torch, dev, model):
     cfg = get_config(model)
     bundle = build(cfg)
     params = bundle.init(SEED, device="cuda")
-    finite = []
-    tall = [0, 0]  # matmuls of 64 rows or more, and of fewer, in the run
+    # all logits of the run finite: a flag on the card that each prefill and
+    # each decode step (inside the captured graph too) ands in place
+    finite = torch.ones((), dtype=torch.bool, device="cuda")
+    # matmuls of 64 rows or more, and of fewer, in the run; those made while
+    # the decode step is captured are counted apart, since every replay of
+    # the graph launches them again
+    tall, tall_captured = [0, 0], [0, 0]
 
     def counted_matmul(x, w, _matmul=ops.matmul):
-        tall[x.shape[0] < 64] += 1
+        into = (tall_captured if torch.cuda.is_current_stream_capturing()
+                else tall)
+        into[x.shape[0] < 64] += 1
         return _matmul(x, w)
 
     def prefill(p, batch):
         logits, caches = bundle.prefill(p, batch)
-        finite.append(torch.isfinite(logits).all())
+        finite.logical_and_(torch.isfinite(logits).all())
         return logits, caches
 
     def decode(p, caches, token, pos):
         logits, caches = bundle.decode(p, caches, token, pos)
-        finite.append(torch.isfinite(logits).all())
+        finite.logical_and_(torch.isfinite(logits).all())
         return logits, caches
 
     watched = dataclasses.replace(bundle, prefill=prefill, decode=decode)
-    ecfg = EngineConfig(batch_size=8, max_seq=1024)
+    ecfg = EngineConfig(batch_size=SERVE_BATCH[model], max_seq=1024)
     rng = np.random.default_rng(SEED)
     lengths = rng.integers(128, 513, ecfg.batch_size)
     prompts = [rng.integers(0, cfg.vocab_size - 1, n).astype(np.int32)
                for n in lengths]
 
-    warm = ServeEngine(watched, params, ecfg, device="cuda")
-    for pr in prompts:
-        warm.submit(pr, max_new_tokens=2)
-    warm.run()
-    finite.clear()
-
-    eng = ServeEngine(watched, params, ecfg, device="cuda")
-    for pr in prompts:
-        eng.submit(pr, max_new_tokens=32)
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launches()
     plain_matmul, ops.matmul = ops.matmul, counted_matmul
     try:
-        reqs = eng.run()
+        # the engine captures its decode step, after one eager warm-up step,
+        # when it is made; a first batch of 2 tokens warms the prefill
+        eng = ServeEngine(watched, params, ecfg, device="cuda")
+        for pr in prompts:
+            eng.submit(pr, max_new_tokens=2)
+        eng.run()
+        before, replays0 = dict(eng.stats), eng.decoder.replays
+        reqs = [eng.submit(pr, max_new_tokens=32) for pr in prompts]
+        tall[:] = [0, 0]
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        eng.run()
+        launches, routes = dict(ops.LAUNCHES), dict(ROUTE_LAUNCHES)
+        ssd_routes = dict(SSD_ROUTE_LAUNCHES)
     finally:
         ops.matmul = plain_matmul
-    launches, routes = dict(ops.LAUNCHES), dict(ROUTE_LAUNCHES)
-    ssd_routes = dict(SSD_ROUTE_LAUNCHES)
+    st = {k: eng.stats[k] - before[k] for k in before}
+    replays = eng.decoder.replays - replays0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    all_finite = bool(finite)
+    graph_tokens = [r.out_tokens for r in reqs]
+    eager = eager_decode(torch, bundle, params, prompts, ecfg, 32)
+    breakdown = profile_steps(torch, bundle, params, prompts, ecfg,
+                              eng.decoder)
 
-    breakdown = profile_steps(torch, bundle, params, prompts, ecfg)
-
-    st = eng.stats
+    same_tokens = graph_tokens == eager["tokens"]
     expect = expected_launches(cfg, st["prefills"], st["decode_steps"])
-    all_finite = bool(torch.stack(finite).all())
+    small = tall[1] + tall_captured[1] * replays
     emit({"phase": "serve", "model": model, "n_layers": cfg.n_layers,
           "dtype": cfg.param_dtype, "batch": ecfg.batch_size,
           "max_seq": ecfg.max_seq, "prompt_lens": [int(n) for n in lengths],
           "new_tokens": 32, "nvidia_smi": dev["smi"],
           "prefill_s": st["prefill_s"], "decode_s": st["decode_s"],
-          "decode_steps": st["decode_steps"],
+          "decode_steps": st["decode_steps"], "graph_replays": replays,
           "decode_tokens_per_s": st["tokens_out"] / st["decode_s"],
           "decode_step_ms": 1e3 * st["decode_s"] / st["decode_steps"],
-          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "eager_decode_step_ms": eager["step_ms"],
+          "graph_tokens_equal_eager": same_tokens,
+          "peak_mem_gb": peak_gb,
           "launches": launches, "expected_launches": expect,
+          "launches_per_replay": eng.decoder.launches[0],
           "matmul_routes": routes, "ssd_routes": ssd_routes,
           "matmuls_of_64_rows_or_more": tall[0],
-          "matmuls_of_fewer_rows": tall[1],
+          "matmuls_of_fewer_rows": small,
+          "matmuls_of_fewer_rows_per_replay": tall_captured[1],
           "logits_finite": all_finite,
           "first_tokens": reqs[0].out_tokens[:8], "profile": breakdown})
+    del eng, watched, params, bundle, eager
+    free(torch)
     if any(len(r.out_tokens) != 32 for r in reqs):
         raise AssertionError("a request did not get its 32 tokens")
     if not all(0 <= t < cfg.vocab_size for r in reqs for t in r.out_tokens):
         raise AssertionError("a token outside the vocabulary")
     if not all_finite:
         raise AssertionError("non-finite logits")
+    if replays != st["decode_steps"]:
+        raise AssertionError(f"{replays} replays for {st['decode_steps']} "
+                             "decode steps: not every step was the graph")
+    if not same_tokens:
+        raise AssertionError("the graph's tokens differ from those of the "
+                             "same batch decoded eagerly")
     if launches != expect or not all(launches[k] for k, n in expect.items()
                                      if n):
         raise AssertionError(f"launch counts {launches} != {expect}")
-    if not tall[0] or routes["wgmma"] != tall[0] or routes["fp32"]:
+    if (not tall[0] or routes["wgmma"] != tall[0] or tall_captured[0]
+            or routes["fp32"]):
         raise AssertionError(f"{tall[0]} matmuls of 64 rows or more, routes "
                              f"{routes}: not all on the wgmma kernel")
-    if not tall[1] or routes["wgmma_decode"] != tall[1] or routes["wmma"]:
-        raise AssertionError(f"{tall[1]} matmuls of fewer than 64 rows, "
+    if not small or routes["wgmma_decode"] != small or routes["wmma"]:
+        raise AssertionError(f"{small} matmuls of fewer than 64 rows, "
                              f"routes {routes}: not all on the wgmma decode "
                              "kernel")
     if ssd_routes != {"wgmma": launches["ssd_scan"], "fp32": 0}:
@@ -645,31 +751,65 @@ def phase_serve(torch, dev, model):
     return launches
 
 
-def profile_steps(torch, bundle, params, prompts, ecfg, n_decode=4):
-    """torch.profiler over one prefill and ``n_decode`` decode steps of the
-    served batch: host wall time, the union of device kernel time, the idle
-    share of the device, and the kernels that take the most device time.
-    Then, unprofiled, the host's enqueue time and the wall time of a decode
-    step, and a check that a step never waits on the card."""
-    import numpy as np
-    from repro_torch.serve import seed_decode_cache
+def eager_decode(torch, bundle, params, prompts, ecfg, new):
+    """The engine's batch decoded eagerly through ``bundle.decode``, as the
+    engine would without its graph: every request's ``new`` tokens, and
+    the wall ms per decode step, each ending in a copy of the tokens to the
+    host as the engine's steps do."""
+    from repro_torch.serve import greedy, seed_decode_cache
+    S = max(len(p) for p in prompts)
+    batch = {"tokens": torch.from_numpy(pad_prompts(prompts,
+                                                    ecfg.batch_size)).cuda()}
+    V = bundle.cfg.vocab_size
+    with torch.inference_mode():
+        logits, caches = bundle.prefill(params, batch)
+        caches = seed_decode_cache(bundle, caches, ecfg.batch_size,
+                                   ecfg.max_seq, "cuda")
+        tok = greedy(logits, V)
+        out = [tok.cpu()]
+        t0 = time.perf_counter()
+        for i in range(new - 1):
+            logits, caches = bundle.decode(params, caches, tok, S + i)
+            tok = greedy(logits, V)
+            out.append(tok.cpu())
+        step_ms = (time.perf_counter() - t0) / (new - 1) * 1e3
+    tokens = torch.cat(out, dim=1).tolist()[:len(prompts)]
+    return {"tokens": tokens, "step_ms": step_ms}
+
+
+def profile_steps(torch, bundle, params, prompts, ecfg, decoder, n_decode=4):
+    """torch.profiler over one prefill, ``n_decode`` eager decode steps and
+    ``n_decode`` replays of the engine's captured step (``decoder``), all
+    of the served batch: host wall time, the union of device kernel time,
+    the idle share of the device, and the kernels that take the most device
+    time.  Then, unprofiled, eager steps and replays in turn (twice each):
+    the host's time to enqueue a step and the wall time until the card has
+    run it.  Last, a check that a replay never waits on the card."""
+    from repro_torch.serve import greedy, seed_decode_cache
     from torch.profiler import ProfilerActivity, profile
 
     S = max(len(p) for p in prompts)
-    toks = np.zeros((ecfg.batch_size, S), np.int64)
-    for i, p in enumerate(prompts):
-        toks[i, S - len(p):] = p
-    batch = {"tokens": torch.from_numpy(toks).cuda()}
+    batch = {"tokens": torch.from_numpy(pad_prompts(prompts,
+                                                    ecfg.batch_size)).cuda()}
+    V = bundle.cfg.vocab_size
     state = {}
 
     def prefill():
         state["logits"], state["caches"] = bundle.prefill(params, batch)
 
-    def decode():
-        tok = torch.argmax(state["logits"], dim=-1)
-        for i in range(n_decode):
-            logits, _ = bundle.decode(params, state["caches"], tok, S + i)
-            tok = torch.argmax(logits, dim=-1)
+    def eager(n):
+        tok = greedy(state["logits"], V)
+        for i in range(n):
+            logits, _ = bundle.decode(params, state["decode_caches"], tok,
+                                      S + i)
+            tok = greedy(logits, V)
+
+    def replay(n):
+        for _ in range(n):
+            decoder()
+
+    def start_graph():
+        decoder.start(state["caches"], greedy(state["logits"], V), S)
 
     def measure(fn, steps):
         torch.cuda.synchronize()
@@ -701,45 +841,64 @@ def profile_steps(torch, bundle, params, prompts, ecfg, n_decode=4):
                 "top_device_ms_per_step": {k: v / steps / 1e3 for k, v in top},
                 "port_kernels_ms_per_step": port}
 
-    with torch.inference_mode():
-        prefill()  # warm
-        out = {"prefill": measure(prefill, 1)}
-        state["caches"] = seed_decode_cache(bundle, state["caches"],
-                                            ecfg.batch_size, ecfg.max_seq,
-                                            "cuda")
-        decode()  # warm
-        out["decode"] = measure(decode, n_decode)
-        # Unprofiled, as served but with no copy of the tokens to the host:
-        # the host's time to enqueue a step, and the wall time until the
-        # card has run it.  Where enqueueing takes longer, the host bounds
-        # the step.
-        tok = torch.argmax(state["logits"], dim=-1)
+    def unprofiled(step, n):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for i in range(4 * n_decode):
-            logits, _ = bundle.decode(params, state["caches"], tok, S + i)
-            tok = torch.argmax(logits, dim=-1)
+        step(n)
         t1 = time.perf_counter()
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        out["decode_unprofiled"] = {
-            "steps": 4 * n_decode,
-            "host_enqueue_ms_per_step": (t1 - t0) / (4 * n_decode) * 1e3,
-            "wall_ms_per_step": (t2 - t0) / (4 * n_decode) * 1e3}
-        # A host wait inside the step (a copy from host memory, an .item())
-        # would stop the host from enqueueing ahead of the card: one more
-        # step with PyTorch's sync check raising on any such wait.
-        tok = torch.argmax(state["logits"], dim=-1)
+        return {"steps": n, "host_ms_per_step": (t1 - t0) / n * 1e3,
+                "wall_ms_per_step": (t2 - t0) / n * 1e3}
+
+    with torch.inference_mode():
+        prefill()  # warm
+        out = {"prefill": measure(prefill, 1)}
+        start_graph()
+        state["decode_caches"] = seed_decode_cache(
+            bundle, state["caches"], ecfg.batch_size, ecfg.max_seq, "cuda")
+        eager(1)  # warm
+        out["decode_eager"] = measure(lambda: eager(n_decode), n_decode)
+        out["decode_graph"] = measure(lambda: replay(n_decode), n_decode)
+        if out["decode_graph"]["kernels_seen"]:
+            out["decode_graph"]["device_time_from"] = "torch.profiler"
+        else:  # the profiler did not see the replayed graph's kernels
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            a.record()
+            replay(n_decode)
+            b.record()
+            torch.cuda.synchronize()
+            out["decode_graph"]["device_busy_ms_per_step"] = \
+                a.elapsed_time(b) / n_decode
+            out["decode_graph"]["device_time_from"] = (
+                "CUDA events around the replays: torch.profiler showed no "
+                "kernel of the replayed graph")
+        # Unprofiled, as served but with no copy of the tokens to the host,
+        # eager steps and replays in turn: where the host takes longer to
+        # enqueue a step than the card to run it, the host bounds the step.
+        runs = {"eager": [], "graph": []}
+        for _ in range(2):
+            runs["eager"].append(unprofiled(eager, 4 * n_decode))
+            start_graph()
+            runs["graph"].append(unprofiled(replay, 4 * n_decode))
+        out["decode_unprofiled"] = runs
+        # A host wait inside a replay (a copy from host memory, an .item())
+        # would stop the host from running ahead of the card: one replay
+        # with PyTorch's sync check raising on any such wait.
+        start_graph()
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
-            bundle.decode(params, state["caches"], tok, S + n_decode)
+            decoder()
         except RuntimeError as e:
-            raise AssertionError(f"the decode step waits on the card: {e}")
+            raise AssertionError(f"a replay of the decode step waits on the "
+                                 f"card: {e}")
         finally:
             torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
-        out["decode_host_syncs"] = 0
+        out["replay_host_syncs"] = 0
     return out
 
 

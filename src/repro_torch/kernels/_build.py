@@ -34,9 +34,9 @@ SIGNATURES = {
     "streamed_matmul_decode_tile": [],
     "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     "decode_attention_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                             _I, _I, _F, _P],
-    "decode_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                              _F, _P],
+                             _I, _P, _I, _F, _P],
+    "decode_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I,
+                              _I, _F, _P],
     "decode_attention_chunk": [],
     "decode_attention_max_group": [],
     "ssd_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

@@ -5,7 +5,12 @@
 // (_decode_kernel) of the JAX package.
 //
 // Layout: q and out (B, H, hd); the cache k, v (B, S, KV, hd) is read in
-// place, with no transpose.  length is a runtime int (1 <= length <= S).
+// place, with no transpose.  length (1 <= length <= S) is a runtime int, or
+// an int32 in device memory that every block reads at its start: a decode
+// step computes it on the card, so a captured CUDA graph of the step replays
+// with each step's length.  With a device length the host cannot see it, so
+// the split plan is made for all S keys, and a split wholly past `length`
+// runs no tile and adds nothing to the merge.
 //
 // What bounds it on an H100: each cache element is read once and used for
 // 2*G operations (G query heads per KV head), so the bytes of the first
@@ -54,12 +59,19 @@ constexpr int DWARPS = 4;
 constexpr int DTHREADS = 32 * DWARPS;
 constexpr int MAXG = 8;      // query heads per KV head
 
+// The keys attended: `length`, or, where the caller passes `length_dev`, the
+// int32 there clamped to [1, S].
+__device__ __forceinline__ int keys_attended(const int* length_dev, int length, int S) {
+  return length_dev ? min(max(*length_dev, 1), S) : length;
+}
+
 template <int HD>
 __global__ void __launch_bounds__(DTHREADS)
 decode_split_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, float* __restrict__ o_part,
-                    float* __restrict__ m_part, float* __restrict__ l_part,
-                    int S, int H, int KV, int length, int n_splits, float scale) {
+                    float* __restrict__ m_part, float* __restrict__ l_part, int S, int H,
+                    int KV, int length_arg, const int* __restrict__ length_dev, int n_splits,
+                    float scale) {
   static_assert(DCHUNK == 64, "phase 2 gives each lane two keys");
   constexpr int PER = HD / 32;  // dims per lane: lane*PER .. lane*PER+PER-1
   __shared__ float Ss[MAXG][DCHUNK];
@@ -70,6 +82,18 @@ decode_split_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int G = H / KV, h0 = kvh * G;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int j0 = split * DCHUNK;
+  const int length = keys_attended(length_dev, length_arg, S);
+  if (j0 >= length) {  // no key here: m = NEG_INF, l = 0, O = 0 weigh 0 in the combine
+    for (int i = threadIdx.x; i < G * HD; i += DTHREADS) {
+      const size_t r = ((size_t)b * H + h0 + i / HD) * n_splits + split;
+      o_part[r * HD + i % HD] = 0.f;
+      if (i % HD == 0) {
+        m_part[r] = NEG_INF;
+        l_part[r] = 0.f;
+      }
+    }
+    return;
+  }
 
   float qr[MAXG][PER];
 #pragma unroll
@@ -183,11 +207,11 @@ __global__ void decode_combine_kernel(const float* __restrict__ o_part,
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* out, float* o_part,
            float* m_part, float* l_part, int B, int S, int H, int KV, int length,
-           int n_splits, float scale, cudaStream_t s) {
+           const int* length_dev, int n_splits, float scale, cudaStream_t s) {
   const dim3 grid(n_splits, KV, B);
   decode_split_kernel<HD><<<grid, DTHREADS, 0, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      o_part, m_part, l_part, S, H, KV, length, n_splits, scale);
+      o_part, m_part, l_part, S, H, KV, length, length_dev, n_splits, scale);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   decode_combine_kernel<<<B * H, HD, 0, s>>>(o_part, m_part, l_part,
@@ -220,8 +244,8 @@ __global__ void __launch_bounds__(W_THREADS)
 decode_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                     const __grid_constant__ CUtensorMap kmap,
                     const __grid_constant__ CUtensorMap vmap,
-                    __nv_bfloat16* __restrict__ out, int H, int KV, int length,
-                    int tiles_per_split, float scale_log2) {
+                    __nv_bfloat16* __restrict__ out, int S, int H, int KV, int length_arg,
+                    const int* __restrict__ length_dev, int tiles_per_split, float scale_log2) {
   using namespace hopper;
   using T = DecodeTiles<HD>;
   extern __shared__ unsigned char smem_raw[];
@@ -240,6 +264,11 @@ decode_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   const int kvh = blockIdx.y, b = blockIdx.z;
   const int G = H / KV, h0 = kvh * G;
   const int t0 = blockIdx.x * tiles_per_split;
+  // With a device length a split may lie wholly past it (ntiles <= 0): it
+  // loads and runs no tile but still reaches both cluster barriers, leaving
+  // m = NEG_INF, l = 0 and O = 0, which the merge weighs 0.  Split 0 always
+  // holds key 0.
+  const int length = keys_attended(length_dev, length_arg, S);
   const int ntiles = min(tiles_per_split, (length + W_TILE - 1) / W_TILE - t0);
   if (threadIdx.x == 0) {
     mbar_init(qbar, 1);
@@ -435,8 +464,8 @@ decode_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 
 template <int HD>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out, int B, int S, int H,
-                 int KV, int length, int splits, int tiles_per_split, float scale,
-                 cudaStream_t stream) {
+                 int KV, int length, const int* length_dev, int splits, int tiles_per_split,
+                 float scale, cudaStream_t stream) {
   using T = DecodeTiles<HD>;
   static hopper::SmemRaised raised;
   CUtensorMap qmap, kmap, vmap;
@@ -452,8 +481,8 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out, int B, 
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(hopper::launch_cluster(
       decode_wgmma_kernel<HD>, raised, dim3(splits, KV, B), W_THREADS, T::SMEM, splits, stream,
-      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(out), H, KV, length, tiles_per_split,
-      scale * 1.4426950408889634f));
+      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(out), S, H, KV, length, length_dev,
+      tiles_per_split, scale * 1.4426950408889634f));
 }
 
 }  // namespace
@@ -461,42 +490,51 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out, int B, 
 extern "C" int decode_attention_chunk() { return DCHUNK; }
 extern "C" int decode_attention_max_group() { return MAXG; }
 
-// fp32 (the parity path): hd 64 or 128; H / KV <= MAXG;
-// n_splits = ceil(length / DCHUNK).  o_part (B, H, n_splits, hd), m_part and
+// fp32 (the parity path): hd 64 or 128; H / KV <= MAXG; length_dev null and
+// n_splits = ceil(length / DCHUNK), or length_dev an int32 on the device and
+// n_splits = ceil(S / DCHUNK).  o_part (B, H, n_splits, hd), m_part and
 // l_part (B, H, n_splits) are fp32 scratch.  Returns the cudaError_t of the
 // launches.
 extern "C" int decode_attention_f32(const void* q, const void* k, const void* v,
                                     void* out, void* o_part, void* m_part,
                                     void* l_part, int B, int S, int H, int KV, int hd,
-                                    int length, int n_splits, float scale, void* stream) {
+                                    int length, const void* length_dev, int n_splits,
+                                    float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* op = static_cast<float*>(o_part);
   float* mp = static_cast<float*>(m_part);
   float* lp = static_cast<float*>(l_part);
+  const int* ld = static_cast<const int*>(length_dev);
+  if ((ld ? S : length) > n_splits * DCHUNK) return static_cast<int>(cudaErrorInvalidValue);
   if (hd == 64)
-    return launch<64>(q, k, v, out, op, mp, lp, B, S, H, KV, length, n_splits, scale, s);
+    return launch<64>(q, k, v, out, op, mp, lp, B, S, H, KV, length, ld, n_splits, scale, s);
   if (hd == 128)
-    return launch<128>(q, k, v, out, op, mp, lp, B, S, H, KV, length, n_splits, scale, s);
+    return launch<128>(q, k, v, out, op, mp, lp, B, S, H, KV, length, ld, n_splits, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// bf16, one launch: splits * tiles_per_split 64-key tiles cover length, the
-// last split holds at least one key, splits <= hopper::MAX_CLUSTER; hd 64 or
-// 128, H / KV <= MAXG; q, k, v 16-byte aligned (TMA).  Returns the cudaError_t
-// of the launch, or cudaErrorInvalidValue for what the kernel does not take.
+// bf16, one launch: splits * tiles_per_split 64-key tiles cover length (or,
+// with length_dev an int32 on the device, all S keys), the last split holds
+// at least one of those tiles, splits <= hopper::MAX_CLUSTER; hd 64 or 128,
+// H / KV <= MAXG; q, k, v 16-byte aligned (TMA).  Returns the cudaError_t of
+// the launch, or cudaErrorInvalidValue for what the kernel does not take.
 extern "C" int decode_attention_bf16(const void* q, const void* k, const void* v, void* out,
                                      int B, int S, int H, int KV, int hd, int length,
-                                     int splits, int tiles_per_split, float scale,
-                                     void* stream) {
+                                     const void* length_dev, int splits, int tiles_per_split,
+                                     float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int tiles = (length + W_TILE - 1) / W_TILE;
-  if (length < 1 || length > S || KV < 1 || H % KV || H / KV > MAXG || splits < 1 ||
+  const int* ld = static_cast<const int*>(length_dev);
+  const int planned = ld ? S : length;
+  const int tiles = (planned + W_TILE - 1) / W_TILE;
+  if (planned < 1 || planned > S || KV < 1 || H % KV || H / KV > MAXG || splits < 1 ||
       splits > hopper::MAX_CLUSTER || tiles_per_split < 1 ||
       (splits - 1) * tiles_per_split >= tiles || splits * tiles_per_split < tiles)
     return static_cast<int>(cudaErrorInvalidValue);
   if (hd == 64)
-    return launch_wgmma<64>(q, k, v, out, B, S, H, KV, length, splits, tiles_per_split, scale, s);
+    return launch_wgmma<64>(q, k, v, out, B, S, H, KV, length, ld, splits, tiles_per_split,
+                            scale, s);
   if (hd == 128)
-    return launch_wgmma<128>(q, k, v, out, B, S, H, KV, length, splits, tiles_per_split, scale, s);
+    return launch_wgmma<128>(q, k, v, out, B, S, H, KV, length, ld, splits, tiles_per_split,
+                             scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -3,8 +3,10 @@ cache, over cache positions ``< length``.
 
 The port of the JAX package's ``kernels/decode_attention.py``: q (B, H, hd),
 cache k and v (B, S, KV, hd) read in place, GQA with query head h on KV head
-h // (H // KV), ``length`` a runtime int.  ``decode_attention_plain`` is the
-plain PyTorch version; ``decode_attention_cuda`` launches the kernels of
+h // (H // KV).  ``length`` is a host int, or a 0-d int32 tensor on q's
+device that the kernels read from device memory, as a decode step captured
+in a CUDA graph passes it.  ``decode_attention_plain`` is the plain PyTorch
+version; ``decode_attention_cuda`` launches the kernels of
 ``csrc/decode_attention.cu``: for bf16 one launch of the wgmma kernel, whose
 splits of the sequence (``decode_split_plan``) form a thread-block cluster
 that merges its partial results itself; for fp32 (parity runs) the
@@ -14,6 +16,7 @@ from __future__ import annotations
 
 import functools
 import math
+from typing import Union
 
 import torch
 
@@ -26,7 +29,8 @@ def decode_split_plan(length: int, B: int, KV: int, n_sms: int, tile: int):
     """(splits, tiles per split) of the bf16 kernel: ``length`` keys in
     tiles of ``tile`` keys (``decode_tile()``), cut into contiguous runs
     that form a cluster, so that B * KV * splits blocks fill the ``n_sms``
-    SMs."""
+    SMs.  A length read from device memory takes the plan of the cache
+    length S, and a split wholly past it runs no tile."""
     return cluster_runs(-(-length // tile), n_sms // max(1, B * KV))
 
 
@@ -37,8 +41,11 @@ def decode_tile() -> int:
     return _build.load().decode_attention_chunk()
 
 
+Length = Union[int, torch.Tensor]
+
+
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           length: int) -> torch.Tensor:
+                           length: Length) -> torch.Tensor:
     B, H, hd = q.shape
     S, KV = k.shape[1], k.shape[2]
     qg = q.float().reshape(B, KV, H // KV, hd)
@@ -51,7 +58,11 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          length: int) -> torch.Tensor:
+                          length: Length) -> torch.Tensor:
+    """A host-int ``length`` gets the split plan of its own keys.  A 0-d
+    int32 ``length`` on q's device is read by the kernels, clamped to
+    [1, S], with the plan of all S keys: the host neither reads it nor
+    waits for it."""
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("decode_attention: q, k, v must be on one CUDA "
                          "device")
@@ -71,9 +82,19 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if hd not in HEAD_DIMS:
         raise ValueError(f"decode_attention: head_dim {hd} not in "
                          f"{HEAD_DIMS}")
-    length = int(length)
-    if not 1 <= length <= S:
-        raise ValueError(f"decode_attention: length {length} outside [1, {S}]")
+    if isinstance(length, torch.Tensor):
+        if (length.device != q.device or length.dtype != torch.int32
+                or length.dim() != 0):
+            raise ValueError("decode_attention: a tensor length must be a 0-d "
+                             f"int32 on {q.device}, not {length.dtype} "
+                             f"{tuple(length.shape)} on {length.device}")
+        planned, length_ptr, length = S, length.data_ptr(), 0
+    else:
+        length = int(length)
+        if not 1 <= length <= S:
+            raise ValueError(f"decode_attention: length {length} outside "
+                             f"[1, {S}]")
+        planned, length_ptr = length, None
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("decode_attention: q, k, v must be contiguous")
     out = torch.empty_like(q)
@@ -84,14 +105,14 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if any(t.data_ptr() % 16 for t in (q, k, v)):
             raise ValueError("decode_attention: bf16 q, k, v must be 16-byte "
                              "aligned (TMA)")
-        splits, per = decode_split_plan(length, B, KV, sm_count(q.device),
+        splits, per = decode_split_plan(planned, B, KV, sm_count(q.device),
                                         decode_tile())
         _build.check(lib.decode_attention_bf16(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S,
-            H, KV, hd, length, splits, per, 1.0 / math.sqrt(hd), stream),
-            "decode_attention_bf16")
+            H, KV, hd, length, length_ptr, splits, per, 1.0 / math.sqrt(hd),
+            stream), "decode_attention_bf16")
         return out
-    n_splits = -(-length // decode_tile())
+    n_splits = -(-planned // decode_tile())
     o_part = torch.empty((B, H, n_splits, hd), dtype=torch.float32,
                          device=q.device)
     m_part = torch.empty((B, H, n_splits), dtype=torch.float32,
@@ -100,6 +121,6 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check(lib.decode_attention_f32(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         o_part.data_ptr(), m_part.data_ptr(), l_part.data_ptr(), B, S, H, KV,
-        hd, length, n_splits, 1.0 / math.sqrt(hd), stream),
+        hd, length, length_ptr, n_splits, 1.0 / math.sqrt(hd), stream),
         "decode_attention_f32")
     return out

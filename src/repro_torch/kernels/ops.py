@@ -7,11 +7,12 @@ wrappers, so a run can show that its main path went through the kernels.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from .decode_attention import decode_attention_cuda, decode_attention_plain
+from .decode_attention import (Length, decode_attention_cuda,
+                               decode_attention_plain)
 from .flash_attention import flash_attention_cuda, flash_attention_plain
 from .ssd_scan import SSD_ROUTE_LAUNCHES, ssd_scan_cuda, ssd_scan_plain
 from .streamed_matmul import ROUTE_LAUNCHES, matmul_cuda, matmul_plain
@@ -20,12 +21,29 @@ LAUNCHES: Dict[str, int] = {"streamed_matmul": 0, "flash_attention": 0,
                             "decode_attention": 0, "ssd_scan": 0}
 
 
+COUNTERS = (LAUNCHES, ROUTE_LAUNCHES, SSD_ROUTE_LAUNCHES)
+
+
 def reset_launches() -> None:
     """Set every kernel's count, and the matmul's and the scan's counts by
     route, to 0."""
-    for counts in (LAUNCHES, ROUTE_LAUNCHES, SSD_ROUTE_LAUNCHES):
+    for counts in COUNTERS:
         for name in counts:
             counts[name] = 0
+
+
+def launch_counts() -> List[Dict[str, int]]:
+    """A copy of every count: per kernel, per matmul route, per scan route."""
+    return [dict(counts) for counts in COUNTERS]
+
+
+def add_launches(delta: List[Dict[str, int]], times: int = 1) -> None:
+    """Add ``times`` x ``delta`` (as ``launch_counts`` gives it) to the
+    counts: a replayed CUDA graph launches again the kernels that were
+    counted once while it was captured."""
+    for counts, d in zip(COUNTERS, delta):
+        for name, n in d.items():
+            counts[name] += times * n
 
 
 def _on_card(t: torch.Tensor) -> bool:
@@ -56,8 +74,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     length: int) -> torch.Tensor:
-    """q (B,H,hd), cache k/v (B,S,KV,hd); attends to positions < length."""
+                     length: Length) -> torch.Tensor:
+    """q (B,H,hd), cache k/v (B,S,KV,hd); attends to positions < length, a
+    host int or a 0-d int32 tensor on q's device."""
     if not _on_card(q):
         return decode_attention_plain(q, k, v, length)
     out = decode_attention_cuda(q, k, v, length)

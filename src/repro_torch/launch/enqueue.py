@@ -6,10 +6,14 @@ measures the host's side for qwen2_0_5b on the card (``--device cpu``
 runs the plain versions): the time per call of the decode step's kernel
 wrappers at its decode shapes (a projection of 8 rows of d_model by
 d_model, decode attention over a ``--max-seq`` cache), and the time per
-decode step of the whole model at batch 8.  Each run of ``--calls`` calls (or ``--steps`` steps) is timed
-on the host clock twice: when the host has enqueued it, and when the card
-has run it; nothing inside a run waits on the card.  Prints one JSON
-object with every run's numbers and their medians.
+decode step of the whole model at batch 8: run eagerly (``decode_step``)
+and, on the card, replayed from the engine's captured CUDA graph
+(``decode_step_graph``, the serve engine's ``DecodeStep``, whose position
+advances by one per replay from ``--length``).  Each run of ``--calls``
+calls (or ``--steps`` steps) is timed on the host clock twice: when the
+host has enqueued it, and when the card has run it; nothing inside a run
+waits on the card.  Prints one JSON object with every run's numbers and
+their medians.
 
 It imports the package by its absolute name, so it can time another
 checkout's copy of it, with that checkout's ``src`` first on the path:
@@ -62,6 +66,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import ops
     from repro_torch.models import build
     from repro_torch.models.common import resolve_device
+    from repro_torch.serve import DecodeStep
 
     cfg = get_config("qwen2_0_5b")
     if args.reduced:
@@ -104,6 +109,13 @@ def main(argv=None) -> int:
         for _ in range(2):
             step()
         out["decode_step"] = timed(step, args.steps, args.reps, sync)
+        if on_card:  # the CPU has no graphs: the engine steps eagerly there
+            graph = DecodeStep(bundle, params, B, S, device)
+            graph.start(caches, token, args.length)
+            for _ in range(2):
+                graph()
+            out["decode_step_graph"] = timed(graph, args.steps, args.reps,
+                                             sync)
     print(json.dumps(out), flush=True)
     return 0
 

@@ -8,12 +8,13 @@ windows, cross-attention and sharded attention are not ported yet.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
 from ..kernels import ops
-from .common import Params, apply_rope, dense_init, rmsnorm
+from .common import (Params, apply_rope, dense_init, rmsnorm, rope_cos_sin,
+                     rotate)
 
 
 def attention_init(cfg, gen: torch.Generator, dtype, device) -> Params:
@@ -67,26 +68,73 @@ def init_kv_cache(cfg, batch: int, max_seq: int, dtype, device
     }
 
 
+class DecodePosition:
+    """A decode step's token position and what the layers derive from it.
+
+    ``pos`` is a 0-d int32 tensor on the device (a host int is filled into
+    one there: a copy from host memory would make the host wait for the
+    card).  ``rope(hd, theta)`` gives the rotation's cos and sin at
+    ``pos``.  For a cache of S slots, ``for_cache(S)`` gives the slot that
+    the step writes, min(pos, S-1), as a (1,) int64 index; whether to write
+    it, pos < S; and the keys attended, min(pos+1, S), as a 0-d int32.  All
+    stay on the device, so a captured graph of the step reads each step's
+    position, and each is made once per step, not once per layer.
+    """
+
+    def __init__(self, pos: Union[int, torch.Tensor], device):
+        if not isinstance(pos, torch.Tensor):
+            pos = torch.full((), int(pos), dtype=torch.int32, device=device)
+        self.pos = pos
+        self._derived: Dict[tuple, Tuple[torch.Tensor, ...]] = {}
+
+    def rope(self, head_dim: int, theta: float
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        key = ("rope", head_dim, theta)
+        if key not in self._derived:
+            self._derived[key] = rope_cos_sin(self.pos.reshape(1), head_dim,
+                                              theta)
+        return self._derived[key]
+
+    def for_cache(self, S: int) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+        key = ("cache", S)
+        if key not in self._derived:
+            self._derived[key] = (
+                torch.clamp(self.pos, max=S - 1).long().reshape(1),
+                self.pos < S,
+                torch.clamp(self.pos + 1, max=S).to(torch.int32))
+        return self._derived[key]
+
+
 def update_cache(cache: Dict[str, torch.Tensor], k_new: torch.Tensor,
-                 v_new: torch.Tensor, pos: int) -> Dict[str, torch.Tensor]:
-    """Write one token's K/V (B,1,KV,hd) at ``pos``, in place.
+                 v_new: torch.Tensor, pos: DecodePosition
+                 ) -> Dict[str, torch.Tensor]:
+    """Write one token's K/V (B,1,KV,hd) at ``pos``, in place; at a
+    position past the cache's S slots nothing is written.
 
     The JAX package rewrites the whole cache through a one-hot select on
-    every step; writing the one slot gives the same cache without the
-    O(cache) copy per layer.
+    every step, which writes nothing past the cache; writing the one slot
+    (min(pos, S-1), rewritten with its own value past the cache) gives the
+    same cache without the O(cache) copy per layer.  The index stays on the
+    device, so a captured graph of the step writes each step's slot.
     """
-    cache["k"][:, pos] = k_new[:, 0].to(cache["k"].dtype)
-    cache["v"][:, pos] = v_new[:, 0].to(cache["v"].dtype)
+    slot, inside, _ = pos.for_cache(cache["k"].shape[1])
+    for name, new in (("k", k_new), ("v", v_new)):
+        c = cache[name]
+        c.index_copy_(1, slot, torch.where(inside, new.to(c.dtype),
+                                           c.index_select(1, slot)))
     return cache
 
 
 def attention_forward(cfg, p: Params, x: torch.Tensor, *,
                       cache: Optional[Dict[str, torch.Tensor]] = None,
-                      cache_pos: Optional[int] = None):
+                      cache_pos: Optional[DecodePosition] = None):
     """Causal self-attention with RoPE.  Prefill (cache None): returns
     (y, (k_roped, v)) to seed the decode cache.  Decode (x is (B,1,d),
     cache given): returns (y, cache), the cache updated in place at
-    ``cache_pos``."""
+    ``cache_pos``, the token's position, which may lie past the cache: then
+    the cache keeps its S slots and all of them are attended, as in the JAX
+    package."""
     if cfg.sliding_window:
         raise NotImplementedError("sliding-window attention is not ported yet")
     B, S = x.shape[0], x.shape[1]
@@ -94,15 +142,14 @@ def attention_forward(cfg, p: Params, x: torch.Tensor, *,
     q, k, v = _project_qkv(cfg, p, x)
 
     if cache is not None:
-        # Filled on the device: a tensor copied from host memory here would
-        # make the host wait for the card once per layer.
-        posv = torch.full((1,), cache_pos, dtype=torch.float32,
-                          device=x.device)
-        q = apply_rope(q, posv, cfg.rope_theta)
-        k = apply_rope(k, posv, cfg.rope_theta)
+        # Position and length stay on the device: read on the host, they
+        # would make it wait for the card, and a captured graph would
+        # freeze them.
+        cos, sin = cache_pos.rope(hd, cfg.rope_theta)
+        q, k = rotate(q, cos, sin), rotate(k, cos, sin)
         cache = update_cache(cache, k, v, cache_pos)
-        y = ops.decode_attention(q[:, 0], cache["k"], cache["v"],
-                                 cache_pos + 1)
+        _, _, length = cache_pos.for_cache(cache["k"].shape[1])
+        y = ops.decode_attention(q[:, 0], cache["k"], cache["v"], length)
         return _linear(y.reshape(B, 1, H * hd), p["wo"]), cache
 
     positions = torch.arange(S, device=x.device)

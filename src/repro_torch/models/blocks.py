@@ -13,7 +13,8 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from .attention import _linear, attention_forward, attention_init, init_kv_cache
+from .attention import (DecodePosition, _linear, attention_forward,
+                        attention_init, init_kv_cache)
 from .common import Params, apply_norm, dense_init, norm_init
 from .ssd import init_ssd_cache, ssd_decode_step, ssd_forward, ssd_init
 
@@ -53,7 +54,7 @@ def block_init(cfg, gen: torch.Generator, dtype, device,
 
 def block_forward(cfg, p: Params, x: torch.Tensor, kind: str = "dense", *,
                   cache: Optional[Dict] = None,
-                  cache_pos: Optional[int] = None
+                  cache_pos: Optional[DecodePosition] = None
                   ) -> Tuple[torch.Tensor, Dict]:
     """Returns (y, cache).  Prefill returns this layer's K/V, or its SSM
     state and conv tails (to seed the decode cache); decode returns

@@ -84,17 +84,26 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     return 1.0 / (theta ** exps)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
-               ) -> torch.Tensor:
-    """x: (..., S, H, hd); positions: (S,) absolute positions."""
-    hd = x.shape[-1]
-    freqs = rope_freqs(hd, theta, x.device)
+def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float):
+    """cos and sin (S, 1, hd/2) of the rotation angles of ``positions``
+    (S,)."""
+    freqs = rope_freqs(head_dim, theta, positions.device)
     angles = positions.float()[..., None] * freqs        # (S, hd/2)
-    cos = torch.cos(angles)[..., None, :]                # (S, 1, hd/2)
-    sin = torch.sin(angles)[..., None, :]
+    return torch.cos(angles)[..., None, :], torch.sin(angles)[..., None, :]
+
+
+def rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
+           ) -> torch.Tensor:
+    """x: (..., S, H, hd) rotated by ``rope_cos_sin``'s angles."""
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+               ) -> torch.Tensor:
+    """x: (..., S, H, hd); positions: (S,) absolute positions."""
+    return rotate(x, *rope_cos_sin(positions, x.shape[-1], theta))
 
 
 def layer_slice(tree: Any, i: int) -> Any:

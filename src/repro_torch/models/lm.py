@@ -9,11 +9,12 @@ stack as a loop over layer views instead of a scan.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Tuple, Union
 
 import torch
 
 from ..kernels import ops
+from .attention import DecodePosition
 from .blocks import block_forward, block_init, init_block_cache
 from .common import (Params, apply_norm, dtype_of, embed_init, layer_slice,
                      norm_init, stack_trees)
@@ -112,10 +113,13 @@ def init_cache(cfg, batch: int, max_seq: int, device) -> List[Any]:
 
 
 def decode_step(cfg, p: Params, caches: List[Any], token: torch.Tensor,
-                pos: int):
-    """One token for the whole batch: token (B,1), pos an int.  Returns
-    (logits (B,1,V), caches), the caches updated in place."""
+                pos: Union[int, torch.Tensor]):
+    """One token for the whole batch: token (B,1), pos an int or a 0-d int32
+    tensor on token's device, kept there (a captured graph of the step reads
+    it anew on each replay).  Returns (logits (B,1,V), caches), the caches
+    updated in place."""
     x = embed_tokens(cfg, p, token)
-    x, caches = _run_stacks(cfg, p, x, caches=caches, cache_pos=int(pos))
+    x, caches = _run_stacks(cfg, p, x, caches=caches,
+                            cache_pos=DecodePosition(pos, token.device))
     x = apply_norm(cfg, x, p["final_norm"])
     return unembed(cfg, p, x), caches

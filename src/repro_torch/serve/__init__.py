@@ -1,1 +1,2 @@
-from .engine import EngineConfig, Request, ServeEngine, seed_decode_cache
+from .engine import (DecodeStep, EngineConfig, Request, ServeEngine, greedy,
+                     seed_decode_cache, seed_decode_cache_)

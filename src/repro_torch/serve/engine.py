@@ -5,6 +5,13 @@ Ported from the JAX package's ``serve/engine.py``.  As there, prompts are
 left-padded with token 0 and no padding mask is applied, so a shorter
 prompt also attends to the pad embeddings, and in an SSM model the pad
 tokens also run through the recurrence.
+
+The JAX engine compiles its decode step once (``jax.jit(bundle.decode)``)
+and passes the position as a device scalar.  The counterpart here is
+:class:`DecodeStep`: on the card the step is captured once into a CUDA
+graph over buffers that live as long as the engine, and replayed for every
+token; on the CPU, which has no graphs, the same step runs eagerly.
+Prefill runs eagerly on both.
 """
 from __future__ import annotations
 
@@ -15,6 +22,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from ..kernels import ops
 from ..models.common import resolve_device
 
 
@@ -33,6 +41,21 @@ class EngineConfig:
     max_seq: int = 256
 
 
+def _seed_leaf(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """Write a prefill cache leaf into a decode cache leaf, in place, as a
+    fresh ``init_cache`` seeded with it: a leaf of the same shape is copied;
+    a K/V leaf, stacked (L, B, S, KV, hd), gets the last ``max_seq`` of the
+    prompt's S positions and zeros after them."""
+    if src.shape == dst.shape:
+        dst.copy_(src)
+        return
+    dst.zero_()
+    if dst.dim() >= 4 and src.dim() == dst.dim() and \
+            src.shape[2] != dst.shape[2]:
+        n = min(src.shape[2], dst.shape[2])
+        dst[:, :, :n] = src[:, :, src.shape[2] - n:]
+
+
 def seed_decode_cache(bundle, prefill_caches, batch_size: int, max_seq: int,
                       device=None):
     """Copy the prefill K/V (length S) into fresh ``max_seq`` decode caches.
@@ -49,22 +72,116 @@ def seed_decode_cache(bundle, prefill_caches, batch_size: int, max_seq: int,
             return {k: seed(dst[k], src[k]) for k in dst}
         if src.shape == dst.shape:
             return src
-        if dst.dim() >= 4 and src.dim() == dst.dim() and \
-                src.shape[2] != dst.shape[2]:
-            n = min(src.shape[2], dst.shape[2])
-            dst[:, :, :n] = src[:, :, src.shape[2] - n:]
+        _seed_leaf(dst, src)
         return dst
 
     return [seed(d, s) for d, s in zip(caches, prefill_caches)]
 
 
+def seed_decode_cache_(caches, prefill_caches) -> None:
+    """``seed_decode_cache`` into existing decode caches, in place: the
+    buffers a captured graph reads keep their addresses."""
+    def seed(dst, src):
+        if isinstance(dst, dict):
+            for k in dst:
+                seed(dst[k], src[k])
+        else:
+            _seed_leaf(dst, src)
+
+    for d, s in zip(caches, prefill_caches):
+        seed(d, s)
+
+
+def greedy(logits: torch.Tensor, vocab_size: int) -> torch.Tensor:
+    """The argmax over the real (unpadded) vocabulary: (B,1,V) -> (B,1)."""
+    return torch.argmax(logits[..., :vocab_size], dim=-1)
+
+
+class DecodeStep:
+    """One engine's decode step, over buffers that live as long as it does:
+    the decode caches (``bundle.init_cache(batch, max_seq)``), the token
+    (B, 1), the position (a 0-d int32) and the logits.  A call decodes
+    ``token`` at ``pos``, writes the greedy next token into ``token`` and
+    adds 1 to ``pos``, all on the device; ``start`` seeds the buffers for
+    a new batch.
+
+    On a CUDA device the step is captured once into a CUDA graph, after one
+    eager warm-up step (by then every kernel is built and loaded, has its
+    shared-memory limit raised, and the split plans have read the SM count
+    and tile edges), and every call replays the graph: the host's work per
+    token is one ``replay()``.  A capture or replay that fails raises; the
+    step never falls back to running eagerly on the card.  The launch
+    counts of ``kernels.ops`` move only while the step runs in Python: the
+    capture's counts, which launched nothing, are taken back out and kept
+    as ``launches``, and every replay adds them again, so the counts still
+    mean kernel launches made.  On the CPU the step runs eagerly.
+    """
+
+    @torch.inference_mode()
+    def __init__(self, bundle, params, batch: int, max_seq: int, device):
+        self.bundle, self.params = bundle, params
+        self.device = torch.device(device)
+        self.caches = bundle.init_cache(batch, max_seq, self.device)
+        self.token = torch.zeros((batch, 1), dtype=torch.long,
+                                 device=self.device)
+        self.pos = torch.zeros((), dtype=torch.int32, device=self.device)
+        self.logits = None
+        self.graph = None
+        self.launches = None  # the counts of one replay (ops.launch_counts)
+        self.replays = 0
+        if self.device.type == "cuda":
+            self._capture()
+
+    def _step(self) -> None:
+        self.logits, _ = self.bundle.decode(self.params, self.caches,
+                                            self.token, self.pos)
+        self.token.copy_(greedy(self.logits, self.bundle.cfg.vocab_size))
+        self.pos.add_(1)
+
+    def _capture(self) -> None:
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            self._step()  # warm-up, eager, on the zeroed buffers
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        before = ops.launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self._step()
+        self.launches = [{k: n - b[k] for k, n in a.items()}
+                         for a, b in zip(ops.launch_counts(), before)]
+        ops.add_launches(self.launches, -1)
+        self.graph = graph
+
+    @torch.inference_mode()
+    def start(self, prefill_caches, token: torch.Tensor, pos: int) -> None:
+        """Seed the caches with a prefill's, in place, the token with its
+        greedy token (B, 1) and the position with the prompt length."""
+        seed_decode_cache_(self.caches, prefill_caches)
+        self.token.copy_(token)
+        self.pos.fill_(pos)
+
+    @torch.inference_mode()
+    def __call__(self) -> torch.Tensor:
+        """One step; returns ``token``, now the next token."""
+        if self.graph is None:
+            self._step()
+        else:
+            self.graph.replay()
+            ops.add_launches(self.launches)
+            self.replays += 1
+        return self.token
+
+
 class ServeEngine:
     """Single-device engine over a ModelBundle.
 
-    ``device=None`` means the card: with no CUDA device it raises.
-    ``stats`` counts prefills, decode steps and tokens, and the host-clock
-    seconds of prefill and decode (each ends in a copy of the tokens to the
-    host, so the device work is inside the time).
+    ``device=None`` means the card: with no CUDA device it raises.  The
+    engine's :class:`DecodeStep` (``decoder``) is made, and on the card
+    captured, when the engine is.  ``stats`` counts prefills, decode steps
+    and tokens, and the host-clock seconds of prefill and decode (each ends
+    in a copy of the tokens to the host, so the device work is inside the
+    time).
     """
 
     def __init__(self, bundle, params, ecfg: EngineConfig, device=None):
@@ -77,6 +194,8 @@ class ServeEngine:
         self.stats: Dict[str, float] = {"prefills": 0, "decode_steps": 0,
                                         "tokens_out": 0, "prefill_s": 0.0,
                                         "decode_s": 0.0}
+        self.decoder = DecodeStep(bundle, params, ecfg.batch_size,
+                                  ecfg.max_seq, self.device)
 
     def submit(self, prompt: np.ndarray, max_new_tokens: int = 16) -> Request:
         req = Request(rid=len(self.queue), prompt=np.asarray(prompt),
@@ -95,9 +214,6 @@ class ServeEngine:
             toks[i, S - len(r.prompt):] = r.prompt  # left-pad
         return {"tokens": torch.from_numpy(toks).to(self.device)}, S
 
-    def _greedy(self, logits: torch.Tensor) -> torch.Tensor:
-        return torch.argmax(logits[..., : self.cfg.vocab_size], dim=-1)
-
     @torch.inference_mode()
     def run(self, max_ticks: int = 64) -> List[Request]:
         """Process the queue to completion (or tick budget)."""
@@ -107,29 +223,23 @@ class ServeEngine:
             t0 = time.perf_counter()
             batch, S = self._pad_batch(reqs)
             last_logits, caches = self.bundle.prefill(self.params, batch)
-            caches = seed_decode_cache(self.bundle, caches,
-                                       self.ecfg.batch_size,
-                                       self.ecfg.max_seq, self.device)
-            tok = self._greedy(last_logits)
+            tok = greedy(last_logits, self.cfg.vocab_size)
+            self.decoder.start(caches, tok, S)
+            del last_logits, caches
             host = tok.cpu().numpy()
             self.stats["prefills"] += 1
             self.stats["prefill_s"] += time.perf_counter() - t0
             for i, r in enumerate(reqs):
                 r.out_tokens.append(int(host[i, 0]))
-            pos = S
             steps = max(r.max_new_tokens for r in reqs) - 1
             t0 = time.perf_counter()
             for _ in range(min(steps, max_ticks)):
-                logits, caches = self.bundle.decode(self.params, caches, tok,
-                                                    pos)
-                tok = self._greedy(logits)
-                host = tok.cpu().numpy()
+                host = self.decoder().cpu().numpy()
                 self.stats["decode_steps"] += 1
                 for i, r in enumerate(reqs):
                     if len(r.out_tokens) < r.max_new_tokens:
                         r.out_tokens.append(int(host[i, 0]))
                         self.stats["tokens_out"] += 1
-                pos += 1
                 max_ticks -= 1
             self.stats["decode_s"] += time.perf_counter() - t0
             for r in reqs:

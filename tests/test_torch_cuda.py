@@ -1,5 +1,7 @@
-"""The hand-written kernels against their plain PyTorch versions, on the
-card.  Every test here needs a CUDA device and skips without one.
+"""The hand-written kernels against their plain PyTorch versions, and the
+engine's decode step replayed from its captured CUDA graph against the
+eager step, on the card.  Every test here needs a CUDA device and skips
+without one.
 
 It imports neither jax nor the JAX package, so it also runs on a machine
 that has only PyTorch (the repository's conftest imports jax, hence
@@ -7,10 +9,13 @@ that has only PyTorch (the repository's conftest imports jax, hence
 
     python -m pytest --noconftest -p no:cacheprovider -q -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_config
 from repro_torch.kernels import ops
 from repro_torch.kernels.decode_attention import decode_attention_plain
 from repro_torch.kernels.decode_attention import decode_tile as keys_per_tile
@@ -19,6 +24,9 @@ from repro_torch.kernels.ssd_scan import (SSD_ROUTE_LAUNCHES, ssd_route,
                                           ssd_scan_plain)
 from repro_torch.kernels.streamed_matmul import (ROUTE_LAUNCHES, decode_tile,
                                                  matmul_plain, matmul_route)
+from repro_torch.models import build
+from repro_torch.serve import (DecodeStep, EngineConfig, ServeEngine, greedy,
+                               seed_decode_cache)
 
 DTYPES = {"float32": (torch.float32, 2e-4), "bfloat16": (torch.bfloat16, 2e-2)}
 # (M, K, N).  bf16 with 16-byte strides takes a wgmma kernel: the prefill
@@ -132,6 +140,37 @@ def test_cuda_decode_attention_keeps_fp32_precision(card, H, KV, hd, length):
         ops.decode_attention(q, k, v, length).float().cpu().numpy(),
         decode_attention_plain(q, k, v, length).float().cpu().numpy(),
         rtol=1e-2, atol=5e-5)
+
+
+# lengths read from device memory, under the split plan of all S = 1024 keys:
+# 1, 63, 64 and 65 leave most splits of the cluster empty
+DEVICE_LENGTHS = [1, 63, 64, 65, 487, 1024]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("length", DEVICE_LENGTHS)
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("H,KV", HEADS)
+def test_cuda_decode_attention_device_length(card, H, KV, hd, length, dtype):
+    """A 0-d int32 length on the card, as a captured decode step passes
+    it, against the plain version and the host-int call, at the limits of
+    the host-int call (bf16 also at about one rounding of its output); a
+    length past S is clamped to S."""
+    B, S = 3, 1024
+    q, k, v = _on(card, dtype, 14, (B, H, hd), (B, S, KV, hd), (B, S, KV, hd))
+    n = torch.full((), length, dtype=torch.int32, device=card)
+    got = ops.decode_attention(q, k, v, n)
+    want = decode_attention_plain(q, k, v, length)
+    _close(got, want, DTYPES[dtype][1])
+    _close(got, ops.decode_attention(q, k, v, length), DTYPES[dtype][1])
+    if dtype == "bfloat16":
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want.float().cpu().numpy(),
+                                   rtol=1e-2, atol=5e-5)
+    if length == S:
+        past = torch.full((), S + 7, dtype=torch.int32, device=card)
+        assert torch.equal(ops.decode_attention(q, k, v, past), got)
 
 
 def _ssd_on(card, dtype, seed, b, S, H, with_init):
@@ -248,17 +287,21 @@ def _launches_and_allocations(fn):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("call", ["matmul", "decode_attention"])
+@pytest.mark.parametrize("call", ["matmul", "decode_attention",
+                                  "decode_attention_device_length"])
 def test_cuda_decode_call_is_one_launch(card, call):
     """A bf16 decode-step matmul (split K) and a bf16 decode attention
-    (split sequence) each run one kernel and allocate only their output."""
+    (split sequence; its length a host int or read from device memory)
+    each run one kernel and allocate only their output."""
     if call == "matmul":
         x, w = _on(card, "bfloat16", 11, (8, 896), (896, 896))
         fn = lambda: ops.matmul(x, w)  # noqa: E731
     else:
         q, k, v = _on(card, "bfloat16", 12, (8, 14, 64), (8, 1024, 2, 64),
                       (8, 1024, 2, 64))
-        fn = lambda: ops.decode_attention(q, k, v, 1000)  # noqa: E731
+        n = (torch.full((), 1000, dtype=torch.int32, device=card)
+             if call == "decode_attention_device_length" else 1000)
+        fn = lambda: ops.decode_attention(q, k, v, n)  # noqa: E731
     kernels, allocated = _launches_and_allocations(fn)
     assert len(kernels) == 1, kernels
     assert allocated == 1
@@ -292,3 +335,92 @@ def test_cuda_rejects_what_the_kernels_do_not_take(card):
         ops.ssd_scan(x, dt.bfloat16(), A, B, C)  # dt must be fp32
     with pytest.raises(ValueError):
         ops.ssd_scan(x[..., :8].contiguous(), dt, A, B, C)  # P = 8
+
+
+# ---------------------------------------------------------------------------
+# the engine's decode step, captured once as a CUDA graph
+# ---------------------------------------------------------------------------
+
+def _depth2(card, arch):
+    """The arch at full width, two layers, bf16, random weights."""
+    bundle = build(dataclasses.replace(get_config(arch), n_layers=2))
+    return bundle, bundle.init(0, device=card)
+
+
+def _eager_tokens(bundle, params, prompts, ecfg, new, card):
+    """The engine's batch, decoded eagerly through ``bundle.decode``."""
+    S = max(len(p) for p in prompts)
+    toks = np.zeros((ecfg.batch_size, S), np.int64)
+    for i, p in enumerate(prompts):
+        toks[i, S - len(p):] = p
+    V = bundle.cfg.vocab_size
+    with torch.inference_mode():
+        logits, caches = bundle.prefill(
+            params, {"tokens": torch.from_numpy(toks).to(card)})
+        caches = seed_decode_cache(bundle, caches, ecfg.batch_size,
+                                   ecfg.max_seq, card)
+        tok = greedy(logits, V)
+        out = [tok]
+        for i in range(new - 1):
+            logits, caches = bundle.decode(params, caches, tok, S + i)
+            tok = greedy(logits, V)
+            out.append(tok)
+    host = torch.cat(out, dim=1).cpu().tolist()
+    return host[:len(prompts)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2_0_5b", "mamba2_1_3b"])
+def test_cuda_graph_engine_gives_eager_tokens(card, arch):
+    """Every decode step of the engine replays its captured graph, and the
+    tokens are those of the same batch decoded eagerly; a second batch in
+    the same engine too (its buffers seeded in place)."""
+    bundle, params = _depth2(card, arch)
+    ecfg = EngineConfig(batch_size=4, max_seq=256)
+    eng = ServeEngine(bundle, params, ecfg, device=card)
+    assert eng.decoder.graph is not None
+    rng = np.random.default_rng(0)
+    for lengths in ((40, 97, 128, 70), (200, 33, 150, 64)):
+        prompts = [rng.integers(0, bundle.cfg.vocab_size - 1, n)
+                   .astype(np.int32) for n in lengths]
+        reqs = [eng.submit(p, max_new_tokens=12) for p in prompts]
+        replays = eng.decoder.replays
+        eng.run()
+        assert eng.decoder.replays == replays + 11
+        assert [r.out_tokens for r in reqs] == _eager_tokens(
+            bundle, params, prompts, ecfg, 12, card)
+
+
+@pytest.mark.cuda
+def test_cuda_graph_replay_never_waits(card):
+    """A replay of the captured step makes the host wait on nothing."""
+    bundle, params = _depth2(card, "qwen2_0_5b")
+    step = DecodeStep(bundle, params, 2, 128, card)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,per_step", [
+    ("qwen2_0_5b", {"streamed_matmul": 7 * 2 + 1, "flash_attention": 0,
+                    "decode_attention": 2, "ssd_scan": 0}),
+    ("mamba2_1_3b", {"streamed_matmul": 6 * 2 + 1, "flash_attention": 0,
+                     "decode_attention": 0, "ssd_scan": 0})])
+def test_cuda_graph_replays_count_launches(card, arch, per_step):
+    """The counts after n replays are n times one step's launches, by
+    kernel and by route; capturing the graph launched nothing."""
+    bundle, params = _depth2(card, arch)
+    step = DecodeStep(bundle, params, 2, 128, card)
+    assert step.launches[0] == per_step
+    assert step.launches[1]["wgmma_decode"] == per_step["streamed_matmul"]
+    ops.reset_launches()
+    for _ in range(5):
+        step()
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == [{k: 5 * n for k, n in d.items()}
+                                   for d in step.launches]

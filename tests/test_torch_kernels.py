@@ -19,7 +19,8 @@ from repro.models import attention as ref_attention
 from repro.models.ssd import ssd_scan_ref
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.decode_attention import decode_split_plan
+from repro_torch.kernels.decode_attention import (decode_attention_plain,
+                                                  decode_split_plan)
 from repro_torch.kernels.ssd_scan import SSD_ROUTE_LAUNCHES, ssd_route
 from repro_torch.kernels.streamed_matmul import (MAX_CLUSTER, decode_k_plan,
                                                  k_splits, matmul_route)
@@ -102,6 +103,21 @@ def test_decode_attention_matches_reference(S, length, dtype):
     _close(_np(out), ref_ops.decode_attention(q, k, v, length, block_s=128),
            tol)
     _close(_np(out), ref.decode_attention_ref(q, k, v, length), tol)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("S,length", DECODE_CASES)
+def test_decode_attention_tensor_length_equals_int(S, length, dtype):
+    """A 0-d int32 length, as a captured decode step passes it, gives the
+    plain version's int-length output bit for bit, and the JAX op's."""
+    B, H, hd = 2, 3, 64
+    (q, k, v), (tq, tk, tv) = _inputs(2, dtype, (B, H, hd), (B, S, H, hd),
+                                      (B, S, H, hd))
+    out = ops.decode_attention(tq, tk, tv, torch.tensor(length,
+                                                        dtype=torch.int32))
+    assert torch.equal(out, decode_attention_plain(tq, tk, tv, length))
+    _close(_np(out), ref.decode_attention_ref(q, k, v, length),
+           DTYPES[dtype][2])
 
 
 # ---------------------------------------------------------------------------
@@ -397,6 +413,24 @@ def test_matmul_decode_k_plan_covers_k(K, N, n_sms):
 def test_decode_attention_split_plan(length, B, KV, plan):
     assert decode_split_plan(length, B, KV, n_sms=132, tile=64) == plan
     _check_cover(*plan, -(-length // 64))
+
+
+@pytest.mark.parametrize("S", [48, 64, 1024, 4096])
+@pytest.mark.parametrize("B,KV", [(1, 1), (2, 2), (4, 4), (8, 2), (8, 8)])
+def test_decode_attention_fixed_split_plan_covers_length(S, B, KV):
+    """A length read from device memory runs under the plan of the cache
+    length S: for every length in [1, S] the splits' tiles, as the kernel
+    counts them, cover the length's tiles once, split 0 runs at least one,
+    and the splits that run none (which still reach the cluster barriers)
+    all come after those that do."""
+    splits, per = decode_split_plan(S, B, KV, n_sms=132, tile=64)
+    _check_cover(splits, per, -(-S // 64))
+    for length in sorted({1, 63, 64, 65, 487, S - 1, S} & set(range(1, S + 1))):
+        tiles = -(-length // 64)  # each split's ntiles, as the kernel's
+        runs = [max(0, min(per, tiles - s * per)) for s in range(splits)]
+        assert sum(runs) == -(-length // 64) and runs[0] >= 1
+        assert all(0 <= n <= per for n in runs)
+        assert runs == sorted(runs, key=lambda n: n == 0)
 
 
 @pytest.mark.parametrize("length", [1, 63, 64, 65, 135, 487, 513, 1023,

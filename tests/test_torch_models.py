@@ -286,6 +286,30 @@ def test_prefill_decode_consistency(arch):
     _close(dec[:, 0, :V], logits_full[:, S, :V], 5e-3)
 
 
+@pytest.mark.parametrize("arch", PORTED_ARCHS)
+def test_decode_step_tensor_pos_equals_int(arch):
+    """decode with pos as a 0-d int32 tensor (as the engine's captured step
+    passes it) gives the int-pos logits and caches bit for bit, past the
+    end of the cache too (nothing written, every slot attended)."""
+    *_, cfg, bundle, params = _pair(arch)
+    B, S = 2, 12
+    toks = torch.tensor(np.random.default_rng(6).integers(
+        0, cfg.vocab_size - 1, (B, S + 1)))
+    for max_seq, pos in ((S + 4, S), (S, S + 3)):
+        out = []
+        for p in (pos, torch.tensor(pos, dtype=torch.int32)):
+            # a fresh prefill each time: decode advances the SSM state and
+            # tails that the seeded cache shares with it
+            _, prefilled = bundle.prefill(params, {"tokens": toks[:, :S]})
+            caches = seed_decode_cache(bundle, prefilled, B, max_seq,
+                                       device="cpu")
+            logits, caches = bundle.decode(params, caches, toks[:, S:], p)
+            out.append((logits, convert.flatten(caches)))
+        (a, ca), (b, cb) = out
+        assert torch.equal(a, b)
+        assert all(torch.equal(ca[n], cb[n]) for n in ca)
+
+
 def test_prefill_cache_and_decode_match_reference():
     """The seeded decode cache and one decode step against JAX."""
     _, ref_bundle, ref_params, cfg, bundle, params = _pair("qwen2_0_5b")

@@ -1,7 +1,9 @@
 """The port's ServeEngine against the JAX package's: identical greedy
-tokens with the same weights (initialized in JAX, converted), in fp32."""
+tokens with the same weights (initialized in JAX, converted), in fp32; and
+the port's engine against the reference's analytic decode rate."""
 import dataclasses
 import json
+import time
 
 import jax
 import numpy as np
@@ -11,9 +13,13 @@ import torch
 from repro.checkpoint.ckpt import _flatten
 from repro.configs import get_config as ref_get_config
 from repro.configs.base import reduce_for_smoke as ref_reduce
+from repro.core import mesh_2d
+from repro.core import simulator as sim
 from repro.models import build as ref_build
+from repro.sched.traces import get_serving_workload
 from repro.serve import EngineConfig as RefEngineConfig
 from repro.serve import ServeEngine as RefServeEngine
+from repro.serve.requests import get_profile
 
 from repro_torch import convert
 from repro_torch.configs import get_config, reduce_for_smoke
@@ -33,10 +39,21 @@ def _fp32(cfg):
                                compute_dtype="float32")
 
 
-@pytest.mark.parametrize("lengths", [(8, 8), (5, 8)],
-                         ids=["equal", "unequal"])
+# (prompt lengths, max_seq, new tokens), batch 2.  Four prompts make two
+# batches in one engine (its caches seeded in place for each); max_seq 10
+# is passed by the decode ("past_max_seq", where the port used to raise
+# IndexError) or by a prompt itself ("prompt_over_max_seq"): the reference
+# then writes nothing to the cache and attends to all of its slots.
+CASES = {"equal": ((8, 8), 64, 6), "unequal": ((5, 8), 64, 6),
+         "two_batches": ((8, 5, 7, 8), 64, 6),
+         "past_max_seq": ((8,), 10, 6),
+         "prompt_over_max_seq": ((14, 9), 10, 4)}
+
+
+@pytest.mark.parametrize("case", CASES)
 @pytest.mark.parametrize("arch", SERVED_ARCHS)
-def test_greedy_tokens_match_reference(arch, lengths):
+def test_greedy_tokens_match_reference(arch, case):
+    lengths, max_seq, new = CASES[case]
     ref_cfg = _fp32(ref_reduce(ref_get_config(arch)))
     cfg = _fp32(reduce_for_smoke(get_config(arch)))
     ref_bundle = ref_build(ref_cfg)
@@ -45,19 +62,21 @@ def test_greedy_tokens_match_reference(arch, lengths):
         {n: np.asarray(leaf) for n, leaf in _flatten(ref_params)},
         device="cpu")
     ref_eng = RefServeEngine(ref_bundle, ref_params,
-                             RefEngineConfig(batch_size=2, max_seq=64))
+                             RefEngineConfig(batch_size=2, max_seq=max_seq))
     eng = ServeEngine(build(cfg), params,
-                      EngineConfig(batch_size=2, max_seq=64), device="cpu")
+                      EngineConfig(batch_size=2, max_seq=max_seq),
+                      device="cpu")
     rng = np.random.default_rng(0)
     for n in lengths:
         prompt = rng.integers(0, cfg.vocab_size - 1, size=n).astype(np.int32)
-        ref_eng.submit(prompt, max_new_tokens=6)
-        eng.submit(prompt, max_new_tokens=6)
+        ref_eng.submit(prompt, max_new_tokens=new)
+        eng.submit(prompt, max_new_tokens=new)
     want = [r.out_tokens for r in ref_eng.run()]
     got = [r.out_tokens for r in eng.run()]
-    assert all(len(t) == 6 for t in got)
+    assert all(len(t) == new for t in got)
     assert got == want
-    assert eng.stats["decode_steps"] == ref_eng.stats["decode_steps"] == 5
+    steps = -(-len(lengths) // 2) * (new - 1)
+    assert eng.stats["decode_steps"] == ref_eng.stats["decode_steps"] == steps
     assert eng.stats["tokens_out"] == ref_eng.stats["tokens_out"]
 
 
@@ -103,3 +122,57 @@ def test_enqueue_timer_runs_on_cpu(capsys):
     assert len(out["calls"]) == 2 and out["device"] == "cpu"
     assert all(len(r["host_us"]) == 2 and r["host_us_median"] > 0
                and r["wall_us_median"] >= r["host_us_median"] for r in runs)
+
+
+# The reference's cross-check (tests/test_serving.py's
+# TestServeEngineCrossCheck): the analytic decode rate of the full
+# qwen2_0_5b on 4 cores of the SIM NPU config, over the measured decode
+# rate of the smoke-reduced model, here the port's ServeEngine on the CPU.
+# The two differ by architecture, size and backend, so the ratio is a
+# calibration constant, not 1.0; the test pins that they stay within the
+# reference's 8x band of it, so the analytic model cannot drift by orders
+# of magnitude unseen.  The constant is the port's own, measured on this
+# CPU path (the reference's 0.41 is its JAX engine's): the ratio took 1.04,
+# 1.33, 6.06 and 6.85 in four runs of the whole suite on 6 xdist workers of
+# an 8-core host, 19.6 in one with 4 more workers beside it, and 1.25 alone;
+# 3.0 sits near the middle of that spread on a log scale.
+CALIBRATION = 3.0
+TOLERANCE = 8.0
+
+
+def test_analytic_decode_rate_matches_engine():
+    cfg = reduce_for_smoke(get_config("qwen2_0_5b"))
+    bundle = build(cfg)
+    eng = ServeEngine(bundle, bundle.init(0, device="cpu"),
+                      EngineConfig(batch_size=4, max_seq=64), device="cpu")
+    rng = np.random.default_rng(0)
+
+    def submit(n_new):
+        for _ in range(4):
+            eng.submit(rng.integers(0, cfg.vocab_size - 1, size=16
+                                    ).astype(np.int32), max_new_tokens=n_new)
+
+    submit(4)
+    eng.run()  # warm-up
+    submit(24)
+    tokens0 = eng.stats["tokens_out"]
+    t0 = time.perf_counter()
+    eng.run(max_ticks=64)
+    measured = (eng.stats["tokens_out"] - tokens0) / (time.perf_counter() - t0)
+    assert measured > 0
+
+    # analytic: the same model served on 4 cores of the SIM config, single
+    # tenant, mid-decode batch of 4 at ~300 tokens of context
+    prof = get_profile("qwen2_0_5b")
+    sk = sim.tensor_skeleton(get_serving_workload("qwen2_0_5b"), [0, 1, 6, 7],
+                             mesh_2d(6, 6), sim.SIM_CONFIG)
+    pm = sim.derive_phase_model(sk, sim.finish_tensor(sk),
+                                proxy_seq=prof.proxy_seq)
+    analytic = 4 / pm.decode_step_s(4 * 300 * prof.kv_bytes_per_token, 4 * 3)
+
+    ratio = analytic / measured
+    print(f"analytic {analytic:.0f} tok/s, port engine {measured:.0f} tok/s, "
+          f"ratio {ratio:.4f}")
+    assert CALIBRATION / TOLERANCE < ratio < CALIBRATION * TOLERANCE, (
+        f"analytic {analytic:.0f} tok/s vs measured {measured:.0f} tok/s: "
+        f"ratio {ratio:.3f} left the calibration band")

@@ -15,8 +15,9 @@ exits non-zero):
                each kernel's registers and spills from ptxas's report,
                with no spill allowed in the SSD scan kernel;
 3. kernels  -- each kernel against its plain PyTorch version on the card
-               at the shapes of the serving paths of the four served
-               models (qwen2_0_5b, llama3_2_1b, qwen2_7b, mamba2_1_3b, each
+               at the shapes of the serving paths of the six served
+               models (qwen2_0_5b, llama3_2_1b, qwen2_7b, mamba2_1_3b,
+               deepseek_moe_16b with its fp32 router, internvl2_26b, each
                at its served batch), with a served prefill's ragged length
                (8 x 455 rows for the matmul, S 455 for flash attention), the
                wmma matmul kernel and its split-K reduce at two bf16 shapes
@@ -31,25 +32,34 @@ exits non-zero):
                ssd_scan: 1e-4 and 5e-2 of max |plain|, bf16 also within
                1e-2 of it, at the served shapes and at b 1, S 4096 from an
                initial state, each call on its route),
+               the matmul grouped over experts (deepseek_moe_16b's expert
+               FFN at a decode step, C 8, and a prefill, C 235;
+               llama4_maverick_400b_a17b's at C 8 and 80; each one launch
+               on its grouped route; bf16 also within 5e-5 + 1e-2 |plain|),
                with CUDA-event times of the kernel, the plain version and,
                where one exists, one PyTorch library call, and the least
                time the card could take (bound_ms); the summary line sums
                the bf16 cases, the type the models are served in;
-4. parity   -- per model, at full width, depth 2, fp32: the port on the CPU
-               (plain versions) against the port on the card (kernels, the
+4. parity   -- per model, at full width, depth 2 (deepseek_moe_16b: one
+               dense and one MoE layer), fp32: the port on the CPU (plain
+               versions) against the port on the card (kernels, the
                engine's decode step replayed from its captured graph):
-               logits, and greedy tokens at max_seq 128 and at max_seq 48,
-               where one prompt is longer than the cache and the other
-               decodes past its end;
+               logits (internvl2_26b's with random patch embeddings ahead
+               of the tokens), and greedy tokens at max_seq 128 and at
+               max_seq 48, where one prompt is longer than the cache and
+               the other decodes past its end;
 5. serve    -- per model, full width and depth in bf16 through ServeEngine,
                every decode step a replay of the engine's one captured CUDA
-               graph (the dense models: matmul, flash and decode attention;
-               mamba2_1_3b: matmul and ssd_scan), with every kernel's launch
-               count over that run (counts set to 0 just before it), a
-               check that every matmul of 64 rows or more (the prefills')
-               took the wgmma kernel and every one of fewer rows (the
-               decode steps' and the prefill's unembedding) the wgmma
-               decode kernel, and every scan the wgmma scan kernel; the
+               graph (the dense models and internvl2_26b: matmul, flash
+               and decode attention; deepseek_moe_16b: those and the
+               grouped matmul; mamba2_1_3b: matmul and ssd_scan), with
+               every kernel's launch count over that run (counts set to 0
+               just before it), a check that every bf16 matmul of 64 rows
+               or more (the prefills') took the wgmma kernel and every one
+               of fewer rows (the decode steps' and the prefill's
+               unembedding) the wgmma decode kernel, every fp32 one (the MoE
+               router) the fp32 kernel, every grouped one its expected
+               grouped route, and every scan the wgmma scan kernel; the
                graph's tokens against the same batch decoded eagerly
                through bundle.decode, all 32 of every request; a profile of
                one prefill and of four decode steps, eager and replayed
@@ -80,20 +90,25 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 SEED = 0
-# the served paths, in run order: SERVE_PROFILES' three models and the SSD
-# path, each at a served batch, SERVE_PROFILES' max_batch (the JAX
-# package's serve/requests.py:179-197; mamba2_1_3b has no profile and is
-# served at 8, as the two small ones)
-MODELS = ("qwen2_0_5b", "llama3_2_1b", "qwen2_7b", "mamba2_1_3b")
+# the served paths, in run order: SERVE_PROFILES' three models, the SSD
+# path, the MoE path and the vlm path, each at a served batch,
+# SERVE_PROFILES' max_batch (the JAX package's serve/requests.py:179-197;
+# mamba2_1_3b has no profile and is served at 8, as the two small ones;
+# deepseek_moe_16b and internvl2_26b have none and are served at 4, as
+# qwen2_7b, the profile nearest them in size)
+MODELS = ("qwen2_0_5b", "llama3_2_1b", "qwen2_7b", "mamba2_1_3b",
+          "deepseek_moe_16b", "internvl2_26b")
 SERVE_BATCH = {"qwen2_0_5b": 8, "llama3_2_1b": 8, "qwen2_7b": 4,
-               "mamba2_1_3b": 8}
+               "mamba2_1_3b": 8, "deepseek_moe_16b": 4, "internvl2_26b": 4}
 TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 SSD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}  # tests/test_kernels.py's
 # and the second limit of bf16 (tests/test_torch_cuda.py's): the wgmma scan
 # rounds three operands to bf16, which 5e-2 would let pass by far
 SSD_FINE_TOL = {"bfloat16": 1e-2}
 # bf16 decode attention keeps P.V in fp32, as its plain version: (rtol, atol)
-# of about one bf16 rounding of the output (tests/test_torch_cuda.py's)
+# of about one bf16 rounding of the output (tests/test_torch_cuda.py's); the
+# grouped matmul, whose fp32 sums differ from the plain version's only in
+# their order, is held to it too
 DECODE_FINE_TOL = (1e-2, 5e-5)
 SLEEP_CYCLES = 2_000_000  # ~1 ms of GPU spin ahead of each timed call
 
@@ -142,26 +157,40 @@ def main() -> int:
     for name, meta in KERNELS.items():
         mine = [c for c in cases if c["name"] == name]
         timed = [c for c in mine if c["dtype"] == "bfloat16"]  # as served
-        by_bytes = sum(c["bytes_ms"] for c in timed)
-        by_ops = sum(c["ops_ms"] for c in timed)
-        library = [c["library_ms"] for c in timed]
         summary.append({
             "name": name, "route": "cuda", **meta,
             "launches": sum(n[name] for n in launches.values()),
             "launches_by_path": {m: n[name] for m, n in launches.items()},
             "max_abs_err": max(c["max_abs_err"] for c in mine),
-            "ms": sum(c["kernel_ms"] for c in timed),
-            "plain_ms": sum(c["plain_ms"] for c in timed),
-            "bound_ms": sum(c["bound_ms"] for c in timed),
-            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-            "library_ms": None if None in library else sum(library),
+            **timing_sums(timed),
             "shapes": [c["shape"] for c in timed],
         })
+        grouped = [c for c in timed if c["shape"][0] == "grouped"]
+        if grouped:  # the matmul grouped over experts, also on its own
+            summary[-1]["grouped"] = {
+                "launches_by_path": {m: n["grouped"] for m, n in
+                                     launches.items() if "grouped" in n},
+                "max_abs_err": max(c["max_abs_err"] for c in mine
+                                   if c["shape"][0] == "grouped"),
+                **timing_sums(grouped)}
     emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+def timing_sums(cases):
+    """The summary's times of ``cases``: kernel, plain, bound and library
+    ms summed, and what bounds their sum."""
+    by_bytes = sum(c["bytes_ms"] for c in cases)
+    by_ops = sum(c["ops_ms"] for c in cases)
+    library = [c["library_ms"] for c in cases]
+    return {"ms": sum(c["kernel_ms"] for c in cases),
+            "plain_ms": sum(c["plain_ms"] for c in cases),
+            "bound_ms": sum(c["bound_ms"] for c in cases),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "library_ms": None if None in library else sum(library)}
 
 
 # ---------------------------------------------------------------------------
@@ -282,7 +311,9 @@ def phase_kernels(torch, dev):
     from repro_torch.kernels.flash_attention import flash_attention_plain
     from repro_torch.kernels.ssd_scan import (SSD_ROUTE_LAUNCHES, ssd_route,
                                               ssd_scan_plain)
-    from repro_torch.kernels.streamed_matmul import (ROUTE_LAUNCHES, k_splits,
+    from repro_torch.kernels.streamed_matmul import (ROUTE_LAUNCHES,
+                                                     grouped_matmul_plain,
+                                                     grouped_route, k_splits,
                                                      matmul_plain,
                                                      matmul_route, sm_count)
 
@@ -292,7 +323,7 @@ def phase_kernels(torch, dev):
 
     def randn(*shape, dtype, scale=1.0):
         t = torch.randn(shape, generator=gen, device="cuda")
-        return (t * scale).to(dtype)
+        return t.mul_(scale).to(dtype)  # in place: llama4's experts are 21 GB
 
     def time_ms(fn, iters=20, warmup=3):
         """Median of CUDA-event times of the device work, L2 flushed before
@@ -390,14 +421,23 @@ def phase_kernels(torch, dev):
              (2048, 4096), (2048, 128), (2048, 64), (4096, 2048),
              (2048, 50432)]
     tied = {152064, 50432}
-    # llama3_2_1b at batch 8 and qwen2_7b at its batch 4: q/o, k/v, gate/up
-    # and down at the decode M and a 512-token prefill's, and the
-    # unembedding at the decode M (a prefill unembeds the last position):
-    # llama3_2_1b's tied, qwen2_7b's a row-major lm_head
+    # llama3_2_1b at batch 8, qwen2_7b, deepseek_moe_16b and internvl2_26b
+    # at their batch 4: q/o, k/v, gate/up and down at the decode M and a
+    # 512-token prefill's (internvl2_26b's 256 patches and 512 tokens), and
+    # the unembedding at the decode M (a prefill unembeds the last
+    # position): llama3_2_1b's tied, the others' a row-major lm_head.
+    # deepseek_moe_16b's are its attention (16 heads over 16), its shared
+    # experts (2 x 1408 wide) and its first layer's dense FFN; its fp32
+    # router below
     served = [(8, 4096, [(2048, 2048), (2048, 512), (2048, 8192),
                          (8192, 2048)], (2048, 128256, True)),
               (4, 2048, [(3584, 3584), (3584, 512), (3584, 18944),
-                         (18944, 3584)], (3584, 152064, False))]
+                         (18944, 3584)], (3584, 152064, False)),
+              (4, 2048, [(2048, 2048), (2048, 2816), (2816, 2048),
+                         (2048, 10944), (10944, 2048)],
+               (2048, 102400, False)),
+              (4, 3072, [(6144, 6144), (6144, 1024), (6144, 16384),
+                         (16384, 6144)], (6144, 92672, False))]
     for dtype in (torch.float32, torch.bfloat16):
         for M in (8, 4096, 8 * 455):  # decode, prefill, a ragged prefill
             for K, N in pairs:
@@ -409,6 +449,9 @@ def phase_kernels(torch, dev):
                 for Kp, Np in model_pairs:
                     matmul_case(M, Kp, Np, False, dtype)
             matmul_case(m_decode, K, N, is_tied, dtype)
+    # deepseek_moe_16b's router, fp32 as the JAX package keeps it
+    for M in (4, 2048):
+        matmul_case(M, 2048, 64, False, torch.float32)
 
     # the wmma kernel and its split-K reduce: bf16 products TMA cannot take
     # (a row-major w with N % 8 != 0; K % 8 != 0, w the tied layout), at a
@@ -432,15 +475,48 @@ def phase_kernels(torch, dev):
               fns)
         del x, w
 
+    # the matmul grouped over experts, (E, C, K) @ (E, K, N) in one launch:
+    # deepseek_moe_16b's expert FFN (64 experts, d 2048, f 1408; gate/up and
+    # down) at a decode step of its served batch 4 (C = max(8, ceil(4 x 6 /
+    # 64 x 1.25)) = 8) and at a prefill of 4 x 501 tokens (C = 235), and
+    # llama4_maverick_400b_a17b's (128 experts, top-1, d 5120, f 8192; its
+    # 10.7 GB of gate weights) at C 8 and at C 80, a prefill of 8192 tokens
+    for dtype in (torch.float32, torch.bfloat16):
+        es = torch.tensor([], dtype=dtype).element_size()
+        for E, C, K, N in ((64, 8, 2048, 1408), (64, 8, 1408, 2048),
+                           (64, 235, 2048, 1408), (64, 235, 1408, 2048),
+                           (128, 8, 5120, 8192), (128, 80, 5120, 8192)):
+            x = randn(E, C, K, dtype=dtype)
+            w = randn(E, K, N, dtype=dtype, scale=K ** -0.5)
+            route = grouped_route(E, C, N, K, dtype)
+            before = ROUTE_LAUNCHES[route]
+            got = ops.grouped_matmul(x, w)
+            if ROUTE_LAUNCHES[route] != before + 1:
+                raise AssertionError(f"grouped ({E}, {C}, {K}, {N}): the "
+                                     f"{route} kernel did not launch")
+            fns = (lambda: ops.grouped_matmul(x, w),
+                   lambda: grouped_matmul_plain(x, w),
+                   lambda: torch.bmm(x, w))
+            check("streamed_matmul", ["grouped", E, C, K, N], dtype, got,
+                  grouped_matmul_plain(x, w),
+                  es * (E * C * K + E * K * N + E * C * N), 2 * E * C * N * K,
+                  fns, fine=DECODE_FINE_TOL if dtype == torch.bfloat16
+                  else None, route=route)
+            del x, w, got
+            free(torch)
+
     def sdpa(q, k, v, causal):  # (B, H, S, hd) views
         return lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=causal, enable_gqa=True)
 
     # flash_attention: prefill at B=8, S=512, qwen2_0_5b's heads, and at a
     # served prefill's ragged S 455; llama3_2_1b's heads (32 over 8, hd 64)
-    # at B 8 and qwen2_7b's (28 over 4, hd 128) at its B 4, S 512
+    # at B 8, and at B 4 qwen2_7b's (28 over 4, hd 128), deepseek_moe_16b's
+    # (16 over 16, hd 128) at S 512, and internvl2_26b's (48 over 8, hd
+    # 128) at S 768, 256 patches and 512 tokens
     flash_cases = [(8, S, 14, 2, 64) for S in (512, 455)] + [
-        (8, 512, 32, 8, 64), (4, 512, 28, 4, 128)]
+        (8, 512, 32, 8, 64), (4, 512, 28, 4, 128), (4, 512, 16, 16, 128),
+        (4, 768, 48, 8, 128)]
     for dtype in (torch.float32, torch.bfloat16):
         es = torch.tensor([], dtype=dtype).element_size()
         for B, S, H, KV, hd in flash_cases:
@@ -459,8 +535,9 @@ def phase_kernels(torch, dev):
 
     # decode_attention: one token against a 1k cache; qwen2_0_5b's heads at
     # four lengths (487 is a served one), llama3_2_1b's (32 over 8, hd 64),
-    # qwen2_7b's at its B 4 (28 over 4, hd 128) and qwen3_4b's (32 over 8,
-    # hd 128).  Each length twice: a host int (the plan of its own keys),
+    # qwen2_7b's at its B 4 (28 over 4, hd 128), qwen3_4b's (32 over 8,
+    # hd 128), and at B 4 deepseek_moe_16b's (16 over 16, hd 128) and
+    # internvl2_26b's (48 over 8, hd 128).  Each length twice: a host int (the plan of its own keys),
     # and a 0-d int32 on the card, as the captured decode step passes it
     # (the plan of all S keys, splits past the length empty; shape tag
     # "device"); lengths 1, 64 and 65 on the card leave most of a cluster's
@@ -472,7 +549,9 @@ def phase_kernels(torch, dev):
                 (8, 14, 2, 64, (1, 487, 513, 1024)),
                 (8, 32, 8, 64, (487, 1024)),
                 (4, 28, 4, 128, (487, 1024)),
-                (8, 32, 8, 128, (487, 1024))):
+                (8, 32, 8, 128, (487, 1024)),
+                (4, 16, 16, 128, (487, 1024)),
+                (4, 48, 8, 128, (487, 1024))):
             q = randn(B, H, hd, dtype=dtype)
             k = randn(B, S, KV, hd, dtype=dtype)
             v = randn(B, S, KV, hd, dtype=dtype)
@@ -557,10 +636,14 @@ def phase_parity(torch, model):
     p_card = bundle.init(SEED, device="cuda")
     p_cpu = _to(p_card, "cpu")
     rng = np.random.default_rng(SEED)
-    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size - 1, (2, 64)))
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size - 1,
+                                                     (2, 64)))}
+    if cfg.family == "vlm":  # the vision stub's output ahead of the tokens
+        batch["patch_embeds"] = torch.from_numpy(rng.standard_normal(
+            (2, cfg.frontend_seq, cfg.frontend_dim)).astype(np.float32))
     with torch.inference_mode():
-        got = bundle.forward(p_card, {"tokens": toks.cuda()}).cpu()
-        want = bundle.forward(p_cpu, {"tokens": toks})
+        got = bundle.forward(p_card, _to(batch, "cuda")).cpu()
+        want = bundle.forward(p_cpu, batch)
     diff = (got - want).abs()
     tol = 2e-3
     ok_logits = bool((diff <= tol * (1 + want.abs())).all())
@@ -604,28 +687,38 @@ def free(torch):
     torch.cuda.empty_cache()
 
 
-def expected_launches(cfg, prefills: int, decode_steps: int):
+def expected_launches(cfg, prefills: int, decode_steps: int,
+                      prefill_tokens: int, batch: int):
     """Kernel launches of a served run: the matmuls of every forward (the
     projections of each layer and the unembedding), the prefill kernel of
-    each layer per prefill, the decode kernel of each layer per step."""
+    each layer per prefill, the decode kernel of each layer per step.  Of
+    the matmuls, the MoE layers' fp32 router and grouped expert products
+    by route (``"fp32"``, the grouped routes), from the capacity C of a
+    prefill's ``prefill_tokens`` tokens and of a step's ``batch``."""
+    import torch
+    from repro_torch.kernels.streamed_matmul import grouped_route
+    from repro_torch.models.moe import _capacity
     L, forwards = cfg.n_layers, prefills + decode_steps
     if cfg.family == "ssm":  # w_z, w_x, w_B, w_C, w_dt, w_out; the SSD scan
         return {"streamed_matmul": (6 * L + 1) * forwards,
                 "flash_attention": 0, "decode_attention": 0,
-                "ssd_scan": L * prefills}
-    return {"streamed_matmul": (7 * L + 1) * forwards,  # q k v o, gate up down
-            "flash_attention": L * prefills,
-            "decode_attention": L * decode_steps, "ssd_scan": 0}
-
-
-def pad_prompts(prompts, batch_size):
-    """The engine's batch: prompts left-padded with token 0 to the longest."""
-    import numpy as np
-    S = max(len(p) for p in prompts)
-    toks = np.zeros((batch_size, S), np.int64)
-    for i, p in enumerate(prompts):
-        toks[i, S - len(p):] = p
-    return toks
+                "ssd_scan": L * prefills}, {}
+    n_moe, _ = cfg.moe_layer_split()
+    # q k v o, gate up down; a MoE layer: q k v o, the router, the
+    # three grouped expert products and the shared experts' gate up down
+    launches = {"streamed_matmul": (7 * L + 4 * n_moe + 1) * forwards,
+                "flash_attention": L * prefills,
+                "decode_attention": L * decode_steps, "ssd_scan": 0}
+    routes = {}
+    if n_moe:
+        routes = {"fp32": n_moe * forwards, "wgmma_grouped": 0,
+                  "wgmma_grouped_decode": 0}
+        for tokens, n in ((prefill_tokens, prefills), (batch, decode_steps)):
+            C = _capacity(tokens, cfg.top_k, cfg.n_experts,
+                          cfg.capacity_factor)
+            routes[grouped_route(cfg.n_experts, C, cfg.moe_d_ff,
+                                 cfg.d_model, torch.bfloat16)] += 3 * n_moe * n
+    return launches, routes
 
 
 def phase_serve(torch, dev, model):
@@ -643,15 +736,17 @@ def phase_serve(torch, dev, model):
     # all logits of the run finite: a flag on the card that each prefill and
     # each decode step (inside the captured graph too) ands in place
     finite = torch.ones((), dtype=torch.bool, device="cuda")
-    # matmuls of 64 rows or more, and of fewer, in the run; those made while
-    # the decode step is captured are counted apart, since every replay of
-    # the graph launches them again
-    tall, tall_captured = [0, 0], [0, 0]
+    # matmuls in the run: bf16 of 64 rows or more, bf16 of fewer, and fp32
+    # (the MoE router); those made while the decode step is captured are
+    # counted apart, since every replay of the graph launches them again
+    kinds = ("tall", "small", "fp32")
+    seen, seen_captured = dict.fromkeys(kinds, 0), dict.fromkeys(kinds, 0)
 
     def counted_matmul(x, w, _matmul=ops.matmul):
-        into = (tall_captured if torch.cuda.is_current_stream_capturing()
-                else tall)
-        into[x.shape[0] < 64] += 1
+        into = (seen_captured if torch.cuda.is_current_stream_capturing()
+                else seen)
+        into["fp32" if x.dtype == torch.float32 else
+             "small" if x.shape[0] < 64 else "tall"] += 1
         return _matmul(x, w)
 
     def prefill(p, batch):
@@ -681,7 +776,7 @@ def phase_serve(torch, dev, model):
         eng.run()
         before, replays0 = dict(eng.stats), eng.decoder.replays
         reqs = [eng.submit(pr, max_new_tokens=32) for pr in prompts]
-        tall[:] = [0, 0]
+        seen.update(dict.fromkeys(kinds, 0))
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launches()
         eng.run()
@@ -699,8 +794,10 @@ def phase_serve(torch, dev, model):
                               eng.decoder)
 
     same_tokens = graph_tokens == eager["tokens"]
-    expect = expected_launches(cfg, st["prefills"], st["decode_steps"])
-    small = tall[1] + tall_captured[1] * replays
+    expect, expect_routes = expected_launches(
+        cfg, st["prefills"], st["decode_steps"],
+        ecfg.batch_size * max(lengths), ecfg.batch_size)
+    made = {k: seen[k] + seen_captured[k] * replays for k in kinds}
     emit({"phase": "serve", "model": model, "n_layers": cfg.n_layers,
           "dtype": cfg.param_dtype, "batch": ecfg.batch_size,
           "max_seq": ecfg.max_seq, "prompt_lens": [int(n) for n in lengths],
@@ -713,11 +810,13 @@ def phase_serve(torch, dev, model):
           "graph_tokens_equal_eager": same_tokens,
           "peak_mem_gb": peak_gb,
           "launches": launches, "expected_launches": expect,
+          "expected_routes": expect_routes,
           "launches_per_replay": eng.decoder.launches[0],
           "matmul_routes": routes, "ssd_routes": ssd_routes,
-          "matmuls_of_64_rows_or_more": tall[0],
-          "matmuls_of_fewer_rows": small,
-          "matmuls_of_fewer_rows_per_replay": tall_captured[1],
+          "matmuls_of_64_rows_or_more": made["tall"],
+          "matmuls_of_fewer_rows": made["small"],
+          "matmuls_fp32": made["fp32"],
+          "matmuls_per_replay": seen_captured,
           "logits_finite": all_finite,
           "first_tokens": reqs[0].out_tokens[:8], "profile": breakdown})
     del eng, watched, params, bundle, eager
@@ -737,17 +836,30 @@ def phase_serve(torch, dev, model):
     if launches != expect or not all(launches[k] for k, n in expect.items()
                                      if n):
         raise AssertionError(f"launch counts {launches} != {expect}")
-    if (not tall[0] or routes["wgmma"] != tall[0] or tall_captured[0]
-            or routes["fp32"]):
-        raise AssertionError(f"{tall[0]} matmuls of 64 rows or more, routes "
-                             f"{routes}: not all on the wgmma kernel")
-    if not small or routes["wgmma_decode"] != small or routes["wmma"]:
-        raise AssertionError(f"{small} matmuls of fewer than 64 rows, "
-                             f"routes {routes}: not all on the wgmma decode "
+    if not made["tall"] or routes["wgmma"] != made["tall"] or \
+            seen_captured["tall"]:
+        raise AssertionError(f"{made['tall']} bf16 matmuls of 64 rows or "
+                             f"more, routes {routes}: not all on the wgmma "
                              "kernel")
+    if not made["small"] or routes["wgmma_decode"] != made["small"] or \
+            routes["wmma"]:
+        raise AssertionError(f"{made['small']} bf16 matmuls of fewer than 64 "
+                             f"rows, routes {routes}: not all on the wgmma "
+                             "decode kernel")
+    # the fp32 route takes the MoE routers and nothing else; the grouped
+    # routes the expert products, on the route of their capacity
+    want = {"fp32": 0, "wgmma_grouped": 0, "wgmma_grouped_decode": 0,
+            "fp32_grouped": 0, **expect_routes}
+    if {k: routes[k] for k in want} != want or made["fp32"] != want["fp32"]:
+        raise AssertionError(f"routes {routes} (fp32 matmuls {made['fp32']})"
+                             f" != the expected {want}: a router or an expert "
+                             "product left its kernel")
+    grouped = {k: routes[k] for k in want if "grouped" in k}
     if ssd_routes != {"wgmma": launches["ssd_scan"], "fp32": 0}:
         raise AssertionError(f"{launches['ssd_scan']} scans, routes "
                              f"{ssd_routes}: not all on the wgmma scan kernel")
+    if any(grouped.values()):  # the summary's grouped launches
+        launches = dict(launches, grouped=sum(grouped.values()))
     return launches
 
 
@@ -756,10 +868,8 @@ def eager_decode(torch, bundle, params, prompts, ecfg, new):
     engine would without its graph: every request's ``new`` tokens, and
     the wall ms per decode step, each ending in a copy of the tokens to the
     host as the engine's steps do."""
-    from repro_torch.serve import greedy, seed_decode_cache
-    S = max(len(p) for p in prompts)
-    batch = {"tokens": torch.from_numpy(pad_prompts(prompts,
-                                                    ecfg.batch_size)).cuda()}
+    from repro_torch.serve import greedy, pad_batch, seed_decode_cache
+    batch, S = pad_batch(bundle.cfg, prompts, ecfg.batch_size, "cuda")
     V = bundle.cfg.vocab_size
     with torch.inference_mode():
         logits, caches = bundle.prefill(params, batch)
@@ -785,12 +895,10 @@ def profile_steps(torch, bundle, params, prompts, ecfg, decoder, n_decode=4):
     time.  Then, unprofiled, eager steps and replays in turn (twice each):
     the host's time to enqueue a step and the wall time until the card has
     run it.  Last, a check that a replay never waits on the card."""
-    from repro_torch.serve import greedy, seed_decode_cache
+    from repro_torch.serve import greedy, pad_batch, seed_decode_cache
     from torch.profiler import ProfilerActivity, profile
 
-    S = max(len(p) for p in prompts)
-    batch = {"tokens": torch.from_numpy(pad_prompts(prompts,
-                                                    ecfg.batch_size)).cuda()}
+    batch, S = pad_batch(bundle.cfg, prompts, ecfg.batch_size, "cuda")
     V = bundle.cfg.vocab_size
     state = {}
 

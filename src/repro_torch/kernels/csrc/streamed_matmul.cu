@@ -46,6 +46,16 @@
 // contiguous (N,K) array), so the tied unembedding reads the (vocab, d)
 // embedding table in place instead of copying it.  fp32 runs on the CUDA
 // cores (plain FMA tiles): it exists for parity runs, not for speed.
+// Grouped (the experts of an MoE layer, models/moe.py's _expert_ffn):
+// out (E, M, N) = x (E, M, K) @ w (E, K, N) per expert in one launch, where
+// a loop over experts would launch E times per projection.  The prefill,
+// decode and fp32 kernels each take a grid dimension over the experts
+// (template flag G); the bf16 tensor maps are rank 3, so a box stays inside
+// one expert and its ragged rows or k read zero, not the next expert's.  At
+// a decode step every expert's C = 8 capacity rows are a decode product of
+// its own, so the step reads every expert's weights once, as the JAX
+// capacity design does; the host's plan counts E x the column tiles before
+// it splits K.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -176,19 +186,23 @@ constexpr int G_B_BYTES = G_BN * G_BK * 2;
 constexpr int G_STAGE_BYTES = G_A_BYTES + G_B_BYTES;
 constexpr int G_SMEM_BYTES = G_STAGES * G_STAGE_BYTES + 2 * G_STAGES * 8 + 1024;  // + alignment
 
-template <bool WT>
+// G: a grouped product, one (M, N) output per blockIdx.z (expert e) of the
+// rank-3 maps of x (E, M, K) and a row-major w (E, K, N).
+template <bool WT, bool G>
 __global__ void __launch_bounds__(G_THREADS)
 matmul_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
                     const __grid_constant__ CUtensorMap wmap,
                     __nv_bfloat16* __restrict__ out, int M, int N, int K) {
   using namespace hopper;
+  static_assert(!(G && WT), "a grouped w is row-major");
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + G_STAGES * G_STAGE_BYTES);
   uint64_t* empty = full + G_STAGES;
 
-  const int n0 = blockIdx.x * G_BN, m0 = blockIdx.y * G_BM;
+  const int n0 = blockIdx.x * G_BN, m0 = blockIdx.y * G_BM, e = blockIdx.z;
   const int ksteps = (K + G_BK - 1) / G_BK;
+  out += (size_t)e * M * N;
   if (threadIdx.x == 0) {
     for (int s = 0; s < G_STAGES; ++s) {
       mbar_init(&full[s], 1);
@@ -209,6 +223,12 @@ matmul_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
         unsigned char* a = smem + s * G_STAGE_BYTES;
         unsigned char* b = a + G_A_BYTES;
         mbar_arrive_expect_tx(&full[s], G_STAGE_BYTES);
+        if (G) {  // expert e's (M, K) rows and (K, N) rows, two 64 x 64 boxes
+          tma_load_3d(a, &xmap, &full[s], i * G_BK, m0, e);
+          tma_load_3d(b, &wmap, &full[s], n0, i * G_BK, e);
+          tma_load_3d(b + G_B_BYTES / 2, &wmap, &full[s], n0 + 64, i * G_BK, e);
+          continue;
+        }
         tma_load_2d(a, &xmap, &full[s], i * G_BK, m0);
         if (WT) {  // (N, K) rows, k contiguous: one 128 x 64 box
           tma_load_2d(b, &wmap, &full[s], i * G_BK, n0);
@@ -289,7 +309,8 @@ struct DecodeTiles {
   static constexpr int SMEM = D_STAGES * STAGE + PART + 2 * D_STAGES * 8 + 1024;
 };
 
-template <bool WT, int NG>
+// G: a grouped product, as matmul_wgmma_kernel's, expert e = blockIdx.z.
+template <bool WT, int NG, bool G>
 __global__ void __launch_bounds__(D_THREADS)
 matmul_decode_kernel(const __grid_constant__ CUtensorMap xmap,
                      const __grid_constant__ CUtensorMap wmap,
@@ -297,14 +318,16 @@ matmul_decode_kernel(const __grid_constant__ CUtensorMap xmap,
                      int steps_per_split) {
   using namespace hopper;
   using T = DecodeTiles<NG>;
+  static_assert(!(G && WT), "a grouped w is row-major");
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   float* part = reinterpret_cast<float*>(smem + D_STAGES * T::STAGE);  // [8 NG][D_PSTRIDE]
   uint64_t* full = reinterpret_cast<uint64_t*>(part + NG * 8 * D_PSTRIDE);
   uint64_t* empty = full + D_STAGES;
 
-  const int n0 = blockIdx.y * D_TILE;
+  const int n0 = blockIdx.y * D_TILE, e = blockIdx.z;
   const int i0 = blockIdx.x * steps_per_split;
+  out += (size_t)e * M * N;
   const int nsteps = min(steps_per_split, (K + D_TILE - 1) / D_TILE - i0);
   if (threadIdx.x == 0) {
     for (int s = 0; s < D_STAGES; ++s) {
@@ -326,6 +349,11 @@ matmul_decode_kernel(const __grid_constant__ CUtensorMap xmap,
         unsigned char* a = smem + s * T::STAGE;
         const int k0 = (i0 + i) * D_TILE;
         mbar_arrive_expect_tx(&full[s], T::STAGE);
+        if (G) {  // expert e's (K, N) rows and its x rows 0 .. 8 NG - 1
+          tma_load_3d(a, &wmap, &full[s], n0, k0, e);
+          tma_load_3d(a + T::A_BYTES, &xmap, &full[s], k0, 0, e);
+          continue;
+        }
         if (WT) tma_load_2d(a, &wmap, &full[s], k0, n0);  // (N, K) rows: 64 n of 64 k
         else tma_load_2d(a, &wmap, &full[s], n0, k0);     // (K, N) rows: 64 k of 64 n
         tma_load_2d(a + T::A_BYTES, &xmap, &full[s], k0, 0);  // x rows 0 .. 8 NG - 1
@@ -397,24 +425,25 @@ matmul_decode_kernel(const __grid_constant__ CUtensorMap xmap,
 // wgmma): 1, 2, 4 or 8.
 int row_groups(int M) { return M <= 8 ? 1 : M <= 16 ? 2 : M <= 32 ? 4 : 8; }
 
-template <bool WT, int NG>
-cudaError_t launch_decode(const CUtensorMap& xmap, const CUtensorMap& wmap, void* out, int M,
-                          int N, int K, int splits, int steps_per_split, cudaStream_t s) {
+template <bool WT, int NG, bool G>
+cudaError_t launch_decode(const CUtensorMap& xmap, const CUtensorMap& wmap, void* out, int E,
+                          int M, int N, int K, int splits, int steps_per_split, cudaStream_t s) {
   static hopper::SmemRaised raised;
-  const dim3 grid(splits, (N + D_TILE - 1) / D_TILE);
-  return hopper::launch_cluster(matmul_decode_kernel<WT, NG>, raised, grid, D_THREADS,
+  const dim3 grid(splits, (N + D_TILE - 1) / D_TILE, E);
+  return hopper::launch_cluster(matmul_decode_kernel<WT, NG, G>, raised, grid, D_THREADS,
                                 DecodeTiles<NG>::SMEM, splits, s, xmap, wmap,
                                 static_cast<__nv_bfloat16*>(out), M, N, K, steps_per_split);
 }
 
-template <bool WT>
+template <bool WT, bool G>
 cudaError_t launch_decode_groups(const CUtensorMap& xmap, const CUtensorMap& wmap, void* out,
-                                 int M, int N, int K, int splits, int steps, cudaStream_t s) {
+                                 int E, int M, int N, int K, int splits, int steps,
+                                 cudaStream_t s) {
   switch (row_groups(M)) {
-    case 1: return launch_decode<WT, 1>(xmap, wmap, out, M, N, K, splits, steps, s);
-    case 2: return launch_decode<WT, 2>(xmap, wmap, out, M, N, K, splits, steps, s);
-    case 4: return launch_decode<WT, 4>(xmap, wmap, out, M, N, K, splits, steps, s);
-    default: return launch_decode<WT, 8>(xmap, wmap, out, M, N, K, splits, steps, s);
+    case 1: return launch_decode<WT, 1, G>(xmap, wmap, out, E, M, N, K, splits, steps, s);
+    case 2: return launch_decode<WT, 2, G>(xmap, wmap, out, E, M, N, K, splits, steps, s);
+    case 4: return launch_decode<WT, 4, G>(xmap, wmap, out, E, M, N, K, splits, steps, s);
+    default: return launch_decode<WT, 8, G>(xmap, wmap, out, E, M, N, K, splits, steps, s);
   }
 }
 
@@ -427,14 +456,14 @@ bool make_w_map(CUtensorMap* map, const void* w, int N, int K, int w_t, uint32_t
              : hopper::make_map_2d(map, w, N, K, box_n, box_k);
 }
 
-template <bool WT>
-cudaError_t launch_prefill(const CUtensorMap& xmap, const CUtensorMap& wmap, void* out, int M,
-                           int N, int K, cudaStream_t s) {
+template <bool WT, bool G>
+cudaError_t launch_prefill(const CUtensorMap& xmap, const CUtensorMap& wmap, void* out, int E,
+                           int M, int N, int K, cudaStream_t s) {
   static hopper::SmemRaised raised;
-  const cudaError_t err = hopper::allow_smem(matmul_wgmma_kernel<WT>, G_SMEM_BYTES, raised);
+  const cudaError_t err = hopper::allow_smem(matmul_wgmma_kernel<WT, G>, G_SMEM_BYTES, raised);
   if (err != cudaSuccess) return err;
-  const dim3 grid((N + G_BN - 1) / G_BN, (M + G_BM - 1) / G_BM);
-  matmul_wgmma_kernel<WT><<<grid, G_THREADS, G_SMEM_BYTES, s>>>(
+  const dim3 grid((N + G_BN - 1) / G_BN, (M + G_BM - 1) / G_BM, E);
+  matmul_wgmma_kernel<WT, G><<<grid, G_THREADS, G_SMEM_BYTES, s>>>(
       xmap, wmap, static_cast<__nv_bfloat16*>(out), M, N, K);
   return cudaGetLastError();
 }
@@ -442,7 +471,9 @@ cudaError_t launch_prefill(const CUtensorMap& xmap, const CUtensorMap& wmap, voi
 // ---------------------------------------------------------------- fp32 path
 constexpr int FBM = 64, FBN = 64, FBK = 16, FTHREADS = 256;
 
-template <bool WT>
+// G: a grouped product, blockIdx.z the expert e of x (E, M, K), a row-major
+// w (E, K, N) and out (E, M, N), K unsplit; otherwise blockIdx.z the split.
+template <bool WT, bool G>
 __global__ void __launch_bounds__(FTHREADS)
 matmul_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
                   float* __restrict__ out, float* __restrict__ ws, int M, int N,
@@ -453,8 +484,15 @@ matmul_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   float acc[4][4] = {};
 
-  const int k_begin = blockIdx.z * k_per_split;
-  const int k_end = min(K, k_begin + k_per_split);
+  int k_begin = blockIdx.z * k_per_split, k_end = min(K, k_begin + k_per_split);
+  if (G) {
+    const size_t e = blockIdx.z;
+    x += e * M * K;
+    w += e * K * N;
+    out += e * M * N;
+    k_begin = 0;
+    k_end = K;
+  }
   for (int k0 = k_begin; k0 < k_end; k0 += FBK) {
     for (int i = threadIdx.x; i < FBM * FBK; i += FTHREADS) {
       const int r = i / FBK, c = i % FBK;  // r along m, c along k
@@ -533,8 +571,8 @@ extern "C" int streamed_matmul(const void* x, const void* w, void* out, void* ws
     auto xf = static_cast<const float*>(x);
     auto wf = static_cast<const float*>(w);
     auto of = static_cast<float*>(out);
-    if (w_t) matmul_f32_kernel<true><<<grid, FTHREADS, 0, s>>>(xf, wf, of, wsf, M, N, K, k_per);
-    else matmul_f32_kernel<false><<<grid, FTHREADS, 0, s>>>(xf, wf, of, wsf, M, N, K, k_per);
+    if (w_t) matmul_f32_kernel<true, false><<<grid, FTHREADS, 0, s>>>(xf, wf, of, wsf, M, N, K, k_per);
+    else matmul_f32_kernel<false, false><<<grid, FTHREADS, 0, s>>>(xf, wf, of, wsf, M, N, K, k_per);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -564,8 +602,8 @@ extern "C" int streamed_matmul_wgmma(const void* x, const void* w, void* out, in
       !make_w_map(&wmap, w, N, K, w_t, G_BK, w_t ? G_BN : 64))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(w_t ? launch_prefill<true>(xmap, wmap, out, M, N, K, s)
-                              : launch_prefill<false>(xmap, wmap, out, M, N, K, s));
+  return static_cast<int>(w_t ? launch_prefill<true, false>(xmap, wmap, out, 1, M, N, K, s)
+                              : launch_prefill<false, false>(xmap, wmap, out, 1, M, N, K, s));
 }
 
 // The decode path: bf16 x (M, K) row-major with 1 <= M < 64, w as
@@ -588,8 +626,69 @@ extern "C" int streamed_matmul_decode(const void* x, const void* w, void* out, i
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
-      w_t ? launch_decode_groups<true>(xmap, wmap, out, M, N, K, splits, steps_per_split, s)
-          : launch_decode_groups<false>(xmap, wmap, out, M, N, K, splits, steps_per_split, s));
+      w_t ? launch_decode_groups<true, false>(xmap, wmap, out, 1, M, N, K, splits,
+                                              steps_per_split, s)
+          : launch_decode_groups<false, false>(xmap, wmap, out, 1, M, N, K, splits,
+                                               steps_per_split, s));
+}
+
+// ------------------------------------------------------------- grouped
+// out (E, M, N) = x (E, M, K) @ w (E, K, N), one product per expert, all
+// three row-major and contiguous, in one launch: the kernels above with a
+// grid dimension over the experts.  The bf16 maps are rank 3, (E, rows,
+// cols) with boxes inside one expert, so a ragged M or K zero-fills within
+// the expert and never reads the next one's rows.  The caller routes bf16
+// here only when K % 8 == 0, N % 8 == 0 and x and w are 16-byte aligned.
+
+// The map of E stacked row-major bf16 matrices (E, rows, cols), in boxes of
+// box_rows rows of box_cols (64) elements of one matrix.
+static bool make_stack_map(CUtensorMap* map, const void* ptr, int E, int rows, int cols,
+                           uint32_t box_cols, uint32_t box_rows) {
+  const uint64_t dims[3] = {(uint64_t)cols, (uint64_t)rows, (uint64_t)E};
+  const uint64_t strides[2] = {(uint64_t)cols * 2, (uint64_t)rows * cols * 2};
+  const uint32_t box[3] = {box_cols, box_rows, 1};
+  return hopper::make_map_bf16(map, ptr, 3, dims, strides, box);
+}
+
+// M >= 64: the prefill kernel per expert.
+extern "C" int streamed_matmul_grouped_wgmma(const void* x, const void* w, void* out, int E,
+                                             int M, int N, int K, void* stream) {
+  CUtensorMap xmap, wmap;
+  if (E < 1 || E > 65535 || M < 1 || N < 1 || K < 1 ||
+      !make_stack_map(&xmap, x, E, M, K, G_BK, G_BM) ||
+      !make_stack_map(&wmap, w, E, K, N, 64, G_BK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_prefill<false, true>(xmap, wmap, out, E, M, N, K,
+                                                      static_cast<cudaStream_t>(stream)));
+}
+
+// 1 <= M < 64: the decode kernel per expert, K cut as streamed_matmul_decode's.
+extern "C" int streamed_matmul_grouped_decode(const void* x, const void* w, void* out, int E,
+                                              int M, int N, int K, int splits,
+                                              int steps_per_split, void* stream) {
+  const int steps = (K + D_TILE - 1) / D_TILE;
+  if (E < 1 || E > 65535 || M < 1 || M >= 64 || N < 1 || K < 1 || splits < 1 ||
+      splits > hopper::MAX_CLUSTER || steps_per_split < 1 ||
+      (splits - 1) * steps_per_split >= steps || splits * steps_per_split < steps)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap xmap, wmap;
+  if (!make_stack_map(&xmap, x, E, M, K, D_TILE, 8 * row_groups(M)) ||
+      !make_stack_map(&wmap, w, E, K, N, D_TILE, D_TILE))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_decode_groups<false, true>(
+      xmap, wmap, out, E, M, N, K, splits, steps_per_split, static_cast<cudaStream_t>(stream)));
+}
+
+// fp32: the CUDA-core kernel per expert.
+extern "C" int streamed_matmul_grouped_f32(const void* x, const void* w, void* out, int E,
+                                           int M, int N, int K, void* stream) {
+  if (E < 1 || E > 65535 || M < 1 || N < 1 || K < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((N + FBN - 1) / FBN, (M + FBM - 1) / FBM, E);
+  matmul_f32_kernel<false, true><<<grid, FTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w), static_cast<float*>(out),
+      nullptr, M, N, K, K);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The decode kernel's tile edge: output columns per block and k per step.

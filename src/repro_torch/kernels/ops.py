@@ -15,7 +15,8 @@ from .decode_attention import (Length, decode_attention_cuda,
                                decode_attention_plain)
 from .flash_attention import flash_attention_cuda, flash_attention_plain
 from .ssd_scan import SSD_ROUTE_LAUNCHES, ssd_scan_cuda, ssd_scan_plain
-from .streamed_matmul import ROUTE_LAUNCHES, matmul_cuda, matmul_plain
+from .streamed_matmul import (ROUTE_LAUNCHES, grouped_matmul_cuda,
+                              grouped_matmul_plain, matmul_cuda, matmul_plain)
 
 LAUNCHES: Dict[str, int] = {"streamed_matmul": 0, "flash_attention": 0,
                             "decode_attention": 0, "ssd_scan": 0}
@@ -59,6 +60,17 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if not _on_card(x):
         return matmul_plain(x, w)
     out = matmul_cuda(x, w)
+    LAUNCHES["streamed_matmul"] += 1
+    return out
+
+
+def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(E,M,K) @ (E,K,N), one product per expert in one launch, fp32
+    accumulation, output in x.dtype; counted as a ``streamed_matmul``
+    launch."""
+    if not _on_card(x):
+        return grouped_matmul_plain(x, w)
+    out = grouped_matmul_cuda(x, w)
     LAUNCHES["streamed_matmul"] += 1
     return out
 

@@ -5,6 +5,9 @@ The port of the JAX package's ``kernels/streamed_matmul.py``.
 kernels are held against on the card); ``matmul_cuda`` launches one of the
 hand-written kernels of ``csrc/streamed_matmul.cu``, chosen by shape
 (``matmul_route``), and counts its launches by route in ``ROUTE_LAUNCHES``.
+``grouped_matmul_plain`` and ``grouped_matmul_cuda`` are the same product
+grouped over a leading expert dim, (E,M,K) @ (E,K,N), in one launch
+(``grouped_route``), for the experts of an MoE layer.
 """
 from __future__ import annotations
 
@@ -21,9 +24,12 @@ WGMMA_MIN_M = 64  # one wgmma row block: below it the decode kernel serves
 # blocks of a portable thread-block cluster, the most a split plan makes
 # (csrc/hopper.cuh's launch_cluster refuses more)
 MAX_CLUSTER = 8
-# launches of matmul_cuda by route (see matmul_route)
+# launches of matmul_cuda by route (see matmul_route), and of
+# grouped_matmul_cuda (see grouped_route)
 ROUTE_LAUNCHES: Dict[str, int] = {"wgmma": 0, "wgmma_decode": 0, "wmma": 0,
-                                  "fp32": 0}
+                                  "fp32": 0, "wgmma_grouped": 0,
+                                  "wgmma_grouped_decode": 0,
+                                  "fp32_grouped": 0}
 
 
 def matmul_route(M: int, N: int, K: int, w_t: int, dtype: torch.dtype,
@@ -47,6 +53,24 @@ def matmul_route(M: int, N: int, K: int, w_t: int, dtype: torch.dtype,
     return "wmma"
 
 
+def grouped_route(E: int, M: int, N: int, K: int, dtype: torch.dtype,
+                  aligned: bool = True) -> str:
+    """Which kernel takes a grouped product (E,M,K) @ (E,K,N): the
+    ``matmul_route`` of one expert's product with a row-major w, each
+    kernel with a grid dimension over the experts.  bf16 that TMA cannot
+    take has no grouped kernel: it raises."""
+    if dtype == torch.float32:
+        return "fp32_grouped"
+    if dtype == torch.bfloat16 and K % 8 == 0 and N % 8 == 0 and aligned:
+        return ("wgmma_grouped" if M >= WGMMA_MIN_M
+                else "wgmma_grouped_decode")
+    raise ValueError(f"grouped_matmul: no kernel takes {dtype} ({E}, {M}, "
+                     f"{K}) @ ({E}, {K}, {N})"
+                     + ("" if aligned else " with a misaligned tensor")
+                     + ": bf16 needs K % 8 == 0, N % 8 == 0 and 16-byte "
+                     "aligned tensors")
+
+
 def k_splits(M: int, N: int, K: int, n_sms: int) -> int:
     """How many ranges to cut K into when the output tiles alone are fewer
     than the SMs: about four blocks per SM, each range at least 128 deep
@@ -66,13 +90,13 @@ def cluster_runs(units: int, want: int):
     return -(-units // per), per
 
 
-def decode_k_plan(N: int, K: int, n_sms: int, tile: int):
+def decode_k_plan(N: int, K: int, n_sms: int, tile: int, groups: int = 1):
     """(splits, k steps per split) of the decode kernel, whose blocks each
-    take ``tile`` output columns and a range of ``tile``-deep k steps
-    (``decode_tile()``); where the column tiles are fewer than about two per
-    SM, K is cut into ranges that form a cluster and sum their partials in
-    the same launch."""
-    tiles = -(-N // tile)
+    take ``tile`` output columns (of one of ``groups`` experts) and a range
+    of ``tile``-deep k steps (``decode_tile()``); where the column tiles are
+    fewer than about two per SM, K is cut into ranges that form a cluster
+    and sum their partials in the same launch."""
+    tiles = groups * -(-N // tile)
     return cluster_runs(-(-K // tile), -(-2 * n_sms // tiles))
 
 
@@ -84,6 +108,12 @@ def decode_tile() -> int:
 
 def matmul_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x.float() @ w.float()).to(x.dtype)
+
+
+def grouped_matmul_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(E,M,K) @ (E,K,N) per expert in fp32, out in x.dtype: the JAX
+    package's ``einsum("ecd,edf->ecf")``."""
+    return torch.einsum("emk,ekn->emn", x.float(), w.float()).to(x.dtype)
 
 
 def matmul_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -138,6 +168,52 @@ def matmul_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         _build.check(lib.streamed_matmul(
             x.data_ptr(), w.data_ptr(), out.data_ptr(), ws.data_ptr(), M, N,
             K, w_t, splits, DTYPE_CODES[x.dtype], stream), "streamed_matmul")
+    ROUTE_LAUNCHES[route] += 1
+    return out
+
+
+def grouped_matmul_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x: contiguous (E, M, K); w: contiguous (E, K, N).  One launch of the
+    kernel ``grouped_route`` picks: bf16 with M >= 64 the wgmma kernel, M <
+    64 the wgmma decode kernel (K split over a cluster where E x the column
+    tiles are fewer than about two per SM), fp32 the fp32 kernel; bf16 that
+    TMA cannot take raises ValueError.  Raises if the kernel fails to build
+    or launch."""
+    if not (x.is_cuda and w.device == x.device):
+        raise ValueError(f"grouped_matmul: x on {x.device}, w on {w.device}")
+    if x.dtype not in DTYPE_CODES or w.dtype != x.dtype:
+        raise TypeError(f"grouped_matmul: dtypes {x.dtype}, {w.dtype}")
+    if (x.dim() != 3 or w.dim() != 3 or x.shape[0] != w.shape[0]
+            or x.shape[2] != w.shape[1]):
+        raise ValueError(f"grouped_matmul: shapes {tuple(x.shape)} @ "
+                         f"{tuple(w.shape)}")
+    if not (x.is_contiguous() and w.is_contiguous()):
+        raise ValueError("grouped_matmul: x and w must be contiguous")
+    E, M, K = x.shape
+    N = w.shape[2]
+    out = torch.empty((E, M, N), dtype=x.dtype, device=x.device)
+    if E == 0 or M == 0 or N == 0:
+        return out
+    if K == 0:
+        return out.zero_()
+    route = grouped_route(E, M, N, K, x.dtype,
+                          x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
+    lib = _build.load()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if route == "wgmma_grouped":
+        _build.check(lib.streamed_matmul_grouped_wgmma(
+            x.data_ptr(), w.data_ptr(), out.data_ptr(), E, M, N, K, stream),
+            "streamed_matmul_grouped_wgmma")
+    elif route == "wgmma_grouped_decode":
+        splits, per = decode_k_plan(N, K, sm_count(x.device), decode_tile(),
+                                    groups=E)
+        _build.check(lib.streamed_matmul_grouped_decode(
+            x.data_ptr(), w.data_ptr(), out.data_ptr(), E, M, N, K, splits,
+            per, stream), "streamed_matmul_grouped_decode")
+    else:
+        _build.check(lib.streamed_matmul_grouped_f32(
+            x.data_ptr(), w.data_ptr(), out.data_ptr(), E, M, N, K, stream),
+            "streamed_matmul_grouped_f32")
     ROUTE_LAUNCHES[route] += 1
     return out
 

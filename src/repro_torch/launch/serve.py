@@ -32,9 +32,11 @@ def main(argv=None) -> int:
         cfg = reduce_for_smoke(cfg)
     bundle = build(cfg)
     params = bundle.init(0, device=args.device)
+    # the cache holds a vlm's patch positions too
+    max_seq = cfg.frontend_seq + args.prompt_len + args.new_tokens
     engine = ServeEngine(bundle, params,
                          EngineConfig(batch_size=args.requests,
-                                      max_seq=args.prompt_len + args.new_tokens),
+                                      max_seq=max_seq),
                          device=args.device)
     rng = np.random.default_rng(0)
     for _ in range(args.requests):

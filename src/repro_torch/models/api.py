@@ -9,9 +9,12 @@ PyTorch counterpart of the JAX package's ``models/api.py``:
     decode(params, caches, token, pos) -> (logits, caches)
     init_cache(batch, max_seq, device=None) -> caches
 
+``batch`` holds ``tokens`` (B, S) and, for a vlm, may hold the vision
+stub's ``patch_embeds`` (B, frontend_seq, d), put ahead of the tokens.
 ``decode`` takes ``pos`` as an int or as a 0-d int32 tensor on the device
 (the engine's captured step passes a tensor) and updates the caches in
-place.  ``device=None`` means the card: with no CUDA device it raises.
+place.  The dense, moe, ssm and vlm families are ported; ``build`` raises
+for the others.  ``device=None`` means the card: with no CUDA device it raises.
 Training (``loss``) and the dry-run helpers are not ported yet.
 """
 from __future__ import annotations

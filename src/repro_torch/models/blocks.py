@@ -1,10 +1,12 @@
-"""The dense transformer block with its SwiGLU MLP, and the SSM block:
+"""The dense transformer block with its SwiGLU MLP, the MoE block, and the
+SSM block:
 
     dense : norm -> attn -> +res ; norm -> mlp -> +res
+    moe   : norm -> attn -> +res ; norm -> moe -> +res    (+ shared experts)
     ssm   : norm -> ssd  -> +res                          (mamba2: no FFN)
 
-Ported from the JAX package's ``models/blocks.py`` (``"dense"`` and
-``"ssm"`` kinds; MoE, hybrid and encoder-decoder blocks are not ported yet).
+Ported from the JAX package's ``models/blocks.py`` (``"dense"``, ``"moe"``
+and ``"ssm"`` kinds; hybrid and encoder-decoder blocks are not ported yet).
 """
 from __future__ import annotations
 
@@ -16,11 +18,12 @@ import torch.nn.functional as F
 from .attention import (DecodePosition, _linear, attention_forward,
                         attention_init, init_kv_cache)
 from .common import Params, apply_norm, dense_init, norm_init
+from .moe import moe_forward, moe_init
 from .ssd import init_ssd_cache, ssd_decode_step, ssd_forward, ssd_init
 
 
 def _check_kind(cfg, kind: str) -> None:
-    if kind == "ssm" or (kind == "dense" and cfg.mlp == "swiglu"):
+    if kind == "ssm" or (kind in ("dense", "moe") and cfg.mlp == "swiglu"):
         return
     raise NotImplementedError(f"block kind {kind!r} with mlp {cfg.mlp!r} "
                               "is not ported yet")
@@ -46,10 +49,14 @@ def block_init(cfg, gen: torch.Generator, dtype, device,
     if kind == "ssm":
         return {"ln1": norm_init(cfg, cfg.d_model, dtype, device),
                 "ssd": ssd_init(cfg, gen, dtype, device)}
-    return {"ln1": norm_init(cfg, cfg.d_model, dtype, device),
-            "attn": attention_init(cfg, gen, dtype, device),
-            "ln2": norm_init(cfg, cfg.d_model, dtype, device),
-            "mlp": mlp_init(cfg, gen, dtype, device)}
+    p = {"ln1": norm_init(cfg, cfg.d_model, dtype, device),
+         "attn": attention_init(cfg, gen, dtype, device),
+         "ln2": norm_init(cfg, cfg.d_model, dtype, device)}
+    if kind == "moe":
+        p["moe"] = moe_init(cfg, gen, dtype, device)
+    else:
+        p["mlp"] = mlp_init(cfg, gen, dtype, device)
+    return p
 
 
 def block_forward(cfg, p: Params, x: torch.Tensor, kind: str = "dense", *,
@@ -75,7 +82,11 @@ def block_forward(cfg, p: Params, x: torch.Tensor, kind: str = "dense", *,
         new_cache = {"k": k, "v": v}
     x = x + y
     h = apply_norm(cfg, x, p["ln2"])
-    return x + mlp_forward(cfg, p["mlp"], h), new_cache
+    if kind == "moe":
+        y, _ = moe_forward(cfg, p["moe"], h)  # the aux loss is for training
+    else:
+        y = mlp_forward(cfg, p["mlp"], h)
+    return x + y, new_cache
 
 
 def init_block_cache(cfg, kind: str, batch: int, max_seq: int, dtype,

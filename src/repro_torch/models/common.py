@@ -113,6 +113,23 @@ def layer_slice(tree: Any, i: int) -> Any:
     return tree[i]
 
 
+def empty_stack(tree: Any, count: int) -> Any:
+    """An uninitialised stacked tree of ``count`` layers, each leaf shaped,
+    typed and placed as the one-layer ``tree``'s."""
+    if isinstance(tree, dict):
+        return {k: empty_stack(v, count) for k, v in tree.items()}
+    return tree.new_empty((count, *tree.shape))
+
+
+def copy_tree_(dst: Any, src: Any) -> None:
+    """Copy every leaf of ``src`` into the same leaf of ``dst``, in place."""
+    if isinstance(dst, dict):
+        for k in dst:
+            copy_tree_(dst[k], src[k])
+    else:
+        dst.copy_(src)
+
+
 def stack_trees(trees: Sequence[Any]) -> Any:
     """Inverse of ``layer_slice``: stack per-layer trees on a new dim 0."""
     if isinstance(trees[0], dict):

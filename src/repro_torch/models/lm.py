@@ -1,11 +1,13 @@
 """The decoder-only language model: embed, the stacked layers, unembed,
 prefill and decode.
 
-Ported from the JAX package's ``models/lm.py`` for the ``dense`` and
-``ssm`` families.
+Ported from the JAX package's ``models/lm.py`` for the ``dense``,
+``moe``, ``ssm`` and ``vlm`` families (a vlm is the dense stack with the
+vision stub's patch embeddings put ahead of the tokens).
 Parameters keep the JAX layout: ``stacks`` is a list with one tree per
 homogeneous stack, each leaf with a leading layer dim; PyTorch runs the
-stack as a loop over layer views instead of a scan.
+stack as a loop over layer views instead of a scan.  MoE interleaving
+(llama4) stacks (dense, moe) pairs, as in JAX.
 """
 from __future__ import annotations
 
@@ -16,29 +18,50 @@ import torch
 from ..kernels import ops
 from .attention import DecodePosition
 from .blocks import block_forward, block_init, init_block_cache
-from .common import (Params, apply_norm, dtype_of, embed_init, layer_slice,
-                     norm_init, stack_trees)
+from .common import (Params, apply_norm, copy_tree_, dtype_of, embed_init,
+                     empty_stack, layer_slice, norm_init, stack_trees)
 
 
 def layer_plan(cfg) -> List[Tuple[Tuple[str, ...], int]]:
     """[(kinds-per-step, count), ...] — homogeneous stacks."""
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm"):
         return [(("dense",), cfg.n_layers)]
     if cfg.family == "ssm":
         return [(("ssm",), cfg.n_layers)]
+    if cfg.family == "moe":
+        if cfg.moe_interleave > 1:
+            kinds = ("dense",) * (cfg.moe_interleave - 1) + ("moe",)
+            return [(kinds, cfg.n_layers // cfg.moe_interleave)]
+        plan: List[Tuple[Tuple[str, ...], int]] = []
+        if cfg.first_k_dense:
+            plan.append((("dense",), cfg.first_k_dense))
+        plan.append((("moe",), cfg.n_layers - cfg.first_k_dense))
+        return plan
     raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+
+
+def _init_stack(cfg, gen: torch.Generator, dtype, device,
+                kinds: Tuple[str, ...], count: int) -> Params:
+    """One stack's tree, each leaf allocated once with its leading layer
+    dim and each layer's init written into its slice in layer order: the
+    generator draws what ``stack_trees`` of per-layer inits would, and the
+    stack's bytes exist once (plus one layer's) instead of twice."""
+    stack = None
+    for l in range(count):
+        layer = {f"b{i}": block_init(cfg, gen, dtype, device, kind)
+                 for i, kind in enumerate(kinds)}
+        if stack is None:
+            stack = empty_stack(layer, count)
+        copy_tree_(layer_slice(stack, l), layer)
+    return stack
 
 
 def init_params(cfg, gen: torch.Generator, device) -> Params:
     dtype = dtype_of(cfg.param_dtype)
     p: Params = {"embed": embed_init(gen, cfg.padded_vocab, cfg.d_model,
                                      dtype, device)}
-    stacks = []
-    for kinds, count in layer_plan(cfg):
-        layers = [{f"b{i}": block_init(cfg, gen, dtype, device, kind)
-                   for i, kind in enumerate(kinds)} for _ in range(count)]
-        stacks.append(stack_trees(layers))
-    p["stacks"] = stacks
+    p["stacks"] = [_init_stack(cfg, gen, dtype, device, kinds, count)
+                   for kinds, count in layer_plan(cfg)]
     p["final_norm"] = norm_init(cfg, cfg.d_model, dtype, device)
     if not cfg.tie_embeddings:
         p["lm_head"] = embed_init(gen, cfg.padded_vocab, cfg.d_model, dtype,
@@ -48,6 +71,16 @@ def init_params(cfg, gen: torch.Generator, device) -> Params:
 
 def embed_tokens(cfg, p: Params, tokens: torch.Tensor) -> torch.Tensor:
     return p["embed"][tokens]
+
+
+def build_inputs(cfg, p: Params, batch: Dict[str, torch.Tensor]
+                 ) -> torch.Tensor:
+    """Token embeddings, with the modality-frontend stub's ``patch_embeds``
+    (B, frontend_seq, d), cast to their dtype, put in front (vlm)."""
+    x = embed_tokens(cfg, p, batch["tokens"])
+    if cfg.family == "vlm" and "patch_embeds" in batch:
+        x = torch.cat([batch["patch_embeds"].to(x.dtype), x], dim=1)
+    return x
 
 
 def unembed(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -82,8 +115,9 @@ def _run_stacks(cfg, p: Params, x: torch.Tensor, caches=None,
 
 
 def forward(cfg, p: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Full-sequence logits (B, S, padded_vocab)."""
-    x = embed_tokens(cfg, p, batch["tokens"])
+    """Full-sequence logits (B, S, padded_vocab); a vlm's S counts its
+    patch positions too."""
+    x = build_inputs(cfg, p, batch)
     x, _ = _run_stacks(cfg, p, x)
     return unembed(cfg, p, apply_norm(cfg, x, p["final_norm"]))
 
@@ -96,7 +130,7 @@ def prefill(cfg, p: Params, batch: Dict[str, torch.Tensor]):
     position and keeps the last, which gives the same logits at the cost
     of a (B, S, vocab) tensor.
     """
-    x = embed_tokens(cfg, p, batch["tokens"])
+    x = build_inputs(cfg, p, batch)
     x, caches = _run_stacks(cfg, p, x)
     x = apply_norm(cfg, x[:, -1:], p["final_norm"])
     return unembed(cfg, p, x), caches

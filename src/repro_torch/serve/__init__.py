@@ -1,2 +1,2 @@
 from .engine import (DecodeStep, EngineConfig, Request, ServeEngine, greedy,
-                     seed_decode_cache, seed_decode_cache_)
+                     pad_batch, seed_decode_cache, seed_decode_cache_)

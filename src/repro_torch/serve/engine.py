@@ -4,7 +4,11 @@ whole batch one token per tick.
 Ported from the JAX package's ``serve/engine.py``.  As there, prompts are
 left-padded with token 0 and no padding mask is applied, so a shorter
 prompt also attends to the pad embeddings, and in an SSM model the pad
-tokens also run through the recurrence.
+tokens also run through the recurrence.  A vlm's prefill gets the zero
+``patch_embeds`` stub ahead of the prompt, and its decode starts, as
+there, at the position of the longest prompt S, not at frontend_seq + S:
+the first decode token overwrites cache slot S and attends to slots
+0..S of the frontend_seq + S prefill positions the cache keeps.
 
 The JAX engine compiles its decode step once (``jax.jit(bundle.decode)``)
 and passes the position as a device scalar.  The counterpart here is
@@ -90,6 +94,23 @@ def seed_decode_cache_(caches, prefill_caches) -> None:
 
     for d, s in zip(caches, prefill_caches):
         seed(d, s)
+
+
+def pad_batch(cfg, prompts, batch_size: int, device):
+    """The engine's prefill batch of ``prompts`` and its length S: tokens
+    (batch_size, S) left-padded with token 0 to the longest prompt, and for
+    a vlm the zero ``patch_embeds`` stub (batch_size, frontend_seq,
+    frontend_dim) in bf16, as the JAX engine passes it."""
+    S = max(len(p) for p in prompts)
+    toks = np.zeros((batch_size, S), np.int64)
+    for i, p in enumerate(prompts):
+        toks[i, S - len(p):] = p  # left-pad
+    batch = {"tokens": torch.from_numpy(toks).to(device)}
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.zeros(
+            (batch_size, cfg.frontend_seq, cfg.frontend_dim),
+            dtype=torch.bfloat16, device=device)
+    return batch, S
 
 
 def greedy(logits: torch.Tensor, vocab_size: int) -> torch.Tensor:
@@ -203,17 +224,6 @@ class ServeEngine:
         self.queue.append(req)
         return req
 
-    def _pad_batch(self, reqs: List[Request]):
-        if self.cfg.family not in ("dense", "ssm"):
-            raise NotImplementedError(f"serving {self.cfg.family!r} models is "
-                                      "not ported yet")
-        B = self.ecfg.batch_size
-        S = max(len(r.prompt) for r in reqs)
-        toks = np.zeros((B, S), np.int64)
-        for i, r in enumerate(reqs):
-            toks[i, S - len(r.prompt):] = r.prompt  # left-pad
-        return {"tokens": torch.from_numpy(toks).to(self.device)}, S
-
     @torch.inference_mode()
     def run(self, max_ticks: int = 64) -> List[Request]:
         """Process the queue to completion (or tick budget)."""
@@ -221,7 +231,8 @@ class ServeEngine:
         while pending and max_ticks > 0:
             reqs = pending[: self.ecfg.batch_size]
             t0 = time.perf_counter()
-            batch, S = self._pad_batch(reqs)
+            batch, S = pad_batch(self.cfg, [r.prompt for r in reqs],
+                                 self.ecfg.batch_size, self.device)
             last_logits, caches = self.bundle.prefill(self.params, batch)
             tok = greedy(last_logits, self.cfg.vocab_size)
             self.decoder.start(caches, tok, S)

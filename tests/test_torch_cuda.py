@@ -23,10 +23,12 @@ from repro_torch.kernels.flash_attention import flash_attention_plain
 from repro_torch.kernels.ssd_scan import (SSD_ROUTE_LAUNCHES, ssd_route,
                                           ssd_scan_plain)
 from repro_torch.kernels.streamed_matmul import (ROUTE_LAUNCHES, decode_tile,
-                                                 matmul_plain, matmul_route)
+                                                 grouped_matmul_plain,
+                                                 grouped_route, matmul_plain,
+                                                 matmul_route)
 from repro_torch.models import build
 from repro_torch.serve import (DecodeStep, EngineConfig, ServeEngine, greedy,
-                               seed_decode_cache)
+                               pad_batch, seed_decode_cache)
 
 DTYPES = {"float32": (torch.float32, 2e-4), "bfloat16": (torch.bfloat16, 2e-2)}
 # (M, K, N).  bf16 with 16-byte strides takes a wgmma kernel: the prefill
@@ -54,8 +56,16 @@ FLASH_CASES = [(S, hd, causal) for S in (128, 256, 455, 129)
 DECODE_CASES = [(256, 100), (512, 512), (512, 1), (1024, 513), (1024, 487),
                 (4096, 4096), (4096, 1)]
 # (query heads, KV heads): groups of 7 (qwen2), 4 (llama3_2_1b, qwen3_4b),
-# 1 and 8 (the largest the decode kernel takes)
-HEADS = [(14, 2), (32, 8), (8, 8), (16, 2)]
+# 1 and 8 (the largest the decode kernel takes), 6 (internvl2_26b)
+HEADS = [(14, 2), (32, 8), (8, 8), (16, 2), (48, 8)]
+# the grouped matmul: experts, capacities C (the rows of each expert: 8 at
+# every served decode step, 235 at a deepseek_moe_16b prefill; 1, 7, 63, 64
+# and 65 the edges of the kernels' row groups and of the wgmma threshold),
+# and (K, N): deepseek_moe_16b's gate/up and down, and both ragged against
+# the 64-deep k steps and the 128- and 64-wide column tiles
+GROUPED_E = [1, 8, 64]
+GROUPED_C = [1, 7, 8, 63, 64, 65, 235]
+GROUPED_KN = [(2048, 1408), (1408, 2048), (1000, 136)]
 # ssd_scan: relative to max |plain|, the tolerances of tests/test_kernels.py;
 # S = 449 and 97 are prime (a ragged last sub-chunk), 1, 63, 64 and 65 the
 # edges of the kernels' 64-row sub-chunks; 64 heads is mamba2's
@@ -100,6 +110,47 @@ def test_cuda_matmul_matches_plain(card, shape, dtype):
     _close(ops.matmul(x, wt), matmul_plain(x, wt), tol)
     routes = [matmul_route(M, N, K, w_t, x.dtype) for w_t in (0, 1)]
     assert ROUTE_LAUNCHES == {r: routes.count(r) for r in ROUTE_LAUNCHES}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("K,N", GROUPED_KN)
+@pytest.mark.parametrize("C", GROUPED_C)
+@pytest.mark.parametrize("E", GROUPED_E)
+def test_cuda_grouped_matmul_matches_plain(card, E, C, K, N, dtype):
+    """One launch on the route of the shape, against the plain version;
+    bf16 also within about one bf16 rounding of the output."""
+    tdt, tol = DTYPES[dtype]
+    gen = torch.Generator(device=card).manual_seed(E * 1000 + C)
+    x = torch.randn((E, C, K), generator=gen, device=card).to(tdt)
+    w = (torch.randn((E, K, N), generator=gen, device=card)
+         / K ** 0.5).to(tdt)
+    route = grouped_route(E, C, N, K, tdt)
+    ops.reset_launches()
+    got = ops.grouped_matmul(x, w)
+    want = grouped_matmul_plain(x, w)
+    assert got.shape == (E, C, N) and got.dtype == tdt
+    assert ops.LAUNCHES["streamed_matmul"] == 1
+    assert ROUTE_LAUNCHES == {r: int(r == route) for r in ROUTE_LAUNCHES}
+    _close(got, want, tol)
+    if dtype == "bfloat16":
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want.float().cpu().numpy(),
+                                   rtol=1e-2, atol=5e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,N", [(1004, 136), (1000, 50)])
+def test_cuda_grouped_matmul_raises_where_tma_cannot_map(card, K, N):
+    """bf16 with K or N not a multiple of 8 has no grouped kernel: it
+    raises, naming the shape, and launches nothing."""
+    x, = _on(card, "bfloat16", 18, (8, 8, K))
+    w, = _on(card, "bfloat16", 19, (8, K, N))
+    ops.reset_launches()
+    with pytest.raises(ValueError, match=f"\\(8, 8, {K}\\)"):
+        ops.grouped_matmul(x, w)
+    assert ops.LAUNCHES["streamed_matmul"] == 0
+    assert not any(ROUTE_LAUNCHES.values())
 
 
 @pytest.mark.cuda
@@ -259,13 +310,16 @@ def test_cuda_launches_are_counted(card):
     ops.flash_attention(q, k, v)
     ops.decode_attention(q[:, 0].contiguous(), k, v, 70)
     ops.ssd_scan(*_ssd_on(card, "bfloat16", 9, 1, 70, 4, False)[:5])
+    ops.grouped_matmul(*_on(card, "bfloat16", 20, (4, 8, 64), (4, 64, 64)))
     torch.cuda.synchronize()
-    assert ops.LAUNCHES == {"streamed_matmul": 1, "flash_attention": 1,
+    assert ops.LAUNCHES == {"streamed_matmul": 2, "flash_attention": 1,
                             "decode_attention": 1, "ssd_scan": 1}
     # one launch per call: the decode matmul and the bf16 decode attention
-    # merge their splits inside the launch
+    # merge their splits inside the launch, the grouped matmul runs every
+    # expert in one
     assert ROUTE_LAUNCHES == {"wgmma": 0, "wgmma_decode": 1, "wmma": 0,
-                              "fp32": 0}
+                              "fp32": 0, "wgmma_grouped": 0,
+                              "wgmma_grouped_decode": 1, "fp32_grouped": 0}
     assert SSD_ROUTE_LAUNCHES == {"wgmma": 1, "fp32": 0}
 
 
@@ -287,15 +341,20 @@ def _launches_and_allocations(fn):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("call", ["matmul", "decode_attention",
+@pytest.mark.parametrize("call", ["matmul", "grouped_matmul",
+                                  "decode_attention",
                                   "decode_attention_device_length"])
 def test_cuda_decode_call_is_one_launch(card, call):
-    """A bf16 decode-step matmul (split K) and a bf16 decode attention
-    (split sequence; its length a host int or read from device memory)
-    each run one kernel and allocate only their output."""
+    """A bf16 decode-step matmul (split K), a grouped one (deepseek's 64
+    experts) and a bf16 decode attention (split sequence; its length a host
+    int or read from device memory) each run one kernel and allocate only
+    their output."""
     if call == "matmul":
         x, w = _on(card, "bfloat16", 11, (8, 896), (896, 896))
         fn = lambda: ops.matmul(x, w)  # noqa: E731
+    elif call == "grouped_matmul":
+        x, w = _on(card, "bfloat16", 21, (64, 8, 2048), (64, 2048, 1408))
+        fn = lambda: ops.grouped_matmul(x, w)  # noqa: E731
     else:
         q, k, v = _on(card, "bfloat16", 12, (8, 14, 64), (8, 1024, 2, 64),
                       (8, 1024, 2, 64))
@@ -349,14 +408,10 @@ def _depth2(card, arch):
 
 def _eager_tokens(bundle, params, prompts, ecfg, new, card):
     """The engine's batch, decoded eagerly through ``bundle.decode``."""
-    S = max(len(p) for p in prompts)
-    toks = np.zeros((ecfg.batch_size, S), np.int64)
-    for i, p in enumerate(prompts):
-        toks[i, S - len(p):] = p
+    batch, S = pad_batch(bundle.cfg, prompts, ecfg.batch_size, card)
     V = bundle.cfg.vocab_size
     with torch.inference_mode():
-        logits, caches = bundle.prefill(
-            params, {"tokens": torch.from_numpy(toks).to(card)})
+        logits, caches = bundle.prefill(params, batch)
         caches = seed_decode_cache(bundle, caches, ecfg.batch_size,
                                    ecfg.max_seq, card)
         tok = greedy(logits, V)
@@ -370,7 +425,8 @@ def _eager_tokens(bundle, params, prompts, ecfg, new, card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["qwen2_0_5b", "mamba2_1_3b"])
+@pytest.mark.parametrize("arch", ["qwen2_0_5b", "mamba2_1_3b",
+                                  "deepseek_moe_16b", "internvl2_26b"])
 def test_cuda_graph_engine_gives_eager_tokens(card, arch):
     """Every decode step of the engine replays its captured graph, and the
     tokens are those of the same batch decoded eagerly; a second batch in
@@ -392,9 +448,11 @@ def test_cuda_graph_engine_gives_eager_tokens(card, arch):
 
 
 @pytest.mark.cuda
-def test_cuda_graph_replay_never_waits(card):
-    """A replay of the captured step makes the host wait on nothing."""
-    bundle, params = _depth2(card, "qwen2_0_5b")
+@pytest.mark.parametrize("arch", ["qwen2_0_5b", "deepseek_moe_16b"])
+def test_cuda_graph_replay_never_waits(card, arch):
+    """A replay of the captured step makes the host wait on nothing: the
+    MoE layer's routing, dispatch and gather stay on the device too."""
+    bundle, params = _depth2(card, arch)
     step = DecodeStep(bundle, params, 2, 128, card)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
@@ -406,18 +464,26 @@ def test_cuda_graph_replay_never_waits(card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch,per_step", [
+@pytest.mark.parametrize("arch,per_step,routes", [
     ("qwen2_0_5b", {"streamed_matmul": 7 * 2 + 1, "flash_attention": 0,
-                    "decode_attention": 2, "ssd_scan": 0}),
+                    "decode_attention": 2, "ssd_scan": 0},
+     {"wgmma_decode": 7 * 2 + 1}),
     ("mamba2_1_3b", {"streamed_matmul": 6 * 2 + 1, "flash_attention": 0,
-                     "decode_attention": 0, "ssd_scan": 0})])
-def test_cuda_graph_replays_count_launches(card, arch, per_step):
+                     "decode_attention": 0, "ssd_scan": 0},
+     {"wgmma_decode": 6 * 2 + 1}),
+    # a dense layer and a MoE layer: its q k v o and shared experts' three
+    # on the decode kernel, its router in fp32, its experts in 3 launches
+    ("deepseek_moe_16b", {"streamed_matmul": 7 + 11 + 1,
+                          "flash_attention": 0, "decode_attention": 2,
+                          "ssd_scan": 0},
+     {"wgmma_decode": 7 + 7 + 1, "fp32": 1, "wgmma_grouped_decode": 3})])
+def test_cuda_graph_replays_count_launches(card, arch, per_step, routes):
     """The counts after n replays are n times one step's launches, by
     kernel and by route; capturing the graph launched nothing."""
     bundle, params = _depth2(card, arch)
     step = DecodeStep(bundle, params, 2, 128, card)
     assert step.launches[0] == per_step
-    assert step.launches[1]["wgmma_decode"] == per_step["streamed_matmul"]
+    assert step.launches[1] == {r: routes.get(r, 0) for r in ROUTE_LAUNCHES}
     ops.reset_launches()
     for _ in range(5):
         step()

@@ -27,12 +27,30 @@ from repro_torch.serve import seed_decode_cache
 torch.set_num_threads(2)
 
 DENSE_ARCHS = ["llama3_2_1b", "qwen2_0_5b", "qwen3_4b", "qwen2_7b"]
-PORTED_ARCHS = DENSE_ARCHS + ["mamba2_1_3b"]
+MOE_ARCHS = ["deepseek_moe_16b", "llama4_maverick_400b_a17b"]
+PORTED_ARCHS = DENSE_ARCHS + ["mamba2_1_3b"] + MOE_ARCHS + ["internvl2_26b"]
 
 
 def _fp32(cfg):
     return dataclasses.replace(cfg, param_dtype="float32",
                                compute_dtype="float32")
+
+
+def _patches(cfg, B, seed):
+    """A vlm's patch embeddings (B, frontend_seq, frontend_dim) as a numpy
+    array, or None for another family."""
+    if cfg.family != "vlm":
+        return None
+    return np.random.default_rng(seed + 200).standard_normal(
+        (B, cfg.frontend_seq, cfg.frontend_dim)).astype(np.float32)
+
+
+def _batch(tokens, patches):
+    """The port's batch: tokens, and a vlm's patch embeddings."""
+    batch = {"tokens": torch.as_tensor(tokens)}
+    if patches is not None:
+        batch["patch_embeds"] = torch.tensor(patches)
+    return batch
 
 
 # The JAX init sets A_log = dt_bias = 0 and D = 1 for every SSD head, which
@@ -261,29 +279,44 @@ def test_ssm_block_matches_reference():
 
 @pytest.mark.parametrize("arch", PORTED_ARCHS)
 def test_forward_logits_match_reference(arch):
+    """Full-sequence logits; MoE archs at the default capacity factor, where
+    tokens drop; a vlm with its patch embeddings ahead of the tokens."""
     _, ref_bundle, ref_params, cfg, bundle, params = _pair(arch)
     toks = np.random.default_rng(3).integers(0, cfg.vocab_size - 1, (2, 24))
-    ref = ref_bundle.forward(ref_params, {"tokens": jnp.asarray(toks)})
-    out = bundle.forward(params, {"tokens": torch.tensor(toks)})
-    assert out.shape == (2, 24, cfg.padded_vocab)
+    patches = _patches(cfg, 2, 3)
+    ref_batch = {"tokens": jnp.asarray(toks)}
+    if patches is not None:
+        ref_batch["patch_embeds"] = jnp.asarray(patches)
+    ref = ref_bundle.forward(ref_params, ref_batch)
+    out = bundle.forward(params, _batch(toks, patches))
+    n_front = 0 if patches is None else cfg.frontend_seq
+    assert out.shape == (2, n_front + 24, cfg.padded_vocab)
     _close(out, ref, 2e-3)
 
 
 @pytest.mark.parametrize("arch", PORTED_ARCHS)
 def test_prefill_decode_consistency(arch):
     """The port's copy of tests/test_archs_smoke.py's check: next-token
-    logits from prefill -> decode match the full forward."""
+    logits from prefill -> decode match the full forward.  As there, MoE
+    runs at capacity factor 16, where no token drops (drops depend on the
+    number of tokens), and a vlm's decode position counts its patches."""
     *_, cfg, bundle, params = _pair(arch)
+    if cfg.family == "moe":
+        cfg = dataclasses.replace(cfg, capacity_factor=16.0)
+        bundle = build(cfg)
     B, S = 2, 16
     toks = torch.tensor(np.random.default_rng(4).integers(
         0, cfg.vocab_size - 1, (B, S + 1)))
-    logits_full = bundle.forward(params, {"tokens": toks})
-    last, caches = bundle.prefill(params, {"tokens": toks[:, :S]})
+    patches = _patches(cfg, B, 4)
+    n_front = 0 if patches is None else cfg.frontend_seq
+    logits_full = bundle.forward(params, _batch(toks, patches))
+    last, caches = bundle.prefill(params, _batch(toks[:, :S], patches))
     V = cfg.vocab_size
-    _close(last[:, 0, :V], logits_full[:, S - 1, :V], 2e-3)
-    caches = seed_decode_cache(bundle, caches, B, S + 8, device="cpu")
-    dec, _ = bundle.decode(params, caches, toks[:, S:S + 1], S)
-    _close(dec[:, 0, :V], logits_full[:, S, :V], 5e-3)
+    _close(last[:, 0, :V], logits_full[:, n_front + S - 1, :V], 2e-3)
+    caches = seed_decode_cache(bundle, caches, B, n_front + S + 8,
+                               device="cpu")
+    dec, _ = bundle.decode(params, caches, toks[:, S:S + 1], n_front + S)
+    _close(dec[:, 0, :V], logits_full[:, n_front + S, :V], 5e-3)
 
 
 @pytest.mark.parametrize("arch", PORTED_ARCHS)
@@ -363,3 +396,8 @@ def test_ssm_prefill_cache_and_decode_steps_match_reference():
 def test_unported_family_raises():
     with pytest.raises(NotImplementedError):
         build(reduce_for_smoke(get_config("hymba_1_5b")))
+
+
+def test_unported_encdec_raises():
+    with pytest.raises(NotImplementedError):
+        build(reduce_for_smoke(get_config("whisper_large_v3")))

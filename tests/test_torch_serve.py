@@ -31,7 +31,9 @@ from repro_torch.serve import EngineConfig, ServeEngine
 torch.set_num_threads(2)
 
 SERVE_MODELS = ["qwen2_0_5b", "llama3_2_1b", "qwen2_7b"]  # SERVE_PROFILES
-SERVED_ARCHS = SERVE_MODELS + ["mamba2_1_3b"]  # and the SSD path
+# and the SSD, MoE and vlm paths
+SERVED_ARCHS = SERVE_MODELS + ["mamba2_1_3b", "deepseek_moe_16b",
+                               "llama4_maverick_400b_a17b", "internvl2_26b"]
 
 
 def _fp32(cfg):
@@ -108,6 +110,15 @@ def test_launcher_serves_ssm_on_cpu(capsys):
     assert launch_serve.main(["--arch", "mamba2_1_3b", "--reduced",
                               "--requests", "2", "--prompt-len", "9",
                               "--new-tokens", "4", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert out.count("req ") == 2 and "'decode_steps': 3" in out
+
+
+@pytest.mark.parametrize("arch", ["deepseek_moe_16b", "internvl2_26b"])
+def test_launcher_serves_moe_and_vlm_on_cpu(arch, capsys):
+    assert launch_serve.main(["--arch", arch, "--reduced", "--requests", "2",
+                              "--prompt-len", "7", "--new-tokens", "4",
+                              "--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert out.count("req ") == 2 and "'decode_steps': 3" in out
 

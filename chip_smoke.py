@@ -15,10 +15,14 @@ exits non-zero):
                each kernel's registers and spills from ptxas's report,
                with no spill allowed in the SSD scan kernel;
 3. kernels  -- each kernel against its plain PyTorch version on the card
-               at the shapes of the serving paths of the six served
+               at the shapes of the serving paths of the seven served
                models (qwen2_0_5b, llama3_2_1b, qwen2_7b, mamba2_1_3b,
-               deepseek_moe_16b with its fp32 router, internvl2_26b, each
-               at its served batch), with a served prefill's ragged length
+               deepseek_moe_16b with its fp32 router, internvl2_26b,
+               hymba_1_5b, each at its served batch; hymba's flash
+               attention under its window of 1024, at S 512 and at S 1800,
+               past the window; its scan at P 50, N 16 on the CUDA-core
+               route, also at b 2, S 1800 from an initial state), with a
+               served prefill's ragged length
                (8 x 455 rows for the matmul, S 455 for flash attention), the
                wmma matmul kernel and its split-K reduce at two bf16 shapes
                TMA cannot take, decode attention at served lengths, each
@@ -47,19 +51,24 @@ exits non-zero):
                logits (internvl2_26b's with random patch embeddings ahead
                of the tokens), and greedy tokens at max_seq 128 and at
                max_seq 48, where one prompt is longer than the cache and
-               the other decodes past its end;
+               the other decodes past its end (hymba_1_5b: its ring of 48
+               slots wraps); hymba_1_5b twice, at its window of 1024 and
+               at a window of 32, which both prompts (40 and 64) exceed;
 5. serve    -- per model, full width and depth in bf16 through ServeEngine,
                every decode step a replay of the engine's one captured CUDA
                graph (the dense models and internvl2_26b: matmul, flash
                and decode attention; deepseek_moe_16b: those and the
-               grouped matmul; mamba2_1_3b: matmul and ssd_scan), with
+               grouped matmul; mamba2_1_3b: matmul and ssd_scan;
+               hymba_1_5b: all four, and a second run of 2 prompts of 1500
+               and 1800 tokens at max_seq 2048, past its window of 1024,
+               where its ring of 1024 slots wraps), with
                every kernel's launch count over that run (counts set to 0
                just before it), a check that every bf16 matmul of 64 rows
                or more (the prefills') took the wgmma kernel and every one
                of fewer rows (the decode steps' and the prefill's
                unembedding) the wgmma decode kernel, every fp32 one (the MoE
                router) the fp32 kernel, every grouped one its expected
-               grouped route, and every scan the wgmma scan kernel; the
+               grouped route, and every scan its model's scan kernel; the
                graph's tokens against the same batch decoded eagerly
                through bundle.decode, all 32 of every request; a profile of
                one prefill and of four decode steps, eager and replayed
@@ -95,11 +104,21 @@ SEED = 0
 # SERVE_PROFILES' max_batch (the JAX package's serve/requests.py:179-197;
 # mamba2_1_3b has no profile and is served at 8, as the two small ones;
 # deepseek_moe_16b and internvl2_26b have none and are served at 4, as
-# qwen2_7b, the profile nearest them in size)
+# qwen2_7b, the profile nearest them in size; hymba_1_5b has none and is
+# served at 8, as llama3_2_1b, the profile nearest it in size)
 MODELS = ("qwen2_0_5b", "llama3_2_1b", "qwen2_7b", "mamba2_1_3b",
-          "deepseek_moe_16b", "internvl2_26b")
+          "deepseek_moe_16b", "internvl2_26b", "hymba_1_5b")
 SERVE_BATCH = {"qwen2_0_5b": 8, "llama3_2_1b": 8, "qwen2_7b": 4,
-               "mamba2_1_3b": 8, "deepseek_moe_16b": 4, "internvl2_26b": 4}
+               "mamba2_1_3b": 8, "deepseek_moe_16b": 4, "internvl2_26b": 4,
+               "hymba_1_5b": 8}
+# hymba_1_5b's second serve run, where its window and its ring both bite:
+# 2 prompts longer than the window of 1024, a cache of 2048 positions (a
+# ring of 1024 slots), 32 new tokens
+LONG_PATH = "hymba_1_5b_long_prompts"
+LONG_PROMPTS = (1500, 1800)
+LONG_MAX_SEQ = 2048
+# the window that hymba_1_5b's second parity run takes, below both prompts
+PARITY_WINDOW = 32
 TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 SSD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}  # tests/test_kernels.py's
 # and the second limit of bf16 (tests/test_torch_cuda.py's): the wgmma scan
@@ -152,7 +171,13 @@ def main() -> int:
     cases = phase_kernels(torch, dev)
     for model in MODELS:
         phase_parity(torch, model)
-    launches = {model: phase_serve(torch, dev, model) for model in MODELS}
+    phase_parity(torch, "hymba_1_5b", window=PARITY_WINDOW)
+    launches = {}
+    for model in MODELS:
+        launches[model] = phase_serve(torch, dev, model)
+    launches[LONG_PATH] = phase_serve(torch, dev, "hymba_1_5b",
+                                      lengths=LONG_PROMPTS,
+                                      max_seq=LONG_MAX_SEQ, path=LONG_PATH)
     summary = []
     for name, meta in KERNELS.items():
         mine = [c for c in cases if c["name"] == name]
@@ -428,9 +453,14 @@ def phase_kernels(torch, dev):
     # position): llama3_2_1b's tied, the others' a row-major lm_head.
     # deepseek_moe_16b's are its attention (16 heads over 16), its shared
     # experts (2 x 1408 wide) and its first layer's dense FFN; its fp32
-    # router below
+    # router below.  hymba_1_5b at its batch 8: q/o, k/v, gate/up, down, the
+    # SSD's w_z/w_x, w_B/w_C (N 16), w_dt (N 64) and w_out, and its untied
+    # unembedding
     served = [(8, 4096, [(2048, 2048), (2048, 512), (2048, 8192),
                          (8192, 2048)], (2048, 128256, True)),
+              (8, 4096, [(1600, 1600), (1600, 320), (1600, 5504),
+                         (5504, 1600), (1600, 3200), (1600, 16), (1600, 64),
+                         (3200, 1600)], (1600, 32256, False)),
               (4, 2048, [(3584, 3584), (3584, 512), (3584, 18944),
                          (18944, 3584)], (3584, 152064, False)),
               (4, 2048, [(2048, 2048), (2048, 2816), (2816, 2048),
@@ -505,7 +535,16 @@ def phase_kernels(torch, dev):
             del x, w, got
             free(torch)
 
-    def sdpa(q, k, v, causal):  # (B, H, S, hd) views
+    def sdpa(q, k, v, causal, window=0):  # (B, H, S, hd) views
+        """SDPA, causal, or under a window shorter than S with a boolean
+        band mask (whichever backend takes a mask); the port never calls
+        it."""
+        if window and window < q.shape[2]:
+            i = torch.arange(q.shape[2], device=q.device)
+            band = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :]
+                                                 < window)
+            return lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=band, enable_gqa=True)
         return lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=causal, enable_gqa=True)
 
@@ -513,31 +552,43 @@ def phase_kernels(torch, dev):
     # served prefill's ragged S 455; llama3_2_1b's heads (32 over 8, hd 64)
     # at B 8, and at B 4 qwen2_7b's (28 over 4, hd 128), deepseek_moe_16b's
     # (16 over 16, hd 128) at S 512, and internvl2_26b's (48 over 8, hd
-    # 128) at S 768, 256 patches and 512 tokens
-    flash_cases = [(8, S, 14, 2, 64) for S in (512, 455)] + [
-        (8, 512, 32, 8, 64), (4, 512, 28, 4, 128), (4, 512, 16, 16, 128),
-        (4, 768, 48, 8, 128)]
+    # 128) at S 768, 256 patches and 512 tokens; hymba_1_5b's (25 over 5,
+    # hd 64) under its window of 1024 at B 8, S 512 (the band is the causal
+    # mask there) and at B 2, S 1800 (the long-prompt serve run), past it.
+    # The least operations count the keys of the band: min(r + 1, window)
+    # for query row r.
+    flash_cases = [(8, S, 14, 2, 64, 0) for S in (512, 455)] + [
+        (8, 512, 32, 8, 64, 0), (4, 512, 28, 4, 128, 0),
+        (4, 512, 16, 16, 128, 0), (4, 768, 48, 8, 128, 0),
+        (8, 512, 25, 5, 64, 1024), (2, 1800, 25, 5, 64, 1024)]
     for dtype in (torch.float32, torch.bfloat16):
         es = torch.tensor([], dtype=dtype).element_size()
-        for B, S, H, KV, hd in flash_cases:
+        for B, S, H, KV, hd, window in flash_cases:
             q = randn(B, S, H, hd, dtype=dtype)
             k = randn(B, S, KV, hd, dtype=dtype)
             v = randn(B, S, KV, hd, dtype=dtype)
-            fns = (lambda: ops.flash_attention(q, k, v, causal=True),
-                   lambda: flash_attention_plain(q, k, v, causal=True),
+            keys = sum(min(r + 1, window or S) for r in range(S))
+            fns = (lambda: ops.flash_attention(q, k, v, causal=True,
+                                               window=window),
+                   lambda: flash_attention_plain(q, k, v, causal=True,
+                                                 window=window),
                    sdpa(q.transpose(1, 2), k.transpose(1, 2),
-                        v.transpose(1, 2), True))
-            check("flash_attention", [B, S, H, KV, hd], dtype,
-                  ops.flash_attention(q, k, v, causal=True),
-                  flash_attention_plain(q, k, v, causal=True),
+                        v.transpose(1, 2), True, window))
+            check("flash_attention", [B, S, H, KV, hd]
+                  + (["window", window] if window else []), dtype,
+                  ops.flash_attention(q, k, v, causal=True, window=window),
+                  flash_attention_plain(q, k, v, causal=True, window=window),
                   es * (2 * B * S * H * hd + 2 * B * S * KV * hd),
-                  4 * hd * B * H * S * (S + 1) // 2, fns)
+                  4 * hd * B * H * keys, fns)
+            del q, k, v
 
     # decode_attention: one token against a 1k cache; qwen2_0_5b's heads at
     # four lengths (487 is a served one), llama3_2_1b's (32 over 8, hd 64),
     # qwen2_7b's at its B 4 (28 over 4, hd 128), qwen3_4b's (32 over 8,
     # hd 128), and at B 4 deepseek_moe_16b's (16 over 16, hd 128) and
-    # internvl2_26b's (48 over 8, hd 128).  Each length twice: a host int (the plan of its own keys),
+    # internvl2_26b's (48 over 8, hd 128), and hymba_1_5b's at B 8 (25 over
+    # 5, hd 64: its ring of 1024 slots, full from position 1023 on).  Each
+    # length twice: a host int (the plan of its own keys),
     # and a 0-d int32 on the card, as the captured decode step passes it
     # (the plan of all S keys, splits past the length empty; shape tag
     # "device"); lengths 1, 64 and 65 on the card leave most of a cluster's
@@ -551,7 +602,8 @@ def phase_kernels(torch, dev):
                 (4, 28, 4, 128, (487, 1024)),
                 (8, 32, 8, 128, (487, 1024)),
                 (4, 16, 16, 128, (487, 1024)),
-                (4, 48, 8, 128, (487, 1024))):
+                (4, 48, 8, 128, (487, 1024)),
+                (8, 25, 5, 64, (487, 1024))):
             q = randn(B, H, hd, dtype=dtype)
             k = randn(B, S, KV, hd, dtype=dtype)
             v = randn(B, S, KV, hd, dtype=dtype)
@@ -576,14 +628,23 @@ def phase_kernels(torch, dev):
     # ssd_scan: mamba2_1_3b's prefill scan (64 heads of P 64, N 128, one
     # group) at b 8; 449 is prime, so the last sub-chunk is ragged; and a
     # bf16 scan of 64 sub-chunks from an initial state (b 1, S 4096), where
-    # the state's rounding error has the longest walk.  The least
+    # the state's rounding error has the longest walk; hymba_1_5b's (64
+    # heads of P 50, N 16, the CUDA-core route) at b 8, and at b 2, S 1800
+    # (the long-prompt serve run) from an initial state.  The least
     # operations form C B^T once per (batch row, chunk of 256) and the rest
     # per head; no PyTorch call computes the scan (library: none).
-    H, P, N, chunk = 64, 64, 128, 256
-    ssd_cases = [(torch.float32, 8, 512, False), (torch.float32, 8, 449, False),
-                 (torch.bfloat16, 8, 512, False), (torch.bfloat16, 8, 449, False),
-                 (torch.bfloat16, 1, 4096, True)]
-    for dtype, b, S, with_init in ssd_cases:
+    H, chunk = 64, 256
+    ssd_cases = [(torch.float32, 8, 512, False, 64, 128),
+                 (torch.float32, 8, 449, False, 64, 128),
+                 (torch.bfloat16, 8, 512, False, 64, 128),
+                 (torch.bfloat16, 8, 449, False, 64, 128),
+                 (torch.bfloat16, 1, 4096, True, 64, 128),
+                 (torch.float32, 8, 512, False, 50, 16),
+                 (torch.float32, 8, 449, False, 50, 16),
+                 (torch.bfloat16, 8, 512, False, 50, 16),
+                 (torch.bfloat16, 8, 449, False, 50, 16),
+                 (torch.bfloat16, 2, 1800, True, 50, 16)]
+    for dtype, b, S, with_init, P, N in ssd_cases:
         es = torch.tensor([], dtype=dtype).element_size()
         x = randn(b, S, H, P, dtype=dtype, scale=0.5)
         dt = F.softplus(randn(b, S, H, dtype=torch.float32))
@@ -624,7 +685,8 @@ def _to(tree, device):
     return tree.to(device)
 
 
-def phase_parity(torch, model):
+def phase_parity(torch, model, window=None):
+    """``window``: a sliding window to put in place of the model's own."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.models import build
@@ -632,6 +694,8 @@ def phase_parity(torch, model):
 
     cfg = dataclasses.replace(get_config(model), n_layers=2,
                               param_dtype="float32", compute_dtype="float32")
+    if window is not None:
+        cfg = dataclasses.replace(cfg, sliding_window=window)
     bundle = build(cfg)
     p_card = bundle.init(SEED, device="cuda")
     p_cpu = _to(p_card, "cpu")
@@ -663,6 +727,7 @@ def phase_parity(torch, model):
             replays[device, max_seq] = eng.decoder.replays
             del eng
     emit({"phase": "parity", "model": model, "n_layers": 2, "dtype": "float32",
+          "sliding_window": cfg.sliding_window,
           "prefill_logits_max_abs_err": diff.max().item(), "tol": tol,
           "prompt_lens": [len(p) for p in prompts], "new_tokens": 9,
           **{f"tokens_{'card' if d == 'cuda' else d}_max_seq_{n}": t
@@ -694,15 +759,28 @@ def expected_launches(cfg, prefills: int, decode_steps: int,
     each layer per prefill, the decode kernel of each layer per step.  Of
     the matmuls, the MoE layers' fp32 router and grouped expert products
     by route (``"fp32"``, the grouped routes), from the capacity C of a
-    prefill's ``prefill_tokens`` tokens and of a step's ``batch``."""
+    prefill's ``prefill_tokens`` tokens and of a step's ``batch``.  Of the
+    scans, their count by route (bf16: mamba2's P 64, N 128 on
+    ``"wgmma"``, hymba's P 50, N 16 on ``"simt"``).  Returns (launches,
+    matmul routes, scan routes)."""
     import torch
+    from repro_torch.kernels.ssd_scan import ssd_route
     from repro_torch.kernels.streamed_matmul import grouped_route
     from repro_torch.models.moe import _capacity
     L, forwards = cfg.n_layers, prefills + decode_steps
+    ssd_routes = {}
+    if cfg.family in ("ssm", "hybrid"):
+        ssd_routes[ssd_route(torch.bfloat16, cfg.ssm_heads, cfg.ssm_headdim,
+                             cfg.ssm_state)] = L * prefills
     if cfg.family == "ssm":  # w_z, w_x, w_B, w_C, w_dt, w_out; the SSD scan
         return {"streamed_matmul": (6 * L + 1) * forwards,
                 "flash_attention": 0, "decode_attention": 0,
-                "ssd_scan": L * prefills}, {}
+                "ssd_scan": L * prefills}, {}, ssd_routes
+    if cfg.family == "hybrid":  # q k v o, gate up down, and the SSD's six
+        return {"streamed_matmul": (13 * L + 1) * forwards,
+                "flash_attention": L * prefills,
+                "decode_attention": L * decode_steps,
+                "ssd_scan": L * prefills}, {}, ssd_routes
     n_moe, _ = cfg.moe_layer_split()
     # q k v o, gate up down; a MoE layer: q k v o, the router, the
     # three grouped expert products and the shared experts' gate up down
@@ -718,10 +796,14 @@ def expected_launches(cfg, prefills: int, decode_steps: int,
                           cfg.capacity_factor)
             routes[grouped_route(cfg.n_experts, C, cfg.moe_d_ff,
                                  cfg.d_model, torch.bfloat16)] += 3 * n_moe * n
-    return launches, routes
+    return launches, routes, ssd_routes
 
 
-def phase_serve(torch, dev, model):
+def phase_serve(torch, dev, model, lengths=None, max_seq=1024, path=None):
+    """``lengths``: the prompts' lengths, each its own request in one batch
+    of as many rows (by default the model's served batch of prompts of
+    128-512 tokens); ``path``: the run's name in the summary (the
+    model's)."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
@@ -760,9 +842,10 @@ def phase_serve(torch, dev, model):
         return logits, caches
 
     watched = dataclasses.replace(bundle, prefill=prefill, decode=decode)
-    ecfg = EngineConfig(batch_size=SERVE_BATCH[model], max_seq=1024)
     rng = np.random.default_rng(SEED)
-    lengths = rng.integers(128, 513, ecfg.batch_size)
+    if lengths is None:
+        lengths = rng.integers(128, 513, SERVE_BATCH[model])
+    ecfg = EngineConfig(batch_size=len(lengths), max_seq=max_seq)
     prompts = [rng.integers(0, cfg.vocab_size - 1, n).astype(np.int32)
                for n in lengths]
 
@@ -794,11 +877,12 @@ def phase_serve(torch, dev, model):
                               eng.decoder)
 
     same_tokens = graph_tokens == eager["tokens"]
-    expect, expect_routes = expected_launches(
+    expect, expect_routes, expect_ssd = expected_launches(
         cfg, st["prefills"], st["decode_steps"],
         ecfg.batch_size * max(lengths), ecfg.batch_size)
     made = {k: seen[k] + seen_captured[k] * replays for k in kinds}
-    emit({"phase": "serve", "model": model, "n_layers": cfg.n_layers,
+    emit({"phase": "serve", "model": model, "path": path or model,
+          "n_layers": cfg.n_layers, "sliding_window": cfg.sliding_window,
           "dtype": cfg.param_dtype, "batch": ecfg.batch_size,
           "max_seq": ecfg.max_seq, "prompt_lens": [int(n) for n in lengths],
           "new_tokens": 32, "nvidia_smi": dev["smi"],
@@ -813,6 +897,7 @@ def phase_serve(torch, dev, model):
           "expected_routes": expect_routes,
           "launches_per_replay": eng.decoder.launches[0],
           "matmul_routes": routes, "ssd_routes": ssd_routes,
+          "expected_ssd_routes": expect_ssd,
           "matmuls_of_64_rows_or_more": made["tall"],
           "matmuls_of_fewer_rows": made["small"],
           "matmuls_fp32": made["fp32"],
@@ -855,9 +940,10 @@ def phase_serve(torch, dev, model):
                              f" != the expected {want}: a router or an expert "
                              "product left its kernel")
     grouped = {k: routes[k] for k in want if "grouped" in k}
-    if ssd_routes != {"wgmma": launches["ssd_scan"], "fp32": 0}:
+    if ssd_routes != {**dict.fromkeys(ssd_routes, 0), **expect_ssd}:
         raise AssertionError(f"{launches['ssd_scan']} scans, routes "
-                             f"{ssd_routes}: not all on the wgmma scan kernel")
+                             f"{ssd_routes}: not all on the expected scan "
+                             f"kernel {expect_ssd}")
     if any(grouped.values()):  # the summary's grouped launches
         launches = dict(launches, grouped=sum(grouped.values()))
     return launches

@@ -1,12 +1,14 @@
 // flash_attention: causal (or full) softmax(q k^T / sqrt(hd)) v for prefill,
-// with grouped-query heads read in place.
+// with grouped-query heads read in place, and a sliding-window band: with
+// window w > 0 (causal only) query row r attends keys r - w < j <= r.
 //
 // Replaces the TPU kernel kernels/flash_attention.py:flash_attention
 // (_flash_kernel) of the JAX package.
 //
 // Layout: q and out (B, S, H, hd), k and v (B, S, KV, hd), all contiguous;
 // query head h reads KV head h / (H / KV), so no broadcast copy of the KV
-// heads is made.  Positions are absolute and start at 0 for q and kv.
+// heads is made.  Positions are absolute and start at 0 for q and kv.  The
+// band is the mask of the JAX package's models/attention.py:_banded_attention.
 //
 // What bounds it on an H100: at prefill lengths (S = 512, hd = 64) each
 // (q, kv) pair costs 4*hd operations on 4*hd bytes of tile traffic that stays
@@ -29,6 +31,15 @@
 // diagonal, and a warpgroup skips the tiles above its own; only the diagonal
 // tile and the tile holding key S-1 are masked (TMA zero-fills keys beyond
 // S, which would score 0, not -inf).  Query rows beyond S are not stored.
+// Under a window the key loop of a block (and the producer's loads) starts
+// at the tile holding key q0 - w + 1, and a warpgroup skips the tiles below
+// its own band's first: a block visits at most (128 + w) / 64 + 1 tiles
+// whatever S is, and the tiles that cross the band's low edge are masked as
+// the diagonal one is.  A row whose first visited tiles lie wholly below its
+// band keeps the running max at -1e30 there; its first key inside the band
+// rescales what those tiles summed by exp2(-1e30 - m) = 0.  The band is a
+// template flag of the bf16 kernel (BAND), so the causal kernel is built
+// without its code and keeps its registers.
 // fp32 (flash_kernel) stays on the CUDA cores: two threads share one query
 // row and walk K/V in 32-key tiles; it exists for parity runs.
 #include <cuda_bf16.h>
@@ -47,7 +58,7 @@ template <typename T, int HD>
 __global__ void __launch_bounds__(THREADS)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ out, int S, int H,
-             int KV, float scale, int causal) {
+             int KV, float scale, int causal, int window) {
   constexpr int NP = HD / 4;  // float2 pairs per thread: dims 4i + 2*half + {0,1}
   __shared__ __align__(16) float Ks[FK][HD];
   __shared__ __align__(16) float Vs[FK][HD];
@@ -70,7 +81,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float m = NEG_INF, l = 0.f;
 
   const int kend = causal ? min(S, q0 + FQ) : S;
-  for (int k0 = 0; k0 < kend; k0 += FK) {
+  const int kbeg = window ? max(0, q0 - window + 1) / FK * FK : 0;
+  for (int k0 = kbeg; k0 < kend; k0 += FK) {
     for (int i = threadIdx.x; i < FK * HD; i += THREADS) {
       const int r = i / HD, c = i % HD;
       const int gk = k0 + r;
@@ -99,7 +111,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       part += __shfl_xor_sync(0xffffffffu, part, 1);
       const int gk = k0 + j;
       float sj = part * scale;
-      if (gk >= S || (causal && gk > qpos)) sj = NEG_INF;
+      if (gk >= S || (causal && gk > qpos) || (window && gk <= qpos - window)) sj = NEG_INF;
       s[j] = sj;
       mt = fmaxf(mt, sj);
     }
@@ -135,11 +147,11 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int HD>
 void launch(const void* q, const void* k, const void* v, void* out, int B, int S,
-            int H, int KV, int causal, float scale, cudaStream_t s) {
+            int H, int KV, int causal, int window, float scale, cudaStream_t s) {
   const dim3 grid((S + FQ - 1) / FQ, H, B);
   flash_kernel<T, HD><<<grid, THREADS, 0, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), S, H, KV, scale, causal);
+      static_cast<T*>(out), S, H, KV, scale, causal, window);
 }
 
 // ------------------------------------------------------- bf16 path, wgmma
@@ -157,15 +169,16 @@ struct FlashTiles {
   static constexpr int SMEM = Q_BYTES + F_STAGES * STAGE + (1 + 2 * F_STAGES) * 8 + 1024;
 };
 
-template <int HD>
+template <int HD, bool BAND>
 __global__ void __launch_bounds__(F_THREADS, HD == 64 ? 2 : 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap kmap,
                    const __grid_constant__ CUtensorMap vmap,
                    __nv_bfloat16* __restrict__ out, int S, int H, int KV,
-                   float scale_log2, int causal) {
+                   float scale_log2, int causal, int window) {
   using namespace hopper;
   using T = FlashTiles<HD>;
+  if (!BAND) window = 0;  // folds the band's code away: the causal kernel keeps its registers
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   unsigned char* qs = smem;
@@ -179,6 +192,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   const int kvh = h / (H / KV);
   const int kv_end = causal ? min(S, q0 + F_BQ) : S;
   const int ntiles = (kv_end + F_BKV - 1) / F_BKV;
+  const int t_lo = window ? max(0, q0 - window + 1) / F_BKV : 0;  // the band's first tile
   if (threadIdx.x == 0) {
     mbar_init(qbar, 1);
     for (int s = 0; s < F_STAGES; ++s) {
@@ -199,9 +213,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
       for (int a = 0; a < T::ATOMS; ++a)
         tma_load_4d(qs + a * T::Q_ATOM, &qmap, qbar, 64 * a, h, q0, b);
-      for (int t = 0; t < ntiles; ++t) {
-        const int s = t % F_STAGES;
-        if (t >= F_STAGES) mbar_wait(&empty[s], ((t / F_STAGES) + 1) & 1);
+      for (int t = t_lo; t < ntiles; ++t) {
+        const int n = t - t_lo, s = n % F_STAGES;  // n: the block's n-th tile
+        if (n >= F_STAGES) mbar_wait(&empty[s], ((n / F_STAGES) + 1) & 1);
         unsigned char* ks = kvs + s * T::STAGE;
         mbar_arrive_expect_tx(&full[s], T::STAGE);
 #pragma unroll
@@ -219,6 +233,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
   const int r0 = q0 + wgi * 64;
   const int my_tiles = ((causal ? min(S, r0 + 64) : S) + F_BKV - 1) / F_BKV;
+  const int my_lo = window ? max(0, r0 - window + 1) / F_BKV : 0;
   const int row_a = r0 + warp * 16 + lane / 4;  // this thread's rows: row_a, row_a + 8
   const unsigned char* qw = qs + wgi * 64 * 128;
 
@@ -228,10 +243,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
   mbar_wait(qbar, 0);
 
-  for (int t = 0; t < ntiles; ++t) {
-    const int s = t % F_STAGES;
-    mbar_wait(&full[s], (t / F_STAGES) & 1);
-    if (t < my_tiles) {
+  for (int t = t_lo; t < ntiles; ++t) {
+    const int n = t - t_lo, s = n % F_STAGES;
+    mbar_wait(&full[s], (n / F_STAGES) & 1);
+    if (t >= my_lo && t < my_tiles) {
       const unsigned char* ks = kvs + s * T::STAGE;
       const unsigned char* vs = ks + T::KV_BYTES;
       float sc[32];
@@ -250,7 +265,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       fence_regs(sc);
 
       const int k0 = t * F_BKV;
-      const bool edge = (causal && k0 + F_BKV > r0) || k0 + F_BKV > S;
+      const bool edge = (causal && k0 + F_BKV > r0) || k0 + F_BKV > S ||
+                        (window && k0 < r0 + 64 - window);
       float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
       for (int j = 0; j < 8; ++j)
@@ -261,7 +277,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
             float v = sc[4 * j + 2 * hh + e] * scale_log2;
             if (edge) {
               const int key = k0 + 8 * j + 2 * (lane % 4) + e;
-              if (key >= S || (causal && key > row_a + 8 * hh)) v = NEG_INF;
+              const int row = row_a + 8 * hh;
+              if (key >= S || (causal && key > row) || (window && key <= row - window))
+                v = NEG_INF;
             }
             sc[4 * j + 2 * hh + e] = v;
             mx[hh] = fmaxf(mx[hh], v);
@@ -325,9 +343,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
-template <int HD>
+template <int HD, bool BAND>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out, int B, int S, int H,
-                 int KV, int causal, float scale, cudaStream_t stream) {
+                 int KV, int causal, int window, float scale, cudaStream_t stream) {
   using T = FlashTiles<HD>;
   static hopper::SmemRaised raised;
   CUtensorMap qmap, kmap, vmap;
@@ -341,28 +359,36 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out, int B, 
       !hopper::make_map_bf16(&kmap, k, 4, kdims, kstr, kbox) ||
       !hopper::make_map_bf16(&vmap, v, 4, kdims, kstr, kbox))
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err = hopper::allow_smem(flash_wgmma_kernel<HD>, T::SMEM, raised);
+  const cudaError_t err = hopper::allow_smem(flash_wgmma_kernel<HD, BAND>, T::SMEM, raised);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((S + F_BQ - 1) / F_BQ, H, B);
-  flash_wgmma_kernel<HD><<<grid, F_THREADS, T::SMEM, stream>>>(
+  flash_wgmma_kernel<HD, BAND><<<grid, F_THREADS, T::SMEM, stream>>>(
       qmap, kmap, vmap, static_cast<__nv_bfloat16*>(out), S, H, KV,
-      scale * 1.4426950408889634f, causal);
+      scale * 1.4426950408889634f, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// dtype: 0 = fp32, 1 = bf16; hd: 64 or 128.  bf16 tensors must be 16-byte
-// aligned (TMA).  Returns the cudaError_t of the launch, or
-// cudaErrorInvalidValue for what the kernels do not take.
+// dtype: 0 = fp32, 1 = bf16; hd: 64 or 128; window: 0 (none) or w > 0 with
+// causal.  bf16 tensors must be 16-byte aligned (TMA).  Returns the
+// cudaError_t of the launch, or cudaErrorInvalidValue for what the kernels
+// do not take.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* out, int B, int S, int H, int KV, int hd,
-                               int causal, float scale, int dtype, void* stream) {
+                               int causal, int window, float scale, int dtype,
+                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && hd == 64) return launch_wgmma<64>(q, k, v, out, B, S, H, KV, causal, scale, s);
-  if (dtype == 1 && hd == 128) return launch_wgmma<128>(q, k, v, out, B, S, H, KV, causal, scale, s);
-  if (dtype == 0 && hd == 64) launch<float, 64>(q, k, v, out, B, S, H, KV, causal, scale, s);
-  else if (dtype == 0 && hd == 128) launch<float, 128>(q, k, v, out, B, S, H, KV, causal, scale, s);
+  if (window < 0 || (window && !causal)) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 1 && hd == 64)
+    return window ? launch_wgmma<64, true>(q, k, v, out, B, S, H, KV, causal, window, scale, s)
+                  : launch_wgmma<64, false>(q, k, v, out, B, S, H, KV, causal, 0, scale, s);
+  if (dtype == 1 && hd == 128)
+    return window ? launch_wgmma<128, true>(q, k, v, out, B, S, H, KV, causal, window, scale, s)
+                  : launch_wgmma<128, false>(q, k, v, out, B, S, H, KV, causal, 0, scale, s);
+  if (dtype == 0 && hd == 64) launch<float, 64>(q, k, v, out, B, S, H, KV, causal, window, scale, s);
+  else if (dtype == 0 && hd == 128)
+    launch<float, 128>(q, k, v, out, B, S, H, KV, causal, window, scale, s);
   else return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }

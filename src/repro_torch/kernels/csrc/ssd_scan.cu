@@ -9,7 +9,8 @@
 // fp32, all contiguous; B and C (b, S, N) in x's type with the given batch
 // and sequence strides and a contiguous last dim (views are read in place);
 // init_state (or null for zeros) and the final state (b, H, P, N) fp32.
-// P = 64 and N = 128 only.
+// (P, N) = (64, 128) (mamba2_1_3b; ssd_kernel and ssd_wgmma_kernel) or
+// (50, 16) (hymba_1_5b; ssd_simt_kernel).
 //
 // What bounds it on an H100: at b 8, S 512, H 64 a call moves ~87 MB (x, y
 // and the final state dominate) and needs ~17 GFLOP with C.B^T formed once
@@ -59,6 +60,19 @@
 // fall in distinct banks: C and B 2 x 64 x 132, x.dt 64 x 68, G 64 x 68,
 // state^T 128 x 68 and four 64-vectors, 138,240 bytes) and runs every
 // product as fp32 FMA from register tiles of 4x4 (8x4 for the state).
+//
+// (50, 16), fp32 and bf16 (ssd_simt_kernel): a bf16 row of 50 is 100 bytes,
+// no multiple of TMA's 16-byte box, and 50 is no multiple of wgmma's 8, so
+// this shape stays on the CUDA cores: one block per (head, batch row) of
+// 256 threads walks the sequence in sub-chunks of Q = 64 rows with x dt, B,
+// C, G = (C B^T) o L, the 50 x 16 state and the four 64-vectors in 42 KB
+// of shared memory, every product in fp32 FMA from
+// shared memory, one output element a thread at a time.  It reads x, B and
+// C in their type, computes in fp32 and writes y in x's type.  A bf16 call
+// at b 8, S 512, H 64 moves ~54 MB (x and y), ~16 us at the card's rate,
+// and needs ~1.4 GFLOP; latency bounds it, each block a chain of sub-chunks
+// of five barriers each, the design a later redesign on the tensor cores
+// would replace.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -287,6 +301,115 @@ int launch(const void* x, const void* dt, const void* A, const void* B, const vo
       static_cast<const float*>(A), static_cast<const float*>(B),
       static_cast<const float*>(C), static_cast<const float*>(init),
       static_cast<float*>(y), static_cast<float*>(state), S, H, b_sb, b_ss, c_sb, c_ss);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------- (50, 16): fp32 and bf16, CUDA cores
+constexpr int SIMT_THREADS = 256;
+
+template <typename T, int SP_, int SN_>
+__global__ void __launch_bounds__(SIMT_THREADS)
+ssd_simt_kernel(const T* __restrict__ x, const float* __restrict__ dt,
+                const float* __restrict__ A, const T* __restrict__ Bm,
+                const T* __restrict__ Cm, const float* __restrict__ init,
+                T* __restrict__ y, float* __restrict__ state_out, int S, int H,
+                int b_sb, int b_ss, int c_sb, int c_ss) {
+  // rows of B and of the state padded to SN_ + 1 floats: lanes that take
+  // neighbouring rows (j in C B^T, p in C state) read distinct banks
+  constexpr int NP = SN_ + 1;
+  __shared__ float X_s[Q][SP_];     // x * dt
+  __shared__ float B_s[Q][NP];
+  __shared__ float C_s[Q][SN_];
+  __shared__ float G_s[Q][Q + 1];   // (C B^T) o L, 0 above the diagonal
+  __shared__ float St[SP_][NP];     // the state[p][n]
+  __shared__ float cum[Q], ecum[Q], wdec[Q], dts[Q];
+
+  const int h = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
+  const float a = A[h];
+  const size_t bh = (size_t)b * H + h;
+  for (int e = tid; e < SP_ * SN_; e += SIMT_THREADS)
+    St[e / SN_][e % SN_] = init ? init[bh * SP_ * SN_ + e] : 0.f;
+
+  for (int c0 = 0; c0 < S; c0 += Q) {
+    const int rows = min(Q, S - c0);
+    // dt and the per-warp scan of dt * A (rows past the end: dt = 0)
+    if (tid < Q) {
+      const float d = tid < rows ? dt[((size_t)b * S + c0 + tid) * H + h] : 0.f;
+      dts[tid] = d;
+      float v = d * a;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const float t = __shfl_up_sync(0xffffffffu, v, off);
+        if ((tid & 31) >= off) v += t;
+      }
+      cum[tid] = v;
+    }
+    __syncthreads();
+    // the second warp's scan continues the first's; stage x*dt, B and C
+    if (tid >= 32 && tid < Q) cum[tid] += cum[31];
+    for (int e = tid; e < Q * SP_; e += SIMT_THREADS) {
+      const int i = e / SP_, p = e % SP_;
+      X_s[i][p] = i < rows
+          ? to_float(x[(((size_t)b * S + c0 + i) * H + h) * SP_ + p]) * dts[i] : 0.f;
+    }
+    for (int e = tid; e < Q * SN_; e += SIMT_THREADS) {
+      const int i = e / SN_, n = e % SN_;
+      B_s[i][n] = i < rows ? to_float(Bm[(size_t)b * b_sb + (size_t)(c0 + i) * b_ss + n]) : 0.f;
+      C_s[i][n] = i < rows ? to_float(Cm[(size_t)b * c_sb + (size_t)(c0 + i) * c_ss + n]) : 0.f;
+    }
+    __syncthreads();
+
+    // G[i][j] = (C_i . B_j) exp(cum_i - cum_j) for j <= i
+    if (tid < Q) {
+      ecum[tid] = expf(cum[tid]);
+      wdec[tid] = expf(cum[Q - 1] - cum[tid]);
+    }
+    for (int e = tid; e < Q * Q; e += SIMT_THREADS) {
+      const int i = e / Q, j = e % Q;
+      float g = 0.f;
+      if (j <= i) {
+#pragma unroll
+        for (int n = 0; n < SN_; ++n) g = fmaf(C_s[i][n], B_s[j][n], g);
+        g *= expf(cum[i] - cum[j]);
+      }
+      G_s[i][j] = g;
+    }
+    __syncthreads();
+
+    // y[i][p] = sum_{j <= i} G[i][j] (x dt)_j[p] + exp(cum_i) (C_i . state[p])
+    for (int e = tid; e < rows * SP_; e += SIMT_THREADS) {
+      const int i = e / SP_, p = e % SP_;
+      float yd = 0.f, yo = 0.f;
+      for (int j = 0; j <= i; ++j) yd = fmaf(G_s[i][j], X_s[j][p], yd);
+#pragma unroll
+      for (int n = 0; n < SN_; ++n) yo = fmaf(C_s[i][n], St[p][n], yo);
+      y[(((size_t)b * S + c0 + i) * H + h) * SP_ + p] = from_float<T>(fmaf(ecum[i], yo, yd));
+    }
+    __syncthreads();  // the state was read above and is rewritten below
+
+    // state[p][n] = exp(cum_last) state[p][n] + sum_j wdec_j (x dt)_j[p] B_j[n]
+    const float dlast = ecum[Q - 1];
+    for (int e = tid; e < SP_ * SN_; e += SIMT_THREADS) {
+      const int p = e / SN_, n = e % SN_;
+      float st = St[p][n] * dlast;
+      for (int j = 0; j < rows; ++j) st = fmaf(wdec[j] * X_s[j][p], B_s[j][n], st);
+      St[p][n] = st;
+    }
+    __syncthreads();  // the next sub-chunk overwrites B_s, X_s and cum
+  }
+
+  for (int e = tid; e < SP_ * SN_; e += SIMT_THREADS)
+    state_out[bh * SP_ * SN_ + e] = St[e / SN_][e % SN_];
+}
+
+template <typename T, int SP_, int SN_>
+int launch_simt(const void* x, const void* dt, const void* A, const void* B, const void* C,
+                const void* init, void* y, void* state, int nb, int S, int H, int b_sb,
+                int b_ss, int c_sb, int c_ss, cudaStream_t s) {
+  ssd_simt_kernel<T, SP_, SN_><<<dim3(H, nb), SIMT_THREADS, 0, s>>>(
+      static_cast<const T*>(x), static_cast<const float*>(dt), static_cast<const float*>(A),
+      static_cast<const T*>(B), static_cast<const T*>(C), static_cast<const float*>(init),
+      static_cast<T*>(y), static_cast<float*>(state), S, H, b_sb, b_ss, c_sb, c_ss);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -690,16 +813,24 @@ int launch_wgmma(const void* x, const void* dt, const void* A, const void* B, co
 
 }  // namespace
 
-// dtype: 0 = fp32 (the CUDA-core kernel), 1 = bf16 (x, B, C and y; the
-// wgmma kernel, which takes H % 4 == 0 and 16-byte aligned pointers and B
-// and C strides); init may be null (zero state).  Returns the cudaError_t
-// of the launch, or cudaErrorInvalidValue for what the kernels do not take.
+// dtype: 0 = fp32, 1 = bf16 (x, B, C and y).  (P, N) = (50, 16) takes the
+// CUDA-core ssd_simt_kernel in either type; (64, 128) in fp32 the CUDA-core
+// ssd_kernel, in bf16 the wgmma kernel, which takes H % 4 == 0 and 16-byte
+// aligned pointers and B and C strides.  init may be null (zero state).
+// Returns the cudaError_t of the launch, or cudaErrorInvalidValue for what
+// the kernels do not take.
 extern "C" int ssd_scan(const void* x, const void* dt, const void* A, const void* B,
                         const void* C, const void* init, void* y, void* state, int nb,
                         int S, int H, int P, int N, int b_sb, int b_ss, int c_sb,
                         int c_ss, int dtype, void* stream) {
-  if (P != SP || N != SN) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (P == 50 && N == 16 && dtype == 0)
+    return launch_simt<float, 50, 16>(x, dt, A, B, C, init, y, state, nb, S, H, b_sb, b_ss,
+                                      c_sb, c_ss, s);
+  if (P == 50 && N == 16 && dtype == 1)
+    return launch_simt<__nv_bfloat16, 50, 16>(x, dt, A, B, C, init, y, state, nb, S, H, b_sb,
+                                              b_ss, c_sb, c_ss, s);
+  if (P != SP || N != SN) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0) return launch(x, dt, A, B, C, init, y, state, nb, S, H, b_sb, b_ss, c_sb, c_ss, s);
   if (dtype == 1) return launch_wgmma(x, dt, A, B, C, init, y, state, nb, S, H, b_sb, b_ss, c_sb, c_ss, s);
   return static_cast<int>(cudaErrorInvalidValue);

@@ -2,10 +2,13 @@
 
 The port of the JAX package's ``kernels/flash_attention.py``, in the
 model's layout: q (B, S, H, hd), k and v (B, S, KV, hd), out (B, S, H, hd);
-query head h reads KV head h // (H // KV).  ``flash_attention_plain`` is the
-plain PyTorch version; ``flash_attention_cuda`` launches the hand-written
-kernel of ``csrc/flash_attention.cu`` (bf16: wgmma and TMA; fp32: the CUDA
-cores).
+query head h reads KV head h // (H // KV).  ``window`` w > 0 narrows the
+causal mask to a sliding-window band: query row r attends keys j with
+r - w < j <= r, the mask of the JAX package's ``_banded_attention``
+(``models/attention.py``); a band needs ``causal``.  ``flash_attention_plain``
+is the plain PyTorch version; ``flash_attention_cuda`` launches the
+hand-written kernel of ``csrc/flash_attention.cu`` (bf16: wgmma and TMA;
+fp32: the CUDA cores), which visits only the key tiles of the band.
 """
 from __future__ import annotations
 
@@ -20,8 +23,16 @@ NEG_INF = -1e30
 HEAD_DIMS = (64, 128)
 
 
+def _check_window(causal: bool, window: int) -> None:
+    if window < 0 or (window and not causal):
+        raise ValueError(f"flash_attention: window {window} with causal "
+                         f"{causal}: a band is a causal mask, window >= 0")
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          *, causal: bool = True) -> torch.Tensor:
+                          *, causal: bool = True,
+                          window: int = 0) -> torch.Tensor:
+    _check_window(causal, window)
     B, S, H, hd = q.shape
     KV = k.shape[2]
     qg = q.float().reshape(B, S, KV, H // KV, hd)
@@ -29,6 +40,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if causal:
         mask = torch.ones(S, k.shape[1], dtype=torch.bool,
                           device=q.device).tril()
+        if window:
+            mask = mask & ~mask.tril(-window)  # r - j < window
         s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
@@ -36,7 +49,9 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool = True) -> torch.Tensor:
+                         *, causal: bool = True,
+                         window: int = 0) -> torch.Tensor:
+    _check_window(causal, window)
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("flash_attention: q, k, v must be on one CUDA device")
     if q.dtype not in DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -64,6 +79,6 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lib = _build.load()
     _build.check(lib.flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H, KV,
-        hd, int(causal), 1.0 / math.sqrt(hd), DTYPE_CODES[q.dtype],
+        hd, int(causal), window, 1.0 / math.sqrt(hd), DTYPE_CODES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream), "flash_attention")
     return out

@@ -14,8 +14,9 @@ arithmetic the result does not depend on it.  ``ssd_scan_plain`` is the
 plain PyTorch version in fp32 (the CPU path, and what the kernels are held
 against on the card); ``ssd_scan_cuda`` launches one of the hand-written
 kernels of ``csrc/ssd_scan.cu``, chosen by ``ssd_route``, which walk the
-sequence in sub-chunks of their own (64 rows) and take P = 64, N = 128
-only, and counts its launches by route in ``SSD_ROUTE_LAUNCHES``.
+sequence in sub-chunks of their own (64 rows) and take (P, N) = (64, 128)
+(mamba2_1_3b) or (50, 16) (hymba_1_5b) only, and counts its launches by
+route in ``SSD_ROUTE_LAUNCHES``.
 """
 from __future__ import annotations
 
@@ -27,32 +28,37 @@ import torch.nn.functional as F
 from . import _build
 from .streamed_matmul import DTYPE_CODES
 
-HEAD_DIM = 64    # P the kernels take
-STATE_DIM = 128  # N the kernels take
+HEAD_DIM = 64    # P of the wgmma and fp32 kernels
+STATE_DIM = 128  # N of the wgmma and fp32 kernels
+SIMT_SHAPE = (50, 16)  # (P, N) of the CUDA-core kernel that takes both types
 DT_BOX_HEADS = 4  # heads in the wgmma kernel's dt box (16 bytes, TMA's least)
 # launches of ssd_scan_cuda by route (see ssd_route)
-SSD_ROUTE_LAUNCHES: Dict[str, int] = {"wgmma": 0, "fp32": 0}
+SSD_ROUTE_LAUNCHES: Dict[str, int] = {"wgmma": 0, "fp32": 0, "simt": 0}
 
 
 def ssd_route(dtype: torch.dtype, H: int, P: int, N: int,
               bc_strides: Sequence[int] = (), aligned: bool = True) -> str:
     """Which kernel of ``csrc/ssd_scan.cu`` takes a scan; raises for what
-    neither takes.
+    none takes.
 
-    ``"fp32"`` (the CUDA-core kernel, for parity runs) takes fp32 at P 64,
-    N 128.  ``"wgmma"`` (TMA and wgmma) takes bf16 at P 64, N 128 with H a
-    multiple of 4 (dt's TMA box), the batch and sequence strides of B and C
-    (``bc_strides``, in elements) multiples of 8 (16 bytes) and every
-    tensor 16-byte aligned (``aligned``): TMA maps them in place, and there
-    is no other bf16 kernel to fall back on.
+    ``"simt"`` (a CUDA-core kernel, fp32 inside) takes fp32 and bf16 at
+    P 50, N 16 (hymba_1_5b's heads), any strides and alignment.  At P 64,
+    N 128: ``"fp32"`` (the CUDA-core kernel, for parity runs) takes fp32;
+    ``"wgmma"`` (TMA and wgmma) takes bf16 with H a multiple of 4 (dt's TMA
+    box), the batch and sequence strides of B and C (``bc_strides``, in
+    elements) multiples of 8 (16 bytes) and every tensor 16-byte aligned
+    (``aligned``): TMA maps them in place, and there is no other bf16
+    kernel at that shape to fall back on.
     """
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"ssd_scan: no kernel for {dtype}")
+    if (P, N) == SIMT_SHAPE:
+        return "simt"
     if (P, N) != (HEAD_DIM, STATE_DIM):
         raise ValueError(f"ssd_scan: (P, N) = {(P, N)}; the kernels take "
-                         f"{(HEAD_DIM, STATE_DIM)}")
+                         f"{(HEAD_DIM, STATE_DIM)} and {SIMT_SHAPE}")
     if dtype == torch.float32:
         return "fp32"
-    if dtype != torch.bfloat16:
-        raise TypeError(f"ssd_scan: no kernel for {dtype}")
     if H % DT_BOX_HEADS:
         raise ValueError(f"ssd_scan: H = {H}; the bf16 kernel takes a "
                          f"multiple of {DT_BOX_HEADS}")
@@ -112,7 +118,7 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     """x, dt, A and init_state contiguous; B and C may be views with any
     batch and sequence strides (the two halves of a conv output), read in
     place.  The kernel is chosen by ``ssd_route``, which raises for what
-    neither kernel takes.  ``chunk`` is not read: the kernels block by 64
+    no kernel takes.  ``chunk`` is not read: the kernels block by 64
     rows."""
     tensors = [x, dt, A, B, C] + ([init_state] if init_state is not None
                                   else [])

@@ -1,10 +1,12 @@
-"""Dense self-attention: GQA projections, prefill through the flash
-attention kernel, decode through the decode attention kernel, and the KV
-cache.
+"""Self-attention: GQA projections, prefill through the flash attention
+kernel, decode through the decode attention kernel, and the KV cache, with
+or without a sliding window.
 
 Ported from the JAX package's ``models/attention.py``: the single-device
-(``local``) path of ``_flash_full`` and the full-attention decode.  Sliding
-windows, cross-attention and sharded attention are not ported yet.
+(``local``) path of ``_flash_full`` (under ``cfg.sliding_window`` the band
+of ``_banded_attention``), and decode over a full cache or, under a window,
+a ring of min(max_seq, window) slots written at ``pos % S``.
+Cross-attention and sharded attention are not ported yet.
 """
 from __future__ import annotations
 
@@ -59,12 +61,12 @@ def _project_qkv(cfg, p: Params, x: torch.Tensor):
 
 def init_kv_cache(cfg, batch: int, max_seq: int, dtype, device
                   ) -> Dict[str, torch.Tensor]:
-    if cfg.sliding_window:
-        raise NotImplementedError("sliding-window caches are not ported yet")
+    """A sliding window keeps a ring of min(max_seq, window) slots."""
     KV, hd = cfg.n_kv_heads, cfg.head_dim_
+    S = min(max_seq, cfg.sliding_window) if cfg.sliding_window else max_seq
     return {
-        "k": torch.zeros((batch, max_seq, KV, hd), dtype=dtype, device=device),
-        "v": torch.zeros((batch, max_seq, KV, hd), dtype=dtype, device=device),
+        "k": torch.zeros((batch, S, KV, hd), dtype=dtype, device=device),
+        "v": torch.zeros((batch, S, KV, hd), dtype=dtype, device=device),
     }
 
 
@@ -76,7 +78,9 @@ class DecodePosition:
     card).  ``rope(hd, theta)`` gives the rotation's cos and sin at
     ``pos``.  For a cache of S slots, ``for_cache(S)`` gives the slot that
     the step writes, min(pos, S-1), as a (1,) int64 index; whether to write
-    it, pos < S; and the keys attended, min(pos+1, S), as a 0-d int32.  All
+    it, pos < S; and the keys attended, min(pos+1, S), as a 0-d int32.  For
+    a ring of S slots, ``for_cache(S, ring=True)`` gives the slot pos % S,
+    written always (None for whether), and the same keys attended.  All
     stay on the device, so a captured graph of the step reads each step's
     position, and each is made once per step, not once per layer.
     """
@@ -95,22 +99,29 @@ class DecodePosition:
                                               theta)
         return self._derived[key]
 
-    def for_cache(self, S: int) -> Tuple[torch.Tensor, torch.Tensor,
-                                         torch.Tensor]:
-        key = ("cache", S)
+    def for_cache(self, S: int, ring: bool = False
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
+                             torch.Tensor]:
+        key = ("cache", S, ring)
         if key not in self._derived:
+            if ring:
+                slot = torch.remainder(self.pos, S).long().reshape(1)
+                inside = None
+            else:
+                slot = torch.clamp(self.pos, max=S - 1).long().reshape(1)
+                inside = self.pos < S
             self._derived[key] = (
-                torch.clamp(self.pos, max=S - 1).long().reshape(1),
-                self.pos < S,
+                slot, inside,
                 torch.clamp(self.pos + 1, max=S).to(torch.int32))
         return self._derived[key]
 
 
 def update_cache(cache: Dict[str, torch.Tensor], k_new: torch.Tensor,
-                 v_new: torch.Tensor, pos: DecodePosition
+                 v_new: torch.Tensor, pos: DecodePosition, ring: bool = False
                  ) -> Dict[str, torch.Tensor]:
-    """Write one token's K/V (B,1,KV,hd) at ``pos``, in place; at a
-    position past the cache's S slots nothing is written.
+    """Write one token's K/V (B,1,KV,hd) at ``pos``, in place: a full cache
+    at slot ``pos``, and at a position past its S slots nothing; a ring
+    (``ring``, a sliding window's cache) at slot ``pos % S``, always.
 
     The JAX package rewrites the whole cache through a one-hot select on
     every step, which writes nothing past the cache; writing the one slot
@@ -118,25 +129,27 @@ def update_cache(cache: Dict[str, torch.Tensor], k_new: torch.Tensor,
     same cache without the O(cache) copy per layer.  The index stays on the
     device, so a captured graph of the step writes each step's slot.
     """
-    slot, inside, _ = pos.for_cache(cache["k"].shape[1])
+    slot, inside, _ = pos.for_cache(cache["k"].shape[1], ring)
     for name, new in (("k", k_new), ("v", v_new)):
         c = cache[name]
-        c.index_copy_(1, slot, torch.where(inside, new.to(c.dtype),
-                                           c.index_select(1, slot)))
+        new = new.to(c.dtype)
+        if inside is not None:
+            new = torch.where(inside, new, c.index_select(1, slot))
+        c.index_copy_(1, slot, new)
     return cache
 
 
 def attention_forward(cfg, p: Params, x: torch.Tensor, *,
                       cache: Optional[Dict[str, torch.Tensor]] = None,
                       cache_pos: Optional[DecodePosition] = None):
-    """Causal self-attention with RoPE.  Prefill (cache None): returns
-    (y, (k_roped, v)) to seed the decode cache.  Decode (x is (B,1,d),
-    cache given): returns (y, cache), the cache updated in place at
-    ``cache_pos``, the token's position, which may lie past the cache: then
-    the cache keeps its S slots and all of them are attended, as in the JAX
-    package."""
-    if cfg.sliding_window:
-        raise NotImplementedError("sliding-window attention is not ported yet")
+    """Causal self-attention with RoPE, banded to ``cfg.sliding_window``
+    keys when it is set.  Prefill (cache None): returns (y, (k_roped, v))
+    to seed the decode cache.  Decode (x is (B,1,d), cache given): returns
+    (y, cache), the cache updated in place at ``cache_pos``, the token's
+    position, which may lie past the cache: then a full cache keeps its S
+    slots and all of them are attended, as in the JAX package, and a ring
+    overwrites slot pos % S."""
+    window = cfg.sliding_window or 0
     B, S = x.shape[0], x.shape[1]
     H, hd = cfg.n_heads, cfg.head_dim_
     q, k, v = _project_qkv(cfg, p, x)
@@ -147,13 +160,21 @@ def attention_forward(cfg, p: Params, x: torch.Tensor, *,
         # freeze them.
         cos, sin = cache_pos.rope(hd, cfg.rope_theta)
         q, k = rotate(q, cos, sin), rotate(k, cos, sin)
-        cache = update_cache(cache, k, v, cache_pos)
-        _, _, length = cache_pos.for_cache(cache["k"].shape[1])
+        cache = update_cache(cache, k, v, cache_pos, ring=bool(window))
+        # A ring holds S = min(max_seq, window) <= window slots, and slot i
+        # holds the last position p <= pos with p = i (mod S).  The JAX
+        # package's ring validity (p >= 0, p <= pos, pos - p < window)
+        # then keeps exactly the slots i < min(pos + 1, S): before the ring
+        # fills, slot i holds position i; after, every slot holds one of the
+        # last S <= window positions.  So the decode kernel takes the same
+        # length prefix as for a full cache, and the ring only moves the
+        # slot that the step writes.
+        _, _, length = cache_pos.for_cache(cache["k"].shape[1], bool(window))
         y = ops.decode_attention(q[:, 0], cache["k"], cache["v"], length)
         return _linear(y.reshape(B, 1, H * hd), p["wo"]), cache
 
     positions = torch.arange(S, device=x.device)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    y = ops.flash_attention(q, k, v, causal=True)
+    y = ops.flash_attention(q, k, v, causal=True, window=window)
     return _linear(y.reshape(B, S, H * hd), p["wo"]), (k, v)

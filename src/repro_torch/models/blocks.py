@@ -1,12 +1,14 @@
-"""The dense transformer block with its SwiGLU MLP, the MoE block, and the
-SSM block:
+"""The dense transformer block with its SwiGLU MLP, the MoE block, the
+SSM block and the hybrid block:
 
-    dense : norm -> attn -> +res ; norm -> mlp -> +res
-    moe   : norm -> attn -> +res ; norm -> moe -> +res    (+ shared experts)
-    ssm   : norm -> ssd  -> +res                          (mamba2: no FFN)
+    dense  : norm -> attn -> +res ; norm -> mlp -> +res
+    moe    : norm -> attn -> +res ; norm -> moe -> +res    (+ shared experts)
+    ssm    : norm -> ssd  -> +res                          (mamba2: no FFN)
+    hybrid : norm -> (attn || ssd) -> +res ; norm -> mlp -> +res   (hymba)
 
-Ported from the JAX package's ``models/blocks.py`` (``"dense"``, ``"moe"``
-and ``"ssm"`` kinds; hybrid and encoder-decoder blocks are not ported yet).
+Ported from the JAX package's ``models/blocks.py`` (``"dense"``, ``"moe"``,
+``"ssm"`` and ``"hybrid"`` kinds; encoder-decoder blocks are not ported
+yet).
 """
 from __future__ import annotations
 
@@ -23,7 +25,8 @@ from .ssd import init_ssd_cache, ssd_decode_step, ssd_forward, ssd_init
 
 
 def _check_kind(cfg, kind: str) -> None:
-    if kind == "ssm" or (kind in ("dense", "moe") and cfg.mlp == "swiglu"):
+    if kind == "ssm" or (kind in ("dense", "moe", "hybrid")
+                         and cfg.mlp == "swiglu"):
         return
     raise NotImplementedError(f"block kind {kind!r} with mlp {cfg.mlp!r} "
                               "is not ported yet")
@@ -50,8 +53,10 @@ def block_init(cfg, gen: torch.Generator, dtype, device,
         return {"ln1": norm_init(cfg, cfg.d_model, dtype, device),
                 "ssd": ssd_init(cfg, gen, dtype, device)}
     p = {"ln1": norm_init(cfg, cfg.d_model, dtype, device),
-         "attn": attention_init(cfg, gen, dtype, device),
-         "ln2": norm_init(cfg, cfg.d_model, dtype, device)}
+         "attn": attention_init(cfg, gen, dtype, device)}
+    if kind == "hybrid":
+        p["ssd"] = ssd_init(cfg, gen, dtype, device)
+    p["ln2"] = norm_init(cfg, cfg.d_model, dtype, device)
     if kind == "moe":
         p["moe"] = moe_init(cfg, gen, dtype, device)
     else:
@@ -64,8 +69,8 @@ def block_forward(cfg, p: Params, x: torch.Tensor, kind: str = "dense", *,
                   cache_pos: Optional[DecodePosition] = None
                   ) -> Tuple[torch.Tensor, Dict]:
     """Returns (y, cache).  Prefill returns this layer's K/V, or its SSM
-    state and conv tails (to seed the decode cache); decode returns
-    ``cache`` updated in place."""
+    state and conv tails, or both (hybrid), to seed the decode cache;
+    decode returns ``cache`` updated in place."""
     _check_kind(cfg, kind)
     h = apply_norm(cfg, x, p["ln1"])
     if kind == "ssm":
@@ -80,6 +85,13 @@ def block_forward(cfg, p: Params, x: torch.Tensor, kind: str = "dense", *,
     else:
         y, (k, v) = attention_forward(cfg, p["attn"], h)
         new_cache = {"k": k, "v": v}
+    if kind == "hybrid":  # the SSD heads beside attention, on the same h
+        if cache is not None:
+            y_ssd, _ = ssd_decode_step(cfg, p["ssd"], h, cache)
+        else:
+            y_ssd, ssd_cache = ssd_forward(cfg, p["ssd"], h)
+            new_cache.update(ssd_cache)
+        y = 0.5 * (y + y_ssd)
     x = x + y
     h = apply_norm(cfg, x, p["ln2"])
     if kind == "moe":
@@ -94,4 +106,7 @@ def init_block_cache(cfg, kind: str, batch: int, max_seq: int, dtype,
     _check_kind(cfg, kind)
     if kind == "ssm":
         return init_ssd_cache(cfg, batch, dtype, device)
-    return init_kv_cache(cfg, batch, max_seq, dtype, device)
+    cache = init_kv_cache(cfg, batch, max_seq, dtype, device)
+    if kind == "hybrid":
+        cache.update(init_ssd_cache(cfg, batch, dtype, device))
+    return cache

@@ -2,8 +2,8 @@
 prefill and decode.
 
 Ported from the JAX package's ``models/lm.py`` for the ``dense``,
-``moe``, ``ssm`` and ``vlm`` families (a vlm is the dense stack with the
-vision stub's patch embeddings put ahead of the tokens).
+``moe``, ``ssm``, ``hybrid`` and ``vlm`` families (a vlm is the dense
+stack with the vision stub's patch embeddings put ahead of the tokens).
 Parameters keep the JAX layout: ``stacks`` is a list with one tree per
 homogeneous stack, each leaf with a leading layer dim; PyTorch runs the
 stack as a loop over layer views instead of a scan.  MoE interleaving
@@ -28,6 +28,8 @@ def layer_plan(cfg) -> List[Tuple[Tuple[str, ...], int]]:
         return [(("dense",), cfg.n_layers)]
     if cfg.family == "ssm":
         return [(("ssm",), cfg.n_layers)]
+    if cfg.family == "hybrid":
+        return [(("hybrid",), cfg.n_layers)]
     if cfg.family == "moe":
         if cfg.moe_interleave > 1:
             kinds = ("dense",) * (cfg.moe_interleave - 1) + ("moe",)

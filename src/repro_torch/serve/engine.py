@@ -48,8 +48,9 @@ class EngineConfig:
 def _seed_leaf(dst: torch.Tensor, src: torch.Tensor) -> None:
     """Write a prefill cache leaf into a decode cache leaf, in place, as a
     fresh ``init_cache`` seeded with it: a leaf of the same shape is copied;
-    a K/V leaf, stacked (L, B, S, KV, hd), gets the last ``max_seq`` of the
-    prompt's S positions and zeros after them."""
+    a K/V leaf, stacked (L, B, S, KV, hd), gets the last n = min(S, slots)
+    of the prompt's S positions in its first n slots and zeros after
+    them."""
     if src.shape == dst.shape:
         dst.copy_(src)
         return
@@ -67,7 +68,13 @@ def seed_decode_cache(bundle, prefill_caches, batch_size: int, max_seq: int,
     K/V caches are stacked (L, B, S, KV, hd): the sequence is axis 2.  A
     leaf whose shape the decode cache already has (the SSM state
     (L, B, H, P, N) and conv tails (L, B, K-1, C)) is taken as it is, as
-    the JAX package does.
+    the JAX package does.  A sliding window's ring of R = min(max_seq,
+    window) slots gets the last min(S, R) positions in slots 0.., as the
+    JAX package seeds it: exact while S <= R, where slot i holds position
+    i, as decode's writes at pos % R expect.  For a longer prompt slot i
+    holds position S - R + i, not the one = i (mod R), so the first decode
+    writes evict other keys than a true ring would; the port mirrors this
+    for token parity.
     """
     caches = bundle.init_cache(batch_size, max_seq, device)
 

@@ -41,12 +41,15 @@ DTYPES = {"float32": (torch.float32, 2e-4), "bfloat16": (torch.bfloat16, 2e-2)}
 # (100, 60, 40) has K % 8 != 0 and takes the wmma kernel, as does
 # (8, 1000, 50) with row-major w (N % 8 != 0); (8, 4864, 896) splits K
 # into a cluster of 8 on a 132-SM card, (8, 896, 152064) does not split.
+# hymba_1_5b's w_B / w_C (N 16, narrower than every TMA box of w) at a
+# decode step and a prefill, and its w_dt (N 64) at a decode step.
 MATMUL_SHAPES = [(64, 128, 64), (63, 896, 128), (128, 384, 256),
                  (100, 60, 40), (130, 896, 200), (200, 896, 200),
                  (192, 200, 136), (3640, 896, 4864), (4000, 2048, 64),
                  (130, 4864, 896), (8, 896, 152064), (8, 4864, 896),
                  (8, 1000, 50), (1, 896, 896), (16, 2048, 4096),
-                 (8, 896, 200), (8, 1000, 136)]
+                 (8, 896, 200), (8, 1000, 136), (8, 1600, 16),
+                 (4096, 1600, 16), (8, 1600, 64)]
 # S = 455 and 129 are ragged against the kernel's 128-row q and 64-key tiles
 FLASH_CASES = [(S, hd, causal) for S in (128, 256, 455, 129)
                for hd in (64, 128) for causal in (True, False)] + [
@@ -56,8 +59,15 @@ FLASH_CASES = [(S, hd, causal) for S in (128, 256, 455, 129)
 DECODE_CASES = [(256, 100), (512, 512), (512, 1), (1024, 513), (1024, 487),
                 (4096, 4096), (4096, 1)]
 # (query heads, KV heads): groups of 7 (qwen2), 4 (llama3_2_1b, qwen3_4b),
-# 1 and 8 (the largest the decode kernel takes), 6 (internvl2_26b)
-HEADS = [(14, 2), (32, 8), (8, 8), (16, 2), (48, 8)]
+# 1 and 8 (the largest the decode kernel takes), 6 (internvl2_26b), 5
+# (hymba_1_5b)
+HEADS = [(14, 2), (32, 8), (8, 8), (16, 2), (48, 8), (25, 5)]
+# (S, window) of the flash attention's sliding-window band: S below, at and
+# past the window, ragged against the 128-row q and 64-key tiles, windows
+# that do and do not fall on a tile edge (1: the diagonal alone), and
+# hymba_1_5b's window of 1024 past it
+WINDOW_CASES = [(129, 64), (200, 128), (455, 100), (455, 1024), (77, 16),
+                (64, 64), (300, 1), (1100, 1024)]
 # the grouped matmul: experts, capacities C (the rows of each expert: 8 at
 # every served decode step, 235 at a deepseek_moe_16b prefill; 1, 7, 63, 64
 # and 65 the edges of the kernels' row groups and of the wgmma threshold),
@@ -75,6 +85,9 @@ SSD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 # model of that rounding measures (tests/test_torch_kernels.py)
 SSD_FINE_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 SSD_LENGTHS = [256, 512, 449, 97, 1, 63, 64, 65]
+# (P, N) of mamba2_1_3b (the wgmma and fp32 kernels) and of hymba_1_5b (the
+# CUDA-core kernel of both types)
+SSD_HEADS = [(64, 128), (50, 16)]
 
 
 @pytest.fixture
@@ -167,6 +180,20 @@ def test_cuda_flash_attention_matches_plain(card, S, hd, causal, H, KV, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("S,window", WINDOW_CASES)
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("H,KV", HEADS)
+def test_cuda_flash_attention_window_matches_plain(card, H, KV, hd, S, window,
+                                                   dtype):
+    B = 2
+    q, k, v = _on(card, dtype, 15, (B, S, H, hd), (B, S, KV, hd),
+                  (B, S, KV, hd))
+    _close(ops.flash_attention(q, k, v, window=window),
+           flash_attention_plain(q, k, v, window=window), DTYPES[dtype][1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("S,length", DECODE_CASES)
 @pytest.mark.parametrize("hd", [64, 128])
 @pytest.mark.parametrize("H,KV", HEADS)
@@ -224,10 +251,9 @@ def test_cuda_decode_attention_device_length(card, H, KV, hd, length, dtype):
         assert torch.equal(ops.decode_attention(q, k, v, past), got)
 
 
-def _ssd_on(card, dtype, seed, b, S, H, with_init):
+def _ssd_on(card, dtype, seed, b, S, H, with_init, P=64, N=128):
     """x, dt, A, B, C (B and C halves of one (b, S, 2N) tensor, as the model
     passes them) and an initial state or None, on the card."""
-    P, N = 64, 128
     rng = np.random.default_rng(seed)
     tdt = DTYPES[dtype][0]
     x = torch.tensor(rng.standard_normal((b, S, H, P)).astype(np.float32)
@@ -267,16 +293,18 @@ def _check_ssd(x, dt, A, B, C, init, dtype):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("S", SSD_LENGTHS)
 @pytest.mark.parametrize("H", [4, 64])
-def test_cuda_ssd_scan_matches_plain(card, H, S, dtype, with_init):
-    _check_ssd(*_ssd_on(card, dtype, 8, 2, S, H, with_init), dtype)
+@pytest.mark.parametrize("P,N", SSD_HEADS)
+def test_cuda_ssd_scan_matches_plain(card, P, N, H, S, dtype, with_init):
+    _check_ssd(*_ssd_on(card, dtype, 8, 2, S, H, with_init, P, N), dtype)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_cuda_ssd_scan_long_sequence(card, dtype):
-    """64 sub-chunks from an initial state, mamba2's heads: the state's
-    rounding error has the longest walk to add up."""
-    _check_ssd(*_ssd_on(card, dtype, 16, 1, 4096, 64, True), dtype)
+@pytest.mark.parametrize("P,N", SSD_HEADS)
+def test_cuda_ssd_scan_long_sequence(card, P, N, dtype):
+    """64 sub-chunks from an initial state, 64 heads: the state's rounding
+    error has the longest walk to add up."""
+    _check_ssd(*_ssd_on(card, dtype, 16, 1, 4096, 64, True, P, N), dtype)
 
 
 @pytest.mark.cuda
@@ -297,7 +325,7 @@ def test_cuda_ssd_scan_rejects_views_tma_cannot_map(card, view):
     with pytest.raises(ValueError):
         ops.ssd_scan(x, dt, A, B, C)
     assert ops.LAUNCHES["ssd_scan"] == 0
-    assert SSD_ROUTE_LAUNCHES == {"wgmma": 0, "fp32": 0}
+    assert SSD_ROUTE_LAUNCHES == {"wgmma": 0, "fp32": 0, "simt": 0}
 
 
 @pytest.mark.cuda
@@ -320,7 +348,7 @@ def test_cuda_launches_are_counted(card):
     assert ROUTE_LAUNCHES == {"wgmma": 0, "wgmma_decode": 1, "wmma": 0,
                               "fp32": 0, "wgmma_grouped": 0,
                               "wgmma_grouped_decode": 1, "fp32_grouped": 0}
-    assert SSD_ROUTE_LAUNCHES == {"wgmma": 1, "fp32": 0}
+    assert SSD_ROUTE_LAUNCHES == {"wgmma": 1, "fp32": 0, "simt": 0}
 
 
 def _launches_and_allocations(fn):
@@ -400,9 +428,10 @@ def test_cuda_rejects_what_the_kernels_do_not_take(card):
 # the engine's decode step, captured once as a CUDA graph
 # ---------------------------------------------------------------------------
 
-def _depth2(card, arch):
+def _depth2(card, arch, **overrides):
     """The arch at full width, two layers, bf16, random weights."""
-    bundle = build(dataclasses.replace(get_config(arch), n_layers=2))
+    bundle = build(dataclasses.replace(get_config(arch), n_layers=2,
+                                       **overrides))
     return bundle, bundle.init(0, device=card)
 
 
@@ -425,13 +454,17 @@ def _eager_tokens(bundle, params, prompts, ecfg, new, card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["qwen2_0_5b", "mamba2_1_3b",
-                                  "deepseek_moe_16b", "internvl2_26b"])
-def test_cuda_graph_engine_gives_eager_tokens(card, arch):
+@pytest.mark.parametrize("arch,window", [
+    ("qwen2_0_5b", None), ("mamba2_1_3b", None), ("deepseek_moe_16b", None),
+    ("internvl2_26b", None), ("hymba_1_5b", None), ("hymba_1_5b", 64)])
+def test_cuda_graph_engine_gives_eager_tokens(card, arch, window):
     """Every decode step of the engine replays its captured graph, and the
     tokens are those of the same batch decoded eagerly; a second batch in
-    the same engine too (its buffers seeded in place)."""
-    bundle, params = _depth2(card, arch)
+    the same engine too (its buffers seeded in place).  hymba_1_5b with a
+    window of 64 keeps a ring of 64 slots, which the prompts fill and every
+    replay past them wraps (the slot pos % 64 read on the card)."""
+    bundle, params = _depth2(card, arch, **(
+        {} if window is None else {"sliding_window": window}))
     ecfg = EngineConfig(batch_size=4, max_seq=256)
     eng = ServeEngine(bundle, params, ecfg, device=card)
     assert eng.decoder.graph is not None
@@ -448,7 +481,8 @@ def test_cuda_graph_engine_gives_eager_tokens(card, arch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["qwen2_0_5b", "deepseek_moe_16b"])
+@pytest.mark.parametrize("arch", ["qwen2_0_5b", "deepseek_moe_16b",
+                                  "hymba_1_5b"])
 def test_cuda_graph_replay_never_waits(card, arch):
     """A replay of the captured step makes the host wait on nothing: the
     MoE layer's routing, dispatch and gather stay on the device too."""
@@ -476,7 +510,11 @@ def test_cuda_graph_replay_never_waits(card, arch):
     ("deepseek_moe_16b", {"streamed_matmul": 7 + 11 + 1,
                           "flash_attention": 0, "decode_attention": 2,
                           "ssd_scan": 0},
-     {"wgmma_decode": 7 + 7 + 1, "fp32": 1, "wgmma_grouped_decode": 3})])
+     {"wgmma_decode": 7 + 7 + 1, "fp32": 1, "wgmma_grouped_decode": 3}),
+    # q k v o, gate up down and the SSD's six (w_B and w_C of N 16)
+    ("hymba_1_5b", {"streamed_matmul": 13 * 2 + 1, "flash_attention": 0,
+                    "decode_attention": 2, "ssd_scan": 0},
+     {"wgmma_decode": 13 * 2 + 1})])
 def test_cuda_graph_replays_count_launches(card, arch, per_step, routes):
     """The counts after n replays are n times one step's launches, by
     kernel and by route; capturing the graph launched nothing."""

@@ -276,6 +276,8 @@ def test_wgmma_ssd_rounding_keeps_the_fine_limit(with_init):
     (torch.bfloat16, 4, 64, 128, (512 * 256, 256) * 2, True, "wgmma"),  # halves
     (torch.float32, 64, 64, 128, (512 * 128, 128) * 2, True, "fp32"),
     (torch.float32, 6, 64, 128, (449 * 257, 257) * 2, False, "fp32"),   # any
+    (torch.bfloat16, 64, 50, 16, (512 * 16, 16) * 2, True, "simt"),    # hymba
+    (torch.float32, 64, 50, 16, (449 * 33, 33) * 2, False, "simt"),    # any
 ])
 def test_ssd_route(dtype, H, P, N, strides, aligned, route):
     assert ssd_route(dtype, H, P, N, strides, aligned) == route
@@ -288,6 +290,8 @@ def test_ssd_route(dtype, H, P, N, strides, aligned, route):
     (torch.bfloat16, 4, 8, 8, (64, 8) * 2, True, ValueError),   # reduced
     (torch.float32, 4, 8, 8, (64, 8) * 2, True, ValueError),    # config
     (torch.float16, 64, 64, 128, (512 * 128, 128) * 2, True, TypeError),
+    (torch.float16, 64, 50, 16, (512 * 16, 16) * 2, True, TypeError),
+    (torch.bfloat16, 64, 50, 32, (512 * 32, 32) * 2, True, ValueError),
 ])
 def test_ssd_route_raises_for_what_no_kernel_takes(dtype, H, P, N, strides,
                                                    aligned, error):
@@ -298,8 +302,9 @@ def test_ssd_route_raises_for_what_no_kernel_takes(dtype, H, P, N, strides,
 def test_reset_launches_zeroes_the_ssd_routes():
     SSD_ROUTE_LAUNCHES["wgmma"] = 3
     SSD_ROUTE_LAUNCHES["fp32"] = 1
+    SSD_ROUTE_LAUNCHES["simt"] = 2
     ops.reset_launches()
-    assert SSD_ROUTE_LAUNCHES == {"wgmma": 0, "fp32": 0}
+    assert SSD_ROUTE_LAUNCHES == {"wgmma": 0, "fp32": 0, "simt": 0}
 
 
 def test_cpu_dispatch_launches_no_kernel():

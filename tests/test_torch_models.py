@@ -28,7 +28,8 @@ torch.set_num_threads(2)
 
 DENSE_ARCHS = ["llama3_2_1b", "qwen2_0_5b", "qwen3_4b", "qwen2_7b"]
 MOE_ARCHS = ["deepseek_moe_16b", "llama4_maverick_400b_a17b"]
-PORTED_ARCHS = DENSE_ARCHS + ["mamba2_1_3b"] + MOE_ARCHS + ["internvl2_26b"]
+PORTED_ARCHS = DENSE_ARCHS + ["mamba2_1_3b"] + MOE_ARCHS + ["internvl2_26b",
+                                                            "hymba_1_5b"]
 
 
 def _fp32(cfg):
@@ -323,7 +324,8 @@ def test_prefill_decode_consistency(arch):
 def test_decode_step_tensor_pos_equals_int(arch):
     """decode with pos as a 0-d int32 tensor (as the engine's captured step
     passes it) gives the int-pos logits and caches bit for bit, past the
-    end of the cache too (nothing written, every slot attended)."""
+    end of the cache too (nothing written, every slot attended; a ring,
+    hymba's, written at pos % S)."""
     *_, cfg, bundle, params = _pair(arch)
     B, S = 2, 12
     toks = torch.tensor(np.random.default_rng(6).integers(
@@ -391,11 +393,6 @@ def test_ssm_prefill_cache_and_decode_steps_match_reference():
         last, caches = bundle.decode(params, caches, torch.tensor(nxt),
                                      S + step)
         _close(last, ref_last, 2e-3)
-
-
-def test_unported_family_raises():
-    with pytest.raises(NotImplementedError):
-        build(reduce_for_smoke(get_config("hymba_1_5b")))
 
 
 def test_unported_encdec_raises():

@@ -31,9 +31,10 @@ from repro_torch.serve import EngineConfig, ServeEngine
 torch.set_num_threads(2)
 
 SERVE_MODELS = ["qwen2_0_5b", "llama3_2_1b", "qwen2_7b"]  # SERVE_PROFILES
-# and the SSD, MoE and vlm paths
+# and the SSD, MoE, vlm and hybrid paths
 SERVED_ARCHS = SERVE_MODELS + ["mamba2_1_3b", "deepseek_moe_16b",
-                               "llama4_maverick_400b_a17b", "internvl2_26b"]
+                               "llama4_maverick_400b_a17b", "internvl2_26b",
+                               "hymba_1_5b"]
 
 
 def _fp32(cfg):
@@ -45,17 +46,18 @@ def _fp32(cfg):
 # batches in one engine (its caches seeded in place for each); max_seq 10
 # is passed by the decode ("past_max_seq", where the port used to raise
 # IndexError) or by a prompt itself ("prompt_over_max_seq"): the reference
-# then writes nothing to the cache and attends to all of its slots.
+# then writes nothing to the cache and attends to all of its slots; a
+# sliding window's ring (reduced hymba_1_5b: window 16, a ring of 10 slots
+# at max_seq 10) is written at pos % 10 instead.
 CASES = {"equal": ((8, 8), 64, 6), "unequal": ((5, 8), 64, 6),
          "two_batches": ((8, 5, 7, 8), 64, 6),
          "past_max_seq": ((8,), 10, 6),
          "prompt_over_max_seq": ((14, 9), 10, 4)}
 
 
-@pytest.mark.parametrize("case", CASES)
-@pytest.mark.parametrize("arch", SERVED_ARCHS)
-def test_greedy_tokens_match_reference(arch, case):
-    lengths, max_seq, new = CASES[case]
+def _served_tokens(arch, lengths, max_seq, new):
+    """Greedy tokens of the JAX engine and the port's, batch 2, the same
+    weights and prompts; checks the engines' counts."""
     ref_cfg = _fp32(ref_reduce(ref_get_config(arch)))
     cfg = _fp32(reduce_for_smoke(get_config(arch)))
     ref_bundle = ref_build(ref_cfg)
@@ -76,10 +78,25 @@ def test_greedy_tokens_match_reference(arch, case):
     want = [r.out_tokens for r in ref_eng.run()]
     got = [r.out_tokens for r in eng.run()]
     assert all(len(t) == new for t in got)
-    assert got == want
     steps = -(-len(lengths) // 2) * (new - 1)
     assert eng.stats["decode_steps"] == ref_eng.stats["decode_steps"] == steps
     assert eng.stats["tokens_out"] == ref_eng.stats["tokens_out"]
+    return got, want
+
+
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("arch", SERVED_ARCHS)
+def test_greedy_tokens_match_reference(arch, case):
+    got, want = _served_tokens(arch, *CASES[case])
+    assert got == want
+
+
+def test_hybrid_prompts_over_window_match_reference():
+    """Reduced hymba_1_5b with prompts of 20 and 24 tokens, past its window
+    of 16, at max_seq 64 (a ring of 16 slots), 12 new tokens: both engines
+    seed the ring with each prompt's last 16 positions and wrap it."""
+    got, want = _served_tokens("hymba_1_5b", (20, 24), 64, 12)
+    assert got == want
 
 
 def test_default_device_raises_without_cuda():

@@ -11,17 +11,21 @@ exits non-zero):
                SASS instruction counts of each kernel (cuobjdump), which
                must show wgmma (HGMMA) and TMA loads (UTMALDG) in the
                prefill and decode matmul kernels, the bf16 flash and
-               decode attention kernels and the bf16 SSD scan kernel; and
-               each kernel's registers and spills from ptxas's report,
-               with no spill allowed in the SSD scan kernel;
+               decode attention kernels and the bf16 SSD scan kernel of
+               P 64, N 128, and tensor-core products (HMMA or HGMMA) and
+               asynchronous loads (UTMALDG or LDGSTS) in the bf16 SSD scan
+               kernel of P 50, N 16; and each kernel's registers and
+               spills from ptxas's report, with no spill allowed in either
+               bf16 SSD scan kernel;
 3. kernels  -- each kernel against its plain PyTorch version on the card
                at the shapes of the serving paths of the seven served
                models (qwen2_0_5b, llama3_2_1b, qwen2_7b, mamba2_1_3b,
                deepseek_moe_16b with its fp32 router, internvl2_26b,
                hymba_1_5b, each at its served batch; hymba's flash
                attention under its window of 1024, at S 512 and at S 1800,
-               past the window; its scan at P 50, N 16 on the CUDA-core
-               route, also at b 2, S 1800 from an initial state), with a
+               past the window; its scan at P 50, N 16, bf16 on the
+               tensor-core route "tc", fp32 on the CUDA cores, also at b 2,
+               S 1800 from an initial state), with a
                served prefill's ragged length
                (8 x 455 rows for the matmul, S 455 for flash attention), the
                wmma matmul kernel and its split-K reduce at two bf16 shapes
@@ -35,7 +39,9 @@ exits non-zero):
                1e-2 |plain|, about one bf16 rounding of its output;
                ssd_scan: 1e-4 and 5e-2 of max |plain|, bf16 also within
                1e-2 of it, at the served shapes and at b 1, S 4096 from an
-               initial state, each call on its route),
+               initial state, there also with dt |A| small (A times 1e-4),
+               the state carried across all 64 sub-chunks, at both (P, N);
+               each call on its route),
                the matmul grouped over experts (deepseek_moe_16b's expert
                FFN at a decode step, C 8, and a prefill, C 235;
                llama4_maverick_400b_a17b's at C 8 and 80; each one launch
@@ -121,8 +127,8 @@ LONG_MAX_SEQ = 2048
 PARITY_WINDOW = 32
 TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 SSD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}  # tests/test_kernels.py's
-# and the second limit of bf16 (tests/test_torch_cuda.py's): the wgmma scan
-# rounds three operands to bf16, which 5e-2 would let pass by far
+# and the second limit of bf16 (tests/test_torch_cuda.py's): the bf16 scans
+# round three operands to bf16, which 5e-2 would let pass by far
 SSD_FINE_TOL = {"bfloat16": 1e-2}
 # bf16 decode attention keeps P.V in fp32, as its plain version: (rtol, atol)
 # of about one bf16 rounding of the output (tests/test_torch_cuda.py's); the
@@ -264,10 +270,16 @@ def phase_build():
         mine = [c for name, c in sass.items() if kernel in name]
         if not mine or not all(c["HGMMA"] and c["UTMALDG"] for c in mine):
             raise AssertionError(f"{kernel}: no wgmma or TMA load in its SASS")
-    mine = [r for name, r in ptxas.items() if "ssd_wgmma_kernel" in name]
-    if not mine or any(r.get("spill_stores") != 0 or r.get("spill_loads") != 0
-                       for r in mine):
-        raise AssertionError(f"ssd_wgmma_kernel: spills or no report {mine}")
+    mine = [c for name, c in sass.items() if "ssd_tc_kernel" in name]
+    if not mine or not all((c["HMMA"] or c["HGMMA"]) and
+                           (c["UTMALDG"] or c["LDGSTS"]) for c in mine):
+        raise AssertionError(f"ssd_tc_kernel: no tensor-core product or "
+                             f"asynchronous load in its SASS {mine}")
+    for kernel in ("ssd_wgmma_kernel", "ssd_tc_kernel"):
+        mine = [r for name, r in ptxas.items() if kernel in name]
+        if not mine or any(r.get("spill_stores") != 0 or
+                           r.get("spill_loads") != 0 for r in mine):
+            raise AssertionError(f"{kernel}: spills or no report {mine}")
 
 
 def ptxas_report(log):
@@ -629,26 +641,32 @@ def phase_kernels(torch, dev):
     # group) at b 8; 449 is prime, so the last sub-chunk is ragged; and a
     # bf16 scan of 64 sub-chunks from an initial state (b 1, S 4096), where
     # the state's rounding error has the longest walk; hymba_1_5b's (64
-    # heads of P 50, N 16, the CUDA-core route) at b 8, and at b 2, S 1800
-    # (the long-prompt serve run) from an initial state.  The least
-    # operations form C B^T once per (batch row, chunk of 256) and the rest
-    # per head; no PyTorch call computes the scan (library: none).
+    # heads of P 50, N 16; bf16 on the tensor-core route "tc") at b 8, and
+    # at b 2, S 1800 (the long-prompt serve run) from an initial state; at
+    # both (P, N) the long-memory case, b 1, S 4096 from an initial state
+    # with A times 1e-4, so that dt |A| is small and the state carries
+    # across all 64 sub-chunks (a state carried in bf16 would miss the fine
+    # limit there: tests/test_torch_kernels.py).  The least operations form
+    # C B^T once per (batch row, chunk of 256) and the rest per head; no
+    # PyTorch call computes the scan (library: none).
     H, chunk = 64, 256
-    ssd_cases = [(torch.float32, 8, 512, False, 64, 128),
-                 (torch.float32, 8, 449, False, 64, 128),
-                 (torch.bfloat16, 8, 512, False, 64, 128),
-                 (torch.bfloat16, 8, 449, False, 64, 128),
-                 (torch.bfloat16, 1, 4096, True, 64, 128),
-                 (torch.float32, 8, 512, False, 50, 16),
-                 (torch.float32, 8, 449, False, 50, 16),
-                 (torch.bfloat16, 8, 512, False, 50, 16),
-                 (torch.bfloat16, 8, 449, False, 50, 16),
-                 (torch.bfloat16, 2, 1800, True, 50, 16)]
-    for dtype, b, S, with_init, P, N in ssd_cases:
+    ssd_cases = [(torch.float32, 8, 512, False, 64, 128, 1.0),
+                 (torch.float32, 8, 449, False, 64, 128, 1.0),
+                 (torch.bfloat16, 8, 512, False, 64, 128, 1.0),
+                 (torch.bfloat16, 8, 449, False, 64, 128, 1.0),
+                 (torch.bfloat16, 1, 4096, True, 64, 128, 1.0),
+                 (torch.bfloat16, 1, 4096, True, 64, 128, 1e-4),
+                 (torch.float32, 8, 512, False, 50, 16, 1.0),
+                 (torch.float32, 8, 449, False, 50, 16, 1.0),
+                 (torch.bfloat16, 8, 512, False, 50, 16, 1.0),
+                 (torch.bfloat16, 8, 449, False, 50, 16, 1.0),
+                 (torch.bfloat16, 2, 1800, True, 50, 16, 1.0),
+                 (torch.bfloat16, 1, 4096, True, 50, 16, 1e-4)]
+    for dtype, b, S, with_init, P, N, a_scale in ssd_cases:
         es = torch.tensor([], dtype=dtype).element_size()
         x = randn(b, S, H, P, dtype=dtype, scale=0.5)
         dt = F.softplus(randn(b, S, H, dtype=torch.float32))
-        A = -torch.exp(randn(H, dtype=torch.float32, scale=0.3))
+        A = -torch.exp(randn(H, dtype=torch.float32, scale=0.3)) * a_scale
         Bm = randn(b, S, N, dtype=dtype, scale=0.5)
         Cm = randn(b, S, N, dtype=dtype, scale=0.5)
         init = randn(b, H, P, N, dtype=torch.float32) if with_init else None
@@ -666,7 +684,8 @@ def phase_kernels(torch, dev):
         if SSD_ROUTE_LAUNCHES[route] != before + 1:
             raise AssertionError(f"ssd_scan ({b}, {S}) {dtype}: the {route} "
                                  "kernel did not launch")
-        check("ssd_scan", [b, S, H, P, N] + (["init"] if with_init else []),
+        check("ssd_scan", [b, S, H, P, N] + (["init"] if with_init else [])
+              + (["long_memory"] if a_scale != 1.0 else []),
               dtype, got, ssd_scan_plain(*args, chunk=chunk, init_state=init),
               es * (2 * b * S * H * P + 2 * b * S * N)
               + 4 * (b * S * H + H + b * H * P * N * (2 if with_init else 1)),
@@ -761,8 +780,8 @@ def expected_launches(cfg, prefills: int, decode_steps: int,
     by route (``"fp32"``, the grouped routes), from the capacity C of a
     prefill's ``prefill_tokens`` tokens and of a step's ``batch``.  Of the
     scans, their count by route (bf16: mamba2's P 64, N 128 on
-    ``"wgmma"``, hymba's P 50, N 16 on ``"simt"``).  Returns (launches,
-    matmul routes, scan routes)."""
+    ``"wgmma"``, hymba's P 50, N 16 on the tensor-core ``"tc"``; none on
+    the CUDA cores).  Returns (launches, matmul routes, scan routes)."""
     import torch
     from repro_torch.kernels.ssd_scan import ssd_route
     from repro_torch.kernels.streamed_matmul import grouped_route
@@ -770,8 +789,12 @@ def expected_launches(cfg, prefills: int, decode_steps: int,
     L, forwards = cfg.n_layers, prefills + decode_steps
     ssd_routes = {}
     if cfg.family in ("ssm", "hybrid"):
-        ssd_routes[ssd_route(torch.bfloat16, cfg.ssm_heads, cfg.ssm_headdim,
-                             cfg.ssm_state)] = L * prefills
+        route = {"ssm": "wgmma", "hybrid": "tc"}[cfg.family]
+        if ssd_route(torch.bfloat16, cfg.ssm_heads, cfg.ssm_headdim,
+                     cfg.ssm_state) != route:
+            raise AssertionError(f"{cfg.name}'s scans would not take the "
+                                 f"{route} kernel")
+        ssd_routes[route] = L * prefills
     if cfg.family == "ssm":  # w_z, w_x, w_B, w_C, w_dt, w_out; the SSD scan
         return {"streamed_matmul": (6 * L + 1) * forwards,
                 "flash_attention": 0, "decode_attention": 0,

@@ -1,7 +1,8 @@
 // Hopper building blocks shared by the tensor-core kernels (sm_90a), written
 // from PTX: mbarriers, TMA tile loads and stores, wgmma shared-memory
 // descriptors, the wgmma fence / commit / wait discipline, the bf16 -> fp32
-// wgmma instructions at the widths the kernels use, a transposing ldmatrix,
+// wgmma instructions at the widths the kernels use, the warp-level mma.sync
+// of 16 x 8 x 16 and the ldmatrix loads of its fragments,
 // register hand-over between warpgroups (setmaxnreg), and the cluster
 // barrier and distributed shared-memory reads that merge a cluster's
 // partial results.
@@ -124,6 +125,15 @@ __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void*
       : "memory");
 }
 
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
@@ -161,6 +171,46 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* 
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_u32(p))
                : "memory");
+}
+
+// Two such matrices, lanes 0 .. 15 giving the addresses.
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// The same, not transposed: lane l receives, in r[m], the elements (l / 4,
+// 2 (l % 4)) and (l / 4, 2 (l % 4) + 1) of matrix m (row, column of the
+// stored matrix): an mma.sync A fragment of a row-major matrix, or a B
+// fragment of a matrix stored with the reduction dim contiguous.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// Two such matrices, lanes 0 .. 15 giving the addresses.
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// D(16 x 8, fp32) += A(16 x 16, bf16) * B(16 x 8, bf16) on one warp's tensor
+// cores (mma.sync).  Lane l, g = l / 4, q = l % 4: a[h + 2 c] = A[g + 8 h][8 c
+// + 2 q + {0, 1}], b[c] = B[8 c + 2 q + {0, 1}][g], d[2 h + e] = D[g + 8 h][2
+// q + e].  A product's D is the A fragment of a next product over its
+// columns: a[h + 2 c] of k-step s = D of column tile 2 s + c, elements 2 h, 2 h + 1.
+__device__ __forceinline__ void mma_m16n8k16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                             uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Four 8 x 8 bf16 matrices to shared memory: lanes 8 m .. 8 m + 7 give the

@@ -10,7 +10,7 @@
 // and sequence strides and a contiguous last dim (views are read in place);
 // init_state (or null for zeros) and the final state (b, H, P, N) fp32.
 // (P, N) = (64, 128) (mamba2_1_3b; ssd_kernel and ssd_wgmma_kernel) or
-// (50, 16) (hymba_1_5b; ssd_simt_kernel).
+// (50, 16) (hymba_1_5b; ssd_simt_kernel in fp32, ssd_tc_kernel in bf16).
 //
 // What bounds it on an H100: at b 8, S 512, H 64 a call moves ~87 MB (x, y
 // and the final state dominate) and needs ~17 GFLOP with C.B^T formed once
@@ -61,18 +61,72 @@
 // state^T 128 x 68 and four 64-vectors, 138,240 bytes) and runs every
 // product as fp32 FMA from register tiles of 4x4 (8x4 for the state).
 //
-// (50, 16), fp32 and bf16 (ssd_simt_kernel): a bf16 row of 50 is 100 bytes,
-// no multiple of TMA's 16-byte box, and 50 is no multiple of wgmma's 8, so
-// this shape stays on the CUDA cores: one block per (head, batch row) of
-// 256 threads walks the sequence in sub-chunks of Q = 64 rows with x dt, B,
-// C, G = (C B^T) o L, the 50 x 16 state and the four 64-vectors in 42 KB
-// of shared memory, every product in fp32 FMA from
-// shared memory, one output element a thread at a time.  It reads x, B and
-// C in their type, computes in fp32 and writes y in x's type.  A bf16 call
-// at b 8, S 512, H 64 moves ~54 MB (x and y), ~16 us at the card's rate,
-// and needs ~1.4 GFLOP; latency bounds it, each block a chain of sub-chunks
-// of five barriers each, the design a later redesign on the tensor cores
-// would replace.
+// (50, 16) in fp32 (ssd_simt_kernel) exists for parity runs: one block per
+// (head, batch row) of 256 threads walks the sequence in sub-chunks of
+// Q = 64 rows on the CUDA cores with x dt, B, C, G = (C B^T) o L, the 50 x
+// 16 state and the four 64-vectors in 42 KB of shared memory, one output
+// element a thread at a time.
+//
+// (50, 16) in bf16 (ssd_tc_kernel), hymba_1_5b's served scan.  What bounds
+// it: at b 8, S 512, H 64 a call moves ~54 MB (x and y), 0.0165 ms at 3.35
+// TB/s, and needs ~3 GFLOP as padded for the tensor cores (~3 us at the
+// dense bf16 peak); each block is a chain of S / 64 sub-chunks, so the
+// latency of a sub-chunk bounds it next.  What the design does about it:
+// - One block per (group of 4 heads, batch row), 16 warps, walks the
+//   sequence in sub-chunks of 64 rows.  Four heads is the least group whose
+//   rows are whole 16-byte units: its slice of an x row is 4 x 50 x 2 = 400
+//   bytes at byte 400 g, of a dt row 16 bytes at byte 16 g.  So TMA takes x
+//   as (b S) rows of H P elements, box {200, 64, 1}, unswizzled, and the
+//   same map takes y back; B and C as {16, S, b} with the caller's strides,
+//   box {16, 64, 1}; dt as the wgmma kernel does.  A ring of 4 stages keeps
+//   two sub-chunks in flight ahead of the one computed.  TMA fills rows past
+//   S with zeros, rows with dt = 0 that neither decay nor feed the state,
+//   and the y store does not write them.
+// - A re-layout pass: head h's 50 columns start at byte 100 h, 4-byte
+//   aligned only, which ldmatrix cannot address (and a TMA box of 28 words
+//   starting there never completed its barrier on the card), so each warp
+//   copies its head's rows of the next sub-chunk, a 32-bit word a lane, to
+//   a tile of 112-byte rows (P padded to 56 with zeros, in shared memory
+//   only; at 112 bytes the eight rows of an ldmatrix fall in distinct
+//   banks) once it is done with this one.  Strip 0 of each head, which has
+//   the least to do, then scans the next sub-chunk's dt A (log2 units) into
+//   the head's vectors.
+// - Every product on the tensor cores, mma.sync m16n8k16 (bf16 operands,
+//   fp32 sums), not wgmma: the products are small (~3 GFLOP a call), so
+//   wgmma's rate would lift nothing that bounds the kernel, while a warp of
+//   16 rows skips the blocks right of the diagonal that wgmma's 64-row tile
+//   computes, and ldmatrix reads plain row-major tiles where wgmma needs its
+//   canonical layouts.  Warp 4 w + hh takes rows 16 w .. 16 w + 15 of head
+//   hh, so each of the SM's four schedulers (warp % 4) runs one head:
+//     y_off = C state^T (K 16, the state's bf16 copy), times exp(cum_i);
+//     per k-step kk <= w: G = C B^T (two 16 x 8 products, K 16), each
+//     element times exp(cum_i - cum_j) dt_j (0 for j > i) and rounded to
+//     bf16: the accumulator becomes the A fragment of y += (G o L o dt) x
+//     (7 column tiles of x).  G never leaves the registers: each head's
+//     warps form it from the block's C and B tiles, where forming it once
+//     per block would cost a 16 KB fp32 round trip through shared memory and
+//     a second barrier, more than the 2 (w + 1) products a warp saves;
+//     y goes to bf16 over the stage's x, which the re-layout has read, and
+//     leaves by one TMA store after the next barrier;
+//     state^T = exp(cum_last) state^T + (B o w)^T x, w_j = dt_j exp(cum_last
+//     - cum_j), B o w rounded to bf16 as the A fragment (B read transposed
+//     by ldmatrix): warp 4 w + hh keeps column tiles w and w + 4 (< 7) of
+//     head hh's state in fp32 accumulator registers from the first
+//     sub-chunk to the last; only its bf16 copy in shared memory (the B
+//     operand of y_off) is rounded.
+// - One __syncthreads per sub-chunk: the x tiles, the vectors and the
+//   state's bf16 copy are double buffered, so that a warp may start on the
+//   next sub-chunk while others finish this one.  108 registers a thread,
+//   ~210 KB of shared memory, one block of 512 threads per SM.
+// Three operands are rounded to bf16 where the CUDA-core kernel kept fp32,
+// as in the wgmma kernel: G o L o dt, the state in y_off, and B o w.
+// Measured on one H100 80GB HBM3 at 700 W (chip_smoke.py): 0.0322 ms at b 8,
+// S 512, 1.95x the byte bound (the CUDA-core kernel took 0.3652 ms), and
+// 0.1718 ms at b 1, S 4096, about 2.7 us a sub-chunk.  The instruction rate
+// does not bound it: forming L from two factors without an exp per element,
+// or moving the state's tiles off the busiest strip, made it no faster
+// (launch/scan_time.py).  At b 2 (32 blocks) and b 1 (16) most SMs idle
+// while a block's 29 or 64 sub-chunks run in sequence.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -304,7 +358,7 @@ int launch(const void* x, const void* dt, const void* A, const void* B, const vo
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---------------------------------------------- (50, 16): fp32 and bf16, CUDA cores
+// ------------------------------------------------- (50, 16) fp32, CUDA cores
 constexpr int SIMT_THREADS = 256;
 
 template <typename T, int SP_, int SN_>
@@ -811,12 +865,371 @@ int launch_wgmma(const void* x, const void* dt, const void* A, const void* B, co
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// ------------------------------------------ (50, 16) bf16: mma.sync and TMA
+constexpr int TC_P = 50, TC_N = 16;
+constexpr int TC_HEADS = 4;                  // heads per block: 400-byte rows of x
+constexpr int TC_PT = 7;                     // tiles of 8 columns over P (50 padded to 56)
+constexpr int TC_THREADS = 4 * TC_HEADS * 32;  // 4 warps a head, 16 rows each
+constexpr int TC_STAGES = 4;                 // the TMA ring
+constexpr int TC_ROW = TC_HEADS * TC_P;      // a sequence row of the block's x: 200 bf16
+constexpr int TC_DT = Q * TC_ROW * 2;        // stage: x (then y), dt, B, C
+constexpr int TC_B = TC_DT + Q * TC_HEADS * 4;
+constexpr int TC_C = TC_B + Q * TC_N * 2;
+constexpr int TC_STAGE = TC_C + Q * TC_N * 2;
+constexpr int XP_LD = 56;                    // a head's x tile row: 112 bytes
+constexpr int XP_TILE = Q * XP_LD;           // elements of a head's x tile
+constexpr int SB_LD = 24;                    // a row p of the state's bf16 copy: 48 bytes
+constexpr int SB_TILE = 8 * TC_PT * SB_LD;
+// a head's vectors over the sub-chunk's rows, fp32: cum (log2 units), dt,
+// w_j = dt_j exp(cum_last - cum_j), exp(cum_i), and exp(cum_last)
+constexpr int TV_C = 0, TV_D = 64, TV_W = 128, TV_EC = 192, TV_EL = 256, TC_VEC = 260;
+constexpr int TC_SMEM = 128 + TC_STAGES * TC_STAGE +
+                        2 * TC_HEADS * (2 * XP_TILE + 2 * SB_TILE + 4 * TC_VEC) + TC_STAGES * 8;
+
+static_assert(TC_STAGE % 128 == 0 && TC_DT % 128 == 0 && TC_B % 128 == 0 && TC_C % 128 == 0,
+              "TMA's shared-memory boxes must stay 128-byte aligned");
+static_assert(TC_SMEM <= 232448, "more shared memory than a block may have");
+
+// bf16 pair u times (f.x, f.y), rounded to a bf16 pair
+__device__ __forceinline__ uint32_t scale_bf16x2(uint32_t u, float2 f) {
+  const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+  return hopper::pack_bf16(v.x * f.x, v.y * f.y);
+}
+
+__global__ void __launch_bounds__(TC_THREADS, 1)
+ssd_tc_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap ymap,
+              const __grid_constant__ CUtensorMap bmap, const __grid_constant__ CUtensorMap cmap,
+              const __grid_constant__ CUtensorMap dtmap, const float* __restrict__ A,
+              const float* __restrict__ init, float* __restrict__ state_out, int S, int H) {
+  using namespace hopper;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* stages = smem_raw + ((128 - (smem_u32(smem_raw) & 127)) & 127);
+  __nv_bfloat16* xp = reinterpret_cast<__nv_bfloat16*>(stages + TC_STAGES * TC_STAGE);
+  __nv_bfloat16* sbf = xp + 2 * TC_HEADS * XP_TILE;                      // [2][TC_HEADS]
+  float* vec = reinterpret_cast<float*>(sbf + 2 * TC_HEADS * SB_TILE);   // [2][TC_HEADS]
+  uint64_t* full = reinterpret_cast<uint64_t*>(vec + 2 * TC_HEADS * TC_VEC);
+
+  const int h0 = blockIdx.x * TC_HEADS, b = blockIdx.y;
+  const int nsteps = (S + Q - 1) / Q;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  // warp = 4 w + hh: strip w (rows 16 w .. 16 w + 15) of head h0 + hh, so
+  // that each of the SM's four schedulers (warp % 4) runs one head's strips
+  const int hh = warp % TC_HEADS, w = warp / TC_HEADS;
+  const int g = lane / 4, tq = lane % 4, mi = lane / 8, lr = lane % 8;
+  const int r0 = 16 * w + g;                  // accumulator rows r0 and r0 + 8
+  const int h = h0 + hh;
+  const size_t bh = (size_t)b * H + h;
+
+  auto load = [&](int step) {
+    unsigned char* st = stages + (step % TC_STAGES) * TC_STAGE;
+    uint64_t* bar = &full[step % TC_STAGES];
+    mbar_arrive_expect_tx(bar, TC_STAGE);
+    tma_load_3d(st, &xmap, bar, h0 * TC_P, step * Q, b);
+    tma_load_3d(st + TC_DT, &dtmap, bar, h0, step * Q, b);
+    tma_load_3d(st + TC_B, &bmap, bar, 0, step * Q, b);
+    tma_load_3d(st + TC_C, &cmap, bar, 0, step * Q, b);
+  };
+  if (tid == 0) {
+    for (int s = 0; s < TC_STAGES; ++s) mbar_init(&full[s], 1);
+    fence_barrier_init();
+    tma_prefetch_map(&xmap);
+    tma_prefetch_map(&ymap);
+    tma_prefetch_map(&bmap);
+    tma_prefetch_map(&cmap);
+    tma_prefetch_map(&dtmap);
+    for (int step = 0; step < min(TC_STAGES, nsteps); ++step) load(step);
+  }
+  // columns 50 .. 55 of the x tiles stay 0
+  uint32_t* xp32 = reinterpret_cast<uint32_t*>(xp);
+  for (int e = tid; e < 2 * TC_HEADS * Q * 3; e += TC_THREADS)
+    xp32[(e / 3) * (XP_LD / 2) + TC_P / 2 + e % 3] = 0u;
+
+  // The state^T (n, p) of head h in fp32 accumulators: this warp's column
+  // tiles w and w + 4 (< 7), rows n = g, g + 8, columns p = 8 pt + 2 tq + e
+  float sacc[2][4];
+#pragma unroll
+  for (int k = 0; k < 2; ++k)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int pt = w + 4 * k, n = g + 8 * (e / 2), p = 8 * pt + 2 * tq + e % 2;
+      sacc[k][e] = init && pt < TC_PT && p < TC_P ? init[(bh * TC_P + p) * TC_N + n] : 0.f;
+    }
+  // its bf16 copy, [p][n]: the B operand of y_off
+  auto store_state = [&](__nv_bfloat16* sb) {
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      if (w + 4 * k >= TC_PT) continue;
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        sb[(8 * (w + 4 * k) + 2 * tq + e % 2) * SB_LD + g + 8 * (e / 2)] =
+            __float2bfloat16(sacc[k][e]);
+    }
+  };
+  store_state(sbf + hh * SB_TILE);
+
+  // A sub-chunk's x to each head's tile of 112-byte rows, which ldmatrix
+  // can address: head hh's 50 columns start at byte 100 hh of the 400-byte
+  // row TMA wrote, 4-byte aligned only.  Warp 4 w + hh copies head hh's
+  // rows w, w + 4, .., lane l < 25 its word l of each
+  auto relayout = [&](int step) {
+    const unsigned char* st = stages + (step % TC_STAGES) * TC_STAGE;
+    mbar_wait(&full[step % TC_STAGES], (step / TC_STAGES) & 1);
+    if (lane < TC_P / 2) {
+      const uint32_t* src = reinterpret_cast<const uint32_t*>(st) + hh * (TC_P / 2) + lane;
+      uint32_t* dst = xp32 + ((step & 1) * TC_HEADS + hh) * (XP_TILE / 2) + lane;
+      uint32_t u[Q / 4];
+#pragma unroll
+      for (int k = 0; k < Q / 4; ++k) u[k] = src[(w + 4 * k) * (TC_ROW / 2)];
+#pragma unroll
+      for (int k = 0; k < Q / 4; ++k) dst[(w + 4 * k) * (XP_LD / 2)] = u[k];
+    }
+  };
+  // Strip 0 of each head (the least work) scans dt A of a sub-chunk, in
+  // log2 units, into the head's vectors: lane l holds rows l (c0) and
+  // l + 32 (c1)
+  const float a2 = A[h] * LOG2E;
+  auto scan = [&](int step) {
+    const unsigned char* st = stages + (step % TC_STAGES) * TC_STAGE;
+    const float* dts = reinterpret_cast<const float*>(st + TC_DT);
+    const float d0 = dts[lane * TC_HEADS + hh], d1 = dts[(lane + 32) * TC_HEADS + hh];
+    float c0 = d0 * a2, c1 = d1 * a2;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float u0 = __shfl_up_sync(0xffffffffu, c0, off);
+      const float u1 = __shfl_up_sync(0xffffffffu, c1, off);
+      if (lane >= off) {
+        c0 += u0;
+        c1 += u1;
+      }
+    }
+    c1 += __shfl_sync(0xffffffffu, c0, 31);
+    const float cl = __shfl_sync(0xffffffffu, c1, 31);
+    float* v = vec + ((step & 1) * TC_HEADS + hh) * TC_VEC;
+    v[TV_C + lane] = c0;
+    v[TV_C + lane + 32] = c1;
+    v[TV_D + lane] = d0;
+    v[TV_D + lane + 32] = d1;
+    v[TV_W + lane] = d0 * ex2(cl - c0);
+    v[TV_W + lane + 32] = d1 * ex2(cl - c1);
+    v[TV_EC + lane] = ex2(c0);
+    v[TV_EC + lane + 32] = ex2(c1);
+    if (lane == 0) v[TV_EL] = ex2(cl);
+  };
+  __syncthreads();  // the barriers are initialised
+  relayout(0);
+  if (w == 0) scan(0);
+
+  for (int step = 0; step < nsteps; ++step) {
+    const int par = step & 1;
+    unsigned char* st = stages + (step % TC_STAGES) * TC_STAGE;
+    // The one block-wide barrier of a sub-chunk: its x tiles and vectors
+    // are written, and every warp is done with the sub-chunk before (its y
+    // over its stage's x, the x tiles, state copy and vectors of the other
+    // parity)
+    __syncthreads();
+    if (tid == 0) {
+      if (step >= 1) {  // y of the sub-chunk before, out of its stage
+        tma_store_3d(&ymap, stages + ((step - 1) % TC_STAGES) * TC_STAGE, h0 * TC_P,
+                     (step - 1) * Q, b);
+        bulk_commit();
+      }
+      // the stage of two sub-chunks back, once its y store has read it,
+      // takes the sub-chunk TC_STAGES - 2 ahead
+      if (step >= 2 && step - 2 + TC_STAGES < nsteps) {
+        bulk_wait_read<1>();
+        load(step - 2 + TC_STAGES);
+      }
+    }
+    __syncwarp();
+
+    const __nv_bfloat16* Bt = reinterpret_cast<const __nv_bfloat16*>(st + TC_B);  // [j][n]
+    const __nv_bfloat16* Ct = reinterpret_cast<const __nv_bfloat16*>(st + TC_C);  // [i][n]
+    const __nv_bfloat16* xh = xp + (par * TC_HEADS + hh) * XP_TILE;              // [j][p]
+    const float* v = vec + (par * TC_HEADS + hh) * TC_VEC;
+
+    // C of the strip's rows: the A operand of C B^T and of C state^T
+    uint32_t ca[4];
+    ldmatrix_x4(ca, Ct + (16 * w + lr + 8 * (mi % 2)) * TC_N + 8 * (mi / 2));
+
+    // y_off = C state^T from the state's bf16 copy, scaled by exp(cum_i)
+    const __nv_bfloat16* sb = sbf + (par * TC_HEADS + hh) * SB_TILE;
+    float y[TC_PT][4];
+#pragma unroll
+    for (int pt = 0; pt < TC_PT; ++pt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) y[pt][e] = 0.f;
+#pragma unroll
+    for (int pt = 0; pt < TC_PT; pt += 2) {
+      if (pt + 1 < TC_PT) {
+        uint32_t bb[4];
+        ldmatrix_x4(bb, sb + (8 * (pt + mi / 2) + lr) * SB_LD + 8 * (mi % 2));
+        mma_m16n8k16(y[pt], ca, bb[0], bb[1]);
+        mma_m16n8k16(y[pt + 1], ca, bb[2], bb[3]);
+      } else {
+        uint32_t bb[2];
+        ldmatrix_x2(bb, sb + (8 * pt + lr) * SB_LD + 8 * (mi % 2));
+        mma_m16n8k16(y[pt], ca, bb[0], bb[1]);
+      }
+    }
+    const float ec0 = v[TV_EC + r0], ec1 = v[TV_EC + r0 + 8];
+    const float ci0 = v[TV_C + r0], ci1 = v[TV_C + r0 + 8];
+#pragma unroll
+    for (int pt = 0; pt < TC_PT; ++pt) {
+      y[pt][0] *= ec0;
+      y[pt][1] *= ec0;
+      y[pt][2] *= ec1;
+      y[pt][3] *= ec1;
+    }
+
+    // y += (G o L o dt) x over the columns j <= i: per k-step of 16 columns,
+    // G = C B^T (two 16 x 8 products, K = N = 16), then each element times
+    // exp(cum_i - cum_j) dt_j (0 right of the diagonal) as a bf16 A fragment
+#pragma unroll
+    for (int kk = 0; kk < Q / 16; ++kk) {
+      if (kk > w) break;
+      uint32_t bb[4];
+      ldmatrix_x4(bb, Bt + (16 * kk + 8 * (mi / 2) + lr) * TC_N + 8 * (mi % 2));
+      float g0[4] = {0.f, 0.f, 0.f, 0.f}, g1[4] = {0.f, 0.f, 0.f, 0.f};
+      mma_m16n8k16(g0, ca, bb[0], bb[1]);
+      mma_m16n8k16(g1, ca, bb[2], bb[3]);
+      const int j0 = 16 * kk + 2 * tq;
+      const float2 cj0 = *reinterpret_cast<const float2*>(v + TV_C + j0);
+      const float2 cj1 = *reinterpret_cast<const float2*>(v + TV_C + j0 + 8);
+      const float2 dj0 = *reinterpret_cast<const float2*>(v + TV_D + j0);
+      const float2 dj1 = *reinterpret_cast<const float2*>(v + TV_D + j0 + 8);
+      auto m = [](float gv, int i, float ci, int j, float cj, float dj) {
+        return j <= i ? gv * ex2(ci - cj) * dj : 0.f;
+      };
+      const uint32_t ma[4] = {
+          pack_bf16(m(g0[0], r0, ci0, j0, cj0.x, dj0.x), m(g0[1], r0, ci0, j0 + 1, cj0.y, dj0.y)),
+          pack_bf16(m(g0[2], r0 + 8, ci1, j0, cj0.x, dj0.x),
+                    m(g0[3], r0 + 8, ci1, j0 + 1, cj0.y, dj0.y)),
+          pack_bf16(m(g1[0], r0, ci0, j0 + 8, cj1.x, dj1.x),
+                    m(g1[1], r0, ci0, j0 + 9, cj1.y, dj1.y)),
+          pack_bf16(m(g1[2], r0 + 8, ci1, j0 + 8, cj1.x, dj1.x),
+                    m(g1[3], r0 + 8, ci1, j0 + 9, cj1.y, dj1.y))};
+      // x rows 16 kk .. 16 kk + 15 as B fragments (ldmatrix, transposed)
+      const __nv_bfloat16* xr = xh + (16 * kk + lr + 8 * (mi % 2)) * XP_LD;
+#pragma unroll
+      for (int pt = 0; pt < TC_PT; pt += 2) {
+        if (pt + 1 < TC_PT) {
+          uint32_t xb[4];
+          ldmatrix_x4_trans(xb, xr + 8 * (pt + mi / 2));
+          mma_m16n8k16(y[pt], ma, xb[0], xb[1]);
+          mma_m16n8k16(y[pt + 1], ma, xb[2], xb[3]);
+        } else {
+          uint32_t xb[2];
+          ldmatrix_x2_trans(xb, xr + 8 * pt);
+          mma_m16n8k16(y[pt], ma, xb[0], xb[1]);
+        }
+      }
+    }
+
+    // y in bf16 over the stage's x, which the re-layout has read: head hh's
+    // columns of rows r0 and r0 + 8, a bf16 pair a word
+    uint32_t* y32 = reinterpret_cast<uint32_t*>(st);
+#pragma unroll
+    for (int pt = 0; pt < TC_PT; ++pt)
+      if (8 * pt + 2 * tq < TC_P) {
+        const int col = hh * (TC_P / 2) + 4 * pt + tq;
+        y32[r0 * (TC_ROW / 2) + col] = pack_bf16(y[pt][0], y[pt][1]);
+        y32[(r0 + 8) * (TC_ROW / 2) + col] = pack_bf16(y[pt][2], y[pt][3]);
+      }
+    fence_proxy_async();  // the next sub-chunk's TMA store reads it
+
+    // state^T = exp(cum_last) state^T + (B o w)^T x, K = the 64 rows j: the
+    // A fragments of (B o w)^T from B by ldmatrix (transposed), scaled by w
+    // and rounded to bf16; x's B fragments as for y
+    const float el = v[TV_EL];
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sacc[k][e] *= el;
+#pragma unroll
+    for (int kk = 0; kk < Q / 16; ++kk) {
+      uint32_t ba[4];
+      ldmatrix_x4_trans(ba, Bt + (16 * kk + lr + 8 * (mi / 2)) * TC_N + 8 * (mi % 2));
+      const int j0 = 16 * kk + 2 * tq;
+      const float2 w0 = *reinterpret_cast<const float2*>(v + TV_W + j0);
+      const float2 w1 = *reinterpret_cast<const float2*>(v + TV_W + j0 + 8);
+      const uint32_t wa[4] = {scale_bf16x2(ba[0], w0), scale_bf16x2(ba[1], w0),
+                              scale_bf16x2(ba[2], w1), scale_bf16x2(ba[3], w1)};
+      const __nv_bfloat16* xr = xh + (16 * kk + lr + 8 * (mi % 2)) * XP_LD;
+#pragma unroll
+      for (int k = 0; k < 2; ++k)
+        if (w + 4 * k < TC_PT) {
+          uint32_t xb[2];
+          ldmatrix_x2_trans(xb, xr + 8 * (w + 4 * k));
+          mma_m16n8k16(sacc[k], wa, xb[0], xb[1]);
+        }
+    }
+    // the bf16 copy of the other parity, for the next sub-chunk's y_off
+    store_state(sbf + ((par ^ 1) * TC_HEADS + hh) * SB_TILE);
+    // the next sub-chunk's x tiles and vectors, each warp once done here
+    if (step + 1 < nsteps) {
+      relayout(step + 1);
+      if (w == 0) scan(step + 1);
+    }
+  }
+
+  __syncthreads();
+  if (tid == 0) {
+    tma_store_3d(&ymap, stages + ((nsteps - 1) % TC_STAGES) * TC_STAGE, h0 * TC_P,
+                 (nsteps - 1) * Q, b);
+    bulk_commit();
+  }
+#pragma unroll
+  for (int k = 0; k < 2; ++k)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int pt = w + 4 * k, n = g + 8 * (e / 2), p = 8 * pt + 2 * tq + e % 2;
+      if (pt < TC_PT && p < TC_P) state_out[(bh * TC_P + p) * TC_N + n] = sacc[k][e];
+    }
+  if (tid == 0) bulk_wait<0>();
+}
+
+int launch_tc(const void* x, const void* dt, const void* A, const void* B, const void* C,
+              const void* init, void* y, void* state, int nb, int S, int H, int b_sb, int b_ss,
+              int c_sb, int c_ss, cudaStream_t stream) {
+  if (H % TC_HEADS != 0) return static_cast<int>(cudaErrorInvalidValue);
+  static hopper::SmemRaised raised;
+  CUtensorMap xmap, ymap, bmap, cmap, dtmap;
+  // x and y as (b S) rows of H P elements: a block's box is 4 heads of a row
+  const uint64_t xdims[3] = {(uint64_t)H * TC_P, (uint64_t)S, (uint64_t)nb};
+  const uint64_t xstr[2] = {(uint64_t)H * TC_P * 2, (uint64_t)S * H * TC_P * 2};
+  const uint32_t xbox[3] = {TC_ROW, Q, 1};
+  const uint64_t bcdims[3] = {TC_N, (uint64_t)S, (uint64_t)nb};
+  const uint64_t bstr[2] = {(uint64_t)b_ss * 2, (uint64_t)b_sb * 2};
+  const uint64_t cstr[2] = {(uint64_t)c_ss * 2, (uint64_t)c_sb * 2};
+  const uint32_t bcbox[3] = {TC_N, Q, 1};
+  const uint64_t dtdims[3] = {(uint64_t)H, (uint64_t)S, (uint64_t)nb};
+  const uint64_t dtstr[2] = {(uint64_t)H * 4, (uint64_t)S * H * 4};
+  const uint32_t dtbox[3] = {TC_HEADS, Q, 1};
+  constexpr CUtensorMapDataType BF16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  constexpr CUtensorMapSwizzle NONE = CU_TENSOR_MAP_SWIZZLE_NONE;
+  if (!hopper::make_map(&xmap, BF16, x, 3, xdims, xstr, xbox, NONE) ||
+      !hopper::make_map(&ymap, BF16, y, 3, xdims, xstr, xbox, NONE) ||
+      !hopper::make_map(&bmap, BF16, B, 3, bcdims, bstr, bcbox, NONE) ||
+      !hopper::make_map(&cmap, BF16, C, 3, bcdims, cstr, bcbox, NONE) ||
+      !hopper::make_map(&dtmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, dt, 3, dtdims, dtstr, dtbox,
+                        NONE))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = hopper::allow_smem(ssd_tc_kernel, TC_SMEM, raised);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ssd_tc_kernel<<<dim3(H / TC_HEADS, nb), TC_THREADS, TC_SMEM, stream>>>(
+      xmap, ymap, bmap, cmap, dtmap, static_cast<const float*>(A),
+      static_cast<const float*>(init), static_cast<float*>(state), S, H);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// dtype: 0 = fp32, 1 = bf16 (x, B, C and y).  (P, N) = (50, 16) takes the
-// CUDA-core ssd_simt_kernel in either type; (64, 128) in fp32 the CUDA-core
-// ssd_kernel, in bf16 the wgmma kernel, which takes H % 4 == 0 and 16-byte
-// aligned pointers and B and C strides.  init may be null (zero state).
+// dtype: 0 = fp32, 1 = bf16 (x, B, C and y).  In fp32 the CUDA-core kernels
+// take (P, N) = (50, 16) (ssd_simt_kernel) and (64, 128) (ssd_kernel); in
+// bf16 the tensor-core kernels, ssd_tc_kernel at (50, 16) and the wgmma
+// kernel at (64, 128), which take H % 4 == 0 and 16-byte aligned pointers
+// and B and C strides.  init may be null (zero state).
 // Returns the cudaError_t of the launch, or cudaErrorInvalidValue for what
 // the kernels do not take.
 extern "C" int ssd_scan(const void* x, const void* dt, const void* A, const void* B,
@@ -828,8 +1241,7 @@ extern "C" int ssd_scan(const void* x, const void* dt, const void* A, const void
     return launch_simt<float, 50, 16>(x, dt, A, B, C, init, y, state, nb, S, H, b_sb, b_ss,
                                       c_sb, c_ss, s);
   if (P == 50 && N == 16 && dtype == 1)
-    return launch_simt<__nv_bfloat16, 50, 16>(x, dt, A, B, C, init, y, state, nb, S, H, b_sb,
-                                              b_ss, c_sb, c_ss, s);
+    return launch_tc(x, dt, A, B, C, init, y, state, nb, S, H, b_sb, b_ss, c_sb, c_ss, s);
   if (P != SP || N != SN) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0) return launch(x, dt, A, B, C, init, y, state, nb, S, H, b_sb, b_ss, c_sb, c_ss, s);
   if (dtype == 1) return launch_wgmma(x, dt, A, B, C, init, y, state, nb, S, H, b_sb, b_ss, c_sb, c_ss, s);

@@ -16,7 +16,10 @@ against on the card); ``ssd_scan_cuda`` launches one of the hand-written
 kernels of ``csrc/ssd_scan.cu``, chosen by ``ssd_route``, which walk the
 sequence in sub-chunks of their own (64 rows) and take (P, N) = (64, 128)
 (mamba2_1_3b) or (50, 16) (hymba_1_5b) only, and counts its launches by
-route in ``SSD_ROUTE_LAUNCHES``.
+route in ``SSD_ROUTE_LAUNCHES``.  bf16 runs on the tensor cores at both
+shapes: ``ssd_wgmma_kernel`` at (64, 128), ``ssd_tc_kernel`` (mma.sync,
+four heads a block) at (50, 16); fp32 runs on the CUDA cores, for parity
+runs.
 """
 from __future__ import annotations
 
@@ -30,10 +33,13 @@ from .streamed_matmul import DTYPE_CODES
 
 HEAD_DIM = 64    # P of the wgmma and fp32 kernels
 STATE_DIM = 128  # N of the wgmma and fp32 kernels
-SIMT_SHAPE = (50, 16)  # (P, N) of the CUDA-core kernel that takes both types
-DT_BOX_HEADS = 4  # heads in the wgmma kernel's dt box (16 bytes, TMA's least)
+HYBRID_SHAPE = (50, 16)  # (P, N) of the tc (bf16) and simt (fp32) kernels
+# heads in a dt box of the TMA kernels (16 bytes, TMA's least), and a
+# block's heads in the tc kernel (a 400-byte slice of an x row)
+DT_BOX_HEADS = 4
 # launches of ssd_scan_cuda by route (see ssd_route)
-SSD_ROUTE_LAUNCHES: Dict[str, int] = {"wgmma": 0, "fp32": 0, "simt": 0}
+SSD_ROUTE_LAUNCHES: Dict[str, int] = {"wgmma": 0, "fp32": 0, "simt": 0,
+                                      "tc": 0}
 
 
 def ssd_route(dtype: torch.dtype, H: int, P: int, N: int,
@@ -41,24 +47,25 @@ def ssd_route(dtype: torch.dtype, H: int, P: int, N: int,
     """Which kernel of ``csrc/ssd_scan.cu`` takes a scan; raises for what
     none takes.
 
-    ``"simt"`` (a CUDA-core kernel, fp32 inside) takes fp32 and bf16 at
-    P 50, N 16 (hymba_1_5b's heads), any strides and alignment.  At P 64,
-    N 128: ``"fp32"`` (the CUDA-core kernel, for parity runs) takes fp32;
-    ``"wgmma"`` (TMA and wgmma) takes bf16 with H a multiple of 4 (dt's TMA
-    box), the batch and sequence strides of B and C (``bc_strides``, in
-    elements) multiples of 8 (16 bytes) and every tensor 16-byte aligned
-    (``aligned``): TMA maps them in place, and there is no other bf16
-    kernel at that shape to fall back on.
+    fp32 (parity runs) goes to the CUDA cores, any strides and alignment:
+    ``"simt"`` (``ssd_simt_kernel``) at P 50, N 16 (hymba_1_5b's heads),
+    ``"fp32"`` (``ssd_kernel``) at P 64, N 128 (mamba2_1_3b's).  bf16 goes
+    to the tensor cores through TMA: ``"tc"`` (``ssd_tc_kernel``, mma.sync,
+    four heads a block) at P 50, N 16, ``"wgmma"`` (``ssd_wgmma_kernel``)
+    at P 64, N 128.  Both take H a multiple of 4 (dt's TMA box; the tc
+    kernel's 400-byte slice of an x row), the batch and sequence strides of
+    B and C (``bc_strides``, in elements) multiples of 8 (16 bytes) and
+    every tensor 16-byte aligned (``aligned``): TMA maps them in place, and
+    there is no other bf16 kernel at either shape to fall back on.
     """
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"ssd_scan: no kernel for {dtype}")
-    if (P, N) == SIMT_SHAPE:
-        return "simt"
-    if (P, N) != (HEAD_DIM, STATE_DIM):
+    if (P, N) not in ((HEAD_DIM, STATE_DIM), HYBRID_SHAPE):
         raise ValueError(f"ssd_scan: (P, N) = {(P, N)}; the kernels take "
-                         f"{(HEAD_DIM, STATE_DIM)} and {SIMT_SHAPE}")
+                         f"{(HEAD_DIM, STATE_DIM)} and {HYBRID_SHAPE}")
+    hybrid = (P, N) == HYBRID_SHAPE
     if dtype == torch.float32:
-        return "fp32"
+        return "simt" if hybrid else "fp32"
     if H % DT_BOX_HEADS:
         raise ValueError(f"ssd_scan: H = {H}; the bf16 kernel takes a "
                          f"multiple of {DT_BOX_HEADS}")
@@ -66,7 +73,7 @@ def ssd_route(dtype: torch.dtype, H: int, P: int, N: int,
         raise ValueError(f"ssd_scan: B/C strides {tuple(bc_strides)} or "
                          "alignment that TMA cannot map (strides must be "
                          "multiples of 8 elements, pointers of 16 bytes)")
-    return "wgmma"
+    return "tc" if hybrid else "wgmma"
 
 
 def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

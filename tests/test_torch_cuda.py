@@ -80,14 +80,16 @@ GROUPED_KN = [(2048, 1408), (1408, 2048), (1000, 136)]
 # S = 449 and 97 are prime (a ragged last sub-chunk), 1, 63, 64 and 65 the
 # edges of the kernels' 64-row sub-chunks; 64 heads is mamba2's
 SSD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
-# and a second limit for bf16, where the wgmma kernel rounds three operands
-# to bf16 (G o L o dt, the state in y_off, x o w): about 4x what the CPU
-# model of that rounding measures (tests/test_torch_kernels.py)
+# and a second limit for bf16, where the tensor-core kernels round three
+# operands to bf16 (G o L o dt, the state in y_off, x o w or B o w): about
+# 4x what the CPU model of that rounding measures (tests/test_torch_kernels.py)
 SSD_FINE_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 SSD_LENGTHS = [256, 512, 449, 97, 1, 63, 64, 65]
 # (P, N) of mamba2_1_3b (the wgmma and fp32 kernels) and of hymba_1_5b (the
-# CUDA-core kernel of both types)
+# tc and simt kernels), and the route each type takes there
 SSD_HEADS = [(64, 128), (50, 16)]
+SSD_ROUTES = {("bfloat16", 64, 128): "wgmma", ("float32", 64, 128): "fp32",
+              ("bfloat16", 50, 16): "tc", ("float32", 50, 16): "simt"}
 
 
 @pytest.fixture
@@ -278,6 +280,7 @@ def _rel_err(got, want):
 def _check_ssd(x, dt, A, B, C, init, dtype):
     """One call of ops.ssd_scan against the plain version, on its route."""
     route = ssd_route(x.dtype, x.shape[2], x.shape[3], B.shape[-1])
+    assert route == SSD_ROUTES[dtype, x.shape[3], B.shape[-1]]
     before = SSD_ROUTE_LAUNCHES[route]
     y, st = ops.ssd_scan(x, dt, A, B, C, chunk=256, init_state=init)
     y_p, st_p = ssd_scan_plain(x, dt, A, B, C, chunk=256, init_state=init)
@@ -308,6 +311,18 @@ def test_cuda_ssd_scan_long_sequence(card, P, N, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("P,N", SSD_HEADS)
+def test_cuda_ssd_scan_long_memory(card, P, N):
+    """bf16, 64 sub-chunks from an initial state with dt |A| small (A times
+    1e-4), so that the state carries across all of them: a kernel that
+    carried it in bf16 between sub-chunks would miss the fine limit
+    (tests/test_torch_kernels.py rehearses it on the CPU)."""
+    x, dt, A, B, C, init = _ssd_on(card, "bfloat16", 16, 1, 4096, 64, True,
+                                   P, N)
+    _check_ssd(x, dt, A * 1e-4, B, C, init, "bfloat16")
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("view", ["odd_stride", "misaligned_base"])
 def test_cuda_ssd_scan_rejects_views_tma_cannot_map(card, view):
     """bf16 B and C that TMA cannot map raise; nothing falls back."""
@@ -325,7 +340,30 @@ def test_cuda_ssd_scan_rejects_views_tma_cannot_map(card, view):
     with pytest.raises(ValueError):
         ops.ssd_scan(x, dt, A, B, C)
     assert ops.LAUNCHES["ssd_scan"] == 0
-    assert SSD_ROUTE_LAUNCHES == {"wgmma": 0, "fp32": 0, "simt": 0}
+    assert SSD_ROUTE_LAUNCHES == {"wgmma": 0, "fp32": 0, "simt": 0, "tc": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["six_heads", "odd_stride", "misaligned_base"])
+def test_cuda_ssd_scan_tc_rejects_what_tma_cannot_map(card, case):
+    """bf16 at hymba's P 50, N 16 with H not a multiple of 4, or B and C
+    that TMA cannot map, raises; nothing falls back to the CUDA cores."""
+    N = 16
+    x, dt, A, B, C, _ = _ssd_on(card, "bfloat16", 17, 1, 70,
+                                6 if case == "six_heads" else 4, False, 50, N)
+    if case == "odd_stride":  # a sequence stride of 2N + 1 elements
+        BC = torch.zeros((1, 70, 2 * N + 1), dtype=torch.bfloat16,
+                         device=card)
+        B, C = BC[..., :N], BC[..., N:2 * N]
+    elif case == "misaligned_base":  # 2 bytes past a 16-byte boundary
+        BC = torch.zeros((1, 70, 2 * N + 8), dtype=torch.bfloat16,
+                         device=card)
+        B, C = BC[..., 1:N + 1], BC[..., N + 1:2 * N + 1]
+    ops.reset_launches()
+    with pytest.raises(ValueError):
+        ops.ssd_scan(x, dt, A, B, C)
+    assert ops.LAUNCHES["ssd_scan"] == 0
+    assert SSD_ROUTE_LAUNCHES == {"wgmma": 0, "fp32": 0, "simt": 0, "tc": 0}
 
 
 @pytest.mark.cuda
@@ -348,7 +386,7 @@ def test_cuda_launches_are_counted(card):
     assert ROUTE_LAUNCHES == {"wgmma": 0, "wgmma_decode": 1, "wmma": 0,
                               "fp32": 0, "wgmma_grouped": 0,
                               "wgmma_grouped_decode": 1, "fp32_grouped": 0}
-    assert SSD_ROUTE_LAUNCHES == {"wgmma": 1, "fp32": 0, "simt": 0}
+    assert SSD_ROUTE_LAUNCHES == {"wgmma": 1, "fp32": 0, "simt": 0, "tc": 0}
 
 
 def _launches_and_allocations(fn):
@@ -528,3 +566,21 @@ def test_cuda_graph_replays_count_launches(card, arch, per_step, routes):
     torch.cuda.synchronize()
     assert ops.launch_counts() == [{k: 5 * n for k, n in d.items()}
                                    for d in step.launches]
+
+
+@pytest.mark.cuda
+def test_cuda_hybrid_prefill_scans_take_the_tc_kernel(card):
+    """hymba_1_5b's bf16 prefill runs every layer's scan on the tc kernel
+    (P 50, N 16 on the tensor cores) and none on the CUDA cores."""
+    bundle, params = _depth2(card, "hymba_1_5b")
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, bundle.cfg.vocab_size - 1, n).astype(np.int32)
+               for n in (200, 97)]
+    batch, _ = pad_batch(bundle.cfg, prompts, 2, card)
+    ops.reset_launches()
+    with torch.inference_mode():
+        logits, _ = bundle.prefill(params, batch)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(logits).all())
+    assert ops.LAUNCHES["ssd_scan"] == 2
+    assert SSD_ROUTE_LAUNCHES == {"wgmma": 0, "fp32": 0, "simt": 0, "tc": 2}

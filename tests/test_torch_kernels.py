@@ -218,12 +218,16 @@ def test_ssd_scan_chunk_invariance(S):
         _close(_np(st), _np(st16), 1e-5)
 
 
-def _wgmma_ssd_rounding_model(x, dt, A, B, C, init):
-    """The bf16 wgmma kernel's arithmetic (csrc/ssd_scan.cu) in plain torch:
-    64-row sub-chunks, fp32 sums, state and C B^T, and bf16 rounding where
-    the kernel rounds: G o L o dt_j (the A operand of y_diag), the state as
-    the B operand of y_off, x o w (the A operand of the state update), and
-    y at the end."""
+def _ssd_rounding_model(x, dt, A, B, C, init, w_on_B=False,
+                        carry_bf16=False):
+    """The bf16 tensor-core kernels' arithmetic (csrc/ssd_scan.cu) in plain
+    torch: 64-row sub-chunks, fp32 sums, state and C B^T, and bf16 rounding
+    where the kernels round: G o L o dt_j (the A operand of y_diag), the
+    state as the B operand of y_off, the weighted operand of the state
+    update (x o w in the wgmma kernel; B o w, ``w_on_B``, in the tc
+    kernel), and y at the end.  The state is carried in fp32, as the
+    kernels' accumulators carry it; ``carry_bf16`` rounds it to bf16 after
+    every sub-chunk instead, as a kernel that kept it in bf16 would."""
     def bf(t):
         return t.to(torch.bfloat16).float()
 
@@ -244,8 +248,14 @@ def _wgmma_ssd_rounding_model(x, dt, A, B, C, init):
         y = torch.einsum("bijh,bjhp->bihp", M, xc) + torch.einsum(
             "bin,bhpn->bihp", Cc, bf(state)) * torch.exp(cum)[..., None]
         w = dtc * torch.exp(cum[:, -1:] - cum)                  # (b,j,H)
-        state = state * torch.exp(cum[:, -1])[..., None, None] + torch.einsum(
-            "bjhp,bjn->bhpn", bf(xc * w[..., None]), Bc)
+        if w_on_B:
+            update = torch.einsum("bjhp,bjhn->bhpn", xc,
+                                  bf(Bc[:, :, None, :] * w[..., None]))
+        else:
+            update = torch.einsum("bjhp,bjn->bhpn", bf(xc * w[..., None]), Bc)
+        state = state * torch.exp(cum[:, -1])[..., None, None] + update
+        if carry_bf16:
+            state = bf(state)
         ys.append(y)
     return bf(torch.cat(ys, dim=1)), state
 
@@ -262,7 +272,7 @@ def test_wgmma_ssd_rounding_keeps_the_fine_limit(with_init):
     init = torch.tensor(np.random.default_rng(15).standard_normal(
         (b, H, P, N)).astype(np.float32)) if with_init else \
         torch.zeros((b, H, P, N))
-    y, st = _wgmma_ssd_rounding_model(x, dt, A, B, C, init)
+    y, st = _ssd_rounding_model(x, dt, A, B, C, init)
     j = [jnp.asarray(t.float().numpy()) for t in (x, dt, A, B, C)]
     y_ref, st_ref = ssd_scan_ref(j[0], j[1], j[2], j[3][:, :, None],
                                  j[4][:, :, None], 256, return_state=True,
@@ -271,12 +281,55 @@ def test_wgmma_ssd_rounding_keeps_the_fine_limit(with_init):
     assert _rel_err(_np(st), st_ref) < 1e-2
 
 
+def _tc_model_errors(seed, S, with_init, a_scale=1.0, carry_bf16=False):
+    """Relative errors of y and the final state of the tc kernel's model
+    against the fp32 ``models.ssd.ssd_scan_ref`` at hymba's P 50, N 16
+    (4 heads, one block's), on the same bf16-valued inputs, A times
+    ``a_scale``."""
+    b, H, P, N = 1, 4, 50, 16
+    _, tx = _ssd_inputs(seed, "bfloat16", b, S, H, P, N)
+    x, dt, A, B, C = tx
+    A = A * a_scale
+    init = torch.tensor(np.random.default_rng(seed + 1).standard_normal(
+        (b, H, P, N)).astype(np.float32)) if with_init else \
+        torch.zeros((b, H, P, N))
+    y, st = _ssd_rounding_model(x, dt, A, B, C, init, w_on_B=True,
+                                carry_bf16=carry_bf16)
+    j = [jnp.asarray(t.float().numpy()) for t in (x, dt, A, B, C)]
+    y_ref, st_ref = ssd_scan_ref(j[0], j[1], j[2], j[3][:, :, None],
+                                 j[4][:, :, None], 256, return_state=True,
+                                 init_state=jnp.asarray(init.numpy()))
+    return _rel_err(_np(y), y_ref), _rel_err(_np(st), st_ref)
+
+
+@pytest.mark.parametrize("with_init", [False, True], ids=["zero", "init"])
+def test_tc_ssd_rounding_keeps_the_fine_limit(with_init):
+    """Where the bf16 tc kernel rounds to bf16, at hymba's P 50 and N 16
+    over 8 sub-chunks, y and the final state stay within 1e-2 of max
+    |reference|: the card's second limit, rehearsed here."""
+    y_err, st_err = _tc_model_errors(14, 512, with_init)
+    assert y_err < 1e-2 and st_err < 1e-2, (y_err, st_err)
+
+
+def test_tc_ssd_long_memory_needs_the_fp32_state():
+    """64 sub-chunks with dt |A| small (A times 1e-4), so that the state
+    carries across all of them: the kernel's model, its state carried in
+    fp32, keeps the 1e-2 limit, and the same model with the state rounded
+    to bf16 between sub-chunks misses it.  The 1e-2 limit sees a state
+    carried in bf16, where the served lengths (8 sub-chunks) do not."""
+    fp32 = _tc_model_errors(16, 4096, True, a_scale=1e-4)
+    bf16 = _tc_model_errors(16, 4096, True, a_scale=1e-4, carry_bf16=True)
+    assert max(fp32) < 1e-2, fp32
+    assert max(bf16) > 1e-2, bf16
+
+
 @pytest.mark.parametrize("dtype,H,P,N,strides,aligned,route", [
     (torch.bfloat16, 64, 64, 128, (512 * 128, 128) * 2, True, "wgmma"),
     (torch.bfloat16, 4, 64, 128, (512 * 256, 256) * 2, True, "wgmma"),  # halves
     (torch.float32, 64, 64, 128, (512 * 128, 128) * 2, True, "fp32"),
     (torch.float32, 6, 64, 128, (449 * 257, 257) * 2, False, "fp32"),   # any
-    (torch.bfloat16, 64, 50, 16, (512 * 16, 16) * 2, True, "simt"),    # hymba
+    (torch.bfloat16, 64, 50, 16, (512 * 16, 16) * 2, True, "tc"),      # hymba
+    (torch.bfloat16, 4, 50, 16, (449 * 32, 32) * 2, True, "tc"),       # halves
     (torch.float32, 64, 50, 16, (449 * 33, 33) * 2, False, "simt"),    # any
 ])
 def test_ssd_route(dtype, H, P, N, strides, aligned, route):
@@ -292,6 +345,9 @@ def test_ssd_route(dtype, H, P, N, strides, aligned, route):
     (torch.float16, 64, 64, 128, (512 * 128, 128) * 2, True, TypeError),
     (torch.float16, 64, 50, 16, (512 * 16, 16) * 2, True, TypeError),
     (torch.bfloat16, 64, 50, 32, (512 * 32, 32) * 2, True, ValueError),
+    (torch.bfloat16, 6, 50, 16, (512 * 16, 16) * 2, True, ValueError),
+    (torch.bfloat16, 64, 50, 16, (512 * 33, 33) * 2, True, ValueError),
+    (torch.bfloat16, 64, 50, 16, (512 * 16, 16) * 2, False, ValueError),
 ])
 def test_ssd_route_raises_for_what_no_kernel_takes(dtype, H, P, N, strides,
                                                    aligned, error):
@@ -303,8 +359,9 @@ def test_reset_launches_zeroes_the_ssd_routes():
     SSD_ROUTE_LAUNCHES["wgmma"] = 3
     SSD_ROUTE_LAUNCHES["fp32"] = 1
     SSD_ROUTE_LAUNCHES["simt"] = 2
+    SSD_ROUTE_LAUNCHES["tc"] = 4
     ops.reset_launches()
-    assert SSD_ROUTE_LAUNCHES == {"wgmma": 0, "fp32": 0, "simt": 0}
+    assert SSD_ROUTE_LAUNCHES == {"wgmma": 0, "fp32": 0, "simt": 0, "tc": 0}
 
 
 def test_cpu_dispatch_launches_no_kernel():
@@ -444,3 +501,12 @@ def test_decode_attention_fixed_split_plan_covers_length(S, B, KV):
 def test_decode_attention_split_plan_covers_keys(length, B, KV):
     _check_cover(*decode_split_plan(length, B, KV, n_sms=132, tile=64),
                  -(-length // 64))
+
+
+def test_scan_time_needs_a_card(monkeypatch):
+    """The scan's timing script measures the card only: without a CUDA
+    device it raises, and times nothing on the CPU."""
+    from repro_torch.launch import scan_time
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        scan_time.main(["--iters", "1"])

@@ -18,10 +18,14 @@ exits non-zero):
                spills from ptxas's report, with no spill allowed in either
                bf16 SSD scan kernel;
 3. kernels  -- each kernel against its plain PyTorch version on the card
-               at the shapes of the serving paths of the seven served
-               models (qwen2_0_5b, llama3_2_1b, qwen2_7b, mamba2_1_3b,
-               deepseek_moe_16b with its fp32 router, internvl2_26b,
-               hymba_1_5b, each at its served batch; hymba's flash
+               at the shapes of the serving paths of the nine served
+               models (qwen2_0_5b, llama3_2_1b, qwen2_7b, qwen3_4b,
+               mamba2_1_3b, deepseek_moe_16b with its fp32 router,
+               internvl2_26b, hymba_1_5b, whisper_large_v3, each at its
+               served batch; whisper's flash attention not causal, its
+               encoder's at S 1500 and its cross-attention from 512 and 455
+               queries to 1500 keys, its decode attention over the 1500
+               slots of its cross cache; hymba's flash
                attention under its window of 1024, at S 512 and at S 1800,
                past the window; its scan at P 50, N 16, bf16 on the
                tensor-core route "tc", fp32 on the CUDA cores, also at b 2,
@@ -51,20 +55,23 @@ exits non-zero):
                time the card could take (bound_ms); the summary line sums
                the bf16 cases, the type the models are served in;
 4. parity   -- per model, at full width, depth 2 (deepseek_moe_16b: one
-               dense and one MoE layer), fp32: the port on the CPU (plain
+               dense and one MoE layer; whisper_large_v3: 2 encoder and 2
+               decoder layers), fp32: the port on the CPU (plain
                versions) against the port on the card (kernels, the
                engine's decode step replayed from its captured graph):
                logits (internvl2_26b's with random patch embeddings ahead
-               of the tokens), and greedy tokens at max_seq 128 and at
+               of the tokens; whisper_large_v3's with random frames, and
+               also its prefill and 3 decode steps from them, which read
+               the cross cache), and greedy tokens at max_seq 128 and at
                max_seq 48, where one prompt is longer than the cache and
                the other decodes past its end (hymba_1_5b: its ring of 48
                slots wraps); hymba_1_5b twice, at its window of 1024 and
                at a window of 32, which both prompts (40 and 64) exceed;
 5. serve    -- per model, full width and depth in bf16 through ServeEngine,
                every decode step a replay of the engine's one captured CUDA
-               graph (the dense models and internvl2_26b: matmul, flash
-               and decode attention; deepseek_moe_16b: those and the
-               grouped matmul; mamba2_1_3b: matmul and ssd_scan;
+               graph (the dense models, internvl2_26b and whisper_large_v3:
+               matmul, flash and decode attention; deepseek_moe_16b: those
+               and the grouped matmul; mamba2_1_3b: matmul and ssd_scan;
                hymba_1_5b: all four, and a second run of 2 prompts of 1500
                and 1800 tokens at max_seq 2048, past its window of 1024,
                where its ring of 1024 slots wraps), with
@@ -80,8 +87,9 @@ exits non-zero):
                one prefill and of four decode steps, eager and replayed
                (the device time of each of the port's kernels among them);
                wall, host and device ms per decode step, eager and graph
-               alternating; and a check that a replay never makes the host
-               wait on the card.
+               alternating; whisper_large_v3's least decode step time from
+               the bytes a step reads; and a check that a replay never
+               makes the host wait on the card.
 
 Then a summary line of the kernels, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -105,18 +113,20 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 SEED = 0
-# the served paths, in run order: SERVE_PROFILES' three models, the SSD
-# path, the MoE path and the vlm path, each at a served batch,
-# SERVE_PROFILES' max_batch (the JAX package's serve/requests.py:179-197;
-# mamba2_1_3b has no profile and is served at 8, as the two small ones;
-# deepseek_moe_16b and internvl2_26b have none and are served at 4, as
-# qwen2_7b, the profile nearest them in size; hymba_1_5b has none and is
-# served at 8, as llama3_2_1b, the profile nearest it in size)
-MODELS = ("qwen2_0_5b", "llama3_2_1b", "qwen2_7b", "mamba2_1_3b",
-          "deepseek_moe_16b", "internvl2_26b", "hymba_1_5b")
+# the served paths, in run order: SERVE_PROFILES' three models, qwen3_4b,
+# the SSD path, the MoE path, the vlm path, the hybrid path and the
+# encoder-decoder path, each at a served batch, SERVE_PROFILES' max_batch
+# (the JAX package's serve/requests.py:179-197).  The models without a
+# profile borrow the batch (and PERF.md §2 the limits) of the profile
+# nearest them in size: mamba2_1_3b, hymba_1_5b and whisper_large_v3
+# llama3_2_1b's (8); qwen3_4b, deepseek_moe_16b and internvl2_26b
+# qwen2_7b's (4)
+MODELS = ("qwen2_0_5b", "llama3_2_1b", "qwen2_7b", "qwen3_4b", "mamba2_1_3b",
+          "deepseek_moe_16b", "internvl2_26b", "hymba_1_5b",
+          "whisper_large_v3")
 SERVE_BATCH = {"qwen2_0_5b": 8, "llama3_2_1b": 8, "qwen2_7b": 4,
-               "mamba2_1_3b": 8, "deepseek_moe_16b": 4, "internvl2_26b": 4,
-               "hymba_1_5b": 8}
+               "qwen3_4b": 4, "mamba2_1_3b": 8, "deepseek_moe_16b": 4,
+               "internvl2_26b": 4, "hymba_1_5b": 8, "whisper_large_v3": 8}
 # hymba_1_5b's second serve run, where its window and its ring both bite:
 # 2 prompts longer than the window of 1024, a cache of 2048 positions (a
 # ring of 1024 slots), 32 new tokens
@@ -345,7 +355,8 @@ def phase_kernels(torch, dev):
     import torch.nn.functional as F
     from repro_torch.kernels import ops
     from repro_torch.kernels.decode_attention import decode_attention_plain
-    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.kernels.flash_attention import (MEAN_TOL,
+                                                     flash_attention_plain)
     from repro_torch.kernels.ssd_scan import (SSD_ROUTE_LAUNCHES, ssd_route,
                                               ssd_scan_plain)
     from repro_torch.kernels.streamed_matmul import (ROUTE_LAUNCHES,
@@ -385,11 +396,13 @@ def phase_kernels(torch, dev):
     cases = []
 
     def check(name, shape, dtype, got, want, n_bytes, n_ops, fns,
-              relative=False, fine=None, route=None):
+              relative=False, fine=None, route=None, mean_rel=None):
         """got/want: a tensor or a tuple of them (ssd_scan: y and the
         state).  relative: the rule of tests/test_kernels.py's SSD test,
         and for bf16 also SSD_FINE_TOL.  fine: an (rtol, atol) the kernel
-        must also meet.  route: the kernel that took the call."""
+        must also meet.  mean_rel: a limit of mean |got - want| over mean
+        |want| the kernel must also meet.  route: the kernel that took the
+        call."""
         torch.cuda.synchronize()
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
@@ -411,6 +424,9 @@ def phase_kernels(torch, dev):
             if fine:
                 excess = max(excess, (diff - fine[1] - fine[0] * w.float()
                                       .abs()).max().item())
+            if mean_rel:
+                ratio = diff.mean().item() / w.float().abs().mean().item()
+                excess = max(excess, ratio - mean_rel)
         case = {"phase": "kernels", "name": name, "shape": shape,
                 "dtype": dname, "max_abs_err": err, "tol": tol,
                 "tol_rule": ("max |kernel - plain| <= tol * max |plain|"
@@ -419,6 +435,10 @@ def phase_kernels(torch, dev):
         if fine:
             case["fine_tol"] = {"rtol": fine[0], "atol": fine[1],
                                 "rule": "|kernel - plain| <= atol + rtol |plain|"}
+        if mean_rel:
+            case["fine_tol"] = {"tol": mean_rel, "mean_rel_err": ratio,
+                                "rule": "mean |kernel - plain| <= tol * "
+                                        "mean |plain|"}
         if relative:
             case["max_rel_err"] = rel_err
         if fine_rel:
@@ -467,8 +487,16 @@ def phase_kernels(torch, dev):
     # experts (2 x 1408 wide) and its first layer's dense FFN; its fp32
     # router below.  hymba_1_5b at its batch 8: q/o, k/v, gate/up, down, the
     # SSD's w_z/w_x, w_B/w_C (N 16), w_dt (N 64) and w_out, and its untied
-    # unembedding
-    served = [(8, 4096, [(2048, 2048), (2048, 512), (2048, 8192),
+    # unembedding.  qwen3_4b at its batch 4: q, o, k/v, gate/up, down and
+    # its tied unembedding.  whisper_large_v3 at its batch 8: the decoder's
+    # q/k/v/o and cross q/o (1280, 1280), w1 and w2, and its untied
+    # unembedding; its encoder's products (and the cross k/v, from the
+    # encoder's output) at M 8 x 1500 below
+    served = [(4, 2048, [(2560, 4096), (4096, 2560), (2560, 1024),
+                         (2560, 9728), (9728, 2560)], (2560, 151936, True)),
+              (8, 4096, [(1280, 1280), (1280, 5120), (5120, 1280)],
+               (1280, 52224, False)),
+              (8, 4096, [(2048, 2048), (2048, 512), (2048, 8192),
                          (8192, 2048)], (2048, 128256, True)),
               (8, 4096, [(1600, 1600), (1600, 320), (1600, 5504),
                          (5504, 1600), (1600, 3200), (1600, 16), (1600, 64),
@@ -491,6 +519,8 @@ def phase_kernels(torch, dev):
                 for Kp, Np in model_pairs:
                     matmul_case(M, Kp, Np, False, dtype)
             matmul_case(m_decode, K, N, is_tied, dtype)
+        for K, N in ((1280, 1280), (1280, 5120), (5120, 1280)):
+            matmul_case(8 * 1500, K, N, False, dtype)
     # deepseek_moe_16b's router, fp32 as the JAX package keeps it
     for M in (4, 2048):
         matmul_case(M, 2048, 64, False, torch.float32)
@@ -566,32 +596,48 @@ def phase_kernels(torch, dev):
     # (16 over 16, hd 128) at S 512, and internvl2_26b's (48 over 8, hd
     # 128) at S 768, 256 patches and 512 tokens; hymba_1_5b's (25 over 5,
     # hd 64) under its window of 1024 at B 8, S 512 (the band is the causal
-    # mask there) and at B 2, S 1800 (the long-prompt serve run), past it.
-    # The least operations count the keys of the band: min(r + 1, window)
-    # for query row r.
-    flash_cases = [(8, S, 14, 2, 64, 0) for S in (512, 455)] + [
-        (8, 512, 32, 8, 64, 0), (4, 512, 28, 4, 128, 0),
-        (4, 512, 16, 16, 128, 0), (4, 768, 48, 8, 128, 0),
-        (8, 512, 25, 5, 64, 1024), (2, 1800, 25, 5, 64, 1024)]
+    # mask there) and at B 2, S 1800 (the long-prompt serve run), past it;
+    # whisper_large_v3's (20 over 20, hd 64) at B 8: its decoder's causal
+    # self-attention at S 512, and not causal its encoder's at S 1500 and
+    # its cross-attention from 512 and 455 queries to the 1500 frames,
+    # whose last key tile holds 28 keys.  (B, Sq, Skv, H, KV, hd, causal,
+    # window).  The least operations count the keys attended: min(r + 1,
+    # window) for query row r under the causal mask, Skv not causal.
+    flash_cases = [(8, S, S, 14, 2, 64, True, 0) for S in (512, 455)] + [
+        (8, 512, 512, 32, 8, 64, True, 0),
+        (4, 512, 512, 28, 4, 128, True, 0),
+        (4, 512, 512, 16, 16, 128, True, 0),
+        (4, 768, 768, 48, 8, 128, True, 0),
+        (8, 512, 512, 25, 5, 64, True, 1024),
+        (2, 1800, 1800, 25, 5, 64, True, 1024),
+        (8, 512, 512, 20, 20, 64, True, 0),
+        (8, 1500, 1500, 20, 20, 64, False, 0),
+        (8, 512, 1500, 20, 20, 64, False, 0),
+        (8, 455, 1500, 20, 20, 64, False, 0)]
     for dtype in (torch.float32, torch.bfloat16):
         es = torch.tensor([], dtype=dtype).element_size()
-        for B, S, H, KV, hd, window in flash_cases:
-            q = randn(B, S, H, hd, dtype=dtype)
-            k = randn(B, S, KV, hd, dtype=dtype)
-            v = randn(B, S, KV, hd, dtype=dtype)
-            keys = sum(min(r + 1, window or S) for r in range(S))
-            fns = (lambda: ops.flash_attention(q, k, v, causal=True,
+        for B, Sq, Skv, H, KV, hd, causal, window in flash_cases:
+            q = randn(B, Sq, H, hd, dtype=dtype)
+            k = randn(B, Skv, KV, hd, dtype=dtype)
+            v = randn(B, Skv, KV, hd, dtype=dtype)
+            keys = (sum(min(r + 1, window or Sq) for r in range(Sq)) if causal
+                    else Sq * Skv)
+            fns = (lambda: ops.flash_attention(q, k, v, causal=causal,
                                                window=window),
-                   lambda: flash_attention_plain(q, k, v, causal=True,
+                   lambda: flash_attention_plain(q, k, v, causal=causal,
                                                  window=window),
                    sdpa(q.transpose(1, 2), k.transpose(1, 2),
-                        v.transpose(1, 2), True, window))
-            check("flash_attention", [B, S, H, KV, hd]
+                        v.transpose(1, 2), causal, window))
+            shape = [B, Sq, H, KV, hd] if Sq == Skv else [B, Sq, Skv, H, KV,
+                                                          hd]
+            check("flash_attention", shape
+                  + ([] if causal else ["not_causal"])
                   + (["window", window] if window else []), dtype,
-                  ops.flash_attention(q, k, v, causal=True, window=window),
-                  flash_attention_plain(q, k, v, causal=True, window=window),
-                  es * (2 * B * S * H * hd + 2 * B * S * KV * hd),
-                  4 * hd * B * H * keys, fns)
+                  ops.flash_attention(q, k, v, causal=causal, window=window),
+                  flash_attention_plain(q, k, v, causal=causal, window=window),
+                  es * (2 * B * Sq * H * hd + 2 * B * Skv * KV * hd),
+                  4 * hd * B * H * keys, fns,
+                  mean_rel=MEAN_TOL[dtype])
             del q, k, v
 
     # decode_attention: one token against a 1k cache; qwen2_0_5b's heads at
@@ -599,23 +645,27 @@ def phase_kernels(torch, dev):
     # qwen2_7b's at its B 4 (28 over 4, hd 128), qwen3_4b's (32 over 8,
     # hd 128), and at B 4 deepseek_moe_16b's (16 over 16, hd 128) and
     # internvl2_26b's (48 over 8, hd 128), and hymba_1_5b's at B 8 (25 over
-    # 5, hd 64: its ring of 1024 slots, full from position 1023 on).  Each
-    # length twice: a host int (the plan of its own keys),
+    # 5, hd 64: its ring of 1024 slots, full from position 1023 on);
+    # whisper_large_v3's at B 8 (20 over 20, hd 64, groups of 1): its
+    # decoder's self cache, and its cross cache of 1500 slots, read whole
+    # (length 1500, a host int).  Each length twice: a host int (the plan
+    # of its own keys),
     # and a 0-d int32 on the card, as the captured decode step passes it
     # (the plan of all S keys, splits past the length empty; shape tag
     # "device"); lengths 1, 64 and 65 on the card leave most of a cluster's
     # splits empty.
-    S = 1024
     for dtype in (torch.float32, torch.bfloat16):
         es = torch.tensor([], dtype=dtype).element_size()
-        for B, H, KV, hd, lengths in (
-                (8, 14, 2, 64, (1, 487, 513, 1024)),
-                (8, 32, 8, 64, (487, 1024)),
-                (4, 28, 4, 128, (487, 1024)),
-                (8, 32, 8, 128, (487, 1024)),
-                (4, 16, 16, 128, (487, 1024)),
-                (4, 48, 8, 128, (487, 1024)),
-                (8, 25, 5, 64, (487, 1024))):
+        for B, H, KV, hd, S, lengths in (
+                (8, 14, 2, 64, 1024, (1, 487, 513, 1024)),
+                (8, 32, 8, 64, 1024, (487, 1024)),
+                (4, 28, 4, 128, 1024, (487, 1024)),
+                (8, 32, 8, 128, 1024, (487, 1024)),
+                (4, 16, 16, 128, 1024, (487, 1024)),
+                (4, 48, 8, 128, 1024, (487, 1024)),
+                (8, 25, 5, 64, 1024, (487, 1024)),
+                (8, 20, 20, 64, 1024, (487, 1024)),
+                (8, 20, 20, 64, 1500, (1500,))):
             q = randn(B, H, hd, dtype=dtype)
             k = randn(B, S, KV, hd, dtype=dtype)
             v = randn(B, S, KV, hd, dtype=dtype)
@@ -713,6 +763,8 @@ def phase_parity(torch, model, window=None):
 
     cfg = dataclasses.replace(get_config(model), n_layers=2,
                               param_dtype="float32", compute_dtype="float32")
+    if cfg.family == "encdec":
+        cfg = dataclasses.replace(cfg, n_enc_layers=2)
     if window is not None:
         cfg = dataclasses.replace(cfg, sliding_window=window)
     bundle = build(cfg)
@@ -724,12 +776,25 @@ def phase_parity(torch, model, window=None):
     if cfg.family == "vlm":  # the vision stub's output ahead of the tokens
         batch["patch_embeds"] = torch.from_numpy(rng.standard_normal(
             (2, cfg.frontend_seq, cfg.frontend_dim)).astype(np.float32))
+    if cfg.family == "encdec":  # random frames: each row its own encoding
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (2, cfg.enc_seq, cfg.frontend_dim)).astype(np.float32))
     with torch.inference_mode():
         got = bundle.forward(p_card, _to(batch, "cuda")).cpu()
         want = bundle.forward(p_cpu, batch)
+        # the engine's frames are zeros, the same encoding for every row:
+        # prefill and decode here from the random ones, on both
+        steps = (decode_logits(torch, bundle, p_card, batch, "cuda"),
+                 decode_logits(torch, bundle, p_cpu, batch, "cpu")) \
+            if cfg.family == "encdec" else None
     diff = (got - want).abs()
     tol = 2e-3
     ok_logits = bool((diff <= tol * (1 + want.abs())).all())
+    step_err = None
+    if steps is not None:
+        step_err = max((g - w).abs().max().item() for g, w in zip(*steps))
+        ok_logits &= all(bool(((g - w).abs() <= tol * (1 + w.abs())).all())
+                         for g, w in zip(*steps))
     prompts = [rng.integers(0, cfg.vocab_size - 1, n).astype(np.int32)
                for n in (40, 64)]
     # max_seq 128 holds both requests; at 48 the prompt of 64 is longer
@@ -748,6 +813,8 @@ def phase_parity(torch, model, window=None):
     emit({"phase": "parity", "model": model, "n_layers": 2, "dtype": "float32",
           "sliding_window": cfg.sliding_window,
           "prefill_logits_max_abs_err": diff.max().item(), "tol": tol,
+          **({} if step_err is None else
+             {"decode_logits_max_abs_err_random_frames": step_err}),
           "prompt_lens": [len(p) for p in prompts], "new_tokens": 9,
           **{f"tokens_{'card' if d == 'cuda' else d}_max_seq_{n}": t
              for (d, n), t in tokens.items()},
@@ -763,6 +830,21 @@ def phase_parity(torch, model, window=None):
         if replays["cuda", n] != 8 or replays["cpu", n] != 0:
             raise AssertionError(f"replays {replays}: the card engine did not "
                                  "replay its graph for every decode step")
+
+
+def decode_logits(torch, bundle, params, batch, device, steps=3):
+    """The logits of a prefill of ``batch`` and of ``steps`` greedy decode
+    steps after it (a cache of 16 more positions), on ``device``."""
+    from repro_torch.serve import greedy, seed_decode_cache
+    B, S = batch["tokens"].shape
+    logits, caches = bundle.prefill(params, _to(batch, device))
+    caches = seed_decode_cache(bundle, caches, B, S + 16, device)
+    out = [logits.cpu()]
+    for i in range(steps):
+        tok = greedy(logits, bundle.cfg.vocab_size)
+        logits, caches = bundle.decode(params, caches, tok, S + i)
+        out.append(logits.cpu())
+    return out
 
 
 def free(torch):
@@ -787,6 +869,19 @@ def expected_launches(cfg, prefills: int, decode_steps: int,
     from repro_torch.kernels.streamed_matmul import grouped_route
     from repro_torch.models.moe import _capacity
     L, forwards = cfg.n_layers, prefills + decode_steps
+    if cfg.family == "encdec":
+        # a prefill: each encoder layer's q k v o, w1 w2 and its attention;
+        # each decoder layer's q k v o, cross q k v o, w1 w2, its
+        # self-attention and cross-attention; the unembedding.  A step:
+        # each decoder layer's q k v o, cross q o, w1 w2 and its two decode
+        # attentions (the self cache, the whole cross cache); the
+        # unembedding
+        E = cfg.n_enc_layers
+        return {"streamed_matmul": (6 * E + 10 * L + 1) * prefills
+                + (8 * L + 1) * decode_steps,
+                "flash_attention": (E + 2 * L) * prefills,
+                "decode_attention": 2 * L * decode_steps,
+                "ssd_scan": 0}, {}, {}
     ssd_routes = {}
     if cfg.family in ("ssm", "hybrid"):
         route = {"ssm": "wgmma", "hybrid": "tc"}[cfg.family]
@@ -900,6 +995,9 @@ def phase_serve(torch, dev, model, lengths=None, max_seq=1024, path=None):
                               eng.decoder)
 
     same_tokens = graph_tokens == eager["tokens"]
+    bound = (decode_bound(cfg, params, ecfg, int(max(lengths)), 32,
+                          dev["peaks"])
+             if cfg.family == "encdec" else None)
     expect, expect_routes, expect_ssd = expected_launches(
         cfg, st["prefills"], st["decode_steps"],
         ecfg.batch_size * max(lengths), ecfg.batch_size)
@@ -914,6 +1012,7 @@ def phase_serve(torch, dev, model, lengths=None, max_seq=1024, path=None):
           "decode_tokens_per_s": st["tokens_out"] / st["decode_s"],
           "decode_step_ms": 1e3 * st["decode_s"] / st["decode_steps"],
           "eager_decode_step_ms": eager["step_ms"],
+          **({} if bound is None else {"decode_step_bound": bound}),
           "graph_tokens_equal_eager": same_tokens,
           "peak_mem_gb": peak_gb,
           "launches": launches, "expected_launches": expect,
@@ -970,6 +1069,32 @@ def phase_serve(torch, dev, model, lengths=None, max_seq=1024, path=None):
     if any(grouped.values()):  # the summary's grouped launches
         launches = dict(launches, grouped=sum(grouped.values()))
     return launches
+
+
+def decode_bound(cfg, params, ecfg, S, new, peaks):
+    """An encoder-decoder's least decode step time, the bytes a step reads
+    over the card's rate, as the mean over the run's ``new`` - 1 steps
+    from position S: each input read once, the decoder's weights but the
+    cross k/v products (run by prefill alone), the final norm, the
+    unembedding, a row of the token and position tables per row of the
+    batch, the whole cross cache, and the self cache up to each step's
+    position."""
+    from repro_torch import convert
+    flat = convert.flatten({k: params[k] for k in ("dec_stack", "final_norm",
+                                                   "lm_head")})
+    weights = sum(t.numel() * t.element_size() for n, t in flat.items()
+                  if not n.endswith(("cross/wk", "cross/wv")))
+    es = params["embed"].element_size()
+    tables = (ecfg.batch_size + 1) * cfg.d_model * es
+    per_slot = 2 * cfg.n_layers * ecfg.batch_size * cfg.n_kv_heads \
+        * cfg.head_dim_ * es  # K and V of one position, every layer
+    cross = per_slot * cfg.enc_seq
+    own = per_slot * statistics.mean(min(S + i + 1, ecfg.max_seq)
+                                     for i in range(new - 1))
+    total = weights + tables + cross + own
+    return {"bytes": total, "weight_bytes": weights,
+            "cross_cache_bytes": cross, "self_cache_bytes_mean": own,
+            "ms": total / peaks["bytes"] * 1e3, "by": "bytes"}
 
 
 def eager_decode(torch, bundle, params, prompts, ecfg, new):

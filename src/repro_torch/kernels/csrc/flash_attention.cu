@@ -1,11 +1,13 @@
 // flash_attention: causal (or full) softmax(q k^T / sqrt(hd)) v for prefill,
 // with grouped-query heads read in place, and a sliding-window band: with
-// window w > 0 (causal only) query row r attends keys r - w < j <= r.
+// window w > 0 (causal only) query row r attends keys r - w < j <= r.  Not
+// causal, the Skv keys may be more or fewer than the Sq queries (a
+// cross-attention); causal, Sq = Skv.
 //
 // Replaces the TPU kernel kernels/flash_attention.py:flash_attention
 // (_flash_kernel) of the JAX package.
 //
-// Layout: q and out (B, S, H, hd), k and v (B, S, KV, hd), all contiguous;
+// Layout: q and out (B, Sq, H, hd), k and v (B, Skv, KV, hd), all contiguous;
 // query head h reads KV head h / (H / KV), so no broadcast copy of the KV
 // heads is made.  Positions are absolute and start at 0 for q and kv.  The
 // band is the mask of the JAX package's models/attention.py:_banded_attention.
@@ -29,8 +31,8 @@
 // and fed back as wgmma's register A operand against V, an MN-major B
 // operand in shared memory.  Causal blocks stop the key loop at the
 // diagonal, and a warpgroup skips the tiles above its own; only the diagonal
-// tile and the tile holding key S-1 are masked (TMA zero-fills keys beyond
-// S, which would score 0, not -inf).  Query rows beyond S are not stored.
+// tile and the tile holding key Skv-1 are masked (TMA zero-fills keys beyond
+// Skv, which would score 0, not -inf).  Query rows beyond Sq are not stored.
 // Under a window the key loop of a block (and the producer's loads) starts
 // at the tile holding key q0 - w + 1, and a warpgroup skips the tiles below
 // its own band's first: a block visits at most (128 + w) / 64 + 1 tiles
@@ -57,8 +59,8 @@ constexpr int THREADS = 2 * FQ;   // two threads per query row
 template <typename T, int HD>
 __global__ void __launch_bounds__(THREADS)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ out, int S, int H,
-             int KV, float scale, int causal, int window) {
+             const T* __restrict__ v, T* __restrict__ out, int Sq, int Skv,
+             int H, int KV, float scale, int causal, int window) {
   constexpr int NP = HD / 4;  // float2 pairs per thread: dims 4i + 2*half + {0,1}
   __shared__ __align__(16) float Ks[FK][HD];
   __shared__ __align__(16) float Vs[FK][HD];
@@ -67,10 +69,10 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kvh = h / (H / KV);
   const int row = threadIdx.x >> 1, half = threadIdx.x & 1;
   const int qpos = q0 + row;
-  const bool valid = qpos < S;
+  const bool valid = qpos < Sq;
 
   float qr[2 * NP], acc[2 * NP];
-  const size_t qoff = (((size_t)b * S + qpos) * H + h) * HD;
+  const size_t qoff = (((size_t)b * Sq + qpos) * H + h) * HD;
 #pragma unroll
   for (int i = 0; i < NP; ++i)
 #pragma unroll
@@ -80,15 +82,15 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   float m = NEG_INF, l = 0.f;
 
-  const int kend = causal ? min(S, q0 + FQ) : S;
+  const int kend = causal ? min(Skv, q0 + FQ) : Skv;
   const int kbeg = window ? max(0, q0 - window + 1) / FK * FK : 0;
   for (int k0 = kbeg; k0 < kend; k0 += FK) {
     for (int i = threadIdx.x; i < FK * HD; i += THREADS) {
       const int r = i / HD, c = i % HD;
       const int gk = k0 + r;
       float kv = 0.f, vv = 0.f;
-      if (gk < S) {
-        const size_t off = (((size_t)b * S + gk) * KV + kvh) * HD + c;
+      if (gk < Skv) {
+        const size_t off = (((size_t)b * Skv + gk) * KV + kvh) * HD + c;
         kv = to_float(k[off]);
         vv = to_float(v[off]);
       }
@@ -111,7 +113,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       part += __shfl_xor_sync(0xffffffffu, part, 1);
       const int gk = k0 + j;
       float sj = part * scale;
-      if (gk >= S || (causal && gk > qpos) || (window && gk <= qpos - window)) sj = NEG_INF;
+      if (gk >= Skv || (causal && gk > qpos) || (window && gk <= qpos - window)) sj = NEG_INF;
       s[j] = sj;
       mt = fmaxf(mt, sj);
     }
@@ -146,12 +148,12 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int HD>
-void launch(const void* q, const void* k, const void* v, void* out, int B, int S,
-            int H, int KV, int causal, int window, float scale, cudaStream_t s) {
-  const dim3 grid((S + FQ - 1) / FQ, H, B);
+void launch(const void* q, const void* k, const void* v, void* out, int B, int Sq,
+            int Skv, int H, int KV, int causal, int window, float scale, cudaStream_t s) {
+  const dim3 grid((Sq + FQ - 1) / FQ, H, B);
   flash_kernel<T, HD><<<grid, THREADS, 0, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), S, H, KV, scale, causal, window);
+      static_cast<T*>(out), Sq, Skv, H, KV, scale, causal, window);
 }
 
 // ------------------------------------------------------- bf16 path, wgmma
@@ -174,7 +176,7 @@ __global__ void __launch_bounds__(F_THREADS, HD == 64 ? 2 : 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap kmap,
                    const __grid_constant__ CUtensorMap vmap,
-                   __nv_bfloat16* __restrict__ out, int S, int H, int KV,
+                   __nv_bfloat16* __restrict__ out, int Sq, int Skv, int H, int KV,
                    float scale_log2, int causal, int window) {
   using namespace hopper;
   using T = FlashTiles<HD>;
@@ -190,7 +192,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   const int q0 = (gridDim.x - 1 - blockIdx.x) * F_BQ;  // longest causal tiles first
   const int h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (H / KV);
-  const int kv_end = causal ? min(S, q0 + F_BQ) : S;
+  const int kv_end = causal ? min(Skv, q0 + F_BQ) : Skv;
   const int ntiles = (kv_end + F_BKV - 1) / F_BKV;
   const int t_lo = window ? max(0, q0 - window + 1) / F_BKV : 0;  // the band's first tile
   if (threadIdx.x == 0) {
@@ -232,7 +234,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   // consumer warpgroup wgi: query rows r0 .. r0 + 63
   const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
   const int r0 = q0 + wgi * 64;
-  const int my_tiles = ((causal ? min(S, r0 + 64) : S) + F_BKV - 1) / F_BKV;
+  const int my_tiles = ((causal ? min(Skv, r0 + 64) : Skv) + F_BKV - 1) / F_BKV;
   const int my_lo = window ? max(0, r0 - window + 1) / F_BKV : 0;
   const int row_a = r0 + warp * 16 + lane / 4;  // this thread's rows: row_a, row_a + 8
   const unsigned char* qw = qs + wgi * 64 * 128;
@@ -265,7 +267,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       fence_regs(sc);
 
       const int k0 = t * F_BKV;
-      const bool edge = (causal && k0 + F_BKV > r0) || k0 + F_BKV > S ||
+      const bool edge = (causal && k0 + F_BKV > r0) || k0 + F_BKV > Skv ||
                         (window && k0 < r0 + 64 - window);
       float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
@@ -278,7 +280,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
             if (edge) {
               const int key = k0 + 8 * j + 2 * (lane % 4) + e;
               const int row = row_a + 8 * hh;
-              if (key >= S || (causal && key > row) || (window && key <= row - window))
+              if (key >= Skv || (causal && key > row) || (window && key <= row - window))
                 v = NEG_INF;
             }
             sc[4 * j + 2 * hh + e] = v;
@@ -333,9 +335,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int row = row_a + 8 * hh;
-    if (row >= S) continue;
+    if (row >= Sq) continue;
     const float inv = 1.f / fmaxf(l[hh], 1e-30f);
-    __nv_bfloat16* orow = out + (((size_t)b * S + row) * H + h) * HD;
+    __nv_bfloat16* orow = out + (((size_t)b * Sq + row) * H + h) * HD;
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * (lane % 4)) =
@@ -344,16 +346,17 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 }
 
 template <int HD, bool BAND>
-int launch_wgmma(const void* q, const void* k, const void* v, void* out, int B, int S, int H,
-                 int KV, int causal, int window, float scale, cudaStream_t stream) {
+int launch_wgmma(const void* q, const void* k, const void* v, void* out, int B, int Sq,
+                 int Skv, int H, int KV, int causal, int window, float scale,
+                 cudaStream_t stream) {
   using T = FlashTiles<HD>;
   static hopper::SmemRaised raised;
   CUtensorMap qmap, kmap, vmap;
-  const uint64_t qdims[4] = {HD, (uint64_t)H, (uint64_t)S, (uint64_t)B};
-  const uint64_t qstr[3] = {HD * 2, (uint64_t)H * HD * 2, (uint64_t)S * H * HD * 2};
+  const uint64_t qdims[4] = {HD, (uint64_t)H, (uint64_t)Sq, (uint64_t)B};
+  const uint64_t qstr[3] = {HD * 2, (uint64_t)H * HD * 2, (uint64_t)Sq * H * HD * 2};
   const uint32_t qbox[4] = {64, 1, F_BQ, 1};
-  const uint64_t kdims[4] = {HD, (uint64_t)KV, (uint64_t)S, (uint64_t)B};
-  const uint64_t kstr[3] = {HD * 2, (uint64_t)KV * HD * 2, (uint64_t)S * KV * HD * 2};
+  const uint64_t kdims[4] = {HD, (uint64_t)KV, (uint64_t)Skv, (uint64_t)B};
+  const uint64_t kstr[3] = {HD * 2, (uint64_t)KV * HD * 2, (uint64_t)Skv * KV * HD * 2};
   const uint32_t kbox[4] = {64, 1, F_BKV, 1};
   if (!hopper::make_map_bf16(&qmap, q, 4, qdims, qstr, qbox) ||
       !hopper::make_map_bf16(&kmap, k, 4, kdims, kstr, kbox) ||
@@ -361,9 +364,9 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out, int B, 
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = hopper::allow_smem(flash_wgmma_kernel<HD, BAND>, T::SMEM, raised);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((S + F_BQ - 1) / F_BQ, H, B);
+  const dim3 grid((Sq + F_BQ - 1) / F_BQ, H, B);
   flash_wgmma_kernel<HD, BAND><<<grid, F_THREADS, T::SMEM, stream>>>(
-      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(out), S, H, KV,
+      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(out), Sq, Skv, H, KV,
       scale * 1.4426950408889634f, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
@@ -371,24 +374,26 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out, int B, 
 }  // namespace
 
 // dtype: 0 = fp32, 1 = bf16; hd: 64 or 128; window: 0 (none) or w > 0 with
-// causal.  bf16 tensors must be 16-byte aligned (TMA).  Returns the
-// cudaError_t of the launch, or cudaErrorInvalidValue for what the kernels
-// do not take.
+// causal; Sq != Skv not causal only, Skv >= 1.  bf16 tensors must be 16-byte
+// aligned (TMA).  Returns the cudaError_t of the launch, or
+// cudaErrorInvalidValue for what the kernels do not take.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
-                               void* out, int B, int S, int H, int KV, int hd,
-                               int causal, int window, float scale, int dtype,
-                               void* stream) {
+                               void* out, int B, int Sq, int Skv, int H, int KV,
+                               int hd, int causal, int window, float scale,
+                               int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (window < 0 || (window && !causal)) return static_cast<int>(cudaErrorInvalidValue);
+  if (window < 0 || (window && !causal) || (causal && Sq != Skv) || Skv < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 1 && hd == 64)
-    return window ? launch_wgmma<64, true>(q, k, v, out, B, S, H, KV, causal, window, scale, s)
-                  : launch_wgmma<64, false>(q, k, v, out, B, S, H, KV, causal, 0, scale, s);
+    return window ? launch_wgmma<64, true>(q, k, v, out, B, Sq, Skv, H, KV, causal, window, scale, s)
+                  : launch_wgmma<64, false>(q, k, v, out, B, Sq, Skv, H, KV, causal, 0, scale, s);
   if (dtype == 1 && hd == 128)
-    return window ? launch_wgmma<128, true>(q, k, v, out, B, S, H, KV, causal, window, scale, s)
-                  : launch_wgmma<128, false>(q, k, v, out, B, S, H, KV, causal, 0, scale, s);
-  if (dtype == 0 && hd == 64) launch<float, 64>(q, k, v, out, B, S, H, KV, causal, window, scale, s);
+    return window ? launch_wgmma<128, true>(q, k, v, out, B, Sq, Skv, H, KV, causal, window, scale, s)
+                  : launch_wgmma<128, false>(q, k, v, out, B, Sq, Skv, H, KV, causal, 0, scale, s);
+  if (dtype == 0 && hd == 64)
+    launch<float, 64>(q, k, v, out, B, Sq, Skv, H, KV, causal, window, scale, s);
   else if (dtype == 0 && hd == 128)
-    launch<float, 128>(q, k, v, out, B, S, H, KV, causal, window, scale, s);
+    launch<float, 128>(q, k, v, out, B, Sq, Skv, H, KV, causal, window, scale, s);
   else return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }

@@ -77,8 +77,9 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
-    """q (B,S,H,hd), k/v (B,S,KV,hd) -> (B,S,H,hd); ``window`` w > 0: row r
-    attends keys r - w < j <= r."""
+    """q (B,Sq,H,hd), k/v (B,Skv,KV,hd) -> (B,Sq,H,hd); ``window`` w > 0: row
+    r attends keys r - w < j <= r.  Sq != Skv only not causal (a
+    cross-attention)."""
     if not _on_card(q):
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     out = flash_attention_cuda(q, k, v, causal=causal, window=window)

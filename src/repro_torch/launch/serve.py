@@ -32,8 +32,11 @@ def main(argv=None) -> int:
         cfg = reduce_for_smoke(cfg)
     bundle = build(cfg)
     params = bundle.init(0, device=args.device)
-    # the cache holds a vlm's patch positions too
-    max_seq = cfg.frontend_seq + args.prompt_len + args.new_tokens
+    # the cache holds a vlm's patch positions too (an encoder-decoder's
+    # frames are the encoder's, not positions of the decoder's cache)
+    max_seq = args.prompt_len + args.new_tokens
+    if cfg.family == "vlm":
+        max_seq += cfg.frontend_seq
     engine = ServeEngine(bundle, params,
                          EngineConfig(batch_size=args.requests,
                                       max_seq=max_seq),

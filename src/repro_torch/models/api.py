@@ -10,11 +10,14 @@ PyTorch counterpart of the JAX package's ``models/api.py``:
     init_cache(batch, max_seq, device=None) -> caches
 
 ``batch`` holds ``tokens`` (B, S) and, for a vlm, may hold the vision
-stub's ``patch_embeds`` (B, frontend_seq, d), put ahead of the tokens.
-``decode`` takes ``pos`` as an int or as a 0-d int32 tensor on the device
-(the engine's captured step passes a tensor) and updates the caches in
-place.  The dense, moe, ssm and vlm families are ported; ``build`` raises
-for the others.  ``device=None`` means the card: with no CUDA device it raises.
+stub's ``patch_embeds`` (B, frontend_seq, d), put ahead of the tokens; for
+the encoder-decoder (whisper) it holds the audio stub's ``frames``
+(B, enc_seq, frontend_dim), the encoder's input.  ``decode`` takes ``pos``
+as an int or as a 0-d int32 tensor on the device (the engine's captured
+step passes a tensor) and updates the caches in place.  Every family is
+ported: the decoder-only ones (dense, moe, ssm, hybrid, vlm) by
+``models/lm.py``, encdec by ``models/whisper.py``.  ``device=None`` means
+the card: with no CUDA device it raises.
 Training (``loss``) and the dry-run helpers are not ported yet.
 """
 from __future__ import annotations
@@ -25,7 +28,7 @@ from typing import Callable
 import torch
 
 from ..configs.base import ModelConfig
-from . import lm
+from . import lm, whisper
 from .common import resolve_device
 
 
@@ -40,24 +43,26 @@ class ModelBundle:
 
 
 def build(cfg: ModelConfig) -> ModelBundle:
-    lm.layer_plan(cfg)  # raises for a family that is not ported yet
+    mod = whisper if cfg.family == "encdec" else lm
+    if mod is lm:
+        lm.layer_plan(cfg)  # raises for a family it does not know
 
     def init(seed: int, device=None):
         device = resolve_device(device)
         gen = torch.Generator(device=device).manual_seed(seed)
-        return lm.init_params(cfg, gen, device)
+        return mod.init_params(cfg, gen, device)
 
     def forward(params, batch):
-        return lm.forward(cfg, params, batch)
+        return mod.forward(cfg, params, batch)
 
     def prefill(params, batch):
-        return lm.prefill(cfg, params, batch)
+        return mod.prefill(cfg, params, batch)
 
     def decode(params, caches, token, pos):
-        return lm.decode_step(cfg, params, caches, token, pos)
+        return mod.decode_step(cfg, params, caches, token, pos)
 
     def init_cache(batch: int, max_seq: int, device=None):
-        return lm.init_cache(cfg, batch, max_seq, resolve_device(device))
+        return mod.init_cache(cfg, batch, max_seq, resolve_device(device))
 
     return ModelBundle(cfg=cfg, init=init, forward=forward, prefill=prefill,
                        decode=decode, init_cache=init_cache)

@@ -1,12 +1,15 @@
-"""Self-attention: GQA projections, prefill through the flash attention
+"""Attention: GQA projections, prefill through the flash attention
 kernel, decode through the decode attention kernel, and the KV cache, with
-or without a sliding window.
+or without a sliding window; RoPE or none, causal or not, and
+cross-attention to an encoder's output.
 
 Ported from the JAX package's ``models/attention.py``: the single-device
 (``local``) path of ``_flash_full`` (under ``cfg.sliding_window`` the band
-of ``_banded_attention``), and decode over a full cache or, under a window,
-a ring of min(max_seq, window) slots written at ``pos % S``.
-Cross-attention and sharded attention are not ported yet.
+of ``_banded_attention``), decode over a full cache or, under a window,
+a ring of min(max_seq, window) slots written at ``pos % S``, and the
+cross-attention of ``kv_x`` (prefill: k and v projected from the encoder's
+output) and ``precomputed_kv`` (decode: the cached k and v read whole).
+Sharded attention is not ported yet.
 """
 from __future__ import annotations
 
@@ -19,7 +22,9 @@ from .common import (Params, apply_rope, dense_init, rmsnorm, rope_cos_sin,
                      rotate)
 
 
-def attention_init(cfg, gen: torch.Generator, dtype, device) -> Params:
+def attention_init(cfg, gen: torch.Generator, dtype, device, *,
+                   cross: bool = False) -> Params:
+    """``cross``: a cross-attention's projections, never with biases."""
     d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     p = {
         "wq": dense_init(gen, (d, H * hd), dtype, device),
@@ -27,7 +32,7 @@ def attention_init(cfg, gen: torch.Generator, dtype, device) -> Params:
         "wv": dense_init(gen, (d, KV * hd), dtype, device),
         "wo": dense_init(gen, (H * hd, d), dtype, device, in_axis=0),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         p["bq"] = torch.zeros((H * hd,), dtype=dtype, device=device)
         p["bk"] = torch.zeros((KV * hd,), dtype=dtype, device=device)
         p["bv"] = torch.zeros((KV * hd,), dtype=dtype, device=device)
@@ -43,11 +48,14 @@ def _linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return ops.matmul(x.reshape(-1, x.shape[-1]), w).reshape(*lead, w.shape[1])
 
 
-def _project_qkv(cfg, p: Params, x: torch.Tensor):
-    """Returns q (B,S,H,hd), k/v (B,S,KV,hd), un-roped.  The bias is added
-    after the projection's output is rounded to x.dtype, as in JAX."""
+def _project_qkv(cfg, p: Params, x: torch.Tensor,
+                 kv_x: Optional[torch.Tensor] = None):
+    """Returns q (B,Sq,H,hd) from x, k/v (B,Skv,KV,hd) from ``kv_x`` (x
+    when None), un-roped.  The bias is added after the projection's output
+    is rounded to x.dtype, as in JAX."""
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
-    q, k, v = _linear(x, p["wq"]), _linear(x, p["wk"]), _linear(x, p["wv"])
+    src = x if kv_x is None else kv_x
+    q, k, v = _linear(x, p["wq"]), _linear(src, p["wk"]), _linear(src, p["wv"])
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = q.reshape(*q.shape[:-1], H, hd)
@@ -139,27 +147,62 @@ def update_cache(cache: Dict[str, torch.Tensor], k_new: torch.Tensor,
     return cache
 
 
+def _cross_attention(cfg, p: Params, x: torch.Tensor, k: torch.Tensor,
+                     v: torch.Tensor) -> torch.Tensor:
+    """Attention of x's queries to the encoder's cached k/v (B,Skv,KV,hd),
+    not causal: only wq and wo are products.  A decode step (x (B,1,d))
+    reads all Skv slots through the decode kernel, whose length is the
+    host int Skv, a constant of a captured step, not a read of the card;
+    more queries go through the flash kernel at Sq != Skv."""
+    B, Sq = x.shape[0], x.shape[1]
+    H, hd = cfg.n_heads, cfg.head_dim_
+    q = _linear(x, p["wq"]).reshape(B, Sq, H, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["q_norm"], cfg.rms_eps)
+    if Sq == 1:
+        y = ops.decode_attention(q[:, 0], k, v, k.shape[1])
+    else:
+        y = ops.flash_attention(q, k, v, causal=False)
+    return _linear(y.reshape(B, Sq, H * hd), p["wo"])
+
+
 def attention_forward(cfg, p: Params, x: torch.Tensor, *,
+                      causal: bool = True, use_rope: bool = True,
+                      kv_x: Optional[torch.Tensor] = None,
+                      precomputed_kv: Optional[Tuple[torch.Tensor,
+                                                     torch.Tensor]] = None,
                       cache: Optional[Dict[str, torch.Tensor]] = None,
                       cache_pos: Optional[DecodePosition] = None):
-    """Causal self-attention with RoPE, banded to ``cfg.sliding_window``
-    keys when it is set.  Prefill (cache None): returns (y, (k_roped, v))
-    to seed the decode cache.  Decode (x is (B,1,d), cache given): returns
-    (y, cache), the cache updated in place at ``cache_pos``, the token's
-    position, which may lie past the cache: then a full cache keeps its S
-    slots and all of them are attended, as in the JAX package, and a ring
-    overwrites slot pos % S."""
+    """Self-attention, causal (banded to ``cfg.sliding_window`` keys when it
+    is set) or not, with RoPE unless ``use_rope`` is False.  Prefill (cache
+    None): returns (y, (k_roped, v)) to seed the decode cache.  Decode (x
+    is (B,1,d), cache given): returns (y, cache), the cache updated in place
+    at ``cache_pos``, the token's position, which may lie past the cache:
+    then a full cache keeps its S slots and all of them are attended, as in
+    the JAX package, and a ring overwrites slot pos % S.
+
+    Cross-attention: ``kv_x`` (B,Skv,d), the encoder's output, gives k and
+    v, not roped, and every query attends all of them; returns (y, (k, v))
+    for the decoder's cross cache.  ``precomputed_kv``, that cache: returns
+    (y, None)."""
+    if precomputed_kv is not None:
+        return _cross_attention(cfg, p, x, *precomputed_kv), None
     window = cfg.sliding_window or 0
     B, S = x.shape[0], x.shape[1]
     H, hd = cfg.n_heads, cfg.head_dim_
-    q, k, v = _project_qkv(cfg, p, x)
+    q, k, v = _project_qkv(cfg, p, x, kv_x)
+
+    if kv_x is not None:
+        y = ops.flash_attention(q, k, v, causal=False)
+        return _linear(y.reshape(B, S, H * hd), p["wo"]), (k, v)
 
     if cache is not None:
         # Position and length stay on the device: read on the host, they
         # would make it wait for the card, and a captured graph would
         # freeze them.
-        cos, sin = cache_pos.rope(hd, cfg.rope_theta)
-        q, k = rotate(q, cos, sin), rotate(k, cos, sin)
+        if use_rope:
+            cos, sin = cache_pos.rope(hd, cfg.rope_theta)
+            q, k = rotate(q, cos, sin), rotate(k, cos, sin)
         cache = update_cache(cache, k, v, cache_pos, ring=bool(window))
         # A ring holds S = min(max_seq, window) <= window slots, and slot i
         # holds the last position p <= pos with p = i (mod S).  The JAX
@@ -173,8 +216,9 @@ def attention_forward(cfg, p: Params, x: torch.Tensor, *,
         y = ops.decode_attention(q[:, 0], cache["k"], cache["v"], length)
         return _linear(y.reshape(B, 1, H * hd), p["wo"]), cache
 
-    positions = torch.arange(S, device=x.device)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    y = ops.flash_attention(q, k, v, causal=True, window=window)
+    if use_rope:
+        positions = torch.arange(S, device=x.device)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    y = ops.flash_attention(q, k, v, causal=causal, window=window)
     return _linear(y.reshape(B, S, H * hd), p["wo"]), (k, v)

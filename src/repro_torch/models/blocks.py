@@ -1,14 +1,17 @@
-"""The dense transformer block with its SwiGLU MLP, the MoE block, the
-SSM block and the hybrid block:
+"""The transformer blocks with their MLP (SwiGLU, or GELU with biases),
+the MoE block, the SSM block and the hybrid block:
 
-    dense  : norm -> attn -> +res ; norm -> mlp -> +res
-    moe    : norm -> attn -> +res ; norm -> moe -> +res    (+ shared experts)
-    ssm    : norm -> ssd  -> +res                          (mamba2: no FFN)
-    hybrid : norm -> (attn || ssd) -> +res ; norm -> mlp -> +res   (hymba)
+    dense   : norm -> attn -> +res ; norm -> mlp -> +res
+    moe     : norm -> attn -> +res ; norm -> moe -> +res   (+ shared experts)
+    ssm     : norm -> ssd  -> +res                         (mamba2: no FFN)
+    hybrid  : norm -> (attn || ssd) -> +res ; norm -> mlp -> +res   (hymba)
+    encoder : norm -> attn, not causal -> +res ; norm -> mlp -> +res
+    decoder : norm -> causal attn -> +res ; norm -> cross-attn -> +res ;
+              norm -> mlp -> +res                          (whisper)
 
-Ported from the JAX package's ``models/blocks.py`` (``"dense"``, ``"moe"``,
-``"ssm"`` and ``"hybrid"`` kinds; encoder-decoder blocks are not ported
-yet).
+Ported from the JAX package's ``models/blocks.py``, all six kinds.  A
+LayerNorm model (whisper) uses no RoPE: its positions are learned tables
+added to the inputs (``models/whisper.py``).
 """
 from __future__ import annotations
 
@@ -24,31 +27,33 @@ from .moe import moe_forward, moe_init
 from .ssd import init_ssd_cache, ssd_decode_step, ssd_forward, ssd_init
 
 
-def _check_kind(cfg, kind: str) -> None:
-    if kind == "ssm" or (kind in ("dense", "moe", "hybrid")
-                         and cfg.mlp == "swiglu"):
-        return
-    raise NotImplementedError(f"block kind {kind!r} with mlp {cfg.mlp!r} "
-                              "is not ported yet")
-
-
 def mlp_init(cfg, gen: torch.Generator, dtype, device) -> Params:
     d, f = cfg.d_model, cfg.d_ff
-    return {"wg": dense_init(gen, (d, f), dtype, device),
-            "wu": dense_init(gen, (d, f), dtype, device),
-            "wd": dense_init(gen, (f, d), dtype, device, in_axis=0)}
+    if cfg.mlp == "swiglu":
+        return {"wg": dense_init(gen, (d, f), dtype, device),
+                "wu": dense_init(gen, (d, f), dtype, device),
+                "wd": dense_init(gen, (f, d), dtype, device, in_axis=0)}
+    return {"w1": dense_init(gen, (d, f), dtype, device),
+            "b1": torch.zeros((f,), dtype=dtype, device=device),
+            "w2": dense_init(gen, (f, d), dtype, device, in_axis=0),
+            "b2": torch.zeros((d,), dtype=dtype, device=device)}
 
 
 def mlp_forward(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
-    g = _linear(x, p["wg"])
-    u = _linear(x, p["wu"])
-    h = F.silu(g.float()).to(x.dtype) * u
-    return _linear(h, p["wd"])
+    """SwiGLU, or GELU (whisper) in ``jax.nn.gelu``'s default tanh form,
+    each bias added after its product is rounded to x.dtype, as in JAX."""
+    if cfg.mlp == "swiglu":
+        g = _linear(x, p["wg"])
+        u = _linear(x, p["wu"])
+        h = F.silu(g.float()).to(x.dtype) * u
+        return _linear(h, p["wd"])
+    h = _linear(x, p["w1"]) + p["b1"]
+    h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
+    return _linear(h, p["w2"]) + p["b2"]
 
 
 def block_init(cfg, gen: torch.Generator, dtype, device,
                kind: str = "dense") -> Params:
-    _check_kind(cfg, kind)
     if kind == "ssm":
         return {"ln1": norm_init(cfg, cfg.d_model, dtype, device),
                 "ssd": ssd_init(cfg, gen, dtype, device)}
@@ -56,6 +61,9 @@ def block_init(cfg, gen: torch.Generator, dtype, device,
          "attn": attention_init(cfg, gen, dtype, device)}
     if kind == "hybrid":
         p["ssd"] = ssd_init(cfg, gen, dtype, device)
+    if kind == "decoder":
+        p["ln_cross"] = norm_init(cfg, cfg.d_model, dtype, device)
+        p["cross"] = attention_init(cfg, gen, dtype, device, cross=True)
     p["ln2"] = norm_init(cfg, cfg.d_model, dtype, device)
     if kind == "moe":
         p["moe"] = moe_init(cfg, gen, dtype, device)
@@ -66,12 +74,14 @@ def block_init(cfg, gen: torch.Generator, dtype, device,
 
 def block_forward(cfg, p: Params, x: torch.Tensor, kind: str = "dense", *,
                   cache: Optional[Dict] = None,
-                  cache_pos: Optional[DecodePosition] = None
+                  cache_pos: Optional[DecodePosition] = None,
+                  enc_out: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, Dict]:
     """Returns (y, cache).  Prefill returns this layer's K/V, or its SSM
-    state and conv tails, or both (hybrid), to seed the decode cache;
-    decode returns ``cache`` updated in place."""
-    _check_kind(cfg, kind)
+    state and conv tails, or both (hybrid), and a decoder's cross K/V
+    (``cross_k``, ``cross_v``) from ``enc_out``, the encoder's output, to
+    seed the decode cache; decode returns ``cache`` updated in place (a
+    decoder's cross K/V only read)."""
     h = apply_norm(cfg, x, p["ln1"])
     if kind == "ssm":
         if cache is not None:
@@ -79,11 +89,12 @@ def block_forward(cfg, p: Params, x: torch.Tensor, kind: str = "dense", *,
         else:
             y, new_cache = ssd_forward(cfg, p["ssd"], h)
         return x + y, new_cache
+    attn = dict(causal=kind != "encoder", use_rope=cfg.norm != "layernorm")
     if cache is not None:
         y, new_cache = attention_forward(cfg, p["attn"], h, cache=cache,
-                                         cache_pos=cache_pos)
+                                         cache_pos=cache_pos, **attn)
     else:
-        y, (k, v) = attention_forward(cfg, p["attn"], h)
+        y, (k, v) = attention_forward(cfg, p["attn"], h, **attn)
         new_cache = {"k": k, "v": v}
     if kind == "hybrid":  # the SSD heads beside attention, on the same h
         if cache is not None:
@@ -93,6 +104,16 @@ def block_forward(cfg, p: Params, x: torch.Tensor, kind: str = "dense", *,
             new_cache.update(ssd_cache)
         y = 0.5 * (y + y_ssd)
     x = x + y
+    if kind == "decoder":
+        h = apply_norm(cfg, x, p["ln_cross"])
+        if cache is not None:
+            y, _ = attention_forward(
+                cfg, p["cross"], h,
+                precomputed_kv=(cache["cross_k"], cache["cross_v"]))
+        else:
+            y, (new_cache["cross_k"], new_cache["cross_v"]) = \
+                attention_forward(cfg, p["cross"], h, kv_x=enc_out)
+        x = x + y
     h = apply_norm(cfg, x, p["ln2"])
     if kind == "moe":
         y, _ = moe_forward(cfg, p["moe"], h)  # the aux loss is for training
@@ -103,7 +124,8 @@ def block_forward(cfg, p: Params, x: torch.Tensor, kind: str = "dense", *,
 
 def init_block_cache(cfg, kind: str, batch: int, max_seq: int, dtype,
                      device) -> Dict:
-    _check_kind(cfg, kind)
+    """A decoder's cross K/V come from the model's ``init_cache``
+    (``models/whisper.py``)."""
     if kind == "ssm":
         return init_ssd_cache(cfg, batch, dtype, device)
     cache = init_kv_cache(cfg, batch, max_seq, dtype, device)

@@ -1,5 +1,5 @@
-"""Shared model building blocks: dtypes, devices, initializers, RMSNorm and
-rotary embeddings.
+"""Shared model building blocks: dtypes, devices, initializers, RMSNorm,
+LayerNorm and rotary embeddings.
 
 Parameters are nested dicts (and lists, for the layer stacks) of tensors,
 with the JAX package's names and stacked layout, so ``convert.flatten``
@@ -62,16 +62,27 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5
     return (y * w.float()).to(x.dtype)
 
 
+def layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    """fp32 mean and population variance (``jnp.var``), cast back."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * w.float() + b.float()).to(x.dtype)
+
+
 def apply_norm(cfg, x: torch.Tensor, p: Params) -> torch.Tensor:
-    if cfg.norm != "rmsnorm":
-        raise NotImplementedError(f"norm {cfg.norm!r} is not ported yet")
+    if cfg.norm == "layernorm":
+        return layernorm(x, p["scale"], p["bias"], cfg.rms_eps)
     return rmsnorm(x, p["scale"], cfg.rms_eps)
 
 
 def norm_init(cfg, d: int, dtype, device) -> Params:
-    if cfg.norm != "rmsnorm":
-        raise NotImplementedError(f"norm {cfg.norm!r} is not ported yet")
-    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+    p = {"scale": torch.ones((d,), dtype=dtype, device=device)}
+    if cfg.norm == "layernorm":
+        p["bias"] = torch.zeros((d,), dtype=dtype, device=device)
+    return p
 
 
 # ---------------------------------------------------------------------------

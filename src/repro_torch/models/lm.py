@@ -3,11 +3,12 @@ prefill and decode.
 
 Ported from the JAX package's ``models/lm.py`` for the ``dense``,
 ``moe``, ``ssm``, ``hybrid`` and ``vlm`` families (a vlm is the dense
-stack with the vision stub's patch embeddings put ahead of the tokens).
-Parameters keep the JAX layout: ``stacks`` is a list with one tree per
-homogeneous stack, each leaf with a leading layer dim; PyTorch runs the
-stack as a loop over layer views instead of a scan.  MoE interleaving
-(llama4) stacks (dense, moe) pairs, as in JAX.
+stack with the vision stub's patch embeddings put ahead of the tokens);
+the ``encdec`` family (whisper) is ``models/whisper.py``, on the same
+stack loop (``run_stack``).  Parameters keep the JAX layout: ``stacks`` is
+a list with one tree per homogeneous stack, each leaf with a leading layer
+dim; PyTorch runs the stack as a loop over layer views instead of a scan.
+MoE interleaving (llama4) stacks (dense, moe) pairs, as in JAX.
 """
 from __future__ import annotations
 
@@ -39,11 +40,11 @@ def layer_plan(cfg) -> List[Tuple[Tuple[str, ...], int]]:
             plan.append((("dense",), cfg.first_k_dense))
         plan.append((("moe",), cfg.n_layers - cfg.first_k_dense))
         return plan
-    raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    raise ValueError(f"family {cfg.family!r} is not a decoder-only family")
 
 
-def _init_stack(cfg, gen: torch.Generator, dtype, device,
-                kinds: Tuple[str, ...], count: int) -> Params:
+def init_stack(cfg, gen: torch.Generator, dtype, device,
+               kinds: Tuple[str, ...], count: int) -> Params:
     """One stack's tree, each leaf allocated once with its leading layer
     dim and each layer's init written into its slice in layer order: the
     generator draws what ``stack_trees`` of per-layer inits would, and the
@@ -62,7 +63,7 @@ def init_params(cfg, gen: torch.Generator, device) -> Params:
     dtype = dtype_of(cfg.param_dtype)
     p: Params = {"embed": embed_init(gen, cfg.padded_vocab, cfg.d_model,
                                      dtype, device)}
-    p["stacks"] = [_init_stack(cfg, gen, dtype, device, kinds, count)
+    p["stacks"] = [init_stack(cfg, gen, dtype, device, kinds, count)
                    for kinds, count in layer_plan(cfg)]
     p["final_norm"] = norm_init(cfg, cfg.d_model, dtype, device)
     if not cfg.tie_embeddings:
@@ -93,26 +94,41 @@ def unembed(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
     return ops.matmul(x.reshape(B * S, d), w).reshape(B, S, w.shape[1])
 
 
+def run_stack(cfg, sp: Params, x: torch.Tensor, kinds: Tuple[str, ...],
+              count: int, caches=None, cache_pos=None, collect: bool = True,
+              enc_out=None) -> Tuple[torch.Tensor, Any]:
+    """One homogeneous stack ``sp`` of ``count`` steps of ``kinds``, layer
+    by layer.  With ``caches`` (this stack's, updated in place through the
+    per-layer views) returns them; without, the prefill caches stacked
+    (K/V, SSM state and conv tails, a decoder's cross K/V), or None when
+    not ``collect``.  ``enc_out``: the encoder's output, for decoder
+    blocks."""
+    per_layer = []
+    for l in range(count):
+        lp = layer_slice(sp, l)
+        lc = layer_slice(caches, l) if caches is not None else None
+        new = {}
+        for i, kind in enumerate(kinds):
+            x, new[f"b{i}"] = block_forward(
+                cfg, lp[f"b{i}"], x, kind,
+                cache=lc[f"b{i}"] if lc is not None else None,
+                cache_pos=cache_pos, enc_out=enc_out)
+        if collect and caches is None:
+            per_layer.append(new)
+    if caches is not None:
+        return x, caches
+    return x, stack_trees(per_layer) if collect else None
+
+
 def _run_stacks(cfg, p: Params, x: torch.Tensor, caches=None,
                 cache_pos=None) -> Tuple[torch.Tensor, List[Any]]:
-    """All layers in order.  Without caches, returns the prefill caches (K/V,
-    or SSM state and conv tails) stacked per stack; with caches (updated in
-    place through the per-layer views), returns them."""
+    """All layers in order; the caches per stack, as ``run_stack``."""
     out = []
     for si, (kinds, count) in enumerate(layer_plan(cfg)):
-        sp = p["stacks"][si]
-        per_layer = []
-        for l in range(count):
-            lp = layer_slice(sp, l)
-            lc = layer_slice(caches[si], l) if caches is not None else None
-            new = {}
-            for i, kind in enumerate(kinds):
-                x, new[f"b{i}"] = block_forward(
-                    cfg, lp[f"b{i}"], x, kind,
-                    cache=lc[f"b{i}"] if lc is not None else None,
-                    cache_pos=cache_pos)
-            per_layer.append(new)
-        out.append(caches[si] if caches is not None else stack_trees(per_layer))
+        x, c = run_stack(cfg, p["stacks"][si], x, kinds, count,
+                         caches[si] if caches is not None else None,
+                         cache_pos)
+        out.append(c)
     return x, out
 
 

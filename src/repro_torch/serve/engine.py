@@ -67,8 +67,9 @@ def seed_decode_cache(bundle, prefill_caches, batch_size: int, max_seq: int,
 
     K/V caches are stacked (L, B, S, KV, hd): the sequence is axis 2.  A
     leaf whose shape the decode cache already has (the SSM state
-    (L, B, H, P, N) and conv tails (L, B, K-1, C)) is taken as it is, as
-    the JAX package does.  A sliding window's ring of R = min(max_seq,
+    (L, B, H, P, N) and conv tails (L, B, K-1, C), an encoder-decoder's
+    cross K/V (L, B, enc_seq, KV, hd)) is taken as it is, as the JAX
+    package does.  A sliding window's ring of R = min(max_seq,
     window) slots gets the last min(S, R) positions in slots 0.., as the
     JAX package seeds it: exact while S <= R, where slot i holds position
     i, as decode's writes at pos % R expect.  For a longer prompt slot i
@@ -107,7 +108,9 @@ def pad_batch(cfg, prompts, batch_size: int, device):
     """The engine's prefill batch of ``prompts`` and its length S: tokens
     (batch_size, S) left-padded with token 0 to the longest prompt, and for
     a vlm the zero ``patch_embeds`` stub (batch_size, frontend_seq,
-    frontend_dim) in bf16, as the JAX engine passes it."""
+    frontend_dim), for an encoder-decoder the zero ``frames`` stub
+    (batch_size, enc_seq, frontend_dim), in bf16, as the JAX engine passes
+    them."""
     S = max(len(p) for p in prompts)
     toks = np.zeros((batch_size, S), np.int64)
     for i, p in enumerate(prompts):
@@ -116,6 +119,10 @@ def pad_batch(cfg, prompts, batch_size: int, device):
     if cfg.family == "vlm":
         batch["patch_embeds"] = torch.zeros(
             (batch_size, cfg.frontend_seq, cfg.frontend_dim),
+            dtype=torch.bfloat16, device=device)
+    if cfg.family == "encdec":
+        batch["frames"] = torch.zeros(
+            (batch_size, cfg.enc_seq, cfg.frontend_dim),
             dtype=torch.bfloat16, device=device)
     return batch, S
 

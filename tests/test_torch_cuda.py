@@ -19,7 +19,8 @@ from repro_torch.configs import get_config
 from repro_torch.kernels import ops
 from repro_torch.kernels.decode_attention import decode_attention_plain
 from repro_torch.kernels.decode_attention import decode_tile as keys_per_tile
-from repro_torch.kernels.flash_attention import flash_attention_plain
+from repro_torch.kernels.flash_attention import (MEAN_TOL,
+                                                 flash_attention_plain)
 from repro_torch.kernels.ssd_scan import (SSD_ROUTE_LAUNCHES, ssd_route,
                                           ssd_scan_plain)
 from repro_torch.kernels.streamed_matmul import (ROUTE_LAUNCHES, decode_tile,
@@ -54,6 +55,11 @@ MATMUL_SHAPES = [(64, 128, 64), (63, 896, 128), (128, 384, 256),
 FLASH_CASES = [(S, hd, causal) for S in (128, 256, 455, 129)
                for hd in (64, 128) for causal in (True, False)] + [
                    (77, 64, True)]
+# (Sq, Skv) of flash attention not causal: whisper_large_v3's encoder (1500
+# frames) and its cross-attention, from prompts to the 1500 frames, whose
+# last 64-key tile holds 28 keys; 1, 63 and 65 keys against the tile
+CROSS_SQ = [1, 7, 512, 1500]
+CROSS_SKV = [1, 63, 65, 1500]
 # (S, length): lengths not a multiple of the 64-key tile, and caches long
 # enough that a block walks many tiles (4096 keys: 8 per split)
 DECODE_CASES = [(256, 100), (512, 512), (512, 1), (1024, 513), (1024, 487),
@@ -182,6 +188,27 @@ def test_cuda_flash_attention_matches_plain(card, S, hd, causal, H, KV, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("Skv", CROSS_SKV)
+@pytest.mark.parametrize("Sq", CROSS_SQ)
+@pytest.mark.parametrize("H,KV,hd", [(20, 20, 64), (14, 2, 64),
+                                     (16, 4, 128)])
+def test_cuda_flash_attention_cross_matches_plain(card, H, KV, hd, Sq, Skv,
+                                                  dtype):
+    """Not causal, Skv keys for Sq queries (whisper's heads, 20 over 20,
+    and grouped ones): the loose limit and the kernel's mean limit
+    (``MEAN_TOL``), which keys past Skv scored 0 (TMA's zero fill) instead
+    of -inf would miss."""
+    q, k, v = _on(card, dtype, 16, (2, Sq, H, hd), (2, Skv, KV, hd),
+                  (2, Skv, KV, hd))
+    got = ops.flash_attention(q, k, v, causal=False)
+    want = flash_attention_plain(q, k, v, causal=False)
+    _close(got, want, DTYPES[dtype][1])
+    diff = (got.float() - want.float()).abs().mean()
+    assert diff <= MEAN_TOL[q.dtype] * want.float().abs().mean()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("S,window", WINDOW_CASES)
 @pytest.mark.parametrize("hd", [64, 128])
 @pytest.mark.parametrize("H,KV", HEADS)
@@ -220,6 +247,23 @@ def test_cuda_decode_attention_keeps_fp32_precision(card, H, KV, hd, length):
         ops.decode_attention(q, k, v, length).float().cpu().numpy(),
         decode_attention_plain(q, k, v, length).float().cpu().numpy(),
         rtol=1e-2, atol=5e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_decode_attention_reads_the_cross_cache(card, dtype):
+    """whisper_large_v3's cross-attention decode: groups of 1 (20 over 20,
+    hd 64) over all 1500 slots of the cross cache, the length a host int;
+    bf16 also at about one rounding of its output."""
+    q, k, v = _on(card, dtype, 17, (8, 20, 64), (8, 1500, 20, 64),
+                  (8, 1500, 20, 64))
+    got = ops.decode_attention(q, k, v, 1500)
+    want = decode_attention_plain(q, k, v, 1500)
+    _close(got, want, DTYPES[dtype][1])
+    if dtype == "bfloat16":
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want.float().cpu().numpy(),
+                                   rtol=1e-2, atol=5e-5)
 
 
 # lengths read from device memory, under the split plan of all S = 1024 keys:
@@ -467,9 +511,12 @@ def test_cuda_rejects_what_the_kernels_do_not_take(card):
 # ---------------------------------------------------------------------------
 
 def _depth2(card, arch, **overrides):
-    """The arch at full width, two layers, bf16, random weights."""
-    bundle = build(dataclasses.replace(get_config(arch), n_layers=2,
-                                       **overrides))
+    """The arch at full width, two layers (an encoder-decoder's two
+    encoder and two decoder layers), bf16, random weights."""
+    cfg = get_config(arch)
+    if cfg.family == "encdec":
+        overrides = {"n_enc_layers": 2, **overrides}
+    bundle = build(dataclasses.replace(cfg, n_layers=2, **overrides))
     return bundle, bundle.init(0, device=card)
 
 
@@ -494,7 +541,8 @@ def _eager_tokens(bundle, params, prompts, ecfg, new, card):
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch,window", [
     ("qwen2_0_5b", None), ("mamba2_1_3b", None), ("deepseek_moe_16b", None),
-    ("internvl2_26b", None), ("hymba_1_5b", None), ("hymba_1_5b", 64)])
+    ("internvl2_26b", None), ("hymba_1_5b", None), ("hymba_1_5b", 64),
+    ("whisper_large_v3", None)])
 def test_cuda_graph_engine_gives_eager_tokens(card, arch, window):
     """Every decode step of the engine replays its captured graph, and the
     tokens are those of the same batch decoded eagerly; a second batch in
@@ -552,7 +600,12 @@ def test_cuda_graph_replay_never_waits(card, arch):
     # q k v o, gate up down and the SSD's six (w_B and w_C of N 16)
     ("hymba_1_5b", {"streamed_matmul": 13 * 2 + 1, "flash_attention": 0,
                     "decode_attention": 2, "ssd_scan": 0},
-     {"wgmma_decode": 13 * 2 + 1})])
+     {"wgmma_decode": 13 * 2 + 1}),
+    # q k v o, cross q o, w1 w2; the self and the cross decode attention
+    ("whisper_large_v3", {"streamed_matmul": 8 * 2 + 1,
+                          "flash_attention": 0, "decode_attention": 2 * 2,
+                          "ssd_scan": 0},
+     {"wgmma_decode": 8 * 2 + 1})])
 def test_cuda_graph_replays_count_launches(card, arch, per_step, routes):
     """The counts after n replays are n times one step's launches, by
     kernel and by route; capturing the graph launched nothing."""
@@ -584,3 +637,30 @@ def test_cuda_hybrid_prefill_scans_take_the_tc_kernel(card):
     assert bool(torch.isfinite(logits).all())
     assert ops.LAUNCHES["ssd_scan"] == 2
     assert SSD_ROUTE_LAUNCHES == {"wgmma": 0, "fp32": 0, "simt": 0, "tc": 2}
+
+
+@pytest.mark.cuda
+def test_cuda_encdec_prefill_launches_as_counted(card):
+    """whisper_large_v3's bf16 prefill at depth 2: per encoder layer q k v
+    o, w1 w2 and one flash attention (not causal, 1500 frames); per decoder
+    layer q k v o, cross q k v o, w1 w2, the causal self-attention and the
+    cross-attention (the prompt to the 1500 frames); one unembedding; every
+    product of 64 rows or more on the wgmma kernel, the unembedding of the
+    last positions on the decode kernel."""
+    bundle, params = _depth2(card, "whisper_large_v3")
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, bundle.cfg.vocab_size - 1, n).astype(np.int32)
+               for n in (200, 97)]
+    batch, _ = pad_batch(bundle.cfg, prompts, 2, card)
+    ops.reset_launches()
+    with torch.inference_mode():
+        logits, caches = bundle.prefill(params, batch)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(logits).all())
+    assert ops.LAUNCHES == {"streamed_matmul": 6 * 2 + 10 * 2 + 1,
+                            "flash_attention": 2 + 2 * 2,
+                            "decode_attention": 0, "ssd_scan": 0}
+    assert ROUTE_LAUNCHES == {r: {"wgmma": 6 * 2 + 10 * 2,
+                                  "wgmma_decode": 1}.get(r, 0)
+                              for r in ROUTE_LAUNCHES}
+    assert caches[0]["b0"]["cross_k"].shape == (2, 2, 1500, 20, 64)

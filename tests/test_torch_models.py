@@ -28,8 +28,8 @@ torch.set_num_threads(2)
 
 DENSE_ARCHS = ["llama3_2_1b", "qwen2_0_5b", "qwen3_4b", "qwen2_7b"]
 MOE_ARCHS = ["deepseek_moe_16b", "llama4_maverick_400b_a17b"]
-PORTED_ARCHS = DENSE_ARCHS + ["mamba2_1_3b"] + MOE_ARCHS + ["internvl2_26b",
-                                                            "hymba_1_5b"]
+PORTED_ARCHS = DENSE_ARCHS + ["mamba2_1_3b"] + MOE_ARCHS + [
+    "internvl2_26b", "hymba_1_5b", "whisper_large_v3"]
 
 
 def _fp32(cfg):
@@ -46,11 +46,24 @@ def _patches(cfg, B, seed):
         (B, cfg.frontend_seq, cfg.frontend_dim)).astype(np.float32)
 
 
-def _batch(tokens, patches):
-    """The port's batch: tokens, and a vlm's patch embeddings."""
+def _frames(cfg, B, seed):
+    """An encoder-decoder's frames (B, enc_seq, frontend_dim), random (zero
+    frames would give every batch row one encoder output), or None for
+    another family."""
+    if cfg.family != "encdec":
+        return None
+    return np.random.default_rng(seed + 300).standard_normal(
+        (B, cfg.enc_seq, cfg.frontend_dim)).astype(np.float32)
+
+
+def _batch(tokens, patches, frames=None):
+    """The port's batch: tokens, a vlm's patch embeddings, an
+    encoder-decoder's frames."""
     batch = {"tokens": torch.as_tensor(tokens)}
     if patches is not None:
         batch["patch_embeds"] = torch.tensor(patches)
+    if frames is not None:
+        batch["frames"] = torch.tensor(frames)
     return batch
 
 
@@ -281,15 +294,18 @@ def test_ssm_block_matches_reference():
 @pytest.mark.parametrize("arch", PORTED_ARCHS)
 def test_forward_logits_match_reference(arch):
     """Full-sequence logits; MoE archs at the default capacity factor, where
-    tokens drop; a vlm with its patch embeddings ahead of the tokens."""
+    tokens drop; a vlm with its patch embeddings ahead of the tokens; an
+    encoder-decoder with random frames."""
     _, ref_bundle, ref_params, cfg, bundle, params = _pair(arch)
     toks = np.random.default_rng(3).integers(0, cfg.vocab_size - 1, (2, 24))
-    patches = _patches(cfg, 2, 3)
+    patches, frames = _patches(cfg, 2, 3), _frames(cfg, 2, 3)
     ref_batch = {"tokens": jnp.asarray(toks)}
     if patches is not None:
         ref_batch["patch_embeds"] = jnp.asarray(patches)
+    if frames is not None:
+        ref_batch["frames"] = jnp.asarray(frames)
     ref = ref_bundle.forward(ref_params, ref_batch)
-    out = bundle.forward(params, _batch(toks, patches))
+    out = bundle.forward(params, _batch(toks, patches, frames))
     n_front = 0 if patches is None else cfg.frontend_seq
     assert out.shape == (2, n_front + 24, cfg.padded_vocab)
     _close(out, ref, 2e-3)
@@ -308,10 +324,11 @@ def test_prefill_decode_consistency(arch):
     B, S = 2, 16
     toks = torch.tensor(np.random.default_rng(4).integers(
         0, cfg.vocab_size - 1, (B, S + 1)))
-    patches = _patches(cfg, B, 4)
+    patches, frames = _patches(cfg, B, 4), _frames(cfg, B, 4)
     n_front = 0 if patches is None else cfg.frontend_seq
-    logits_full = bundle.forward(params, _batch(toks, patches))
-    last, caches = bundle.prefill(params, _batch(toks[:, :S], patches))
+    logits_full = bundle.forward(params, _batch(toks, patches, frames))
+    last, caches = bundle.prefill(params, _batch(toks[:, :S], patches,
+                                                 frames))
     V = cfg.vocab_size
     _close(last[:, 0, :V], logits_full[:, n_front + S - 1, :V], 2e-3)
     caches = seed_decode_cache(bundle, caches, B, n_front + S + 8,
@@ -330,12 +347,13 @@ def test_decode_step_tensor_pos_equals_int(arch):
     B, S = 2, 12
     toks = torch.tensor(np.random.default_rng(6).integers(
         0, cfg.vocab_size - 1, (B, S + 1)))
+    prompt = _batch(toks[:, :S], _patches(cfg, B, 6), _frames(cfg, B, 6))
     for max_seq, pos in ((S + 4, S), (S, S + 3)):
         out = []
         for p in (pos, torch.tensor(pos, dtype=torch.int32)):
             # a fresh prefill each time: decode advances the SSM state and
             # tails that the seeded cache shares with it
-            _, prefilled = bundle.prefill(params, {"tokens": toks[:, :S]})
+            _, prefilled = bundle.prefill(params, prompt)
             caches = seed_decode_cache(bundle, prefilled, B, max_seq,
                                        device="cpu")
             logits, caches = bundle.decode(params, caches, toks[:, S:], p)
@@ -394,7 +412,3 @@ def test_ssm_prefill_cache_and_decode_steps_match_reference():
                                      S + step)
         _close(last, ref_last, 2e-3)
 
-
-def test_unported_encdec_raises():
-    with pytest.raises(NotImplementedError):
-        build(reduce_for_smoke(get_config("whisper_large_v3")))

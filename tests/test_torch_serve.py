@@ -31,10 +31,10 @@ from repro_torch.serve import EngineConfig, ServeEngine
 torch.set_num_threads(2)
 
 SERVE_MODELS = ["qwen2_0_5b", "llama3_2_1b", "qwen2_7b"]  # SERVE_PROFILES
-# and the SSD, MoE, vlm and hybrid paths
-SERVED_ARCHS = SERVE_MODELS + ["mamba2_1_3b", "deepseek_moe_16b",
+# and qwen3_4b (qk_norm), the SSD, MoE, vlm, hybrid and encoder-decoder paths
+SERVED_ARCHS = SERVE_MODELS + ["qwen3_4b", "mamba2_1_3b", "deepseek_moe_16b",
                                "llama4_maverick_400b_a17b", "internvl2_26b",
-                               "hymba_1_5b"]
+                               "hymba_1_5b", "whisper_large_v3"]
 
 
 def _fp32(cfg):
@@ -136,6 +136,16 @@ def test_launcher_serves_moe_and_vlm_on_cpu(arch, capsys):
     assert launch_serve.main(["--arch", arch, "--reduced", "--requests", "2",
                               "--prompt-len", "7", "--new-tokens", "4",
                               "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert out.count("req ") == 2 and "'decode_steps': 3" in out
+
+
+def test_launcher_serves_encdec_on_cpu(capsys):
+    """Reduced whisper: the zero frames through the encoder, a cache of
+    prompt + new tokens (the frames are not decoder positions)."""
+    assert launch_serve.main(["--arch", "whisper_large_v3", "--reduced",
+                              "--requests", "2", "--prompt-len", "7",
+                              "--new-tokens", "4", "--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert out.count("req ") == 2 and "'decode_steps': 3" in out
 

@@ -50,10 +50,19 @@ exits non-zero):
                FFN at a decode step, C 8, and a prefill, C 235;
                llama4_maverick_400b_a17b's at C 8 and 80; each one launch
                on its grouped route; bf16 also within 5e-5 + 1e-2 |plain|),
+               K1's backward products at qwen2_0_5b's training shapes
+               (dx = dy w^T with w^T read in place, dw = x^T dy at 4096
+               rows, the tied unembedding's too), K2's backward kernel
+               (flash_attention_bwd: qwen2_0_5b's (8, 512, 14/2, 64)
+               causal and at S 455, (4, 512, 28/4, 128) causal, not causal
+               whisper_large_v3's (8, 1500, 20/20, 64) and 512 queries to
+               1500 keys; 2e-4 / 2e-2 of 1 + |plain| and a mean limit,
+               BWD_MEAN_TOL; its library the autograd backward of SDPA),
                with CUDA-event times of the kernel, the plain version and,
                where one exists, one PyTorch library call, and the least
                time the card could take (bound_ms); the summary line sums
-               the bf16 cases, the type the models are served in;
+               the bf16 cases, the type the models are served and trained
+               in;
 4. parity   -- per model, at full width, depth 2 (deepseek_moe_16b: one
                dense and one MoE layer; whisper_large_v3: 2 encoder and 2
                decoder layers), fp32: the port on the CPU (plain
@@ -89,7 +98,20 @@ exits non-zero):
                wall, host and device ms per decode step, eager and graph
                alternating; whisper_large_v3's least decode step time from
                the bytes a step reads; and a check that a replay never
-               makes the host wait on the card.
+               makes the host wait on the card;
+6. train_parity -- one make_train_step step at full width, depth 2, fp32,
+               the card (every product and attention a kernel, forward and
+               backward) against the CPU from one state and batch: loss,
+               gradient norm, moments and parameters, and the launch
+               counts, for qwen2_0_5b, qwen3_4b and whisper_large_v3;
+7. train    -- qwen2_0_5b at full width and depth, bf16, batch 8 x seq 512,
+               5 steps of train_loop on data/pipeline.py's batches: the
+               loss finite and falling, the launches per step of K1 (3 per
+               product), K2 and K2's backward as expected, every product on
+               the wgmma kernel and no plain version called; step time,
+               tokens/s, peak memory, a profiled step's device idle share;
+               a checkpoint saved and restored, and the next step from it
+               equal, bit for bit, to the step without the restore.
 
 Then a summary line of the kernels, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -101,6 +123,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import os
 import re
 import shutil
@@ -135,6 +158,12 @@ LONG_PROMPTS = (1500, 1800)
 LONG_MAX_SEQ = 2048
 # the window that hymba_1_5b's second parity run takes, below both prompts
 PARITY_WINDOW = 32
+# the training path: qwen2_0_5b at full width and depth, bf16, batch 8 x
+# seq 512; its train step held card against CPU at depth 2 in fp32 beside
+# qwen3_4b's (hd 128, qk_norm) and whisper_large_v3's (attention not
+# causal, Sq != Skv)
+TRAIN_PATH = "qwen2_0_5b_train"
+TRAIN_PARITY = ("qwen2_0_5b", "qwen3_4b", "whisper_large_v3")
 TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 SSD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}  # tests/test_kernels.py's
 # and the second limit of bf16 (tests/test_torch_cuda.py's): the bf16 scans
@@ -164,6 +193,12 @@ KERNELS = {
                          "replaces": "src/repro/kernels/decode_attention.py:54"},
     "ssd_scan": {"source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
                  "replaces": "src/repro/kernels/ssd_scan.py:63"},
+    # K2's backward: the JAX package has no Pallas backward (it
+    # differentiates its jnp attention with XLA); the kernel serves the
+    # forward kernel it replaces on the training path
+    "flash_attention_bwd": {
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:67"},
 }
 
 
@@ -194,14 +229,18 @@ def main() -> int:
     launches[LONG_PATH] = phase_serve(torch, dev, "hymba_1_5b",
                                       lengths=LONG_PROMPTS,
                                       max_seq=LONG_MAX_SEQ, path=LONG_PATH)
+    for model in TRAIN_PARITY:
+        phase_train_parity(torch, model)
+    launches[TRAIN_PATH] = phase_train(torch, dev)
     summary = []
     for name, meta in KERNELS.items():
         mine = [c for c in cases if c["name"] == name]
         timed = [c for c in mine if c["dtype"] == "bfloat16"]  # as served
         summary.append({
             "name": name, "route": "cuda", **meta,
-            "launches": sum(n[name] for n in launches.values()),
-            "launches_by_path": {m: n[name] for m, n in launches.items()},
+            "launches": sum(n.get(name, 0) for n in launches.values()),
+            "launches_by_path": {m: n.get(name, 0)
+                                 for m, n in launches.items()},
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             **timing_sums(timed),
             "shapes": [c["shape"] for c in timed],
@@ -355,8 +394,9 @@ def phase_kernels(torch, dev):
     import torch.nn.functional as F
     from repro_torch.kernels import ops
     from repro_torch.kernels.decode_attention import decode_attention_plain
-    from repro_torch.kernels.flash_attention import (MEAN_TOL,
-                                                     flash_attention_plain)
+    from repro_torch.kernels.flash_attention import (
+        BWD_MEAN_TOL, MEAN_TOL, flash_attention_bwd_plain,
+        flash_attention_plain)
     from repro_torch.kernels.ssd_scan import (SSD_ROUTE_LAUNCHES, ssd_route,
                                               ssd_scan_plain)
     from repro_torch.kernels.streamed_matmul import (ROUTE_LAUNCHES,
@@ -547,6 +587,40 @@ def phase_kernels(torch, dev):
               fns)
         del x, w
 
+    # K1's backward at qwen2_0_5b's training shapes (batch 8 x seq 512 =
+    # 4096 rows; one layer's q/o, k/v, gate/up and down, and the tied
+    # unembedding over its padded vocabulary): dx = dy w^T, w^T read in
+    # place (a row-major w's transpose; the tied table itself), and dw = x^T
+    # dy, x^T a contiguous copy, as ops.matmul's backward calls them.  As
+    # in the forward cases, the second operand is scaled by the contraction
+    # length^-1/2 (dx sums over N, dw over the M rows)
+    M = 4096
+    for dtype in (torch.float32, torch.bfloat16):
+        es = torch.tensor([], dtype=dtype).element_size()
+        for K, N in ((896, 896), (896, 128), (896, 4864), (4864, 896),
+                     (896, 151936)):
+            w_t = (randn(N, K, dtype=dtype, scale=N ** -0.5) if N == 151936
+                   else randn(K, N, dtype=dtype, scale=N ** -0.5).t())
+            x_t = randn(K, M, dtype=dtype)
+            dy = randn(M, N, dtype=dtype)
+            dy_s = randn(M, N, dtype=dtype, scale=M ** -0.5)
+            for tag, a, b in (("bwd_dx", dy, w_t), ("bwd_dw", x_t, dy_s)):
+                m, k_, n = a.shape[0], a.shape[1], b.shape[1]
+                before = ROUTE_LAUNCHES["wgmma"]
+                got = ops.matmul(a, b)
+                if dtype == torch.bfloat16 and \
+                        ROUTE_LAUNCHES["wgmma"] != before + 1:
+                    raise AssertionError(f"{tag} ({m}, {k_}, {n}): not on "
+                                         "the wgmma kernel")
+                fns = (lambda: ops.matmul(a, b), lambda: matmul_plain(a, b),
+                       lambda: torch.matmul(a, b))
+                check("streamed_matmul", [tag, m, k_, n], dtype, got,
+                      matmul_plain(a, b), es * (m * k_ + k_ * n + m * n),
+                      2 * m * n * k_, fns)
+                del got
+            del dy, dy_s, w_t, x_t
+            free(torch)
+
     # the matmul grouped over experts, (E, C, K) @ (E, K, N) in one launch:
     # deepseek_moe_16b's expert FFN (64 experts, d 2048, f 1408; gate/up and
     # down) at a decode step of its served batch 4 (C = max(8, ceil(4 x 6 /
@@ -639,6 +713,53 @@ def phase_kernels(torch, dev):
                   4 * hd * B * H * keys, fns,
                   mean_rel=MEAN_TOL[dtype])
             del q, k, v
+
+    # flash_attention_bwd, K2's backward (dq, dk, dv from q, k, v, o, dO):
+    # qwen2_0_5b's training attention (8, 512, 14/2, 64) causal and a
+    # ragged S 455, qwen3_4b's heads at hd 128 (4, 512, 28/4), and not
+    # causal whisper_large_v3's encoder (8, 1500, 20/20) and its
+    # cross-attention from 512 queries to 1500 keys.  The least operations:
+    # five products of 2 hd per (query row, key attended); the bytes: q, k,
+    # v, o, dO read and dq, dk, dv written once.  The library: autograd's
+    # backward of SDPA at the same shape, timed alone (its forward run once).
+    for dtype in (torch.float32, torch.bfloat16):
+        es = torch.tensor([], dtype=dtype).element_size()
+        for B, Sq, Skv, H, KV, hd, causal in (
+                (8, 512, 512, 14, 2, 64, True), (8, 455, 455, 14, 2, 64, True),
+                (4, 512, 512, 28, 4, 128, True),
+                (8, 1500, 1500, 20, 20, 64, False),
+                (8, 512, 1500, 20, 20, 64, False)):
+            q = randn(B, Sq, H, hd, dtype=dtype)
+            k = randn(B, Skv, KV, hd, dtype=dtype)
+            v = randn(B, Skv, KV, hd, dtype=dtype)
+            do = randn(B, Sq, H, hd, dtype=dtype)
+            o = ops.flash_attention(q, k, v, causal=causal)
+            keys = Sq * (Sq + 1) // 2 if causal else Sq * Skv
+            before = ops.GRAD_LAUNCHES["flash_attention_bwd"]
+            got = ops.flash_attention_bwd(q, k, v, o, do, causal=causal)
+            if ops.GRAD_LAUNCHES["flash_attention_bwd"] != before + 1:
+                raise AssertionError("flash_attention_bwd did not launch")
+            qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                          for t in (q, k, v))
+            out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                 enable_gqa=True)
+            dot = do.transpose(1, 2)
+            fns = (lambda: ops.flash_attention_bwd(q, k, v, o, do,
+                                                   causal=causal),
+                   lambda: flash_attention_bwd_plain(q, k, v, o, do,
+                                                     causal=causal),
+                   lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                               retain_graph=True))
+            shape = [B, Sq, H, KV, hd] if Sq == Skv else [B, Sq, Skv, H, KV,
+                                                          hd]
+            check("flash_attention_bwd",
+                  shape + ([] if causal else ["not_causal"]), dtype, got,
+                  flash_attention_bwd_plain(q, k, v, o, do, causal=causal),
+                  es * (4 * B * Sq * H * hd + 4 * B * Skv * KV * hd),
+                  5 * 2 * hd * B * H * keys, fns,
+                  mean_rel=BWD_MEAN_TOL[dtype])
+            del q, k, v, do, o, got, qt, kt, vt, out, dot, fns
+            free(torch)
 
     # decode_attention: one token against a 1k cache; qwen2_0_5b's heads at
     # four lengths (487 is a served one), llama3_2_1b's (32 over 8, hd 64),
@@ -830,6 +951,255 @@ def phase_parity(torch, model, window=None):
         if replays["cuda", n] != 8 or replays["cpu", n] != 0:
             raise AssertionError(f"replays {replays}: the card engine did not "
                                  "replay its graph for every decode step")
+
+
+def train_launches(cfg, steps):
+    """Kernel launches of ``steps`` train steps with no gradient
+    accumulation: each product of a forward (``expected_launches``' count
+    of one prefill) three times, its forward and its two backward products
+    (dx and dw; every product's input needs its gradient, the first
+    layer's through the embedding or the learned positions); each
+    attention once forward and once backward."""
+    launches, _, _ = expected_launches(cfg, 1, 0, 0, 0)
+    return {"streamed_matmul": 3 * launches["streamed_matmul"] * steps,
+            "flash_attention": launches["flash_attention"] * steps,
+            "decode_attention": 0, "ssd_scan": 0,
+            "flash_attention_bwd": launches["flash_attention"] * steps}
+
+
+def _counts(ops):
+    return {**ops.LAUNCHES, **ops.GRAD_LAUNCHES}
+
+
+def phase_train_parity(torch, model):
+    """One ``make_train_step`` step at full width, depth 2 (whisper: 2
+    encoder and 2 decoder layers), fp32: the port on the card (kernels,
+    forward and backward) against the port on the CPU (plain versions),
+    from the same state and batch.  The loss and the gradient norm within
+    1e-4; every moment within 1e-4 of its leaf's largest value (the
+    gradients agree); every parameter whose clipped gradient is above 1e-5
+    (1000 eps) within 1e-3 lr, and each parameter leaf within 5e-3 lr on
+    average.  Adam's first update is g / (|g| + eps) x lr, whose slope eps
+    / (|g| + eps)^2 turns the noise of the sums of a gradient near eps into
+    up to 2 lr, and only there."""
+    from repro_torch import convert
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, make_batch
+    from repro_torch.kernels import ops
+    from repro_torch.models import build
+    from repro_torch.train import (AdamWConfig, TrainConfig, init_state,
+                                   make_train_step)
+    from repro_torch.train.loop import to_device
+
+    cfg = dataclasses.replace(get_config(model), n_layers=2,
+                              param_dtype="float32", compute_dtype="float32")
+    if cfg.family == "encdec":
+        cfg = dataclasses.replace(cfg, n_enc_layers=2)
+    bundle = build(cfg)
+    lr = 1e-3
+    tcfg = TrainConfig(opt=AdamWConfig(lr=lr, warmup_steps=1))
+    step = make_train_step(bundle.loss, tcfg)
+    state = init_state(bundle.init(SEED, device="cuda"), tcfg.opt)
+    batch = make_batch(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=64, global_batch=2,
+        seed=SEED, family=cfg.family, frontend_seq=cfg.enc_seq,
+        frontend_dim=cfg.frontend_dim), 0)
+    ops.reset_launches()
+    card, m_card = step(state, to_device(batch, "cuda"))
+    torch.cuda.synchronize()
+    launches = _counts(ops)
+    cpu, m_cpu = step(_to(state, "cpu"), to_device(batch, "cpu"))
+    got, want = convert.flatten(_to(card, "cpu")), convert.flatten(cpu)
+    worst = {"params_max_over_lr": 0.0, "params_max_over_lr_above_1000eps":
+             0.0, "params_mean_over_lr": 0.0, "moments_rel": 0.0}
+    for name, w in want.items():
+        diff = (got[name].double() - w.double()).abs()
+        if name.startswith("params"):
+            # m = (1 - b1) g clip after one step: |g clip| > 1e-5 where
+            # |m| > 1e-6
+            above = want["opt/m" + name[len("params"):]].abs() > 1e-6
+            for key, d in (("params_max_over_lr", diff),
+                           ("params_max_over_lr_above_1000eps", diff[above])):
+                if d.numel():
+                    worst[key] = max(worst[key], d.max().item() / lr)
+            worst["params_mean_over_lr"] = max(worst["params_mean_over_lr"],
+                                               diff.mean().item() / lr)
+        elif name.startswith("opt/m") or name.startswith("opt/v"):
+            worst["moments_rel"] = max(worst["moments_rel"], diff.max().item()
+                                       / max(w.abs().max().item(), 1e-30))
+    metrics = {k: (float(m_card[k]), float(m_cpu[k])) for k in m_card}
+    expect = train_launches(cfg, 1)
+    emit({"phase": "train_parity", "model": model, "n_layers": 2,
+          "dtype": "float32", "batch": [2, 64], "lr": lr,
+          "metrics_card_cpu": metrics, **worst, "launches": launches,
+          "expected_launches": expect})
+    del state, card, cpu, got, want
+    free(torch)
+    for k, (a, b) in metrics.items():
+        if not abs(a - b) <= 1e-4 * (1 + abs(b)):
+            raise AssertionError(f"train step {k}: card {a} != CPU {b}")
+    if not (worst["params_max_over_lr_above_1000eps"] <= 1e-3
+            and worst["params_mean_over_lr"] <= 5e-3
+            and worst["moments_rel"] <= 1e-4):
+        raise AssertionError(f"card and CPU train steps disagree: {worst}")
+    if launches != expect:
+        raise AssertionError(f"launch counts {launches} != {expect}")
+
+
+def phase_train(torch, dev, model="qwen2_0_5b", batch=8, seq=512, steps=5):
+    """``model`` at full width and depth, bf16 parameters, fp32 moments,
+    ``steps`` steps of ``train_loop`` on ``data/pipeline.py``'s batches
+    from seed 0, counts set to 0 just before: every step's loss finite,
+    the last below the first; the launches per kernel as expected, every
+    product on the wgmma kernel and no plain version called; step time
+    (between the loop's requests for batches: each step ends when the card
+    has finished it), tokens/s and peak memory; then a checkpoint saved and
+    restored, and one more step from each, profiled for the device's idle
+    share: the two states equal bit for bit; CUDA-event times of the
+    step's forward and backward and of its optimizer update apart."""
+    from repro_torch import convert
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, make_batch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.streamed_matmul import ROUTE_LAUNCHES
+    from repro_torch.models import build
+    from repro_torch.train import (AdamWConfig, TrainConfig, make_train_step,
+                                   train_loop)
+    from repro_torch.train.loop import loss_and_grads, to_device
+    from repro_torch.train.optimizer import adamw_update
+
+    cfg = get_config(model)
+    bundle = build(cfg)
+    tcfg = TrainConfig(opt=AdamWConfig(lr=1e-3, warmup_steps=2))
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                      global_batch=batch, seed=SEED)
+    stamps = []
+
+    def stream():
+        i = 0
+        while True:
+            stamps.append(time.perf_counter())
+            yield make_batch(dcfg, i)
+            i += 1
+
+    def refuse(name):
+        def plain(*args, **kwargs):
+            raise AssertionError(f"{name} ran on the training path")
+        return plain
+
+    names = ("matmul_plain", "flash_attention_plain",
+             "flash_attention_bwd_plain")
+    saved = {n: getattr(ops, n) for n in names}
+    for n in names:
+        setattr(ops, n, refuse(n))
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        state, history = train_loop(bundle, tcfg, stream(), n_steps=steps,
+                                    seed=SEED, device="cuda", log_every=1)
+        stamps.append(time.perf_counter())
+        launches, routes = _counts(ops), dict(ROUTE_LAUNCHES)
+    finally:
+        for n in names:
+            setattr(ops, n, saved[n])
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_s = [b - a for a, b in zip(stamps[:-1], stamps[1:])][:steps]
+    warm = statistics.median(step_s[1:])
+    losses = [h["loss"] for h in history]
+
+    # a checkpoint of the trained state, restored, and the next step from
+    # each, the one from the original state profiled
+    ckpt_dir = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    save_checkpoint(str(ckpt_dir), state, step=steps)
+    restored, at = restore_checkpoint(str(ckpt_dir), state)
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    step = make_train_step(bundle.loss, tcfg)
+    nxt = to_device(make_batch(dcfg, steps), "cuda")
+    step(state, nxt)  # warm, outside the profile
+    prof = profile_train_step(torch, lambda: step(state, nxt))
+    # the step's two parts apart: CUDA events around the forward and
+    # backward (loss_and_grads) and around the optimizer update
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    _, _, grads = loss_and_grads(bundle.loss, state["params"], nxt)
+    ev[1].record()
+    adamw_update(state["params"], grads, state["opt"], tcfg.opt)
+    ev[2].record()
+    torch.cuda.synchronize()
+    prof["events_ms"] = {"loss_and_grads": ev[0].elapsed_time(ev[1]),
+                         "adamw_update": ev[1].elapsed_time(ev[2])}
+    del grads
+    a, _ = step(state, nxt)
+    b, _ = step(restored, nxt)
+    torch.cuda.synchronize()
+    fa, fb = convert.flatten(a), convert.flatten(b)
+    same = at == steps and all(torch.equal(fa[n], fb[n]) for n in fa)
+    expect = train_launches(cfg, steps)
+    emit({"phase": "train", "model": model, "n_layers": cfg.n_layers,
+          "dtype": cfg.param_dtype, "moments": tcfg.opt.moment_dtype,
+          "batch": batch, "seq": seq, "tokens_per_step": batch * seq,
+          "steps": steps, "nvidia_smi": dev["smi"], "losses": losses,
+          "grad_norms": [h["grad_norm"] for h in history],
+          "step_s": step_s, "step_s_median_after_first": warm,
+          "tokens_per_s": batch * seq / warm, "peak_mem_gb": peak_gb,
+          "launches": launches, "expected_launches": expect,
+          "matmul_routes": routes, "profile_one_step": prof,
+          "resumed_step_equal": same})
+    del state, restored, a, b, fa, fb
+    free(torch)
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"losses {losses}: not finite and falling")
+    if launches != expect:
+        raise AssertionError(f"launch counts {launches} != {expect}")
+    if routes["wgmma"] != launches["streamed_matmul"]:
+        raise AssertionError(f"routes {routes}: not every product of "
+                             f"{launches['streamed_matmul']} on the wgmma "
+                             "kernel")
+    if not same:
+        raise AssertionError("the step from the restored checkpoint differs "
+                             "from the step without the restore")
+    return launches
+
+
+def profile_train_step(torch, fn):
+    """torch.profiler over one call of ``fn``: wall ms, the union of device
+    kernel time, the device's idle share, the twelve kernels with the most
+    device time, and the port's kernels' device time by name."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy, end = 0.0, float("-inf")
+    for start, stop in sorted((e.time_range.start, e.time_range.end)
+                              for e in kern):
+        busy += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+    by_name = {}
+    for e in kern:
+        name = e.name.replace("void ", "").replace("(anonymous namespace)::",
+                                                   "").split("(")[0][:70]
+        by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    port = {}
+    for k, v in by_name.items():
+        hit = re.match(r"(matmul|flash|decode|ssd)_\w*kernel", k)
+        if hit:
+            port[hit.group(0)] = port.get(hit.group(0), 0.0) + v / 1e3
+    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+            "device_idle_share": (1 - busy / wall_us) if kern else None,
+            "kernels_seen": len(kern),
+            "top_device_ms": {k: v / 1e3 for k, v in top},
+            "port_kernels_ms": port}
 
 
 def decode_logits(torch, bundle, params, batch, device, steps=3):

@@ -1,9 +1,22 @@
-"""Dispatch for the kernels, with a launch count per kernel.
+"""Dispatch for the kernels, with a launch count per kernel, and their
+gradients.
 
 A tensor on the CPU goes to the kernel's plain PyTorch version; a tensor
 on a CUDA device goes to the hand-written kernel, which launches or
 raises.  ``LAUNCHES`` counts the kernel launches made through these
-wrappers, so a run can show that its main path went through the kernels.
+wrappers, so a run can show that its main path went through the kernels;
+``GRAD_LAUNCHES`` counts the backward kernels'.
+
+Where grad is enabled and an input requires it, ``matmul`` and
+``flash_attention`` run as ``torch.autograd.Function``s whose backward is
+made of kernels too: a product's is two more products (``matmul``), the
+attention's the backward kernel of ``csrc/flash_attention_bwd.cu``.
+Otherwise (serving, under ``torch.inference_mode()``) they call the kernel
+directly, with no autograd node.  The ops with no backward kernel
+(``grouped_matmul``, ``ssd_scan``, ``decode_attention``, a banded
+``flash_attention``) raise ``NotImplementedError`` under grad on the card
+rather than give their inputs no gradient; on the CPU their plain versions
+are differentiated by autograd, as before.
 """
 from __future__ import annotations
 
@@ -13,28 +26,32 @@ import torch
 
 from .decode_attention import (Length, decode_attention_cuda,
                                decode_attention_plain)
-from .flash_attention import flash_attention_cuda, flash_attention_plain
+from .flash_attention import (flash_attention_bwd_cuda,
+                              flash_attention_bwd_plain, flash_attention_cuda,
+                              flash_attention_plain)
 from .ssd_scan import SSD_ROUTE_LAUNCHES, ssd_scan_cuda, ssd_scan_plain
 from .streamed_matmul import (ROUTE_LAUNCHES, grouped_matmul_cuda,
                               grouped_matmul_plain, matmul_cuda, matmul_plain)
 
 LAUNCHES: Dict[str, int] = {"streamed_matmul": 0, "flash_attention": 0,
                             "decode_attention": 0, "ssd_scan": 0}
+GRAD_LAUNCHES: Dict[str, int] = {"flash_attention_bwd": 0}
 
 
-COUNTERS = (LAUNCHES, ROUTE_LAUNCHES, SSD_ROUTE_LAUNCHES)
+COUNTERS = (LAUNCHES, ROUTE_LAUNCHES, SSD_ROUTE_LAUNCHES, GRAD_LAUNCHES)
 
 
 def reset_launches() -> None:
-    """Set every kernel's count, and the matmul's and the scan's counts by
-    route, to 0."""
+    """Set every kernel's count, the matmul's and the scan's counts by
+    route, and the backward kernels' counts, to 0."""
     for counts in COUNTERS:
         for name in counts:
             counts[name] = 0
 
 
 def launch_counts() -> List[Dict[str, int]]:
-    """A copy of every count: per kernel, per matmul route, per scan route."""
+    """A copy of every count: per kernel, per matmul route, per scan route,
+    per backward kernel."""
     return [dict(counts) for counts in COUNTERS]
 
 
@@ -55,13 +72,54 @@ def _on_card(t: torch.Tensor) -> bool:
     raise ValueError(f"no kernel for tensors on {t.device}")
 
 
-def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """(M,K) @ (K,N), fp32 accumulation, output in x.dtype."""
+def _grad_wanted(*tensors: Optional[torch.Tensor]) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def _no_backward(name: str, *tensors: Optional[torch.Tensor]) -> None:
+    """Raise under grad on the card, before any launch: ``name`` has no
+    backward kernel, and its output would carry no gradient."""
+    if _grad_wanted(*tensors):
+        raise NotImplementedError(
+            f"{name}: no backward kernel on the card; run it under "
+            "torch.no_grad() or torch.inference_mode(), or on the CPU")
+
+
+def _matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if not _on_card(x):
         return matmul_plain(x, w)
     out = matmul_cuda(x, w)
     LAUNCHES["streamed_matmul"] += 1
     return out
+
+
+class _Matmul(torch.autograd.Function):
+    """y = x @ w; dx = dy @ w^T (w^T read in place: the kernel takes a
+    transposed row-major w) and dw = x^T @ dy (x^T copied: the kernel reads
+    a contiguous x).  A tied table's ``embed.t()`` gets its gradient
+    through the view."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _matmul(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = _matmul(dy, w.t()) if ctx.needs_input_grad[0] else None
+        dw = (_matmul(x.t().contiguous(), dy) if ctx.needs_input_grad[1]
+              else None)
+        return dx, dw
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(M,K) @ (K,N), fp32 accumulation, output in x.dtype."""
+    if _grad_wanted(x, w):
+        return _Matmul.apply(x, w)
+    return _matmul(x, w)
 
 
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -70,9 +128,48 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     launch."""
     if not _on_card(x):
         return grouped_matmul_plain(x, w)
+    _no_backward("grouped_matmul", x, w)
     out = grouped_matmul_cuda(x, w)
     LAUNCHES["streamed_matmul"] += 1
     return out
+
+
+def _flash(q, k, v, causal: bool, window: int) -> torch.Tensor:
+    if not _on_card(q):
+        return flash_attention_plain(q, k, v, causal=causal, window=window)
+    out = flash_attention_cuda(q, k, v, causal=causal, window=window)
+    LAUNCHES["flash_attention"] += 1
+    return out
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor, *,
+                        causal: bool = True
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradients (dq, dk, dv) of ``flash_attention``'s o = attn(q, k,
+    v) given dO, in q's dtype; dk and dv summed over each KV head's query
+    heads."""
+    if not _on_card(q):
+        return flash_attention_bwd_plain(q, k, v, o, do, causal=causal)
+    out = flash_attention_bwd_cuda(q, k, v, o, do, causal=causal)
+    GRAD_LAUNCHES["flash_attention_bwd"] += 1
+    return out
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        o = _flash(q, k, v, causal, 0)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, do.contiguous(),
+                                         causal=ctx.causal)
+        return dq, dk, dv, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -80,11 +177,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q (B,Sq,H,hd), k/v (B,Skv,KV,hd) -> (B,Sq,H,hd); ``window`` w > 0: row
     r attends keys r - w < j <= r.  Sq != Skv only not causal (a
     cross-attention)."""
-    if not _on_card(q):
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
-    out = flash_attention_cuda(q, k, v, causal=causal, window=window)
-    LAUNCHES["flash_attention"] += 1
-    return out
+    if window:  # the band has no backward kernel
+        if _on_card(q):
+            _no_backward("flash_attention with a window", q, k, v)
+        return _flash(q, k, v, causal, window)
+    if _grad_wanted(q, k, v):
+        return _FlashAttention.apply(q, k, v, causal)
+    return _flash(q, k, v, causal, 0)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -93,6 +192,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     host int or a 0-d int32 tensor on q's device."""
     if not _on_card(q):
         return decode_attention_plain(q, k, v, length)
+    _no_backward("decode_attention", q, k, v)
     out = decode_attention_cuda(q, k, v, length)
     LAUNCHES["decode_attention"] += 1
     return out
@@ -107,6 +207,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if not _on_card(x):
         return ssd_scan_plain(x, dt, A, B, C, chunk=chunk,
                               init_state=init_state)
+    _no_backward("ssd_scan", x, dt, A, B, C, init_state)
     out = ssd_scan_cuda(x, dt, A, B, C, chunk=chunk, init_state=init_state)
     LAUNCHES["ssd_scan"] += 1
     return out

@@ -4,6 +4,7 @@
 PyTorch counterpart of the JAX package's ``models/api.py``:
 
     init(seed, device=None)            -> params
+    loss(params, batch)                -> (scalar, metrics)
     forward(params, batch)             -> logits
     prefill(params, batch)             -> (last_logits, caches)
     decode(params, caches, token, pos) -> (logits, caches)
@@ -17,8 +18,9 @@ as an int or as a 0-d int32 tensor on the device (the engine's captured
 step passes a tensor) and updates the caches in place.  Every family is
 ported: the decoder-only ones (dense, moe, ssm, hybrid, vlm) by
 ``models/lm.py``, encdec by ``models/whisper.py``.  ``device=None`` means
-the card: with no CUDA device it raises.
-Training (``loss``) and the dry-run helpers are not ported yet.
+the card: with no CUDA device it raises.  ``loss`` is the training
+objective (``train/loop.py`` differentiates it with autograd).  The dry-run
+helpers are not ported yet.
 """
 from __future__ import annotations
 
@@ -36,6 +38,7 @@ from .common import resolve_device
 class ModelBundle:
     cfg: ModelConfig
     init: Callable
+    loss: Callable
     forward: Callable
     prefill: Callable
     decode: Callable
@@ -52,6 +55,9 @@ def build(cfg: ModelConfig) -> ModelBundle:
         gen = torch.Generator(device=device).manual_seed(seed)
         return mod.init_params(cfg, gen, device)
 
+    def loss(params, batch):
+        return mod.loss_fn(cfg, params, batch)
+
     def forward(params, batch):
         return mod.forward(cfg, params, batch)
 
@@ -64,5 +70,5 @@ def build(cfg: ModelConfig) -> ModelBundle:
     def init_cache(batch: int, max_seq: int, device=None):
         return mod.init_cache(cfg, batch, max_seq, resolve_device(device))
 
-    return ModelBundle(cfg=cfg, init=init, forward=forward, prefill=prefill,
-                       decode=decode, init_cache=init_cache)
+    return ModelBundle(cfg=cfg, init=init, loss=loss, forward=forward,
+                       prefill=prefill, decode=decode, init_cache=init_cache)

@@ -76,19 +76,20 @@ def block_forward(cfg, p: Params, x: torch.Tensor, kind: str = "dense", *,
                   cache: Optional[Dict] = None,
                   cache_pos: Optional[DecodePosition] = None,
                   enc_out: Optional[torch.Tensor] = None
-                  ) -> Tuple[torch.Tensor, Dict]:
-    """Returns (y, cache).  Prefill returns this layer's K/V, or its SSM
-    state and conv tails, or both (hybrid), and a decoder's cross K/V
+                  ) -> Tuple[torch.Tensor, Dict, Optional[torch.Tensor]]:
+    """Returns (y, cache, aux).  Prefill returns this layer's K/V, or its
+    SSM state and conv tails, or both (hybrid), and a decoder's cross K/V
     (``cross_k``, ``cross_v``) from ``enc_out``, the encoder's output, to
     seed the decode cache; decode returns ``cache`` updated in place (a
-    decoder's cross K/V only read)."""
+    decoder's cross K/V only read).  ``aux``: a MoE block's Switch aux
+    loss, None for the other kinds (the JAX package's 0)."""
     h = apply_norm(cfg, x, p["ln1"])
     if kind == "ssm":
         if cache is not None:
             y, new_cache = ssd_decode_step(cfg, p["ssd"], h, cache)
         else:
             y, new_cache = ssd_forward(cfg, p["ssd"], h)
-        return x + y, new_cache
+        return x + y, new_cache, None
     attn = dict(causal=kind != "encoder", use_rope=cfg.norm != "layernorm")
     if cache is not None:
         y, new_cache = attention_forward(cfg, p["attn"], h, cache=cache,
@@ -115,11 +116,12 @@ def block_forward(cfg, p: Params, x: torch.Tensor, kind: str = "dense", *,
                 attention_forward(cfg, p["cross"], h, kv_x=enc_out)
         x = x + y
     h = apply_norm(cfg, x, p["ln2"])
+    aux = None
     if kind == "moe":
-        y, _ = moe_forward(cfg, p["moe"], h)  # the aux loss is for training
+        y, aux = moe_forward(cfg, p["moe"], h)
     else:
         y = mlp_forward(cfg, p["mlp"], h)
-    return x + y, new_cache
+    return x + y, new_cache, aux
 
 
 def init_block_cache(cfg, kind: str, batch: int, max_seq: int, dtype,

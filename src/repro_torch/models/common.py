@@ -1,5 +1,5 @@
 """Shared model building blocks: dtypes, devices, initializers, RMSNorm,
-LayerNorm and rotary embeddings.
+LayerNorm, rotary embeddings and the cross-entropy of the loss.
 
 Parameters are nested dicts (and lists, for the layer stacks) of tensors,
 with the JAX package's names and stacked layout, so ``convert.flatten``
@@ -115,6 +115,51 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
                ) -> torch.Tensor:
     """x: (..., S, H, hd); positions: (S,) absolute positions."""
     return rotate(x, *rope_cos_sin(positions, x.shape[-1], theta))
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          vocab_size: int) -> torch.Tensor:
+    """Token-level CE in fp32, the logits of the padded vocabulary's rows
+    (``>= vocab_size``) set to -1e9 as the JAX package's iota mask sets
+    them."""
+    logits = logits.float()
+    vpad = logits.shape[-1]
+    if vpad > vocab_size:
+        iota = torch.arange(vpad, device=logits.device)
+        logits = torch.where(iota < vocab_size, logits,
+                             torch.full((), -1e9, device=logits.device))
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return lse - picked
+
+
+def map_tree(fn, tree: Any, *rest: Any) -> Any:
+    """``fn`` over the leaves of ``tree`` (nested dicts, lists and tuples)
+    and the same places of ``rest``, whose nodes there are passed whole:
+    an int8 moment's ``{"q", "scale"}`` pairs with its parameter."""
+    if isinstance(tree, dict):
+        return {k: map_tree(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_tree(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree: Any):
+    """The leaves of ``tree`` in ``map_tree``'s order."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from tree_leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from tree_leaves(v)
+    else:
+        yield tree
 
 
 def layer_slice(tree: Any, i: int) -> Any:

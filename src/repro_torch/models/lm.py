@@ -1,5 +1,5 @@
 """The decoder-only language model: embed, the stacked layers, unembed,
-prefill and decode.
+prefill, decode and the training loss.
 
 Ported from the JAX package's ``models/lm.py`` for the ``dense``,
 ``moe``, ``ssm``, ``hybrid`` and ``vlm`` families (a vlm is the dense
@@ -20,7 +20,8 @@ from ..kernels import ops
 from .attention import DecodePosition
 from .blocks import block_forward, block_init, init_block_cache
 from .common import (Params, apply_norm, copy_tree_, dtype_of, embed_init,
-                     empty_stack, layer_slice, norm_init, stack_trees)
+                     empty_stack, layer_slice, norm_init,
+                     softmax_cross_entropy, stack_trees)
 
 
 def layer_plan(cfg) -> List[Tuple[Tuple[str, ...], int]]:
@@ -96,48 +97,79 @@ def unembed(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
 
 def run_stack(cfg, sp: Params, x: torch.Tensor, kinds: Tuple[str, ...],
               count: int, caches=None, cache_pos=None, collect: bool = True,
-              enc_out=None) -> Tuple[torch.Tensor, Any]:
+              enc_out=None) -> Tuple[torch.Tensor, Any, List[torch.Tensor]]:
     """One homogeneous stack ``sp`` of ``count`` steps of ``kinds``, layer
     by layer.  With ``caches`` (this stack's, updated in place through the
     per-layer views) returns them; without, the prefill caches stacked
     (K/V, SSM state and conv tails, a decoder's cross K/V), or None when
     not ``collect``.  ``enc_out``: the encoder's output, for decoder
-    blocks."""
-    per_layer = []
+    blocks.  Last, the MoE blocks' aux losses in layer order (summed by the
+    loss alone, so a decode step adds nothing for them)."""
+    per_layer, aux = [], []
     for l in range(count):
         lp = layer_slice(sp, l)
         lc = layer_slice(caches, l) if caches is not None else None
         new = {}
         for i, kind in enumerate(kinds):
-            x, new[f"b{i}"] = block_forward(
+            x, new[f"b{i}"], a = block_forward(
                 cfg, lp[f"b{i}"], x, kind,
                 cache=lc[f"b{i}"] if lc is not None else None,
                 cache_pos=cache_pos, enc_out=enc_out)
+            if a is not None:
+                aux.append(a)
         if collect and caches is None:
             per_layer.append(new)
     if caches is not None:
-        return x, caches
-    return x, stack_trees(per_layer) if collect else None
+        return x, caches, aux
+    return x, stack_trees(per_layer) if collect else None, aux
 
 
 def _run_stacks(cfg, p: Params, x: torch.Tensor, caches=None,
-                cache_pos=None) -> Tuple[torch.Tensor, List[Any]]:
-    """All layers in order; the caches per stack, as ``run_stack``."""
-    out = []
+                cache_pos=None, collect: bool = True
+                ) -> Tuple[torch.Tensor, List[Any], List[torch.Tensor]]:
+    """All layers in order; the caches per stack and the aux losses, as
+    ``run_stack``."""
+    out, aux = [], []
     for si, (kinds, count) in enumerate(layer_plan(cfg)):
-        x, c = run_stack(cfg, p["stacks"][si], x, kinds, count,
-                         caches[si] if caches is not None else None,
-                         cache_pos)
+        x, c, a = run_stack(cfg, p["stacks"][si], x, kinds, count,
+                            caches[si] if caches is not None else None,
+                            cache_pos, collect=collect)
         out.append(c)
-    return x, out
+        aux += a
+    return x, out, aux
+
+
+def forward_with_aux(cfg, p: Params, batch: Dict[str, torch.Tensor]
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(full-sequence logits (B, S, padded_vocab), the aux loss summed over
+    layers in fp32, as the JAX package's scan carries it: 0 without MoE
+    layers); a vlm's S counts its patch positions too.  No layer's K/V is
+    kept."""
+    x = build_inputs(cfg, p, batch)
+    x, _, aux = _run_stacks(cfg, p, x, collect=False)
+    logits = unembed(cfg, p, apply_norm(cfg, x, p["final_norm"]))
+    return logits, sum(aux, torch.zeros((), dtype=torch.float32,
+                                        device=x.device))
 
 
 def forward(cfg, p: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Full-sequence logits (B, S, padded_vocab); a vlm's S counts its
     patch positions too."""
-    x = build_inputs(cfg, p, batch)
-    x, _ = _run_stacks(cfg, p, x)
-    return unembed(cfg, p, apply_norm(cfg, x, p["final_norm"]))
+    return forward_with_aux(cfg, p, batch)[0]
+
+
+def loss_fn(cfg, p: Params, batch: Dict[str, torch.Tensor]
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token CE (shift by one), a vlm's patch positions dropped first;
+    returns (CE + 0.01 x aux, {"loss": CE, "aux_loss": aux, "ce": CE})."""
+    logits, aux = forward_with_aux(cfg, p, batch)
+    tokens = batch["tokens"]
+    if cfg.family == "vlm" and "patch_embeds" in batch:
+        logits = logits[:, batch["patch_embeds"].shape[1]:, :]
+    ce = softmax_cross_entropy(logits[:, :-1, :], tokens[:, 1:],
+                               cfg.vocab_size)
+    loss = ce.mean()
+    return loss + 0.01 * aux, {"loss": loss, "aux_loss": aux, "ce": loss}
 
 
 def prefill(cfg, p: Params, batch: Dict[str, torch.Tensor]):
@@ -149,7 +181,7 @@ def prefill(cfg, p: Params, batch: Dict[str, torch.Tensor]):
     of a (B, S, vocab) tensor.
     """
     x = build_inputs(cfg, p, batch)
-    x, caches = _run_stacks(cfg, p, x)
+    x, caches, _ = _run_stacks(cfg, p, x)
     x = apply_norm(cfg, x[:, -1:], p["final_norm"])
     return unembed(cfg, p, x), caches
 
@@ -171,7 +203,7 @@ def decode_step(cfg, p: Params, caches: List[Any], token: torch.Tensor,
     it anew on each replay).  Returns (logits (B,1,V), caches), the caches
     updated in place."""
     x = embed_tokens(cfg, p, token)
-    x, caches = _run_stacks(cfg, p, x, caches=caches,
-                            cache_pos=DecodePosition(pos, token.device))
+    x, caches, _ = _run_stacks(cfg, p, x, caches=caches,
+                               cache_pos=DecodePosition(pos, token.device))
     x = apply_norm(cfg, x, p["final_norm"])
     return unembed(cfg, p, x), caches

@@ -19,7 +19,8 @@ import torch
 
 from .attention import DecodePosition
 from .blocks import init_block_cache
-from .common import Params, apply_norm, dtype_of, embed_init, norm_init
+from .common import (Params, apply_norm, dtype_of, embed_init, norm_init,
+                     softmax_cross_entropy)
 from .lm import init_stack, run_stack, unembed
 
 MAX_DEC_POS = 32_768
@@ -48,8 +49,8 @@ def encode(cfg, p: Params, frames: torch.Tensor) -> torch.Tensor:
     """(B, enc_seq, d) frames -> the encoder's output; its K/V are not
     kept."""
     x = frames.to(p["pos_enc"].dtype) + p["pos_enc"]
-    x, _ = run_stack(cfg, p["enc_stack"], x, ENC, cfg.n_enc_layers,
-                     collect=False)
+    x, _, _ = run_stack(cfg, p["enc_stack"], x, ENC, cfg.n_enc_layers,
+                        collect=False)
     return apply_norm(cfg, x, p["enc_norm"])
 
 
@@ -57,14 +58,26 @@ def _decoder(cfg, p: Params, batch: Dict[str, torch.Tensor], collect: bool):
     enc_out = encode(cfg, p, batch["frames"])
     tokens = batch["tokens"]
     x = p["embed"][tokens] + p["pos_dec"][:tokens.shape[1]]
-    return run_stack(cfg, p["dec_stack"], x, DEC, cfg.n_layers,
-                     collect=collect, enc_out=enc_out)
+    x, cache, _ = run_stack(cfg, p["dec_stack"], x, DEC, cfg.n_layers,
+                            collect=collect, enc_out=enc_out)
+    return x, cache
 
 
 def forward(cfg, p: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Full-sequence logits (B, S, padded_vocab) of the tokens."""
     x, _ = _decoder(cfg, p, batch, collect=False)
     return unembed(cfg, p, apply_norm(cfg, x, p["final_norm"]))
+
+
+def loss_fn(cfg, p: Params, batch: Dict[str, torch.Tensor]
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token CE of the tokens (shift by one); returns (CE, {"loss",
+    "ce"}): no aux loss, as in the JAX package."""
+    logits = forward(cfg, p, batch)
+    ce = softmax_cross_entropy(logits[:, :-1, :], batch["tokens"][:, 1:],
+                               cfg.vocab_size)
+    loss = ce.mean()
+    return loss, {"loss": loss, "ce": loss}
 
 
 def prefill(cfg, p: Params, batch: Dict[str, torch.Tensor]):
@@ -98,7 +111,7 @@ def decode_step(cfg, p: Params, caches: List[Any], token: torch.Tensor,
     cache_pos = DecodePosition(pos, token.device)
     row = torch.clamp(cache_pos.pos, max=MAX_DEC_POS - 1).long().reshape(1)
     x = p["embed"][token] + p["pos_dec"].index_select(0, row)
-    x, _ = run_stack(cfg, p["dec_stack"], x, DEC, cfg.n_layers,
-                     caches=caches[0], cache_pos=cache_pos)
+    x, _, _ = run_stack(cfg, p["dec_stack"], x, DEC, cfg.n_layers,
+                        caches=caches[0], cache_pos=cache_pos)
     x = apply_norm(cfg, x, p["final_norm"])
     return unembed(cfg, p, x), caches

@@ -664,3 +664,103 @@ def test_cuda_encdec_prefill_launches_as_counted(card):
                                   "wgmma_decode": 1}.get(r, 0)
                               for r in ROUTE_LAUNCHES}
     assert caches[0]["b0"]["cross_k"].shape == (2, 2, 1500, 20, 64)
+
+
+# (B, Sq, Skv, H, KV, hd, causal) of K2's backward: ragged against its
+# 64-row tiles (S 1, 63, 65, 455, 129), groups of 7, 4, 1 and 8, hd 64 and
+# 128, not causal at Sq != Skv both ways (whisper's 1500 frames: a last
+# key tile of 28 keys)
+BWD_CASES = [(2, S, S, H, KV, hd, causal)
+             for S in (1, 63, 65, 455) for H, KV in ((14, 2), (8, 8))
+             for hd in (64, 128) for causal in (True, False)] + [
+                 (1, 129, 129, 32, 8, 64, True), (1, 129, 129, 8, 1, 128, True),
+                 (2, 7, 1500, 20, 20, 64, False),
+                 (2, 512, 1500, 20, 20, 64, False),
+                 (1, 300, 65, 16, 2, 128, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,hd,causal", BWD_CASES)
+def test_cuda_flash_attention_bwd_matches_plain(card, B, Sq, Skv, H, KV, hd,
+                                                causal, dtype):
+    """dq, dk and dv of the backward kernel against its plain version: the
+    loose limit of the forward and the mean limit ``BWD_MEAN_TOL``, with
+    1e-6 beside it for the fp32 noise of a gradient that is 0 (dq and dk
+    where a row attends one key: dS = P (dP - D) = dP - dP)."""
+    from repro_torch.kernels.flash_attention import (
+        BWD_MEAN_TOL, flash_attention_bwd_plain)
+    q, k, v, do = _on(card, dtype, 40 + Sq + Skv, (B, Sq, H, hd),
+                      (B, Skv, KV, hd), (B, Skv, KV, hd), (B, Sq, H, hd))
+    o = ops.flash_attention(q, k, v, causal=causal)
+    ops.reset_launches()
+    got = ops.flash_attention_bwd(q, k, v, o, do, causal=causal)
+    torch.cuda.synchronize()
+    assert ops.GRAD_LAUNCHES["flash_attention_bwd"] == 1
+    want = flash_attention_bwd_plain(q, k, v, o, do, causal=causal)
+    tol = DTYPES[dtype][1]
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        diff = (g.float() - w.float()).abs()
+        assert bool((diff <= tol * (1 + w.float().abs())).all())
+        assert diff.mean().item() <= BWD_MEAN_TOL[g.dtype] * \
+            w.float().abs().mean().item() + 1e-6
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_bwd_rejects_what_it_does_not_take(card):
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
+    q, k, v, do = _on(card, "bfloat16", 50, (1, 8, 2, 64), (1, 9, 1, 64),
+                      (1, 9, 1, 64), (1, 8, 2, 64))
+    with pytest.raises(ValueError, match="causal"):
+        flash_attention_bwd_cuda(q, k, v, q, do, causal=True)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention_bwd_cuda(q[..., :32].contiguous(),
+                                 k[..., :32].contiguous(),
+                                 v[..., :32].contiguous(),
+                                 q[..., :32].contiguous(),
+                                 do[..., :32].contiguous(), causal=False)
+
+
+@pytest.mark.cuda
+def test_cuda_train_two_steps_at_depth_2(card):
+    """qwen2_0_5b at full width, two layers, bf16, batch 4 x seq 128: two
+    train steps whose every product and attention, forward and backward,
+    is a kernel (3 products per forward product, one backward per
+    attention); the loss finite and falling."""
+    from repro_torch.data import DataConfig, make_batch
+    from repro_torch.train import (AdamWConfig, TrainConfig, init_state,
+                                   make_train_step)
+    from repro_torch.train.loop import to_device
+    bundle, params = _depth2(card, "qwen2_0_5b")
+    tcfg = TrainConfig(opt=AdamWConfig(lr=1e-3, warmup_steps=1))
+    step = make_train_step(bundle.loss, tcfg)
+    state = init_state(params, tcfg.opt)
+    dcfg = DataConfig(vocab_size=bundle.cfg.vocab_size, seq_len=128,
+                      global_batch=4)
+    batch = to_device(make_batch(dcfg, 0), card)
+    ops.reset_launches()
+    losses = []
+    for _ in range(2):
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+    assert ops.LAUNCHES == {"streamed_matmul": 2 * 3 * (7 * 2 + 1),
+                            "flash_attention": 2 * 2,
+                            "decode_attention": 0, "ssd_scan": 0}
+    assert ops.GRAD_LAUNCHES == {"flash_attention_bwd": 2 * 2}
+    assert ROUTE_LAUNCHES["wgmma"] == 2 * 3 * (7 * 2 + 1)
+    assert all(np.isfinite(losses)) and losses[1] < losses[0]
+    assert int(state["step"]) == 2
+
+
+@pytest.mark.cuda
+def test_cuda_ops_without_backward_raise_under_grad(card):
+    x, w = _on(card, "bfloat16", 51, (2, 64, 64), (2, 64, 64))
+    w.requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="grouped_matmul"):
+        ops.grouped_matmul(x, w)
+    q, k, v = _on(card, "bfloat16", 52, (1, 64, 2, 64), (1, 64, 1, 64),
+                  (1, 64, 1, 64))
+    q.requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="window"):
+        ops.flash_attention(q, k, v, window=16)

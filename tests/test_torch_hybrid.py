@@ -201,7 +201,7 @@ def test_hybrid_block_matches_reference(S):
     y_ref, c_ref, _ = ref_blocks.block_forward(ref_cfg, ref_layer,
                                                jnp.asarray(x), "hybrid")
     layer = common.layer_slice(params["stacks"][0]["b0"], 0)
-    y, c = blocks.block_forward(cfg, layer, torch.tensor(x), "hybrid")
+    y, c, _ = blocks.block_forward(cfg, layer, torch.tensor(x), "hybrid")
     _close(y, y_ref, 1e-4)
     assert set(c) == set(c_ref) == {"k", "v", "state", "conv_x", "conv_BC"}
     for n in c:

@@ -207,7 +207,7 @@ def test_dense_block_matches_reference(arch):
     y_ref, kv_ref, _ = ref_blocks.block_forward(ref_cfg, ref_layer,
                                                 jnp.asarray(x), "dense")
     layer = common.layer_slice(params["stacks"][0]["b0"], 0)
-    y, kv = blocks.block_forward(cfg, layer, torch.tensor(x), "dense")
+    y, kv, _ = blocks.block_forward(cfg, layer, torch.tensor(x), "dense")
     _close(y, y_ref, 1e-4)
     _close(kv["k"], kv_ref["k"], 1e-4)
     _close(kv["v"], kv_ref["v"], 1e-4)
@@ -281,7 +281,7 @@ def test_ssm_block_matches_reference():
         (2, 12, cfg.d_model)).astype(np.float32)
     y_ref, c_ref, _ = ref_blocks.block_forward(ref_cfg, ref_layer,
                                                jnp.asarray(x), "ssm")
-    y, c = blocks.block_forward(cfg, layer, torch.tensor(x), "ssm")
+    y, c, _ = blocks.block_forward(cfg, layer, torch.tensor(x), "ssm")
     _close(y, y_ref, 1e-4)
     for k in c_ref:
         _close(c[k], c_ref[k], 1e-4)

@@ -139,7 +139,7 @@ def test_encoder_block_matches_reference():
         (2, cfg.enc_seq, cfg.d_model)).astype(np.float32)
     y_ref, _, _ = ref_blocks.block_forward(ref_cfg, ref_layer, jnp.asarray(x),
                                            "encoder")
-    y, _ = blocks.block_forward(cfg, layer, torch.tensor(x), "encoder")
+    y, _, _ = blocks.block_forward(cfg, layer, torch.tensor(x), "encoder")
     _close(y, y_ref, 1e-4)
 
 
@@ -157,8 +157,8 @@ def test_decoder_block_prefill_and_decode_match_reference():
     y_ref, c_ref, _ = ref_blocks.block_forward(
         ref_cfg, ref_layer, jnp.asarray(x), "decoder",
         enc_out=jnp.asarray(enc))
-    y, c = blocks.block_forward(cfg, layer, torch.tensor(x), "decoder",
-                                enc_out=torch.tensor(enc))
+    y, c, _ = blocks.block_forward(cfg, layer, torch.tensor(x), "decoder",
+                                   enc_out=torch.tensor(enc))
     _close(y, y_ref, 1e-4)
     assert set(c) == set(c_ref) == {"k", "v", "cross_k", "cross_v"}
     for name in c:
@@ -181,9 +181,9 @@ def test_decoder_block_prefill_and_decode_match_reference():
         cache={k: jnp.asarray(v) for k, v in cache_np.items()},
         cache_pos=jnp.int32(S))
     cache = {k: torch.tensor(v) for k, v in cache_np.items()}
-    y, out = blocks.block_forward(cfg, layer, torch.tensor(x1), "decoder",
-                                  cache=cache,
-                                  cache_pos=DecodePosition(S, "cpu"))
+    y, out, _ = blocks.block_forward(cfg, layer, torch.tensor(x1),
+                                     "decoder", cache=cache,
+                                     cache_pos=DecodePosition(S, "cpu"))
     assert out is cache
     _close(y, y_ref, 1e-4)
     for name in cache:

@@ -12,11 +12,13 @@ exits non-zero):
                must show wgmma (HGMMA) and TMA loads (UTMALDG) in the
                prefill and decode matmul kernels, the bf16 flash and
                decode attention kernels and the bf16 SSD scan kernel of
-               P 64, N 128, and tensor-core products (HMMA or HGMMA) and
-               asynchronous loads (UTMALDG or LDGSTS) in the bf16 SSD scan
-               kernel of P 50, N 16; and each kernel's registers and
-               spills from ptxas's report, with no spill allowed in either
-               bf16 SSD scan kernel;
+               P 64, N 128, and both kernels of K2's bf16 backward, and
+               tensor-core products (HMMA or HGMMA) and asynchronous loads
+               (UTMALDG or LDGSTS) in the bf16 SSD scan kernel of P 50, N
+               16; and each kernel's registers and spills from ptxas's
+               report, with no spill allowed in either bf16 SSD scan
+               kernel or in K2's bf16 backward kernels at hd 64 (those at
+               hd 128 and the forward's printed);
 3. kernels  -- each kernel against its plain PyTorch version on the card
                at the shapes of the serving paths of the nine served
                models (qwen2_0_5b, llama3_2_1b, qwen2_7b, qwen3_4b,
@@ -53,11 +55,13 @@ exits non-zero):
                K1's backward products at qwen2_0_5b's training shapes
                (dx = dy w^T with w^T read in place, dw = x^T dy at 4096
                rows, the tied unembedding's too), K2's backward kernel
-               (flash_attention_bwd: qwen2_0_5b's (8, 512, 14/2, 64)
-               causal and at S 455, (4, 512, 28/4, 128) causal, not causal
-               whisper_large_v3's (8, 1500, 20/20, 64) and 512 queries to
-               1500 keys; 2e-4 / 2e-2 of 1 + |plain| and a mean limit,
-               BWD_MEAN_TOL; its library the autograd backward of SDPA),
+               (flash_attention_bwd from the forward's lse: qwen2_0_5b's
+               (8, 512, 14/2, 64) causal and at S 455, (4, 512, 28/4, 128)
+               causal, not causal whisper_large_v3's (8, 1500, 20/20, 64)
+               and 512 queries to 1500 keys; bf16 on its wgmma route,
+               fp32 on the CUDA cores; 2e-4 / 2e-2 of 1 + |plain| and a
+               mean limit, BWD_MEAN_TOL; its library the autograd backward
+               of SDPA),
                with CUDA-event times of the kernel, the plain version and,
                where one exists, one PyTorch library call, and the least
                time the card could take (bound_ms); the summary line sums
@@ -103,13 +107,15 @@ exits non-zero):
                the card (every product and attention a kernel, forward and
                backward) against the CPU from one state and batch: loss,
                gradient norm, moments and parameters, and the launch
-               counts, for qwen2_0_5b, qwen3_4b and whisper_large_v3;
+               counts (K2's backward on its fp32 route), for qwen2_0_5b,
+               qwen3_4b and whisper_large_v3;
 7. train    -- qwen2_0_5b at full width and depth, bf16, batch 8 x seq 512,
                5 steps of train_loop on data/pipeline.py's batches: the
                loss finite and falling, the launches per step of K1 (3 per
-               product), K2 and K2's backward as expected, every product on
-               the wgmma kernel and no plain version called; step time,
-               tokens/s, peak memory, a profiled step's device idle share;
+               product), K2 and K2's backward as expected, every product and
+               every backward on its wgmma kernel and no plain version
+               called; step time, tokens/s, peak memory, a profiled step's
+               device idle share and K2's backward's device time;
                a checkpoint saved and restored, and the next step from it
                equal, bit for bit, to the step without the restore.
 
@@ -315,7 +321,8 @@ def phase_build():
               if "warning" in line.lower() or "Performance" in line]})
     for kernel in ("matmul_wgmma_kernel", "matmul_decode_kernel",
                    "flash_wgmma_kernel", "decode_wgmma_kernel",
-                   "ssd_wgmma_kernel"):
+                   "ssd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
+                   "flash_bwd_dkdv_wgmma_kernel"):
         mine = [c for name, c in sass.items() if kernel in name]
         if not mine or not all(c["HGMMA"] and c["UTMALDG"] for c in mine):
             raise AssertionError(f"{kernel}: no wgmma or TMA load in its SASS")
@@ -324,11 +331,18 @@ def phase_build():
                            (c["UTMALDG"] or c["LDGSTS"]) for c in mine):
         raise AssertionError(f"ssd_tc_kernel: no tensor-core product or "
                              f"asynchronous load in its SASS {mine}")
-    for kernel in ("ssd_wgmma_kernel", "ssd_tc_kernel"):
+    for kernel in ("ssd_wgmma_kernel", "ssd_tc_kernel",
+                   "flash_bwd_dq_wgmma_kernel<64>",
+                   "flash_bwd_dkdv_wgmma_kernel<64>"):
         mine = [r for name, r in ptxas.items() if kernel in name]
         if not mine or any(r.get("spill_stores") != 0 or
                            r.get("spill_loads") != 0 for r in mine):
             raise AssertionError(f"{kernel}: spills or no report {mine}")
+    # K2's kernels apart: the serving forward's (no lse), the training
+    # forward's (lse) and the bf16 backward's, registers and spills
+    emit({"phase": "build", "k2_ptxas": {
+        name: r for name, r in ptxas.items()
+        if re.match(r"flash_(wgmma|bwd_\w+_wgmma)_kernel", name)}})
 
 
 def ptxas_report(log):
@@ -395,7 +409,7 @@ def phase_kernels(torch, dev):
     from repro_torch.kernels import ops
     from repro_torch.kernels.decode_attention import decode_attention_plain
     from repro_torch.kernels.flash_attention import (
-        BWD_MEAN_TOL, MEAN_TOL, flash_attention_bwd_plain,
+        BWD_MEAN_TOL, BWD_ROUTE_LAUNCHES, MEAN_TOL, flash_attention_bwd_plain,
         flash_attention_plain)
     from repro_torch.kernels.ssd_scan import (SSD_ROUTE_LAUNCHES, ssd_route,
                                               ssd_scan_plain)
@@ -714,13 +728,14 @@ def phase_kernels(torch, dev):
                   mean_rel=MEAN_TOL[dtype])
             del q, k, v
 
-    # flash_attention_bwd, K2's backward (dq, dk, dv from q, k, v, o, dO):
-    # qwen2_0_5b's training attention (8, 512, 14/2, 64) causal and a
-    # ragged S 455, qwen3_4b's heads at hd 128 (4, 512, 28/4), and not
-    # causal whisper_large_v3's encoder (8, 1500, 20/20) and its
-    # cross-attention from 512 queries to 1500 keys.  The least operations:
-    # five products of 2 hd per (query row, key attended); the bytes: q, k,
-    # v, o, dO read and dq, dk, dv written once.  The library: autograd's
+    # flash_attention_bwd, K2's backward (dq, dk, dv from q, k, v, o, dO and
+    # the forward's lse): qwen2_0_5b's training attention (8, 512, 14/2,
+    # 64) causal and a ragged S 455, qwen3_4b's heads at hd 128 (4, 512,
+    # 28/4), and not causal whisper_large_v3's encoder (8, 1500, 20/20) and
+    # its cross-attention from 512 queries to 1500 keys; bf16 on the wgmma
+    # route, fp32 on the CUDA cores.  The least operations: five products
+    # of 2 hd per (query row, key attended); the bytes: q, k, v, o, dO and
+    # the lse read and dq, dk, dv written once.  The library: autograd's
     # backward of SDPA at the same shape, timed alone (its forward run once).
     for dtype in (torch.float32, torch.bfloat16):
         es = torch.tensor([], dtype=dtype).element_size()
@@ -733,19 +748,22 @@ def phase_kernels(torch, dev):
             k = randn(B, Skv, KV, hd, dtype=dtype)
             v = randn(B, Skv, KV, hd, dtype=dtype)
             do = randn(B, Sq, H, hd, dtype=dtype)
-            o = ops.flash_attention(q, k, v, causal=causal)
+            o, lse = ops.flash_attention_lse(q, k, v, causal=causal)
             keys = Sq * (Sq + 1) // 2 if causal else Sq * Skv
-            before = ops.GRAD_LAUNCHES["flash_attention_bwd"]
-            got = ops.flash_attention_bwd(q, k, v, o, do, causal=causal)
-            if ops.GRAD_LAUNCHES["flash_attention_bwd"] != before + 1:
-                raise AssertionError("flash_attention_bwd did not launch")
+            route = "wgmma" if dtype == torch.bfloat16 else "fp32"
+            before = BWD_ROUTE_LAUNCHES[route]
+            got = ops.flash_attention_bwd(q, k, v, o, do, causal=causal,
+                                          lse=lse)
+            if BWD_ROUTE_LAUNCHES[route] != before + 1:
+                raise AssertionError(f"flash_attention_bwd did not launch "
+                                     f"on its {route} route")
             qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
                           for t in (q, k, v))
             out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                                  enable_gqa=True)
             dot = do.transpose(1, 2)
             fns = (lambda: ops.flash_attention_bwd(q, k, v, o, do,
-                                                   causal=causal),
+                                                   causal=causal, lse=lse),
                    lambda: flash_attention_bwd_plain(q, k, v, o, do,
                                                      causal=causal),
                    lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
@@ -755,10 +773,11 @@ def phase_kernels(torch, dev):
             check("flash_attention_bwd",
                   shape + ([] if causal else ["not_causal"]), dtype, got,
                   flash_attention_bwd_plain(q, k, v, o, do, causal=causal),
-                  es * (4 * B * Sq * H * hd + 4 * B * Skv * KV * hd),
+                  es * (4 * B * Sq * H * hd + 4 * B * Skv * KV * hd)
+                  + 4 * B * H * Sq,
                   5 * 2 * hd * B * H * keys, fns,
-                  mean_rel=BWD_MEAN_TOL[dtype])
-            del q, k, v, do, o, got, qt, kt, vt, out, dot, fns
+                  mean_rel=BWD_MEAN_TOL[dtype], route=route)
+            del q, k, v, do, o, lse, got, qt, kt, vt, out, dot, fns
             free(torch)
 
     # decode_attention: one token against a 1k cache; qwen2_0_5b's heads at
@@ -959,16 +978,23 @@ def train_launches(cfg, steps):
     of one prefill) three times, its forward and its two backward products
     (dx and dw; every product's input needs its gradient, the first
     layer's through the embedding or the learned positions); each
-    attention once forward and once backward."""
+    attention once forward and once backward, the backward on the route
+    of the model's dtype (bf16: wgmma, fp32: the CUDA cores)."""
     launches, _, _ = expected_launches(cfg, 1, 0, 0, 0)
+    attn = launches["flash_attention"] * steps
+    bf16 = cfg.compute_dtype == "bfloat16"
     return {"streamed_matmul": 3 * launches["streamed_matmul"] * steps,
-            "flash_attention": launches["flash_attention"] * steps,
-            "decode_attention": 0, "ssd_scan": 0,
-            "flash_attention_bwd": launches["flash_attention"] * steps}
+            "flash_attention": attn, "decode_attention": 0, "ssd_scan": 0,
+            "flash_attention_bwd": attn,
+            "flash_attention_bwd_wgmma": attn if bf16 else 0,
+            "flash_attention_bwd_fp32": 0 if bf16 else attn}
 
 
 def _counts(ops):
-    return {**ops.LAUNCHES, **ops.GRAD_LAUNCHES}
+    from repro_torch.kernels.flash_attention import BWD_ROUTE_LAUNCHES
+    return {**ops.LAUNCHES, **ops.GRAD_LAUNCHES,
+            **{f"flash_attention_bwd_{r}": n
+               for r, n in BWD_ROUTE_LAUNCHES.items()}}
 
 
 def phase_train_parity(torch, model):
@@ -1051,12 +1077,14 @@ def phase_train(torch, dev, model="qwen2_0_5b", batch=8, seq=512, steps=5):
     ``steps`` steps of ``train_loop`` on ``data/pipeline.py``'s batches
     from seed 0, counts set to 0 just before: every step's loss finite,
     the last below the first; the launches per kernel as expected, every
-    product on the wgmma kernel and no plain version called; step time
+    product and every attention backward on its wgmma kernel and no plain
+    version called; step time
     (between the loop's requests for batches: each step ends when the card
     has finished it), tokens/s and peak memory; then a checkpoint saved and
     restored, and one more step from each, profiled for the device's idle
-    share: the two states equal bit for bit; CUDA-event times of the
-    step's forward and backward and of its optimizer update apart."""
+    share and K2's backward's device time: the two states equal bit for
+    bit; CUDA-event times of the step's forward and backward and of its
+    optimizer update apart."""
     from repro_torch import convert
     from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
     from repro_torch.configs import get_config
@@ -1089,7 +1117,7 @@ def phase_train(torch, dev, model="qwen2_0_5b", batch=8, seq=512, steps=5):
         return plain
 
     names = ("matmul_plain", "flash_attention_plain",
-             "flash_attention_bwd_plain")
+             "flash_attention_lse_plain", "flash_attention_bwd_plain")
     saved = {n: getattr(ops, n) for n in names}
     for n in names:
         setattr(ops, n, refuse(n))
@@ -1147,13 +1175,17 @@ def phase_train(torch, dev, model="qwen2_0_5b", batch=8, seq=512, steps=5):
           "tokens_per_s": batch * seq / warm, "peak_mem_gb": peak_gb,
           "launches": launches, "expected_launches": expect,
           "matmul_routes": routes, "profile_one_step": prof,
+          "k2_backward_device_ms_per_step": sum(
+              ms for name, ms in prof["port_kernels_ms"].items()
+              if name.startswith("flash_bwd")),
           "resumed_step_equal": same})
     del state, restored, a, b, fa, fb
     free(torch)
     if not all(math.isfinite(x) for x in losses) or \
             not losses[-1] < losses[0]:
         raise AssertionError(f"losses {losses}: not finite and falling")
-    if launches != expect:
+    if launches != expect or launches["flash_attention_bwd_wgmma"] != \
+            cfg.n_layers * steps:
         raise AssertionError(f"launch counts {launches} != {expect}")
     if routes["wgmma"] != launches["streamed_matmul"]:
         raise AssertionError(f"routes {routes}: not every product of "

@@ -36,10 +36,10 @@ SIGNATURES = {
     "streamed_matmul_grouped_decode": [_P, _P, _P, _I, _I, _I, _I, _I, _I,
                                        _P],
     "streamed_matmul_grouped_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
-                        _I, _P],
-    "flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                            _I, _I, _I, _I, _F, _I, _P],
+    "flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                        _I, _F, _I, _P],
+    "flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                            _I, _I, _I, _I, _I, _I, _F, _I, _P],
     "decode_attention_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                              _I, _P, _I, _F, _P],
     "decode_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I,

@@ -44,6 +44,11 @@
 // without its code and keeps its registers.
 // fp32 (flash_kernel) stays on the CUDA cores: two threads share one query
 // row and walk K/V in 32-key tiles; it exists for parity runs.
+// Under grad the forward also writes each row's log2-sum-exp2 of the scaled
+// scores, fp32 (B, H, lse_ld), for the backward kernels
+// (flash_attention_bwd.cu): a template flag (LSE) of both kernels, from the
+// row max and sum they already hold at the end, so the serving kernels are
+// built without it and keep their registers.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -56,11 +61,12 @@ constexpr int FQ = 64;            // query rows per block
 constexpr int FK = 32;            // keys per shared-memory tile
 constexpr int THREADS = 2 * FQ;   // two threads per query row
 
-template <typename T, int HD>
+template <typename T, int HD, bool LSE>
 __global__ void __launch_bounds__(THREADS)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ out, int Sq, int Skv,
-             int H, int KV, float scale, int causal, int window) {
+             const T* __restrict__ v, T* __restrict__ out, float* __restrict__ lse,
+             int lse_ld, int Sq, int Skv, int H, int KV, float scale, int causal,
+             int window) {
   constexpr int NP = HD / 4;  // float2 pairs per thread: dims 4i + 2*half + {0,1}
   __shared__ __align__(16) float Ks[FK][HD];
   __shared__ __align__(16) float Vs[FK][HD];
@@ -138,6 +144,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   if (valid) {
+    if (LSE && half == 0)
+      lse[((size_t)b * H + h) * lse_ld + qpos] = (m + logf(l)) * 1.4426950408889634f;
     const float inv = 1.f / fmaxf(l, 1e-30f);
 #pragma unroll
     for (int i = 0; i < NP; ++i)
@@ -147,13 +155,14 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int HD>
-void launch(const void* q, const void* k, const void* v, void* out, int B, int Sq,
-            int Skv, int H, int KV, int causal, int window, float scale, cudaStream_t s) {
+template <typename T, int HD, bool LSE>
+void launch(const void* q, const void* k, const void* v, void* out, float* lse, int lse_ld,
+            int B, int Sq, int Skv, int H, int KV, int causal, int window, float scale,
+            cudaStream_t s) {
   const dim3 grid((Sq + FQ - 1) / FQ, H, B);
-  flash_kernel<T, HD><<<grid, THREADS, 0, s>>>(
+  flash_kernel<T, HD, LSE><<<grid, THREADS, 0, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), Sq, Skv, H, KV, scale, causal, window);
+      static_cast<T*>(out), lse, lse_ld, Sq, Skv, H, KV, scale, causal, window);
 }
 
 // ------------------------------------------------------- bf16 path, wgmma
@@ -171,13 +180,13 @@ struct FlashTiles {
   static constexpr int SMEM = Q_BYTES + F_STAGES * STAGE + (1 + 2 * F_STAGES) * 8 + 1024;
 };
 
-template <int HD, bool BAND>
+template <int HD, bool BAND, bool LSE>
 __global__ void __launch_bounds__(F_THREADS, HD == 64 ? 2 : 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap kmap,
                    const __grid_constant__ CUtensorMap vmap,
-                   __nv_bfloat16* __restrict__ out, int Sq, int Skv, int H, int KV,
-                   float scale_log2, int causal, int window) {
+                   __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int lse_ld,
+                   int Sq, int Skv, int H, int KV, float scale_log2, int causal, int window) {
   using namespace hopper;
   using T = FlashTiles<HD>;
   if (!BAND) window = 0;  // folds the band's code away: the causal kernel keeps its registers
@@ -336,6 +345,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   for (int hh = 0; hh < 2; ++hh) {
     const int row = row_a + 8 * hh;
     if (row >= Sq) continue;
+    if (LSE && lane % 4 == 0) lse[((size_t)b * H + h) * lse_ld + row] = m[hh] + log2f(l[hh]);
     const float inv = 1.f / fmaxf(l[hh], 1e-30f);
     __nv_bfloat16* orow = out + (((size_t)b * Sq + row) * H + h) * HD;
 #pragma unroll
@@ -345,10 +355,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
-template <int HD, bool BAND>
-int launch_wgmma(const void* q, const void* k, const void* v, void* out, int B, int Sq,
-                 int Skv, int H, int KV, int causal, int window, float scale,
-                 cudaStream_t stream) {
+template <int HD, bool BAND, bool LSE>
+int launch_wgmma(const void* q, const void* k, const void* v, void* out, float* lse,
+                 int lse_ld, int B, int Sq, int Skv, int H, int KV, int causal, int window,
+                 float scale, cudaStream_t stream) {
   using T = FlashTiles<HD>;
   static hopper::SmemRaised raised;
   CUtensorMap qmap, kmap, vmap;
@@ -362,11 +372,12 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out, int B, 
       !hopper::make_map_bf16(&kmap, k, 4, kdims, kstr, kbox) ||
       !hopper::make_map_bf16(&vmap, v, 4, kdims, kstr, kbox))
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err = hopper::allow_smem(flash_wgmma_kernel<HD, BAND>, T::SMEM, raised);
+  const cudaError_t err =
+      hopper::allow_smem(flash_wgmma_kernel<HD, BAND, LSE>, T::SMEM, raised);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((Sq + F_BQ - 1) / F_BQ, H, B);
-  flash_wgmma_kernel<HD, BAND><<<grid, F_THREADS, T::SMEM, stream>>>(
-      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(out), Sq, Skv, H, KV,
+  flash_wgmma_kernel<HD, BAND, LSE><<<grid, F_THREADS, T::SMEM, stream>>>(
+      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(out), lse, lse_ld, Sq, Skv, H, KV,
       scale * 1.4426950408889634f, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
@@ -374,26 +385,37 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out, int B, 
 }  // namespace
 
 // dtype: 0 = fp32, 1 = bf16; hd: 64 or 128; window: 0 (none) or w > 0 with
-// causal; Sq != Skv not causal only, Skv >= 1.  bf16 tensors must be 16-byte
-// aligned (TMA).  Returns the cudaError_t of the launch, or
-// cudaErrorInvalidValue for what the kernels do not take.
+// causal; Sq != Skv not causal only, Skv >= 1.  lse: null, or fp32 (B, H,
+// lse_ld), lse_ld >= Sq, for each row's log2-sum-exp2 (no window).  bf16
+// tensors must be 16-byte aligned (TMA).  Returns the cudaError_t of the
+// launch, or cudaErrorInvalidValue for what the kernels do not take.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
-                               void* out, int B, int Sq, int Skv, int H, int KV,
-                               int hd, int causal, int window, float scale,
-                               int dtype, void* stream) {
+                               void* out, void* lse, int B, int Sq, int Skv, int H,
+                               int KV, int hd, int causal, int window, int lse_ld,
+                               float scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (window < 0 || (window && !causal) || (causal && Sq != Skv) || Skv < 1)
+  float* ls = static_cast<float*>(lse);
+  if (window < 0 || (window && !causal) || (causal && Sq != Skv) || Skv < 1 ||
+      (ls && (window || lse_ld < Sq)))
     return static_cast<int>(cudaErrorInvalidValue);
+#define FLASH_ARGS q, k, v, out, ls, lse_ld, B, Sq, Skv, H, KV, causal
   if (dtype == 1 && hd == 64)
-    return window ? launch_wgmma<64, true>(q, k, v, out, B, Sq, Skv, H, KV, causal, window, scale, s)
-                  : launch_wgmma<64, false>(q, k, v, out, B, Sq, Skv, H, KV, causal, 0, scale, s);
+    return window ? launch_wgmma<64, true, false>(FLASH_ARGS, window, scale, s)
+           : ls   ? launch_wgmma<64, false, true>(FLASH_ARGS, 0, scale, s)
+                  : launch_wgmma<64, false, false>(FLASH_ARGS, 0, scale, s);
   if (dtype == 1 && hd == 128)
-    return window ? launch_wgmma<128, true>(q, k, v, out, B, Sq, Skv, H, KV, causal, window, scale, s)
-                  : launch_wgmma<128, false>(q, k, v, out, B, Sq, Skv, H, KV, causal, 0, scale, s);
-  if (dtype == 0 && hd == 64)
-    launch<float, 64>(q, k, v, out, B, Sq, Skv, H, KV, causal, window, scale, s);
-  else if (dtype == 0 && hd == 128)
-    launch<float, 128>(q, k, v, out, B, Sq, Skv, H, KV, causal, window, scale, s);
-  else return static_cast<int>(cudaErrorInvalidValue);
+    return window ? launch_wgmma<128, true, false>(FLASH_ARGS, window, scale, s)
+           : ls   ? launch_wgmma<128, false, true>(FLASH_ARGS, 0, scale, s)
+                  : launch_wgmma<128, false, false>(FLASH_ARGS, 0, scale, s);
+  if (dtype == 0 && hd == 64) {
+    if (ls) launch<float, 64, true>(FLASH_ARGS, window, scale, s);
+    else launch<float, 64, false>(FLASH_ARGS, window, scale, s);
+  } else if (dtype == 0 && hd == 128) {
+    if (ls) launch<float, 128, true>(FLASH_ARGS, window, scale, s);
+    else launch<float, 128, false>(FLASH_ARGS, window, scale, s);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef FLASH_ARGS
   return static_cast<int>(cudaGetLastError());
 }

@@ -17,12 +17,16 @@ k^T / sqrt(hd)) and D = rowsum(dO o), dv = P^T dO, dS = P (dO v^T - D),
 dq = dS k / sqrt(hd), dk = dS^T q / sqrt(hd), dk and dv summed over the
 query heads of each KV head.  ``flash_attention_bwd_plain`` computes them
 in fp32 einsums; ``flash_attention_bwd_cuda`` launches the two kernels of
-``csrc/flash_attention_bwd.cu``.  The JAX package has no such kernel: it
+``csrc/flash_attention_bwd.cu`` (bf16: wgmma and TMA, from each row's
+log2-sum-exp2 that the forward wrote under grad, ``with_lse``, and
+``flash_attention_lse_plain`` computes; fp32: the CUDA cores), counted by
+route in ``BWD_ROUTE_LAUNCHES``.  The JAX package has no such kernel: it
 differentiates its jnp attention with XLA.
 """
 from __future__ import annotations
 
 import math
+from typing import Dict, Optional
 
 import torch
 
@@ -39,11 +43,19 @@ HEAD_DIMS = (64, 128)
 # about 3x it at 1500 keys (tests/test_torch_whisper.py rehearses both on
 # the CPU).
 MEAN_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-3}
-# The backward kernel's: it keeps every product and statistic in fp32, as
-# its plain version does, and rounds each gradient once; on an H100 its
-# mean error is about 5e-7 of the mean |plain| in both dtypes, 20x (fp32)
-# and 200x (bf16) below these limits.
-BWD_MEAN_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-4}
+# The backward kernel's.  fp32 keeps every product and statistic in fp32,
+# as its plain version does (about 5e-7 of the mean |plain| on an H100).
+# bf16 rounds P and dS to bf16 for their products, as FlashAttention-2/3
+# do: a plain model of those roundings (tests/test_torch_flash_bwd.py)
+# stays at 1.5e-3 to 1.7e-3 on the card tests' shapes, about a third of
+# this limit, and misses it by 2.9x or more with the zero-filled key tail
+# scored into the rows' log-sum-exp (1500 and 2000 keys), 15x or more with
+# D left out of dS, 1000x with the causal diagonal unmasked.
+BWD_MEAN_TOL = {torch.float32: 1e-5, torch.bfloat16: 5e-3}
+# Backward launches by route: bf16 on the tensor cores (wgmma), fp32 on the
+# CUDA cores
+BWD_ROUTE_LAUNCHES: Dict[str, int] = {"wgmma": 0, "fp32": 0}
+LOG2E = 1.4426950408889634
 
 
 def _check_mask(q: torch.Tensor, k: torch.Tensor, causal: bool,
@@ -74,6 +86,26 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
     return o.reshape(B, S, H, hd).to(q.dtype)
+
+
+def flash_attention_lse_plain(q: torch.Tensor, k: torch.Tensor, *,
+                              causal: bool = True) -> torch.Tensor:
+    """Each row's log2-sum-exp2 of its scaled scores, q k^T log2(e) /
+    sqrt(hd) (the masked ones excluded), fp32 (B, H, Sq): what the forward
+    kernel writes under grad, in fp32 as it forms it (the row max, then the
+    sum of exp2 below it)."""
+    _check_mask(q, k, causal, 0)
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    qg = q.float().reshape(B, Sq, KV, H // KV, hd)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * (
+        LOG2E / math.sqrt(hd))
+    if causal:
+        mask = torch.ones(Sq, Skv, dtype=torch.bool, device=q.device).tril()
+        s = torch.where(mask, s, torch.full_like(s, -math.inf))
+    m = s.amax(-1)
+    lse = m + torch.log2(torch.exp2(s - m[..., None]).sum(-1))
+    return lse.reshape(B, H, Sq)
 
 
 def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
@@ -128,11 +160,14 @@ def _check_cuda_inputs(name: str, q: torch.Tensor, k: torch.Tensor,
 
 def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, o: torch.Tensor,
-                             do: torch.Tensor, *, causal: bool = True):
-    """Two launches: one block per (query tile, head, batch row) recomputes
-    its rows' softmax statistics, forms D and dq; one block per (key tile,
-    KV head, batch row) walks its query heads and tiles for dk and dv.
-    fp32 statistics and sums, every input read in place."""
+                             do: torch.Tensor, *, causal: bool = True,
+                             lse: Optional[torch.Tensor] = None):
+    """Two launches: one block per (query tile, head, batch row) forms D
+    and dq; one block per (key tile, KV head, batch row) walks its query
+    heads and tiles for dk and dv.  fp32 statistics and sums, every input
+    read in place.  ``lse``: the forward's (``flash_attention_cuda(...,
+    with_lse=True)``) rows' log2-sum-exp2, fp32 (B, H, Sq) with 16-byte
+    rows; bf16 reads it, fp32 rebuilds it."""
     _check_mask(q, k, causal, 0)
     _check_cuda_inputs("flash_attention_bwd", q, k, v, o, do)
     if v.shape != k.shape or o.shape != q.shape or do.shape != q.shape:
@@ -145,24 +180,46 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                   torch.empty_like(v))
     if B * Sq == 0 or Skv == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    # the rows' log-sum-exp and D, written by the first kernel for the
-    # second
-    stats = torch.empty((2, B, H, Sq), dtype=torch.float32, device=q.device)
+    bf16 = q.dtype == torch.bfloat16
+    if bf16 and any(t.data_ptr() % 16 for t in (q, k, v, o, do)):
+        raise ValueError("flash_attention_bwd: bf16 q, k, v, o, dO must be "
+                         "16-byte aligned (TMA)")
+    if (lse is None or lse.shape != (B, H, Sq) or lse.dtype != torch.float32
+            or lse.device != q.device or lse.stride(2) != 1
+            or lse.stride(1) % 4 or lse.stride(1) < Sq
+            or lse.stride(0) != H * lse.stride(1) or lse.data_ptr() % 16):
+        raise ValueError("flash_attention_bwd: lse must be the forward's "
+                         f"fp32 (B, H, Sq) = {(B, H, Sq)} rows of "
+                         "log2-sum-exp2, 16-byte rows (flash_attention_cuda"
+                         "(..., with_lse=True))")
+    ld = lse.stride(1)
+    # written by the first kernel for the second: bf16, D (B, H, ld); fp32,
+    # the rows' log-sum-exp and D
+    stats = torch.empty((B, H, ld) if bf16 else (2, B, H, Sq),
+                        dtype=torch.float32, device=q.device)
     lib = _build.load()
     _build.check(lib.flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        stats.data_ptr(), B, Sq, Skv, H, KV, hd, int(causal),
-        1.0 / math.sqrt(hd), DTYPE_CODES[q.dtype],
+        do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), stats.data_ptr(), B, Sq, Skv, H, KV, hd, int(causal),
+        ld, 1.0 / math.sqrt(hd), DTYPE_CODES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream),
         "flash_attention_bwd")
+    BWD_ROUTE_LAUNCHES["wgmma" if bf16 else "fp32"] += 1
     return dq, dk, dv
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool = True,
-                         window: int = 0) -> torch.Tensor:
+                         *, causal: bool = True, window: int = 0,
+                         with_lse: bool = False):
+    """out, or (out, lse) ``with_lse`` (no band): each row's log2-sum-exp2
+    of its scaled scores, fp32 (B, H, Sq), a view of rows padded to 16
+    bytes, as the backward kernel reads it (``flash_attention_lse_plain``
+    computes the same)."""
     _check_mask(q, k, causal, window)
+    if with_lse and window:
+        raise ValueError("flash_attention: no lse under a window (the band "
+                         "has no backward kernel)")
     _check_cuda_inputs("flash_attention", q, k, v)
     if k.shape != v.shape:
         raise ValueError(f"flash_attention: shapes k {tuple(k.shape)}, "
@@ -174,12 +231,15 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_attention: bf16 q, k, v must be 16-byte "
                          "aligned (TMA)")
     out = torch.empty_like(q)
+    ld = -(-Sq // 4) * 4  # lse rows of 16 bytes, as TMA reads them
+    lse = (torch.empty((B, H, ld), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     if B * Sq == 0:
-        return out
+        return (out, lse[..., :Sq]) if with_lse else out
     lib = _build.load()
     _build.check(lib.flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, Skv,
-        H, KV, hd, int(causal), window, 1.0 / math.sqrt(hd),
-        DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream),
-        "flash_attention")
-    return out
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr() if with_lse else None, B, Sq, Skv, H, KV, hd,
+        int(causal), window, ld, 1.0 / math.sqrt(hd), DTYPE_CODES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream), "flash_attention")
+    return (out, lse[..., :Sq]) if with_lse else out

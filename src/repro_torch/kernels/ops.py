@@ -5,12 +5,15 @@ A tensor on the CPU goes to the kernel's plain PyTorch version; a tensor
 on a CUDA device goes to the hand-written kernel, which launches or
 raises.  ``LAUNCHES`` counts the kernel launches made through these
 wrappers, so a run can show that its main path went through the kernels;
-``GRAD_LAUNCHES`` counts the backward kernels'.
+``GRAD_LAUNCHES`` counts the backward kernels', and ``BWD_ROUTE_LAUNCHES``
+the attention backward's by route.
 
 Where grad is enabled and an input requires it, ``matmul`` and
 ``flash_attention`` run as ``torch.autograd.Function``s whose backward is
 made of kernels too: a product's is two more products (``matmul``), the
-attention's the backward kernel of ``csrc/flash_attention_bwd.cu``.
+attention's the backward kernel of ``csrc/flash_attention_bwd.cu``, which
+reads each row's log2-sum-exp2 that the forward wrote (the forward's
+``with_lse`` instantiation; on the CPU the plain lse, saved all the same).
 Otherwise (serving, under ``torch.inference_mode()``) they call the kernel
 directly, with no autograd node.  The ops with no backward kernel
 (``grouped_matmul``, ``ssd_scan``, ``decode_attention``, a banded
@@ -26,9 +29,9 @@ import torch
 
 from .decode_attention import (Length, decode_attention_cuda,
                                decode_attention_plain)
-from .flash_attention import (flash_attention_bwd_cuda,
+from .flash_attention import (BWD_ROUTE_LAUNCHES, flash_attention_bwd_cuda,
                               flash_attention_bwd_plain, flash_attention_cuda,
-                              flash_attention_plain)
+                              flash_attention_lse_plain, flash_attention_plain)
 from .ssd_scan import SSD_ROUTE_LAUNCHES, ssd_scan_cuda, ssd_scan_plain
 from .streamed_matmul import (ROUTE_LAUNCHES, grouped_matmul_cuda,
                               grouped_matmul_plain, matmul_cuda, matmul_plain)
@@ -38,12 +41,13 @@ LAUNCHES: Dict[str, int] = {"streamed_matmul": 0, "flash_attention": 0,
 GRAD_LAUNCHES: Dict[str, int] = {"flash_attention_bwd": 0}
 
 
-COUNTERS = (LAUNCHES, ROUTE_LAUNCHES, SSD_ROUTE_LAUNCHES, GRAD_LAUNCHES)
+COUNTERS = (LAUNCHES, ROUTE_LAUNCHES, SSD_ROUTE_LAUNCHES, GRAD_LAUNCHES,
+            BWD_ROUTE_LAUNCHES)
 
 
 def reset_launches() -> None:
     """Set every kernel's count, the matmul's and the scan's counts by
-    route, and the backward kernels' counts, to 0."""
+    route, and the backward kernels' counts, also by route, to 0."""
     for counts in COUNTERS:
         for name in counts:
             counts[name] = 0
@@ -51,7 +55,7 @@ def reset_launches() -> None:
 
 def launch_counts() -> List[Dict[str, int]]:
     """A copy of every count: per kernel, per matmul route, per scan route,
-    per backward kernel."""
+    per backward kernel, per attention backward route."""
     return [dict(counts) for counts in COUNTERS]
 
 
@@ -142,16 +146,32 @@ def _flash(q, k, v, causal: bool, window: int) -> torch.Tensor:
     return out
 
 
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``flash_attention`` (no band) and each row's log2-sum-exp2 of its
+    scaled scores, fp32 (B, H, Sq), which ``flash_attention_bwd`` reads:
+    one counted launch on the card."""
+    if not _on_card(q):
+        return (flash_attention_plain(q, k, v, causal=causal),
+                flash_attention_lse_plain(q, k, causal=causal))
+    out = flash_attention_cuda(q, k, v, causal=causal, with_lse=True)
+    LAUNCHES["flash_attention"] += 1
+    return out
+
+
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, do: torch.Tensor, *,
-                        causal: bool = True
+                        causal: bool = True,
+                        lse: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The gradients (dq, dk, dv) of ``flash_attention``'s o = attn(q, k,
     v) given dO, in q's dtype; dk and dv summed over each KV head's query
-    heads."""
+    heads.  ``lse``: ``flash_attention_lse``'s, which the card needs; the
+    plain version on the CPU recomputes the softmax."""
     if not _on_card(q):
         return flash_attention_bwd_plain(q, k, v, o, do, causal=causal)
-    out = flash_attention_bwd_cuda(q, k, v, o, do, causal=causal)
+    out = flash_attention_bwd_cuda(q, k, v, o, do, causal=causal, lse=lse)
     GRAD_LAUNCHES["flash_attention_bwd"] += 1
     return out
 
@@ -159,16 +179,16 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal):
-        o = _flash(q, k, v, causal, 0)
-        ctx.save_for_backward(q, k, v, o)
+        o, lse = flash_attention_lse(q, k, v, causal=causal)
+        ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal = causal
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o = ctx.saved_tensors
+        q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, o, do.contiguous(),
-                                         causal=ctx.causal)
+                                         causal=ctx.causal, lse=lse)
         return dq, dk, dv, None
 
 

@@ -667,16 +667,30 @@ def test_cuda_encdec_prefill_launches_as_counted(card):
 
 
 # (B, Sq, Skv, H, KV, hd, causal) of K2's backward: ragged against its
-# 64-row tiles (S 1, 63, 65, 455, 129), groups of 7, 4, 1 and 8, hd 64 and
-# 128, not causal at Sq != Skv both ways (whisper's 1500 frames: a last
-# key tile of 28 keys)
+# 64-row tiles (S 1, 63, 65, 455, 129) and the bf16 kernel's 128-row query
+# tiles of dq (129: a second tile of one row), groups of 7, 4, 1 and 8, hd
+# 64 and 128, not causal at Sq != Skv both ways (whisper's 1500 frames: a
+# last key tile of 28 keys; 2000 keys: of 16)
 BWD_CASES = [(2, S, S, H, KV, hd, causal)
              for S in (1, 63, 65, 455) for H, KV in ((14, 2), (8, 8))
              for hd in (64, 128) for causal in (True, False)] + [
                  (1, 129, 129, 32, 8, 64, True), (1, 129, 129, 8, 1, 128, True),
                  (2, 7, 1500, 20, 20, 64, False),
                  (2, 512, 1500, 20, 20, 64, False),
-                 (1, 300, 65, 16, 2, 128, False)]
+                 (1, 300, 65, 16, 2, 128, False),
+                 (3, 1, 1, 8, 1, 128, True), (2, 129, 129, 16, 2, 128, False),
+                 (1, 200, 2000, 8, 1, 64, False),
+                 (1, 129, 2000, 16, 2, 128, False),
+                 (1, 2000, 65, 8, 8, 64, False)]
+
+
+def _bwd_inputs(card, dtype, seed, B, Sq, Skv, H, KV, hd, causal):
+    """q, k, v, dO, and o and lse from the forward kernel (counts reset)."""
+    q, k, v, do = _on(card, dtype, seed, (B, Sq, H, hd), (B, Skv, KV, hd),
+                      (B, Skv, KV, hd), (B, Sq, H, hd))
+    o, lse = ops.flash_attention_lse(q, k, v, causal=causal)
+    ops.reset_launches()
+    return q, k, v, do, o, lse
 
 
 @pytest.mark.cuda
@@ -684,19 +698,21 @@ BWD_CASES = [(2, S, S, H, KV, hd, causal)
 @pytest.mark.parametrize("B,Sq,Skv,H,KV,hd,causal", BWD_CASES)
 def test_cuda_flash_attention_bwd_matches_plain(card, B, Sq, Skv, H, KV, hd,
                                                 causal, dtype):
-    """dq, dk and dv of the backward kernel against its plain version: the
-    loose limit of the forward and the mean limit ``BWD_MEAN_TOL``, with
-    1e-6 beside it for the fp32 noise of a gradient that is 0 (dq and dk
-    where a row attends one key: dS = P (dP - D) = dP - dP)."""
+    """dq, dk and dv of the backward kernel (bf16 on the wgmma route, fp32
+    on the CUDA cores) against its plain version: the loose limit of the
+    forward and the mean limit ``BWD_MEAN_TOL``, with 1e-6 beside it for
+    the fp32 noise of a gradient that is 0 (dq and dk where a row attends
+    one key: dS = P (dP - D) = dP - dP)."""
     from repro_torch.kernels.flash_attention import (
-        BWD_MEAN_TOL, flash_attention_bwd_plain)
-    q, k, v, do = _on(card, dtype, 40 + Sq + Skv, (B, Sq, H, hd),
-                      (B, Skv, KV, hd), (B, Skv, KV, hd), (B, Sq, H, hd))
-    o = ops.flash_attention(q, k, v, causal=causal)
-    ops.reset_launches()
-    got = ops.flash_attention_bwd(q, k, v, o, do, causal=causal)
+        BWD_MEAN_TOL, BWD_ROUTE_LAUNCHES, flash_attention_bwd_plain)
+    q, k, v, do, o, lse = _bwd_inputs(card, dtype, 40 + Sq + Skv, B, Sq, Skv,
+                                      H, KV, hd, causal)
+    got = ops.flash_attention_bwd(q, k, v, o, do, causal=causal, lse=lse)
     torch.cuda.synchronize()
     assert ops.GRAD_LAUNCHES["flash_attention_bwd"] == 1
+    route = "wgmma" if dtype == "bfloat16" else "fp32"
+    assert BWD_ROUTE_LAUNCHES == {r: int(r == route)
+                                  for r in BWD_ROUTE_LAUNCHES}
     want = flash_attention_bwd_plain(q, k, v, o, do, causal=causal)
     tol = DTYPES[dtype][1]
     for g, w in zip(got, want):
@@ -708,18 +724,63 @@ def test_cuda_flash_attention_bwd_matches_plain(card, B, Sq, Skv, H, KV, hd,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,hd,causal", [
+    (8, 512, 512, 14, 2, 64, True), (2, 455, 455, 8, 1, 128, True),
+    (2, 129, 1500, 20, 20, 64, False)])
+def test_cuda_flash_attention_bwd_is_deterministic(card, B, Sq, Skv, H, KV,
+                                                   hd, causal, dtype):
+    """Two calls on the same inputs give dq, dk and dv equal bit for bit:
+    two launches and no atomics, the group's sum in a fixed order."""
+    q, k, v, do, o, lse = _bwd_inputs(card, dtype, 60, B, Sq, Skv, H, KV, hd,
+                                      causal)
+    first = ops.flash_attention_bwd(q, k, v, o, do, causal=causal, lse=lse)
+    second = ops.flash_attention_bwd(q, k, v, o, do, causal=causal, lse=lse)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_flash_attention_lse_matches_plain(card, dtype):
+    """The forward's lse, causal and not causal at Sq != Skv (both ways),
+    against ``flash_attention_lse_plain``; the output is the forward's
+    without it."""
+    from repro_torch.kernels.flash_attention import flash_attention_lse_plain
+    for Sq, Skv, causal in ((455, 455, True), (129, 1500, False),
+                            (300, 65, False)):
+        q, k, v = _on(card, dtype, 61, (2, Sq, 8, 64), (2, Skv, 2, 64),
+                      (2, Skv, 2, 64))
+        o, lse = ops.flash_attention_lse(q, k, v, causal=causal)
+        want = flash_attention_lse_plain(q, k, causal=causal)
+        assert lse.shape == want.shape and lse.dtype == torch.float32
+        assert bool(((lse - want).abs() <= 1e-4 * (1 + want.abs())).all())
+        assert torch.equal(o, ops.flash_attention(q, k, v, causal=causal))
+
+
+@pytest.mark.cuda
 def test_cuda_flash_attention_bwd_rejects_what_it_does_not_take(card):
+    """What the kernels do not take raises, and a bf16 call without the
+    forward's lse raises too: there is no other route to fall back to."""
     from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
-    q, k, v, do = _on(card, "bfloat16", 50, (1, 8, 2, 64), (1, 9, 1, 64),
-                      (1, 9, 1, 64), (1, 8, 2, 64))
+    q, k, v, do = _on(card, "bfloat16", 50, (1, 7, 2, 64), (1, 9, 1, 64),
+                      (1, 9, 1, 64), (1, 7, 2, 64))
+    _, lse = ops.flash_attention_lse(q, k, v, causal=False)
     with pytest.raises(ValueError, match="causal"):
-        flash_attention_bwd_cuda(q, k, v, q, do, causal=True)
+        flash_attention_bwd_cuda(q, k, v, q, do, causal=True, lse=lse)
     with pytest.raises(ValueError, match="head_dim"):
         flash_attention_bwd_cuda(q[..., :32].contiguous(),
                                  k[..., :32].contiguous(),
                                  v[..., :32].contiguous(),
                                  q[..., :32].contiguous(),
-                                 do[..., :32].contiguous(), causal=False)
+                                 do[..., :32].contiguous(), causal=False,
+                                 lse=lse)
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention_bwd_cuda(q, k, v, q, do, causal=False)
+    with pytest.raises(ValueError, match="lse"):  # rows of 7 floats
+        flash_attention_bwd_cuda(q, k, v, q, do, causal=False,
+                                 lse=lse.contiguous())
 
 
 @pytest.mark.cuda
@@ -748,6 +809,7 @@ def test_cuda_train_two_steps_at_depth_2(card):
                             "flash_attention": 2 * 2,
                             "decode_attention": 0, "ssd_scan": 0}
     assert ops.GRAD_LAUNCHES == {"flash_attention_bwd": 2 * 2}
+    assert ops.launch_counts()[4] == {"wgmma": 2 * 2, "fp32": 0}
     assert ROUTE_LAUNCHES["wgmma"] == 2 * 3 * (7 * 2 + 1)
     assert all(np.isfinite(losses)) and losses[1] < losses[0]
     assert int(state["step"]) == 2

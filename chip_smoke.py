@@ -18,7 +18,8 @@ exits non-zero):
                16; and each kernel's registers and spills from ptxas's
                report, with no spill allowed in either bf16 SSD scan
                kernel or in K2's bf16 backward kernels at hd 64 (those at
-               hd 128 and the forward's printed);
+               hd 128, the band's and the forward's printed, and K4's
+               backward kernel's);
 3. kernels  -- each kernel against its plain PyTorch version on the card
                at the shapes of the serving paths of the nine served
                models (qwen2_0_5b, llama3_2_1b, qwen2_7b, qwen3_4b,
@@ -61,7 +62,17 @@ exits non-zero):
                and 512 queries to 1500 keys; bf16 on its wgmma route,
                fp32 on the CUDA cores; 2e-4 / 2e-2 of 1 + |plain| and a
                mean limit, BWD_MEAN_TOL; its library the autograd backward
-               of SDPA),
+               of SDPA; and the band's at hymba_1_5b's training shape (2,
+               2048, 25/5, 64), window 1024, its library SDPA's autograd
+               backward with a boolean band mask), K4's backward
+               (ssd_scan_bwd, fp32 and bf16, against ssd_scan_bwd_plain:
+               mamba2_1_3b's training shape (8, 512, 64, P 64, N 128),
+               hymba_1_5b's (2, 2048, 64, P 50, N 16), a ragged S from an
+               initial state with a cotangent of the final state at both,
+               and the long-memory inputs, b 1, S 4096, A times 1e-4, at
+               both; 1e-4 and 5e-2 of max |plain|, bf16 also within 1e-2
+               of it; library none), each backward also run twice and
+               held equal bit for bit,
                with CUDA-event times of the kernel, the plain version and,
                where one exists, one PyTorch library call, and the least
                time the card could take (bound_ms); the summary line sums
@@ -104,20 +115,26 @@ exits non-zero):
                the bytes a step reads; and a check that a replay never
                makes the host wait on the card;
 6. train_parity -- one make_train_step step at full width, depth 2, fp32,
-               the card (every product and attention a kernel, forward and
-               backward) against the CPU from one state and batch: loss,
-               gradient norm, moments and parameters, and the launch
-               counts (K2's backward on its fp32 route), for qwen2_0_5b,
-               qwen3_4b and whisper_large_v3;
-7. train    -- qwen2_0_5b at full width and depth, bf16, batch 8 x seq 512,
-               5 steps of train_loop on data/pipeline.py's batches: the
-               loss finite and falling, the launches per step of K1 (3 per
-               product), K2 and K2's backward as expected, every product and
-               every backward on its wgmma kernel and no plain version
-               called; step time, tokens/s, peak memory, a profiled step's
-               device idle share and K2's backward's device time;
-               a checkpoint saved and restored, and the next step from it
-               equal, bit for bit, to the step without the restore.
+               the card (every product, attention and scan a kernel,
+               forward and backward) against the CPU from one state and
+               batch: loss, gradient norm, moments and parameters, and the
+               launch counts (K2's and K4's backward on their fp32
+               routes), for qwen2_0_5b, qwen3_4b, whisper_large_v3,
+               mamba2_1_3b and hymba_1_5b (at a window of 32, below its
+               sequence of 64, so that the band's backward is in it);
+7. train    -- at full width and depth, bf16, 5 steps of train_loop on
+               data/pipeline.py's batches: qwen2_0_5b (AdamW lr 1e-3)
+               and mamba2_1_3b (3e-4) at batch 8 x seq 512, hymba_1_5b
+               (3e-4) at 2 x 2048 (past its window of 1024): the loss
+               finite and falling, the launches per
+               step of K1 (3 per product), K2, K2's backward (the band's
+               for hymba), K4 and K4's backward as expected, every product,
+               attention backward and scan backward on its bf16 kernel and
+               no plain version called; step time, tokens/s, peak memory,
+               a profiled step's device idle share and the backward
+               kernels' device time; a checkpoint saved and restored equal
+               bit for bit, and the next step from it equal, bit for bit,
+               to the step without the restore.
 
 Then a summary line of the kernels, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -164,12 +181,22 @@ LONG_PROMPTS = (1500, 1800)
 LONG_MAX_SEQ = 2048
 # the window that hymba_1_5b's second parity run takes, below both prompts
 PARITY_WINDOW = 32
-# the training path: qwen2_0_5b at full width and depth, bf16, batch 8 x
-# seq 512; its train step held card against CPU at depth 2 in fp32 beside
+# the training paths at full width and depth, bf16: (model, batch, seq,
+# AdamW's lr, after a warmup of 2 steps).  mamba2_1_3b at qwen2_0_5b's 8 x
+# 512; hymba_1_5b at 2 x 2048, the same 4096 tokens a step, past its window
+# of 1024, so that the band bites.  Both at the package's default lr of
+# 3e-4 (launch/train.py's): at qwen2_0_5b's 1e-3 mamba2_1_3b's loss rises
+# from step 3 on (11.23, 9.40, 15.16, 15.79, 13.02 on an H100), the same
+# with the plain backward in place of K4's kernel (11.23, 9.40, 15.15,
+# 15.81, 13.03): the step, not the kernel.
+# Their train steps are held card against CPU at depth 2 in fp32 beside
 # qwen3_4b's (hd 128, qk_norm) and whisper_large_v3's (attention not
-# causal, Sq != Skv)
-TRAIN_PATH = "qwen2_0_5b_train"
-TRAIN_PARITY = ("qwen2_0_5b", "qwen3_4b", "whisper_large_v3")
+# causal, Sq != Skv); hymba_1_5b's at PARITY_WINDOW, below its sequence
+TRAIN_PATHS = {"qwen2_0_5b_train": ("qwen2_0_5b", 8, 512, 1e-3),
+               "mamba2_1_3b_train": ("mamba2_1_3b", 8, 512, 3e-4),
+               "hymba_1_5b_train": ("hymba_1_5b", 2, 2048, 3e-4)}
+TRAIN_PARITY = ("qwen2_0_5b", "qwen3_4b", "whisper_large_v3", "mamba2_1_3b",
+                "hymba_1_5b")
 TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 SSD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}  # tests/test_kernels.py's
 # and the second limit of bf16 (tests/test_torch_cuda.py's): the bf16 scans
@@ -199,12 +226,15 @@ KERNELS = {
                          "replaces": "src/repro/kernels/decode_attention.py:54"},
     "ssd_scan": {"source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
                  "replaces": "src/repro/kernels/ssd_scan.py:63"},
-    # K2's backward: the JAX package has no Pallas backward (it
-    # differentiates its jnp attention with XLA); the kernel serves the
-    # forward kernel it replaces on the training path
+    # K2's and K4's backward: the JAX package has no Pallas backward (it
+    # differentiates its jnp attention and its ssd_scan_ref with XLA); each
+    # kernel serves the forward kernel it replaces on the training path
     "flash_attention_bwd": {
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "replaces": "src/repro/kernels/flash_attention.py:67"},
+    "ssd_scan_bwd": {
+        "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:63"},
 }
 
 
@@ -236,8 +266,10 @@ def main() -> int:
                                       lengths=LONG_PROMPTS,
                                       max_seq=LONG_MAX_SEQ, path=LONG_PATH)
     for model in TRAIN_PARITY:
-        phase_train_parity(torch, model)
-    launches[TRAIN_PATH] = phase_train(torch, dev)
+        phase_train_parity(torch, model, window=PARITY_WINDOW
+                           if model == "hymba_1_5b" else None)
+    for path, (model, batch, seq, lr) in TRAIN_PATHS.items():
+        launches[path] = phase_train(torch, dev, model, batch, seq, lr, path)
     summary = []
     for name, meta in KERNELS.items():
         mine = [c for c in cases if c["name"] == name]
@@ -332,17 +364,20 @@ def phase_build():
         raise AssertionError(f"ssd_tc_kernel: no tensor-core product or "
                              f"asynchronous load in its SASS {mine}")
     for kernel in ("ssd_wgmma_kernel", "ssd_tc_kernel",
-                   "flash_bwd_dq_wgmma_kernel<64>",
-                   "flash_bwd_dkdv_wgmma_kernel<64>"):
+                   "flash_bwd_dq_wgmma_kernel<64,",
+                   "flash_bwd_dkdv_wgmma_kernel<64,", "ssd_bwd_kernel"):
         mine = [r for name, r in ptxas.items() if kernel in name]
         if not mine or any(r.get("spill_stores") != 0 or
                            r.get("spill_loads") != 0 for r in mine):
             raise AssertionError(f"{kernel}: spills or no report {mine}")
     # K2's kernels apart: the serving forward's (no lse), the training
-    # forward's (lse) and the bf16 backward's, registers and spills
+    # forward's (lse; under a band too) and the bf16 backward's (causal or
+    # not, and the band's), and K4's backward, registers and spills
     emit({"phase": "build", "k2_ptxas": {
         name: r for name, r in ptxas.items()
-        if re.match(r"flash_(wgmma|bwd_\w+_wgmma)_kernel", name)}})
+        if re.match(r"flash_(wgmma|bwd_\w+_wgmma)_kernel", name)},
+        "k4_backward_ptxas": {name: r for name, r in ptxas.items()
+                              if name.startswith("ssd_bwd")}})
 
 
 def ptxas_report(log):
@@ -411,7 +446,9 @@ def phase_kernels(torch, dev):
     from repro_torch.kernels.flash_attention import (
         BWD_MEAN_TOL, BWD_ROUTE_LAUNCHES, MEAN_TOL, flash_attention_bwd_plain,
         flash_attention_plain)
-    from repro_torch.kernels.ssd_scan import (SSD_ROUTE_LAUNCHES, ssd_route,
+    from repro_torch.kernels.ssd_scan import (SSD_BWD_ROUTE_LAUNCHES,
+                                              SSD_ROUTE_LAUNCHES, ssd_route,
+                                              ssd_scan_bwd_plain,
                                               ssd_scan_plain)
     from repro_torch.kernels.streamed_matmul import (ROUTE_LAUNCHES,
                                                      grouped_matmul_plain,
@@ -780,6 +817,59 @@ def phase_kernels(torch, dev):
             del q, k, v, do, o, lse, got, qt, kt, vt, out, dot, fns
             free(torch)
 
+    def same_bits(fn):
+        """Two more calls of a backward give every output equal bit for
+        bit (no atomics)."""
+        first, second = fn(), fn()
+        torch.cuda.synchronize()
+        if not all(a is None or torch.equal(a, b)
+                   for a, b in zip(first, second)):
+            raise AssertionError("two calls of a backward kernel differ")
+
+    # K2's band backward at hymba_1_5b's training shape: (2, 2048, 25/5,
+    # 64) under its window of 1024, from the forward's band lse; the keys
+    # attended min(r + 1, 1024) per row; its library SDPA's autograd
+    # backward with a boolean band mask
+    B, S, H, KV, hd, window = 2, 2048, 25, 5, 64, 1024
+    for dtype in (torch.float32, torch.bfloat16):
+        es = torch.tensor([], dtype=dtype).element_size()
+        q = randn(B, S, H, hd, dtype=dtype)
+        k = randn(B, S, KV, hd, dtype=dtype)
+        v = randn(B, S, KV, hd, dtype=dtype)
+        do = randn(B, S, H, hd, dtype=dtype)
+        o, lse = ops.flash_attention_lse(q, k, v, window=window)
+        route = "wgmma" if dtype == torch.bfloat16 else "fp32"
+        before = BWD_ROUTE_LAUNCHES[route]
+        got = ops.flash_attention_bwd(q, k, v, o, do, window=window, lse=lse)
+        if BWD_ROUTE_LAUNCHES[route] != before + 1:
+            raise AssertionError(f"the band's backward did not launch on "
+                                 f"its {route} route")
+        same_bits(lambda: ops.flash_attention_bwd(q, k, v, o, do,
+                                                  window=window, lse=lse))
+        i = torch.arange(S, device="cuda")
+        band = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :]
+                                             < window)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                      for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band,
+                                             enable_gqa=True)
+        dot = do.transpose(1, 2)
+        keys = sum(min(r + 1, window) for r in range(S))
+        fns = (lambda: ops.flash_attention_bwd(q, k, v, o, do, window=window,
+                                               lse=lse),
+               lambda: flash_attention_bwd_plain(q, k, v, o, do,
+                                                 window=window),
+               lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                           retain_graph=True))
+        check("flash_attention_bwd", [B, S, H, KV, hd, "window", window],
+              dtype, got, flash_attention_bwd_plain(q, k, v, o, do,
+                                                    window=window),
+              es * (4 * B * S * H * hd + 4 * B * S * KV * hd) + 4 * B * H * S,
+              5 * 2 * hd * B * H * keys, fns, mean_rel=BWD_MEAN_TOL[dtype],
+              route=route)
+        del q, k, v, do, o, lse, got, qt, kt, vt, out, dot, fns, band
+        free(torch)
+
     # decode_attention: one token against a 1k cache; qwen2_0_5b's heads at
     # four lengths (487 is a served one), llama3_2_1b's (32 over 8, hd 64),
     # qwen2_7b's at its B 4 (28 over 4, hd 128), qwen3_4b's (32 over 8,
@@ -881,6 +971,68 @@ def phase_kernels(torch, dev):
               + 4 * (b * S * H + H + b * H * P * N * (2 if with_init else 1)),
               n_ops, fns, relative=True, route=route)
         del x, Bm, Cm, init, args, got
+
+    # ssd_scan_bwd, K4's backward (dx, ddt, dA, dB, dC, d init_state from x,
+    # dt, A, B, C, dy and the final state's cotangent), against
+    # ssd_scan_bwd_plain: mamba2_1_3b's training scan (b 8, S 512, P 64, N
+    # 128) and hymba_1_5b's (b 2, S 2048, P 50, N 16), fp32 and bf16; a
+    # ragged S (449, 1800) from an initial state with a cotangent of the
+    # final state; the long-memory inputs (b 1, S 4096, A times 1e-4) at
+    # both, where an adjoint carried in bf16 or dA summed in low precision
+    # would show.  B and C are the halves of one (b, S, 2N) tensor, read in
+    # place.  The least operations, per (batch row, sub-chunk of q <= 64
+    # rows): C B^T once (lower triangle), and per head dy (x dt)^T, (L o C
+    # B^T)^T dy, (L o dy (x dt)^T)^T C and (L o dy (x dt)^T) B (triangles:
+    # q (q + 1) each), and B G^T, (x dt) G, dy s0, the adjoint's update and
+    # the states' (2 q P N each); no PyTorch call computes it (library:
+    # none)
+    H = 64
+    ssd_bwd_cases = [(torch.float32, 8, 512, False, 64, 128, 1.0),
+                     (torch.bfloat16, 8, 512, False, 64, 128, 1.0),
+                     (torch.bfloat16, 8, 449, True, 64, 128, 1.0),
+                     (torch.bfloat16, 1, 4096, True, 64, 128, 1e-4),
+                     (torch.float32, 2, 2048, False, 50, 16, 1.0),
+                     (torch.bfloat16, 2, 2048, False, 50, 16, 1.0),
+                     (torch.bfloat16, 2, 1800, True, 50, 16, 1.0),
+                     (torch.bfloat16, 1, 4096, True, 50, 16, 1e-4)]
+    for dtype, b, S, with_init, P, N, a_scale in ssd_bwd_cases:
+        es = torch.tensor([], dtype=dtype).element_size()
+        x = randn(b, S, H, P, dtype=dtype, scale=0.5)
+        dt = F.softplus(randn(b, S, H, dtype=torch.float32))
+        A = -torch.exp(randn(H, dtype=torch.float32, scale=0.3)) * a_scale
+        BC = randn(b, S, 2 * N, dtype=dtype, scale=0.5)
+        Bm, Cm = BC[..., :N], BC[..., N:]
+        dy = randn(b, S, H, P, dtype=dtype)
+        init = randn(b, H, P, N, dtype=torch.float32) if with_init else None
+        dstate = randn(b, H, P, N, dtype=torch.float32) if with_init else None
+        args = (x, dt, A, Bm, Cm, dy)
+        kw = dict(init_state=init, dstate=dstate)
+        route = "bf16" if dtype == torch.bfloat16 else "fp32"
+        before = SSD_BWD_ROUTE_LAUNCHES[route]
+        got = ops.ssd_scan_bwd(*args, **kw)
+        if SSD_BWD_ROUTE_LAUNCHES[route] != before + 1:
+            raise AssertionError(f"ssd_scan_bwd ({b}, {S}) {dtype}: the "
+                                 f"{route} route did not launch")
+        same_bits(lambda: ops.ssd_scan_bwd(*args, **kw))
+        want = ssd_scan_bwd_plain(*args, chunk=chunk, **kw)
+        n_ops = 0
+        for c0 in range(0, S, 64):
+            q = min(64, S - c0)
+            n_ops += b * (q * (q + 1) * N + H * (2 * q * (q + 1) * (P + N)
+                                                 + 10 * q * P * N))
+        n_bytes = (es * (3 * b * S * H * P + 4 * b * S * N)
+                   + 4 * (2 * b * S * H + 2 * H
+                          + b * H * P * N * (3 if with_init else 0)))
+        fns = (lambda: ops.ssd_scan_bwd(*args, **kw),
+               lambda: ssd_scan_bwd_plain(*args, chunk=chunk, **kw), None)
+        check("ssd_scan_bwd", [b, S, H, P, N]
+              + (["init", "dstate"] if with_init else [])
+              + (["long_memory"] if a_scale != 1.0 else []), dtype,
+              tuple(g for g in got if g is not None),
+              tuple(w for w in want if w is not None), n_bytes, n_ops, fns,
+              relative=True, route=route)
+        del x, BC, Bm, Cm, dy, init, dstate, args, got, want
+        free(torch)
     del flush
     emit({"phase": "kernels", "names": list(KERNELS), "cases": len(cases)})
     return cases
@@ -978,30 +1130,54 @@ def train_launches(cfg, steps):
     of one prefill) three times, its forward and its two backward products
     (dx and dw; every product's input needs its gradient, the first
     layer's through the embedding or the learned positions); each
-    attention once forward and once backward, the backward on the route
-    of the model's dtype (bf16: wgmma, fp32: the CUDA cores)."""
+    attention (banded or not) and each scan once forward and once
+    backward, on the routes of the model's dtype (bf16: the attention
+    backward's wgmma, the scans' tensor-core kernels and the scan
+    backward's bf16 route; fp32: the CUDA cores)."""
+    import torch
+    from repro_torch.kernels.ssd_scan import (SSD_BWD_ROUTE_LAUNCHES,
+                                              SSD_ROUTE_LAUNCHES, ssd_route)
     launches, _, _ = expected_launches(cfg, 1, 0, 0, 0)
     attn = launches["flash_attention"] * steps
+    scans = launches["ssd_scan"] * steps
     bf16 = cfg.compute_dtype == "bfloat16"
+    scan_routes = dict.fromkeys(SSD_ROUTE_LAUNCHES, 0)
+    bwd_routes = dict.fromkeys(SSD_BWD_ROUTE_LAUNCHES, 0)
+    if scans:
+        scan_routes[ssd_route(torch.bfloat16 if bf16 else torch.float32,
+                              cfg.ssm_heads, cfg.ssm_headdim,
+                              cfg.ssm_state)] = scans
+        bwd_routes["bf16" if bf16 else "fp32"] = scans
     return {"streamed_matmul": 3 * launches["streamed_matmul"] * steps,
-            "flash_attention": attn, "decode_attention": 0, "ssd_scan": 0,
-            "flash_attention_bwd": attn,
+            "flash_attention": attn, "decode_attention": 0,
+            "ssd_scan": scans, "flash_attention_bwd": attn,
+            "ssd_scan_bwd": scans,
             "flash_attention_bwd_wgmma": attn if bf16 else 0,
-            "flash_attention_bwd_fp32": 0 if bf16 else attn}
+            "flash_attention_bwd_fp32": 0 if bf16 else attn,
+            **{f"ssd_scan_{r}": n for r, n in scan_routes.items()},
+            **{f"ssd_scan_bwd_{r}": n for r, n in bwd_routes.items()}}
 
 
 def _counts(ops):
+    """Every kernel's launches, the backward kernels', and the attention
+    backward's, the scan's and the scan backward's by route."""
     from repro_torch.kernels.flash_attention import BWD_ROUTE_LAUNCHES
+    from repro_torch.kernels.ssd_scan import (SSD_BWD_ROUTE_LAUNCHES,
+                                              SSD_ROUTE_LAUNCHES)
     return {**ops.LAUNCHES, **ops.GRAD_LAUNCHES,
             **{f"flash_attention_bwd_{r}": n
-               for r, n in BWD_ROUTE_LAUNCHES.items()}}
+               for r, n in BWD_ROUTE_LAUNCHES.items()},
+            **{f"ssd_scan_{r}": n for r, n in SSD_ROUTE_LAUNCHES.items()},
+            **{f"ssd_scan_bwd_{r}": n
+               for r, n in SSD_BWD_ROUTE_LAUNCHES.items()}}
 
 
-def phase_train_parity(torch, model):
+def phase_train_parity(torch, model, window=None):
     """One ``make_train_step`` step at full width, depth 2 (whisper: 2
     encoder and 2 decoder layers), fp32: the port on the card (kernels,
     forward and backward) against the port on the CPU (plain versions),
-    from the same state and batch.  The loss and the gradient norm within
+    from the same state and batch; ``window``: a sliding window to put in
+    place of the model's own.  The loss and the gradient norm within
     1e-4; every moment within 1e-4 of its leaf's largest value (the
     gradients agree); every parameter whose clipped gradient is above 1e-5
     (1000 eps) within 1e-3 lr, and each parameter leaf within 5e-3 lr on
@@ -1021,6 +1197,8 @@ def phase_train_parity(torch, model):
                               param_dtype="float32", compute_dtype="float32")
     if cfg.family == "encdec":
         cfg = dataclasses.replace(cfg, n_enc_layers=2)
+    if window is not None:
+        cfg = dataclasses.replace(cfg, sliding_window=window)
     bundle = build(cfg)
     lr = 1e-3
     tcfg = TrainConfig(opt=AdamWConfig(lr=lr, warmup_steps=1))
@@ -1057,6 +1235,7 @@ def phase_train_parity(torch, model):
     expect = train_launches(cfg, 1)
     emit({"phase": "train_parity", "model": model, "n_layers": 2,
           "dtype": "float32", "batch": [2, 64], "lr": lr,
+          "sliding_window": cfg.sliding_window,
           "metrics_card_cpu": metrics, **worst, "launches": launches,
           "expected_launches": expect})
     del state, card, cpu, got, want
@@ -1072,19 +1251,22 @@ def phase_train_parity(torch, model):
         raise AssertionError(f"launch counts {launches} != {expect}")
 
 
-def phase_train(torch, dev, model="qwen2_0_5b", batch=8, seq=512, steps=5):
+def phase_train(torch, dev, model, batch, seq, lr, path, steps=5):
     """``model`` at full width and depth, bf16 parameters, fp32 moments,
+    AdamW at ``lr`` after a warmup of 2 steps,
     ``steps`` steps of ``train_loop`` on ``data/pipeline.py``'s batches
     from seed 0, counts set to 0 just before: every step's loss finite,
     the last below the first; the launches per kernel as expected, every
-    product and every attention backward on its wgmma kernel and no plain
-    version called; step time
-    (between the loop's requests for batches: each step ends when the card
-    has finished it), tokens/s and peak memory; then a checkpoint saved and
-    restored, and one more step from each, profiled for the device's idle
-    share and K2's backward's device time: the two states equal bit for
-    bit; CUDA-event times of the step's forward and backward and of its
-    optimizer update apart."""
+    product, attention backward and scan backward on its bf16 kernel and
+    no plain version called; step time (between the loop's requests for
+    batches: each step ends when the card has finished it), tokens/s and
+    peak memory; then a checkpoint saved and restored (equal bit for bit)
+    and one more step from each: the step from the trained state profiled
+    for the device's idle share and the backward kernels' device time,
+    CUDA-event times of its forward and backward and of its optimizer
+    update apart, and its new state (kept on the host, so that a 1.5 B
+    model's two states and a step's activations need not share the card)
+    equal bit for bit to the one from the restored state."""
     from repro_torch import convert
     from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
     from repro_torch.configs import get_config
@@ -1099,7 +1281,7 @@ def phase_train(torch, dev, model="qwen2_0_5b", batch=8, seq=512, steps=5):
 
     cfg = get_config(model)
     bundle = build(cfg)
-    tcfg = TrainConfig(opt=AdamWConfig(lr=1e-3, warmup_steps=2))
+    tcfg = TrainConfig(opt=AdamWConfig(lr=lr, warmup_steps=2))
     dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
                       global_batch=batch, seed=SEED)
     stamps = []
@@ -1117,7 +1299,8 @@ def phase_train(torch, dev, model="qwen2_0_5b", batch=8, seq=512, steps=5):
         return plain
 
     names = ("matmul_plain", "flash_attention_plain",
-             "flash_attention_lse_plain", "flash_attention_bwd_plain")
+             "flash_attention_lse_plain", "flash_attention_bwd_plain",
+             "ssd_scan_plain", "ssd_scan_bwd_plain")
     saved = {n: getattr(ops, n) for n in names}
     for n in names:
         setattr(ops, n, refuse(n))
@@ -1137,13 +1320,13 @@ def phase_train(torch, dev, model="qwen2_0_5b", batch=8, seq=512, steps=5):
     warm = statistics.median(step_s[1:])
     losses = [h["loss"] for h in history]
 
-    # a checkpoint of the trained state, restored, and the next step from
-    # each, the one from the original state profiled
+    # a checkpoint of the trained state, restored later; the next step from
+    # the trained state, profiled, its new state kept on the host
     ckpt_dir = ROOT / "build" / "chip_smoke_ckpt"
     shutil.rmtree(ckpt_dir, ignore_errors=True)
+    t0 = time.perf_counter()
     save_checkpoint(str(ckpt_dir), state, step=steps)
-    restored, at = restore_checkpoint(str(ckpt_dir), state)
-    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    save_s = time.perf_counter() - t0
     step = make_train_step(bundle.loss, tcfg)
     nxt = to_device(make_batch(dcfg, steps), "cuda")
     step(state, nxt)  # warm, outside the profile
@@ -1160,16 +1343,26 @@ def phase_train(torch, dev, model="qwen2_0_5b", batch=8, seq=512, steps=5):
     prof["events_ms"] = {"loss_and_grads": ev[0].elapsed_time(ev[1]),
                          "adamw_update": ev[1].elapsed_time(ev[2])}
     del grads
-    a, _ = step(state, nxt)
-    b, _ = step(restored, nxt)
+    a = _to(step(state, nxt)[0], "cpu")
+    t0 = time.perf_counter()
+    restored, at = restore_checkpoint(str(ckpt_dir), state)
+    restore_s = time.perf_counter() - t0
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    fs, fr = convert.flatten(state), convert.flatten(restored)
+    same_restore = at == steps and all(torch.equal(fs[n], fr[n]) for n in fs)
+    del state, fs
+    free(torch)
+    b = step(restored, nxt)[0]
     torch.cuda.synchronize()
     fa, fb = convert.flatten(a), convert.flatten(b)
-    same = at == steps and all(torch.equal(fa[n], fb[n]) for n in fa)
+    same = all(torch.equal(fa[n], fb[n].cpu()) for n in fa)
     expect = train_launches(cfg, steps)
-    emit({"phase": "train", "model": model, "n_layers": cfg.n_layers,
+    emit({"phase": "train", "model": model, "path": path,
+          "n_layers": cfg.n_layers, "sliding_window": cfg.sliding_window,
           "dtype": cfg.param_dtype, "moments": tcfg.opt.moment_dtype,
           "batch": batch, "seq": seq, "tokens_per_step": batch * seq,
-          "steps": steps, "nvidia_smi": dev["smi"], "losses": losses,
+          "steps": steps, "lr": lr, "nvidia_smi": dev["smi"],
+          "losses": losses,
           "grad_norms": [h["grad_norm"] for h in history],
           "step_s": step_s, "step_s_median_after_first": warm,
           "tokens_per_s": batch * seq / warm, "peak_mem_gb": peak_gb,
@@ -1178,19 +1371,32 @@ def phase_train(torch, dev, model="qwen2_0_5b", batch=8, seq=512, steps=5):
           "k2_backward_device_ms_per_step": sum(
               ms for name, ms in prof["port_kernels_ms"].items()
               if name.startswith("flash_bwd")),
-          "resumed_step_equal": same})
-    del state, restored, a, b, fa, fb
+          "k4_backward_device_ms_per_step": sum(
+              ms for name, ms in prof["port_kernels_ms"].items()
+              if name.startswith("ssd_bwd")),
+          "checkpoint_save_s": save_s, "checkpoint_restore_s": restore_s,
+          "restored_state_equal": same_restore, "resumed_step_equal": same})
+    del restored, a, b, fa, fb, fr
     free(torch)
     if not all(math.isfinite(x) for x in losses) or \
             not losses[-1] < losses[0]:
         raise AssertionError(f"losses {losses}: not finite and falling")
-    if launches != expect or launches["flash_attention_bwd_wgmma"] != \
-            cfg.n_layers * steps:
+    if launches != expect or not all(launches[k] for k, n in expect.items()
+                                     if n):
         raise AssertionError(f"launch counts {launches} != {expect}")
+    if cfg.compute_dtype != "bfloat16" or \
+            launches["flash_attention_bwd_wgmma"] != \
+            launches["flash_attention_bwd"] or \
+            launches["ssd_scan_bwd_bf16"] != launches["ssd_scan_bwd"]:
+        raise AssertionError(f"launch counts {launches}: a backward off its "
+                             "bf16 kernel")
     if routes["wgmma"] != launches["streamed_matmul"]:
         raise AssertionError(f"routes {routes}: not every product of "
                              f"{launches['streamed_matmul']} on the wgmma "
                              "kernel")
+    if not same_restore:
+        raise AssertionError("the restored checkpoint differs from the state "
+                             "saved")
     if not same:
         raise AssertionError("the step from the restored checkpoint differs "
                              "from the step without the restore")

@@ -39,7 +39,7 @@ SIGNATURES = {
     "flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                         _I, _F, _I, _P],
     "flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                            _I, _I, _I, _I, _I, _I, _F, _I, _P],
+                            _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     "decode_attention_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                              _I, _P, _I, _F, _P],
     "decode_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I,
@@ -48,6 +48,8 @@ SIGNATURES = {
     "decode_attention_max_group": [],
     "ssd_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                  _I, _I, _I, _P],
+    "ssd_scan_bwd": [_P] * 18 + [_I] * 10 + [_P],
+    "ssd_scan_bwd_rows": [],
 }
 
 

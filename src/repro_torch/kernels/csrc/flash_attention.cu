@@ -48,7 +48,10 @@
 // scores, fp32 (B, H, lse_ld), for the backward kernels
 // (flash_attention_bwd.cu): a template flag (LSE) of both kernels, from the
 // row max and sum they already hold at the end, so the serving kernels are
-// built without it and keep their registers.
+// built without it and keep their registers.  Under a window (BAND and LSE
+// together) the sum holds the band's keys only: the tiles wholly below a
+// row's band summed exp2(0) per key at a running max of -1e30, and its first
+// key inside the band rescaled that sum by exp2(-1e30 - m) = 0.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -386,7 +389,8 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out, float* 
 
 // dtype: 0 = fp32, 1 = bf16; hd: 64 or 128; window: 0 (none) or w > 0 with
 // causal; Sq != Skv not causal only, Skv >= 1.  lse: null, or fp32 (B, H,
-// lse_ld), lse_ld >= Sq, for each row's log2-sum-exp2 (no window).  bf16
+// lse_ld), lse_ld >= Sq, for each row's log2-sum-exp2 (of its band under a
+// window).  bf16
 // tensors must be 16-byte aligned (TMA).  Returns the cudaError_t of the
 // launch, or cudaErrorInvalidValue for what the kernels do not take.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
@@ -396,15 +400,17 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* ls = static_cast<float*>(lse);
   if (window < 0 || (window && !causal) || (causal && Sq != Skv) || Skv < 1 ||
-      (ls && (window || lse_ld < Sq)))
+      (ls && lse_ld < Sq))
     return static_cast<int>(cudaErrorInvalidValue);
 #define FLASH_ARGS q, k, v, out, ls, lse_ld, B, Sq, Skv, H, KV, causal
   if (dtype == 1 && hd == 64)
-    return window ? launch_wgmma<64, true, false>(FLASH_ARGS, window, scale, s)
+    return window ? (ls ? launch_wgmma<64, true, true>(FLASH_ARGS, window, scale, s)
+                        : launch_wgmma<64, true, false>(FLASH_ARGS, window, scale, s))
            : ls   ? launch_wgmma<64, false, true>(FLASH_ARGS, 0, scale, s)
                   : launch_wgmma<64, false, false>(FLASH_ARGS, 0, scale, s);
   if (dtype == 1 && hd == 128)
-    return window ? launch_wgmma<128, true, false>(FLASH_ARGS, window, scale, s)
+    return window ? (ls ? launch_wgmma<128, true, true>(FLASH_ARGS, window, scale, s)
+                        : launch_wgmma<128, true, false>(FLASH_ARGS, window, scale, s))
            : ls   ? launch_wgmma<128, false, true>(FLASH_ARGS, 0, scale, s)
                   : launch_wgmma<128, false, false>(FLASH_ARGS, 0, scale, s);
   if (dtype == 0 && hd == 64) {

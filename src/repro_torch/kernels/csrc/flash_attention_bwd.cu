@@ -1,7 +1,8 @@
 // flash_attention_bwd: the gradients dq, dk, dv of o = softmax(q k^T * scale,
 // causal or not) v given dO, with grouped-query heads read in place.  Not
 // causal, the Skv keys may be more or fewer than the Sq queries (whisper's
-// encoder and cross-attention); causal, Sq = Skv.  No sliding-window band.
+// encoder and cross-attention); causal, Sq = Skv.  Under a sliding window w
+// (causal only; hymba's band) query row r attends keys r - w < j <= r.
 //
 // The TPU kernel it serves is kernels/flash_attention.py:flash_attention
 // (_flash_kernel) of the JAX package, which has no backward kernel: the JAX
@@ -18,7 +19,9 @@
 //
 // What bounds it on an H100: five products of 2 * Sq * Skv * hd operations
 // per (b, h) (halved when causal) against q, k, v, o, dO and the gradients
-// read or written once: tensor-core operations at prefill lengths.
+// read or written once: tensor-core operations at prefill lengths.  Under
+// a window each query row attends at most w keys, and the kernels visit only
+// the tiles of the band.
 //
 // What the design does about it (bf16, close to FlashAttention-3's backward
 // without its atomics): every product is a wgmma from tiles that TMA loads
@@ -48,6 +51,13 @@
 //       order, so the sum over the group needs no second pass.  setmaxnreg
 //       gives the consumers 240 registers (hd 128: dK and dV alone are 128
 //       fp32 a thread) and the producer 24.
+// The band (BAND, a template flag of both bf16 kernels, so that the causal
+// instances are built without its code and keep their registers): in (a) a
+// block's key loop, and its producer's loads, start at the tile of key q0 -
+// w + 1 and a warpgroup skips the tiles below its rows' band; in (b) a key
+// tile's query items end at the tile of its last key's last query row, k0 +
+// 63 + w - 1.  The tiles that cross the band's low edge are masked as the
+// diagonal one is, and the lse the forward wrote is the band's.
 // P and dS are rounded to bf16 for their products, as the forward rounds P;
 // the statistics, D and every sum stay fp32; each gradient is rounded once,
 // at the store.  Only the tiles on the causal diagonal and at the ragged
@@ -159,7 +169,7 @@ __global__ void __launch_bounds__(BWD_THREADS)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const T* __restrict__ o, const T* __restrict__ dout, T* __restrict__ dq,
                     float* __restrict__ stats, int B, int Sq, int Skv, int H, int KV,
-                    float scale, int causal) {
+                    float scale, int causal, int window) {
   using Tl = BwdTiles<HD>;
   constexpr int LD = Tl::LD;
   constexpr int NE = HD / 16;
@@ -193,6 +203,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 
   const int n_tiles = (Skv + BT - 1) / BT;
   const int end = causal ? min(n_tiles, (int)blockIdx.x + 1) : n_tiles;
+  const int beg = window ? max(0, q0 - window + 1) / BT : 0;  // the band's first tile
   float m[4], l[4];
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
@@ -201,7 +212,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   }
   float s[4][4], dp[4][4];
   // walk 1: the rows' max and sum of exp2 of the scaled scores
-  for (int t = 0; t < end; ++t) {
+  for (int t = beg; t < end; ++t) {
     __syncthreads();
     load_tile<T, HD>(Ks, k, b, t * BT, Skv, KV, kvh);
     __syncthreads();
@@ -213,14 +224,17 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int key = t * BT + tx + 16 * c;
-        s[r][c] = (key < Skv && (!causal || key <= row)) ? s[r][c] * sl2 : -INFINITY;
+        s[r][c] = (key < Skv && (!causal || key <= row) && (!window || row - key < window))
+                      ? s[r][c] * sl2 : -INFINITY;
         tmax = fmaxf(tmax, s[r][c]);
       }
       const float mn = fmaxf(m[r], group_max(tmax));
+      // a row with no key yet (its band starts in a later tile) adds 0
+      const float base = mn == -INFINITY ? 0.f : mn;
       float sum = 0.f;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) sum += exp2f(s[r][c] - mn);
-      l[r] = l[r] * exp2f(m[r] - mn) + group_sum(sum);
+      for (int c = 0; c < 4; ++c) sum += exp2f(s[r][c] - base);
+      l[r] = l[r] * exp2f(m[r] - base) + group_sum(sum);
       m[r] = mn;
     }
   }
@@ -237,7 +251,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   for (int r = 0; r < 4; ++r)
 #pragma unroll
     for (int e = 0; e < NE; ++e) acc[r][e] = 0.f;
-  for (int t = 0; t < end; ++t) {
+  for (int t = beg; t < end; ++t) {
     __syncthreads();
     load_tile<T, HD>(Ks, k, b, t * BT, Skv, KV, kvh);
     load_tile<T, HD>(Vs, v, b, t * BT, Skv, KV, kvh);
@@ -251,7 +265,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         const int row = q0 + ty * 4 + r;
-        const bool valid = key < Skv && (!causal || key <= row);
+        const bool valid =
+            key < Skv && (!causal || key <= row) && (!window || row - key < window);
         const float p = valid ? exp2f(s[r][c] * sl2 - lse[r]) : 0.f;
         ds[r] = p * (dp[r][c] - dr[r]);
       }
@@ -290,7 +305,7 @@ __global__ void __launch_bounds__(BWD_THREADS)
 flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const T* __restrict__ dout, T* __restrict__ dk,
                       T* __restrict__ dv, const float* __restrict__ stats, int B, int Sq,
-                      int Skv, int H, int KV, float scale, int causal) {
+                      int Skv, int H, int KV, float scale, int causal, int window) {
   using Tl = BwdTiles<HD>;
   constexpr int LD = Tl::LD;
   constexpr int NE = HD / 16;
@@ -317,8 +332,10 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < NE; ++e) adk[r][e] = adv[r][e] = 0.f;
 
-  const int n_tiles = (Sq + BT - 1) / BT;
-  const int start = causal ? blockIdx.x : 0;  // earlier rows see none of these keys
+  // earlier rows see none of these keys, nor (under a window) later ones
+  const int start = causal ? blockIdx.x : 0;
+  const int n_tiles = window ? min((Sq + BT - 1) / BT, (k0 + BT - 1 + window - 1) / BT + 1)
+                             : (Sq + BT - 1) / BT;
   float s[4][4], dp[4][4];
   for (int g = 0; g < G; ++g) {
     const int h = kvh * G + g;
@@ -342,7 +359,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const int key = k0 + tx + 16 * c;
-          const bool valid = row < Sq && key < Skv && (!causal || key <= row);
+          const bool valid = row < Sq && key < Skv && (!causal || key <= row) &&
+                             (!window || row - key < window);
           const float p = valid ? exp2f(s[r][c] * sl2 - Ls[rr]) : 0.f;
           Ps[rr * LDP + tx + 16 * c] = p;
           dSs[rr * LDP + tx + 16 * c] = p * (dp[r][c] - Ds[rr]);
@@ -375,7 +393,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int HD>
 int launch_bwd(const void* q, const void* k, const void* v, const void* o, const void* dout,
                void* dq, void* dk, void* dv, float* stats, int B, int Sq, int Skv, int H,
-               int KV, int causal, float scale, cudaStream_t stream) {
+               int KV, int causal, int window, float scale, cudaStream_t stream) {
   using Tl = BwdTiles<HD>;
   static hopper::SmemRaised raised_dq, raised_dkdv;
   cudaError_t err = hopper::allow_smem(flash_bwd_dq_kernel<T, HD>, Tl::DQ_SMEM, raised_dq);
@@ -388,13 +406,13 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o, const
   const T* dot = static_cast<const T*>(dout);
   flash_bwd_dq_kernel<T, HD><<<dim3((Sq + BT - 1) / BT, H, B), BWD_THREADS, Tl::DQ_SMEM, stream>>>(
       qt, kt, vt, static_cast<const T*>(o), dot, static_cast<T*>(dq), stats, B, Sq, Skv, H, KV,
-      scale, causal);
+      scale, causal, window);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   flash_bwd_dkdv_kernel<T, HD>
       <<<dim3((Skv + BT - 1) / BT, KV, B), BWD_THREADS, Tl::DKV_SMEM, stream>>>(
           qt, kt, vt, dot, static_cast<T*>(dk), static_cast<T*>(dv), stats, B, Sq, Skv, H, KV,
-          scale, causal);
+          scale, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -507,7 +525,7 @@ __device__ __forceinline__ void store_acc(__nv_bfloat16* __restrict__ dst, const
   }
 }
 
-template <int HD>
+template <int HD, bool BAND>
 __global__ void __launch_bounds__(DQ_THREADS, 1)
 flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                           const __grid_constant__ CUtensorMap domap,
@@ -517,9 +535,10 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                           const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
                           float* __restrict__ dstat, int ld, __nv_bfloat16* __restrict__ dq,
                           int Sq, int Skv, int H, int KV, float scale_log2, float scale,
-                          int causal) {
+                          int causal, int window) {
   using namespace hopper;
   using T = WgTiles<HD>;
+  if (!BAND) window = 0;  // folds the band's code away: the causal kernel keeps its registers
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   unsigned char* qs = smem;
@@ -534,6 +553,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   const int h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (H / KV);
   const int ntiles = ((causal ? min(Skv, q0 + DQ_ROWS) : Skv) + KT - 1) / KT;
+  const int t_lo = window ? max(0, q0 - window + 1) / KT : 0;  // the band's first tile
   if (threadIdx.x == 0) {
     mbar_init(qbar, 1);
     for (int s = 0; s < DQ_STAGES; ++s) {
@@ -557,9 +577,9 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
         tma_load_4d(qs + a * T::ATOM128, &qmap, qbar, 64 * a, h, q0, b);
         tma_load_4d(dos + a * T::ATOM128, &domap, qbar, 64 * a, h, q0, b);
       }
-      for (int t = 0; t < ntiles; ++t) {
-        const int s = t % DQ_STAGES;
-        if (t >= DQ_STAGES) mbar_wait(&empty[s], ((t / DQ_STAGES) + 1) & 1);
+      for (int t = t_lo; t < ntiles; ++t) {
+        const int n = t - t_lo, s = n % DQ_STAGES;  // n: the block's n-th tile
+        if (n >= DQ_STAGES) mbar_wait(&empty[s], ((n / DQ_STAGES) + 1) & 1);
         unsigned char* ks = kvs + s * T::DQ_STAGE;
         mbar_arrive_expect_tx(&full[s], T::DQ_STAGE);
 #pragma unroll
@@ -576,6 +596,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   const int tid = threadIdx.x % 128, lane = tid % 32, warp = tid / 32;
   const int r0 = q0 + wgi * 64;
   const int my_tiles = ((causal ? min(Skv, r0 + 64) : Skv) + KT - 1) / KT;
+  const int my_lo = window ? max(0, r0 - window + 1) / KT : 0;
   const int row_a = r0 + warp * 16 + lane / 4;  // this thread's rows: row_a, row_a + 8
   const size_t bh = (size_t)b * H + h;
   {  // D of the warpgroup's rows, two threads a row, 16-byte loads of dO and o
@@ -617,10 +638,10 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   float acc[HD / 2];  // dQ: acc[4 j + 2 hh + e] = dQ[row_a + 8 hh][8 j + 2 (lane % 4) + e]
   zero(acc);
   mbar_wait(qbar, 0);
-  for (int t = 0; t < ntiles; ++t) {
-    const int s = t % DQ_STAGES;
-    mbar_wait(&full[s], (t / DQ_STAGES) & 1);
-    if (t < my_tiles) {
+  for (int t = t_lo; t < ntiles; ++t) {
+    const int n = t - t_lo, s = n % DQ_STAGES;
+    mbar_wait(&full[s], (n / DQ_STAGES) & 1);
+    if (t >= my_lo && t < my_tiles) {
       const unsigned char* ks = kvs + s * T::DQ_STAGE;
       const unsigned char* vs = ks + T::T64;
       float sc[32], dp[32];
@@ -636,7 +657,8 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       wgmma_wait<1>();
       fence_regs(sc);
       const int k0 = t * KT;
-      const bool edge = (causal && k0 + KT > r0) || k0 + KT > Skv;
+      const bool edge = (causal && k0 + KT > r0) || k0 + KT > Skv ||
+                        (window && k0 < r0 + 64 - window);
 #pragma unroll
       for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -645,7 +667,8 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
           for (int e = 0; e < 2; ++e) {
             const int i = 4 * j + 2 * hh + e;
             const int key = k0 + 8 * j + 2 * (lane % 4) + e, row = row_a + 8 * hh;
-            const bool valid = !edge || (key < Skv && (!causal || key <= row));
+            const bool valid = !edge || (key < Skv && (!causal || key <= row) &&
+                                         (!window || row - key < window));
             sc[i] = valid ? ex2(sc[i] * scale_log2 - lr[hh]) : 0.f;  // P
           }
       wgmma_wait<0>();
@@ -667,7 +690,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   store_acc<HD>(dq, acc, scale, b, row_a, Sq, H, h, lane);
 }
 
-template <int HD>
+template <int HD, bool BAND>
 __global__ void __launch_bounds__(DKV_THREADS, 1)
 flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                             const __grid_constant__ CUtensorMap domap,
@@ -677,9 +700,10 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                             const __grid_constant__ CUtensorMap dmap,
                             __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
                             int Sq, int Skv, int H, int KV, float scale_log2, float scale,
-                            int causal) {
+                            int causal, int window) {
   using namespace hopper;
   using T = WgTiles<HD>;
+  if (!BAND) window = 0;  // folds the band's code away: the causal kernel keeps its registers
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   unsigned char* ks = smem;
@@ -692,7 +716,10 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   const int kt = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;  // causal: longest first
   const int k0 = kt * KT, G = H / KV;
   const int start = causal ? kt : 0;  // earlier query tiles see none of these keys
-  const int per_head = (Sq + QT - 1) / QT - start;
+  // nor, under a window, those past the tile of the last key's last query row
+  const int end = window ? min((Sq + QT - 1) / QT, (k0 + KT - 1 + window - 1) / QT + 1)
+                         : (Sq + QT - 1) / QT;
+  const int per_head = end - start;
   const int items = G * per_head;  // item n: head kvh G + n / per_head, tile start + n % per_head
   if (threadIdx.x == 0) {
     mbar_init(kbar, 1);
@@ -766,7 +793,8 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     wgmma_commit();
     wgmma_wait<1>();
     fence_regs(st);
-    const bool edge = (causal && qt == kt) || q0 + QT > Sq;
+    const bool edge = (causal && qt == kt) || q0 + QT > Sq ||
+                      (window && q0 + QT - 1 - k0 >= window);
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -775,7 +803,8 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
         for (int e = 0; e < 2; ++e) {
           const int i = 4 * j + 2 * hh + e, col = 8 * j + 2 * (lane % 4) + e;
           const int query = q0 + col, key = key_a + 8 * hh;
-          const bool valid = !edge || (query < Sq && (!causal || key <= query));
+          const bool valid = !edge || (query < Sq && (!causal || key <= query) &&
+                                       (!window || query - key < window));
           st[i] = valid ? ex2(st[i] * scale_log2 - ls[col]) : 0.f;  // P^T
         }
     uint32_t pa[16];
@@ -822,11 +851,11 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   store_acc<HD>(dv, dva, 1.f, b, key_a, Skv, KV, kvh, lane);
 }
 
-template <int HD>
+template <int HD, bool BAND>
 int launch_bwd_wgmma(const void* q, const void* k, const void* v, const void* o,
                      const void* dout, const float* lse, int ld, void* dq, void* dk, void* dv,
                      float* dstat, int B, int Sq, int Skv, int H, int KV, int causal,
-                     float scale, cudaStream_t stream) {
+                     int window, float scale, cudaStream_t stream) {
   using T = WgTiles<HD>;
   static hopper::SmemRaised raised_dq, raised_dkdv;
   CUtensorMap q128, do128, q64, do64, kmap, vmap, lmap, dmap;
@@ -849,29 +878,31 @@ int launch_bwd_wgmma(const void* q, const void* k, const void* v, const void* o,
       !hopper::make_map(&dmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, dstat, 2, sdims, sstr, sbox,
                         CU_TENSOR_MAP_SWIZZLE_NONE))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = hopper::allow_smem(flash_bwd_dq_wgmma_kernel<HD>, T::DQ_SMEM, raised_dq);
+  cudaError_t err =
+      hopper::allow_smem(flash_bwd_dq_wgmma_kernel<HD, BAND>, T::DQ_SMEM, raised_dq);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = hopper::allow_smem(flash_bwd_dkdv_wgmma_kernel<HD>, T::DKV_SMEM, raised_dkdv);
+  err = hopper::allow_smem(flash_bwd_dkdv_wgmma_kernel<HD, BAND>, T::DKV_SMEM, raised_dkdv);
   if (err != cudaSuccess) return static_cast<int>(err);
   const float sl2 = scale * LOG2E;
-  flash_bwd_dq_wgmma_kernel<HD>
+  flash_bwd_dq_wgmma_kernel<HD, BAND>
       <<<dim3((Sq + DQ_ROWS - 1) / DQ_ROWS, H, B), DQ_THREADS, T::DQ_SMEM, stream>>>(
           q128, do128, kmap, vmap, static_cast<const __nv_bfloat16*>(o),
           static_cast<const __nv_bfloat16*>(dout), lse, dstat, ld,
-          static_cast<__nv_bfloat16*>(dq), Sq, Skv, H, KV, sl2, scale, causal);
+          static_cast<__nv_bfloat16*>(dq), Sq, Skv, H, KV, sl2, scale, causal, window);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dkdv_wgmma_kernel<HD>
+  flash_bwd_dkdv_wgmma_kernel<HD, BAND>
       <<<dim3((Skv + KT - 1) / KT, KV, B), DKV_THREADS, T::DKV_SMEM, stream>>>(
           q64, do64, kmap, vmap, lmap, dmap, static_cast<__nv_bfloat16*>(dk),
-          static_cast<__nv_bfloat16*>(dv), Sq, Skv, H, KV, sl2, scale, causal);
+          static_cast<__nv_bfloat16*>(dv), Sq, Skv, H, KV, sl2, scale, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// dtype: 0 = fp32, 1 = bf16; hd: 64 or 128; Sq != Skv not causal only.
-// lse: the forward's rows' log2-sum-exp2, fp32 (B, H, ld), ld >= Sq a
+// dtype: 0 = fp32, 1 = bf16; hd: 64 or 128; Sq != Skv not causal only;
+// window: 0 (none) or w > 0 with causal.  lse: the forward's rows'
+// log2-sum-exp2 (of the band under a window), fp32 (B, H, ld), ld >= Sq a
 // multiple of 4 (16-byte rows for TMA), read by the bf16 kernels; the fp32
 // kernels rebuild it.  stats: fp32 scratch, bf16: D (B, H, ld); fp32: the
 // rows' statistics (2, B, H, Sq).  bf16 tensors must be 16-byte aligned
@@ -880,24 +911,28 @@ int launch_bwd_wgmma(const void* q, const void* k, const void* v, const void* o,
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                                    const void* dout, const void* lse, void* dq, void* dk,
                                    void* dv, void* stats, int B, int Sq, int Skv, int H, int KV,
-                                   int hd, int causal, int ld, float scale, int dtype,
-                                   void* stream) {
+                                   int hd, int causal, int window, int ld, float scale,
+                                   int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* st = static_cast<float*>(stats);
   const float* ls = static_cast<const float*>(lse);
-  if ((causal && Sq != Skv) || Sq < 1 || Skv < 1 || KV < 1 || H % KV || ld < Sq || ld % 4)
+  if ((causal && Sq != Skv) || Sq < 1 || Skv < 1 || KV < 1 || H % KV || ld < Sq || ld % 4 ||
+      window < 0 || (window && !causal))
     return static_cast<int>(cudaErrorInvalidValue);
+#define BWD_WG_ARGS \
+  q, k, v, o, dout, ls, ld, dq, dk, dv, st, B, Sq, Skv, H, KV, causal, window, scale, s
   if (dtype == 1 && hd == 64)
-    return launch_bwd_wgmma<64>(q, k, v, o, dout, ls, ld, dq, dk, dv, st, B, Sq, Skv, H, KV,
-                                causal, scale, s);
+    return window ? launch_bwd_wgmma<64, true>(BWD_WG_ARGS)
+                  : launch_bwd_wgmma<64, false>(BWD_WG_ARGS);
   if (dtype == 1 && hd == 128)
-    return launch_bwd_wgmma<128>(q, k, v, o, dout, ls, ld, dq, dk, dv, st, B, Sq, Skv, H, KV,
-                                 causal, scale, s);
+    return window ? launch_bwd_wgmma<128, true>(BWD_WG_ARGS)
+                  : launch_bwd_wgmma<128, false>(BWD_WG_ARGS);
+#undef BWD_WG_ARGS
   if (dtype == 0 && hd == 64)
     return launch_bwd<float, 64>(q, k, v, o, dout, dq, dk, dv, st, B, Sq, Skv, H, KV, causal,
-                                 scale, s);
+                                 window, scale, s);
   if (dtype == 0 && hd == 128)
     return launch_bwd<float, 128>(q, k, v, o, dout, dq, dk, dv, st, B, Sq, Skv, H, KV, causal,
-                                  scale, s);
+                                  window, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

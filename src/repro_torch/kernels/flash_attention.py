@@ -12,15 +12,17 @@ attends keys j with r - w < j <= r, the mask of the JAX package's
 hand-written kernel of ``csrc/flash_attention.cu`` (bf16: wgmma and TMA;
 fp32: the CUDA cores), which visits only the key tiles of the band.
 
-The backward, dq, dk and dv of o given dO (no band): with P = softmax(q
-k^T / sqrt(hd)) and D = rowsum(dO o), dv = P^T dO, dS = P (dO v^T - D),
-dq = dS k / sqrt(hd), dk = dS^T q / sqrt(hd), dk and dv summed over the
-query heads of each KV head.  ``flash_attention_bwd_plain`` computes them
-in fp32 einsums; ``flash_attention_bwd_cuda`` launches the two kernels of
+The backward, dq, dk and dv of o given dO under the same mask (a band
+too): with P = softmax(q k^T / sqrt(hd)) and D = rowsum(dO o), dv = P^T
+dO, dS = P (dO v^T - D), dq = dS k / sqrt(hd), dk = dS^T q / sqrt(hd), dk
+and dv summed over the query heads of each KV head.
+``flash_attention_bwd_plain`` computes them in fp32 einsums;
+``flash_attention_bwd_cuda`` launches the two kernels of
 ``csrc/flash_attention_bwd.cu`` (bf16: wgmma and TMA, from each row's
 log2-sum-exp2 that the forward wrote under grad, ``with_lse``, and
-``flash_attention_lse_plain`` computes; fp32: the CUDA cores), counted by
-route in ``BWD_ROUTE_LAUNCHES``.  The JAX package has no such kernel: it
+``flash_attention_lse_plain`` computes; fp32: the CUDA cores), which
+visit only the tiles of a band, counted by route in
+``BWD_ROUTE_LAUNCHES``.  The JAX package has no such kernel: it
 differentiates its jnp attention with XLA.
 """
 from __future__ import annotations
@@ -69,6 +71,16 @@ def _check_mask(q: torch.Tensor, k: torch.Tensor, causal: bool,
                          "Skv")
 
 
+def _mask(Sq: int, Skv: int, causal: bool, window: int,
+          device) -> Optional[torch.Tensor]:
+    """The (Sq, Skv) keys each query row attends: causal, j <= r; under a
+    window also r - j < window; None not causal (every key)."""
+    if not causal:
+        return None
+    mask = torch.ones(Sq, Skv, dtype=torch.bool, device=device).tril()
+    return mask & ~mask.tril(-window) if window else mask
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True,
                           window: int = 0) -> torch.Tensor:
@@ -77,11 +89,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     KV = k.shape[2]
     qg = q.float().reshape(B, S, KV, H // KV, hd)
     s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) / math.sqrt(hd)
-    if causal:
-        mask = torch.ones(S, k.shape[1], dtype=torch.bool,
-                          device=q.device).tril()
-        if window:
-            mask = mask & ~mask.tril(-window)  # r - j < window
+    mask = _mask(S, k.shape[1], causal, window, q.device)
+    if mask is not None:
         s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
@@ -89,19 +98,20 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention_lse_plain(q: torch.Tensor, k: torch.Tensor, *,
-                              causal: bool = True) -> torch.Tensor:
+                              causal: bool = True,
+                              window: int = 0) -> torch.Tensor:
     """Each row's log2-sum-exp2 of its scaled scores, q k^T log2(e) /
-    sqrt(hd) (the masked ones excluded), fp32 (B, H, Sq): what the forward
-    kernel writes under grad, in fp32 as it forms it (the row max, then the
-    sum of exp2 below it)."""
-    _check_mask(q, k, causal, 0)
+    sqrt(hd) (the masked ones excluded, a window's too), fp32 (B, H, Sq):
+    what the forward kernel writes under grad, in fp32 as it forms it (the
+    row max, then the sum of exp2 below it)."""
+    _check_mask(q, k, causal, window)
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     qg = q.float().reshape(B, Sq, KV, H // KV, hd)
     s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * (
         LOG2E / math.sqrt(hd))
-    if causal:
-        mask = torch.ones(Sq, Skv, dtype=torch.bool, device=q.device).tril()
+    mask = _mask(Sq, Skv, causal, window, q.device)
+    if mask is not None:
         s = torch.where(mask, s, torch.full_like(s, -math.inf))
     m = s.amax(-1)
     lse = m + torch.log2(torch.exp2(s - m[..., None]).sum(-1))
@@ -110,9 +120,11 @@ def flash_attention_lse_plain(q: torch.Tensor, k: torch.Tensor, *,
 
 def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, o: torch.Tensor,
-                              do: torch.Tensor, *, causal: bool = True):
-    """(dq, dk, dv) in q's dtype, fp32 throughout."""
-    _check_mask(q, k, causal, 0)
+                              do: torch.Tensor, *, causal: bool = True,
+                              window: int = 0):
+    """(dq, dk, dv) in q's dtype, fp32 throughout; ``window``: the band of
+    ``flash_attention_plain``."""
+    _check_mask(q, k, causal, window)
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     scale = 1.0 / math.sqrt(hd)
@@ -120,8 +132,8 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     dog = do.float().reshape(B, Sq, KV, H // KV, hd)
     kf, vf = k.float(), v.float()
     s = torch.einsum("bqkgd,bskd->bkgqs", qg, kf) * scale
-    if causal:
-        mask = torch.ones(Sq, Skv, dtype=torch.bool, device=q.device).tril()
+    mask = _mask(Sq, Skv, causal, window, q.device)
+    if mask is not None:
         s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     d = torch.einsum("bqkgd,bqkgd->bkgq", dog,
@@ -161,14 +173,16 @@ def _check_cuda_inputs(name: str, q: torch.Tensor, k: torch.Tensor,
 def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, o: torch.Tensor,
                              do: torch.Tensor, *, causal: bool = True,
+                             window: int = 0,
                              lse: Optional[torch.Tensor] = None):
     """Two launches: one block per (query tile, head, batch row) forms D
     and dq; one block per (key tile, KV head, batch row) walks its query
-    heads and tiles for dk and dv.  fp32 statistics and sums, every input
-    read in place.  ``lse``: the forward's (``flash_attention_cuda(...,
-    with_lse=True)``) rows' log2-sum-exp2, fp32 (B, H, Sq) with 16-byte
-    rows; bf16 reads it, fp32 rebuilds it."""
-    _check_mask(q, k, causal, 0)
+    heads and tiles for dk and dv; under a ``window`` each visits only the
+    tiles of the band.  fp32 statistics and sums, every input read in
+    place.  ``lse``: the forward's (``flash_attention_cuda(...,
+    with_lse=True)``, under the same window) rows' log2-sum-exp2, fp32 (B,
+    H, Sq) with 16-byte rows; bf16 reads it, fp32 rebuilds it."""
+    _check_mask(q, k, causal, window)
     _check_cuda_inputs("flash_attention_bwd", q, k, v, o, do)
     if v.shape != k.shape or o.shape != q.shape or do.shape != q.shape:
         raise ValueError(f"flash_attention_bwd: shapes q {tuple(q.shape)}, "
@@ -202,7 +216,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), stats.data_ptr(), B, Sq, Skv, H, KV, hd, int(causal),
-        ld, 1.0 / math.sqrt(hd), DTYPE_CODES[q.dtype],
+        window, ld, 1.0 / math.sqrt(hd), DTYPE_CODES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream),
         "flash_attention_bwd")
     BWD_ROUTE_LAUNCHES["wgmma" if bf16 else "fp32"] += 1
@@ -212,14 +226,11 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int = 0,
                          with_lse: bool = False):
-    """out, or (out, lse) ``with_lse`` (no band): each row's log2-sum-exp2
-    of its scaled scores, fp32 (B, H, Sq), a view of rows padded to 16
-    bytes, as the backward kernel reads it (``flash_attention_lse_plain``
-    computes the same)."""
+    """out, or (out, lse) ``with_lse``: each row's log2-sum-exp2 of its
+    scaled scores (a window's band only), fp32 (B, H, Sq), a view of rows
+    padded to 16 bytes, as the backward kernel reads it
+    (``flash_attention_lse_plain`` computes the same)."""
     _check_mask(q, k, causal, window)
-    if with_lse and window:
-        raise ValueError("flash_attention: no lse under a window (the band "
-                         "has no backward kernel)")
     _check_cuda_inputs("flash_attention", q, k, v)
     if k.shape != v.shape:
         raise ValueError(f"flash_attention: shapes k {tuple(k.shape)}, "

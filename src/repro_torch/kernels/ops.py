@@ -5,21 +5,23 @@ A tensor on the CPU goes to the kernel's plain PyTorch version; a tensor
 on a CUDA device goes to the hand-written kernel, which launches or
 raises.  ``LAUNCHES`` counts the kernel launches made through these
 wrappers, so a run can show that its main path went through the kernels;
-``GRAD_LAUNCHES`` counts the backward kernels', and ``BWD_ROUTE_LAUNCHES``
-the attention backward's by route.
+``GRAD_LAUNCHES`` counts the backward kernels' calls, ``BWD_ROUTE_LAUNCHES``
+the attention backward's by route and ``SSD_BWD_ROUTE_LAUNCHES`` the
+scan backward's.
 
-Where grad is enabled and an input requires it, ``matmul`` and
-``flash_attention`` run as ``torch.autograd.Function``s whose backward is
-made of kernels too: a product's is two more products (``matmul``), the
-attention's the backward kernel of ``csrc/flash_attention_bwd.cu``, which
-reads each row's log2-sum-exp2 that the forward wrote (the forward's
-``with_lse`` instantiation; on the CPU the plain lse, saved all the same).
+Where grad is enabled and an input requires it, ``matmul``,
+``flash_attention`` (causal, not causal or banded) and ``ssd_scan`` run as
+``torch.autograd.Function``s whose backward is made of kernels too: a
+product's is two more products (``matmul``); the attention's the backward
+kernel of ``csrc/flash_attention_bwd.cu``, which reads each row's
+log2-sum-exp2 that the forward wrote (the forward's ``with_lse``
+instantiation; on the CPU the plain lse, saved all the same); the scan's
+the kernel of ``csrc/ssd_scan_bwd.cu`` (on the CPU ``ssd_scan_bwd_plain``).
 Otherwise (serving, under ``torch.inference_mode()``) they call the kernel
 directly, with no autograd node.  The ops with no backward kernel
-(``grouped_matmul``, ``ssd_scan``, ``decode_attention``, a banded
-``flash_attention``) raise ``NotImplementedError`` under grad on the card
-rather than give their inputs no gradient; on the CPU their plain versions
-are differentiated by autograd, as before.
+(``grouped_matmul``, ``decode_attention``) raise ``NotImplementedError``
+under grad on the card rather than give their inputs no gradient; on the
+CPU their plain versions are differentiated by autograd, as before.
 """
 from __future__ import annotations
 
@@ -32,17 +34,19 @@ from .decode_attention import (Length, decode_attention_cuda,
 from .flash_attention import (BWD_ROUTE_LAUNCHES, flash_attention_bwd_cuda,
                               flash_attention_bwd_plain, flash_attention_cuda,
                               flash_attention_lse_plain, flash_attention_plain)
-from .ssd_scan import SSD_ROUTE_LAUNCHES, ssd_scan_cuda, ssd_scan_plain
+from .ssd_scan import (SSD_BWD_ROUTE_LAUNCHES, SSD_ROUTE_LAUNCHES,
+                       ssd_scan_bwd_cuda, ssd_scan_bwd_plain, ssd_scan_cuda,
+                       ssd_scan_plain)
 from .streamed_matmul import (ROUTE_LAUNCHES, grouped_matmul_cuda,
                               grouped_matmul_plain, matmul_cuda, matmul_plain)
 
 LAUNCHES: Dict[str, int] = {"streamed_matmul": 0, "flash_attention": 0,
                             "decode_attention": 0, "ssd_scan": 0}
-GRAD_LAUNCHES: Dict[str, int] = {"flash_attention_bwd": 0}
+GRAD_LAUNCHES: Dict[str, int] = {"flash_attention_bwd": 0, "ssd_scan_bwd": 0}
 
 
 COUNTERS = (LAUNCHES, ROUTE_LAUNCHES, SSD_ROUTE_LAUNCHES, GRAD_LAUNCHES,
-            BWD_ROUTE_LAUNCHES)
+            BWD_ROUTE_LAUNCHES, SSD_BWD_ROUTE_LAUNCHES)
 
 
 def reset_launches() -> None:
@@ -55,7 +59,8 @@ def reset_launches() -> None:
 
 def launch_counts() -> List[Dict[str, int]]:
     """A copy of every count: per kernel, per matmul route, per scan route,
-    per backward kernel, per attention backward route."""
+    per backward kernel, per attention backward route, per scan backward
+    route."""
     return [dict(counts) for counts in COUNTERS]
 
 
@@ -147,49 +152,54 @@ def _flash(q, k, v, causal: bool, window: int) -> torch.Tensor:
 
 
 def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, causal: bool = True
+                        *, causal: bool = True, window: int = 0
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``flash_attention`` (no band) and each row's log2-sum-exp2 of its
-    scaled scores, fp32 (B, H, Sq), which ``flash_attention_bwd`` reads:
-    one counted launch on the card."""
+    """``flash_attention`` and each row's log2-sum-exp2 of its scaled scores
+    (a ``window``'s band only), fp32 (B, H, Sq), which
+    ``flash_attention_bwd`` reads: one counted launch on the card."""
     if not _on_card(q):
-        return (flash_attention_plain(q, k, v, causal=causal),
-                flash_attention_lse_plain(q, k, causal=causal))
-    out = flash_attention_cuda(q, k, v, causal=causal, with_lse=True)
+        return (flash_attention_plain(q, k, v, causal=causal, window=window),
+                flash_attention_lse_plain(q, k, causal=causal, window=window))
+    out = flash_attention_cuda(q, k, v, causal=causal, window=window,
+                               with_lse=True)
     LAUNCHES["flash_attention"] += 1
     return out
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, do: torch.Tensor, *,
-                        causal: bool = True,
+                        causal: bool = True, window: int = 0,
                         lse: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The gradients (dq, dk, dv) of ``flash_attention``'s o = attn(q, k,
     v) given dO, in q's dtype; dk and dv summed over each KV head's query
-    heads.  ``lse``: ``flash_attention_lse``'s, which the card needs; the
-    plain version on the CPU recomputes the softmax."""
+    heads.  ``lse``: ``flash_attention_lse``'s (under the same window),
+    which the card needs; the plain version on the CPU recomputes the
+    softmax."""
     if not _on_card(q):
-        return flash_attention_bwd_plain(q, k, v, o, do, causal=causal)
-    out = flash_attention_bwd_cuda(q, k, v, o, do, causal=causal, lse=lse)
+        return flash_attention_bwd_plain(q, k, v, o, do, causal=causal,
+                                         window=window)
+    out = flash_attention_bwd_cuda(q, k, v, o, do, causal=causal,
+                                   window=window, lse=lse)
     GRAD_LAUNCHES["flash_attention_bwd"] += 1
     return out
 
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal):
-        o, lse = flash_attention_lse(q, k, v, causal=causal)
+    def forward(ctx, q, k, v, causal, window):
+        o, lse = flash_attention_lse(q, k, v, causal=causal, window=window)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal = causal
+        ctx.causal, ctx.window = causal, window
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, o, do.contiguous(),
-                                         causal=ctx.causal, lse=lse)
-        return dq, dk, dv, None
+                                         causal=ctx.causal, window=ctx.window,
+                                         lse=lse)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -197,13 +207,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q (B,Sq,H,hd), k/v (B,Skv,KV,hd) -> (B,Sq,H,hd); ``window`` w > 0: row
     r attends keys r - w < j <= r.  Sq != Skv only not causal (a
     cross-attention)."""
-    if window:  # the band has no backward kernel
-        if _on_card(q):
-            _no_backward("flash_attention with a window", q, k, v)
-        return _flash(q, k, v, causal, window)
     if _grad_wanted(q, k, v):
-        return _FlashAttention.apply(q, k, v, causal)
-    return _flash(q, k, v, causal, 0)
+        return _FlashAttention.apply(q, k, v, causal, window)
+    return _flash(q, k, v, causal, window)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -218,16 +224,64 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def _ssd(x, dt, A, B, C, chunk: int, init_state):
+    if not _on_card(x):
+        return ssd_scan_plain(x, dt, A, B, C, chunk=chunk,
+                              init_state=init_state)
+    out = ssd_scan_cuda(x, dt, A, B, C, chunk=chunk, init_state=init_state)
+    LAUNCHES["ssd_scan"] += 1
+    return out
+
+
+def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                 B: torch.Tensor, C: torch.Tensor, dy: Optional[torch.Tensor],
+                 *, chunk: int = 256,
+                 init_state: Optional[torch.Tensor] = None,
+                 dstate: Optional[torch.Tensor] = None):
+    """The gradients (dx, ddt, dA, dB, dC, d init_state) of ``ssd_scan``'s
+    (y, final state) given dy and the final state's cotangent (either may
+    be None: zero); d init_state is None without an init_state.  On the
+    card one counted call of the backward kernel, which blocks by 64 rows
+    (``chunk`` is not read there)."""
+    if not _on_card(x):
+        return ssd_scan_bwd_plain(x, dt, A, B, C, dy, chunk=chunk,
+                                  init_state=init_state, dstate=dstate)
+    dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+    out = ssd_scan_bwd_cuda(x, dt, A, B, C, dy, init_state=init_state,
+                            dstate=None if dstate is None
+                            else dstate.contiguous())
+    GRAD_LAUNCHES["ssd_scan_bwd"] += 1
+    return out
+
+
+class _SSDScan(torch.autograd.Function):
+    """(y, final state) = ssd_scan(...); the backward is ``ssd_scan_bwd``
+    from the saved inputs (it recomputes the states the forward carried).
+    A cotangent that autograd does not pass (the final state unused) stays
+    None, and the kernel reads it as zero."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, init_state, chunk):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, A, B, C, init_state)
+        ctx.chunk = chunk
+        return _ssd(x, dt, A, B, C, chunk, init_state)
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        x, dt, A, B, C, init_state = ctx.saved_tensors
+        grads = ssd_scan_bwd(x, dt, A, B, C, dy, chunk=ctx.chunk,
+                             init_state=init_state, dstate=dstate)
+        return tuple(g if need else None for g, need in
+                     zip(grads, ctx.needs_input_grad)) + (None,)
+
+
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              B: torch.Tensor, C: torch.Tensor, *, chunk: int = 256,
              init_state: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (b,S,H,P), dt (b,S,H) fp32, A (H,) fp32, B/C (b,S,N), optional
     init_state (b,H,P,N) fp32 -> (y (b,S,H,P), final state (b,H,P,N) fp32)."""
-    if not _on_card(x):
-        return ssd_scan_plain(x, dt, A, B, C, chunk=chunk,
-                              init_state=init_state)
-    _no_backward("ssd_scan", x, dt, A, B, C, init_state)
-    out = ssd_scan_cuda(x, dt, A, B, C, chunk=chunk, init_state=init_state)
-    LAUNCHES["ssd_scan"] += 1
-    return out
+    if _grad_wanted(x, dt, A, B, C, init_state):
+        return _SSDScan.apply(x, dt, A, B, C, init_state, chunk)
+    return _ssd(x, dt, A, B, C, chunk, init_state)

@@ -20,9 +20,23 @@ route in ``SSD_ROUTE_LAUNCHES``.  bf16 runs on the tensor cores at both
 shapes: ``ssd_wgmma_kernel`` at (64, 128), ``ssd_tc_kernel`` (mma.sync,
 four heads a block) at (50, 16); fp32 runs on the CUDA cores, for parity
 runs.
+
+The backward, the gradients of x, dt, A, B, C and the initial state given
+dy and the final state's cotangent: ``ssd_scan_bwd_plain`` in fp32, the
+chunked dual form walking the chunks in reverse (the CPU path, and the
+yardstick on the card); ``ssd_scan_bwd_cuda`` launches the kernels of
+``csrc/ssd_scan_bwd.cu``: one CUDA-core kernel per (head, batch row) at
+both (P, N), fp32 throughout from fp32 or bf16 inputs, which recomputes
+the states the forward carried and walks 64-row sub-chunks in reverse,
+then a fixed-order sum of dB, dC and dA over the heads and batch rows, so
+two runs give the same bits; its calls are counted by the dtype of x in
+``SSD_BWD_ROUTE_LAUNCHES`` (``"bf16"`` trains, ``"fp32"`` is the parity
+route).  The JAX package has no such kernel: it differentiates
+``ssd_scan_ref`` with XLA.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
@@ -40,6 +54,9 @@ DT_BOX_HEADS = 4
 # launches of ssd_scan_cuda by route (see ssd_route)
 SSD_ROUTE_LAUNCHES: Dict[str, int] = {"wgmma": 0, "fp32": 0, "simt": 0,
                                       "tc": 0}
+# calls of ssd_scan_bwd_cuda by the dtype of x (one CUDA-core kernel, either
+# (P, N)): bf16 trains, fp32 is the parity route
+SSD_BWD_ROUTE_LAUNCHES: Dict[str, int] = {"bf16": 0, "fp32": 0}
 
 
 def ssd_route(dtype: torch.dtype, H: int, P: int, N: int,
@@ -118,6 +135,96 @@ def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y.to(x.dtype), state
 
 
+def ssd_scan_bwd_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                       B: torch.Tensor, C: torch.Tensor,
+                       dy: Optional[torch.Tensor], *, chunk: int = 256,
+                       init_state: Optional[torch.Tensor] = None,
+                       dstate: Optional[torch.Tensor] = None):
+    """The gradients (dx, ddt, dA, dB, dC, d init_state) of
+    ``ssd_scan_plain``'s (y, final state) given dy and the final state's
+    cotangent ``dstate`` (None: zero), in fp32 (fp64 for an fp64 x: the
+    card tests' exact yardstick for the fp32 kernel); dx, dB and dC in x's
+    dtype, d init_state None without an init_state.
+
+    The chunked dual form, walking the chunks in reverse with the adjoint
+    G of each chunk's end state (dstate at the last).  Per chunk, with the
+    start state s0, cum the inclusive cumsum of dt A, L[i,j] = exp(cum_i -
+    cum_j) for j <= i, w_i = exp(cum_last - cum_i) and x dt = xdt:
+      dxdt = (L o C B^T)^T dy + w (B G^T)
+      dB   = (L o dy xdt^T)^T C + w xdt G             (summed over heads)
+      dC   = (L o dy xdt^T) B + exp(cum) dy s0        (summed over heads)
+      dcum = rowsum(M) - colsum(M) + exp(cum) C.(dy s0) - w xdt.(B G^T)
+             [+ <G, s_end> at the last row],  M = L o (C B^T) o (dy xdt^T)
+      da   = the reverse cumsum of dcum over the chunk's rows
+      G   <- exp(cum_last) G + (exp(cum) dy)^T C  (the adjoint of s0)
+    and dx = dt dxdt, ddt = x.dxdt + A da, dA = sum dt da.  Every decay is
+    exp of a difference cum_i - cum_j with i >= j.  Padded rows (dt = 0,
+    x = 0) get gradients that are cut off, and leak nothing."""
+    b, S, H, P = x.shape
+    N = B.shape[-1]
+    q = max(1, min(chunk, S))
+    nc = -(-S // q)
+    pad = nc * q - S
+    ct = torch.float64 if x.dtype == torch.float64 else torch.float32
+    xf, dtf, Bf, Cf, Af = (t.to(ct) for t in (x, dt, B, C, A))
+    dyf = torch.zeros_like(xf) if dy is None else dy.to(ct)
+    if pad:
+        xf, dyf = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (xf, dyf))
+        dtf = F.pad(dtf, (0, 0, 0, pad))
+        Bf, Cf = (F.pad(t, (0, 0, 0, pad)) for t in (Bf, Cf))
+    xf, dyf = (t.reshape(b, nc, q, H, P) for t in (xf, dyf))
+    dtf = dtf.reshape(b, nc, q, H)
+    Bf, Cf = (t.reshape(b, nc, q, N) for t in (Bf, Cf))
+    zeros = torch.zeros((b, H, P, N), dtype=ct, device=x.device)
+    # the start state of every chunk, and the final state
+    states = [zeros if init_state is None else init_state.to(ct)]
+    for c in range(nc):
+        cum = torch.cumsum(dtf[:, c] * Af, dim=1)
+        w = torch.exp(cum[:, -1:] - cum)
+        states.append(states[-1] * torch.exp(cum[:, -1])[..., None, None] +
+                      torch.einsum("bjn,bjhp->bhpn", Bf[:, c],
+                                   xf[:, c] * (dtf[:, c] * w)[..., None]))
+    tril = torch.ones(q, q, dtype=torch.bool, device=x.device).tril()
+    G = zeros if dstate is None else dstate.to(ct)
+    dA = torch.zeros_like(Af)
+    dxs, ddts, dBs, dCs = [], [], [], []
+    for c in reversed(range(nc)):
+        xc, dyc, dtc, Bc, Cc = xf[:, c], dyf[:, c], dtf[:, c], Bf[:, c], \
+            Cf[:, c]
+        s0, s_end = states[c], states[c + 1]
+        cum = torch.cumsum(dtc * Af, dim=1)                       # (b,q,H)
+        seg = cum[:, :, None, :] - cum[:, None, :, :]             # (b,i,j,H)
+        L = torch.exp(torch.where(tril[None, :, :, None], seg,
+                                  torch.full_like(seg, float("-inf"))))
+        ecum = torch.exp(cum)
+        w = torch.exp(cum[:, -1:] - cum)
+        xdt = xc * dtc[..., None]
+        CB = torch.einsum("bin,bjn->bij", Cc, Bc)
+        S2 = L * torch.einsum("bihp,bjhp->bijh", dyc, xdt)
+        BG = w[..., None] * torch.einsum("bin,bhpn->bihp", Bc, G)
+        dxdt = torch.einsum("bjih,bjhp->bihp", L * CB[..., None], dyc) + BG
+        dYs0 = ecum[..., None] * torch.einsum("bihp,bhpn->bihn", dyc, s0)
+        dBs.append(torch.einsum("bjih,bjn->bin", S2, Cc) +
+                   torch.einsum("bihp,bhpn->bin", xdt * w[..., None], G))
+        dCs.append(torch.einsum("bijh,bjn->bin", S2, Bc) + dYs0.sum(2))
+        M = S2 * CB[..., None]
+        dcum = M.sum(2) - M.sum(1) + \
+            torch.einsum("bihn,bin->bih", dYs0, Cc) - (xdt * BG).sum(-1)
+        dcum[:, -1] += (G * s_end).sum((-1, -2))
+        da = torch.flip(torch.cumsum(torch.flip(dcum, [1]), 1), [1])
+        dxs.append(dtc[..., None] * dxdt)
+        ddts.append((xc * dxdt).sum(-1) + Af * da)
+        dA = dA + (dtc * da).sum((0, 1))
+        G = G * torch.exp(cum[:, -1])[..., None, None] + \
+            torch.einsum("bihp,bin->bhpn", dyc * ecum[..., None], Cc)
+
+    def cat(parts):
+        return torch.cat(parts[::-1], dim=1)[:, :S]
+
+    return (cat(dxs).to(x.dtype), cat(ddts), dA, cat(dBs).to(B.dtype),
+            cat(dCs).to(C.dtype), None if init_state is None else G)
+
+
 def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                   B: torch.Tensor, C: torch.Tensor, *, chunk: int = 256,
                   init_state: Optional[torch.Tensor] = None
@@ -168,3 +275,80 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         torch.cuda.current_stream(x.device).cuda_stream), "ssd_scan")
     SSD_ROUTE_LAUNCHES[route] += 1
     return y, state
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_rows() -> int:
+    """The backward kernel's rows per sub-chunk: its states scratch holds
+    ceil(S / rows) + 1 states per (batch row, head)."""
+    return _build.load().ssd_scan_bwd_rows()
+
+
+def ssd_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                      B: torch.Tensor, C: torch.Tensor, dy: torch.Tensor, *,
+                      init_state: Optional[torch.Tensor] = None,
+                      dstate: Optional[torch.Tensor] = None):
+    """(dx, ddt, dA, dB, dC, d init_state) of ``ssd_scan_cuda``, as
+    ``ssd_scan_bwd_plain`` computes them: two launches of
+    ``csrc/ssd_scan_bwd.cu`` (the backward per (head, batch row) on the CUDA
+    cores in fp32, then the sum of dB, dC and dA over the heads and the
+    batch rows in a fixed order).  x, dt, A, dy, init_state and dstate
+    contiguous; B and C may be views with any batch and sequence strides,
+    read in place, their last dim contiguous.  (P, N) = (64, 128) or (50,
+    16), fp32 or bf16; anything else raises."""
+    opt = [t for t in (init_state, dstate) if t is not None]
+    tensors = [x, dt, A, B, C, dy] + opt
+    if not (x.is_cuda and all(t.device == x.device for t in tensors)):
+        raise ValueError("ssd_scan_bwd: all inputs must be on one CUDA device")
+    if x.dtype not in DTYPE_CODES or B.dtype != x.dtype or \
+            C.dtype != x.dtype or dy.dtype != x.dtype or \
+            dt.dtype != torch.float32 or A.dtype != torch.float32 or \
+            any(t.dtype != torch.float32 for t in opt):
+        raise TypeError(f"ssd_scan_bwd: dtypes x {x.dtype}, dt {dt.dtype}, "
+                        f"A {A.dtype}, B {B.dtype}, C {C.dtype}, "
+                        f"dy {dy.dtype}")
+    if x.dim() != 4:
+        raise ValueError(f"ssd_scan_bwd: x shape {tuple(x.shape)}")
+    b, S, H, P = x.shape
+    N = B.shape[-1]
+    if (P, N) not in ((HEAD_DIM, STATE_DIM), HYBRID_SHAPE):
+        raise ValueError(f"ssd_scan_bwd: (P, N) = {(P, N)}; the kernel takes "
+                         f"{(HEAD_DIM, STATE_DIM)} and {HYBRID_SHAPE}")
+    if dt.shape != (b, S, H) or A.shape != (H,) or B.shape != (b, S, N) or \
+            C.shape != (b, S, N) or dy.shape != x.shape or \
+            any(t.shape != (b, H, P, N) for t in opt):
+        raise ValueError(f"ssd_scan_bwd: shapes x {tuple(x.shape)}, dt "
+                         f"{tuple(dt.shape)}, A {tuple(A.shape)}, B "
+                         f"{tuple(B.shape)}, C {tuple(C.shape)}, dy "
+                         f"{tuple(dy.shape)}")
+    if not all(t.is_contiguous() for t in [x, dt, A, dy] + opt):
+        raise ValueError("ssd_scan_bwd: x, dt, A, dy, init_state and dstate "
+                         "must be contiguous")
+    bc_strides = (B.stride(0), B.stride(1), C.stride(0), C.stride(1))
+    if B.stride(2) != 1 or C.stride(2) != 1 or max(bc_strides) >= 2 ** 31:
+        raise ValueError(f"ssd_scan_bwd: B strides {B.stride()}, C strides "
+                         f"{C.stride()}: the state dim must be contiguous")
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx, ddt = torch.empty_like(x), torch.empty_like(dt)
+    dA = torch.empty((H,), **f32)
+    dB = torch.empty((b, S, N), dtype=x.dtype, device=x.device)
+    dC = torch.empty_like(dB)
+    dinit = (torch.empty((b, H, P, N), **f32) if init_state is not None
+             else None)
+    nsub = -(-S // bwd_rows())
+    states = torch.empty((b, H, nsub + 1, P, N), **f32)
+    dBh = torch.empty((b, H, S, N), **f32)
+    dCh = torch.empty_like(dBh)
+    dAh = torch.empty((b, H), **f32)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    lib = _build.load()
+    _build.check(lib.ssd_scan_bwd(
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
+        dy.data_ptr(), ptr(init_state), ptr(dstate), dx.data_ptr(),
+        ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+        ptr(dinit), states.data_ptr(), dBh.data_ptr(), dCh.data_ptr(),
+        dAh.data_ptr(), b, S, H, P, N, *bc_strides, DTYPE_CODES[x.dtype],
+        torch.cuda.current_stream(x.device).cuda_stream), "ssd_scan_bwd")
+    SSD_BWD_ROUTE_LAUNCHES["bf16" if x.dtype == torch.bfloat16
+                           else "fp32"] += 1
+    return dx, ddt, dA, dB, dC, dinit

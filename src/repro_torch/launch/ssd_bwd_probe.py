@@ -1,0 +1,124 @@
+"""Two checks of K4's backward on the card: ``python -m repro_torch.launch.ssd_bwd_probe``.
+
+``errors`` (the default): ``ops.ssd_scan_bwd`` in fp32 at (P, N) = (64,
+128) and (50, 16) against ``ssd_scan_bwd_plain`` run in fp32 and in fp64
+from the same inputs, at the card tests' small-H shapes (b 2, S 449, H 4)
+and at H 64: per gradient, max |a - b| / max |fp64| for kernel - fp32,
+kernel - fp64 and fp32 - fp64.  It shows which of the two fp32 versions
+the rounding of dA, a sum over b S rows whose terms cancel, comes from.
+
+``train``: 5 bf16 train steps of mamba2_1_3b at full width and depth,
+batch 8 x 512 (chip_smoke.py's train path) but at qwen2_0_5b's lr of 1e-3
+(AdamW after a warmup of 2 steps, fp32 moments, the batches of
+``data/pipeline.py`` from seed 0): the losses and gradient norms;
+``--plain-backward`` puts ``ssd_scan_bwd_plain`` (run on the card) in the
+place of the backward kernel, so that the loss curve can be told apart
+from the kernel's rounding.
+
+Prints one JSON object per case, with the card's name.  A measurement: it
+raises without a CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import itertools
+import json
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+SEED = 78
+# (b, S, H, P, N, initial state and final-state cotangent)
+ERROR_SHAPES = ((2, 449, 4, 64, 128, False), (2, 449, 4, 64, 128, True),
+                (2, 512, 64, 64, 128, True), (2, 449, 4, 50, 16, True))
+NAMES = ("dx", "ddt", "dA", "dB", "dC", "dinit")
+
+
+def errors():
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd_plain
+    for b, S, H, P, N, init in ERROR_SHAPES:
+        rng = np.random.default_rng(SEED + S)
+
+        def f(*shape):
+            return torch.tensor(rng.standard_normal(shape).astype(np.float32),
+                                device="cuda")
+
+        x, dt = f(b, S, H, P) * 0.5, F.softplus(f(b, S, H))
+        A = -torch.exp(f(H) * 0.3)
+        BC = f(b, S, 2 * N) * 0.5
+        args = (x, dt, A, BC[..., :N], BC[..., N:], f(b, S, H, P))
+        kw = dict(init_state=f(b, H, P, N) if init else None,
+                  dstate=f(b, H, P, N) if init else None)
+        got = ops.ssd_scan_bwd(*args, **kw)
+        fp32 = ssd_scan_bwd_plain(*args, chunk=256, **kw)
+        fp64 = ssd_scan_bwd_plain(
+            *(t.double() for t in args), chunk=256,
+            **{k: None if v is None else v.double() for k, v in kw.items()})
+        rel = {}
+        for name, k, a, e in zip(NAMES, got, fp32, fp64):
+            if k is None:
+                continue
+            m = e.abs().max().item()
+            rel[name] = {
+                "kernel_fp32": (k.double() - a.double()).abs().max().item() / m,
+                "kernel_fp64": (k.double() - e).abs().max().item() / m,
+                "fp32_fp64": (a.double() - e).abs().max().item() / m}
+        yield {"case": "errors", "shape": [b, S, H, P, N],
+               "init_and_dstate": init, "max_rel_err": rel}
+
+
+def train(plain_backward: bool, arch="mamba2_1_3b", batch=8, seq=512,
+          lr=1e-3, steps=5):
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, make_batch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd_plain
+    from repro_torch.models import build
+    from repro_torch.train import AdamWConfig, TrainConfig, train_loop
+
+    cfg = get_config(arch)
+    bundle = build(cfg)
+    tcfg = TrainConfig(opt=AdamWConfig(lr=lr, warmup_steps=2))
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                      global_batch=batch, seed=0)
+    kernel = ops.ssd_scan_bwd_cuda
+    if plain_backward:
+        ops.ssd_scan_bwd_cuda = (
+            lambda x, dt, A, B, C, dy, init_state=None, dstate=None:
+            ssd_scan_bwd_plain(x, dt, A, B, C, dy, chunk=cfg.ssm_chunk,
+                               init_state=init_state, dstate=dstate))
+    batches = (make_batch(dcfg, i) for i in itertools.count())
+    try:
+        ops.reset_launches()
+        _, history = train_loop(bundle, tcfg, batches, n_steps=steps, seed=0,
+                                device="cuda", log_every=1)
+    finally:
+        ops.ssd_scan_bwd_cuda = kernel
+    return {"case": "train", "arch": arch, "batch": batch, "seq": seq,
+            "lr": lr, "plain_backward": plain_backward,
+            "scan_backward_calls": ops.GRAD_LAUNCHES["ssd_scan_bwd"],
+            "losses": [h["loss"] for h in history],
+            "grad_norms": [h["grad_norm"] for h in history]}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("what", nargs="?", choices=("errors", "train"),
+                    default="errors")
+    ap.add_argument("--plain-backward", action="store_true")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("ssd_bwd_probe: no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = torch.cuda.get_device_name(0)
+    results = (errors() if args.what == "errors" else
+               [train(args.plain_backward)])
+    for out in results:
+        print(json.dumps({"device": card, **out}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -808,7 +808,8 @@ def test_cuda_train_two_steps_at_depth_2(card):
     assert ops.LAUNCHES == {"streamed_matmul": 2 * 3 * (7 * 2 + 1),
                             "flash_attention": 2 * 2,
                             "decode_attention": 0, "ssd_scan": 0}
-    assert ops.GRAD_LAUNCHES == {"flash_attention_bwd": 2 * 2}
+    assert ops.GRAD_LAUNCHES == {"flash_attention_bwd": 2 * 2,
+                                 "ssd_scan_bwd": 0}
     assert ops.launch_counts()[4] == {"wgmma": 2 * 2, "fp32": 0}
     assert ROUTE_LAUNCHES["wgmma"] == 2 * 3 * (7 * 2 + 1)
     assert all(np.isfinite(losses)) and losses[1] < losses[0]
@@ -817,12 +818,243 @@ def test_cuda_train_two_steps_at_depth_2(card):
 
 @pytest.mark.cuda
 def test_cuda_ops_without_backward_raise_under_grad(card):
+    """The grouped product and decode attention have no backward kernel:
+    under grad on the card they raise (the scan and the band have one)."""
     x, w = _on(card, "bfloat16", 51, (2, 64, 64), (2, 64, 64))
     w.requires_grad_(True)
     with pytest.raises(NotImplementedError, match="grouped_matmul"):
         ops.grouped_matmul(x, w)
-    q, k, v = _on(card, "bfloat16", 52, (1, 64, 2, 64), (1, 64, 1, 64),
+    q, k, v = _on(card, "bfloat16", 52, (1, 2, 64), (1, 64, 1, 64),
                   (1, 64, 1, 64))
     q.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="window"):
-        ops.flash_attention(q, k, v, window=16)
+    with pytest.raises(NotImplementedError, match="decode_attention"):
+        ops.decode_attention(q, k, v, 16)
+
+
+# ---------------------------------------------------------------------------
+# K4's backward and K2's band backward
+# ---------------------------------------------------------------------------
+
+# (b, S, H) of K4's backward: ragged against its 64-row sub-chunks (1, 63,
+# 65, 97, 449), one sub-chunk, several, and the training shapes' S at a
+# small batch
+SSD_BWD_CASES = [(2, S, H) for S in (1, 63, 64, 65, 97, 449, 512)
+                 for H in (4, 64)]
+
+
+def _check_ssd_bwd(x, dt, A, B, C, init, dy, ds, dtype, launches=1):
+    """One call of ops.ssd_scan_bwd against its plain version: per
+    gradient within SSD_TOL and SSD_FINE_TOL of its largest value.  The
+    fp32 kernel is held against the plain version run in fp64 from the
+    same inputs: the fp32 plain version's own rounding reaches 3e-5 of max
+    |dA| (a sum over b S rows whose terms cancel) at H 4 on an H100, the
+    kernel's about 6e-6 (``launch/ssd_bwd_probe.py``)."""
+    from repro_torch.kernels.ssd_scan import (SSD_BWD_ROUTE_LAUNCHES,
+                                              ssd_scan_bwd_plain)
+    ops.reset_launches()
+    got = ops.ssd_scan_bwd(x, dt, A, B, C, dy, init_state=init, dstate=ds)
+    torch.cuda.synchronize()
+    assert ops.GRAD_LAUNCHES["ssd_scan_bwd"] == launches
+    route = "bf16" if dtype == "bfloat16" else "fp32"
+    assert SSD_BWD_ROUTE_LAUNCHES == {r: int(r == route) * launches
+                                      for r in SSD_BWD_ROUTE_LAUNCHES}
+    exact = (lambda t: None if t is None else t.double()) \
+        if dtype == "float32" else (lambda t: t)
+    want = ssd_scan_bwd_plain(*(exact(t) for t in (x, dt, A, B, C, dy)),
+                              chunk=256, init_state=exact(init),
+                              dstate=exact(ds))
+    assert (got[5] is None) == (init is None)
+    f32 = torch.float32
+    assert [g.dtype for g in got if g is not None] == \
+        [x.dtype, f32, f32, x.dtype, x.dtype] + ([f32] if init is not None
+                                                 else [])
+    for g, w in zip(got, want):
+        if w is None:
+            continue
+        assert g.shape == w.shape
+        err = _rel_err(g, w)
+        assert err < SSD_TOL[dtype] and err < SSD_FINE_TOL[dtype], err
+    return got
+
+
+def _ssd_bwd_on(card, dtype, seed, b, S, H, with_init, P, N):
+    x, dt, A, B, C, init = _ssd_on(card, dtype, seed, b, S, H, with_init, P,
+                                   N)
+    rng = np.random.default_rng(seed + 1)
+    dy = torch.tensor(rng.standard_normal((b, S, H, P)).astype(np.float32)
+                      ).to(x.dtype).to(card)
+    ds = (torch.tensor(rng.standard_normal((b, H, P, N)).astype(np.float32)
+                       ).to(card) if with_init else None)
+    return x, dt, A, B, C, init, dy, ds
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_init", [False, True], ids=["zero", "init"])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,S,H", SSD_BWD_CASES)
+@pytest.mark.parametrize("P,N", SSD_HEADS)
+def test_cuda_ssd_scan_bwd_matches_plain(card, P, N, b, S, H, dtype,
+                                         with_init):
+    """dx, ddt, dA, dB, dC (and d init_state, from an initial state with a
+    cotangent of the final state) of the backward kernel against
+    ``ssd_scan_bwd_plain``; B and C are halves of one tensor, read in
+    place."""
+    _check_ssd_bwd(*_ssd_bwd_on(card, dtype, 70 + S, b, S, H, with_init, P,
+                                N), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,N", SSD_HEADS)
+def test_cuda_ssd_scan_bwd_long_memory(card, P, N):
+    """bf16, b 1, S 4096 (64 sub-chunks) from an initial state with dt |A|
+    small (A times 1e-4): the adjoint is carried across every sub-chunk and
+    dA sums 4096 rows."""
+    x, dt, A, B, C, init, dy, ds = _ssd_bwd_on(card, "bfloat16", 71, 1, 4096,
+                                               64, True, P, N)
+    _check_ssd_bwd(x, dt, A * 1e-4, B, C, init, dy, ds, "bfloat16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("P,N", SSD_HEADS)
+def test_cuda_ssd_scan_bwd_is_deterministic(card, P, N, dtype):
+    """Two calls on the same inputs give every gradient equal bit for bit:
+    no atomics, the heads' and the batch rows' sums in a fixed order."""
+    args = _ssd_bwd_on(card, dtype, 72, 4, 449, 64, True, P, N)
+    first = ops.ssd_scan_bwd(*args[:5], args[6], init_state=args[5],
+                             dstate=args[7])
+    second = ops.ssd_scan_bwd(*args[:5], args[6], init_state=args[5],
+                              dstate=args[7])
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_scan_bwd_rejects_what_it_does_not_take(card):
+    """(P, N) the kernel does not take, a state dim that is not contiguous
+    and a dtype mix raise before any launch; nothing falls back."""
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd_cuda
+    x, dt, A, B, C, _, dy, _ = _ssd_bwd_on(card, "bfloat16", 73, 1, 70, 4,
+                                           False, 64, 128)
+    ops.reset_launches()
+    with pytest.raises(ValueError, match="P, N"):
+        ssd_scan_bwd_cuda(x[..., :8].contiguous(), dt, A, B[..., :8],
+                          C[..., :8], dy[..., :8].contiguous())
+    BC = torch.zeros((1, 70, 128, 2), dtype=torch.bfloat16, device=card)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_scan_bwd_cuda(x, dt, A, BC[..., 0], BC[..., 1], dy)
+    with pytest.raises(TypeError):
+        ssd_scan_bwd_cuda(x, dt, A, B, C, dy.float())
+    assert ops.GRAD_LAUNCHES["ssd_scan_bwd"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("P,N", SSD_HEADS)
+def test_cuda_ssd_scan_autograd_counts_launches(card, P, N, dtype):
+    """Under grad ``ops.ssd_scan`` is one forward launch on its route and
+    one backward call; its gradients are the backward's."""
+    x, dt, A, B, C, init, dy, ds = _ssd_bwd_on(card, dtype, 74, 2, 130, 64,
+                                               True, P, N)
+    leaves = [t.detach().clone().requires_grad_(True)
+              for t in (x, dt, A, B, C, init)]
+    ops.reset_launches()
+    y, state = ops.ssd_scan(*leaves[:5], init_state=leaves[5])
+    got = torch.autograd.grad((y, state), leaves, (dy, ds))
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ssd_scan"] == 1
+    assert ops.GRAD_LAUNCHES == {"flash_attention_bwd": 0, "ssd_scan_bwd": 1}
+    want = ops.ssd_scan_bwd(x, dt, A, B, C, dy, init_state=init, dstate=ds)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+# (B, S, H, KV, hd, window) of K2's band backward: hymba's heads at its
+# window of 1024 past S 2048 (its training path), a band narrower than one
+# tile (1, 16), ragged S against the 64- and 128-row tiles, hd 128, groups
+# of 1, 4 and 5, and windows at and past S (the causal mask)
+BAND_BWD_CASES = [(2, 2048, 25, 5, 64, 1024), (1, 455, 8, 2, 64, 100),
+                  (1, 129, 4, 1, 128, 64), (2, 200, 8, 8, 64, 16),
+                  (1, 77, 4, 2, 64, 1), (1, 300, 4, 2, 64, 300),
+                  (1, 300, 4, 2, 64, 1024), (1, 1000, 25, 5, 64, 130)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,S,H,KV,hd,window", BAND_BWD_CASES)
+def test_cuda_flash_attention_bwd_band_matches_plain(card, B, S, H, KV, hd,
+                                                     window, dtype):
+    """The band's dq, dk, dv from the forward's band lse (bf16 on the wgmma
+    route, fp32 on the CUDA cores) against the plain version: the loose
+    limit and BWD_MEAN_TOL, as the causal backward is held; the lse
+    against ``flash_attention_lse_plain``."""
+    from repro_torch.kernels.flash_attention import (
+        BWD_MEAN_TOL, BWD_ROUTE_LAUNCHES, flash_attention_bwd_plain,
+        flash_attention_lse_plain)
+    q, k, v, do = _on(card, dtype, 80 + S + window, (B, S, H, hd),
+                      (B, S, KV, hd), (B, S, KV, hd), (B, S, H, hd))
+    o, lse = ops.flash_attention_lse(q, k, v, causal=True, window=window)
+    want_lse = flash_attention_lse_plain(q, k, causal=True, window=window)
+    assert bool(((lse - want_lse).abs() <= 1e-4 * (1 + want_lse.abs())).all())
+    assert torch.equal(o, ops.flash_attention(q, k, v, window=window))
+    ops.reset_launches()
+    got = ops.flash_attention_bwd(q, k, v, o, do, window=window, lse=lse)
+    torch.cuda.synchronize()
+    route = "wgmma" if dtype == "bfloat16" else "fp32"
+    assert BWD_ROUTE_LAUNCHES == {r: int(r == route)
+                                  for r in BWD_ROUTE_LAUNCHES}
+    want = flash_attention_bwd_plain(q, k, v, o, do, window=window)
+    tol = DTYPES[dtype][1]
+    for g, w in zip(got, want):
+        diff = (g.float() - w.float()).abs()
+        assert bool((diff <= tol * (1 + w.float().abs())).all())
+        assert diff.mean().item() <= BWD_MEAN_TOL[g.dtype] * \
+            w.float().abs().mean().item() + 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_flash_attention_bwd_band_is_deterministic(card, dtype):
+    q, k, v, do = _on(card, dtype, 81, (2, 2048, 25, 64), (2, 2048, 5, 64),
+                      (2, 2048, 5, 64), (2, 2048, 25, 64))
+    o, lse = ops.flash_attention_lse(q, k, v, window=1024)
+    first = ops.flash_attention_bwd(q, k, v, o, do, window=1024, lse=lse)
+    second = ops.flash_attention_bwd(q, k, v, o, do, window=1024, lse=lse)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2_1_3b", "hymba_1_5b"])
+def test_cuda_train_two_steps_ssd_families(card, arch):
+    """mamba2_1_3b and hymba_1_5b (its window cut to 32, below the sequence)
+    at full width, two layers, bf16, batch 2 x seq 128: two train steps, one
+    scan backward per layer on the bf16 route and (hymba) one band backward
+    per layer on the wgmma route; the loss finite and falling."""
+    from repro_torch.data import DataConfig, make_batch
+    from repro_torch.kernels.ssd_scan import SSD_BWD_ROUTE_LAUNCHES
+    from repro_torch.train import (AdamWConfig, TrainConfig, init_state,
+                                   make_train_step)
+    from repro_torch.train.loop import to_device
+    hybrid = arch == "hymba_1_5b"
+    bundle, params = _depth2(card, arch, **({"sliding_window": 32}
+                                            if hybrid else {}))
+    tcfg = TrainConfig(opt=AdamWConfig(lr=1e-3, warmup_steps=1))
+    step = make_train_step(bundle.loss, tcfg)
+    state = init_state(params, tcfg.opt)
+    dcfg = DataConfig(vocab_size=bundle.cfg.vocab_size, seq_len=128,
+                      global_batch=2)
+    batch = to_device(make_batch(dcfg, 0), card)
+    ops.reset_launches()
+    losses = []
+    for _ in range(2):
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+    assert ops.LAUNCHES["ssd_scan"] == 2 * 2
+    assert ops.GRAD_LAUNCHES == {"flash_attention_bwd": 2 * 2 * hybrid,
+                                 "ssd_scan_bwd": 2 * 2}
+    assert SSD_BWD_ROUTE_LAUNCHES == {"bf16": 2 * 2, "fp32": 0}
+    assert ops.launch_counts()[4] == {"wgmma": 2 * 2 * hybrid, "fp32": 0}
+    assert all(np.isfinite(losses)) and losses[1] < losses[0]

@@ -192,4 +192,5 @@ def test_flash_attention_saves_the_lse_on_the_cpu():
         q.detach(), k.detach(), causal=True), rtol=0, atol=0)
     assert ops.launch_counts()[0]["flash_attention"] == 0
     o.sum().backward()
-    assert ops.launch_counts()[3] == {"flash_attention_bwd": 0}
+    assert ops.launch_counts()[3] == {"flash_attention_bwd": 0,
+                                      "ssd_scan_bwd": 0}

@@ -1,10 +1,12 @@
 """Gradients of the port against the JAX package's autodiff, in fp32 on the
-CPU: ``bundle.loss`` against ``jax.grad`` of the JAX loss for five reduced
-models (through the port's autograd Functions with the plain products and
-``flash_attention_bwd_plain``), the attention backward's plain version
-against ``torch.autograd`` and ``jax.grad``, the products' backward, and
-the dispatch: no autograd node under ``torch.inference_mode()``, and the
-ops without a backward kernel raising under grad on the card."""
+CPU: ``bundle.loss`` against ``jax.grad`` of the JAX loss for seven reduced
+models (through the port's autograd Functions with the plain products,
+``flash_attention_bwd_plain`` and ``ssd_scan_bwd_plain``), the attention
+backward's plain version against ``torch.autograd`` and ``jax.grad``, the
+products' backward, and the dispatch: no autograd node under
+``torch.inference_mode()``, one counted backward launch per call of the
+scan and of the banded attention under grad on the card, and the ops
+without a backward kernel raising there."""
 import dataclasses
 
 import jax
@@ -56,15 +58,19 @@ def _batch(cfg, B=2, S=16, seed=0):
 
 
 @pytest.mark.parametrize("arch", ["qwen2_0_5b", "llama3_2_1b", "qwen3_4b",
-                                  "internvl2_26b", "whisper_large_v3"])
+                                  "internvl2_26b", "whisper_large_v3",
+                                  "mamba2_1_3b", "hymba_1_5b"])
 def test_loss_gradients_match_jax_grad(arch):
+    """hymba_1_5b's sequence of 24 exceeds its reduced window of 16, so the
+    band's backward is in the gradient; the SSD families' scans run 2 and 3
+    chunks of 8."""
     ref_cfg = _fp32(ref_reduce(ref_get_config(arch)))
     cfg = _fp32(reduce_for_smoke(get_config(arch)))
     ref_bundle = ref_build(ref_cfg)
     ref_params = ref_bundle.init(jax.random.PRNGKey(3))
     params = convert.from_reference(
         {n: np.asarray(v) for n, v in _flatten(ref_params)}, device="cpu")
-    batch = _batch(cfg)
+    batch = _batch(cfg, S=24 if cfg.sliding_window else 16)
     (ref_loss, _), ref_grads = jax.jit(jax.value_and_grad(
         ref_bundle.loss, has_aux=True))(
             ref_params, {k: jnp.asarray(v) for k, v in batch.items()})
@@ -182,22 +188,32 @@ def test_matmul_backward_is_two_products_through_the_op(monkeypatch):
 
 def test_inference_takes_no_autograd_function():
     """Under ``torch.inference_mode()`` (serving) and ``no_grad`` the
-    product and the attention are the direct calls: no autograd node, so
-    the serving path's calls and counts stay as they were."""
+    product, the attention (banded too) and the scan are the direct calls:
+    no autograd node, so the serving path's calls and counts stay as they
+    were."""
     rng = np.random.default_rng(5)
     w = torch.tensor(rng.standard_normal((8, 4)).astype(np.float32),
                      requires_grad=True)
     x = torch.tensor(rng.standard_normal((3, 8)).astype(np.float32))
     q, k, v, _ = (torch.tensor(a).requires_grad_(True)
                   for a in _qkv(6, 1, 8, 8, 2, 1, 64))
+    xs = torch.tensor(rng.standard_normal((1, 8, 2, 8)).astype(np.float32),
+                      requires_grad=True)
+    dt = torch.ones((1, 8, 2))
+    A = -torch.ones(2)
+    Bm = torch.tensor(rng.standard_normal((1, 8, 8)).astype(np.float32))
     for ctx in (torch.inference_mode, torch.no_grad):
         with ctx():
             assert ops.matmul(x, w).grad_fn is None
             assert ops.flash_attention(q, k, v).grad_fn is None
+            assert ops.flash_attention(q, k, v, window=4).grad_fn is None
+            assert ops.ssd_scan(xs, dt, A, Bm, Bm, chunk=4)[0].grad_fn is None
     y = ops.matmul(x, w)
     assert type(y.grad_fn).__name__ == "_MatmulBackward"
     o = ops.flash_attention(q, k, v)
     assert type(o.grad_fn).__name__ == "_FlashAttentionBackward"
+    y, _ = ops.ssd_scan(xs, dt, A, Bm, Bm, chunk=4)
+    assert type(y.grad_fn).__name__ == "_SSDScanBackward"
     assert ops.matmul(x, w.detach()).grad_fn is None
 
 
@@ -221,12 +237,8 @@ def test_ops_without_backward_raise_under_grad_on_the_card(monkeypatch):
         rng.standard_normal(s).astype(np.float32), requires_grad=True)
     calls = {
         "grouped_matmul": lambda: ops.grouped_matmul(f(2, 8, 16), f(2, 16, 8)),
-        "ssd_scan": lambda: ops.ssd_scan(f(1, 8, 2, 8), f(1, 8, 2), f(2),
-                                         f(1, 8, 8), f(1, 8, 8), chunk=4),
         "decode_attention": lambda: ops.decode_attention(
             f(1, 2, 64), f(1, 8, 1, 64), f(1, 8, 1, 64), 5),
-        "flash_attention with a window": lambda: ops.flash_attention(
-            f(1, 8, 2, 64), f(1, 8, 1, 64), f(1, 8, 1, 64), window=4),
     }
     for name, call in calls.items():
         with pytest.raises(NotImplementedError, match=name):
@@ -238,26 +250,89 @@ def test_ops_without_backward_raise_under_grad_on_the_card(monkeypatch):
                 call()
 
 
+def test_scan_and_band_count_one_backward_launch_under_grad_on_the_card(
+        monkeypatch):
+    """The scan and the banded attention under grad on the card, with the
+    plain versions standing in for the kernels: one counted forward launch
+    and one counted backward launch per call, the band's forward with its
+    lse, and gradients equal to the CPU's."""
+    monkeypatch.setattr(ops, "_on_card", lambda t: True)
+    monkeypatch.setattr(ops, "ssd_scan_cuda", ops.ssd_scan_plain)
+    monkeypatch.setattr(ops, "ssd_scan_bwd_cuda",
+                        lambda *a, **k: ops.ssd_scan_bwd_plain(*a, **k))
+    lse_calls = []
+
+    def flash(q, k, v, *, causal, window, with_lse=False):
+        lse_calls.append((window, with_lse))
+        return (ops.flash_attention_plain(q, k, v, causal=causal,
+                                          window=window),
+                ops.flash_attention_lse_plain(q, k, causal=causal,
+                                              window=window))
+
+    monkeypatch.setattr(ops, "flash_attention_cuda", flash)
+    monkeypatch.setattr(ops, "flash_attention_bwd_cuda",
+                        lambda *a, lse, **k: ops.flash_attention_bwd_plain(
+                            *a, **k))
+    rng = np.random.default_rng(10)
+    arrays = {"scan": [rng.standard_normal(s).astype(np.float32) for s in
+                       ((1, 12, 2, 8), (1, 12, 2), (2,), (1, 12, 8),
+                        (1, 12, 8))],
+              "band": [rng.standard_normal(s).astype(np.float32) for s in
+                       ((1, 12, 2, 64), (1, 12, 1, 64), (1, 12, 1, 64))]}
+    arrays["scan"][1] = np.abs(arrays["scan"][1])
+    arrays["scan"][2] = -np.abs(arrays["scan"][2])
+    calls = {"scan": lambda *t: ops.ssd_scan(*t, chunk=4)[0],
+             "band": lambda *t: ops.flash_attention(*t, window=4)}
+    grads = {}
+    for on_card in (True, False):
+        if not on_card:
+            monkeypatch.setattr(ops, "_on_card", lambda t: False)
+        for name, call in calls.items():
+            leaves = [torch.tensor(a, requires_grad=True)
+                      for a in arrays[name]]
+            ops.reset_launches()
+            call(*leaves).sum().backward()
+            grads[name, on_card] = [t.grad for t in leaves]
+            if on_card:
+                kernel = {"scan": "ssd_scan", "band": "flash_attention"}[name]
+                assert ops.LAUNCHES[kernel] == 1, name
+                assert ops.GRAD_LAUNCHES == {
+                    "flash_attention_bwd": int(name == "band"),
+                    "ssd_scan_bwd": int(name == "scan")}, name
+    assert lse_calls == [(4, True)]
+    # the card's path hands the backward a contiguous dy, the CPU's the
+    # expanded one of .sum(): the same sums, rounded in another order
+    for name in calls:
+        for g, w in zip(grads[name, True], grads[name, False]):
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+
+
 def test_inference_counts_one_launch_per_call(monkeypatch):
     """Serving's dispatch on the card, with stand-ins for the kernels:
-    under ``torch.inference_mode()`` a product and an attention of inputs
-    that require grad are one counted launch each, as before training
-    existed, and no backward kernel is counted."""
+    under ``torch.inference_mode()`` a product, an attention and a scan of
+    inputs that require grad are one counted launch each, as before
+    training existed, and no backward kernel is counted."""
     monkeypatch.setattr(ops, "_on_card", lambda t: True)
     monkeypatch.setattr(ops, "matmul_cuda", ops.matmul_plain)
     monkeypatch.setattr(ops, "flash_attention_cuda",
                         ops.flash_attention_plain)
+    monkeypatch.setattr(ops, "ssd_scan_cuda", ops.ssd_scan_plain)
     rng = np.random.default_rng(8)
     w = torch.tensor(rng.standard_normal((8, 4)).astype(np.float32),
                      requires_grad=True)
     x = torch.tensor(rng.standard_normal((3, 8)).astype(np.float32))
     q, k, v, _ = (torch.tensor(a).requires_grad_(True)
                   for a in _qkv(9, 1, 8, 8, 2, 1, 64))
+    xs = torch.tensor(rng.standard_normal((1, 8, 2, 8)).astype(np.float32),
+                      requires_grad=True)
+    Bm = torch.tensor(rng.standard_normal((1, 8, 8)).astype(np.float32))
     ops.reset_launches()
     with torch.inference_mode():
         ops.matmul(x, w)
         ops.flash_attention(q, k, v)
+        ops.ssd_scan(xs, torch.ones((1, 8, 2)), -torch.ones(2), Bm, Bm,
+                     chunk=4)
     assert ops.launch_counts()[0] == {"streamed_matmul": 1,
                                       "flash_attention": 1,
-                                      "decode_attention": 0, "ssd_scan": 0}
-    assert ops.GRAD_LAUNCHES == {"flash_attention_bwd": 0}
+                                      "decode_attention": 0, "ssd_scan": 1}
+    assert ops.GRAD_LAUNCHES == {"flash_attention_bwd": 0, "ssd_scan_bwd": 0}

@@ -144,14 +144,17 @@ def test_weight_decay_follows_the_ndim_rule_on_the_stacked_layout():
 
 @pytest.mark.parametrize("arch,grad_accum", [("qwen2_0_5b", 1),
                                              ("qwen2_0_5b", 2),
-                                             ("deepseek_moe_16b", 1)])
+                                             ("deepseek_moe_16b", 1),
+                                             ("mamba2_1_3b", 1),
+                                             ("hymba_1_5b", 1)])
 def test_train_step_matches_reference(arch, grad_accum):
     """One step from the same state and batch: the metrics, every moment
     (per leaf within 1e-5 of its largest value: the gradients agree), and
     every parameter.  Adam's first update is g / (|g| + eps) x lr, so a
     gradient near eps (the k bias's, nearly 0 by the softmax's shift
     invariance) turns fp32 noise into a part of lr: each parameter leaf is
-    held within 0.1 lr at most and 5e-3 lr on average."""
+    held within 0.1 lr at most and 5e-3 lr on average.  hymba_1_5b's
+    sequence of 24 exceeds its reduced window of 16."""
     ref_cfg = _fp32(ref_reduce(ref_get_config(arch)))
     cfg = _fp32(reduce_for_smoke(get_config(arch)))
     ref_bundle = ref_build(ref_cfg)
@@ -159,7 +162,8 @@ def test_train_step_matches_reference(arch, grad_accum):
     params = convert.from_reference(_tree_np(ref_params), device="cpu")
     ocfg = dict(lr=1e-3, warmup_steps=2)
     tcfg = TrainConfig(opt=AdamWConfig(**ocfg), grad_accum=grad_accum)
-    batch = make_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=16,
+    batch = make_batch(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=24 if cfg.sliding_window else 16,
                                   global_batch=4), 0)
     ref_state, ref_m = jax.jit(ref_make_train_step(
         ref_bundle.loss, RefTrainConfig(opt=ref_opt.AdamWConfig(**ocfg),

@@ -12,14 +12,15 @@ exits non-zero):
                must show wgmma (HGMMA) and TMA loads (UTMALDG) in the
                prefill and decode matmul kernels, the bf16 flash and
                decode attention kernels and the bf16 SSD scan kernel of
-               P 64, N 128, and both kernels of K2's bf16 backward, and
+               P 64, N 128, both kernels of K2's bf16 backward and K4's
+               bf16 backward kernel of P 64, N 128, and
                tensor-core products (HMMA or HGMMA) and asynchronous loads
                (UTMALDG or LDGSTS) in the bf16 SSD scan kernel of P 50, N
                16; and each kernel's registers and spills from ptxas's
                report, with no spill allowed in either bf16 SSD scan
-               kernel or in K2's bf16 backward kernels at hd 64 (those at
-               hd 128, the band's and the forward's printed, and K4's
-               backward kernel's);
+               kernel, in K2's bf16 backward kernels at hd 64 or in K4's
+               backward kernels (those of K2 at hd 128, the band's and the
+               forward's printed);
 3. kernels  -- each kernel against its plain PyTorch version on the card
                at the shapes of the serving paths of the nine served
                models (qwen2_0_5b, llama3_2_1b, qwen2_7b, qwen3_4b,
@@ -65,7 +66,9 @@ exits non-zero):
                of SDPA; and the band's at hymba_1_5b's training shape (2,
                2048, 25/5, 64), window 1024, its library SDPA's autograd
                backward with a boolean band mask), K4's backward
-               (ssd_scan_bwd, fp32 and bf16, against ssd_scan_bwd_plain:
+               (ssd_scan_bwd, fp32 and bf16, against ssd_scan_bwd_plain,
+               each call on its route, ssd_bwd_route's: bf16 at P 64,
+               N 128 on "wgmma", the rest on "simt";
                mamba2_1_3b's training shape (8, 512, 64, P 64, N 128),
                hymba_1_5b's (2, 2048, 64, P 50, N 16), a ragged S from an
                initial state with a cotangent of the final state at both,
@@ -129,14 +132,16 @@ exits non-zero):
                finite and falling, the launches per
                step of K1 (3 per product), K2, K2's backward (the band's
                for hymba), K4 and K4's backward as expected, every product,
-               attention backward and scan backward on its bf16 kernel and
-               no plain version called; step time, tokens/s, peak memory,
+               attention backward and scan backward on its bf16 kernel
+               (mamba2_1_3b's scan backward on "wgmma", hymba_1_5b's on
+               "simt") and no plain version called; step time, tokens/s, peak memory,
                a profiled step's device idle share and the backward
                kernels' device time; a checkpoint saved and restored equal
                bit for bit, and the next step from it equal, bit for bit,
                to the step without the restore.
 
-Then a summary line of the kernels, and last
+Then a summary line of the kernels (each with the routes its cases took),
+and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 It prints no result and exits non-zero without a CUDA device or outside a
 checkout of the repository.
@@ -282,6 +287,8 @@ def main() -> int:
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             **timing_sums(timed),
             "shapes": [c["shape"] for c in timed],
+            "kernel_routes": sorted({c["route"] for c in mine
+                                     if "route" in c}),
         })
         grouped = [c for c in timed if c["shape"][0] == "grouped"]
         if grouped:  # the matmul grouped over experts, also on its own
@@ -354,7 +361,7 @@ def phase_build():
     for kernel in ("matmul_wgmma_kernel", "matmul_decode_kernel",
                    "flash_wgmma_kernel", "decode_wgmma_kernel",
                    "ssd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
-                   "flash_bwd_dkdv_wgmma_kernel"):
+                   "flash_bwd_dkdv_wgmma_kernel", "ssd_bwd_wgmma_kernel"):
         mine = [c for name, c in sass.items() if kernel in name]
         if not mine or not all(c["HGMMA"] and c["UTMALDG"] for c in mine):
             raise AssertionError(f"{kernel}: no wgmma or TMA load in its SASS")
@@ -365,7 +372,8 @@ def phase_build():
                              f"asynchronous load in its SASS {mine}")
     for kernel in ("ssd_wgmma_kernel", "ssd_tc_kernel",
                    "flash_bwd_dq_wgmma_kernel<64,",
-                   "flash_bwd_dkdv_wgmma_kernel<64,", "ssd_bwd_kernel"):
+                   "flash_bwd_dkdv_wgmma_kernel<64,", "ssd_bwd_kernel",
+                   "ssd_bwd_wgmma_kernel"):
         mine = [r for name, r in ptxas.items() if kernel in name]
         if not mine or any(r.get("spill_stores") != 0 or
                            r.get("spill_loads") != 0 for r in mine):
@@ -447,7 +455,8 @@ def phase_kernels(torch, dev):
         BWD_MEAN_TOL, BWD_ROUTE_LAUNCHES, MEAN_TOL, flash_attention_bwd_plain,
         flash_attention_plain)
     from repro_torch.kernels.ssd_scan import (SSD_BWD_ROUTE_LAUNCHES,
-                                              SSD_ROUTE_LAUNCHES, ssd_route,
+                                              SSD_ROUTE_LAUNCHES,
+                                              ssd_bwd_route, ssd_route,
                                               ssd_scan_bwd_plain,
                                               ssd_scan_plain)
     from repro_torch.kernels.streamed_matmul import (ROUTE_LAUNCHES,
@@ -979,7 +988,8 @@ def phase_kernels(torch, dev):
     # ragged S (449, 1800) from an initial state with a cotangent of the
     # final state; the long-memory inputs (b 1, S 4096, A times 1e-4) at
     # both, where an adjoint carried in bf16 or dA summed in low precision
-    # would show.  B and C are the halves of one (b, S, 2N) tensor, read in
+    # would show.  bf16 at P 64, N 128 takes the tensor cores ("wgmma"), the
+    # rest the CUDA cores ("simt"), each case on the route it must take.  B and C are the halves of one (b, S, 2N) tensor, read in
     # place.  The least operations, per (batch row, sub-chunk of q <= 64
     # rows): C B^T once (lower triangle), and per head dy (x dt)^T, (L o C
     # B^T)^T dy, (L o dy (x dt)^T)^T C and (L o dy (x dt)^T) B (triangles:
@@ -1007,7 +1017,10 @@ def phase_kernels(torch, dev):
         dstate = randn(b, H, P, N, dtype=torch.float32) if with_init else None
         args = (x, dt, A, Bm, Cm, dy)
         kw = dict(init_state=init, dstate=dstate)
-        route = "bf16" if dtype == torch.bfloat16 else "fp32"
+        route = ssd_bwd_route(dtype, H, P, N, (BC.stride(0), BC.stride(1)))
+        if route != ("wgmma" if (dtype, P) == (torch.bfloat16, 64)
+                     else "simt"):
+            raise AssertionError(f"ssd_scan_bwd {dtype} P {P}: route {route}")
         before = SSD_BWD_ROUTE_LAUNCHES[route]
         got = ops.ssd_scan_bwd(*args, **kw)
         if SSD_BWD_ROUTE_LAUNCHES[route] != before + 1:
@@ -1133,10 +1146,12 @@ def train_launches(cfg, steps):
     attention (banded or not) and each scan once forward and once
     backward, on the routes of the model's dtype (bf16: the attention
     backward's wgmma, the scans' tensor-core kernels and the scan
-    backward's bf16 route; fp32: the CUDA cores)."""
+    backward's route, ssd_bwd_route's: "wgmma" at P 64, N 128, "simt" at
+    P 50, N 16; fp32: the CUDA cores)."""
     import torch
     from repro_torch.kernels.ssd_scan import (SSD_BWD_ROUTE_LAUNCHES,
-                                              SSD_ROUTE_LAUNCHES, ssd_route)
+                                              SSD_ROUTE_LAUNCHES,
+                                              ssd_bwd_route, ssd_route)
     launches, _, _ = expected_launches(cfg, 1, 0, 0, 0)
     attn = launches["flash_attention"] * steps
     scans = launches["ssd_scan"] * steps
@@ -1144,10 +1159,10 @@ def train_launches(cfg, steps):
     scan_routes = dict.fromkeys(SSD_ROUTE_LAUNCHES, 0)
     bwd_routes = dict.fromkeys(SSD_BWD_ROUTE_LAUNCHES, 0)
     if scans:
-        scan_routes[ssd_route(torch.bfloat16 if bf16 else torch.float32,
-                              cfg.ssm_heads, cfg.ssm_headdim,
-                              cfg.ssm_state)] = scans
-        bwd_routes["bf16" if bf16 else "fp32"] = scans
+        shape = (torch.bfloat16 if bf16 else torch.float32, cfg.ssm_heads,
+                 cfg.ssm_headdim, cfg.ssm_state)
+        scan_routes[ssd_route(*shape)] = scans
+        bwd_routes[ssd_bwd_route(*shape)] = scans
     return {"streamed_matmul": 3 * launches["streamed_matmul"] * steps,
             "flash_attention": attn, "decode_attention": 0,
             "ssd_scan": scans, "flash_attention_bwd": attn,
@@ -1384,10 +1399,12 @@ def phase_train(torch, dev, model, batch, seq, lr, path, steps=5):
     if launches != expect or not all(launches[k] for k, n in expect.items()
                                      if n):
         raise AssertionError(f"launch counts {launches} != {expect}")
+    scan_bwd = "ssd_scan_bwd_" + ("wgmma" if cfg.ssm_headdim == 64
+                                  else "simt")
     if cfg.compute_dtype != "bfloat16" or \
             launches["flash_attention_bwd_wgmma"] != \
             launches["flash_attention_bwd"] or \
-            launches["ssd_scan_bwd_bf16"] != launches["ssd_scan_bwd"]:
+            launches[scan_bwd] != launches["ssd_scan_bwd"]:
         raise AssertionError(f"launch counts {launches}: a backward off its "
                              "bf16 kernel")
     if routes["wgmma"] != launches["streamed_matmul"]:

@@ -161,6 +161,12 @@ __device__ __forceinline__ void named_bar_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
+// Arrives at barrier `id` without waiting: with the warps that bar.sync on
+// it, `count` threads in all, a one-way signal from producer to consumer.
+__device__ __forceinline__ void named_bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
 // Four 8 x 8 bf16 matrices, transposed: lanes 8 m .. 8 m + 7 give the
 // addresses of matrix m's eight 16-byte rows, and lane l receives, in r[m],
 // the elements (2 (l % 4), l / 4) and (2 (l % 4) + 1, l / 4) of it (row,

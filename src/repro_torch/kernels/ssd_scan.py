@@ -25,14 +25,15 @@ The backward, the gradients of x, dt, A, B, C and the initial state given
 dy and the final state's cotangent: ``ssd_scan_bwd_plain`` in fp32, the
 chunked dual form walking the chunks in reverse (the CPU path, and the
 yardstick on the card); ``ssd_scan_bwd_cuda`` launches the kernels of
-``csrc/ssd_scan_bwd.cu``: one CUDA-core kernel per (head, batch row) at
-both (P, N), fp32 throughout from fp32 or bf16 inputs, which recomputes
-the states the forward carried and walks 64-row sub-chunks in reverse,
-then a fixed-order sum of dB, dC and dA over the heads and batch rows, so
-two runs give the same bits; its calls are counted by the dtype of x in
-``SSD_BWD_ROUTE_LAUNCHES`` (``"bf16"`` trains, ``"fp32"`` is the parity
-route).  The JAX package has no such kernel: it differentiates
-``ssd_scan_ref`` with XLA.
+``csrc/ssd_scan_bwd.cu``, chosen by ``ssd_bwd_route``: each recomputes the
+states the forward carried and walks 64-row sub-chunks in reverse, then a
+second launch sums dB, dC and dA over the heads (or pairs of heads) and
+batch rows in a fixed order, so two runs give the same bits.  bf16 at
+(64, 128) runs on the tensor cores (``"wgmma"``: TMA and wgmma, two heads a
+block, the adjoint state in fp32 registers); fp32, and bf16 at (50, 16), on
+the CUDA cores in fp32 (``"simt"``).  Its calls are counted by route in
+``SSD_BWD_ROUTE_LAUNCHES``.  The JAX package has no such kernel: it
+differentiates ``ssd_scan_ref`` with XLA.
 """
 from __future__ import annotations
 
@@ -54,9 +55,8 @@ DT_BOX_HEADS = 4
 # launches of ssd_scan_cuda by route (see ssd_route)
 SSD_ROUTE_LAUNCHES: Dict[str, int] = {"wgmma": 0, "fp32": 0, "simt": 0,
                                       "tc": 0}
-# calls of ssd_scan_bwd_cuda by the dtype of x (one CUDA-core kernel, either
-# (P, N)): bf16 trains, fp32 is the parity route
-SSD_BWD_ROUTE_LAUNCHES: Dict[str, int] = {"bf16": 0, "fp32": 0}
+# calls of ssd_scan_bwd_cuda by route (see ssd_bwd_route)
+SSD_BWD_ROUTE_LAUNCHES: Dict[str, int] = {"wgmma": 0, "simt": 0}
 
 
 def ssd_route(dtype: torch.dtype, H: int, P: int, N: int,
@@ -83,14 +83,46 @@ def ssd_route(dtype: torch.dtype, H: int, P: int, N: int,
     hybrid = (P, N) == HYBRID_SHAPE
     if dtype == torch.float32:
         return "simt" if hybrid else "fp32"
+    _check_tma("ssd_scan", H, bc_strides, aligned)
+    return "tc" if hybrid else "wgmma"
+
+
+def _check_tma(name: str, H: int, bc_strides: Sequence[int],
+               aligned: bool) -> None:
+    """Raise unless TMA can map a bf16 scan's tensors in place: H a
+    multiple of 4 (dt's box), B/C strides multiples of 8 elements and
+    16-byte aligned pointers."""
     if H % DT_BOX_HEADS:
-        raise ValueError(f"ssd_scan: H = {H}; the bf16 kernel takes a "
+        raise ValueError(f"{name}: H = {H}; the bf16 kernel takes a "
                          f"multiple of {DT_BOX_HEADS}")
     if any(s % 8 for s in bc_strides) or not aligned:
-        raise ValueError(f"ssd_scan: B/C strides {tuple(bc_strides)} or "
+        raise ValueError(f"{name}: B/C strides {tuple(bc_strides)} or "
                          "alignment that TMA cannot map (strides must be "
                          "multiples of 8 elements, pointers of 16 bytes)")
-    return "tc" if hybrid else "wgmma"
+
+
+def ssd_bwd_route(dtype: torch.dtype, H: int, P: int, N: int,
+                  bc_strides: Sequence[int] = (), aligned: bool = True) -> str:
+    """Which kernel of ``csrc/ssd_scan_bwd.cu`` takes a scan's backward;
+    raises for what none takes.
+
+    bf16 at P 64, N 128 (mamba2_1_3b's heads) goes to the tensor cores,
+    ``"wgmma"`` (``ssd_bwd_wgmma_kernel``), with ``ssd_route``'s TMA
+    conditions: H a multiple of 4, the batch and sequence strides of B and C
+    (``bc_strides``, in elements) multiples of 8 and every tensor 16-byte
+    aligned (``aligned``); there is no other bf16 kernel at that shape to
+    fall back on.  fp32 at either shape and bf16 at P 50, N 16 (hymba_1_5b's)
+    go to the CUDA cores, ``"simt"`` (``ssd_bwd_kernel``), any strides.
+    """
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"ssd_scan_bwd: no kernel for {dtype}")
+    if (P, N) not in ((HEAD_DIM, STATE_DIM), HYBRID_SHAPE):
+        raise ValueError(f"ssd_scan_bwd: (P, N) = {(P, N)}; the kernels take "
+                         f"{(HEAD_DIM, STATE_DIM)} and {HYBRID_SHAPE}")
+    if dtype == torch.float32 or (P, N) == HYBRID_SHAPE:
+        return "simt"
+    _check_tma("ssd_scan_bwd", H, bc_strides, aligned)
+    return "wgmma"
 
 
 def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -290,12 +322,13 @@ def ssd_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                       dstate: Optional[torch.Tensor] = None):
     """(dx, ddt, dA, dB, dC, d init_state) of ``ssd_scan_cuda``, as
     ``ssd_scan_bwd_plain`` computes them: two launches of
-    ``csrc/ssd_scan_bwd.cu`` (the backward per (head, batch row) on the CUDA
-    cores in fp32, then the sum of dB, dC and dA over the heads and the
-    batch rows in a fixed order).  x, dt, A, dy, init_state and dstate
-    contiguous; B and C may be views with any batch and sequence strides,
-    read in place, their last dim contiguous.  (P, N) = (64, 128) or (50,
-    16), fp32 or bf16; anything else raises."""
+    ``csrc/ssd_scan_bwd.cu`` (the backward per head or pair of heads and
+    batch row on the kernel that ``ssd_bwd_route`` picks, then the sum of
+    dB, dC and dA over the heads and the batch rows in a fixed order).  x,
+    dt, A, dy, init_state and dstate contiguous; B and C may be views with
+    any batch and sequence strides, read in place, their last dim
+    contiguous.  (P, N) = (64, 128) or (50, 16), fp32 or bf16; anything
+    else raises before any launch."""
     opt = [t for t in (init_state, dstate) if t is not None]
     tensors = [x, dt, A, B, C, dy] + opt
     if not (x.is_cuda and all(t.device == x.device for t in tensors)):
@@ -311,9 +344,6 @@ def ssd_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError(f"ssd_scan_bwd: x shape {tuple(x.shape)}")
     b, S, H, P = x.shape
     N = B.shape[-1]
-    if (P, N) not in ((HEAD_DIM, STATE_DIM), HYBRID_SHAPE):
-        raise ValueError(f"ssd_scan_bwd: (P, N) = {(P, N)}; the kernel takes "
-                         f"{(HEAD_DIM, STATE_DIM)} and {HYBRID_SHAPE}")
     if dt.shape != (b, S, H) or A.shape != (H,) or B.shape != (b, S, N) or \
             C.shape != (b, S, N) or dy.shape != x.shape or \
             any(t.shape != (b, H, P, N) for t in opt):
@@ -328,6 +358,9 @@ def ssd_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if B.stride(2) != 1 or C.stride(2) != 1 or max(bc_strides) >= 2 ** 31:
         raise ValueError(f"ssd_scan_bwd: B strides {B.stride()}, C strides "
                          f"{C.stride()}: the state dim must be contiguous")
+    route = ssd_bwd_route(x.dtype, H, P, N, bc_strides,
+                          all(t.data_ptr() % 16 == 0 for t in tensors
+                              if t is not A))
     f32 = dict(dtype=torch.float32, device=x.device)
     dx, ddt = torch.empty_like(x), torch.empty_like(dt)
     dA = torch.empty((H,), **f32)
@@ -335,9 +368,12 @@ def ssd_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     dC = torch.empty_like(dB)
     dinit = (torch.empty((b, H, P, N), **f32) if init_state is not None
              else None)
+    # scratch: the sub-chunks' start states (on the CUDA cores also the
+    # final one), and dB / dC per pair of heads (wgmma) or per head
     nsub = -(-S // bwd_rows())
-    states = torch.empty((b, H, nsub + 1, P, N), **f32)
-    dBh = torch.empty((b, H, S, N), **f32)
+    wgmma = route == "wgmma"
+    states = torch.empty((b, H, nsub + (not wgmma), P, N), **f32)
+    dBh = torch.empty((b, H // 2 if wgmma else H, S, N), **f32)
     dCh = torch.empty_like(dBh)
     dAh = torch.empty((b, H), **f32)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
@@ -349,6 +385,5 @@ def ssd_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         ptr(dinit), states.data_ptr(), dBh.data_ptr(), dCh.data_ptr(),
         dAh.data_ptr(), b, S, H, P, N, *bc_strides, DTYPE_CODES[x.dtype],
         torch.cuda.current_stream(x.device).cuda_stream), "ssd_scan_bwd")
-    SSD_BWD_ROUTE_LAUNCHES["bf16" if x.dtype == torch.bfloat16
-                           else "fp32"] += 1
+    SSD_BWD_ROUTE_LAUNCHES[route] += 1
     return dx, ddt, dA, dB, dC, dinit

@@ -9,7 +9,8 @@ of one call, the L2 cache flushed and the card kept busy ahead of each
 (as chip_smoke.py times its kernels), beside the call's error against the
 plain version: max |kernel - plain| / max |plain|, of y and of the final
 state.  Prints one JSON object, with the card's name.  A measurement: it
-raises without a CUDA device.
+raises without a CUDA device.  ``time_ms`` and ``rel_err`` are the harness
+that ``ssd_bwd_probe.py time`` times K4's backward with too.
 
 It imports the package by its absolute name, so it can time another
 checkout's copy of it (a variant of a kernel), with that checkout's
@@ -19,6 +20,7 @@ checkout's copy of it (a variant of a kernel), with that checkout's
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import statistics
 
@@ -29,6 +31,35 @@ import torch.nn.functional as F
 SHAPES = ((8, 512, False, 1.0), (8, 449, False, 1.0), (2, 1800, True, 1.0),
           (1, 4096, True, 1e-4))
 HEADS, P, N = 64, 50, 16
+
+
+@functools.lru_cache(maxsize=None)
+def _flush_buffer() -> torch.Tensor:
+    return torch.empty(64 << 20, dtype=torch.uint8, device="cuda")  # > L2
+
+
+def time_ms(fn, iters: int) -> float:
+    """Median of ``iters`` CUDA-event timings of ``fn()`` after one warm-up
+    call, the L2 cache flushed and the card kept busy ahead of each."""
+    fn()
+    events = []
+    for _ in range(iters):
+        _flush_buffer().zero_()
+        torch.cuda._sleep(2_000_000)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        events.append((a, b))
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in events)
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| / max |want|, in fp32."""
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
 
 
 def main(argv=None) -> int:
@@ -42,29 +73,9 @@ def main(argv=None) -> int:
     from repro_torch.kernels.ssd_scan import ssd_scan_plain
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")  # > L2
 
     def randn(*shape, scale=1.0):
         return torch.randn(shape, generator=gen, device="cuda") * scale
-
-    def time_ms(fn):
-        fn()
-        events = []
-        for _ in range(args.iters):
-            flush.zero_()
-            torch.cuda._sleep(2_000_000)
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            events.append((a, b))
-        torch.cuda.synchronize()
-        return statistics.median(a.elapsed_time(b) for a, b in events)
-
-    def rel_err(got, want):
-        return ((got.float() - want.float()).abs().max()
-                / want.float().abs().max()).item()
 
     cases = []
     for b, S, with_init, a_scale in SHAPES:
@@ -79,7 +90,7 @@ def main(argv=None) -> int:
         cases.append({"shape": [b, S, HEADS, P, N], "init": with_init,
                       "a_scale": a_scale,
                       "kernel_ms": time_ms(lambda: ops.ssd_scan(
-                          x, dt, A, Bm, Cm, init_state=init)),
+                          x, dt, A, Bm, Cm, init_state=init), args.iters),
                       "rel_err_y": rel_err(y, y_p),
                       "rel_err_state": rel_err(st, st_p)})
     print(json.dumps({"device": torch.cuda.get_device_name(0),

@@ -1,4 +1,4 @@
-"""Two checks of K4's backward on the card: ``python -m repro_torch.launch.ssd_bwd_probe``.
+"""Checks of K4's backward on the card: ``python -m repro_torch.launch.ssd_bwd_probe``.
 
 ``errors`` (the default): ``ops.ssd_scan_bwd`` in fp32 at (P, N) = (64,
 128) and (50, 16) against ``ssd_scan_bwd_plain`` run in fp32 and in fp64
@@ -14,6 +14,19 @@ batch 8 x 512 (chip_smoke.py's train path) but at qwen2_0_5b's lr of 1e-3
 ``--plain-backward`` puts ``ssd_scan_bwd_plain`` (run on the card) in the
 place of the backward kernel, so that the loss curve can be told apart
 from the kernel's rounding.
+
+``time``: the bf16 backward at mamba2_1_3b's heads (P 64, N 128, 64 heads;
+the ``"wgmma"`` route) at the kernels phase's shapes (the train shape b 8,
+S 512; S 449 from an initial state with a final-state cotangent; b 1, S
+4096 with A times 1e-4): the median of 20 CUDA-event timings of one
+call by ``scan_time.time_ms`` (the L2 cache flushed and the card kept busy
+ahead of each, as chip_smoke.py times its kernels), each launch's device
+time from ``torch.profiler`` over one call, and the largest error of the
+six gradients against the plain version, ``scan_time.rel_err``.  It
+imports the package by its absolute name, so it can time another
+checkout's copy of it (a variant of the kernel), with that checkout's
+``src`` first on the path:
+``PYTHONPATH=<checkout>/src python src/repro_torch/launch/ssd_bwd_probe.py time``.
 
 Prints one JSON object per case, with the card's name.  A measurement: it
 raises without a CUDA device.
@@ -69,6 +82,57 @@ def errors():
                "init_and_dstate": init, "max_rel_err": rel}
 
 
+# (b, S, initial state and final-state cotangent, scale of A)
+TIME_SHAPES = ((8, 512, False, 1.0), (8, 449, True, 1.0), (1, 4096, True, 1e-4))
+TIME_ITERS = 20
+
+
+def time_bf16():
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ssd_scan import (SSD_BWD_ROUTE_LAUNCHES,
+                                              ssd_scan_bwd_plain)
+    from repro_torch.launch.scan_time import rel_err, time_ms
+    H, P, N = 64, 64, 128
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale
+                ).to(dtype)
+
+    for b, S, init, a_scale in TIME_SHAPES:
+        bf = torch.bfloat16
+        BC = randn(b, S, 2 * N, scale=0.5, dtype=bf)
+        args = (randn(b, S, H, P, scale=0.5, dtype=bf),
+                F.softplus(randn(b, S, H)),
+                -torch.exp(randn(H, scale=0.3)) * a_scale, BC[..., :N],
+                BC[..., N:], randn(b, S, H, P, dtype=bf))
+        kw = dict(init_state=randn(b, H, P, N) if init else None,
+                  dstate=randn(b, H, P, N) if init else None)
+        ops.reset_launches()
+        got = ops.ssd_scan_bwd(*args, **kw)
+        routes = dict(SSD_BWD_ROUTE_LAUNCHES)
+        want = ssd_scan_bwd_plain(*args, chunk=256, **kw)
+        err = max(rel_err(g, w) for g, w in zip(got, want) if w is not None)
+        del got, want
+        ms = time_ms(lambda: ops.ssd_scan_bwd(*args, **kw), TIME_ITERS)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            ops.ssd_scan_bwd(*args, **kw)
+            torch.cuda.synchronize()
+        launches = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA and \
+                    "ssd_bwd" in e.name:
+                name = e.name.replace("void ", "").replace(
+                    "(anonymous namespace)::", "").split("(")[0]
+                launches[name] = launches.get(name, 0.0) + \
+                    e.time_range.elapsed_us() / 1e3
+        yield {"case": "time", "shape": [b, S, H, P, N], "init_and_dstate": init,
+               "a_scale": a_scale, "routes": routes, "max_rel_err": err,
+               "ms": ms, "launch_ms": launches}
+
+
 def train(plain_backward: bool, arch="mamba2_1_3b", batch=8, seq=512,
           lr=1e-3, steps=5):
     from repro_torch.configs import get_config
@@ -105,7 +169,7 @@ def train(plain_backward: bool, arch="mamba2_1_3b", batch=8, seq=512,
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("what", nargs="?", choices=("errors", "train"),
+    ap.add_argument("what", nargs="?", choices=("errors", "train", "time"),
                     default="errors")
     ap.add_argument("--plain-backward", action="store_true")
     args = ap.parse_args(argv)
@@ -114,6 +178,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     card = torch.cuda.get_device_name(0)
     results = (errors() if args.what == "errors" else
+               time_bf16() if args.what == "time" else
                [train(args.plain_backward)])
     for out in results:
         print(json.dumps({"device": card, **out}), flush=True)

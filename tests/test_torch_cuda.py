@@ -840,6 +840,10 @@ def test_cuda_ops_without_backward_raise_under_grad(card):
 # small batch
 SSD_BWD_CASES = [(2, S, H) for S in (1, 63, 64, 65, 97, 449, 512)
                  for H in (4, 64)]
+# the route of K4's backward (ssd_bwd_route): bf16 at mamba2_1_3b's (P, N)
+# on the tensor cores, the rest on the CUDA cores
+SSD_BWD_ROUTES = {("bfloat16", 64, 128): "wgmma", ("float32", 64, 128): "simt",
+                  ("bfloat16", 50, 16): "simt", ("float32", 50, 16): "simt"}
 
 
 def _check_ssd_bwd(x, dt, A, B, C, init, dy, ds, dtype, launches=1):
@@ -855,7 +859,7 @@ def _check_ssd_bwd(x, dt, A, B, C, init, dy, ds, dtype, launches=1):
     got = ops.ssd_scan_bwd(x, dt, A, B, C, dy, init_state=init, dstate=ds)
     torch.cuda.synchronize()
     assert ops.GRAD_LAUNCHES["ssd_scan_bwd"] == launches
-    route = "bf16" if dtype == "bfloat16" else "fp32"
+    route = SSD_BWD_ROUTES[dtype, x.shape[3], B.shape[-1]]
     assert SSD_BWD_ROUTE_LAUNCHES == {r: int(r == route) * launches
                                       for r in SSD_BWD_ROUTE_LAUNCHES}
     exact = (lambda t: None if t is None else t.double()) \
@@ -932,9 +936,11 @@ def test_cuda_ssd_scan_bwd_is_deterministic(card, P, N, dtype):
 
 @pytest.mark.cuda
 def test_cuda_ssd_scan_bwd_rejects_what_it_does_not_take(card):
-    """(P, N) the kernel does not take, a state dim that is not contiguous
-    and a dtype mix raise before any launch; nothing falls back."""
-    from repro_torch.kernels.ssd_scan import ssd_scan_bwd_cuda
+    """(P, N) the kernel does not take, a state dim that is not contiguous,
+    a dtype mix and, in bf16 at (64, 128), a B/C stride that TMA cannot map
+    raise before any launch; nothing falls back."""
+    from repro_torch.kernels.ssd_scan import (SSD_BWD_ROUTE_LAUNCHES,
+                                              ssd_scan_bwd_cuda)
     x, dt, A, B, C, _, dy, _ = _ssd_bwd_on(card, "bfloat16", 73, 1, 70, 4,
                                            False, 64, 128)
     ops.reset_launches()
@@ -946,7 +952,11 @@ def test_cuda_ssd_scan_bwd_rejects_what_it_does_not_take(card):
         ssd_scan_bwd_cuda(x, dt, A, BC[..., 0], BC[..., 1], dy)
     with pytest.raises(TypeError):
         ssd_scan_bwd_cuda(x, dt, A, B, C, dy.float())
+    BC = torch.zeros((1, 70, 2 * 128 + 4), dtype=torch.bfloat16, device=card)
+    with pytest.raises(ValueError, match="TMA"):  # rows of 520 bytes
+        ops.ssd_scan_bwd(x, dt, A, BC[..., :128], BC[..., 128:256], dy)
     assert ops.GRAD_LAUNCHES["ssd_scan_bwd"] == 0
+    assert not any(SSD_BWD_ROUTE_LAUNCHES.values())
 
 
 @pytest.mark.cuda
@@ -954,7 +964,8 @@ def test_cuda_ssd_scan_bwd_rejects_what_it_does_not_take(card):
 @pytest.mark.parametrize("P,N", SSD_HEADS)
 def test_cuda_ssd_scan_autograd_counts_launches(card, P, N, dtype):
     """Under grad ``ops.ssd_scan`` is one forward launch on its route and
-    one backward call; its gradients are the backward's."""
+    one backward call on its route; its gradients are the backward's."""
+    from repro_torch.kernels.ssd_scan import SSD_BWD_ROUTE_LAUNCHES
     x, dt, A, B, C, init, dy, ds = _ssd_bwd_on(card, dtype, 74, 2, 130, 64,
                                                True, P, N)
     leaves = [t.detach().clone().requires_grad_(True)
@@ -965,6 +976,9 @@ def test_cuda_ssd_scan_autograd_counts_launches(card, P, N, dtype):
     torch.cuda.synchronize()
     assert ops.LAUNCHES["ssd_scan"] == 1
     assert ops.GRAD_LAUNCHES == {"flash_attention_bwd": 0, "ssd_scan_bwd": 1}
+    route = SSD_BWD_ROUTES[dtype, P, N]
+    assert SSD_BWD_ROUTE_LAUNCHES == {r: int(r == route)
+                                      for r in SSD_BWD_ROUTE_LAUNCHES}
     want = ops.ssd_scan_bwd(x, dt, A, B, C, dy, init_state=init, dstate=ds)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
@@ -1031,8 +1045,9 @@ def test_cuda_flash_attention_bwd_band_is_deterministic(card, dtype):
 def test_cuda_train_two_steps_ssd_families(card, arch):
     """mamba2_1_3b and hymba_1_5b (its window cut to 32, below the sequence)
     at full width, two layers, bf16, batch 2 x seq 128: two train steps, one
-    scan backward per layer on the bf16 route and (hymba) one band backward
-    per layer on the wgmma route; the loss finite and falling."""
+    scan backward per layer on its bf16 route (mamba2's on the tensor cores,
+    hymba's on the CUDA cores) and (hymba) one band backward per layer on
+    the wgmma route; the loss finite and falling."""
     from repro_torch.data import DataConfig, make_batch
     from repro_torch.kernels.ssd_scan import SSD_BWD_ROUTE_LAUNCHES
     from repro_torch.train import (AdamWConfig, TrainConfig, init_state,
@@ -1055,6 +1070,7 @@ def test_cuda_train_two_steps_ssd_families(card, arch):
     assert ops.LAUNCHES["ssd_scan"] == 2 * 2
     assert ops.GRAD_LAUNCHES == {"flash_attention_bwd": 2 * 2 * hybrid,
                                  "ssd_scan_bwd": 2 * 2}
-    assert SSD_BWD_ROUTE_LAUNCHES == {"bf16": 2 * 2, "fp32": 0}
+    assert SSD_BWD_ROUTE_LAUNCHES == {"wgmma": 2 * 2 * (not hybrid),
+                                      "simt": 2 * 2 * hybrid}
     assert ops.launch_counts()[4] == {"wgmma": 2 * 2 * hybrid, "fp32": 0}
     assert all(np.isfinite(losses)) and losses[1] < losses[0]

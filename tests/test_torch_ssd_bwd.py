@@ -4,12 +4,16 @@ in the port against the JAX package's autodiff, on the CPU in fp32:
 ``jax.vjp`` of ``models/ssd.py:ssd_scan_ref`` (with ``init_state`` and
 ``return_state``), and the band's plain backward and ``ops.flash_attention``
 under a window against ``jax.vjp`` of the JAX banded attention
-(``chunked_attention(..., window=w)``, that is ``_banded_attention``)."""
+(``chunked_attention(..., window=w)``, that is ``_banded_attention``).
+Also the choice of K4's backward kernel (``ssd_bwd_route``) and a plain
+torch model of the bf16 tensor-core kernel's roundings held to the card's
+limits against ``ssd_scan_bwd_plain`` in fp64."""
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro.models import attention as ref_attention
 from repro.models.ssd import ssd_scan_ref
@@ -19,7 +23,7 @@ from repro_torch.kernels.flash_attention import (LOG2E,
                                                  flash_attention_bwd_plain,
                                                  flash_attention_lse_plain,
                                                  flash_attention_plain)
-from repro_torch.kernels.ssd_scan import ssd_scan_bwd_plain
+from repro_torch.kernels.ssd_scan import ssd_bwd_route, ssd_scan_bwd_plain
 
 torch.set_num_threads(2)
 
@@ -164,6 +168,182 @@ def test_ssd_bwd_plain_keeps_bf16():
                              chunk=8, init_state=s0, dstate=ds)
     assert [g.dtype for g in got] == [bf, torch.float32, torch.float32, bf,
                                       bf, torch.float32]
+
+
+# ---------------------------------------------------------------------------
+# K4's backward kernel on the card: its route, and its bf16 roundings
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,H,P,N,strides,aligned,route", [
+    (torch.bfloat16, 64, 64, 128, (512 * 256, 256) * 2, True, "wgmma"),  # halves
+    (torch.bfloat16, 4, 64, 128, (449 * 128, 128) * 2, True, "wgmma"),
+    (torch.bfloat16, 64, 64, 128, (), True, "wgmma"),
+    (torch.float32, 64, 64, 128, (512 * 256, 256) * 2, True, "simt"),
+    (torch.float32, 6, 64, 128, (449 * 257, 257) * 2, False, "simt"),   # any
+    (torch.bfloat16, 64, 50, 16, (2048 * 32, 32) * 2, True, "simt"),    # hymba
+    (torch.bfloat16, 6, 50, 16, (449 * 33, 33) * 2, False, "simt"),     # any
+    (torch.float32, 64, 50, 16, (2048 * 32, 32) * 2, True, "simt"),
+])
+def test_ssd_bwd_route(dtype, H, P, N, strides, aligned, route):
+    """bf16 at mamba2_1_3b's (64, 128) takes the tensor cores; fp32 at either
+    (P, N) and bf16 at hymba_1_5b's (50, 16) the CUDA cores, whatever the
+    heads, strides and alignment."""
+    assert ssd_bwd_route(dtype, H, P, N, strides, aligned) == route
+
+
+@pytest.mark.parametrize("dtype,H,P,N,strides,aligned,error", [
+    (torch.bfloat16, 6, 64, 128, (512 * 128, 128) * 2, True, ValueError),
+    (torch.bfloat16, 2, 64, 128, (), True, ValueError),
+    (torch.bfloat16, 64, 64, 128, (512 * 260, 260) * 2, True, ValueError),
+    (torch.bfloat16, 64, 64, 128, (512 * 256, 256, 512 * 256, 252), True,
+     ValueError),
+    (torch.bfloat16, 64, 64, 128, (512 * 256, 256) * 2, False, ValueError),
+    (torch.bfloat16, 64, 8, 8, (), True, ValueError),
+    (torch.float32, 64, 50, 128, (), True, ValueError),
+    (torch.float16, 64, 64, 128, (), True, TypeError),
+    (torch.float64, 64, 50, 16, (), True, TypeError),
+])
+def test_ssd_bwd_route_raises(dtype, H, P, N, strides, aligned, error):
+    """What no kernel takes raises: bf16 at (64, 128) with H not a multiple
+    of 4, a B/C stride not a multiple of 8 elements or a pointer off 16
+    bytes (TMA's conditions; nothing falls back to the CUDA cores), other
+    (P, N), other dtypes."""
+    with pytest.raises(error):
+        ssd_bwd_route(dtype, H, P, N, strides, aligned)
+
+
+def _bf(t):
+    return t.to(torch.bfloat16).float()
+
+
+def _wgmma_bwd_model(x, dt, A, B, C, dy, init_state=None, dstate=None,
+                     split=True):
+    """The arithmetic of ``csrc/ssd_scan_bwd.cu:ssd_bwd_wgmma_kernel`` in
+    plain torch: 64-row sub-chunks (zero rows past S), fp32 sums, states,
+    adjoint G, dcum terms and reverse cumsum, and bf16 rounding where the
+    kernel rounds a product's operand: L o C B^T and L o dy (x dt)^T,
+    exp(cum) o dy, x o dt o w (in dB), s0, and G (in dB); pass 1's x o dt o
+    w and G in B G^T as a bf16 pair hi + lo (``split``; one bf16 each
+    without it).  dB and dC summed over each pair of heads, then over the
+    pairs in order; dx, dB and dC rounded to bf16 at the end."""
+    b, S, H, P = x.shape
+    N = B.shape[-1]
+    Q = 64
+    nsub = -(-S // Q)
+    pad = nsub * Q - S
+    x, dy = (F.pad(t.float(), (0, 0, 0, 0, 0, pad)) for t in (x, dy))
+    B, C = (F.pad(t.float(), (0, 0, 0, pad)) for t in (B, C))
+    dt = F.pad(dt.float(), (0, 0, 0, pad))
+    pair = (lambda t: _bf(t) + _bf(t - _bf(t))) if split else _bf
+    tril = torch.ones(Q, Q, dtype=torch.bool).tril()[None, :, :, None]
+    strict = torch.ones(Q, Q, dtype=torch.bool).tril(-1)[None, :, :, None]
+
+    def sub(k):  # rows, dt, cum, exp(cum), w, exp(cum_last) of sub-chunk k
+        rows = slice(k * Q, (k + 1) * Q)
+        d = dt[:, rows]
+        cum = torch.cumsum(d * A, 1)
+        return (rows, d, cum, torch.exp(cum), torch.exp(cum[:, -1:] - cum),
+                torch.exp(cum[:, -1])[..., None, None])
+
+    s = torch.zeros(b, H, P, N) if init_state is None else init_state.clone()
+    states = []
+    for k in range(nsub):  # pass 1
+        states.append(s)
+        rows, d, _, _, w, el = sub(k)
+        s = s * el + torch.einsum("bjhp,bjn->bhpn",
+                                  pair(x[:, rows] * (d * w)[..., None]),
+                                  B[:, rows])
+    G = torch.zeros(b, H, P, N) if dstate is None else dstate.clone()
+    gs = (G * s).sum((-1, -2))  # <G, s_end> of the last sub-chunk
+    dx, ddt = torch.zeros_like(x), torch.zeros_like(dt)
+    dB, dC = torch.zeros(b, nsub * Q, N), torch.zeros(b, nsub * Q, N)
+    dA = torch.zeros(b, H)
+    for k in reversed(range(nsub)):  # pass 2
+        rows, d, cum, ec, w, el = sub(k)
+        xk, dyk, Bk, Ck, s0 = x[:, rows], dy[:, rows], B[:, rows], \
+            C[:, rows], states[k]
+        L = torch.where(tril, torch.exp(cum[:, :, None] - cum[:, None]),
+                        torch.zeros(()))
+        Gb, Gp = _bf(G), pair(G)
+        G = G * el + torch.einsum("bihp,bin->bhpn", _bf(dyk * ec[..., None]),
+                                  Ck)
+        gs_next = (G * s0).sum((-1, -2))
+        CB = torch.einsum("bin,bjn->bij", Ck, Bk)[..., None]
+        S2 = L * torch.einsum("bihp,bjhp->bijh", dyk, xk) * d[:, None]
+        M = torch.where(strict, S2 * CB, torch.zeros(()))
+        S1b, S2b = _bf(L * CB), _bf(S2)
+        BG = torch.einsum("bin,bhpn->bihp", Bk, Gp)
+        dxdt = w[..., None] * BG + torch.einsum("bjih,bjhp->bihp", S1b, dyk)
+        dys0 = torch.einsum("bihp,bhpn->bihn", dyk, _bf(s0))
+        dCh = ec[..., None] * dys0 + torch.einsum("bijh,bjn->bihn", S2b, Bk)
+        dBh = torch.einsum("bihp,bhpn->bihn",
+                           _bf(xk * (d * w)[..., None]), Gb) + \
+            torch.einsum("bjih,bjn->bihn", S2b, Ck)
+        for out, part in ((dB, dBh), (dC, dCh)):
+            pairs = part[:, :, 0::2] + part[:, :, 1::2]
+            total = pairs[:, :, 0]
+            for i in range(1, H // 2):
+                total = total + pairs[:, :, i]
+            out[:, rows] = total
+        dcum = M.sum(2) - M.sum(1) + ec * (Ck[:, :, None] * dys0).sum(-1) - \
+            w * d * (xk * BG).sum(-1)
+        dcum[:, -1] += gs
+        da = torch.flip(torch.cumsum(torch.flip(dcum, [1]), 1), [1])
+        dx[:, rows] = d[..., None] * dxdt
+        ddt[:, rows] = (xk * dxdt).sum(-1) + A * da
+        dA = dA + (d * da).sum(1)
+        gs = gs_next
+    bf = torch.bfloat16
+    return (dx[:, :S].to(bf), ddt[:, :S], dA.sum(0), dB[:, :S].to(bf),
+            dC[:, :S].to(bf), None if init_state is None else G)
+
+
+def _wgmma_model_errors(seed, b, S, H, a_scale, with_init, split=True):
+    """Per gradient, max |model - plain| / max |plain|, the plain version in
+    fp64, on mamba2's heads (P 64, N 128) from bf16-valued x, B, C and dy
+    (B and C halves of one tensor, as the card tests draw them), A times
+    ``a_scale``, an initial state and a final-state cotangent or none."""
+    P, N = 64, 128
+    x, dt, A, B, C, s0, dy, ds = (torch.tensor(a) for a in
+                                  _ssd_inputs(seed, b, S, H, P, N))
+    x, B, C, dy = (t.to(torch.bfloat16) for t in (x, B, C, dy))
+    A = A * a_scale
+    init, dstate = (s0, ds) if with_init else (None, None)
+    got = _wgmma_bwd_model(x, dt, A, B, C, dy, init, dstate, split=split)
+    d = lambda t: None if t is None else t.double()  # noqa: E731
+    want = ssd_scan_bwd_plain(*(d(t) for t in (x, dt, A, B, C, dy)),
+                              chunk=256, init_state=d(init), dstate=d(dstate))
+    return {name: ((g.double() - w).abs().max() /
+                   (w.abs().max() + 1e-6)).item()
+            for name, g, w in zip(NAMES, got, want) if w is not None}
+
+
+# (b, S, H, A's scale, init): the long memory (A times 1e-4, the adjoint and
+# the states carried across 16 sub-chunks), ragged S (449 and 97 prime, 65
+# one row past a sub-chunk), with and without an initial state
+WGMMA_MODEL_CASES = [(1, 1024, 4, 1e-4, True), (1, 1024, 4, 1e-4, False),
+                     (2, 449, 4, 1.0, True), (2, 97, 4, 1.0, False),
+                     (2, 65, 4, 1.0, True), (1, 130, 8, 1.0, False)]
+
+
+@pytest.mark.parametrize("b,S,H,a_scale,with_init", WGMMA_MODEL_CASES)
+def test_wgmma_bwd_rounding_keeps_the_fine_limit(b, S, H, a_scale, with_init):
+    """Where the bf16 wgmma backward kernel rounds to bf16, every gradient
+    stays within the card's limits of the plain version in fp64, 5e-2 and
+    1e-2 of its largest value (tests/test_torch_cuda.py's SSD_TOL and
+    SSD_FINE_TOL): the card's check, rehearsed here."""
+    errs = _wgmma_model_errors(S + H, b, S, H, a_scale, with_init)
+    assert max(errs.values()) < 1e-2, errs
+
+
+def test_wgmma_bwd_dA_needs_the_split_operands():
+    """dA, a sum over every row whose terms cancel, is what bf16 operands
+    cost most: with pass 1's x o dt o w and G in B G^T rounded to one bf16
+    each, dA misses the 1e-2 limit at a ragged S of two sub-chunks, and
+    with each a bf16 pair (the kernel's) it keeps it."""
+    split = _wgmma_model_errors(101, 2, 97, 4, 1.0, False)
+    single = _wgmma_model_errors(101, 2, 97, 4, 1.0, False, split=False)
+    assert split["dA"] < 1e-2 < single["dA"], (split, single)
 
 
 # ---------------------------------------------------------------------------

@@ -54,6 +54,13 @@ exits non-zero):
                FFN at a decode step, C 8, and a prefill, C 235;
                llama4_maverick_400b_a17b's at C 8 and 80; each one launch
                on its grouped route; bf16 also within 5e-5 + 1e-2 |plain|),
+               its backward products (dx = dy w^T, each expert's w^T read
+               in place, and dw = x^T dy from a copy of x^T, which bf16
+               pads along C to a multiple of 8, the copy's time apart) at
+               deepseek_moe_16b's training capacity C 480 and at C 235
+               (padded) in bf16, at C 15 in fp32, and at
+               llama4_maverick_400b_a17b's C 80 in bf16, each on its
+               grouped route under both limits, its library torch.bmm,
                K1's backward products at qwen2_0_5b's training shapes
                (dx = dy w^T with w^T read in place, dw = x^T dy at 4096
                rows, the tied unembedding's too), K2's backward kernel
@@ -122,25 +129,35 @@ exits non-zero):
                forward and backward) against the CPU from one state and
                batch: loss, gradient norm, moments and parameters, and the
                launch counts (K2's and K4's backward on their fp32
-               routes), for qwen2_0_5b, qwen3_4b, whisper_large_v3,
-               mamba2_1_3b and hymba_1_5b (at a window of 32, below its
-               sequence of 64, so that the band's backward is in it);
+               routes, the products' by route), for qwen2_0_5b,
+               qwen3_4b, whisper_large_v3, mamba2_1_3b, hymba_1_5b (at a
+               window of 32, below its sequence of 64, so that the band's
+               backward is in it) and deepseek_moe_16b (one dense and one
+               MoE layer; its grouped products, forward, dx with w
+               transposed and dw, on the fp32 grouped kernel at C 15);
 7. train    -- at full width and depth, bf16, 5 steps of train_loop on
                data/pipeline.py's batches: qwen2_0_5b (AdamW lr 1e-3)
                and mamba2_1_3b (3e-4) at batch 8 x seq 512, hymba_1_5b
-               (3e-4) at 2 x 2048 (past its window of 1024): the loss
+               (3e-4) at 2 x 2048 (past its window of 1024),
+               deepseek_moe_16b (3e-4) at 8 x 512 cut to depth 4 (one
+               dense, three MoE layers; C 480): the loss
                finite and falling, the launches per
-               step of K1 (3 per product), K2, K2's backward (the band's
-               for hymba), K4 and K4's backward as expected, every product,
-               attention backward and scan backward on its bf16 kernel
-               (mamba2_1_3b's scan backward on "wgmma", hymba_1_5b's on
-               "simt") and no plain version called; step time, tokens/s, peak memory,
+               step of K1 (3 per product; by route: deepseek's routers on
+               "fp32", its expert products, forward, dx and dw, on
+               "wgmma_grouped", the rest on "wgmma"), K2, K2's backward
+               (the band's for hymba), K4 and K4's backward as expected,
+               every product, attention backward and scan backward on its
+               bf16 kernel (mamba2_1_3b's scan backward on "wgmma",
+               hymba_1_5b's on "simt") and no plain version called (the
+               grouped one's neither); step time, tokens/s, peak memory,
                a profiled step's device idle share and the backward
                kernels' device time; a checkpoint saved and restored equal
                bit for bit, and the next step from it equal, bit for bit,
-               to the step without the restore.
+               to the step without the restore; the phase's seconds.
 
-Then a summary line of the kernels (each with the routes its cases took),
+Then a summary line of the kernels (each with the routes its cases took;
+the grouped matmul's launches by path, serving and training, and its
+forward and backward cases apart),
 and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 It prints no result and exits non-zero without a CUDA device or outside a
@@ -186,22 +203,31 @@ LONG_PROMPTS = (1500, 1800)
 LONG_MAX_SEQ = 2048
 # the window that hymba_1_5b's second parity run takes, below both prompts
 PARITY_WINDOW = 32
-# the training paths at full width and depth, bf16: (model, batch, seq,
-# AdamW's lr, after a warmup of 2 steps).  mamba2_1_3b at qwen2_0_5b's 8 x
-# 512; hymba_1_5b at 2 x 2048, the same 4096 tokens a step, past its window
-# of 1024, so that the band bites.  Both at the package's default lr of
-# 3e-4 (launch/train.py's): at qwen2_0_5b's 1e-3 mamba2_1_3b's loss rises
-# from step 3 on (11.23, 9.40, 15.16, 15.79, 13.02 on an H100), the same
-# with the plain backward in place of K4's kernel (11.23, 9.40, 15.15,
-# 15.81, 13.03): the step, not the kernel.
+# the training paths at full width, bf16: (model, batch, seq, AdamW's lr,
+# after a warmup of 2 steps, depth: None for the model's own).
+# mamba2_1_3b at qwen2_0_5b's 8 x 512; hymba_1_5b at 2 x 2048, the same 4096
+# tokens a step, past its window of 1024, so that the band bites.  Both at
+# the package's default lr of 3e-4 (launch/train.py's): at qwen2_0_5b's
+# 1e-3 mamba2_1_3b's loss rises from step 3 on (11.23, 9.40, 15.16, 15.79,
+# 13.02 on an H100), the same with the plain backward in place of K4's
+# kernel (11.23, 9.40, 15.15, 15.81, 13.03): the step, not the kernel.
+# deepseek_moe_16b at 8 x 512 (C 480 a MoE layer) and 3e-4, cut to depth 4
+# (one dense layer, three MoE layers: 2.27 B parameters, ≈ 23 GB of bf16
+# weights and fp32 moments, twice that while the phase restores a second
+# state beside the first; its 28 layers need the experts sharded over
+# cards, which the port does not do yet).
 # Their train steps are held card against CPU at depth 2 in fp32 beside
 # qwen3_4b's (hd 128, qk_norm) and whisper_large_v3's (attention not
-# causal, Sq != Skv); hymba_1_5b's at PARITY_WINDOW, below its sequence
-TRAIN_PATHS = {"qwen2_0_5b_train": ("qwen2_0_5b", 8, 512, 1e-3),
-               "mamba2_1_3b_train": ("mamba2_1_3b", 8, 512, 3e-4),
-               "hymba_1_5b_train": ("hymba_1_5b", 2, 2048, 3e-4)}
+# causal, Sq != Skv); hymba_1_5b's at PARITY_WINDOW, below its sequence;
+# deepseek_moe_16b's (one dense, one MoE layer) at C 15, every grouped
+# product of it on the fp32 grouped kernel, dx with w transposed
+TRAIN_PATHS = {"qwen2_0_5b_train": ("qwen2_0_5b", 8, 512, 1e-3, None),
+               "mamba2_1_3b_train": ("mamba2_1_3b", 8, 512, 3e-4, None),
+               "hymba_1_5b_train": ("hymba_1_5b", 2, 2048, 3e-4, None),
+               "deepseek_moe_16b_train": ("deepseek_moe_16b", 8, 512, 3e-4,
+                                          4)}
 TRAIN_PARITY = ("qwen2_0_5b", "qwen3_4b", "whisper_large_v3", "mamba2_1_3b",
-                "hymba_1_5b")
+                "hymba_1_5b", "deepseek_moe_16b")
 TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 SSD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}  # tests/test_kernels.py's
 # and the second limit of bf16 (tests/test_torch_cuda.py's): the bf16 scans
@@ -273,8 +299,9 @@ def main() -> int:
     for model in TRAIN_PARITY:
         phase_train_parity(torch, model, window=PARITY_WINDOW
                            if model == "hymba_1_5b" else None)
-    for path, (model, batch, seq, lr) in TRAIN_PATHS.items():
-        launches[path] = phase_train(torch, dev, model, batch, seq, lr, path)
+    for path, (model, batch, seq, lr, depth) in TRAIN_PATHS.items():
+        launches[path] = phase_train(torch, dev, model, batch, seq, lr, path,
+                                     depth=depth)
     summary = []
     for name, meta in KERNELS.items():
         mine = [c for c in cases if c["name"] == name]
@@ -290,14 +317,24 @@ def main() -> int:
             "kernel_routes": sorted({c["route"] for c in mine
                                      if "route" in c}),
         })
-        grouped = [c for c in timed if c["shape"][0] == "grouped"]
-        if grouped:  # the matmul grouped over experts, also on its own
+        grouped = [c for c in mine if c["shape"][0] == "grouped"]
+        if grouped:  # the matmul grouped over experts, also on its own:
+            # its launches by path (serving's forwards; training's forwards,
+            # dx and dw), and its forward and backward cases apart
+            fwd = [c for c in grouped if not str(c["shape"][1]).startswith(
+                "bwd")]
+            bwd = [c for c in grouped if c not in fwd]
             summary[-1]["grouped"] = {
                 "launches_by_path": {m: n["grouped"] for m, n in
                                      launches.items() if "grouped" in n},
-                "max_abs_err": max(c["max_abs_err"] for c in mine
-                                   if c["shape"][0] == "grouped"),
-                **timing_sums(grouped)}
+                "max_abs_err": max(c["max_abs_err"] for c in fwd),
+                **timing_sums([c for c in fwd if c["dtype"] == "bfloat16"]),
+                "backward": {
+                    "max_abs_err": max(c["max_abs_err"] for c in bwd),
+                    "xt_copy_ms": sum(c.get("xt_copy_ms", 0.0) for c in bwd
+                                      if c["dtype"] == "bfloat16"),
+                    **timing_sums([c for c in bwd
+                                   if c["dtype"] == "bfloat16"])}}
     emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
@@ -496,13 +533,14 @@ def phase_kernels(torch, dev):
     cases = []
 
     def check(name, shape, dtype, got, want, n_bytes, n_ops, fns,
-              relative=False, fine=None, route=None, mean_rel=None):
+              relative=False, fine=None, route=None, mean_rel=None,
+              extra=None):
         """got/want: a tensor or a tuple of them (ssd_scan: y and the
         state).  relative: the rule of tests/test_kernels.py's SSD test,
         and for bf16 also SSD_FINE_TOL.  fine: an (rtol, atol) the kernel
         must also meet.  mean_rel: a limit of mean |got - want| over mean
         |want| the kernel must also meet.  route: the kernel that took the
-        call."""
+        call.  extra: more keys of the case's line."""
         torch.cuda.synchronize()
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
@@ -511,21 +549,35 @@ def phase_kernels(torch, dev):
         fine_rel = SSD_FINE_TOL.get(dname) if relative else None
         err, rel_err, excess = 0.0, 0.0, float("-inf")
         for g, w in zip(got, want):
-            diff = (g.float() - w.float()).abs()
-            err = max(err, diff.max().item())
+            # in slices of 2^27 elements: a 10.7 GB bf16 gradient (llama4's
+            # grouped dw) would need 64 GB of fp32 copies at once
+            g, w = g.reshape(-1), w.reshape(-1)
+            d_max = w_max = d_sum = w_sum = 0.0
+            loose = tight = float("-inf")
+            for i in range(0, g.numel(), 1 << 27):
+                gs, ws = g[i:i + (1 << 27)].float(), w[i:i + (1 << 27)].float()
+                diff, mag = (gs - ws).abs(), ws.abs()
+                d_max = max(d_max, diff.max().item())
+                w_max = max(w_max, mag.max().item())
+                d_sum += diff.sum().item()
+                w_sum += mag.sum().item()
+                if not relative:
+                    loose = max(loose, (diff - tol * (1 + mag)).max().item())
+                if fine:
+                    tight = max(tight, (diff - fine[1] - fine[0] * mag)
+                                .max().item())
+                del gs, ws, diff, mag
+            err = max(err, d_max)
             if relative:
-                rel_err = max(rel_err, diff.max().item()
-                              / w.float().abs().max().item())
-                excess = max(excess, diff.max().item() - min(
-                    tol, fine_rel or tol) * w.float().abs().max().item())
+                rel_err = max(rel_err, d_max / w_max)
+                excess = max(excess, d_max - min(tol, fine_rel or tol)
+                             * w_max)
             else:
-                excess = max(excess, (diff - tol * (1 + w.float().abs()))
-                             .max().item())
+                excess = max(excess, loose)
             if fine:
-                excess = max(excess, (diff - fine[1] - fine[0] * w.float()
-                                      .abs()).max().item())
+                excess = max(excess, tight)
             if mean_rel:
-                ratio = diff.mean().item() / w.float().abs().mean().item()
+                ratio = d_sum / w_sum
                 excess = max(excess, ratio - mean_rel)
         case = {"phase": "kernels", "name": name, "shape": shape,
                 "dtype": dname, "max_abs_err": err, "tol": tol,
@@ -553,6 +605,7 @@ def phase_kernels(torch, dev):
                     bound_by="bytes" if bytes_ms >= ops_ms else "operations")
         for key, fn in zip(("kernel_ms", "plain_ms", "library_ms"), fns):
             case[key] = None if fn is None else time_ms(fn)
+        case.update(extra or {})
         emit(case)
         if not excess <= 0:
             raise AssertionError(f"{name} {shape} {dtype}: kernel disagrees "
@@ -710,6 +763,59 @@ def phase_kernels(torch, dev):
                   else None, route=route)
             del x, w, got
             free(torch)
+
+    # K1's grouped backward, as ops.grouped_matmul's autograd Function
+    # calls it for y = x (E, C, K) @ w (E, K, N): dx = dy w^T, each
+    # expert's w^T read in place (w_t), and dw = x^T dy, x^T a contiguous
+    # copy that bf16 pads with dy along C to a multiple of 8
+    # (ops.pad_capacity; its time apart, "xt_copy_ms").  deepseek_moe_16b's
+    # gate/up (d 2048 -> f 1408) and down (f -> d) at its training capacity
+    # (8 x 512 tokens: C 480) and at C 235 (a served prefill's, which takes
+    # the pad), in bf16; at train_parity's C 15 (2 x 64 tokens) in fp32; and
+    # llama4_maverick_400b_a17b's gate (128 experts, 5120 -> 8192) at C 80.
+    # The bytes: x, dy and the gradient once (C unpadded); the operations
+    # 2 E C K N; the library torch.bmm on the kernel's views
+    def grouped_bwd_case(tag, a, b, route, shape, dtype, n_bytes, extra):
+        before = ROUTE_LAUNCHES[route]
+        got = ops.grouped_matmul(a, b)
+        if ROUTE_LAUNCHES[route] != before + 1:
+            raise AssertionError(f"grouped {tag} {shape}: the {route} "
+                                 "kernel did not launch")
+        fns = (lambda: ops.grouped_matmul(a, b),
+               lambda: grouped_matmul_plain(a, b), lambda: torch.bmm(a, b))
+        E, C, K, N = shape
+        check("streamed_matmul", ["grouped", tag, *shape], dtype, got,
+              grouped_matmul_plain(a, b), n_bytes, 2 * E * C * K * N, fns,
+              fine=DECODE_FINE_TOL if dtype == torch.bfloat16 else None,
+              route=route, extra=extra)
+
+    for dtype, E, C, K, N in ((torch.bfloat16, 64, 480, 2048, 1408),
+                              (torch.bfloat16, 64, 480, 1408, 2048),
+                              (torch.bfloat16, 64, 235, 2048, 1408),
+                              (torch.bfloat16, 64, 235, 1408, 2048),
+                              (torch.float32, 64, 15, 2048, 1408),
+                              (torch.float32, 64, 15, 1408, 2048),
+                              (torch.bfloat16, 128, 80, 5120, 8192)):
+        es = torch.tensor([], dtype=dtype).element_size()
+        n_bytes = es * (E * C * K + E * C * N + E * K * N)
+        x = randn(E, C, K, dtype=dtype)
+        w = randn(E, K, N, dtype=dtype, scale=K ** -0.5)
+        dy = randn(E, C, N, dtype=dtype, scale=C ** -0.5)
+        grouped_bwd_case("bwd_dx", dy, w.transpose(1, 2),
+                         grouped_route(E, C, K, N, dtype, w_t=1),
+                         (E, C, K, N), dtype, n_bytes,
+                         {"w_t": 1, "padded_c": C})
+        del w  # dw reads x and dy: llama4's w and its dw are 10.7 GB each
+        free(torch)
+        xt, dyp = ops.pad_capacity(x.transpose(1, 2), dy)
+        grouped_bwd_case("bwd_dw", xt, dyp,
+                         grouped_route(E, K, N, xt.shape[2], dtype),
+                         (E, C, K, N), dtype, n_bytes,
+                         {"w_t": 0, "padded_c": xt.shape[2],
+                          "xt_copy_ms": time_ms(lambda: ops.pad_capacity(
+                              x.transpose(1, 2), dy))})
+        del x, dy, xt, dyp
+        free(torch)
 
     def sdpa(q, k, v, causal, window=0):  # (B, H, S, hd) views
         """SDPA, causal, or under a window shorter than S with a boolean
@@ -1137,54 +1243,81 @@ def phase_parity(torch, model, window=None):
                                  "replay its graph for every decode step")
 
 
-def train_launches(cfg, steps):
-    """Kernel launches of ``steps`` train steps with no gradient
-    accumulation: each product of a forward (``expected_launches``' count
-    of one prefill) three times, its forward and its two backward products
-    (dx and dw; every product's input needs its gradient, the first
-    layer's through the embedding or the learned positions); each
+def train_launches(cfg, steps, tokens):
+    """Kernel launches of ``steps`` train steps of ``tokens`` tokens with no
+    gradient accumulation: each product of a forward (``expected_launches``'
+    count of one prefill) three times, its forward and its two backward
+    products (dx and dw; every product's input needs its gradient, the
+    first layer's through the embedding or the learned positions); each
     attention (banded or not) and each scan once forward and once
     backward, on the routes of the model's dtype (bf16: the attention
     backward's wgmma, the scans' tensor-core kernels and the scan
     backward's route, ssd_bwd_route's: "wgmma" at P 64, N 128, "simt" at
-    P 50, N 16; fp32: the CUDA cores)."""
+    P 50, N 16; fp32: the CUDA cores).  The products by route
+    ("streamed_matmul_<route>"): an MoE layer's fp32 router three times on
+    "fp32"; its three grouped products three times each on
+    ``grouped_route``'s routes at the capacity of ``tokens`` (y; dx = dy
+    w^T, w transposed; dw = x^T dy, C padded as ``ops.pad_capacity``
+    pads it); every other product on "wgmma" (bf16) or "fp32"."""
     import torch
     from repro_torch.kernels.ssd_scan import (SSD_BWD_ROUTE_LAUNCHES,
                                               SSD_ROUTE_LAUNCHES,
                                               ssd_bwd_route, ssd_route)
+    from repro_torch.kernels.ops import ROW_MULTIPLE
+    from repro_torch.kernels.streamed_matmul import (ROUTE_LAUNCHES,
+                                                     grouped_route)
+    from repro_torch.models.moe import _capacity
     launches, _, _ = expected_launches(cfg, 1, 0, 0, 0)
     attn = launches["flash_attention"] * steps
     scans = launches["ssd_scan"] * steps
     bf16 = cfg.compute_dtype == "bfloat16"
+    dtype = torch.bfloat16 if bf16 else torch.float32
     scan_routes = dict.fromkeys(SSD_ROUTE_LAUNCHES, 0)
     bwd_routes = dict.fromkeys(SSD_BWD_ROUTE_LAUNCHES, 0)
     if scans:
-        shape = (torch.bfloat16 if bf16 else torch.float32, cfg.ssm_heads,
-                 cfg.ssm_headdim, cfg.ssm_state)
+        shape = (dtype, cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state)
         scan_routes[ssd_route(*shape)] = scans
         bwd_routes[ssd_bwd_route(*shape)] = scans
-    return {"streamed_matmul": 3 * launches["streamed_matmul"] * steps,
+    products = 3 * launches["streamed_matmul"] * steps
+    routes = dict.fromkeys(ROUTE_LAUNCHES, 0)
+    n_moe = cfg.moe_layer_split()[0] if cfg.family == "moe" else 0
+    if n_moe:
+        E, d, f = cfg.n_experts, cfg.d_model, cfg.moe_d_ff
+        C = _capacity(tokens, cfg.top_k, E, cfg.capacity_factor)
+        Cp = -(-C // ROW_MULTIPLE) * ROW_MULTIPLE if bf16 else C
+        routes["fp32"] = 3 * n_moe * steps
+        for K, N in ((d, f), (d, f), (f, d)):  # wg, wu, wd
+            for route in (grouped_route(E, C, N, K, dtype),
+                          grouped_route(E, C, K, N, dtype, w_t=1),
+                          grouped_route(E, K, N, Cp, dtype)):
+                routes[route] += n_moe * steps
+    routes["wgmma" if bf16 else "fp32"] += products - sum(routes.values())
+    return {"streamed_matmul": products,
             "flash_attention": attn, "decode_attention": 0,
             "ssd_scan": scans, "flash_attention_bwd": attn,
             "ssd_scan_bwd": scans,
             "flash_attention_bwd_wgmma": attn if bf16 else 0,
             "flash_attention_bwd_fp32": 0 if bf16 else attn,
             **{f"ssd_scan_{r}": n for r, n in scan_routes.items()},
-            **{f"ssd_scan_bwd_{r}": n for r, n in bwd_routes.items()}}
+            **{f"ssd_scan_bwd_{r}": n for r, n in bwd_routes.items()},
+            **{f"streamed_matmul_{r}": n for r, n in routes.items()}}
 
 
 def _counts(ops):
-    """Every kernel's launches, the backward kernels', and the attention
-    backward's, the scan's and the scan backward's by route."""
+    """Every kernel's launches, the backward kernels', and the matmul's,
+    the attention backward's, the scan's and the scan backward's by
+    route."""
     from repro_torch.kernels.flash_attention import BWD_ROUTE_LAUNCHES
     from repro_torch.kernels.ssd_scan import (SSD_BWD_ROUTE_LAUNCHES,
                                               SSD_ROUTE_LAUNCHES)
+    from repro_torch.kernels.streamed_matmul import ROUTE_LAUNCHES
     return {**ops.LAUNCHES, **ops.GRAD_LAUNCHES,
             **{f"flash_attention_bwd_{r}": n
                for r, n in BWD_ROUTE_LAUNCHES.items()},
             **{f"ssd_scan_{r}": n for r, n in SSD_ROUTE_LAUNCHES.items()},
             **{f"ssd_scan_bwd_{r}": n
-               for r, n in SSD_BWD_ROUTE_LAUNCHES.items()}}
+               for r, n in SSD_BWD_ROUTE_LAUNCHES.items()},
+            **{f"streamed_matmul_{r}": n for r, n in ROUTE_LAUNCHES.items()}}
 
 
 def phase_train_parity(torch, model, window=None):
@@ -1247,7 +1380,7 @@ def phase_train_parity(torch, model, window=None):
             worst["moments_rel"] = max(worst["moments_rel"], diff.max().item()
                                        / max(w.abs().max().item(), 1e-30))
     metrics = {k: (float(m_card[k]), float(m_cpu[k])) for k in m_card}
-    expect = train_launches(cfg, 1)
+    expect = train_launches(cfg, 1, 2 * 64)
     emit({"phase": "train_parity", "model": model, "n_layers": 2,
           "dtype": "float32", "batch": [2, 64], "lr": lr,
           "sliding_window": cfg.sliding_window,
@@ -1266,13 +1399,16 @@ def phase_train_parity(torch, model, window=None):
         raise AssertionError(f"launch counts {launches} != {expect}")
 
 
-def phase_train(torch, dev, model, batch, seq, lr, path, steps=5):
-    """``model`` at full width and depth, bf16 parameters, fp32 moments,
-    AdamW at ``lr`` after a warmup of 2 steps,
+def phase_train(torch, dev, model, batch, seq, lr, path, steps=5,
+                depth=None):
+    """``model`` at full width and depth (``depth`` layers where given),
+    bf16 parameters, fp32 moments, AdamW at ``lr`` after a warmup of 2
+    steps,
     ``steps`` steps of ``train_loop`` on ``data/pipeline.py``'s batches
     from seed 0, counts set to 0 just before: every step's loss finite,
     the last below the first; the launches per kernel as expected, every
-    product, attention backward and scan backward on its bf16 kernel and
+    product (the grouped ones forward, dx and dw), attention backward and
+    scan backward on its bf16 kernel (an MoE router on the fp32 one) and
     no plain version called; step time (between the loop's requests for
     batches: each step ends when the card has finished it), tokens/s and
     peak memory; then a checkpoint saved and restored (equal bit for bit)
@@ -1294,7 +1430,10 @@ def phase_train(torch, dev, model, batch, seq, lr, path, steps=5):
     from repro_torch.train.loop import loss_and_grads, to_device
     from repro_torch.train.optimizer import adamw_update
 
+    t_phase = time.perf_counter()
     cfg = get_config(model)
+    if depth is not None:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
     bundle = build(cfg)
     tcfg = TrainConfig(opt=AdamWConfig(lr=lr, warmup_steps=2))
     dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
@@ -1313,7 +1452,7 @@ def phase_train(torch, dev, model, batch, seq, lr, path, steps=5):
             raise AssertionError(f"{name} ran on the training path")
         return plain
 
-    names = ("matmul_plain", "flash_attention_plain",
+    names = ("matmul_plain", "grouped_matmul_plain", "flash_attention_plain",
              "flash_attention_lse_plain", "flash_attention_bwd_plain",
              "ssd_scan_plain", "ssd_scan_bwd_plain")
     saved = {n: getattr(ops, n) for n in names}
@@ -1371,7 +1510,8 @@ def phase_train(torch, dev, model, batch, seq, lr, path, steps=5):
     torch.cuda.synchronize()
     fa, fb = convert.flatten(a), convert.flatten(b)
     same = all(torch.equal(fa[n], fb[n].cpu()) for n in fa)
-    expect = train_launches(cfg, steps)
+    expect = train_launches(cfg, steps, batch * seq)
+    n_params = sum(t.numel() for n, t in fa.items() if n.startswith("params"))
     emit({"phase": "train", "model": model, "path": path,
           "n_layers": cfg.n_layers, "sliding_window": cfg.sliding_window,
           "dtype": cfg.param_dtype, "moments": tcfg.opt.moment_dtype,
@@ -1390,7 +1530,8 @@ def phase_train(torch, dev, model, batch, seq, lr, path, steps=5):
               ms for name, ms in prof["port_kernels_ms"].items()
               if name.startswith("ssd_bwd")),
           "checkpoint_save_s": save_s, "checkpoint_restore_s": restore_s,
-          "restored_state_equal": same_restore, "resumed_step_equal": same})
+          "restored_state_equal": same_restore, "resumed_step_equal": same,
+          "n_params": n_params, "phase_s": time.perf_counter() - t_phase})
     del restored, a, b, fa, fb, fr
     free(torch)
     if not all(math.isfinite(x) for x in losses) or \
@@ -1407,17 +1548,20 @@ def phase_train(torch, dev, model, batch, seq, lr, path, steps=5):
             launches[scan_bwd] != launches["ssd_scan_bwd"]:
         raise AssertionError(f"launch counts {launches}: a backward off its "
                              "bf16 kernel")
-    if routes["wgmma"] != launches["streamed_matmul"]:
-        raise AssertionError(f"routes {routes}: not every product of "
-                             f"{launches['streamed_matmul']} on the wgmma "
-                             "kernel")
+    want = {r: expect[f"streamed_matmul_{r}"] for r in routes}
+    if routes != want:
+        raise AssertionError(f"routes {routes} != {want}: not every product "
+                             f"of {launches['streamed_matmul']} on the wgmma "
+                             "kernel, an MoE router's on the fp32 kernel, an "
+                             "expert's on the grouped wgmma kernel")
     if not same_restore:
         raise AssertionError("the restored checkpoint differs from the state "
                              "saved")
     if not same:
         raise AssertionError("the step from the restored checkpoint differs "
                              "from the step without the restore")
-    return launches
+    grouped = sum(n for r, n in routes.items() if "grouped" in r)
+    return dict(launches, grouped=grouped) if grouped else launches
 
 
 def profile_train_step(torch, fn):
@@ -1450,11 +1594,14 @@ def profile_train_step(torch, fn):
         hit = re.match(r"(matmul|flash|decode|ssd)_\w*kernel", k)
         if hit:
             port[hit.group(0)] = port.get(hit.group(0), 0.0) + v / 1e3
+    # K1's grouped instantiations: the template flag G, the last, true
+    grouped = sum(v for k, v in by_name.items()
+                  if re.match(r"matmul_\w*kernel<.*, true>$", k)) / 1e3
     return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
             "device_idle_share": (1 - busy / wall_us) if kern else None,
             "kernels_seen": len(kern),
             "top_device_ms": {k: v / 1e3 for k, v in top},
-            "port_kernels_ms": port}
+            "port_kernels_ms": port, "k1_grouped_ms": grouped}
 
 
 def decode_logits(torch, bundle, params, batch, device, steps=3):

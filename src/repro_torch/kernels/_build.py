@@ -32,10 +32,10 @@ SIGNATURES = {
     "streamed_matmul_wgmma": [_P, _P, _P, _I, _I, _I, _I, _P],
     "streamed_matmul_decode": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "streamed_matmul_decode_tile": [],
-    "streamed_matmul_grouped_wgmma": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "streamed_matmul_grouped_wgmma": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "streamed_matmul_grouped_decode": [_P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                       _P],
-    "streamed_matmul_grouped_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
+                                       _I, _P],
+    "streamed_matmul_grouped_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                         _I, _F, _I, _P],
     "flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,

@@ -55,7 +55,10 @@
 // a decode step every expert's C = 8 capacity rows are a decode product of
 // its own, so the step reads every expert's weights once, as the JAX
 // capacity design does; the host's plan counts E x the column tiles before
-// it splits K.
+// it splits K.  A training step's backward is two more grouped products per
+// projection (kernels/ops.py's _GroupedMatmul): dx = dy w^T, which reads
+// each expert's w in place as the transpose (w_t, as the tied unembedding
+// is read), and dw = x^T dy from a contiguous copy of x^T.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -187,14 +190,14 @@ constexpr int G_STAGE_BYTES = G_A_BYTES + G_B_BYTES;
 constexpr int G_SMEM_BYTES = G_STAGES * G_STAGE_BYTES + 2 * G_STAGES * 8 + 1024;  // + alignment
 
 // G: a grouped product, one (M, N) output per blockIdx.z (expert e) of the
-// rank-3 maps of x (E, M, K) and a row-major w (E, K, N).
+// rank-3 maps of x (E, M, K) and w, row-major (E, K, N) or, WT, the
+// transpose of a row-major (E, N, K) (a backward's dx = dy w^T).
 template <bool WT, bool G>
 __global__ void __launch_bounds__(G_THREADS)
 matmul_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
                     const __grid_constant__ CUtensorMap wmap,
                     __nv_bfloat16* __restrict__ out, int M, int N, int K) {
   using namespace hopper;
-  static_assert(!(G && WT), "a grouped w is row-major");
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + G_STAGES * G_STAGE_BYTES);
@@ -223,10 +226,15 @@ matmul_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
         unsigned char* a = smem + s * G_STAGE_BYTES;
         unsigned char* b = a + G_A_BYTES;
         mbar_arrive_expect_tx(&full[s], G_STAGE_BYTES);
-        if (G) {  // expert e's (M, K) rows and (K, N) rows, two 64 x 64 boxes
+        if (G) {  // expert e's (M, K) rows; its (N, K) rows in one 128 x 64
+          // box (WT) or its (K, N) rows in two 64 x 64 boxes
           tma_load_3d(a, &xmap, &full[s], i * G_BK, m0, e);
-          tma_load_3d(b, &wmap, &full[s], n0, i * G_BK, e);
-          tma_load_3d(b + G_B_BYTES / 2, &wmap, &full[s], n0 + 64, i * G_BK, e);
+          if (WT) {
+            tma_load_3d(b, &wmap, &full[s], i * G_BK, n0, e);
+          } else {
+            tma_load_3d(b, &wmap, &full[s], n0, i * G_BK, e);
+            tma_load_3d(b + G_B_BYTES / 2, &wmap, &full[s], n0 + 64, i * G_BK, e);
+          }
           continue;
         }
         tma_load_2d(a, &xmap, &full[s], i * G_BK, m0);
@@ -318,7 +326,6 @@ matmul_decode_kernel(const __grid_constant__ CUtensorMap xmap,
                      int steps_per_split) {
   using namespace hopper;
   using T = DecodeTiles<NG>;
-  static_assert(!(G && WT), "a grouped w is row-major");
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   float* part = reinterpret_cast<float*>(smem + D_STAGES * T::STAGE);  // [8 NG][D_PSTRIDE]
@@ -349,8 +356,9 @@ matmul_decode_kernel(const __grid_constant__ CUtensorMap xmap,
         unsigned char* a = smem + s * T::STAGE;
         const int k0 = (i0 + i) * D_TILE;
         mbar_arrive_expect_tx(&full[s], T::STAGE);
-        if (G) {  // expert e's (K, N) rows and its x rows 0 .. 8 NG - 1
-          tma_load_3d(a, &wmap, &full[s], n0, k0, e);
+        if (G) {  // expert e's (N, K) (WT) or (K, N) rows, its x rows 0 .. 8 NG - 1
+          if (WT) tma_load_3d(a, &wmap, &full[s], k0, n0, e);
+          else tma_load_3d(a, &wmap, &full[s], n0, k0, e);
           tma_load_3d(a + T::A_BYTES, &xmap, &full[s], k0, 0, e);
           continue;
         }
@@ -471,8 +479,10 @@ cudaError_t launch_prefill(const CUtensorMap& xmap, const CUtensorMap& wmap, voi
 // ---------------------------------------------------------------- fp32 path
 constexpr int FBM = 64, FBN = 64, FBK = 16, FTHREADS = 256;
 
-// G: a grouped product, blockIdx.z the expert e of x (E, M, K), a row-major
-// w (E, K, N) and out (E, M, N), K unsplit; otherwise blockIdx.z the split.
+// G: a grouped product, blockIdx.z the expert e of x (E, M, K), w (E, K, N)
+// (WT: the transpose of a row-major (E, N, K), expert e's (N, K) block at
+// the same offset e K N) and out (E, M, N), K unsplit; otherwise
+// blockIdx.z the split.
 template <bool WT, bool G>
 __global__ void __launch_bounds__(FTHREADS)
 matmul_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
@@ -633,12 +643,16 @@ extern "C" int streamed_matmul_decode(const void* x, const void* w, void* out, i
 }
 
 // ------------------------------------------------------------- grouped
-// out (E, M, N) = x (E, M, K) @ w (E, K, N), one product per expert, all
-// three row-major and contiguous, in one launch: the kernels above with a
-// grid dimension over the experts.  The bf16 maps are rank 3, (E, rows,
-// cols) with boxes inside one expert, so a ragged M or K zero-fills within
-// the expert and never reads the next one's rows.  The caller routes bf16
-// here only when K % 8 == 0, N % 8 == 0 and x and w are 16-byte aligned.
+// out (E, M, N) = x (E, M, K) @ w (E, K, N), one product per expert, x and
+// out row-major and contiguous, in one launch: the kernels above with a
+// grid dimension over the experts.  w is as streamed_matmul's w_t, per
+// expert: w_t = 0 a contiguous row-major (E, K, N); w_t = 1 the transpose
+// of a contiguous row-major (E, N, K) (an MoE backward's dx = dy w^T reads
+// the forward's w in place).  The bf16 maps are rank 3, (E, rows, cols)
+// with boxes inside one expert, so a ragged M, N or K zero-fills within the
+// expert and never reads the next one's rows.  The caller routes bf16 here
+// only when K % 8 == 0, N % 8 == 0 for w_t = 0, and x and w are 16-byte
+// aligned.
 
 // The map of E stacked row-major bf16 matrices (E, rows, cols), in boxes of
 // box_rows rows of box_cols (64) elements of one matrix.
@@ -650,21 +664,31 @@ static bool make_stack_map(CUtensorMap* map, const void* ptr, int E, int rows, i
   return hopper::make_map_bf16(map, ptr, 3, dims, strides, box);
 }
 
+// The rank-3 map of a grouped w, as make_w_map's of one expert: w_t = 0
+// (E, K, N) rows in boxes of box_k k by box_n columns, w_t = 1 (E, N, K)
+// rows in boxes of box_n columns by box_k k.
+static bool make_w_stack_map(CUtensorMap* map, const void* w, int E, int N, int K, int w_t,
+                             uint32_t box_k, uint32_t box_n) {
+  return w_t ? make_stack_map(map, w, E, N, K, box_k, box_n)
+             : make_stack_map(map, w, E, K, N, box_n, box_k);
+}
+
 // M >= 64: the prefill kernel per expert.
 extern "C" int streamed_matmul_grouped_wgmma(const void* x, const void* w, void* out, int E,
-                                             int M, int N, int K, void* stream) {
+                                             int M, int N, int K, int w_t, void* stream) {
   CUtensorMap xmap, wmap;
   if (E < 1 || E > 65535 || M < 1 || N < 1 || K < 1 ||
       !make_stack_map(&xmap, x, E, M, K, G_BK, G_BM) ||
-      !make_stack_map(&wmap, w, E, K, N, 64, G_BK))
+      !make_w_stack_map(&wmap, w, E, N, K, w_t, G_BK, w_t ? G_BN : 64))
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch_prefill<false, true>(xmap, wmap, out, E, M, N, K,
-                                                      static_cast<cudaStream_t>(stream)));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(w_t ? launch_prefill<true, true>(xmap, wmap, out, E, M, N, K, s)
+                              : launch_prefill<false, true>(xmap, wmap, out, E, M, N, K, s));
 }
 
 // 1 <= M < 64: the decode kernel per expert, K cut as streamed_matmul_decode's.
 extern "C" int streamed_matmul_grouped_decode(const void* x, const void* w, void* out, int E,
-                                              int M, int N, int K, int splits,
+                                              int M, int N, int K, int w_t, int splits,
                                               int steps_per_split, void* stream) {
   const int steps = (K + D_TILE - 1) / D_TILE;
   if (E < 1 || E > 65535 || M < 1 || M >= 64 || N < 1 || K < 1 || splits < 1 ||
@@ -673,21 +697,28 @@ extern "C" int streamed_matmul_grouped_decode(const void* x, const void* w, void
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap xmap, wmap;
   if (!make_stack_map(&xmap, x, E, M, K, D_TILE, 8 * row_groups(M)) ||
-      !make_stack_map(&wmap, w, E, K, N, D_TILE, D_TILE))
+      !make_w_stack_map(&wmap, w, E, N, K, w_t, D_TILE, D_TILE))
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch_decode_groups<false, true>(
-      xmap, wmap, out, E, M, N, K, splits, steps_per_split, static_cast<cudaStream_t>(stream)));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      w_t ? launch_decode_groups<true, true>(xmap, wmap, out, E, M, N, K, splits,
+                                             steps_per_split, s)
+          : launch_decode_groups<false, true>(xmap, wmap, out, E, M, N, K, splits,
+                                              steps_per_split, s));
 }
 
 // fp32: the CUDA-core kernel per expert.
 extern "C" int streamed_matmul_grouped_f32(const void* x, const void* w, void* out, int E,
-                                           int M, int N, int K, void* stream) {
+                                           int M, int N, int K, int w_t, void* stream) {
   if (E < 1 || E > 65535 || M < 1 || N < 1 || K < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((N + FBN - 1) / FBN, (M + FBM - 1) / FBM, E);
-  matmul_f32_kernel<false, true><<<grid, FTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w), static_cast<float*>(out),
-      nullptr, M, N, K, K);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto xf = static_cast<const float*>(x);
+  auto wf = static_cast<const float*>(w);
+  auto of = static_cast<float*>(out);
+  if (w_t) matmul_f32_kernel<true, true><<<grid, FTHREADS, 0, s>>>(xf, wf, of, nullptr, M, N, K, K);
+  else matmul_f32_kernel<false, true><<<grid, FTHREADS, 0, s>>>(xf, wf, of, nullptr, M, N, K, K);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -10,18 +10,19 @@ the attention backward's by route and ``SSD_BWD_ROUTE_LAUNCHES`` the
 scan backward's.
 
 Where grad is enabled and an input requires it, ``matmul``,
-``flash_attention`` (causal, not causal or banded) and ``ssd_scan`` run as
-``torch.autograd.Function``s whose backward is made of kernels too: a
-product's is two more products (``matmul``); the attention's the backward
-kernel of ``csrc/flash_attention_bwd.cu``, which reads each row's
+``grouped_matmul``, ``flash_attention`` (causal, not causal or banded) and
+``ssd_scan`` run as ``torch.autograd.Function``s whose backward is made of
+kernels too: a product's is two more products (``matmul``;
+``grouped_matmul``'s two more grouped products); the attention's the
+backward kernel of ``csrc/flash_attention_bwd.cu``, which reads each row's
 log2-sum-exp2 that the forward wrote (the forward's ``with_lse``
 instantiation; on the CPU the plain lse, saved all the same); the scan's
 the kernel of ``csrc/ssd_scan_bwd.cu`` (on the CPU ``ssd_scan_bwd_plain``).
 Otherwise (serving, under ``torch.inference_mode()``) they call the kernel
-directly, with no autograd node.  The ops with no backward kernel
-(``grouped_matmul``, ``decode_attention``) raise ``NotImplementedError``
-under grad on the card rather than give their inputs no gradient; on the
-CPU their plain versions are differentiated by autograd, as before.
+directly, with no autograd node.  ``decode_attention`` has no backward
+kernel: it raises ``NotImplementedError`` under grad on the card rather
+than give its inputs no gradient; on the CPU its plain version is
+differentiated by autograd.
 """
 from __future__ import annotations
 
@@ -131,16 +132,63 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return _matmul(x, w)
 
 
-def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """(E,M,K) @ (E,K,N), one product per expert in one launch, fp32
-    accumulation, output in x.dtype; counted as a ``streamed_matmul``
-    launch."""
+def _grouped(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if not _on_card(x):
         return grouped_matmul_plain(x, w)
-    _no_backward("grouped_matmul", x, w)
     out = grouped_matmul_cuda(x, w)
     LAUNCHES["streamed_matmul"] += 1
     return out
+
+
+# bf16 rows of a multiple of 8 elements: the 16-byte row stride that TMA
+# maps, which x^T (E, K, C) of the grouped dw needs along the capacity C
+ROW_MULTIPLE = 8
+
+
+def pad_capacity(xt: torch.Tensor, dy: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x^T (E, K, C) and dy (E, C, N) of a grouped dw = x^T dy as the
+    kernel reads them: x^T a contiguous copy and, in bf16 where C is not a
+    multiple of ``ROW_MULTIPLE``, both zero-padded along C to the next one
+    (zero rows add nothing to the sums)."""
+    C = xt.shape[2]
+    pad = -C % ROW_MULTIPLE if xt.dtype == torch.bfloat16 else 0
+    if not pad:
+        return xt.contiguous(), dy
+    out = xt.new_zeros((xt.shape[0], xt.shape[1], C + pad))
+    out[:, :, :C] = xt
+    return out, torch.nn.functional.pad(dy, (0, 0, 0, pad))
+
+
+class _GroupedMatmul(torch.autograd.Function):
+    """y = x @ w per expert; dx = dy @ w^T (each expert's w^T read in place:
+    the kernels take a transposed row-major w) and dw = x^T @ dy (x^T
+    copied, and padded along the capacity where ``pad_capacity`` says),
+    each one more grouped launch."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _grouped(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = (_grouped(dy, w.transpose(1, 2)) if ctx.needs_input_grad[0]
+              else None)
+        dw = (_grouped(*pad_capacity(x.transpose(1, 2), dy))
+              if ctx.needs_input_grad[1] else None)
+        return dx, dw
+
+
+def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(E,M,K) @ (E,K,N), one product per expert in one launch, fp32
+    accumulation, output in x.dtype; counted as a ``streamed_matmul``
+    launch (three a train step: y, dx and dw)."""
+    if _grad_wanted(x, w):
+        return _GroupedMatmul.apply(x, w)
+    return _grouped(x, w)
 
 
 def _flash(q, k, v, causal: bool, window: int) -> torch.Tensor:

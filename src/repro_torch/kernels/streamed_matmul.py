@@ -7,7 +7,8 @@ hand-written kernels of ``csrc/streamed_matmul.cu``, chosen by shape
 (``matmul_route``), and counts its launches by route in ``ROUTE_LAUNCHES``.
 ``grouped_matmul_plain`` and ``grouped_matmul_cuda`` are the same product
 grouped over a leading expert dim, (E,M,K) @ (E,K,N), in one launch
-(``grouped_route``), for the experts of an MoE layer.
+(``grouped_route``), for the experts of an MoE layer; the transposed w of
+their backward's dx = dy w^T is read in place.
 """
 from __future__ import annotations
 
@@ -54,21 +55,25 @@ def matmul_route(M: int, N: int, K: int, w_t: int, dtype: torch.dtype,
 
 
 def grouped_route(E: int, M: int, N: int, K: int, dtype: torch.dtype,
-                  aligned: bool = True) -> str:
+                  aligned: bool = True, w_t: int = 0) -> str:
     """Which kernel takes a grouped product (E,M,K) @ (E,K,N): the
-    ``matmul_route`` of one expert's product with a row-major w, each
-    kernel with a grid dimension over the experts.  bf16 that TMA cannot
-    take has no grouped kernel: it raises."""
+    ``matmul_route`` of one expert's product, each kernel with a grid
+    dimension over the experts; ``w_t`` = 1 where w is the transpose of a
+    row-major (E, N, K) (a backward's dx = dy w^T), which TMA maps with
+    K % 8 == 0 alone.  bf16 that TMA cannot take has no grouped kernel: it
+    raises."""
     if dtype == torch.float32:
         return "fp32_grouped"
-    if dtype == torch.bfloat16 and K % 8 == 0 and N % 8 == 0 and aligned:
+    if (dtype == torch.bfloat16 and K % 8 == 0 and (w_t or N % 8 == 0)
+            and aligned):
         return ("wgmma_grouped" if M >= WGMMA_MIN_M
                 else "wgmma_grouped_decode")
     raise ValueError(f"grouped_matmul: no kernel takes {dtype} ({E}, {M}, "
                      f"{K}) @ ({E}, {K}, {N})"
+                     + (" (w transposed)" if w_t else "")
                      + ("" if aligned else " with a misaligned tensor")
-                     + ": bf16 needs K % 8 == 0, N % 8 == 0 and 16-byte "
-                     "aligned tensors")
+                     + ": bf16 needs K % 8 == 0, N % 8 == 0 (or w "
+                     "transposed) and 16-byte aligned tensors")
 
 
 def k_splits(M: int, N: int, K: int, n_sms: int) -> int:
@@ -173,12 +178,14 @@ def matmul_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def grouped_matmul_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x: contiguous (E, M, K); w: contiguous (E, K, N).  One launch of the
-    kernel ``grouped_route`` picks: bf16 with M >= 64 the wgmma kernel, M <
-    64 the wgmma decode kernel (K split over a cluster where E x the column
-    tiles are fewer than about two per SM), fp32 the fp32 kernel; bf16 that
-    TMA cannot take raises ValueError.  Raises if the kernel fails to build
-    or launch."""
+    """x: contiguous (E, M, K); w: (E, K, N), either contiguous or the
+    transpose of a contiguous (E, N, K) tensor (``.transpose(1, 2)``, a
+    backward's w^T), read in place.  One launch of the kernel
+    ``grouped_route`` picks: bf16 with M >= 64 the wgmma kernel, M < 64 the
+    wgmma decode kernel (K split over a cluster where E x the column tiles
+    are fewer than about two per SM), fp32 the fp32 kernel; bf16 that TMA
+    cannot take raises ValueError.  Raises if the kernel fails to build or
+    launch."""
     if not (x.is_cuda and w.device == x.device):
         raise ValueError(f"grouped_matmul: x on {x.device}, w on {w.device}")
     if x.dtype not in DTYPE_CODES or w.dtype != x.dtype:
@@ -187,8 +194,15 @@ def grouped_matmul_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
             or x.shape[2] != w.shape[1]):
         raise ValueError(f"grouped_matmul: shapes {tuple(x.shape)} @ "
                          f"{tuple(w.shape)}")
-    if not (x.is_contiguous() and w.is_contiguous()):
-        raise ValueError("grouped_matmul: x and w must be contiguous")
+    if not x.is_contiguous():
+        raise ValueError("grouped_matmul: x must be contiguous")
+    if w.is_contiguous():
+        w_t = 0
+    elif w.transpose(1, 2).is_contiguous():
+        w_t = 1
+    else:
+        raise ValueError(f"grouped_matmul: w strides {w.stride()} are "
+                         "neither row-major nor transposed row-major")
     E, M, K = x.shape
     N = w.shape[2]
     out = torch.empty((E, M, N), dtype=x.dtype, device=x.device)
@@ -197,23 +211,24 @@ def grouped_matmul_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if K == 0:
         return out.zero_()
     route = grouped_route(E, M, N, K, x.dtype,
-                          x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
+                          x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0,
+                          w_t)
     lib = _build.load()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     if route == "wgmma_grouped":
         _build.check(lib.streamed_matmul_grouped_wgmma(
-            x.data_ptr(), w.data_ptr(), out.data_ptr(), E, M, N, K, stream),
-            "streamed_matmul_grouped_wgmma")
+            x.data_ptr(), w.data_ptr(), out.data_ptr(), E, M, N, K, w_t,
+            stream), "streamed_matmul_grouped_wgmma")
     elif route == "wgmma_grouped_decode":
         splits, per = decode_k_plan(N, K, sm_count(x.device), decode_tile(),
                                     groups=E)
         _build.check(lib.streamed_matmul_grouped_decode(
-            x.data_ptr(), w.data_ptr(), out.data_ptr(), E, M, N, K, splits,
-            per, stream), "streamed_matmul_grouped_decode")
+            x.data_ptr(), w.data_ptr(), out.data_ptr(), E, M, N, K, w_t,
+            splits, per, stream), "streamed_matmul_grouped_decode")
     else:
         _build.check(lib.streamed_matmul_grouped_f32(
-            x.data_ptr(), w.data_ptr(), out.data_ptr(), E, M, N, K, stream),
-            "streamed_matmul_grouped_f32")
+            x.data_ptr(), w.data_ptr(), out.data_ptr(), E, M, N, K, w_t,
+            stream), "streamed_matmul_grouped_f32")
     ROUTE_LAUNCHES[route] += 1
     return out
 

@@ -27,7 +27,7 @@ from repro_torch.kernels.streamed_matmul import (ROUTE_LAUNCHES, decode_tile,
                                                  grouped_matmul_plain,
                                                  grouped_route, matmul_plain,
                                                  matmul_route)
-from repro_torch.models import build
+from repro_torch.models import build, moe
 from repro_torch.serve import (DecodeStep, EngineConfig, ServeEngine, greedy,
                                pad_batch, seed_decode_cache)
 
@@ -158,6 +158,57 @@ def test_cuda_grouped_matmul_matches_plain(card, E, C, K, N, dtype):
         np.testing.assert_allclose(got.float().cpu().numpy(),
                                    want.float().cpu().numpy(),
                                    rtol=1e-2, atol=5e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("K,N", [(2048, 1408), (1408, 2048)])
+@pytest.mark.parametrize("C", [13, 64, 235, 480])
+def test_cuda_grouped_matmul_backward_matches_plain(card, C, K, N, dtype):
+    """Under grad, deepseek_moe_16b's expert products over 8 experts at a
+    ragged capacity (13 and 235 padded to 16 and 240 for bf16's dw), one
+    wgmma row block and the training capacity 480: y, dx = dy w^T (w^T
+    read in place) and dw = x^T dy, each one launch on its route, against
+    the plain versions, bf16 also within about one bf16 rounding; a second
+    backward equal bit for bit; fp32's dw of an unpadded x^T equal bit for
+    bit to the padded one's."""
+    tdt, tol = DTYPES[dtype]
+    E = 8
+    gen = torch.Generator(device=card).manual_seed(C * 10 + K)
+    x = torch.randn((E, C, K), generator=gen, device=card).to(tdt)
+    w = (torch.randn((E, K, N), generator=gen, device=card)
+         / K ** 0.5).to(tdt)
+    dy = (torch.randn((E, C, N), generator=gen, device=card)
+          / C ** 0.5).to(tdt)
+    Cp = -(-C // 8) * 8 if dtype == "bfloat16" else C
+    routes = [grouped_route(E, C, N, K, tdt), grouped_route(E, C, K, N, tdt,
+                                                             w_t=1),
+              grouped_route(E, K, N, Cp, tdt)]
+    grads = []
+    for _ in range(2):
+        xg, wg = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        ops.reset_launches()
+        y = ops.grouped_matmul(xg, wg)
+        y.backward(dy)
+        assert ops.LAUNCHES["streamed_matmul"] == 3
+        assert ROUTE_LAUNCHES == {r: routes.count(r) for r in ROUTE_LAUNCHES}
+        grads.append((y.detach(), xg.grad, wg.grad))
+    wants = (grouped_matmul_plain(x, w),
+             grouped_matmul_plain(dy, w.transpose(1, 2)),
+             grouped_matmul_plain(x.transpose(1, 2), dy))
+    for got, again, want in zip(grads[0], grads[1], wants):
+        assert got.shape == want.shape and got.dtype == tdt
+        assert torch.equal(got, again)
+        _close(got, want, tol)
+        if dtype == "bfloat16":
+            np.testing.assert_allclose(got.float().cpu().numpy(),
+                                       want.float().cpu().numpy(),
+                                       rtol=1e-2, atol=5e-5)
+    if dtype == "float32" and C % 8:
+        xt = torch.zeros((E, K, -(-C // 8) * 8), device=card)
+        xt[:, :, :C] = x.transpose(1, 2)
+        dyp = torch.nn.functional.pad(dy, (0, 0, 0, xt.shape[2] - C))
+        assert torch.equal(ops.grouped_matmul(xt, dyp), grads[0][2])
 
 
 @pytest.mark.cuda
@@ -817,13 +868,50 @@ def test_cuda_train_two_steps_at_depth_2(card):
 
 
 @pytest.mark.cuda
+def test_cuda_moe_train_two_steps_at_depth_2(card):
+    """deepseek_moe_16b at full width, two layers (one dense, one MoE),
+    bf16, batch 4 x seq 128 (C 60 a layer: the grouped decode kernel):
+    two train steps whose every product, grouped ones and the fp32 router
+    too, forward and backward, is a kernel (3 launches per forward
+    product); the loss finite and falling."""
+    from repro_torch.data import DataConfig, make_batch
+    from repro_torch.train import (AdamWConfig, TrainConfig, init_state,
+                                   make_train_step)
+    from repro_torch.train.loop import to_device
+    bundle, params = _depth2(card, "deepseek_moe_16b")
+    cfg = bundle.cfg
+    tcfg = TrainConfig(opt=AdamWConfig(lr=1e-3, warmup_steps=1))
+    step = make_train_step(bundle.loss, tcfg)
+    state = init_state(params, tcfg.opt)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=128, global_batch=4)
+    batch = to_device(make_batch(dcfg, 0), card)
+    C = moe._capacity(4 * 128, cfg.top_k, cfg.n_experts, cfg.capacity_factor)
+    assert C == 60
+    ops.reset_launches()
+    losses = []
+    for _ in range(2):
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+    per_step = 3 * (7 * 2 + 4 + 1)  # q k v o, FFN x 2, router, 3 grouped
+    assert ops.LAUNCHES == {"streamed_matmul": 2 * per_step,
+                            "flash_attention": 2 * 2,
+                            "decode_attention": 0, "ssd_scan": 0}
+    assert ops.GRAD_LAUNCHES == {"flash_attention_bwd": 2 * 2,
+                                 "ssd_scan_bwd": 0}
+    # y and dx take the decode kernel (C 60 rows); dw = x^T dy the prefill
+    # kernel (d or f rows, C 60 deep, padded to 64)
+    assert ROUTE_LAUNCHES == {
+        "wgmma": 2 * (per_step - 3 - 9), "wgmma_decode": 0, "wmma": 0,
+        "fp32": 2 * 3, "wgmma_grouped": 2 * 3,
+        "wgmma_grouped_decode": 2 * 6, "fp32_grouped": 0}
+    assert all(np.isfinite(losses)) and losses[1] < losses[0]
+    assert int(state["step"]) == 2
+
+
+@pytest.mark.cuda
 def test_cuda_ops_without_backward_raise_under_grad(card):
-    """The grouped product and decode attention have no backward kernel:
-    under grad on the card they raise (the scan and the band have one)."""
-    x, w = _on(card, "bfloat16", 51, (2, 64, 64), (2, 64, 64))
-    w.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="grouped_matmul"):
-        ops.grouped_matmul(x, w)
+    """Decode attention has no backward kernel: under grad on the card it
+    raises (the scan, the band and the grouped product have one)."""
     q, k, v = _on(card, "bfloat16", 52, (1, 2, 64), (1, 64, 1, 64),
                   (1, 64, 1, 64))
     q.requires_grad_(True)

@@ -1,12 +1,13 @@
 """Gradients of the port against the JAX package's autodiff, in fp32 on the
-CPU: ``bundle.loss`` against ``jax.grad`` of the JAX loss for seven reduced
+CPU: ``bundle.loss`` against ``jax.grad`` of the JAX loss for ten reduced
 models (through the port's autograd Functions with the plain products,
-``flash_attention_bwd_plain`` and ``ssd_scan_bwd_plain``), the attention
-backward's plain version against ``torch.autograd`` and ``jax.grad``, the
-products' backward, and the dispatch: no autograd node under
-``torch.inference_mode()``, one counted backward launch per call of the
-scan and of the banded attention under grad on the card, and the ops
-without a backward kernel raising there."""
+grouped ones too, ``flash_attention_bwd_plain`` and
+``ssd_scan_bwd_plain``), the attention backward's plain version against
+``torch.autograd`` and ``jax.grad``, the products' backward, and the
+dispatch: no autograd node under ``torch.inference_mode()``, one counted
+backward launch per call of the scan and of the banded attention under
+grad on the card, and decode attention, which has no backward kernel,
+raising there."""
 import dataclasses
 
 import jax
@@ -59,11 +60,14 @@ def _batch(cfg, B=2, S=16, seed=0):
 
 @pytest.mark.parametrize("arch", ["qwen2_0_5b", "llama3_2_1b", "qwen3_4b",
                                   "internvl2_26b", "whisper_large_v3",
-                                  "mamba2_1_3b", "hymba_1_5b"])
+                                  "mamba2_1_3b", "hymba_1_5b",
+                                  "deepseek_moe_16b",
+                                  "llama4_maverick_400b_a17b", "qwen2_7b"])
 def test_loss_gradients_match_jax_grad(arch):
     """hymba_1_5b's sequence of 24 exceeds its reduced window of 16, so the
     band's backward is in the gradient; the SSD families' scans run 2 and 3
-    chunks of 8."""
+    chunks of 8; the MoE models' experts run as grouped products
+    (``ops._GroupedMatmul``) and their aux loss is in the gradient."""
     ref_cfg = _fp32(ref_reduce(ref_get_config(arch)))
     cfg = _fp32(reduce_for_smoke(get_config(arch)))
     ref_bundle = ref_build(ref_cfg)
@@ -231,12 +235,13 @@ def _on_card(monkeypatch):
 
 
 def test_ops_without_backward_raise_under_grad_on_the_card(monkeypatch):
+    """Decode attention alone has no backward kernel (the grouped product
+    has one since it trains the MoE models: tests/test_torch_moe_bwd.py)."""
     _on_card(monkeypatch)
     rng = np.random.default_rng(7)
     f = lambda *s: torch.tensor(  # noqa: E731
         rng.standard_normal(s).astype(np.float32), requires_grad=True)
     calls = {
-        "grouped_matmul": lambda: ops.grouped_matmul(f(2, 8, 16), f(2, 16, 8)),
         "decode_attention": lambda: ops.decode_attention(
             f(1, 2, 64), f(1, 8, 1, 64), f(1, 8, 1, 64), 5),
     }

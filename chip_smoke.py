@@ -134,18 +134,22 @@ exits non-zero):
                window of 32, below its sequence of 64, so that the band's
                backward is in it) and deepseek_moe_16b (one dense and one
                MoE layer; its grouped products, forward, dx with w
-               transposed and dw, on the fp32 grouped kernel at C 15);
+               transposed and dw, on the fp32 grouped kernel at C 15); and on
+               the card the loss and every gradient with the per-layer
+               recompute equal, bit for bit, those without it;
 7. train    -- at full width and depth, bf16, 5 steps of train_loop on
                data/pipeline.py's batches: qwen2_0_5b (AdamW lr 1e-3)
                and mamba2_1_3b (3e-4) at batch 8 x seq 512, hymba_1_5b
                (3e-4) at 2 x 2048 (past its window of 1024),
                deepseek_moe_16b (3e-4) at 8 x 512 cut to depth 4 (one
                dense, three MoE layers; C 480): the loss
-               finite and falling, the launches per
-               step of K1 (3 per product; by route: deepseek's routers on
+               finite and falling, the launches per step (each layer
+               step recomputed in the backward) of K1 (4 per product of a
+               layer, 3 for the unembedding; by route: deepseek's routers on
                "fp32", its expert products, forward, dx and dw, on
-               "wgmma_grouped", the rest on "wgmma"), K2, K2's backward
-               (the band's for hymba), K4 and K4's backward as expected,
+               "wgmma_grouped", the rest on "wgmma"), K2 and K4 (twice a
+               layer), K2's backward (the band's for hymba) and K4's
+               backward (once) as expected,
                every product, attention backward and scan backward on its
                bf16 kernel (mamba2_1_3b's scan backward on "wgmma",
                hymba_1_5b's on "simt") and no plain version called (the
@@ -153,7 +157,16 @@ exits non-zero):
                a profiled step's device idle share and the backward
                kernels' device time; a checkpoint saved and restored equal
                bit for bit, and the next step from it equal, bit for bit,
-               to the step without the restore; the phase's seconds.
+               to the step without the restore; the phase's seconds;
+8. train_100m -- examples/train_100m_torch.py --full through its main:
+               llama_100m, 300 steps of 8 x 256 tokens, a checkpoint every
+               100: the loss falling, the three checkpoints written, the
+               launches as train's, step time, tokens/s, peak memory and
+               the stragglers flagged;
+9. core     -- one seeded stream of vNPU requests (launch/placement.py)
+               through repro_torch.core's hypervisor with every mapper,
+               ilp included: the placements and the host ms of each, the
+               stream run twice the same.
 
 Then a summary line of the kernels (each with the routes its cases took;
 the grouped matmul's launches by path, serving and training, and its
@@ -165,8 +178,10 @@ checkout of the repository.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
+import io
 import json
 import math
 import os
@@ -302,6 +317,8 @@ def main() -> int:
     for path, (model, batch, seq, lr, depth) in TRAIN_PATHS.items():
         launches[path] = phase_train(torch, dev, model, batch, seq, lr, path,
                                      depth=depth)
+    launches["train_100m"] = phase_train_100m(torch, dev)
+    phase_core()
     summary = []
     for name, meta in KERNELS.items():
         mine = [c for c in cases if c["name"] == name]
@@ -1243,22 +1260,27 @@ def phase_parity(torch, model, window=None):
                                  "replay its graph for every decode step")
 
 
-def train_launches(cfg, steps, tokens):
+def train_launches(cfg, steps, tokens, recompute=True):
     """Kernel launches of ``steps`` train steps of ``tokens`` tokens with no
-    gradient accumulation: each product of a forward (``expected_launches``'
-    count of one prefill) three times, its forward and its two backward
-    products (dx and dw; every product's input needs its gradient, the
-    first layer's through the embedding or the learned positions); each
-    attention (banded or not) and each scan once forward and once
-    backward, on the routes of the model's dtype (bf16: the attention
-    backward's wgmma, the scans' tensor-core kernels and the scan
-    backward's route, ssd_bwd_route's: "wgmma" at P 64, N 128, "simt" at
-    P 50, N 16; fp32: the CUDA cores).  The products by route
-    ("streamed_matmul_<route>"): an MoE layer's fp32 router three times on
-    "fp32"; its three grouped products three times each on
-    ``grouped_route``'s routes at the capacity of ``tokens`` (y; dx = dy
-    w^T, w transposed; dw = x^T dy, C padded as ``ops.pad_capacity``
-    pads it); every other product on "wgmma" (bf16) or "fp32"."""
+    gradient accumulation.  With per-layer recomputation (``recompute``,
+    the default: ``lm.run_stack``'s checkpoint of each layer step) each
+    product of a layer (``expected_launches``' count of one prefill, less
+    the unembedding) four times: its forward, its forward again in the
+    backward's recompute of the layer, and its two backward products (dx
+    and dw; every product's input needs its gradient, the first layer's
+    through the embedding or the learned positions); the unembedding,
+    outside the stacks, three times; each attention (banded or not) and
+    each scan twice forward and once backward.  Without it, every product
+    three times and each attention and scan once forward.  On the routes
+    of the model's dtype (bf16: the attention backward's wgmma, the scans'
+    tensor-core kernels and the scan backward's route, ssd_bwd_route's:
+    "wgmma" at P 64, N 128, "simt" at P 50, N 16; fp32: the CUDA cores).
+    The products by route ("streamed_matmul_<route>"): an MoE layer's fp32
+    router as often as a layer's product on "fp32"; its three grouped
+    products on ``grouped_route``'s routes at the capacity of ``tokens``
+    (y once, or twice with the recompute; dx = dy w^T, w transposed; dw =
+    x^T dy, C padded as ``ops.pad_capacity`` pads it); every other product
+    on "wgmma" (bf16) or "fp32"."""
     import torch
     from repro_torch.kernels.ssd_scan import (SSD_BWD_ROUTE_LAUNCHES,
                                               SSD_ROUTE_LAUNCHES,
@@ -1268,6 +1290,7 @@ def train_launches(cfg, steps, tokens):
                                                      grouped_route)
     from repro_torch.models.moe import _capacity
     launches, _, _ = expected_launches(cfg, 1, 0, 0, 0)
+    fwd = 2 if recompute else 1  # forwards of each layer step a train step
     attn = launches["flash_attention"] * steps
     scans = launches["ssd_scan"] * steps
     bf16 = cfg.compute_dtype == "bfloat16"
@@ -1276,25 +1299,25 @@ def train_launches(cfg, steps, tokens):
     bwd_routes = dict.fromkeys(SSD_BWD_ROUTE_LAUNCHES, 0)
     if scans:
         shape = (dtype, cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state)
-        scan_routes[ssd_route(*shape)] = scans
+        scan_routes[ssd_route(*shape)] = fwd * scans
         bwd_routes[ssd_bwd_route(*shape)] = scans
-    products = 3 * launches["streamed_matmul"] * steps
+    products = ((fwd + 2) * (launches["streamed_matmul"] - 1) + 3) * steps
     routes = dict.fromkeys(ROUTE_LAUNCHES, 0)
     n_moe = cfg.moe_layer_split()[0] if cfg.family == "moe" else 0
     if n_moe:
         E, d, f = cfg.n_experts, cfg.d_model, cfg.moe_d_ff
         C = _capacity(tokens, cfg.top_k, E, cfg.capacity_factor)
         Cp = -(-C // ROW_MULTIPLE) * ROW_MULTIPLE if bf16 else C
-        routes["fp32"] = 3 * n_moe * steps
+        routes["fp32"] = (fwd + 2) * n_moe * steps
         for K, N in ((d, f), (d, f), (f, d)):  # wg, wu, wd
-            for route in (grouped_route(E, C, N, K, dtype),
-                          grouped_route(E, C, K, N, dtype, w_t=1),
-                          grouped_route(E, K, N, Cp, dtype)):
-                routes[route] += n_moe * steps
+            for route, n in ((grouped_route(E, C, N, K, dtype), fwd),
+                             (grouped_route(E, C, K, N, dtype, w_t=1), 1),
+                             (grouped_route(E, K, N, Cp, dtype), 1)):
+                routes[route] += n * n_moe * steps
     routes["wgmma" if bf16 else "fp32"] += products - sum(routes.values())
     return {"streamed_matmul": products,
-            "flash_attention": attn, "decode_attention": 0,
-            "ssd_scan": scans, "flash_attention_bwd": attn,
+            "flash_attention": fwd * attn, "decode_attention": 0,
+            "ssd_scan": fwd * scans, "flash_attention_bwd": attn,
             "ssd_scan_bwd": scans,
             "flash_attention_bwd_wgmma": attn if bf16 else 0,
             "flash_attention_bwd_fp32": 0 if bf16 else attn,
@@ -1331,15 +1354,18 @@ def phase_train_parity(torch, model, window=None):
     (1000 eps) within 1e-3 lr, and each parameter leaf within 5e-3 lr on
     average.  Adam's first update is g / (|g| + eps) x lr, whose slope eps
     / (|g| + eps)^2 turns the noise of the sums of a gradient near eps into
-    up to 2 lr, and only there."""
+    up to 2 lr, and only there.  On the card, the loss and every gradient
+    of ``loss_and_grads`` with the per-layer recompute equal, bit for
+    bit, those without it (``set_recompute(False)``)."""
     from repro_torch import convert
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, make_batch
     from repro_torch.kernels import ops
     from repro_torch.models import build
+    from repro_torch.models.common import set_recompute, tree_leaves
     from repro_torch.train import (AdamWConfig, TrainConfig, init_state,
                                    make_train_step)
-    from repro_torch.train.loop import to_device
+    from repro_torch.train.loop import loss_and_grads, to_device
 
     cfg = dataclasses.replace(get_config(model), n_layers=2,
                               param_dtype="float32", compute_dtype="float32")
@@ -1360,6 +1386,20 @@ def phase_train_parity(torch, model, window=None):
     card, m_card = step(state, to_device(batch, "cuda"))
     torch.cuda.synchronize()
     launches = _counts(ops)
+    # the loss and every gradient on the card with the per-layer
+    # recompute and without it: equal bit for bit
+    on = loss_and_grads(bundle.loss, state["params"],
+                        to_device(batch, "cuda"))
+    set_recompute(False)
+    try:
+        off = loss_and_grads(bundle.loss, state["params"],
+                             to_device(batch, "cuda"))
+    finally:
+        set_recompute(True)
+    recompute_equal = torch.equal(on[0], off[0]) and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(on[2]),
+                                          tree_leaves(off[2])))
+    del on, off
     cpu, m_cpu = step(_to(state, "cpu"), to_device(batch, "cpu"))
     got, want = convert.flatten(_to(card, "cpu")), convert.flatten(cpu)
     worst = {"params_max_over_lr": 0.0, "params_max_over_lr_above_1000eps":
@@ -1385,9 +1425,13 @@ def phase_train_parity(torch, model, window=None):
           "dtype": "float32", "batch": [2, 64], "lr": lr,
           "sliding_window": cfg.sliding_window,
           "metrics_card_cpu": metrics, **worst, "launches": launches,
-          "expected_launches": expect})
+          "expected_launches": expect,
+          "recompute_off_loss_and_grads_equal": recompute_equal})
     del state, card, cpu, got, want
     free(torch)
+    if not recompute_equal:
+        raise AssertionError("the card's loss or gradients with the per-layer "
+                             "recompute differ from those without it")
     for k, (a, b) in metrics.items():
         if not abs(a - b) <= 1e-4 * (1 + abs(b)):
             raise AssertionError(f"train step {k}: card {a} != CPU {b}")
@@ -1447,18 +1491,7 @@ def phase_train(torch, dev, model, batch, seq, lr, path, steps=5,
             yield make_batch(dcfg, i)
             i += 1
 
-    def refuse(name):
-        def plain(*args, **kwargs):
-            raise AssertionError(f"{name} ran on the training path")
-        return plain
-
-    names = ("matmul_plain", "grouped_matmul_plain", "flash_attention_plain",
-             "flash_attention_lse_plain", "flash_attention_bwd_plain",
-             "ssd_scan_plain", "ssd_scan_bwd_plain")
-    saved = {n: getattr(ops, n) for n in names}
-    for n in names:
-        setattr(ops, n, refuse(n))
-    try:
+    with plain_refused(ops):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launches()
@@ -1466,9 +1499,6 @@ def phase_train(torch, dev, model, batch, seq, lr, path, steps=5,
                                     seed=SEED, device="cuda", log_every=1)
         stamps.append(time.perf_counter())
         launches, routes = _counts(ops), dict(ROUTE_LAUNCHES)
-    finally:
-        for n in names:
-            setattr(ops, n, saved[n])
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     step_s = [b - a for a, b in zip(stamps[:-1], stamps[1:])][:steps]
     warm = statistics.median(step_s[1:])
@@ -1562,6 +1592,120 @@ def phase_train(torch, dev, model, batch, seq, lr, path, steps=5,
                              "from the step without the restore")
     grouped = sum(n for r, n in routes.items() if "grouped" in r)
     return dict(launches, grouped=grouped) if grouped else launches
+
+
+@contextlib.contextmanager
+def plain_refused(ops):
+    """Every kernel's plain version raises if called (a training path runs
+    none of them on the card)."""
+    def refuse(name):
+        def plain(*args, **kwargs):
+            raise AssertionError(f"{name} ran on the training path")
+        return plain
+
+    names = ("matmul_plain", "grouped_matmul_plain", "flash_attention_plain",
+             "flash_attention_lse_plain", "flash_attention_bwd_plain",
+             "ssd_scan_plain", "ssd_scan_bwd_plain")
+    saved = {n: getattr(ops, n) for n in names}
+    for n in names:
+        setattr(ops, n, refuse(n))
+    try:
+        yield
+    finally:
+        for n in names:
+            setattr(ops, n, saved[n])
+
+
+def phase_train_100m(torch, dev):
+    """``examples/train_100m_torch.py --full`` on the card, through its
+    ``main``: llama_100m (12 layers, d 768, 12/4 heads, vocab 32000, bf16),
+    300 steps of 8 x 256 tokens, AdamW lr 1e-3 after 20 warmup steps, a
+    checkpoint every 100 steps; counts set to 0 just before.  The loss
+    falls (the example raises otherwise, and so does this phase), the
+    three checkpoints are written, the launches are ``train_launches``'
+    (every product on "wgmma", every attention backward on its wgmma
+    route) and no plain version ran; step time (the example's, from one
+    request for a batch to the next, checkpoints saved between), tokens/s,
+    peak memory and the stragglers the loop flagged."""
+    import importlib.util
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.streamed_matmul import ROUTE_LAUNCHES
+
+    t_phase = time.perf_counter()
+    spec = importlib.util.spec_from_file_location(
+        "train_100m_torch", ROOT / "examples" / "train_100m_torch.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    ckpt_dir = ROOT / "build" / "chip_smoke_train_100m"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    printed = io.StringIO()
+    with plain_refused(ops), contextlib.redirect_stdout(printed):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        out = example.main(["--full", "--checkpoint-dir", str(ckpt_dir)])
+        launches, routes = _counts(ops), dict(ROUTE_LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ckpts = sorted((d for d in os.listdir(ckpt_dir) if d.startswith("step-")),
+                   key=lambda d: int(d.split("-")[1]))
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    free(torch)
+    cfg = example.small_llama(True)
+    expect = train_launches(cfg, out["steps"], out["tokens_per_step"])
+    warm = statistics.median(out["step_s"][1:])
+    losses = out["losses"]
+    emit({"phase": "train_100m", "model": out["model"],
+          "n_params": out["n_params"], "n_layers": cfg.n_layers,
+          "dtype": cfg.param_dtype, "steps": out["steps"],
+          "tokens_per_step": out["tokens_per_step"],
+          "nvidia_smi": dev["smi"], "device": out["device"],
+          "losses": losses, "step_s_median_after_first": warm,
+          "step_s_max": max(out["step_s"]),
+          "tokens_per_s": out["tokens_per_step"] / warm,
+          "peak_mem_gb": peak_gb, "checkpoints": ckpts,
+          "stragglers": out["stragglers"], "launches": launches,
+          "expected_launches": expect, "matmul_routes": routes,
+          "printed": printed.getvalue().splitlines(),
+          "phase_s": time.perf_counter() - t_phase})
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"losses {losses}: not finite and falling")
+    if ckpts != ["step-100", "step-200", "step-300"]:
+        raise AssertionError(f"checkpoints {ckpts}, not one every 100 steps")
+    if launches != expect or routes["wgmma"] != launches["streamed_matmul"] \
+            or launches["flash_attention_bwd_wgmma"] != \
+            launches["flash_attention_bwd"]:
+        raise AssertionError(f"launch counts {launches} != {expect} or off "
+                             f"the bf16 kernels ({routes})")
+    return launches
+
+
+def phase_core():
+    """One seeded request stream (``launch/placement.py``: creates,
+    destroys and remaps on the paper's 6 x 6 SIM mesh) through
+    ``repro_torch.core``'s hypervisor with every mapper, ``ilp`` (scipy's
+    milp) included: the placements, the engine's counters and the host ms
+    of each stream; the same stream run twice gives the same trace.  The
+    core is numpy and scipy on the host; nothing runs on the card."""
+    from repro_torch import core
+    from repro_torch.core.engine.ilp import HAVE_MILP
+    from repro_torch.launch.placement import run_stream, summarize
+
+    if not HAVE_MILP:
+        raise AssertionError("scipy.optimize.milp is missing: the ilp mapper "
+                             "cannot run")
+    for mapper in sorted(core.engine.MAPPERS):
+        t0 = time.perf_counter()
+        trace = run_stream(core, mapper, SEED)
+        ms = (time.perf_counter() - t0) * 1e3
+        again = run_stream(core, mapper, SEED)
+        summary = summarize(trace)
+        emit({"phase": "core", "mapper": mapper, "seed": SEED,
+              "events": len(trace) - 1, "host_ms": ms,
+              "deterministic": trace == again, **summary})
+        if trace != again or not summary["placed"]:
+            raise AssertionError(f"{mapper}: the stream placed nothing or "
+                                 "differs when run again")
 
 
 def profile_train_step(torch, fn):

@@ -14,6 +14,20 @@ import torch
 
 Params = Dict[str, Any]
 
+_RECOMPUTE = {"on": True}
+
+
+def set_recompute(on: bool) -> None:
+    """Per-layer recomputation under grad (``lm.run_stack``): on by
+    default, as the JAX package's ``jax.checkpoint`` of every layer step
+    is unconditional.  Turned off only to compare a step with it and
+    without it."""
+    _RECOMPUTE["on"] = bool(on)
+
+
+def get_recompute() -> bool:
+    return _RECOMPUTE["on"]
+
 
 def dtype_of(name: str) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32,

@@ -9,18 +9,34 @@ stack loop (``run_stack``).  Parameters keep the JAX layout: ``stacks`` is
 a list with one tree per homogeneous stack, each leaf with a leading layer
 dim; PyTorch runs the stack as a loop over layer views instead of a scan.
 MoE interleaving (llama4) stacks (dense, moe) pairs, as in JAX.
+
+Per-layer recomputation, as the JAX package's ``jax.checkpoint`` of each
+scan step: under grad, with no caches, each layer step (all ``kinds`` of
+one step: llama4's (dense, moe) pair is one) runs through a non-reentrant
+``torch.utils.checkpoint``, so the autograd graph keeps only the step's
+input per step and the backward runs the step's forward again, layer by
+layer; activation memory is bounded by one layer's.  The JAX package also
+checkpoints inside attention (``models/attention.py:164,208``) and inside
+the SSD scan's chunk step (``models/ssd.py:136``): the port has nothing
+there to drop, since the backward kernels recompute from what the forward
+kernels leave (K2's from q, k, v, o and each row's lse; K4's the chunk
+states from the scan's inputs) and store no per-chunk activation.
+Prefill, decode and every ``no_grad``/``inference_mode`` run take no
+checkpoint.  ``common.set_recompute(False)`` turns it off.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops
 from .attention import DecodePosition
 from .blocks import block_forward, block_init, init_block_cache
 from .common import (Params, apply_norm, copy_tree_, dtype_of, embed_init,
-                     empty_stack, layer_slice, norm_init,
+                     empty_stack, get_recompute, layer_slice, norm_init,
                      softmax_cross_entropy, stack_trees)
 
 
@@ -95,6 +111,25 @@ def unembed(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
     return ops.matmul(x.reshape(B * S, d), w).reshape(B, S, w.shape[1])
 
 
+def layer_step(cfg, lp: Params, x: torch.Tensor, kinds: Tuple[str, ...],
+               lc=None, cache_pos=None, enc_out=None
+               ) -> Tuple[torch.Tensor, Dict[str, Any], Tuple[torch.Tensor,
+                                                              ...]]:
+    """One step of a stack, the body of the JAX package's scan: every block
+    of ``kinds`` on layer params ``lp`` (and caches ``lc``).  Returns (x,
+    the blocks' new caches, their aux losses): the aux losses leave as
+    outputs, so a recomputed step adds none of them again."""
+    new, aux = {}, []
+    for i, kind in enumerate(kinds):
+        x, new[f"b{i}"], a = block_forward(
+            cfg, lp[f"b{i}"], x, kind,
+            cache=lc[f"b{i}"] if lc is not None else None,
+            cache_pos=cache_pos, enc_out=enc_out)
+        if a is not None:
+            aux.append(a)
+    return x, new, tuple(aux)
+
+
 def run_stack(cfg, sp: Params, x: torch.Tensor, kinds: Tuple[str, ...],
               count: int, caches=None, cache_pos=None, collect: bool = True,
               enc_out=None) -> Tuple[torch.Tensor, Any, List[torch.Tensor]]:
@@ -104,19 +139,30 @@ def run_stack(cfg, sp: Params, x: torch.Tensor, kinds: Tuple[str, ...],
     (K/V, SSM state and conv tails, a decoder's cross K/V), or None when
     not ``collect``.  ``enc_out``: the encoder's output, for decoder
     blocks.  Last, the MoE blocks' aux losses in layer order (summed by the
-    loss alone, so a decode step adds nothing for them)."""
+    loss alone, so a decode step adds nothing for them).
+
+    Under grad without caches each step is recomputed in the backward
+    (the module docstring): its input ``x`` is the checkpoint's one tensor
+    argument; the layer's parameter views and ``enc_out`` reach it through
+    the closure, so the graph saves none of them per step.  The layers
+    draw no random numbers (no dropout, no sampling: the MoE routing is a
+    top-k and a cumsum), so the recompute needs no RNG state and none is
+    stashed (``preserve_rng_state=False``)."""
+    recompute = caches is None and get_recompute() and \
+        torch.is_grad_enabled()
     per_layer, aux = [], []
     for l in range(count):
         lp = layer_slice(sp, l)
-        lc = layer_slice(caches, l) if caches is not None else None
-        new = {}
-        for i, kind in enumerate(kinds):
-            x, new[f"b{i}"], a = block_forward(
-                cfg, lp[f"b{i}"], x, kind,
-                cache=lc[f"b{i}"] if lc is not None else None,
-                cache_pos=cache_pos, enc_out=enc_out)
-            if a is not None:
-                aux.append(a)
+        if recompute:
+            x, new, a = checkpoint(
+                functools.partial(layer_step, cfg, lp, kinds=kinds,
+                                  enc_out=enc_out),
+                x, use_reentrant=False, preserve_rng_state=False)
+        else:
+            lc = layer_slice(caches, l) if caches is not None else None
+            x, new, a = layer_step(cfg, lp, x, kinds, lc, cache_pos,
+                                   enc_out)
+        aux += a
         if collect and caches is None:
             per_layer.append(new)
     if caches is not None:

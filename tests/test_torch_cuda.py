@@ -838,8 +838,9 @@ def test_cuda_flash_attention_bwd_rejects_what_it_does_not_take(card):
 def test_cuda_train_two_steps_at_depth_2(card):
     """qwen2_0_5b at full width, two layers, bf16, batch 4 x seq 128: two
     train steps whose every product and attention, forward and backward,
-    is a kernel (3 products per forward product, one backward per
-    attention); the loss finite and falling."""
+    is a kernel (with the per-layer recompute, 4 products per forward
+    product of a layer, 3 for the unembedding; two forwards and one
+    backward per attention); the loss finite and falling."""
     from repro_torch.data import DataConfig, make_batch
     from repro_torch.train import (AdamWConfig, TrainConfig, init_state,
                                    make_train_step)
@@ -856,13 +857,14 @@ def test_cuda_train_two_steps_at_depth_2(card):
     for _ in range(2):
         state, m = step(state, batch)
         losses.append(float(m["loss"]))
-    assert ops.LAUNCHES == {"streamed_matmul": 2 * 3 * (7 * 2 + 1),
-                            "flash_attention": 2 * 2,
+    per_step = 4 * 7 * 2 + 3
+    assert ops.LAUNCHES == {"streamed_matmul": 2 * per_step,
+                            "flash_attention": 2 * 2 * 2,
                             "decode_attention": 0, "ssd_scan": 0}
     assert ops.GRAD_LAUNCHES == {"flash_attention_bwd": 2 * 2,
                                  "ssd_scan_bwd": 0}
     assert ops.launch_counts()[4] == {"wgmma": 2 * 2, "fp32": 0}
-    assert ROUTE_LAUNCHES["wgmma"] == 2 * 3 * (7 * 2 + 1)
+    assert ROUTE_LAUNCHES["wgmma"] == 2 * per_step
     assert all(np.isfinite(losses)) and losses[1] < losses[0]
     assert int(state["step"]) == 2
 
@@ -872,8 +874,9 @@ def test_cuda_moe_train_two_steps_at_depth_2(card):
     """deepseek_moe_16b at full width, two layers (one dense, one MoE),
     bf16, batch 4 x seq 128 (C 60 a layer: the grouped decode kernel):
     two train steps whose every product, grouped ones and the fp32 router
-    too, forward and backward, is a kernel (3 launches per forward
-    product); the loss finite and falling."""
+    too, forward and backward, is a kernel (with the per-layer recompute,
+    4 launches per forward product of a layer: y twice, dx and dw; 3 for
+    the unembedding); the loss finite and falling."""
     from repro_torch.data import DataConfig, make_batch
     from repro_torch.train import (AdamWConfig, TrainConfig, init_state,
                                    make_train_step)
@@ -892,18 +895,20 @@ def test_cuda_moe_train_two_steps_at_depth_2(card):
     for _ in range(2):
         state, m = step(state, batch)
         losses.append(float(m["loss"]))
-    per_step = 3 * (7 * 2 + 4 + 1)  # q k v o, FFN x 2, router, 3 grouped
+    # q k v o, FFN x 2 (dense), q k v o, router, 3 grouped, shared FFN x 3
+    # (MoE), four times; the unembedding three
+    per_step = 4 * (7 + 11) + 3
     assert ops.LAUNCHES == {"streamed_matmul": 2 * per_step,
-                            "flash_attention": 2 * 2,
+                            "flash_attention": 2 * 2 * 2,
                             "decode_attention": 0, "ssd_scan": 0}
     assert ops.GRAD_LAUNCHES == {"flash_attention_bwd": 2 * 2,
                                  "ssd_scan_bwd": 0}
-    # y and dx take the decode kernel (C 60 rows); dw = x^T dy the prefill
-    # kernel (d or f rows, C 60 deep, padded to 64)
+    # y (twice) and dx take the decode kernel (C 60 rows); dw = x^T dy the
+    # prefill kernel (d or f rows, C 60 deep, padded to 64)
     assert ROUTE_LAUNCHES == {
-        "wgmma": 2 * (per_step - 3 - 9), "wgmma_decode": 0, "wmma": 0,
-        "fp32": 2 * 3, "wgmma_grouped": 2 * 3,
-        "wgmma_grouped_decode": 2 * 6, "fp32_grouped": 0}
+        "wgmma": 2 * (per_step - 4 - 12), "wgmma_decode": 0, "wmma": 0,
+        "fp32": 2 * 4, "wgmma_grouped": 2 * 3,
+        "wgmma_grouped_decode": 2 * 9, "fp32_grouped": 0}
     assert all(np.isfinite(losses)) and losses[1] < losses[0]
     assert int(state["step"]) == 2
 
@@ -1132,10 +1137,11 @@ def test_cuda_flash_attention_bwd_band_is_deterministic(card, dtype):
 @pytest.mark.parametrize("arch", ["mamba2_1_3b", "hymba_1_5b"])
 def test_cuda_train_two_steps_ssd_families(card, arch):
     """mamba2_1_3b and hymba_1_5b (its window cut to 32, below the sequence)
-    at full width, two layers, bf16, batch 2 x seq 128: two train steps, one
-    scan backward per layer on its bf16 route (mamba2's on the tensor cores,
-    hymba's on the CUDA cores) and (hymba) one band backward per layer on
-    the wgmma route; the loss finite and falling."""
+    at full width, two layers, bf16, batch 2 x seq 128: two train steps, two
+    scan forwards per layer (with the per-layer recompute) and one scan
+    backward on its bf16 route (mamba2's on the tensor cores, hymba's on the
+    CUDA cores) and (hymba) one band backward per layer on the wgmma route;
+    the loss finite and falling."""
     from repro_torch.data import DataConfig, make_batch
     from repro_torch.kernels.ssd_scan import SSD_BWD_ROUTE_LAUNCHES
     from repro_torch.train import (AdamWConfig, TrainConfig, init_state,
@@ -1155,7 +1161,7 @@ def test_cuda_train_two_steps_ssd_families(card, arch):
     for _ in range(2):
         state, m = step(state, batch)
         losses.append(float(m["loss"]))
-    assert ops.LAUNCHES["ssd_scan"] == 2 * 2
+    assert ops.LAUNCHES["ssd_scan"] == 2 * 2 * 2
     assert ops.GRAD_LAUNCHES == {"flash_attention_bwd": 2 * 2 * hybrid,
                                  "ssd_scan_bwd": 2 * 2}
     assert SSD_BWD_ROUTE_LAUNCHES == {"wgmma": 2 * 2 * (not hybrid),

@@ -1,5 +1,6 @@
-"""The port stands alone: importing it pulls in neither jax, triton nor the
-JAX package, and no source of the port or of chip_smoke.py imports them."""
+"""The port stands alone: importing it, or its copy of the vNPU core alone,
+pulls in neither jax, triton nor the JAX package, and no source of the
+port or of chip_smoke.py imports them."""
 import os
 import re
 import subprocess
@@ -34,6 +35,20 @@ def test_import_pulls_in_no_jax_triton_or_reference():
     assert n_modules >= 20
 
 
+def test_core_import_pulls_in_no_jax():
+    """``repro_torch.core`` alone: the JAX package's ``core/__init__.py``
+    imports jax through ``vmesh``, which the copy leaves out."""
+    check = ("import sys, repro_torch.core; "
+             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+             "('jax', 'jaxlib', 'triton', 'repro', 'torch')); "
+             "print(len(repro_torch.core.__all__), bad); assert not bad, bad")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", check], env=env, cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert int(proc.stdout.split()[0]) == 44
+
+
 # "repro_torch" does not match: "_" continues the word after "repro"
 _IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|triton|repro)\b",
                      re.M)
@@ -41,7 +56,7 @@ _IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|triton|repro)\b",
 
 @pytest.mark.parametrize("path", sorted(
     [p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py")]
-    + ["chip_smoke.py"]))
+    + ["chip_smoke.py", "examples/train_100m_torch.py"]))
 def test_source_imports_no_jax_or_reference(path):
     text = (ROOT / path).read_text()
     assert not _IMPORT.findall(text), path

@@ -48,17 +48,22 @@ exits non-zero):
                ssd_scan: 1e-4 and 5e-2 of max |plain|, bf16 also within
                1e-2 of it, at the served shapes and at b 1, S 4096 from an
                initial state, there also with dt |A| small (A times 1e-4),
-               the state carried across all 64 sub-chunks, at both (P, N);
-               each call on its route),
+               the state carried across all 64 sub-chunks, at both (P, N),
+               and at the mesh phase's sequence shard, b 1, S 2048 of
+               mamba2_1_3b's heads from an initial state, long-memory, fp32
+               and bf16; each call on its route),
                the matmul grouped over experts (deepseek_moe_16b's expert
                FFN at a decode step, C 8, and a prefill, C 235;
-               llama4_maverick_400b_a17b's at C 8 and 80; each one launch
-               on its grouped route; bf16 also within 5e-5 + 1e-2 |plain|),
+               llama4_maverick_400b_a17b's at C 8 and 80; a mesh rank's
+               expert-parallel product, its 32 experts at C x M = 1536
+               rows; each one launch on its grouped route; bf16 also
+               within 5e-5 + 1e-2 |plain|),
                its backward products (dx = dy w^T, each expert's w^T read
                in place, and dw = x^T dy from a copy of x^T, which bf16
                pads along C to a multiple of 8, the copy's time apart) at
                deepseek_moe_16b's training capacity C 480 and at C 235
-               (padded) in bf16, at C 15 in fp32, and at
+               (padded) in bf16, at C 15 in fp32, at a mesh rank's 32
+               experts of 1536 rows in fp32 and bf16, and at
                llama4_maverick_400b_a17b's C 80 in bf16, each on its
                grouped route under both limits, its library torch.bmm,
                K1's backward products at qwen2_0_5b's training shapes
@@ -82,7 +87,13 @@ exits non-zero):
                and the long-memory inputs, b 1, S 4096, A times 1e-4, at
                both; 1e-4 and 5e-2 of max |plain|, bf16 also within 1e-2
                of it; library none), each backward also run twice and
-               held equal bit for bit,
+               held equal bit for bit, K2 with a query offset (a
+               sequence shard's queries against every key, forward and
+               backward, as the mesh phase runs it: deepseek_moe_16b's
+               (2, 256 of 512, 16/16, 128) at offsets 0 and 256 and
+               hymba_1_5b's band (1, 1024 of 2048, 25/5, 64, window
+               1024) at 1024; the loose and mean limits; its library SDPA
+               with an explicit boolean mask),
                with CUDA-event times of the kernel, the plain version and,
                where one exists, one PyTorch library call, and the least
                time the card could take (bound_ms); the summary line sums
@@ -163,7 +174,25 @@ exits non-zero):
                100: the loss falling, the three checkpoints written, the
                launches as train's, step time, tokens/s, peak memory and
                the stragglers flagged;
-9. core     -- one seeded stream of vNPU requests (launch/placement.py)
+9. mesh     -- deepseek_moe_16b at full width, depth 2, fp32, capacity
+               factor 16, batch 4 x 512, over a 2 x 2 tenant mesh that the
+               hypervisor places on 4 ranks (processes started with spawn
+               that share the one card through gloo, which NCCL refuses):
+               attention sharded by sequence (K2 with each shard's
+               offset), the experts over the model axis through the
+               all_to_all pair, every layer's weights gathered ZeRO-3
+               style; the logits and one make_train_step step against the
+               unsharded run on the card (its MoE aux loss the mesh's, the
+               mean of each rank's over its tokens), K4's
+               sequence-parallel scan over the data axis at mamba2_1_3b's
+               (1, 4096, 64, 64, 128) on long-memory inputs against the
+               scan of the whole sequence, fp32 and bf16, and one bf16
+               sharded step; per rank the placement, exact launch counts
+               (K1 and its grouped routes, K2 with and without an offset,
+               K4), each collective's bytes and transport, peak memory and
+               the step's wall ms (ranks sharing one card: no speed
+               figure) (``phase_mesh``);
+10. core    -- one seeded stream of vNPU requests (launch/placement.py)
                through repro_torch.core's hypervisor with every mapper,
                ilp included: the placements and the host ms of each, the
                stream run twice the same.
@@ -318,6 +347,7 @@ def main() -> int:
         launches[path] = phase_train(torch, dev, model, batch, seq, lr, path,
                                      depth=depth)
     launches["train_100m"] = phase_train_100m(torch, dev)
+    launches["mesh"] = phase_mesh(torch, dev)
     phase_core()
     summary = []
     for name, meta in KERNELS.items():
@@ -756,11 +786,15 @@ def phase_kernels(torch, dev):
     # down) at a decode step of its served batch 4 (C = max(8, ceil(4 x 6 /
     # 64 x 1.25)) = 8) and at a prefill of 4 x 501 tokens (C = 235), and
     # llama4_maverick_400b_a17b's (128 experts, top-1, d 5120, f 8192; its
-    # 10.7 GB of gate weights) at C 8 and at C 80, a prefill of 8192 tokens
+    # 10.7 GB of gate weights) at C 8 and at C 80, a prefill of 8192 tokens;
+    # and a rank's of the mesh phase, its E / M = 32 experts at C x M = 1536
+    # rows (MESH_CAPACITY_ROWS), which its all_to_all gathers
     for dtype in (torch.float32, torch.bfloat16):
         es = torch.tensor([], dtype=dtype).element_size()
         for E, C, K, N in ((64, 8, 2048, 1408), (64, 8, 1408, 2048),
                            (64, 235, 2048, 1408), (64, 235, 1408, 2048),
+                           (32, MESH_CAPACITY_ROWS, 2048, 1408),
+                           (32, MESH_CAPACITY_ROWS, 1408, 2048),
                            (128, 8, 5120, 8192), (128, 80, 5120, 8192)):
             x = randn(E, C, K, dtype=dtype)
             w = randn(E, K, N, dtype=dtype, scale=K ** -0.5)
@@ -788,7 +822,8 @@ def phase_kernels(torch, dev):
     # (ops.pad_capacity; its time apart, "xt_copy_ms").  deepseek_moe_16b's
     # gate/up (d 2048 -> f 1408) and down (f -> d) at its training capacity
     # (8 x 512 tokens: C 480) and at C 235 (a served prefill's, which takes
-    # the pad), in bf16; at train_parity's C 15 (2 x 64 tokens) in fp32; and
+    # the pad), in bf16; at train_parity's C 15 (2 x 64 tokens) in fp32; at
+    # a mesh rank's 32 experts of 1536 rows in fp32 and bf16; and
     # llama4_maverick_400b_a17b's gate (128 experts, 5120 -> 8192) at C 80.
     # The bytes: x, dy and the gradient once (C unpadded); the operations
     # 2 E C K N; the library torch.bmm on the kernel's views
@@ -812,6 +847,9 @@ def phase_kernels(torch, dev):
                               (torch.bfloat16, 64, 235, 1408, 2048),
                               (torch.float32, 64, 15, 2048, 1408),
                               (torch.float32, 64, 15, 1408, 2048),
+                              *((dt, 32, MESH_CAPACITY_ROWS, K, N)
+                                for dt in (torch.float32, torch.bfloat16)
+                                for K, N in ((2048, 1408), (1408, 2048))),
                               (torch.bfloat16, 128, 80, 5120, 8192)):
         es = torch.tensor([], dtype=dtype).element_size()
         n_bytes = es * (E * C * K + E * C * N + E * K * N)
@@ -1002,6 +1040,76 @@ def phase_kernels(torch, dev):
         del q, k, v, do, o, lse, got, qt, kt, vt, out, dot, fns, band
         free(torch)
 
+    # K2 with a query offset, forward and backward: a sequence shard's Sq
+    # queries at positions q_offset + r against all Skv keys, causal, as
+    # the sequence-sharded attention of the mesh phase runs it:
+    # deepseek_moe_16b's two shards of 512 (B 2, 16/16, hd 128) at offsets
+    # 0 and 256, and hymba_1_5b's second shard of 2048 (B 1, 25/5, hd 64)
+    # under its window of 1024.  (B, Sq, Skv, q_offset, H, KV, hd, window).
+    # The least work counts the keys each row attends, min(q_offset + r +
+    # 1, window), and the bytes of the keys any row attends (from the
+    # band's first to the shard's last row); the library is SDPA with an
+    # explicit boolean mask (its is_causal aligns the mask top-left, which
+    # is not the shard's), its autograd backward for the backward.
+    for dtype in (torch.float32, torch.bfloat16):
+        es = torch.tensor([], dtype=dtype).element_size()
+        for B, Sq, Skv, off, H, KV, hd, window in (
+                (2, 256, 512, 0, 16, 16, 128, 0),
+                (2, 256, 512, 256, 16, 16, 128, 0),
+                (1, 1024, 2048, 1024, 25, 5, 64, 1024)):
+            q = randn(B, Sq, H, hd, dtype=dtype)
+            k = randn(B, Skv, KV, hd, dtype=dtype)
+            v = randn(B, Skv, KV, hd, dtype=dtype)
+            do = randn(B, Sq, H, hd, dtype=dtype)
+            mask = dict(causal=True, window=window, q_offset=off)
+            rows = off + torch.arange(Sq, device="cuda")[:, None]
+            cols = torch.arange(Skv, device="cuda")[None, :]
+            allowed = (cols <= rows) & ((rows - cols < window) if window
+                                        else True)
+            keys = sum(min(off + r + 1, window or Skv) for r in range(Sq))
+            lo = max(0, off - window + 1) if window else 0
+            kv_bytes = es * 2 * B * (off + Sq - lo) * KV * hd
+            qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                          for t in (q, k, v))
+            ops.reset_launches()
+            got = ops.flash_attention(q, k, v, **mask)
+            o, lse = ops.flash_attention_lse(q, k, v, **mask)
+            grads = ops.flash_attention_bwd(q, k, v, o, do, lse=lse, **mask)
+            if ops.OFFSET_LAUNCHES != {"flash_attention": 2,
+                                       "flash_attention_bwd": 1}:
+                raise AssertionError(f"K2 with an offset did not launch as "
+                                     f"asked: {ops.OFFSET_LAUNCHES}")
+            shape = [B, Sq, Skv, H, KV, hd, "q_offset", off] + (
+                ["window", window] if window else [])
+            fns = (lambda: ops.flash_attention(q, k, v, **mask),
+                   lambda: flash_attention_plain(q, k, v, **mask),
+                   lambda: F.scaled_dot_product_attention(
+                       qt.detach(), kt.detach(), vt.detach(),
+                       attn_mask=allowed, enable_gqa=True))
+            check("flash_attention", shape, dtype, got,
+                  flash_attention_plain(q, k, v, **mask),
+                  es * 2 * B * Sq * H * hd + kv_bytes, 4 * hd * B * H * keys,
+                  fns, mean_rel=MEAN_TOL[dtype])
+            out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=allowed,
+                                                 enable_gqa=True)
+            dot = do.transpose(1, 2)
+            route = "wgmma" if dtype == torch.bfloat16 else "fp32"
+            same_bits(lambda: ops.flash_attention_bwd(q, k, v, o, do, lse=lse,
+                                                      **mask))
+            fns = (lambda: ops.flash_attention_bwd(q, k, v, o, do, lse=lse,
+                                                   **mask),
+                   lambda: flash_attention_bwd_plain(q, k, v, o, do, **mask),
+                   lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                               retain_graph=True))
+            check("flash_attention_bwd", shape, dtype, grads,
+                  flash_attention_bwd_plain(q, k, v, o, do, **mask),
+                  es * (4 * B * Sq * H * hd) + 2 * kv_bytes + 4 * B * H * Sq,
+                  5 * 2 * hd * B * H * keys, fns,
+                  mean_rel=BWD_MEAN_TOL[dtype], route=route)
+            del q, k, v, do, o, lse, got, grads, qt, kt, vt, out, dot, fns
+            del allowed
+            free(torch)
+
     # decode_attention: one token against a 1k cache; qwen2_0_5b's heads at
     # four lengths (487 is a served one), llama3_2_1b's (32 over 8, hd 64),
     # qwen2_7b's at its B 4 (28 over 4, hd 128), qwen3_4b's (32 over 8,
@@ -1058,7 +1166,10 @@ def phase_kernels(torch, dev):
     # both (P, N) the long-memory case, b 1, S 4096 from an initial state
     # with A times 1e-4, so that dt |A| is small and the state carries
     # across all 64 sub-chunks (a state carried in bf16 would miss the fine
-    # limit there: tests/test_torch_kernels.py).  The least operations form
+    # limit there: tests/test_torch_kernels.py); and the mesh phase's shard
+    # of that case, S 2048 of 4096 at P 64, N 128, from an initial state (as
+    # seq_parallel_ssd's second pass runs it), fp32 and bf16.  The least
+    # operations form
     # C B^T once per (batch row, chunk of 256) and the rest per head; no
     # PyTorch call computes the scan (library: none).
     H, chunk = 64, 256
@@ -1068,6 +1179,10 @@ def phase_kernels(torch, dev):
                  (torch.bfloat16, 8, 449, False, 64, 128, 1.0),
                  (torch.bfloat16, 1, 4096, True, 64, 128, 1.0),
                  (torch.bfloat16, 1, 4096, True, 64, 128, 1e-4),
+                 (torch.float32, 1, MESH_SCAN[1] // MESH[0], True, 64, 128,
+                  1e-4),
+                 (torch.bfloat16, 1, MESH_SCAN[1] // MESH[0], True, 64, 128,
+                  1e-4),
                  (torch.float32, 8, 512, False, 50, 16, 1.0),
                  (torch.float32, 8, 449, False, 50, 16, 1.0),
                  (torch.bfloat16, 8, 512, False, 50, 16, 1.0),
@@ -1260,7 +1375,8 @@ def phase_parity(torch, model, window=None):
                                  "replay its graph for every decode step")
 
 
-def train_launches(cfg, steps, tokens, recompute=True):
+def train_launches(cfg, steps, tokens, recompute=True, experts=None,
+                   rows=None):
     """Kernel launches of ``steps`` train steps of ``tokens`` tokens with no
     gradient accumulation.  With per-layer recomputation (``recompute``,
     the default: ``lm.run_stack``'s checkpoint of each layer step) each
@@ -1280,7 +1396,8 @@ def train_launches(cfg, steps, tokens, recompute=True):
     products on ``grouped_route``'s routes at the capacity of ``tokens``
     (y once, or twice with the recompute; dx = dy w^T, w transposed; dw =
     x^T dy, C padded as ``ops.pad_capacity`` pads it); every other product
-    on "wgmma" (bf16) or "fp32"."""
+    on "wgmma" (bf16) or "fp32".  Under expert parallelism a rank's grouped
+    products take its ``experts`` (E / M) at ``rows`` (C M) per expert."""
     import torch
     from repro_torch.kernels.ssd_scan import (SSD_BWD_ROUTE_LAUNCHES,
                                               SSD_ROUTE_LAUNCHES,
@@ -1307,6 +1424,7 @@ def train_launches(cfg, steps, tokens, recompute=True):
     if n_moe:
         E, d, f = cfg.n_experts, cfg.d_model, cfg.moe_d_ff
         C = _capacity(tokens, cfg.top_k, E, cfg.capacity_factor)
+        E, C = experts or E, rows or C
         Cp = -(-C // ROW_MULTIPLE) * ROW_MULTIPLE if bf16 else C
         routes["fp32"] = (fwd + 2) * n_moe * steps
         for K, N in ((d, f), (d, f), (f, d)):  # wg, wu, wd
@@ -1678,6 +1796,422 @@ def phase_train_100m(torch, dev):
         raise AssertionError(f"launch counts {launches} != {expect} or off "
                              f"the bf16 kernels ({routes})")
     return launches
+
+
+# the mesh phase: deepseek_moe_16b at full width, depth 2 (one dense and
+# one MoE layer), fp32, capacity factor 16 (nothing dropped), a batch of
+# 4 x 512, over a 2 x 2 ("data", "model") tenant that the hypervisor places
+# on a 2 x 2 topology of 4 ranks; the ranks are processes that share the one
+# card through the gloo backend (NCCL refuses two ranks on one device).  And
+# K4's sequence-parallel scan at mamba2_1_3b's (b 1, S 4096, H 64, P 64, N
+# 128) on long-memory inputs (A times 1e-4), over the data axis.
+MESH = (2, 2)
+MESH_BATCH, MESH_SEQ, MESH_LR = 4, 512, 3e-4
+MESH_SCAN = (1, 4096, 64, 64, 128)
+# a rank's rows at its grouped products: the capacity of its 2 x 256 tokens
+# (ceil(512 x 6 / 64 x 16) = 768) times the M ranks its all_to_all gathers
+MESH_CAPACITY_ROWS = 768 * MESH[1]
+# the phase's own limit on its ranks (measured 68-79 s on the H100), and
+# below it each collective's, so that a hung rank fails the phase with its
+# exit code well inside the script's 1200 s
+MESH_TIMEOUT_S, MESH_COLLECTIVE_TIMEOUT_S = 240, 180
+
+
+def mesh_config(dtype):
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("deepseek_moe_16b"), n_layers=2,
+                               param_dtype=dtype, compute_dtype=dtype,
+                               capacity_factor=16.0)
+
+
+def mesh_batch(torch, cfg):
+    from repro_torch.data import DataConfig, make_batch
+    batch = make_batch(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=MESH_SEQ, global_batch=MESH_BATCH,
+        seed=SEED, family=cfg.family, frontend_seq=cfg.enc_seq,
+        frontend_dim=cfg.frontend_dim), 0)
+    return {k: torch.as_tensor(v).cuda() for k, v in batch.items()}
+
+
+@contextlib.contextmanager
+def mesh_aux_loss(torch):
+    """The unsharded model with the MoE aux loss that a (data, model) mesh
+    of ``MESH`` defines (the JAX package's ``moe_forward``: the mean over
+    the ranks of each rank's aux loss over its own tokens, a data shard's
+    rows and a model shard's positions): the routed output from every
+    token at once, the aux loss per token block.  Capacity factor 16 drops
+    nothing, so the output is the same either way."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe
+    local_moe = moe._local_moe
+    D, M = MESH
+
+    def partitioned(cfg, x_flat, router_w, wg, wu, wd, **kw):
+        y, _ = local_moe(cfg, x_flat, router_w, wg, wu, wd, **kw)
+        E, k = cfg.n_experts, cfg.top_k
+        probs = torch.softmax(ops.matmul(x_flat.float(), router_w), dim=-1)
+        idx = torch.topk(probs, k, dim=-1).indices
+        probs = probs.view(D, MESH_BATCH // D, M, MESH_SEQ // M, E)
+        idx = idx.view(D, MESH_BATCH // D, M, MESH_SEQ // M, k)
+        auxes = []
+        for i in range(D):
+            for j in range(M):
+                p, ix = probs[i, :, j].reshape(-1, E), idx[i, :, j].reshape(-1)
+                ce = torch.bincount(ix, minlength=E).float() / ix.numel()
+                auxes.append(E * torch.sum(p.mean(dim=0) * ce))
+        return y, torch.stack(auxes).mean()
+
+    moe._local_moe = partitioned
+    try:
+        yield
+    finally:
+        moe._local_moe = local_moe
+
+
+def mesh_scan_inputs(torch, dtype):
+    """K4's long-memory inputs at ``MESH_SCAN``, the same on every rank."""
+    import torch.nn.functional as F
+    b, S, H, P, N = MESH_SCAN
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+
+    def randn(*shape, scale=1.0, dt=dtype):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * scale).to(dt)
+    x = randn(b, S, H, P, scale=0.5)
+    dt = F.softplus(randn(b, S, H, dt=torch.float32))
+    A = -torch.exp(randn(H, scale=0.3, dt=torch.float32)) * 1e-4
+    return x, dt, A, randn(b, S, N, scale=0.5), randn(b, S, N, scale=0.5)
+
+
+def phase_mesh(torch, dev):
+    """The port's sharded path over a hypervisor-placed tenant mesh (see
+    ``MESH``): the unsharded references on the card in this process (the
+    forward logits; one ``make_train_step`` step with the mesh's aux loss,
+    ``mesh_aux_loss``; K4 over the whole sequence, fp32 and bf16), then 4
+    ranks started with spawn on cuda:0 (``mesh_rank``), each running the
+    same work sharded: attention in seq mode (K2 with each shard's
+    q_offset), the MoE layer's experts over the model axis through the
+    all_to_all pair, ZeRO-3 gathers of every layer's weights, and
+    ``seq_parallel_ssd`` over the data axis.  Limits, each against the
+    unsharded run: the logits 2e-4 (1 + |ref|) (fp32, as the kernels
+    phase); the scan 1e-4 (fp32), 5e-2 and 1e-2 (bf16) of max |ref|; the
+    step as train_parity holds the card against the CPU (its sums differ
+    only in order here too): the loss, aux loss and gradient norm within
+    1e-4 (1 + |ref|), every moment within 1e-4 of its leaf's largest value,
+    every parameter whose moment is above 1e-6 (a clipped gradient above
+    1000 eps) within 1e-3 lr and each leaf within 5e-3 lr on average.  Each
+    rank's launches of K1 (grouped too, by route), K2 (with and without an
+    offset) and K4 are held exact; its collectives' bytes and transport,
+    its peak memory and the wall ms of its step are printed, and one bf16
+    sharded step's launches and peak too, its loss and aux loss within
+    2e-2 (1 + |ref|) of the fp32 unsharded step's (the same weights
+    rounded).  The rank's own kernel shapes (its grouped products, its scan
+    shard) are held against their plain versions in the kernels phase.  The ranks share one card: their
+    times are no speed figure."""
+    import multiprocessing as mp
+    import socket
+    from repro_torch.kernels import ops
+    from repro_torch.models import build
+    from repro_torch.train import AdamWConfig, TrainConfig, init_state
+    from repro_torch.train import make_train_step
+
+    t_phase = time.perf_counter()
+    work = ROOT / "build" / "mesh_phase"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    cfg = mesh_config("float32")
+    bundle = build(cfg)
+    params = bundle.init(SEED, device="cuda")
+    batch = mesh_batch(torch, cfg)
+    with torch.inference_mode():
+        torch.save(bundle.forward(params, batch).cpu(), work / "logits.pt")
+    tcfg = TrainConfig(opt=AdamWConfig(lr=MESH_LR, warmup_steps=1))
+    step = make_train_step(bundle.loss, tcfg)
+    state = init_state(params, tcfg.opt)
+    with mesh_aux_loss(torch):
+        step(state, batch)  # warm-up: the timed step below is the second
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+    torch.save({"params": _to(new["params"], "cpu"),
+                "m": _to(new["opt"]["m"], "cpu"),
+                "metrics": {k: float(v) for k, v in metrics.items()}},
+               work / "step.pt")
+    scans = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        y, _ = ops.ssd_scan(*mesh_scan_inputs(torch, dtype), chunk=256)
+        scans[str(dtype).split(".")[-1]] = y.cpu()
+    torch.save(scans, work / "scan.pt")
+    del params, batch, state, new, metrics, step, bundle, y
+    free(torch)
+    ref_s = time.perf_counter() - t_phase
+
+    with socket.socket() as sock:  # a free port for the ranks' store
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    world = MESH[0] * MESH[1]
+    ctx = mp.get_context("spawn")  # this process holds a CUDA context
+    procs = [ctx.Process(target=mesh_rank, args=(r, world, port, str(work)))
+             for r in range(world)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    deadline = t0 + MESH_TIMEOUT_S
+    while True:  # until all end, one fails or the phase's time is up
+        codes = [p.exitcode for p in procs]
+        if any(c not in (None, 0) for c in codes) or \
+                time.perf_counter() > deadline or all(c == 0 for c in codes):
+            break
+        time.sleep(0.2)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+        p.join()
+    codes = [p.exitcode for p in procs]
+    ranks_s = time.perf_counter() - t0
+    results = []
+    for r in range(world):
+        path = work / f"rank{r}.json"
+        results.append(json.loads(path.read_text()) if path.exists()
+                       else None)
+    for res in results:
+        if res is not None:
+            emit(res)
+    launches = {}
+    for res in results:
+        for k, n in (res or {}).get("launches", {}).items():
+            launches[k] = launches.get(k, 0) + n
+    emit({"phase": "mesh", "world": world, "mesh": list(MESH),
+          "exit_codes": codes, "reference_s": ref_s, "ranks_s": ranks_s,
+          "unsharded_step_ms": step_ms,
+          "unsharded_step_note": "one process alone on the card",
+          "launches_all_ranks": launches,
+          "seconds": time.perf_counter() - t_phase})
+    shutil.rmtree(work, ignore_errors=True)
+    if codes != [0] * world or None in results:
+        raise AssertionError(f"the mesh phase's ranks failed or timed out: "
+                             f"exit codes {codes}")
+    return launches
+
+
+def mesh_rank(rank, world, port, work):
+    """One rank of the mesh phase (``phase_mesh``): it loads the kernels the
+    parent built, joins the world, builds the hypervisor's tenant mesh,
+    runs the sharded work and writes its line to ``work/rank<r>.json``; an
+    error ends the process with a non-zero exit code."""
+    try:
+        _mesh_rank(rank, world, port, Path(work))
+    except BaseException:
+        import traceback
+        traceback.print_exc()
+        sys.stderr.flush()
+        os._exit(1)
+
+
+def _mesh_rank(rank, world, port, work):
+    sys.path.insert(0, str(SRC))
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    from repro_torch import convert
+    from repro_torch.core import (DeviceTopology, Hypervisor, allocate_tenant,
+                                  mesh_2d)
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ssd_scan import ssd_route
+    from repro_torch.models import build
+    from repro_torch.models.common import (clear_mesh_context, map_tree,
+                                           set_mesh_context)
+    from repro_torch.models.moe import _capacity
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel.seqparallel import seq_parallel_ssd
+    from repro_torch.train import AdamWConfig, TrainConfig, init_state
+    from repro_torch.train import make_train_step
+
+    backend = coll.init_world(rank, world, port, "cuda",
+                              timeout_s=MESH_COLLECTIVE_TIMEOUT_S)
+    dt = DeviceTopology.from_ranks(list(range(world)), MESH)
+    hyp = Hypervisor(dt.topo, hbm_bytes=64 << 30)
+    tenant = allocate_tenant(hyp, dt, mesh_2d(*MESH, base_id=100),
+                             device_type=coll.mesh_device_type(backend))
+    mesh = tenant.mesh
+    coords = {a: coll.axis_index(mesh, a) for a in mesh.mesh_dim_names}
+    placement = [{"virtual": v, "physical_core": p, "rank": dt.rank_for(p)}
+                 for v, p in sorted(tenant.vnpu.assignment.items())]
+    D, M = MESH
+    out = {"phase": "mesh_rank", "rank": rank, "backend": backend,
+           "mesh_coords": coords, "tenant_grid": mesh.mesh.tolist(),
+           "placement": placement,
+           "note": "4 ranks share one H100 through gloo: times are not a "
+                   "speed figure"}
+    checks = {}
+
+    def counts():
+        c = _counts(ops)
+        c.update({f"offset_{k}": n for k, n in ops.OFFSET_LAUNCHES.items()})
+        return c
+
+    def close(got, want, tol):
+        d = (got.float() - want.float()).abs()
+        return d.max().item(), bool((d <= tol * (1 + want.float().abs()))
+                                    .all())
+
+    # the sharded forward and train step, fp32 and bf16
+    for dtype in ("float32", "bfloat16"):
+        cfg = mesh_config(dtype)
+        bundle = build(cfg)
+        specs = shd.param_specs(bundle.param_logical_axes(),
+                                shd.param_rules(mesh))
+        local = shd.shard_tree(bundle.init(SEED, device="cuda"), specs, mesh)
+        torch.cuda.empty_cache()
+        batch = mesh_batch(torch, cfg)
+        lbatch = shd.shard_tree(batch, shd.batch_specs(batch, mesh), mesh)
+        set_mesh_context(mesh, shd.batch_axes(mesh))
+        tokens = lbatch["tokens"].numel() // M  # a rank's tokens at a MoE layer
+        C = _capacity(tokens, cfg.top_k, cfg.n_experts, cfg.capacity_factor)
+        # the kernels phase holds the grouped products at these shapes
+        checks["grouped_shape_in_kernels_phase"] = {
+            "ok": C * M == MESH_CAPACITY_ROWS and cfg.n_experts // M == 32,
+            "rows": C * M, "experts": cfg.n_experts // M}
+        expect = train_launches(cfg, 1, tokens, experts=cfg.n_experts // M,
+                                rows=C * M)
+        attn = expect["flash_attention_bwd"]
+        expect.update(offset_flash_attention=2 * attn,
+                      offset_flash_attention_bwd=attn)
+        if dtype == "float32":
+            ops.reset_launches()
+            with torch.inference_mode():
+                logits = bundle.forward(local, lbatch)
+            torch.cuda.synchronize()
+            fwd = counts()
+            want = torch.load(work / "logits.pt", mmap=True)
+            rows = slice(coords["data"] * logits.shape[0],
+                         (coords["data"] + 1) * logits.shape[0])
+            err, ok = close(logits.cpu(), want[rows], 2e-4)
+            checks["logits"] = {"max_abs_err": err, "ok": ok,
+                                "rule": "|sharded - unsharded| <= 2e-4 (1 + "
+                                        "|unsharded|)"}
+            # one forward: each product once (a train step's 4 a layer
+            # product and 3 for the unembedding), each attention once
+            fwd_expect = {"streamed_matmul":
+                          (expect["streamed_matmul"] - 3) // 4 + 1,
+                          "flash_attention": attn,
+                          "offset_flash_attention": attn}
+            out["forward_launches"] = {k: fwd[k] for k in fwd_expect}
+            checks["forward_launches"] = {"ok": out["forward_launches"] ==
+                                          fwd_expect, "expected": fwd_expect}
+            del logits, want
+        tcfg = TrainConfig(opt=AdamWConfig(lr=MESH_LR, warmup_steps=1))
+        step = make_train_step(bundle.loss, tcfg, mesh=mesh, specs=specs)
+        state = init_state(local, tcfg.opt)
+        coll.reset_stats()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        new, metrics = step(state, lbatch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        got = counts()
+        key = f"step_{dtype}"
+        out[key] = {"wall_ms": wall_ms,
+                    "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                    "metrics": {k: float(v) for k, v in metrics.items()},
+                    "launches": {k: got[k] for k in expect},
+                    "collectives": coll.stats_line()}
+        checks[f"{key}_launches"] = {"ok": out[key]["launches"] == expect,
+                                     "expected": expect}
+        out.setdefault("launches", {})
+        for k in ("streamed_matmul", "flash_attention", "flash_attention_bwd",
+                  "ssd_scan", "ssd_scan_bwd", "decode_attention"):
+            out["launches"][k] = out["launches"].get(k, 0) + got.get(k, 0)
+        if dtype == "float32":
+            ref = torch.load(work / "step.pt", mmap=True)
+            m_ok = [abs(float(metrics[k]) - ref["metrics"][k])
+                    <= 1e-4 * (1 + abs(ref["metrics"][k]))
+                    for k in ("loss", "aux_loss", "grad_norm")]
+            sizes = shd.mesh_shape(mesh).shape
+            worst = {"params_max_over_lr_above_1000eps": 0.0,
+                     "params_mean_over_lr": 0.0, "moments_rel": 0.0}
+            block = lambda t, s: shd.local_block(  # noqa: E731
+                t, s, sizes, coords)
+            mine_p = convert.flatten(new["params"])
+            mine_m = convert.flatten(new["opt"]["m"])
+            ref_p = convert.flatten(map_tree(block, ref["params"], specs))
+            ref_m = convert.flatten(map_tree(block, ref["m"], specs))
+            for name in mine_p:
+                rp, rm = ref_p[name].cuda(), ref_m[name].cuda()
+                dp = (mine_p[name].double() - rp.double()).abs()
+                above = rm.abs() > 1e-6
+                if above.any():
+                    worst["params_max_over_lr_above_1000eps"] = max(
+                        worst["params_max_over_lr_above_1000eps"],
+                        dp[above].max().item() / MESH_LR)
+                worst["params_mean_over_lr"] = max(
+                    worst["params_mean_over_lr"], dp.mean().item() / MESH_LR)
+                worst["moments_rel"] = max(
+                    worst["moments_rel"],
+                    (mine_m[name].double() - rm.double()).abs().max().item()
+                    / max(rm.abs().max().item(), 1e-30))
+            out[key]["unsharded_metrics"] = ref["metrics"]
+            out[key].update(worst)
+            checks["step"] = {"ok": all(m_ok)
+                              and worst["params_max_over_lr_above_1000eps"]
+                              <= 1e-3 and worst["params_mean_over_lr"] <= 5e-3
+                              and worst["moments_rel"] <= 1e-4}
+            del ref, ref_p, ref_m, mine_p, mine_m
+        else:  # the same weights rounded to bf16: the loss near fp32's
+            ref = torch.load(work / "step.pt", mmap=True)["metrics"]
+            checks["step_bfloat16_loss"] = {
+                "ok": all(abs(float(metrics[k]) - ref[k])
+                          <= TOL["bfloat16"] * (1 + abs(ref[k]))
+                          for k in ("loss", "aux_loss")),
+                "rule": "|bf16 sharded - fp32 unsharded| <= 2e-2 (1 + "
+                        "|fp32|), loss and aux loss"}
+        clear_mesh_context()
+        del local, state, new, step, batch, lbatch, metrics
+        torch.cuda.empty_cache()
+
+    # K4's sequence-parallel scan over the data axis (the model ranks of a
+    # data row run the same shard)
+    want = torch.load(work / "scan.pt", mmap=True)
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        x, dt_, A, Bm, Cm = mesh_scan_inputs(torch, dtype)
+        seq = lambda t: shd.local_block(  # noqa: E731
+            t, (None, "data"), shd.mesh_shape(mesh).shape, coords).contiguous()
+        ops.reset_launches()
+        coll.reset_stats()
+        y = seq_parallel_ssd(seq(x), seq(dt_), A, seq(Bm), seq(Cm),
+                             chunk=256, mesh=mesh, axis="data")
+        torch.cuda.synchronize()
+        got = counts()
+        route = ssd_route(dtype, *MESH_SCAN[2:])
+        ref = shd.local_block(want[name], (None, "data"),
+                              shd.mesh_shape(mesh).shape, coords)
+        d = (y.cpu().float() - ref.float()).abs().max().item()
+        tol = min(SSD_TOL[name], SSD_FINE_TOL.get(name, 1.0))
+        scale = ref.float().abs().max().item()
+        out[f"scan_{name}"] = {"max_abs_err": d, "max_ref": scale,
+                               "tol": tol, "route": route,
+                               "launches": {"ssd_scan": got["ssd_scan"],
+                                            f"ssd_scan_{route}":
+                                            got[f"ssd_scan_{route}"]},
+                               "collectives": coll.stats_line()}
+        checks[f"scan_{name}"] = {"ok": d <= tol * scale
+                                  and got["ssd_scan"] == 2
+                                  and got[f"ssd_scan_{route}"] == 2}
+        out["launches"]["ssd_scan"] += got["ssd_scan"]
+    out["checks"] = checks
+    (work / f"rank{rank}.json").write_text(json.dumps(out))
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    bad = [k for k, c in checks.items() if not c["ok"]]
+    if bad:
+        raise AssertionError(f"rank {rank}: {bad} failed")
 
 
 def phase_core():

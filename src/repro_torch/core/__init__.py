@@ -17,10 +17,11 @@ techniques:
 * :mod:`.simulator` / :mod:`.workloads` — the DCRA-style performance model
   behind the paper-figure benchmarks.
 
-``vmesh`` (virtual NPUs as device submeshes: ``DeviceTopology``,
-``TenantMesh``, ``virtual_mesh``, ``allocate_tenant``, ``elastic_remap``,
-``device_permutation``) is not copied: it comes with the sharding, as a
-``torch.distributed`` device mesh, where a mesh is first used.
+* :mod:`.vmesh` — virtual NPUs as ``torch.distributed`` device meshes:
+  not a copy but the port of the JAX package's ``vmesh`` (a
+  ``jax.sharding.Mesh`` there).  Its names are exported as the reference
+  exports them, and imported at their first use, so ``import
+  repro_torch.core`` alone stays free of torch.
 """
 from .topology import Topology, mesh_2d, line, ring, enumerate_connected_subsets
 from .routing_table import (DenseRoutingTable, CompactRoutingTable,
@@ -59,4 +60,16 @@ __all__ = [
     "Hypervisor", "VNPURequest", "VirtualNPU", "AllocationError",
     "MIGPartition", "MIGPartitioner", "UVMAllocator",
     "make_standard_hypervisor",
+    "DeviceTopology", "TenantMesh", "virtual_mesh", "allocate_tenant",
+    "elastic_remap", "device_permutation",
 ]
+
+_VMESH = {"DeviceTopology", "TenantMesh", "virtual_mesh", "allocate_tenant",
+          "elastic_remap", "device_permutation"}
+
+
+def __getattr__(name):
+    if name in _VMESH:
+        from . import vmesh
+        return getattr(vmesh, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

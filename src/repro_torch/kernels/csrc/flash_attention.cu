@@ -2,15 +2,21 @@
 // with grouped-query heads read in place, and a sliding-window band: with
 // window w > 0 (causal only) query row r attends keys r - w < j <= r.  Not
 // causal, the Skv keys may be more or fewer than the Sq queries (a
-// cross-attention); causal, Sq = Skv.
+// cross-attention); causal, the Sq queries sit at positions q_offset ..
+// q_offset + Sq - 1 of the Skv >= q_offset + Sq keys (q_offset 0 and Sq = Skv
+// for a whole sequence; a query shard of a sequence-sharded attention, which
+// attends the keys of every shard, otherwise).
 //
 // Replaces the TPU kernel kernels/flash_attention.py:flash_attention
 // (_flash_kernel) of the JAX package.
 //
 // Layout: q and out (B, Sq, H, hd), k and v (B, Skv, KV, hd), all contiguous;
 // query head h reads KV head h / (H / KV), so no broadcast copy of the KV
-// heads is made.  Positions are absolute and start at 0 for q and kv.  The
-// band is the mask of the JAX package's models/attention.py:_banded_attention.
+// heads is made.  Key positions start at 0, query row r sits at q_offset + r:
+// causal, it attends keys j <= q_offset + r, and under a window also j >
+// q_offset + r - w.  The band is the mask of the JAX package's
+// models/attention.py:_banded_attention; the offset is its q_positions of a
+// sequence shard (_flash_full's seq mode).
 //
 // What bounds it on an H100: at prefill lengths (S = 512, hd = 64) each
 // (q, kv) pair costs 4*hd operations on 4*hd bytes of tile traffic that stays
@@ -69,7 +75,7 @@ __global__ void __launch_bounds__(THREADS)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ out, float* __restrict__ lse,
              int lse_ld, int Sq, int Skv, int H, int KV, float scale, int causal,
-             int window) {
+             int window, int q_offset) {
   constexpr int NP = HD / 4;  // float2 pairs per thread: dims 4i + 2*half + {0,1}
   __shared__ __align__(16) float Ks[FK][HD];
   __shared__ __align__(16) float Vs[FK][HD];
@@ -78,6 +84,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kvh = h / (H / KV);
   const int row = threadIdx.x >> 1, half = threadIdx.x & 1;
   const int qpos = q0 + row;
+  const int apos = q_offset + qpos;  // the row's position among the keys
   const bool valid = qpos < Sq;
 
   float qr[2 * NP], acc[2 * NP];
@@ -91,8 +98,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   float m = NEG_INF, l = 0.f;
 
-  const int kend = causal ? min(Skv, q0 + FQ) : Skv;
-  const int kbeg = window ? max(0, q0 - window + 1) / FK * FK : 0;
+  const int kend = causal ? min(Skv, q_offset + q0 + FQ) : Skv;
+  const int kbeg = window ? max(0, q_offset + q0 - window + 1) / FK * FK : 0;
   for (int k0 = kbeg; k0 < kend; k0 += FK) {
     for (int i = threadIdx.x; i < FK * HD; i += THREADS) {
       const int r = i / HD, c = i % HD;
@@ -122,7 +129,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       part += __shfl_xor_sync(0xffffffffu, part, 1);
       const int gk = k0 + j;
       float sj = part * scale;
-      if (gk >= Skv || (causal && gk > qpos) || (window && gk <= qpos - window)) sj = NEG_INF;
+      if (gk >= Skv || (causal && gk > apos) || (window && gk <= apos - window)) sj = NEG_INF;
       s[j] = sj;
       mt = fmaxf(mt, sj);
     }
@@ -160,12 +167,12 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int HD, bool LSE>
 void launch(const void* q, const void* k, const void* v, void* out, float* lse, int lse_ld,
-            int B, int Sq, int Skv, int H, int KV, int causal, int window, float scale,
-            cudaStream_t s) {
+            int B, int Sq, int Skv, int H, int KV, int causal, int window, int q_offset,
+            float scale, cudaStream_t s) {
   const dim3 grid((Sq + FQ - 1) / FQ, H, B);
   flash_kernel<T, HD, LSE><<<grid, THREADS, 0, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), lse, lse_ld, Sq, Skv, H, KV, scale, causal, window);
+      static_cast<T*>(out), lse, lse_ld, Sq, Skv, H, KV, scale, causal, window, q_offset);
 }
 
 // ------------------------------------------------------- bf16 path, wgmma
@@ -189,7 +196,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap kmap,
                    const __grid_constant__ CUtensorMap vmap,
                    __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int lse_ld,
-                   int Sq, int Skv, int H, int KV, float scale_log2, int causal, int window) {
+                   int Sq, int Skv, int H, int KV, float scale_log2, int causal, int window,
+                   int q_offset) {
   using namespace hopper;
   using T = FlashTiles<HD>;
   if (!BAND) window = 0;  // folds the band's code away: the causal kernel keeps its registers
@@ -204,9 +212,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   const int q0 = (gridDim.x - 1 - blockIdx.x) * F_BQ;  // longest causal tiles first
   const int h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (H / KV);
-  const int kv_end = causal ? min(Skv, q0 + F_BQ) : Skv;
+  const int a0 = q_offset + q0;  // the block's first row's position among the keys
+  const int kv_end = causal ? min(Skv, a0 + F_BQ) : Skv;
   const int ntiles = (kv_end + F_BKV - 1) / F_BKV;
-  const int t_lo = window ? max(0, q0 - window + 1) / F_BKV : 0;  // the band's first tile
+  const int t_lo = window ? max(0, a0 - window + 1) / F_BKV : 0;  // the band's first tile
   if (threadIdx.x == 0) {
     mbar_init(qbar, 1);
     for (int s = 0; s < F_STAGES; ++s) {
@@ -245,9 +254,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 
   // consumer warpgroup wgi: query rows r0 .. r0 + 63
   const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
-  const int r0 = q0 + wgi * 64;
-  const int my_tiles = ((causal ? min(Skv, r0 + 64) : Skv) + F_BKV - 1) / F_BKV;
-  const int my_lo = window ? max(0, r0 - window + 1) / F_BKV : 0;
+  const int r0 = q0 + wgi * 64, ar0 = q_offset + r0;  // ar0: r0's position among the keys
+  const int my_tiles = ((causal ? min(Skv, ar0 + 64) : Skv) + F_BKV - 1) / F_BKV;
+  const int my_lo = window ? max(0, ar0 - window + 1) / F_BKV : 0;
   const int row_a = r0 + warp * 16 + lane / 4;  // this thread's rows: row_a, row_a + 8
   const unsigned char* qw = qs + wgi * 64 * 128;
 
@@ -279,8 +288,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       fence_regs(sc);
 
       const int k0 = t * F_BKV;
-      const bool edge = (causal && k0 + F_BKV > r0) || k0 + F_BKV > Skv ||
-                        (window && k0 < r0 + 64 - window);
+      const bool edge = (causal && k0 + F_BKV > ar0) || k0 + F_BKV > Skv ||
+                        (window && k0 < ar0 + 64 - window);
       float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
       for (int j = 0; j < 8; ++j)
@@ -291,7 +300,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
             float v = sc[4 * j + 2 * hh + e] * scale_log2;
             if (edge) {
               const int key = k0 + 8 * j + 2 * (lane % 4) + e;
-              const int row = row_a + 8 * hh;
+              const int row = q_offset + row_a + 8 * hh;
               if (key >= Skv || (causal && key > row) || (window && key <= row - window))
                 v = NEG_INF;
             }
@@ -361,7 +370,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 template <int HD, bool BAND, bool LSE>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out, float* lse,
                  int lse_ld, int B, int Sq, int Skv, int H, int KV, int causal, int window,
-                 float scale, cudaStream_t stream) {
+                 int q_offset, float scale, cudaStream_t stream) {
   using T = FlashTiles<HD>;
   static hopper::SmemRaised raised;
   CUtensorMap qmap, kmap, vmap;
@@ -381,44 +390,45 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out, float* 
   const dim3 grid((Sq + F_BQ - 1) / F_BQ, H, B);
   flash_wgmma_kernel<HD, BAND, LSE><<<grid, F_THREADS, T::SMEM, stream>>>(
       qmap, kmap, vmap, static_cast<__nv_bfloat16*>(out), lse, lse_ld, Sq, Skv, H, KV,
-      scale * 1.4426950408889634f, causal, window);
+      scale * 1.4426950408889634f, causal, window, q_offset);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // dtype: 0 = fp32, 1 = bf16; hd: 64 or 128; window: 0 (none) or w > 0 with
-// causal; Sq != Skv not causal only, Skv >= 1.  lse: null, or fp32 (B, H,
+// causal; q_offset >= 0, with q_offset + Sq <= Skv causal, 0 not causal
+// (every key attended); Skv >= 1.  lse: null, or fp32 (B, H,
 // lse_ld), lse_ld >= Sq, for each row's log2-sum-exp2 (of its band under a
 // window).  bf16
 // tensors must be 16-byte aligned (TMA).  Returns the cudaError_t of the
 // launch, or cudaErrorInvalidValue for what the kernels do not take.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* out, void* lse, int B, int Sq, int Skv, int H,
-                               int KV, int hd, int causal, int window, int lse_ld,
-                               float scale, int dtype, void* stream) {
+                               int KV, int hd, int causal, int window, int q_offset,
+                               int lse_ld, float scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* ls = static_cast<float*>(lse);
-  if (window < 0 || (window && !causal) || (causal && Sq != Skv) || Skv < 1 ||
-      (ls && lse_ld < Sq))
+  if (window < 0 || (window && !causal) || q_offset < 0 || (q_offset && !causal) ||
+      (causal && q_offset + Sq > Skv) || Skv < 1 || (ls && lse_ld < Sq))
     return static_cast<int>(cudaErrorInvalidValue);
 #define FLASH_ARGS q, k, v, out, ls, lse_ld, B, Sq, Skv, H, KV, causal
   if (dtype == 1 && hd == 64)
-    return window ? (ls ? launch_wgmma<64, true, true>(FLASH_ARGS, window, scale, s)
-                        : launch_wgmma<64, true, false>(FLASH_ARGS, window, scale, s))
-           : ls   ? launch_wgmma<64, false, true>(FLASH_ARGS, 0, scale, s)
-                  : launch_wgmma<64, false, false>(FLASH_ARGS, 0, scale, s);
+    return window ? (ls ? launch_wgmma<64, true, true>(FLASH_ARGS, window, q_offset, scale, s)
+                        : launch_wgmma<64, true, false>(FLASH_ARGS, window, q_offset, scale, s))
+           : ls   ? launch_wgmma<64, false, true>(FLASH_ARGS, 0, q_offset, scale, s)
+                  : launch_wgmma<64, false, false>(FLASH_ARGS, 0, q_offset, scale, s);
   if (dtype == 1 && hd == 128)
-    return window ? (ls ? launch_wgmma<128, true, true>(FLASH_ARGS, window, scale, s)
-                        : launch_wgmma<128, true, false>(FLASH_ARGS, window, scale, s))
-           : ls   ? launch_wgmma<128, false, true>(FLASH_ARGS, 0, scale, s)
-                  : launch_wgmma<128, false, false>(FLASH_ARGS, 0, scale, s);
+    return window ? (ls ? launch_wgmma<128, true, true>(FLASH_ARGS, window, q_offset, scale, s)
+                        : launch_wgmma<128, true, false>(FLASH_ARGS, window, q_offset, scale, s))
+           : ls   ? launch_wgmma<128, false, true>(FLASH_ARGS, 0, q_offset, scale, s)
+                  : launch_wgmma<128, false, false>(FLASH_ARGS, 0, q_offset, scale, s);
   if (dtype == 0 && hd == 64) {
-    if (ls) launch<float, 64, true>(FLASH_ARGS, window, scale, s);
-    else launch<float, 64, false>(FLASH_ARGS, window, scale, s);
+    if (ls) launch<float, 64, true>(FLASH_ARGS, window, q_offset, scale, s);
+    else launch<float, 64, false>(FLASH_ARGS, window, q_offset, scale, s);
   } else if (dtype == 0 && hd == 128) {
-    if (ls) launch<float, 128, true>(FLASH_ARGS, window, scale, s);
-    else launch<float, 128, false>(FLASH_ARGS, window, scale, s);
+    if (ls) launch<float, 128, true>(FLASH_ARGS, window, q_offset, scale, s);
+    else launch<float, 128, false>(FLASH_ARGS, window, q_offset, scale, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,8 +1,11 @@
 // flash_attention_bwd: the gradients dq, dk, dv of o = softmax(q k^T * scale,
 // causal or not) v given dO, with grouped-query heads read in place.  Not
 // causal, the Skv keys may be more or fewer than the Sq queries (whisper's
-// encoder and cross-attention); causal, Sq = Skv.  Under a sliding window w
-// (causal only; hymba's band) query row r attends keys r - w < j <= r.
+// encoder and cross-attention); causal, query row r sits at position q_offset
+// + r among the Skv >= q_offset + Sq keys (q_offset 0 and Sq = Skv for a whole
+// sequence, a query shard of a sequence-sharded attention otherwise) and
+// attends keys j <= q_offset + r.  Under a sliding window w (causal only;
+// hymba's band) it attends keys q_offset + r - w < j <= q_offset + r.
 //
 // The TPU kernel it serves is kernels/flash_attention.py:flash_attention
 // (_flash_kernel) of the JAX package, which has no backward kernel: the JAX
@@ -58,6 +61,11 @@
 // tile's query items end at the tile of its last key's last query row, k0 +
 // 63 + w - 1.  The tiles that cross the band's low edge are masked as the
 // diagonal one is, and the lse the forward wrote is the band's.
+// q_offset moves every such bound by the offset: in (a) the block's and each
+// warpgroup's key tiles end at the tile of key q_offset + the last row, in (b)
+// a key tile's query items start at the tile of row k0 - q_offset (none when
+// that is past Sq, and then the block stores zero dk and dv) and, under a
+// window, end at the tile of row k0 + 63 + w - 1 - q_offset.
 // P and dS are rounded to bf16 for their products, as the forward rounds P;
 // the statistics, D and every sum stay fp32; each gradient is rounded once,
 // at the store.  Only the tiles on the causal diagonal and at the ragged
@@ -169,7 +177,7 @@ __global__ void __launch_bounds__(BWD_THREADS)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const T* __restrict__ o, const T* __restrict__ dout, T* __restrict__ dq,
                     float* __restrict__ stats, int B, int Sq, int Skv, int H, int KV,
-                    float scale, int causal, int window) {
+                    float scale, int causal, int window, int q_offset) {
   using Tl = BwdTiles<HD>;
   constexpr int LD = Tl::LD;
   constexpr int NE = HD / 16;
@@ -202,8 +210,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   }
 
   const int n_tiles = (Skv + BT - 1) / BT;
-  const int end = causal ? min(n_tiles, (int)blockIdx.x + 1) : n_tiles;
-  const int beg = window ? max(0, q0 - window + 1) / BT : 0;  // the band's first tile
+  const int end = causal ? min(n_tiles, (q_offset + q0 + BT - 1) / BT + 1) : n_tiles;
+  const int beg = window ? max(0, q_offset + q0 - window + 1) / BT : 0;  // the band's first tile
   float m[4], l[4];
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
@@ -219,7 +227,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     tile_dot<HD>(Qs, Ks, s, ty, tx);
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
-      const int row = q0 + ty * 4 + r;
+      const int row = q_offset + q0 + ty * 4 + r;  // its position among the keys
       float tmax = -INFINITY;
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
@@ -264,7 +272,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
       float ds[4];
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
-        const int row = q0 + ty * 4 + r;
+        const int row = q_offset + q0 + ty * 4 + r;
         const bool valid =
             key < Skv && (!causal || key <= row) && (!window || row - key < window);
         const float p = valid ? exp2f(s[r][c] * sl2 - lse[r]) : 0.f;
@@ -305,7 +313,8 @@ __global__ void __launch_bounds__(BWD_THREADS)
 flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const T* __restrict__ dout, T* __restrict__ dk,
                       T* __restrict__ dv, const float* __restrict__ stats, int B, int Sq,
-                      int Skv, int H, int KV, float scale, int causal, int window) {
+                      int Skv, int H, int KV, float scale, int causal, int window,
+                      int q_offset) {
   using Tl = BwdTiles<HD>;
   constexpr int LD = Tl::LD;
   constexpr int NE = HD / 16;
@@ -333,8 +342,9 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int e = 0; e < NE; ++e) adk[r][e] = adv[r][e] = 0.f;
 
   // earlier rows see none of these keys, nor (under a window) later ones
-  const int start = causal ? blockIdx.x : 0;
-  const int n_tiles = window ? min((Sq + BT - 1) / BT, (k0 + BT - 1 + window - 1) / BT + 1)
+  const int start = causal ? max(0, k0 - q_offset) / BT : 0;
+  const int last = k0 + BT - 1 + window - 1 - q_offset;  // the band's last row
+  const int n_tiles = window ? (last < 0 ? 0 : min((Sq + BT - 1) / BT, last / BT + 1))
                              : (Sq + BT - 1) / BT;
   float s[4][4], dp[4][4];
   for (int g = 0; g < G; ++g) {
@@ -355,12 +365,12 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       tile_dot<HD>(dOs, Vs, dp, ty, tx);
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
-        const int rr = ty * 4 + r, row = r0 + rr;
+        const int rr = ty * 4 + r, row = r0 + rr, arow = q_offset + row;
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const int key = k0 + tx + 16 * c;
-          const bool valid = row < Sq && key < Skv && (!causal || key <= row) &&
-                             (!window || row - key < window);
+          const bool valid = row < Sq && key < Skv && (!causal || key <= arow) &&
+                             (!window || arow - key < window);
           const float p = valid ? exp2f(s[r][c] * sl2 - Ls[rr]) : 0.f;
           Ps[rr * LDP + tx + 16 * c] = p;
           dSs[rr * LDP + tx + 16 * c] = p * (dp[r][c] - Ds[rr]);
@@ -393,7 +403,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int HD>
 int launch_bwd(const void* q, const void* k, const void* v, const void* o, const void* dout,
                void* dq, void* dk, void* dv, float* stats, int B, int Sq, int Skv, int H,
-               int KV, int causal, int window, float scale, cudaStream_t stream) {
+               int KV, int causal, int window, int q_offset, float scale,
+               cudaStream_t stream) {
   using Tl = BwdTiles<HD>;
   static hopper::SmemRaised raised_dq, raised_dkdv;
   cudaError_t err = hopper::allow_smem(flash_bwd_dq_kernel<T, HD>, Tl::DQ_SMEM, raised_dq);
@@ -406,13 +417,13 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o, const
   const T* dot = static_cast<const T*>(dout);
   flash_bwd_dq_kernel<T, HD><<<dim3((Sq + BT - 1) / BT, H, B), BWD_THREADS, Tl::DQ_SMEM, stream>>>(
       qt, kt, vt, static_cast<const T*>(o), dot, static_cast<T*>(dq), stats, B, Sq, Skv, H, KV,
-      scale, causal, window);
+      scale, causal, window, q_offset);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   flash_bwd_dkdv_kernel<T, HD>
       <<<dim3((Skv + BT - 1) / BT, KV, B), BWD_THREADS, Tl::DKV_SMEM, stream>>>(
           qt, kt, vt, dot, static_cast<T*>(dk), static_cast<T*>(dv), stats, B, Sq, Skv, H, KV,
-          scale, causal, window);
+          scale, causal, window, q_offset);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -535,7 +546,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                           const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
                           float* __restrict__ dstat, int ld, __nv_bfloat16* __restrict__ dq,
                           int Sq, int Skv, int H, int KV, float scale_log2, float scale,
-                          int causal, int window) {
+                          int causal, int window, int q_offset) {
   using namespace hopper;
   using T = WgTiles<HD>;
   if (!BAND) window = 0;  // folds the band's code away: the causal kernel keeps its registers
@@ -552,8 +563,9 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   const int q0 = (gridDim.x - 1 - blockIdx.x) * DQ_ROWS;  // longest causal tiles first
   const int h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (H / KV);
-  const int ntiles = ((causal ? min(Skv, q0 + DQ_ROWS) : Skv) + KT - 1) / KT;
-  const int t_lo = window ? max(0, q0 - window + 1) / KT : 0;  // the band's first tile
+  const int a0 = q_offset + q0;  // the block's first row's position among the keys
+  const int ntiles = ((causal ? min(Skv, a0 + DQ_ROWS) : Skv) + KT - 1) / KT;
+  const int t_lo = window ? max(0, a0 - window + 1) / KT : 0;  // the band's first tile
   if (threadIdx.x == 0) {
     mbar_init(qbar, 1);
     for (int s = 0; s < DQ_STAGES; ++s) {
@@ -594,9 +606,9 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 
   // consumer warpgroup wgi: query rows r0 .. r0 + 63
   const int tid = threadIdx.x % 128, lane = tid % 32, warp = tid / 32;
-  const int r0 = q0 + wgi * 64;
-  const int my_tiles = ((causal ? min(Skv, r0 + 64) : Skv) + KT - 1) / KT;
-  const int my_lo = window ? max(0, r0 - window + 1) / KT : 0;
+  const int r0 = q0 + wgi * 64, ar0 = q_offset + r0;  // ar0: r0's position among the keys
+  const int my_tiles = ((causal ? min(Skv, ar0 + 64) : Skv) + KT - 1) / KT;
+  const int my_lo = window ? max(0, ar0 - window + 1) / KT : 0;
   const int row_a = r0 + warp * 16 + lane / 4;  // this thread's rows: row_a, row_a + 8
   const size_t bh = (size_t)b * H + h;
   {  // D of the warpgroup's rows, two threads a row, 16-byte loads of dO and o
@@ -657,8 +669,8 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       wgmma_wait<1>();
       fence_regs(sc);
       const int k0 = t * KT;
-      const bool edge = (causal && k0 + KT > r0) || k0 + KT > Skv ||
-                        (window && k0 < r0 + 64 - window);
+      const bool edge = (causal && k0 + KT > ar0) || k0 + KT > Skv ||
+                        (window && k0 < ar0 + 64 - window);
 #pragma unroll
       for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -666,7 +678,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int i = 4 * j + 2 * hh + e;
-            const int key = k0 + 8 * j + 2 * (lane % 4) + e, row = row_a + 8 * hh;
+            const int key = k0 + 8 * j + 2 * (lane % 4) + e, row = q_offset + row_a + 8 * hh;
             const bool valid = !edge || (key < Skv && (!causal || key <= row) &&
                                          (!window || row - key < window));
             sc[i] = valid ? ex2(sc[i] * scale_log2 - lr[hh]) : 0.f;  // P
@@ -700,7 +712,7 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                             const __grid_constant__ CUtensorMap dmap,
                             __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
                             int Sq, int Skv, int H, int KV, float scale_log2, float scale,
-                            int causal, int window) {
+                            int causal, int window, int q_offset) {
   using namespace hopper;
   using T = WgTiles<HD>;
   if (!BAND) window = 0;  // folds the band's code away: the causal kernel keeps its registers
@@ -715,11 +727,13 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 
   const int kt = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;  // causal: longest first
   const int k0 = kt * KT, G = H / KV;
-  const int start = causal ? kt : 0;  // earlier query tiles see none of these keys
+  // earlier query tiles see none of these keys
+  const int start = causal ? max(0, k0 - q_offset) / QT : 0;
   // nor, under a window, those past the tile of the last key's last query row
-  const int end = window ? min((Sq + QT - 1) / QT, (k0 + KT - 1 + window - 1) / QT + 1)
+  const int last = k0 + KT - 1 + window - 1 - q_offset;
+  const int end = window ? (last < 0 ? 0 : min((Sq + QT - 1) / QT, last / QT + 1))
                          : (Sq + QT - 1) / QT;
-  const int per_head = end - start;
+  const int per_head = max(0, end - start);
   const int items = G * per_head;  // item n: head kvh G + n / per_head, tile start + n % per_head
   if (threadIdx.x == 0) {
     mbar_init(kbar, 1);
@@ -793,8 +807,8 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     wgmma_commit();
     wgmma_wait<1>();
     fence_regs(st);
-    const bool edge = (causal && qt == kt) || q0 + QT > Sq ||
-                      (window && q0 + QT - 1 - k0 >= window);
+    const bool edge = (causal && k0 + KT - 1 > q_offset + q0) || q0 + QT > Sq ||
+                      (window && q_offset + q0 + QT - 1 - k0 >= window);
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -802,9 +816,9 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int i = 4 * j + 2 * hh + e, col = 8 * j + 2 * (lane % 4) + e;
-          const int query = q0 + col, key = key_a + 8 * hh;
-          const bool valid = !edge || (query < Sq && (!causal || key <= query) &&
-                                       (!window || query - key < window));
+          const int query = q0 + col, key = key_a + 8 * hh, aq = q_offset + query;
+          const bool valid = !edge || (query < Sq && (!causal || key <= aq) &&
+                                       (!window || aq - key < window));
           st[i] = valid ? ex2(st[i] * scale_log2 - ls[col]) : 0.f;  // P^T
         }
     uint32_t pa[16];
@@ -855,7 +869,7 @@ template <int HD, bool BAND>
 int launch_bwd_wgmma(const void* q, const void* k, const void* v, const void* o,
                      const void* dout, const float* lse, int ld, void* dq, void* dk, void* dv,
                      float* dstat, int B, int Sq, int Skv, int H, int KV, int causal,
-                     int window, float scale, cudaStream_t stream) {
+                     int window, int q_offset, float scale, cudaStream_t stream) {
   using T = WgTiles<HD>;
   static hopper::SmemRaised raised_dq, raised_dkdv;
   CUtensorMap q128, do128, q64, do64, kmap, vmap, lmap, dmap;
@@ -888,20 +902,22 @@ int launch_bwd_wgmma(const void* q, const void* k, const void* v, const void* o,
       <<<dim3((Sq + DQ_ROWS - 1) / DQ_ROWS, H, B), DQ_THREADS, T::DQ_SMEM, stream>>>(
           q128, do128, kmap, vmap, static_cast<const __nv_bfloat16*>(o),
           static_cast<const __nv_bfloat16*>(dout), lse, dstat, ld,
-          static_cast<__nv_bfloat16*>(dq), Sq, Skv, H, KV, sl2, scale, causal, window);
+          static_cast<__nv_bfloat16*>(dq), Sq, Skv, H, KV, sl2, scale, causal, window,
+          q_offset);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   flash_bwd_dkdv_wgmma_kernel<HD, BAND>
       <<<dim3((Skv + KT - 1) / KT, KV, B), DKV_THREADS, T::DKV_SMEM, stream>>>(
           q64, do64, kmap, vmap, lmap, dmap, static_cast<__nv_bfloat16*>(dk),
-          static_cast<__nv_bfloat16*>(dv), Sq, Skv, H, KV, sl2, scale, causal, window);
+          static_cast<__nv_bfloat16*>(dv), Sq, Skv, H, KV, sl2, scale, causal, window,
+          q_offset);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// dtype: 0 = fp32, 1 = bf16; hd: 64 or 128; Sq != Skv not causal only;
-// window: 0 (none) or w > 0 with causal.  lse: the forward's rows'
+// dtype: 0 = fp32, 1 = bf16; hd: 64 or 128; window: 0 (none) or w > 0 with
+// causal; q_offset >= 0, with q_offset + Sq <= Skv causal, 0 not causal.  lse: the forward's rows'
 // log2-sum-exp2 (of the band under a window), fp32 (B, H, ld), ld >= Sq a
 // multiple of 4 (16-byte rows for TMA), read by the bf16 kernels; the fp32
 // kernels rebuild it.  stats: fp32 scratch, bf16: D (B, H, ld); fp32: the
@@ -911,16 +927,16 @@ int launch_bwd_wgmma(const void* q, const void* k, const void* v, const void* o,
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                                    const void* dout, const void* lse, void* dq, void* dk,
                                    void* dv, void* stats, int B, int Sq, int Skv, int H, int KV,
-                                   int hd, int causal, int window, int ld, float scale,
-                                   int dtype, void* stream) {
+                                   int hd, int causal, int window, int q_offset, int ld,
+                                   float scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* st = static_cast<float*>(stats);
   const float* ls = static_cast<const float*>(lse);
-  if ((causal && Sq != Skv) || Sq < 1 || Skv < 1 || KV < 1 || H % KV || ld < Sq || ld % 4 ||
-      window < 0 || (window && !causal))
+  if ((causal && q_offset + Sq > Skv) || q_offset < 0 || (q_offset && !causal) || Sq < 1 ||
+      Skv < 1 || KV < 1 || H % KV || ld < Sq || ld % 4 || window < 0 || (window && !causal))
     return static_cast<int>(cudaErrorInvalidValue);
 #define BWD_WG_ARGS \
-  q, k, v, o, dout, ls, ld, dq, dk, dv, st, B, Sq, Skv, H, KV, causal, window, scale, s
+  q, k, v, o, dout, ls, ld, dq, dk, dv, st, B, Sq, Skv, H, KV, causal, window, q_offset, scale, s
   if (dtype == 1 && hd == 64)
     return window ? launch_bwd_wgmma<64, true>(BWD_WG_ARGS)
                   : launch_bwd_wgmma<64, false>(BWD_WG_ARGS);
@@ -930,9 +946,9 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
 #undef BWD_WG_ARGS
   if (dtype == 0 && hd == 64)
     return launch_bwd<float, 64>(q, k, v, o, dout, dq, dk, dv, st, B, Sq, Skv, H, KV, causal,
-                                 window, scale, s);
+                                 window, q_offset, scale, s);
   if (dtype == 0 && hd == 128)
     return launch_bwd<float, 128>(q, k, v, o, dout, dq, dk, dv, st, B, Sq, Skv, H, KV, causal,
-                                  window, scale, s);
+                                  window, q_offset, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -4,10 +4,16 @@ The port of the JAX package's ``kernels/flash_attention.py``, in the
 model's layout: q (B, Sq, H, hd), k and v (B, Skv, KV, hd), out (B, Sq, H,
 hd); query head h reads KV head h // (H // KV).  Not causal, the key length
 Skv may differ from Sq (a cross-attention: the JAX model's
-``chunked_attention`` at ``kv_x``); causal or banded, Sq = Skv.  ``window``
-w > 0 narrows the causal mask to a sliding-window band: query row r
-attends keys j with r - w < j <= r, the mask of the JAX package's
-``_banded_attention`` (``models/attention.py``); a band needs ``causal``.
+``chunked_attention`` at ``kv_x``); causal or banded, Sq = Skv, or with
+``q_offset`` an int, the Sq queries are positions q_offset .. q_offset + Sq
+- 1 of the Skv >= q_offset + Sq keys: query row r attends keys j <=
+q_offset + r (a query shard of a sequence-sharded attention, which
+attends the keys of every shard: the JAX package's ``_flash_full`` in seq
+mode, whose ``chunked_attention`` takes the shard's ``q_positions``).
+``window`` w > 0 narrows the causal mask to a sliding-window band: query
+row r attends keys j with q_offset + r - w < j <= q_offset + r, the mask of
+the JAX package's ``_banded_attention`` (``models/attention.py``); a band
+needs ``causal``.
 ``flash_attention_plain`` is the plain PyTorch version; ``flash_attention_cuda`` launches the
 hand-written kernel of ``csrc/flash_attention.cu`` (bf16: wgmma and TMA;
 fp32: the CUDA cores), which visits only the key tiles of the band.
@@ -61,35 +67,49 @@ LOG2E = 1.4426950408889634
 
 
 def _check_mask(q: torch.Tensor, k: torch.Tensor, causal: bool,
-                window: int) -> None:
+                window: int, q_offset: Optional[int] = None) -> int:
+    """The queries' offset among the keys (0 for ``q_offset`` None), after
+    checking the mask: a band is causal; causal, Sq = Skv, or with an int
+    ``q_offset`` q_offset + Sq <= Skv; an offset only causal."""
     if window < 0 or (window and not causal):
         raise ValueError(f"flash_attention: window {window} with causal "
                          f"{causal}: a band is a causal mask, window >= 0")
-    if causal and q.shape[1] != k.shape[1]:
-        raise ValueError(f"flash_attention: causal with {q.shape[1]} queries "
-                         f"and {k.shape[1]} keys: a causal mask needs Sq = "
+    Sq, Skv = q.shape[1], k.shape[1]
+    if q_offset is None:
+        if causal and Sq != Skv:
+            raise ValueError(f"flash_attention: causal with {Sq} queries and "
+                             f"{Skv} keys: a causal mask needs Sq = Skv, or "
+                             "a q_offset with q_offset + Sq <= Skv")
+        return 0
+    if not causal or q_offset < 0 or q_offset + Sq > Skv:
+        raise ValueError(f"flash_attention: q_offset {q_offset} with causal "
+                         f"{causal}, {Sq} queries and {Skv} keys: an offset "
+                         "needs causal and 0 <= q_offset, q_offset + Sq <= "
                          "Skv")
+    return int(q_offset)
 
 
-def _mask(Sq: int, Skv: int, causal: bool, window: int,
-          device) -> Optional[torch.Tensor]:
-    """The (Sq, Skv) keys each query row attends: causal, j <= r; under a
-    window also r - j < window; None not causal (every key)."""
+def _mask(Sq: int, Skv: int, causal: bool, window: int, device,
+          q_offset: int = 0) -> Optional[torch.Tensor]:
+    """The (Sq, Skv) keys each query row attends: causal, j <= q_offset +
+    r; under a window also q_offset + r - j < window; None not causal
+    (every key)."""
     if not causal:
         return None
-    mask = torch.ones(Sq, Skv, dtype=torch.bool, device=device).tril()
-    return mask & ~mask.tril(-window) if window else mask
+    mask = torch.ones(Sq, Skv, dtype=torch.bool, device=device)
+    keep = mask.tril(q_offset)
+    return keep & ~mask.tril(q_offset - window) if window else keep
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          *, causal: bool = True,
-                          window: int = 0) -> torch.Tensor:
-    _check_mask(q, k, causal, window)
+                          *, causal: bool = True, window: int = 0,
+                          q_offset: Optional[int] = None) -> torch.Tensor:
+    off = _check_mask(q, k, causal, window, q_offset)
     B, S, H, hd = q.shape
     KV = k.shape[2]
     qg = q.float().reshape(B, S, KV, H // KV, hd)
     s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) / math.sqrt(hd)
-    mask = _mask(S, k.shape[1], causal, window, q.device)
+    mask = _mask(S, k.shape[1], causal, window, q.device, off)
     if mask is not None:
         s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
@@ -98,19 +118,20 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention_lse_plain(q: torch.Tensor, k: torch.Tensor, *,
-                              causal: bool = True,
-                              window: int = 0) -> torch.Tensor:
+                              causal: bool = True, window: int = 0,
+                              q_offset: Optional[int] = None
+                              ) -> torch.Tensor:
     """Each row's log2-sum-exp2 of its scaled scores, q k^T log2(e) /
     sqrt(hd) (the masked ones excluded, a window's too), fp32 (B, H, Sq):
     what the forward kernel writes under grad, in fp32 as it forms it (the
     row max, then the sum of exp2 below it)."""
-    _check_mask(q, k, causal, window)
+    off = _check_mask(q, k, causal, window, q_offset)
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     qg = q.float().reshape(B, Sq, KV, H // KV, hd)
     s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * (
         LOG2E / math.sqrt(hd))
-    mask = _mask(Sq, Skv, causal, window, q.device)
+    mask = _mask(Sq, Skv, causal, window, q.device, off)
     if mask is not None:
         s = torch.where(mask, s, torch.full_like(s, -math.inf))
     m = s.amax(-1)
@@ -121,10 +142,11 @@ def flash_attention_lse_plain(q: torch.Tensor, k: torch.Tensor, *,
 def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, o: torch.Tensor,
                               do: torch.Tensor, *, causal: bool = True,
-                              window: int = 0):
-    """(dq, dk, dv) in q's dtype, fp32 throughout; ``window``: the band of
-    ``flash_attention_plain``."""
-    _check_mask(q, k, causal, window)
+                              window: int = 0,
+                              q_offset: Optional[int] = None):
+    """(dq, dk, dv) in q's dtype, fp32 throughout; ``window`` and
+    ``q_offset``: the mask of ``flash_attention_plain``."""
+    off = _check_mask(q, k, causal, window, q_offset)
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     scale = 1.0 / math.sqrt(hd)
@@ -132,7 +154,7 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     dog = do.float().reshape(B, Sq, KV, H // KV, hd)
     kf, vf = k.float(), v.float()
     s = torch.einsum("bqkgd,bskd->bkgqs", qg, kf) * scale
-    mask = _mask(Sq, Skv, causal, window, q.device)
+    mask = _mask(Sq, Skv, causal, window, q.device, off)
     if mask is not None:
         s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
@@ -174,15 +196,17 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, o: torch.Tensor,
                              do: torch.Tensor, *, causal: bool = True,
                              window: int = 0,
-                             lse: Optional[torch.Tensor] = None):
+                             lse: Optional[torch.Tensor] = None,
+                             q_offset: Optional[int] = None):
     """Two launches: one block per (query tile, head, batch row) forms D
     and dq; one block per (key tile, KV head, batch row) walks its query
     heads and tiles for dk and dv; under a ``window`` each visits only the
     tiles of the band.  fp32 statistics and sums, every input read in
     place.  ``lse``: the forward's (``flash_attention_cuda(...,
     with_lse=True)``, under the same window) rows' log2-sum-exp2, fp32 (B,
-    H, Sq) with 16-byte rows; bf16 reads it, fp32 rebuilds it."""
-    _check_mask(q, k, causal, window)
+    H, Sq) with 16-byte rows; bf16 reads it, fp32 rebuilds it.
+    ``q_offset``: the queries' offset among the keys, as the forward's."""
+    off = _check_mask(q, k, causal, window, q_offset)
     _check_cuda_inputs("flash_attention_bwd", q, k, v, o, do)
     if v.shape != k.shape or o.shape != q.shape or do.shape != q.shape:
         raise ValueError(f"flash_attention_bwd: shapes q {tuple(q.shape)}, "
@@ -216,7 +240,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), stats.data_ptr(), B, Sq, Skv, H, KV, hd, int(causal),
-        window, ld, 1.0 / math.sqrt(hd), DTYPE_CODES[q.dtype],
+        window, off, ld, 1.0 / math.sqrt(hd), DTYPE_CODES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream),
         "flash_attention_bwd")
     BWD_ROUTE_LAUNCHES["wgmma" if bf16 else "fp32"] += 1
@@ -225,12 +249,14 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int = 0,
-                         with_lse: bool = False):
+                         with_lse: bool = False,
+                         q_offset: Optional[int] = None):
     """out, or (out, lse) ``with_lse``: each row's log2-sum-exp2 of its
     scaled scores (a window's band only), fp32 (B, H, Sq), a view of rows
     padded to 16 bytes, as the backward kernel reads it
-    (``flash_attention_lse_plain`` computes the same)."""
-    _check_mask(q, k, causal, window)
+    (``flash_attention_lse_plain`` computes the same).  ``q_offset``: the
+    queries' offset among the keys (``flash_attention_plain``)."""
+    off = _check_mask(q, k, causal, window, q_offset)
     _check_cuda_inputs("flash_attention", q, k, v)
     if k.shape != v.shape:
         raise ValueError(f"flash_attention: shapes k {tuple(k.shape)}, "
@@ -251,6 +277,6 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check(lib.flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr() if with_lse else None, B, Sq, Skv, H, KV, hd,
-        int(causal), window, ld, 1.0 / math.sqrt(hd), DTYPE_CODES[q.dtype],
+        int(causal), window, off, ld, 1.0 / math.sqrt(hd), DTYPE_CODES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream), "flash_attention")
     return (out, lse[..., :Sq]) if with_lse else out

@@ -7,7 +7,9 @@ raises.  ``LAUNCHES`` counts the kernel launches made through these
 wrappers, so a run can show that its main path went through the kernels;
 ``GRAD_LAUNCHES`` counts the backward kernels' calls, ``BWD_ROUTE_LAUNCHES``
 the attention backward's by route and ``SSD_BWD_ROUTE_LAUNCHES`` the
-scan backward's.
+scan backward's; ``OFFSET_LAUNCHES`` the attention kernels' launches
+(forward and backward) with a ``q_offset``, a sequence shard's queries,
+which the counts above include.
 
 Where grad is enabled and an input requires it, ``matmul``,
 ``grouped_matmul``, ``flash_attention`` (causal, not causal or banded) and
@@ -44,10 +46,12 @@ from .streamed_matmul import (ROUTE_LAUNCHES, grouped_matmul_cuda,
 LAUNCHES: Dict[str, int] = {"streamed_matmul": 0, "flash_attention": 0,
                             "decode_attention": 0, "ssd_scan": 0}
 GRAD_LAUNCHES: Dict[str, int] = {"flash_attention_bwd": 0, "ssd_scan_bwd": 0}
+OFFSET_LAUNCHES: Dict[str, int] = {"flash_attention": 0,
+                                   "flash_attention_bwd": 0}
 
 
 COUNTERS = (LAUNCHES, ROUTE_LAUNCHES, SSD_ROUTE_LAUNCHES, GRAD_LAUNCHES,
-            BWD_ROUTE_LAUNCHES, SSD_BWD_ROUTE_LAUNCHES)
+            BWD_ROUTE_LAUNCHES, SSD_BWD_ROUTE_LAUNCHES, OFFSET_LAUNCHES)
 
 
 def reset_launches() -> None:
@@ -61,7 +65,7 @@ def reset_launches() -> None:
 def launch_counts() -> List[Dict[str, int]]:
     """A copy of every count: per kernel, per matmul route, per scan route,
     per backward kernel, per attention backward route, per scan backward
-    route."""
+    route, the attention kernels' with an offset."""
     return [dict(counts) for counts in COUNTERS]
 
 
@@ -191,73 +195,93 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return _grouped(x, w)
 
 
-def _flash(q, k, v, causal: bool, window: int) -> torch.Tensor:
+def _mask(causal: bool, window: int, q_offset: Optional[int]) -> Dict:
+    """The attention calls' mask arguments (``q_offset`` only when given)."""
+    mask = dict(causal=causal, window=window)
+    if q_offset is not None:
+        mask["q_offset"] = q_offset
+    return mask
+
+
+def _count_flash(name: str, q_offset: Optional[int]) -> None:
+    (GRAD_LAUNCHES if name == "flash_attention_bwd" else LAUNCHES)[name] += 1
+    if q_offset is not None:
+        OFFSET_LAUNCHES[name] += 1
+
+
+def _flash(q, k, v, causal: bool, window: int,
+           q_offset: Optional[int] = None) -> torch.Tensor:
+    mask = _mask(causal, window, q_offset)
     if not _on_card(q):
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
-    out = flash_attention_cuda(q, k, v, causal=causal, window=window)
-    LAUNCHES["flash_attention"] += 1
+        return flash_attention_plain(q, k, v, **mask)
+    out = flash_attention_cuda(q, k, v, **mask)
+    _count_flash("flash_attention", q_offset)
     return out
 
 
 def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, causal: bool = True, window: int = 0
+                        *, causal: bool = True, window: int = 0,
+                        q_offset: Optional[int] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``flash_attention`` and each row's log2-sum-exp2 of its scaled scores
     (a ``window``'s band only), fp32 (B, H, Sq), which
     ``flash_attention_bwd`` reads: one counted launch on the card."""
+    mask = _mask(causal, window, q_offset)
     if not _on_card(q):
-        return (flash_attention_plain(q, k, v, causal=causal, window=window),
-                flash_attention_lse_plain(q, k, causal=causal, window=window))
-    out = flash_attention_cuda(q, k, v, causal=causal, window=window,
-                               with_lse=True)
-    LAUNCHES["flash_attention"] += 1
+        return (flash_attention_plain(q, k, v, **mask),
+                flash_attention_lse_plain(q, k, **mask))
+    out = flash_attention_cuda(q, k, v, with_lse=True, **mask)
+    _count_flash("flash_attention", q_offset)
     return out
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, do: torch.Tensor, *,
                         causal: bool = True, window: int = 0,
-                        lse: Optional[torch.Tensor] = None
+                        lse: Optional[torch.Tensor] = None,
+                        q_offset: Optional[int] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The gradients (dq, dk, dv) of ``flash_attention``'s o = attn(q, k,
     v) given dO, in q's dtype; dk and dv summed over each KV head's query
     heads.  ``lse``: ``flash_attention_lse``'s (under the same window),
     which the card needs; the plain version on the CPU recomputes the
     softmax."""
+    mask = _mask(causal, window, q_offset)
     if not _on_card(q):
-        return flash_attention_bwd_plain(q, k, v, o, do, causal=causal,
-                                         window=window)
-    out = flash_attention_bwd_cuda(q, k, v, o, do, causal=causal,
-                                   window=window, lse=lse)
-    GRAD_LAUNCHES["flash_attention_bwd"] += 1
+        return flash_attention_bwd_plain(q, k, v, o, do, **mask)
+    out = flash_attention_bwd_cuda(q, k, v, o, do, lse=lse, **mask)
+    _count_flash("flash_attention_bwd", q_offset)
     return out
 
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
-        o, lse = flash_attention_lse(q, k, v, causal=causal, window=window)
+    def forward(ctx, q, k, v, causal, window, q_offset):
+        o, lse = flash_attention_lse(q, k, v, causal=causal, window=window,
+                                     q_offset=q_offset)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.window = causal, window
+        ctx.mask = _mask(causal, window, q_offset)
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, o, do.contiguous(),
-                                         causal=ctx.causal, window=ctx.window,
-                                         lse=lse)
-        return dq, dk, dv, None, None
+                                         lse=lse, **ctx.mask)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
+                    causal: bool = True, window: int = 0,
+                    q_offset: Optional[int] = None) -> torch.Tensor:
     """q (B,Sq,H,hd), k/v (B,Skv,KV,hd) -> (B,Sq,H,hd); ``window`` w > 0: row
-    r attends keys r - w < j <= r.  Sq != Skv only not causal (a
-    cross-attention)."""
+    r attends keys r - w < j <= r.  Sq != Skv not causal (a
+    cross-attention), or causal with ``q_offset``: query row r sits at key
+    position q_offset + r (a sequence shard's queries; q_offset + Sq <=
+    Skv)."""
     if _grad_wanted(q, k, v):
-        return _FlashAttention.apply(q, k, v, causal, window)
-    return _flash(q, k, v, causal, window)
+        return _FlashAttention.apply(q, k, v, causal, window, q_offset)
+    return _flash(q, k, v, causal, window, q_offset)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

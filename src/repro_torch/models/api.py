@@ -9,6 +9,7 @@ PyTorch counterpart of the JAX package's ``models/api.py``:
     prefill(params, batch)             -> (last_logits, caches)
     decode(params, caches, token, pos) -> (logits, caches)
     init_cache(batch, max_seq, device=None) -> caches
+    param_logical_axes()               -> tree of logical-axis tuples
 
 ``batch`` holds ``tokens`` (B, S) and, for a vlm, may hold the vision
 stub's ``patch_embeds`` (B, frontend_seq, d), put ahead of the tokens; for
@@ -19,8 +20,10 @@ step passes a tensor) and updates the caches in place.  Every family is
 ported: the decoder-only ones (dense, moe, ssm, hybrid, vlm) by
 ``models/lm.py``, encdec by ``models/whisper.py``.  ``device=None`` means
 the card: with no CUDA device it raises.  ``loss`` is the training
-objective (``train/loop.py`` differentiates it with autograd).  The dry-run
-helpers are not ported yet.
+objective (``train/loop.py`` differentiates it with autograd).
+``param_logical_axes`` gives the JAX package's axes tree leaf for leaf,
+which ``parallel.sharding`` maps to each leaf's spec on a mesh.  The
+dry-run helpers are not ported yet.
 """
 from __future__ import annotations
 
@@ -43,6 +46,7 @@ class ModelBundle:
     prefill: Callable
     decode: Callable
     init_cache: Callable
+    param_logical_axes: Callable
 
 
 def build(cfg: ModelConfig) -> ModelBundle:
@@ -70,5 +74,9 @@ def build(cfg: ModelConfig) -> ModelBundle:
     def init_cache(batch: int, max_seq: int, device=None):
         return mod.init_cache(cfg, batch, max_seq, resolve_device(device))
 
+    def param_logical_axes():
+        return mod.param_axes(cfg)
+
     return ModelBundle(cfg=cfg, init=init, loss=loss, forward=forward,
-                       prefill=prefill, decode=decode, init_cache=init_cache)
+                       prefill=prefill, decode=decode, init_cache=init_cache,
+                       param_logical_axes=param_logical_axes)

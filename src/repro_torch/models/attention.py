@@ -9,7 +9,17 @@ of ``_banded_attention``), decode over a full cache or, under a window,
 a ring of min(max_seq, window) slots written at ``pos % S``, and the
 cross-attention of ``kv_x`` (prefill: k and v projected from the encoder's
 output) and ``precomputed_kv`` (decode: the cached k and v read whole).
-Sharded attention is not ported yet.
+
+Over a mesh (``common.set_mesh_context``) the attention core of a
+full-sequence self-attention is sharded over the model axis as the JAX
+package's ``_flash_full`` shards it (``attention_shard_mode``): ``seq``
+splits the queries by sequence, ropes each shard's q and k at their
+absolute positions, all-gathers K and V and runs the flash kernel with
+the shard's ``q_offset``; ``heads`` splits the heads; ``replicated``
+repeats the whole core on every model rank.  The projections around it
+run replicated over the model axis: the split and the gathers are the
+conjugate collectives of ``parallel/collectives.py``, so the cotangents
+of those replicated activations stay the same on every rank.
 """
 from __future__ import annotations
 
@@ -18,8 +28,9 @@ from typing import Dict, Optional, Tuple, Union
 import torch
 
 from ..kernels import ops
-from .common import (Params, apply_rope, dense_init, rmsnorm, rope_cos_sin,
-                     rotate)
+from ..parallel import collectives as coll
+from .common import (Params, apply_rope, dense_init, get_mesh_context,
+                     rmsnorm, rope_cos_sin, rotate)
 
 
 def attention_init(cfg, gen: torch.Generator, dtype, device, *,
@@ -40,6 +51,17 @@ def attention_init(cfg, gen: torch.Generator, dtype, device, *,
         p["q_norm"] = torch.ones((hd,), dtype=dtype, device=device)
         p["k_norm"] = torch.ones((hd,), dtype=dtype, device=device)
     return p
+
+
+def attention_axes(cfg, *, cross: bool = False) -> Dict[str, tuple]:
+    """``attention_init``'s logical axes (the JAX package's)."""
+    ax = {"wq": ("embed", "heads"), "wk": ("embed", "kv_heads"),
+          "wv": ("embed", "kv_heads"), "wo": ("heads", "embed")}
+    if cfg.qkv_bias and not cross:
+        ax.update(bq=("heads",), bk=("kv_heads",), bv=("kv_heads",))
+    if cfg.qk_norm:
+        ax.update(q_norm=(None,), k_norm=(None,))
+    return ax
 
 
 def _linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -216,9 +238,66 @@ def attention_forward(cfg, p: Params, x: torch.Tensor, *,
         y = ops.decode_attention(q[:, 0], cache["k"], cache["v"], length)
         return _linear(y.reshape(B, 1, H * hd), p["wo"]), cache
 
+    y, k, v = _flash_full(cfg, q, k, v, causal=causal, window=window,
+                          use_rope=use_rope)
+    return _linear(y.reshape(B, S, H * hd), p["wo"]), (k, v)
+
+
+def attention_shard_mode(cfg, S: int, M: int) -> str:
+    """``cfg.attn_shard`` resolved as the JAX package's ``_flash_full``
+    resolves it over a model axis of M ranks: ``auto`` is ``seq`` when S
+    divides, else ``heads`` when the query and KV heads divide, else
+    ``replicated``; an explicit mode whose split does not divide runs
+    ``replicated``."""
+    heads_divide = cfg.n_heads % M == 0 and cfg.n_kv_heads % M == 0
+    mode = cfg.attn_shard
+    if mode == "auto":
+        mode = ("seq" if M > 1 and S % M == 0 else
+                "heads" if M > 1 and heads_divide else "replicated")
+    if mode == "seq" and M > 1 and S % M == 0:
+        return "seq"
+    if mode == "heads" and M > 1 and heads_divide:
+        return "heads"
+    return "replicated"
+
+
+def _flash_full(cfg, q, k, v, *, causal: bool, window: int, use_rope: bool):
+    """RoPE and the flash kernel over the whole sequence, sharded over the
+    mesh's model axis by ``attention_shard_mode``.  q/k/v: un-roped
+    projections (B,S,*,hd), replicated over the model axis.  Returns (y, k
+    roped, v), all replicated."""
+    mesh, _, model_axis = get_mesh_context()
+    S = q.shape[1]
+    positions = torch.arange(S, device=q.device)
+    mode = "replicated"
+    if mesh is not None and model_axis in mesh.mesh_dim_names:
+        M = coll.axis_size(mesh, model_axis)
+        mode = attention_shard_mode(cfg, S, M)
+    if mode == "seq":
+        # each model rank: its Sl queries at absolute positions
+        # i Sl .. (i+1) Sl - 1 against every key
+        Sl = S // M
+        i = coll.axis_index(mesh, model_axis)
+        q_l, k_l, v_l = (coll.split_to_local(t, mesh, model_axis, 1)
+                         for t in (q, k, v))
+        if use_rope:
+            pos = positions[i * Sl:(i + 1) * Sl]
+            q_l = apply_rope(q_l, pos, cfg.rope_theta)
+            k_l = apply_rope(k_l, pos, cfg.rope_theta)
+        k_full = coll.gather_for_local_use(k_l, mesh, model_axis, 1)
+        v_full = coll.gather_for_local_use(v_l, mesh, model_axis, 1)
+        y_l = ops.flash_attention(q_l, k_full, v_full, causal=causal,
+                                  window=window,
+                                  q_offset=i * Sl if causal else None)
+        return (coll.gather_to_replicated(y_l, mesh, model_axis, 1),
+                k_full, v)
     if use_rope:
-        positions = torch.arange(S, device=x.device)
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    y = ops.flash_attention(q, k, v, causal=causal, window=window)
-    return _linear(y.reshape(B, S, H * hd), p["wo"]), (k, v)
+    if mode == "heads":  # each model rank: its heads, no collective inside
+        q_l, k_l, v_l = (coll.split_to_local(t, mesh, model_axis, 2)
+                         for t in (q, k, v))
+        y_l = ops.flash_attention(q_l, k_l, v_l, causal=causal,
+                                  window=window)
+        return coll.gather_to_replicated(y_l, mesh, model_axis, 2), k, v
+    return ops.flash_attention(q, k, v, causal=causal, window=window), k, v

@@ -20,11 +20,12 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from .attention import (DecodePosition, _linear, attention_forward,
-                        attention_init, init_kv_cache)
-from .common import Params, apply_norm, dense_init, norm_init
-from .moe import moe_forward, moe_init
-from .ssd import init_ssd_cache, ssd_decode_step, ssd_forward, ssd_init
+from .attention import (DecodePosition, _linear, attention_axes,
+                        attention_forward, attention_init, init_kv_cache)
+from .common import Params, apply_norm, dense_init, norm_axes, norm_init
+from .moe import moe_axes, moe_forward, moe_init
+from .ssd import (init_ssd_cache, ssd_axes, ssd_decode_step, ssd_forward,
+                  ssd_init)
 
 
 def mlp_init(cfg, gen: torch.Generator, dtype, device) -> Params:
@@ -37,6 +38,14 @@ def mlp_init(cfg, gen: torch.Generator, dtype, device) -> Params:
             "b1": torch.zeros((f,), dtype=dtype, device=device),
             "w2": dense_init(gen, (f, d), dtype, device, in_axis=0),
             "b2": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def mlp_axes(cfg) -> Dict[str, tuple]:
+    if cfg.mlp == "swiglu":
+        return {"wg": ("embed", "ff"), "wu": ("embed", "ff"),
+                "wd": ("ff", "embed")}
+    return {"w1": ("embed", "ff"), "b1": ("ff",), "w2": ("ff", "embed"),
+            "b2": ("embed",)}
 
 
 def mlp_forward(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -70,6 +79,25 @@ def block_init(cfg, gen: torch.Generator, dtype, device,
     else:
         p["mlp"] = mlp_init(cfg, gen, dtype, device)
     return p
+
+
+def block_axes(cfg, kind: str = "dense") -> Dict:
+    """``block_init``'s logical axes, leaf for leaf (the JAX package's
+    ``block_init`` returns them beside the params)."""
+    if kind == "ssm":
+        return {"ln1": norm_axes(cfg), "ssd": ssd_axes(cfg)}
+    ax = {"ln1": norm_axes(cfg), "attn": attention_axes(cfg)}
+    if kind == "hybrid":
+        ax["ssd"] = ssd_axes(cfg)
+    if kind == "decoder":
+        ax["ln_cross"] = norm_axes(cfg)
+        ax["cross"] = attention_axes(cfg, cross=True)
+    ax["ln2"] = norm_axes(cfg)
+    if kind == "moe":
+        ax["moe"] = moe_axes(cfg)
+    else:
+        ax["mlp"] = mlp_axes(cfg)
+    return ax
 
 
 def block_forward(cfg, p: Params, x: torch.Tensor, kind: str = "dense", *,

@@ -16,6 +16,54 @@ Params = Dict[str, Any]
 
 _RECOMPUTE = {"on": True}
 
+# ---------------------------------------------------------------------------
+# mesh context (the JAX package's, with a DeviceMesh in place of a Mesh)
+# ---------------------------------------------------------------------------
+
+_MESH_CTX: Dict[str, Any] = {"mesh": None, "data_spec": ("data",),
+                             "model_axis": "model"}
+
+
+def set_mesh_context(mesh, data_spec=("data",), model_axis="model",
+                     moe_ff_axis=None) -> None:
+    """Install the ``DeviceMesh`` that the sharded modules (attention, MoE,
+    the layer stack's gathers) run over, its ranks holding shards cut by
+    ``parallel.sharding.param_rules`` (the fsdp recipe).  ``data_spec`` is
+    the tuple of mesh axes that shard the batch dim (("pod","data") on the
+    multi-pod mesh).  ``moe_ff_axis``, the JAX package's TP/EP recipe (the
+    expert hidden dim over a mesh axis, for its dry-run's lowerings), is not
+    ported: a value raises."""
+    if moe_ff_axis is not None:
+        raise NotImplementedError("moe_ff_axis (the TP/EP recipe) is not "
+                                  "ported: shard with the fsdp recipe")
+    _MESH_CTX["mesh"] = mesh
+    _MESH_CTX["data_spec"] = tuple(data_spec)
+    _MESH_CTX["model_axis"] = model_axis
+
+
+def get_mesh_context():
+    return (_MESH_CTX["mesh"], _MESH_CTX["data_spec"], _MESH_CTX["model_axis"])
+
+
+def clear_mesh_context() -> None:
+    _MESH_CTX["mesh"] = None
+
+
+def map_axes(fn, tree: Any) -> Any:
+    """``fn`` over a logical-axes (or spec) tree, whose leaves are tuples
+    (one entry per dim) inside dicts and lists."""
+    if isinstance(tree, dict):
+        return {k: map_axes(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [map_axes(fn, v) for v in tree]
+    return fn(tree)
+
+
+def stacked_axes(tree: Any) -> Any:
+    """A layer's axes with the stack's leading ``"layers"`` dim put in
+    front of every leaf."""
+    return map_axes(lambda t: ("layers",) + tuple(t), tree)
+
 
 def set_recompute(on: bool) -> None:
     """Per-layer recomputation under grad (``lm.run_stack``): on by
@@ -90,6 +138,15 @@ def apply_norm(cfg, x: torch.Tensor, p: Params) -> torch.Tensor:
     if cfg.norm == "layernorm":
         return layernorm(x, p["scale"], p["bias"], cfg.rms_eps)
     return rmsnorm(x, p["scale"], cfg.rms_eps)
+
+
+def norm_axes(cfg) -> Dict[str, tuple]:
+    """``norm_init``'s logical axes, as the JAX package's ``norm_init``
+    returns them."""
+    ax = {"scale": ("embed",)}
+    if cfg.norm == "layernorm":
+        ax["bias"] = ("embed",)
+    return ax
 
 
 def norm_init(cfg, d: int, dtype, device) -> Params:

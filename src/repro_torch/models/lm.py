@@ -23,6 +23,20 @@ kernels leave (K2's from q, k, v, o and each row's lse; K4's the chunk
 states from the scan's inputs) and store no per-chunk activation.
 Prefill, decode and every ``no_grad``/``inference_mode`` run take no
 checkpoint.  ``common.set_recompute(False)`` turns it off.
+
+Over a mesh (``common.set_mesh_context``), each rank holds its local
+shards of the parameters (``parallel.sharding.shard_tree`` under the
+rules of ``param_axes``) and its data shard of the batch.  The leaves
+outside the stacks are gathered to full once per forward; each layer step
+gathers its own leaves to full *inside* the recompute checkpoint, so the
+backward gathers them again: the ZeRO-3 per-layer all-gather of the fsdp
+recipe (``parallel/sharding.py``).  A dim sharded over the model axis is
+gathered for a consumer replicated over it (the backward takes the slice);
+one sharded over a data axis for a consumer that differs per data shard
+(the backward sums over the data shards).  The expert weights stay local
+over the model axis (expert parallelism, ``models/moe.py``) and are
+gathered over data only.  The loss is the global token mean: each rank's
+mean over its data shard, averaged over the data axes.
 """
 from __future__ import annotations
 
@@ -33,11 +47,13 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops
+from ..parallel import collectives as coll
 from .attention import DecodePosition
-from .blocks import block_forward, block_init, init_block_cache
+from .blocks import block_axes, block_forward, block_init, init_block_cache
 from .common import (Params, apply_norm, copy_tree_, dtype_of, embed_init,
-                     empty_stack, get_recompute, layer_slice, norm_init,
-                     softmax_cross_entropy, stack_trees)
+                     empty_stack, get_mesh_context, get_recompute,
+                     layer_slice, map_tree, norm_axes, norm_init,
+                     softmax_cross_entropy, stack_trees, stacked_axes)
 
 
 def layer_plan(cfg) -> List[Tuple[Tuple[str, ...], int]]:
@@ -74,6 +90,50 @@ def init_stack(cfg, gen: torch.Generator, dtype, device,
             stack = empty_stack(layer, count)
         copy_tree_(layer_slice(stack, l), layer)
     return stack
+
+
+def param_axes(cfg) -> Dict[str, Any]:
+    """The logical axes of ``init_params``'s tree, leaf for leaf: the JAX
+    package's ``init_params`` returns them beside the params."""
+    ax: Dict[str, Any] = {"embed": ("vocab", "embed")}
+    ax["stacks"] = [{f"b{i}": stacked_axes(block_axes(cfg, kind))
+                     for i, kind in enumerate(kinds)}
+                    for kinds, _ in layer_plan(cfg)]
+    ax["final_norm"] = norm_axes(cfg)
+    if not cfg.tie_embeddings:
+        ax["lm_head"] = ("embed", "vocab")
+    return ax
+
+
+def _gather_leaf(t: torch.Tensor, axes: Tuple) -> torch.Tensor:
+    """A leaf's local shard gathered to what the layer computes with: every
+    sharded dim but an expert dim, over the model axis for a replicated
+    consumer, over a data axis for one that differs per data shard."""
+    from ..parallel.sharding import logical_to_spec, param_rules, spec_axes
+    mesh, _, model_axis = get_mesh_context()
+    spec = logical_to_spec(axes, param_rules(mesh))
+    for d, (name, entry) in enumerate(zip(axes, spec)):
+        if name == "expert":
+            continue
+        for a in reversed(spec_axes(entry)):
+            gather = (coll.gather_to_replicated if a == model_axis
+                      else coll.gather_for_local_use)
+            t = gather(t, mesh, a, d)
+    return t
+
+
+STACK_KEYS = ("stacks", "enc_stack", "dec_stack")
+
+
+def gather_params(tree: Params, axes: Params) -> Params:
+    """``_gather_leaf`` over a parameter tree and its axes tree; the
+    identity outside a mesh.  Stacks (``stacks``, whisper's ``enc_stack``
+    and ``dec_stack``) are left local: ``run_stack`` gathers them a layer at
+    a time."""
+    if get_mesh_context()[0] is None:
+        return tree
+    return {k: v if k in STACK_KEYS else map_tree(_gather_leaf, v, axes[k])
+            for k, v in tree.items()}
 
 
 def init_params(cfg, gen: torch.Generator, device) -> Params:
@@ -118,7 +178,11 @@ def layer_step(cfg, lp: Params, x: torch.Tensor, kinds: Tuple[str, ...],
     """One step of a stack, the body of the JAX package's scan: every block
     of ``kinds`` on layer params ``lp`` (and caches ``lc``).  Returns (x,
     the blocks' new caches, their aux losses): the aux losses leave as
-    outputs, so a recomputed step adds none of them again."""
+    outputs, so a recomputed step adds none of them again.  Over a mesh,
+    ``lp`` holds local shards, gathered here first (``gather_params``)."""
+    if get_mesh_context()[0] is not None:
+        lp = gather_params(lp, {f"b{i}": block_axes(cfg, kind)
+                                for i, kind in enumerate(kinds)})
     new, aux = {}, []
     for i, kind in enumerate(kinds):
         x, new[f"b{i}"], a = block_forward(
@@ -190,7 +254,8 @@ def forward_with_aux(cfg, p: Params, batch: Dict[str, torch.Tensor]
     """(full-sequence logits (B, S, padded_vocab), the aux loss summed over
     layers in fp32, as the JAX package's scan carries it: 0 without MoE
     layers); a vlm's S counts its patch positions too.  No layer's K/V is
-    kept."""
+    kept.  Over a mesh: the logits of this rank's data shard."""
+    p = gather_params(p, param_axes(cfg))
     x = build_inputs(cfg, p, batch)
     x, _, aux = _run_stacks(cfg, p, x, collect=False)
     logits = unembed(cfg, p, apply_norm(cfg, x, p["final_norm"]))
@@ -214,8 +279,16 @@ def loss_fn(cfg, p: Params, batch: Dict[str, torch.Tensor]
         logits = logits[:, batch["patch_embeds"].shape[1]:, :]
     ce = softmax_cross_entropy(logits[:, :-1, :], tokens[:, 1:],
                                cfg.vocab_size)
-    loss = ce.mean()
+    loss = global_mean(ce)
     return loss + 0.01 * aux, {"loss": loss, "aux_loss": aux, "ce": loss}
+
+
+def global_mean(ce: torch.Tensor) -> torch.Tensor:
+    """The mean over every token of the batch: over a mesh, this rank's
+    data shard's mean averaged over the data axes (equal shards)."""
+    mesh, data_spec, _ = get_mesh_context()
+    loss = ce.mean()
+    return coll.pmean(loss, mesh, data_spec) if mesh is not None else loss
 
 
 def prefill(cfg, p: Params, batch: Dict[str, torch.Tensor]):
@@ -226,6 +299,7 @@ def prefill(cfg, p: Params, batch: Dict[str, torch.Tensor]):
     position and keeps the last, which gives the same logits at the cost
     of a (B, S, vocab) tensor.
     """
+    p = gather_params(p, param_axes(cfg))
     x = build_inputs(cfg, p, batch)
     x, caches, _ = _run_stacks(cfg, p, x)
     x = apply_norm(cfg, x[:, -1:], p["final_norm"])
@@ -248,6 +322,7 @@ def decode_step(cfg, p: Params, caches: List[Any], token: torch.Tensor,
     tensor on token's device, kept there (a captured graph of the step reads
     it anew on each replay).  Returns (logits (B,1,V), caches), the caches
     updated in place."""
+    p = gather_params(p, param_axes(cfg))
     x = embed_tokens(cfg, p, token)
     x, caches, _ = _run_stacks(cfg, p, x, caches=caches,
                                cache_pos=DecodePosition(pos, token.device))

@@ -48,6 +48,20 @@ def ssd_init(cfg, gen: torch.Generator, dtype, device) -> Params:
     }
 
 
+def ssd_axes(cfg) -> Dict[str, tuple]:
+    """``ssd_init``'s logical axes (the JAX package's): the head-parallel
+    leaves over "heads", B and C replicated."""
+    return {
+        "w_z": ("embed", "heads"), "w_x": ("embed", "heads"),
+        "w_B": ("embed", None), "w_C": ("embed", None),
+        "w_dt": ("embed", "heads"),
+        "conv_x": (None, "heads"), "conv_BC": (None, None),
+        "A_log": ("heads",), "D": ("heads",), "dt_bias": ("heads",),
+        "norm": ("heads",),
+        "w_out": ("heads", "embed"),
+    }
+
+
 def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv along the sequence, then SiLU: x (B,S,C),
     w (K,C).  K shifted multiply-adds in fp32, as the JAX package does (a

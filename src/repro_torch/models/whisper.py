@@ -18,10 +18,10 @@ from typing import Any, Dict, List, Tuple, Union
 import torch
 
 from .attention import DecodePosition
-from .blocks import init_block_cache
-from .common import (Params, apply_norm, dtype_of, embed_init, norm_init,
-                     softmax_cross_entropy)
-from .lm import init_stack, run_stack, unembed
+from .blocks import block_axes, init_block_cache
+from .common import (Params, apply_norm, dtype_of, embed_init, norm_axes,
+                     norm_init, softmax_cross_entropy, stacked_axes)
+from .lm import gather_params, global_mean, init_stack, run_stack, unembed
 
 MAX_DEC_POS = 32_768
 ENC, DEC = ("encoder",), ("decoder",)
@@ -45,6 +45,20 @@ def init_params(cfg, gen: torch.Generator, device) -> Params:
     }
 
 
+def param_axes(cfg) -> Dict[str, Any]:
+    """The logical axes of ``init_params``'s tree (the JAX package's)."""
+    return {
+        "enc_stack": {"b0": stacked_axes(block_axes(cfg, "encoder"))},
+        "dec_stack": {"b0": stacked_axes(block_axes(cfg, "decoder"))},
+        "embed": ("vocab", "embed"),
+        "pos_enc": (None, "embed"),
+        "pos_dec": (None, "embed"),
+        "enc_norm": norm_axes(cfg),
+        "final_norm": norm_axes(cfg),
+        "lm_head": ("embed", "vocab"),
+    }
+
+
 def encode(cfg, p: Params, frames: torch.Tensor) -> torch.Tensor:
     """(B, enc_seq, d) frames -> the encoder's output; its K/V are not
     kept."""
@@ -65,6 +79,7 @@ def _decoder(cfg, p: Params, batch: Dict[str, torch.Tensor], collect: bool):
 
 def forward(cfg, p: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Full-sequence logits (B, S, padded_vocab) of the tokens."""
+    p = gather_params(p, param_axes(cfg))
     x, _ = _decoder(cfg, p, batch, collect=False)
     return unembed(cfg, p, apply_norm(cfg, x, p["final_norm"]))
 
@@ -76,13 +91,14 @@ def loss_fn(cfg, p: Params, batch: Dict[str, torch.Tensor]
     logits = forward(cfg, p, batch)
     ce = softmax_cross_entropy(logits[:, :-1, :], batch["tokens"][:, 1:],
                                cfg.vocab_size)
-    loss = ce.mean()
+    loss = global_mean(ce)
     return loss, {"loss": loss, "ce": loss}
 
 
 def prefill(cfg, p: Params, batch: Dict[str, torch.Tensor]):
     """Returns (last-position logits (B,1,V), caches: the decoder's self
     K/V of the prompt and cross K/V of the encoder's output)."""
+    p = gather_params(p, param_axes(cfg))
     x, cache = _decoder(cfg, p, batch, collect=True)
     x = apply_norm(cfg, x[:, -1:], p["final_norm"])
     return unembed(cfg, p, x), [cache]
@@ -108,6 +124,7 @@ def decode_step(cfg, p: Params, caches: List[Any], token: torch.Tensor,
     ``pos_dec`` is read at the device position (clamped to the table, as
     JAX's ``dynamic_slice`` clamps), so a captured step reads each step's
     row."""
+    p = gather_params(p, param_axes(cfg))
     cache_pos = DecodePosition(pos, token.device)
     row = torch.clamp(cache_pos.pos, max=MAX_DEC_POS - 1).long().reshape(1)
     x = p["embed"][token] + p["pos_dec"].index_select(0, row)

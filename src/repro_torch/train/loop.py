@@ -8,6 +8,15 @@ of the forward and the backward is a kernel launch (``kernels/ops.py``).
 PyTorch runs eagerly, so nothing is jitted; ``train_loop`` takes a seed
 where the JAX package takes a key.  ``TrainConfig.compress_grads`` is
 declared and never read, as there.
+
+Over a mesh (``make_train_step(..., mesh=, specs=)``, the model's mesh
+context set, each rank holding its local shards and its data shard of the
+batch), autograd already gives each rank the gradient of its shard: the
+layers' gathers sum a data-sharded leaf's gradient over the data axes and
+take a model-sharded leaf's slice of the gradient of the replicated
+compute (``models/lm.py``).  The step then sums over the data axes the
+gradient of every leaf that is replicated over them, and AdamW runs on
+the shards with fp32 moments; the gradient norm sums each leaf once.
 """
 from __future__ import annotations
 
@@ -50,14 +59,33 @@ def _or_zeros(g: Optional[torch.Tensor], p: torch.Tensor) -> torch.Tensor:
     return torch.zeros_like(p, requires_grad=False) if g is None else g
 
 
+def sum_over_data(grads, specs, mesh):
+    """Each leaf's gradient summed over the batch's data axes that do not
+    shard it (a leaf replicated over them saw one data shard per rank)."""
+    from ..parallel.collectives import psum_raw
+    from ..parallel.sharding import batch_axes, sharded_axes
+
+    def one(g, spec):
+        axes = tuple(a for a in batch_axes(mesh)
+                     if a not in sharded_axes(spec))
+        return psum_raw(g, mesh, axes) if axes else g
+    return map_tree(one, grads, specs)
+
+
 def make_train_step(loss_fn: Callable, tcfg: TrainConfig,
-                    compress_fn: Optional[Callable] = None) -> Callable:
+                    compress_fn: Optional[Callable] = None, *,
+                    mesh=None, specs=None) -> Callable:
     """Returns train_step(state, batch) -> (state, metrics).
 
     With grad_accum > 1 the batch's leading dim is split into microbatches
     in order, their fp32 gradients summed and averaged, and the loss
-    averaged.
+    averaged.  ``mesh`` and ``specs`` (each parameter leaf's spec,
+    ``parallel.sharding.param_specs``): the step over a mesh (the module
+    docstring); int8 moments raise there.
     """
+    if mesh is not None and tcfg.opt.moment_dtype == "int8":
+        raise NotImplementedError("int8 moments over a mesh are not ported "
+                                  "yet: use moment_dtype='float32'")
 
     def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
         params = state["params"]
@@ -80,11 +108,13 @@ def make_train_step(loss_fn: Callable, tcfg: TrainConfig,
         else:
             _, metrics, grads = loss_and_grads(loss_fn, params, batch)
 
+        if mesh is not None:
+            grads = sum_over_data(grads, specs, mesh)
         if compress_fn is not None:
             grads = compress_fn(grads)
 
         new_params, new_opt, opt_metrics = adamw_update(
-            params, grads, state["opt"], tcfg.opt)
+            params, grads, state["opt"], tcfg.opt, specs=specs, mesh=mesh)
         metrics = dict(metrics)
         metrics.update(opt_metrics)
         new_state = {"params": new_params, "opt": new_opt,

@@ -7,8 +7,10 @@ fp32 (..., blocks, 1)}`` over blocks of the last dim, a 0-d parameter's as
 one block.  Weight decay applies where a leaf has ``ndim >= 2``; in the
 stacked layout that includes the layers' norm weights and biases, (L, d),
 and leaves out ``final_norm``, as in the JAX package.  The update makes new
-tensors and changes none of its inputs.  ``opt_logical_axes`` (sharding)
-is not ported yet.
+tensors and changes none of its inputs.  ``opt_logical_axes`` gives the
+moments' logical axes for the sharding rules.  Over a mesh the update runs
+on each rank's local shards; ``global_norm`` then sums each leaf's
+squares over the mesh axes that shard it, and only those.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ from typing import Any, Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..models.common import map_tree, tree_leaves
+from ..models.common import map_axes, map_tree, tree_leaves
 
 QBLOCK = 128
 
@@ -90,21 +92,49 @@ def _schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum over leaves of their fp32 squares."""
-    total = None
-    for x in tree_leaves(tree):
+def global_norm(tree, specs=None, mesh=None) -> torch.Tensor:
+    """sqrt of the sum over leaves of their fp32 squares.  Over a mesh
+    (``specs``: each leaf's spec, ``parallel.sharding.param_specs``), a
+    leaf is a local shard: its squares are summed over the mesh axes its
+    spec shards it on, and not over those it is replicated on, so each
+    leaf counts once; the leaves sharded on the same axes share one psum.
+    The same value on every rank."""
+    if mesh is None:
+        total = None
+        for x in tree_leaves(tree):
+            sq = torch.sum(torch.square(x.float()))
+            total = sq if total is None else total + sq
+        return torch.sqrt(total)
+    from ..parallel.collectives import psum_raw
+    from ..parallel.sharding import sharded_axes
+    names = tuple(mesh.mesh_dim_names)
+    groups: Dict[Tuple[str, ...], torch.Tensor] = {}
+
+    def add(x, spec):
+        axes = tuple(a for a in names if a in sharded_axes(spec))
         sq = torch.sum(torch.square(x.float()))
-        total = sq if total is None else total + sq
+        groups[axes] = groups[axes] + sq if axes in groups else sq
+    map_tree(add, tree, specs)
+    total = None
+    for axes in sorted(groups):
+        part = psum_raw(groups[axes], mesh, axes) if axes else groups[axes]
+        total = part if total is None else total + part
     return torch.sqrt(total)
 
 
-def adamw_update(params, grads, opt_state, cfg: AdamWConfig
+def adamw_update(params, grads, opt_state, cfg: AdamWConfig, *,
+                 specs=None, mesh=None
                  ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
-    """Returns (new_params, new_opt_state, {"grad_norm", "lr"})."""
+    """Returns (new_params, new_opt_state, {"grad_norm", "lr"}).  Over a
+    ``mesh``, params, grads and moments are local shards under ``specs``
+    (fp32 moments only: int8 moments block the last dim, whose shards
+    the port does not map yet, and raise)."""
+    if mesh is not None and cfg.moment_dtype == "int8":
+        raise NotImplementedError("int8 moments over a mesh are not ported "
+                                  "yet: use moment_dtype='float32'")
     count = opt_state["count"] + 1
     lr = _schedule(cfg, count)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, specs, mesh)
     clip = (torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                         max=1.0) if cfg.grad_clip else 1.0)
     countf = count.float()
@@ -135,3 +165,17 @@ def adamw_update(params, grads, opt_state, cfg: AdamWConfig
                "v": map_tree(lambda o: o.v, out), "count": count}
     return (map_tree(lambda o: o.p, out), new_opt,
             {"grad_norm": gnorm, "lr": lr})
+
+
+def opt_logical_axes(param_axes, cfg: AdamWConfig):
+    """Sharding metadata for the optimizer state (mirrors the params), the
+    JAX package's tree: an int8 moment's ``q`` and ``scale`` keep the
+    leading axes' rules and leave the blocks dims unsharded."""
+    if cfg.moment_dtype == "int8":
+        def mom_axes(t):
+            t = tuple(t)
+            return {"q": t[:-1] + (None, None), "scale": t[:-1] + (None, None)}
+        m = map_axes(mom_axes, param_axes)
+    else:
+        m = param_axes
+    return {"m": m, "v": m, "count": ()}

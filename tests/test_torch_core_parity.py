@@ -22,28 +22,38 @@ from repro_torch.launch.placement import run_stream
 ROOT = Path(__file__).resolve().parent.parent
 REF = ROOT / "src" / "repro" / "core"
 PORT = ROOT / "src" / "repro_torch" / "core"
-# the two package files that differ: the port's drops vmesh (jax)
+# the two package files that differ (the port's imports vmesh lazily, so
+# that the copied core stays free of torch), and vmesh itself, which is
+# ported (a torch.distributed DeviceMesh for a jax Mesh), not copied
 INITS = {"__init__.py", "engine/__init__.py"}
+PORTED = {"vmesh.py"}
 
 
 def test_core_copies_every_module_but_vmesh():
+    """The same modules, vmesh among them: every one but vmesh a copy."""
     ref = {p.relative_to(REF).as_posix() for p in REF.rglob("*.py")}
     port = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
-    assert port == ref - {"vmesh.py"}
+    assert port == ref
+    for name in PORTED:
+        assert (PORT / name).read_bytes() != (REF / name).read_bytes()
 
 
 @pytest.mark.parametrize("name", sorted(
     p.relative_to(REF).as_posix() for p in REF.rglob("*.py")
-    if p.name != "vmesh.py" and p.relative_to(REF).as_posix() not in INITS))
+    if p.name not in PORTED and p.relative_to(REF).as_posix() not in INITS))
 def test_core_module_is_byte_equal(name):
     assert (PORT / name).read_bytes() == (REF / name).read_bytes()
 
 
 def test_core_exports_the_reference_names_but_vmesh():
+    """The reference's names, vmesh's included (ported, not copied: each of
+    those resolves to ``repro_torch.core.vmesh``)."""
     vmesh = {"DeviceTopology", "TenantMesh", "virtual_mesh",
              "allocate_tenant", "elastic_remap", "device_permutation"}
-    assert set(core.__all__) == set(ref_core.__all__) - vmesh
+    assert core.__all__ == ref_core.__all__
     assert core.engine.__all__ == ref_core.engine.__all__
+    for name in vmesh:
+        assert getattr(core, name).__module__ == "repro_torch.core.vmesh"
 
 
 @pytest.mark.parametrize("seed", [0, 1])

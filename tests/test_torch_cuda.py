@@ -1168,3 +1168,98 @@ def test_cuda_train_two_steps_ssd_families(card, arch):
                                       "simt": 2 * 2 * hybrid}
     assert ops.launch_counts()[4] == {"wgmma": 2 * 2 * hybrid, "fp32": 0}
     assert all(np.isfinite(losses)) and losses[1] < losses[0]
+
+
+# (B, Sq, Skv, q_offset, H, KV, hd, window) of a sequence shard's queries
+# against every key: deepseek_moe_16b's two shards of 512 (offsets 0 and
+# 256), hymba_1_5b's second shard of 2048 under its window of 1024, and
+# offsets off the 64-key and 128-row tiles, with keys past the shard's last
+# row (never attended) and a window that ends inside a tile
+OFFSET_CASES = [(2, 256, 512, 0, 16, 16, 128, 0),
+                (2, 256, 512, 256, 16, 16, 128, 0),
+                (1, 1024, 2048, 1024, 25, 5, 64, 1024),
+                (1, 100, 300, 77, 8, 2, 64, 0),
+                (1, 129, 455, 200, 14, 2, 64, 0),
+                (2, 64, 512, 1, 8, 1, 128, 0),
+                (1, 200, 600, 333, 8, 2, 64, 100),
+                (1, 128, 512, 100, 8, 1, 128, 64),
+                (1, 77, 400, 300, 4, 4, 64, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,Sq,Skv,off,H,KV,hd,window", OFFSET_CASES)
+def test_cuda_flash_attention_offset_matches_plain(card, B, Sq, Skv, off, H,
+                                                   KV, hd, window, dtype):
+    """Queries at positions q_offset + r among Skv keys, causal (banded
+    too): the forward, its lse and the backward against the plain
+    versions, under the loose limits and the mean limits; each call
+    counted as a launch with an offset."""
+    from repro_torch.kernels.flash_attention import (
+        BWD_MEAN_TOL, flash_attention_bwd_plain, flash_attention_lse_plain)
+    q, k, v, do = _on(card, dtype, 90 + off + Sq, (B, Sq, H, hd),
+                      (B, Skv, KV, hd), (B, Skv, KV, hd), (B, Sq, H, hd))
+    mask = dict(causal=True, window=window, q_offset=off)
+    ops.reset_launches()
+    o, lse = ops.flash_attention_lse(q, k, v, **mask)
+    want = flash_attention_plain(q, k, v, **mask)
+    tol = DTYPES[dtype][1]
+    _close(o, want, tol)
+    assert (o.float() - want.float()).abs().mean() <= \
+        MEAN_TOL[q.dtype] * want.float().abs().mean()
+    want_lse = flash_attention_lse_plain(q, k, **mask)
+    assert bool(((lse - want_lse).abs() <= 1e-4 * (1 + want_lse.abs())).all())
+    got = ops.flash_attention_bwd(q, k, v, o, do, lse=lse, **mask)
+    torch.cuda.synchronize()
+    assert ops.OFFSET_LAUNCHES == {"flash_attention": 1,
+                                   "flash_attention_bwd": 1}
+    for g, w in zip(got, flash_attention_bwd_plain(q, k, v, o, do, **mask)):
+        diff = (g.float() - w.float()).abs()
+        assert bool((diff <= tol * (1 + w.float().abs())).all())
+        assert diff.mean().item() <= BWD_MEAN_TOL[g.dtype] * \
+            w.float().abs().mean().item() + 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("M", [2, 4])
+def test_cuda_flash_attention_shards_reassemble_the_whole(card, M, dtype):
+    """M query shards of 512 positions at offsets that are multiples of the
+    kernels' 128-row tiles, each against all 512 keys: their outputs and
+    dq, put together, equal the unsharded kernel's bit for bit (each query
+    tile walks the same key tiles in the same order); dk and dv, summed
+    over the shards, agree within the backward's limits."""
+    B, S, H, KV, hd = 2, 512, 16, 4, 128
+    q, k, v, do = _on(card, dtype, 95, (B, S, H, hd), (B, S, KV, hd),
+                      (B, S, KV, hd), (B, S, H, hd))
+    o, lse = ops.flash_attention_lse(q, k, v)
+    whole = ops.flash_attention_bwd(q, k, v, o, do, lse=lse)
+    Sl = S // M
+    outs, dqs, dk, dv = [], [], 0, 0
+    for i in range(M):
+        rows = slice(i * Sl, (i + 1) * Sl)
+        qi, doi = q[:, rows].contiguous(), do[:, rows].contiguous()
+        oi, lsei = ops.flash_attention_lse(qi, k, v, q_offset=i * Sl)
+        gi = ops.flash_attention_bwd(qi, k, v, oi, doi, lse=lsei,
+                                     q_offset=i * Sl)
+        outs.append(oi)
+        dqs.append(gi[0])
+        dk, dv = dk + gi[1].float(), dv + gi[2].float()
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat(outs, 1), o)
+    assert torch.equal(torch.cat(dqs, 1), whole[0])
+    tol = DTYPES[dtype][1]
+    _close(dk, whole[1], tol)
+    _close(dv, whole[2], tol)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_offset_rejects_what_it_does_not_take(card):
+    q, k, v = _on(card, "bfloat16", 97, (1, 64, 2, 64), (1, 128, 1, 64),
+                  (1, 128, 1, 64))
+    with pytest.raises(ValueError, match="q_offset"):
+        ops.flash_attention(q, k, v, q_offset=65)  # past the keys
+    with pytest.raises(ValueError, match="q_offset"):
+        ops.flash_attention(q, k, v, causal=False, q_offset=0)
+    with pytest.raises(ValueError, match="q_offset"):
+        ops.flash_attention(q, k, v, q_offset=-1)

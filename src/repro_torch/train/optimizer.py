@@ -48,8 +48,11 @@ def quantize_q8(x: torch.Tensor) -> Dict[str, torch.Tensor]:
     pad = (-x.shape[-1]) % QBLOCK
     xp = F.pad(x, (0, pad)) if pad else x
     blocks = xp.reshape(*xp.shape[:-1], xp.shape[-1] // QBLOCK, QBLOCK)
-    scale = torch.clamp(blocks.abs().amax(dim=-1, keepdim=True) / 127.0,
-                        min=1e-12)
+    amax = blocks.abs().amax(dim=-1, keepdim=True)
+    # divided by a tensor: by a Python number, PyTorch's CUDA kernel
+    # multiplies by the reciprocal, which can miss the quotient by one bit
+    # where the CPU (and the JAX package) divide
+    scale = torch.clamp(amax / torch.full_like(amax, 127.0), min=1e-12)
     q = torch.clamp(torch.round(blocks / scale), -127, 127).to(torch.int8)
     return {"q": q, "scale": scale.float()}
 

@@ -1,12 +1,14 @@
-"""An 8-rank gloo world on the CPU for the port's mesh tests.
+"""A gloo world on the CPU for the port's mesh tests: 8 ranks, or as many
+as ``run_world`` is given.
 
 The test process (which imports jax) writes each job's inputs as numpy
 files and calls ``run_world``; that starts one process per rank running
 this file as a script, which imports the port and never jax.  The ranks
-build each job's ("data", "model") mesh (its "mesh" shape, (2, 4) unless it
-names one) the first time a job asks for it, run the jobs in order (every rank
-the same jobs: building a mesh and every collective involve the whole
-world) and rank 0 writes each job's outputs as numpy files.  A rank that
+build each job's mesh (its "mesh" shape and "axes": (2, 4) and ("data",
+"model") unless it names them) the first time a job asks for it, run the
+jobs in order (every rank the same jobs: building a mesh and every
+collective involve the whole world) and rank 0 writes each job's outputs
+as numpy files.  A rank that
 fails ends the world: the others are killed and ``run_world`` raises with
 its output.
 
@@ -268,8 +270,69 @@ def job_tenants(workdir, mesh, job):
     return out
 
 
+def job_pipeline(workdir, mesh, job):
+    """``pipeline_forward`` over the mesh's one axis ("pod"), each rank
+    holding its stage's block of the stacked parameters: the outputs, the
+    same on every rank, the stage calls a rank made, the stages run in
+    sequence on each microbatch alone, and with "grad" the
+    gradients of sum(out * ct): every stage's (gathered over the axis) and
+    the input's (the same on every rank)."""
+    import torch
+    from repro_torch import convert
+    from repro_torch.models.blocks import block_forward
+    from repro_torch.models.common import map_tree
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel import pipeline_forward
+    inputs = load(workdir / job["batch"])
+    stage = coll.axis_index(mesh, "pod")
+    stacked = _params(workdir, job)
+    params = map_tree(lambda t: t[stage:stage + 1].clone(), stacked)
+    x = torch.from_numpy(inputs["x"])
+    if job["stage"] == "block":
+        cfg = _cfg(job)
+
+        def stage_fn(p, h):
+            return block_forward(cfg, p["b0"], h, "dense")[0]
+    else:
+        def stage_fn(p, h):
+            return torch.tanh(h @ p["w"] + p["b"])
+    calls = []
+
+    def counted(p, h):
+        calls.append(1)
+        return stage_fn(p, h)
+
+    grad = job.get("grad", False)
+    if grad:
+        params = map_tree(lambda t: t.requires_grad_(True), params)
+        x.requires_grad_(True)
+    out = pipeline_forward(counted, x, mesh=mesh, axis="pod",
+                           stage_params=params)
+    every = coll.gather_raw(out.detach()[None], mesh, "pod", 0)
+    assert all(torch.equal(every[0], e) for e in every), "not replicated"
+    res = {"out": out.detach(), "calls": np.int64(len(calls))}
+    with torch.no_grad():  # the stages in sequence, one microbatch at a time
+        seq = []
+        for h in x:
+            for s in range(coll.axis_size(mesh, "pod")):
+                h = stage_fn(map_tree(lambda t: t[s], stacked), h)
+            seq.append(h)
+        res["sequential"] = torch.stack(seq)
+    if grad:
+        loss = (out * torch.from_numpy(inputs["ct"])).sum()
+        flat = convert.flatten(params)
+        grads = torch.autograd.grad(loss, list(flat.values()) + [x])
+        for k, g in zip(flat, grads):
+            res[f"grad/{k}"] = coll.gather_raw(g, mesh, "pod", 0)
+        every = coll.gather_raw(grads[-1][None], mesh, "pod", 0)
+        assert all(torch.equal(every[0], e) for e in every), "dx differs"
+        res["grad/x"] = grads[-1]
+    return res
+
+
 JOBS = {"forward": job_forward, "moe": job_moe, "ssd": job_ssd,
-        "grad": job_grad, "step": job_step, "tenants": job_tenants}
+        "grad": job_grad, "step": job_step, "tenants": job_tenants,
+        "pipeline": job_pipeline}
 
 
 def main(workdir, rank, world, port):
@@ -281,10 +344,11 @@ def main(workdir, rank, world, port):
     coll.init_world(rank, world, port, "cpu", timeout_s=120)
     meshes = {}
     for job in json.loads((workdir / "jobs.json").read_text()):
-        shape = tuple(job.get("mesh", (2, 4)))
-        if shape not in meshes:  # every rank builds it, in the same order
-            meshes[shape] = make_test_mesh(shape, ("data", "model"))
-        out = JOBS[job["kind"]](workdir, meshes[shape], job)
+        key = (tuple(job.get("mesh", (2, 4))),
+               tuple(job.get("axes", ("data", "model"))))
+        if key not in meshes:  # every rank builds it, in the same order
+            meshes[key] = make_test_mesh(*key)
+        out = JOBS[job["kind"]](workdir, meshes[key], job)
         if rank == 0:
             save(workdir / f"out_{job['name']}.npz",
                  {k: v.detach().numpy() if isinstance(v, torch.Tensor) else v

@@ -4,7 +4,11 @@ its original; seeded streams of create, destroy and remap requests on
 ``make_standard_hypervisor`` through each mapper giving equal
 assignments, TEDs, routing-table entries, memory ranges and
 ``EngineStats``; and the simulator's ``RunReport``s for the paper-figure
-workloads equal float for float."""
+workloads equal float for float.  The planes built on this core (``sched``,
+the serving plane, ``obs``) are held in ``tests/test_torch_planes.py``, and
+the reference suites that drive them, ``tests/test_fastpath.py`` among
+them, run again on the copy in
+``tests/test_torch_{sched,serving,serving_scale,defrag,fastpath}.py``."""
 from pathlib import Path
 
 import pytest

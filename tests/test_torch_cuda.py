@@ -1263,3 +1263,45 @@ def test_cuda_flash_attention_offset_rejects_what_it_does_not_take(card):
         ops.flash_attention(q, k, v, causal=False, q_offset=0)
     with pytest.raises(ValueError, match="q_offset"):
         ops.flash_attention(q, k, v, q_offset=-1)
+
+
+# gradient trees for the compression test: fp32 and bf16 leaves, a last
+# dim that is not a multiple of 128, a column, a 0-d leaf
+COMPRESSION_SHAPES = [(4, 896), (3, 200), (2, 4864), (7, 1), ()]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_compression_equals_the_cpu_bit_for_bit(card, dtype):
+    """``compress_tree`` and three error-feedback steps on the card equal
+    the CPU's bit for bit: the same element operations, each one IEEE
+    rounding (the quantizer divides by a tensor, not by a Python number,
+    whose reciprocal the CUDA kernel would multiply by)."""
+    from repro_torch.convert import flatten
+    from repro_torch.parallel import (compress_tree,
+                                      make_error_feedback_compressor)
+
+    def bits(t):
+        t = t.cpu().contiguous()
+        if t.is_floating_point():
+            t = t.view({2: torch.int16, 4: torch.int32}[t.element_size()])
+        return t
+
+    def same(a, b):
+        fa, fb = flatten(a), flatten(b)
+        return fa.keys() == fb.keys() and all(
+            fa[k].dtype == fb[k].dtype and torch.equal(bits(fa[k]),
+                                                       bits(fb[k]))
+            for k in fa)
+
+    gen = torch.Generator().manual_seed(3)
+    host = {f"g{i}": (torch.randn(shape, generator=gen) * 10.0 ** -i)
+            .to(dtype) for i, shape in enumerate(COMPRESSION_SHAPES)}
+    grads = {k: v.to(card) for k, v in host.items()}
+    assert same(compress_tree(grads), compress_tree(host))
+    compress, init = make_error_feedback_compressor()
+    r_card, r_host = init(grads), init(host)
+    for _ in range(3):
+        g_card, r_card = compress(grads, r_card)
+        g_host, r_host = compress(host, r_host)
+        assert same(g_card, g_host) and same(r_card, r_host)

@@ -58,7 +58,9 @@ _IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|triton|repro)\b",
 
 @pytest.mark.parametrize("path", sorted(
     [p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py")]
-    + ["chip_smoke.py", "examples/train_100m_torch.py"]))
+    + [p.relative_to(ROOT).as_posix()
+       for p in (ROOT / "examples").glob("*_torch.py")]
+    + ["chip_smoke.py"]))
 def test_source_imports_no_jax_or_reference(path):
     text = (ROOT / path).read_text()
     assert not _IMPORT.findall(text), path

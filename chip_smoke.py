@@ -225,7 +225,20 @@ exits non-zero):
                of qwen2_0_5b beside the card's measured one at batch 4
                (their ratio printed); one ClusterScheduler run of the mixed
                trace with the serving plane, on the card's host, timed and
-               run twice the same.
+               run twice the same;
+13. fleet   -- the fleet and chaos planes on the card's host: two 8 x 8
+               pods of the fleet-serving trace through a storm's
+               fleet-scope faults (a pod lost and its tenants evacuated
+               over the switch, a switch brownout), under the serial and
+               the parallel executor (2 forked workers): pod_digests and
+               every FleetMetrics field equal, each run's host seconds;
+14. roofline -- the step times that the serve and train phases measured
+               (each served path's prefill and decode step, each train
+               path's step; no run of its own) against the analytic
+               roofline of repro_torch.roofline on this card's peaks
+               (peaks_for): the step's FLOPs (kernelized), bytes and model
+               FLOPs, the compute and memory times, measured / bound and
+               the measured MFU; a time below its bound fails.
 
 Then each phase's seconds and the whole run's, a summary line of the kernels (each with the routes its cases took;
 the grouped matmul's launches by path, serving and training, and its
@@ -314,12 +327,14 @@ SSD_FINE_TOL = {"bfloat16": 1e-2}
 DECODE_FINE_TOL = (1e-2, 5e-5)
 SLEEP_CYCLES = 2_000_000  # ~1 ms of GPU spin ahead of each timed call
 
-# Published peaks (NVIDIA data sheets; dense, no sparsity): bytes/s, and
-# operations/s by input type (fp32 outside the tensor cores).
-PEAKS = {
-    "H100 SXM": {"bytes": 3.35e12, "bfloat16": 989e12, "float32": 67e12},
-    "H100 PCIe": {"bytes": 2.0e12, "bfloat16": 756e12, "float32": 51e12},
-}
+# The card's published peaks (bytes/s, operations/s by input type) come
+# from repro_torch.roofline's one table, H100_PEAKS, by the card's name
+# (phase_device).
+# Each served path's prefill and decode step time, each train path's step
+# time, as the serve and train phases measured them: the roofline phase
+# reads them (and times nothing itself).  (path, kind) -> {"cfg", "batch",
+# "seq", "seq_is", "ms"}
+STEP_TIMES = {}
 
 # TPU kernels of the JAX package that the port's kernels replace
 KERNELS = {
@@ -391,6 +406,10 @@ def main() -> int:
     launches["mesh"] = timed("mesh", phase_mesh, torch, dev)
     timed("core", phase_core)
     launches["tenants"] = timed("tenants", phase_tenants, torch, dev)
+    timed("fleet", phase_fleet)
+    timed("roofline", phase_roofline, dev,
+          [(m, k) for m in (*MODELS, LONG_PATH) for k in ("prefill", "decode")]
+          + [(p, "train") for p in (*TRAIN_PATHS, "train_100m")])
     emit({"phase": "seconds", "by_phase": seconds,
           "total_s": time.perf_counter() - t_start})
     summary = []
@@ -462,13 +481,15 @@ def phase_device(torch):
                            "built for sm_90a (Hopper)")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    part = "H100 PCIe" if "PCIe" in smi else "H100 SXM"
+    from repro_torch.roofline import part_for, peaks_for
+    name = torch.cuda.get_device_name(0)
+    part, peaks = part_for(name), peaks_for(name)  # raise on another card
     emit({"phase": "device", "nvidia_smi": smi,
-          "name": torch.cuda.get_device_name(0), "capability": list(cap),
+          "name": name, "capability": list(cap),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "allow_tf32": False,
-          "peaks": {"part": part, **PEAKS[part]}})
-    return {"smi": smi, "peaks": PEAKS[part]}
+          "peaks": {"part": part, **peaks}})
+    return {"smi": smi, "part": part, "peaks": peaks}
 
 
 def phase_build():
@@ -1703,6 +1724,8 @@ def phase_train(torch, dev, model, batch, seq, lr, path, steps=5,
     fa, fb = convert.flatten(a), convert.flatten(b)
     same = all(torch.equal(fa[n], fb[n].cpu()) for n in fa)
     expect = train_launches(cfg, steps, batch * seq)
+    record_step(path, "train", cfg, batch, seq, "the batch's sequence",
+                warm * 1e3)
     n_params = sum(t.numel() for n, t in fa.items() if n.startswith("params"))
     emit({"phase": "train", "model": model, "path": path,
           "n_layers": cfg.n_layers, "sliding_window": cfg.sliding_window,
@@ -1788,6 +1811,9 @@ def load_example(name: str):
     return example
 
 
+TRAIN_100M_BATCH = 8  # examples/train_100m_torch.py's global batch
+
+
 def phase_train_100m(torch, dev):
     """``examples/train_100m_torch.py --full`` on the card, through its
     ``main``: llama_100m (12 layers, d 768, 12/4 heads, vocab 32000, bf16),
@@ -1821,6 +1847,9 @@ def phase_train_100m(torch, dev):
     cfg = example.small_llama(True)
     expect = train_launches(cfg, out["steps"], out["tokens_per_step"])
     warm = statistics.median(out["step_s"][1:])
+    record_step("train_100m", "train", cfg, TRAIN_100M_BATCH,
+                out["tokens_per_step"] // TRAIN_100M_BATCH,
+                "the batch's sequence", warm * 1e3)
     losses = out["losses"]
     emit({"phase": "train_100m", "model": out["model"],
           "n_params": out["n_params"], "n_layers": cfg.n_layers,
@@ -2719,6 +2748,166 @@ def phase_tenants(torch, dev):
     return launches
 
 
+# the fleet phase: two 8 x 8 pods of the fleet-serving trace (8 s of
+# arrivals, run to 24 s) through the storm profile's fleet-scope faults of
+# seed 117 (pod 1 lost at 12.6 s, its tenants evacuated over the switch; a
+# switch brownout from 13.4 s for 1.5 s), under the serial executor and
+# the parallel one of 2 forked workers
+FLEET_SEED, FLEET_PODS, FLEET_SIDE = 117, 2, 8
+FLEET_HORIZON_S, FLEET_END_S = 8.0, 24.0
+
+
+def storm_scenarios(fleet, plan):
+    """A fault plan's fleet-scope faults as ``fleet``'s scenarios (either
+    package's fleet module): a pod loss as "pod-failure", a switch brownout
+    as "switch-brownout"."""
+    out = []
+    for e in plan.fleet_events():
+        if e.kind == "pod-fail":
+            out.append(fleet.Scenario("pod-failure", e.t_s, e.pod_id))
+        else:
+            out.append(fleet.Scenario("switch-brownout", e.t_s, 0,
+                                      duration_s=e.duration_s,
+                                      factor=e.factor))
+    return out
+
+
+def fleet_storm_plan(chaos):
+    """The fleet phase's fault plan, from either package's chaos module."""
+    return chaos.make_fault_plan(FLEET_SIDE, FLEET_SIDE, FLEET_END_S,
+                                 seed=FLEET_SEED, n_pods=FLEET_PODS)
+
+
+def fleet_storm_run(fleet, chaos, workers: int):
+    """The fleet phase's run under ``workers`` executors (1: serial), on
+    the given fleet and chaos modules; returns its FleetMetrics."""
+    plan = fleet_storm_plan(chaos)
+    pods = [fleet.PodSpec(pod_id=i, rows=FLEET_SIDE, cols=FLEET_SIDE)
+            for i in range(FLEET_PODS)]
+    f = fleet.Fleet(pods, fleet.FleetConfig(seed=FLEET_SEED, window_s=2.0,
+                                            record_requests=True))
+    trace = fleet.fleet_trace(FLEET_PODS, seed=FLEET_SEED,
+                              horizon_s=FLEET_HORIZON_S)
+    return f.run(trace, storm_scenarios(fleet, plan), workers=workers,
+                 end_s=FLEET_END_S)
+
+
+def cluster_metrics_plain(m):
+    """A ClusterMetrics as builtins, field for field: each EpochSample a
+    tuple, the latency sketches their snapshots, the scoring passes' wall
+    times (the host's clock) by count alone."""
+    out = {}
+    for f in dataclasses.fields(m):
+        v = getattr(m, f.name)
+        if f.name == "samples":
+            v = [dataclasses.astuple(s) for s in v]
+        elif f.name == "scoring_pass_s":
+            v = len(v)
+        elif hasattr(v, "snapshot"):
+            v = v.snapshot()
+        out[f.name] = v
+    return out
+
+
+def fleet_metrics_plain(m):
+    """A FleetMetrics as builtins, every field but ``wall_s`` (the host's
+    clock) and ``workers`` (the executor's): the pods' metrics, the
+    router's and the switch's stats."""
+    out = {}
+    for f in dataclasses.fields(m):
+        v = getattr(m, f.name)
+        if f.name == "pods":
+            v = [cluster_metrics_plain(p) for p in v]
+        elif f.name in ("router", "switch"):
+            v = dataclasses.asdict(v)
+        elif f.name in ("wall_s", "workers"):
+            continue
+        out[f.name] = v
+    return out
+
+
+def phase_fleet():
+    """The fleet and chaos planes (``repro_torch.fleet``,
+    ``repro_torch.chaos``: numpy on the host, nothing on the card): one
+    fleet run under a storm (``fleet_storm_run``) with the serial executor
+    and with the parallel one; their ``pod_digests`` and every
+    ``FleetMetrics`` field equal, the storm's faults applied (a brownout,
+    a pod's tenants evacuated), and each run's host seconds."""
+    from repro_torch import chaos, fleet
+    runs, host_s = {}, {}
+    for workers in (1, 2):
+        t0 = time.perf_counter()
+        runs[workers] = fleet_storm_run(fleet, chaos, workers)
+        host_s[workers] = time.perf_counter() - t0
+    serial, parallel = runs[1], runs[2]
+    same_digests = serial.pod_digests() == parallel.pod_digests()
+    same_metrics = fleet_metrics_plain(serial) == fleet_metrics_plain(parallel)
+    summary = serial.serving_summary()
+    emit({"phase": "fleet", "pods": FLEET_PODS, "mesh": [FLEET_SIDE] * 2,
+          "seed": FLEET_SEED,
+          "faults": [[e.t_s, e.kind, e.pod_id]
+                     for e in fleet_storm_plan(chaos).fleet_events()],
+          "windows": serial.n_windows, "workers": parallel.workers,
+          "serial_host_s": host_s[1], "parallel_host_s": host_s[2],
+          "pod_digests_equal": same_digests,
+          "fleet_metrics_equal": same_metrics, "summary": summary})
+    if not (same_digests and same_metrics):
+        raise AssertionError("the parallel executor's fleet run differs from "
+                             "the serial one's")
+    if parallel.workers != 2 or not serial.requests_arrived or \
+            serial.switch.n_brownouts != 1 or not summary["evacuated"]:
+        raise AssertionError(f"the storm did not run as planned: {summary}")
+
+
+def record_step(path, kind, cfg, batch, seq, seq_is, ms) -> None:
+    """A measured step for the roofline phase: ``path``'s ``kind`` step
+    ("prefill", "decode", "train") of ``cfg`` at ``batch`` x ``seq``
+    (``seq_is`` says what seq holds), ``ms`` milliseconds."""
+    STEP_TIMES[(path, kind)] = {"cfg": cfg, "batch": batch, "seq": seq,
+                                "seq_is": seq_is, "ms": ms}
+
+
+def phase_roofline(dev, expected):
+    """Each step that the serve and train phases timed (``STEP_TIMES``: no
+    run of its own) against the analytic roofline of
+    ``repro_torch.roofline`` on this card's peaks, one chip: the step's
+    FLOPs (``step_flops``, kernelized: the causal half of attention), bytes
+    (``step_bytes``, fp32 moments) and model FLOPs (``model_flops_for``),
+    the compute and memory times at the bf16 rate, the bound (the larger),
+    the measured ms over it and the measured MFU (model FLOPs over the bf16
+    peak times the measured seconds).  ``expected``: the (path, kind) pairs
+    that must have been timed.  A measured time below its bound fails the
+    phase: no card beats its roofline, so a count or a timing is wrong."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.roofline import step_terms
+    peaks = dev["peaks"]
+    rows = []
+    for (path, kind), m in STEP_TIMES.items():
+        shape = ShapeSpec(f"{path}/{kind}", m["seq"], m["batch"], kind)
+        t = step_terms(m["cfg"], shape, peaks)
+        bound_ms = t.step_time * 1e3
+        rows.append({
+            "path": path, "kind": kind, "model": m["cfg"].name,
+            "n_layers": m["cfg"].n_layers, "batch": m["batch"],
+            "seq": m["seq"], "seq_is": m["seq_is"],
+            "step_flops": t.hlo_flops, "step_bytes": t.hlo_bytes,
+            "model_flops": t.model_flops,
+            "t_compute_ms": t.t_compute * 1e3,
+            "t_memory_ms": t.t_memory * 1e3, "bound_ms": bound_ms,
+            "bound_by": t.bottleneck, "measured_ms": m["ms"],
+            "measured_over_bound": m["ms"] / bound_ms,
+            "mfu": t.model_flops / (peaks["bfloat16"] * m["ms"] / 1e3)})
+    emit({"phase": "roofline", "nvidia_smi": dev["smi"], "part": dev["part"],
+          "chips": 1, "peaks": peaks, "paths": rows})
+    missing = sorted(set(map(tuple, expected)) - set(STEP_TIMES))
+    if missing:
+        raise AssertionError(f"no measured step for {missing}")
+    below = [(r["path"], r["kind"], r["measured_ms"], r["bound_ms"])
+             for r in rows if r["measured_ms"] < r["bound_ms"]]
+    if below:
+        raise AssertionError(f"measured below the roofline: {below}")
+
+
 def profile_train_step(torch, fn):
     """torch.profiler over one call of ``fn``: wall ms, the union of device
     kernel time, the device's idle share, the twelve kernels with the most
@@ -2931,6 +3120,16 @@ def phase_serve(torch, dev, model, lengths=None, max_seq=1024, path=None):
                               eng.decoder)
 
     same_tokens = graph_tokens == eager["tokens"]
+    S = int(max(lengths))  # the prompts left-padded to the longest
+    record_step(path or model, "prefill", cfg, ecfg.batch_size,
+                S + (cfg.frontend_seq if cfg.family == "vlm" else 0),
+                "the padded prompt (after the vlm's patch rows)",
+                1e3 * st["prefill_s"] / st["prefills"])
+    # step i of n attends the S + i + 1 positions up to its own
+    record_step(path or model, "decode", cfg, ecfg.batch_size,
+                S + (st["decode_steps"] + 1) // 2,
+                "the mean of the lengths the decode steps attended",
+                1e3 * st["decode_s"] / st["decode_steps"])
     bound = (decode_bound(cfg, params, ecfg, int(max(lengths)), 32,
                           dev["peaks"])
              if cfg.family == "encdec" else None)

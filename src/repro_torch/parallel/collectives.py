@@ -37,7 +37,9 @@ rank has a card of its own (untested: no world of more than one card has
 run the port).  gloo's collectives take host tensors, so a
 tensor on a card goes through pinned host memory on the way there and
 back; ``STATS`` records, per collective, its calls, the bytes this rank
-contributed and the transport that carried them.
+contributed and the transport that carried them; ``OUT_BYTES``, beside
+it, the bytes of their outputs by the kind names of the JAX package's
+roofline (``roofline.collective_bytes`` reads it).
 """
 from __future__ import annotations
 
@@ -52,10 +54,19 @@ Axes = Union[str, Sequence[str]]
 
 # per collective: {"calls", "bytes" (this rank's payload), "transport"}
 STATS: Dict[str, Dict[str, object]] = {}
+# per kind of the JAX package's roofline ("all-gather", "all-reduce",
+# "reduce-scatter", "all-to-all", "collective-permute"): the bytes of this
+# rank's outputs, as XLA's HLO sizes them, over axes of more than one rank
+OUT_BYTES: Dict[str, int] = {}
 
 
 def reset_stats() -> None:
     STATS.clear()
+    OUT_BYTES.clear()
+
+
+def _count_out(kind: str, t: torch.Tensor) -> None:
+    OUT_BYTES[kind] = OUT_BYTES.get(kind, 0) + t.numel() * t.element_size()
 
 
 def world_backend(device: torch.device, local_world_size: int) -> str:
@@ -170,7 +181,9 @@ def gather_raw(t: torch.Tensor, mesh, axis: str, dim: int,
     x = tr.there(t)
     parts = [tr.empty(x.shape, x.dtype) for _ in range(tr.size)]
     dist.all_gather(parts, x, group=tr.group)
-    return tr.back(torch.cat(parts, dim=dim))
+    out = torch.cat(parts, dim=dim)
+    _count_out("all-gather", out)
+    return tr.back(out)
 
 
 def _all_to_all_raw(t: torch.Tensor, mesh, axis: str, split_axis: int,
@@ -189,6 +202,7 @@ def _all_to_all_raw(t: torch.Tensor, mesh, axis: str, split_axis: int,
     x = tr.there(t.movedim(split_axis, 0))
     out = torch.empty_like(x)
     dist.all_to_all_single(out, x, group=tr.group)
+    _count_out("all-to-all", out)
     out = tr.back(out)
     chunks = out.reshape(M, x.shape[0] // M, *x.shape[1:])
     return torch.cat([c.movedim(0, split_axis) for c in chunks],
@@ -217,12 +231,17 @@ def _reduce_scatter_raw(t: torch.Tensor, mesh, axis: str, dim: int
     out = torch.empty_like(x)
     dist.all_to_all_single(out, x, group=tr.group)
     out = tr.back(out).reshape(M, x.shape[0] // M, *x.shape[1:])
-    return _ordered_sum(list(out)).movedim(0, dim)
+    total = _ordered_sum(list(out))
+    _count_out("reduce-scatter", total)
+    return total.movedim(0, dim)
 
 
 def psum_raw(t: torch.Tensor, mesh, axes: Axes) -> torch.Tensor:
     """The sum over the axes, in rank order, the same bits on every rank
-    (no autograd: gradients, norms)."""
+    (no autograd: gradients, norms); one all-reduce of its output's bytes
+    however many axes it spans, as XLA's psum over several axes is one."""
+    if _axes_size(mesh, axes) > 1:
+        _count_out("all-reduce", t)
     for axis in _axes(axes):
         tr = _Transport(mesh, axis, "psum", t)
         if tr.size == 1:
@@ -259,6 +278,8 @@ def _ppermute_raw(t: torch.Tensor, mesh, axis: str,
                                     group=tr.group))
     for w in works:
         w.wait()
+    if tr.size > 1:
+        _count_out("collective-permute", out)
     return tr.back(out)
 
 

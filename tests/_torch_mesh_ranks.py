@@ -330,9 +330,56 @@ def job_pipeline(workdir, mesh, job):
     return res
 
 
+def job_collectives(workdir, mesh, job):
+    """One layer over the mesh ("moe": the MoE layer, its experts over the
+    model axis; "attention": self-attention with ``attn_shard`` "seq"),
+    its tokens over data: ``roofline.collective_bytes()`` of its forward
+    ("fwd/<kind>") and, apart, of the backward of sum(y * ct) to every
+    weight and the tokens ("bwd/<kind>"), and the layer's output."""
+    import torch
+    from repro_torch.models import moe
+    from repro_torch.models.attention import attention_forward
+    from repro_torch.models.common import (clear_mesh_context, map_tree,
+                                           set_mesh_context)
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.roofline import collective_bytes
+    cfg = _cfg(job)
+    p = _params(workdir, job)
+    inputs = load(workdir / job["batch"])
+    if job["layer"] == "moe":
+        specs = {k: ("model", None, None) if k in ("wg", "wu", "wd")
+                 else (None,) * v.dim() for k, v in p.items()}
+        p = shd.shard_tree(p, specs, mesh)
+
+        def layer(p, x):
+            return moe.moe_forward(cfg, p, x)[0]
+    else:
+        def layer(p, x):
+            return attention_forward(cfg, p, x)[0]
+    local = shd.shard_tree({k: torch.from_numpy(inputs[k]) for k in
+                            ("x", "ct")},
+                           {"x": ("data", None, None),
+                            "ct": ("data", None, None)}, mesh)
+    p = map_tree(lambda t: t.requires_grad_(True), p)
+    x = local["x"].requires_grad_(True)
+    set_mesh_context(mesh, ("data",))
+    out = {}
+    coll.reset_stats()
+    y = layer(p, x)
+    out.update({f"fwd/{k}": np.int64(n) for k, n in collective_bytes().items()})
+    coll.reset_stats()
+    torch.autograd.grad((y * local["ct"]).sum(), list(p.values()) + [x],
+                        allow_unused=True)
+    out.update({f"bwd/{k}": np.int64(n) for k, n in collective_bytes().items()})
+    clear_mesh_context()
+    out["y"] = coll.gather_raw(y.detach(), mesh, "data", 0)
+    return out
+
+
 JOBS = {"forward": job_forward, "moe": job_moe, "ssd": job_ssd,
         "grad": job_grad, "step": job_step, "tenants": job_tenants,
-        "pipeline": job_pipeline}
+        "pipeline": job_pipeline, "collectives": job_collectives}
 
 
 def main(workdir, rank, world, port):

@@ -1,14 +1,16 @@
 """A reference suite's source with the port's copies in place of the JAX
 package's modules, for the ``tests/test_torch_*.py`` files that run it
-again on the copy: ``repro.core``, ``repro.sched``, ``repro.obs`` and the
-serving plane's ``repro.serve.{kv,plane,requests,stats}`` become their
-``repro_torch`` counterparts; every other import (the JAX engine, the
+again on the copy: ``repro.core``, ``repro.sched``, ``repro.obs``,
+``repro.fleet``, ``repro.chaos`` and the serving plane's
+``repro.serve.{kv,plane,requests,stats}`` become their ``repro_torch``
+counterparts; every other import (the JAX engine, the
 models) is left as it is."""
 import re
 from pathlib import Path
 
 COPIED = re.compile(
-    r"\brepro\.(core|sched|obs|serve\.(?:kv|plane|requests|stats))\b")
+    r"\brepro\.(core|sched|obs|fleet|chaos|"
+    r"serve\.(?:kv|plane|requests|stats))\b")
 
 
 def on_the_copy(name: str):

@@ -1305,3 +1305,21 @@ def test_cuda_compression_equals_the_cpu_bit_for_bit(card, dtype):
         g_card, r_card = compress(grads, r_card)
         g_host, r_host = compress(host, r_host)
         assert same(g_card, g_host) and same(r_card, r_host)
+
+
+@pytest.mark.cuda
+def test_cuda_count_flops_raises_on_a_card_tensor(card):
+    """``roofline.count_flops`` counts aten ops, and the kernels on the card
+    are not: a call that meets a CUDA tensor raises, in its arguments or
+    made inside it, before any kernel runs uncounted."""
+    from repro_torch.roofline import count_flops
+    x, w = _on(card, "bfloat16", 0, (64, 128), (128, 64))
+    ops.reset_launches()
+    with pytest.raises(ValueError, match="CUDA"):
+        count_flops(ops.matmul, x, w)
+    with pytest.raises(ValueError, match="CUDA"):
+        count_flops(lambda a: a @ torch.ones(8, 8, device="cuda"),
+                    torch.ones(8, 8))
+    assert ops.LAUNCHES["streamed_matmul"] == 0
+    assert count_flops(torch.matmul, x.cpu().float(), w.cpu().float()) == \
+        2 * 64 * 128 * 64

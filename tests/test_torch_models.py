@@ -1,6 +1,7 @@
 """The port's configs, weight conversion and model against the JAX
 package's, on the same weights (initialized in JAX, converted), in fp32."""
 import dataclasses
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -11,7 +12,12 @@ import torch
 from repro.checkpoint.ckpt import _flatten
 from repro.configs import ALIASES as REF_ALIASES
 from repro.configs import ARCH_IDS as REF_ARCH_IDS
+from repro.configs import SHAPE_ORDER as REF_SHAPE_ORDER
+from repro.configs import SHAPES as REF_SHAPES
+from repro.configs import all_cells as ref_all_cells
+from repro.configs import applicable as ref_applicable
 from repro.configs import get_config as ref_get_config
+from repro.configs import is_subquadratic as ref_is_subquadratic
 from repro.configs.base import reduce_for_smoke as ref_reduce
 from repro.models import blocks as ref_blocks
 from repro.models import build as ref_build
@@ -20,7 +26,9 @@ from repro.models import ssd as ref_ssd
 from repro.serve import seed_decode_cache as ref_seed_decode_cache
 
 from repro_torch import convert
-from repro_torch.configs import ALIASES, ARCH_IDS, get_config, reduce_for_smoke
+from repro_torch.configs import (ALIASES, ARCH_IDS, SHAPE_ORDER, SHAPES,
+                                 ShapeSpec, all_cells, applicable, get_config,
+                                 is_subquadratic, reduce_for_smoke)
 from repro_torch.models import blocks, build, common, ssd
 from repro_torch.serve import seed_decode_cache
 
@@ -121,6 +129,24 @@ def test_config_copy_matches_reference(arch):
         dataclasses.asdict(ref_reduce(ref))
     assert (port.padded_vocab, port.param_count(), port.active_param_count()) \
         == (ref.padded_vocab, ref.param_count(), ref.active_param_count())
+    for name in REF_SHAPE_ORDER:  # the shapes' skip rules, arch by arch
+        assert applicable(port, SHAPES[name]) == \
+            ref_applicable(ref, REF_SHAPES[name])
+        assert is_subquadratic(port) == ref_is_subquadratic(ref)
+
+
+def test_shapes_copy_is_byte_equal_and_exported():
+    """``configs/shapes.py`` copied byte for byte (it imports only
+    ``.base``), its names exported from ``configs`` as the reference's
+    are, and the same shapes and cells."""
+    root = Path(__file__).resolve().parent.parent / "src"
+    assert (root / "repro_torch" / "configs" / "shapes.py").read_bytes() == \
+        (root / "repro" / "configs" / "shapes.py").read_bytes()
+    assert SHAPE_ORDER == REF_SHAPE_ORDER
+    assert {k: dataclasses.astuple(v) for k, v in SHAPES.items()} == \
+        {k: dataclasses.astuple(v) for k, v in REF_SHAPES.items()}
+    assert all_cells() == ref_all_cells()
+    assert ShapeSpec.__module__ == "repro_torch.configs.shapes"
 
 
 # ---------------------------------------------------------------------------

@@ -41,7 +41,10 @@ exits non-zero):
                with the length a host int and read from device memory (as
                the captured decode step passes it; also lengths 1, 64 and
                65, where most splits of the cluster are empty), and at hd
-               128 with groups of 4 (qwen3_4b's heads),
+               128 with groups of 4 (qwen3_4b's heads), and its variant
+               with the rows' log-sum-exp (qwen2_0_5b's and qwen2_7b's
+               heads at device lengths 0, 1, the first split's edge and
+               one past it, 487 and 1024; at 0 a zero output and -inf),
                fp32 and bf16 (matmul and attention: 2e-4 and 2e-2 of
                1 + |plain|; bf16 decode attention also within 5e-5 +
                1e-2 |plain|, about one bf16 rounding of its output;
@@ -203,7 +206,12 @@ exits non-zero):
                (K1 and its grouped routes, K2 with and without an offset,
                K4), each collective's bytes and transport, peak memory and
                the step's wall ms (ranks sharing one card: no speed
-               figure) (``phase_mesh``); and in the same world the GPipe
+               figure) (``phase_mesh``); one split-KV decode step of
+               qwen2_0_5b at depth 2, fp32, batch 4, over caches of 1024
+               slots cut by cache_specs (512 a model rank, the token at
+               700 on the second rank's slice), its logits and each rank's
+               cache block against the unsharded step at 2e-4 (1 +
+               |ref|), K1 15 and K3 2 a rank; and in the same world the GPipe
                pipeline (parallel/pipeline.py) over a "pod" axis of the 4
                ranks: the first 4 layers of qwen2_0_5b at full width, one
                a stage, 8 microbatches of 1 x 512, fp32 and bf16, its
@@ -415,7 +423,9 @@ def main() -> int:
     summary = []
     for name, meta in KERNELS.items():
         mine = [c for c in cases if c["name"] == name]
-        timed = [c for c in mine if c["dtype"] == "bfloat16"]  # as served
+        lse = [c for c in mine if "lse" in c["shape"]]
+        timed = [c for c in mine if c["dtype"] == "bfloat16"  # as served
+                 and c not in lse]
         summary.append({
             "name": name, "route": "cuda", **meta,
             "launches": sum(n.get(name, 0) for n in launches.values()),
@@ -427,6 +437,12 @@ def main() -> int:
             "kernel_routes": sorted({c["route"] for c in mine
                                      if "route" in c}),
         })
+        if lse:  # K3 with its log-sum-exp (split-KV), apart
+            summary[-1]["lse"] = {
+                "max_abs_err": max(c["max_abs_err"] for c in lse),
+                **timing_sums([c for c in lse if c["dtype"] == "bfloat16"]),
+                "shapes": [c["shape"] for c in lse
+                           if c["dtype"] == "bfloat16"]}
         grouped = [c for c in mine if c["shape"][0] == "grouped"]
         if grouped:  # the matmul grouped over experts, also on its own:
             # its launches by path (serving's forwards; training's forwards,
@@ -599,7 +615,9 @@ def _kernel_name(mangled):
 def phase_kernels(torch, dev):
     import torch.nn.functional as F
     from repro_torch.kernels import ops
-    from repro_torch.kernels.decode_attention import decode_attention_plain
+    from repro_torch.kernels.decode_attention import (decode_attention_plain,
+                                                      decode_split_plan,
+                                                      decode_tile)
     from repro_torch.kernels.flash_attention import (
         BWD_MEAN_TOL, BWD_ROUTE_LAUNCHES, MEAN_TOL, flash_attention_bwd_plain,
         flash_attention_plain)
@@ -1220,6 +1238,51 @@ def phase_kernels(torch, dev):
                       4 * B * H * length * hd, fns,
                       fine=DECODE_FINE_TOL if dtype == torch.bfloat16
                       else None)
+            del q, k, v
+
+    # decode_attention with its log-sum-exp (``with_lse``: the lse written
+    # by the same launch's split merge), as a rank of a sequence-sharded
+    # cache calls it: qwen2_0_5b's and qwen2_7b's served heads at a 0-d
+    # int32 length on the card of 0 (a rank's slice wholly past the token:
+    # a zero output and -inf), 1, the first split's edge and one past it
+    # (the split plan of all S keys), 487 and S; the lse held against the
+    # plain version's at the same limits as the output (at length 0:
+    # -inf), its cases tagged "lse" and summed apart in the summary
+    for dtype in (torch.float32, torch.bfloat16):
+        es = torch.tensor([], dtype=dtype).element_size()
+        for B, H, KV, hd, S in ((8, 14, 2, 64, 1024), (4, 28, 4, 128, 1024)):
+            q = randn(B, H, hd, dtype=dtype)
+            k = randn(B, S, KV, hd, dtype=dtype)
+            v = randn(B, S, KV, hd, dtype=dtype)
+            _, per = decode_split_plan(S, B, KV, sm_count(q.device),
+                                       decode_tile())
+            edge = per * decode_tile()
+            for length in (0, 1, edge, edge + 1, 487, S):
+                arg = torch.full((), length, dtype=torch.int32, device="cuda")
+                got, lse = ops.decode_attention(q, k, v, arg, with_lse=True)
+                want, want_lse = decode_attention_plain(q, k, v, arg,
+                                                        with_lse=True)
+                if length == 0:
+                    if got.any() or not bool(torch.isneginf(lse).all()) or \
+                            not bool(torch.isneginf(want_lse).all()):
+                        raise AssertionError("decode_attention with_lse at "
+                                             "length 0: not (0, -inf)")
+                    got, want = (got,), (want,)
+                else:
+                    got, want = (got, lse), (want, want_lse)
+                fns = (lambda: ops.decode_attention(q, k, v, arg,
+                                                    with_lse=True),
+                       lambda: decode_attention_plain(q, k, v, arg,
+                                                      with_lse=True),
+                       sdpa(q[:, :, None], k[:, :max(length, 1)].transpose(
+                           1, 2), v[:, :max(length, 1)].transpose(1, 2),
+                           False))
+                check("decode_attention",
+                      [B, S, H, KV, hd, length, "device", "lse"], dtype, got,
+                      want, es * (2 * B * H * hd + 2 * B * length * KV * hd)
+                      + 4 * B * H, 4 * B * H * length * hd, fns,
+                      fine=DECODE_FINE_TOL if dtype == torch.bfloat16
+                      else None, extra={"split_edge": edge})
             del q, k, v
 
     # ssd_scan: mamba2_1_3b's prefill scan (64 heads of P 64, N 128, one
@@ -1894,6 +1957,10 @@ MESH_CAPACITY_ROWS = 768 * MESH[1]
 # below it each collective's, so that a hung rank fails the phase with its
 # exit code well inside the script's 1200 s
 MESH_TIMEOUT_S, MESH_COLLECTIVE_TIMEOUT_S = 240, 180
+# the mesh phase's split-KV decode step: qwen2_0_5b at the phase's depth,
+# fp32, batch 4 against a cache of 1024 slots (512 a model rank), the token
+# at position 700, on the second model rank's slice
+MESH_DECODE_BATCH, MESH_DECODE_SEQ, MESH_DECODE_POS = 4, 1024, 700
 # the pipeline check in the mesh phase's world: 4 stages over a "pod" axis
 # of its 4 ranks, each one layer of qwen2_0_5b at full width; 8
 # microbatches of 1 x 512 (bubble fraction 3 / 11)
@@ -1949,6 +2016,26 @@ def mesh_aux_loss(torch):
         yield
     finally:
         moe._local_moe = local_moe
+
+
+def mesh_decode_config():
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("qwen2_0_5b"), n_layers=2,
+                               param_dtype="float32", compute_dtype="float32")
+
+
+def mesh_decode_inputs(torch, bundle):
+    """The split-KV decode step's caches (every slot random, so a slot
+    wrongly attended shows) and token, the same on every rank."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    caches = bundle.init_cache(MESH_DECODE_BATCH, MESH_DECODE_SEQ,
+                               device="cuda")
+    from repro_torch.models.common import tree_leaves
+    for t in tree_leaves(caches):
+        t.copy_(torch.randn(t.shape, generator=gen, device="cuda") * 0.5)
+    token = torch.randint(0, bundle.cfg.vocab_size, (MESH_DECODE_BATCH, 1),
+                          generator=gen, device="cuda")
+    return caches, token
 
 
 def mesh_scan_inputs(torch, dtype):
@@ -2030,6 +2117,14 @@ def phase_mesh(torch, dev):
         scans[str(dtype).split(".")[-1]] = y.cpu()
     torch.save(scans, work / "scan.pt")
     del params, batch, state, new, metrics, step, bundle, y
+    dbundle = build(mesh_decode_config())
+    caches, token = mesh_decode_inputs(torch, dbundle)
+    with torch.inference_mode():
+        logits, caches = dbundle.decode(dbundle.init(SEED, device="cuda"),
+                                        caches, token, MESH_DECODE_POS)
+    torch.save({"logits": logits.cpu(), "caches": _to(caches, "cpu")},
+               work / "decode.pt")
+    del dbundle, caches, token, logits
     free(torch)
     ref_s = time.perf_counter() - t_phase
 
@@ -2263,6 +2358,63 @@ def _mesh_rank(rank, world, port, work):
         clear_mesh_context()
         del local, state, new, step, batch, lbatch, metrics
         torch.cuda.empty_cache()
+
+    # one decode step over caches cut by cache_specs: split-KV over the
+    # model axis (K3 with its lse on each rank's slice, the ranks' partial
+    # softmaxes combined), against the unsharded step of the same weights,
+    # caches and token: the logits and this rank's block of the updated
+    # caches at 2e-4 (1 + |ref|); K1 7 a layer + 1 and K3 1 a layer
+    dbundle = build(mesh_decode_config())
+    dspecs = shd.param_specs(dbundle.param_logical_axes(),
+                             shd.param_rules(mesh))
+    dlocal = shd.shard_tree(dbundle.init(SEED, device="cuda"), dspecs, mesh)
+    caches, token = mesh_decode_inputs(torch, dbundle)
+    cspecs = shd.cache_specs(caches, mesh)
+    lcaches = shd.shard_tree(caches, cspecs, mesh)
+    ltoken = shd.shard_tree({"t": token}, shd.batch_specs({"t": token}, mesh),
+                            mesh)["t"]
+    del caches
+    set_mesh_context(mesh, shd.batch_axes(mesh), cache_seq=MESH_DECODE_SEQ)
+    coll.reset_stats()
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    with torch.inference_mode():
+        logits, lcaches = dbundle.decode(dlocal, lcaches, ltoken,
+                                         MESH_DECODE_POS)
+    torch.cuda.synchronize()
+    got = counts()
+    clear_mesh_context()
+    ref = torch.load(work / "decode.pt", mmap=True)
+    rows = slice(coords["data"] * logits.shape[0],
+                 (coords["data"] + 1) * logits.shape[0])
+    err, ok = close(logits.cpu(), ref["logits"][rows], 2e-4)
+    sizes = shd.mesh_shape(mesh).shape
+    cache_err, cache_ok = 0.0, True
+    for mine, want in zip(convert.flatten(lcaches).values(),
+                          convert.flatten(map_tree(
+                              lambda t, s: shd.local_block(t, s, sizes,
+                                                           coords),
+                              ref["caches"], cspecs)).values()):
+        e, o = close(mine.cpu(), want, 2e-4)
+        cache_err, cache_ok = max(cache_err, e), cache_ok and o
+    L = dbundle.cfg.n_layers
+    expect = {"streamed_matmul": 7 * L + 1, "decode_attention": L}
+    S_l = MESH_DECODE_SEQ // M
+    out["decode_split_kv"] = {
+        "batch": MESH_DECODE_BATCH, "cache_seq": MESH_DECODE_SEQ,
+        "pos": MESH_DECODE_POS, "slice": [coords["model"] * S_l,
+                                          (coords["model"] + 1) * S_l],
+        "max_abs_err": err, "cache_max_abs_err": cache_err,
+        "launches": {k: got[k] for k in expect}, "expected_launches": expect,
+        "collectives": coll.stats_line()}
+    checks["decode_split_kv"] = {
+        "ok": ok and cache_ok and out["decode_split_kv"]["launches"] == expect,
+        "rule": "|sharded - unsharded| <= 2e-4 (1 + |unsharded|), logits and "
+                "the rank's cache block; K1 7 a layer + 1, K3 1 a layer"}
+    for k in expect:
+        out["launches"][k] += got[k]
+    del dbundle, dlocal, lcaches, logits, ref
+    torch.cuda.empty_cache()
 
     # K4's sequence-parallel scan over the data axis (the model ranks of a
     # data row run the same shard)

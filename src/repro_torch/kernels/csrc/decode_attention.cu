@@ -6,11 +6,20 @@
 //
 // Layout: q and out (B, H, hd); the cache k, v (B, S, KV, hd) is read in
 // place, with no transpose.  length (1 <= length <= S) is a runtime int, or
-// an int32 in device memory that every block reads at its start: a decode
-// step computes it on the card, so a captured CUDA graph of the step replays
-// with each step's length.  With a device length the host cannot see it, so
-// the split plan is made for all S keys, and a split wholly past `length`
-// runs no tile and adds nothing to the merge.
+// an int32 in device memory (clamped to [0, S]) that every block reads at
+// its start: a decode step computes it on the card, so a captured CUDA graph
+// of the step replays with each step's length.  With a device length the
+// host cannot see it, so the split plan is made for all S keys, and a split
+// wholly past `length` runs no tile and adds nothing to the merge.
+//
+// lse, where the caller passes it: fp32 (B, H), each row's natural
+// log-sum-exp of its scaled scores over the keys attended, written by the
+// split merge.  A rank of a sequence-sharded cache attends its own slice
+// and combines its (out, lse) with the other ranks' into the exact softmax
+// (models/attention.py).  A device length of 0 (a slice wholly past the
+// token's position) gives out = 0 and lse = -inf, which that combine weighs
+// 0: every split then leaves m = NEG_INF and l = 0, and the merge's
+// O / max(L, tiny) is 0 and log(L) is -inf.
 //
 // What bounds it on an H100: each cache element is read once and used for
 // 2*G operations (G query heads per KV head), so the bytes of the first
@@ -60,9 +69,9 @@ constexpr int DTHREADS = 32 * DWARPS;
 constexpr int MAXG = 8;      // query heads per KV head
 
 // The keys attended: `length`, or, where the caller passes `length_dev`, the
-// int32 there clamped to [1, S].
+// int32 there clamped to [0, S].
 __device__ __forceinline__ int keys_attended(const int* length_dev, int length, int S) {
-  return length_dev ? min(max(*length_dev, 1), S) : length;
+  return length_dev ? min(max(*length_dev, 0), S) : length;
 }
 
 template <int HD>
@@ -185,11 +194,13 @@ decode_split_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// One block per (batch row, head), one thread per head_dim element.
+// One block per (batch row, head), one thread per head_dim element; thread
+// 0 writes the row's log-sum-exp where `lse` is given.
 __global__ void decode_combine_kernel(const float* __restrict__ o_part,
                                       const float* __restrict__ m_part,
                                       const float* __restrict__ l_part,
-                                      float* __restrict__ out, int n_splits, int HD) {
+                                      float* __restrict__ out, float* __restrict__ lse,
+                                      int n_splits, int HD) {
   const int bh = blockIdx.x, d = threadIdx.x;
   const float* mp = m_part + (size_t)bh * n_splits;
   const float* lp = l_part + (size_t)bh * n_splits;
@@ -202,12 +213,13 @@ __global__ void decode_combine_kernel(const float* __restrict__ o_part,
     o = fmaf(o_part[((size_t)bh * n_splits + s) * HD + d], w, o);
   }
   out[(size_t)bh * HD + d] = o / fmaxf(L, 1e-30f);
+  if (lse != nullptr && d == 0) lse[bh] = M + logf(L);
 }
 
 template <int HD>
-int launch(const void* q, const void* k, const void* v, void* out, float* o_part,
-           float* m_part, float* l_part, int B, int S, int H, int KV, int length,
-           const int* length_dev, int n_splits, float scale, cudaStream_t s) {
+int launch(const void* q, const void* k, const void* v, void* out, float* lse,
+           float* o_part, float* m_part, float* l_part, int B, int S, int H, int KV,
+           int length, const int* length_dev, int n_splits, float scale, cudaStream_t s) {
   const dim3 grid(n_splits, KV, B);
   decode_split_kernel<HD><<<grid, DTHREADS, 0, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
@@ -215,7 +227,7 @@ int launch(const void* q, const void* k, const void* v, void* out, float* o_part
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   decode_combine_kernel<<<B * H, HD, 0, s>>>(o_part, m_part, l_part,
-                                             static_cast<float*>(out), n_splits, HD);
+                                             static_cast<float*>(out), lse, n_splits, HD);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -244,7 +256,8 @@ __global__ void __launch_bounds__(W_THREADS)
 decode_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                     const __grid_constant__ CUtensorMap kmap,
                     const __grid_constant__ CUtensorMap vmap,
-                    __nv_bfloat16* __restrict__ out, int S, int H, int KV, int length_arg,
+                    __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int S, int H,
+                    int KV, int length_arg,
                     const int* __restrict__ length_dev, int tiles_per_split, float scale_log2) {
   using namespace hopper;
   using T = DecodeTiles<HD>;
@@ -266,8 +279,8 @@ decode_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   const int t0 = blockIdx.x * tiles_per_split;
   // With a device length a split may lie wholly past it (ntiles <= 0): it
   // loads and runs no tile but still reaches both cluster barriers, leaving
-  // m = NEG_INF, l = 0 and O = 0, which the merge weighs 0.  Split 0 always
-  // holds key 0.
+  // m = NEG_INF, l = 0 and O = 0, which the merge weighs 0.  Split 0 holds
+  // key 0 unless the length is 0, where every split is empty.
   const int length = keys_attended(length_dev, length_arg, S);
   const int ntiles = min(tiles_per_split, (length + W_TILE - 1) / W_TILE - t0);
   if (threadIdx.x == 0) {
@@ -458,14 +471,17 @@ decode_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       }
     }
     out[((size_t)b * H + h0 + c) * HD + d] = __float2bfloat16(O / fmaxf(L, 1e-30f));
+    // M is in log2 units (scores times scale * log2 e)
+    if (lse != nullptr && d == 0)
+      lse[(size_t)b * H + h0 + c] = (M + log2f(L)) * 0.6931471805599453f;
   }
   cluster_sync();
 }
 
 template <int HD>
-int launch_wgmma(const void* q, const void* k, const void* v, void* out, int B, int S, int H,
-                 int KV, int length, const int* length_dev, int splits, int tiles_per_split,
-                 float scale, cudaStream_t stream) {
+int launch_wgmma(const void* q, const void* k, const void* v, void* out, float* lse, int B,
+                 int S, int H, int KV, int length, const int* length_dev, int splits,
+                 int tiles_per_split, float scale, cudaStream_t stream) {
   using T = DecodeTiles<HD>;
   static hopper::SmemRaised raised;
   CUtensorMap qmap, kmap, vmap;
@@ -481,7 +497,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out, int B, 
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(hopper::launch_cluster(
       decode_wgmma_kernel<HD>, raised, dim3(splits, KV, B), W_THREADS, T::SMEM, splits, stream,
-      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(out), S, H, KV, length, length_dev,
+      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(out), lse, S, H, KV, length, length_dev,
       tiles_per_split, scale * 1.4426950408889634f));
 }
 
@@ -493,10 +509,10 @@ extern "C" int decode_attention_max_group() { return MAXG; }
 // fp32 (the parity path): hd 64 or 128; H / KV <= MAXG; length_dev null and
 // n_splits = ceil(length / DCHUNK), or length_dev an int32 on the device and
 // n_splits = ceil(S / DCHUNK).  o_part (B, H, n_splits, hd), m_part and
-// l_part (B, H, n_splits) are fp32 scratch.  Returns the cudaError_t of the
-// launches.
+// l_part (B, H, n_splits) are fp32 scratch; lse null, or fp32 (B, H).
+// Returns the cudaError_t of the launches.
 extern "C" int decode_attention_f32(const void* q, const void* k, const void* v,
-                                    void* out, void* o_part, void* m_part,
+                                    void* out, void* lse, void* o_part, void* m_part,
                                     void* l_part, int B, int S, int H, int KV, int hd,
                                     int length, const void* length_dev, int n_splits,
                                     float scale, void* stream) {
@@ -504,12 +520,14 @@ extern "C" int decode_attention_f32(const void* q, const void* k, const void* v,
   float* op = static_cast<float*>(o_part);
   float* mp = static_cast<float*>(m_part);
   float* lp = static_cast<float*>(l_part);
+  float* ls = static_cast<float*>(lse);
   const int* ld = static_cast<const int*>(length_dev);
   if ((ld ? S : length) > n_splits * DCHUNK) return static_cast<int>(cudaErrorInvalidValue);
   if (hd == 64)
-    return launch<64>(q, k, v, out, op, mp, lp, B, S, H, KV, length, ld, n_splits, scale, s);
+    return launch<64>(q, k, v, out, ls, op, mp, lp, B, S, H, KV, length, ld, n_splits, scale, s);
   if (hd == 128)
-    return launch<128>(q, k, v, out, op, mp, lp, B, S, H, KV, length, ld, n_splits, scale, s);
+    return launch<128>(q, k, v, out, ls, op, mp, lp, B, S, H, KV, length, ld, n_splits, scale,
+                       s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -518,8 +536,9 @@ extern "C" int decode_attention_f32(const void* q, const void* k, const void* v,
 // at least one of those tiles, splits <= hopper::MAX_CLUSTER; hd 64 or 128,
 // H / KV <= MAXG; q, k, v 16-byte aligned (TMA).  Returns the cudaError_t of
 // the launch, or cudaErrorInvalidValue for what the kernel does not take.
+// lse null, or fp32 (B, H).
 extern "C" int decode_attention_bf16(const void* q, const void* k, const void* v, void* out,
-                                     int B, int S, int H, int KV, int hd, int length,
+                                     void* lse, int B, int S, int H, int KV, int hd, int length,
                                      const void* length_dev, int splits, int tiles_per_split,
                                      float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -531,10 +550,10 @@ extern "C" int decode_attention_bf16(const void* q, const void* k, const void* v
       (splits - 1) * tiles_per_split >= tiles || splits * tiles_per_split < tiles)
     return static_cast<int>(cudaErrorInvalidValue);
   if (hd == 64)
-    return launch_wgmma<64>(q, k, v, out, B, S, H, KV, length, ld, splits, tiles_per_split,
-                            scale, s);
+    return launch_wgmma<64>(q, k, v, out, static_cast<float*>(lse), B, S, H, KV, length, ld,
+                            splits, tiles_per_split, scale, s);
   if (hd == 128)
-    return launch_wgmma<128>(q, k, v, out, B, S, H, KV, length, ld, splits, tiles_per_split,
-                             scale, s);
+    return launch_wgmma<128>(q, k, v, out, static_cast<float*>(lse), B, S, H, KV, length, ld,
+                             splits, tiles_per_split, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

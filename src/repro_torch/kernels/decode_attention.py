@@ -11,12 +11,19 @@ version; ``decode_attention_cuda`` launches the kernels of
 splits of the sequence (``decode_split_plan``) form a thread-block cluster
 that merges its partial results itself; for fp32 (parity runs) the
 split-sequence kernel and its combine pass.
+
+``with_lse`` also returns each row's natural log-sum-exp of its scaled
+scores over the keys attended, fp32 (B, H): the kernels write it in their
+split merge.  A 0-d tensor ``length`` of 0 (a cache slice wholly past the
+token, on a rank of a sequence-sharded cache) gives a zero output and an
+lse of -inf, which the ranks' combine weighs 0
+(``models/attention.py``).
 """
 from __future__ import annotations
 
 import functools
 import math
-from typing import Union
+from typing import Tuple, Union
 
 import torch
 
@@ -45,24 +52,37 @@ Length = Union[int, torch.Tensor]
 
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           length: Length) -> torch.Tensor:
+                           length: Length, with_lse: bool = False
+                           ) -> Union[torch.Tensor,
+                                      Tuple[torch.Tensor, torch.Tensor]]:
+    """``with_lse``: also the rows' log-sum-exp, fp32 (B, H); a length of 0
+    gives a zero output and -inf."""
     B, H, hd = q.shape
     S, KV = k.shape[1], k.shape[2]
     qg = q.float().reshape(B, KV, H // KV, hd)
     s = torch.einsum("bkgd,bskd->bkgs", qg, k.float()) / math.sqrt(hd)
     valid = torch.arange(S, device=q.device) < length
-    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgs,bskd->bkgd", p, v.float())
-    return o.reshape(B, H, hd).to(q.dtype)
+    p = torch.softmax(torch.where(valid, s, torch.full_like(s, NEG_INF)),
+                      dim=-1)
+    o = torch.einsum("bkgs,bskd->bkgd", p, v.float()).reshape(B, H, hd)
+    o = torch.where(torch.as_tensor(length, device=q.device) > 0, o,
+                    torch.zeros_like(o))
+    if not with_lse:
+        return o.to(q.dtype)
+    lse = torch.logsumexp(torch.where(valid, s, torch.full_like(
+        s, float("-inf"))), dim=-1)
+    return o.to(q.dtype), lse.reshape(B, H)
 
 
 def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          length: Length) -> torch.Tensor:
-    """A host-int ``length`` gets the split plan of its own keys.  A 0-d
-    int32 ``length`` on q's device is read by the kernels, clamped to
-    [1, S], with the plan of all S keys: the host neither reads it nor
-    waits for it."""
+                          length: Length, with_lse: bool = False
+                          ) -> Union[torch.Tensor,
+                                     Tuple[torch.Tensor, torch.Tensor]]:
+    """A host-int ``length`` (1 <= length <= S) gets the split plan of its
+    own keys.  A 0-d int32 ``length`` on q's device is read by the kernels,
+    clamped to [0, S], with the plan of all S keys: the host neither reads
+    it nor waits for it.  ``with_lse``: also the rows' log-sum-exp, fp32
+    (B, H), written by the same launch."""
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("decode_attention: q, k, v must be on one CUDA "
                          "device")
@@ -98,8 +118,11 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("decode_attention: q, k, v must be contiguous")
     out = torch.empty_like(q)
+    lse = (torch.empty((B, H), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    lse_ptr = None if lse is None else lse.data_ptr()
     if B == 0:
-        return out
+        return (out, lse) if with_lse else out
     stream = torch.cuda.current_stream(q.device).cuda_stream
     if q.dtype == torch.bfloat16:
         if any(t.data_ptr() % 16 for t in (q, k, v)):
@@ -108,10 +131,10 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         splits, per = decode_split_plan(planned, B, KV, sm_count(q.device),
                                         decode_tile())
         _build.check(lib.decode_attention_bf16(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S,
-            H, KV, hd, length, length_ptr, splits, per, 1.0 / math.sqrt(hd),
-            stream), "decode_attention_bf16")
-        return out
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse_ptr, B, S, H, KV, hd, length, length_ptr, splits, per,
+            1.0 / math.sqrt(hd), stream), "decode_attention_bf16")
+        return (out, lse) if with_lse else out
     n_splits = -(-planned // decode_tile())
     o_part = torch.empty((B, H, n_splits, hd), dtype=torch.float32,
                          device=q.device)
@@ -119,8 +142,8 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          device=q.device)
     l_part = torch.empty_like(m_part)
     _build.check(lib.decode_attention_f32(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse_ptr,
         o_part.data_ptr(), m_part.data_ptr(), l_part.data_ptr(), B, S, H, KV,
         hd, length, length_ptr, n_splits, 1.0 / math.sqrt(hd), stream),
         "decode_attention_f32")
-    return out
+    return (out, lse) if with_lse else out

@@ -285,13 +285,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     length: Length) -> torch.Tensor:
+                     length: Length, *, with_lse: bool = False):
     """q (B,H,hd), cache k/v (B,S,KV,hd); attends to positions < length, a
-    host int or a 0-d int32 tensor on q's device."""
+    host int or a 0-d int32 tensor on q's device (there 0 too: a zero
+    output).  ``with_lse``: returns (out, each row's log-sum-exp of its
+    scaled scores, fp32 (B, H), -inf at length 0), one counted launch as
+    without it."""
     if not _on_card(q):
-        return decode_attention_plain(q, k, v, length)
+        return decode_attention_plain(q, k, v, length, with_lse)
     _no_backward("decode_attention", q, k, v)
-    out = decode_attention_cuda(q, k, v, length)
+    out = decode_attention_cuda(q, k, v, length, with_lse)
     LAUNCHES["decode_attention"] += 1
     return out
 

@@ -10,6 +10,8 @@ PyTorch counterpart of the JAX package's ``models/api.py``:
     decode(params, caches, token, pos) -> (logits, caches)
     init_cache(batch, max_seq, device=None) -> caches
     param_logical_axes()               -> tree of logical-axis tuples
+    input_specs(shape, kind=None)      -> the batch's (or a decode step's
+                                          token, pos and caches) stand-ins
 
 ``batch`` holds ``tokens`` (B, S) and, for a vlm, may hold the vision
 stub's ``patch_embeds`` (B, frontend_seq, d), put ahead of the tokens; for
@@ -22,19 +24,26 @@ ported: the decoder-only ones (dense, moe, ssm, hybrid, vlm) by
 the card: with no CUDA device it raises.  ``loss`` is the training
 objective (``train/loop.py`` differentiates it with autograd).
 ``param_logical_axes`` gives the JAX package's axes tree leaf for leaf,
-which ``parallel.sharding`` maps to each leaf's spec on a mesh.  The
-dry-run helpers are not ported yet.
+which ``parallel.sharding`` maps to each leaf's spec on a mesh.
+
+The shapes-only path, the port's ``jax.eval_shape``: ``init(seed,
+device="meta")`` builds the parameter tree of empty "meta" tensors, each
+leaf's shape and dtype, with no RNG and no allocation; ``init_cache(...,
+device="meta")`` the cache tree.  ``input_specs(shape, kind)`` is the
+dry-run's entry point (``launch/dryrun.py``), meta tensors standing in for
+the JAX package's ``ShapeDtypeStruct``s.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
 from ..configs.base import ModelConfig
+from ..configs.shapes import ShapeSpec
 from . import lm, whisper
-from .common import resolve_device
+from .common import dtype_of, is_meta, resolve_device
 
 
 @dataclasses.dataclass
@@ -47,6 +56,33 @@ class ModelBundle:
     decode: Callable
     init_cache: Callable
     param_logical_axes: Callable
+    input_specs: Callable
+
+
+META = torch.device("meta")
+
+
+def _text_len(cfg: ModelConfig, seq_len: int) -> int:
+    """VLM frontends consume part of the sequence budget."""
+    if cfg.family == "vlm":
+        return seq_len - cfg.frontend_seq
+    return seq_len
+
+
+def _batch_specs(cfg: ModelConfig, shape: ShapeSpec) -> Dict[str, Any]:
+    B, S = shape.global_batch, shape.seq_len
+    dt = dtype_of(cfg.param_dtype)
+
+    def spec(dims, dtype):
+        return torch.empty(dims, dtype=dtype, device=META)
+    if cfg.family == "encdec":
+        return {"frames": spec((B, cfg.enc_seq, cfg.frontend_dim), dt),
+                "tokens": spec((B, S), torch.int32)}
+    if cfg.family == "vlm":
+        return {"tokens": spec((B, _text_len(cfg, S)), torch.int32),
+                "patch_embeds": spec((B, cfg.frontend_seq, cfg.frontend_dim),
+                                     dt)}
+    return {"tokens": spec((B, S), torch.int32)}
 
 
 def build(cfg: ModelConfig) -> ModelBundle:
@@ -56,7 +92,8 @@ def build(cfg: ModelConfig) -> ModelBundle:
 
     def init(seed: int, device=None):
         device = resolve_device(device)
-        gen = torch.Generator(device=device).manual_seed(seed)
+        gen = (None if is_meta(device) else
+               torch.Generator(device=device).manual_seed(seed))
         return mod.init_params(cfg, gen, device)
 
     def loss(params, batch):
@@ -77,6 +114,18 @@ def build(cfg: ModelConfig) -> ModelBundle:
     def param_logical_axes():
         return mod.param_axes(cfg)
 
+    def input_specs(shape: ShapeSpec, kind: Optional[str] = None):
+        """train / prefill: the batch; decode: one new token (B, 1) int32,
+        a 0-d int32 ``pos`` and the caches of a seq_len-deep cache."""
+        kind = kind or shape.kind
+        if kind in ("train", "prefill"):
+            return _batch_specs(cfg, shape)
+        B = shape.global_batch
+        return {"token": torch.empty((B, 1), dtype=torch.int32, device=META),
+                "pos": torch.empty((), dtype=torch.int32, device=META),
+                "caches": init_cache(B, shape.seq_len, META)}
+
     return ModelBundle(cfg=cfg, init=init, loss=loss, forward=forward,
                        prefill=prefill, decode=decode, init_cache=init_cache,
-                       param_logical_axes=param_logical_axes)
+                       param_logical_axes=param_logical_axes,
+                       input_specs=input_specs)

@@ -20,6 +20,17 @@ repeats the whole core on every model rank.  The projections around it
 run replicated over the model axis: the split and the gathers are the
 conjugate collectives of ``parallel/collectives.py``, so the cotangents
 of those replicated activations stay the same on every rank.
+
+A decode step over a mesh runs split-KV over caches cut by
+``parallel.sharding.cache_specs``: where their slots divide the model
+axis, rank i holds global slots [i S_l, (i+1) S_l) of a full cache (or of
+a sliding window's ring).  The rank that holds the token's slot writes it
+(past a full cache's end none does, as the JAX package's one-hot writes
+nothing), every rank runs the decode kernel over the prefix of its own
+slice that the token attends (possibly none: a length of 0), and the
+ranks all-gather each other's (output, log-sum-exp) and combine them into
+the exact softmax (``combine_split_kv``), as GSPMD's reductions make the
+JAX package's decode exact over a sequence-sharded cache.
 """
 from __future__ import annotations
 
@@ -29,8 +40,8 @@ import torch
 
 from ..kernels import ops
 from ..parallel import collectives as coll
-from .common import (Params, apply_rope, dense_init, get_mesh_context,
-                     rmsnorm, rope_cos_sin, rotate)
+from .common import (Params, apply_rope, dense_init, get_cache_seq,
+                     get_mesh_context, rmsnorm, rope_cos_sin, rotate)
 
 
 def attention_init(cfg, gen: torch.Generator, dtype, device, *,
@@ -110,9 +121,14 @@ class DecodePosition:
     the step writes, min(pos, S-1), as a (1,) int64 index; whether to write
     it, pos < S; and the keys attended, min(pos+1, S), as a 0-d int32.  For
     a ring of S slots, ``for_cache(S, ring=True)`` gives the slot pos % S,
-    written always (None for whether), and the same keys attended.  All
-    stay on the device, so a captured graph of the step reads each step's
-    position, and each is made once per step, not once per layer.
+    written always (None for whether), and the same keys attended.  For
+    rank ``index`` of ``shards`` holding slots [index S, (index+1) S) of a
+    split cache of shards x S slots: the token's global slot (pos, or pos
+    % (shards S) in a ring) less index S, clamped into the slice; whether
+    it lies in the slice; and the slice's share of the global prefix
+    attended, clamp(min(pos+1, shards S) - index S, 0, S).  All stay on the
+    device, so a captured graph of the step reads each step's position,
+    and each is made once per step, not once per layer.
     """
 
     def __init__(self, pos: Union[int, torch.Tensor], device):
@@ -129,29 +145,42 @@ class DecodePosition:
                                               theta)
         return self._derived[key]
 
-    def for_cache(self, S: int, ring: bool = False
+    def for_cache(self, S: int, ring: bool = False, shards: int = 1,
+                  index: int = 0
                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
                              torch.Tensor]:
-        key = ("cache", S, ring)
-        if key not in self._derived:
+        key = ("cache", S, ring, shards, index)
+        if key in self._derived:
+            return self._derived[key]
+        if shards == 1:
             if ring:
                 slot = torch.remainder(self.pos, S).long().reshape(1)
                 inside = None
             else:
                 slot = torch.clamp(self.pos, max=S - 1).long().reshape(1)
                 inside = self.pos < S
-            self._derived[key] = (
-                slot, inside,
-                torch.clamp(self.pos + 1, max=S).to(torch.int32))
+            length = torch.clamp(self.pos + 1, max=S).to(torch.int32)
+        else:
+            total = shards * S
+            at = torch.remainder(self.pos, total) if ring else self.pos
+            local = at - index * S
+            inside = (local >= 0) & (local < S)
+            slot = torch.clamp(local, 0, S - 1).long().reshape(1)
+            length = torch.clamp(torch.clamp(self.pos + 1, max=total)
+                                 - index * S, 0, S).to(torch.int32)
+        self._derived[key] = (slot, inside, length)
         return self._derived[key]
 
 
 def update_cache(cache: Dict[str, torch.Tensor], k_new: torch.Tensor,
-                 v_new: torch.Tensor, pos: DecodePosition, ring: bool = False
+                 v_new: torch.Tensor, pos: DecodePosition, ring: bool = False,
+                 shards: int = 1, index: int = 0
                  ) -> Dict[str, torch.Tensor]:
     """Write one token's K/V (B,1,KV,hd) at ``pos``, in place: a full cache
     at slot ``pos``, and at a position past its S slots nothing; a ring
-    (``ring``, a sliding window's cache) at slot ``pos % S``, always.
+    (``ring``, a sliding window's cache) at slot ``pos % S``, always.  On
+    rank ``index`` of a cache split over ``shards`` ranks, only where the
+    slot falls in this rank's slice (``DecodePosition.for_cache``).
 
     The JAX package rewrites the whole cache through a one-hot select on
     every step, which writes nothing past the cache; writing the one slot
@@ -159,7 +188,7 @@ def update_cache(cache: Dict[str, torch.Tensor], k_new: torch.Tensor,
     same cache without the O(cache) copy per layer.  The index stays on the
     device, so a captured graph of the step writes each step's slot.
     """
-    slot, inside, _ = pos.for_cache(cache["k"].shape[1], ring)
+    slot, inside, _ = pos.for_cache(cache["k"].shape[1], ring, shards, index)
     for name, new in (("k", k_new), ("v", v_new)):
         c = cache[name]
         new = new.to(c.dtype)
@@ -167,6 +196,46 @@ def update_cache(cache: Dict[str, torch.Tensor], k_new: torch.Tensor,
             new = torch.where(inside, new, c.index_select(1, slot))
         c.index_copy_(1, slot, new)
     return cache
+
+
+def kv_shards(cfg, S_local: int) -> Tuple[int, int]:
+    """(shards, this rank's index) of a decode step's KV cache of
+    ``S_local`` slots here: over a mesh whose model axis has M > 1 ranks,
+    (M, the rank's index) where ``cache_specs`` split the cache's S slots
+    (a full cache of ``cache_seq``, a ring of min(cache_seq, window)) over
+    it, as it does when M divides S; else (1, 0)."""
+    mesh, _, model_axis = get_mesh_context()
+    if mesh is None or model_axis not in mesh.mesh_dim_names:
+        return 1, 0
+    M = coll.axis_size(mesh, model_axis)
+    if M == 1:
+        return 1, 0
+    max_seq = get_cache_seq()
+    if max_seq is None:
+        raise ValueError("decode over a model axis of more than one rank: "
+                         "set_mesh_context(..., cache_seq=max_seq) says how "
+                         "cache_specs cut the KV caches")
+    S = min(max_seq, cfg.sliding_window) if cfg.sliding_window else max_seq
+    shards = M if S % M == 0 else 1
+    if S_local * shards != S:
+        raise ValueError(f"a KV cache of {S_local} slots on this rank, but "
+                         f"cache_specs cuts {S} slots into {shards}")
+    return shards, coll.axis_index(mesh, model_axis) if shards > 1 else 0
+
+
+def combine_split_kv(y: torch.Tensor, lse: torch.Tensor
+                     ) -> torch.Tensor:
+    """The exact softmax attention over every rank's slice of a split KV
+    cache from each rank's (y (B,H,hd), its rows' log-sum-exp (B,H)):
+    all-gathered over the model axis and weighed by exp(lse_i - max lse),
+    in rank order on every rank (identical bits).  A slice the token does
+    not reach (lse -inf) weighs 0; rank 0's slice always holds slot 0."""
+    mesh, _, model_axis = get_mesh_context()
+    ys = coll.gather_raw(y[None], mesh, model_axis, 0).float()
+    lses = coll.gather_raw(lse[None], mesh, model_axis, 0)
+    w = torch.exp(lses - lses.max(dim=0).values)
+    out = (w[..., None] * ys).sum(dim=0) / w.sum(dim=0)[..., None]
+    return out.to(y.dtype)
 
 
 def _cross_attention(cfg, p: Params, x: torch.Tensor, k: torch.Tensor,
@@ -225,7 +294,10 @@ def attention_forward(cfg, p: Params, x: torch.Tensor, *,
         if use_rope:
             cos, sin = cache_pos.rope(hd, cfg.rope_theta)
             q, k = rotate(q, cos, sin), rotate(k, cos, sin)
-        cache = update_cache(cache, k, v, cache_pos, ring=bool(window))
+        S_local = cache["k"].shape[1]
+        shards, index = kv_shards(cfg, S_local)
+        cache = update_cache(cache, k, v, cache_pos, ring=bool(window),
+                             shards=shards, index=index)
         # A ring holds S = min(max_seq, window) <= window slots, and slot i
         # holds the last position p <= pos with p = i (mod S).  The JAX
         # package's ring validity (p >= 0, p <= pos, pos - p < window)
@@ -233,9 +305,15 @@ def attention_forward(cfg, p: Params, x: torch.Tensor, *,
         # fills, slot i holds position i; after, every slot holds one of the
         # last S <= window positions.  So the decode kernel takes the same
         # length prefix as for a full cache, and the ring only moves the
-        # slot that the step writes.
-        _, _, length = cache_pos.for_cache(cache["k"].shape[1], bool(window))
-        y = ops.decode_attention(q[:, 0], cache["k"], cache["v"], length)
+        # slot that the step writes.  A split cache attends each rank's
+        # share of that prefix and combines the ranks' partial softmaxes.
+        _, _, length = cache_pos.for_cache(S_local, bool(window), shards,
+                                           index)
+        if shards == 1:
+            y = ops.decode_attention(q[:, 0], cache["k"], cache["v"], length)
+        else:
+            y = combine_split_kv(*ops.decode_attention(
+                q[:, 0], cache["k"], cache["v"], length, with_lse=True))
         return _linear(y.reshape(B, 1, H * hd), p["wo"]), cache
 
     y, k, v = _flash_full(cfg, q, k, v, causal=causal, window=window,

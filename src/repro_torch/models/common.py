@@ -8,7 +8,7 @@ gives the names ``checkpoint/ckpt.py:_flatten`` gives there.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Sequence, Union
+from typing import Any, Dict, Optional, Sequence, Union
 
 import torch
 
@@ -21,32 +21,45 @@ _RECOMPUTE = {"on": True}
 # ---------------------------------------------------------------------------
 
 _MESH_CTX: Dict[str, Any] = {"mesh": None, "data_spec": ("data",),
-                             "model_axis": "model"}
+                             "model_axis": "model", "cache_seq": None}
 
 
 def set_mesh_context(mesh, data_spec=("data",), model_axis="model",
-                     moe_ff_axis=None) -> None:
+                     moe_ff_axis=None, *, cache_seq=None) -> None:
     """Install the ``DeviceMesh`` that the sharded modules (attention, MoE,
-    the layer stack's gathers) run over, its ranks holding shards cut by
-    ``parallel.sharding.param_rules`` (the fsdp recipe).  ``data_spec`` is
-    the tuple of mesh axes that shard the batch dim (("pod","data") on the
-    multi-pod mesh).  ``moe_ff_axis``, the JAX package's TP/EP recipe (the
-    expert hidden dim over a mesh axis, for its dry-run's lowerings), is not
-    ported: a value raises."""
+    the layer stack's gathers, the decode step) run over, its ranks holding
+    shards cut by ``parallel.sharding.param_rules`` (the fsdp recipe) and
+    decode caches cut by ``parallel.sharding.cache_specs``.  ``data_spec``
+    is the tuple of mesh axes that shard the batch dim (("pod","data") on
+    the multi-pod mesh).  ``cache_seq``: the ``max_seq`` the decode caches
+    were made with (``init_cache``), from which a decode step knows whether
+    ``cache_specs`` split a KV cache's slots over the model axis (a rank's
+    slice of a split cache and a whole cache of a non-dividing length can
+    have the same local shape); a decode step over a model axis of more
+    than one rank needs it.  ``moe_ff_axis``, the JAX package's TP/EP
+    recipe (the expert hidden dim over a mesh axis, for its dry-run's
+    lowerings), is not ported: a value raises."""
     if moe_ff_axis is not None:
         raise NotImplementedError("moe_ff_axis (the TP/EP recipe) is not "
                                   "ported: shard with the fsdp recipe")
     _MESH_CTX["mesh"] = mesh
     _MESH_CTX["data_spec"] = tuple(data_spec)
     _MESH_CTX["model_axis"] = model_axis
+    _MESH_CTX["cache_seq"] = cache_seq
 
 
 def get_mesh_context():
     return (_MESH_CTX["mesh"], _MESH_CTX["data_spec"], _MESH_CTX["model_axis"])
 
 
+def get_cache_seq():
+    """``set_mesh_context``'s ``cache_seq``."""
+    return _MESH_CTX["cache_seq"]
+
+
 def clear_mesh_context() -> None:
     _MESH_CTX["mesh"] = None
+    _MESH_CTX["cache_seq"] = None
 
 
 def map_axes(fn, tree: Any) -> Any:
@@ -94,22 +107,40 @@ def resolve_device(device: Union[str, torch.device, None] = None
 
 # ---------------------------------------------------------------------------
 # initializers (match the JAX package in distribution, not in values)
+#
+# On the "meta" device every initializer returns an empty tensor of its
+# leaf's shape and dtype and draws nothing (``gen`` may be None): the
+# shapes-only init, the port's ``jax.eval_shape`` of the JAX package's init.
 # ---------------------------------------------------------------------------
 
-def dense_init(gen: torch.Generator, shape: Sequence[int], dtype,
+def is_meta(device) -> bool:
+    return torch.device(device).type == "meta"
+
+
+def dense_init(gen: Optional[torch.Generator], shape: Sequence[int], dtype,
                device, in_axis: int = -2) -> torch.Tensor:
     """Truncated-normal (+-2 sigma) fan-in init."""
+    if is_meta(device):
+        return torch.empty(tuple(shape), dtype=dtype, device=device)
     std = 1.0 / math.sqrt(shape[in_axis])
     t = torch.empty(tuple(shape), dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return (t * std).to(dtype)
 
 
-def embed_init(gen: torch.Generator, vocab: int, d: int, dtype,
-               device) -> torch.Tensor:
-    t = torch.randn((vocab, d), generator=gen, dtype=torch.float32,
+def normal_init(gen: Optional[torch.Generator], shape: Sequence[int],
+                scale: float, dtype, device) -> torch.Tensor:
+    """A standard normal times ``scale``, drawn in fp32."""
+    if is_meta(device):
+        return torch.empty(tuple(shape), dtype=dtype, device=device)
+    t = torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
                     device=device)
-    return (t * 0.02).to(dtype)
+    return (t * scale).to(dtype)
+
+
+def embed_init(gen: Optional[torch.Generator], vocab: int, d: int, dtype,
+               device) -> torch.Tensor:
+    return normal_init(gen, (vocab, d), 0.02, dtype, device)
 
 
 # ---------------------------------------------------------------------------

@@ -8,6 +8,13 @@ and the same leaf names.  The JAX code projects onto ``concat([w_B, w_C])``,
 building the concatenation on every call; here B and C are two products
 through the matmul kernel, so no weight is copied, and the conv of the
 2N BC channels runs as two convs of N, which is the same depthwise conv.
+
+Over a mesh, a decode cache cut by ``parallel.sharding.cache_specs`` holds
+each rank's heads of the SSM ``state`` (where the model axis divides
+them) and the whole conv tails: the decode step updates this rank's heads
+with their slices of dt, ``A_log``, ``dt_bias``, ``D`` and x, and gathers
+y over the model axis before the gated norm and ``w_out``, which need
+every head.
 """
 from __future__ import annotations
 
@@ -17,8 +24,10 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
+from ..parallel import collectives as coll
 from .attention import _linear
-from .common import Params, dense_init, rmsnorm
+from .common import (Params, dense_init, get_mesh_context, normal_init,
+                     rmsnorm)
 
 
 def ssd_init(cfg, gen: torch.Generator, dtype, device) -> Params:
@@ -27,9 +36,7 @@ def ssd_init(cfg, gen: torch.Generator, dtype, device) -> Params:
     K = cfg.ssm_conv_width
 
     def conv(channels):
-        t = torch.randn((K, channels), generator=gen, dtype=torch.float32,
-                        device=device)
-        return (t * 0.1).to(dtype)
+        return normal_init(gen, (K, channels), 0.1, dtype, device)
 
     f32 = dict(dtype=torch.float32, device=device)
     return {
@@ -146,8 +153,20 @@ def ssd_decode_step(cfg, p: Params, x: torch.Tensor,
     """x (B,1,d) -> (y (B,1,d), cache).  The state and conv tails are
     updated in place (``copy_``): the caller passes views of the stacked
     cache, which must advance.  Plain PyTorch, as the JAX package's step is
-    plain jnp; nothing here waits on the card."""
+    plain jnp; nothing here waits on the card.  A ``state`` of fewer than
+    H heads is this rank's block of a state split over the mesh's model
+    axis (the module docstring)."""
     H, P, N = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
+    state = cache["state"]
+    Hl = state.shape[1]
+    h0 = 0
+    if Hl != H:
+        mesh, _, model_axis = get_mesh_context()
+        if mesh is None or Hl * coll.axis_size(mesh, model_axis) != H:
+            raise ValueError(f"an SSM state of {Hl} heads of {H}, but not "
+                             "a model-axis block of a mesh")
+        h0 = coll.axis_index(mesh, model_axis) * Hl
+    heads = slice(h0, h0 + Hl)
     xt = x[:, 0, :]
     z = _linear(xt, p["w_z"])
     xin = _linear(xt, p["w_x"])
@@ -158,14 +177,15 @@ def ssd_decode_step(cfg, p: Params, x: torch.Tensor,
     BC = _conv_step(cache["conv_BC"], BC, p["conv_BC"])
     Bm, Cm = BC[:, :N].float(), BC[:, N:].float()
 
-    A = -torch.exp(p["A_log"])
-    dt = F.softplus(dt.float() + p["dt_bias"])               # (B,H)
+    A = -torch.exp(p["A_log"][heads])
+    dt = F.softplus(dt.float() + p["dt_bias"])[:, heads]     # (B,Hl)
     dA = torch.exp(dt * A)
-    xh = xin.reshape(-1, H, P).float()
-    state = cache["state"]
+    xh = xin.reshape(-1, H, P)[:, heads].float()
     state.copy_(state * dA[..., None, None] +
                 torch.einsum("bn,bhp,bh->bhpn", Bm, xh, dt))
     y = torch.einsum("bn,bhpn->bhp", Cm, state)
-    y = y + xh * p["D"][None, :, None]
+    y = y + xh * p["D"][heads][None, :, None]
+    if Hl != H:
+        y = coll.gather_to_replicated(y, mesh, model_axis, 1)
     y = _gate_norm_out(cfg, p, y.reshape(-1, H * P), z, x.dtype)
     return y[:, None, :], cache

@@ -16,7 +16,8 @@ layers' gathers sum a data-sharded leaf's gradient over the data axes and
 take a model-sharded leaf's slice of the gradient of the replicated
 compute (``models/lm.py``).  The step then sums over the data axes the
 gradient of every leaf that is replicated over them, and AdamW runs on
-the shards with fp32 moments; the gradient norm sums each leaf once.
+the shards (int8 moments with whole rows: ``train/optimizer.py``); the
+gradient norm sums each leaf once.
 """
 from __future__ import annotations
 
@@ -81,11 +82,8 @@ def make_train_step(loss_fn: Callable, tcfg: TrainConfig,
     in order, their fp32 gradients summed and averaged, and the loss
     averaged.  ``mesh`` and ``specs`` (each parameter leaf's spec,
     ``parallel.sharding.param_specs``): the step over a mesh (the module
-    docstring); int8 moments raise there.
+    docstring), its state cut by the specs of ``state_logical_axes``.
     """
-    if mesh is not None and tcfg.opt.moment_dtype == "int8":
-        raise NotImplementedError("int8 moments over a mesh are not ported "
-                                  "yet: use moment_dtype='float32'")
 
     def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
         params = state["params"]

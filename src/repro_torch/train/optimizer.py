@@ -10,7 +10,14 @@ and leaves out ``final_norm``, as in the JAX package.  The update makes new
 tensors and changes none of its inputs.  ``opt_logical_axes`` gives the
 moments' logical axes for the sharding rules.  Over a mesh the update runs
 on each rank's local shards; ``global_norm`` then sums each leaf's
-squares over the mesh axes that shard it, and only those.
+squares over the mesh axes that shard it, and only those.  An int8
+moment keeps its leading dims' rules and whole rows of blocks, as the JAX
+package's axes say: where the rules shard a parameter's last dim, a rank
+holds its columns of p and g and the whole row of each moment, so the
+update dequantizes the row, takes this rank's columns, updates p there,
+all-gathers the new moment's columns and quantizes the whole row again in
+``QBLOCK`` blocks: the unsharded update's moments, bit for bit where the
+gradients agree.
 """
 from __future__ import annotations
 
@@ -129,12 +136,9 @@ def adamw_update(params, grads, opt_state, cfg: AdamWConfig, *,
                  specs=None, mesh=None
                  ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
     """Returns (new_params, new_opt_state, {"grad_norm", "lr"}).  Over a
-    ``mesh``, params, grads and moments are local shards under ``specs``
-    (fp32 moments only: int8 moments block the last dim, whose shards
-    the port does not map yet, and raise)."""
-    if mesh is not None and cfg.moment_dtype == "int8":
-        raise NotImplementedError("int8 moments over a mesh are not ported "
-                                  "yet: use moment_dtype='float32'")
+    ``mesh``, params and grads are local shards under ``specs`` and the
+    moments the blocks that ``opt_logical_axes``' specs cut (an int8
+    moment's rows whole: the module docstring)."""
     count = opt_state["count"] + 1
     lr = _schedule(cfg, count)
     gnorm = global_norm(grads, specs, mesh)
@@ -145,11 +149,17 @@ def adamw_update(params, grads, opt_state, cfg: AdamWConfig, *,
     b2c = 1.0 - torch.pow(torch.tensor(cfg.b2, device=countf.device), countf)
     q8 = cfg.moment_dtype == "int8"
 
-    def upd(p, g, m, v):
+    def upd(p, g, m, v, spec=None):
         g = g.float() * clip
         n = p.shape[-1] if p.dim() else 1
-        mf = dequantize_q8(m, n) if q8 else m
-        vf = dequantize_q8(v, n) if q8 else v
+        cols = _row_split(p, spec, mesh) if q8 else None
+        if cols is not None:  # this rank's columns of whole moment rows
+            axes, idx, ranks = cols
+            mf = dequantize_q8(m, n * ranks).narrow(-1, idx * n, n)
+            vf = dequantize_q8(v, n * ranks).narrow(-1, idx * n, n)
+        else:
+            mf = dequantize_q8(m, n) if q8 else m
+            vf = dequantize_q8(v, n) if q8 else v
         if p.dim() == 0 and q8:
             mf, vf = mf.reshape(()), vf.reshape(())
         mf = cfg.b1 * mf + (1 - cfg.b1) * g
@@ -158,16 +168,45 @@ def adamw_update(params, grads, opt_state, cfg: AdamWConfig, *,
         decay = cfg.weight_decay if p.dim() >= 2 else 0.0
         pf = p.float()
         new_p = pf - lr * (step + decay * pf)
+        if cols is not None:
+            mf, vf = (_gather_cols(t, mesh, cols[0]) for t in (mf, vf))
         if q8:
             mf = quantize_q8(mf if p.dim() else mf.reshape(1))
             vf = quantize_q8(vf if p.dim() else vf.reshape(1))
         return SimpleNamespace(p=new_p.to(p.dtype), m=mf, v=vf)
 
-    out = map_tree(upd, params, grads, opt_state["m"], opt_state["v"])
+    trees = (params, grads, opt_state["m"], opt_state["v"])
+    out = map_tree(upd, *trees, *(() if specs is None else (specs,)))
     new_opt = {"m": map_tree(lambda o: o.m, out),
                "v": map_tree(lambda o: o.v, out), "count": count}
     return (map_tree(lambda o: o.p, out), new_opt,
             {"grad_norm": gnorm, "lr": lr})
+
+
+def _row_split(p: torch.Tensor, spec, mesh):
+    """(axes, this rank's index over them, their ranks) of the mesh axes
+    that shard the last dim of ``p`` under ``spec``, or None (no mesh, a
+    0-d leaf, a last dim whole here)."""
+    if mesh is None or p.dim() == 0 or not spec:
+        return None
+    from ..parallel.collectives import axes_index, axis_size
+    from ..parallel.sharding import spec_axes
+    axes = spec_axes(spec[-1])
+    if not axes:
+        return None
+    ranks = 1
+    for a in axes:
+        ranks *= axis_size(mesh, a)
+    return axes, axes_index(mesh, axes), ranks
+
+
+def _gather_cols(t: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The ranks' columns of ``t`` along its last dim, whole (minor axis
+    first, as ``sharding.gather_tree``)."""
+    from ..parallel.collectives import gather_raw
+    for a in reversed(axes):
+        t = gather_raw(t, mesh, a, t.dim() - 1)
+    return t
 
 
 def opt_logical_axes(param_axes, cfg: AdamWConfig):

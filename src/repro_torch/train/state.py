@@ -7,7 +7,7 @@ from typing import Any, Dict
 
 import torch
 
-from .optimizer import AdamWConfig, init_opt_state
+from .optimizer import AdamWConfig, init_opt_state, opt_logical_axes
 
 TrainState = Dict[str, Any]  # {"params", "opt", "step"}
 
@@ -18,3 +18,13 @@ def init_state(params, opt_cfg: AdamWConfig) -> TrainState:
     return {"params": params, "opt": opt,
             "step": torch.zeros((), dtype=torch.int32,
                                 device=opt["count"].device)}
+
+
+def state_logical_axes(param_axes, opt_cfg: AdamWConfig):
+    """The logical axes of ``init_state``'s tree, as the JAX package's:
+    the parameters', the moments' (``opt_logical_axes``) and none for the
+    step.  ``parallel.sharding.param_specs`` of them cut a full state into
+    a rank's shards (an int8 moment's rows whole)."""
+    return {"params": param_axes,
+            "opt": opt_logical_axes(param_axes, opt_cfg),
+            "step": ()}

@@ -208,31 +208,95 @@ def job_grad(workdir, mesh, job):
 
 
 def job_step(workdir, mesh, job):
+    """One sharded ``make_train_step`` step (fp32 or int8 moments: the
+    job's "opt"), its state the full ``init_state`` cut by the specs of
+    ``state_logical_axes``: the parameters and first moments gathered, and
+    the metrics."""
     from repro_torch import convert
     from repro_torch.models import build
     from repro_torch.models.common import clear_mesh_context
     from repro_torch.parallel import sharding as shd
-    from repro_torch.train import AdamWConfig, TrainConfig, init_state
+    from repro_torch.train import (AdamWConfig, TrainConfig, init_state,
+                                   state_logical_axes)
     from repro_torch.train.loop import make_train_step
     bundle = build(_cfg(job))
-    specs, local, lbatch = _sharded_setup(
-        mesh, bundle, _params(workdir, job), _batch(workdir, job))
+    params = _params(workdir, job)
+    specs, _, lbatch = _sharded_setup(mesh, bundle, params,
+                                      _batch(workdir, job))
     tcfg = TrainConfig(opt=AdamWConfig(**job["opt"]))
+    sspecs = shd.param_specs(state_logical_axes(
+        bundle.param_logical_axes(), tcfg.opt), shd.param_rules(mesh))
+    state = shd.shard_tree(init_state(params, tcfg.opt), sspecs, mesh)
     step = make_train_step(bundle.loss, tcfg, mesh=mesh, specs=specs)
-    state, metrics = step(init_state(local, tcfg.opt), lbatch)
+    state, metrics = step(state, lbatch)
     clear_mesh_context()
     out = {f"param/{k}": v for k, v in convert.flatten(
         shd.gather_tree(state["params"], specs, mesh)).items()}
     out.update({f"m/{k}": v for k, v in convert.flatten(
-        shd.gather_tree(state["opt"]["m"], specs, mesh)).items()})
+        shd.gather_tree(state["opt"]["m"], sspecs["opt"]["m"],
+                        mesh)).items()})
     out.update({k: v for k, v in metrics.items()})
-    try:
-        make_train_step(bundle.loss, TrainConfig(
-            opt=AdamWConfig(moment_dtype="int8")), mesh=mesh, specs=specs)
-        out["int8_raises"] = 0
-    except NotImplementedError:
-        out["int8_raises"] = 1
     return out
+
+
+def job_decode(workdir, mesh, job):
+    """One decode step of the batch file's token at its "pos" against the
+    cache file's caches: unsharded (no mesh), then over the mesh with the
+    parameters cut by ``param_specs``, the caches by ``cache_specs`` and
+    the token by ``batch_specs`` (split-KV over the model axis, an SSM
+    state by heads): both steps' logits and updated caches, gathered."""
+    import copy
+
+    import torch
+    from repro_torch import convert
+    from repro_torch.models import build
+    from repro_torch.models.common import clear_mesh_context, set_mesh_context
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel import sharding as shd
+    bundle = build(_cfg(job))
+    params = _params(workdir, job)
+    caches = convert.from_reference(load(workdir / job["caches"]),
+                                    device="cpu")
+    token = torch.from_numpy(load(workdir / job["batch"])["token"])
+    pos = torch.tensor(job["pos"], dtype=torch.int32)
+    with torch.no_grad():
+        full = copy.deepcopy(caches)
+        logits, full = bundle.decode(params, full, token, pos)
+        specs = shd.param_specs(bundle.param_logical_axes(),
+                                shd.param_rules(mesh))
+        cspecs = shd.cache_specs(caches, mesh)
+        local = shd.shard_tree(params, specs, mesh)
+        lcache = shd.shard_tree(caches, cspecs, mesh)
+        ltoken = shd.shard_tree({"token": token},
+                                shd.batch_specs({"token": token}, mesh),
+                                mesh)["token"]
+        set_mesh_context(mesh, shd.batch_axes(mesh),
+                         cache_seq=job["max_seq"])
+        try:
+            got, lcache = bundle.decode(local, lcache, ltoken, pos)
+        finally:
+            clear_mesh_context()
+        out = {"logits": coll.gather_raw(got, mesh, "data", 0),
+               "unsharded": logits}
+        out.update({f"cache/{k}": v for k, v in convert.flatten(
+            shd.gather_tree(lcache, cspecs, mesh)).items()})
+        out.update({f"unsharded_cache/{k}": v
+                    for k, v in convert.flatten(full).items()})
+        out["cache_specs"] = np.array(json.dumps(
+            {k: list(v) for k, v in _spec_items(cspecs)}))
+    return out
+
+
+def _spec_items(specs, prefix=""):
+    """(name, spec) of a spec tree, whose leaves are tuples."""
+    if isinstance(specs, dict):
+        for k, v in specs.items():
+            yield from _spec_items(v, f"{prefix}/{k}" if prefix else k)
+    elif isinstance(specs, list):
+        for i, v in enumerate(specs):
+            yield from _spec_items(v, f"{prefix}/{i}" if prefix else str(i))
+    else:
+        yield prefix, specs
 
 
 def job_tenants(workdir, mesh, job):
@@ -378,7 +442,7 @@ def job_collectives(workdir, mesh, job):
 
 
 JOBS = {"forward": job_forward, "moe": job_moe, "ssd": job_ssd,
-        "grad": job_grad, "step": job_step, "tenants": job_tenants,
+        "grad": job_grad, "step": job_step, "decode": job_decode, "tenants": job_tenants,
         "pipeline": job_pipeline, "collectives": job_collectives}
 
 

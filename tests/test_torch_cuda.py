@@ -348,6 +348,39 @@ def test_cuda_decode_attention_device_length(card, H, KV, hd, length, dtype):
         assert torch.equal(ops.decode_attention(q, k, v, past), got)
 
 
+# device lengths of the lse variant: 0 (a rank's slice wholly past the
+# token), 1, the 64-key tile's edges and a cluster split's edge (512 of 1024
+# keys: two splits of 8 tiles on a 132-SM card at B 3, KV 2)
+LSE_LENGTHS = [0, 1, 63, 64, 65, 487, 512, 513, 1024]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("length", LSE_LENGTHS)
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("H,KV", [(14, 2), (32, 8), (20, 20)])
+def test_cuda_decode_attention_lse(card, H, KV, hd, length, dtype):
+    """``with_lse`` on the card: the output equals the call without it bit
+    for bit and the plain version at the kernel's limit; the log-sum-exp
+    the plain version's within 1e-4 (1 + |lse|) (fp32 scores of the same
+    inputs on both); at length 0 a zero output and -inf, no NaN."""
+    B, S = 3, 1024
+    q, k, v = _on(card, dtype, 23, (B, H, hd), (B, S, KV, hd), (B, S, KV, hd))
+    n = torch.full((), length, dtype=torch.int32, device=card)
+    out, lse = ops.decode_attention(q, k, v, n, with_lse=True)
+    want, want_lse = decode_attention_plain(q, k, v, n, with_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (B, H)
+    assert torch.equal(out, ops.decode_attention(q, k, v, n))
+    assert not torch.isnan(out).any() and not torch.isnan(lse).any()
+    _close(out, want, DTYPES[dtype][1])
+    if length == 0:
+        assert not out.any() and bool(torch.isneginf(lse).all())
+    else:
+        np.testing.assert_allclose(lse.cpu().numpy(),
+                                   want_lse.cpu().numpy(), rtol=1e-4,
+                                   atol=1e-4)
+
+
 def _ssd_on(card, dtype, seed, b, S, H, with_init, P=64, N=128):
     """x, dt, A, B, C (B and C halves of one (b, S, 2N) tensor, as the model
     passes them) and an initial state or None, on the card."""

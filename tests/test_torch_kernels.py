@@ -120,6 +120,45 @@ def test_decode_attention_tensor_length_equals_int(S, length, dtype):
            DTYPES[dtype][2])
 
 
+@pytest.mark.parametrize("length", [0, 1, 37, 64, 65, 128])
+@pytest.mark.parametrize("H,KV", [(4, 4), (14, 2)])
+def test_decode_attention_lse_matches_float64_logsumexp(length, H, KV):
+    """``with_lse``'s log-sum-exp against a float64 log-sum-exp of the
+    scaled scores over the keys attended, at a tensor length (0 too: -inf
+    and a zero output, no NaN), and the output equals the call without
+    it; a split cache's ranks combined by their lse give the whole cache's
+    output (``models.attention.combine_split_kv``'s arithmetic)."""
+    rng = np.random.default_rng(length + H)
+    B, S, hd = 2, 128, 64
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               for s in ((B, H, hd), (B, S, KV, hd), (B, S, KV, hd)))
+    n = torch.tensor(length, dtype=torch.int32)
+    out, lse = ops.decode_attention(q, k, v, n, with_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (B, H)
+    assert torch.equal(out, ops.decode_attention(q, k, v, n))
+    qd = q.double().reshape(B, KV, H // KV, hd)
+    s = torch.einsum("bkgd,bskd->bkgs", qd, k.double()) / np.sqrt(hd)
+    want = torch.logsumexp(s[..., :length], dim=-1).reshape(B, H)
+    if length == 0:
+        assert bool(torch.isneginf(lse).all()) and not out.any()
+    else:
+        np.testing.assert_allclose(lse.numpy(), want.numpy(), rtol=1e-6,
+                                   atol=1e-5)
+    assert not torch.isnan(out).any() and not torch.isnan(lse).any()
+    # two slices of 64 keys, each attending its share of the prefix
+    parts = [ops.decode_attention(
+        q, k[:, i:i + 64].contiguous(), v[:, i:i + 64].contiguous(),
+        torch.tensor(min(max(length - i, 0), 64), dtype=torch.int32),
+        with_lse=True) for i in (0, 64)]
+    if length:
+        ys, ls = torch.stack([p[0] for p in parts]), torch.stack(
+            [p[1] for p in parts])
+        w = torch.exp(ls - ls.max(dim=0).values)
+        got = (w[..., None] * ys).sum(0) / w.sum(0)[..., None]
+        np.testing.assert_allclose(got.numpy(), out.numpy(), rtol=1e-5,
+                                   atol=1e-6)
+
+
 # ---------------------------------------------------------------------------
 # GQA forms against the model-level attention (CPU, fp32)
 # ---------------------------------------------------------------------------

@@ -6,12 +6,17 @@ and replicated attention modes against the JAX local forward; MoE expert
 parallelism against JAX's meshed ``moe_forward`` with drops and its local
 path without; ``seq_parallel_ssd`` against ``ssd_scan_ref``; the sharded
 gradients against ``jax.grad``; one sharded ``make_train_step`` step
-against the port's unsharded step; int8 moments on a mesh raising.  The
-JAX references run here, on 8 forced host devices (``tests/conftest.py``);
+against the port's unsharded step, with fp32 and with int8 moments; and
+one decode step over caches cut by ``cache_specs`` (split-KV over the
+model axis: qwen2_0_5b's full cache with the token on each kind of slice
+and past the cache, hymba_1_5b's ring before and after it wraps,
+mamba2_1_3b's state split by heads, whisper_large_v3's self cache) against the port's unsharded step,
+which is held against JAX's ``decode_step``.  The JAX references run here, on 8 forced host devices (``tests/conftest.py``);
 inputs and outputs pass as numpy files.  And K2's plain version with a
 ``q_offset`` against JAX's ``chunked_attention`` at the shard's positions.
 """
 import dataclasses
+import json
 
 import jax
 import jax.numpy as jnp
@@ -63,6 +68,19 @@ GRAD_TOL = 1e-4
 # (|g| ~ eps = 1e-8) moves by up to lr whatever its sign (observed 0.02 lr)
 LR = 1e-3
 PARAM_TOL = 0.1 * LR
+
+# (arch, max_seq, pos) of the decode cases on the (2, 4) mesh: qwen2_0_5b's
+# cache of 32 slots is 4 slices of 8: the token on rank 0's slice, on rank
+# 2's, at the first slot of rank 2's (a slice edge: that rank attends one
+# key, rank 3 none) and past the cache (no rank writes); hymba_1_5b's ring
+# of 16 (its reduced window) is 4 slices of 4: before it fills and after
+# it wraps; mamba2_1_3b's state (16 heads) is 4 blocks of 4 heads;
+# whisper_large_v3's self cache is split as qwen2_0_5b's, its cross cache
+# (24 encoder frames) cut by batch only
+DECODE_CASES = [("qwen2_0_5b", 32, 5), ("qwen2_0_5b", 32, 21),
+                ("qwen2_0_5b", 32, 16), ("qwen2_0_5b", 32, 40),
+                ("hymba_1_5b", 64, 9), ("hymba_1_5b", 64, 37),
+                ("mamba2_1_3b", 32, 7), ("whisper_large_v3", 32, 21)]
 
 FORWARD_CASES = [("llama3_2_1b", "seq", {}), ("llama3_2_1b", "replicated", {}),
                  ("llama3_2_1b", "heads", {"n_kv_heads": 4}),
@@ -219,10 +237,37 @@ def results(tmp_path_factory):
         jobs.append({"kind": "grad", "name": name, "arch": arch, "cfg": over,
                      "params": f"{name}.npz", "batch": "tokens.npz"})
 
-    jobs.append({"kind": "step", "name": "step", "arch": "llama3_2_1b",
-                 "cfg": {}, "params": "grad_llama3_2_1b.npz",
-                 "batch": "tokens.npz",
-                 "opt": {"lr": LR, "warmup_steps": 1}})
+    for name, moments in (("step", "float32"), ("step_int8", "int8")):
+        jobs.append({"kind": "step", "name": name, "arch": "llama3_2_1b",
+                     "cfg": {}, "params": "grad_llama3_2_1b.npz",
+                     "batch": "tokens.npz",
+                     "opt": {"lr": LR, "warmup_steps": 1,
+                             "moment_dtype": moments}})
+
+    # decode: random caches (every slot filled: a slot that should not be
+    # attended would show), a token of each batch row
+    rng = np.random.default_rng(11)
+    for i, (arch, max_seq, pos) in enumerate(DECODE_CASES):
+        name = f"decode_{arch}_{pos}"
+        ref_cfg, _ = _cfgs(arch, {})
+        bundle = ref_build(ref_cfg)
+        params = bundle.init(jax.random.PRNGKey(20 + i))
+        caches = jax.tree.map(
+            lambda x: jnp.asarray(rng.standard_normal(x.shape) * 0.5,
+                                  x.dtype), bundle.init_cache(2, max_seq))
+        token = rng.integers(0, 255, (2, 1)).astype(np.int32)
+        logits, new = bundle.decode(params, caches, jnp.asarray(token),
+                                    jnp.asarray(pos, jnp.int32))
+        refs[name] = (np.asarray(logits), {
+            n: np.asarray(v) for n, v in convert.flatten(new).items()})
+        world.save(wd / f"{name}.npz", _flat(params))
+        world.save(wd / f"{name}_caches.npz", {
+            n: np.asarray(v) for n, v in convert.flatten(caches).items()})
+        world.save(wd / f"{name}_token.npz", {"token": token})
+        jobs.append({"kind": "decode", "name": name, "arch": arch,
+                     "params": f"{name}.npz", "caches": f"{name}_caches.npz",
+                     "batch": f"{name}_token.npz", "pos": pos,
+                     "max_seq": max_seq})
 
     seconds = world.run_world(wd, jobs)
     outs = {j["name"]: world.load(wd / f"out_{j['name']}.npz") for j in jobs}
@@ -349,8 +394,81 @@ def test_sharded_train_step_matches_unsharded_step(results):
             GRAD_TOL * max(np.abs(want).max(), 1e-12), name
 
 
-def test_int8_moments_on_a_mesh_raise(results):
-    assert int(results[1]["step"]["int8_raises"]) == 1
+def test_sharded_int8_step_matches_unsharded_int8_step(results):
+    """int8 moments over the mesh: a rank updates its columns of p from the
+    whole moment rows and quantizes the gathered rows again, the unsharded
+    update's function.  The loss, gradient norm and parameters as the fp32
+    step's test holds them; each dequantized first moment within one int8
+    step of its block (a gradient summed in another order can round the
+    other way) plus GRAD_TOL of the leaf's largest value, and the int8
+    codes equal but for such flips."""
+    from repro_torch.train.optimizer import QBLOCK, dequantize_q8
+    refs, outs, _, wd = results
+    out = outs["step_int8"]
+    _, cfg = _cfgs("llama3_2_1b", {})
+    bundle = build(cfg)
+    params = convert.from_reference(world.load(wd / "grad_llama3_2_1b.npz"),
+                                    device="cpu")
+    tcfg = TrainConfig(opt=AdamWConfig(lr=LR, warmup_steps=1,
+                                       moment_dtype="int8"))
+    state, metrics = make_train_step(bundle.loss, tcfg)(
+        init_state(params, tcfg.opt), {"tokens": torch.from_numpy(
+            _tokens()["tokens"])})
+    np.testing.assert_allclose(float(out["loss"]), metrics["loss"].item(),
+                               rtol=1e-6)
+    np.testing.assert_allclose(float(out["grad_norm"]),
+                               metrics["grad_norm"].item(), rtol=1e-5)
+    flat_p = convert.flatten(state["params"])
+    for name, want in flat_p.items():
+        assert np.abs(out[f"param/{name}"] - want.numpy()).max() <= \
+            PARAM_TOL, name
+    m = convert.flatten(state["opt"]["m"])
+    for name, p in flat_p.items():
+        n = p.shape[-1] if p.dim() else 1
+        q, scale = m[f"{name}/q"], m[f"{name}/scale"]
+        assert out[f"m/{name}/q"].shape == tuple(q.shape), name
+        got = dequantize_q8({"q": torch.from_numpy(out[f"m/{name}/q"]),
+                             "scale": torch.from_numpy(
+                                 out[f"m/{name}/scale"])}, n)
+        want = dequantize_q8({"q": q, "scale": scale}, n)
+        step = torch.repeat_interleave(scale[..., 0], QBLOCK, dim=-1)[
+            ..., :n]
+        limit = step + GRAD_TOL * max(want.abs().max().item(), 1e-12)
+        assert bool(((got - want).abs() <= limit).all()), name
+        # the int8 codes themselves agree but for such flips
+        assert (torch.from_numpy(out[f"m/{name}/q"]) == q).float().mean() \
+            > 0.99, name
+
+
+@pytest.mark.parametrize("arch,max_seq,pos", DECODE_CASES)
+def test_sharded_decode_matches_unsharded_decode(results, arch, max_seq,
+                                                 pos):
+    """Split-KV decode over caches cut by ``cache_specs`` (the KV slots, or
+    an SSM state's heads, over the model axis; the batch over data): the
+    logits and every updated cache leaf equal the port's unsharded step,
+    and that step equals JAX's ``decode_step`` (logits and caches)."""
+    refs, outs, _, _ = results
+    name = f"decode_{arch}_{pos}"
+    want_logits, want_caches = refs[name]
+    out = outs[name]
+    split = {k: v for k, v in json.loads(str(out["cache_specs"])).items()}
+    for leaf, spec in split.items():
+        if leaf.endswith(("/k", "/v", "/state")):
+            assert spec[2] == "model", (leaf, spec)  # the case is sharded
+        if leaf.endswith(("/cross_k", "/cross_v")):
+            assert spec[2] is None, (leaf, spec)
+    np.testing.assert_allclose(out["logits"], out["unsharded"],
+                               rtol=FWD_TIGHT, atol=FWD_TIGHT)
+    np.testing.assert_allclose(out["unsharded"], want_logits, rtol=FWD_TOL,
+                               atol=FWD_TOL)
+    np.testing.assert_allclose(out["logits"], want_logits, rtol=FWD_TOL,
+                               atol=FWD_TOL)
+    for leaf, want in want_caches.items():
+        np.testing.assert_allclose(out[f"cache/{leaf}"],
+                                   out[f"unsharded_cache/{leaf}"],
+                                   rtol=FWD_TIGHT, atol=FWD_TIGHT)
+        np.testing.assert_allclose(out[f"unsharded_cache/{leaf}"], want,
+                                   rtol=FWD_TOL, atol=FWD_TOL)
 
 
 @pytest.mark.parametrize("S,M,window", [(64, 4, 0), (64, 2, 0), (48, 3, 16),

@@ -59,14 +59,16 @@ exits non-zero):
                FFN at a decode step, C 8, and a prefill, C 235;
                llama4_maverick_400b_a17b's at C 8 and 80; a mesh rank's
                expert-parallel product, its 32 experts at C x M = 1536
-               rows; each one launch on its grouped route; bf16 also
-               within 5e-5 + 1e-2 |plain|),
+               rows, and under the TP/EP recipe at C x M x D = 3072 rows
+               on its 704 hidden units; each one launch on its grouped
+               route; bf16 also within 5e-5 + 1e-2 |plain|),
                its backward products (dx = dy w^T, each expert's w^T read
                in place, and dw = x^T dy from a copy of x^T, which bf16
                pads along C to a multiple of 8, the copy's time apart) at
                deepseek_moe_16b's training capacity C 480 and at C 235
                (padded) in bf16, at C 15 in fp32, at a mesh rank's 32
-               experts of 1536 rows in fp32 and bf16, and at
+               experts of 1536 rows and a TP/EP rank's of 3072 rows on
+               704 hidden units in fp32 and bf16, and at
                llama4_maverick_400b_a17b's C 80 in bf16, each on its
                grouped route under both limits, its library torch.bmm,
                K1's backward products at qwen2_0_5b's training shapes
@@ -151,10 +153,11 @@ exits non-zero):
                transposed and dw, on the fp32 grouped kernel at C 15); and on
                the card the loss and every gradient with the per-layer
                recompute equal, bit for bit, those without it;
-7. train    -- at full width and depth, bf16, 5 steps of train_loop on
-               data/pipeline.py's batches: qwen2_0_5b (AdamW lr 1e-3)
-               and mamba2_1_3b (3e-4) at batch 8 x seq 512, hymba_1_5b
-               (3e-4) at 2 x 2048 (past its window of 1024),
+7. train    -- at full width, bf16, 5 steps of train_loop on
+               data/pipeline.py's batches: qwen2_0_5b (AdamW lr 1e-3) at
+               full depth and mamba2_1_3b (3e-4) at depth 24 of 48, both
+               at batch 8 x seq 512, hymba_1_5b (3e-4) at depth 16 of 32
+               and 2 x 2048 (past its window of 1024),
                deepseek_moe_16b (3e-4) at 8 x 512 cut to depth 4 (one
                dense, three MoE layers; C 480): the loss
                finite and falling, the launches per step (each layer
@@ -211,7 +214,20 @@ exits non-zero):
                slots cut by cache_specs (512 a model rank, the token at
                700 on the second rank's slice), its logits and each rank's
                cache block against the unsharded step at 2e-4 (1 +
-               |ref|), K1 15 and K3 2 a rank; and in the same world the GPipe
+               |ref|), K1 15 and K3 2 a rank; the forward again under the
+               TP/EP recipe (every leaf cut by param_rules(fsdp=False),
+               moe_ff_axis "data": the dispatch buffer gathered over data,
+               the grouped products on the rank's 704 hidden units, the
+               partial outputs reduce-scattered) against the unsharded
+               logits at 2e-4 (1 + |ref|), its launches (3 grouped) and
+               collective bytes by kind a rank; a ServeEngine over the
+               mesh (qwen2_0_5b at depth 2, fp32, batch 4, max_seq 256,
+               prompts of 64-128 tokens, 8 new tokens; split-KV caches,
+               prefill K2 at each shard's offset, each step eager),
+               every request's tokens and its counts equal to the
+               unsharded engine's (its graph's, in the parent), exact
+               K1 / K2 / K3 launches, prefill and decode seconds and
+               peak memory a rank; and in the same world the GPipe
                pipeline (parallel/pipeline.py) over a "pod" axis of the 4
                ranks: the first 4 layers of qwen2_0_5b at full width, one
                a stage, 8 microbatches of 1 x 512, fp32 and bf16, its
@@ -310,15 +326,19 @@ PARITY_WINDOW = 32
 # (one dense layer, three MoE layers: 2.27 B parameters, ≈ 23 GB of bf16
 # weights and fp32 moments, twice that while the phase restores a second
 # state beside the first; its 28 layers need the experts sharded over
-# cards, which the port does not do yet).
+# cards, which the port does not do yet).  mamba2_1_3b at depth 24 of 48
+# and hymba_1_5b at 16 of 32: the script's time (its mesh phase grew with
+# the TP/EP forward and the meshed engine) stays inside 1050 s of its
+# 1200 s; every layer of a stack is the same step, so half the stack runs
+# every kernel and route of the whole.
 # Their train steps are held card against CPU at depth 2 in fp32 beside
 # qwen3_4b's (hd 128, qk_norm) and whisper_large_v3's (attention not
 # causal, Sq != Skv); hymba_1_5b's at PARITY_WINDOW, below its sequence;
 # deepseek_moe_16b's (one dense, one MoE layer) at C 15, every grouped
 # product of it on the fp32 grouped kernel, dx with w transposed
 TRAIN_PATHS = {"qwen2_0_5b_train": ("qwen2_0_5b", 8, 512, 1e-3, None),
-               "mamba2_1_3b_train": ("mamba2_1_3b", 8, 512, 3e-4, None),
-               "hymba_1_5b_train": ("hymba_1_5b", 2, 2048, 3e-4, None),
+               "mamba2_1_3b_train": ("mamba2_1_3b", 8, 512, 3e-4, 24),
+               "hymba_1_5b_train": ("hymba_1_5b", 2, 2048, 3e-4, 16),
                "deepseek_moe_16b_train": ("deepseek_moe_16b", 8, 512, 3e-4,
                                           4)}
 TRAIN_PARITY = ("qwen2_0_5b", "qwen3_4b", "whisper_large_v3", "mamba2_1_3b",
@@ -871,13 +891,17 @@ def phase_kernels(torch, dev):
     # llama4_maverick_400b_a17b's (128 experts, top-1, d 5120, f 8192; its
     # 10.7 GB of gate weights) at C 8 and at C 80, a prefill of 8192 tokens;
     # and a rank's of the mesh phase, its E / M = 32 experts at C x M = 1536
-    # rows (MESH_CAPACITY_ROWS), which its all_to_all gathers
+    # rows (MESH_CAPACITY_ROWS), which its all_to_all gathers, and under
+    # the TP/EP recipe at C x M x D = 3072 rows (MESH_TP_ROWS, the buffer
+    # gathered over data too) on its f / D = 704 hidden units
     for dtype in (torch.float32, torch.bfloat16):
         es = torch.tensor([], dtype=dtype).element_size()
         for E, C, K, N in ((64, 8, 2048, 1408), (64, 8, 1408, 2048),
                            (64, 235, 2048, 1408), (64, 235, 1408, 2048),
                            (32, MESH_CAPACITY_ROWS, 2048, 1408),
                            (32, MESH_CAPACITY_ROWS, 1408, 2048),
+                           (32, MESH_TP_ROWS, 2048, MESH_TP_FF),
+                           (32, MESH_TP_ROWS, MESH_TP_FF, 2048),
                            (128, 8, 5120, 8192), (128, 80, 5120, 8192)):
             x = randn(E, C, K, dtype=dtype)
             w = randn(E, K, N, dtype=dtype, scale=K ** -0.5)
@@ -906,7 +930,8 @@ def phase_kernels(torch, dev):
     # gate/up (d 2048 -> f 1408) and down (f -> d) at its training capacity
     # (8 x 512 tokens: C 480) and at C 235 (a served prefill's, which takes
     # the pad), in bf16; at train_parity's C 15 (2 x 64 tokens) in fp32; at
-    # a mesh rank's 32 experts of 1536 rows in fp32 and bf16; and
+    # a mesh rank's 32 experts of 1536 rows in fp32 and bf16, and a TP/EP
+    # rank's of 3072 rows on 704 hidden units; and
     # llama4_maverick_400b_a17b's gate (128 experts, 5120 -> 8192) at C 80.
     # The bytes: x, dy and the gradient once (C unpadded); the operations
     # 2 E C K N; the library torch.bmm on the kernel's views
@@ -933,6 +958,10 @@ def phase_kernels(torch, dev):
                               *((dt, 32, MESH_CAPACITY_ROWS, K, N)
                                 for dt in (torch.float32, torch.bfloat16)
                                 for K, N in ((2048, 1408), (1408, 2048))),
+                              *((dt, 32, MESH_TP_ROWS, K, N)
+                                for dt in (torch.float32, torch.bfloat16)
+                                for K, N in ((2048, MESH_TP_FF),
+                                             (MESH_TP_FF, 2048))),
                               (torch.bfloat16, 128, 80, 5120, 8192)):
         es = torch.tensor([], dtype=dtype).element_size()
         n_bytes = es * (E * C * K + E * C * N + E * K * N)
@@ -1961,6 +1990,18 @@ MESH_TIMEOUT_S, MESH_COLLECTIVE_TIMEOUT_S = 240, 180
 # fp32, batch 4 against a cache of 1024 slots (512 a model rank), the token
 # at position 700, on the second model rank's slice
 MESH_DECODE_BATCH, MESH_DECODE_SEQ, MESH_DECODE_POS = 4, 1024, 700
+# the mesh phase's TP/EP forward: mesh_config's model with every leaf cut
+# by param_rules(mesh, fsdp=False) under moe_ff_axis "data": a rank's
+# grouped products take its dispatch buffer gathered over data, C x M x D
+# = 3072 rows, on its 704 of the 1408 hidden units of its 32 experts
+MESH_TP_ROWS, MESH_TP_FF = MESH_CAPACITY_ROWS * MESH[0], 1408 // MESH[0]
+# the meshed engine: qwen2_0_5b at the decode check's depth, fp32, batch 4
+# at max_seq 256, prompts of these lengths (tokens from the seed; the
+# longest's 128 positions split over the model axis, so prefill runs K2
+# with each shard's offset), 8 new tokens each
+MESH_SERVE_BATCH, MESH_SERVE_MAX_SEQ, MESH_SERVE_NEW = 4, 256, 8
+MESH_SERVE_LENGTHS = (128, 71, 96, 64)
+SERVE_COUNTS = ("prefills", "decode_steps", "tokens_out")
 # the pipeline check in the mesh phase's world: 4 stages over a "pod" axis
 # of its 4 ranks, each one layer of qwen2_0_5b at full width; 8
 # microbatches of 1 x 512 (bubble fraction 3 / 11)
@@ -2038,6 +2079,28 @@ def mesh_decode_inputs(torch, bundle):
     return caches, token
 
 
+def mesh_serve_prompts(cfg):
+    """The meshed engine's prompts (``MESH_SERVE_LENGTHS``), from the
+    seed."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 17)
+    return [rng.integers(0, cfg.vocab_size - 1, n).astype(np.int32)
+            for n in MESH_SERVE_LENGTHS]
+
+
+def mesh_serve(bundle, params, device):
+    """The meshed engine's run (``MESH_SERVE_*``) of ``bundle`` with
+    ``params``, meshed by the caller's mesh context or not: the engine and
+    its requests."""
+    from repro_torch.serve import EngineConfig, ServeEngine
+    eng = ServeEngine(bundle, params, EngineConfig(
+        batch_size=MESH_SERVE_BATCH, max_seq=MESH_SERVE_MAX_SEQ),
+        device=device)
+    for prompt in mesh_serve_prompts(bundle.cfg):
+        eng.submit(prompt, max_new_tokens=MESH_SERVE_NEW)
+    return eng, eng.run()
+
+
 def mesh_scan_inputs(torch, dtype):
     """K4's long-memory inputs at ``MESH_SCAN``, the same on every rank."""
     import torch.nn.functional as F
@@ -2078,8 +2141,11 @@ def phase_mesh(torch, dev):
     sharded step's launches and peak too, its loss and aux loss within
     2e-2 (1 + |ref|) of the fp32 unsharded step's (the same weights
     rounded).  The rank's own kernel shapes (its grouped products, its scan
-    shard) are held against their plain versions in the kernels phase.  The ranks share one card: their
-    times are no speed figure."""
+    shard) are held against their plain versions in the kernels phase.
+    Then the forward under the TP/EP recipe against the same logits, and
+    a ``ServeEngine`` over the mesh (``mesh_serve``) against the unsharded
+    engine run here first: the same tokens and counts.  The ranks share
+    one card: their times are no speed figure."""
     import multiprocessing as mp
     import socket
     from repro_torch.kernels import ops
@@ -2124,7 +2190,15 @@ def phase_mesh(torch, dev):
                                         caches, token, MESH_DECODE_POS)
     torch.save({"logits": logits.cpu(), "caches": _to(caches, "cpu")},
                work / "decode.pt")
-    del dbundle, caches, token, logits
+    del caches, token, logits
+    # the unsharded engine (its decode steps replays of its graph)
+    eng, reqs = mesh_serve(dbundle, dbundle.init(SEED, device="cuda"),
+                           "cuda")
+    (work / "serve.json").write_text(json.dumps({
+        "tokens": [r.out_tokens for r in reqs],
+        "stats": {k: eng.stats[k] for k in SERVE_COUNTS},
+        "replays": eng.decoder.replays}))
+    del dbundle, eng, reqs
     free(torch)
     ref_s = time.perf_counter() - t_phase
 
@@ -2359,6 +2433,71 @@ def _mesh_rank(rank, world, port, work):
         del local, state, new, step, batch, lbatch, metrics
         torch.cuda.empty_cache()
 
+    # the TP/EP recipe's forward (fp32): every leaf cut by
+    # param_rules(mesh, fsdp=False), so no weight is gathered over data and
+    # each rank holds E / M experts of f / D hidden units; the MoE layer
+    # gathers its dispatch buffer over data, runs the three grouped
+    # products on its f-shard (MESH_TP_ROWS rows, the kernels phase's TP
+    # shape) and reduce-scatters the partial outputs.  Against the
+    # unsharded logits at 2e-4 (1 + |ref|), as the fsdp forward
+    from repro_torch.roofline import collective_bytes
+    cfg = mesh_config("float32")
+    bundle = build(cfg)
+    specs = shd.param_specs(bundle.param_logical_axes(),
+                            shd.param_rules(mesh, fsdp=False))
+    local = shd.shard_tree(bundle.init(SEED, device="cuda"), specs, mesh)
+    torch.cuda.empty_cache()
+    batch = mesh_batch(torch, cfg)
+    lbatch = shd.shard_tree(batch, shd.batch_specs(batch, mesh), mesh)
+    wg = [t for k, t in convert.flatten(local).items()
+          if k.endswith("moe/wg")][0][0]  # the MoE stack's one layer
+    C = _capacity(lbatch["tokens"].numel() // M, cfg.top_k, cfg.n_experts,
+                  cfg.capacity_factor)
+    set_mesh_context(mesh, shd.batch_axes(mesh), moe_ff_axis="data",
+                     fsdp=False)
+    coll.reset_stats()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        logits = bundle.forward(local, lbatch)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    got = counts()
+    clear_mesh_context()
+    want = torch.load(work / "logits.pt", mmap=True)
+    rows = slice(coords["data"] * logits.shape[0],
+                 (coords["data"] + 1) * logits.shape[0])
+    err, ok = close(logits.cpu(), want[rows], 2e-4)
+    # a dense layer's 7 products, a MoE layer's 11 (its 3 grouped ones on
+    # the fp32 grouped kernel), the unembedding; each attention once, at
+    # its shard's offset
+    tp_expect = {"streamed_matmul": 7 + 11 + 1,
+                 "streamed_matmul_fp32_grouped": 3,
+                 "flash_attention": 2, "offset_flash_attention": 2}
+    out["tp_forward"] = {
+        "recipe": "tp", "moe_ff_axis": "data",
+        "expert_weight_shard": list(wg.shape), "grouped_rows": C * M * D,
+        "max_abs_err": err, "wall_ms": wall_ms,
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": {k: got[k] for k in tp_expect},
+        "expected_launches": tp_expect,
+        "collective_bytes": collective_bytes(),
+        "collectives": coll.stats_line()}
+    checks["tp_forward"] = {
+        "ok": ok and out["tp_forward"]["launches"] == tp_expect
+        and list(wg.shape) == [cfg.n_experts // M, cfg.d_model, MESH_TP_FF]
+        and C * M * D == MESH_TP_ROWS
+        and out["tp_forward"]["collective_bytes"]["reduce-scatter"] > 0,
+        "rule": "|TP sharded - unsharded| <= 2e-4 (1 + |unsharded|); K1 19 "
+                "(3 grouped at the kernels phase's TP shape), K2 2 with "
+                "an offset; the partial outputs reduce-scattered"}
+    for k in ("streamed_matmul", "flash_attention"):
+        out["launches"][k] += got[k]
+    del local, batch, lbatch, logits, want, wg
+    torch.cuda.empty_cache()
+
     # one decode step over caches cut by cache_specs: split-KV over the
     # model axis (K3 with its lse on each rank's slice, the ranks' partial
     # softmaxes combined), against the unsharded step of the same weights,
@@ -2413,7 +2552,63 @@ def _mesh_rank(rank, world, port, work):
                 "the rank's cache block; K1 7 a layer + 1, K3 1 a layer"}
     for k in expect:
         out["launches"][k] += got[k]
-    del dbundle, dlocal, lcaches, logits, ref
+    del dlocal, lcaches, logits, ref
+    torch.cuda.empty_cache()
+
+    # the engine over the mesh (mesh_serve): the parameters cut by the fsdp
+    # rules, the decode caches by cache_specs (split-KV, 128 of the 256
+    # slots a model rank), prefill on the rank's 2 rows of the batch (K2 at
+    # each sequence shard's offset), each step eager (no graph: its gloo
+    # collectives) and its greedy tokens gathered over data.  Every
+    # request's tokens and the counts are the unsharded engine's (its
+    # graph's, in the parent); launches: K1 7 a layer + 1 a forward, K2 1 a
+    # layer a prefill, K3 1 a layer a step
+    slocal = shd.shard_tree(dbundle.init(SEED, device="cuda"), shd.param_specs(
+        dbundle.param_logical_axes(), shd.param_rules(mesh)), mesh)
+    set_mesh_context(mesh, shd.batch_axes(mesh), cache_seq=MESH_SERVE_MAX_SEQ)
+    try:
+        coll.reset_stats()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        eng, reqs = mesh_serve(dbundle, slocal, "cuda")
+        torch.cuda.synchronize()
+        got = counts()
+    finally:
+        clear_mesh_context()
+    ref = json.loads((work / "serve.json").read_text())
+    steps = MESH_SERVE_NEW - 1
+    expect, _, _ = expected_launches(dbundle.cfg, 1, steps, 0, 0)
+    expect = {k: n for k, n in expect.items() if n}
+    expect["offset_flash_attention"] = expect["flash_attention"]
+    tokens = [r.out_tokens for r in reqs]
+    out["serve_meshed"] = {
+        "model": dbundle.cfg.name, "batch": MESH_SERVE_BATCH,
+        "max_seq": MESH_SERVE_MAX_SEQ, "prompts": list(MESH_SERVE_LENGTHS),
+        "new_tokens": MESH_SERVE_NEW,
+        "cache_slots": list(eng.decoder.caches[0]["b0"]["k"].shape),
+        "tokens_equal": tokens == ref["tokens"],
+        "stats": {k: eng.stats[k] for k in SERVE_COUNTS},
+        "unsharded_stats": ref["stats"],
+        "unsharded_replays": ref["replays"],
+        "graph": eng.decoder.graph is not None,
+        "replays": eng.decoder.replays,
+        "prefill_s": eng.stats["prefill_s"], "decode_s": eng.stats["decode_s"],
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": {k: got[k] for k in expect}, "expected_launches": expect,
+        "collectives": coll.stats_line()}
+    checks["serve_meshed"] = {
+        "ok": out["serve_meshed"]["tokens_equal"]
+        and out["serve_meshed"]["stats"] == ref["stats"]
+        and ref["replays"] == steps and not out["serve_meshed"]["graph"]
+        and eng.decoder.replays == 0
+        and out["serve_meshed"]["launches"] == expect,
+        "rule": "every request's tokens and the engine's counts equal the "
+                "unsharded engine's; no graph; K1 7 a layer + 1 a forward, "
+                "K2 1 a layer a prefill at its offset, K3 1 a layer a step"}
+    for k in ("streamed_matmul", "flash_attention", "decode_attention"):
+        out["launches"][k] += got[k]
+    del dbundle, slocal, eng, reqs
     torch.cuda.empty_cache()
 
     # K4's sequence-parallel scan over the data axis (the model ranks of a

@@ -54,8 +54,12 @@ nothing here: the port shards its activations by the explicit collectives
 of ``parallel/collectives.py`` at the places the JAX package's
 ``shard_map``s and constraints sit (``models/attention.py``'s
 ``attention_shard_mode``, ``models/moe.py``, ``models/lm.py``'s gathers).
-``--recipe tp`` (the TP/EP recipe, ``moe_ff_axis="data"``) is not ported:
-``set_mesh_context`` raises for it.
+``--recipe tp`` is the TP/EP recipe: params and state cut by
+``param_rules(mesh, fsdp=False)`` (nothing over data but the experts'
+hidden dim) under ``set_mesh_context(..., moe_ff_axis="data",
+fsdp=False)``; its MoE layer computes the unsharded function
+(``models/moe.py``), where the reference's psum over data does not.  Its
+cells write ``recipe: "tp"``; ``--tag`` keeps their files apart.
 
 Results go to ``$DRYRUN_RESULTS``, by default ``results/dryrun_torch/`` at
 the root of the checkout.
@@ -130,7 +134,8 @@ def _lower_step(cfg, shape, mesh, opt_cfg, recipe: str = "fsdp"):
     (the decode caches) or None.
 
     recipe: "fsdp" (the paper's baseline: params sharded over data and
-    model); "tp" (TP/EP only) raises in ``set_mesh_context``.
+    model); "tp" (TP/EP only: params replicated over data but the experts'
+    hidden dim, which ``moe_ff_axis="data"`` shards).
     """
     import torch
 
@@ -141,13 +146,14 @@ def _lower_step(cfg, shape, mesh, opt_cfg, recipe: str = "fsdp"):
     from ..train.state import init_state, state_logical_axes
 
     bundle = build(cfg)
-    rules = shd.param_rules(mesh, fsdp=(recipe == "fsdp"))
+    fsdp = recipe == "fsdp"
+    rules = shd.param_rules(mesh, fsdp=fsdp)
     param_axes = bundle.param_logical_axes()
     pspecs = shd.param_specs(param_axes, rules)
     params = bundle.init(0, device="meta")
     decode = shape.kind == "decode"
     set_mesh_context(mesh, shd.batch_axes(mesh),
-                     moe_ff_axis="data" if recipe == "tp" else None,
+                     moe_ff_axis=None if fsdp else "data", fsdp=fsdp,
                      cache_seq=shape.seq_len if decode else None)
 
     if shape.kind == "train":
@@ -322,7 +328,9 @@ def main(argv=None) -> int:
                     help="also count the step's FLOPs at the two "
                          "calibration depths and fit to full depth")
     ap.add_argument("--recipe", default="fsdp", choices=["fsdp", "tp"],
-                    help="tp (the TP/EP recipe) is not ported and raises")
+                    help="fsdp: params over data and model (ZeRO-3); "
+                         "tp: the TP/EP recipe, params over model and the "
+                         "experts' hidden dim over data")
     ap.add_argument("--opt-int8", action="store_true")
     ap.add_argument("--attn-shard", default=None,
                     choices=[None, "auto", "heads", "seq", "replicated"])
@@ -349,7 +357,7 @@ def main(argv=None) -> int:
                 cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
                        "--arch", a, "--shape", s,
                        "--multi-pod", "yes" if mp else "no"]
-                for flag in ("tag", "layers"):
+                for flag in ("tag", "layers", "recipe"):
                     if getattr(args, flag):
                         cmd += [f"--{flag}", str(getattr(args, flag))]
                 if args.calibrate:

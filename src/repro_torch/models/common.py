@@ -21,35 +21,58 @@ _RECOMPUTE = {"on": True}
 # ---------------------------------------------------------------------------
 
 _MESH_CTX: Dict[str, Any] = {"mesh": None, "data_spec": ("data",),
-                             "model_axis": "model", "cache_seq": None}
+                             "model_axis": "model", "moe_ff_axis": None,
+                             "fsdp": True, "cache_seq": None}
 
 
 def set_mesh_context(mesh, data_spec=("data",), model_axis="model",
-                     moe_ff_axis=None, *, cache_seq=None) -> None:
+                     moe_ff_axis=None, *, fsdp=True, cache_seq=None) -> None:
     """Install the ``DeviceMesh`` that the sharded modules (attention, MoE,
     the layer stack's gathers, the decode step) run over, its ranks holding
-    shards cut by ``parallel.sharding.param_rules`` (the fsdp recipe) and
+    shards cut by ``parallel.sharding.param_rules(mesh, fsdp=fsdp)`` and
     decode caches cut by ``parallel.sharding.cache_specs``.  ``data_spec``
     is the tuple of mesh axes that shard the batch dim (("pod","data") on
-    the multi-pod mesh).  ``cache_seq``: the ``max_seq`` the decode caches
-    were made with (``init_cache``), from which a decode step knows whether
-    ``cache_specs`` split a KV cache's slots over the model axis (a rank's
-    slice of a split cache and a whole cache of a non-dividing length can
-    have the same local shape); a decode step over a model axis of more
-    than one rank needs it.  ``moe_ff_axis``, the JAX package's TP/EP
-    recipe (the expert hidden dim over a mesh axis, for its dry-run's
-    lowerings), is not ported: a value raises."""
+    the multi-pod mesh).  ``fsdp``: the rules' recipe, True for the ZeRO-3
+    baseline, False for the TP/EP recipe (no leaf sharded over data but
+    the experts' hidden dim).  ``moe_ff_axis``: the mesh axis that the TP/EP
+    recipe shards the experts' hidden dim over ("data", as its rules put
+    "moe_ff"), where the expert weights stay and the MoE layer moves its
+    dispatch buffer instead (``models/moe.py``); it needs ``fsdp=False``,
+    as the JAX package's recipes pair them.  ``cache_seq``: the ``max_seq``
+    the decode caches were made with (``init_cache``), from which a decode
+    step knows whether ``cache_specs`` split a KV cache's slots over the
+    model axis (a rank's slice of a split cache and a whole cache of a
+    non-dividing length can have the same local shape); a decode step over
+    a model axis of more than one rank needs it."""
     if moe_ff_axis is not None:
-        raise NotImplementedError("moe_ff_axis (the TP/EP recipe) is not "
-                                  "ported: shard with the fsdp recipe")
+        if fsdp:
+            raise ValueError("moe_ff_axis (the TP/EP recipe) with the fsdp "
+                             "rules: pass fsdp=False")
+        if moe_ff_axis != "data":
+            raise ValueError(f"moe_ff_axis {moe_ff_axis!r}: the TP/EP rules "
+                             "shard the experts' hidden dim over 'data'")
     _MESH_CTX["mesh"] = mesh
     _MESH_CTX["data_spec"] = tuple(data_spec)
     _MESH_CTX["model_axis"] = model_axis
+    _MESH_CTX["moe_ff_axis"] = moe_ff_axis
+    _MESH_CTX["fsdp"] = bool(fsdp)
     _MESH_CTX["cache_seq"] = cache_seq
 
 
 def get_mesh_context():
     return (_MESH_CTX["mesh"], _MESH_CTX["data_spec"], _MESH_CTX["model_axis"])
+
+
+def get_moe_ff_axis():
+    """``set_mesh_context``'s ``moe_ff_axis``: None outside the TP/EP
+    recipe."""
+    return _MESH_CTX["moe_ff_axis"]
+
+
+def get_fsdp() -> bool:
+    """``set_mesh_context``'s ``fsdp``: the recipe of the rules that cut
+    the rank's parameter shards."""
+    return _MESH_CTX["fsdp"]
 
 
 def get_cache_seq():
@@ -59,6 +82,8 @@ def get_cache_seq():
 
 def clear_mesh_context() -> None:
     _MESH_CTX["mesh"] = None
+    _MESH_CTX["moe_ff_axis"] = None
+    _MESH_CTX["fsdp"] = True
     _MESH_CTX["cache_seq"] = None
 
 

@@ -35,8 +35,10 @@ gathered for a consumer replicated over it (the backward takes the slice);
 one sharded over a data axis for a consumer that differs per data shard
 (the backward sums over the data shards).  The expert weights stay local
 over the model axis (expert parallelism, ``models/moe.py``) and are
-gathered over data only.  The loss is the global token mean: each rank's
-mean over its data shard, averaged over the data axes.
+gathered over data only.  Under the TP/EP recipe (``set_mesh_context(...,
+moe_ff_axis="data", fsdp=False)``) no leaf is sharded over data but the
+experts' hidden dim, which stays local too.  The loss is the global token
+mean: each rank's mean over its data shard, averaged over the data axes.
 """
 from __future__ import annotations
 
@@ -51,7 +53,8 @@ from ..parallel import collectives as coll
 from .attention import DecodePosition
 from .blocks import block_axes, block_forward, block_init, init_block_cache
 from .common import (Params, apply_norm, copy_tree_, dtype_of, embed_init,
-                     empty_stack, get_mesh_context, get_recompute,
+                     empty_stack, get_fsdp, get_mesh_context,
+                     get_moe_ff_axis, get_recompute,
                      layer_slice, map_tree, norm_axes, norm_init,
                      softmax_cross_entropy, stack_trees, stacked_axes)
 
@@ -106,14 +109,18 @@ def param_axes(cfg) -> Dict[str, Any]:
 
 
 def _gather_leaf(t: torch.Tensor, axes: Tuple) -> torch.Tensor:
-    """A leaf's local shard gathered to what the layer computes with: every
-    sharded dim but an expert dim, over the model axis for a replicated
-    consumer, over a data axis for one that differs per data shard."""
+    """A leaf's local shard, cut by the rules of the mesh context's recipe
+    (``common.get_fsdp``), gathered to what the layer computes with: every
+    sharded dim but an expert dim, and but the experts' hidden dim under
+    the TP/EP recipe's ``moe_ff_axis`` (the MoE layer computes on its
+    shard); over the model axis for a replicated consumer, over a data axis
+    for one that differs per data shard."""
     from ..parallel.sharding import logical_to_spec, param_rules, spec_axes
     mesh, _, model_axis = get_mesh_context()
-    spec = logical_to_spec(axes, param_rules(mesh))
+    spec = logical_to_spec(axes, param_rules(mesh, fsdp=get_fsdp()))
+    local = ("expert", "moe_ff") if get_moe_ff_axis() else ("expert",)
     for d, (name, entry) in enumerate(zip(axes, spec)):
-        if name == "expert":
+        if name in local:
             continue
         for a in reversed(spec_axes(entry)):
             gather = (coll.gather_to_replicated if a == model_axis

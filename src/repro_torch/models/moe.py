@@ -21,6 +21,24 @@ unsharded function; the port does the same by gathering the batch over
 the data axes, routing every token with the capacity of all of them, and
 keeping its data shard's rows.
 
+The TP/EP recipe (``set_mesh_context(..., moe_ff_axis="data",
+fsdp=False)``) also shards the experts' hidden dim f over the data axis:
+a rank holds wg/wu (E/M, d, f/D) and wd (E/M, f/D, d), and the expert
+weights never move.  The layer is still the unsharded function.  Over a
+model axis of M > 1 ranks each data rank's dispatch buffer holds its own
+tokens, so the buffer is all-gathered over the data axis along its slots,
+each rank runs the three grouped products on its f-shard for every data
+rank's slots, and the partial outputs are reduce-scattered back to the
+rank's own slots, summed in rank order; the backward reduce-scatters the
+buffer's cotangent and gathers the output's, so each expert shard's
+gradient is whole with no sum over data.  Over a model axis of one rank
+every data rank already routes every token (above), so the partial
+outputs are summed over the data axis with a psum whose backward sums the
+cotangents (each rank keeps other rows of the result).  The JAX package's
+recipe psums the partial outputs over data in both cases, which over a
+model axis of M > 1 adds up other data ranks' tokens: the port does not
+mirror that (ROADMAP.md, reference behaviours).
+
 Every step runs on the device with shapes fixed by the token count, so a
 captured decode step replays it: no boolean-mask indexing, ``nonzero`` or
 size read back to the host.  The scatter into the (E, C, d) dispatch
@@ -40,7 +58,7 @@ import torch.nn.functional as F
 from ..kernels import ops
 from ..parallel import collectives as coll
 from .attention import _linear
-from .common import Params, dense_init, get_mesh_context
+from .common import Params, dense_init, get_mesh_context, get_moe_ff_axis
 
 
 def moe_init(cfg, gen: torch.Generator, dtype, device) -> Params:
@@ -72,13 +90,25 @@ def moe_axes(cfg) -> Dict[str, tuple]:
 
 
 def _expert_ffn(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
-                wd: torch.Tensor) -> torch.Tensor:
+                wd: torch.Tensor, *, mesh=None, ff_axis: Optional[str] = None,
+                tokens_shared: bool = False) -> torch.Tensor:
     """x (E, C, d); wg/wu (E, d, f), wd (E, f, d): one grouped launch per
-    projection."""
+    projection.  With ``ff_axis`` (the TP/EP recipe) the weights hold this
+    rank's f-shard and the output is the unsharded one (the module
+    docstring): ``tokens_shared`` when every rank of the axis holds the same
+    x (a psum of the partial outputs), else x's slots are this rank's own
+    (gathered along C, and the partial outputs reduce-scattered back)."""
+    if ff_axis is not None and not tokens_shared:
+        x = coll.gather_for_local_use(x, mesh, ff_axis, 1)
     g = ops.grouped_matmul(x, wg)
     u = ops.grouped_matmul(x, wu)
     h = F.silu(g.float()).to(x.dtype) * u
-    return ops.grouped_matmul(h, wd)
+    y = ops.grouped_matmul(h, wd)
+    if ff_axis is None:
+        return y
+    if tokens_shared:
+        return coll.psum_for_local_use(y, mesh, ff_axis)
+    return coll.reduce_scatter(y, mesh, ff_axis, 1)
 
 
 def _capacity(n_tokens: int, top_k: int, n_experts: int, factor: float
@@ -89,12 +119,15 @@ def _capacity(n_tokens: int, top_k: int, n_experts: int, factor: float
 
 def _local_moe(cfg, x_flat: torch.Tensor, router_w: torch.Tensor,
                wg: torch.Tensor, wu: torch.Tensor, wd: torch.Tensor, *,
-               mesh=None, model_axis: Optional[str] = None
+               mesh=None, model_axis: Optional[str] = None,
+               ff_axis: Optional[str] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x_flat (T, d) -> (y (T, d), Switch aux loss) over this rank's T
     tokens.  With ``model_axis``, wg/wu/wd hold this rank's E / M experts
     and the dispatch buffer crosses the axis through ``all_to_all``;
-    otherwise every expert is local."""
+    otherwise every expert is local.  ``ff_axis``: the weights hold this
+    rank's shard of the hidden dim (``_expert_ffn``); without
+    ``model_axis`` every rank of it holds the same tokens."""
     T, d = x_flat.shape
     E, k = cfg.n_experts, cfg.top_k
     logits = ops.matmul(x_flat.float(), router_w)                # (T, E)
@@ -126,7 +159,8 @@ def _local_moe(cfg, x_flat: torch.Tensor, router_w: torch.Tensor,
     if model_axis is not None:
         # (E, C, d) -> (E/M, C*M, d): each rank receives its experts' slots
         buf = coll.all_to_all(buf, mesh, model_axis, 0, 1)
-    out_buf = _expert_ffn(buf, wg, wu, wd)
+    out_buf = _expert_ffn(buf, wg, wu, wd, mesh=mesh, ff_axis=ff_axis,
+                          tokens_shared=model_axis is None)
     if model_axis is not None:
         out_buf = coll.all_to_all(out_buf, mesh, model_axis, 1, 0)
 
@@ -144,6 +178,7 @@ def moe_forward(cfg, p: Params, x: torch.Tensor
     FFN."""
     B, S, d = x.shape
     mesh, data_spec, model_axis = get_mesh_context()
+    ff_axis = get_moe_ff_axis()
     M = (coll.axis_size(mesh, model_axis) if mesh is not None
          and model_axis in mesh.mesh_dim_names else 1)
     if M > 1:
@@ -154,7 +189,7 @@ def moe_forward(cfg, p: Params, x: torch.Tensor
             router = coll.copy_to_split(router, mesh, model_axis)
         y, aux = _local_moe(cfg, xl.reshape(-1, d), router, p["wg"],
                             p["wu"], p["wd"], mesh=mesh,
-                            model_axis=model_axis)
+                            model_axis=model_axis, ff_axis=ff_axis)
         aux = coll.pmean(aux, mesh, mesh.mesh_dim_names)
         y = y.reshape(xl.shape)
         if split_seq:
@@ -165,7 +200,7 @@ def moe_forward(cfg, p: Params, x: torch.Tensor
         for a in reversed(data_spec):  # minor axis first
             xg = coll.gather_for_local_use(xg, mesh, a, 0)
         y, aux = _local_moe(cfg, xg.reshape(-1, d), p["router"], p["wg"],
-                            p["wu"], p["wd"])
+                            p["wu"], p["wd"], mesh=mesh, ff_axis=ff_axis)
         y = y.reshape(xg.shape).narrow(
             0, coll.axes_index(mesh, data_spec) * B, B)
         # the same aux loss on every rank, so that the gradients' sum over

@@ -23,7 +23,13 @@ collective that its use needs:
   backward is the inverse all-to-all.
 * ``psum`` / ``pmean`` over one or more axes: the result is replicated, so
   the backward passes each rank's cotangent through (divided by the count
-  for ``pmean``).
+  for ``pmean``).  ``psum_for_local_use``: a sum that each rank then uses
+  differently (the TP/EP experts' partial products over tokens that every
+  rank holds, each keeping its own rows): the backward sums the cotangents
+  too.
+* ``reduce_scatter``: this rank's chunk of the sum over the axis (the
+  TP/EP experts' partial products back to the rank's own slots); the
+  backward all-gathers.
 * ``ppermute``: each rank's tensor to a partner (send / recv); the backward
   is the inverse permutation.
 
@@ -357,6 +363,30 @@ class _AllToAll(torch.autograd.Function):
                 None, None, None, None)
 
 
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.args = (mesh, axis, dim)
+        return _reduce_scatter_raw(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, dim = ctx.args
+        return gather_raw(g, mesh, axis, dim), None, None, None
+
+
+class _PsumForLocalUse(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.args = (mesh, axes)
+        return psum_raw(x, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes = ctx.args
+        return psum_raw(g, mesh, axes), None, None
+
+
 class _Psum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axes):
@@ -402,6 +432,15 @@ def copy_to_split(x: torch.Tensor, mesh, axes: Axes) -> torch.Tensor:
 def all_to_all(x: torch.Tensor, mesh, axis: str, split_axis: int,
                concat_axis: int) -> torch.Tensor:
     return _AllToAll.apply(x, mesh, axis, split_axis, concat_axis)
+
+
+def reduce_scatter(x: torch.Tensor, mesh, axis: str, dim: int
+                   ) -> torch.Tensor:
+    return _ReduceScatter.apply(x, mesh, axis, dim)
+
+
+def psum_for_local_use(x: torch.Tensor, mesh, axes: Axes) -> torch.Tensor:
+    return _PsumForLocalUse.apply(x, mesh, _axes(axes))
 
 
 def psum(x: torch.Tensor, mesh, axes: Axes) -> torch.Tensor:

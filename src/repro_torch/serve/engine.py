@@ -16,18 +16,32 @@ and passes the position as a device scalar.  The counterpart here is
 graph over buffers that live as long as the engine, and replayed for every
 token; on the CPU, which has no graphs, the same step runs eagerly.
 Prefill runs eagerly on both.
+
+Meshed or unmeshed, as the JAX engine: an engine made while
+``common.set_mesh_context`` holds a mesh serves over it, and that context
+must hold while it runs.  Its ``params`` are then the rank's local shards
+(``parallel.sharding.shard_tree``), its decode caches the rank's blocks of
+``init_cache(batch_size, max_seq)`` under ``cache_specs`` (split-KV over
+the model axis: the context's ``cache_seq`` must be ``max_seq``), and
+prefill takes the rank's rows of the padded batch (``batch_specs``).
+Prefill's caches come back whole over the model axis, and each rank seeds
+its block of the decode caches from them (``seed_decode_block_``).  Each
+step's greedy tokens are gathered over the data axes, so every rank
+appends the same tokens to the same requests and counts the same
+``stats``.  The meshed decode step runs eagerly on the card too
+(:class:`DecodeStep`).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 
 from ..kernels import ops
-from ..models.common import resolve_device
+from ..models.common import get_cache_seq, get_mesh_context, resolve_device
 
 
 @dataclasses.dataclass
@@ -104,6 +118,62 @@ def seed_decode_cache_(caches, prefill_caches) -> None:
         seed(d, s)
 
 
+def _split_dim(spec, dim: int, mesh) -> Tuple[int, int]:
+    """(blocks, this rank's index) of dim ``dim`` under ``spec``."""
+    from ..parallel import collectives as coll
+    from ..parallel.sharding import spec_axes
+    axes = spec_axes(spec[dim]) if dim < len(spec) else ()
+    n = 1
+    for a in axes:
+        n *= coll.axis_size(mesh, a)
+    return n, coll.axes_index(mesh, axes) if axes else 0
+
+
+def local_decode_cache(bundle, batch_size: int, max_seq: int, mesh, device):
+    """This rank's blocks of ``init_cache(batch_size, max_seq)`` under
+    ``cache_specs``, zeros, and the specs; the whole cache is never made."""
+    from ..models.common import map_tree
+    from ..parallel import sharding as shd
+    meta = bundle.init_cache(batch_size, max_seq, "meta")
+    specs = shd.cache_specs(meta, mesh)
+    caches = map_tree(lambda t: torch.zeros(t.shape, dtype=t.dtype,
+                                            device=device),
+                      shd.shard_tree(meta, specs, mesh))
+    return caches, specs
+
+
+def seed_decode_block_(caches, prefill_caches, specs, mesh) -> None:
+    """``seed_decode_cache_`` over a mesh: each leaf of ``caches`` is this
+    rank's block, under ``specs``, of the cache that ``seed_decode_cache``
+    makes from the prefill's caches, which hold the rank's data rows and
+    are whole over the model axis.  A K/V leaf split into blocks of S_l
+    slots gets the global slots [i S_l, (i+1) S_l) of the seeded cache:
+    slot g < n = min(S, S_l x blocks) holds the prompt's position S - n + g
+    (a ring's too), later slots zeros; an SSM state its block of heads; a
+    conv tail or a cross cache its rows as they are."""
+    def seed(dst, src, spec, name=None):
+        if isinstance(dst, dict):
+            for k in dst:
+                seed(dst[k], src[k], spec[k], k)
+            return
+        blocks, idx = _split_dim(spec, 2, mesh)
+        if name in ("k", "v"):
+            S_l = dst.shape[2]
+            n = min(src.shape[2], S_l * blocks)
+            lo, hi = idx * S_l, min((idx + 1) * S_l, n)
+            off = src.shape[2] - n
+            dst.zero_()
+            if hi > lo:
+                dst[:, :, :hi - lo] = src[:, :, off + lo:off + hi]
+            return
+        if blocks > 1:
+            src = src.narrow(2, idx * dst.shape[2], dst.shape[2])
+        dst.copy_(src)
+
+    for d, s, sp in zip(caches, prefill_caches, specs):
+        seed(d, s, sp)
+
+
 def pad_batch(cfg, prompts, batch_size: int, device):
     """The engine's prefill batch of ``prompts`` and its length S: tokens
     (batch_size, S) left-padded with token 0 to the longest prompt, and for
@@ -150,13 +220,29 @@ class DecodeStep:
     capture's counts, which launched nothing, are taken back out and kept
     as ``launches``, and every replay adds them again, so the counts still
     mean kernel launches made.  On the CPU the step runs eagerly.
+
+    Made under a mesh context (``common.set_mesh_context``), the caches are
+    this rank's blocks (``local_decode_cache``), the token this rank's
+    rows, and the step runs eagerly on the card as on the CPU: its
+    collectives, staged through host memory for gloo (ranks sharing a
+    card) and waited on by the host, cannot be captured into a graph.  The
+    presence of the mesh decides it; ``graph`` stays None and ``replays``
+    0, and the launch counts move as the eager step launches.
     """
 
     @torch.inference_mode()
     def __init__(self, bundle, params, batch: int, max_seq: int, device):
         self.bundle, self.params = bundle, params
         self.device = torch.device(device)
-        self.caches = bundle.init_cache(batch, max_seq, self.device)
+        self.mesh = get_mesh_context()[0]
+        self.cache_specs = None
+        if self.mesh is None:
+            self.caches = bundle.init_cache(batch, max_seq, self.device)
+        else:
+            self.caches, self.cache_specs = local_decode_cache(
+                bundle, batch, max_seq, self.mesh, self.device)
+            blocks, _ = _split_dim(_row_spec(batch, self.mesh), 0, self.mesh)
+            batch //= blocks
         self.token = torch.zeros((batch, 1), dtype=torch.long,
                                  device=self.device)
         self.pos = torch.zeros((), dtype=torch.int32, device=self.device)
@@ -164,7 +250,7 @@ class DecodeStep:
         self.graph = None
         self.launches = None  # the counts of one replay (ops.launch_counts)
         self.replays = 0
-        if self.device.type == "cuda":
+        if self.device.type == "cuda" and self.mesh is None:
             self._capture()
 
     def _step(self) -> None:
@@ -191,8 +277,13 @@ class DecodeStep:
     @torch.inference_mode()
     def start(self, prefill_caches, token: torch.Tensor, pos: int) -> None:
         """Seed the caches with a prefill's, in place, the token with its
-        greedy token (B, 1) and the position with the prompt length."""
-        seed_decode_cache_(self.caches, prefill_caches)
+        greedy token (B, 1) (over a mesh: the rank's rows of each) and the
+        position with the prompt length."""
+        if self.mesh is None:
+            seed_decode_cache_(self.caches, prefill_caches)
+        else:
+            seed_decode_block_(self.caches, prefill_caches, self.cache_specs,
+                               self.mesh)
         self.token.copy_(token)
         self.pos.fill_(pos)
 
@@ -208,15 +299,24 @@ class DecodeStep:
         return self.token
 
 
+def _row_spec(batch_size: int, mesh):
+    """``batch_specs``' spec of a (batch_size, 1) tensor."""
+    from ..parallel.sharding import batch_specs
+    return batch_specs({"t": torch.empty((batch_size, 1), device="meta")},
+                       mesh)["t"]
+
+
 class ServeEngine:
-    """Single-device engine over a ModelBundle.
+    """Engine over a ModelBundle, meshed or unmeshed (the module
+    docstring).
 
     ``device=None`` means the card: with no CUDA device it raises.  The
     engine's :class:`DecodeStep` (``decoder``) is made, and on the card
-    captured, when the engine is.  ``stats`` counts prefills, decode steps
-    and tokens, and the host-clock seconds of prefill and decode (each ends
-    in a copy of the tokens to the host, so the device work is inside the
-    time).
+    unmeshed captured, when the engine is.  ``stats`` counts prefills,
+    decode steps and tokens, and the host-clock seconds of prefill and
+    decode (each ends in a copy of the tokens to the host, so the device
+    work is inside the time).  Made under a mesh context, it raises unless
+    the context's ``cache_seq`` is ``ecfg.max_seq``.
     """
 
     def __init__(self, bundle, params, ecfg: EngineConfig, device=None):
@@ -225,6 +325,12 @@ class ServeEngine:
         self.ecfg = ecfg
         self.cfg = bundle.cfg
         self.device = resolve_device(device)
+        self.mesh = get_mesh_context()[0]
+        if self.mesh is not None and get_cache_seq() != ecfg.max_seq:
+            raise ValueError(
+                f"a meshed engine of max_seq {ecfg.max_seq} under a mesh "
+                f"context of cache_seq {get_cache_seq()}: set_mesh_context("
+                "..., cache_seq=max_seq) says how cache_specs cut its caches")
         self.queue: List[Request] = []
         self.stats: Dict[str, float] = {"prefills": 0, "decode_steps": 0,
                                         "tokens_out": 0, "prefill_s": 0.0,
@@ -241,17 +347,24 @@ class ServeEngine:
     @torch.inference_mode()
     def run(self, max_ticks: int = 64) -> List[Request]:
         """Process the queue to completion (or tick budget)."""
+        if get_mesh_context()[0] is not self.mesh:
+            raise RuntimeError("the mesh context changed since the engine "
+                               "was made")
         pending = [r for r in self.queue if not r.done]
         while pending and max_ticks > 0:
             reqs = pending[: self.ecfg.batch_size]
             t0 = time.perf_counter()
             batch, S = pad_batch(self.cfg, [r.prompt for r in reqs],
                                  self.ecfg.batch_size, self.device)
+            if self.mesh is not None:
+                from ..parallel.sharding import batch_specs, shard_tree
+                batch = shard_tree(batch, batch_specs(batch, self.mesh),
+                                   self.mesh)
             last_logits, caches = self.bundle.prefill(self.params, batch)
             tok = greedy(last_logits, self.cfg.vocab_size)
             self.decoder.start(caches, tok, S)
             del last_logits, caches
-            host = tok.cpu().numpy()
+            host = self._rows(tok).cpu().numpy()
             self.stats["prefills"] += 1
             self.stats["prefill_s"] += time.perf_counter() - t0
             for i, r in enumerate(reqs):
@@ -259,7 +372,7 @@ class ServeEngine:
             steps = max(r.max_new_tokens for r in reqs) - 1
             t0 = time.perf_counter()
             for _ in range(min(steps, max_ticks)):
-                host = self.decoder().cpu().numpy()
+                host = self._rows(self.decoder()).cpu().numpy()
                 self.stats["decode_steps"] += 1
                 for i, r in enumerate(reqs):
                     if len(r.out_tokens) < r.max_new_tokens:
@@ -271,3 +384,12 @@ class ServeEngine:
                 r.done = True
             pending = [r for r in self.queue if not r.done]
         return self.queue
+
+    def _rows(self, tok: torch.Tensor) -> torch.Tensor:
+        """Every row of the batch's tokens: over a mesh, ``tok`` (this
+        rank's rows) gathered over the data axes that split them."""
+        if self.mesh is None:
+            return tok
+        from ..parallel.sharding import gather_tree
+        return gather_tree({"t": tok}, {"t": _row_spec(
+            self.ecfg.batch_size, self.mesh)}, self.mesh)["t"]

@@ -99,14 +99,23 @@ def _params(workdir, job):
                                   device="cpu")
 
 
-def _sharded_setup(mesh, bundle, params, batch):
+def _set_recipe(mesh, job, **kw):
+    """The mesh context of the job's "recipe": "fsdp" (the default) or
+    "tp" (the TP/EP recipe, the experts' hidden dim over data)."""
     from repro_torch.models.common import set_mesh_context
     from repro_torch.parallel import sharding as shd
-    specs = shd.param_specs(bundle.param_logical_axes(),
-                            shd.param_rules(mesh))
+    tp = job.get("recipe", "fsdp") == "tp"
+    set_mesh_context(mesh, shd.batch_axes(mesh),
+                     moe_ff_axis="data" if tp else None, fsdp=not tp, **kw)
+    return shd.param_rules(mesh, fsdp=not tp)
+
+
+def _sharded_setup(mesh, bundle, params, batch, job=None):
+    from repro_torch.parallel import sharding as shd
+    rules = _set_recipe(mesh, job or {})
+    specs = shd.param_specs(bundle.param_logical_axes(), rules)
     local = shd.shard_tree(params, specs, mesh)
     lbatch = shd.shard_tree(batch, shd.batch_specs(batch, mesh), mesh)
-    set_mesh_context(mesh, shd.batch_axes(mesh))
     return specs, local, lbatch
 
 
@@ -122,28 +131,32 @@ def job_forward(workdir, mesh, job):
     from repro_torch.parallel import collectives as coll
     bundle = build(_cfg(job))
     _, local, lbatch = _sharded_setup(mesh, bundle, _params(workdir, job),
-                                      _batch(workdir, job))
+                                      _batch(workdir, job), job)
     out = bundle.forward(local, lbatch)
     clear_mesh_context()
     return {"logits": coll.gather_raw(out, mesh, "data", 0)}
 
 
 def job_moe(workdir, mesh, job):
-    """The MoE layer over the mesh: its experts over the model axis, the
-    tokens over data; with "grad", also the gradients of sum(y * ct) (ct
-    the batch file's cotangent) and, apart, of the aux loss: every
-    weight's summed over the data ranks, and the tokens', gathered."""
+    """The MoE layer over the mesh: its experts over the model axis (under
+    the "tp" recipe their hidden dim over data too), the tokens over data;
+    with "grad", also the gradients of sum(y * ct) (ct the batch file's
+    cotangent) and, apart, of the aux loss: every weight's summed over the
+    data ranks that do not shard it (``sum_over_data``) and gathered, and
+    the tokens', gathered."""
     import torch
     from repro_torch.models import moe
-    from repro_torch.models.common import (clear_mesh_context, map_tree,
-                                           set_mesh_context)
+    from repro_torch.models.common import clear_mesh_context, map_tree
     from repro_torch.parallel import collectives as coll
     from repro_torch.parallel import sharding as shd
+    from repro_torch.train.loop import sum_over_data
     cfg = _cfg(job)
     p = _params(workdir, job)
     inputs = load(workdir / job["batch"])
-    specs = {k: ("model", None, None) if k in ("wg", "wu", "wd")
-             else (None,) * v.dim() for k, v in p.items()}
+    ff = "data" if job.get("recipe") == "tp" else None
+    expert = {"wg": ("model", None, ff), "wu": ("model", None, ff),
+              "wd": ("model", ff, None)}
+    specs = {k: expert.get(k, (None,) * v.dim()) for k, v in p.items()}
     p = shd.shard_tree(p, specs, mesh)
     xl = shd.shard_tree({"x": torch.from_numpy(inputs["x"])},
                         {"x": ("data", None, None)}, mesh)["x"]
@@ -151,7 +164,7 @@ def job_moe(workdir, mesh, job):
     if grad:
         p = map_tree(lambda t: t.requires_grad_(True), p)
         xl.requires_grad_(True)
-    set_mesh_context(mesh, ("data",))
+    _set_recipe(mesh, job)
     y, aux = moe.moe_forward(cfg, p, xl)
     out = {"y": coll.gather_raw(y.detach(), mesh, "data", 0),
            "aux": aux.detach()}
@@ -163,10 +176,10 @@ def job_moe(workdir, mesh, job):
                           ("auxgrad", aux)):
             grads = torch.autograd.grad(loss, leaves, retain_graph=True,
                                         allow_unused=True)
-            for k, g in zip(p, grads):
-                g = torch.zeros_like(p[k]) if g is None else g
-                g = coll.psum_raw(g, mesh, "data")
-                out[f"{tag}/{k}"] = shd.gather_tree({k: g}, specs, mesh)[k]
+            gp = {k: torch.zeros_like(p[k]) if g is None else g
+                  for k, g in zip(p, grads)}
+            gp = shd.gather_tree(sum_over_data(gp, specs, mesh), specs, mesh)
+            out.update({f"{tag}/{k}": g for k, g in gp.items()})
             out[f"{tag}/x"] = coll.gather_raw(grads[-1], mesh, "data", 0)
     clear_mesh_context()
     return out
@@ -197,7 +210,7 @@ def job_grad(workdir, mesh, job):
     from repro_torch.train.loop import loss_and_grads, sum_over_data
     bundle = build(_cfg(job))
     specs, local, lbatch = _sharded_setup(
-        mesh, bundle, _params(workdir, job), _batch(workdir, job))
+        mesh, bundle, _params(workdir, job), _batch(workdir, job), job)
     loss, metrics, grads = loss_and_grads(bundle.loss, local, lbatch)
     grads = sum_over_data(grads, specs, mesh)
     clear_mesh_context()
@@ -284,6 +297,41 @@ def job_decode(workdir, mesh, job):
                     for k, v in convert.flatten(full).items()})
         out["cache_specs"] = np.array(json.dumps(
             {k: list(v) for k, v in _spec_items(cspecs)}))
+    return out
+
+
+def job_serve(workdir, mesh, job):
+    """A ``ServeEngine`` made under the mesh context (the job's "recipe",
+    ``cache_seq`` its "max_seq"), the parameters cut by the recipe's
+    rules: the job's "prompts" each for "new" tokens at "batch_size".
+    Every rank's request tokens (gathered: each must hold the same), the
+    engine's counts and its decode step's graph and replays."""
+    import torch
+    from repro_torch.models import build
+    from repro_torch.models.common import clear_mesh_context
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.serve import EngineConfig, ServeEngine
+    bundle = build(_cfg(job))
+    rules = _set_recipe(mesh, job, cache_seq=job["max_seq"])
+    try:
+        local = shd.shard_tree(_params(workdir, job), shd.param_specs(
+            bundle.param_logical_axes(), rules), mesh)
+        eng = ServeEngine(bundle, local, EngineConfig(
+            batch_size=job["batch_size"], max_seq=job["max_seq"]),
+            device="cpu")
+        for prompt in job["prompts"]:
+            eng.submit(np.asarray(prompt, np.int32),
+                       max_new_tokens=job["new"])
+        tokens = np.array([r.out_tokens for r in eng.run()], np.int64)
+    finally:
+        clear_mesh_context()
+    every = [None] * torch.distributed.get_world_size()
+    torch.distributed.all_gather_object(every, tokens)
+    out = {"tokens": tokens, "every_rank": np.stack(every),
+           "graph": np.int64(eng.decoder.graph is not None),
+           "replays": np.int64(eng.decoder.replays)}
+    out.update({f"stats/{k}": np.int64(eng.stats[k])
+                for k in ("prefills", "decode_steps", "tokens_out")})
     return out
 
 
@@ -443,7 +491,8 @@ def job_collectives(workdir, mesh, job):
 
 JOBS = {"forward": job_forward, "moe": job_moe, "ssd": job_ssd,
         "grad": job_grad, "step": job_step, "decode": job_decode, "tenants": job_tenants,
-        "pipeline": job_pipeline, "collectives": job_collectives}
+        "pipeline": job_pipeline, "collectives": job_collectives,
+        "serve": job_serve}
 
 
 def main(workdir, rank, world, port):

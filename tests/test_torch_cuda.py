@@ -212,6 +212,45 @@ def test_cuda_grouped_matmul_backward_matches_plain(card, C, K, N, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("K,N", [(2048, 704), (704, 2048)])
+def test_cuda_grouped_matmul_at_the_tp_rank_shape(card, K, N, dtype):
+    """A TP/EP rank's expert products at deepseek_moe_16b over chip_smoke's
+    2 x 2 mesh: E / M = 32 experts, C x M x D = 3072 rows (the dispatch
+    buffer gathered over data), the hidden dim's f / D = 704 shard (gate /
+    up, then down): y, dx = dy w^T and dw = x^T dy, one launch each on
+    their routes, against the plain versions; bf16 also within about one
+    bf16 rounding."""
+    tdt, tol = DTYPES[dtype]
+    E, C = 32, 3072
+    gen = torch.Generator(device=card).manual_seed(K + N)
+    x = torch.randn((E, C, K), generator=gen, device=card).to(tdt)
+    w = (torch.randn((E, K, N), generator=gen, device=card)
+         / K ** 0.5).to(tdt)
+    dy = (torch.randn((E, C, N), generator=gen, device=card)
+          / C ** 0.5).to(tdt)
+    routes = [grouped_route(E, C, N, K, tdt),
+              grouped_route(E, C, K, N, tdt, w_t=1),
+              grouped_route(E, K, N, C, tdt)]
+    xg, wg = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    ops.reset_launches()
+    y = ops.grouped_matmul(xg, wg)
+    y.backward(dy)
+    assert ops.LAUNCHES["streamed_matmul"] == 3
+    assert ROUTE_LAUNCHES == {r: routes.count(r) for r in ROUTE_LAUNCHES}
+    wants = (grouped_matmul_plain(x, w),
+             grouped_matmul_plain(dy, w.transpose(1, 2)),
+             grouped_matmul_plain(x.transpose(1, 2), dy))
+    for got, want in zip((y.detach(), xg.grad, wg.grad), wants):
+        assert got.shape == want.shape and got.dtype == tdt
+        _close(got, want, tol)
+        if dtype == "bfloat16":
+            np.testing.assert_allclose(got.float().cpu().numpy(),
+                                       want.float().cpu().numpy(),
+                                       rtol=1e-2, atol=5e-5)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("K,N", [(1004, 136), (1000, 50)])
 def test_cuda_grouped_matmul_raises_where_tma_cannot_map(card, K, N):
     """bf16 with K or N not a multiple of 8 has no grouped kernel: it
@@ -648,6 +687,54 @@ def test_cuda_graph_engine_gives_eager_tokens(card, arch, window):
         assert eng.decoder.replays == replays + 11
         assert [r.out_tokens for r in reqs] == _eager_tokens(
             bundle, params, prompts, ecfg, 12, card)
+
+
+@pytest.mark.cuda
+def test_cuda_decode_step_under_a_mesh_takes_no_graph(card):
+    """A ``DecodeStep`` made under a mesh context (a 1 x 1 mesh of a
+    one-rank gloo world here) runs its step eagerly on the card: no graph,
+    no replay, each step's kernel launches counted as they are made
+    (qwen2_0_5b at depth 2: K1 7 a layer + 1, K3 1 a layer), and the
+    tokens those of the unmeshed step's graph from the same prefill."""
+    import socket
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.common import (clear_mesh_context,
+                                           set_mesh_context)
+    bundle, params = _depth2(card, "qwen2_0_5b")
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, bundle.cfg.vocab_size - 1, n).astype(np.int32)
+               for n in (96, 40)]
+    batch, S = pad_batch(bundle.cfg, prompts, 2, card)
+    with torch.inference_mode():
+        logits, caches = bundle.prefill(params, batch)
+    tok = greedy(logits, bundle.cfg.vocab_size)
+    graphed = DecodeStep(bundle, params, 2, 128, card)
+    assert graphed.graph is not None
+    graphed.start(caches, tok, S)
+    want = [graphed().clone() for _ in range(4)]
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        set_mesh_context(make_test_mesh((1, 1)), ("data",), cache_seq=128)
+        step = DecodeStep(bundle, params, 2, 128, card)
+        assert step.mesh is not None
+        assert step.graph is None and step.launches is None
+        step.start(caches, tok, S)
+        ops.reset_launches()
+        got = [step().clone() for _ in range(4)]
+        torch.cuda.synchronize()
+        assert step.replays == 0
+        assert ops.LAUNCHES["streamed_matmul"] == 4 * (7 * 2 + 1)
+        assert ops.LAUNCHES["decode_attention"] == 4 * 2
+    finally:
+        clear_mesh_context()
+        dist.destroy_process_group()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.cuda

@@ -9,8 +9,11 @@ reference's keys, each rank's argument bytes the sum of the JAX leaves'
 ``NamedSharding(mesh, spec).shard_shape`` bytes on the same 16x16 mesh (a
 JAX process with 256 forced host devices, no compile), the analytic
 roofline fields bit-equal, and ``--calibrate``'s fit equal to the count at
-the cell's depth; and one small cell's collective bytes against XLA's
-while-aware parse.  Every port run is a subprocess that imports no jax.
+the cell's depth; the TP/EP recipe's cells (``--recipe tp``:
+deepseek_moe_16b ``train_4k``, qwen2_0_5b ``decode_32k``), their records
+with ``recipe: "tp"`` and their argument bytes the JAX shard shapes under
+``param_rules(mesh, fsdp=False)``; and one small cell's collective bytes
+against XLA's while-aware parse.  Every port run is a subprocess that imports no jax.
 """
 import dataclasses
 import json
@@ -49,6 +52,11 @@ CELLS = [("qwen2_0_5b", "train_4k", 3, True),
          ("mamba2_1_3b", "long_500k", 1, False),
          ("llama4_maverick_400b_a17b", "train_4k", 2, False),
          ("qwen2_7b", "long_500k", 1, False)]
+# the TP/EP recipe's cells (``--recipe tp``), at their calibration
+# depths' first: deepseek_moe_16b's train_4k (its experts' hidden dim over
+# data) and qwen2_0_5b's decode_32k (params over the model axis alone)
+TP_CELLS = [("deepseek_moe_16b", "train_4k", 2),
+            ("qwen2_0_5b", "decode_32k", 1)]
 # the reference's record keys (``src/repro/launch/dryrun.py:202-239``)
 CELL_KEYS = {"arch", "shape", "mesh", "kind", "status", "recipe",
              "compile_seconds", "chips", "memory", "full_cost",
@@ -138,9 +146,12 @@ def cells(tmp_path_factory):
                DRYRUN_RESULTS=str(wd))
     env.pop("XLA_FLAGS", None)
     procs = []
-    for arch, shape, layers, calibrate in CELLS:
+    runs = [(a, s, L, ["--calibrate"] if c else []) for a, s, L, c in CELLS]
+    runs += [(a, s, L, ["--recipe", "tp", "--tag", "tp"])
+             for a, s, L in TP_CELLS]
+    for arch, shape, layers, extra in runs:
         argv = ["--arch", arch, "--shape", shape, "--layers", str(layers)]
-        argv += ["--calibrate"] if calibrate else []
+        argv += extra
         code = ("import sys\nfrom repro_torch.launch.dryrun import main\n"
                 f"rc = main({argv!r})\n" + NO_JAX + "sys.exit(rc)\n")
         procs.append(subprocess.Popen(
@@ -149,8 +160,12 @@ def cells(tmp_path_factory):
     for p in procs:
         _, err = p.communicate(timeout=600)
         assert p.returncode == 0, err[-4000:]
-    return {(a, s): json.loads((wd / f"{a}--{s}--16x16.json").read_text())
-            for a, s, _, _ in CELLS}
+    out = {(a, s): json.loads((wd / f"{a}--{s}--16x16.json").read_text())
+           for a, s, _, _ in CELLS}
+    out.update({(a, s, "tp"): json.loads(
+        (wd / f"{a}--{s}--16x16-tp.json").read_text())
+        for a, s, _ in TP_CELLS})
+    return out
 
 
 def _ref_cfg(arch, layers):
@@ -166,7 +181,8 @@ def jax_argument_bytes(tmp_path_factory):
     """Each applicable cell's argument bytes per device on the JAX
     package's 16x16 mesh: the sum over the leaves of the step's arguments
     (train: the state and batch; decode: params, caches, token, pos) of
-    ``NamedSharding(mesh, spec).shard_shape``, in a process with 256
+    ``NamedSharding(mesh, spec).shard_shape`` under the cell's recipe's
+    ``param_rules`` (the TP cells' ``fsdp=False``), in a process with 256
     forced host devices; nothing is compiled."""
     out = tmp_path_factory.mktemp("dryrun_jax") / "bytes.json"
     script = textwrap.dedent("""
@@ -189,7 +205,7 @@ def jax_argument_bytes(tmp_path_factory):
             return sum(int(np.prod(NamedSharding(mesh, s).shard_shape(
                 l.shape))) * l.dtype.itemsize for l, s in zip(leaves, sp))
         res = {}
-        for arch, shape_name, layers in json.loads(sys.argv[2]):
+        for arch, shape_name, layers, recipe in json.loads(sys.argv[2]):
             cfg = get_config(arch)
             int8 = cfg.param_count() > 5e10  # at full depth, as run_cell
             kw = {"n_layers": layers}
@@ -198,7 +214,7 @@ def jax_argument_bytes(tmp_path_factory):
             cfg = dataclasses.replace(cfg, **kw)
             shape = SHAPES[shape_name]
             b = build(cfg)
-            rules = shd.param_rules(mesh)
+            rules = shd.param_rules(mesh, fsdp=recipe == "fsdp")
             ax = b.param_logical_axes()
             params = jax.eval_shape(lambda: b.init(jax.random.PRNGKey(0)))
             pspecs = shd.param_specs(ax, rules)
@@ -218,11 +234,12 @@ def jax_argument_bytes(tmp_path_factory):
                 n += nbytes({"t": specs["token"]},
                             shd.batch_specs({"t": specs["token"]}, mesh))
                 n += 4  # pos, replicated
-            res[f"{arch}--{shape_name}"] = n
+            res[f"{arch}--{shape_name}--{recipe}"] = n
         json.dump(res, open(sys.argv[1], "w"))
     """)
-    cells = [[a, s, L] for a, s, L, _ in CELLS if not (
+    cells = [[a, s, L, "fsdp"] for a, s, L, _ in CELLS if not (
         a == "qwen2_7b" and s == "long_500k")]
+    cells += [[a, s, L, "tp"] for a, s, L in TP_CELLS]
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=256")
     p = subprocess.run([sys.executable, "-c", script, str(out),
@@ -266,7 +283,39 @@ def test_cell_argument_bytes_match_jax_shard_shapes(cells,
                                                     jax_argument_bytes,
                                                     arch, shape, layers):
     assert cells[(arch, shape)]["memory"]["argument_size_in_bytes"] == \
-        jax_argument_bytes[f"{arch}--{shape}"]
+        jax_argument_bytes[f"{arch}--{shape}--fsdp"]
+
+
+@pytest.mark.parametrize("arch,shape,layers", TP_CELLS)
+def test_tp_cell_writes_the_reference_keys(cells, arch, shape, layers):
+    """``--recipe tp``: the reference's keys with ``recipe: "tp"``; the
+    train cell's experts' products reduce-scatter their partial outputs
+    over data (and gather no weight over it: its all-gathers are the
+    dispatch buffers' and the model axis')."""
+    cell = cells[(arch, shape, "tp")]
+    assert set(cell) == CELL_KEYS
+    assert cell["status"] == "ok" and cell["recipe"] == "tp"
+    assert cell["chips"] == 256 and set(cell["memory"]) == MEMORY_KEYS
+    assert set(cell["coll_full"]) == set(KINDS)
+    assert cell["full_cost"]["flops_per_device"] > 0
+    assert cell["opt"] == {"moment_dtype": "float32"}
+    if shape == "train_4k":
+        assert cell["coll_full"]["reduce-scatter"] > 0
+    else:
+        assert cell["memory"]["alias_size_in_bytes"] > 0
+
+
+@pytest.mark.parametrize("arch,shape,layers", TP_CELLS)
+def test_tp_cell_argument_bytes_match_jax_shard_shapes(
+        cells, jax_argument_bytes, arch, shape, layers):
+    """Each rank's blocks under ``param_rules(mesh, fsdp=False)`` are the
+    JAX leaves' shard shapes under the same rules; the TP cells hold more
+    bytes a rank than the fsdp ones (nothing but the experts' hidden dim
+    is cut over data)."""
+    got = cells[(arch, shape, "tp")]["memory"]["argument_size_in_bytes"]
+    assert got == jax_argument_bytes[f"{arch}--{shape}--tp"]
+    if (arch, shape) in cells:
+        assert got > cells[(arch, shape)]["memory"]["argument_size_in_bytes"]
 
 
 @pytest.mark.parametrize("arch,shape,layers",

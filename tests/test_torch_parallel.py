@@ -11,7 +11,12 @@ one decode step over caches cut by ``cache_specs`` (split-KV over the
 model axis: qwen2_0_5b's full cache with the token on each kind of slice
 and past the cache, hymba_1_5b's ring before and after it wraps,
 mamba2_1_3b's state split by heads, whisper_large_v3's self cache) against the port's unsharded step,
-which is held against JAX's ``decode_step``.  The JAX references run here, on 8 forced host devices (``tests/conftest.py``);
+which is held against JAX's ``decode_step``.  The TP/EP recipe
+(``param_rules(mesh, fsdp=False)``, ``moe_ff_axis="data"``): the MoE layer
+on (2, 4), (4, 2) and (8, 1) meshes and reduced deepseek_moe_16b's forward
+and gradients on (2, 4) and (4, 2) against the unsharded JAX function, on
+(1, 8) against JAX's own TP ``shard_map``, and JAX's TP output on (2, 4),
+which is not the unsharded function (not mirrored).  The JAX references run here, on 8 forced host devices (``tests/conftest.py``);
 inputs and outputs pass as numpy files.  And K2's plain version with a
 ``q_offset`` against JAX's ``chunked_attention`` at the shard's positions.
 """
@@ -202,6 +207,73 @@ def results(tmp_path_factory):
                  "params": "moe_8x1.npz", "batch": "moe_8x1_x.npz",
                  "mesh": [8, 1], "grad": True})
 
+    # the TP/EP recipe (the experts' hidden dim over data): the layer on
+    # (2, 4), (4, 2) and (8, 1) meshes against JAX's unsharded moe_forward
+    # and its gradients of sum(y * ct); the aux loss (per shard, or whole
+    # over a model axis of one) and its gradients against JAX's moe_forward
+    # meshed with the fsdp recipe; on (1, 8) against JAX's own TP
+    # shard_map, whose psum over one data rank is exact; and JAX's TP
+    # output on (2, 4), which is not the unsharded function
+    ref_cfg = dataclasses.replace(ref_reduce(ref_get_config(
+        "deepseek_moe_16b")), d_model=64, capacity_factor=16.0)
+    p, _ = moe_init(ref_cfg, jax.random.PRNGKey(8), jnp.float32)
+    x = jax.random.normal(jax.random.PRNGKey(9), (8, 16, 64), jnp.float32)
+    ct = jax.random.normal(jax.random.PRNGKey(10), (8, 16, 64), jnp.float32)
+    world.save(wd / "moe_tp.npz", {k: np.asarray(v) for k, v in p.items()})
+    world.save(wd / "moe_tp_x.npz", {"x": np.asarray(x),
+                                     "ct": np.asarray(ct)})
+
+    def moe_vjps(mesh_):
+        def fn(pp, xx):
+            (y, aux), vjp = jax.vjp(
+                lambda a, b: moe_forward(ref_cfg, a, b, mesh=mesh_), pp, xx)
+            return y, aux, vjp((ct, jnp.zeros_like(aux))), \
+                vjp((jnp.zeros_like(y), jnp.ones_like(aux)))
+        return fn
+
+    def flat_grads(vjps):
+        out = {}
+        for tag, (gp, gx) in zip(("grad", "auxgrad"), vjps):
+            out.update({f"{tag}/{k}": np.asarray(v) for k, v in gp.items()})
+            out[f"{tag}/x"] = np.asarray(gx)
+        return out
+
+    y_local, aux_local, *vjps = jax.jit(moe_vjps(None))(p, x)
+    tp_refs = {"local": (np.asarray(y_local), float(aux_local),
+                         flat_grads(vjps))}
+    tp_meshes = {"2x4": mesh, "4x2": make_test_mesh((4, 2),
+                                                    ("data", "model"))}
+    for tag, m in tp_meshes.items():  # the fsdp recipe's aux loss
+        with m:
+            _, aux, *vjps = jax.jit(moe_vjps(m))(p, x)
+        tp_refs[f"meshed_{tag}"] = (float(aux), flat_grads(vjps))
+    tp_specs = {"router": P(), "wg": P("model", None, "data"),
+                "wu": P("model", None, "data"), "wd": P("model", "data", None),
+                "shared_wg": P(None, "model"), "shared_wu": P(None, "model"),
+                "shared_wd": P("model", None)}
+    for tag, m in (("1x8", make_test_mesh((1, 8), ("data", "model"))),
+                   ("2x4", mesh)):
+        set_mesh_context(m, ("data",), moe_ff_axis="data")
+        try:
+            pm = {k: jax.device_put(v, NamedSharding(m, tp_specs[k]))
+                  for k, v in p.items()}
+            xm = jax.device_put(x, NamedSharding(m, P("data", None, None)))
+            with m:
+                y, _ = jax.jit(lambda pp, xx, m=m: moe_forward(
+                    ref_cfg, pp, xx, mesh=m))(pm, xm)
+            tp_refs[f"jax_tp_{tag}"] = np.asarray(y)
+        finally:
+            set_mesh_context(None, ("data",))  # moe_ff_axis back to None
+            clear_mesh_context()
+    refs["moe_tp"] = tp_refs
+    for shape in ((2, 4), (4, 2), (8, 1), (1, 8)):
+        jobs.append({"kind": "moe", "name": f"moe_tp_{shape[0]}x{shape[1]}",
+                     "arch": "deepseek_moe_16b", "recipe": "tp",
+                     "cfg": {"capacity_factor": 16.0,
+                             "param_dtype": "float32"},
+                     "params": "moe_tp.npz", "batch": "moe_tp_x.npz",
+                     "mesh": list(shape), "grad": True})
+
     # the scan at test_parallel.py:78-95's shapes, S 128 over 2 data ranks
     b, S, H, Pd, N = 1, 128, 4, 8, 16
     x = jax.random.normal(jax.random.PRNGKey(0), (b, S, H, Pd)) * 0.5
@@ -236,6 +308,31 @@ def results(tmp_path_factory):
         world.save(wd / f"{name}.npz", _flat(params))
         jobs.append({"kind": "grad", "name": name, "arch": arch, "cfg": over,
                      "params": f"{name}.npz", "batch": "tokens.npz"})
+
+    # the TP/EP recipe over a whole model: deepseek_moe_16b (no drops) on
+    # (2, 4) and (4, 2), its forward against JAX's unsharded forward and
+    # its gradients against jax.grad of the JAX package's loss meshed with
+    # the fsdp recipe (the unsharded function, the aux loss per shard as
+    # the port's), the (2, 4) one above
+    arch, over = "deepseek_moe_16b", {"capacity_factor": 16.0}
+    ref_cfg, _ = _cfgs(arch, over)
+    bundle = ref_build(ref_cfg)
+    params = bundle.init(jax.random.PRNGKey(3))
+    batch = {"tokens": jnp.asarray(tokens["tokens"])}
+    refs["forward_tp"] = np.asarray(bundle.forward(params, batch),
+                                    np.float32)
+    grad_fn = jax.value_and_grad(bundle.loss, has_aux=True)
+    (loss, _), grads = _meshed(tp_meshes["4x2"], grad_fn, bundle, params,
+                               batch)
+    refs["grad_tp_4x2"] = (float(loss), _flat(grads))
+    refs["grad_tp_2x4"] = refs[f"grad_{arch}"]
+    for shape in ((2, 4), (4, 2)):
+        tag = f"{shape[0]}x{shape[1]}"
+        for kind in ("forward", "grad"):
+            jobs.append({"kind": kind, "name": f"{kind}_tp_{tag}",
+                         "arch": arch, "cfg": over, "recipe": "tp",
+                         "params": f"grad_{arch}.npz", "batch": "tokens.npz",
+                         "mesh": list(shape)})
 
     for name, moments in (("step", "float32"), ("step_int8", "int8")):
         jobs.append({"kind": "step", "name": name, "arch": "llama3_2_1b",
@@ -346,6 +443,101 @@ def test_moe_model_axis_of_one_gradients_match_jax_grad(results):
         assert got[name].shape == w.shape, name
         err = np.abs(got[name] - w).max()
         assert err <= GRAD_TOL * max(np.abs(w).max(), 1e-12), (name, err)
+
+
+TP_MESHES = ["2x4", "4x2", "8x1"]
+
+
+def _assert_grads(got, want):
+    assert set(got) == set(want)
+    for name, w in want.items():
+        assert got[name].shape == w.shape, name
+        err = np.abs(got[name] - w).max()
+        assert err <= GRAD_TOL * max(np.abs(w).max(), 1e-12), (name, err)
+
+
+@pytest.mark.parametrize("tag", TP_MESHES)
+def test_tp_moe_matches_the_unsharded_function(results, tag):
+    """The TP/EP recipe's layer (each rank E / M experts of f / D hidden
+    units; the dispatch buffer gathered over data and the partial outputs
+    reduce-scattered, or over a model axis of one psummed) is JAX's
+    unsharded ``moe_forward``, and so are its gradients of sum(y * ct):
+    each expert shard's whole on its rank, the others' summed over the
+    data ranks, the tokens' gathered."""
+    refs, outs, _, _ = results
+    y_local, _, grads = refs["moe_tp"]["local"]
+    out = outs[f"moe_tp_{tag}"]
+    np.testing.assert_allclose(out["y"], y_local, rtol=FWD_TOL, atol=FWD_TOL)
+    np.testing.assert_allclose(out["y"], y_local, rtol=MOE_TOL, atol=MOE_TOL)
+    _assert_grads({k: v for k, v in out.items() if k.startswith("grad/")},
+                  {k: v for k, v in grads.items() if k.startswith("grad/")})
+
+
+@pytest.mark.parametrize("tag", TP_MESHES)
+def test_tp_moe_aux_loss_matches_jax(results, tag):
+    """The aux loss and its gradients: per shard over a model axis of more
+    than one rank, as JAX's moe_forward meshed with the fsdp recipe lays
+    it out; over (8, 1) the unsharded one (every token routed at once)."""
+    refs, outs, _, _ = results
+    aux, grads = (refs["moe_tp"]["local"][1:] if tag == "8x1"
+                  else refs["moe_tp"][f"meshed_{tag}"])
+    out = outs[f"moe_tp_{tag}"]
+    np.testing.assert_allclose(float(out["aux"]), aux, rtol=MOE_TOL)
+    assert np.abs(grads["auxgrad/router"]).max() > 0
+    _assert_grads({k: v for k, v in out.items() if k.startswith("auxgrad/")},
+                  {k: v for k, v in grads.items()
+                   if k.startswith("auxgrad/")})
+
+
+def test_tp_moe_on_one_data_rank_matches_jax_tp(results):
+    """On (1, 8) JAX's TP shard_map psums over one data rank, which is
+    exact: the port's layer is JAX's own TP output."""
+    refs, outs, _, _ = results
+    want = refs["moe_tp"]["jax_tp_1x8"]
+    np.testing.assert_allclose(outs["moe_tp_1x8"]["y"], want, rtol=FWD_TOL,
+                               atol=FWD_TOL)
+    np.testing.assert_allclose(want, refs["moe_tp"]["local"][0],
+                               rtol=FWD_TOL, atol=FWD_TOL)
+
+
+def test_jax_tp_recipe_is_not_the_unsharded_function(results):
+    """The reference's behaviour, recorded and not mirrored: on (2, 4) its
+    psum over data of the down-projection's partial products adds up
+    other data ranks' tokens, so its TP output is off the unsharded one
+    by far more than FWD_TOL, where the port's is within it."""
+    refs, outs, _, _ = results
+    y_local = refs["moe_tp"]["local"][0]
+    err = np.abs(refs["moe_tp"]["jax_tp_2x4"] - y_local).max()
+    print(f"JAX TP on (2, 4): max |TP - unsharded| {err:.4g}, max "
+          f"|unsharded| {np.abs(y_local).max():.4g}")
+    assert err > 10 * FWD_TOL, err
+    assert np.abs(outs["moe_tp_2x4"]["y"] - y_local).max() <= FWD_TOL
+
+
+@pytest.mark.parametrize("tag", ["2x4", "4x2"])
+def test_tp_forward_matches_jax_unsharded_forward(results, tag):
+    """Reduced deepseek_moe_16b's logits with every leaf cut by
+    ``param_rules(mesh, fsdp=False)`` (nothing over data but the experts'
+    hidden dim), under ``moe_ff_axis="data"``."""
+    refs, outs, _, _ = results
+    got, want = outs[f"forward_tp_{tag}"]["logits"], refs["forward_tp"]
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=FWD_TOL, atol=FWD_TOL)
+
+
+@pytest.mark.parametrize("tag", ["2x4", "4x2"])
+def test_tp_gradients_match_jax_grad(results, tag):
+    """The TP train step's gradients (``loss_and_grads``, then
+    ``sum_over_data``, which skips the expert leaves sharded over data)
+    against jax.grad of the unsharded loss whose aux loss is laid out per
+    shard as the port's (the JAX package's loss meshed with the fsdp
+    recipe on the same mesh)."""
+    refs, outs, _, _ = results
+    loss, ref = refs[f"grad_tp_{tag}"]
+    out = outs[f"grad_tp_{tag}"]
+    np.testing.assert_allclose(float(out["loss"]), loss, rtol=1e-5)
+    _assert_grads({k[len("grad/"):]: v for k, v in out.items()
+                   if k.startswith("grad/")}, ref)
 
 
 def test_seq_parallel_ssd_matches_serial(results):

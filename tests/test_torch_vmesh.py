@@ -141,11 +141,32 @@ def test_a_world_across_hosts_raises(monkeypatch):
     assert not torch.distributed.is_initialized()
 
 
-def test_the_tp_recipe_is_refused_by_the_mesh_context():
+@pytest.mark.parametrize("kw", [{}, {"fsdp": True},
+                                {"fsdp": False, "moe_ff_axis": "model"}])
+def test_moe_ff_axis_outside_the_tp_rules_is_refused(kw):
+    """The TP/EP recipe's ``moe_ff_axis`` goes with its rules
+    (``fsdp=False``, the experts' hidden dim over "data"), as the JAX
+    package's recipes pair them: under the fsdp rules, or over another
+    axis, the mesh context refuses it and stays unset."""
     from repro_torch.models.common import get_mesh_context, set_mesh_context
-    with pytest.raises(NotImplementedError, match="moe_ff_axis"):
-        set_mesh_context(object(), ("data",), moe_ff_axis="data")
+    kw = {"moe_ff_axis": "data", **kw}
+    with pytest.raises(ValueError, match="moe_ff_axis"):
+        set_mesh_context(object(), ("data",), **kw)
     assert get_mesh_context()[0] is None
+
+
+def test_the_tp_recipe_is_held_by_the_mesh_context():
+    from repro_torch.models.common import (clear_mesh_context, get_fsdp,
+                                           get_mesh_context, get_moe_ff_axis,
+                                           set_mesh_context)
+    mesh = object()
+    set_mesh_context(mesh, ("data",), moe_ff_axis="data", fsdp=False)
+    try:
+        assert get_mesh_context()[0] is mesh
+        assert get_moe_ff_axis() == "data" and get_fsdp() is False
+    finally:
+        clear_mesh_context()
+    assert get_moe_ff_axis() is None and get_fsdp() is True
 
 
 @pytest.fixture(scope="module")

@@ -37,7 +37,12 @@ exits non-zero):
                served prefill's ragged length
                (8 x 455 rows for the matmul, S 455 for flash attention), the
                wmma matmul kernel and its split-K reduce at two bf16 shapes
-               TMA cannot take, decode attention at served lengths, each
+               TMA cannot take, the matmul at the mesh phase's
+               tensor-parallel rank's blocks (deepseek_moe_16b over 2 model
+               ranks, 1024 rows: q 2048 -> 1024, o 1024 -> 2048, the MLP
+               2048 -> 5472 -> 2048, the shared experts 2048 -> 1408 ->
+               2048, the unembedding 2048 -> 51200; fp32 and bf16),
+               decode attention at served lengths, each
                with the length a host int and read from device memory (as
                the captured decode step passes it; also lengths 1, 64 and
                65, where most splits of the cluster are empty), and at hd
@@ -194,33 +199,39 @@ exits non-zero):
                bit-equal, the ratio and the ms of one compression;
 10. mesh    -- deepseek_moe_16b at full width, depth 2, fp32, capacity
                factor 16, batch 4 x 512, over a 2 x 2 tenant mesh that the
-               hypervisor places on 4 ranks (processes started with spawn
-               that share the one card through gloo, which NCCL refuses):
-               attention sharded by sequence (K2 with each shard's
-               offset), the experts over the model axis through the
-               all_to_all pair, every layer's weights gathered ZeRO-3
-               style; the logits and one make_train_step step against the
-               unsharded run on the card (its MoE aux loss the mesh's, the
-               mean of each rank's over its tokens), K4's
-               sequence-parallel scan over the data axis at mamba2_1_3b's
-               (1, 4096, 64, 64, 128) on long-memory inputs against the
-               scan of the whole sequence, fp32 and bf16, and one bf16
-               sharded step; per rank the placement, exact launch counts
-               (K1 and its grouped routes, K2 with and without an offset,
-               K4), each collective's bytes and transport, peak memory and
-               the step's wall ms (ranks sharing one card: no speed
-               figure) (``phase_mesh``); one split-KV decode step of
-               qwen2_0_5b at depth 2, fp32, batch 4, over caches of 1024
-               slots cut by cache_specs (512 a model rank, the token at
+               hypervisor places on 4 ranks (processes started with spawn that
+               share the one card through gloo, which NCCL refuses): the dense
+               projections, the shared experts, the embedding and the
+               unembedding tensor-parallel over the model axis (each rank's
+               column or row block, its block of the vocabulary, a
+               vocabulary-parallel cross-entropy; K1 at every block's shape,
+               held in the kernels phase), attention sharded by sequence on
+               whole heads (q and y through all-to-alls, K2 with each shard's
+               offset), the experts over the model axis through the all_to_all
+               pair, every layer's weights gathered over data ZeRO-3 style; the
+               logits and one make_train_step step against the unsharded run on
+               the card (its MoE aux loss the mesh's, the mean of each rank's
+               over its tokens), K4's sequence-parallel scan over the data axis
+               at mamba2_1_3b's (1, 4096, 64, 64, 128) on long-memory inputs
+               against the scan of the whole sequence, fp32 and bf16, and one
+               bf16 sharded step; per rank the placement, exact launch counts
+               (K1 and its grouped routes, K2 with and without an offset, K4),
+               each collective's bytes and transport, output bytes by kind,
+               peak memory (printed beside the run with replicated
+               projections) and the step's wall ms (ranks sharing one
+               card: no speed figure) (``phase_mesh``); one split-KV decode
+               step of qwen2_0_5b at depth 2, fp32, batch 4, over caches of
+               1024 slots cut by cache_specs (512 a model rank, the token at
                700 on the second rank's slice), its logits and each rank's
-               cache block against the unsharded step at 2e-4 (1 +
-               |ref|), K1 15 and K3 2 a rank; the forward again under the
-               TP/EP recipe (every leaf cut by param_rules(fsdp=False),
-               moe_ff_axis "data": the dispatch buffer gathered over data,
-               the grouped products on the rank's 704 hidden units, the
-               partial outputs reduce-scattered) against the unsharded
-               logits at 2e-4 (1 + |ref|), its launches (3 grouped) and
-               collective bytes by kind a rank; a ServeEngine over the
+               cache block against the unsharded step at 2e-4 (1 + |ref|), K1
+               15 and K3 2 a rank; the forward again under the TP/EP recipe
+               (every leaf cut by param_rules(fsdp=False), moe_ff_axis "data":
+               the dispatch buffer gathered over data, the grouped products on
+               the rank's 704 hidden units, the partial outputs
+               reduce-scattered) against the unsharded logits at 2e-4 (1 +
+               |ref|), its launches (3 grouped) and collective bytes by kind a
+               rank, its all-gather bytes and peak below the replicated
+               projections' run; a ServeEngine over the
                mesh (qwen2_0_5b at depth 2, fp32, batch 4, max_seq 256,
                prompts of 64-128 tokens, 8 new tokens; split-KV caches,
                prefill K2 at each shard's offset, each step eager),
@@ -762,7 +773,7 @@ def phase_kernels(torch, dev):
                                  f"with its plain version by {case['max_abs_err']}")
         cases.append(case)
 
-    def matmul_case(M, K, N, tied, dtype):
+    def matmul_case(M, K, N, tied, dtype, extra=None):
         es = torch.tensor([], dtype=dtype).element_size()
         x = randn(M, K, dtype=dtype)
         if tied:  # a tied unembedding: embed.t(), read in place
@@ -773,7 +784,7 @@ def phase_kernels(torch, dev):
                lambda: torch.matmul(x, w))
         check("streamed_matmul", [M, K, N], dtype, ops.matmul(x, w),
               matmul_plain(x, w), es * (M * K + K * N + M * N),
-              2 * M * N * K, fns)
+              2 * M * N * K, fns, extra=extra)
 
     # streamed_matmul: the (K, N) of qwen2_0_5b and of mamba2_1_3b at decode
     # and prefill M; the last of each is the tied unembedding
@@ -827,6 +838,15 @@ def phase_kernels(torch, dev):
     # deepseek_moe_16b's router, fp32 as the JAX package keeps it
     for M in (4, 2048):
         matmul_case(M, 2048, 64, False, torch.float32)
+    # a tensor-parallel rank's products in the mesh phase (deepseek_moe_16b
+    # over MESH[1] model ranks, its data shard's MESH_TP_TOKENS rows): each
+    # projection's column or row block and the unembedding's vocabulary
+    # block, fp32 (the phase's forward and step) and bf16 (its bf16 step)
+    for dtype in (torch.float32, torch.bfloat16):
+        for what, K, N in mesh_tp_products(mesh_config("bfloat16")):
+            matmul_case(MESH_TP_TOKENS, K, N, False, dtype,
+                        extra={"tensor_parallel": what,
+                               "mesh": list(MESH)})
 
     # the wmma kernel and its split-K reduce: bf16 products TMA cannot take
     # (a row-major w with N % 8 != 0; K % 8 != 0, w the tied layout), at a
@@ -1995,6 +2015,18 @@ MESH_DECODE_BATCH, MESH_DECODE_SEQ, MESH_DECODE_POS = 4, 1024, 700
 # grouped products take its dispatch buffer gathered over data, C x M x D
 # = 3072 rows, on its 704 of the 1408 hidden units of its 32 experts
 MESH_TP_ROWS, MESH_TP_FF = MESH_CAPACITY_ROWS * MESH[0], 1408 // MESH[0]
+# the model axis' tensor parallelism: a rank's dense products take the
+# 2 x 512 tokens of its data shard (MESH_TP_TOKENS rows) on its block of
+# each projection (mesh_tp_products), which the kernels phase times
+MESH_TP_TOKENS = MESH_BATCH // MESH[0] * MESH_SEQ
+# a rank's figures in this phase's run before the projections and the
+# vocabulary were tensor-parallel (NVIDIA H100 80GB HBM3, 700 W): the TP/EP
+# forward's all-gather output and peak, which the phase holds its own below,
+# and the fsdp steps' peaks, printed beside its own (and beside the bf16
+# step's, the peak of its forward and backward alone)
+MESH_BEFORE = {"tp_forward": {"all_gather_gb": 3.014, "peak_gb": 8.48},
+               "step_float32": {"peak_gb": 8.32},
+               "step_bfloat16": {"peak_gb": 7.84}}
 # the meshed engine: qwen2_0_5b at the decode check's depth, fp32, batch 4
 # at max_seq 256, prompts of these lengths (tokens from the seed; the
 # longest's 128 positions split over the model axis, so prefill runs K2
@@ -2013,6 +2045,20 @@ def mesh_config(dtype):
     return dataclasses.replace(get_config("deepseek_moe_16b"), n_layers=2,
                                param_dtype=dtype, compute_dtype=dtype,
                                capacity_factor=16.0)
+
+
+def mesh_tp_products(cfg):
+    """(name, K, N) of a model rank's tensor-parallel products in
+    ``mesh_config``'s model over the MESH[1] model ranks: q (and k, v)
+    column blocks, o's rows, the dense MLP's gate / up columns and down
+    rows (its first layer), the shared experts' likewise, and the
+    unembedding's block of the vocabulary (a row-major lm_head)."""
+    M, d = MESH[1], cfg.d_model
+    qo = cfg.n_heads * cfg.head_dim_ // M
+    fs = cfg.moe_d_ff * cfg.n_shared_experts // M
+    return [("q", d, qo), ("o", qo, d), ("mlp_up", d, cfg.d_ff // M),
+            ("mlp_down", cfg.d_ff // M, d), ("shared_up", d, fs),
+            ("shared_down", fs, d), ("unembed", d, cfg.padded_vocab // M)]
 
 
 def mesh_batch(torch, cfg):
@@ -2122,9 +2168,11 @@ def phase_mesh(torch, dev):
     forward logits; one ``make_train_step`` step with the mesh's aux loss,
     ``mesh_aux_loss``; K4 over the whole sequence, fp32 and bf16), then 4
     ranks started with spawn on cuda:0 (``mesh_rank``), each running the
-    same work sharded: attention in seq mode (K2 with each shard's
+    same work sharded: the dense projections, the shared experts, the
+    embedding, the unembedding and the cross-entropy tensor-parallel over the
+    model axis, attention in seq mode on whole heads (K2 with each shard's
     q_offset), the MoE layer's experts over the model axis through the
-    all_to_all pair, ZeRO-3 gathers of every layer's weights, and
+    all_to_all pair, ZeRO-3 gathers over data of every layer's weights, and
     ``seq_parallel_ssd`` over the data axis.  Limits, each against the
     unsharded run: the logits 2e-4 (1 + |ref|) (fp32, as the kernels
     phase); the scan 1e-4 (fp32), 5e-2 and 1e-2 (bf16) of max |ref|; the
@@ -2288,6 +2336,7 @@ def _mesh_rank(rank, world, port, work):
     from repro_torch.parallel.seqparallel import seq_parallel_ssd
     from repro_torch.train import AdamWConfig, TrainConfig, init_state
     from repro_torch.train import make_train_step
+    from repro_torch.train.loop import loss_and_grads
 
     backend = coll.init_world(rank, world, port, "cuda",
                               timeout_s=MESH_COLLECTIVE_TIMEOUT_S)
@@ -2317,6 +2366,7 @@ def _mesh_rank(rank, world, port, work):
         return d.max().item(), bool((d <= tol * (1 + want.float().abs()))
                                     .all())
 
+    from repro_torch.roofline import collective_bytes
     # the sharded forward and train step, fp32 and bf16
     for dtype in ("float32", "bfloat16"):
         cfg = mesh_config(dtype)
@@ -2341,10 +2391,32 @@ def _mesh_rank(rank, world, port, work):
                       offset_flash_attention_bwd=attn)
         if dtype == "float32":
             ops.reset_launches()
-            with torch.inference_mode():
-                logits = bundle.forward(local, lbatch)
+            coll.reset_stats()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            products, matmul = set(), ops.matmul
+
+            def recorded(x, w):  # the rank's K1 shapes
+                products.add((x.shape[0], x.shape[1], w.shape[1]))
+                return matmul(x, w)
+            ops.matmul = recorded
+            try:
+                with torch.inference_mode():
+                    logits = bundle.forward(local, lbatch)
+            finally:
+                ops.matmul = matmul
             torch.cuda.synchronize()
             fwd = counts()
+            tp_shapes = {what: [MESH_TP_TOKENS, K, N] for what, K, N in
+                         mesh_tp_products(cfg)}
+            out["forward"] = {
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "collective_bytes": collective_bytes(),
+                "tensor_parallel_products": tp_shapes}
+            checks["tensor_parallel_products"] = {
+                "ok": all(tuple(v) in products for v in tp_shapes.values()),
+                "rule": "K1 ran at each tensor-parallel block's shape (the "
+                        "kernels phase's)"}
             want = torch.load(work / "logits.pt", mmap=True)
             rows = slice(coords["data"] * logits.shape[0],
                          (coords["data"] + 1) * logits.shape[0])
@@ -2365,6 +2437,13 @@ def _mesh_rank(rank, world, port, work):
         tcfg = TrainConfig(opt=AdamWConfig(lr=MESH_LR, warmup_steps=1))
         step = make_train_step(bundle.loss, tcfg, mesh=mesh, specs=specs)
         state = init_state(local, tcfg.opt)
+        fwd_bwd_peak = None
+        if dtype == "bfloat16":  # the forward and backward's peak alone
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            loss_and_grads(bundle.loss, local, lbatch)
+            torch.cuda.synchronize()
+            fwd_bwd_peak = torch.cuda.max_memory_allocated() / 1e9
         coll.reset_stats()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2377,8 +2456,11 @@ def _mesh_rank(rank, world, port, work):
         key = f"step_{dtype}"
         out[key] = {"wall_ms": wall_ms,
                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                    "before": MESH_BEFORE[key],
+                    "loss_and_grads_peak_gb": fwd_bwd_peak,
                     "metrics": {k: float(v) for k, v in metrics.items()},
                     "launches": {k: got[k] for k in expect},
+                    "collective_bytes": collective_bytes(),
                     "collectives": coll.stats_line()}
         checks[f"{key}_launches"] = {"ok": out[key]["launches"] == expect,
                                      "expected": expect}
@@ -2439,8 +2521,8 @@ def _mesh_rank(rank, world, port, work):
     # gathers its dispatch buffer over data, runs the three grouped
     # products on its f-shard (MESH_TP_ROWS rows, the kernels phase's TP
     # shape) and reduce-scatters the partial outputs.  Against the
-    # unsharded logits at 2e-4 (1 + |ref|), as the fsdp forward
-    from repro_torch.roofline import collective_bytes
+    # unsharded logits at 2e-4 (1 + |ref|), as the fsdp forward; its
+    # all-gather bytes and peak below the replicated projections' run
     cfg = mesh_config("float32")
     bundle = build(cfg)
     specs = shd.param_specs(bundle.param_logical_axes(),
@@ -2484,15 +2566,22 @@ def _mesh_rank(rank, world, port, work):
         "launches": {k: got[k] for k in tp_expect},
         "expected_launches": tp_expect,
         "collective_bytes": collective_bytes(),
+        "before": MESH_BEFORE["tp_forward"],
         "collectives": coll.stats_line()}
+    tp_out = out["tp_forward"]
     checks["tp_forward"] = {
-        "ok": ok and out["tp_forward"]["launches"] == tp_expect
+        "ok": ok and tp_out["launches"] == tp_expect
         and list(wg.shape) == [cfg.n_experts // M, cfg.d_model, MESH_TP_FF]
         and C * M * D == MESH_TP_ROWS
-        and out["tp_forward"]["collective_bytes"]["reduce-scatter"] > 0,
+        and tp_out["collective_bytes"]["reduce-scatter"] > 0
+        and tp_out["collective_bytes"]["all-gather"] / 1e9
+        < MESH_BEFORE["tp_forward"]["all_gather_gb"]
+        and tp_out["peak_gb"] < MESH_BEFORE["tp_forward"]["peak_gb"],
         "rule": "|TP sharded - unsharded| <= 2e-4 (1 + |unsharded|); K1 19 "
                 "(3 grouped at the kernels phase's TP shape), K2 2 with "
-                "an offset; the partial outputs reduce-scattered"}
+                "an offset; the partial outputs reduce-scattered; the "
+                "all-gather bytes and peak below the replicated "
+                "projections' run"}
     for k in ("streamed_matmul", "flash_attention"):
         out["launches"][k] += got[k]
     del local, batch, lbatch, logits, want, wg

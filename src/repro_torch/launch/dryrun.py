@@ -54,6 +54,14 @@ nothing here: the port shards its activations by the explicit collectives
 of ``parallel/collectives.py`` at the places the JAX package's
 ``shard_map``s and constraints sit (``models/attention.py``'s
 ``attention_shard_mode``, ``models/moe.py``, ``models/lm.py``'s gathers).
+Over the model axis a rank computes as GSPMD partitions the reference
+under ``param_rules``: its column and row blocks of every dense
+projection (attention, the MLP, the MoE's shared experts) and its block
+of the vocabulary (the embedding lookup, the unembedding and the loss's
+cross-entropy), activations crossing the axis instead of weights; so its
+counted FLOPs and live-tensor peak are its share of those products and
+logits.  The SSD block's projections are still gathered whole over the
+model axis and computed on every model rank (``models/lm.py``).
 ``--recipe tp`` is the TP/EP recipe: params and state cut by
 ``param_rules(mesh, fsdp=False)`` (nothing over data but the experts'
 hidden dim) under ``set_mesh_context(..., moe_ff_axis="data",

@@ -10,16 +10,32 @@ a ring of min(max_seq, window) slots written at ``pos % S``, and the
 cross-attention of ``kv_x`` (prefill: k and v projected from the encoder's
 output) and ``precomputed_kv`` (decode: the cached k and v read whole).
 
-Over a mesh (``common.set_mesh_context``) the attention core of a
-full-sequence self-attention is sharded over the model axis as the JAX
-package's ``_flash_full`` shards it (``attention_shard_mode``): ``seq``
-splits the queries by sequence, ropes each shard's q and k at their
-absolute positions, all-gathers K and V and runs the flash kernel with
-the shard's ``q_offset``; ``heads`` splits the heads; ``replicated``
-repeats the whole core on every model rank.  The projections around it
-run replicated over the model axis: the split and the gathers are the
-conjugate collectives of ``parallel/collectives.py``, so the cotangents
-of those replicated activations stay the same on every rank.
+Over a mesh (``common.set_mesh_context``) whose model axis has M > 1
+ranks (``common.tensor_parallel``), attention is tensor-parallel, as
+GSPMD computes the JAX package's under ``param_rules`` ("heads" and
+"kv_heads" over the model axis): q, k and v are column-parallel products
+(the rank's columns of ``wq``, ``wk``, ``wv`` and their biases, the
+replicated input entering through ``copy_to_split``), and ``wo`` is
+row-parallel (the rank's columns of y times its rows of ``wo``, the
+partial outputs summed over the axis in rank order by ``psum``).  Where
+the query and KV heads both divide M, a rank's columns are whole heads,
+and the core runs on them as the JAX package's ``_flash_full`` shards it
+(``attention_shard_mode``): ``heads`` runs the flash kernel on the rank's
+own heads with no collective; ``seq`` turns q's column blocks into
+sequence shards of every head (an all-to-all), gathers K and V over the
+heads (every key of every head), runs the flash kernel at the shard's
+``q_offset`` and turns y back into column blocks (the inverse
+all-to-all).  qk-norm and RoPE run on whole heads, before the layout
+changes (per token and head, so where they run moves no value); the
+norms' weights enter through ``copy_to_split`` there, since each rank
+normalizes other heads or tokens.  In ``replicated`` mode, or where a
+split cuts a head (a KV of 2 over 4 ranks), the columns are gathered
+(``gather_to_replicated``) and the core runs as on one device, its
+sequence shards or heads cut from the replicated q, k and v, and y's
+columns are cut again for ``wo``.  A cross-attention's core runs on the
+rank's heads wherever they divide.  Prefill's K/V (and a decoder's cross
+K/V) are gathered to every head for the decode caches only when kept
+(``keep_kv``).
 
 A decode step over a mesh runs split-KV over caches cut by
 ``parallel.sharding.cache_specs``: where their slots divide the model
@@ -30,7 +46,9 @@ nothing), every rank runs the decode kernel over the prefix of its own
 slice that the token attends (possibly none: a length of 0), and the
 ranks all-gather each other's (output, log-sum-exp) and combine them into
 the exact softmax (``combine_split_kv``), as GSPMD's reductions make the
-JAX package's decode exact over a sequence-sharded cache.
+JAX package's decode exact over a sequence-sharded cache.  The step's q,
+k and v columns are gathered over the model axis first (one token's: a
+few KB), so every rank holds every head; ``wo`` stays row-parallel.
 """
 from __future__ import annotations
 
@@ -40,8 +58,9 @@ import torch
 
 from ..kernels import ops
 from ..parallel import collectives as coll
-from .common import (Params, apply_rope, dense_init, get_cache_seq,
-                     get_mesh_context, rmsnorm, rope_cos_sin, rotate)
+from .common import (Params, TensorParallel, apply_rope, dense_init,
+                     get_cache_seq, get_mesh_context, rmsnorm, rope_cos_sin,
+                     rotate, tensor_parallel)
 
 
 def attention_init(cfg, gen: torch.Generator, dtype, device, *,
@@ -82,22 +101,66 @@ def _linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _project_qkv(cfg, p: Params, x: torch.Tensor,
-                 kv_x: Optional[torch.Tensor] = None):
-    """Returns q (B,Sq,H,hd) from x, k/v (B,Skv,KV,hd) from ``kv_x`` (x
-    when None), un-roped.  The bias is added after the projection's output
-    is rounded to x.dtype, as in JAX."""
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+                 kv_x: Optional[torch.Tensor] = None,
+                 tp: Optional[TensorParallel] = None):
+    """Returns q (B,Sq,H*hd) from x, k/v (B,Skv,KV*hd) from ``kv_x`` (x
+    when None), flat and un-normed; with ``tp``, this rank's columns of
+    each (column-parallel: the inputs enter through ``copy_to_split``).
+    The bias is added after the projection's output is rounded to x.dtype,
+    as in JAX."""
+    if tp is not None:
+        x = tp.column_in(x)
+        kv_x = None if kv_x is None else tp.column_in(kv_x)
     src = x if kv_x is None else kv_x
     q, k, v = _linear(x, p["wq"]), _linear(src, p["wk"]), _linear(src, p["wv"])
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(*q.shape[:-1], H, hd)
-    k = k.reshape(*k.shape[:-1], KV, hd)
-    v = v.reshape(*v.shape[:-1], KV, hd)
-    if cfg.qk_norm:
-        q = rmsnorm(q, p["q_norm"], cfg.rms_eps)
-        k = rmsnorm(k, p["k_norm"], cfg.rms_eps)
     return q, k, v
+
+
+def _heads(cfg, p: Params, q: torch.Tensor,
+           k: Optional[torch.Tensor] = None, v: Optional[torch.Tensor] = None,
+           split: Optional[TensorParallel] = None):
+    """Flat q (and k, v) columns that hold whole heads, as (B,S,heads,hd),
+    with qk-norm.  ``split``: the heads are this rank's own, so the norms'
+    weights, shared by every rank, enter through ``copy_to_split`` (their
+    gradients summed over the axis)."""
+    hd = cfg.head_dim_
+    q, k, v = (None if t is None else t.reshape(*t.shape[:-1],
+                                                t.shape[-1] // hd, hd)
+               for t in (q, k, v))
+    if cfg.qk_norm:
+        qn, kn = p["q_norm"], p["k_norm"]
+        if split is not None:
+            qn, kn = split.column_in(qn), split.column_in(kn)
+        q = rmsnorm(q, qn, cfg.rms_eps)
+        k = None if k is None else rmsnorm(k, kn, cfg.rms_eps)
+    return q, k, v
+
+
+def _whole(tp: Optional[TensorParallel], *cols: torch.Tensor):
+    """Column blocks gathered to every column (a replicated consumer)."""
+    if tp is None:
+        return cols
+    return tuple(tp.gather(t, t.dim() - 1) for t in cols)
+
+
+def _out_proj(p: Params, y: torch.Tensor, tp: Optional[TensorParallel],
+              whole: bool = False) -> torch.Tensor:
+    """y (B,S,*,hd) through ``wo``: row-parallel with ``tp`` (this rank's
+    columns of y, cut from a ``whole`` replicated y, times its rows of
+    ``wo``, summed over the axis)."""
+    y = y.reshape(*y.shape[:2], -1)
+    if tp is None:
+        return _linear(y, p["wo"])
+    if whole:
+        y = tp.split(y, 2)
+    return tp.row_out(_linear(y, p["wo"]))
+
+
+def _heads_divide(cfg, M: int) -> bool:
+    """Whether M ranks' column blocks of q and of k/v are whole heads."""
+    return cfg.n_heads % M == 0 and cfg.n_kv_heads % M == 0
 
 
 def init_kv_cache(cfg, batch: int, max_seq: int, dtype, device
@@ -241,20 +304,20 @@ def combine_split_kv(y: torch.Tensor, lse: torch.Tensor
 def _cross_attention(cfg, p: Params, x: torch.Tensor, k: torch.Tensor,
                      v: torch.Tensor) -> torch.Tensor:
     """Attention of x's queries to the encoder's cached k/v (B,Skv,KV,hd),
-    not causal: only wq and wo are products.  A decode step (x (B,1,d))
-    reads all Skv slots through the decode kernel, whose length is the
-    host int Skv, a constant of a captured step, not a read of the card;
-    more queries go through the flash kernel at Sq != Skv."""
-    B, Sq = x.shape[0], x.shape[1]
-    H, hd = cfg.n_heads, cfg.head_dim_
-    q = _linear(x, p["wq"]).reshape(B, Sq, H, hd)
-    if cfg.qk_norm:
-        q = rmsnorm(q, p["q_norm"], cfg.rms_eps)
-    if Sq == 1:
-        y = ops.decode_attention(q[:, 0], k, v, k.shape[1])
+    every head, not causal: only wq and wo are products (q's columns
+    gathered over a model axis).  A decode step (x (B,1,d)) reads all Skv
+    slots through the decode kernel, whose length is the host int Skv, a
+    constant of a captured step, not a read of the card; more queries go
+    through the flash kernel at Sq != Skv."""
+    tp = tensor_parallel()
+    x_in = x if tp is None else tp.column_in(x)
+    q, = _whole(tp, _linear(x_in, p["wq"]))
+    q = _heads(cfg, p, q)[0]
+    if x.shape[1] == 1:
+        y = ops.decode_attention(q[:, 0], k, v, k.shape[1])[:, None]
     else:
         y = ops.flash_attention(q, k, v, causal=False)
-    return _linear(y.reshape(B, Sq, H * hd), p["wo"])
+    return _out_proj(p, y, tp, whole=True)
 
 
 def attention_forward(cfg, p: Params, x: torch.Tensor, *,
@@ -263,36 +326,38 @@ def attention_forward(cfg, p: Params, x: torch.Tensor, *,
                       precomputed_kv: Optional[Tuple[torch.Tensor,
                                                      torch.Tensor]] = None,
                       cache: Optional[Dict[str, torch.Tensor]] = None,
-                      cache_pos: Optional[DecodePosition] = None):
+                      cache_pos: Optional[DecodePosition] = None,
+                      keep_kv: bool = True):
     """Self-attention, causal (banded to ``cfg.sliding_window`` keys when it
     is set) or not, with RoPE unless ``use_rope`` is False.  Prefill (cache
-    None): returns (y, (k_roped, v)) to seed the decode cache.  Decode (x
-    is (B,1,d), cache given): returns (y, cache), the cache updated in place
-    at ``cache_pos``, the token's position, which may lie past the cache:
-    then a full cache keeps its S slots and all of them are attended, as in
-    the JAX package, and a ring overwrites slot pos % S.
+    None): returns (y, (k_roped, v)) to seed the decode cache, or (y, None)
+    where not ``keep_kv``.  Decode (x is (B,1,d), cache given): returns (y,
+    cache), the cache updated in place at ``cache_pos``, the token's
+    position, which may lie past the cache: then a full cache keeps its S
+    slots and all of them are attended, as in the JAX package, and a ring
+    overwrites slot pos % S.
 
     Cross-attention: ``kv_x`` (B,Skv,d), the encoder's output, gives k and
     v, not roped, and every query attends all of them; returns (y, (k, v))
     for the decoder's cross cache.  ``precomputed_kv``, that cache: returns
-    (y, None)."""
+    (y, None).
+
+    Over a model axis (``common.tensor_parallel``) the projections are
+    column- and row-parallel (the module docstring); the K/V returned are
+    every head's."""
     if precomputed_kv is not None:
         return _cross_attention(cfg, p, x, *precomputed_kv), None
+    tp = tensor_parallel()
     window = cfg.sliding_window or 0
-    B, S = x.shape[0], x.shape[1]
-    H, hd = cfg.n_heads, cfg.head_dim_
-    q, k, v = _project_qkv(cfg, p, x, kv_x)
-
-    if kv_x is not None:
-        y = ops.flash_attention(q, k, v, causal=False)
-        return _linear(y.reshape(B, S, H * hd), p["wo"]), (k, v)
+    q, k, v = _project_qkv(cfg, p, x, kv_x, tp)
 
     if cache is not None:
+        q, k, v = _heads(cfg, p, *_whole(tp, q, k, v))
         # Position and length stay on the device: read on the host, they
         # would make it wait for the card, and a captured graph would
         # freeze them.
         if use_rope:
-            cos, sin = cache_pos.rope(hd, cfg.rope_theta)
+            cos, sin = cache_pos.rope(cfg.head_dim_, cfg.rope_theta)
             q, k = rotate(q, cos, sin), rotate(k, cos, sin)
         S_local = cache["k"].shape[1]
         shards, index = kv_shards(cfg, S_local)
@@ -314,11 +379,29 @@ def attention_forward(cfg, p: Params, x: torch.Tensor, *,
         else:
             y = combine_split_kv(*ops.decode_attention(
                 q[:, 0], cache["k"], cache["v"], length, with_lse=True))
-        return _linear(y.reshape(B, 1, H * hd), p["wo"]), cache
+        return _out_proj(p, y[:, None], tp, whole=True), cache
 
-    y, k, v = _flash_full(cfg, q, k, v, causal=causal, window=window,
-                          use_rope=use_rope)
-    return _linear(y.reshape(B, S, H * hd), p["wo"]), (k, v)
+    local = tp is not None and _heads_divide(cfg, tp.size) and (
+        kv_x is not None or
+        attention_shard_mode(cfg, x.shape[1], tp.size) != "replicated")
+    if local:  # the rank's columns are its whole heads
+        q, k, v = _heads(cfg, p, q, k, v, split=tp)
+        if kv_x is not None:
+            y = ops.flash_attention(q, k, v, causal=False)
+        else:
+            y, k, v = _flash_heads(cfg, tp, q, k, v, causal=causal,
+                                   window=window, use_rope=use_rope)
+        if keep_kv and k.shape[2] != cfg.n_kv_heads:  # the rank's heads
+            k, v = tp.gather(k, 2), tp.gather(v, 2)
+        return _out_proj(p, y, tp), (k, v) if keep_kv else None
+
+    q, k, v = _heads(cfg, p, *_whole(tp, q, k, v))
+    if kv_x is not None:
+        y = ops.flash_attention(q, k, v, causal=False)
+    else:
+        y, k, v = _flash_full(cfg, q, k, v, causal=causal, window=window,
+                              use_rope=use_rope)
+    return _out_proj(p, y, tp, whole=True), (k, v) if keep_kv else None
 
 
 def attention_shard_mode(cfg, S: int, M: int) -> str:
@@ -327,23 +410,49 @@ def attention_shard_mode(cfg, S: int, M: int) -> str:
     divides, else ``heads`` when the query and KV heads divide, else
     ``replicated``; an explicit mode whose split does not divide runs
     ``replicated``."""
-    heads_divide = cfg.n_heads % M == 0 and cfg.n_kv_heads % M == 0
     mode = cfg.attn_shard
     if mode == "auto":
         mode = ("seq" if M > 1 and S % M == 0 else
-                "heads" if M > 1 and heads_divide else "replicated")
+                "heads" if M > 1 and _heads_divide(cfg, M) else "replicated")
     if mode == "seq" and M > 1 and S % M == 0:
         return "seq"
-    if mode == "heads" and M > 1 and heads_divide:
+    if mode == "heads" and M > 1 and _heads_divide(cfg, M):
         return "heads"
     return "replicated"
 
 
+def _flash_heads(cfg, tp: TensorParallel, q, k, v, *, causal: bool,
+                 window: int, use_rope: bool):
+    """RoPE and the flash kernel on this rank's whole heads, q
+    (B,S,H/M,hd) and k/v (B,S,KV/M,hd), in the ``seq`` or ``heads`` mode
+    of ``attention_shard_mode``.  Returns (y (B,S,H/M,hd), k roped, v): in
+    ``seq`` mode K and V of every head (what the core attended), in
+    ``heads`` mode the rank's."""
+    S = q.shape[1]
+    if use_rope:
+        positions = torch.arange(S, device=q.device)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    if attention_shard_mode(cfg, S, tp.size) == "heads":
+        return ops.flash_attention(q, k, v, causal=causal, window=window), k, v
+    # seq: rank i's Sl queries (absolute positions i Sl .. (i+1) Sl - 1) of
+    # every head against every key of every head
+    Sl = S // tp.size
+    q_l = coll.all_to_all(q, tp.mesh, tp.axis, 1, 2)
+    k = coll.gather_for_local_use(k, tp.mesh, tp.axis, 2)
+    v = coll.gather_for_local_use(v, tp.mesh, tp.axis, 2)
+    y_l = ops.flash_attention(q_l, k, v, causal=causal, window=window,
+                              q_offset=tp.index * Sl if causal else None)
+    return coll.all_to_all(y_l, tp.mesh, tp.axis, 2, 1), k, v
+
+
 def _flash_full(cfg, q, k, v, *, causal: bool, window: int, use_rope: bool):
-    """RoPE and the flash kernel over the whole sequence, sharded over the
-    mesh's model axis by ``attention_shard_mode``.  q/k/v: un-roped
-    projections (B,S,*,hd), replicated over the model axis.  Returns (y, k
-    roped, v), all replicated."""
+    """RoPE and the flash kernel over the whole sequence and every head: q,
+    k and v replicated over the mesh's model axis (its columns gathered, or
+    no model axis), un-roped (B,S,*,hd).  In ``seq`` mode (a split that
+    cuts a head) each rank runs its sequence shard of the queries against
+    every key and the shards' y are gathered.  Returns (y, k roped, v), all
+    replicated."""
     mesh, _, model_axis = get_mesh_context()
     S = q.shape[1]
     positions = torch.arange(S, device=q.device)
@@ -372,10 +481,4 @@ def _flash_full(cfg, q, k, v, *, causal: bool, window: int, use_rope: bool):
     if use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    if mode == "heads":  # each model rank: its heads, no collective inside
-        q_l, k_l, v_l = (coll.split_to_local(t, mesh, model_axis, 2)
-                         for t in (q, k, v))
-        y_l = ops.flash_attention(q_l, k_l, v_l, causal=causal,
-                                  window=window)
-        return coll.gather_to_replicated(y_l, mesh, model_axis, 2), k, v
     return ops.flash_attention(q, k, v, causal=causal, window=window), k, v

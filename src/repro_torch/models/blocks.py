@@ -9,6 +9,11 @@ the MoE block, the SSM block and the hybrid block:
     decoder : norm -> causal attn -> +res ; norm -> cross-attn -> +res ;
               norm -> mlp -> +res                          (whisper)
 
+Over a model axis the attention, the MLP and the shared experts are
+tensor-parallel (``models/attention.py``, ``mlp_forward``, ``moe.swiglu``);
+the hybrid block's SSD branch reads the replicated input and computes on
+every head (its leaves gathered whole, ``models/lm.py``).
+
 Ported from the JAX package's ``models/blocks.py``, all six kinds.  A
 LayerNorm model (whisper) uses no RoPE: its positions are learned tables
 added to the inputs (``models/whisper.py``).
@@ -22,8 +27,9 @@ import torch.nn.functional as F
 
 from .attention import (DecodePosition, _linear, attention_axes,
                         attention_forward, attention_init, init_kv_cache)
-from .common import Params, apply_norm, dense_init, norm_axes, norm_init
-from .moe import moe_axes, moe_forward, moe_init
+from .common import (Params, apply_norm, dense_init, norm_axes, norm_init,
+                     tensor_parallel)
+from .moe import moe_axes, moe_forward, moe_init, swiglu
 from .ssd import (init_ssd_cache, ssd_axes, ssd_decode_step, ssd_forward,
                   ssd_init)
 
@@ -50,15 +56,17 @@ def mlp_axes(cfg) -> Dict[str, tuple]:
 
 def mlp_forward(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
     """SwiGLU, or GELU (whisper) in ``jax.nn.gelu``'s default tanh form,
-    each bias added after its product is rounded to x.dtype, as in JAX."""
+    each bias added after its product is rounded to x.dtype, as in JAX.
+    Over a model axis (``common.tensor_parallel``) tensor-parallel: the
+    rank's columns of wg/wu (w1, b1) and rows of wd (w2), the partial
+    outputs summed over the axis, then b2 added."""
     if cfg.mlp == "swiglu":
-        g = _linear(x, p["wg"])
-        u = _linear(x, p["wu"])
-        h = F.silu(g.float()).to(x.dtype) * u
-        return _linear(h, p["wd"])
-    h = _linear(x, p["w1"]) + p["b1"]
+        return swiglu(x, p["wg"], p["wu"], p["wd"])
+    tp = tensor_parallel()
+    h = _linear(x if tp is None else tp.column_in(x), p["w1"]) + p["b1"]
     h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
-    return _linear(h, p["w2"]) + p["b2"]
+    y = _linear(h, p["w2"])
+    return (y if tp is None else tp.row_out(y)) + p["b2"]
 
 
 def block_init(cfg, gen: torch.Generator, dtype, device,
@@ -103,14 +111,16 @@ def block_axes(cfg, kind: str = "dense") -> Dict:
 def block_forward(cfg, p: Params, x: torch.Tensor, kind: str = "dense", *,
                   cache: Optional[Dict] = None,
                   cache_pos: Optional[DecodePosition] = None,
-                  enc_out: Optional[torch.Tensor] = None
+                  enc_out: Optional[torch.Tensor] = None,
+                  keep_kv: bool = True
                   ) -> Tuple[torch.Tensor, Dict, Optional[torch.Tensor]]:
     """Returns (y, cache, aux).  Prefill returns this layer's K/V, or its
     SSM state and conv tails, or both (hybrid), and a decoder's cross K/V
     (``cross_k``, ``cross_v``) from ``enc_out``, the encoder's output, to
-    seed the decode cache; decode returns ``cache`` updated in place (a
-    decoder's cross K/V only read).  ``aux``: a MoE block's Switch aux
-    loss, None for the other kinds (the JAX package's 0)."""
+    seed the decode cache (K/V only where ``keep_kv``); decode returns
+    ``cache`` updated in place (a decoder's cross K/V only read).
+    ``aux``: a MoE block's Switch aux loss, None for the other kinds (the
+    JAX package's 0)."""
     h = apply_norm(cfg, x, p["ln1"])
     if kind == "ssm":
         if cache is not None:
@@ -123,8 +133,8 @@ def block_forward(cfg, p: Params, x: torch.Tensor, kind: str = "dense", *,
         y, new_cache = attention_forward(cfg, p["attn"], h, cache=cache,
                                          cache_pos=cache_pos, **attn)
     else:
-        y, (k, v) = attention_forward(cfg, p["attn"], h, **attn)
-        new_cache = {"k": k, "v": v}
+        y, kv = attention_forward(cfg, p["attn"], h, keep_kv=keep_kv, **attn)
+        new_cache = {} if kv is None else {"k": kv[0], "v": kv[1]}
     if kind == "hybrid":  # the SSD heads beside attention, on the same h
         if cache is not None:
             y_ssd, _ = ssd_decode_step(cfg, p["ssd"], h, cache)
@@ -140,8 +150,10 @@ def block_forward(cfg, p: Params, x: torch.Tensor, kind: str = "dense", *,
                 cfg, p["cross"], h,
                 precomputed_kv=(cache["cross_k"], cache["cross_v"]))
         else:
-            y, (new_cache["cross_k"], new_cache["cross_v"]) = \
-                attention_forward(cfg, p["cross"], h, kv_x=enc_out)
+            y, kv = attention_forward(cfg, p["cross"], h, kv_x=enc_out,
+                                      keep_kv=keep_kv)
+            if kv is not None:
+                new_cache["cross_k"], new_cache["cross_v"] = kv
         x = x + y
     h = apply_norm(cfg, x, p["ln2"])
     aux = None

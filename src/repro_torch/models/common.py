@@ -8,7 +8,7 @@ gives the names ``checkpoint/ckpt.py:_flatten`` gives there.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Sequence, Union
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Union
 
 import torch
 
@@ -85,6 +85,56 @@ def clear_mesh_context() -> None:
     _MESH_CTX["moe_ff_axis"] = None
     _MESH_CTX["fsdp"] = True
     _MESH_CTX["cache_seq"] = None
+
+
+class TensorParallel(NamedTuple):
+    """The mesh context's model axis where it has more than one rank: the
+    axis that the dense projections, the embedding table and the
+    unembedding are cut over (``tensor_parallel``), with Megatron's
+    conjugate pair of ``parallel/collectives.py`` at the edges of each
+    cut product."""
+    mesh: Any
+    axis: str
+    size: int
+    index: int
+
+    def column_in(self, x: torch.Tensor) -> torch.Tensor:
+        """A replicated input to this rank's columns (or to its own part of
+        any work): identity, the backward sums the cotangents."""
+        from ..parallel import collectives as coll
+        return coll.copy_to_split(x, self.mesh, self.axis)
+
+    def row_out(self, y: torch.Tensor) -> torch.Tensor:
+        """Every rank's partial sum, summed in rank order (the same bits on
+        every rank): the backward passes the cotangent through."""
+        from ..parallel import collectives as coll
+        return coll.psum(y, self.mesh, self.axis)
+
+    def gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """The ranks' blocks along ``dim``, for a consumer replicated over
+        the axis (the backward takes this rank's block)."""
+        from ..parallel import collectives as coll
+        return coll.gather_to_replicated(t, self.mesh, self.axis, dim)
+
+    def split(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's block along ``dim`` of a replicated tensor (the
+        backward gathers)."""
+        from ..parallel import collectives as coll
+        return coll.split_to_local(t, self.mesh, self.axis, dim)
+
+
+def tensor_parallel() -> Optional[TensorParallel]:
+    """The mesh context's model axis as a ``TensorParallel``, or None
+    outside a mesh, on a mesh without the axis and over an axis of one
+    rank (where every block is whole)."""
+    mesh, _, axis = get_mesh_context()
+    if mesh is None or axis not in mesh.mesh_dim_names:
+        return None
+    from ..parallel import collectives as coll
+    size = coll.axis_size(mesh, axis)
+    if size == 1:
+        return None
+    return TensorParallel(mesh, axis, size, coll.axis_index(mesh, axis))
 
 
 def map_axes(fn, tree: Any) -> Any:
@@ -262,6 +312,36 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     lse = torch.logsumexp(logits, dim=-1)
     picked = logits.gather(-1, labels.long()[..., None])[..., 0]
     return lse - picked
+
+
+def vocab_parallel_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                                 vocab_size: int) -> torch.Tensor:
+    """``softmax_cross_entropy`` of logits whose vocabulary dim is this
+    rank's block over the model axis (``tensor_parallel``; outside one, the
+    whole vocabulary and ``softmax_cross_entropy`` itself), without the
+    whole vocabulary's logits on any rank: each rank's log-sum-exp over its
+    rows, the padded rows masked at their global index (the block's first
+    row, index x block, plus the local one), the ranks' log-sum-exps
+    gathered and combined in rank order; the label's logit taken on the
+    rank whose block holds it (zero on the others) and summed over the
+    axis.  In fp32, the same bits on every rank."""
+    tp = tensor_parallel()
+    if tp is None:
+        return softmax_cross_entropy(logits, labels, vocab_size)
+    logits = logits.float()
+    rows = logits.shape[-1]
+    first = tp.index * rows
+    if tp.size * rows > vocab_size:
+        iota = torch.arange(first, first + rows, device=logits.device)
+        logits = torch.where(iota < vocab_size, logits,
+                             torch.full((), -1e9, device=logits.device))
+    lses = tp.gather(torch.logsumexp(logits, dim=-1)[None], 0)
+    lse = torch.logsumexp(lses, dim=0)
+    local = labels.long() - first
+    mine = (local >= 0) & (local < rows)
+    picked = logits.gather(-1, local.clamp(0, rows - 1)[..., None])[..., 0]
+    picked = torch.where(mine, picked, torch.zeros((), device=logits.device))
+    return lse - tp.row_out(picked)
 
 
 def map_tree(fn, tree: Any, *rest: Any) -> Any:

@@ -27,15 +27,24 @@ checkpoint.  ``common.set_recompute(False)`` turns it off.
 Over a mesh (``common.set_mesh_context``), each rank holds its local
 shards of the parameters (``parallel.sharding.shard_tree`` under the
 rules of ``param_axes``) and its data shard of the batch.  The leaves
-outside the stacks are gathered to full once per forward; each layer step
-gathers its own leaves to full *inside* the recompute checkpoint, so the
-backward gathers them again: the ZeRO-3 per-layer all-gather of the fsdp
-recipe (``parallel/sharding.py``).  A dim sharded over the model axis is
-gathered for a consumer replicated over it (the backward takes the slice);
-one sharded over a data axis for a consumer that differs per data shard
-(the backward sums over the data shards).  The expert weights stay local
-over the model axis (expert parallelism, ``models/moe.py``) and are
-gathered over data only.  Under the TP/EP recipe (``set_mesh_context(...,
+outside the stacks are gathered once per forward; each layer step gathers
+its own leaves *inside* the recompute checkpoint, so the backward gathers
+them again: the ZeRO-3 per-layer all-gather of the fsdp recipe
+(``parallel/sharding.py``).  A dim sharded over a data axis is gathered
+for a consumer that differs per data shard (the backward sums over the
+data shards).  A dim sharded over the model axis stays local wherever its
+consumer is tensor-parallel: every leaf under ``attn``, ``cross``,
+``mlp``, the MoE ``shared_*``, ``embed`` and ``lm_head``
+(``TP_KEYS``), whose products run on the rank's column or row block
+(``models/attention.py``, ``blocks.mlp_forward``, ``moe.swiglu``); the
+embedding is a vocabulary-parallel lookup (``embed_lookup``) and the
+unembedding gives the rank's block of the vocabulary's logits, which the
+loss reads through ``common.vocab_parallel_cross_entropy`` and the
+callers that return logits gather (``gather_vocab``: a prefill or decode
+step only its (B, 1, V)).  The SSD leaves are still gathered over the
+model axis (for a consumer replicated over it: the backward takes the
+slice), and the expert weights stay local over it (expert parallelism,
+``models/moe.py``).  Under the TP/EP recipe (``set_mesh_context(...,
 moe_ff_axis="data", fsdp=False)``) no leaf is sharded over data but the
 experts' hidden dim, which stays local too.  The loss is the global token
 mean: each rank's mean over its data shard, averaged over the data axes.
@@ -54,9 +63,9 @@ from .attention import DecodePosition
 from .blocks import block_axes, block_forward, block_init, init_block_cache
 from .common import (Params, apply_norm, copy_tree_, dtype_of, embed_init,
                      empty_stack, get_fsdp, get_mesh_context,
-                     get_moe_ff_axis, get_recompute,
-                     layer_slice, map_tree, norm_axes, norm_init,
-                     softmax_cross_entropy, stack_trees, stacked_axes)
+                     get_moe_ff_axis, get_recompute, layer_slice, norm_axes,
+                     norm_init, stack_trees, stacked_axes, tensor_parallel,
+                     vocab_parallel_cross_entropy)
 
 
 def layer_plan(cfg) -> List[Tuple[Tuple[str, ...], int]]:
@@ -108,13 +117,24 @@ def param_axes(cfg) -> Dict[str, Any]:
     return ax
 
 
-def _gather_leaf(t: torch.Tensor, axes: Tuple) -> torch.Tensor:
+# the subtrees whose model-sharded dims stay local: their consumers are
+# tensor-parallel (the module docstring)
+TP_KEYS = ("attn", "cross", "mlp", "embed", "lm_head")
+
+
+def _tensor_parallel_key(key: str) -> bool:
+    return key in TP_KEYS or key.startswith("shared_")
+
+
+def _gather_leaf(t: torch.Tensor, axes: Tuple, tp: bool = False
+                 ) -> torch.Tensor:
     """A leaf's local shard, cut by the rules of the mesh context's recipe
     (``common.get_fsdp``), gathered to what the layer computes with: every
-    sharded dim but an expert dim, and but the experts' hidden dim under
-    the TP/EP recipe's ``moe_ff_axis`` (the MoE layer computes on its
-    shard); over the model axis for a replicated consumer, over a data axis
-    for one that differs per data shard."""
+    sharded dim but an expert dim, but the experts' hidden dim under the
+    TP/EP recipe's ``moe_ff_axis`` (the MoE layer computes on its shard),
+    and but a dim over the model axis where ``tp`` (a tensor-parallel
+    consumer computes on its block); over the model axis for a replicated
+    consumer, over a data axis for one that differs per data shard."""
     from ..parallel.sharding import logical_to_spec, param_rules, spec_axes
     mesh, _, model_axis = get_mesh_context()
     spec = logical_to_spec(axes, param_rules(mesh, fsdp=get_fsdp()))
@@ -123,6 +143,8 @@ def _gather_leaf(t: torch.Tensor, axes: Tuple) -> torch.Tensor:
         if name in local:
             continue
         for a in reversed(spec_axes(entry)):
+            if a == model_axis and tp:
+                continue
             gather = (coll.gather_to_replicated if a == model_axis
                       else coll.gather_for_local_use)
             t = gather(t, mesh, a, d)
@@ -132,14 +154,23 @@ def _gather_leaf(t: torch.Tensor, axes: Tuple) -> torch.Tensor:
 STACK_KEYS = ("stacks", "enc_stack", "dec_stack")
 
 
+def _gather_subtree(tree: Any, axes: Any, tp: bool) -> Any:
+    if isinstance(tree, dict):
+        return {k: _gather_subtree(v, axes[k], tp or _tensor_parallel_key(k))
+                for k, v in tree.items()}
+    return _gather_leaf(tree, axes, tp)
+
+
 def gather_params(tree: Params, axes: Params) -> Params:
-    """``_gather_leaf`` over a parameter tree and its axes tree; the
-    identity outside a mesh.  Stacks (``stacks``, whisper's ``enc_stack``
-    and ``dec_stack``) are left local: ``run_stack`` gathers them a layer at
-    a time."""
+    """``_gather_leaf`` over a parameter tree and its axes tree, each leaf
+    under ``TP_KEYS`` (or a MoE ``shared_*``) keeping its model-sharded
+    dims; the identity outside a mesh.  Stacks (``stacks``, whisper's
+    ``enc_stack`` and ``dec_stack``) are left local: ``run_stack`` gathers
+    them a layer at a time."""
     if get_mesh_context()[0] is None:
         return tree
-    return {k: v if k in STACK_KEYS else map_tree(_gather_leaf, v, axes[k])
+    return {k: v if k in STACK_KEYS else
+            _gather_subtree(v, axes[k], _tensor_parallel_key(k))
             for k, v in tree.items()}
 
 
@@ -156,8 +187,25 @@ def init_params(cfg, gen: torch.Generator, device) -> Params:
     return p
 
 
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``.  Over a model axis (``common.tensor_parallel``)
+    the table holds this rank's block of the vocabulary's rows: the rows
+    of the tokens it holds, zeros for the others, summed over the axis
+    (one rank's row and zeros: the unsharded row, bit for bit)."""
+    tp = tensor_parallel()
+    if tp is None:
+        return table[tokens]
+    rows = table.shape[0]
+    local = tokens.long() - tp.index * rows
+    mine = (local >= 0) & (local < rows)
+    x = table[local.clamp(0, rows - 1)]
+    x = torch.where(mine[..., None], x,
+                    torch.zeros((), dtype=x.dtype, device=x.device))
+    return tp.row_out(x)
+
+
 def embed_tokens(cfg, p: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return p["embed"][tokens]
+    return embed_lookup(p["embed"], tokens)
 
 
 def build_inputs(cfg, p: Params, batch: Dict[str, torch.Tensor]
@@ -172,21 +220,35 @@ def build_inputs(cfg, p: Params, batch: Dict[str, torch.Tensor]
 
 def unembed(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
     """(B,S,d) -> (B,S,padded_vocab).  A tied table is read in place through
-    its transpose view: no copy of the (vocab, d) embedding."""
+    its transpose view: no copy of the (vocab, d) embedding.  Over a model
+    axis (``common.tensor_parallel``) the table is this rank's block of the
+    vocabulary, x enters through ``copy_to_split``, and the logits are the
+    block's (B,S,padded_vocab/M): ``gather_vocab`` gives every block."""
     w = p["embed"].t() if cfg.tie_embeddings else p["lm_head"]
+    tp = tensor_parallel()
+    if tp is not None:
+        x = tp.column_in(x)
     B, S, d = x.shape
     return ops.matmul(x.reshape(B * S, d), w).reshape(B, S, w.shape[1])
 
 
+def gather_vocab(logits: torch.Tensor) -> torch.Tensor:
+    """``unembed``'s logits over every block of the vocabulary: gathered
+    over a model axis, as they are outside one."""
+    tp = tensor_parallel()
+    return logits if tp is None else tp.gather(logits, logits.dim() - 1)
+
+
 def layer_step(cfg, lp: Params, x: torch.Tensor, kinds: Tuple[str, ...],
-               lc=None, cache_pos=None, enc_out=None
+               lc=None, cache_pos=None, enc_out=None, keep_kv: bool = True
                ) -> Tuple[torch.Tensor, Dict[str, Any], Tuple[torch.Tensor,
                                                               ...]]:
     """One step of a stack, the body of the JAX package's scan: every block
     of ``kinds`` on layer params ``lp`` (and caches ``lc``).  Returns (x,
-    the blocks' new caches, their aux losses): the aux losses leave as
-    outputs, so a recomputed step adds none of them again.  Over a mesh,
-    ``lp`` holds local shards, gathered here first (``gather_params``)."""
+    the blocks' new caches, with their K/V where ``keep_kv``, their aux
+    losses): the aux losses leave as outputs, so a recomputed step adds
+    none of them again.  Over a mesh, ``lp`` holds local shards, gathered
+    here first (``gather_params``)."""
     if get_mesh_context()[0] is not None:
         lp = gather_params(lp, {f"b{i}": block_axes(cfg, kind)
                                 for i, kind in enumerate(kinds)})
@@ -195,7 +257,7 @@ def layer_step(cfg, lp: Params, x: torch.Tensor, kinds: Tuple[str, ...],
         x, new[f"b{i}"], a = block_forward(
             cfg, lp[f"b{i}"], x, kind,
             cache=lc[f"b{i}"] if lc is not None else None,
-            cache_pos=cache_pos, enc_out=enc_out)
+            cache_pos=cache_pos, enc_out=enc_out, keep_kv=keep_kv)
         if a is not None:
             aux.append(a)
     return x, new, tuple(aux)
@@ -221,18 +283,19 @@ def run_stack(cfg, sp: Params, x: torch.Tensor, kinds: Tuple[str, ...],
     stashed (``preserve_rng_state=False``)."""
     recompute = caches is None and get_recompute() and \
         torch.is_grad_enabled()
+    keep_kv = collect and caches is None
     per_layer, aux = [], []
     for l in range(count):
         lp = layer_slice(sp, l)
         if recompute:
             x, new, a = checkpoint(
                 functools.partial(layer_step, cfg, lp, kinds=kinds,
-                                  enc_out=enc_out),
+                                  enc_out=enc_out, keep_kv=keep_kv),
                 x, use_reentrant=False, preserve_rng_state=False)
         else:
             lc = layer_slice(caches, l) if caches is not None else None
             x, new, a = layer_step(cfg, lp, x, kinds, lc, cache_pos,
-                                   enc_out)
+                                   enc_out, keep_kv)
         aux += a
         if collect and caches is None:
             per_layer.append(new)
@@ -256,18 +319,26 @@ def _run_stacks(cfg, p: Params, x: torch.Tensor, caches=None,
     return x, out, aux
 
 
+def _hidden(cfg, p: Params, batch: Dict[str, torch.Tensor]
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(the final norm's output (B, S, d), the aux loss summed over layers
+    in fp32, as the JAX package's scan carries it: 0 without MoE layers);
+    ``p`` gathered.  No layer's K/V is kept."""
+    x = build_inputs(cfg, p, batch)
+    x, _, aux = _run_stacks(cfg, p, x, collect=False)
+    return apply_norm(cfg, x, p["final_norm"]), sum(
+        aux, torch.zeros((), dtype=torch.float32, device=x.device))
+
+
 def forward_with_aux(cfg, p: Params, batch: Dict[str, torch.Tensor]
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(full-sequence logits (B, S, padded_vocab), the aux loss summed over
-    layers in fp32, as the JAX package's scan carries it: 0 without MoE
-    layers); a vlm's S counts its patch positions too.  No layer's K/V is
-    kept.  Over a mesh: the logits of this rank's data shard."""
+    layers in fp32: 0 without MoE layers); a vlm's S counts its patch
+    positions too.  Over a mesh: the logits of this rank's data shard,
+    gathered over the model axis."""
     p = gather_params(p, param_axes(cfg))
-    x = build_inputs(cfg, p, batch)
-    x, _, aux = _run_stacks(cfg, p, x, collect=False)
-    logits = unembed(cfg, p, apply_norm(cfg, x, p["final_norm"]))
-    return logits, sum(aux, torch.zeros((), dtype=torch.float32,
-                                        device=x.device))
+    x, aux = _hidden(cfg, p, batch)
+    return gather_vocab(unembed(cfg, p, x)), aux
 
 
 def forward(cfg, p: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -279,13 +350,18 @@ def forward(cfg, p: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
 def loss_fn(cfg, p: Params, batch: Dict[str, torch.Tensor]
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token CE (shift by one), a vlm's patch positions dropped first;
-    returns (CE + 0.01 x aux, {"loss": CE, "aux_loss": aux, "ce": CE})."""
-    logits, aux = forward_with_aux(cfg, p, batch)
+    returns (CE + 0.01 x aux, {"loss": CE, "aux_loss": aux, "ce": CE}).
+    Over a model axis the CE reads the rank's block of the vocabulary's
+    logits (``common.vocab_parallel_cross_entropy``): no rank holds every
+    logit."""
+    p = gather_params(p, param_axes(cfg))
+    x, aux = _hidden(cfg, p, batch)
+    logits = unembed(cfg, p, x)
     tokens = batch["tokens"]
     if cfg.family == "vlm" and "patch_embeds" in batch:
         logits = logits[:, batch["patch_embeds"].shape[1]:, :]
-    ce = softmax_cross_entropy(logits[:, :-1, :], tokens[:, 1:],
-                               cfg.vocab_size)
+    ce = vocab_parallel_cross_entropy(logits[:, :-1, :], tokens[:, 1:],
+                                      cfg.vocab_size)
     loss = global_mean(ce)
     return loss + 0.01 * aux, {"loss": loss, "aux_loss": aux, "ce": loss}
 
@@ -310,7 +386,7 @@ def prefill(cfg, p: Params, batch: Dict[str, torch.Tensor]):
     x = build_inputs(cfg, p, batch)
     x, caches, _ = _run_stacks(cfg, p, x)
     x = apply_norm(cfg, x[:, -1:], p["final_norm"])
-    return unembed(cfg, p, x), caches
+    return gather_vocab(unembed(cfg, p, x)), caches
 
 
 def init_cache(cfg, batch: int, max_seq: int, device) -> List[Any]:
@@ -334,4 +410,4 @@ def decode_step(cfg, p: Params, caches: List[Any], token: torch.Tensor,
     x, caches, _ = _run_stacks(cfg, p, x, caches=caches,
                                cache_pos=DecodePosition(pos, token.device))
     x = apply_norm(cfg, x, p["final_norm"])
-    return unembed(cfg, p, x), caches
+    return gather_vocab(unembed(cfg, p, x)), caches

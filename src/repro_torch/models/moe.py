@@ -19,7 +19,8 @@ is dropped, in the JAX package too.  Over a mesh whose model axis has one
 rank, the JAX package leaves the layer to GSPMD, which computes the
 unsharded function; the port does the same by gathering the batch over
 the data axes, routing every token with the capacity of all of them, and
-keeping its data shard's rows.
+keeping its data shard's rows.  The shared experts are a SwiGLU FFN,
+tensor-parallel over the model axis as the dense MLP is (``swiglu``).
 
 The TP/EP recipe (``set_mesh_context(..., moe_ff_axis="data",
 fsdp=False)``) also shards the experts' hidden dim f over the data axis:
@@ -58,7 +59,8 @@ import torch.nn.functional as F
 from ..kernels import ops
 from ..parallel import collectives as coll
 from .attention import _linear
-from .common import Params, dense_init, get_mesh_context, get_moe_ff_axis
+from .common import (Params, dense_init, get_mesh_context, get_moe_ff_axis,
+                     tensor_parallel)
 
 
 def moe_init(cfg, gen: torch.Generator, dtype, device) -> Params:
@@ -87,6 +89,22 @@ def moe_axes(cfg) -> Dict[str, tuple]:
         ax.update(shared_wg=("embed", "ff"), shared_wu=("embed", "ff"),
                   shared_wd=("ff", "embed"))
     return ax
+
+
+def swiglu(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
+           wd: torch.Tensor) -> torch.Tensor:
+    """The SwiGLU FFN (silu(x wg) * (x wu)) wd of a dense MLP or the shared
+    experts.  Over a model axis (``common.tensor_parallel``) wg/wu hold
+    this rank's columns of the hidden dim and wd its rows: x enters the
+    column-parallel products through ``copy_to_split`` and the
+    row-parallel product's partial outputs are summed over the axis."""
+    tp = tensor_parallel()
+    x_in = x if tp is None else tp.column_in(x)
+    g = _linear(x_in, wg)
+    u = _linear(x_in, wu)
+    h = F.silu(g.float()).to(x.dtype) * u
+    y = _linear(h, wd)
+    return y if tp is None else tp.row_out(y)
 
 
 def _expert_ffn(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
@@ -210,9 +228,6 @@ def moe_forward(cfg, p: Params, x: torch.Tensor
         y, aux = _local_moe(cfg, x.reshape(B * S, d), p["router"], p["wg"],
                             p["wu"], p["wd"])
         y = y.reshape(B, S, d)
-    if cfg.n_shared_experts:
-        g = _linear(x, p["shared_wg"])
-        u = _linear(x, p["shared_wu"])
-        h = F.silu(g.float()).to(x.dtype) * u
-        y = y + _linear(h, p["shared_wd"])
+    if cfg.n_shared_experts:  # tensor-parallel over the model axis
+        y = y + swiglu(x, p["shared_wg"], p["shared_wu"], p["shared_wd"])
     return y, aux

@@ -10,6 +10,9 @@ JAX names (``enc_stack/b0/...``, ``dec_stack/b0/...``, an untied
 The decode cache holds, per decoder layer, the self-attention K/V and the
 cross-attention K/V of the prompt's encoder output (``cross_k``,
 ``cross_v``: (B, enc_seq, KV, hd)), which prefill fills and decode reads.
+Over a model axis the embedding, the unembedding and the loss are
+vocabulary-parallel as in ``models/lm.py`` (``embed_lookup``, ``unembed``,
+``common.vocab_parallel_cross_entropy``).
 """
 from __future__ import annotations
 
@@ -20,8 +23,9 @@ import torch
 from .attention import DecodePosition
 from .blocks import block_axes, init_block_cache
 from .common import (Params, apply_norm, dtype_of, embed_init, norm_axes,
-                     norm_init, softmax_cross_entropy, stacked_axes)
-from .lm import gather_params, global_mean, init_stack, run_stack, unembed
+                     norm_init, stacked_axes, vocab_parallel_cross_entropy)
+from .lm import (embed_lookup, gather_params, gather_vocab, global_mean,
+                 init_stack, run_stack, unembed)
 
 MAX_DEC_POS = 32_768
 ENC, DEC = ("encoder",), ("decoder",)
@@ -71,26 +75,32 @@ def encode(cfg, p: Params, frames: torch.Tensor) -> torch.Tensor:
 def _decoder(cfg, p: Params, batch: Dict[str, torch.Tensor], collect: bool):
     enc_out = encode(cfg, p, batch["frames"])
     tokens = batch["tokens"]
-    x = p["embed"][tokens] + p["pos_dec"][:tokens.shape[1]]
+    x = embed_lookup(p["embed"], tokens) + p["pos_dec"][:tokens.shape[1]]
     x, cache, _ = run_stack(cfg, p["dec_stack"], x, DEC, cfg.n_layers,
                             collect=collect, enc_out=enc_out)
     return x, cache
 
 
-def forward(cfg, p: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Full-sequence logits (B, S, padded_vocab) of the tokens."""
+def _logits(cfg, p: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """``unembed``'s logits of the tokens: over a model axis the rank's
+    block of the vocabulary."""
     p = gather_params(p, param_axes(cfg))
     x, _ = _decoder(cfg, p, batch, collect=False)
     return unembed(cfg, p, apply_norm(cfg, x, p["final_norm"]))
+
+
+def forward(cfg, p: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Full-sequence logits (B, S, padded_vocab) of the tokens."""
+    return gather_vocab(_logits(cfg, p, batch))
 
 
 def loss_fn(cfg, p: Params, batch: Dict[str, torch.Tensor]
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token CE of the tokens (shift by one); returns (CE, {"loss",
     "ce"}): no aux loss, as in the JAX package."""
-    logits = forward(cfg, p, batch)
-    ce = softmax_cross_entropy(logits[:, :-1, :], batch["tokens"][:, 1:],
-                               cfg.vocab_size)
+    logits = _logits(cfg, p, batch)
+    ce = vocab_parallel_cross_entropy(logits[:, :-1, :],
+                                      batch["tokens"][:, 1:], cfg.vocab_size)
     loss = global_mean(ce)
     return loss, {"loss": loss, "ce": loss}
 
@@ -101,7 +111,7 @@ def prefill(cfg, p: Params, batch: Dict[str, torch.Tensor]):
     p = gather_params(p, param_axes(cfg))
     x, cache = _decoder(cfg, p, batch, collect=True)
     x = apply_norm(cfg, x[:, -1:], p["final_norm"])
-    return unembed(cfg, p, x), [cache]
+    return gather_vocab(unembed(cfg, p, x)), [cache]
 
 
 def init_cache(cfg, batch: int, max_seq: int, device) -> List[Any]:
@@ -127,8 +137,8 @@ def decode_step(cfg, p: Params, caches: List[Any], token: torch.Tensor,
     p = gather_params(p, param_axes(cfg))
     cache_pos = DecodePosition(pos, token.device)
     row = torch.clamp(cache_pos.pos, max=MAX_DEC_POS - 1).long().reshape(1)
-    x = p["embed"][token] + p["pos_dec"].index_select(0, row)
+    x = embed_lookup(p["embed"], token) + p["pos_dec"].index_select(0, row)
     x, _, _ = run_stack(cfg, p["dec_stack"], x, DEC, cfg.n_layers,
                         caches=caches[0], cache_pos=cache_pos)
     x = apply_norm(cfg, x, p["final_norm"])
-    return unembed(cfg, p, x), caches
+    return gather_vocab(unembed(cfg, p, x)), caches

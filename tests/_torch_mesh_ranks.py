@@ -139,7 +139,8 @@ def job_forward(workdir, mesh, job):
 
 def job_moe(workdir, mesh, job):
     """The MoE layer over the mesh: its experts over the model axis (under
-    the "tp" recipe their hidden dim over data too), the tokens over data;
+    the "tp" recipe their hidden dim over data too), the shared experts'
+    hidden dim over the model axis (tensor-parallel), the tokens over data;
     with "grad", also the gradients of sum(y * ct) (ct the batch file's
     cotangent) and, apart, of the aux loss: every weight's summed over the
     data ranks that do not shard it (``sum_over_data``) and gathered, and
@@ -155,7 +156,8 @@ def job_moe(workdir, mesh, job):
     inputs = load(workdir / job["batch"])
     ff = "data" if job.get("recipe") == "tp" else None
     expert = {"wg": ("model", None, ff), "wu": ("model", None, ff),
-              "wd": ("model", ff, None)}
+              "wd": ("model", ff, None), "shared_wg": (None, "model"),
+              "shared_wu": (None, "model"), "shared_wd": ("model", None)}
     specs = {k: expert.get(k, (None,) * v.dim()) for k, v in p.items()}
     p = shd.shard_tree(p, specs, mesh)
     xl = shd.shard_tree({"x": torch.from_numpy(inputs["x"])},
@@ -445,9 +447,11 @@ def job_pipeline(workdir, mesh, job):
 def job_collectives(workdir, mesh, job):
     """One layer over the mesh ("moe": the MoE layer, its experts over the
     model axis; "attention": self-attention with ``attn_shard`` "seq"),
-    its tokens over data: ``roofline.collective_bytes()`` of its forward
-    ("fwd/<kind>") and, apart, of the backward of sum(y * ct) to every
-    weight and the tokens ("bwd/<kind>"), and the layer's output."""
+    its weights cut by the job's "specs" (a leaf it does not name
+    replicated), its tokens over data: ``roofline.collective_bytes()`` of
+    its forward ("fwd/<kind>") and, apart, of the backward of sum(y * ct)
+    to every weight and the tokens ("bwd/<kind>"), and the layer's
+    output."""
     import torch
     from repro_torch.models import moe
     from repro_torch.models.attention import attention_forward
@@ -459,11 +463,10 @@ def job_collectives(workdir, mesh, job):
     cfg = _cfg(job)
     p = _params(workdir, job)
     inputs = load(workdir / job["batch"])
+    specs = {k: tuple(job["specs"].get(k, (None,) * v.dim()))
+             for k, v in p.items()}
+    p = shd.shard_tree(p, specs, mesh)
     if job["layer"] == "moe":
-        specs = {k: ("model", None, None) if k in ("wg", "wu", "wd")
-                 else (None,) * v.dim() for k, v in p.items()}
-        p = shd.shard_tree(p, specs, mesh)
-
         def layer(p, x):
             return moe.moe_forward(cfg, p, x)[0]
     else:
@@ -489,10 +492,112 @@ def job_collectives(workdir, mesh, job):
     return out
 
 
+def job_shapes(workdir, mesh, job):
+    """The shapes that ``gather_params`` leaves under the fsdp rules on the
+    mesh: of the leaves outside the stacks, and of layer 0's (each stack's
+    first layer), by flattened name, with the full shapes beside them."""
+    import torch
+    from repro_torch import convert
+    from repro_torch.models import build
+    from repro_torch.models.common import (clear_mesh_context, layer_slice,
+                                           map_axes, map_tree)
+    from repro_torch.models.lm import gather_params
+    bundle = build(_cfg(job))
+    params = bundle.init(0, device="meta")
+    full = map_tree(lambda t: torch.zeros(t.shape, dtype=t.dtype), params)
+    axes = bundle.param_logical_axes()
+    _, local, _ = _sharded_setup(mesh, bundle, full, {})
+    try:
+        top = gather_params(local, axes)
+        out = {f"top/{k}": v for k, v in convert.flatten(
+            {k: v for k, v in top.items() if k != "stacks"}).items()}
+        for i, (stack, ax) in enumerate(zip(local["stacks"],
+                                            axes["stacks"])):
+            layer_axes = map_axes(lambda a: tuple(a[1:]), ax)
+            layer = gather_params(layer_slice(stack, 0), layer_axes)
+            out.update({f"stack{i}/{k}": v for k, v in
+                        convert.flatten(layer).items()})
+    finally:
+        clear_mesh_context()
+    full_flat = convert.flatten({k: v for k, v in full.items()
+                                 if k != "stacks"})
+    whole = {f"top/{k}": v for k, v in full_flat.items()}
+    for i, stack in enumerate(full["stacks"]):
+        whole.update({f"stack{i}/{k}": v for k, v in
+                      convert.flatten(layer_slice(stack, 0)).items()})
+    return {**{f"shape/{k}": np.array(v.shape, np.int64)
+               for k, v in out.items()},
+            **{f"full/{k}": np.array(v.shape, np.int64)
+               for k, v in whole.items()}}
+
+
+def job_flops(workdir, mesh, job):
+    """``roofline.count_flops`` of the forward of the rank's data shard:
+    over the mesh (the parameters cut by the fsdp rules) and unsharded (the
+    whole parameters, no mesh context), with the logits of each."""
+    from repro_torch.models import build
+    from repro_torch.models.common import clear_mesh_context
+    from repro_torch.roofline import count_flops
+    bundle = build(_cfg(job))
+    params = _params(workdir, job)
+    _, local, lbatch = _sharded_setup(mesh, bundle, params,
+                                      _batch(workdir, job))
+    out = {}
+    try:
+        out["sharded"] = np.int64(count_flops(
+            lambda: out.setdefault("logits", bundle.forward(local, lbatch))))
+    finally:
+        clear_mesh_context()
+    out["unsharded"] = np.int64(count_flops(
+        lambda: out.setdefault("want", bundle.forward(params, lbatch))))
+    return out
+
+
+def job_vocab(workdir, mesh, job):
+    """The vocabulary-parallel pieces on their own over the mesh, the
+    vocabulary over the model axis and the rows over data:
+    ``vocab_parallel_cross_entropy`` of the batch file's padded logits
+    (its "vocab" real rows) and labels, with the gradient of sum(ce * ct)
+    to the logits; ``embed_lookup`` of its table and tokens, with the
+    gradient of sum(x * ct_x) to the table (summed over the data ranks);
+    all gathered."""
+    import torch
+    from repro_torch.models.common import (clear_mesh_context,
+                                           set_mesh_context,
+                                           vocab_parallel_cross_entropy)
+    from repro_torch.models.lm import embed_lookup
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel import sharding as shd
+    a = {k: torch.from_numpy(v) for k, v in
+         load(workdir / job["batch"]).items()}
+    specs = {"logits": ("data", None, "model"), "labels": ("data", None),
+             "ct": ("data", None), "table": ("model", None),
+             "tokens": ("data", None), "ct_x": ("data", None, None)}
+    loc = shd.shard_tree(a, specs, mesh)
+    logits = loc["logits"].requires_grad_(True)
+    table = loc["table"].requires_grad_(True)
+    set_mesh_context(mesh, ("data",))
+    try:
+        ce = vocab_parallel_cross_entropy(logits, loc["labels"],
+                                          job["vocab"])
+        x = embed_lookup(table, loc["tokens"])
+        g_logits, = torch.autograd.grad((ce * loc["ct"]).sum(), logits)
+        g_table, = torch.autograd.grad((x * loc["ct_x"]).sum(), table)
+        g_table = coll.psum_raw(g_table, mesh, "data")
+    finally:
+        clear_mesh_context()
+    return shd.gather_tree(
+        {"ce": ce.detach(), "grad_logits": g_logits, "x": x.detach(),
+         "grad_table": g_table},
+        {"ce": ("data", None), "grad_logits": specs["logits"], "x": ("data", None, None),
+         "grad_table": specs["table"]}, mesh)
+
+
 JOBS = {"forward": job_forward, "moe": job_moe, "ssd": job_ssd,
         "grad": job_grad, "step": job_step, "decode": job_decode, "tenants": job_tenants,
         "pipeline": job_pipeline, "collectives": job_collectives,
-        "serve": job_serve}
+        "serve": job_serve, "shapes": job_shapes, "flops": job_flops,
+        "vocab": job_vocab}
 
 
 def main(workdir, rank, world, port):

@@ -357,11 +357,17 @@ def test_calibration_fit_equals_the_count_at_depth(cells):
 
 SMALL = ShapeSpec("small", 64, 8, "prefill")
 # kinds whose bytes differ from XLA's parse of the JAX package's prefill
-# with the same shardings: the port gathers every ZeRO-3 weight whole
-# (all-gather) and its seq-sharded attention's K and V, where GSPMD keeps
-# some products sharded and reshards activations instead (all-to-all,
-# collective-permute) and sums partial products (all-reduce); neither
-# reduces and scatters in a forward
+# with the same shardings.  The port gathers its ZeRO-3 weights over data
+# and keeps their model blocks (tensor-parallel): reduced qwen2_0_5b's 2 KV
+# heads do not divide the 4 model ranks, so its attention gathers q, k and
+# v's columns and its seq-sharded core gathers K, V and y (all-gather), and
+# it sums the row-parallel outputs and the vocabulary-parallel embedding
+# (all-reduce); GSPMD reshards some activations its own way (all-to-all,
+# collective-permute) and sums fewer partial products.  Neither reduces
+# and scatters in a forward.  The port's bytes (fp32, a rank; both sides
+# printed): all-gather 755,968 -> 619,776 and all-reduce 0 -> 327,680 when
+# the projections became tensor-parallel, all-to-all and
+# collective-permute 0 -> 0; XLA's 635,136, 65,536, 65,536 and 1,024
 DIFFERING_KINDS = {"all-gather", "all-reduce", "all-to-all",
                    "collective-permute"}
 

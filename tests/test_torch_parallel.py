@@ -16,8 +16,16 @@ which is held against JAX's ``decode_step``.  The TP/EP recipe
 on (2, 4), (4, 2) and (8, 1) meshes and reduced deepseek_moe_16b's forward
 and gradients on (2, 4) and (4, 2) against the unsharded JAX function, on
 (1, 8) against JAX's own TP ``shard_map``, and JAX's TP output on (2, 4),
-which is not the unsharded function (not mirrored).  The JAX references run here, on 8 forced host devices (``tests/conftest.py``);
-inputs and outputs pass as numpy files.  And K2's plain version with a
+which is not the unsharded function (not mirrored).  Tensor parallelism over
+the model axis, which every sharded case above runs: the rank's blocks that
+``gather_params`` leaves local, the heads-mode forward's ``count_flops`` a
+quarter of the unsharded forward's, forward and gradients against the JAX local
+function where a split cuts a head (reduced qwen2_0_5b's 2 KV heads,
+whisper_large_v3) and on whole heads, and the vocabulary-parallel cross-entropy
+and embedding lookup with their gradients against ``softmax_cross_entropy`` and
+``jnp.take``.  The JAX references run here, on 8 forced host devices
+(``tests/conftest.py``); inputs and outputs pass as numpy files.  And K2's
+plain version with a
 ``q_offset`` against JAX's ``chunked_attention`` at the shard's positions.
 """
 import dataclasses
@@ -38,6 +46,7 @@ from repro.models import build as ref_build
 from repro.models.attention import chunked_attention
 from repro.models.common import (clear_mesh_context, set_activation_rules,
                                  set_mesh_context)
+from repro.models.common import softmax_cross_entropy as ref_softmax_ce
 from repro.models.moe import moe_forward, moe_init
 from repro.models.ssd import ssd_scan_ref
 from repro.parallel import sharding as ref_shd
@@ -55,10 +64,10 @@ pytestmark = pytest.mark.skipif(len(jax.devices()) < 8,
                                 reason="needs 8 host devices")
 
 # The JAX test's limit for the meshed forward (test_parallel.py:51), and
-# the tighter one the port meets: both paths run fp32, the port's sharded
-# forward computes each product and attention row as its local forward does
-# (the shards only move data), so the two differ by the JAX and PyTorch
-# reductions' orders alone.
+# the tighter one the port meets: both paths run fp32 and differ by the
+# order of their sums alone (the JAX and PyTorch reductions', and the
+# row-parallel products' partial sums over the model ranks, added in rank
+# order); the largest difference seen is 7.2e-7 (qwen2_0_5b's logits).
 FWD_TOL, FWD_TIGHT = 2e-3, 1e-5
 # MoE against JAX (test_parallel.py:75) and the scan (test_parallel.py:94)
 MOE_TOL, SSD_TOL = 1e-4, 2e-4
@@ -87,10 +96,31 @@ DECODE_CASES = [("qwen2_0_5b", 32, 5), ("qwen2_0_5b", 32, 21),
                 ("hymba_1_5b", 64, 9), ("hymba_1_5b", 64, 37),
                 ("mamba2_1_3b", 32, 7), ("whisper_large_v3", 32, 21)]
 
+# (arch, attention mode, overrides): with the reduced 4 query and 2 KV heads
+# the 4 model ranks' column blocks cut a KV head (the columns gathered, the
+# core as on one device); with 4 KV heads each rank's block is one whole
+# head (heads: no collective in the core; seq: the all-to-alls)
 FORWARD_CASES = [("llama3_2_1b", "seq", {}), ("llama3_2_1b", "replicated", {}),
                  ("llama3_2_1b", "heads", {"n_kv_heads": 4}),
                  ("hymba_1_5b", "seq", {}), ("hymba_1_5b", "replicated", {}),
-                 ("hymba_1_5b", "heads", {"n_kv_heads": 4})]
+                 ("hymba_1_5b", "heads", {"n_kv_heads": 4}),
+                 ("llama3_2_1b", "seq", {"n_kv_heads": 4}),
+                 ("hymba_1_5b", "seq", {"n_kv_heads": 4}),
+                 ("qwen3_4b", "seq", {"n_kv_heads": 4})]
+
+# tensor-parallel forward and gradients against the JAX local function, on
+# (2, 4): splits that cut a head (qwen2_0_5b's 2 KV heads with their
+# biases; whisper_large_v3's self-, cross- and encoder attention and its
+# GELU MLP's biases) and whole heads (whisper's cross-attention on the
+# rank's heads; qwen3_4b's qk-norm in seq mode; llama3_2_1b in heads mode)
+TP_CASES = [("qwen2_0_5b", {}), ("whisper_large_v3", {}),
+            ("whisper_large_v3", {"n_kv_heads": 4}),
+            ("qwen3_4b", {"n_kv_heads": 4}),
+            ("llama3_2_1b", {"n_kv_heads": 4, "attn_shard": "heads"})]
+# the vocabulary-parallel pieces: 256 padded rows of 250 real ones, 64 a
+# model rank; labels and tokens on every rank's block and the last real row
+VOCAB, VPAD = 250, 256
+VOCAB_TOL = 1e-6
 
 
 def _cfgs(arch, over):
@@ -107,6 +137,15 @@ def _flat(tree):
 def _tokens(seed=0, B=4, S=64):
     rng = np.random.default_rng(seed)
     return {"tokens": rng.integers(0, 255, (B, S)).astype(np.int32)}
+
+
+def _forward_name(arch, mode, over):
+    return f"forward_{arch}_{mode}" + "".join(
+        f"_{k}{v}" for k, v in sorted(over.items()))
+
+
+def _tp_name(arch, over):
+    return "tp_" + arch + "".join(f"_{k}{v}" for k, v in sorted(over.items()))
 
 
 def _meshed(mesh, fn, bundle, params, batch):
@@ -136,7 +175,7 @@ def results(tmp_path_factory):
     world.save(wd / "tokens.npz", tokens)
 
     for arch, mode, over in FORWARD_CASES:
-        name = f"forward_{arch}_{mode}"
+        name = _forward_name(arch, mode, over)
         ref_cfg, _ = _cfgs(arch, dict(over, attn_shard=mode))
         bundle = ref_build(ref_cfg)
         params = bundle.init(jax.random.PRNGKey(0))
@@ -147,6 +186,65 @@ def results(tmp_path_factory):
         jobs.append({"kind": "forward", "name": name, "arch": arch,
                      "cfg": dict(over, attn_shard=mode),
                      "params": f"{name}.npz", "batch": "tokens.npz"})
+
+    # tensor parallelism: forward and gradients of TP_CASES against the JAX
+    # local function; gather_params' shapes; the forward's FLOPs in heads
+    # mode; the vocabulary-parallel cross-entropy and embedding lookup
+    frames = np.random.default_rng(1).standard_normal(
+        (4, 24, 64)).astype(np.float32)
+    world.save(wd / "tokens_frames.npz", dict(tokens, frames=frames))
+    for arch, over in TP_CASES:
+        name = _tp_name(arch, over)
+        ref_cfg, _ = _cfgs(arch, over)
+        bundle = ref_build(ref_cfg)
+        params = bundle.init(jax.random.PRNGKey(4))
+        batch = {"tokens": jnp.asarray(tokens["tokens"])}
+        bfile = "tokens.npz"
+        if ref_cfg.family == "encdec":
+            batch["frames"] = jnp.asarray(frames)
+            bfile = "tokens_frames.npz"
+        clear_mesh_context()
+        logits = bundle.forward(params, batch)
+        (loss, _), grads = jax.jit(jax.value_and_grad(
+            bundle.loss, has_aux=True))(params, batch)
+        refs[name] = (np.asarray(logits, np.float32), float(loss),
+                      _flat(grads))
+        world.save(wd / f"{name}.npz", _flat(params))
+        for kind in ("forward", "grad"):
+            jobs.append({"kind": kind, "name": f"{name}_{kind}",
+                         "arch": arch, "cfg": over, "params": f"{name}.npz",
+                         "batch": bfile})
+    for arch in ("hymba_1_5b", "deepseek_moe_16b"):
+        jobs.append({"kind": "shapes", "name": f"shapes_{arch}",
+                     "arch": arch, "cfg": {"tie_embeddings": False}})
+    jobs.append({"kind": "flops", "name": "flops", "arch": "llama3_2_1b",
+                 "cfg": {"n_kv_heads": 4, "attn_shard": "heads"},
+                 "params": f"{_tp_name('llama3_2_1b', TP_CASES[-1][1])}.npz",
+                 "batch": "tokens.npz"})
+    rng = np.random.default_rng(12)
+    vocab = {"logits": (rng.standard_normal((4, 8, VPAD)) * 3
+                        ).astype(np.float32),
+             "labels": rng.integers(0, VOCAB, (4, 8)).astype(np.int64),
+             "ct": rng.standard_normal((4, 8)).astype(np.float32),
+             "table": rng.standard_normal((VPAD, 16)).astype(np.float32),
+             "tokens": rng.integers(0, VOCAB, (4, 8)).astype(np.int64),
+             "ct_x": rng.standard_normal((4, 8, 16)).astype(np.float32)}
+    for key in ("labels", "tokens"):  # each data rank: every model block
+        vocab[key][0, :5] = vocab[key][2, :5] = [3, 70, 130, 200, VOCAB - 1]
+    world.save(wd / "vocab.npz", vocab)
+    lab, ct = jnp.asarray(vocab["labels"]), jnp.asarray(vocab["ct"])
+    tok, ct_x = jnp.asarray(vocab["tokens"]), jnp.asarray(vocab["ct_x"])
+    ce_fn = lambda lg: ref_softmax_ce(lg, lab, VOCAB)  # noqa: E731
+    take = lambda t: jnp.take(t, tok, axis=0)  # noqa: E731
+    refs["vocab"] = {
+        "ce": np.asarray(ce_fn(jnp.asarray(vocab["logits"]))),
+        "grad_logits": np.asarray(jax.grad(lambda lg: jnp.sum(
+            ce_fn(lg) * ct))(jnp.asarray(vocab["logits"]))),
+        "x": np.asarray(take(jnp.asarray(vocab["table"]))),
+        "grad_table": np.asarray(jax.grad(lambda t: jnp.sum(
+            take(t) * ct_x))(jnp.asarray(vocab["table"])))}
+    jobs.append({"kind": "vocab", "name": "vocab", "batch": "vocab.npz",
+                 "vocab": VOCAB})
 
     # MoE: (4, 16, 64) tokens, E 8 over the 4 model ranks
     for cf in (1.25, 16.0):
@@ -375,11 +473,115 @@ def results(tmp_path_factory):
 def test_sharded_forward_matches_jax_local_forward(results, arch, mode,
                                                    over):
     refs, outs, _, _ = results
-    name = f"forward_{arch}_{mode}"
+    name = _forward_name(arch, mode, over)
     got, want = outs[name]["logits"], refs[name]
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, rtol=FWD_TOL, atol=FWD_TOL)
     np.testing.assert_allclose(got, want, rtol=FWD_TIGHT, atol=FWD_TIGHT)
+
+
+@pytest.mark.parametrize("arch,over", TP_CASES)
+def test_tensor_parallel_forward_matches_jax_local(results, arch, over):
+    """The rank's column and row blocks of every dense projection, its block
+    of the vocabulary for the embedding and the unembedding (the logits
+    gathered), on (2, 4), against the JAX package's local forward."""
+    refs, outs, _, _ = results
+    got, want = outs[f"{_tp_name(arch, over)}_forward"]["logits"], \
+        refs[_tp_name(arch, over)][0]
+    assert got.shape == want.shape
+    print(arch, over, "max |port - jax|", np.abs(got - want).max())
+    np.testing.assert_allclose(got, want, rtol=FWD_TOL, atol=FWD_TOL)
+    np.testing.assert_allclose(got, want, rtol=FWD_TIGHT, atol=FWD_TIGHT)
+
+
+@pytest.mark.parametrize("arch,over", TP_CASES)
+def test_tensor_parallel_gradients_match_jax_grad(results, arch, over):
+    """The loss through the vocabulary-parallel cross-entropy and every
+    leaf's gradient (each rank's block, summed over the data shards and
+    gathered) against jax.grad of the unsharded loss."""
+    refs, outs, _, _ = results
+    _, loss, ref = refs[_tp_name(arch, over)]
+    out = outs[f"{_tp_name(arch, over)}_grad"]
+    np.testing.assert_allclose(float(out["loss"]), loss, rtol=1e-5)
+    _assert_grads({k[len("grad/"):]: v for k, v in out.items()
+                   if k.startswith("grad/")}, ref)
+
+
+@pytest.mark.parametrize("arch", ["hymba_1_5b", "deepseek_moe_16b"])
+def test_gather_params_keeps_model_blocks_local(results, arch):
+    """On (2, 4), ``gather_params`` gathers the fsdp shards over data and
+    leaves every tensor-parallel leaf's model block local: q / k / v's and
+    gate / up's columns, o's and down's rows, the shared experts', the
+    embedding's and the unembedding's vocabulary block (1/4 of the leaf);
+    the SSD leaves, the norms, the router and the routed experts' other
+    dims come back whole (the experts stay cut over the model axis)."""
+    _, outs, _, _ = results
+    out = outs[f"shapes_{arch}"]
+    got = {k[len("shape/"):]: tuple(v) for k, v in out.items()
+           if k.startswith("shape/")}
+    full = {k[len("full/"):]: tuple(v) for k, v in out.items()
+            if k.startswith("full/")}
+    assert set(got) == set(full)
+    _, cfg = _cfgs(arch, {})
+    d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    V, M = cfg.padded_vocab, 4
+    want = {"top/embed": (V // M, d), "top/lm_head": (d, V // M),
+            "stack0/b0/attn/wq": (d, H * hd // M),
+            "stack0/b0/attn/wk": (d, KV * hd // M),
+            "stack0/b0/attn/wo": (H * hd // M, d),
+            "stack0/b0/mlp/wg": (d, cfg.d_ff // M),
+            "stack0/b0/mlp/wd": (cfg.d_ff // M, d)}
+    if arch == "deepseek_moe_16b":
+        fs = cfg.moe_d_ff * cfg.n_shared_experts
+        want.update({"stack1/b0/moe/shared_wg": (d, fs // M),
+                     "stack1/b0/moe/shared_wd": (fs // M, d),
+                     "stack1/b0/moe/wg": (cfg.n_experts // M, d,
+                                          cfg.moe_d_ff)})
+    for name, shape in want.items():
+        assert got[name] == shape, (name, got[name], shape)
+    tp = ("/attn/", "/mlp/", "/shared_", "top/embed", "top/lm_head")
+    for name, shape in got.items():
+        if any(t in name for t in tp):
+            assert np.prod(shape) * M == np.prod(full[name]), name
+        elif "/moe/w" not in name:
+            assert shape == full[name], (name, shape, full[name])
+    if arch == "hymba_1_5b":
+        ssd = [n for n in got if "/ssd/" in n]
+        assert len(ssd) == 12 and all(got[n] == full[n] for n in ssd)
+
+
+def test_heads_mode_forward_flops_are_a_quarter(results):
+    """Reduced llama3_2_1b with 4 KV heads in heads mode on (2, 4): a rank's
+    ``count_flops`` of the forward is exactly a quarter of the unsharded
+    forward's on the same data shard (every product and each head's
+    attention split four ways), and its logits are the unsharded ones."""
+    _, outs, _, _ = results
+    out = outs["flops"]
+    assert int(out["sharded"]) * 4 == int(out["unsharded"]), \
+        (int(out["sharded"]), int(out["unsharded"]))
+    np.testing.assert_allclose(out["logits"], out["want"], rtol=FWD_TIGHT,
+                               atol=FWD_TIGHT)
+
+
+@pytest.mark.parametrize("piece", ["cross_entropy", "embedding"])
+def test_vocab_parallel_pieces_match_jax(results, piece):
+    """On (2, 4), 64 padded-vocabulary rows a model rank: the
+    cross-entropy of the rank's block of the logits (labels on every block
+    and on the last real row, the 6 padded rows masked on the last block)
+    and its gradient to the logits, against ``softmax_cross_entropy`` and
+    jax.grad; the lookup of the rank's rows summed over the axis and its
+    gradient to the table, against ``jnp.take``; fp32, 1e-6."""
+    refs, outs, _, _ = results
+    out, ref = outs["vocab"], refs["vocab"]
+    keys = ("ce", "grad_logits") if piece == "cross_entropy" else \
+        ("x", "grad_table")
+    for key in keys:
+        assert out[key].shape == ref[key].shape, key
+        np.testing.assert_allclose(out[key], ref[key], rtol=VOCAB_TOL,
+                                   atol=VOCAB_TOL)
+    if piece == "cross_entropy":
+        assert np.abs(ref["grad_logits"][..., VOCAB:]).max() == 0
+        assert (out["grad_logits"][..., VOCAB:] == 0).all()
 
 
 @pytest.mark.parametrize("arch,mode", [("llama3_2_1b", "seq"),

@@ -847,6 +847,17 @@ def phase_kernels(torch, dev):
             matmul_case(MESH_TP_TOKENS, K, N, False, dtype,
                         extra={"tensor_parallel": what,
                                "mesh": list(MESH)})
+    # a tensor-parallel rank's SSD products (mamba2_1_3b over MESH[1] model
+    # ranks, mesh_ssd_products): at the mesh phase's MESH_TP_TOKENS rows,
+    # fp32 (its forward and step) and bf16, and in bf16 at a rank's
+    # MESH_SSD_TRAIN_ROWS of mamba2_1_3b_train's 8 x 512
+    for dtype, M in ((torch.float32, MESH_TP_TOKENS),
+                     (torch.bfloat16, MESH_TP_TOKENS),
+                     (torch.bfloat16, MESH_SSD_TRAIN_ROWS)):
+        for what, K, N, is_tied in mesh_ssd_products(mesh_ssd_config()):
+            matmul_case(M, K, N, is_tied, dtype,
+                        extra={"tensor_parallel": f"ssd {what}",
+                               "mesh": list(MESH)})
 
     # the wmma kernel and its split-K reduce: bf16 products TMA cannot take
     # (a row-major w with N % 8 != 0; K % 8 != 0, w the tied layout), at a
@@ -1348,8 +1359,16 @@ def phase_kernels(torch, dev):
     # seq_parallel_ssd's second pass runs it), fp32 and bf16.  The least
     # operations form
     # C B^T once per (batch row, chunk of 256) and the rest per head; no
-    # PyTorch call computes the scan (library: none).
+    # PyTorch call computes the scan (library: none).  And a model rank's
+    # 32 of the 64 heads (mesh_ssd_config over MESH[1] ranks): the mesh
+    # phase's fp32 shard (b 2, S 512), mamba2_1_3b_train's bf16 (b 8, S
+    # 512) and hymba_1_5b_train's (b 2, S 2048, P 50, N 16).
     H, chunk = 64, 256
+    Hr = mesh_ssd_config().ssm_heads // MESH[1]
+    rank_heads = [(torch.float32, MESH_BATCH // MESH[0], MESH_SEQ, False, 64,
+                   128, 1.0, Hr),
+                  (torch.bfloat16, 8, 512, False, 64, 128, 1.0, Hr),
+                  (torch.bfloat16, 2, 2048, False, 50, 16, 1.0, Hr)]
     ssd_cases = [(torch.float32, 8, 512, False, 64, 128, 1.0),
                  (torch.float32, 8, 449, False, 64, 128, 1.0),
                  (torch.bfloat16, 8, 512, False, 64, 128, 1.0),
@@ -1366,7 +1385,8 @@ def phase_kernels(torch, dev):
                  (torch.bfloat16, 8, 449, False, 50, 16, 1.0),
                  (torch.bfloat16, 2, 1800, True, 50, 16, 1.0),
                  (torch.bfloat16, 1, 4096, True, 50, 16, 1e-4)]
-    for dtype, b, S, with_init, P, N, a_scale in ssd_cases:
+    ssd_cases = [(*case, H) for case in ssd_cases] + rank_heads
+    for dtype, b, S, with_init, P, N, a_scale, H in ssd_cases:
         es = torch.tensor([], dtype=dtype).element_size()
         x = randn(b, S, H, P, dtype=dtype, scale=0.5)
         dt = F.softplus(randn(b, S, H, dtype=torch.float32))
@@ -1393,7 +1413,9 @@ def phase_kernels(torch, dev):
               dtype, got, ssd_scan_plain(*args, chunk=chunk, init_state=init),
               es * (2 * b * S * H * P + 2 * b * S * N)
               + 4 * (b * S * H + H + b * H * P * N * (2 if with_init else 1)),
-              n_ops, fns, relative=True, route=route)
+              n_ops, fns, relative=True, route=route,
+              extra=None if H == 64 else {"tensor_parallel": f"{H} of 64 "
+                                          "heads", "mesh": list(MESH)})
         del x, Bm, Cm, init, args, got
 
     # ssd_scan_bwd, K4's backward (dx, ddt, dA, dB, dC, d init_state from x,
@@ -1420,7 +1442,8 @@ def phase_kernels(torch, dev):
                      (torch.bfloat16, 2, 2048, False, 50, 16, 1.0),
                      (torch.bfloat16, 2, 1800, True, 50, 16, 1.0),
                      (torch.bfloat16, 1, 4096, True, 50, 16, 1e-4)]
-    for dtype, b, S, with_init, P, N, a_scale in ssd_bwd_cases:
+    ssd_bwd_cases = [(*case, H) for case in ssd_bwd_cases] + rank_heads
+    for dtype, b, S, with_init, P, N, a_scale, H in ssd_bwd_cases:
         es = torch.tensor([], dtype=dtype).element_size()
         x = randn(b, S, H, P, dtype=dtype, scale=0.5)
         dt = F.softplus(randn(b, S, H, dtype=torch.float32))
@@ -1458,7 +1481,9 @@ def phase_kernels(torch, dev):
               + (["long_memory"] if a_scale != 1.0 else []), dtype,
               tuple(g for g in got if g is not None),
               tuple(w for w in want if w is not None), n_bytes, n_ops, fns,
-              relative=True, route=route)
+              relative=True, route=route,
+              extra=None if H == 64 else {"tensor_parallel": f"{H} of 64 "
+                                          "heads", "mesh": list(MESH)})
         del x, BC, Bm, Cm, dy, init, dstate, args, got, want
         free(torch)
     del flush
@@ -2034,6 +2059,13 @@ MESH_BEFORE = {"tp_forward": {"all_gather_gb": 3.014, "peak_gb": 8.48},
 MESH_SERVE_BATCH, MESH_SERVE_MAX_SEQ, MESH_SERVE_NEW = 4, 256, 8
 MESH_SERVE_LENGTHS = (128, 71, 96, 64)
 SERVE_COUNTS = ("prefills", "decode_steps", "tokens_out")
+# the SSD over the model axis: mamba2_1_3b at full width, depth 2, fp32,
+# on the phase's mesh and batch, each model rank on 32 of the 64 heads
+# (K4 at H 32, K1 at the rank's blocks of mesh_ssd_products); its decode
+# step at the split-KV check's batch, token and position.  A rank's rows
+# at mamba2_1_3b_train's 8 x 512 over MESH[0] data ranks, at which the
+# kernels phase also times the blocks in bf16
+MESH_SSD_TRAIN_ROWS = 8 * 512 // MESH[0]
 # the pipeline check in the mesh phase's world: 4 stages over a "pod" axis
 # of its 4 ranks, each one layer of qwen2_0_5b at full width; 8
 # microbatches of 1 x 512 (bubble fraction 3 / 11)
@@ -2059,6 +2091,26 @@ def mesh_tp_products(cfg):
     return [("q", d, qo), ("o", qo, d), ("mlp_up", d, cfg.d_ff // M),
             ("mlp_down", cfg.d_ff // M, d), ("shared_up", d, fs),
             ("shared_down", fs, d), ("unembed", d, cfg.padded_vocab // M)]
+
+
+def mesh_ssd_config():
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("mamba2_1_3b"), n_layers=2,
+                               param_dtype="float32", compute_dtype="float32")
+
+
+def mesh_ssd_products(cfg):
+    """(name, K, N, tied) of a model rank's products in ``mesh_ssd_config``'s
+    model over the MESH[1] model ranks: the column blocks of w_z and w_x
+    (one shape), of w_dt, the row block of w_out, the replicated w_B and
+    w_C (one shape, whole) and the tied unembedding's block of the
+    vocabulary (the embedding's rows, read transposed)."""
+    M, d = MESH[1], cfg.d_model
+    return [("w_z_w_x", d, cfg.d_inner // M, False),
+            ("w_dt", d, cfg.ssm_heads // M, False),
+            ("w_out", cfg.d_inner // M, d, False),
+            ("w_B_w_C", d, cfg.ssm_state, False),
+            ("unembed", d, cfg.padded_vocab // M, True)]
 
 
 def mesh_batch(torch, cfg):
@@ -2112,8 +2164,9 @@ def mesh_decode_config():
 
 
 def mesh_decode_inputs(torch, bundle):
-    """The split-KV decode step's caches (every slot random, so a slot
-    wrongly attended shows) and token, the same on every rank."""
+    """A meshed decode step's caches (every slot and state random, so a
+    slot wrongly attended or a state wrongly split shows) and token, the
+    same on every rank."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
     caches = bundle.init_cache(MESH_DECODE_BATCH, MESH_DECODE_SEQ,
                                device="cuda")
@@ -2192,8 +2245,12 @@ def phase_mesh(torch, dev):
     shard) are held against their plain versions in the kernels phase.
     Then the forward under the TP/EP recipe against the same logits, and
     a ``ServeEngine`` over the mesh (``mesh_serve``) against the unsharded
-    engine run here first: the same tokens and counts.  The ranks share
-    one card: their times are no speed figure."""
+    engine run here first: the same tokens and counts.  Then the SSD
+    tensor-parallel over its heads (``mesh_ssd_config``, mamba2_1_3b at
+    depth 2, fp32): its logits, one step and one decode step over caches
+    cut by ``cache_specs`` against the unsharded run here, at the limits
+    above, K1 at each rank block's shape and K4 at H 32, launches exact.
+    The ranks share one card: their times are no speed figure."""
     import multiprocessing as mp
     import socket
     from repro_torch.kernels import ops
@@ -2247,6 +2304,28 @@ def phase_mesh(torch, dev):
         "stats": {k: eng.stats[k] for k in SERVE_COUNTS},
         "replays": eng.decoder.replays}))
     del dbundle, eng, reqs
+    # the SSD's: mamba2_1_3b's logits, one step (no aux loss) and one
+    # decode step over random caches
+    sbundle = build(mesh_ssd_config())
+    sparams = sbundle.init(SEED, device="cuda")
+    sbatch = mesh_batch(torch, sbundle.cfg)
+    with torch.inference_mode():
+        torch.save(sbundle.forward(sparams, sbatch).cpu(),
+                   work / "ssd_logits.pt")
+    new, metrics = make_train_step(sbundle.loss, tcfg)(
+        init_state(sparams, tcfg.opt), sbatch)
+    torch.save({"params": _to(new["params"], "cpu"),
+                "m": _to(new["opt"]["m"], "cpu"),
+                "metrics": {k: float(v) for k, v in metrics.items()}},
+               work / "ssd_step.pt")
+    del new, metrics, sbatch
+    caches, token = mesh_decode_inputs(torch, sbundle)
+    with torch.inference_mode():
+        logits, caches = sbundle.decode(sparams, caches, token,
+                                        MESH_DECODE_POS)
+    torch.save({"logits": logits.cpu(), "caches": _to(caches, "cpu")},
+               work / "ssd_decode.pt")
+    del sbundle, sparams, caches, token, logits
     free(torch)
     ref_s = time.perf_counter() - t_phase
 
@@ -2366,6 +2445,57 @@ def _mesh_rank(rank, world, port, work):
         return d.max().item(), bool((d <= tol * (1 + want.float().abs()))
                                     .all())
 
+    def step_against(new, metrics, ref, specs, keys):
+        """A sharded step's metrics ``keys``, its parameters and first
+        moments against the unsharded step's ``ref`` (the rank's blocks
+        under ``specs``): the metrics within 1e-4 (1 + |ref|), every
+        moment within 1e-4 of its leaf's largest value, every parameter
+        whose moment is above 1e-6 within 1e-3 lr and each leaf within
+        5e-3 lr on average.  Returns (the worst of each, ok)."""
+        m_ok = [abs(float(metrics[k]) - ref["metrics"][k])
+                <= 1e-4 * (1 + abs(ref["metrics"][k])) for k in keys]
+        sizes = shd.mesh_shape(mesh).shape
+        worst = {"params_max_over_lr_above_1000eps": 0.0,
+                 "params_mean_over_lr": 0.0, "moments_rel": 0.0}
+        block = lambda t, s: shd.local_block(  # noqa: E731
+            t, s, sizes, coords)
+        mine_p = convert.flatten(new["params"])
+        mine_m = convert.flatten(new["opt"]["m"])
+        ref_p = convert.flatten(map_tree(block, ref["params"], specs))
+        ref_m = convert.flatten(map_tree(block, ref["m"], specs))
+        for name in mine_p:
+            rp, rm = ref_p[name].cuda(), ref_m[name].cuda()
+            dp = (mine_p[name].double() - rp.double()).abs()
+            above = rm.abs() > 1e-6
+            if above.any():
+                worst["params_max_over_lr_above_1000eps"] = max(
+                    worst["params_max_over_lr_above_1000eps"],
+                    dp[above].max().item() / MESH_LR)
+            worst["params_mean_over_lr"] = max(
+                worst["params_mean_over_lr"], dp.mean().item() / MESH_LR)
+            worst["moments_rel"] = max(
+                worst["moments_rel"],
+                (mine_m[name].double() - rm.double()).abs().max().item()
+                / max(rm.abs().max().item(), 1e-30))
+        return worst, (all(m_ok)
+                       and worst["params_max_over_lr_above_1000eps"] <= 1e-3
+                       and worst["params_mean_over_lr"] <= 5e-3
+                       and worst["moments_rel"] <= 1e-4)
+
+    def cache_against(lcaches, ref_caches, cspecs):
+        """The rank's blocks of updated decode caches against the
+        unsharded step's at 2e-4 (1 + |ref|): (max error, ok)."""
+        sizes = shd.mesh_shape(mesh).shape
+        err, ok = 0.0, True
+        for mine, want in zip(convert.flatten(lcaches).values(),
+                              convert.flatten(map_tree(
+                                  lambda t, s: shd.local_block(t, s, sizes,
+                                                               coords),
+                                  ref_caches, cspecs)).values()):
+            e, o = close(mine.cpu(), want, 2e-4)
+            err, ok = max(err, e), ok and o
+        return err, ok
+
     from repro_torch.roofline import collective_bytes
     # the sharded forward and train step, fp32 and bf16
     for dtype in ("float32", "bfloat16"):
@@ -2470,39 +2600,12 @@ def _mesh_rank(rank, world, port, work):
             out["launches"][k] = out["launches"].get(k, 0) + got.get(k, 0)
         if dtype == "float32":
             ref = torch.load(work / "step.pt", mmap=True)
-            m_ok = [abs(float(metrics[k]) - ref["metrics"][k])
-                    <= 1e-4 * (1 + abs(ref["metrics"][k]))
-                    for k in ("loss", "aux_loss", "grad_norm")]
-            sizes = shd.mesh_shape(mesh).shape
-            worst = {"params_max_over_lr_above_1000eps": 0.0,
-                     "params_mean_over_lr": 0.0, "moments_rel": 0.0}
-            block = lambda t, s: shd.local_block(  # noqa: E731
-                t, s, sizes, coords)
-            mine_p = convert.flatten(new["params"])
-            mine_m = convert.flatten(new["opt"]["m"])
-            ref_p = convert.flatten(map_tree(block, ref["params"], specs))
-            ref_m = convert.flatten(map_tree(block, ref["m"], specs))
-            for name in mine_p:
-                rp, rm = ref_p[name].cuda(), ref_m[name].cuda()
-                dp = (mine_p[name].double() - rp.double()).abs()
-                above = rm.abs() > 1e-6
-                if above.any():
-                    worst["params_max_over_lr_above_1000eps"] = max(
-                        worst["params_max_over_lr_above_1000eps"],
-                        dp[above].max().item() / MESH_LR)
-                worst["params_mean_over_lr"] = max(
-                    worst["params_mean_over_lr"], dp.mean().item() / MESH_LR)
-                worst["moments_rel"] = max(
-                    worst["moments_rel"],
-                    (mine_m[name].double() - rm.double()).abs().max().item()
-                    / max(rm.abs().max().item(), 1e-30))
+            worst, ok = step_against(new, metrics, ref, specs,
+                                     ("loss", "aux_loss", "grad_norm"))
             out[key]["unsharded_metrics"] = ref["metrics"]
             out[key].update(worst)
-            checks["step"] = {"ok": all(m_ok)
-                              and worst["params_max_over_lr_above_1000eps"]
-                              <= 1e-3 and worst["params_mean_over_lr"] <= 5e-3
-                              and worst["moments_rel"] <= 1e-4}
-            del ref, ref_p, ref_m, mine_p, mine_m
+            checks["step"] = {"ok": ok}
+            del ref
         else:  # the same weights rounded to bf16: the loss near fp32's
             ref = torch.load(work / "step.pt", mmap=True)["metrics"]
             checks["step_bfloat16_loss"] = {
@@ -2616,15 +2719,7 @@ def _mesh_rank(rank, world, port, work):
     rows = slice(coords["data"] * logits.shape[0],
                  (coords["data"] + 1) * logits.shape[0])
     err, ok = close(logits.cpu(), ref["logits"][rows], 2e-4)
-    sizes = shd.mesh_shape(mesh).shape
-    cache_err, cache_ok = 0.0, True
-    for mine, want in zip(convert.flatten(lcaches).values(),
-                          convert.flatten(map_tree(
-                              lambda t, s: shd.local_block(t, s, sizes,
-                                                           coords),
-                              ref["caches"], cspecs)).values()):
-        e, o = close(mine.cpu(), want, 2e-4)
-        cache_err, cache_ok = max(cache_err, e), cache_ok and o
+    cache_err, cache_ok = cache_against(lcaches, ref["caches"], cspecs)
     L = dbundle.cfg.n_layers
     expect = {"streamed_matmul": 7 * L + 1, "decode_attention": L}
     S_l = MESH_DECODE_SEQ // M
@@ -2698,6 +2793,152 @@ def _mesh_rank(rank, world, port, work):
     for k in ("streamed_matmul", "flash_attention", "decode_attention"):
         out["launches"][k] += got[k]
     del dbundle, slocal, eng, reqs
+    torch.cuda.empty_cache()
+
+    # the SSD tensor-parallel over the model axis (mesh_ssd_config, fp32):
+    # each rank on its 32 of the 64 heads (z, x and dt column-parallel,
+    # the x conv on its channels, K4 on its heads, the norm's sum of
+    # squares summed over the axis, w_out row-parallel; B and C
+    # replicated), its parameters cut by the fsdp rules: the forward's
+    # logits, one make_train_step step and one decode step over caches
+    # cut by cache_specs (the state by heads, the conv tails whole), each
+    # against the unsharded run at the limits above.  K1 recorded at
+    # every block's shape (mesh_ssd_products, the kernels phase's) and K4
+    # at H 32, on the fp32 routes (the backward's "simt"); launches exact
+    cfg = mesh_ssd_config()
+    bundle = build(cfg)
+    L, Hl = cfg.n_layers, cfg.ssm_heads // M
+    specs = shd.param_specs(bundle.param_logical_axes(mesh),
+                            shd.param_rules(mesh))
+    local = shd.shard_tree(bundle.init(SEED, device="cuda"), specs, mesh)
+    torch.cuda.empty_cache()
+    batch = mesh_batch(torch, cfg)
+    lbatch = shd.shard_tree(batch, shd.batch_specs(batch, mesh), mesh)
+    products, heads = set(), set()
+    matmul, scan = ops.matmul, ops.ssd_scan
+
+    def recorded_matmul(x, w):
+        products.add((x.shape[0], x.shape[1], w.shape[1]))
+        return matmul(x, w)
+
+    def recorded_scan(x, *args, **kwargs):
+        heads.add(x.shape[2])
+        return scan(x, *args, **kwargs)
+
+    ssd = out["ssd_tensor_parallel"] = {
+        "model": cfg.name, "layers": L, "heads_a_rank": Hl,
+        "batch": [MESH_BATCH, MESH_SEQ], "dtype": "float32"}
+    ops.matmul, ops.ssd_scan = recorded_matmul, recorded_scan
+    set_mesh_context(mesh, shd.batch_axes(mesh))
+    try:
+        ops.reset_launches()
+        coll.reset_stats()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode():
+            logits = bundle.forward(local, lbatch)
+        torch.cuda.synchronize()
+        got = counts()
+        want = torch.load(work / "ssd_logits.pt", mmap=True)
+        rows = slice(coords["data"] * logits.shape[0],
+                     (coords["data"] + 1) * logits.shape[0])
+        err, ok = close(logits.cpu(), want[rows], 2e-4)
+        expect = {"streamed_matmul": 6 * L + 1,
+                  "streamed_matmul_fp32": 6 * L + 1,
+                  "ssd_scan": L, "ssd_scan_fp32": L}
+        ssd["forward"] = {
+            "max_abs_err": err, "launches": {k: got[k] for k in expect},
+            "expected_launches": expect,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "collective_bytes": collective_bytes(),
+            "collectives": coll.stats_line()}
+        blocks = {what: [MESH_TP_TOKENS, K, N]
+                  for what, K, N, _ in mesh_ssd_products(cfg)}
+        ssd["products"] = blocks
+        checks["ssd_forward"] = {
+            "ok": ok and ssd["forward"]["launches"] == expect
+            and all(tuple(v) in products for v in blocks.values())
+            and heads == {Hl},
+            "rule": "|sharded - unsharded| <= 2e-4 (1 + |unsharded|); K1 6 "
+                    "a layer + 1, K4 1 a layer, fp32; K1 at each block's "
+                    "shape (the kernels phase's), K4 at H 32"}
+        del logits, want
+        tcfg = TrainConfig(opt=AdamWConfig(lr=MESH_LR, warmup_steps=1))
+        step = make_train_step(bundle.loss, tcfg, mesh=mesh, specs=specs)
+        state = init_state(local, tcfg.opt)
+        heads.clear()
+        ops.reset_launches()
+        coll.reset_stats()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        new, metrics = step(state, lbatch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        got = counts()
+        expect = train_launches(cfg, 1, lbatch["tokens"].numel())
+        ref = torch.load(work / "ssd_step.pt", mmap=True)
+        worst, ok = step_against(new, metrics, ref, specs,
+                                 ("loss", "grad_norm"))
+        ssd["step"] = {
+            "wall_ms": wall_ms,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "metrics": {k: float(v) for k, v in metrics.items()},
+            "unsharded_metrics": ref["metrics"], **worst,
+            "launches": {k: got[k] for k in expect},
+            "collective_bytes": collective_bytes(),
+            "collectives": coll.stats_line()}
+        checks["ssd_step"] = {
+            "ok": ok and ssd["step"]["launches"] == expect and heads == {Hl},
+            "expected": expect,
+            "rule": "as the fsdp step: loss and gradient norm, moments and "
+                    "parameters against the unsharded step; K4 at H 32, "
+                    "its backward on simt"}
+        for k in ("streamed_matmul", "ssd_scan", "ssd_scan_bwd"):
+            out["launches"][k] += got[k]
+        del ref, state, new, step, metrics
+        torch.cuda.empty_cache()
+    finally:
+        ops.matmul, ops.ssd_scan = matmul, scan
+        clear_mesh_context()
+    caches, token = mesh_decode_inputs(torch, bundle)
+    cspecs = shd.cache_specs(caches, mesh)
+    lcaches = shd.shard_tree(caches, cspecs, mesh)
+    ltoken = shd.shard_tree({"t": token}, shd.batch_specs({"t": token}, mesh),
+                            mesh)["t"]
+    del caches
+    set_mesh_context(mesh, shd.batch_axes(mesh), cache_seq=MESH_DECODE_SEQ)
+    coll.reset_stats()
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    with torch.inference_mode():
+        logits, lcaches = bundle.decode(local, lcaches, ltoken,
+                                        MESH_DECODE_POS)
+    torch.cuda.synchronize()
+    got = counts()
+    clear_mesh_context()
+    ref = torch.load(work / "ssd_decode.pt", mmap=True)
+    rows = slice(coords["data"] * logits.shape[0],
+                 (coords["data"] + 1) * logits.shape[0])
+    err, ok = close(logits.cpu(), ref["logits"][rows], 2e-4)
+    cache_err, cache_ok = cache_against(lcaches, ref["caches"], cspecs)
+    expect = {"streamed_matmul": 6 * L + 1, "streamed_matmul_fp32": 6 * L + 1}
+    state_heads = lcaches[0]["b0"]["state"].shape[2]
+    ssd["decode"] = {
+        "batch": MESH_DECODE_BATCH, "pos": MESH_DECODE_POS,
+        "state_heads": state_heads, "max_abs_err": err,
+        "cache_max_abs_err": cache_err,
+        "launches": {k: got[k] for k in expect}, "expected_launches": expect,
+        "collective_bytes": collective_bytes(),
+        "collectives": coll.stats_line()}
+    checks["ssd_decode"] = {
+        "ok": ok and cache_ok and state_heads == Hl
+        and ssd["decode"]["launches"] == expect,
+        "rule": "|sharded - unsharded| <= 2e-4 (1 + |unsharded|), logits and "
+                "the rank's cache block (32 heads of the state, the whole "
+                "conv tails); K1 6 a layer + 1"}
+    out["launches"]["streamed_matmul"] += got["streamed_matmul"]
+    del bundle, local, lcaches, logits, ref, batch, lbatch
     torch.cuda.empty_cache()
 
     # K4's sequence-parallel scan over the data axis (the model ranks of a

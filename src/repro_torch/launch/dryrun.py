@@ -58,10 +58,10 @@ Over the model axis a rank computes as GSPMD partitions the reference
 under ``param_rules``: its column and row blocks of every dense
 projection (attention, the MLP, the MoE's shared experts) and its block
 of the vocabulary (the embedding lookup, the unembedding and the loss's
-cross-entropy), activations crossing the axis instead of weights; so its
-counted FLOPs and live-tensor peak are its share of those products and
-logits.  The SSD block's projections are still gathered whole over the
-model axis and computed on every model rank (``models/lm.py``).
+cross-entropy) and its heads of the SSD (z, x, dt, the scan, the norm's
+block and ``w_out``; B and C replicated), activations crossing the axis
+instead of weights; so its counted FLOPs and live-tensor peak are its
+share of those products, scans and logits.
 ``--recipe tp`` is the TP/EP recipe: params and state cut by
 ``param_rules(mesh, fsdp=False)`` (nothing over data but the experts'
 hidden dim) under ``set_mesh_context(..., moe_ff_axis="data",
@@ -156,7 +156,7 @@ def _lower_step(cfg, shape, mesh, opt_cfg, recipe: str = "fsdp"):
     bundle = build(cfg)
     fsdp = recipe == "fsdp"
     rules = shd.param_rules(mesh, fsdp=fsdp)
-    param_axes = bundle.param_logical_axes()
+    param_axes = bundle.param_logical_axes(mesh)
     pspecs = shd.param_specs(param_axes, rules)
     params = bundle.init(0, device="meta")
     decode = shape.kind == "decode"

@@ -9,7 +9,7 @@ PyTorch counterpart of the JAX package's ``models/api.py``:
     prefill(params, batch)             -> (last_logits, caches)
     decode(params, caches, token, pos) -> (logits, caches)
     init_cache(batch, max_seq, device=None) -> caches
-    param_logical_axes()               -> tree of logical-axis tuples
+    param_logical_axes(mesh=None)      -> tree of logical-axis tuples
     input_specs(shape, kind=None)      -> the batch's (or a decode step's
                                           token, pos and caches) stand-ins
 
@@ -24,7 +24,9 @@ ported: the decoder-only ones (dense, moe, ssm, hybrid, vlm) by
 the card: with no CUDA device it raises.  ``loss`` is the training
 objective (``train/loop.py`` differentiates it with autograd).
 ``param_logical_axes`` gives the JAX package's axes tree leaf for leaf,
-which ``parallel.sharding`` maps to each leaf's spec on a mesh.
+which ``parallel.sharding`` maps to each leaf's spec on a mesh; given
+the mesh, the axes its ranks are cut by (the same, but where the model
+axis cuts an SSD head: then the head leaves are replicated).
 
 The shapes-only path, the port's ``jax.eval_shape``: ``init(seed,
 device="meta")`` builds the parameter tree of empty "meta" tensors, each
@@ -111,8 +113,14 @@ def build(cfg: ModelConfig) -> ModelBundle:
     def init_cache(batch: int, max_seq: int, device=None):
         return mod.init_cache(cfg, batch, max_seq, resolve_device(device))
 
-    def param_logical_axes():
-        return mod.param_axes(cfg)
+    def param_logical_axes(mesh=None):
+        """The JAX package's axes; with ``mesh``, those that the port's
+        ranks are cut by over it: where its model axis does not divide
+        the SSD's heads, the head leaves replicated (``ssd.ssd_axes``)."""
+        if mesh is None or mod is not lm:
+            return mod.param_axes(cfg)
+        from ..parallel.sharding import mesh_shape
+        return lm.param_axes(cfg, mesh_shape(mesh).shape.get("model", 1))
 
     def input_specs(shape: ShapeSpec, kind: Optional[str] = None):
         """train / prefill: the batch; decode: one new token (B, 1) int32,

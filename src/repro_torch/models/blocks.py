@@ -9,10 +9,11 @@ the MoE block, the SSM block and the hybrid block:
     decoder : norm -> causal attn -> +res ; norm -> cross-attn -> +res ;
               norm -> mlp -> +res                          (whisper)
 
-Over a model axis the attention, the MLP and the shared experts are
-tensor-parallel (``models/attention.py``, ``mlp_forward``, ``moe.swiglu``);
-the hybrid block's SSD branch reads the replicated input and computes on
-every head (its leaves gathered whole, ``models/lm.py``).
+Over a model axis the attention, the MLP, the shared experts and the SSD
+are tensor-parallel (``models/attention.py``, ``mlp_forward``,
+``moe.swiglu``, ``models/ssd.py``: the rank's heads where the axis divides
+them); the hybrid block's two branches each leave replicated through
+their own row-parallel sum, so their mean is the unsharded one.
 
 Ported from the JAX package's ``models/blocks.py``, all six kinds.  A
 LayerNorm model (whisper) uses no RoPE: its positions are learned tables
@@ -89,14 +90,15 @@ def block_init(cfg, gen: torch.Generator, dtype, device,
     return p
 
 
-def block_axes(cfg, kind: str = "dense") -> Dict:
+def block_axes(cfg, kind: str = "dense", model_size: int = 1) -> Dict:
     """``block_init``'s logical axes, leaf for leaf (the JAX package's
-    ``block_init`` returns them beside the params)."""
+    ``block_init`` returns them beside the params); the SSD's as
+    ``ssd_axes`` gives them over a model axis of ``model_size`` ranks."""
     if kind == "ssm":
-        return {"ln1": norm_axes(cfg), "ssd": ssd_axes(cfg)}
+        return {"ln1": norm_axes(cfg), "ssd": ssd_axes(cfg, model_size)}
     ax = {"ln1": norm_axes(cfg), "attn": attention_axes(cfg)}
     if kind == "hybrid":
-        ax["ssd"] = ssd_axes(cfg)
+        ax["ssd"] = ssd_axes(cfg, model_size)
     if kind == "decoder":
         ax["ln_cross"] = norm_axes(cfg)
         ax["cross"] = attention_axes(cfg, cross=True)
@@ -117,7 +119,7 @@ def block_forward(cfg, p: Params, x: torch.Tensor, kind: str = "dense", *,
     """Returns (y, cache, aux).  Prefill returns this layer's K/V, or its
     SSM state and conv tails, or both (hybrid), and a decoder's cross K/V
     (``cross_k``, ``cross_v``) from ``enc_out``, the encoder's output, to
-    seed the decode cache (K/V only where ``keep_kv``); decode returns
+    seed the decode cache (K/V, state and tails only where ``keep_kv``); decode returns
     ``cache`` updated in place (a decoder's cross K/V only read).
     ``aux``: a MoE block's Switch aux loss, None for the other kinds (the
     JAX package's 0)."""
@@ -126,8 +128,8 @@ def block_forward(cfg, p: Params, x: torch.Tensor, kind: str = "dense", *,
         if cache is not None:
             y, new_cache = ssd_decode_step(cfg, p["ssd"], h, cache)
         else:
-            y, new_cache = ssd_forward(cfg, p["ssd"], h)
-        return x + y, new_cache, None
+            y, new_cache = ssd_forward(cfg, p["ssd"], h, keep_cache=keep_kv)
+        return x + y, new_cache or {}, None
     attn = dict(causal=kind != "encoder", use_rope=cfg.norm != "layernorm")
     if cache is not None:
         y, new_cache = attention_forward(cfg, p["attn"], h, cache=cache,
@@ -139,8 +141,9 @@ def block_forward(cfg, p: Params, x: torch.Tensor, kind: str = "dense", *,
         if cache is not None:
             y_ssd, _ = ssd_decode_step(cfg, p["ssd"], h, cache)
         else:
-            y_ssd, ssd_cache = ssd_forward(cfg, p["ssd"], h)
-            new_cache.update(ssd_cache)
+            y_ssd, ssd_cache = ssd_forward(cfg, p["ssd"], h,
+                                           keep_cache=keep_kv)
+            new_cache.update(ssd_cache or {})
         y = 0.5 * (y + y_ssd)
     x = x + y
     if kind == "decoder":

@@ -32,18 +32,20 @@ its own leaves *inside* the recompute checkpoint, so the backward gathers
 them again: the ZeRO-3 per-layer all-gather of the fsdp recipe
 (``parallel/sharding.py``).  A dim sharded over a data axis is gathered
 for a consumer that differs per data shard (the backward sums over the
-data shards).  A dim sharded over the model axis stays local wherever its
-consumer is tensor-parallel: every leaf under ``attn``, ``cross``,
-``mlp``, the MoE ``shared_*``, ``embed`` and ``lm_head``
-(``TP_KEYS``), whose products run on the rank's column or row block
-(``models/attention.py``, ``blocks.mlp_forward``, ``moe.swiglu``); the
+data shards).  A dim sharded over the model axis stays local, since each
+consumer of one is tensor-parallel: every leaf under ``attn``, ``cross``,
+``mlp``, ``ssd``, the MoE ``shared_*``, ``embed`` and ``lm_head``,
+whose products run on the rank's column or row block
+(``models/attention.py``, ``blocks.mlp_forward``, ``moe.swiglu``,
+``models/ssd.py``: the SSD on the rank's heads); the
 embedding is a vocabulary-parallel lookup (``embed_lookup``) and the
 unembedding gives the rank's block of the vocabulary's logits, which the
 loss reads through ``common.vocab_parallel_cross_entropy`` and the
 callers that return logits gather (``gather_vocab``: a prefill or decode
-step only its (B, 1, V)).  The SSD leaves are still gathered over the
-model axis (for a consumer replicated over it: the backward takes the
-slice), and the expert weights stay local over it (expert parallelism,
+step only its (B, 1, V)).  Where the model axis does not divide the SSD's
+heads, its head leaves are replicated over the axis (``ssd.ssd_axes``
+of the axis' size: ``param_axes``), so nothing of them is cut over it.
+The expert weights stay local over the model axis (expert parallelism,
 ``models/moe.py``).  Under the TP/EP recipe (``set_mesh_context(...,
 moe_ff_axis="data", fsdp=False)``) no leaf is sharded over data but the
 experts' hidden dim, which stays local too.  The loss is the global token
@@ -63,9 +65,9 @@ from .attention import DecodePosition
 from .blocks import block_axes, block_forward, block_init, init_block_cache
 from .common import (Params, apply_norm, copy_tree_, dtype_of, embed_init,
                      empty_stack, get_fsdp, get_mesh_context,
-                     get_moe_ff_axis, get_recompute, layer_slice, norm_axes,
-                     norm_init, stack_trees, stacked_axes, tensor_parallel,
-                     vocab_parallel_cross_entropy)
+                     get_moe_ff_axis, get_recompute, layer_slice, map_tree,
+                     norm_axes, norm_init, stack_trees, stacked_axes,
+                     tensor_parallel, vocab_parallel_cross_entropy)
 
 
 def layer_plan(cfg) -> List[Tuple[Tuple[str, ...], int]]:
@@ -104,11 +106,14 @@ def init_stack(cfg, gen: torch.Generator, dtype, device,
     return stack
 
 
-def param_axes(cfg) -> Dict[str, Any]:
+def param_axes(cfg, model_size: int = 1) -> Dict[str, Any]:
     """The logical axes of ``init_params``'s tree, leaf for leaf: the JAX
-    package's ``init_params`` returns them beside the params."""
+    package's ``init_params`` returns them beside the params; over a
+    model axis of ``model_size`` ranks that does not divide the SSD's
+    heads, its head leaves replicated (``ssd.ssd_axes``)."""
     ax: Dict[str, Any] = {"embed": ("vocab", "embed")}
-    ax["stacks"] = [{f"b{i}": stacked_axes(block_axes(cfg, kind))
+    ax["stacks"] = [{f"b{i}": stacked_axes(block_axes(cfg, kind,
+                                                      model_size))
                      for i, kind in enumerate(kinds)}
                     for kinds, _ in layer_plan(cfg)]
     ax["final_norm"] = norm_axes(cfg)
@@ -117,24 +122,14 @@ def param_axes(cfg) -> Dict[str, Any]:
     return ax
 
 
-# the subtrees whose model-sharded dims stay local: their consumers are
-# tensor-parallel (the module docstring)
-TP_KEYS = ("attn", "cross", "mlp", "embed", "lm_head")
-
-
-def _tensor_parallel_key(key: str) -> bool:
-    return key in TP_KEYS or key.startswith("shared_")
-
-
-def _gather_leaf(t: torch.Tensor, axes: Tuple, tp: bool = False
-                 ) -> torch.Tensor:
+def _gather_leaf(t: torch.Tensor, axes: Tuple) -> torch.Tensor:
     """A leaf's local shard, cut by the rules of the mesh context's recipe
-    (``common.get_fsdp``), gathered to what the layer computes with: every
-    sharded dim but an expert dim, but the experts' hidden dim under the
-    TP/EP recipe's ``moe_ff_axis`` (the MoE layer computes on its shard),
-    and but a dim over the model axis where ``tp`` (a tensor-parallel
-    consumer computes on its block); over the model axis for a replicated
-    consumer, over a data axis for one that differs per data shard."""
+    (``common.get_fsdp``), gathered over the data axes to what the layer
+    computes with: every dim sharded over a data axis but an expert dim
+    and, under the TP/EP recipe's ``moe_ff_axis``, the experts' hidden dim
+    (the MoE layer computes on its shard).  A dim over the model axis
+    stays local: every consumer of one is tensor- or expert-parallel (the
+    module docstring)."""
     from ..parallel.sharding import logical_to_spec, param_rules, spec_axes
     mesh, _, model_axis = get_mesh_context()
     spec = logical_to_spec(axes, param_rules(mesh, fsdp=get_fsdp()))
@@ -143,34 +138,22 @@ def _gather_leaf(t: torch.Tensor, axes: Tuple, tp: bool = False
         if name in local:
             continue
         for a in reversed(spec_axes(entry)):
-            if a == model_axis and tp:
-                continue
-            gather = (coll.gather_to_replicated if a == model_axis
-                      else coll.gather_for_local_use)
-            t = gather(t, mesh, a, d)
+            if a != model_axis:
+                t = coll.gather_for_local_use(t, mesh, a, d)
     return t
 
 
 STACK_KEYS = ("stacks", "enc_stack", "dec_stack")
 
 
-def _gather_subtree(tree: Any, axes: Any, tp: bool) -> Any:
-    if isinstance(tree, dict):
-        return {k: _gather_subtree(v, axes[k], tp or _tensor_parallel_key(k))
-                for k, v in tree.items()}
-    return _gather_leaf(tree, axes, tp)
-
-
 def gather_params(tree: Params, axes: Params) -> Params:
-    """``_gather_leaf`` over a parameter tree and its axes tree, each leaf
-    under ``TP_KEYS`` (or a MoE ``shared_*``) keeping its model-sharded
-    dims; the identity outside a mesh.  Stacks (``stacks``, whisper's
-    ``enc_stack`` and ``dec_stack``) are left local: ``run_stack`` gathers
-    them a layer at a time."""
+    """``_gather_leaf`` over a parameter tree and its axes tree; the
+    identity outside a mesh.  Stacks (``stacks``, whisper's ``enc_stack``
+    and ``dec_stack``) are left local: ``run_stack`` gathers them a layer
+    at a time."""
     if get_mesh_context()[0] is None:
         return tree
-    return {k: v if k in STACK_KEYS else
-            _gather_subtree(v, axes[k], _tensor_parallel_key(k))
+    return {k: v if k in STACK_KEYS else map_tree(_gather_leaf, v, axes[k])
             for k, v in tree.items()}
 
 
@@ -250,7 +233,9 @@ def layer_step(cfg, lp: Params, x: torch.Tensor, kinds: Tuple[str, ...],
     none of them again.  Over a mesh, ``lp`` holds local shards, gathered
     here first (``gather_params``)."""
     if get_mesh_context()[0] is not None:
-        lp = gather_params(lp, {f"b{i}": block_axes(cfg, kind)
+        tp = tensor_parallel()
+        M = 1 if tp is None else tp.size
+        lp = gather_params(lp, {f"b{i}": block_axes(cfg, kind, M)
                                 for i, kind in enumerate(kinds)})
     new, aux = {}, []
     for i, kind in enumerate(kinds):

@@ -9,12 +9,30 @@ building the concatenation on every call; here B and C are two products
 through the matmul kernel, so no weight is copied, and the conv of the
 2N BC channels runs as two convs of N, which is the same depthwise conv.
 
-Over a mesh, a decode cache cut by ``parallel.sharding.cache_specs`` holds
-each rank's heads of the SSM ``state`` (where the model axis divides
-them) and the whole conv tails: the decode step updates this rank's heads
-with their slices of dt, ``A_log``, ``dt_bias``, ``D`` and x, and gathers
-y over the model axis before the gated norm and ``w_out``, which need
-every head.
+Over a mesh whose model axis of M > 1 ranks divides the heads
+(``heads_parallel``), the block is tensor-parallel over its heads, as
+GSPMD partitions the JAX package's under ``param_rules`` ("heads" over
+the model axis): z, x and dt are column-parallel products (the rank's
+columns of ``w_z``, ``w_x`` and ``w_dt``, the replicated input entering
+through ``copy_to_split``), the x conv runs on the rank's channels with
+its block of ``conv_x``, and the scan on its H/M heads with its slices
+of ``A_log``, ``dt_bias`` and ``D``.  B and C (``w_B``, ``w_C``,
+``conv_BC``) stay replicated and enter the rank's scan through
+``copy_to_split``, so their gradients are summed over the axis.  The
+gated RMSNorm runs over all of ``d_inner``: each rank's fp32 sum of
+squares is summed over the axis (``psum_for_local_use``: every rank
+normalizes its own block with the sum, so the backward sums too), then
+scaled by the rank's block of ``norm``; ``w_out`` is row-parallel (the
+partial outputs summed over the axis in rank order).  Prefill's cache
+then holds the rank's heads of the state and the whole x conv tail
+(gathered over the axis), as ``parallel.sharding.cache_specs`` cuts a
+decode cache; the decode step runs the same split on one token: the rank
+convolves its channel block of the whole tail, and the tail advances
+with the step's x columns gathered over the axis (B x ``d_inner``
+elements a layer), so every rank's tail stays whole and equal.  Where M
+does not divide the heads the head leaves are replicated over the model
+axis (``ssd_axes``) and the block computes on whole leaves on every
+rank, as the state is whole under ``cache_specs``.
 """
 from __future__ import annotations
 
@@ -26,8 +44,8 @@ import torch.nn.functional as F
 from ..kernels import ops
 from ..parallel import collectives as coll
 from .attention import _linear
-from .common import (Params, dense_init, get_mesh_context, normal_init,
-                     rmsnorm)
+from .common import (Params, TensorParallel, dense_init, normal_init,
+                     rmsnorm, tensor_parallel)
 
 
 def ssd_init(cfg, gen: torch.Generator, dtype, device) -> Params:
@@ -55,18 +73,30 @@ def ssd_init(cfg, gen: torch.Generator, dtype, device) -> Params:
     }
 
 
-def ssd_axes(cfg) -> Dict[str, tuple]:
+def ssd_axes(cfg, model_size: int = 1) -> Dict[str, tuple]:
     """``ssd_init``'s logical axes (the JAX package's): the head-parallel
-    leaves over "heads", B and C replicated."""
+    leaves over "heads", B and C replicated.  Over a model axis of
+    ``model_size`` ranks that does not divide the heads, the head leaves
+    are replicated (None): a rank cannot hold whole heads, and the JAX
+    package cannot place them (a dim that the axis does not divide)."""
+    h = "heads" if cfg.ssm_heads % model_size == 0 else None
     return {
-        "w_z": ("embed", "heads"), "w_x": ("embed", "heads"),
+        "w_z": ("embed", h), "w_x": ("embed", h),
         "w_B": ("embed", None), "w_C": ("embed", None),
-        "w_dt": ("embed", "heads"),
-        "conv_x": (None, "heads"), "conv_BC": (None, None),
-        "A_log": ("heads",), "D": ("heads",), "dt_bias": ("heads",),
-        "norm": ("heads",),
-        "w_out": ("heads", "embed"),
+        "w_dt": ("embed", h),
+        "conv_x": (None, h), "conv_BC": (None, None),
+        "A_log": (h,), "D": (h,), "dt_bias": (h,),
+        "norm": (h,),
+        "w_out": (h, "embed"),
     }
+
+
+def heads_parallel(cfg) -> Optional[TensorParallel]:
+    """``common.tensor_parallel()`` where its M ranks each hold whole heads
+    of the SSD (M divides ``cfg.ssm_heads``), else None: the block then
+    computes on whole leaves."""
+    tp = tensor_parallel()
+    return tp if tp is not None and cfg.ssm_heads % tp.size == 0 else None
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -82,39 +112,61 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _gate_norm_out(cfg, p: Params, y: torch.Tensor, z: torch.Tensor,
-                   dtype) -> torch.Tensor:
-    """(y * silu(z)) -> RMSNorm -> out-projection, rounding as JAX does."""
+                   dtype, tp: Optional[TensorParallel] = None
+                   ) -> torch.Tensor:
+    """(y * silu(z)) -> RMSNorm -> out-projection, rounding as JAX does.
+    With ``tp``, y and z are the rank's block of ``d_inner``: the sum of
+    squares is summed over the axis (the norm is over every channel) and
+    ``w_out`` is row-parallel (the module docstring)."""
     y = y.to(dtype) * F.silu(z.float()).to(dtype)
-    return _linear(rmsnorm(y, p["norm"], cfg.rms_eps), p["w_out"])
+    if tp is None:
+        return _linear(rmsnorm(y, p["norm"], cfg.rms_eps), p["w_out"])
+    yf = y.float()
+    ss = coll.psum_for_local_use((yf * yf).sum(dim=-1, keepdim=True),
+                                 tp.mesh, tp.axis)
+    y = yf * torch.rsqrt(ss / cfg.d_inner + cfg.rms_eps)
+    y = (y * p["norm"].float()).to(dtype)
+    return tp.row_out(_linear(y, p["w_out"]))
 
 
 def ssd_forward(cfg, p: Params, x: torch.Tensor, *,
-                init_state: Optional[torch.Tensor] = None
-                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                init_state: Optional[torch.Tensor] = None,
+                keep_cache: bool = True
+                ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """x (B,S,d) -> (y (B,S,d), decode cache): the final SSM state and the
-    last K-1 pre-conv inputs of each conv, which seed decoding."""
-    H, P, N, K = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state, \
-        cfg.ssm_conv_width
+    last K-1 pre-conv inputs of each conv, which seed decoding; None where
+    not ``keep_cache``.  Over a model axis that divides the heads
+    (``heads_parallel``) on the rank's heads (the module docstring): the
+    state is the rank's heads, the x conv tail every channel's."""
+    P, N, K = cfg.ssm_headdim, cfg.ssm_state, cfg.ssm_conv_width
+    tp = heads_parallel(cfg)
     Bsz, S = x.shape[0], x.shape[1]
-    z = _linear(x, p["w_z"])
-    xin_pre = _linear(x, p["w_x"])
+    xc = x if tp is None else tp.column_in(x)
+    z = _linear(xc, p["w_z"])
+    xin_pre = _linear(xc, p["w_x"])
     B_pre = _linear(x, p["w_B"])
     C_pre = _linear(x, p["w_C"])
-    dt = _linear(x, p["w_dt"])
+    dt = _linear(xc, p["w_dt"])
 
     xin = _causal_conv(xin_pre, p["conv_x"])
     Bm = _causal_conv(B_pre, p["conv_BC"][:, :N])
     Cm = _causal_conv(C_pre, p["conv_BC"][:, N:])
+    if tp is not None:  # replicated B and C, read by the rank's heads
+        Bm, Cm = tp.column_in(Bm), tp.column_in(Cm)
 
     A = -torch.exp(p["A_log"])
     dt = F.softplus(dt.float() + p["dt_bias"])
-    xh = xin.reshape(Bsz, S, H, P)
+    xh = xin.reshape(Bsz, S, -1, P)
     y, state = ops.ssd_scan(xh, dt, A, Bm, Cm, chunk=cfg.ssm_chunk,
                             init_state=init_state)
     y = y.float() + xh.float() * p["D"][None, None, :, None]
-    y = _gate_norm_out(cfg, p, y.reshape(Bsz, S, H * P), z, x.dtype)
-    cache = {"state": state,
-             "conv_x": xin_pre[:, S - (K - 1):],
+    y = _gate_norm_out(cfg, p, y.reshape(Bsz, S, -1), z, x.dtype, tp)
+    if not keep_cache:
+        return y, None
+    tail = xin_pre[:, S - (K - 1):]
+    if tp is not None:
+        tail = coll.gather_raw(tail.detach(), tp.mesh, tp.axis, 2)
+    cache = {"state": state, "conv_x": tail,
              "conv_BC": torch.cat([B_pre, C_pre], dim=-1)[:, S - (K - 1):]}
     return y, cache
 
@@ -137,14 +189,27 @@ def init_ssd_cache(cfg, batch: int, dtype, device) -> Dict[str, torch.Tensor]:
     }
 
 
-def _conv_step(buf: torch.Tensor, xt: torch.Tensor, w: torch.Tensor
-               ) -> torch.Tensor:
-    """buf (B,K-1,C) holds the previous inputs, xt (B,C) the new one.
-    Shifts ``buf`` in place and returns silu(conv) (B,C)."""
+def _conv_out(buf: torch.Tensor, xt: torch.Tensor, w: torch.Tensor
+              ) -> torch.Tensor:
+    """buf (B,K-1,C) holds the previous inputs, xt (B,C) the new one:
+    silu(conv) (B,C)."""
     full = torch.cat([buf, xt[:, None, :]], dim=1)           # (B,K,C)
     y = torch.einsum("bkc,kc->bc", full.float(), w.float())
-    buf.copy_(full[:, 1:])
     return F.silu(y).to(xt.dtype)
+
+
+def _shift_(buf: torch.Tensor, xt: torch.Tensor) -> None:
+    """Advance the tail ``buf`` (B,K-1,C) by the new input xt (B,C), in
+    place."""
+    buf.copy_(torch.cat([buf[:, 1:], xt[:, None, :]], dim=1))
+
+
+def _conv_step(buf: torch.Tensor, xt: torch.Tensor, w: torch.Tensor
+               ) -> torch.Tensor:
+    """``_conv_out``, then the tail shifted in place."""
+    y = _conv_out(buf, xt, w)
+    _shift_(buf, xt)
+    return y
 
 
 def ssd_decode_step(cfg, p: Params, x: torch.Tensor,
@@ -153,39 +218,43 @@ def ssd_decode_step(cfg, p: Params, x: torch.Tensor,
     """x (B,1,d) -> (y (B,1,d), cache).  The state and conv tails are
     updated in place (``copy_``): the caller passes views of the stacked
     cache, which must advance.  Plain PyTorch, as the JAX package's step is
-    plain jnp; nothing here waits on the card.  A ``state`` of fewer than
-    H heads is this rank's block of a state split over the mesh's model
-    axis (the module docstring)."""
+    plain jnp; nothing here waits on the card.  Over a model axis that
+    divides the heads (``heads_parallel``), ``state`` is this rank's
+    heads (``cache_specs``' block) and the step runs on them (the module
+    docstring)."""
     H, P, N = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
+    tp = heads_parallel(cfg)
+    Hl = H if tp is None else H // tp.size
     state = cache["state"]
-    Hl = state.shape[1]
-    h0 = 0
-    if Hl != H:
-        mesh, _, model_axis = get_mesh_context()
-        if mesh is None or Hl * coll.axis_size(mesh, model_axis) != H:
-            raise ValueError(f"an SSM state of {Hl} heads of {H}, but not "
-                             "a model-axis block of a mesh")
-        h0 = coll.axis_index(mesh, model_axis) * Hl
-    heads = slice(h0, h0 + Hl)
+    if state.shape[1] != Hl:
+        raise ValueError(f"an SSM state of {state.shape[1]} heads, where "
+                         f"the step runs on {Hl} of {H} (a model-axis block "
+                         "of cache_specs over a mesh that divides the heads)")
     xt = x[:, 0, :]
-    z = _linear(xt, p["w_z"])
-    xin = _linear(xt, p["w_x"])
+    xc = xt if tp is None else tp.column_in(xt)
+    z = _linear(xc, p["w_z"])
+    xin = _linear(xc, p["w_x"])
     BC = torch.cat([_linear(xt, p["w_B"]), _linear(xt, p["w_C"])], dim=-1)
-    dt = _linear(xt, p["w_dt"])
+    dt = _linear(xc, p["w_dt"])
 
-    xin = _conv_step(cache["conv_x"], xin, p["conv_x"])
+    if tp is None:
+        xin = _conv_step(cache["conv_x"], xin, p["conv_x"])
+    else:  # the rank's channels of the whole tail; the tail advances whole
+        lo = tp.index * xin.shape[-1]
+        tail = cache["conv_x"]
+        conv = _conv_out(tail[:, :, lo:lo + xin.shape[-1]], xin, p["conv_x"])
+        _shift_(tail, coll.gather_raw(xin, tp.mesh, tp.axis, 1))
+        xin = conv
     BC = _conv_step(cache["conv_BC"], BC, p["conv_BC"])
     Bm, Cm = BC[:, :N].float(), BC[:, N:].float()
 
-    A = -torch.exp(p["A_log"][heads])
-    dt = F.softplus(dt.float() + p["dt_bias"])[:, heads]     # (B,Hl)
+    A = -torch.exp(p["A_log"])
+    dt = F.softplus(dt.float() + p["dt_bias"])               # (B,Hl)
     dA = torch.exp(dt * A)
-    xh = xin.reshape(-1, H, P)[:, heads].float()
+    xh = xin.reshape(-1, Hl, P).float()
     state.copy_(state * dA[..., None, None] +
                 torch.einsum("bn,bhp,bh->bhpn", Bm, xh, dt))
     y = torch.einsum("bn,bhpn->bhp", Cm, state)
-    y = y + xh * p["D"][heads][None, :, None]
-    if Hl != H:
-        y = coll.gather_to_replicated(y, mesh, model_axis, 1)
-    y = _gate_norm_out(cfg, p, y.reshape(-1, H * P), z, x.dtype)
+    y = y + xh * p["D"][None, :, None]
+    y = _gate_norm_out(cfg, p, y.reshape(-1, Hl * P), z, x.dtype, tp)
     return y[:, None, :], cache

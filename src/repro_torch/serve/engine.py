@@ -24,8 +24,10 @@ must hold while it runs.  Its ``params`` are then the rank's local shards
 ``init_cache(batch_size, max_seq)`` under ``cache_specs`` (split-KV over
 the model axis: the context's ``cache_seq`` must be ``max_seq``), and
 prefill takes the rank's rows of the padded batch (``batch_specs``).
-Prefill's caches come back whole over the model axis, and each rank seeds
-its block of the decode caches from them (``seed_decode_block_``).  Each
+Prefill's K/V and conv tails come back whole over the model axis, its SSM
+states as the rank's heads where ``cache_specs`` splits them, and each
+rank seeds its block of the decode caches from them
+(``seed_decode_block_``).  Each
 step's greedy tokens are gathered over the data axes, so every rank
 appends the same tokens to the same requests and counts the same
 ``stats``.  The meshed decode step runs eagerly on the card too
@@ -145,19 +147,20 @@ def local_decode_cache(bundle, batch_size: int, max_seq: int, mesh, device):
 def seed_decode_block_(caches, prefill_caches, specs, mesh) -> None:
     """``seed_decode_cache_`` over a mesh: each leaf of ``caches`` is this
     rank's block, under ``specs``, of the cache that ``seed_decode_cache``
-    makes from the prefill's caches, which hold the rank's data rows and
-    are whole over the model axis.  A K/V leaf split into blocks of S_l
-    slots gets the global slots [i S_l, (i+1) S_l) of the seeded cache:
-    slot g < n = min(S, S_l x blocks) holds the prompt's position S - n + g
-    (a ring's too), later slots zeros; an SSM state its block of heads; a
-    conv tail or a cross cache its rows as they are."""
+    makes from the prefill's caches, which hold the rank's data rows: K/V
+    of every head, an SSM state of the rank's heads where ``cache_specs``
+    splits it (``models/ssd.py``) and the conv tails whole.  A K/V leaf
+    split into blocks of S_l slots gets the global slots [i S_l, (i+1)
+    S_l) of the seeded cache: slot g < n = min(S, S_l x blocks) holds the
+    prompt's position S - n + g (a ring's too), later slots zeros; an SSM
+    state, a conv tail or a cross cache is copied as it comes."""
     def seed(dst, src, spec, name=None):
         if isinstance(dst, dict):
             for k in dst:
                 seed(dst[k], src[k], spec[k], k)
             return
-        blocks, idx = _split_dim(spec, 2, mesh)
         if name in ("k", "v"):
+            blocks, idx = _split_dim(spec, 2, mesh)
             S_l = dst.shape[2]
             n = min(src.shape[2], S_l * blocks)
             lo, hi = idx * S_l, min((idx + 1) * S_l, n)
@@ -166,8 +169,6 @@ def seed_decode_block_(caches, prefill_caches, specs, mesh) -> None:
             if hi > lo:
                 dst[:, :, :hi - lo] = src[:, :, off + lo:off + hi]
             return
-        if blocks > 1:
-            src = src.narrow(2, idx * dst.shape[2], dst.shape[2])
         dst.copy_(src)
 
     for d, s, sp in zip(caches, prefill_caches, specs):

@@ -113,7 +113,7 @@ def _set_recipe(mesh, job, **kw):
 def _sharded_setup(mesh, bundle, params, batch, job=None):
     from repro_torch.parallel import sharding as shd
     rules = _set_recipe(mesh, job or {})
-    specs = shd.param_specs(bundle.param_logical_axes(), rules)
+    specs = shd.param_specs(bundle.param_logical_axes(mesh), rules)
     local = shd.shard_tree(params, specs, mesh)
     lbatch = shd.shard_tree(batch, shd.batch_specs(batch, mesh), mesh)
     return specs, local, lbatch
@@ -240,7 +240,7 @@ def job_step(workdir, mesh, job):
                                       _batch(workdir, job))
     tcfg = TrainConfig(opt=AdamWConfig(**job["opt"]))
     sspecs = shd.param_specs(state_logical_axes(
-        bundle.param_logical_axes(), tcfg.opt), shd.param_rules(mesh))
+        bundle.param_logical_axes(mesh), tcfg.opt), shd.param_rules(mesh))
     state = shd.shard_tree(init_state(params, tcfg.opt), sspecs, mesh)
     step = make_train_step(bundle.loss, tcfg, mesh=mesh, specs=specs)
     state, metrics = step(state, lbatch)
@@ -277,7 +277,7 @@ def job_decode(workdir, mesh, job):
     with torch.no_grad():
         full = copy.deepcopy(caches)
         logits, full = bundle.decode(params, full, token, pos)
-        specs = shd.param_specs(bundle.param_logical_axes(),
+        specs = shd.param_specs(bundle.param_logical_axes(mesh),
                                 shd.param_rules(mesh))
         cspecs = shd.cache_specs(caches, mesh)
         local = shd.shard_tree(params, specs, mesh)
@@ -317,7 +317,7 @@ def job_serve(workdir, mesh, job):
     rules = _set_recipe(mesh, job, cache_seq=job["max_seq"])
     try:
         local = shd.shard_tree(_params(workdir, job), shd.param_specs(
-            bundle.param_logical_axes(), rules), mesh)
+            bundle.param_logical_axes(mesh), rules), mesh)
         eng = ServeEngine(bundle, local, EngineConfig(
             batch_size=job["batch_size"], max_seq=job["max_seq"]),
             device="cpu")
@@ -505,7 +505,7 @@ def job_shapes(workdir, mesh, job):
     bundle = build(_cfg(job))
     params = bundle.init(0, device="meta")
     full = map_tree(lambda t: torch.zeros(t.shape, dtype=t.dtype), params)
-    axes = bundle.param_logical_axes()
+    axes = bundle.param_logical_axes(mesh)
     _, local, _ = _sharded_setup(mesh, bundle, full, {})
     try:
         top = gather_params(local, axes)

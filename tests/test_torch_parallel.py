@@ -6,7 +6,8 @@ and replicated attention modes against the JAX local forward; MoE expert
 parallelism against JAX's meshed ``moe_forward`` with drops and its local
 path without; ``seq_parallel_ssd`` against ``ssd_scan_ref``; the sharded
 gradients against ``jax.grad``; one sharded ``make_train_step`` step
-against the port's unsharded step, with fp32 and with int8 moments; and
+against the port's unsharded step, with fp32 and with int8 moments (and
+reduced mamba2_1_3b's, the SSD on the rank's heads, fp32); and
 one decode step over caches cut by ``cache_specs`` (split-KV over the
 model axis: qwen2_0_5b's full cache with the token on each kind of slice
 and past the cache, hymba_1_5b's ring before and after it wraps,
@@ -19,9 +20,12 @@ and gradients on (2, 4) and (4, 2) against the unsharded JAX function, on
 which is not the unsharded function (not mirrored).  Tensor parallelism over
 the model axis, which every sharded case above runs: the rank's blocks that
 ``gather_params`` leaves local, the heads-mode forward's ``count_flops`` a
-quarter of the unsharded forward's, forward and gradients against the JAX local
+quarter of the unsharded forward's (the SSD's but for its replicated B and
+C), forward and gradients against the JAX local
 function where a split cuts a head (reduced qwen2_0_5b's 2 KV heads,
-whisper_large_v3) and on whole heads, and the vocabulary-parallel cross-entropy
+whisper_large_v3, an SSD of 2 heads) and on whole heads (mamba2_1_3b's and
+hymba_1_5b's SSD among them), a decode step where the split cuts an SSD
+head, and the vocabulary-parallel cross-entropy
 and embedding lookup with their gradients against ``softmax_cross_entropy`` and
 ``jnp.take``.  The JAX references run here, on 8 forced host devices
 (``tests/conftest.py``); inputs and outputs pass as numpy files.  And K2's
@@ -112,11 +116,17 @@ FORWARD_CASES = [("llama3_2_1b", "seq", {}), ("llama3_2_1b", "replicated", {}),
 # (2, 4): splits that cut a head (qwen2_0_5b's 2 KV heads with their
 # biases; whisper_large_v3's self-, cross- and encoder attention and its
 # GELU MLP's biases) and whole heads (whisper's cross-attention on the
-# rank's heads; qwen3_4b's qk-norm in seq mode; llama3_2_1b in heads mode)
+# rank's heads; qwen3_4b's qk-norm in seq mode; llama3_2_1b in heads mode);
+# the SSD on whole heads (mamba2_1_3b's and hymba_1_5b's 16 SSD heads, 4 a
+# rank; hymba's attention cutting a KV head beside it) and on a split that
+# cuts a head (mamba2_1_3b at headdim 64: 2 heads over 4 ranks, its head
+# leaves replicated, the block on whole leaves)
+SSD_CUT = ("mamba2_1_3b", {"ssm_headdim": 64})
 TP_CASES = [("qwen2_0_5b", {}), ("whisper_large_v3", {}),
             ("whisper_large_v3", {"n_kv_heads": 4}),
             ("qwen3_4b", {"n_kv_heads": 4}),
-            ("llama3_2_1b", {"n_kv_heads": 4, "attn_shard": "heads"})]
+            ("llama3_2_1b", {"n_kv_heads": 4, "attn_shard": "heads"}),
+            ("mamba2_1_3b", {}), ("hymba_1_5b", {}), SSD_CUT]
 # the vocabulary-parallel pieces: 256 padded rows of 250 real ones, 64 a
 # model rank; labels and tokens on every rank's block and the last real row
 VOCAB, VPAD = 250, 256
@@ -219,7 +229,11 @@ def results(tmp_path_factory):
                      "arch": arch, "cfg": {"tie_embeddings": False}})
     jobs.append({"kind": "flops", "name": "flops", "arch": "llama3_2_1b",
                  "cfg": {"n_kv_heads": 4, "attn_shard": "heads"},
-                 "params": f"{_tp_name('llama3_2_1b', TP_CASES[-1][1])}.npz",
+                 "params": f"{_tp_name('llama3_2_1b', TP_CASES[4][1])}.npz",
+                 "batch": "tokens.npz"})
+    jobs.append({"kind": "flops", "name": "flops_mamba2_1_3b",
+                 "arch": "mamba2_1_3b", "cfg": {},
+                 "params": f"{_tp_name('mamba2_1_3b', {})}.npz",
                  "batch": "tokens.npz"})
     rng = np.random.default_rng(12)
     vocab = {"logits": (rng.standard_normal((4, 8, VPAD)) * 3
@@ -438,13 +452,21 @@ def results(tmp_path_factory):
                      "batch": "tokens.npz",
                      "opt": {"lr": LR, "warmup_steps": 1,
                              "moment_dtype": moments}})
+    jobs.append({"kind": "step", "name": "step_mamba2_1_3b",
+                 "arch": "mamba2_1_3b", "cfg": {},
+                 "params": f"{_tp_name('mamba2_1_3b', {})}.npz",
+                 "batch": "tokens.npz",
+                 "opt": {"lr": LR, "warmup_steps": 1,
+                         "moment_dtype": "float32"}})
 
     # decode: random caches (every slot filled: a slot that should not be
     # attended would show), a token of each batch row
     rng = np.random.default_rng(11)
-    for i, (arch, max_seq, pos) in enumerate(DECODE_CASES):
-        name = f"decode_{arch}_{pos}"
-        ref_cfg, _ = _cfgs(arch, {})
+    decodes = [(f"decode_{arch}_{pos}", arch, {}, max_seq, pos)
+               for arch, max_seq, pos in DECODE_CASES]
+    decodes.append(("decode_ssd_cut", *SSD_CUT, 32, 7))
+    for i, (name, arch, over, max_seq, pos) in enumerate(decodes):
+        ref_cfg, _ = _cfgs(arch, over)
         bundle = ref_build(ref_cfg)
         params = bundle.init(jax.random.PRNGKey(20 + i))
         caches = jax.tree.map(
@@ -460,6 +482,7 @@ def results(tmp_path_factory):
             n: np.asarray(v) for n, v in convert.flatten(caches).items()})
         world.save(wd / f"{name}_token.npz", {"token": token})
         jobs.append({"kind": "decode", "name": name, "arch": arch,
+                     "cfg": over,
                      "params": f"{name}.npz", "caches": f"{name}_caches.npz",
                      "batch": f"{name}_token.npz", "pos": pos,
                      "max_seq": max_seq})
@@ -512,9 +535,10 @@ def test_gather_params_keeps_model_blocks_local(results, arch):
     """On (2, 4), ``gather_params`` gathers the fsdp shards over data and
     leaves every tensor-parallel leaf's model block local: q / k / v's and
     gate / up's columns, o's and down's rows, the shared experts', the
-    embedding's and the unembedding's vocabulary block (1/4 of the leaf);
-    the SSD leaves, the norms, the router and the routed experts' other
-    dims come back whole (the experts stay cut over the model axis)."""
+    embedding's and the unembedding's vocabulary block, the SSD's nine
+    head leaves (1/4 of the leaf); the SSD's B and C leaves, the norms, the
+    router and the routed experts' other dims come back whole (the experts
+    stay cut over the model axis)."""
     _, outs, _, _ = results
     out = outs[f"shapes_{arch}"]
     got = {k[len("shape/"):]: tuple(v) for k, v in out.items()
@@ -539,15 +563,26 @@ def test_gather_params_keeps_model_blocks_local(results, arch):
                                           cfg.moe_d_ff)})
     for name, shape in want.items():
         assert got[name] == shape, (name, got[name], shape)
-    tp = ("/attn/", "/mlp/", "/shared_", "top/embed", "top/lm_head")
+    whole_ssd = ("/ssd/w_B", "/ssd/w_C", "/ssd/conv_BC")
+    if arch == "hymba_1_5b":
+        di, Hs, K = cfg.d_inner, cfg.ssm_heads, cfg.ssm_conv_width
+        ssd = {"w_z": (d, di // M), "w_x": (d, di // M),
+               "w_dt": (d, Hs // M), "conv_x": (K, di // M),
+               "A_log": (Hs // M,), "D": (Hs // M,), "dt_bias": (Hs // M,),
+               "norm": (di // M,), "w_out": (di // M, d),
+               "w_B": (d, cfg.ssm_state), "w_C": (d, cfg.ssm_state),
+               "conv_BC": (K, 2 * cfg.ssm_state)}
+        assert {n for n in got if "/ssd/" in n} == {f"stack0/b0/ssd/{k}"
+                                                  for k in ssd}
+        for k, shape in ssd.items():
+            assert got[f"stack0/b0/ssd/{k}"] == shape, (k, shape)
+    tp = ("/attn/", "/mlp/", "/ssd/", "/shared_", "top/embed",
+          "top/lm_head")
     for name, shape in got.items():
-        if any(t in name for t in tp):
+        if any(t in name for t in tp) and not name.endswith(whole_ssd):
             assert np.prod(shape) * M == np.prod(full[name]), name
         elif "/moe/w" not in name:
             assert shape == full[name], (name, shape, full[name])
-    if arch == "hymba_1_5b":
-        ssd = [n for n in got if "/ssd/" in n]
-        assert len(ssd) == 12 and all(got[n] == full[n] for n in ssd)
 
 
 def test_heads_mode_forward_flops_are_a_quarter(results):
@@ -559,6 +594,28 @@ def test_heads_mode_forward_flops_are_a_quarter(results):
     out = outs["flops"]
     assert int(out["sharded"]) * 4 == int(out["unsharded"]), \
         (int(out["sharded"]), int(out["unsharded"]))
+    np.testing.assert_allclose(out["logits"], out["want"], rtol=FWD_TIGHT,
+                               atol=FWD_TIGHT)
+
+
+def test_ssd_forward_flops_are_a_quarter_but_b_and_c(results):
+    """Reduced mamba2_1_3b on (2, 4), the SSD on 4 of its 16 heads a rank:
+    a rank's ``count_flops`` of the forward is a quarter of the unsharded
+    forward's on the same data shard (z, x, dt, w_out, each head's scan,
+    the unembedding's vocabulary block), but for the replicated work,
+    which every rank does whole: the B and C products and the scan's C
+    B^T of each chunk (one group, shared by the heads).  Its logits are
+    the unsharded ones."""
+    _, outs, _, _ = results
+    out = outs["flops_mamba2_1_3b"]
+    _, cfg = _cfgs("mamba2_1_3b", {})
+    b, S = 4 // 2, 64  # a data shard's rows of _tokens()
+    d, N, q = cfg.d_model, cfg.ssm_state, cfg.ssm_chunk
+    replicated = cfg.n_layers * (2 * 2 * b * S * d * N
+                                 + (S // q) * 2 * b * q * q * N)
+    sharded, unsharded = int(out["sharded"]), int(out["unsharded"])
+    assert 4 * (sharded - replicated) == unsharded - replicated, \
+        (sharded, unsharded, replicated)
     np.testing.assert_allclose(out["logits"], out["want"], rtol=FWD_TIGHT,
                                atol=FWD_TIGHT)
 
@@ -765,11 +822,24 @@ def test_sharded_gradients_match_jax_grad(results, arch):
 
 
 def test_sharded_train_step_matches_unsharded_step(results):
-    refs, outs, _, wd = results
-    out = outs["step"]
-    _, cfg = _cfgs("llama3_2_1b", {})
+    _assert_step_matches_unsharded(results, "step", "llama3_2_1b",
+                                   "grad_llama3_2_1b.npz")
+
+
+def test_sharded_ssd_train_step_matches_unsharded_step(results):
+    """Reduced mamba2_1_3b's step with the SSD on the rank's heads (the
+    gradient norm over its blocks, the update of each block)."""
+    _assert_step_matches_unsharded(results, "step_mamba2_1_3b",
+                                   "mamba2_1_3b",
+                                   f"{_tp_name('mamba2_1_3b', {})}.npz")
+
+
+def _assert_step_matches_unsharded(results, job, arch, params_file):
+    _, outs, _, wd = results
+    out = outs[job]
+    _, cfg = _cfgs(arch, {})
     bundle = build(cfg)
-    params = convert.from_reference(world.load(wd / "grad_llama3_2_1b.npz"),
+    params = convert.from_reference(world.load(wd / params_file),
                                     device="cpu")
     tcfg = TrainConfig(opt=AdamWConfig(lr=LR, warmup_steps=1))
     batch = {"tokens": torch.from_numpy(_tokens()["tokens"])}
@@ -856,6 +926,29 @@ def test_sharded_decode_matches_unsharded_decode(results, arch, max_seq,
     np.testing.assert_allclose(out["unsharded"], want_logits, rtol=FWD_TOL,
                                atol=FWD_TOL)
     np.testing.assert_allclose(out["logits"], want_logits, rtol=FWD_TOL,
+                               atol=FWD_TOL)
+    for leaf, want in want_caches.items():
+        np.testing.assert_allclose(out[f"cache/{leaf}"],
+                                   out[f"unsharded_cache/{leaf}"],
+                                   rtol=FWD_TIGHT, atol=FWD_TIGHT)
+        np.testing.assert_allclose(out[f"unsharded_cache/{leaf}"], want,
+                                   rtol=FWD_TOL, atol=FWD_TOL)
+
+
+def test_sharded_decode_cutting_an_ssd_head_matches_unsharded(results):
+    """Reduced mamba2_1_3b at headdim 64 (2 SSD heads over 4 model ranks):
+    ``cache_specs`` keeps the state whole over the model axis, the head
+    leaves are replicated, and the decode step on whole leaves gives the
+    unsharded step's logits and caches, which are JAX's."""
+    refs, outs, _, _ = results
+    want_logits, want_caches = refs["decode_ssd_cut"]
+    out = outs["decode_ssd_cut"]
+    split = json.loads(str(out["cache_specs"]))
+    states = [spec for leaf, spec in split.items() if leaf.endswith("state")]
+    assert states and all(spec[2] is None for spec in states), split
+    np.testing.assert_allclose(out["logits"], out["unsharded"],
+                               rtol=FWD_TIGHT, atol=FWD_TIGHT)
+    np.testing.assert_allclose(out["unsharded"], want_logits, rtol=FWD_TOL,
                                atol=FWD_TOL)
     for leaf, want in want_caches.items():
         np.testing.assert_allclose(out[f"cache/{leaf}"],

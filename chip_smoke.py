@@ -90,7 +90,8 @@ exits non-zero):
                backward with a boolean band mask), K4's backward
                (ssd_scan_bwd, fp32 and bf16, against ssd_scan_bwd_plain,
                each call on its route, ssd_bwd_route's: bf16 at P 64,
-               N 128 on "wgmma", the rest on "simt";
+               N 128 on "wgmma", bf16 at P 50, N 16 on "tc" (the
+               chunk-parallel mma.sync kernels), fp32 on "simt";
                mamba2_1_3b's training shape (8, 512, 64, P 64, N 128),
                hymba_1_5b's (2, 2048, 64, P 50, N 16), a ragged S from an
                initial state with a cotangent of the final state at both,
@@ -174,7 +175,7 @@ exits non-zero):
                backward (once) as expected,
                every product, attention backward and scan backward on its
                bf16 kernel (mamba2_1_3b's scan backward on "wgmma",
-               hymba_1_5b's on "simt") and no plain version called (the
+               hymba_1_5b's on "tc") and no plain version called (the
                grouped one's neither); step time, tokens/s, peak memory,
                a profiled step's device idle share and the backward
                kernels' device time; a checkpoint saved and restored equal
@@ -393,7 +394,10 @@ KERNELS = {
         "replaces": "src/repro/kernels/flash_attention.py:67"},
     "ssd_scan_bwd": {
         "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
-        "replaces": "src/repro/kernels/ssd_scan.py:63"},
+        "replaces": "src/repro/kernels/ssd_scan.py:63",
+        # bf16 at hymba_1_5b's (P 50, N 16), the "tc" route
+        "sources": ["src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+                    "src/repro_torch/kernels/csrc/ssd_scan_bwd_tc.cu"]},
 }
 
 
@@ -566,17 +570,27 @@ def phase_build():
                            (c["UTMALDG"] or c["LDGSTS"]) for c in mine):
         raise AssertionError(f"ssd_tc_kernel: no tensor-core product or "
                              f"asynchronous load in its SASS {mine}")
+    # K4's chunk-parallel backward at P 50, N 16: its two kernels over the
+    # sub-chunks on the tensor cores (mma.sync)
+    for kernel in ("ssd_bwd_tc_local_kernel", "ssd_bwd_tc_grad_kernel"):
+        mine = [c for name, c in sass.items() if kernel in name]
+        if not mine or not all(c["HMMA"] for c in mine):
+            raise AssertionError(f"{kernel}: no tensor-core product in its "
+                                 f"SASS {mine}")
     for kernel in ("ssd_wgmma_kernel", "ssd_tc_kernel",
                    "flash_bwd_dq_wgmma_kernel<64,",
                    "flash_bwd_dkdv_wgmma_kernel<64,", "ssd_bwd_kernel",
-                   "ssd_bwd_wgmma_kernel"):
+                   "ssd_bwd_wgmma_kernel", "ssd_bwd_tc_local_kernel",
+                   "ssd_bwd_tc_serial_kernel"):
         mine = [r for name, r in ptxas.items() if kernel in name]
         if not mine or any(r.get("spill_stores") != 0 or
                            r.get("spill_loads") != 0 for r in mine):
             raise AssertionError(f"{kernel}: spills or no report {mine}")
     # K2's kernels apart: the serving forward's (no lse), the training
     # forward's (lse; under a band too) and the bf16 backward's (causal or
-    # not, and the band's), and K4's backward, registers and spills
+    # not, and the band's), and K4's backward, registers and spills (its
+    # tc route's grad kernel runs at 64 registers, two blocks an SM, and
+    # spills a little: csrc/ssd_scan_bwd_tc.cu's header)
     emit({"phase": "build", "k2_ptxas": {
         name: r for name, r in ptxas.items()
         if re.match(r"flash_(wgmma|bwd_\w+_wgmma)_kernel", name)},
@@ -1425,8 +1439,9 @@ def phase_kernels(torch, dev):
     # ragged S (449, 1800) from an initial state with a cotangent of the
     # final state; the long-memory inputs (b 1, S 4096, A times 1e-4) at
     # both, where an adjoint carried in bf16 or dA summed in low precision
-    # would show.  bf16 at P 64, N 128 takes the tensor cores ("wgmma"), the
-    # rest the CUDA cores ("simt"), each case on the route it must take.  B and C are the halves of one (b, S, 2N) tensor, read in
+    # would show.  bf16 takes the tensor cores (at P 64, N 128 "wgmma", at
+    # P 50, N 16 "tc", chunk-parallel), fp32 the CUDA cores ("simt"), each
+    # case on the route it must take.  B and C are the halves of one (b, S, 2N) tensor, read in
     # place.  The least operations, per (batch row, sub-chunk of q <= 64
     # rows): C B^T once (lower triangle), and per head dy (x dt)^T, (L o C
     # B^T)^T dy, (L o dy (x dt)^T)^T C and (L o dy (x dt)^T) B (triangles:
@@ -1456,7 +1471,7 @@ def phase_kernels(torch, dev):
         args = (x, dt, A, Bm, Cm, dy)
         kw = dict(init_state=init, dstate=dstate)
         route = ssd_bwd_route(dtype, H, P, N, (BC.stride(0), BC.stride(1)))
-        if route != ("wgmma" if (dtype, P) == (torch.bfloat16, 64)
+        if route != ({64: "wgmma", 50: "tc"}[P] if dtype == torch.bfloat16
                      else "simt"):
             raise AssertionError(f"ssd_scan_bwd {dtype} P {P}: route {route}")
         before = SSD_BWD_ROUTE_LAUNCHES[route]
@@ -1592,7 +1607,7 @@ def train_launches(cfg, steps, tokens, recompute=True, experts=None,
     three times and each attention and scan once forward.  On the routes
     of the model's dtype (bf16: the attention backward's wgmma, the scans'
     tensor-core kernels and the scan backward's route, ssd_bwd_route's:
-    "wgmma" at P 64, N 128, "simt" at P 50, N 16; fp32: the CUDA cores).
+    "wgmma" at P 64, N 128, "tc" at P 50, N 16; fp32: the CUDA cores).
     The products by route ("streamed_matmul_<route>"): an MoE layer's fp32
     router as often as a layer's product on "fp32"; its three grouped
     products on ``grouped_route``'s routes at the capacity of ``tokens``
@@ -1861,6 +1876,11 @@ def phase_train(torch, dev, model, batch, seq, lr, path, steps=5,
     fa, fb = convert.flatten(a), convert.flatten(b)
     same = all(torch.equal(fa[n], fb[n].cpu()) for n in fa)
     expect = train_launches(cfg, steps, batch * seq)
+    scan_bwd_route = None
+    if expect["ssd_scan_bwd"]:
+        from repro_torch.kernels.ssd_scan import ssd_bwd_route
+        scan_bwd_route = ssd_bwd_route(torch.bfloat16, cfg.ssm_heads,
+                                       cfg.ssm_headdim, cfg.ssm_state)
     record_step(path, "train", cfg, batch, seq, "the batch's sequence",
                 warm * 1e3)
     n_params = sum(t.numel() for n, t in fa.items() if n.startswith("params"))
@@ -1878,6 +1898,7 @@ def phase_train(torch, dev, model, batch, seq, lr, path, steps=5,
           "k2_backward_device_ms_per_step": sum(
               ms for name, ms in prof["port_kernels_ms"].items()
               if name.startswith("flash_bwd")),
+          "k4_backward_route": scan_bwd_route,
           "k4_backward_device_ms_per_step": sum(
               ms for name, ms in prof["port_kernels_ms"].items()
               if name.startswith("ssd_bwd")),
@@ -1892,12 +1913,11 @@ def phase_train(torch, dev, model, batch, seq, lr, path, steps=5,
     if launches != expect or not all(launches[k] for k, n in expect.items()
                                      if n):
         raise AssertionError(f"launch counts {launches} != {expect}")
-    scan_bwd = "ssd_scan_bwd_" + ("wgmma" if cfg.ssm_headdim == 64
-                                  else "simt")
     if cfg.compute_dtype != "bfloat16" or \
             launches["flash_attention_bwd_wgmma"] != \
             launches["flash_attention_bwd"] or \
-            launches[scan_bwd] != launches["ssd_scan_bwd"]:
+            (scan_bwd_route and launches[f"ssd_scan_bwd_{scan_bwd_route}"]
+             != launches["ssd_scan_bwd"]):
         raise AssertionError(f"launch counts {launches}: a backward off its "
                              "bf16 kernel")
     want = {r: expect[f"streamed_matmul_{r}"] for r in routes}

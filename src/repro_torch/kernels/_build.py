@@ -47,6 +47,7 @@ SIGNATURES = {
     "ssd_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                  _I, _I, _I, _P],
     "ssd_scan_bwd": [_P] * 18 + [_I] * 10 + [_P],
+    "ssd_scan_bwd_tc": [_P] * 20 + [_I] * 7 + [_P],
     "ssd_scan_bwd_rows": [],
 }
 

@@ -435,18 +435,8 @@ constexpr int DQ_STAGES = 2, DKV_STAGES = 4;     // (b): two stages per consumer
 constexpr int DQ_THREADS = 2 * 128 + 32;         // two consumer warpgroups, a producer warp
 constexpr int DKV_THREADS = 3 * 128;             // two consumer warpgroups, a producer warpgroup
 constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
-constexpr float LOG2E = 1.4426950408889634f;
 static_assert(PRODUCER_REGS * 128 + CONSUMER_REGS * 256 <= 168 * DKV_THREADS,
               "setmaxnreg must stay within the registers the block was launched with");
-
-// 2^x, flushing results below 2^-126 to 0 (P is a probability: nothing
-// below that range matters); exp2f's range handling took about a fifth of
-// both kernels' time on an H100 (chip_smoke's K2-backward shapes)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 template <int HD>
 struct WgTiles {

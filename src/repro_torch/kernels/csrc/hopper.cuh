@@ -317,6 +317,19 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// the bf16 pair of what rounding (lo, hi) to bf16 leaves: with pack_bf16's,
+// about 16 bits of each value
+__device__ __forceinline__ uint32_t pack_bf16_rest(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return pack_bf16(lo - __low2float(h), hi - __high2float(h));
+}
+
+// bf16 pair u times (f.x, f.y), rounded to a bf16 pair
+__device__ __forceinline__ uint32_t scale_bf16x2(uint32_t u, float2 f) {
+  const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+  return pack_bf16(v.x * f.x, v.y * f.y);
+}
+
 // Accumulator layout of m64nNk16 (fp32) in a warpgroup: thread t = 32 w + l
 // holds d[4 j + 2 h + e] = D[16 w + l / 4 + 8 h][8 j + 2 (l % 4) + e].  The
 // A fragment from registers (bf16 pairs) of k16 is a[2 c + h] =

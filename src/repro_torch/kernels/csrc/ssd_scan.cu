@@ -488,8 +488,6 @@ constexpr int V_W = 0, V_EC = 64, V_EL = 128, V_C = 132, V_D = 196, V_F = 260, V
 constexpr int SBF_BYTES = SP * SN * 2;        // a head's state in bf16
 constexpr int W_SMEM = 1024 + W_STAGES * STAGE + 2 * W_HEADS * (PA_BYTES + VEC * 4) +
                        W_HEADS * SBF_BYTES + (2 * W_STAGES + 2 * W_HEADS + 2) * 8;
-constexpr float LOG2E = 1.4426950408889634f;
-
 static_assert(STAGE % 1024 == 0 && PA_BYTES % 1024 == 0 && SBF_BYTES % 1024 == 0 &&
                   (2 * W_HEADS * (PA_BYTES + VEC * 4)) % 1024 == 0,
               "tiles must stay 1024-byte aligned for the 128-byte swizzle");
@@ -504,11 +502,6 @@ __device__ __forceinline__ int swz(int row, int col) {
   return (col / 64) * ATOM + row * 128 + ((((col % 64) / 8) ^ (row % 8)) << 4) + (col % 8) * 2;
 }
 
-__device__ __forceinline__ float ex2(float x) {  // 2^x, flushing results below 2^-126 to 0
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 __global__ void __launch_bounds__(W_THREADS, 1)
 ssd_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
@@ -891,11 +884,6 @@ static_assert(TC_STAGE % 128 == 0 && TC_DT % 128 == 0 && TC_B % 128 == 0 && TC_C
               "TMA's shared-memory boxes must stay 128-byte aligned");
 static_assert(TC_SMEM <= 232448, "more shared memory than a block may have");
 
-// bf16 pair u times (f.x, f.y), rounded to a bf16 pair
-__device__ __forceinline__ uint32_t scale_bf16x2(uint32_t u, float2 f) {
-  const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
-  return hopper::pack_bf16(v.x * f.x, v.y * f.y);
-}
 
 __global__ void __launch_bounds__(TC_THREADS, 1)
 ssd_tc_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap ymap,

@@ -40,9 +40,10 @@
 // Two routes, two launches each, no atomics, so two runs give the same
 // bits: a kernel per (head or pair of heads, batch row) that recomputes the
 // sub-chunks' start states into a scratch and walks the sub-chunks in
-// reverse, then ssd_bwd_reduce_kernel, which sums the per-head (or per
-// pair) dB and dC partials over the heads, and dA's over the batch rows, in
-// a fixed order, one thread an output element.
+// reverse, then ssd_bwd_reduce_kernel (ssd_scan_bwd_reduce.cuh), which sums
+// the per-head (or per pair) dB and dC partials over the heads, and dA's
+// over the batch rows, in a fixed order, one thread an output element.  (The third route, bf16 at
+// (50, 16), is chunk-parallel: ssd_scan_bwd_tc.cu.)
 //
 // (a) ssd_bwd_wgmma_kernel, bf16 at (64, 128), mamba2_1_3b's training scan:
 //   - One block per (pair of heads, batch row), a consumer warpgroup per
@@ -99,9 +100,11 @@
 //   step of about nine dependent wgmma groups, two warpgroup barriers and
 //   two hand-overs; warp 0's serial dcum work costs nothing measurable.
 //
-// (b) ssd_bwd_kernel, the CUDA cores in fp32 from fp32 or bf16 inputs: fp32
-//   at either (P, N) (the parity route) and bf16 at (50, 16) (hymba_1_5b's
-//   training scan).  One block of 256 threads per (head, batch row).  Pass 1
+// (b) ssd_bwd_kernel, the CUDA cores in fp32: fp32 at either (P, N), the
+//   parity route.  (bf16 at (50, 16), hymba_1_5b's training scan, took it
+//   too, 1.3140 ms at b 2, S 2048, H 64 on one H100 80GB HBM3 at 700 W, 54x
+//   its byte bound, the sub-chunk chain its bound; it has its own route
+//   now, ssd_scan_bwd_tc.cu.)  One block of 256 threads per (head, batch row).  Pass 1
 //   walks the sub-chunks in order and writes each one's start state and the
 //   final state to a scratch (b, H, nsub + 1, P, N) fp32, as the forward
 //   would carry them.  Pass 2 walks them in reverse with G in shared memory:
@@ -119,6 +122,7 @@
 
 #include "common.cuh"
 #include "hopper.cuh"
+#include "ssd_scan_bwd_reduce.cuh"
 
 namespace {
 
@@ -444,45 +448,6 @@ ssd_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   if (tid == 0) dAh[bh] = dA_acc;
 }
 
-// dB and dC (b, S, N) in T: the `parts` partials of each batch row ((b,
-// parts, S, N) fp32: one per head, or per pair of heads) summed in order, one
-// thread an element; dA (H,): the batch rows' partials (b, H) summed in order
-template <typename T>
-__global__ void __launch_bounds__(BT)
-ssd_bwd_reduce_kernel(const float* __restrict__ dBh, const float* __restrict__ dCh,
-                      const float* __restrict__ dAh, T* __restrict__ dB, T* __restrict__ dC,
-                      float* __restrict__ dA, int nb, int S, int parts, int H, int N) {
-  const size_t idx = (size_t)blockIdx.x * BT + threadIdx.x;
-  const size_t plane = (size_t)S * N;
-  if (idx < (size_t)nb * plane) {
-    const size_t b = idx / plane, sn = idx % plane;
-    float sb = 0.f, sc = 0.f;
-    for (int p = 0; p < parts; ++p) {
-      const size_t off = (b * parts + p) * plane + sn;
-      sb += dBh[off];
-      sc += dCh[off];
-    }
-    dB[idx] = from_float<T>(sb);
-    dC[idx] = from_float<T>(sc);
-  }
-  if (idx < (size_t)H) {
-    float s = 0.f;
-    for (int b = 0; b < nb; ++b) s += dAh[(size_t)b * H + idx];
-    dA[idx] = s;
-  }
-}
-
-template <typename T>
-int launch_reduce(const float* dBh, const float* dCh, const float* dAh, void* dB, void* dC,
-                  void* dA, int nb, int S, int parts, int H, int N, cudaStream_t stream) {
-  const size_t total = (size_t)nb * S * N;
-  const size_t blocks = (total > (size_t)H ? total : (size_t)H) + BT - 1;
-  ssd_bwd_reduce_kernel<T><<<(unsigned)(blocks / BT), BT, 0, stream>>>(
-      dBh, dCh, dAh, static_cast<T*>(dB), static_cast<T*>(dC), static_cast<float*>(dA), nb, S,
-      parts, H, N);
-  return static_cast<int>(cudaGetLastError());
-}
-
 template <typename T, int P, int N>
 int launch_bwd(const void* x, const void* dt, const void* A, const void* B, const void* C,
                const void* dy, const void* init, const void* dstate, void* dx, void* ddt,
@@ -501,7 +466,7 @@ int launch_bwd(const void* x, const void* dt, const void* A, const void* B, cons
       b_ss, c_sb, c_ss);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  return launch_reduce<T>(dBh, dCh, dAh, dB, dC, dA, nb, S, H, H, N, stream);
+  return launch_reduce<T>(dBh, dCh, dAh, dB, dC, dA, nb, S, H, H, N, 1, stream);
 }
 
 // ------------------------------------------------ bf16 at (64, 128): wgmma
@@ -528,7 +493,6 @@ constexpr int V_C = 0, V_D = 64, V_EC = 128, V_W = 192, V_EL = 256, V_ROW = 260,
               V_COL = 388, V_GS = 644, VEC = 656;
 constexpr int W_SMEM = 1024 + STAGE + W_HEADS * HEAD_TILES + PAIR_BYTES +
                        W_HEADS * VEC * 4 + 2 * 8;
-constexpr float LOG2E = 1.4426950408889634f;
 // named barriers: 1 + wg a warpgroup's own; the pair's hand-over
 constexpr int BAR_PAIR_FULL = 3, BAR_PAIR_EMPTY = 4;
 
@@ -543,23 +507,6 @@ __device__ __forceinline__ int swz(int row, int col) {
   return (col / 64) * ATOM + row * 128 + ((((col % 64) / 8) ^ (row % 8)) << 4) + (col % 8) * 2;
 }
 
-__device__ __forceinline__ float ex2(float x) {  // 2^x, flushing results below 2^-126 to 0
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// the bf16 pair of what rounding (lo, hi) to bf16 leaves: with pack_bf16's,
-// about 16 bits of each value
-__device__ __forceinline__ uint32_t pack_bf16_rest(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return hopper::pack_bf16(lo - __low2float(h), hi - __high2float(h));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
 
 // Accumulator layout of m64nNk16 in a warpgroup (hopper.cuh): thread t = 32
 // warp + lane, r = 16 warp + lane / 4, q = lane % 4, holds d[4 j + 2 hh + e] =
@@ -574,7 +521,9 @@ struct Lane {
   template <bool REST = false, int R>
   __device__ __forceinline__ void store_bf16(unsigned char* tile, const float (&d)[R]) const {
     const int srow = 16 * warp + 8 * ((lane / 8) % 2) + lane % 8, scol = 8 * (lane / 16);
-    auto pk = [](float a, float b) { return REST ? pack_bf16_rest(a, b) : hopper::pack_bf16(a, b); };
+    auto pk = [](float a, float b) {
+      return REST ? hopper::pack_bf16_rest(a, b) : hopper::pack_bf16(a, b);
+    };
 #pragma unroll
     for (int k = 0; k < R / 8; ++k)
       hopper::stmatrix_x4(tile + swz(srow, 16 * k + scol), pk(d[8 * k], d[8 * k + 1]),
@@ -1183,7 +1132,7 @@ int launch_bwd_wgmma(const void* x, const void* dt, const void* A, const void* B
       static_cast<float*>(dinit), states, S, H);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  return launch_reduce<__nv_bfloat16>(dBp, dCp, dAh, dB, dC, dA, nb, S, H / W_HEADS, H, WN,
+  return launch_reduce<__nv_bfloat16>(dBp, dCp, dAh, dB, dC, dA, nb, S, H / W_HEADS, H, WN, 1,
                                       stream);
 }
 
@@ -1193,15 +1142,16 @@ int launch_bwd_wgmma(const void* x, const void* dt, const void* A, const void* B
 // the CUDA cores) states per (batch row, head).
 extern "C" int ssd_scan_bwd_rows() { return BQ; }
 
-// dtype: 0 = fp32, 1 = bf16 (x, B, C, dy, dx, dB, dC).  (P, N) = (64, 128) or
-// (50, 16).  init, dstate and dinit may be null (a zero initial state, a zero
-// cotangent of the final state, no d init).  bf16 at (64, 128) takes the
-// wgmma kernel (H % 4 == 0, 16-byte aligned pointers and B / C strides);
-// its scratch, fp32: states (b, H, nsub, P, N), nsub = ceil(S /
-// ssd_scan_bwd_rows()), dBh and dCh (b, H / 2, S, N), dAh (b, H).  The rest
-// take the CUDA-core kernel; its scratch: states (b, H, nsub + 1, P, N), dBh
-// and dCh (b, H, S, N), dAh (b, H).  Returns the cudaError_t of the launches,
-// or cudaErrorInvalidValue for what the kernels do not take.
+// dtype: 0 = fp32, 1 = bf16 (x, B, C, dy, dx, dB, dC).  (P, N) = (64, 128),
+// or (50, 16) in fp32 (bf16 at (50, 16) is ssd_scan_bwd_tc's).  init, dstate
+// and dinit may be null (a zero initial state, a zero cotangent of the final
+// state, no d init).  bf16 at (64, 128) takes the wgmma kernel (H % 4 == 0,
+// 16-byte aligned pointers and B / C strides); its scratch, fp32: states (b,
+// H, nsub, P, N), nsub = ceil(S / ssd_scan_bwd_rows()), dBh and dCh (b, H /
+// 2, S, N), dAh (b, H).  fp32 takes the CUDA-core kernel; its scratch:
+// states (b, H, nsub + 1, P, N), dBh and dCh (b, H, S, N), dAh (b, H).
+// Returns the cudaError_t of the launches, or cudaErrorInvalidValue for what
+// the kernels do not take.
 extern "C" int ssd_scan_bwd(const void* x, const void* dt, const void* A, const void* B,
                             const void* C, const void* dy, const void* init,
                             const void* dstate, void* dx, void* ddt, void* dA, void* dB,
@@ -1220,7 +1170,6 @@ extern "C" int ssd_scan_bwd(const void* x, const void* dt, const void* A, const 
   if (P == WP && N == WN && dtype == 0) return launch_bwd<float, WP, WN>(SSD_BWD_ARGS);
   if (P == WP && N == WN && dtype == 1) return launch_bwd_wgmma(SSD_BWD_ARGS);
   if (P == 50 && N == 16 && dtype == 0) return launch_bwd<float, 50, 16>(SSD_BWD_ARGS);
-  if (P == 50 && N == 16 && dtype == 1) return launch_bwd<__nv_bfloat16, 50, 16>(SSD_BWD_ARGS);
 #undef SSD_BWD_ARGS
   return static_cast<int>(cudaErrorInvalidValue);
 }

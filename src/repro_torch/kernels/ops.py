@@ -19,7 +19,8 @@ kernels too: a product's is two more products (``matmul``;
 backward kernel of ``csrc/flash_attention_bwd.cu``, which reads each row's
 log2-sum-exp2 that the forward wrote (the forward's ``with_lse``
 instantiation; on the CPU the plain lse, saved all the same); the scan's
-the kernel of ``csrc/ssd_scan_bwd.cu`` (on the CPU ``ssd_scan_bwd_plain``).
+the kernels of ``csrc/ssd_scan_bwd.cu`` or ``csrc/ssd_scan_bwd_tc.cu`` (on
+the CPU ``ssd_scan_bwd_plain``).
 Otherwise (serving, under ``torch.inference_mode()``) they call the kernel
 directly, with no autograd node.  ``decode_attention`` has no backward
 kernel: it raises ``NotImplementedError`` under grad on the card rather

@@ -25,15 +25,19 @@ The backward, the gradients of x, dt, A, B, C and the initial state given
 dy and the final state's cotangent: ``ssd_scan_bwd_plain`` in fp32, the
 chunked dual form walking the chunks in reverse (the CPU path, and the
 yardstick on the card); ``ssd_scan_bwd_cuda`` launches the kernels of
-``csrc/ssd_scan_bwd.cu``, chosen by ``ssd_bwd_route``: each recomputes the
-states the forward carried and walks 64-row sub-chunks in reverse, then a
-second launch sums dB, dC and dA over the heads (or pairs of heads) and
-batch rows in a fixed order, so two runs give the same bits.  bf16 at
-(64, 128) runs on the tensor cores (``"wgmma"``: TMA and wgmma, two heads a
-block, the adjoint state in fp32 registers); fp32, and bf16 at (50, 16), on
-the CUDA cores in fp32 (``"simt"``).  Its calls are counted by route in
-``SSD_BWD_ROUTE_LAUNCHES``.  The JAX package has no such kernel: it
-differentiates ``ssd_scan_ref`` with XLA.
+``csrc/ssd_scan_bwd.cu`` and ``csrc/ssd_scan_bwd_tc.cu``, chosen by
+``ssd_bwd_route``, and sums dB, dC and dA over the heads (or groups of
+heads), batch rows and sub-chunks in a fixed order, so two runs give the
+same bits.  bf16 at (64, 128) runs on the tensor cores (``"wgmma"``: TMA and
+wgmma, two heads a block, recomputing the states the forward carried and
+walking 64-row sub-chunks in reverse with the adjoint state in fp32
+registers); bf16 at (50, 16) on the tensor cores chunk-parallel (``"tc"``:
+mma.sync, the sub-chunks' local state and adjoint increments in parallel,
+one short elementwise pass that chains them, then every sub-chunk's
+gradients in parallel); fp32 at either shape on the CUDA cores in fp32
+(``"simt"``, the parity route).  Its calls are counted by route in
+``SSD_BWD_ROUTE_LAUNCHES``, one a call whatever its launches.  The JAX
+package has no such kernel: it differentiates ``ssd_scan_ref`` with XLA.
 """
 from __future__ import annotations
 
@@ -56,7 +60,7 @@ DT_BOX_HEADS = 4
 SSD_ROUTE_LAUNCHES: Dict[str, int] = {"wgmma": 0, "fp32": 0, "simt": 0,
                                       "tc": 0}
 # calls of ssd_scan_bwd_cuda by route (see ssd_bwd_route)
-SSD_BWD_ROUTE_LAUNCHES: Dict[str, int] = {"wgmma": 0, "simt": 0}
+SSD_BWD_ROUTE_LAUNCHES: Dict[str, int] = {"wgmma": 0, "simt": 0, "tc": 0}
 
 
 def ssd_route(dtype: torch.dtype, H: int, P: int, N: int,
@@ -103,26 +107,27 @@ def _check_tma(name: str, H: int, bc_strides: Sequence[int],
 
 def ssd_bwd_route(dtype: torch.dtype, H: int, P: int, N: int,
                   bc_strides: Sequence[int] = (), aligned: bool = True) -> str:
-    """Which kernel of ``csrc/ssd_scan_bwd.cu`` takes a scan's backward;
-    raises for what none takes.
+    """Which kernels take a scan's backward; raises for what none takes.
 
-    bf16 at P 64, N 128 (mamba2_1_3b's heads) goes to the tensor cores,
-    ``"wgmma"`` (``ssd_bwd_wgmma_kernel``), with ``ssd_route``'s TMA
-    conditions: H a multiple of 4, the batch and sequence strides of B and C
-    (``bc_strides``, in elements) multiples of 8 and every tensor 16-byte
-    aligned (``aligned``); there is no other bf16 kernel at that shape to
-    fall back on.  fp32 at either shape and bf16 at P 50, N 16 (hymba_1_5b's)
-    go to the CUDA cores, ``"simt"`` (``ssd_bwd_kernel``), any strides.
+    bf16 goes to the tensor cores under ``ssd_route``'s TMA conditions (H a
+    multiple of 4, the batch and sequence strides of B and C, ``bc_strides``
+    in elements, multiples of 8 and every tensor 16-byte aligned,
+    ``aligned``), as the scan's forward does: ``"wgmma"``
+    (``csrc/ssd_scan_bwd.cu:ssd_bwd_wgmma_kernel``) at P 64, N 128
+    (mamba2_1_3b's heads), ``"tc"`` (``csrc/ssd_scan_bwd_tc.cu``, mma.sync,
+    chunk-parallel) at P 50, N 16 (hymba_1_5b's); there is no other bf16
+    kernel at either shape to fall back on.  fp32 at either shape goes to
+    the CUDA cores, ``"simt"`` (``ssd_bwd_kernel``), any strides.
     """
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"ssd_scan_bwd: no kernel for {dtype}")
     if (P, N) not in ((HEAD_DIM, STATE_DIM), HYBRID_SHAPE):
         raise ValueError(f"ssd_scan_bwd: (P, N) = {(P, N)}; the kernels take "
                          f"{(HEAD_DIM, STATE_DIM)} and {HYBRID_SHAPE}")
-    if dtype == torch.float32 or (P, N) == HYBRID_SHAPE:
+    if dtype == torch.float32:
         return "simt"
     _check_tma("ssd_scan_bwd", H, bc_strides, aligned)
-    return "wgmma"
+    return "tc" if (P, N) == HYBRID_SHAPE else "wgmma"
 
 
 def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -311,8 +316,8 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
 @functools.lru_cache(maxsize=None)
 def bwd_rows() -> int:
-    """The backward kernel's rows per sub-chunk: its states scratch holds
-    ceil(S / rows) + 1 states per (batch row, head)."""
+    """The backward kernels' rows per sub-chunk: their scratch holds
+    ceil(S / rows) (+ 1) states per (batch row, head)."""
     return _build.load().ssd_scan_bwd_rows()
 
 
@@ -321,10 +326,13 @@ def ssd_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                       init_state: Optional[torch.Tensor] = None,
                       dstate: Optional[torch.Tensor] = None):
     """(dx, ddt, dA, dB, dC, d init_state) of ``ssd_scan_cuda``, as
-    ``ssd_scan_bwd_plain`` computes them: two launches of
+    ``ssd_scan_bwd_plain`` computes them, on the kernels that
+    ``ssd_bwd_route`` picks: on ``"wgmma"`` and ``"simt"`` two launches of
     ``csrc/ssd_scan_bwd.cu`` (the backward per head or pair of heads and
-    batch row on the kernel that ``ssd_bwd_route`` picks, then the sum of
-    dB, dC and dA over the heads and the batch rows in a fixed order).  x,
+    batch row, then the sum of dB, dC and dA over the heads and the batch
+    rows in a fixed order); on ``"tc"`` four of ``csrc/ssd_scan_bwd_tc.cu``
+    (the sub-chunks' local increments, the serial pass over them, the
+    sub-chunks' gradients, the sums).  x,
     dt, A, dy, init_state and dstate contiguous; B and C may be views with
     any batch and sequence strides, read in place, their last dim
     contiguous.  (P, N) = (64, 128) or (50, 16), fp32 or bf16; anything
@@ -368,22 +376,42 @@ def ssd_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     dC = torch.empty_like(dB)
     dinit = (torch.empty((b, H, P, N), **f32) if init_state is not None
              else None)
-    # scratch: the sub-chunks' start states (on the CUDA cores also the
-    # final one), and dB / dC per pair of heads (wgmma) or per head
     nsub = -(-S // bwd_rows())
-    wgmma = route == "wgmma"
-    states = torch.empty((b, H, nsub + (not wgmma), P, N), **f32)
-    dBh = torch.empty((b, H // 2 if wgmma else H, S, N), **f32)
-    dCh = torch.empty_like(dBh)
-    dAh = torch.empty((b, H), **f32)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     lib = _build.load()
-    _build.check(lib.ssd_scan_bwd(
-        x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
-        dy.data_ptr(), ptr(init_state), ptr(dstate), dx.data_ptr(),
-        ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
-        ptr(dinit), states.data_ptr(), dBh.data_ptr(), dCh.data_ptr(),
-        dAh.data_ptr(), b, S, H, P, N, *bc_strides, DTYPE_CODES[x.dtype],
-        torch.cuda.current_stream(x.device).cuda_stream), "ssd_scan_bwd")
+    if route == "tc":
+        # scratch: the sub-chunks' state increments, then start states (and
+        # the final one), their adjoint increments, then end-state
+        # adjoints, their decays, dt da per sub-chunk, and dB / dC per
+        # group of 4 heads
+        states = torch.empty((b, H, nsub + 1, P, N), **f32)
+        adj = torch.empty((b, H, nsub, P, N), **f32)
+        decay = torch.empty((b, H, nsub), **f32)
+        dAp = torch.empty_like(decay)
+        dBp = torch.empty((b, H // DT_BOX_HEADS, S, N), **f32)
+        dCp = torch.empty_like(dBp)
+        _build.check(lib.ssd_scan_bwd_tc(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+            C.data_ptr(), dy.data_ptr(), ptr(init_state), ptr(dstate),
+            dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(),
+            dC.data_ptr(), ptr(dinit), states.data_ptr(), adj.data_ptr(),
+            decay.data_ptr(), dBp.data_ptr(), dCp.data_ptr(), dAp.data_ptr(),
+            b, S, H, *bc_strides, stream), "ssd_scan_bwd")
+    else:
+        # scratch: the sub-chunks' start states (on the CUDA cores also the
+        # final one), and dB / dC per pair of heads (wgmma) or per head
+        wgmma = route == "wgmma"
+        states = torch.empty((b, H, nsub + (not wgmma), P, N), **f32)
+        dBh = torch.empty((b, H // 2 if wgmma else H, S, N), **f32)
+        dCh = torch.empty_like(dBh)
+        dAh = torch.empty((b, H), **f32)
+        _build.check(lib.ssd_scan_bwd(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+            C.data_ptr(), dy.data_ptr(), ptr(init_state), ptr(dstate),
+            dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(),
+            dC.data_ptr(), ptr(dinit), states.data_ptr(), dBh.data_ptr(),
+            dCh.data_ptr(), dAh.data_ptr(), b, S, H, P, N, *bc_strides,
+            DTYPE_CODES[x.dtype], stream), "ssd_scan_bwd")
     SSD_BWD_ROUTE_LAUNCHES[route] += 1
     return dx, ddt, dA, dB, dC, dinit

@@ -18,7 +18,10 @@ from the kernel's rounding.
 ``time``: the bf16 backward at mamba2_1_3b's heads (P 64, N 128, 64 heads;
 the ``"wgmma"`` route) at the kernels phase's shapes (the train shape b 8,
 S 512; S 449 from an initial state with a final-state cotangent; b 1, S
-4096 with A times 1e-4): the median of 20 CUDA-event timings of one
+4096 with A times 1e-4), or with ``--heads hymba`` at hymba_1_5b's (P 50,
+N 16; the ``"tc"`` route: its train shape b 2, S 2048, H 64; S 1800 from
+an initial state with a cotangent; b 1, S 4096, A times 1e-4; a model
+rank's 32 heads at b 2, S 2048): the median of 20 CUDA-event timings of one
 call by ``scan_time.time_ms`` (the L2 cache flushed and the card kept busy
 ahead of each, as chip_smoke.py times its kernels), each launch's device
 time from ``torch.profiler`` over one call, and the largest error of the
@@ -28,14 +31,15 @@ checkout's copy of it (a variant of the kernel), with that checkout's
 ``src`` first on the path:
 ``PYTHONPATH=<checkout>/src python src/repro_torch/launch/ssd_bwd_probe.py time``.
 
-Prints one JSON object per case, with the card's name.  A measurement: it
-raises without a CUDA device.
+Prints one JSON object per case, with the card's name and power limit
+(``nvidia-smi``).  A measurement: it raises without a CUDA device.
 """
 from __future__ import annotations
 
 import argparse
 import itertools
 import json
+import subprocess
 
 import numpy as np
 import torch
@@ -82,26 +86,32 @@ def errors():
                "init_and_dstate": init, "max_rel_err": rel}
 
 
-# (b, S, initial state and final-state cotangent, scale of A)
-TIME_SHAPES = ((8, 512, False, 1.0), (8, 449, True, 1.0), (1, 4096, True, 1e-4))
+# per model's heads: (P, N) and (b, S, H, initial state and final-state
+# cotangent, scale of A)
+TIME_SHAPES = {
+    "mamba2": ((64, 128), ((8, 512, 64, False, 1.0), (8, 449, 64, True, 1.0),
+                           (1, 4096, 64, True, 1e-4))),
+    "hymba": ((50, 16), ((2, 2048, 64, False, 1.0), (2, 1800, 64, True, 1.0),
+                         (1, 4096, 64, True, 1e-4),
+                         (2, 2048, 32, False, 1.0)))}
 TIME_ITERS = 20
 
 
-def time_bf16():
+def time_bf16(heads="mamba2"):
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import ops
     from repro_torch.kernels.ssd_scan import (SSD_BWD_ROUTE_LAUNCHES,
                                               ssd_scan_bwd_plain)
     from repro_torch.launch.scan_time import rel_err, time_ms
-    H, P, N = 64, 64, 128
+    (P, N), shapes = TIME_SHAPES[heads]
     gen = torch.Generator(device="cuda").manual_seed(SEED)
 
     def randn(*shape, scale=1.0, dtype=torch.float32):
         return (torch.randn(shape, generator=gen, device="cuda") * scale
                 ).to(dtype)
 
-    for b, S, init, a_scale in TIME_SHAPES:
+    for b, S, H, init, a_scale in shapes:
         bf = torch.bfloat16
         BC = randn(b, S, 2 * N, scale=0.5, dtype=bf)
         args = (randn(b, S, H, P, scale=0.5, dtype=bf),
@@ -172,16 +182,23 @@ def main(argv=None) -> int:
     ap.add_argument("what", nargs="?", choices=("errors", "train", "time"),
                     default="errors")
     ap.add_argument("--plain-backward", action="store_true")
+    ap.add_argument("--heads", choices=tuple(TIME_SHAPES), default="mamba2",
+                    help="time: the model whose heads (P, N) to time")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("ssd_bwd_probe: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     card = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[:1]
     results = (errors() if args.what == "errors" else
-               time_bf16() if args.what == "time" else
+               time_bf16(args.heads) if args.what == "time" else
                [train(args.plain_backward)])
     for out in results:
-        print(json.dumps({"device": card, **out}), flush=True)
+        print(json.dumps({"device": card, "nvidia_smi": smi, **out}),
+              flush=True)
     return 0
 
 

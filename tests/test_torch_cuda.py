@@ -1053,10 +1053,11 @@ def test_cuda_ops_without_backward_raise_under_grad(card):
 # small batch
 SSD_BWD_CASES = [(2, S, H) for S in (1, 63, 64, 65, 97, 449, 512)
                  for H in (4, 64)]
-# the route of K4's backward (ssd_bwd_route): bf16 at mamba2_1_3b's (P, N)
-# on the tensor cores, the rest on the CUDA cores
+# the route of K4's backward (ssd_bwd_route): bf16 on the tensor cores (the
+# wgmma kernel at mamba2_1_3b's (P, N), the chunk-parallel mma.sync kernels
+# at hymba_1_5b's), fp32 on the CUDA cores
 SSD_BWD_ROUTES = {("bfloat16", 64, 128): "wgmma", ("float32", 64, 128): "simt",
-                  ("bfloat16", 50, 16): "simt", ("float32", 50, 16): "simt"}
+                  ("bfloat16", 50, 16): "tc", ("float32", 50, 16): "simt"}
 
 
 def _check_ssd_bwd(x, dt, A, B, C, init, dy, ds, dtype, launches=1):
@@ -1118,6 +1119,32 @@ def test_cuda_ssd_scan_bwd_matches_plain(card, P, N, b, S, H, dtype,
     place."""
     _check_ssd_bwd(*_ssd_bwd_on(card, dtype, 70 + S, b, S, H, with_init, P,
                                 N), dtype)
+
+
+# (b, S, H, ends) of the tc route from one end: SSD_BWD_CASES with an
+# initial state alone or a final-state cotangent alone, but for S 1 with the
+# cotangent alone, where dA is 0 in exact arithmetic (the one row's <G,
+# s_end> cancels its w dt x.(B G^T)) and both versions return rounding
+SSD_BWD_TC_ENDS = [(b, S, H, ends) for b, S, H in SSD_BWD_CASES
+                   for ends in ("init", "dstate")
+                   if (S, ends) != (1, "dstate")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,S,H,ends", SSD_BWD_TC_ENDS)
+def test_cuda_ssd_scan_bwd_tc_one_end(card, b, S, H, ends):
+    """The chunk-parallel route (bf16 at hymba_1_5b's P 50, N 16) with an
+    initial state and no cotangent of the final state, or a cotangent and
+    no initial state: the serial pass starts one chain from zero, and the
+    ragged S (1, 63, 65, 97) put the last sub-chunk's rows past S, where a
+    state or adjoint carried wrongly across sub-chunks shows."""
+    x, dt, A, B, C, init, dy, ds = _ssd_bwd_on(card, "bfloat16", 75 + S, b,
+                                               S, H, True, 50, 16)
+    if ends == "init":
+        ds = None
+    else:
+        init = None
+    _check_ssd_bwd(x, dt, A, B, C, init, dy, ds, "bfloat16")
 
 
 @pytest.mark.cuda
@@ -1259,8 +1286,9 @@ def test_cuda_train_two_steps_ssd_families(card, arch):
     """mamba2_1_3b and hymba_1_5b (its window cut to 32, below the sequence)
     at full width, two layers, bf16, batch 2 x seq 128: two train steps, two
     scan forwards per layer (with the per-layer recompute) and one scan
-    backward on its bf16 route (mamba2's on the tensor cores, hymba's on the
-    CUDA cores) and (hymba) one band backward per layer on the wgmma route;
+    backward on its bf16 route (mamba2's on the wgmma kernel, hymba's on the
+    chunk-parallel tc kernels) and (hymba) one band backward per layer on
+    the wgmma route;
     the loss finite and falling."""
     from repro_torch.data import DataConfig, make_batch
     from repro_torch.kernels.ssd_scan import SSD_BWD_ROUTE_LAUNCHES
@@ -1285,7 +1313,7 @@ def test_cuda_train_two_steps_ssd_families(card, arch):
     assert ops.GRAD_LAUNCHES == {"flash_attention_bwd": 2 * 2 * hybrid,
                                  "ssd_scan_bwd": 2 * 2}
     assert SSD_BWD_ROUTE_LAUNCHES == {"wgmma": 2 * 2 * (not hybrid),
-                                      "simt": 2 * 2 * hybrid}
+                                      "simt": 0, "tc": 2 * 2 * hybrid}
     assert ops.launch_counts()[4] == {"wgmma": 2 * 2 * hybrid, "fp32": 0}
     assert all(np.isfinite(losses)) and losses[1] < losses[0]
 

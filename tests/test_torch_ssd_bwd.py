@@ -5,9 +5,11 @@ in the port against the JAX package's autodiff, on the CPU in fp32:
 ``return_state``), and the band's plain backward and ``ops.flash_attention``
 under a window against ``jax.vjp`` of the JAX banded attention
 (``chunked_attention(..., window=w)``, that is ``_banded_attention``).
-Also the choice of K4's backward kernel (``ssd_bwd_route``) and a plain
-torch model of the bf16 tensor-core kernel's roundings held to the card's
-limits against ``ssd_scan_bwd_plain`` in fp64."""
+Also the choice of K4's backward kernel (``ssd_bwd_route``) and plain
+torch models of the bf16 tensor-core routes' arithmetic (the wgmma
+kernel's roundings; the tc route's phases, exact in fp64 and with its
+roundings) held to the card's limits against ``ssd_scan_bwd_plain`` in
+fp64."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -180,14 +182,14 @@ def test_ssd_bwd_plain_keeps_bf16():
     (torch.bfloat16, 64, 64, 128, (), True, "wgmma"),
     (torch.float32, 64, 64, 128, (512 * 256, 256) * 2, True, "simt"),
     (torch.float32, 6, 64, 128, (449 * 257, 257) * 2, False, "simt"),   # any
-    (torch.bfloat16, 64, 50, 16, (2048 * 32, 32) * 2, True, "simt"),    # hymba
-    (torch.bfloat16, 6, 50, 16, (449 * 33, 33) * 2, False, "simt"),     # any
+    (torch.bfloat16, 64, 50, 16, (2048 * 32, 32) * 2, True, "tc"),      # hymba
     (torch.float32, 64, 50, 16, (2048 * 32, 32) * 2, True, "simt"),
 ])
 def test_ssd_bwd_route(dtype, H, P, N, strides, aligned, route):
-    """bf16 at mamba2_1_3b's (64, 128) takes the tensor cores; fp32 at either
-    (P, N) and bf16 at hymba_1_5b's (50, 16) the CUDA cores, whatever the
-    heads, strides and alignment."""
+    """bf16 takes the tensor cores, at mamba2_1_3b's (64, 128) the wgmma
+    kernel and at hymba_1_5b's (50, 16) the chunk-parallel mma.sync kernels;
+    fp32 at either (P, N) the CUDA cores, whatever the heads, strides and
+    alignment."""
     assert ssd_bwd_route(dtype, H, P, N, strides, aligned) == route
 
 
@@ -198,16 +200,17 @@ def test_ssd_bwd_route(dtype, H, P, N, strides, aligned, route):
     (torch.bfloat16, 64, 64, 128, (512 * 256, 256, 512 * 256, 252), True,
      ValueError),
     (torch.bfloat16, 64, 64, 128, (512 * 256, 256) * 2, False, ValueError),
+    (torch.bfloat16, 6, 50, 16, (449 * 33, 33) * 2, False, ValueError),
     (torch.bfloat16, 64, 8, 8, (), True, ValueError),
     (torch.float32, 64, 50, 128, (), True, ValueError),
     (torch.float16, 64, 64, 128, (), True, TypeError),
     (torch.float64, 64, 50, 16, (), True, TypeError),
 ])
 def test_ssd_bwd_route_raises(dtype, H, P, N, strides, aligned, error):
-    """What no kernel takes raises: bf16 at (64, 128) with H not a multiple
-    of 4, a B/C stride not a multiple of 8 elements or a pointer off 16
-    bytes (TMA's conditions; nothing falls back to the CUDA cores), other
-    (P, N), other dtypes."""
+    """What no kernel takes raises: bf16 at (64, 128) or (50, 16) with H
+    not a multiple of 4, a B/C stride not a multiple of 8 elements or a
+    pointer off 16 bytes (TMA's conditions, the forward's; nothing falls
+    back to the CUDA cores), other (P, N), other dtypes."""
     with pytest.raises(error):
         ssd_bwd_route(dtype, H, P, N, strides, aligned)
 
@@ -344,6 +347,212 @@ def test_wgmma_bwd_dA_needs_the_split_operands():
     split = _wgmma_model_errors(101, 2, 97, 4, 1.0, False)
     single = _wgmma_model_errors(101, 2, 97, 4, 1.0, False, split=False)
     assert split["dA"] < 1e-2 < single["dA"], (split, single)
+
+
+def _tc_bwd_model(x, dt, A, B, C, dy, init_state=None, dstate=None,
+                  rounded=True, split=True):
+    """The phases of ``csrc/ssd_scan_bwd_tc.cu`` (the ``"tc"`` route) in
+    plain torch, every sub-chunk of 64 rows at once where the route runs
+    them in parallel (zero rows past S):
+
+    1. the local increments of each sub-chunk k: dS_k = (B o dt w)^T x and
+       dG_k = (C o exp(cum))^T dy, and its decay exp(cum_last);
+    2. the serial pass, elementwise: s0_{k+1} = exp(cum_last,k) s0_k + dS_k
+       from init_state (or 0), G_{k-1} = exp(cum_last,k) G_k + dG_k from
+       dstate (or 0), G_k the adjoint of sub-chunk k's end state and G_{-1}
+       d init_state;
+    3. the gradients of each sub-chunk from its s0_k, G_k and end state
+       s0_{k+1}: dxdt, dx, ddt, dcum with <G_k, s0_{k+1}> on its last row,
+       da the reverse cumsum of dcum within the sub-chunk, dB and dC per
+       head summed over each group of 4 heads, dt da per (batch row, head,
+       sub-chunk);
+    4. the reduce: dB and dC over the groups, dA over the batch rows and
+       sub-chunks.  cum restarts at every sub-chunk, so no dcum total is
+       carried across sub-chunks: what a later sub-chunk owes an earlier
+       dt reaches it through G and the <G, s_end> term.
+
+    ``rounded``: fp32 with bf16 rounding where the kernels round a
+    product's operand (L o C B^T, L o dy (x dt)^T, C o exp(cum), x o dt o w
+    in dB, s0, G in dB; B o dt w and G in B G^T as a bf16 pair hi + lo, or
+    one bf16 each without ``split``), dx, dB and dC bf16 at the end; else
+    fp64 with no rounding, the decomposition alone."""
+    ct = torch.float32 if rounded else torch.float64
+    one = _bf if rounded else (lambda t: t)
+    pair = (lambda t: _bf(t) + _bf(t - _bf(t))) if rounded and split \
+        else one
+    b, S, H, P = x.shape
+    N = B.shape[-1]
+    Q = 64
+    nsub = -(-S // Q)
+    pad = nsub * Q - S
+    x, dy = (F.pad(t.to(ct), (0, 0, 0, 0, 0, pad)).reshape(b, nsub, Q, H, P)
+             for t in (x, dy))
+    B, C = (F.pad(t.to(ct), (0, 0, 0, pad)).reshape(b, nsub, Q, N)
+            for t in (B, C))
+    dt = F.pad(dt.to(ct), (0, 0, 0, pad)).reshape(b, nsub, Q, H)
+    A = A.to(ct)
+    cum = torch.cumsum(dt * A, 2)                         # (b, k, Q, H)
+    ec, w = torch.exp(cum), torch.exp(cum[:, :, -1:] - cum)
+    el = torch.exp(cum[:, :, -1])[..., None, None]        # (b, k, H, 1, 1)
+
+    # 1. local increments
+    dS = torch.einsum("bkjhp,bkjhn->bkhpn", x,
+                      pair(B[:, :, :, None] * (dt * w)[..., None]))
+    dG = torch.einsum("bkihp,bkihn->bkhpn", dy,
+                      one(C[:, :, :, None] * ec[..., None]))
+    # 2. the serial pass
+    s = torch.zeros(b, H, P, N, dtype=ct) if init_state is None \
+        else init_state.to(ct)
+    states = [s]
+    for k in range(nsub):
+        s = el[:, k] * s + dS[:, k]
+        states.append(s)
+    G = torch.zeros(b, H, P, N, dtype=ct) if dstate is None \
+        else dstate.to(ct)
+    adj = [None] * nsub
+    for k in reversed(range(nsub)):
+        adj[k] = G
+        G = el[:, k] * G + dG[:, k]
+    s0, s_end, Gk = (torch.stack(t, 1) for t in (states[:-1], states[1:],
+                                                  adj))
+    # 3. each sub-chunk's gradients
+    idx = torch.arange(Q)
+    tril = (idx[:, None] >= idx[None, :])[None, None, :, :, None]
+    strict = (idx[:, None] > idx[None, :])[None, None, :, :, None]
+    L = torch.where(tril, torch.exp(cum[:, :, :, None] - cum[:, :, None]),
+                    torch.zeros((), dtype=ct))            # (b, k, i, j, H)
+    CB = torch.einsum("bkin,bkjn->bkij", C, B)[..., None]
+    S2 = L * torch.einsum("bkihp,bkjhp->bkijh", dy, x) * dt[:, :, None]
+    M = torch.where(strict, S2 * CB, torch.zeros((), dtype=ct))
+    S1r, S2r = one(L * CB), one(S2)
+    BG = torch.einsum("bkin,bkhpn->bkihp", B, pair(Gk))
+    dxdt = w[..., None] * BG + torch.einsum("bkjih,bkjhp->bkihp", S1r, dy)
+    dys0 = torch.einsum("bkihp,bkhpn->bkihn", dy, one(s0))
+    dCh = ec[..., None] * dys0 + torch.einsum("bkijh,bkjn->bkihn", S2r, B)
+    dBh = torch.einsum("bkihp,bkhpn->bkihn", one(x * (dt * w)[..., None]),
+                       one(Gk)) + torch.einsum("bkjih,bkjn->bkihn", S2r, C)
+    dcum = M.sum(3) - M.sum(2) + ec * (C[:, :, :, None] * dys0).sum(-1) - \
+        w * dt * (x * BG).sum(-1)
+    dcum[:, :, -1] += (Gk * s_end).sum((-1, -2))
+    da = torch.flip(torch.cumsum(torch.flip(dcum, [2]), 2), [2])
+    dx = (dt[..., None] * dxdt).reshape(b, nsub * Q, H, P)[:, :S]
+    ddt = ((x * dxdt).sum(-1) + A * da).reshape(b, nsub * Q, H)[:, :S]
+    dA_part = (dt * da).sum(2)                            # (b, k, H)
+
+    # 4. the reduce
+    def heads(part):  # (b, k, Q, H, N): the groups of 4, then the groups
+        g = part.reshape(b, nsub, Q, H // 4, 4, N)
+        g = ((g[..., 0, :] + g[..., 1, :]) + g[..., 2, :]) + g[..., 3, :]
+        return g.sum(3).reshape(b, nsub * Q, N)[:, :S]
+
+    dA = dA_part.sum((0, 1))
+    out = (dx, ddt, dA, heads(dBh), heads(dCh),
+           None if init_state is None else G)
+    if not rounded:
+        return out
+    bf = torch.bfloat16
+    return (out[0].to(bf), out[1], out[2], out[3].to(bf), out[4].to(bf),
+            out[5])
+
+
+def _tc_inputs(seed, b, S, H, a_scale, with_init, bf16):
+    """hymba_1_5b's heads (P 50, N 16): x, B, C and dy bf16-valued (B and C
+    halves of one tensor, as the card tests draw them) or fp64, A times
+    ``a_scale``, an initial state and a final-state cotangent or none."""
+    x, dt, A, B, C, s0, dy, ds = (torch.tensor(a) for a in
+                                  _ssd_inputs(seed, b, S, H, 50, 16))
+    if bf16:
+        x, B, C, dy = (t.to(torch.bfloat16) for t in (x, B, C, dy))
+    else:
+        x, dt, A, B, C, s0, dy, ds = (t.double() for t in
+                                      (x, dt, A, B, C, s0, dy, ds))
+    init, dstate = (s0, ds) if with_init else (None, None)
+    return x, dt, A * a_scale, B, C, dy, init, dstate
+
+
+def _tc_model_errors(seed, b, S, H, a_scale, with_init, split=True):
+    """Per gradient, max |model - plain| / max |plain|: the bf16-rounded
+    model of the tc route against the plain version in fp64."""
+    x, dt, A, B, C, dy, init, dstate = _tc_inputs(seed, b, S, H, a_scale,
+                                                  with_init, True)
+    got = _tc_bwd_model(x, dt, A, B, C, dy, init, dstate, split=split)
+    d = lambda t: None if t is None else t.double()  # noqa: E731
+    want = ssd_scan_bwd_plain(*(d(t) for t in (x, dt, A, B, C, dy)),
+                              chunk=256, init_state=d(init), dstate=d(dstate))
+    return {name: ((g.double() - w).abs().max() /
+                   (w.abs().max() + 1e-6)).item()
+            for name, g, w in zip(NAMES, got, want) if w is not None}
+
+
+# (b, S, H, A's scale, init) of the tc route's model: the long memory (A
+# times 1e-4, the adjoint and the states carried across 16 sub-chunks) with
+# and without an initial state, ragged S (97 and 449 prime, 65 one row past
+# a sub-chunk) and one sub-chunk (63)
+TC_MODEL_CASES = [(1, 1024, 4, 1e-4, True), (1, 1024, 4, 1e-4, False),
+                  (2, 97, 4, 1.0, False), (2, 65, 4, 1.0, True),
+                  (2, 449, 8, 1.0, True), (2, 63, 4, 1.0, False)]
+
+
+@pytest.mark.parametrize("b,S,H,a_scale,with_init", TC_MODEL_CASES)
+def test_tc_bwd_decomposition_is_exact(b, S, H, a_scale, with_init):
+    """The tc route's phases without rounding, in fp64, equal
+    ``ssd_scan_bwd_plain`` in fp64 to 1e-10 of each gradient's largest
+    value: the split into local increments, a serial pass and per-sub-chunk
+    gradients changes nothing but the order of the sums."""
+    args = _tc_inputs(S + H + 7, b, S, H, a_scale, with_init, False)
+    got = _tc_bwd_model(*args[:6], args[6], args[7], rounded=False)
+    want = ssd_scan_bwd_plain(*args[:6], chunk=256, init_state=args[6],
+                              dstate=args[7])
+    for name, g, w in zip(NAMES, got, want):
+        if w is None:
+            assert g is None, name
+            continue
+        assert g.dtype == torch.float64, name
+        err = (g - w).abs().max().item()
+        assert err <= 1e-10 * w.abs().max().item(), (name, err)
+
+
+@pytest.mark.parametrize("b,S,H,a_scale,with_init", TC_MODEL_CASES)
+def test_tc_bwd_rounding_keeps_the_fine_limit(b, S, H, a_scale, with_init):
+    """Where the tc route rounds to bf16, every gradient stays within the
+    card's limits of the plain version in fp64, 5e-2 and 1e-2 of its
+    largest value (tests/test_torch_cuda.py's SSD_TOL and SSD_FINE_TOL) at
+    hymba_1_5b's (P 50, N 16): the card's check, rehearsed here."""
+    errs = _tc_model_errors(S + H, b, S, H, a_scale, with_init)
+    assert max(errs.values()) < 1e-2, errs
+
+
+def test_tc_bwd_dA_needs_the_split_operands():
+    """As on the wgmma route, dA is what bf16 operands cost most: with B o
+    dt w in the local increments and G in B G^T rounded to one bf16 each,
+    dA misses the 1e-2 limit at S 65 (a sub-chunk and one row), and with
+    each a bf16 pair (the kernels') it keeps it."""
+    split = _tc_model_errors(69, 2, 65, 4, 1.0, True)
+    single = _tc_model_errors(69, 2, 65, 4, 1.0, True, split=False)
+    assert split["dA"] < 1e-2 < single["dA"], (split, single)
+
+
+def test_tc_bwd_model_matches_jax_grad():
+    """The tc route's phases against jax.grad of the JAX package's
+    ``ssd_scan_ref`` at (50, 16) on the same numpy inputs (ragged S over two
+    sub-chunks, an initial state and a final-state cotangent): unrounded
+    within SSD_GRAD_TOL, with the kernels' bf16 roundings (on bf16-valued
+    inputs) within the card's 1e-2."""
+    b, S, H, P, N = 2, 97, 4, 50, 16
+    x, dt, A, B, C, s0, dy, ds = _ssd_inputs(31, b, S, H, P, N)
+    bfv = lambda a: torch.tensor(a).to(torch.bfloat16).float().numpy()  # noqa: E731,E501
+    x, B, C, dy = (bfv(a) for a in (x, B, C, dy))
+    want = _jax_grads(x, dt, A, B, C, s0, dy, ds, 16, True, True)
+    T = torch.tensor
+    exact = _tc_bwd_model(*(T(a).double() for a in (x, dt, A, B, C, dy)),
+                          T(s0).double(), T(ds).double(), rounded=False)
+    _assert_grads([g.float() for g in exact], want)
+    bf = torch.bfloat16
+    got = _tc_bwd_model(T(x).to(bf), T(dt), T(A), T(B).to(bf), T(C).to(bf),
+                        T(dy).to(bf), T(s0), T(ds))
+    for name, g, w in zip(NAMES, got, want):
+        err = np.abs(g.float().numpy() - w).max()
+        assert err < 1e-2 * np.abs(w).max(), (name, err)
 
 
 # ---------------------------------------------------------------------------

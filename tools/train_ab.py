@@ -1,10 +1,11 @@
 """The train phases of a checkout's ``chip_smoke.py`` alone, on one card.
 
-    python3 tools/train_ab.py [--root CHECKOUT]
+    python3 tools/train_ab.py [--root CHECKOUT] [--paths PATH ...]
 
 Loads CHECKOUT/chip_smoke.py (this checkout's by default), puts
 CHECKOUT/src first on the path, and runs that script's device and build
-phases and then its train phase for each of its ``TRAIN_PATHS``, each
+phases and then its train phase for each of its ``TRAIN_PATHS`` (or the
+ones ``--paths`` names), each
 printing its JSON line (step times, tokens/s, peak
 memory, the forward and backward and the AdamW update apart); a phase
 that fails raises.  The script's own functions run, so each checkout is
@@ -28,6 +29,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parent
                                           .parent))
+    ap.add_argument("--paths", nargs="+", default=None,
+                    help="train paths of TRAIN_PATHS to run (default: all)")
     args = ap.parse_args(argv)
     root = Path(args.root).resolve()
     spec = importlib.util.spec_from_file_location(
@@ -42,9 +45,13 @@ def main(argv=None) -> int:
     print(json.dumps({"tree": str(root)}), flush=True)
     dev = smoke.phase_device(torch)
     smoke.phase_build()
+    unknown = set(args.paths or ()) - set(smoke.TRAIN_PATHS)
+    if unknown:
+        raise SystemExit(f"train_ab: no train path {sorted(unknown)}")
     for path, (model, batch, seq, lr, depth) in smoke.TRAIN_PATHS.items():
-        smoke.phase_train(torch, dev, model, batch, seq, lr, path,
-                          depth=depth)
+        if args.paths is None or path in args.paths:
+            smoke.phase_train(torch, dev, model, batch, seq, lr, path,
+                              depth=depth)
     return 0
 
 

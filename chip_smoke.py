@@ -68,17 +68,20 @@ exits non-zero):
                on its 704 hidden units; each one launch on its grouped
                route; bf16 also within 5e-5 + 1e-2 |plain|),
                its backward products (dx = dy w^T, each expert's w^T read
-               in place, and dw = x^T dy from a copy of x^T, which bf16
-               pads along C to a multiple of 8, the copy's time apart) at
-               deepseek_moe_16b's training capacity C 480 and at C 235
-               (padded) in bf16, at C 15 in fp32, at a mesh rank's 32
-               experts of 1536 rows and a TP/EP rank's of 3072 rows on
-               704 hidden units in fp32 and bf16, and at
+               in place, and dw = x^T dy, each expert's x^T read in place,
+               no copy and no pad in bf16) at deepseek_moe_16b's training
+               capacity C 480 and at C 235 in bf16, at C 15 in fp32, at a
+               mesh rank's 32 experts of 1536 rows and a TP/EP rank's of
+               3072 rows on 704 hidden units in fp32 and bf16, and at
                llama4_maverick_400b_a17b's C 80 in bf16, each on its
                grouped route under both limits, its library torch.bmm,
-               K1's backward products at qwen2_0_5b's training shapes
-               (dx = dy w^T with w^T read in place, dw = x^T dy at 4096
-               rows, the tied unembedding's too), K2's backward kernel
+               K1 at every train path's products (K1_TRAIN_PRODUCTS,
+               4096 rows: y = x w, dx = dy w^T with w^T read in place, dw
+               = x^T dy with x^T read in place, the unembedding's too; bf16
+               on the wgmma kernel, each with its run count of K split
+               over a cluster, and qwen2_0_5b's dx and dw in fp32), every
+               bf16 K1 case also within 5e-5 + 1e-2 |plain| and two calls
+               bit-equal, K2's backward kernel
                (flash_attention_bwd from the forward's lse: qwen2_0_5b's
                (8, 512, 14/2, 64) causal and at S 455, (4, 512, 28/4, 128)
                causal, not causal whisper_large_v3's (8, 1500, 20/20, 64)
@@ -164,8 +167,8 @@ exits non-zero):
                full depth and mamba2_1_3b (3e-4) at depth 24 of 48, both
                at batch 8 x seq 512, hymba_1_5b (3e-4) at depth 16 of 32
                and 2 x 2048 (past its window of 1024),
-               deepseek_moe_16b (3e-4) at 8 x 512 cut to depth 4 (one
-               dense, three MoE layers; C 480): the loss
+               deepseek_moe_16b (3e-4) at 8 x 512 cut to depth 2 (one
+               dense, one MoE layer; C 480): the loss
                finite and falling, the launches per step (each layer
                step recomputed in the backward) of K1 (4 per product of a
                layer, 3 for the unembedding; by route: deepseek's routers on
@@ -334,11 +337,14 @@ PARITY_WINDOW = 32
 # 1e-3 mamba2_1_3b's loss rises from step 3 on (11.23, 9.40, 15.16, 15.79,
 # 13.02 on an H100), the same with the plain backward in place of K4's
 # kernel (11.23, 9.40, 15.15, 15.81, 13.03): the step, not the kernel.
-# deepseek_moe_16b at 8 x 512 (C 480 a MoE layer) and 3e-4, cut to depth 4
-# (one dense layer, three MoE layers: 2.27 B parameters, ≈ 23 GB of bf16
-# weights and fp32 moments, twice that while the phase restores a second
-# state beside the first; its 28 layers need the experts sharded over
-# cards, which the port does not do yet).  mamba2_1_3b at depth 24 of 48
+# deepseek_moe_16b at 8 x 512 (C 480 a MoE layer) and 3e-4, cut to depth 2
+# (one dense layer, one MoE layer: every kernel and route of the path, at
+# about half the ≈ 23 GB of bf16 weights and fp32 moments that depth 4 held,
+# twice that while the phase restores a second state beside the first,
+# and half its checkpoint; cut from depth 4 to keep the script's time
+# inside its limit as the kernels phase grew; its 28 layers need the
+# experts sharded over cards, which the port does not do yet).
+# mamba2_1_3b at depth 24 of 48
 # and hymba_1_5b at 16 of 32: the script's time (its mesh phase grew with
 # the TP/EP forward and the meshed engine) stays inside 1050 s of its
 # 1200 s; every layer of a stack is the same step, so half the stack runs
@@ -352,9 +358,94 @@ TRAIN_PATHS = {"qwen2_0_5b_train": ("qwen2_0_5b", 8, 512, 1e-3, None),
                "mamba2_1_3b_train": ("mamba2_1_3b", 8, 512, 3e-4, 24),
                "hymba_1_5b_train": ("hymba_1_5b", 2, 2048, 3e-4, 16),
                "deepseek_moe_16b_train": ("deepseek_moe_16b", 8, 512, 3e-4,
-                                          4)}
+                                          2)}
 TRAIN_PARITY = ("qwen2_0_5b", "qwen3_4b", "whisper_large_v3", "mamba2_1_3b",
                 "hymba_1_5b", "deepseek_moe_16b")
+# streamed_matmul at serving's shapes: the (K, N) of qwen2_0_5b and of
+# mamba2_1_3b at decode and prefill M; the last of each is the tied
+# unembedding
+K1_PAIRS = [(896, 896), (896, 128), (896, 4864), (4864, 896), (896, 152064),
+            (2048, 4096), (2048, 128), (2048, 64), (4096, 2048),
+            (2048, 50432)]
+K1_TIED = {152064, 50432}
+# model -> (decode M, prefill M, [(K, N), ...], the unembedding's (K, N,
+# tied)).  llama3_2_1b at batch 8, qwen2_7b, deepseek_moe_16b and
+# internvl2_26b at their batch 4: q/o, k/v, gate/up and down at the decode M
+# and a 512-token prefill's (internvl2_26b's 256 patches and 512 tokens),
+# and the unembedding at the decode M (a prefill unembeds the last
+# position): llama3_2_1b's tied, the others' a row-major lm_head.
+# deepseek_moe_16b's are its attention (16 heads over 16), its shared
+# experts (2 x 1408 wide) and its first layer's dense FFN; its fp32 router
+# apart.  hymba_1_5b at its batch 8: q/o, k/v, gate/up, down, the SSD's
+# w_z/w_x, w_B/w_C (N 16), w_dt (N 64) and w_out, and its untied
+# unembedding.  qwen3_4b at its batch 4: q, o, k/v, gate/up, down and its
+# tied unembedding.  whisper_large_v3 at its batch 8: the decoder's q/k/v/o
+# and cross q/o (1280, 1280), w1 and w2, and its untied unembedding; its
+# encoder's products (and the cross k/v, from the encoder's output) at M 8
+# x 1500 apart
+K1_SERVED = {
+    "qwen3_4b": (4, 2048, [(2560, 4096), (4096, 2560), (2560, 1024),
+                           (2560, 9728), (9728, 2560)], (2560, 151936, True)),
+    "whisper_large_v3": (8, 4096, [(1280, 1280), (1280, 5120), (5120, 1280)],
+                         (1280, 52224, False)),
+    "llama3_2_1b": (8, 4096, [(2048, 2048), (2048, 512), (2048, 8192),
+                              (8192, 2048)], (2048, 128256, True)),
+    "hymba_1_5b": (8, 4096, [(1600, 1600), (1600, 320), (1600, 5504),
+                             (5504, 1600), (1600, 3200), (1600, 16),
+                             (1600, 64), (3200, 1600)], (1600, 32256, False)),
+    "qwen2_7b": (4, 2048, [(3584, 3584), (3584, 512), (3584, 18944),
+                           (18944, 3584)], (3584, 152064, False)),
+    "deepseek_moe_16b": (4, 2048, [(2048, 2048), (2048, 2816), (2816, 2048),
+                                   (2048, 10944), (10944, 2048)],
+                         (2048, 102400, False)),
+    "internvl2_26b": (4, 3072, [(6144, 6144), (6144, 1024), (6144, 16384),
+                                (16384, 6144)], (6144, 92672, False))}
+# K1 at each train path's distinct products, (K, N, tied) of y = x w at the
+# step's K1_TRAIN_ROWS rows (8 x 512 or 2 x 2048 tokens), each also as its
+# backward calls it (k1_train_operands): dx = dy w^T and dw = x^T dy.
+# qwen2_0_5b: q/o, k/v, gate/up, down, the tied unembedding; mamba2_1_3b:
+# w_z/w_x, w_B/w_C, w_dt, w_out, the tied unembedding (the vocabulary
+# padded); hymba_1_5b: q/o, k/v, gate/up, down, w_z/w_x, w_B/w_C (N 16),
+# w_dt, w_out, its untied unembedding; deepseek_moe_16b's dense layer: q/o
+# and its FFN
+K1_TRAIN_ROWS = 4096
+K1_TRAIN_PRODUCTS = {
+    "qwen2_0_5b_train": [(896, 896, False), (896, 128, False),
+                         (896, 4864, False), (4864, 896, False),
+                         (896, 151936, True)],
+    "mamba2_1_3b_train": [(2048, 4096, False), (2048, 128, False),
+                          (2048, 64, False), (4096, 2048, False),
+                          (2048, 50432, True)],
+    "hymba_1_5b_train": [(1600, 1600, False), (1600, 320, False),
+                         (1600, 5504, False), (5504, 1600, False),
+                         (1600, 3200, False), (1600, 16, False),
+                         (1600, 64, False), (3200, 1600, False),
+                         (1600, 32256, False)],
+    "deepseek_moe_16b_train": [(2048, 2048, False), (2048, 10944, False),
+                               (10944, 2048, False)]}
+
+
+def k1_train_operands(randn, M, K, N, tied, kind, dtype):
+    """The two operands of one product of a train step as ``ops.matmul``
+    gets them, for y = x (M, K) @ w (K, N): ``"fwd"`` x and w (a tied
+    table's ``embed.t()``); ``"dx"`` dy and w^T (a row-major w's transpose,
+    or the tied table itself); ``"dw"`` x^T (x's transpose, read in place)
+    and dy.  The second operand is scaled by its contraction length^-1/2.
+    ``randn(*shape, dtype=, scale=)`` makes each tensor."""
+    if kind == "fwd":
+        x = randn(M, K, dtype=dtype)
+        w = (randn(N, K, dtype=dtype, scale=K ** -0.5).t() if tied
+             else randn(K, N, dtype=dtype, scale=K ** -0.5))
+        return x, w
+    if kind == "dx":
+        dy = randn(M, N, dtype=dtype)
+        w = (randn(N, K, dtype=dtype, scale=N ** -0.5) if tied
+             else randn(K, N, dtype=dtype, scale=N ** -0.5).t())
+        return dy, w
+    return (randn(M, K, dtype=dtype).t(),
+            randn(M, N, dtype=dtype, scale=M ** -0.5))
+
+
 TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 SSD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}  # tests/test_kernels.py's
 # and the second limit of bf16 (tests/test_torch_cuda.py's): the bf16 scans
@@ -492,8 +583,6 @@ def main() -> int:
                 **timing_sums([c for c in fwd if c["dtype"] == "bfloat16"]),
                 "backward": {
                     "max_abs_err": max(c["max_abs_err"] for c in bwd),
-                    "xt_copy_ms": sum(c.get("xt_copy_ms", 0.0) for c in bwd
-                                      if c["dtype"] == "bfloat16"),
                     **timing_sums([c for c in bwd
                                    if c["dtype"] == "bfloat16"])}}
     emit({"kernels": summary})
@@ -675,7 +764,8 @@ def phase_kernels(torch, dev):
                                                      grouped_matmul_plain,
                                                      grouped_route, k_splits,
                                                      matmul_plain,
-                                                     matmul_route, sm_count)
+                                                     matmul_route,
+                                                     prefill_plan, sm_count)
 
     peaks = dev["peaks"]
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -723,6 +813,7 @@ def phase_kernels(torch, dev):
         tol = (SSD_TOL if relative else TOL)[dname]
         fine_rel = SSD_FINE_TOL.get(dname) if relative else None
         err, rel_err, excess = 0.0, 0.0, float("-inf")
+        fine_excess = float("-inf")
         for g, w in zip(got, want):
             # in slices of 2^27 elements: a 10.7 GB bf16 gradient (llama4's
             # grouped dw) would need 64 GB of fp32 copies at once
@@ -751,6 +842,7 @@ def phase_kernels(torch, dev):
                 excess = max(excess, loose)
             if fine:
                 excess = max(excess, tight)
+                fine_excess = max(fine_excess, tight)
             if mean_rel:
                 ratio = d_sum / w_sum
                 excess = max(excess, ratio - mean_rel)
@@ -761,7 +853,8 @@ def phase_kernels(torch, dev):
                              "|kernel - plain| <= tol * (1 + |plain|)")}
         if fine:
             case["fine_tol"] = {"rtol": fine[0], "atol": fine[1],
-                                "rule": "|kernel - plain| <= atol + rtol |plain|"}
+                                "rule": "|kernel - plain| <= atol + rtol |plain|",
+                                "max_excess": fine_excess}
         if mean_rel:
             case["fine_tol"] = {"tol": mean_rel, "mean_rel_err": ratio,
                                 "rule": "mean |kernel - plain| <= tol * "
@@ -787,6 +880,32 @@ def phase_kernels(torch, dev):
                                  f"with its plain version by {case['max_abs_err']}")
         cases.append(case)
 
+    def k1_call(x, w):
+        """ops.matmul(x, w) on the card, called twice: the output (the two
+        must be equal bit for bit), the route that took it, the wgmma
+        route's plan (prefill_plan: the tile's width, the runs K was cut
+        into) and the bytes the call allocated beyond its output (a copy of
+        an operand would show)."""
+        before = dict(ROUTE_LAUNCHES)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        got = ops.matmul(x, w)
+        torch.cuda.synchronize()
+        extra_bytes = torch.cuda.max_memory_allocated() - base - got.nbytes
+        route = [r for r, n in ROUTE_LAUNCHES.items() if n != before[r]]
+        if len(route) != 1 or ROUTE_LAUNCHES[route[0]] != before[route[0]] + 1:
+            raise AssertionError(f"matmul {tuple(x.shape)} @ {tuple(w.shape)}"
+                                 f": {route} launched, not one kernel")
+        if not torch.equal(got, ops.matmul(x, w)):
+            raise AssertionError(f"matmul {tuple(x.shape)} @ {tuple(w.shape)}"
+                                 ": two calls differ")
+        M, K = x.shape
+        plan = (prefill_plan(1, M, w.shape[1], K, x.device)
+                if route == ["wgmma"] else (None, None, None))
+        return got, route[0], {"tile_n": plan[0], "k_runs": plan[1]}, \
+            extra_bytes
+
     def matmul_case(M, K, N, tied, dtype, extra=None):
         es = torch.tensor([], dtype=dtype).element_size()
         x = randn(M, K, dtype=dtype)
@@ -796,53 +915,22 @@ def phase_kernels(torch, dev):
             w = randn(K, N, dtype=dtype, scale=K ** -0.5)
         fns = (lambda: ops.matmul(x, w), lambda: matmul_plain(x, w),
                lambda: torch.matmul(x, w))
-        check("streamed_matmul", [M, K, N], dtype, ops.matmul(x, w),
+        got, route, plan, _ = k1_call(x, w)
+        check("streamed_matmul", [M, K, N], dtype, got,
               matmul_plain(x, w), es * (M * K + K * N + M * N),
-              2 * M * N * K, fns, extra=extra)
+              2 * M * N * K, fns, route=route,
+              fine=DECODE_FINE_TOL if dtype == torch.bfloat16 else None,
+              extra={**plan, **(extra or {})})
 
-    # streamed_matmul: the (K, N) of qwen2_0_5b and of mamba2_1_3b at decode
-    # and prefill M; the last of each is the tied unembedding
-    pairs = [(896, 896), (896, 128), (896, 4864), (4864, 896), (896, 152064),
-             (2048, 4096), (2048, 128), (2048, 64), (4096, 2048),
-             (2048, 50432)]
-    tied = {152064, 50432}
-    # llama3_2_1b at batch 8, qwen2_7b, deepseek_moe_16b and internvl2_26b
-    # at their batch 4: q/o, k/v, gate/up and down at the decode M and a
-    # 512-token prefill's (internvl2_26b's 256 patches and 512 tokens), and
-    # the unembedding at the decode M (a prefill unembeds the last
-    # position): llama3_2_1b's tied, the others' a row-major lm_head.
-    # deepseek_moe_16b's are its attention (16 heads over 16), its shared
-    # experts (2 x 1408 wide) and its first layer's dense FFN; its fp32
-    # router below.  hymba_1_5b at its batch 8: q/o, k/v, gate/up, down, the
-    # SSD's w_z/w_x, w_B/w_C (N 16), w_dt (N 64) and w_out, and its untied
-    # unembedding.  qwen3_4b at its batch 4: q, o, k/v, gate/up, down and
-    # its tied unembedding.  whisper_large_v3 at its batch 8: the decoder's
-    # q/k/v/o and cross q/o (1280, 1280), w1 and w2, and its untied
-    # unembedding; its encoder's products (and the cross k/v, from the
-    # encoder's output) at M 8 x 1500 below
-    served = [(4, 2048, [(2560, 4096), (4096, 2560), (2560, 1024),
-                         (2560, 9728), (9728, 2560)], (2560, 151936, True)),
-              (8, 4096, [(1280, 1280), (1280, 5120), (5120, 1280)],
-               (1280, 52224, False)),
-              (8, 4096, [(2048, 2048), (2048, 512), (2048, 8192),
-                         (8192, 2048)], (2048, 128256, True)),
-              (8, 4096, [(1600, 1600), (1600, 320), (1600, 5504),
-                         (5504, 1600), (1600, 3200), (1600, 16), (1600, 64),
-                         (3200, 1600)], (1600, 32256, False)),
-              (4, 2048, [(3584, 3584), (3584, 512), (3584, 18944),
-                         (18944, 3584)], (3584, 152064, False)),
-              (4, 2048, [(2048, 2048), (2048, 2816), (2816, 2048),
-                         (2048, 10944), (10944, 2048)],
-               (2048, 102400, False)),
-              (4, 3072, [(6144, 6144), (6144, 1024), (6144, 16384),
-                         (16384, 6144)], (6144, 92672, False))]
+    # streamed_matmul at the served shapes (K1_PAIRS, K1_SERVED)
     for dtype in (torch.float32, torch.bfloat16):
         for M in (8, 4096, 8 * 455):  # decode, prefill, a ragged prefill
-            for K, N in pairs:
-                if M == 8 * 455 and N in tied:  # prefill unembeds 8 rows
+            for K, N in K1_PAIRS:
+                if M == 8 * 455 and N in K1_TIED:  # prefill unembeds 8 rows
                     continue
-                matmul_case(M, K, N, N in tied, dtype)
-        for m_decode, m_prefill, model_pairs, (K, N, is_tied) in served:
+                matmul_case(M, K, N, N in K1_TIED, dtype)
+        for m_decode, m_prefill, model_pairs, (K, N, is_tied) in \
+                K1_SERVED.values():
             for M in (m_decode, m_prefill):
                 for Kp, Np in model_pairs:
                     matmul_case(M, Kp, Np, False, dtype)
@@ -890,44 +978,52 @@ def phase_kernels(torch, dev):
                                  "launch")
         fns = (lambda: ops.matmul(x, w), lambda: matmul_plain(x, w),
                lambda: torch.matmul(x, w))
+        if not torch.equal(got, ops.matmul(x, w)):
+            raise AssertionError(f"({M}, {K}, {N}): two calls differ")
         check("streamed_matmul", [M, K, N], torch.bfloat16, got,
               matmul_plain(x, w), 2 * (M * K + K * N + M * N), 2 * M * N * K,
-              fns)
+              fns, fine=DECODE_FINE_TOL, route="wmma")
         del x, w
 
-    # K1's backward at qwen2_0_5b's training shapes (batch 8 x seq 512 =
-    # 4096 rows; one layer's q/o, k/v, gate/up and down, and the tied
-    # unembedding over its padded vocabulary): dx = dy w^T, w^T read in
-    # place (a row-major w's transpose; the tied table itself), and dw = x^T
-    # dy, x^T a contiguous copy, as ops.matmul's backward calls them.  As
-    # in the forward cases, the second operand is scaled by the contraction
-    # length^-1/2 (dx sums over N, dw over the M rows)
-    M = 4096
-    for dtype in (torch.float32, torch.bfloat16):
+    # K1 at the training paths' products (K1_TRAIN_PRODUCTS at
+    # K1_TRAIN_ROWS rows), each as a train step calls it
+    # (k1_train_operands): y = x w, dx = dy w^T (w^T read in place: a
+    # row-major w's transpose, or the tied table itself) and dw = x^T dy
+    # (x^T read in place: x's transpose), in bf16 on the wgmma kernel, K
+    # cut over a cluster where the output tiles fall short of the SMs (its
+    # run count per case, "k_runs"); every dw must read x in place, the
+    # call allocating nothing beyond its output.  qwen2_0_5b's dx and dw in
+    # fp32 too (the fp32 kernel reads a contiguous x: the wrapper copies
+    # x^T).  bf16 under both limits, two calls bit-equal (k1_call)
+    for dtype, paths in ((torch.bfloat16, list(K1_TRAIN_PRODUCTS)),
+                         (torch.float32, ["qwen2_0_5b_train"])):
         es = torch.tensor([], dtype=dtype).element_size()
-        for K, N in ((896, 896), (896, 128), (896, 4864), (4864, 896),
-                     (896, 151936)):
-            w_t = (randn(N, K, dtype=dtype, scale=N ** -0.5) if N == 151936
-                   else randn(K, N, dtype=dtype, scale=N ** -0.5).t())
-            x_t = randn(K, M, dtype=dtype)
-            dy = randn(M, N, dtype=dtype)
-            dy_s = randn(M, N, dtype=dtype, scale=M ** -0.5)
-            for tag, a, b in (("bwd_dx", dy, w_t), ("bwd_dw", x_t, dy_s)):
-                m, k_, n = a.shape[0], a.shape[1], b.shape[1]
-                before = ROUTE_LAUNCHES["wgmma"]
-                got = ops.matmul(a, b)
-                if dtype == torch.bfloat16 and \
-                        ROUTE_LAUNCHES["wgmma"] != before + 1:
-                    raise AssertionError(f"{tag} ({m}, {k_}, {n}): not on "
-                                         "the wgmma kernel")
-                fns = (lambda: ops.matmul(a, b), lambda: matmul_plain(a, b),
-                       lambda: torch.matmul(a, b))
-                check("streamed_matmul", [tag, m, k_, n], dtype, got,
-                      matmul_plain(a, b), es * (m * k_ + k_ * n + m * n),
-                      2 * m * n * k_, fns)
-                del got
-            del dy, dy_s, w_t, x_t
-            free(torch)
+        bf16 = dtype == torch.bfloat16
+        for path in paths:
+            for K, N, tied in K1_TRAIN_PRODUCTS[path]:
+                for kind in ("fwd", "dx", "dw") if bf16 else ("dx", "dw"):
+                    a, b = k1_train_operands(randn, K1_TRAIN_ROWS, K, N, tied,
+                                             kind, dtype)
+                    m, k_, n = a.shape[0], a.shape[1], b.shape[1]
+                    got, route, plan, extra_bytes = k1_call(a, b)
+                    in_place = extra_bytes < a.numel() * es // 2
+                    if bf16 and (route != "wgmma" or (kind == "dw"
+                                                      and not in_place)):
+                        raise AssertionError(
+                            f"{path} {kind} ({m}, {k_}, {n}): on {route}, "
+                            f"{extra_bytes} bytes beyond the output")
+                    fns = (lambda: ops.matmul(a, b),
+                           lambda: matmul_plain(a, b),
+                           lambda: torch.matmul(a, b))
+                    check("streamed_matmul", ["train", path, kind, m, k_, n],
+                          dtype, got, matmul_plain(a, b),
+                          es * (m * k_ + k_ * n + m * n), 2 * m * n * k_,
+                          fns, route=route,
+                          fine=DECODE_FINE_TOL if bf16 else None,
+                          extra={**plan, "x_read_in_place":
+                                 kind == "dw" and in_place})
+                    del a, b, got
+                free(torch)
 
     # the matmul grouped over experts, (E, C, K) @ (E, K, N) in one launch:
     # deepseek_moe_16b's expert FFN (64 experts, d 2048, f 1408; gate/up and
@@ -969,23 +1065,36 @@ def phase_kernels(torch, dev):
 
     # K1's grouped backward, as ops.grouped_matmul's autograd Function
     # calls it for y = x (E, C, K) @ w (E, K, N): dx = dy w^T, each
-    # expert's w^T read in place (w_t), and dw = x^T dy, x^T a contiguous
-    # copy that bf16 pads with dy along C to a multiple of 8
-    # (ops.pad_capacity; its time apart, "xt_copy_ms").  deepseek_moe_16b's
-    # gate/up (d 2048 -> f 1408) and down (f -> d) at its training capacity
-    # (8 x 512 tokens: C 480) and at C 235 (a served prefill's, which takes
-    # the pad), in bf16; at train_parity's C 15 (2 x 64 tokens) in fp32; at
+    # expert's w^T read in place (w_t), and dw = x^T dy, each expert's x^T
+    # read in place (x_t: x.transpose(1, 2); in bf16 with no copy and no
+    # pad at any C, the call allocating nothing beyond its output; fp32's
+    # kernel reads a contiguous x, which the wrapper copies).
+    # deepseek_moe_16b's gate/up (d 2048 -> f 1408) and down (f -> d) at its
+    # training capacity (8 x 512 tokens: C 480) and at C 235 (a served
+    # prefill's, C % 8 != 0), in bf16; at train_parity's C 15 (2 x 64
+    # tokens) in fp32; at
     # a mesh rank's 32 experts of 1536 rows in fp32 and bf16, and a TP/EP
     # rank's of 3072 rows on 704 hidden units; and
     # llama4_maverick_400b_a17b's gate (128 experts, 5120 -> 8192) at C 80.
-    # The bytes: x, dy and the gradient once (C unpadded); the operations
-    # 2 E C K N; the library torch.bmm on the kernel's views
+    # The bytes: x, dy and the gradient once; the operations 2 E C K N; the
+    # library torch.bmm on the kernel's views.  Two calls bit-equal
     def grouped_bwd_case(tag, a, b, route, shape, dtype, n_bytes, extra):
         before = ROUTE_LAUNCHES[route]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
         got = ops.grouped_matmul(a, b)
+        torch.cuda.synchronize()
+        extra_bytes = torch.cuda.max_memory_allocated() - base - got.nbytes
         if ROUTE_LAUNCHES[route] != before + 1:
             raise AssertionError(f"grouped {tag} {shape}: the {route} "
                                  "kernel did not launch")
+        if tag == "bwd_dw" and dtype == torch.bfloat16 and \
+                extra_bytes >= a.numel() * a.element_size() // 2:
+            raise AssertionError(f"grouped dw {shape}: {extra_bytes} bytes "
+                                 "beyond the output: x^T not read in place")
+        if not torch.equal(got, ops.grouped_matmul(a, b)):
+            raise AssertionError(f"grouped {tag} {shape}: two calls differ")
         fns = (lambda: ops.grouped_matmul(a, b),
                lambda: grouped_matmul_plain(a, b), lambda: torch.bmm(a, b))
         E, C, K, N = shape
@@ -1015,18 +1124,16 @@ def phase_kernels(torch, dev):
         dy = randn(E, C, N, dtype=dtype, scale=C ** -0.5)
         grouped_bwd_case("bwd_dx", dy, w.transpose(1, 2),
                          grouped_route(E, C, K, N, dtype, w_t=1),
-                         (E, C, K, N), dtype, n_bytes,
-                         {"w_t": 1, "padded_c": C})
+                         (E, C, K, N), dtype, n_bytes, {"w_t": 1})
         del w  # dw reads x and dy: llama4's w and its dw are 10.7 GB each
         free(torch)
-        xt, dyp = ops.pad_capacity(x.transpose(1, 2), dy)
-        grouped_bwd_case("bwd_dw", xt, dyp,
-                         grouped_route(E, K, N, xt.shape[2], dtype),
+        grouped_bwd_case("bwd_dw", x.transpose(1, 2), dy,
+                         grouped_route(E, K, N, C, dtype, x_t=1),
                          (E, C, K, N), dtype, n_bytes,
-                         {"w_t": 0, "padded_c": xt.shape[2],
-                          "xt_copy_ms": time_ms(lambda: ops.pad_capacity(
-                              x.transpose(1, 2), dy))})
-        del x, dy, xt, dyp
+                         {"x_t": 1, "tile_n_k_runs": prefill_plan(
+                             E, K, N, C, x.device)[:2]
+                          if dtype == torch.bfloat16 else None})
+        del x, dy
         free(torch)
 
     def sdpa(q, k, v, causal, window=0):  # (B, H, S, hd) views
@@ -1612,14 +1719,13 @@ def train_launches(cfg, steps, tokens, recompute=True, experts=None,
     router as often as a layer's product on "fp32"; its three grouped
     products on ``grouped_route``'s routes at the capacity of ``tokens``
     (y once, or twice with the recompute; dx = dy w^T, w transposed; dw =
-    x^T dy, C padded as ``ops.pad_capacity`` pads it); every other product
+    x^T dy, x^T read in place); every other product
     on "wgmma" (bf16) or "fp32".  Under expert parallelism a rank's grouped
     products take its ``experts`` (E / M) at ``rows`` (C M) per expert."""
     import torch
     from repro_torch.kernels.ssd_scan import (SSD_BWD_ROUTE_LAUNCHES,
                                               SSD_ROUTE_LAUNCHES,
                                               ssd_bwd_route, ssd_route)
-    from repro_torch.kernels.ops import ROW_MULTIPLE
     from repro_torch.kernels.streamed_matmul import (ROUTE_LAUNCHES,
                                                      grouped_route)
     from repro_torch.models.moe import _capacity
@@ -1642,12 +1748,11 @@ def train_launches(cfg, steps, tokens, recompute=True, experts=None,
         E, d, f = cfg.n_experts, cfg.d_model, cfg.moe_d_ff
         C = _capacity(tokens, cfg.top_k, E, cfg.capacity_factor)
         E, C = experts or E, rows or C
-        Cp = -(-C // ROW_MULTIPLE) * ROW_MULTIPLE if bf16 else C
         routes["fp32"] = (fwd + 2) * n_moe * steps
         for K, N in ((d, f), (d, f), (f, d)):  # wg, wu, wd
             for route, n in ((grouped_route(E, C, N, K, dtype), fwd),
                              (grouped_route(E, C, K, N, dtype, w_t=1), 1),
-                             (grouped_route(E, K, N, Cp, dtype), 1)):
+                             (grouped_route(E, K, N, C, dtype, x_t=1), 1)):
                 routes[route] += n * n_moe * steps
     routes["wgmma" if bf16 else "fp32"] += products - sum(routes.values())
     return {"streamed_matmul": products,
@@ -3635,9 +3740,13 @@ def profile_train_step(torch, fn):
         hit = re.match(r"(matmul|flash|decode|ssd)_\w*kernel", k)
         if hit:
             port[hit.group(0)] = port.get(hit.group(0), 0.0) + v / 1e3
-    # K1's grouped instantiations: the template flag G, the last, true
+    # K1's grouped instantiations: the template flag G true, the last of
+    # the decode and fp32 kernels', the third of the prefill kernel's (<XT,
+    # WT, G, tile width>)
     grouped = sum(v for k, v in by_name.items()
-                  if re.match(r"matmul_\w*kernel<.*, true>$", k)) / 1e3
+                  if re.match(r"matmul_\w*kernel<.*, true>$", k)
+                  or re.match(r"matmul_wgmma_kernel<\w+, \w+, true, \d+>$",
+                              k)) / 1e3
     return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
             "device_idle_share": (1 - busy / wall_us) if kern else None,
             "kernels_seen": len(kern),

@@ -29,10 +29,11 @@ _F = ctypes.c_float
 # C entry points of csrc/*.cu: name -> argument types (all return int)
 SIGNATURES = {
     "streamed_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "streamed_matmul_wgmma": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "streamed_matmul_wgmma": [_P, _P, _P] + [_I] * 9 + [_P],
     "streamed_matmul_decode": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "streamed_matmul_decode_tile": [],
-    "streamed_matmul_grouped_wgmma": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "streamed_matmul_prefill_max_clusters": [_I, _I],
+    "streamed_matmul_grouped_wgmma": [_P, _P, _P] + [_I] * 10 + [_P],
     "streamed_matmul_grouped_decode": [_P, _P, _P, _I, _I, _I, _I, _I, _I,
                                        _I, _P],
     "streamed_matmul_grouped_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _P],

@@ -983,8 +983,8 @@ ssd_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        wgmma_ss_n128<1>(acc, make_desc(dys + kk * 32, 16, 1024),
-                         make_desc(s0t + kk * 2048, ATOM, 1024), 1);
+        wgmma_ss_n128<0, 1>(acc, make_desc(dys + kk * 32, 16, 1024),
+                            make_desc(s0t + kk * 2048, ATOM, 1024), 1);
       wgmma_commit();
       uint32_t f2[16];
       ln.frag(f2, s2t);

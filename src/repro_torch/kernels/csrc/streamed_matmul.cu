@@ -12,15 +12,49 @@
 // reaches the tensor cores' full rate.
 //
 // What the design does about it.  Prefill (bf16, M >= 64, 16-byte strides:
-// matmul_wgmma_kernel): one block per 128x128 output tile; a producer warp
-// keeps a ring of STAGES shared-memory stages filled by TMA (x and w tiles
-// 64 deep in k, 128-byte swizzled), with a full and an empty mbarrier per
-// stage, and two consumer warpgroups each run wgmma m64n128k16 over a 64-row
-// strip into fp32 registers, keeping one k step's wgmmas in flight while the
-// next is issued.  w is read in either layout: row-major (K, N) is an
-// MN-major B operand (transpose bit set), the transposed view of an (N, K)
-// array (the tied unembedding) a K-major one.  TMA zero-fills the ragged
-// edges of M, N and K; the epilogue rounds to bf16 and masks M and N.
+// matmul_wgmma_kernel, redesigned for the training step's products):
+// persistent blocks, at most one per SM, walk the output's 128 x BN tiles
+// (BN 128, or 256 where the host's plan says so) in a static order that
+// rasterises groups of 16 tile rows column by column, so the blocks running
+// at once share their column tiles of w (or dy) in L2 instead of re-reading
+// them once per tile row.  A producer warp keeps a ring of stages filled by
+// TMA (x and w tiles 64 deep in k, 128-byte swizzled; 4 stages of 32 KB at
+// BN 128, 3 of 48 KB at BN 256) with a full and an empty mbarrier per
+// stage, the ring's phases carried across tiles, so it loads the next
+// tile's stages while the consumers finish the current one.  Two consumer
+// warpgroups each run wgmma m64n128k16 (or m64n256k16) over a 64-row strip
+// into fp32 registers, one k step's wgmmas in flight while the next is
+// issued; the epilogue rounds to bf16 into a store tile apart from the ring
+// (swizzled as TMA reads it) and one thread a warpgroup TMA-stores it
+// (N % 8 != 0: stores from registers), so the next tile's first wgmmas
+// start without waiting for the store.  x is read row-major or, for a
+// backward's dw = x^T dy, as the transpose of the row-major x (x_t: an
+// MN-major A, 64 x 64 boxes along M, transpose bit set), with no copy; w
+// row-major (an MN-major B) or as the transpose of an (N, K) array (the tied
+// unembedding, a backward's dx = dy w^T: K-major).  Where the output's tiles
+// fall short of the SMs (a dw's d_in x d_out, a narrow projection) the plan
+// cuts K into runs, the blocks of a cluster (at most 8), as many as keep
+// every cluster running at once; each block writes its fp32 partial tile
+// over its quiet ring (the producer waits for the merge on such tiles),
+// and after a cluster barrier sums its share of the tile's rows over every
+// block's partial, in rank order, through distributed shared memory: no
+// workspace, no atomics, two calls give the same bits.  TMA zero-fills the
+// ragged edges of M, N and K (inside an expert's rank-3 map: a grouped dw's
+// capacity C needs no pad) and the store clips them.  The 128-wide tile
+// sums K in chains of 4096 (G_CHAIN), the wide one K <= 16384 in one.
+// Registers (ptxas): 167-168 a thread at BN 128 (the chains' sum), 166-168
+// at BN 256, no spill; dynamic shared memory 164,928 bytes at BN 128 (ring
+// 128 KB, store tile 32 KB), 214,064 at BN 256 (ring 144 KB, store tile
+// 64 KB): one block an SM either way; the split's 68 or 132 KB partial
+// lies over the ring rather than beside it, which keeps BN 256 within the
+// 227 KB a block may use.  Measured (tools/k1_ab.py, the parent and this
+// design alternating in one call, NVIDIA H100 80GB HBM3 at 700 W, L2
+// flushed): the train paths' products at 4096 rows went from 1.29-2.26x
+// torch.matmul's sums to 1.06-1.35x (qwen2_0_5b's forward 3.80 -> 1.79 ms,
+// its dw 3.36 ms + 0.29 of x^T copies -> 1.98); a dw of 7-49 output tiles
+// 0.0288-0.0319 -> 0.0165-0.0259 ms (torch.matmul 0.0134-0.0191); the
+// served prefills' sums 1.35-1.77x -> 1.10-1.32x; K1's device ms a train
+// step (tools/train_ab.py) qwen2_0_5b 39.2 -> 29.8.  Per shape in PERF.md.
 // Decode (bf16, M < 64, the same TMA rules: matmul_decode_kernel): the
 // operands are swapped, out^T (N x M) = w^T . x^T, so the weight fills
 // wgmma's 64-row A and the batch rows are its N, in groups of 8
@@ -58,12 +92,14 @@
 // it splits K.  A training step's backward is two more grouped products per
 // projection (kernels/ops.py's _GroupedMatmul): dx = dy w^T, which reads
 // each expert's w in place as the transpose (w_t, as the tied unembedding
-// is read), and dw = x^T dy from a contiguous copy of x^T.
+// is read), and dw = x^T dy, which reads each expert's x in place as the
+// transpose (x_t), its capacity the product's K.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <type_traits>
 
 #include "common.cuh"
@@ -180,34 +216,158 @@ matmul_bf16_kernel(const __nv_bfloat16* __restrict__ x,
 }
 
 // ------------------------------------------------------- bf16 path, wgmma
-constexpr int G_BM = 128, G_BN = 128, G_BK = 64;  // BK: one 128-byte swizzle row
-constexpr int G_STAGES = 4;
-constexpr int G_CONSUMERS = 2;                 // warpgroups, 64 rows each
+constexpr int G_BM = 128, G_BK = 64;  // BK: one 128-byte swizzle row
+constexpr int G_CONSUMERS = 2;           // warpgroups, 64 rows each
 constexpr int G_THREADS = G_CONSUMERS * 128 + 32;  // and one producer warp
 constexpr int G_A_BYTES = G_BM * G_BK * 2;         // 128 rows of 128 B
-constexpr int G_B_BYTES = G_BN * G_BK * 2;
-constexpr int G_STAGE_BYTES = G_A_BYTES + G_B_BYTES;
-constexpr int G_SMEM_BYTES = G_STAGES * G_STAGE_BYTES + 2 * G_STAGES * 8 + 1024;  // + alignment
+constexpr int G_BOX = 64 * 128;  // a 64 x 64 bf16 box of 128-byte swizzled rows
+constexpr int G_GROUP_M = 16;    // tile rows a raster group spans
+// The tensor cores' fp32 accumulation does not round to nearest: its error
+// grows with the length of one accumulation chain, past about one bf16
+// rounding of the output at K ~ 30,000 on an H100 (torch.matmul's too).  The
+// 128-wide tile moves its accumulator into an fp32 sum in registers (rounded
+// to nearest) every G_CHAIN k steps (4096 of K); the 256-wide tile has no
+// registers for that second sum and takes K <= 16384 only (the host's plan,
+// kernels/streamed_matmul.py:WIDE_MAX_K).
+constexpr int G_CHAIN = 64;
 
-// G: a grouped product, one (M, N) output per blockIdx.z (expert e) of the
-// rank-3 maps of x (E, M, K) and w, row-major (E, K, N) or, WT, the
-// transpose of a row-major (E, N, K) (a backward's dx = dy w^T).
-template <bool WT, bool G>
-__global__ void __launch_bounds__(G_THREADS)
+// A tile of 128 rows by BN (128 or 256) columns: the ring's stages (4 of
+// 32 KB, or 3 of 48 KB), the bf16 store tile (per consumer warpgroup 64
+// rows x BN columns as BN / 64 boxes of 64 x 64, what the TMA store reads)
+// and a split unit's fp32 partial tile, rows padded against bank
+// conflicts, which lies over the ring (quiet while the cluster merges).
+template <int BN>
+struct Prefill {
+  static constexpr int STAGES = BN == 128 ? 4 : 3;
+  static constexpr int B_BYTES = BN * G_BK * 2;
+  static constexpr int STAGE = G_A_BYTES + B_BYTES;
+  static constexpr int RING = STAGES * STAGE;
+  static constexpr int OUT_WG = 64 * BN * 2;
+  static constexpr int OUT = G_CONSUMERS * OUT_WG;
+  static constexpr int PSTRIDE = BN + 8;
+  static constexpr int SMEM = RING + OUT + 2 * STAGES * 8 + 1024;  // + alignment
+  static_assert(G_BM * PSTRIDE * 4 <= RING, "the partial tile fits the ring");
+};
+
+struct Tile {
+  int e, m0, n0;
+};
+
+// Work unit t of E x tiles_m x tiles_n output tiles: expert-major, then
+// groups of G_GROUP_M tile rows walked column by column, so the blocks
+// running at once share a few column tiles of w in L2.
+__device__ __forceinline__ Tile tile_of(int t, int tiles_m, int tiles_n, int bn) {
+  const int per_e = tiles_m * tiles_n, r = t % per_e;
+  const int group = G_GROUP_M * tiles_n, first = (r / group) * G_GROUP_M;
+  const int rows = min(tiles_m - first, G_GROUP_M), q = r % group;
+  return {t / per_e, (first + q % rows) * G_BM, (q / rows) * bn};
+}
+
+// The A tile of k step k0: x (M, K) rows in one 128 x 64 box, or (XT) x^T
+// read in place from a row-major (K, M), m contiguous, in two 64 (m) x 64 (k)
+// boxes, one per consumer warpgroup.  G: expert c.e of a rank-3 map.
+template <bool XT, bool G>
+__device__ __forceinline__ void load_a(unsigned char* a, const CUtensorMap* map, uint64_t* bar,
+                                       const Tile& c, int k0) {
+  using namespace hopper;
+  if (XT) {
+    if (G) {
+      tma_load_3d(a, map, bar, c.m0, k0, c.e);
+      tma_load_3d(a + G_A_BYTES / 2, map, bar, c.m0 + 64, k0, c.e);
+    } else {
+      tma_load_2d(a, map, bar, c.m0, k0);
+      tma_load_2d(a + G_A_BYTES / 2, map, bar, c.m0 + 64, k0);
+    }
+  } else if (G) {
+    tma_load_3d(a, map, bar, k0, c.m0, c.e);
+  } else {
+    tma_load_2d(a, map, bar, k0, c.m0);
+  }
+}
+
+// The B tile: w's (N, K) rows (WT) in one BN x 64 box, or its (K, N) rows,
+// n contiguous, in BN / 64 boxes of 64 (k) x 64 (n).
+template <bool WT, bool G, int BN>
+__device__ __forceinline__ void load_b(unsigned char* b, const CUtensorMap* map, uint64_t* bar,
+                                       const Tile& c, int k0) {
+  using namespace hopper;
+  if (WT) {
+    if (G) tma_load_3d(b, map, bar, k0, c.n0, c.e);
+    else tma_load_2d(b, map, bar, k0, c.n0);
+    return;
+  }
+#pragma unroll
+  for (int q = 0; q < BN / 64; ++q) {
+    if (G) tma_load_3d(b + q * G_BOX, map, bar, c.n0 + 64 * q, k0, c.e);
+    else tma_load_2d(b + q * G_BOX, map, bar, c.n0 + 64 * q, k0);
+  }
+}
+
+// Block `rank` of a split's cluster sums its share of the tile (every
+// splits-th run of four columns) over every block's fp32 partial, in rank
+// order, and stores it as bf16.  All the block's threads take part.
+template <int BN>
+__device__ __forceinline__ void merge_partials(const float* part, __nv_bfloat16* out,
+                                               const Tile& c, int M, int N, int splits,
+                                               int rank) {
+  using namespace hopper;
+  for (int i = rank * G_THREADS + threadIdx.x; i < G_BM * (BN / 4); i += splits * G_THREADS) {
+    const int r = i / (BN / 4), col = (i % (BN / 4)) * 4;
+    const int gm = c.m0 + r, gn = c.n0 + col;
+    if (gm >= M || gn >= N) continue;
+    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int q = 0; q < MAX_CLUSTER; ++q) {
+      if (q >= splits) break;
+      const float4 v = ld_dsmem_f32x4(part + r * Prefill<BN>::PSTRIDE + col, q);
+      sum.x += v.x;
+      sum.y += v.y;
+      sum.z += v.z;
+      sum.w += v.w;
+    }
+    __nv_bfloat16* o = out + (size_t)gm * N + gn;
+    if (N % 4 == 0) {  // gn + 3 < N, 8-byte aligned
+      *reinterpret_cast<uint2*>(o) = make_uint2(pack_bf16(sum.x, sum.y), pack_bf16(sum.z, sum.w));
+    } else {
+      const float s[4] = {sum.x, sum.y, sum.z, sum.w};
+      for (int k = 0; k < 4 && gn + k < N; ++k) o[k] = __float2bfloat16(s[k]);
+    }
+  }
+}
+
+// Persistent: gridDim.x / splits clusters of `splits` blocks walk the E x
+// tiles_m x tiles_n output tiles (tile_of's order), cluster c taking tiles
+// c, c + clusters, ...; block `rank` of a cluster sums k steps rank x
+// steps_per_split .. + steps_per_split - 1 of each (all of them when
+// splits = 1).  XT: x is read as the transpose of a row-major (K, M) (dw =
+// x^T dy); WT: w as the transpose of a row-major (N, K); G: a grouped
+// product, rank-3 maps over the experts.  tma_out: N % 8 == 0, the output
+// stored by TMA from a shared-memory tile through omap; otherwise from
+// registers.
+template <bool XT, bool WT, bool G, int BN>
+__global__ void __launch_bounds__(G_THREADS, 1)
 matmul_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
                     const __grid_constant__ CUtensorMap wmap,
-                    __nv_bfloat16* __restrict__ out, int M, int N, int K) {
+                    const __grid_constant__ CUtensorMap omap,
+                    __nv_bfloat16* __restrict__ out, int E, int M, int N, int K, int splits,
+                    int steps_per_split, int tma_out) {
   using namespace hopper;
+  using P = Prefill<BN>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + G_STAGES * G_STAGE_BYTES);
-  uint64_t* empty = full + G_STAGES;
+  unsigned char* otile = smem + P::RING;
+  float* part = reinterpret_cast<float*>(smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + P::RING + P::OUT);
+  uint64_t* empty = full + P::STAGES;
 
-  const int n0 = blockIdx.x * G_BN, m0 = blockIdx.y * G_BM, e = blockIdx.z;
-  const int ksteps = (K + G_BK - 1) / G_BK;
-  out += (size_t)e * M * N;
+  const int tiles_m = (M + G_BM - 1) / G_BM, tiles_n = (N + BN - 1) / BN;
+  const int tiles = E * tiles_m * tiles_n;
+  const int rank = splits > 1 ? (int)cluster_rank() : 0;
+  const int cluster = blockIdx.x / splits, clusters = gridDim.x / splits;
+  const int k_first = rank * steps_per_split;
+  const int nsteps = min(steps_per_split, (K + G_BK - 1) / G_BK - k_first);
   if (threadIdx.x == 0) {
-    for (int s = 0; s < G_STAGES; ++s) {
+    for (int s = 0; s < P::STAGES; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], G_CONSUMERS * 4);  // one arrival per consumer warp
     }
@@ -215,85 +375,156 @@ matmul_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
   }
   __syncthreads();
 
-  const int wgi = threadIdx.x / 128;
+  const int wgi = threadIdx.x / 128, lane = threadIdx.x % 32;
   if (wgi == G_CONSUMERS) {  // producer warp: one thread issues every load
-    if (threadIdx.x == G_CONSUMERS * 128) {
+    if (lane == 0) {
       tma_prefetch_map(&xmap);
       tma_prefetch_map(&wmap);
-      for (int i = 0; i < ksteps; ++i) {
-        const int s = i % G_STAGES;
-        if (i >= G_STAGES) mbar_wait(&empty[s], ((i / G_STAGES) + 1) & 1);
-        unsigned char* a = smem + s * G_STAGE_BYTES;
-        unsigned char* b = a + G_A_BYTES;
-        mbar_arrive_expect_tx(&full[s], G_STAGE_BYTES);
-        if (G) {  // expert e's (M, K) rows; its (N, K) rows in one 128 x 64
-          // box (WT) or its (K, N) rows in two 64 x 64 boxes
-          tma_load_3d(a, &xmap, &full[s], i * G_BK, m0, e);
-          if (WT) {
-            tma_load_3d(b, &wmap, &full[s], i * G_BK, n0, e);
-          } else {
-            tma_load_3d(b, &wmap, &full[s], n0, i * G_BK, e);
-            tma_load_3d(b + G_B_BYTES / 2, &wmap, &full[s], n0 + 64, i * G_BK, e);
-          }
-          continue;
+    }
+    int it = 0;  // k steps loaded so far, over every unit: the ring's phase
+    for (int t = cluster; t < tiles; t += clusters) {
+      if (lane == 0) {
+        const Tile c = tile_of(t, tiles_m, tiles_n, BN);
+        for (int j = 0; j < nsteps; ++j, ++it) {
+          const int s = it % P::STAGES;
+          if (it >= P::STAGES) mbar_wait(&empty[s], ((it / P::STAGES) + 1) & 1);
+          unsigned char* a = smem + s * P::STAGE;
+          mbar_arrive_expect_tx(&full[s], P::STAGE);
+          load_a<XT, G>(a, &xmap, &full[s], c, (k_first + j) * G_BK);
+          load_b<WT, G, BN>(a + G_A_BYTES, &wmap, &full[s], c, (k_first + j) * G_BK);
         }
-        tma_load_2d(a, &xmap, &full[s], i * G_BK, m0);
-        if (WT) {  // (N, K) rows, k contiguous: one 128 x 64 box
-          tma_load_2d(b, &wmap, &full[s], i * G_BK, n0);
-        } else {   // (K, N) rows, n contiguous: two 64 (k) x 64 (n) boxes
-          tma_load_2d(b, &wmap, &full[s], n0, i * G_BK);
-          tma_load_2d(b + G_B_BYTES / 2, &wmap, &full[s], n0 + 64, i * G_BK);
-        }
+      }
+      // a split unit: the producer loads the next unit only after the
+      // merge, whose partial lies over the ring
+      if (splits > 1) {
+        const Tile c = tile_of(t, tiles_m, tiles_n, BN);
+        __syncwarp();
+        cluster_sync();
+        merge_partials<BN>(part, out + (size_t)c.e * M * N, c, M, N, splits, rank);
+        cluster_sync();
       }
     }
     return;
   }
 
-  // consumer warpgroup wgi: rows m0 + 64 wgi .. + 63 of the tile
-  float acc[64];
+  // consumer warpgroup wgi: rows m0 + 64 wgi .. + 63 of each tile
+  float acc[BN / 2];
+  float sum[BN / 2];  // the chains' sum (the 128-wide tile only)
+  const int warp = (threadIdx.x % 128) / 32, wg_thread = threadIdx.x % 128;
+  unsigned char* mine = otile + wgi * P::OUT_WG;
+  int it = 0;
+  for (int t = cluster; t < tiles; t += clusters) {
+    const Tile c = tile_of(t, tiles_m, tiles_n, BN);
+    // the 128-wide tile sums K in chains of G_CHAIN steps, the wide one in one
+    const int chain = BN == 128 ? G_CHAIN : nsteps;
+    for (int j0 = 0; j0 < nsteps; j0 += chain) {
+      const int j1 = min(nsteps, j0 + chain);
+      for (int j = j0; j < j1; ++j, ++it) {
+        const int s = it % P::STAGES;
+        mbar_wait(&full[s], (it / P::STAGES) & 1);
+        const unsigned char* a = smem + s * P::STAGE + wgi * (G_A_BYTES / G_CONSUMERS);
+        const unsigned char* b = smem + s * P::STAGE + G_A_BYTES;
+        fence_regs(acc);
+        wgmma_fence();
 #pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
-  const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
-  for (int i = 0; i < ksteps; ++i) {
-    const int s = i % G_STAGES;
-    mbar_wait(&full[s], (i / G_STAGES) & 1);
-    const unsigned char* a = smem + s * G_STAGE_BYTES + wgi * (G_A_BYTES / G_CONSUMERS);
-    const unsigned char* b = smem + s * G_STAGE_BYTES + G_A_BYTES;
-    fence_regs(acc);
-    wgmma_fence();
+        for (int kk = 0; kk < G_BK / 16; ++kk) {
+          // x^T: the warpgroup's 64 m of one box, MN-major, a k16 step 16
+          // rows of 128 B on
+          const uint64_t da = XT ? make_desc(a + kk * 2048, G_A_BYTES / 2, 1024)
+                                 : make_desc(a + kk * 32, 16, 1024);
+          const uint64_t db = WT ? make_desc(b + kk * 32, 16, 1024)
+                                 : make_desc(b + kk * 2048, G_BOX, 1024);
+          if constexpr (BN == 128)
+            wgmma_ss_n128<XT ? 1 : 0, WT ? 0 : 1>(acc, da, db, j > j0 || kk > 0);
+          else
+            wgmma_ss_n256<XT ? 1 : 0, WT ? 0 : 1>(acc, da, db, j > j0 || kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();  // the previous step's wgmmas are done: free its stage
+        fence_regs(acc);
+        if (j > 0 && lane == 0) mbar_arrive(&empty[(it - 1) % P::STAGES]);
+      }
+      if constexpr (BN == 128) {
+        if (j1 < nsteps) {  // a chain ends: its wgmmas done, it joins the sum
+          wgmma_wait<0>();
+          fence_regs(acc);
 #pragma unroll
-    for (int kk = 0; kk < G_BK / 16; ++kk) {
-      const uint64_t da = make_desc(a + kk * 32, 16, 1024);
-      const uint64_t db = WT ? make_desc(b + kk * 32, 16, 1024)
-                             : make_desc(b + kk * 2048, G_B_BYTES / 2, 1024);
-      wgmma_ss_n128<WT ? 0 : 1>(acc, da, db, i > 0 || kk > 0);
+          for (int i = 0; i < BN / 2; ++i) sum[i] = j0 == 0 ? acc[i] : sum[i] + acc[i];
+        }
+      }
     }
-    wgmma_commit();
-    wgmma_wait<1>();  // the previous step's wgmmas are done: free its stage
+    wgmma_wait<0>();
     fence_regs(acc);
-    if (i > 0 && lane == 0) mbar_arrive(&empty[(i - 1) % G_STAGES]);
-  }
-  wgmma_wait<0>();
-  fence_regs(acc);
+    if (lane == 0) mbar_arrive(&empty[(it - 1) % P::STAGES]);
+    if constexpr (BN == 128) {
+      if (nsteps > chain) {
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) acc[i] += sum[i];
+      }
+    }
 
-  const int row0 = m0 + wgi * 64 + warp * 16 + lane / 4;
+    // acc[4 j + 2 h + e] = D[64 wgi + 16 warp + lane / 4 + 8 h][8 j + 2 (lane % 4) + e]
+    const int r = 16 * warp + lane / 4;
+    if (splits > 1) {
+      // the partial lies over stages the other warpgroup may still read
+      named_bar_sync(3, G_CONSUMERS * 128);
+      float* p = part + (64 * wgi + r) * P::PSTRIDE + 2 * (lane % 4);
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    const int col = n0 + 8 * j + 2 * (lane % 4);
+      for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = row0 + 8 * h;
-      if (row >= M || col >= N) continue;
-      __nv_bfloat16* o = out + (size_t)row * N + col;
-      if (col + 1 < N && (N % 2) == 0) {
-        *reinterpret_cast<__nv_bfloat162*>(o) =
-            __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
-      } else {
-        o[0] = __float2bfloat16(acc[4 * j + 2 * h]);
-        if (col + 1 < N) o[1] = __float2bfloat16(acc[4 * j + 2 * h + 1]);
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<float2*>(p + 8 * h * P::PSTRIDE + 8 * j) =
+              make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      fence_proxy_async();  // before TMA writes the ring again
+      cluster_sync();
+      merge_partials<BN>(part, out + (size_t)c.e * M * N, c, M, N, splits, rank);
+      fence_proxy_async();
+      cluster_sync();
+    } else if (tma_out) {
+      // the store tile is free once the previous unit's store has read it
+      if (wg_thread == 0) bulk_wait_read<0>();
+      named_bar_sync(1 + wgi, 128);
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = r + 8 * h;  // row & 7 == lane / 4: conflict-free
+          *reinterpret_cast<uint32_t*>(mine + (j / 8) * G_BOX + row * 128 +
+                                       (((j % 8) ^ (row & 7)) << 4) + (lane % 4) * 4) =
+              pack_bf16(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+        }
+      fence_proxy_async();
+      named_bar_sync(1 + wgi, 128);
+      if (wg_thread == 0 && c.m0 + 64 * wgi < M) {
+        for (int q = 0; q < BN / 64 && c.n0 + 64 * q < N; ++q) {
+          if (G) tma_store_3d(&omap, mine + q * G_BOX, c.n0 + 64 * q, c.m0 + 64 * wgi, c.e);
+          else tma_store_2d(&omap, mine + q * G_BOX, c.n0 + 64 * q, c.m0 + 64 * wgi);
+        }
+        bulk_commit();
+      }
+    } else {
+      __nv_bfloat16* o0 = out + (size_t)c.e * M * N;
+      const int row0 = c.m0 + wgi * 64 + r;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int col = c.n0 + 8 * j + 2 * (lane % 4);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = row0 + 8 * h;
+          if (row >= M || col >= N) continue;
+          __nv_bfloat16* o = o0 + (size_t)row * N + col;
+          if (col + 1 < N && (N % 2) == 0) {
+            *reinterpret_cast<__nv_bfloat162*>(o) =
+                __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+          } else {
+            o[0] = __float2bfloat16(acc[4 * j + 2 * h]);
+            if (col + 1 < N) o[1] = __float2bfloat16(acc[4 * j + 2 * h + 1]);
+          }
+        }
       }
     }
   }
+  if (tma_out && wg_thread == 0) bulk_wait<0>();  // the last store, before the block ends
 }
 
 // ------------------------------------------------ bf16 decode path, wgmma
@@ -464,16 +695,59 @@ bool make_w_map(CUtensorMap* map, const void* w, int N, int K, int w_t, uint32_t
              : hopper::make_map_2d(map, w, N, K, box_n, box_k);
 }
 
-template <bool WT, bool G>
-cudaError_t launch_prefill(const CUtensorMap& xmap, const CUtensorMap& wmap, void* out, int E,
-                           int M, int N, int K, cudaStream_t s) {
+template <bool XT, bool WT, bool G, int BN>
+cudaError_t launch_prefill(const CUtensorMap& xmap, const CUtensorMap& wmap,
+                           const CUtensorMap& omap, void* out, int E, int M, int N, int K,
+                           int splits, int steps_per_split, int max_blocks, int tma_out,
+                           cudaStream_t s) {
   static hopper::SmemRaised raised;
-  const cudaError_t err = hopper::allow_smem(matmul_wgmma_kernel<WT, G>, G_SMEM_BYTES, raised);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((N + G_BN - 1) / G_BN, (M + G_BM - 1) / G_BM, E);
-  matmul_wgmma_kernel<WT, G><<<grid, G_THREADS, G_SMEM_BYTES, s>>>(
-      xmap, wmap, static_cast<__nv_bfloat16*>(out), M, N, K);
-  return cudaGetLastError();
+  const long tiles = (long)E * ((M + G_BM - 1) / G_BM) * ((N + BN - 1) / BN);
+  const long clusters = std::min(tiles, (long)std::max(1, max_blocks / splits));
+  return hopper::launch_cluster(matmul_wgmma_kernel<XT, WT, G, BN>, raised,
+                                dim3((unsigned)(clusters * splits)), G_THREADS,
+                                Prefill<BN>::SMEM, splits, s, xmap, wmap, omap,
+                                static_cast<__nv_bfloat16*>(out), E, M, N, K, splits,
+                                steps_per_split, tma_out);
+}
+
+// The layouts the prefill kernel is built for: x row-major with w either
+// way, or x^T read in place with a row-major w (dw = x^T dy).
+template <bool G, int BN>
+cudaError_t launch_prefill_layout(int x_t, int w_t, const CUtensorMap& xmap,
+                                  const CUtensorMap& wmap, const CUtensorMap& omap, void* out,
+                                  int E, int M, int N, int K, int splits, int steps,
+                                  int max_blocks, int tma_out, cudaStream_t s) {
+  if (x_t)
+    return launch_prefill<true, false, G, BN>(xmap, wmap, omap, out, E, M, N, K, splits, steps,
+                                              max_blocks, tma_out, s);
+  if (w_t)
+    return launch_prefill<false, true, G, BN>(xmap, wmap, omap, out, E, M, N, K, splits, steps,
+                                              max_blocks, tma_out, s);
+  return launch_prefill<false, false, G, BN>(xmap, wmap, omap, out, E, M, N, K, splits, steps,
+                                             max_blocks, tma_out, s);
+}
+
+template <bool G>
+cudaError_t launch_prefill_tile(int tile_n, int x_t, int w_t, const CUtensorMap& xmap,
+                                const CUtensorMap& wmap, const CUtensorMap& omap, void* out,
+                                int E, int M, int N, int K, int splits, int steps,
+                                int max_blocks, int tma_out, cudaStream_t s) {
+  if (tile_n == 256)
+    return launch_prefill_layout<G, 256>(x_t, w_t, xmap, wmap, omap, out, E, M, N, K, splits,
+                                         steps, max_blocks, tma_out, s);
+  return launch_prefill_layout<G, 128>(x_t, w_t, xmap, wmap, omap, out, E, M, N, K, splits,
+                                       steps, max_blocks, tma_out, s);
+}
+
+// What the prefill entry points refuse: a bad shape, x^T with a transposed
+// w, a K split that is not `splits` non-empty runs of steps_per_split.
+bool prefill_args_bad(int E, int M, int N, int K, int x_t, int w_t, int tile_n, int splits,
+                      int steps_per_split, int max_blocks) {
+  const int steps = (K + G_BK - 1) / G_BK;
+  return E < 1 || E > 65535 || M < 1 || N < 1 || K < 1 || (x_t && w_t) ||
+         (tile_n != 128 && tile_n != 256) || splits < 1 || splits > hopper::MAX_CLUSTER ||
+         steps_per_split < 1 || (splits - 1) * steps_per_split >= steps ||
+         splits * steps_per_split < steps || max_blocks < 1;
 }
 
 // ---------------------------------------------------------------- fp32 path
@@ -598,22 +872,67 @@ extern "C" int streamed_matmul(const void* x, const void* w, void* out, void* ws
   return static_cast<int>(cudaGetLastError());
 }
 
-// The prefill path: bf16 x (M, K) row-major, w as streamed_matmul's w_t.
-// The caller routes here only when M >= 64, K % 8 == 0, N % 8 == 0 for
-// w_t = 0 and x and w are 16-byte aligned (TMA's stride and address rules).
-// Returns the cudaError_t of the launch, or cudaErrorInvalidValue if a
-// tensor map is refused.
+// The prefill path: bf16 x (M, K) row-major, or (x_t = 1) the transpose of
+// a row-major (K, M) read in place, w as streamed_matmul's w_t (row-major
+// when x_t = 1).  K is cut into `splits` (<= 8) runs of steps_per_split
+// 64-deep steps, each run non-empty, the blocks of a cluster; at most
+// max_blocks blocks (the SMs) walk the tiles.  The caller routes here only
+// when M >= 64, the strides TMA maps are multiples of 16 bytes (K % 8 == 0
+// for a row-major x or a transposed w, M % 8 == 0 for x^T, N % 8 == 0 for a
+// row-major w) and x and w are 16-byte aligned.  One launch, no workspace.
+// Returns the cudaError_t of the launch, or cudaErrorInvalidValue for what
+// the kernel does not take or a tensor map refused.
 extern "C" int streamed_matmul_wgmma(const void* x, const void* w, void* out, int M, int N,
-                                     int K, int w_t, void* stream) {
-  // x in 128-row boxes; w in one 128 x 64 box per stage (w_t = 1), or two
-  // 64 x 64 boxes (w_t = 0: the 128 columns of an MN-major tile)
-  CUtensorMap xmap, wmap;
-  if (M < 1 || N < 1 || K < 1 || !hopper::make_map_2d(&xmap, x, K, M, G_BK, G_BM) ||
-      !make_w_map(&wmap, w, N, K, w_t, G_BK, w_t ? G_BN : 64))
+                                     int K, int x_t, int w_t, int tile_n, int splits,
+                                     int steps_per_split, int max_blocks, void* stream) {
+  // x in 128-row boxes, or x^T in 64 (m) x 64 (k) boxes; w in one tile_n x
+  // 64 box per stage (w_t = 1), or tile_n / 64 boxes of 64 x 64 (w_t = 0:
+  // the columns of an MN-major tile); out in 64 x 64 boxes where N % 8 == 0
+  CUtensorMap xmap, wmap, omap = {};
+  const int tma_out = N % 8 == 0;
+  if (prefill_args_bad(1, M, N, K, x_t, w_t, tile_n, splits, steps_per_split, max_blocks) ||
+      !(x_t ? hopper::make_map_2d(&xmap, x, M, K, 64, G_BK)
+            : hopper::make_map_2d(&xmap, x, K, M, G_BK, G_BM)) ||
+      !make_w_map(&wmap, w, N, K, w_t, G_BK, w_t ? tile_n : 64) ||
+      (tma_out && !hopper::make_map_2d(&omap, out, N, M, 64, 64)))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(w_t ? launch_prefill<true, false>(xmap, wmap, out, 1, M, N, K, s)
-                              : launch_prefill<false, false>(xmap, wmap, out, 1, M, N, K, s));
+  return static_cast<int>(launch_prefill_tile<false>(
+      tile_n, x_t, w_t, xmap, wmap, omap, out, 1, M, N, K, splits, steps_per_split, max_blocks,
+      tma_out, static_cast<cudaStream_t>(stream)));
+}
+
+// The most clusters of `splits` prefill blocks that the card runs at once
+// (cudaOccupancyMaxActiveClusters; every instantiation has the same shared
+// memory and threads): a cluster occupies SMs of one GPC, so 8-block
+// clusters fit fewer than SMs / 8.  The host's plan keeps a split's tiles
+// within it (one wave).  Returns -1 if the query fails.
+extern "C" int streamed_matmul_prefill_max_clusters(int tile_n, int splits) {
+  static hopper::SmemRaised raised128, raised256;
+  if (splits < 1 || splits > hopper::MAX_CLUSTER || (tile_n != 128 && tile_n != 256)) return -1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(splits);
+  cfg.blockDim = dim3(G_THREADS);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  cudaError_t err;
+  if (tile_n == 128) {
+    auto kernel = matmul_wgmma_kernel<false, false, false, 128>;
+    cfg.dynamicSmemBytes = Prefill<128>::SMEM;
+    err = hopper::allow_smem(kernel, Prefill<128>::SMEM, raised128);
+    if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+  } else {
+    auto kernel = matmul_wgmma_kernel<false, false, false, 256>;
+    cfg.dynamicSmemBytes = Prefill<256>::SMEM;
+    err = hopper::allow_smem(kernel, Prefill<256>::SMEM, raised256);
+    if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+  }
+  return err == cudaSuccess ? n : -1;
 }
 
 // The decode path: bf16 x (M, K) row-major with 1 <= M < 64, w as
@@ -673,17 +992,25 @@ static bool make_w_stack_map(CUtensorMap* map, const void* w, int E, int N, int 
              : make_stack_map(map, w, E, K, N, box_n, box_k);
 }
 
-// M >= 64: the prefill kernel per expert.
+// M >= 64: the prefill kernel per expert, its arguments as
+// streamed_matmul_wgmma's; x_t = 1: x is the transpose of a contiguous (E,
+// K, M) (a backward's dw = x^T dy: expert e's (C, d) rows read in place,
+// the capacity C its K, which need not be a multiple of 8).
 extern "C" int streamed_matmul_grouped_wgmma(const void* x, const void* w, void* out, int E,
-                                             int M, int N, int K, int w_t, void* stream) {
-  CUtensorMap xmap, wmap;
-  if (E < 1 || E > 65535 || M < 1 || N < 1 || K < 1 ||
-      !make_stack_map(&xmap, x, E, M, K, G_BK, G_BM) ||
-      !make_w_stack_map(&wmap, w, E, N, K, w_t, G_BK, w_t ? G_BN : 64))
+                                             int M, int N, int K, int x_t, int w_t, int tile_n,
+                                             int splits, int steps_per_split, int max_blocks,
+                                             void* stream) {
+  CUtensorMap xmap, wmap, omap = {};
+  const int tma_out = N % 8 == 0;
+  if (prefill_args_bad(E, M, N, K, x_t, w_t, tile_n, splits, steps_per_split, max_blocks) ||
+      !(x_t ? make_stack_map(&xmap, x, E, K, M, 64, G_BK)
+            : make_stack_map(&xmap, x, E, M, K, G_BK, G_BM)) ||
+      !make_w_stack_map(&wmap, w, E, N, K, w_t, G_BK, w_t ? tile_n : 64) ||
+      (tma_out && !make_stack_map(&omap, out, E, M, N, 64, 64)))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(w_t ? launch_prefill<true, true>(xmap, wmap, out, E, M, N, K, s)
-                              : launch_prefill<false, true>(xmap, wmap, out, E, M, N, K, s));
+  return static_cast<int>(launch_prefill_tile<true>(
+      tile_n, x_t, w_t, xmap, wmap, omap, out, E, M, N, K, splits, steps_per_split, max_blocks,
+      tma_out, static_cast<cudaStream_t>(stream)));
 }
 
 // 1 <= M < 64: the decode kernel per expert, K cut as streamed_matmul_decode's.

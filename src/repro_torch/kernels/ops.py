@@ -15,7 +15,9 @@ Where grad is enabled and an input requires it, ``matmul``,
 ``grouped_matmul``, ``flash_attention`` (causal, not causal or banded) and
 ``ssd_scan`` run as ``torch.autograd.Function``s whose backward is made of
 kernels too: a product's is two more products (``matmul``;
-``grouped_matmul``'s two more grouped products); the attention's the
+``grouped_matmul``'s two more grouped products), dx = dy w^T and dw = x^T
+dy, each reading its transposed operand in place (no copy, no pad); the
+attention's the
 backward kernel of ``csrc/flash_attention_bwd.cu``, which reads each row's
 log2-sum-exp2 that the forward wrote (the forward's ``with_lse``
 instantiation; on the CPU the plain lse, saved all the same); the scan's
@@ -111,9 +113,9 @@ def _matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 class _Matmul(torch.autograd.Function):
     """y = x @ w; dx = dy @ w^T (w^T read in place: the kernel takes a
-    transposed row-major w) and dw = x^T @ dy (x^T copied: the kernel reads
-    a contiguous x).  A tied table's ``embed.t()`` gets its gradient
-    through the view."""
+    transposed row-major w) and dw = x^T @ dy (x^T read in place: the
+    prefill kernel takes x^T as the transpose of the row-major x).  A tied
+    table's ``embed.t()`` gets its gradient through the view."""
 
     @staticmethod
     def forward(ctx, x, w):
@@ -125,8 +127,7 @@ class _Matmul(torch.autograd.Function):
         x, w = ctx.saved_tensors
         dy = dy.contiguous()
         dx = _matmul(dy, w.t()) if ctx.needs_input_grad[0] else None
-        dw = (_matmul(x.t().contiguous(), dy) if ctx.needs_input_grad[1]
-              else None)
+        dw = _matmul(x.t(), dy) if ctx.needs_input_grad[1] else None
         return dx, dw
 
 
@@ -145,31 +146,12 @@ def _grouped(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out
 
 
-# bf16 rows of a multiple of 8 elements: the 16-byte row stride that TMA
-# maps, which x^T (E, K, C) of the grouped dw needs along the capacity C
-ROW_MULTIPLE = 8
-
-
-def pad_capacity(xt: torch.Tensor, dy: torch.Tensor
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x^T (E, K, C) and dy (E, C, N) of a grouped dw = x^T dy as the
-    kernel reads them: x^T a contiguous copy and, in bf16 where C is not a
-    multiple of ``ROW_MULTIPLE``, both zero-padded along C to the next one
-    (zero rows add nothing to the sums)."""
-    C = xt.shape[2]
-    pad = -C % ROW_MULTIPLE if xt.dtype == torch.bfloat16 else 0
-    if not pad:
-        return xt.contiguous(), dy
-    out = xt.new_zeros((xt.shape[0], xt.shape[1], C + pad))
-    out[:, :, :C] = xt
-    return out, torch.nn.functional.pad(dy, (0, 0, 0, pad))
-
-
 class _GroupedMatmul(torch.autograd.Function):
     """y = x @ w per expert; dx = dy @ w^T (each expert's w^T read in place:
-    the kernels take a transposed row-major w) and dw = x^T @ dy (x^T
-    copied, and padded along the capacity where ``pad_capacity`` says),
-    each one more grouped launch."""
+    the kernels take a transposed row-major w) and dw = x^T @ dy (each
+    expert's x^T read in place, its capacity C the product's K, which TMA
+    zero-fills past C inside the expert: no copy and no pad), each one more
+    grouped launch."""
 
     @staticmethod
     def forward(ctx, x, w):
@@ -182,8 +164,8 @@ class _GroupedMatmul(torch.autograd.Function):
         dy = dy.contiguous()
         dx = (_grouped(dy, w.transpose(1, 2)) if ctx.needs_input_grad[0]
               else None)
-        dw = (_grouped(*pad_capacity(x.transpose(1, 2), dy))
-              if ctx.needs_input_grad[1] else None)
+        dw = (_grouped(x.transpose(1, 2), dy) if ctx.needs_input_grad[1]
+              else None)
         return dx, dw
 
 

@@ -26,7 +26,8 @@ from repro_torch.kernels.ssd_scan import (SSD_ROUTE_LAUNCHES, ssd_route,
 from repro_torch.kernels.streamed_matmul import (ROUTE_LAUNCHES, decode_tile,
                                                  grouped_matmul_plain,
                                                  grouped_route, matmul_plain,
-                                                 matmul_route)
+                                                 matmul_route, prefill_plan,
+                                                 reads_x_in_place, sm_count)
 from repro_torch.models import build, moe
 from repro_torch.serve import (DecodeStep, EngineConfig, ServeEngine, greedy,
                                pad_batch, seed_decode_cache)
@@ -166,12 +167,12 @@ def test_cuda_grouped_matmul_matches_plain(card, E, C, K, N, dtype):
 @pytest.mark.parametrize("C", [13, 64, 235, 480])
 def test_cuda_grouped_matmul_backward_matches_plain(card, C, K, N, dtype):
     """Under grad, deepseek_moe_16b's expert products over 8 experts at a
-    ragged capacity (13 and 235 padded to 16 and 240 for bf16's dw), one
-    wgmma row block and the training capacity 480: y, dx = dy w^T (w^T
-    read in place) and dw = x^T dy, each one launch on its route, against
-    the plain versions, bf16 also within about one bf16 rounding; a second
-    backward equal bit for bit; fp32's dw of an unpadded x^T equal bit for
-    bit to the padded one's."""
+    ragged capacity (13 and 235, bf16's dw reading x^T in place with no
+    pad), one wgmma row block and the training capacity 480: y, dx = dy w^T
+    (w^T read in place) and dw = x^T dy, each one launch on its route,
+    against the plain versions, bf16 also within about one bf16 rounding;
+    a second backward equal bit for bit; fp32's dw equal bit for bit to
+    the product of a zero-padded x^T."""
     tdt, tol = DTYPES[dtype]
     E = 8
     gen = torch.Generator(device=card).manual_seed(C * 10 + K)
@@ -180,10 +181,9 @@ def test_cuda_grouped_matmul_backward_matches_plain(card, C, K, N, dtype):
          / K ** 0.5).to(tdt)
     dy = (torch.randn((E, C, N), generator=gen, device=card)
           / C ** 0.5).to(tdt)
-    Cp = -(-C // 8) * 8 if dtype == "bfloat16" else C
     routes = [grouped_route(E, C, N, K, tdt), grouped_route(E, C, K, N, tdt,
                                                              w_t=1),
-              grouped_route(E, K, N, Cp, tdt)]
+              grouped_route(E, K, N, C, tdt, x_t=1)]
     grads = []
     for _ in range(2):
         xg, wg = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
@@ -231,7 +231,7 @@ def test_cuda_grouped_matmul_at_the_tp_rank_shape(card, K, N, dtype):
           / C ** 0.5).to(tdt)
     routes = [grouped_route(E, C, N, K, tdt),
               grouped_route(E, C, K, N, tdt, w_t=1),
-              grouped_route(E, K, N, C, tdt)]
+              grouped_route(E, K, N, C, tdt, x_t=1)]
     xg, wg = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
     ops.reset_launches()
     y = ops.grouped_matmul(xg, wg)
@@ -248,6 +248,165 @@ def test_cuda_grouped_matmul_at_the_tp_rank_shape(card, K, N, dtype):
             np.testing.assert_allclose(got.float().cpu().numpy(),
                                        want.float().cpu().numpy(),
                                        rtol=1e-2, atol=5e-5)
+
+
+def _bf16_close_twice(fn, want):
+    """fn() against want under TOL's bf16 limit and about one bf16 rounding
+    (5e-5 + 1e-2 |want|), and a second call equal bit for bit."""
+    got = fn()
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    _close(got, want, DTYPES["bfloat16"][1])
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=1e-2,
+                               atol=5e-5)
+    assert torch.equal(got, fn())
+    return got
+
+
+def _allocated_beyond(card, fn):
+    """Bytes fn() allocates on the card beyond its output."""
+    torch.cuda.synchronize(card)
+    torch.cuda.reset_peak_memory_stats(card)
+    base = torch.cuda.memory_allocated(card)
+    out = fn()
+    torch.cuda.synchronize(card)
+    return torch.cuda.max_memory_allocated(card) - base - out.nbytes
+
+
+# (M, K, N) of dw = x^T dy with x^T the transpose of a row-major (K, M):
+# K (the tokens) ragged against the 64-deep steps (4095, 97) or not (4096),
+# M and N not multiples of the 128-wide tile; (1600, 4096, 16) hymba's w_B
+# dw, split over a cluster; M 100 (M % 8 != 0) takes x's copy instead
+X_T_SHAPES = [(1000, 4095, 200), (136, 97, 320), (1600, 4096, 16),
+              (904, 4096, 1416), (2056, 97, 72), (100, 4096, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", X_T_SHAPES)
+def test_cuda_matmul_reads_x_transposed(card, M, K, N):
+    """x^T read in place (no copy: nothing allocated beyond the output) on
+    the wgmma kernel where ``reads_x_in_place``, one launch, against the
+    plain version under both bf16 limits, two calls equal bit for bit."""
+    xx, dy = _on(card, "bfloat16", M + K, (K, M), (K, N))
+    dy = (dy.float() / K ** 0.5).to(torch.bfloat16)
+    a = xx.t()
+    in_place = reads_x_in_place(M, N, K, 0, torch.bfloat16)
+    assert in_place == (M % 8 == 0)
+    ops.reset_launches()
+    extra = _allocated_beyond(card, lambda: ops.matmul(a, dy))
+    assert (extra < a.numel() * 2 // 2) == in_place
+    route = matmul_route(M, N, K, 0, torch.bfloat16, x_t=1)
+    assert ROUTE_LAUNCHES == {r: int(r == route) for r in ROUTE_LAUNCHES}
+    assert route == "wgmma"
+    _bf16_close_twice(lambda: ops.matmul(a, dy),
+                      matmul_plain(a.contiguous(), dy))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,N", [(2048, 1408), (1408, 2048)])
+@pytest.mark.parametrize("C", [13, 15, 235])
+def test_cuda_grouped_dw_reads_x_in_place(card, C, K, N):
+    """The grouped dw = x^T dy of 8 experts at a capacity C % 8 != 0: each
+    expert's x^T read in place, with no pad (TMA zero-fills past C inside
+    the expert), one launch on "wgmma_grouped", nothing allocated beyond
+    the output, against the plain version under both bf16 limits, two
+    calls equal bit for bit."""
+    E = 8
+    gen = torch.Generator(device=card).manual_seed(C * 7 + K)
+    x = torch.randn((E, C, K), generator=gen, device=card).to(torch.bfloat16)
+    dy = (torch.randn((E, C, N), generator=gen, device=card)
+          / C ** 0.5).to(torch.bfloat16)
+    a = x.transpose(1, 2)
+    ops.reset_launches()
+    extra = _allocated_beyond(card, lambda: ops.grouped_matmul(a, dy))
+    assert extra < a.numel()
+    assert ROUTE_LAUNCHES == {r: int(r == "wgmma_grouped")
+                              for r in ROUTE_LAUNCHES}
+    _bf16_close_twice(lambda: ops.grouped_matmul(a, dy),
+                      grouped_matmul_plain(a.contiguous(), dy))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", range(1, 9))
+@pytest.mark.parametrize("layout", ["x", "x_t", "w_t"])
+def test_cuda_matmul_every_split_count(card, splits, layout):
+    """One 128 x 128 output tile (N 72 for a transposed w, stored from
+    registers) and K of ``splits`` steps, the last ragged: the plan cuts K
+    into ``splits`` runs, one cluster, summed in the same launch; x
+    row-major, x^T read in place, or w transposed; against the plain
+    version under both bf16 limits, two calls equal bit for bit."""
+    M, N, K = 128, 72 if layout == "w_t" else 128, 64 * splits - 24
+    if splits == 1:
+        K = 40
+    assert prefill_plan(1, M, N, K, card) == (128, splits, 1)
+    a, b = _on(card, "bfloat16", splits, (M, K), (K, N))
+    b = (b.float() / K ** 0.5).to(torch.bfloat16)
+    if layout == "x_t":
+        a = a.t().contiguous().t()
+    if layout == "w_t":
+        b = b.t().contiguous().t()
+    ops.reset_launches()
+    _bf16_close_twice(lambda: ops.matmul(a, b), matmul_plain(a, b))
+    assert ROUTE_LAUNCHES["wgmma"] == 2
+
+
+# more work units than SMs: the persistent blocks walk several tiles each,
+# 256 wide where prefill_tile says (the training unembedding's forward at a
+# short K, w row-major or transposed, a grouped dw of 64 experts, a square
+# product with a ragged edge, a dw of 4360 columns), 128 wide elsewhere
+# (4096 x 1280: 3 waves of narrow tiles against 2 of wide ones; qwen2's
+# gate dw, 896 x 4864; 16 experts' 2000 x 50, stored from registers)
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,M,K,N,layout,tile_n", [
+    (1, 4096, 896, 20000, "x", 256), (1, 4096, 896, 20000, "w_t", 256),
+    (64, 2048, 480, 1408, "x_t", 256), (1, 3000, 1000, 3000, "x", 256),
+    (1, 2048, 4096, 4360, "x_t", 256), (1, 4096, 1280, 1280, "x", 128),
+    (1, 896, 4096, 4864, "x_t", 128), (16, 2000, 1000, 50, "w_t", 128)])
+def test_cuda_matmul_persistent_blocks(card, E, M, K, N, layout, tile_n):
+    gen = torch.Generator(device=card).manual_seed(M + N)
+    x_t = layout == "x_t"
+    a = torch.randn((E, K, M) if x_t else (E, M, K), generator=gen,
+                    device=card).to(torch.bfloat16)
+    a = a.transpose(1, 2) if x_t else a
+    b = (torch.randn((E, K, N), generator=gen, device=card)
+         / K ** 0.5).to(torch.bfloat16)
+    if layout == "w_t":
+        b = b.transpose(1, 2).contiguous().transpose(1, 2)
+    tiles = E * -(-M // 128) * -(-N // tile_n)
+    assert tiles > sm_count(card)
+    assert prefill_plan(E, M, N, K, card)[:2] == (tile_n, 1)
+    ops.reset_launches()
+    if E == 1:
+        _bf16_close_twice(lambda: ops.matmul(a[0], b[0]),
+                          matmul_plain(a[0], b[0]))
+        assert ROUTE_LAUNCHES["wgmma"] == 2
+    else:
+        _bf16_close_twice(lambda: ops.grouped_matmul(a, b),
+                          grouped_matmul_plain(a, b))
+        assert ROUTE_LAUNCHES["wgmma_grouped"] == 2
+
+
+# (M, K, N, x^T, tile width): K past WIDE_MAX_K on the 128-wide tile,
+# which sums its chains of 4096 in fp32 (K 65536: 16 chains; an unembedding
+# dx's long K), x row-major or x^T read in place; K 16384, the longest the
+# 256-wide tile takes in one chain of the tensor cores' accumulation
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,x_t,tile_n", [
+    (2048, 65536, 1152, False, 128), (2048, 65536 - 40, 1152, True, 128),
+    (2048, 16384, 2048, False, 256)])
+def test_cuda_matmul_long_k_keeps_fp32_sums(card, M, K, N, x_t, tile_n):
+    """A long K within about one bf16 rounding of the plain fp32 product
+    (both bf16 limits), one run on the planned tile, two calls bit-equal."""
+    gen = torch.Generator(device=card).manual_seed(K + N)
+    a = torch.randn((K, M) if x_t else (M, K), generator=gen,
+                    device=card).to(torch.bfloat16)
+    a = a.t() if x_t else a
+    b = (torch.randn((K, N), generator=gen, device=card)
+         / K ** 0.5).to(torch.bfloat16)
+    assert prefill_plan(1, M, N, K, card)[:2] == (tile_n, 1)
+    ops.reset_launches()
+    _bf16_close_twice(lambda: ops.matmul(a, b), matmul_plain(a, b))
+    assert ROUTE_LAUNCHES["wgmma"] == 2
 
 
 @pytest.mark.cuda

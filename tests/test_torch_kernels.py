@@ -22,8 +22,17 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.decode_attention import (decode_attention_plain,
                                                   decode_split_plan)
 from repro_torch.kernels.ssd_scan import SSD_ROUTE_LAUNCHES, ssd_route
-from repro_torch.kernels.streamed_matmul import (MAX_CLUSTER, decode_k_plan,
-                                                 k_splits, matmul_route)
+from repro_torch.kernels.streamed_matmul import (MAX_CLUSTER, PREFILL_STEP,
+                                                 PREFILL_TILE, PREFILL_WIDE,
+                                                 decode_k_plan, grouped_route,
+                                                 k_splits, matmul_route,
+                                                 WIDE_MAX_K, prefill_k_plan,
+                                                 prefill_tile, reads_x_in_place)
+
+try:
+    from hypothesis import given, settings, strategies as st
+except ModuleNotFoundError:
+    from _hypothesis_fallback import given, settings, st
 
 torch.set_num_threads(2)
 
@@ -493,6 +502,135 @@ def test_matmul_decode_k_plan(M, K, N, plan):
     """The served decode shapes at 132 SMs, and the cover of K's steps."""
     assert decode_k_plan(N, K, n_sms=132, tile=64) == plan
     _check_cover(*plan, -(-K // 64))
+
+
+# (E, M, K, N, plan) of the wgmma prefill kernel at 132 SMs: a train
+# step's dw = x^T dy at 4096 tokens (M = d_in, N = d_out, K the tokens) and
+# its narrow forward products cut K over a cluster, at most tiles x runs <=
+# 132 blocks; outputs of 132 tiles or more take one run
+@pytest.mark.parametrize("E,M,K,N,plan", [
+    (1, 896, 4096, 128, (8, 8)),      # qwen2 wk/wv dw: 7 tiles
+    (1, 896, 4096, 896, (2, 32)),     # qwen2 wq/wo dw: 49 tiles
+    (1, 2048, 4096, 128, (8, 8)),     # mamba2 w_B/w_C dw: 16 tiles
+    (1, 2048, 4096, 64, (8, 8)),      # mamba2 w_dt dw
+    (1, 1600, 4096, 16, (8, 8)),      # hymba w_B/w_C dw: 13 tiles
+    (1, 1600, 4096, 320, (3, 22)),    # hymba wk/wv dw: 39 tiles
+    (1, 4096, 896, 128, (4, 4)),      # qwen2 wk forward: 32 tiles, 14 steps
+    (1, 4096, 1600, 16, (4, 7)),      # hymba w_B forward: 25 steps
+    (1, 4096, 896, 896, (1, 14)),     # 224 tiles: no split
+    (1, 896, 4096, 151936, (1, 64)),  # the unembedding's dw: no split
+    (64, 2048, 480, 1408, (1, 8)),    # deepseek's grouped dw: 11264 tiles
+    (1, 128, 64, 128, (1, 1)),        # one k step cannot be cut
+    (1, 128, 100, 128, (2, 1)),       # two ragged steps, one each
+])
+def test_matmul_prefill_k_plan(E, M, K, N, plan):
+    """The plan at 132 SMs, its cover of K's steps, one wave of blocks."""
+    assert prefill_k_plan(E, M, N, K, n_sms=132) == plan
+    _check_cover(*plan, -(-K // PREFILL_STEP))
+    tiles = E * -(-M // PREFILL_TILE) * -(-N // PREFILL_TILE)
+    assert plan[0] == 1 or tiles * plan[0] <= 132
+
+
+# (E, M, K, N, tile width) at 132 SMs: 256-wide tiles where N > 128, K <=
+# WIDE_MAX_K, the narrow tiles fill the SMs and the wide tiles' waves (each
+# twice the work at WIDE_COST of the time) are the shorter; the plan never
+# splits K on them
+@pytest.mark.parametrize("E,M,K,N,tile_n", [
+    (1, 4096, 896, 896, PREFILL_WIDE),     # qwen2 q/o: 2 waves -> 1 of 128
+    (1, 4096, 896, 4864, PREFILL_WIDE),    # qwen2 gate/up: 10 waves -> 5
+    (1, 896, 4096, 151936, PREFILL_WIDE),  # the unembedding's dw
+    (64, 2048, 480, 1408, PREFILL_WIDE),   # a grouped dw over 64 experts
+    (1, 2048, 16384, 6144, PREFILL_WIDE),  # internvl's down: the longest K
+    (1, 896, 4096, 4864, PREFILL_TILE),    # 266 tiles: 3 waves, wide 2 of 2
+    (1, 4096, 1280, 1280, PREFILL_TILE),   # whisper q/o: 320 tiles, wide 160
+    (1, 4096, 896, 128, PREFILL_TILE),     # 128 columns: one narrow tile
+    (1, 896, 4096, 896, PREFILL_TILE),     # 49 tiles: K split instead
+    (1, 4096, 151936, 896, PREFILL_TILE),  # the unembedding's dx: long K
+    (1, 2048, 18944, 3584, PREFILL_TILE),  # qwen2_7b's down: K > 16384
+])
+def test_matmul_prefill_tile(E, M, K, N, tile_n):
+    assert prefill_tile(E, M, N, K, n_sms=132) == tile_n
+    if tile_n == PREFILL_WIDE:
+        assert K <= WIDE_MAX_K
+        assert prefill_k_plan(E, M, N, K, 132, tile_n=tile_n)[0] == 1
+
+
+# a card whose GPCs hold fewer large clusters than SMs / runs: the plan
+# cuts fewer runs, so that every tile's cluster runs at once
+GPC_CLUSTERS = {1: 132, 2: 66, 3: 42, 4: 30, 5: 22, 6: 16, 7: 14, 8: 14}
+
+
+@pytest.mark.parametrize("E,M,K,N,plan", [
+    (1, 2048, 4096, 128, (6, 11)),    # mamba2 w_B dw: 16 tiles > 14 of 8
+    (1, 1600, 4096, 16, (8, 8)),      # hymba w_B dw: 13 tiles fit
+    (1, 896, 4096, 128, (8, 8)),      # qwen2 wk dw: 7 tiles, 8 runs fit
+    (1, 4096, 896, 128, (3, 5)),      # 32 tiles > 30 clusters of 4
+])
+def test_matmul_prefill_k_plan_keeps_clusters_in_one_wave(E, M, K, N, plan):
+    assert prefill_k_plan(E, M, N, K, 132, GPC_CLUSTERS.get) == plan
+    _check_cover(*plan, -(-K // PREFILL_STEP))
+    tiles = E * -(-M // PREFILL_TILE) * -(-N // PREFILL_TILE)
+    assert plan[0] == 1 or tiles <= GPC_CLUSTERS[plan[0]]
+
+
+@settings(max_examples=300, deadline=None)
+@given(E=st.integers(1, 70), M=st.integers(64, 20000),
+       N=st.integers(1, 200000), K=st.integers(1, 70000),
+       n_sms=st.sampled_from([1, 8, 66, 114, 132]))
+def test_prefill_k_plan_property(E, M, N, K, n_sms):
+    """Every k step lies in exactly one run, 1 to 8 runs, none empty; one
+    run where the tiles reach the SMs, and never more blocks than SMs when
+    K is cut."""
+    steps = -(-K // PREFILL_STEP)
+    tiles = E * -(-M // PREFILL_TILE) * -(-N // PREFILL_TILE)
+    for clusters in (None, lambda r: max(1, n_sms // r - 2)):
+        runs, per = prefill_k_plan(E, M, N, K, n_sms, clusters)
+        _check_cover(runs, per, steps)
+        if tiles >= n_sms:
+            assert (runs, per) == (1, steps)
+        else:
+            assert tiles * runs <= n_sms
+            assert runs == 1 or clusters is None or tiles <= clusters(runs)
+
+
+# x given as the transpose of a row-major (K, M) (a backward's dw = x^T
+# dy): read in place by the prefill kernel under TMA's rules for x^T's rows
+# (M % 8 == 0, M >= 64) and a row-major w (N % 8 == 0), whatever K; any
+# other is the route of x's contiguous copy
+@pytest.mark.parametrize("M,K,N,w_t,dtype,aligned,in_place,route", [
+    (896, 4096, 128, 0, torch.bfloat16, True, True, "wgmma"),    # qwen2 dw
+    (1600, 4096, 16, 0, torch.bfloat16, True, True, "wgmma"),    # hymba w_B
+    (2048, 4095, 64, 0, torch.bfloat16, True, True, "wgmma"),    # K ragged
+    (2048, 97, 128, 0, torch.bfloat16, True, True, "wgmma"),     # K % 8 != 0
+    (100, 4096, 128, 0, torch.bfloat16, True, False, "wgmma"),   # M % 8 != 0
+    (100, 4095, 128, 0, torch.bfloat16, True, False, "wmma"),    # copy: K % 8
+    (2048, 4096, 50, 0, torch.bfloat16, True, False, "wmma"),    # N % 8 != 0
+    (2048, 4096, 64, 1, torch.bfloat16, True, False, "wgmma"),   # w transposed
+    (56, 4096, 64, 0, torch.bfloat16, True, False, "wgmma_decode"),  # M < 64
+    (896, 4096, 128, 0, torch.bfloat16, False, False, "wmma"),   # misaligned
+    (896, 4096, 128, 0, torch.float32, True, False, "fp32"),     # fp32: copy
+])
+def test_matmul_route_with_x_transposed(M, K, N, w_t, dtype, aligned,
+                                        in_place, route):
+    assert reads_x_in_place(M, N, K, w_t, dtype, aligned) == in_place
+    assert matmul_route(M, N, K, w_t, dtype, aligned, x_t=1) == route
+
+
+# the grouped dw = x^T dy of deepseek_moe_16b's experts at capacities C (the
+# product's K) of any size: in place, no pad; a copy's rules otherwise
+@pytest.mark.parametrize("E,M,K,N,dtype,route", [
+    (64, 2048, 480, 1408, torch.bfloat16, "wgmma_grouped"),  # training C
+    (64, 1408, 235, 2048, torch.bfloat16, "wgmma_grouped"),  # C % 8 != 0
+    (8, 16, 13, 24, torch.bfloat16, None),                   # M < 64, C % 8
+    (8, 16, 16, 24, torch.bfloat16, "wgmma_grouped_decode"),  # copied
+    (64, 2048, 15, 1408, torch.float32, "fp32_grouped"),
+])
+def test_grouped_route_with_x_transposed(E, M, K, N, dtype, route):
+    if route is None:
+        with pytest.raises(ValueError, match="x transposed"):
+            grouped_route(E, M, N, K, dtype, x_t=1)
+    else:
+        assert grouped_route(E, M, N, K, dtype, x_t=1) == route
 
 
 @pytest.mark.parametrize("K", [8, 64, 65, 896, 1000, 4864, 4096 * 4])

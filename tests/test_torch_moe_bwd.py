@@ -1,9 +1,9 @@
 """The grouped product's backward and the MoE layer under grad, in the port
 against ``torch.autograd`` and the JAX package's ``jax.grad`` on the CPU:
 ``ops.grouped_matmul``'s autograd Function (dx = dy w^T with w^T read in
-place, dw = x^T dy from a copy of x^T, zero-padded along the capacity in
-bf16) through the plain products, at ragged capacities; the pad; the
-grouped route of a transposed w; one MoE layer's gradients with tokens
+place, dw = x^T dy with x^T read in place, at any capacity) through the
+plain products, at ragged capacities; dw's x^T a view of x, dense and
+grouped; the grouped route of a transposed w or x; one MoE layer's gradients with tokens
 dropped and with none dropped; and the dispatch: an autograd node under
 grad, none under ``torch.inference_mode()``, three counted launches on the
 card (with the plain product standing in for the kernel)."""
@@ -82,21 +82,62 @@ def test_grouped_backward_matches_autograd_and_jax_grad(E, C, K, N, dtype):
 
 
 @pytest.mark.parametrize("C", [13, 15, 16, 235])
-def test_pad_leaves_dw_equal_bit_for_bit(C):
-    """bf16 x^T is padded along the capacity to a multiple of 8 with zero
-    rows (dy too), and the backward's dw equals the unpadded product bit
-    for bit; fp32 and a multiple of 8 take no pad."""
+def test_grouped_dw_reads_x_in_place(monkeypatch, C):
+    """The backward hands the dw product x^T as a view of x's own storage
+    (the same data_ptr, x's strides transposed), at any capacity C, with no
+    pad, and dw equals grouped_matmul_plain of the contiguous x^T bit for
+    bit, in bf16 and fp32."""
     x, w, dy = _arrays(C, 2, C, 16, 24)
     for dtype in (torch.bfloat16, torch.float32):
         tx, tw, tdy = (torch.tensor(a).to(dtype) for a in (x, w, dy))
-        xt, dyp = ops.pad_capacity(tx.transpose(1, 2), tdy)
-        Cp = -(-C // 8) * 8 if dtype == torch.bfloat16 else C
-        assert xt.shape == (2, 16, Cp) and dyp.shape == (2, Cp, 24)
-        assert xt.is_contiguous()
-        assert not xt[:, :, C:].any() and not dyp[:, C:].any()
-        assert torch.equal(xt[:, :, :C], tx.transpose(1, 2))
-        _, dw = _grads(tx, tw, tdy, ops.grouped_matmul)
-        assert torch.equal(dw, grouped_matmul_plain(tx.transpose(1, 2), tdy))
+        seen = []
+        grouped = ops._grouped
+
+        def spy(a, b):
+            seen.append(a)
+            return grouped(a, b)
+
+        with monkeypatch.context() as m:
+            m.setattr(ops, "_grouped", spy)
+            xg = tx.clone().requires_grad_(True)
+            wg = tw.clone().requires_grad_(True)
+            ops.grouped_matmul(xg, wg).backward(tdy)
+        a = seen[-1]  # y, dx, then dw
+        assert a.shape == (2, 16, C)
+        assert a.data_ptr() == xg.data_ptr()
+        assert a.stride() == (C * 16, 1, 16)
+        want = grouped_matmul_plain(tx.transpose(1, 2).contiguous(), tdy)
+        assert torch.equal(wg.grad, want)
+
+
+def test_dense_dw_reads_x_in_place(monkeypatch):
+    """The dense product's backward hands its dw product x^T as a view of
+    x's own storage, x's strides transposed, and dw equals the plain
+    product of the contiguous x^T bit for bit, in bf16 and fp32."""
+    from repro_torch.kernels.streamed_matmul import matmul_plain
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((13, 16)).astype(np.float32)
+    w = (rng.standard_normal((16, 24)) / 4).astype(np.float32)
+    dy = rng.standard_normal((13, 24)).astype(np.float32)
+    for dtype in (torch.bfloat16, torch.float32):
+        tx, tw, tdy = (torch.tensor(a).to(dtype) for a in (x, w, dy))
+        seen = []
+        dense = ops._matmul
+
+        def spy(a, b):
+            seen.append(a)
+            return dense(a, b)
+
+        with monkeypatch.context() as m:
+            m.setattr(ops, "_matmul", spy)
+            xg = tx.clone().requires_grad_(True)
+            wg = tw.clone().requires_grad_(True)
+            ops.matmul(xg, wg).backward(tdy)
+        a = seen[-1]  # y, dx, then dw
+        assert a.shape == (16, 13)
+        assert a.data_ptr() == xg.data_ptr()
+        assert a.stride() == (1, 16)
+        assert torch.equal(wg.grad, matmul_plain(tx.t().contiguous(), tdy))
 
 
 # (E, M, K, N, dtype, w_t, route): deepseek_moe_16b's backward products at
@@ -142,8 +183,9 @@ def test_grouped_backward_is_three_counted_launches_on_the_card(monkeypatch,
                                                                 dtype):
     """On the card (the plain product standing in for the kernel) a
     grouped product under grad is three counted launches: y; dx from dy
-    and w^T, the transpose of the contiguous w, read in place; dw from a
-    contiguous x^T, padded to C 16 in bf16; gradients equal to the CPU's."""
+    and w^T, the transpose of the contiguous w, read in place; dw from
+    x^T, the transpose of the contiguous x, read in place with no pad;
+    gradients equal to the CPU's."""
     seen = []
 
     def kernel(a, b):
@@ -159,10 +201,9 @@ def test_grouped_backward_is_three_counted_launches_on_the_card(monkeypatch,
     ops.reset_launches()
     got = _grads(x, w, dy, ops.grouped_matmul)
     assert ops.LAUNCHES["streamed_matmul"] == 3
-    C = 16 if dtype == "bfloat16" else 13
     assert seen == [((3, 13, 16), True, True, False),
                     ((3, 13, 24), True, False, True),
-                    ((3, 16, C), True, True, False)]
+                    ((3, 16, 13), False, True, False)]
     for g, w_ in zip(got, want):
         assert torch.equal(g, w_)
 

@@ -166,7 +166,8 @@ def test_flash_bwd_plain_keeps_bf16_and_rejects_sq_ne_skv_causal():
 def test_matmul_backward_is_two_products_through_the_op(monkeypatch):
     """dx = dy w^T and dw = x^T dy, each a call of the product op: for a
     row-major w and for a tied table's transposed view, whose gradient
-    reaches the table through the view."""
+    reaches the table through the view; dw's x^T is x's transposed view,
+    read in place (no contiguous copy)."""
     calls = []
     plain = ops.matmul_plain
 
@@ -183,7 +184,7 @@ def test_matmul_backward_is_two_products_through_the_op(monkeypatch):
     dy = torch.tensor(rng.standard_normal((6, 5)).astype(np.float32))
     ops.matmul(x, table.t()).backward(dy)
     assert calls == [((6, 8), (8, 5), True), ((6, 5), (5, 8), True),
-                     ((8, 6), (6, 5), True)]
+                     ((8, 6), (6, 5), False)]
     np.testing.assert_allclose(x.grad.numpy(), (dy @ table).detach().numpy(),
                                rtol=1e-6, atol=1e-6)
     np.testing.assert_allclose(table.grad.numpy(), (dy.t() @ x).detach()

@@ -18,9 +18,9 @@ exits non-zero):
                (UTMALDG or LDGSTS) in the bf16 SSD scan kernel of P 50, N
                16; and each kernel's registers and spills from ptxas's
                report, with no spill allowed in either bf16 SSD scan
-               kernel, in K2's bf16 backward kernels at hd 64 or in K4's
-               backward kernels (those of K2 at hd 128, the band's and the
-               forward's printed);
+               kernel, in any instance of K2's two bf16 backward kernels
+               (hd 64 and 128, band or not) or in K4's backward kernels
+               (the forward's printed);
 3. kernels  -- each kernel against its plain PyTorch version on the card
                at the shapes of the serving paths of the nine served
                models (qwen2_0_5b, llama3_2_1b, qwen2_7b, qwen3_4b,
@@ -83,14 +83,16 @@ exits non-zero):
                bf16 K1 case also within 5e-5 + 1e-2 |plain| and two calls
                bit-equal, K2's backward kernel
                (flash_attention_bwd from the forward's lse: qwen2_0_5b's
-               (8, 512, 14/2, 64) causal and at S 455, (4, 512, 28/4, 128)
-               causal, not causal whisper_large_v3's (8, 1500, 20/20, 64)
-               and 512 queries to 1500 keys; bf16 on its wgmma route,
-               fp32 on the CUDA cores; 2e-4 / 2e-2 of 1 + |plain| and a
-               mean limit, BWD_MEAN_TOL; its library the autograd backward
-               of SDPA; and the band's at hymba_1_5b's training shape (2,
-               2048, 25/5, 64), window 1024, its library SDPA's autograd
-               backward with a boolean band mask), K4's backward
+               (8, 512, 14/2, 64) causal and at S 455, qwen2_7b's (4, 512,
+               28/4, 128) and deepseek_moe_16b's training shape (8, 512,
+               16/16, 128) causal, not causal whisper_large_v3's (8, 1500,
+               20/20, 64) and 512 queries to 1500 keys; bf16 on its wgmma
+               route, two calls bit-equal, fp32 on the CUDA cores; 2e-4 /
+               2e-2 of 1 + |plain| and a mean limit, BWD_MEAN_TOL; its
+               library the autograd backward of SDPA; and the band's at
+               hymba_1_5b's training shape (2, 2048, 25/5, 64), window
+               1024, its library SDPA's autograd backward with a boolean
+               band mask), K4's backward
                (ssd_scan_bwd, fp32 and bf16, against ssd_scan_bwd_plain,
                each call on its route, ssd_bwd_route's: bf16 at P 64,
                N 128 on "wgmma", bf16 at P 50, N 16 on "tc" (the
@@ -400,6 +402,22 @@ K1_SERVED = {
                          (2048, 102400, False)),
     "internvl2_26b": (4, 3072, [(6144, 6144), (6144, 1024), (6144, 16384),
                                 (16384, 6144)], (6144, 92672, False))}
+# K2's backward at the training paths' attention, (B, Sq, Skv, H, KV, hd,
+# causal): qwen2_0_5b's (and a ragged S 455), qwen2_7b's heads at hd 128
+# (configs/qwen2_7b.py), deepseek_moe_16b's train step, whisper_large_v3's
+# encoder (not causal) and cross-attention (512 queries, 1500 keys); the
+# band's at hymba_1_5b's (B, S, H, KV, hd, window); the sequence shards'
+# (B, Sq, Skv, q_offset, H, KV, hd, window): deepseek_moe_16b's at offsets
+# 0 and 256, hymba_1_5b's second under its window
+K2_BWD_CASES = [(8, 512, 512, 14, 2, 64, True), (8, 455, 455, 14, 2, 64, True),
+                (4, 512, 512, 28, 4, 128, True),
+                (8, 512, 512, 16, 16, 128, True),
+                (8, 1500, 1500, 20, 20, 64, False),
+                (8, 512, 1500, 20, 20, 64, False)]
+K2_BAND_BWD = (2, 2048, 25, 5, 64, 1024)
+K2_OFFSET_CASES = [(2, 256, 512, 0, 16, 16, 128, 0),
+                   (2, 256, 512, 256, 16, 16, 128, 0),
+                   (1, 1024, 2048, 1024, 25, 5, 64, 1024)]
 # K1 at each train path's distinct products, (K, N, tied) of y = x w at the
 # step's K1_TRAIN_ROWS rows (8 x 512 or 2 x 2048 tokens), each also as its
 # backward calls it (k1_train_operands): dx = dy w^T and dw = x^T dy.
@@ -668,7 +686,9 @@ def phase_build():
                                  f"SASS {mine}")
     for kernel in ("ssd_wgmma_kernel", "ssd_tc_kernel",
                    "flash_bwd_dq_wgmma_kernel<64,",
-                   "flash_bwd_dkdv_wgmma_kernel<64,", "ssd_bwd_kernel",
+                   "flash_bwd_dkdv_wgmma_kernel<64,",
+                   "flash_bwd_dq_wgmma_kernel<128,",
+                   "flash_bwd_dkdv_wgmma_kernel<128,", "ssd_bwd_kernel",
                    "ssd_bwd_wgmma_kernel", "ssd_bwd_tc_local_kernel",
                    "ssd_bwd_tc_serial_kernel"):
         mine = [r for name, r in ptxas.items() if kernel in name]
@@ -676,8 +696,8 @@ def phase_build():
                            r.get("spill_loads") != 0 for r in mine):
             raise AssertionError(f"{kernel}: spills or no report {mine}")
     # K2's kernels apart: the serving forward's (no lse), the training
-    # forward's (lse; under a band too) and the bf16 backward's (causal or
-    # not, and the band's), and K4's backward, registers and spills (its
+    # forward's (lse; under a band too) and the bf16 backward's (each hd and
+    # band), and K4's backward, registers and spills (its
     # tc route's grad kernel runs at 64 registers, two blocks an SM, and
     # spills a little: csrc/ssd_scan_bwd_tc.cu's header)
     emit({"phase": "build", "k2_ptxas": {
@@ -1199,22 +1219,29 @@ def phase_kernels(torch, dev):
                   mean_rel=MEAN_TOL[dtype])
             del q, k, v
 
+    def same_bits(fn):
+        """Two more calls of a backward give every output equal bit for
+        bit (no atomics)."""
+        first, second = fn(), fn()
+        torch.cuda.synchronize()
+        if not all(a is None or torch.equal(a, b)
+                   for a, b in zip(first, second)):
+            raise AssertionError("two calls of a backward kernel differ")
+
     # flash_attention_bwd, K2's backward (dq, dk, dv from q, k, v, o, dO and
     # the forward's lse): qwen2_0_5b's training attention (8, 512, 14/2,
-    # 64) causal and a ragged S 455, qwen3_4b's heads at hd 128 (4, 512,
-    # 28/4), and not causal whisper_large_v3's encoder (8, 1500, 20/20) and
-    # its cross-attention from 512 queries to 1500 keys; bf16 on the wgmma
-    # route, fp32 on the CUDA cores.  The least operations: five products
-    # of 2 hd per (query row, key attended); the bytes: q, k, v, o, dO and
-    # the lse read and dq, dk, dv written once.  The library: autograd's
-    # backward of SDPA at the same shape, timed alone (its forward run once).
+    # 64) causal and a ragged S 455, qwen2_7b's heads at hd 128 (4, 512,
+    # 28/4) and deepseek_moe_16b's training attention (8, 512, 16/16, 128)
+    # causal, and not causal whisper_large_v3's encoder (8, 1500, 20/20)
+    # and its cross-attention from 512 queries to 1500 keys (K2_BWD_CASES);
+    # bf16 on the wgmma route, each call twice equal bit for bit; fp32 on
+    # the CUDA cores.  The least operations: five products of 2 hd per
+    # (query row, key attended); the bytes: q, k, v, o, dO and the lse read
+    # and dq, dk, dv written once.  The library: autograd's backward of SDPA
+    # at the same shape, timed alone (its forward run once).
     for dtype in (torch.float32, torch.bfloat16):
         es = torch.tensor([], dtype=dtype).element_size()
-        for B, Sq, Skv, H, KV, hd, causal in (
-                (8, 512, 512, 14, 2, 64, True), (8, 455, 455, 14, 2, 64, True),
-                (4, 512, 512, 28, 4, 128, True),
-                (8, 1500, 1500, 20, 20, 64, False),
-                (8, 512, 1500, 20, 20, 64, False)):
+        for B, Sq, Skv, H, KV, hd, causal in K2_BWD_CASES:
             q = randn(B, Sq, H, hd, dtype=dtype)
             k = randn(B, Skv, KV, hd, dtype=dtype)
             v = randn(B, Skv, KV, hd, dtype=dtype)
@@ -1241,6 +1268,9 @@ def phase_kernels(torch, dev):
                                                retain_graph=True))
             shape = [B, Sq, H, KV, hd] if Sq == Skv else [B, Sq, Skv, H, KV,
                                                           hd]
+            if dtype == torch.bfloat16:
+                same_bits(lambda: ops.flash_attention_bwd(
+                    q, k, v, o, do, causal=causal, lse=lse))
             check("flash_attention_bwd",
                   shape + ([] if causal else ["not_causal"]), dtype, got,
                   flash_attention_bwd_plain(q, k, v, o, do, causal=causal),
@@ -1251,20 +1281,11 @@ def phase_kernels(torch, dev):
             del q, k, v, do, o, lse, got, qt, kt, vt, out, dot, fns
             free(torch)
 
-    def same_bits(fn):
-        """Two more calls of a backward give every output equal bit for
-        bit (no atomics)."""
-        first, second = fn(), fn()
-        torch.cuda.synchronize()
-        if not all(a is None or torch.equal(a, b)
-                   for a, b in zip(first, second)):
-            raise AssertionError("two calls of a backward kernel differ")
-
     # K2's band backward at hymba_1_5b's training shape: (2, 2048, 25/5,
     # 64) under its window of 1024, from the forward's band lse; the keys
     # attended min(r + 1, 1024) per row; its library SDPA's autograd
     # backward with a boolean band mask
-    B, S, H, KV, hd, window = 2, 2048, 25, 5, 64, 1024
+    B, S, H, KV, hd, window = K2_BAND_BWD
     for dtype in (torch.float32, torch.bfloat16):
         es = torch.tensor([], dtype=dtype).element_size()
         q = randn(B, S, H, hd, dtype=dtype)
@@ -1317,10 +1338,7 @@ def phase_kernels(torch, dev):
     # is not the shard's), its autograd backward for the backward.
     for dtype in (torch.float32, torch.bfloat16):
         es = torch.tensor([], dtype=dtype).element_size()
-        for B, Sq, Skv, off, H, KV, hd, window in (
-                (2, 256, 512, 0, 16, 16, 128, 0),
-                (2, 256, 512, 256, 16, 16, 128, 0),
-                (1, 1024, 2048, 1024, 25, 5, 64, 1024)):
+        for B, Sq, Skv, off, H, KV, hd, window in K2_OFFSET_CASES:
             q = randn(B, Sq, H, hd, dtype=dtype)
             k = randn(B, Skv, KV, hd, dtype=dtype)
             v = randn(B, Skv, KV, hd, dtype=dtype)

@@ -29,37 +29,47 @@
 // What the design does about it (bf16, close to FlashAttention-3's backward
 // without its atomics): every product is a wgmma from tiles that TMA loads
 // in place (4D maps over the tensors, 128-byte swizzle), in two launches, so
-// the sums are deterministic:
+// the sums are deterministic.  Each block is two warpgroups, one of whose
+// threads also issues the loads: a ninth (producer) warp would cap every
+// thread at 168 registers, which spilled at hd 128.
 //   (a) flash_bwd_dq_wgmma_kernel, one block per (query tile of 128 rows,
-//       head, batch row), the longest causal tiles first.  A producer warp
-//       loads the Q and dO tiles once and streams 64-key K and V tiles
-//       through a ring of 2 stages; two consumer warpgroups own 64 rows
-//       each, form D = rowsum(dO o) in fp32 (written for (b)), and per key
-//       tile S = Q K^T and dP = dO V^T (both operands K-major in shared
-//       memory), P = exp2(S scale log2(e) - lse) from the row's
-//       log2-sum-exp2 that the forward wrote, dS = P (dP - D) rounded to
-//       bf16 in registers, and dQ += dS K (dS the register A operand, K an
-//       MN-major B: the forward's P.V).
+//       head, batch row), the longest causal tiles first.  Q and dO are
+//       loaded once and K and V stream through a ring of 4 stages in tiles
+//       of KN keys (128 at hd 64: S and dP are m64n128; 64 at hd 128); each
+//       warpgroup owns 64 rows, forms D = rowsum(dO o) in fp32 (written for
+//       (b)), and per key tile S = Q K^T and dP = dO V^T (both operands
+//       K-major in shared memory), P = exp2(S scale log2(e) - lse) from the
+//       row's log2-sum-exp2 that the forward wrote, dS = P (dP - D) rounded
+//       to bf16 in registers, and dQ += dS K (dS the register A operand, K an
+//       MN-major B: the forward's P.V).  The next tile's S and dP are issued
+//       behind this tile's dQ product, so a warpgroup waits on the tensor
+//       cores only for what it reads next; a thread of the first warpgroup
+//       refills a stage once both warpgroups are done with it.
 //   (b) flash_bwd_dkdv_wgmma_kernel, one block per (key tile of 64 keys, KV
-//       head, batch row).  TMA loads K and V once; a producer warpgroup
-//       streams the (query tile of 64 rows, head) items of the KV head's
-//       group, with each tile's lse and D, through a ring of 4 stages, from
-//       the diagonal tile when causal.  Two consumer warpgroups take the
-//       items in turn and compute the transposed products, so that P^T and
-//       dS^T land in the accumulator layout and feed the next product from
-//       registers: S^T = K Q^T, P^T = exp2(S^T scale log2(e) - lse) (lse
-//       along the columns), dV += P^T dO, dP^T = V dO^T, dS^T = P^T (dP^T -
-//       D), dK += dS^T Q.  At the end the second warpgroup's dK and dV go
-//       through shared memory and the first adds them to its own, in that
-//       order, so the sum over the group needs no second pass.  setmaxnreg
-//       gives the consumers 240 registers (hd 128: dK and dV alone are 128
-//       fp32 a thread) and the producer 24.
+//       head, batch row), which walks the key tile's items: (query head of
+//       the group, query tile of QT rows: 128 at hd 64, so that S^T and dP^T
+//       are m64n128; 64 at hd 128).  The blocks go out (batch row, KV head)
+//       by (batch row, KV head), each one's key tiles together, so the
+//       blocks running at once share a few heads' Q and dO in L2 (key tile
+//       major, whisper's encoder ran 25% slower on its reloads).  K and V
+//       are loaded once; the two warpgroups take the block's items in turn, each loading its own
+//       items into its own stages of a ring of 4, and compute the transposed
+//       products, so that P^T and dS^T land in the accumulator layout and
+//       feed the next product from registers: S^T = K Q^T, P^T = exp2(S^T
+//       scale log2(e) - lse) (lse along the columns), dP^T = V dO^T, dS^T =
+//       P^T (dP^T - D), then dV += P^T dO and dK += dS^T Q.  P^T and dS^T are
+//       formed and packed to bf16 in one pass once both scores have landed,
+//       which keeps hd 128 within the registers (dK and dV alone are 128
+//       fp32 a thread there).  At the end the second warpgroup's dK and dV go
+//       through shared memory (over the quiet ring) and the first adds them
+//       to its own and stores the sum: a fixed order, no atomics, two calls
+//       equal bit for bit.
 // The band (BAND, a template flag of both bf16 kernels, so that the causal
 // instances are built without its code and keep their registers): in (a) a
-// block's key loop, and its producer's loads, start at the tile of key q0 -
-// w + 1 and a warpgroup skips the tiles below its rows' band; in (b) a key
-// tile's query items end at the tile of its last key's last query row, k0 +
-// 63 + w - 1.  The tiles that cross the band's low edge are masked as the
+// block's key loop, and its loads, start at the tile of key q0 - w + 1 and
+// a warpgroup skips the tiles below its rows' band; in (b) a key tile's
+// query items end at the tile of its last key's last query row, k0 + 63 +
+// w - 1.  The tiles that cross the band's low edge are masked as the
 // diagonal one is, and the lse the forward wrote is the band's.
 // q_offset moves every such bound by the offset: in (a) the block's and each
 // warpgroup's key tiles end at the tile of key q_offset + the last row, in (b)
@@ -68,8 +78,9 @@
 // window, end at the tile of row k0 + 63 + w - 1 - q_offset.
 // P and dS are rounded to bf16 for their products, as the forward rounds P;
 // the statistics, D and every sum stay fp32; each gradient is rounded once,
-// at the store.  Only the tiles on the causal diagonal and at the ragged
-// edges are masked: keys >= Skv (TMA's zero fill scores 0, not -inf) in
+// at the store.  Only the tiles on the causal diagonal, at the band's edges
+// and at the ragged ends take the masked exponentials (the others skip the
+// test): keys >= Skv (TMA's zero fill scores 0, not -inf) in
 // (a), and in (b) query rows >= Sq, whose zero-filled Q scores 0 and whose P
 // would be exp2(-lse), not 0.  Keys >= Skv in (b) are rows of dk and dv that
 // are never stored.
@@ -428,79 +439,90 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o, const
 }
 
 // ------------------------------------------------------- bf16 path, wgmma
-constexpr int DQ_ROWS = 128;                     // (a): query rows per block
-constexpr int KT = 64;                           // keys per tile; (a)'s key tiles, (b)'s block
-constexpr int QT = 64;                           // (b): query rows per item
-constexpr int DQ_STAGES = 2, DKV_STAGES = 4;     // (b): two stages per consumer warpgroup
-constexpr int DQ_THREADS = 2 * 128 + 32;         // two consumer warpgroups, a producer warp
-constexpr int DKV_THREADS = 3 * 128;             // two consumer warpgroups, a producer warpgroup
-constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
-static_assert(PRODUCER_REGS * 128 + CONSUMER_REGS * 256 <= 168 * DKV_THREADS,
-              "setmaxnreg must stay within the registers the block was launched with");
+constexpr int DQ_ROWS = 128;          // (a): query rows per block
+constexpr int KT = 64;                // (b): keys per block
+// two warpgroups, one of whose threads also issues the loads: a ninth warp
+// would share an SM quarter's 16384 registers three ways, and ptxas then
+// holds every thread to 168 registers (setmaxnreg or not); eight warps may
+// each use 255
+constexpr int WG_THREADS = 2 * 128;
 
+// (a): Q and dO of 128 rows, the ring of K and V tiles of KN keys (128 at
+// hd 64, 64 at hd 128: the consumers' registers), D of the rows
 template <int HD>
-struct WgTiles {
-  static constexpr int ATOMS = HD / 64;         // 64-wide column blocks of hd
-  static constexpr int ATOM64 = 64 * 128;       // one block of a 64-row tile, in bytes
-  static constexpr int ATOM128 = 128 * 128;     // of a 128-row tile
-  static constexpr int T64 = ATOMS * ATOM64;
-  static constexpr int T128 = ATOMS * ATOM128;
-  // (a): Q and dO of 128 rows, the ring of K and V tiles, D of the rows
-  static constexpr int DQ_STAGE = 2 * T64;
-  static constexpr int DQ_SMEM =
-      2 * T128 + DQ_STAGES * DQ_STAGE + DQ_ROWS * 4 + (1 + 2 * DQ_STAGES) * 8 + 1024;
-  // (b): K and V of 64 keys, the ring of Q, dO, lse and D of 64 query rows
-  static constexpr int VEC = QT * 4;            // lse, then D: one TMA box each
-  static constexpr int DKV_STAGE = (2 * T64 + 2 * VEC + 1023) / 1024 * 1024;
-  static constexpr int DKV_SMEM = 2 * T64 + DKV_STAGES * DKV_STAGE + (1 + 2 * DKV_STAGES) * 8 + 1024;
-  static_assert(DKV_STAGES * DKV_STAGE >= 2 * 64 * HD * 4,
-                "the ring holds the second warpgroup's dK and dV at the end");
-  static_assert(DKV_SMEM <= 232448 && DQ_SMEM <= 232448,
-                "more shared memory than a block may have");
+struct DqTiles {
+  static constexpr int ATOMS = HD / 64;          // 64-wide column blocks of hd
+  static constexpr int KN = HD == 64 ? 128 : 64;
+  static constexpr int STAGES = 4;
+  static constexpr int Q_BLK = DQ_ROWS * 128;    // one column block of a Q or dO tile, bytes
+  static constexpr int K_BLK = KN * 128;
+  static constexpr int Q_TILE = ATOMS * Q_BLK;
+  static constexpr int K_TILE = ATOMS * K_BLK;
+  static constexpr int STAGE = 2 * K_TILE;       // K, then V
+  static constexpr int SMEM =
+      2 * Q_TILE + STAGES * STAGE + DQ_ROWS * 4 + (1 + 2 * STAGES) * 8 + 1024;
+  static_assert(SMEM <= 232448, "more shared memory than a block may have");
 };
 
-// A's k16 step kk of a K-major 64-row slice (rows of 128 bytes, 64-column
-// blocks `atom` bytes apart), and the MN-major B of k16 step c of a 64-row
-// tile whose 64-column blocks are 64 * 128 bytes apart.
-__device__ __forceinline__ uint64_t kmajor(const unsigned char* tile, int atom, int kk) {
-  return hopper::make_desc(tile + (kk / 4) * atom + (kk % 4) * 32, 16, 1024);
+// (b): K and V of 64 keys, the ring of items (Q, dO, lse and D of QT query
+// rows of one head); at the end the second warpgroup's fp32 dK and dV lie
+// over the ring
+template <int HD, int QT>
+struct KvTiles {
+  static constexpr int ATOMS = HD / 64;
+  static constexpr int K_BLK = KT * 128;
+  static constexpr int Q_BLK = QT * 128;
+  static constexpr int K_TILE = ATOMS * K_BLK;
+  static constexpr int Q_TILE = ATOMS * Q_BLK;
+  static constexpr int VEC = QT * 4;             // lse, then D: one TMA box each
+  static constexpr int STAGE = (2 * Q_TILE + 2 * VEC + 1023) / 1024 * 1024;
+  static constexpr int STAGES = 4;               // a warpgroup's items take every other stage
+  static constexpr int PART = HD * 128;          // floats of one warpgroup's dK and dV
+  static constexpr int SMEM = 2 * K_TILE + STAGES * STAGE + (1 + STAGES) * 8 + 1024;
+  static_assert(STAGES * STAGE >= PART * 4, "the ring holds a partial at the end");
+  static_assert(SMEM <= 232448, "more shared memory than a block may have");
+};
+
+// k16 step kk of a K-major operand (rows of 128 bytes, its 64-column blocks
+// `blk` bytes apart), and k16 step c of an MN-major one (k along its
+// 128-byte rows, its 64-column blocks `blk` bytes apart)
+__device__ __forceinline__ uint64_t kmajor(const unsigned char* tile, int blk, int kk) {
+  return hopper::make_desc(tile + (kk / 4) * blk + (kk % 4) * 32, 16, 1024);
 }
-__device__ __forceinline__ uint64_t mnmajor(const unsigned char* tile, int c) {
-  return hopper::make_desc(tile + c * 2048, 64 * 128, 1024);
+__device__ __forceinline__ uint64_t mnmajor(const unsigned char* tile, int blk, int c) {
+  return hopper::make_desc(tile + c * 2048, blk, 1024);
 }
 
-// acc (+)= A(64 x 64 of k, registers: four k16 steps of bf16 pairs) B, B the
-// MN-major 64-row tile: N = HD.
-template <int HD>
-__device__ __forceinline__ void rs_product(float (&acc)[HD / 2], const uint32_t (&a)[16],
-                                           const unsigned char* b) {
+// d (=) A B^T over hd: A 64 rows, B N (64 or 128) rows, both K-major tiles
+// in shared memory; m64nN, HD / 16 k16 steps
+template <int HD, int N>
+__device__ __forceinline__ void score_product(float (&d)[N / 2], const unsigned char* a, int a_blk,
+                                              const unsigned char* b, int b_blk) {
 #pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const uint32_t a4[4] = {a[4 * c], a[4 * c + 1], a[4 * c + 2], a[4 * c + 3]};
-    if constexpr (HD == 64) hopper::wgmma_rs_n64<1>(acc, a4, mnmajor(b, c), 1);
-    else hopper::wgmma_rs_n128<1>(acc, a4, mnmajor(b, c), 1);
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    if constexpr (N == 64)
+      hopper::wgmma_ss_n64<0>(d, kmajor(a, a_blk, kk), kmajor(b, b_blk, kk), kk > 0);
+    else
+      hopper::wgmma_ss_n128<0, 0>(d, kmajor(a, a_blk, kk), kmajor(b, b_blk, kk), kk > 0);
   }
 }
 
-// d (=) A B^T over hd, both 64-row K-major tiles (A's column blocks a_atom
-// bytes apart, B's 64 * 128): m64n64, HD / 16 k16 steps.
-template <int HD>
-__device__ __forceinline__ void ss_product(float (&d)[32], const unsigned char* a, int a_atom,
-                                           const unsigned char* b) {
+// acc (+)= A B: A 64 x K from registers (K / 16 k16 steps of bf16 pairs), B
+// the MN-major K-row tile: N = HD
+template <int HD, int K>
+__device__ __forceinline__ void rs_product(float (&acc)[HD / 2], const uint32_t (&a)[K / 4],
+                                           const unsigned char* b, int b_blk) {
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk)
-    hopper::wgmma_ss_n64<0>(d, kmajor(a, a_atom, kk), kmajor(b, 64 * 128, kk), kk > 0);
+  for (int c = 0; c < K / 16; ++c) {
+    const uint32_t a4[4] = {a[4 * c], a[4 * c + 1], a[4 * c + 2], a[4 * c + 3]};
+    if constexpr (HD == 64) hopper::wgmma_rs_n64<1>(acc, a4, mnmajor(b, b_blk, c), 1);
+    else hopper::wgmma_rs_n128<1>(acc, a4, mnmajor(b, b_blk, c), 1);
+  }
 }
 
-// The bf16 A fragments (four k16 steps) of a 64 x 64 accumulator: a product
-// over its columns takes them from registers.
-__device__ __forceinline__ void to_a_fragments(uint32_t (&a)[16], const float (&d)[32]) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh)
-      a[4 * (j / 2) + 2 * (j % 2) + hh] = hopper::pack_bf16(d[4 * j + 2 * hh], d[4 * j + 2 * hh + 1]);
-}
+// The A fragment slot of accumulator column block j, row half hh: a product
+// over the accumulator's columns takes its bf16 pairs from registers.
+__device__ __forceinline__ constexpr int frag(int j, int hh) { return 4 * (j / 2) + 2 * (j % 2) + hh; }
 
 template <int R>
 __device__ __forceinline__ void zero(float (&d)[R]) {
@@ -526,8 +548,99 @@ __device__ __forceinline__ void store_acc(__nv_bfloat16* __restrict__ dst, const
   }
 }
 
+// A warpgroup's dK and dV as fp32 pairs: pair p (of HD / 2: dK's HD / 4,
+// then dV's) of thread tid at part[p * 256 + 2 tid]
+template <int HD>
+__device__ __forceinline__ void write_part(float* part, const float (&dka)[HD / 2],
+                                           const float (&dva)[HD / 2], int tid) {
+#pragma unroll
+  for (int p = 0; p < HD / 2; ++p) {
+    const float* src = p < HD / 4 ? dka : dva;
+    const int i = 2 * (p % (HD / 4));
+    *reinterpret_cast<float2*>(part + p * 256 + 2 * tid) = make_float2(src[i], src[i + 1]);
+  }
+}
+
+// P = exp2(S scale log2(e) - lse) in place over a warpgroup's m64nN
+// scores, the thread's rows row_a, row_a + 8 (their lse lr) against keys k0
+// ..; MASK (a tile on the causal diagonal, the band's edge or past Skv)
+// zeroes the keys the rows do not attend
+template <bool MASK, int N>
+__device__ __forceinline__ void exp_rows(float (&sc)[N / 2], const float (&lr)[2],
+                                         float scale_log2, int lane, int row_a, int k0, int Skv,
+                                         int causal, int window, int q_offset) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 4 * j + 2 * hh + e;
+        const float p = ex2(sc[i] * scale_log2 - lr[hh]);
+        if (MASK) {
+          const int key = k0 + 8 * j + 2 * (lane % 4) + e, row = q_offset + row_a + 8 * hh;
+          sc[i] = key < Skv && (!causal || key <= row) && (!window || row - key < window) ? p
+                                                                                         : 0.f;
+        } else {
+          sc[i] = p;
+        }
+      }
+}
+
+// The same over transposed scores S^T (m64 keys key_a, key_a + 8 of the
+// thread, nN queries q0 ..): each column's lse from ls; MASK zeroes the
+// queries past Sq and those that do not attend the key
+template <bool MASK, int N>
+__device__ __forceinline__ void exp_cols(float (&st)[N / 2], const float* ls, float scale_log2,
+                                         int lane, int key_a, int q0, int Sq, int causal,
+                                         int window, int q_offset) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const float2 l2 = *reinterpret_cast<const float2*>(ls + 8 * j + 2 * (lane % 4));
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 4 * j + 2 * hh + e;
+        const float p = ex2(st[i] * scale_log2 - (e ? l2.y : l2.x));
+        if (MASK) {
+          const int query = q0 + 8 * j + 2 * (lane % 4) + e, key = key_a + 8 * hh;
+          const int aq = q_offset + query;
+          st[i] = query < Sq && (!causal || key <= aq) && (!window || aq - key < window) ? p
+                                                                                         : 0.f;
+        } else {
+          st[i] = p;
+        }
+      }
+  }
+}
+
+// Once a key tile has landed (its full barrier's phase), S = Q K^T and dP
+// = dO V^T of a warpgroup's 64 rows against its KN keys, two commit groups
+template <int HD, int KN>
+__device__ __forceinline__ void issue_scores(float (&sc)[KN / 2], float (&dp)[KN / 2],
+                                             const unsigned char* qw, const unsigned char* dow,
+                                             const unsigned char* ks, uint64_t* full,
+                                             int phase) {
+  using namespace hopper;
+  using T = DqTiles<HD>;
+  mbar_wait(full, phase);
+  zero(sc);
+  zero(dp);
+  fence_regs(sc);
+  fence_regs(dp);
+  wgmma_fence();
+  score_product<HD, KN>(sc, qw, T::Q_BLK, ks, T::K_BLK);
+  wgmma_commit();
+  score_product<HD, KN>(dp, dow, T::Q_BLK, ks + T::K_TILE, T::K_BLK);
+  wgmma_commit();
+}
+
+// Per (query tile of 128 rows, head, batch row): D of the rows, and dQ
+// over the key tiles of KN keys.  The next tile's S and dP are in flight
+// behind this tile's dQ product.
 template <int HD, bool BAND>
-__global__ void __launch_bounds__(DQ_THREADS, 1)
+__global__ void __launch_bounds__(WG_THREADS, 1)
 flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                           const __grid_constant__ CUtensorMap domap,
                           const __grid_constant__ CUtensorMap kmap,
@@ -538,27 +651,28 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                           int Sq, int Skv, int H, int KV, float scale_log2, float scale,
                           int causal, int window, int q_offset) {
   using namespace hopper;
-  using T = WgTiles<HD>;
+  using T = DqTiles<HD>;
+  constexpr int KN = T::KN;
   if (!BAND) window = 0;  // folds the band's code away: the causal kernel keeps its registers
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   unsigned char* qs = smem;
-  unsigned char* dos = smem + T::T128;
-  unsigned char* kvs = smem + 2 * T::T128;  // stage s: K at s * DQ_STAGE, V after it
-  float* Ds = reinterpret_cast<float*>(kvs + DQ_STAGES * T::DQ_STAGE);
+  unsigned char* dos = smem + T::Q_TILE;
+  unsigned char* kvs = smem + 2 * T::Q_TILE;  // stage s: K at s * STAGE, V after it
+  float* Ds = reinterpret_cast<float*>(kvs + T::STAGES * T::STAGE);
   uint64_t* qbar = reinterpret_cast<uint64_t*>(Ds + DQ_ROWS);
   uint64_t* full = qbar + 1;
-  uint64_t* empty = full + DQ_STAGES;
+  uint64_t* empty = full + T::STAGES;
 
   const int q0 = (gridDim.x - 1 - blockIdx.x) * DQ_ROWS;  // longest causal tiles first
   const int h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (H / KV);
   const int a0 = q_offset + q0;  // the block's first row's position among the keys
-  const int ntiles = ((causal ? min(Skv, a0 + DQ_ROWS) : Skv) + KT - 1) / KT;
-  const int t_lo = window ? max(0, a0 - window + 1) / KT : 0;  // the band's first tile
+  const int ntiles = ((causal ? min(Skv, a0 + DQ_ROWS) : Skv) + KN - 1) / KN;
+  const int t_lo = window ? max(0, a0 - window + 1) / KN : 0;  // the band's first tile
   if (threadIdx.x == 0) {
     mbar_init(qbar, 1);
-    for (int s = 0; s < DQ_STAGES; ++s) {
+    for (int s = 0; s < T::STAGES; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 2 * 4);  // one arrival per consumer warp
     }
@@ -566,39 +680,39 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   }
   __syncthreads();
 
-  const int wgi = threadIdx.x / 128;
-  if (wgi == 2) {  // producer warp: one thread issues every load
-    if (threadIdx.x == 2 * 128) {
-      tma_prefetch_map(&qmap);
-      tma_prefetch_map(&domap);
-      tma_prefetch_map(&kmap);
-      tma_prefetch_map(&vmap);
-      mbar_arrive_expect_tx(qbar, 2 * T::T128);
+  // thread 0 issues every load: Q and dO, the first STAGES key tiles, and
+  // each later tile once both warpgroups are done with the one before it in
+  // its stage (the two warpgroups keep within a tile of each other)
+  auto load_tile = [&](int t) {
+    const int s = (t - t_lo) % T::STAGES;
+    unsigned char* ks = kvs + s * T::STAGE;
+    mbar_arrive_expect_tx(&full[s], T::STAGE);
 #pragma unroll
-      for (int a = 0; a < T::ATOMS; ++a) {
-        tma_load_4d(qs + a * T::ATOM128, &qmap, qbar, 64 * a, h, q0, b);
-        tma_load_4d(dos + a * T::ATOM128, &domap, qbar, 64 * a, h, q0, b);
-      }
-      for (int t = t_lo; t < ntiles; ++t) {
-        const int n = t - t_lo, s = n % DQ_STAGES;  // n: the block's n-th tile
-        if (n >= DQ_STAGES) mbar_wait(&empty[s], ((n / DQ_STAGES) + 1) & 1);
-        unsigned char* ks = kvs + s * T::DQ_STAGE;
-        mbar_arrive_expect_tx(&full[s], T::DQ_STAGE);
-#pragma unroll
-        for (int a = 0; a < T::ATOMS; ++a) {
-          tma_load_4d(ks + a * T::ATOM64, &kmap, &full[s], 64 * a, kvh, t * KT, b);
-          tma_load_4d(ks + T::T64 + a * T::ATOM64, &vmap, &full[s], 64 * a, kvh, t * KT, b);
-        }
-      }
+    for (int a = 0; a < T::ATOMS; ++a) {
+      tma_load_4d(ks + a * T::K_BLK, &kmap, &full[s], 64 * a, kvh, t * KN, b);
+      tma_load_4d(ks + T::K_TILE + a * T::K_BLK, &vmap, &full[s], 64 * a, kvh, t * KN, b);
     }
-    return;
+  };
+  if (threadIdx.x == 0) {
+    tma_prefetch_map(&qmap);
+    tma_prefetch_map(&domap);
+    tma_prefetch_map(&kmap);
+    tma_prefetch_map(&vmap);
+    mbar_arrive_expect_tx(qbar, 2 * T::Q_TILE);
+#pragma unroll
+    for (int a = 0; a < T::ATOMS; ++a) {
+      tma_load_4d(qs + a * T::Q_BLK, &qmap, qbar, 64 * a, h, q0, b);
+      tma_load_4d(dos + a * T::Q_BLK, &domap, qbar, 64 * a, h, q0, b);
+    }
+    for (int t = t_lo; t < min(ntiles, t_lo + T::STAGES); ++t) load_tile(t);
   }
+  const int wgi = threadIdx.x / 128;
 
-  // consumer warpgroup wgi: query rows r0 .. r0 + 63
+  // consumer warpgroup wgi: query rows r0 .. r0 + 63, key tiles lo .. hi - 1
   const int tid = threadIdx.x % 128, lane = tid % 32, warp = tid / 32;
   const int r0 = q0 + wgi * 64, ar0 = q_offset + r0;  // ar0: r0's position among the keys
-  const int my_tiles = ((causal ? min(Skv, ar0 + 64) : Skv) + KT - 1) / KT;
-  const int my_lo = window ? max(0, ar0 - window + 1) / KT : 0;
+  const int lo = min(ntiles, max(t_lo, window ? max(0, ar0 - window + 1) / KN : 0));
+  const int hi = max(lo, min(ntiles, ((causal ? min(Skv, ar0 + 64) : Skv) + KN - 1) / KN));
   const int row_a = r0 + warp * 16 + lane / 4;  // this thread's rows: row_a, row_a + 8
   const size_t bh = (size_t)b * H + h;
   {  // D of the warpgroup's rows, two threads a row, 16-byte loads of dO and o
@@ -638,62 +752,79 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   const unsigned char* qw = qs + wgi * 64 * 128;
   const unsigned char* dow = dos + wgi * 64 * 128;
   float acc[HD / 2];  // dQ: acc[4 j + 2 hh + e] = dQ[row_a + 8 hh][8 j + 2 (lane % 4) + e]
+  float sc[KN / 2], dp[KN / 2];
+  uint32_t da[KN / 4];
   zero(acc);
   mbar_wait(qbar, 0);
-  for (int t = t_lo; t < ntiles; ++t) {
-    const int n = t - t_lo, s = n % DQ_STAGES;
-    mbar_wait(&full[s], (n / DQ_STAGES) & 1);
-    if (t >= my_lo && t < my_tiles) {
-      const unsigned char* ks = kvs + s * T::DQ_STAGE;
-      const unsigned char* vs = ks + T::T64;
-      float sc[32], dp[32];
-      zero(sc);
-      zero(dp);
-      fence_regs(sc);
-      fence_regs(dp);
-      wgmma_fence();
-      ss_product<HD>(sc, qw, T::ATOM128, ks);  // S = Q K^T
-      wgmma_commit();
-      ss_product<HD>(dp, dow, T::ATOM128, vs);  // dP = dO V^T
-      wgmma_commit();
-      wgmma_wait<1>();
-      fence_regs(sc);
-      const int k0 = t * KT;
-      const bool edge = (causal && k0 + KT > ar0) || k0 + KT > Skv ||
-                        (window && k0 < ar0 + 64 - window);
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int i = 4 * j + 2 * hh + e;
-            const int key = k0 + 8 * j + 2 * (lane % 4) + e, row = q_offset + row_a + 8 * hh;
-            const bool valid = !edge || (key < Skv && (!causal || key <= row) &&
-                                         (!window || row - key < window));
-            sc[i] = valid ? ex2(sc[i] * scale_log2 - lr[hh]) : 0.f;  // P
-          }
-      wgmma_wait<0>();
-      fence_regs(dp);
-#pragma unroll
-      for (int i = 0; i < 32; ++i) dp[i] = sc[i] * (dp[i] - dr[(i / 2) % 2]);  // dS
-      uint32_t da[16];
-      to_a_fragments(da, dp);
-      fence_regs(acc);
-      wgmma_fence();
-      rs_product<HD>(acc, da, ks);  // dQ += dS K
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(acc);
-    }
+  // a tile's stage is free once both warpgroups are done with it (the
+  // tiles outside this warpgroup's range only wait for their load); then
+  // thread 0 loads the tile STAGES on into it
+  auto release = [&](int t) {
+    const int n = t - t_lo, s = n % T::STAGES;
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[s]);
+    if (threadIdx.x == 0 && t + T::STAGES < ntiles) {
+      mbar_wait(&empty[s], (n / T::STAGES) & 1);
+      load_tile(t + T::STAGES);
+    }
+    __syncwarp();
+  };
+  for (int t = t_lo; t < lo; ++t) {
+    mbar_wait(&full[(t - t_lo) % T::STAGES], ((t - t_lo) / T::STAGES) & 1);
+    release(t);
+  }
+  if (lo < hi)
+    issue_scores<HD, KN>(sc, dp, qw, dow, kvs + (lo - t_lo) % T::STAGES * T::STAGE,
+                         &full[(lo - t_lo) % T::STAGES], ((lo - t_lo) / T::STAGES) & 1);
+  for (int t = lo; t < hi; ++t) {
+    const unsigned char* ks = kvs + ((t - t_lo) % T::STAGES) * T::STAGE;
+    wgmma_wait<1>();  // S, and the previous tile's dQ product: its stage is free
+    fence_regs(sc);
+    fence_regs(acc);
+    if (t > lo) release(t - 1);
+    const int k0 = t * KN;
+    if ((causal && k0 + KN > ar0) || k0 + KN > Skv || (window && k0 < ar0 + 64 - window))
+      exp_rows<true, KN>(sc, lr, scale_log2, lane, row_a, k0, Skv, causal, window, q_offset);
+    else
+      exp_rows<false, KN>(sc, lr, scale_log2, lane, row_a, k0, Skv, causal, window, q_offset);
+    wgmma_wait<0>();
+    fence_regs(dp);
+#pragma unroll
+    for (int j = 0; j < KN / 8; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {  // dS = P (dP - D), rounded once to bf16
+        const int i = 4 * j + 2 * hh;
+        da[frag(j, hh)] = pack_bf16(sc[i] * (dp[i] - dr[hh]), sc[i + 1] * (dp[i + 1] - dr[hh]));
+      }
+    fence_regs(acc);
+    wgmma_fence();
+    rs_product<HD, KN>(acc, da, ks, T::K_BLK);  // dQ += dS K
+    wgmma_commit();
+    if (t + 1 < hi)  // the next tile's S and dP queue behind it
+      issue_scores<HD, KN>(sc, dp, qw, dow, kvs + (t + 1 - t_lo) % T::STAGES * T::STAGE,
+                           &full[(t + 1 - t_lo) % T::STAGES],
+                           ((t + 1 - t_lo) / T::STAGES) & 1);
+  }
+  if (lo < hi) {
+    wgmma_wait<0>();
+    fence_regs(acc);
+    release(hi - 1);
+  }
+  for (int t = hi; t < ntiles; ++t) {
+    mbar_wait(&full[(t - t_lo) % T::STAGES], ((t - t_lo) / T::STAGES) & 1);
+    release(t);
   }
   store_acc<HD>(dq, acc, scale, b, row_a, Sq, H, h, lane);
 }
 
-template <int HD, bool BAND>
-__global__ void __launch_bounds__(DKV_THREADS, 1)
+// Per block: key tile kt of 64 keys, KV head kvh, batch row b; the block
+// walks the key tile's items (query head, query tile of QT rows), the
+// group's heads in order, each head's tiles from the first that sees the
+// keys.  Block u of the grid is key tile u % nk of (batch row, KV head) u /
+// nk: the blocks that run at once share a few heads' Q and dO in L2 (in key
+// tile order, the most items first).
+template <int HD, int QT, bool BAND>
+__global__ void __launch_bounds__(WG_THREADS, 1)
 flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                             const __grid_constant__ CUtensorMap domap,
                             const __grid_constant__ CUtensorMap kmap,
@@ -701,205 +832,201 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                             const __grid_constant__ CUtensorMap lmap,
                             const __grid_constant__ CUtensorMap dmap,
                             __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-                            int Sq, int Skv, int H, int KV, float scale_log2, float scale,
+                            int B, int Sq, int Skv, int H, int KV, float scale_log2, float scale,
                             int causal, int window, int q_offset) {
   using namespace hopper;
-  using T = WgTiles<HD>;
+  using T = KvTiles<HD, QT>;
   if (!BAND) window = 0;  // folds the band's code away: the causal kernel keeps its registers
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   unsigned char* ks = smem;
-  unsigned char* vs = smem + T::T64;
-  unsigned char* ring = smem + 2 * T::T64;  // stage s: Q, dO, lse, D at s * DKV_STAGE
-  uint64_t* kbar = reinterpret_cast<uint64_t*>(ring + DKV_STAGES * T::DKV_STAGE);
+  unsigned char* vs = smem + T::K_TILE;
+  unsigned char* ring = smem + 2 * T::K_TILE;  // stage s: Q, dO, lse, D at s * STAGE
+  uint64_t* kbar = reinterpret_cast<uint64_t*>(ring + T::STAGES * T::STAGE);
   uint64_t* full = kbar + 1;
-  uint64_t* empty = full + DKV_STAGES;
 
-  const int kt = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;  // causal: longest first
-  const int k0 = kt * KT, G = H / KV;
-  // earlier query tiles see none of these keys
-  const int start = causal ? max(0, k0 - q_offset) / QT : 0;
-  // nor, under a window, those past the tile of the last key's last query row
-  const int last = k0 + KT - 1 + window - 1 - q_offset;
-  const int end = window ? (last < 0 ? 0 : min((Sq + QT - 1) / QT, last / QT + 1))
-                         : (Sq + QT - 1) / QT;
-  const int per_head = max(0, end - start);
-  const int items = G * per_head;  // item n: head kvh G + n / per_head, tile start + n % per_head
+  const int unit = blockIdx.x, nk = (Skv + KT - 1) / KT;
+  const int kt = unit % nk, b = unit / nk / KV, kvh = unit / nk % KV;
+  const int k0 = kt * KT, G = H / KV, nq = (Sq + QT - 1) / QT;
+  // the query tiles that see the key tile: causal, from the tile of row k0 -
+  // q_offset (none past Sq); under a window, to the tile of the last key's
+  // last query row
+  int first = 0, end = nq;
+  if (causal) first = k0 - q_offset >= Sq ? nq : max(0, k0 - q_offset) / QT;
+  if (window) {
+    const int last = k0 + KT - 1 + window - 1 - q_offset;
+    end = last < 0 ? 0 : min(nq, last / QT + 1);
+  }
+  const int per_head = max(0, end - first);
+  const int items = G * per_head;  // item n: head kvh G + n / per_head, tile first + n % per_head
   if (threadIdx.x == 0) {
     mbar_init(kbar, 1);
-    for (int s = 0; s < DKV_STAGES; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 4);  // the warps of the one warpgroup that takes the stage
-    }
+    for (int s = 0; s < T::STAGES; ++s) mbar_init(&full[s], 1);
     fence_barrier_init();
   }
   __syncthreads();
 
-  const int wg = threadIdx.x / 128;
-  if (wg == 2) {  // producer warpgroup: one thread issues every load
-    setmaxnreg_dec<PRODUCER_REGS>();
-    if (threadIdx.x == 2 * 128) {
-      tma_prefetch_map(&qmap);
-      tma_prefetch_map(&domap);
-      tma_prefetch_map(&kmap);
-      tma_prefetch_map(&vmap);
-      tma_prefetch_map(&lmap);
-      tma_prefetch_map(&dmap);
-      mbar_arrive_expect_tx(kbar, 2 * T::T64);
+  // Warpgroup wg takes the block's items wg, wg + 2, ...: item m in stage m
+  // % STAGES, the warpgroup's stages in turn.  Its thread 0 loads its first
+  // STAGES / 2 items, and item m + STAGES into item m's stage once the
+  // warpgroup is done with m; thread 0 of the block loads K and V first.
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  auto load_item = [&](int m) {
+    const int s = m % T::STAGES;
+    const int h = kvh * G + m / per_head, q0 = (first + m % per_head) * QT;
+    unsigned char* st = ring + s * T::STAGE;
+    mbar_arrive_expect_tx(&full[s], 2 * T::Q_TILE + 2 * T::VEC);
 #pragma unroll
-      for (int a = 0; a < T::ATOMS; ++a) {
-        tma_load_4d(ks + a * T::ATOM64, &kmap, kbar, 64 * a, kvh, k0, b);
-        tma_load_4d(vs + a * T::ATOM64, &vmap, kbar, 64 * a, kvh, k0, b);
-      }
-      for (int n = 0; n < items; ++n) {
-        const int s = n % DKV_STAGES;
-        if (n >= DKV_STAGES) mbar_wait(&empty[s], ((n / DKV_STAGES) + 1) & 1);
-        const int h = kvh * G + n / per_head, q0 = (start + n % per_head) * QT;
-        unsigned char* st = ring + s * T::DKV_STAGE;
-        mbar_arrive_expect_tx(&full[s], 2 * T::T64 + 2 * T::VEC);
-#pragma unroll
-        for (int a = 0; a < T::ATOMS; ++a) {
-          tma_load_4d(st + a * T::ATOM64, &qmap, &full[s], 64 * a, h, q0, b);
-          tma_load_4d(st + T::T64 + a * T::ATOM64, &domap, &full[s], 64 * a, h, q0, b);
-        }
-        tma_load_2d(st + 2 * T::T64, &lmap, &full[s], q0, b * H + h);
-        tma_load_2d(st + 2 * T::T64 + T::VEC, &dmap, &full[s], q0, b * H + h);
-      }
+    for (int a = 0; a < T::ATOMS; ++a) {
+      tma_load_4d(st + a * T::Q_BLK, &qmap, &full[s], 64 * a, h, q0, b);
+      tma_load_4d(st + T::Q_TILE + a * T::Q_BLK, &domap, &full[s], 64 * a, h, q0, b);
     }
-    return;
+    tma_load_2d(st + 2 * T::Q_TILE, &lmap, &full[s], q0, b * H + h);
+    tma_load_2d(st + 2 * T::Q_TILE + T::VEC, &dmap, &full[s], q0, b * H + h);
+  };
+  if (threadIdx.x == 0) {
+    tma_prefetch_map(&qmap);
+    tma_prefetch_map(&domap);
+    tma_prefetch_map(&kmap);
+    tma_prefetch_map(&vmap);
+    tma_prefetch_map(&lmap);
+    tma_prefetch_map(&dmap);
+    mbar_arrive_expect_tx(kbar, 2 * T::K_TILE);
+#pragma unroll
+    for (int a = 0; a < T::ATOMS; ++a) {
+      tma_load_4d(ks + a * T::K_BLK, &kmap, kbar, 64 * a, kvh, k0, b);
+      tma_load_4d(vs + a * T::K_BLK, &vmap, kbar, 64 * a, kvh, k0, b);
+    }
   }
-  setmaxnreg_inc<CONSUMER_REGS>();
+  if (tid == 0)
+    for (int m = wg; m < min(items, wg + T::STAGES); m += 2) load_item(m);
 
-  // consumer warpgroup wg takes items wg, wg + 2, ...: stages wg and wg + 2
-  const int tid = threadIdx.x % 128, lane = tid % 32, warp = tid / 32;
+  const int lane = tid % 32, warp = tid / 32;
   const int key_a = k0 + warp * 16 + lane / 4;  // this thread's keys: key_a, key_a + 8
   float dka[HD / 2], dva[HD / 2];  // dK, dV: [4 j + 2 hh + e] = [key_a + 8 hh][8 j + 2 (lane % 4) + e]
   zero(dka);
   zero(dva);
   mbar_wait(kbar, 0);
-  for (int n = wg; n < items; n += 2) {
-    const int s = n % DKV_STAGES;
-    const int qt = start + n % per_head, q0 = qt * QT;
-    const unsigned char* qs = ring + s * T::DKV_STAGE;
-    const unsigned char* dos = qs + T::T64;
-    const float* ls = reinterpret_cast<const float*>(qs + 2 * T::T64);
+  for (int m = wg; m < items; m += 2) {
+    const int s = m % T::STAGES;
+    const int q0 = (first + m % per_head) * QT;
+    const unsigned char* qs = ring + s * T::STAGE;
+    const unsigned char* dos = qs + T::Q_TILE;
+    const float* ls = reinterpret_cast<const float*>(qs + 2 * T::Q_TILE);
     const float* Dv = ls + QT;
-    mbar_wait(&full[s], (n / DKV_STAGES) & 1);
-    float st[32], dpt[32];
+    mbar_wait(&full[s], (m / T::STAGES) & 1);
+    float st[QT / 2], dpt[QT / 2];
     zero(st);
     zero(dpt);
     fence_regs(st);
     fence_regs(dpt);
     wgmma_fence();
-    ss_product<HD>(st, ks, T::ATOM64, qs);  // S^T = K Q^T
+    score_product<HD, QT>(st, ks, T::K_BLK, qs, T::Q_BLK);  // S^T = K Q^T
     wgmma_commit();
-    ss_product<HD>(dpt, vs, T::ATOM64, dos);  // dP^T = V dO^T
+    score_product<HD, QT>(dpt, vs, T::K_BLK, dos, T::Q_BLK);  // dP^T = V dO^T
     wgmma_commit();
     wgmma_wait<1>();
     fence_regs(st);
-    const bool edge = (causal && k0 + KT - 1 > q_offset + q0) || q0 + QT > Sq ||
-                      (window && q_offset + q0 + QT - 1 - k0 >= window);
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int i = 4 * j + 2 * hh + e, col = 8 * j + 2 * (lane % 4) + e;
-          const int query = q0 + col, key = key_a + 8 * hh, aq = q_offset + query;
-          const bool valid = !edge || (query < Sq && (!causal || key <= aq) &&
-                                       (!window || aq - key < window));
-          st[i] = valid ? ex2(st[i] * scale_log2 - ls[col]) : 0.f;  // P^T
-        }
-    uint32_t pa[16];
-    to_a_fragments(pa, st);
+    if ((causal && k0 + KT - 1 > q_offset + q0) || q0 + QT > Sq ||
+        (window && q_offset + q0 + QT - 1 - k0 >= window))  // P^T
+      exp_cols<true, QT>(st, ls, scale_log2, lane, key_a, q0, Sq, causal, window, q_offset);
+    else
+      exp_cols<false, QT>(st, ls, scale_log2, lane, key_a, q0, Sq, causal, window, q_offset);
     wgmma_wait<0>();
     fence_regs(dpt);
+    uint32_t pa[QT / 4], da[QT / 4];
 #pragma unroll
-    for (int i = 0; i < 32; ++i)  // dS^T, D along the columns
-      dpt[i] = st[i] * (dpt[i] - Dv[8 * (i / 4) + 2 * (lane % 4) + i % 2]);
-    uint32_t da[16];
-    to_a_fragments(da, dpt);
+    for (int j = 0; j < QT / 8; ++j) {  // P^T and dS^T = P^T (dP^T - D), D along the columns
+      const float2 d2 = *reinterpret_cast<const float2*>(Dv + 8 * j + 2 * (lane % 4));
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int i = 4 * j + 2 * hh;
+        pa[frag(j, hh)] = pack_bf16(st[i], st[i + 1]);
+        da[frag(j, hh)] = pack_bf16(st[i] * (dpt[i] - d2.x), st[i + 1] * (dpt[i + 1] - d2.y));
+      }
+    }
     fence_regs(dva);
     fence_regs(dka);
     wgmma_fence();
-    rs_product<HD>(dva, pa, dos);  // dV += P^T dO
-    rs_product<HD>(dka, da, qs);   // dK += dS^T Q
+    rs_product<HD, QT>(dva, pa, dos, T::Q_BLK);  // dV += P^T dO
+    rs_product<HD, QT>(dka, da, qs, T::Q_BLK);   // dK += dS^T Q
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(dva);
     fence_regs(dka);
-    __syncwarp();
-    if (lane == 0) mbar_arrive(&empty[s]);
-  }
-
-  // the group's sum: the second warpgroup's dK and dV through the ring
-  // (every load has landed and been read), added to the first's in that order
-  float* red = reinterpret_cast<float*>(ring);
-  named_bar_sync(1, 256);
-  if (wg == 1) {
-#pragma unroll
-    for (int i = 0; i < HD / 2; ++i) {
-      red[i * 128 + tid] = dka[i];
-      red[(HD / 2 + i) * 128 + tid] = dva[i];
+    if (m + T::STAGES < items) {  // the stage is free: the warpgroup's item after next
+      named_bar_sync(2 + wg, 128);
+      if (tid == 0) load_item(m + T::STAGES);
     }
   }
+
+  // the block's sum: the second warpgroup's partial through the ring (every
+  // load has landed and been read), added to the first's
+  float* part = reinterpret_cast<float*>(ring);
+  named_bar_sync(1, 256);
+  if (wg == 1) write_part<HD>(part, dka, dva, tid);
   named_bar_sync(1, 256);
   if (wg == 1) return;
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) {
-    dka[i] += red[i * 128 + tid];
-    dva[i] += red[(HD / 2 + i) * 128 + tid];
+  for (int p = 0; p < HD / 2; ++p) {
+    const float2 v = *reinterpret_cast<const float2*>(part + p * 256 + 2 * tid);
+    float* dst = p < HD / 4 ? dka : dva;
+    const int i = 2 * (p % (HD / 4));
+    dst[i] += v.x;
+    dst[i + 1] += v.y;
   }
   store_acc<HD>(dk, dka, scale, b, key_a, Skv, KV, kvh, lane);
   store_acc<HD>(dv, dva, 1.f, b, key_a, Skv, KV, kvh, lane);
 }
 
-template <int HD, bool BAND>
+template <int HD, int QT, bool BAND>
 int launch_bwd_wgmma(const void* q, const void* k, const void* v, const void* o,
                      const void* dout, const float* lse, int ld, void* dq, void* dk, void* dv,
                      float* dstat, int B, int Sq, int Skv, int H, int KV, int causal,
                      int window, int q_offset, float scale, cudaStream_t stream) {
-  using T = WgTiles<HD>;
+  using TQ = DqTiles<HD>;
+  using TK = KvTiles<HD, QT>;
   static hopper::SmemRaised raised_dq, raised_dkdv;
-  CUtensorMap q128, do128, q64, do64, kmap, vmap, lmap, dmap;
+  CUtensorMap q128, do128, qi, doi, kq, vq, kk, vk, lmap, dmap;
   const uint64_t qdims[4] = {HD, (uint64_t)H, (uint64_t)Sq, (uint64_t)B};
   const uint64_t qstr[3] = {HD * 2, (uint64_t)H * HD * 2, (uint64_t)Sq * H * HD * 2};
-  const uint32_t box128[4] = {64, 1, DQ_ROWS, 1}, box64[4] = {64, 1, 64, 1};
+  const uint32_t box128[4] = {64, 1, DQ_ROWS, 1}, box_item[4] = {64, 1, QT, 1};
   const uint64_t kdims[4] = {HD, (uint64_t)KV, (uint64_t)Skv, (uint64_t)B};
   const uint64_t kstr[3] = {HD * 2, (uint64_t)KV * HD * 2, (uint64_t)Skv * KV * HD * 2};
-  // lse and D: rows of Sq floats, ld apart; a box of 64 (zeros past Sq)
+  const uint32_t box_kq[4] = {64, 1, TQ::KN, 1}, box_kt[4] = {64, 1, KT, 1};
+  // lse and D: rows of Sq floats, ld apart; a box of QT (zeros past Sq)
   const uint64_t sdims[2] = {(uint64_t)Sq, (uint64_t)B * H}, sstr[1] = {(uint64_t)ld * 4};
   const uint32_t sbox[2] = {QT, 1};
   if (!hopper::make_map_bf16(&q128, q, 4, qdims, qstr, box128) ||
       !hopper::make_map_bf16(&do128, dout, 4, qdims, qstr, box128) ||
-      !hopper::make_map_bf16(&q64, q, 4, qdims, qstr, box64) ||
-      !hopper::make_map_bf16(&do64, dout, 4, qdims, qstr, box64) ||
-      !hopper::make_map_bf16(&kmap, k, 4, kdims, kstr, box64) ||
-      !hopper::make_map_bf16(&vmap, v, 4, kdims, kstr, box64) ||
+      !hopper::make_map_bf16(&qi, q, 4, qdims, qstr, box_item) ||
+      !hopper::make_map_bf16(&doi, dout, 4, qdims, qstr, box_item) ||
+      !hopper::make_map_bf16(&kq, k, 4, kdims, kstr, box_kq) ||
+      !hopper::make_map_bf16(&vq, v, 4, kdims, kstr, box_kq) ||
+      !hopper::make_map_bf16(&kk, k, 4, kdims, kstr, box_kt) ||
+      !hopper::make_map_bf16(&vk, v, 4, kdims, kstr, box_kt) ||
       !hopper::make_map(&lmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, lse, 2, sdims, sstr, sbox,
                         CU_TENSOR_MAP_SWIZZLE_NONE) ||
       !hopper::make_map(&dmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, dstat, 2, sdims, sstr, sbox,
                         CU_TENSOR_MAP_SWIZZLE_NONE))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err =
-      hopper::allow_smem(flash_bwd_dq_wgmma_kernel<HD, BAND>, T::DQ_SMEM, raised_dq);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = hopper::allow_smem(flash_bwd_dkdv_wgmma_kernel<HD, BAND>, T::DKV_SMEM, raised_dkdv);
+  cudaError_t err = hopper::allow_smem(flash_bwd_dq_wgmma_kernel<HD, BAND>, TQ::SMEM, raised_dq);
   if (err != cudaSuccess) return static_cast<int>(err);
   const float sl2 = scale * LOG2E;
   flash_bwd_dq_wgmma_kernel<HD, BAND>
-      <<<dim3((Sq + DQ_ROWS - 1) / DQ_ROWS, H, B), DQ_THREADS, T::DQ_SMEM, stream>>>(
-          q128, do128, kmap, vmap, static_cast<const __nv_bfloat16*>(o),
+      <<<dim3((Sq + DQ_ROWS - 1) / DQ_ROWS, H, B), WG_THREADS, TQ::SMEM, stream>>>(
+          q128, do128, kq, vq, static_cast<const __nv_bfloat16*>(o),
           static_cast<const __nv_bfloat16*>(dout), lse, dstat, ld,
           static_cast<__nv_bfloat16*>(dq), Sq, Skv, H, KV, sl2, scale, causal, window,
           q_offset);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dkdv_wgmma_kernel<HD, BAND>
-      <<<dim3((Skv + KT - 1) / KT, KV, B), DKV_THREADS, T::DKV_SMEM, stream>>>(
-          q64, do64, kmap, vmap, lmap, dmap, static_cast<__nv_bfloat16*>(dk),
-          static_cast<__nv_bfloat16*>(dv), Sq, Skv, H, KV, sl2, scale, causal, window,
+  err = hopper::allow_smem(flash_bwd_dkdv_wgmma_kernel<HD, QT, BAND>, TK::SMEM, raised_dkdv);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_bwd_dkdv_wgmma_kernel<HD, QT, BAND>
+      <<<(unsigned)((Skv + KT - 1) / KT) * KV * B, WG_THREADS, TK::SMEM, stream>>>(
+          qi, doi, kk, vk, lmap, dmap, static_cast<__nv_bfloat16*>(dk),
+          static_cast<__nv_bfloat16*>(dv), B, Sq, Skv, H, KV, sl2, scale, causal, window,
           q_offset);
   return static_cast<int>(cudaGetLastError());
 }
@@ -911,9 +1038,9 @@ int launch_bwd_wgmma(const void* q, const void* k, const void* v, const void* o,
 // log2-sum-exp2 (of the band under a window), fp32 (B, H, ld), ld >= Sq a
 // multiple of 4 (16-byte rows for TMA), read by the bf16 kernels; the fp32
 // kernels rebuild it.  stats: fp32 scratch, bf16: D (B, H, ld); fp32: the
-// rows' statistics (2, B, H, Sq).  bf16 tensors must be 16-byte aligned
-// (TMA).  Returns the cudaError_t of the launches, or cudaErrorInvalidValue
-// for what the kernels do not take.
+// rows' statistics (2, B, H, Sq).  bf16 tensors must be 16-byte aligned (TMA).  Returns the
+// cudaError_t of the launches, or cudaErrorInvalidValue for what the
+// kernels do not take.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                                    const void* dout, const void* lse, void* dq, void* dk,
                                    void* dv, void* stats, int B, int Sq, int Skv, int H, int KV,
@@ -925,14 +1052,14 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
   if ((causal && q_offset + Sq > Skv) || q_offset < 0 || (q_offset && !causal) || Sq < 1 ||
       Skv < 1 || KV < 1 || H % KV || ld < Sq || ld % 4 || window < 0 || (window && !causal))
     return static_cast<int>(cudaErrorInvalidValue);
-#define BWD_WG_ARGS \
+#define BWD_WG_ARGS                                                                             \
   q, k, v, o, dout, ls, ld, dq, dk, dv, st, B, Sq, Skv, H, KV, causal, window, q_offset, scale, s
   if (dtype == 1 && hd == 64)
-    return window ? launch_bwd_wgmma<64, true>(BWD_WG_ARGS)
-                  : launch_bwd_wgmma<64, false>(BWD_WG_ARGS);
+    return window ? launch_bwd_wgmma<64, 128, true>(BWD_WG_ARGS)
+                  : launch_bwd_wgmma<64, 128, false>(BWD_WG_ARGS);
   if (dtype == 1 && hd == 128)
-    return window ? launch_bwd_wgmma<128, true>(BWD_WG_ARGS)
-                  : launch_bwd_wgmma<128, false>(BWD_WG_ARGS);
+    return window ? launch_bwd_wgmma<128, 64, true>(BWD_WG_ARGS)
+                  : launch_bwd_wgmma<128, 64, false>(BWD_WG_ARGS);
 #undef BWD_WG_ARGS
   if (dtype == 0 && hd == 64)
     return launch_bwd<float, 64>(q, k, v, o, dout, dq, dk, dv, st, B, Sq, Skv, H, KV, causal,

@@ -202,10 +202,11 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     and dq; one block per (key tile, KV head, batch row) walks its query
     heads and tiles for dk and dv; under a ``window`` each visits only the
     tiles of the band.  fp32 statistics and sums, every input read in
-    place.  ``lse``: the forward's (``flash_attention_cuda(...,
-    with_lse=True)``, under the same window) rows' log2-sum-exp2, fp32 (B,
-    H, Sq) with 16-byte rows; bf16 reads it, fp32 rebuilds it.
-    ``q_offset``: the queries' offset among the keys, as the forward's."""
+    place, no atomics (two calls equal bit for bit).  ``lse``: the forward's
+    (``flash_attention_cuda(..., with_lse=True)``, under the same window)
+    rows' log2-sum-exp2, fp32 (B, H, Sq) with 16-byte rows; bf16 reads it,
+    fp32 rebuilds it.  ``q_offset``: the queries' offset among the keys, as
+    the forward's."""
     off = _check_mask(q, k, causal, window, q_offset)
     _check_cuda_inputs("flash_attention_bwd", q, k, v, o, do)
     if v.shape != k.shape or o.shape != q.shape or do.shape != q.shape:

@@ -1439,6 +1439,55 @@ def test_cuda_flash_attention_bwd_band_is_deterministic(card, dtype):
         assert torch.equal(a, b)
 
 
+# K2's bf16 backward (the wgmma route): groups of 7, 5 and 1 (qwen2's
+# 14/2, hymba's 25/5, deepseek's 16/16) at hd 64 and 128, S 65, 129 and 455
+# (one, two and a ragged 128-row dk/dv item), the band's edges (a window of
+# 1, of one 64-key tile, one past S), query offsets with and without a
+# band, not causal both ways; (B, Sq, Skv, H, KV, hd, causal, window,
+# q_offset)
+BWD_WGMMA_CASES = [(2, 65, 65, 14, 2, 64, True, 0, None),
+                   (2, 129, 129, 14, 2, 64, True, 0, None),
+                   (2, 455, 455, 14, 2, 64, True, 0, None),
+                   (1, 455, 455, 25, 5, 64, True, 0, None),
+                   (2, 129, 129, 16, 16, 128, True, 0, None),
+                   (1, 455, 455, 28, 4, 128, True, 0, None),
+                   (1, 455, 455, 25, 5, 64, True, 1, None),
+                   (1, 455, 455, 25, 5, 64, True, 64, None),
+                   (1, 129, 129, 10, 2, 64, True, 130, None),
+                   (1, 200, 600, 14, 2, 64, True, 100, 333),
+                   (2, 129, 512, 16, 16, 128, True, 0, 256),
+                   (1, 65, 455, 20, 20, 64, False, 0, None),
+                   (1, 455, 129, 7, 1, 64, False, 0, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,hd,causal,window,off",
+                         BWD_WGMMA_CASES)
+def test_cuda_flash_attention_bwd_wgmma_matches_plain(
+        card, B, Sq, Skv, H, KV, hd, causal, window, off):
+    """bf16 dq, dk and dv from the wgmma route against the plain version,
+    under the loose limit and BWD_MEAN_TOL; two calls equal bit for bit;
+    one counted launch a call."""
+    import importlib
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    q, k, v, do = _on(card, "bfloat16", 300 + Sq + window, (B, Sq, H, hd),
+                      (B, Skv, KV, hd), (B, Skv, KV, hd), (B, Sq, H, hd))
+    mask = dict(causal=causal, window=window, q_offset=off)
+    o, lse = ops.flash_attention_lse(q, k, v, **mask)
+    ops.reset_launches()
+    got = ops.flash_attention_bwd(q, k, v, o, do, lse=lse, **mask)
+    again = ops.flash_attention_bwd(q, k, v, o, do, lse=lse, **mask)
+    torch.cuda.synchronize()
+    assert fa.BWD_ROUTE_LAUNCHES == {"wgmma": 2, "fp32": 0}
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = fa.flash_attention_bwd_plain(q, k, v, o, do, **mask)
+    for g, w in zip(got, want):
+        diff = (g.float() - w.float()).abs()
+        assert bool((diff <= 2e-2 * (1 + w.float().abs())).all())
+        assert diff.mean().item() <= fa.BWD_MEAN_TOL[g.dtype] * \
+            w.float().abs().mean().item() + 1e-6
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["mamba2_1_3b", "hymba_1_5b"])
 def test_cuda_train_two_steps_ssd_families(card, arch):

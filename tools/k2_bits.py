@@ -1,7 +1,7 @@
 """K2's outputs on the card as digests, to hold two checkouts bit for bit.
 
     python3 tools/k2_bits.py --root CHECKOUT --out FILE.json
-    python3 tools/k2_bits.py --compare A.json B.json
+    python3 tools/k2_bits.py --compare A.json B.json [--kinds forward]
 
 The first form puts CHECKOUT/src first on the path, builds that tree's
 kernels, and writes the sha256 of every output of the flash attention
@@ -10,7 +10,8 @@ shapes of ``chip_smoke.py``'s kernels phase that every tree runs (causal,
 not causal at Sq != Skv, the band), fp32 and bf16, from inputs made from a
 fixed seed; it calls the kernels as the serving and training paths do,
 with no query offset.  The second form exits non-zero unless the two files
-agree on every case.  To check that a change keeps the kernels' results,
+agree on every case (of the ``--kinds`` named: ``forward``, ``backward``;
+both by default).  To check that a change keeps the kernels' results,
 unpack the parent under ``build/`` (ignored by git) and run both in one
 call:
 
@@ -90,13 +91,17 @@ def main(argv=None) -> int:
                                           .parent))
     ap.add_argument("--out")
     ap.add_argument("--compare", nargs=2)
+    ap.add_argument("--kinds", nargs="+", choices=("forward", "backward"),
+                    default=["forward", "backward"],
+                    help="with --compare: the cases held (default both)")
     args = ap.parse_args(argv)
     if args.compare:
-        a, b = (json.loads(Path(p).read_text()) for p in args.compare)
+        a, b = ({k: v for k, v in json.loads(Path(p).read_text()).items()
+                 if k.split("/")[0] in args.kinds} for p in args.compare)
         differ = sorted(k for k in a if a.get(k) != b.get(k)) + sorted(
             set(b) - set(a))
-        print(json.dumps({"cases": len(a), "differ": differ,
-                          "bit_equal": not differ}))
+        print(json.dumps({"cases": len(a), "kinds": args.kinds,
+                          "differ": differ, "bit_equal": not differ}))
         return 1 if differ else 0
     out = digests(Path(args.root).resolve())
     Path(args.out).write_text(json.dumps(out, indent=1))

@@ -18,9 +18,9 @@ exits non-zero):
                (UTMALDG or LDGSTS) in the bf16 SSD scan kernel of P 50, N
                16; and each kernel's registers and spills from ptxas's
                report, with no spill allowed in either bf16 SSD scan
-               kernel, in any instance of K2's two bf16 backward kernels
-               (hd 64 and 128, band or not) or in K4's backward kernels
-               (the forward's printed);
+               kernel, in any instance of K2's bf16 forward kernel (hd 64
+               and 128, band or not, lse or not) or of its two bf16
+               backward kernels, or in K4's backward kernels;
 3. kernels  -- each kernel against its plain PyTorch version on the card
                at the shapes of the serving paths of the nine served
                models (qwen2_0_5b, llama3_2_1b, qwen2_7b, qwen3_4b,
@@ -81,7 +81,13 @@ exits non-zero):
                on the wgmma kernel, each with its run count of K split
                over a cluster, and qwen2_0_5b's dx and dw in fp32), every
                bf16 K1 case also within 5e-5 + 1e-2 |plain| and two calls
-               bit-equal, K2's backward kernel
+               bit-equal, K2's bf16 forward also run twice and held
+               equal bit for bit, and its training forward with the lse
+               (flash_attention_lse: qwen2_0_5b's (8, 512, 14/2, 64),
+               hymba_1_5b's band (2, 2048, 25/5, 64), window 1024, and
+               deepseek_moe_16b's (8, 512, 16/16, 128), causal; the lse
+               within 1e-4 (1 + |plain|), the output equal to the serving
+               instance's; its library SDPA), K2's backward kernel
                (flash_attention_bwd from the forward's lse: qwen2_0_5b's
                (8, 512, 14/2, 64) causal and at S 455, qwen2_7b's (4, 512,
                28/4, 128) and deepseek_moe_16b's training shape (8, 512,
@@ -402,6 +408,32 @@ K1_SERVED = {
                          (2048, 102400, False)),
     "internvl2_26b": (4, 3072, [(6144, 6144), (6144, 1024), (6144, 16384),
                                 (16384, 6144)], (6144, 92672, False))}
+# K2's forward at the served prefills, (B, Sq, Skv, H, KV, hd, causal,
+# window): qwen2_0_5b's heads (14 over 2, hd 64) at B 8, S 512 and a served
+# prefill's ragged S 455; llama3_2_1b's (32 over 8, hd 64) at B 8, and at
+# B 4 qwen2_7b's (28 over 4, hd 128), deepseek_moe_16b's (16 over 16, hd
+# 128) at S 512, and internvl2_26b's (48 over 8, hd 128) at S 768, 256
+# patches and 512 tokens; hymba_1_5b's (25 over 5, hd 64) under its window
+# of 1024 at B 8, S 512 (the band is the causal mask there) and at B 2, S
+# 1800 (the long-prompt serve run), past it; whisper_large_v3's (20 over
+# 20, hd 64) at B 8: its decoder's causal self-attention at S 512, and not
+# causal its encoder's at S 1500 and its cross-attention from 512 and 455
+# queries to the 1500 frames, whose last 64-key tile holds 28 keys
+K2_FWD_CASES = [(8, S, S, 14, 2, 64, True, 0) for S in (512, 455)] + [
+    (8, 512, 512, 32, 8, 64, True, 0),
+    (4, 512, 512, 28, 4, 128, True, 0),
+    (4, 512, 512, 16, 16, 128, True, 0),
+    (4, 768, 768, 48, 8, 128, True, 0),
+    (8, 512, 512, 25, 5, 64, True, 1024),
+    (2, 1800, 1800, 25, 5, 64, True, 1024),
+    (8, 512, 512, 20, 20, 64, True, 0),
+    (8, 1500, 1500, 20, 20, 64, False, 0),
+    (8, 512, 1500, 20, 20, 64, False, 0),
+    (8, 455, 1500, 20, 20, 64, False, 0)]
+# K2's training forward with its lse (B, S, H, KV, hd, window), causal:
+# qwen2_0_5b_train's, hymba_1_5b_train's band and deepseek_moe_16b_train's
+K2_LSE_CASES = [(8, 512, 14, 2, 64, 0), (2, 2048, 25, 5, 64, 1024),
+                (8, 512, 16, 16, 128, 0)]
 # K2's backward at the training paths' attention, (B, Sq, Skv, H, KV, hd,
 # causal): qwen2_0_5b's (and a ragged S 455), qwen2_7b's heads at hd 128
 # (configs/qwen2_7b.py), deepseek_moe_16b's train step, whisper_large_v3's
@@ -581,7 +613,8 @@ def main() -> int:
             "kernel_routes": sorted({c["route"] for c in mine
                                      if "route" in c}),
         })
-        if lse:  # K3 with its log-sum-exp (split-KV), apart
+        if lse:  # with its log-sum-exp, apart (K2's training forward,
+            # K3's split-KV)
             summary[-1]["lse"] = {
                 "max_abs_err": max(c["max_abs_err"] for c in lse),
                 **timing_sums([c for c in lse if c["dtype"] == "bfloat16"]),
@@ -685,6 +718,7 @@ def phase_build():
             raise AssertionError(f"{kernel}: no tensor-core product in its "
                                  f"SASS {mine}")
     for kernel in ("ssd_wgmma_kernel", "ssd_tc_kernel",
+                   "flash_wgmma_kernel<64,", "flash_wgmma_kernel<128,",
                    "flash_bwd_dq_wgmma_kernel<64,",
                    "flash_bwd_dkdv_wgmma_kernel<64,",
                    "flash_bwd_dq_wgmma_kernel<128,",
@@ -774,7 +808,7 @@ def phase_kernels(torch, dev):
                                                       decode_tile)
     from repro_torch.kernels.flash_attention import (
         BWD_MEAN_TOL, BWD_ROUTE_LAUNCHES, MEAN_TOL, flash_attention_bwd_plain,
-        flash_attention_plain)
+        flash_attention_lse_plain, flash_attention_plain)
     from repro_torch.kernels.ssd_scan import (SSD_BWD_ROUTE_LAUNCHES,
                                               SSD_ROUTE_LAUNCHES,
                                               ssd_bwd_route, ssd_route,
@@ -1169,33 +1203,13 @@ def phase_kernels(torch, dev):
         return lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=causal, enable_gqa=True)
 
-    # flash_attention: prefill at B=8, S=512, qwen2_0_5b's heads, and at a
-    # served prefill's ragged S 455; llama3_2_1b's heads (32 over 8, hd 64)
-    # at B 8, and at B 4 qwen2_7b's (28 over 4, hd 128), deepseek_moe_16b's
-    # (16 over 16, hd 128) at S 512, and internvl2_26b's (48 over 8, hd
-    # 128) at S 768, 256 patches and 512 tokens; hymba_1_5b's (25 over 5,
-    # hd 64) under its window of 1024 at B 8, S 512 (the band is the causal
-    # mask there) and at B 2, S 1800 (the long-prompt serve run), past it;
-    # whisper_large_v3's (20 over 20, hd 64) at B 8: its decoder's causal
-    # self-attention at S 512, and not causal its encoder's at S 1500 and
-    # its cross-attention from 512 and 455 queries to the 1500 frames,
-    # whose last key tile holds 28 keys.  (B, Sq, Skv, H, KV, hd, causal,
-    # window).  The least operations count the keys attended: min(r + 1,
-    # window) for query row r under the causal mask, Skv not causal.
-    flash_cases = [(8, S, S, 14, 2, 64, True, 0) for S in (512, 455)] + [
-        (8, 512, 512, 32, 8, 64, True, 0),
-        (4, 512, 512, 28, 4, 128, True, 0),
-        (4, 512, 512, 16, 16, 128, True, 0),
-        (4, 768, 768, 48, 8, 128, True, 0),
-        (8, 512, 512, 25, 5, 64, True, 1024),
-        (2, 1800, 1800, 25, 5, 64, True, 1024),
-        (8, 512, 512, 20, 20, 64, True, 0),
-        (8, 1500, 1500, 20, 20, 64, False, 0),
-        (8, 512, 1500, 20, 20, 64, False, 0),
-        (8, 455, 1500, 20, 20, 64, False, 0)]
+    # flash_attention at the served prefills (K2_FWD_CASES), bf16 twice
+    # equal bit for bit.  The least operations count the keys attended:
+    # min(r + 1, window) for query row r under the causal mask, Skv not
+    # causal.
     for dtype in (torch.float32, torch.bfloat16):
         es = torch.tensor([], dtype=dtype).element_size()
-        for B, Sq, Skv, H, KV, hd, causal, window in flash_cases:
+        for B, Sq, Skv, H, KV, hd, causal, window in K2_FWD_CASES:
             q = randn(B, Sq, H, hd, dtype=dtype)
             k = randn(B, Skv, KV, hd, dtype=dtype)
             v = randn(B, Skv, KV, hd, dtype=dtype)
@@ -1209,15 +1223,59 @@ def phase_kernels(torch, dev):
                         v.transpose(1, 2), causal, window))
             shape = [B, Sq, H, KV, hd] if Sq == Skv else [B, Sq, Skv, H, KV,
                                                           hd]
+            got = ops.flash_attention(q, k, v, causal=causal, window=window)
+            if dtype == torch.bfloat16 and not torch.equal(
+                    got, ops.flash_attention(q, k, v, causal=causal,
+                                             window=window)):
+                raise AssertionError("two calls of the forward kernel differ")
             check("flash_attention", shape
                   + ([] if causal else ["not_causal"])
-                  + (["window", window] if window else []), dtype,
-                  ops.flash_attention(q, k, v, causal=causal, window=window),
+                  + (["window", window] if window else []), dtype, got,
                   flash_attention_plain(q, k, v, causal=causal, window=window),
                   es * (2 * B * Sq * H * hd + 2 * B * Skv * KV * hd),
                   4 * hd * B * H * keys, fns,
                   mean_rel=MEAN_TOL[dtype])
-            del q, k, v
+            del q, k, v, got
+
+    # K2's training forward with its lse (ops.flash_attention_lse, as
+    # _FlashAttention calls it under grad) at the train paths' attention
+    # (K2_LSE_CASES), bf16: the output under MEAN_TOL, the lse within 1e-4
+    # (1 + |plain|) of flash_attention_lse_plain, two calls equal bit for
+    # bit, and the output equal to the serving instance's (no lse).  The
+    # bytes add the lse written; the library is SDPA (with a boolean band
+    # mask under hymba's window).
+    for B, S, H, KV, hd, window in K2_LSE_CASES:
+        dtype = torch.bfloat16
+        q = randn(B, S, H, hd, dtype=dtype)
+        k = randn(B, S, KV, hd, dtype=dtype)
+        v = randn(B, S, KV, hd, dtype=dtype)
+        keys = sum(min(r + 1, window or S) for r in range(S))
+        got, lse = ops.flash_attention_lse(q, k, v, window=window)
+        again = ops.flash_attention_lse(q, k, v, window=window)
+        if not (torch.equal(got, again[0]) and torch.equal(lse, again[1])
+                and torch.equal(got, ops.flash_attention(q, k, v,
+                                                         window=window))):
+            raise AssertionError("the training forward's two calls, or its "
+                                 "output and the serving forward's, differ")
+        lse_want = flash_attention_lse_plain(q, k, window=window)
+        lse_excess = ((lse - lse_want).abs()
+                      - 1e-4 * (1 + lse_want.abs())).max().item()
+        if not lse_excess <= 0:
+            raise AssertionError(f"flash_attention_lse {(B, S, H, KV, hd)}: "
+                                 f"the lse misses 1e-4 by {lse_excess}")
+        fns = (lambda: ops.flash_attention_lse(q, k, v, window=window),
+               lambda: (flash_attention_plain(q, k, v, window=window),
+                        flash_attention_lse_plain(q, k, window=window)),
+               sdpa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    True, window))
+        check("flash_attention", [B, S, H, KV, hd, "lse"]
+              + (["window", window] if window else []), dtype, got,
+              flash_attention_plain(q, k, v, window=window),
+              2 * (2 * B * S * H * hd + 2 * B * S * KV * hd) + 4 * B * H * S,
+              4 * hd * B * H * keys, fns, mean_rel=MEAN_TOL[dtype],
+              extra={"lse_max_abs_err": (lse - lse_want).abs().max().item()})
+        del q, k, v, got, lse, again, lse_want, fns
+        free(torch)
 
     def same_bits(fn):
         """Two more calls of a backward give every output equal bit for
@@ -2018,6 +2076,9 @@ def phase_train(torch, dev, model, batch, seq, lr, path, steps=5,
           "tokens_per_s": batch * seq / warm, "peak_mem_gb": peak_gb,
           "launches": launches, "expected_launches": expect,
           "matmul_routes": routes, "profile_one_step": prof,
+          "k2_forward_device_ms_per_step": sum(
+              ms for name, ms in prof["port_kernels_ms"].items()
+              if name.startswith("flash_wgmma")),
           "k2_backward_device_ms_per_step": sum(
               ms for name, ms in prof["port_kernels_ms"].items()
               if name.startswith("flash_bwd")),

@@ -18,36 +18,55 @@
 // models/attention.py:_banded_attention; the offset is its q_positions of a
 // sequence shard (_flash_full's seq mode).
 //
-// What bounds it on an H100: at prefill lengths (S = 512, hd = 64) each
-// (q, kv) pair costs 4*hd operations on 4*hd bytes of tile traffic that stays
-// in shared memory, so it is bound by tensor-core operations, and only wgmma
-// reaches their full rate.
+// What bounds it on an H100: each attended (q, kv) pair costs 4 hd
+// tensor-core operations (S = Q K^T and P V) on tiles that stay in shared
+// memory, so at prefill lengths it is bound by tensor operations, and only
+// wgmma reaches their full rate.  Each pair also costs one exp2 on the MUFU,
+// 16 a clock an SM: at hd 64 that is the tensor cores' own rate per pair
+// (4096 operations a clock an SM over 256), at hd 128 half of it.  A kernel
+// that runs the softmax and the products in turn pays for both.
 //
-// What the design does about it (bf16, flash_wgmma_kernel, close to
-// FlashAttention-3's forward without fp8): one block per (q tile of 128
-// rows, q head, batch row), the longest causal tiles launched first.  A
-// producer warp loads the q tile once by TMA and streams 64-key K and V
-// tiles through a ring of F_STAGES shared-memory stages (4D tensor maps
-// over the tensors in place, 128-byte swizzle, a full and an empty mbarrier
-// per stage).  Two consumer warpgroups own 64 query rows each: S = Q K^T by
-// wgmma m64n64k16 with both operands K-major in shared memory; the online
-// softmax runs in fp32 on the accumulator fragments (a row's max and sum
-// across the four threads that hold it by two shuffles, exp2 with
-// log2(e)/sqrt(hd) folded into the scale); P is rounded to bf16 in registers
-// and fed back as wgmma's register A operand against V, an MN-major B
-// operand in shared memory.  Causal blocks stop the key loop at the
-// diagonal, and a warpgroup skips the tiles above its own; only the diagonal
-// tile and the tile holding key Skv-1 are masked (TMA zero-fills keys beyond
-// Skv, which would score 0, not -inf).  Query rows beyond Sq are not stored.
-// Under a window the key loop of a block (and the producer's loads) starts
-// at the tile holding key q0 - w + 1, and a warpgroup skips the tiles below
-// its own band's first: a block visits at most (128 + w) / 64 + 1 tiles
-// whatever S is, and the tiles that cross the band's low edge are masked as
-// the diagonal one is.  A row whose first visited tiles lie wholly below its
-// band keeps the running max at -1e30 there; its first key inside the band
-// rescales what those tiles summed by exp2(-1e30 - m) = 0.  The band is a
-// template flag of the bf16 kernel (BAND), so the causal kernel is built
-// without its code and keeps its registers.
+// What the design does about it (bf16, flash_wgmma_kernel, after
+// FlashAttention-3's forward without fp8): one block per (head, batch row, q
+// tile of 128 rows), causal q tiles longest first across every head, not
+// causal a head's q tiles together (so that they share its K and V in L2).
+// The block is two warpgroups and no producer warp: a ninth warp would hold
+// every thread to 168 registers, and a producer warpgroup that hands its
+// registers over by setmaxnreg leaves ptxas at 168 all the same (hd 128
+// spilled).  The second warpgroup's first thread loads the q tile once by
+// TMA and streams K and V tiles of KN keys through a ring of STAGES (4D
+// tensor maps over the tensors in place, 128-byte swizzle, a full and an
+// empty mbarrier per stage); it refills a stage after a release of its own
+// where both warpgroups are done with it (mbarrier.test_wait: try_wait would
+// hold it, and its warpgroup, for a while when the answer is no), and waits
+// only for a tile it needs itself.  Each warpgroup owns 64 query rows and
+// walks every key tile of the block (those past its rows or below its band
+// masked whole), pipelined: S = Q K^T of tile t (wgmma m64nKN, both operands
+// K-major in shared memory) and O += P V of tile t - 1 (P from registers as
+// wgmma's A operand, V an MN-major B) are issued together, and the softmax
+// of tile t runs while P V is still on the tensor cores; O is rescaled once
+// P V has landed.  Tiles are 128 keys at hd 128, one block an SM, where the
+// two warpgroups issue their products in turn (named barriers, ping-pong),
+// so that one's products run while the other's softmax runs; and 64 keys at
+// hd 64, where S, P and O then fit the 128 registers a thread of two blocks
+// an SM may have, and the four warpgroups of the two blocks run one
+// another's products during a softmax (and hide one another's loads,
+// prologue and epilogue).  At hd 64, 128-key tiles fit 128 registers only
+// with spills or serialized wgmma, and at one block an SM they were slower
+// at the 512-token causal prefills (PERF.md §6).  The softmax keeps the
+// running max, the sum and O in fp32: a row's max and sum in four partials
+// a thread and across the four threads that hold it by two shuffles, P =
+// exp2(S scale log2(e) - m) by one FFMA ahead of each exp2, P rounded to
+// bf16 once.  Only the tiles that cross the diagonal, the band's low edge
+// or key Skv - 1 take the mask, which scores the keys a row does not attend
+// -inf (TMA zero-fills keys beyond Skv, which would score 0).  Under a
+// window the key loop of a block (and its loads) starts at the tile holding
+// key q0 - w + 1: a block visits at most (128 + w) / KN + 1 tiles whatever
+// S is.  The band is a template flag (BAND), so
+// the causal kernel is built without its code.  At the end each warpgroup
+// writes its O, normalised and rounded once to bf16, over its own rows of
+// the q tile (which no product reads any more) and stores them by TMA, one
+// store a column block: rows past Sq are not written.
 // fp32 (flash_kernel) stays on the CUDA cores: two threads share one query
 // row and walk K/V in 32-key tiles; it exists for parity runs.
 // Under grad the forward also writes each row's log2-sum-exp2 of the scaled
@@ -55,13 +74,13 @@
 // (flash_attention_bwd.cu): a template flag (LSE) of both kernels, from the
 // row max and sum they already hold at the end, so the serving kernels are
 // built without it and keep their registers.  Under a window (BAND and LSE
-// together) the sum holds the band's keys only: the tiles wholly below a
-// row's band summed exp2(0) per key at a running max of -1e30, and its first
-// key inside the band rescaled that sum by exp2(-1e30 - m) = 0.
+// together) the sum holds the band's keys only: the keys below a row's band
+// score -inf and add nothing.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "common.cuh"
+#include "flash_tiles.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -176,194 +195,303 @@ void launch(const void* q, const void* k, const void* v, void* out, float* lse, 
 }
 
 // ------------------------------------------------------- bf16 path, wgmma
-constexpr int F_BQ = 128, F_BKV = 64, F_STAGES = 2, F_CONSUMERS = 2;
-constexpr int F_THREADS = F_CONSUMERS * 128 + 32;  // and one producer warp
+constexpr int F_BQ = 128;           // query rows per block, 64 per warpgroup
+constexpr int F_THREADS = 2 * 128;  // two warpgroups, one of whose threads also issues the loads
+constexpr int F_LOADER = 128;       // that thread
 
+// The q tile (each warpgroup's O over its own rows at the end) and the
+// ring of K and V tiles of KN keys
 template <int HD>
-struct FlashTiles {
-  static constexpr int ATOMS = HD / 64;           // 64-wide column blocks of hd
-  static constexpr int Q_ATOM = F_BQ * 128;       // bytes of one block of the q tile
-  static constexpr int KV_ATOM = F_BKV * 128;
-  static constexpr int Q_BYTES = ATOMS * Q_ATOM;
-  static constexpr int KV_BYTES = ATOMS * KV_ATOM;
-  static constexpr int STAGE = 2 * KV_BYTES;      // K then V
-  static constexpr int SMEM = Q_BYTES + F_STAGES * STAGE + (1 + 2 * F_STAGES) * 8 + 1024;
+struct FwdTiles {
+  static constexpr int ATOMS = HD / 64;         // 64-wide column blocks of hd
+  // keys per tile: at hd 64 64, so that a thread's S, P and O fit the 128
+  // registers of two blocks an SM; at hd 128 (one block an SM) 128
+  static constexpr int KN = HD == 64 ? 64 : 128;
+  static constexpr int BLOCKS = HD == 64 ? 2 : 1;  // blocks an SM
+  static constexpr int STAGES = HD == 64 ? 4 : 3;
+  static constexpr int Q_BLK = F_BQ * 128;      // one column block of the q tile, bytes
+  static constexpr int K_BLK = KN * 128;
+  static constexpr int Q_TILE = ATOMS * Q_BLK;
+  static constexpr int K_TILE = ATOMS * K_BLK;
+  static constexpr int STAGE = 2 * K_TILE;      // K, then V
+  static constexpr int SMEM = Q_TILE + STAGES * STAGE + (1 + 2 * STAGES) * 8 + 1024;
+  static_assert(SMEM <= 232448, "more shared memory than a block may have");
 };
 
+// The online softmax of one key tile in place over a warpgroup's m64nKN
+// scores, the thread's rows row_a, row_a + 8 (positions q_offset + row_a
+// ..) against keys k0 ..: the running max m (of the scaled scores, log2
+// domain) rises to the tile's, corr is exp2 of the fall, P = exp2(S
+// scale_log2 - m) by one FFMA ahead of each exp2, and l = l corr + the
+// thread's share of the row's P.  MASK (a tile on the causal diagonal, the
+// band's low edge or past Skv) scores the keys the rows do not attend -inf,
+// so that they add nothing, even to a row that has met no key yet (m then
+// stays NEG_INF and the first key it attends rescales by exp2(NEG_INF - m)
+// = 0 what came before, which is 0).
+template <bool MASK, int KN>
+__device__ __forceinline__ void softmax_tile(float (&sc)[KN / 2], float (&m)[2], float (&l)[2],
+                                             float (&corr)[2], float scale_log2, int lane,
+                                             int row_a, int k0, int Skv, int causal, int window,
+                                             int q_offset) {
+  const float masked = __uint_as_float(0xff800000u);  // -inf
+  float mx[2][4], sum[2][4];  // four partials a row, for the pipes' latency
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      mx[hh][u] = masked;
+      sum[hh][u] = 0.f;
+    }
+#pragma unroll
+  for (int j = 0; j < KN / 8; ++j)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 4 * j + 2 * hh + e;
+        if (MASK) {
+          const int key = k0 + 8 * j + 2 * (lane % 4) + e, row = q_offset + row_a + 8 * hh;
+          if (key >= Skv || (causal && key > row) || (window && row - key >= window))
+            sc[i] = masked;
+        }
+        mx[hh][2 * (j % 2) + e] = fmaxf(mx[hh][2 * (j % 2) + e], sc[i]);
+      }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float x = fmaxf(fmaxf(mx[hh][0], mx[hh][1]), fmaxf(mx[hh][2], mx[hh][3]));
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+    const float mn = fmaxf(m[hh], x * scale_log2);
+    corr[hh] = ex2(m[hh] - mn);
+    m[hh] = mn;
+  }
+#pragma unroll
+  for (int j = 0; j < KN / 8; ++j)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 4 * j + 2 * hh + e;
+        sc[i] = ex2(fmaf(sc[i], scale_log2, -m[hh]));
+        sum[hh][2 * (j % 2) + e] += sc[i];
+      }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh)
+    l[hh] = l[hh] * corr[hh] + ((sum[hh][0] + sum[hh][1]) + (sum[hh][2] + sum[hh][3]));
+}
+
+// One block per (head, batch row, q tile of 128 rows): the loader fills a
+// ring of STAGES key tiles; each warpgroup walks the block's key tiles with
+// S of tile t and P V of tile t - 1 in flight while it runs the softmax,
+// the two taking turns at the tensor cores, and stores its O through its
+// rows of the q tile by TMA.
 template <int HD, bool BAND, bool LSE>
-__global__ void __launch_bounds__(F_THREADS, HD == 64 ? 2 : 1)
+__global__ void __launch_bounds__(F_THREADS, FwdTiles<HD>::BLOCKS)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap kmap,
                    const __grid_constant__ CUtensorMap vmap,
-                   __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int lse_ld,
-                   int Sq, int Skv, int H, int KV, float scale_log2, int causal, int window,
-                   int q_offset) {
+                   const __grid_constant__ CUtensorMap omap, float* __restrict__ lse,
+                   int lse_ld, int Sq, int Skv, int H, int KV, float scale_log2, int causal,
+                   int window, int q_offset) {
   using namespace hopper;
-  using T = FlashTiles<HD>;
+  using T = FwdTiles<HD>;
+  constexpr int KN = T::KN, STAGES = T::STAGES;
   if (!BAND) window = 0;  // folds the band's code away: the causal kernel keeps its registers
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   unsigned char* qs = smem;
-  unsigned char* kvs = smem + T::Q_BYTES;  // stage s: K at s * STAGE, V after it
-  uint64_t* qbar = reinterpret_cast<uint64_t*>(kvs + F_STAGES * T::STAGE);
+  unsigned char* kvs = smem + T::Q_TILE;  // stage s: K at s * STAGE, V after it
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(kvs + STAGES * T::STAGE);
   uint64_t* full = qbar + 1;
-  uint64_t* empty = full + F_STAGES;
+  uint64_t* empty = full + STAGES;
 
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * F_BQ;  // longest causal tiles first
-  const int h = blockIdx.y, b = blockIdx.z;
+  // causal: (head, batch row, q tile), the longest q tiles first across all
+  // heads; not causal (every q tile as long): (q tile, head, batch row), a
+  // head's q tiles together, so that they find its K and V in L2
+  const int h = causal ? blockIdx.x : blockIdx.y, b = causal ? blockIdx.y : blockIdx.z;
+  const int q0 = (causal ? gridDim.z - 1 - blockIdx.z : blockIdx.x) * F_BQ;
   const int kvh = h / (H / KV);
   const int a0 = q_offset + q0;  // the block's first row's position among the keys
-  const int kv_end = causal ? min(Skv, a0 + F_BQ) : Skv;
-  const int ntiles = (kv_end + F_BKV - 1) / F_BKV;
-  const int t_lo = window ? max(0, a0 - window + 1) / F_BKV : 0;  // the band's first tile
+  const int ntiles = ((causal ? min(Skv, a0 + F_BQ) : Skv) + KN - 1) / KN;
+  const int t_lo = window ? max(0, a0 - window + 1) / KN : 0;  // the band's first tile
   if (threadIdx.x == 0) {
     mbar_init(qbar, 1);
-    for (int s = 0; s < F_STAGES; ++s) {
+    for (int s = 0; s < STAGES; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], F_CONSUMERS * 4);  // one arrival per consumer warp
+      mbar_init(&empty[s], 2 * 4);  // one arrival per warp
     }
     fence_barrier_init();
   }
   __syncthreads();
 
-  const int wgi = threadIdx.x / 128;
-  if (wgi == F_CONSUMERS) {  // producer warp: one thread issues every load
-    if (threadIdx.x == F_CONSUMERS * 128) {
-      tma_prefetch_map(&qmap);
-      tma_prefetch_map(&kmap);
-      tma_prefetch_map(&vmap);
-      mbar_arrive_expect_tx(qbar, T::Q_BYTES);
+  // The loader (the second warpgroup's first thread: in ping-pong that
+  // warpgroup releases a tile after the first) loads key tile `next` into
+  // its stage once both warpgroups are done with the tile STAGES before it:
+  // after a release of its own only where the stage is free already (a
+  // test, not a wait), waiting only for a tile it needs itself.
+  int next = t_lo;
+  auto refill = [&](int upto, bool block) {
+    for (; next < ntiles && next <= upto; ++next) {
+      const int n = next - t_lo, s = n % STAGES;
+      if (n >= STAGES) {
+        const uint32_t parity = ((n / STAGES) + 1) & 1;
+        if (block) mbar_wait(&empty[s], parity);
+        else if (!mbar_test_wait(&empty[s], parity)) break;
+      }
+      unsigned char* ks = kvs + s * T::STAGE;
+      mbar_arrive_expect_tx(&full[s], T::STAGE);
 #pragma unroll
-      for (int a = 0; a < T::ATOMS; ++a)
-        tma_load_4d(qs + a * T::Q_ATOM, &qmap, qbar, 64 * a, h, q0, b);
-      for (int t = t_lo; t < ntiles; ++t) {
-        const int n = t - t_lo, s = n % F_STAGES;  // n: the block's n-th tile
-        if (n >= F_STAGES) mbar_wait(&empty[s], ((n / F_STAGES) + 1) & 1);
-        unsigned char* ks = kvs + s * T::STAGE;
-        mbar_arrive_expect_tx(&full[s], T::STAGE);
-#pragma unroll
-        for (int a = 0; a < T::ATOMS; ++a) {
-          tma_load_4d(ks + a * T::KV_ATOM, &kmap, &full[s], 64 * a, kvh, t * F_BKV, b);
-          tma_load_4d(ks + T::KV_BYTES + a * T::KV_ATOM, &vmap, &full[s], 64 * a, kvh,
-                      t * F_BKV, b);
-        }
+      for (int a = 0; a < T::ATOMS; ++a) {
+        tma_load_4d(ks + a * T::K_BLK, &kmap, &full[s], 64 * a, kvh, next * KN, b);
+        tma_load_4d(ks + T::K_TILE + a * T::K_BLK, &vmap, &full[s], 64 * a, kvh, next * KN, b);
       }
     }
-    return;
+  };
+  if (threadIdx.x == F_LOADER) {
+    tma_prefetch_map(&qmap);
+    tma_prefetch_map(&kmap);
+    tma_prefetch_map(&vmap);
+    tma_prefetch_map(&omap);
+    mbar_arrive_expect_tx(qbar, T::Q_TILE);
+#pragma unroll
+    for (int a = 0; a < T::ATOMS; ++a) tma_load_4d(qs + a * T::Q_BLK, &qmap, qbar, 64 * a, h, q0, b);
+    refill(t_lo + STAGES - 1, false);
   }
 
-  // consumer warpgroup wgi: query rows r0 .. r0 + 63
-  const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
+  // warpgroup wgi: query rows r0 .. r0 + 63, against every key tile of the
+  // block (the tiles past a warpgroup's rows, or below its band, are masked
+  // whole: both take the same turns)
+  const int wgi = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int lane = tid % 32, warp = tid / 32;
   const int r0 = q0 + wgi * 64, ar0 = q_offset + r0;  // ar0: r0's position among the keys
-  const int my_tiles = ((causal ? min(Skv, ar0 + 64) : Skv) + F_BKV - 1) / F_BKV;
-  const int my_lo = window ? max(0, ar0 - window + 1) / F_BKV : 0;
   const int row_a = r0 + warp * 16 + lane / 4;  // this thread's rows: row_a, row_a + 8
-  const unsigned char* qw = qs + wgi * 64 * 128;
-
-  float o[HD / 2];
-#pragma unroll
-  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
-  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
-  mbar_wait(qbar, 0);
-
-  for (int t = t_lo; t < ntiles; ++t) {
-    const int n = t - t_lo, s = n % F_STAGES;
-    mbar_wait(&full[s], (n / F_STAGES) & 1);
-    if (t >= my_lo && t < my_tiles) {
-      const unsigned char* ks = kvs + s * T::STAGE;
-      const unsigned char* vs = ks + T::KV_BYTES;
-      float sc[32];
-#pragma unroll
-      for (int i = 0; i < 32; ++i) sc[i] = 0.f;
-      fence_regs(sc);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        const uint64_t da = make_desc(qw + (kk / 4) * T::Q_ATOM + (kk % 4) * 32, 16, 1024);
-        const uint64_t db = make_desc(ks + (kk / 4) * T::KV_ATOM + (kk % 4) * 32, 16, 1024);
-        wgmma_ss_n64<0>(sc, da, db, kk > 0);
-      }
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(sc);
-
-      const int k0 = t * F_BKV;
-      const bool edge = (causal && k0 + F_BKV > ar0) || k0 + F_BKV > Skv ||
-                        (window && k0 < ar0 + 64 - window);
-      float mx[2] = {NEG_INF, NEG_INF};
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            float v = sc[4 * j + 2 * hh + e] * scale_log2;
-            if (edge) {
-              const int key = k0 + 8 * j + 2 * (lane % 4) + e;
-              const int row = q_offset + row_a + 8 * hh;
-              if (key >= Skv || (causal && key > row) || (window && key <= row - window))
-                v = NEG_INF;
-            }
-            sc[4 * j + 2 * hh + e] = v;
-            mx[hh] = fmaxf(mx[hh], v);
-          }
-      float corr[2];
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
-        mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
-        const float mn = fmaxf(m[hh], mx[hh]);
-        corr[hh] = exp2f(m[hh] - mn);
-        m[hh] = mn;
-        l[hh] *= corr[hh];
-      }
-      uint32_t pa[16];  // P as wgmma's A fragments, four k16 steps of keys
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const float p0 = exp2f(sc[4 * j + 2 * hh] - m[hh]);
-          const float p1 = exp2f(sc[4 * j + 2 * hh + 1] - m[hh]);
-          l[hh] += p0 + p1;
-          pa[4 * (j / 2) + 2 * (j % 2) + hh] = pack_bf16(p0, p1);
-        }
-#pragma unroll
-      for (int j = 0; j < HD / 8; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) o[4 * j + i] *= corr[i / 2];
-      fence_regs(o);
-      wgmma_fence();
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const uint32_t a4[4] = {pa[4 * c], pa[4 * c + 1], pa[4 * c + 2], pa[4 * c + 3]};
-        const uint64_t db = make_desc(vs + c * 2048, T::KV_ATOM, 1024);
-        if constexpr (HD == 64) wgmma_rs_n64<1>(o, a4, db, 1);
-        else wgmma_rs_n128<1>(o, a4, db, 1);
-      }
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(o);
-    }
+  unsigned char* qw = qs + wgi * 64 * 128;
+  auto stage = [&](int t) { return kvs + ((t - t_lo) % STAGES) * T::STAGE; };
+  auto wait_tile = [&](int t) {
+    if (threadIdx.x == F_LOADER) refill(t, true);
     __syncwarp();
-    if (lane == 0) mbar_arrive(&empty[s]);
-  }
+    mbar_wait(&full[(t - t_lo) % STAGES], ((t - t_lo) / STAGES) & 1);
+  };
+  auto release = [&](int t) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[(t - t_lo) % STAGES]);
+    if (threadIdx.x == F_LOADER) refill(ntiles - 1, false);
+    __syncwarp();
+  };
+  // Ping-pong, at one block an SM (two blocks an SM interleave four
+  // warpgroups without it): a warpgroup issues its products only after the
+  // other has
+  // issued its own (named barrier 3 + wgi: its 128 threads wait, the
+  // other's 128 arrive), so that one's products run on the tensor cores
+  // while the other's softmax runs.  The first warpgroup goes first; each
+  // issues ntiles - t_lo + 1 times, and the second skips its last
+  // hand-over, which no one waits for.
+  constexpr bool PINGPONG = T::BLOCKS == 1;
+  auto turn = [&]() {
+    if (PINGPONG) named_bar_sync(3 + wgi, 256);
+  };
+  auto hand_over = [&](bool last) {
+    if (PINGPONG && !(last && wgi == 1)) named_bar_arrive(3 + (wgi ^ 1), 256);
+  };
 
+  float o[HD / 2];  // O: o[4 j + 2 hh + e] = O[row_a + 8 hh][8 j + 2 (lane % 4) + e]
+  float sc[KN / 2], m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, corr[2];
+  uint32_t pa[KN / 4];  // P as wgmma's A fragments, KN / 16 k16 steps of keys
+  zero(o);
+  zero(sc);
+  auto scores = [&](int t) {  // S = Q K^T of tile t, one commit group
+    fence_regs(sc);
+    fence_regs(o);
+    wgmma_fence();
+    score_product<HD, KN>(sc, qw, T::Q_BLK, stage(t), T::K_BLK);
+    wgmma_commit();
+  };
+  auto softmax = [&](int t) {
+    const int k0 = t * KN;
+    if ((causal && k0 + KN - 1 > ar0) || k0 + KN > Skv || (window && k0 <= ar0 + 63 - window))
+      softmax_tile<true, KN>(sc, m, l, corr, scale_log2, lane, row_a, k0, Skv, causal, window,
+                             q_offset);
+    else
+      softmax_tile<false, KN>(sc, m, l, corr, scale_log2, lane, row_a, k0, Skv, causal, window,
+                              q_offset);
+  };
+  auto pack = [&]() {  // P rounded once to bf16
+#pragma unroll
+    for (int j = 0; j < KN / 8; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) pa[frag(j, hh)] = pack_bf16(sc[4 * j + 2 * hh], sc[4 * j + 2 * hh + 1]);
+  };
+  auto pv = [&](int t) {  // O += P V of tile t, one commit group
+    rs_product<HD, KN>(o, pa, stage(t) + T::K_TILE, T::K_BLK);
+    wgmma_commit();
+  };
+
+  if (wgi == 1) hand_over(false);
+  mbar_wait(qbar, 0);
+  wait_tile(t_lo);
+  turn();
+  scores(t_lo);
+  hand_over(false);
+  wgmma_wait<0>();
+  fence_regs(sc);
+  softmax(t_lo);
+  pack();
+  for (int t = t_lo + 1; t < ntiles; ++t) {
+    wait_tile(t);
+    turn();
+    scores(t);  // the tensor cores take S of tile t, then P V of tile t - 1,
+    pv(t - 1);  // while the softmax of tile t waits only for S
+    hand_over(false);
+    wgmma_wait<1>();
+    fence_regs(sc);
+    softmax(t);
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_regs(pa);
+    release(t - 1);
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) o[i] *= corr[(i / 2) % 2];
+    pack();
+  }
+  turn();
+  fence_regs(o);
+  wgmma_fence();
+  pv(ntiles - 1);
+  hand_over(true);
+  wgmma_wait<0>();
+  fence_regs(o);
+  fence_regs(pa);
+  release(ntiles - 1);
+
+  // the rows' sums over their quad, the lse, and O normalised and rounded
+  // once to bf16 into this warpgroup's rows of the q tile (no wgmma reads
+  // them any more), in the tile's 128-byte swizzle, then one TMA store of
+  // the 64 rows (rows past Sq are not written)
+  float inv[2];
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
-    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
-    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+    l[hh] = quad_sum(l[hh]);
+    inv[hh] = 1.f / fmaxf(l[hh], 1e-30f);
+    const int row = row_a + 8 * hh;
+    if (LSE && lane % 4 == 0 && row < Sq)
+      lse[((size_t)b * H + h) * lse_ld + row] = m[hh] + log2f(l[hh]);
   }
 #pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int row = row_a + 8 * hh;
-    if (row >= Sq) continue;
-    if (LSE && lane % 4 == 0) lse[((size_t)b * H + h) * lse_ld + row] = m[hh] + log2f(l[hh]);
-    const float inv = 1.f / fmaxf(l[hh], 1e-30f);
-    __nv_bfloat16* orow = out + (((size_t)b * Sq + row) * H + h) * HD;
+  for (int j = 0; j < HD / 8; ++j)
 #pragma unroll
-    for (int j = 0; j < HD / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * (lane % 4)) =
-          __floats2bfloat162_rn(o[4 * j + 2 * hh] * inv, o[4 * j + 2 * hh + 1] * inv);
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = warp * 16 + lane / 4 + 8 * hh;  // r % 8 = lane / 4
+      unsigned char* dst = qw + (j / 8) * T::Q_BLK + r * 128 + ((j % 8) ^ (lane / 4)) * 16;
+      *reinterpret_cast<uint32_t*>(dst + 4 * (lane % 4)) =
+          pack_bf16(o[4 * j + 2 * hh] * inv[hh], o[4 * j + 2 * hh + 1] * inv[hh]);
+    }
+  fence_proxy_async();
+  named_bar_sync(1 + wgi, 128);
+  if (tid == 0) {
+#pragma unroll
+    for (int a = 0; a < T::ATOMS; ++a) tma_store_4d(&omap, qw + a * T::Q_BLK, 64 * a, h, r0, b);
+    bulk_commit();
+    bulk_wait_read<0>();  // the shared memory read; the writes complete with the grid
   }
 }
 
@@ -371,26 +499,29 @@ template <int HD, bool BAND, bool LSE>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out, float* lse,
                  int lse_ld, int B, int Sq, int Skv, int H, int KV, int causal, int window,
                  int q_offset, float scale, cudaStream_t stream) {
-  using T = FlashTiles<HD>;
+  using T = FwdTiles<HD>;
   static hopper::SmemRaised raised;
-  CUtensorMap qmap, kmap, vmap;
+  CUtensorMap qmap, kmap, vmap, omap;
   const uint64_t qdims[4] = {HD, (uint64_t)H, (uint64_t)Sq, (uint64_t)B};
   const uint64_t qstr[3] = {HD * 2, (uint64_t)H * HD * 2, (uint64_t)Sq * H * HD * 2};
   const uint32_t qbox[4] = {64, 1, F_BQ, 1};
+  const uint32_t obox[4] = {64, 1, 64, 1};  // a warpgroup's rows
   const uint64_t kdims[4] = {HD, (uint64_t)KV, (uint64_t)Skv, (uint64_t)B};
   const uint64_t kstr[3] = {HD * 2, (uint64_t)KV * HD * 2, (uint64_t)Skv * KV * HD * 2};
-  const uint32_t kbox[4] = {64, 1, F_BKV, 1};
+  const uint32_t kbox[4] = {64, 1, T::KN, 1};
   if (!hopper::make_map_bf16(&qmap, q, 4, qdims, qstr, qbox) ||
       !hopper::make_map_bf16(&kmap, k, 4, kdims, kstr, kbox) ||
-      !hopper::make_map_bf16(&vmap, v, 4, kdims, kstr, kbox))
+      !hopper::make_map_bf16(&vmap, v, 4, kdims, kstr, kbox) ||
+      !hopper::make_map_bf16(&omap, out, 4, qdims, qstr, obox))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err =
       hopper::allow_smem(flash_wgmma_kernel<HD, BAND, LSE>, T::SMEM, raised);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((Sq + F_BQ - 1) / F_BQ, H, B);
+  const int nq = (Sq + F_BQ - 1) / F_BQ;
+  const dim3 grid = causal ? dim3(H, B, nq) : dim3(nq, H, B);
   flash_wgmma_kernel<HD, BAND, LSE><<<grid, F_THREADS, T::SMEM, stream>>>(
-      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(out), lse, lse_ld, Sq, Skv, H, KV,
-      scale * 1.4426950408889634f, causal, window, q_offset);
+      qmap, kmap, vmap, omap, lse, lse_ld, Sq, Skv, H, KV, scale * LOG2E, causal, window,
+      q_offset);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -69,6 +69,22 @@ __device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, uint32_t parity) {
   return done != 0;
 }
 
+// Whether the phase of the given parity has completed, at once: unlike
+// try_wait, which may suspend the thread for a while before it says no.
+__device__ __forceinline__ bool mbar_test_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n"
+      "}\n"
+      : "=r"(done)
+      : "r"(smem_u32(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
 // Waits until the phase of the given parity has completed: the k-th
 // completion of a barrier (k = 0, 1, ...) is waited for with parity k & 1.
 // A barrier that never completes (a lost load, a wrong count) traps after
@@ -331,6 +347,13 @@ template <int R>
 __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// The same for a register A operand (bf16 pairs), which a wgmma in flight
+// still reads: its registers are not reused before the wait.
+template <int R>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(a[i])::"memory");
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

@@ -49,7 +49,8 @@ HEAD_DIMS = (64, 128)
 # package's kernel keeps P in fp32): about a third of this limit; one tail
 # key tile left unmasked (its keys zero-filled, scoring 0, not -inf) gives
 # about 3x it at 1500 keys (tests/test_torch_whisper.py rehearses both on
-# the CPU).
+# the CPU, and tests/test_torch_flash_fwd.py the forward kernel's roundings
+# and the defects its design risks).
 MEAN_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-3}
 # The backward kernel's.  fp32 keeps every product and statistic in fp32,
 # as its plain version does (about 5e-7 of the mean |plain| on an H100).

@@ -471,6 +471,50 @@ def test_cuda_flash_attention_window_matches_plain(card, H, KV, hd, S, window,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,hd,causal,window", [
+    (8, 512, 512, 14, 2, 64, True, 0), (2, 455, 455, 8, 1, 128, True, 0),
+    (2, 129, 1500, 20, 20, 64, False, 0), (2, 300, 65, 4, 1, 128, False, 0),
+    (2, 1100, 1100, 25, 5, 64, True, 1024), (1, 200, 200, 8, 2, 128, True, 1)])
+def test_cuda_flash_attention_is_deterministic(card, B, Sq, Skv, H, KV, hd,
+                                               causal, window):
+    """bf16: two calls on the same inputs give equal bits, with the lse and
+    without it, and the two instances' outputs are equal: no atomics, every
+    sum in a fixed order."""
+    q, k, v = _on(card, "bfloat16", 62, (B, Sq, H, hd), (B, Skv, KV, hd),
+                  (B, Skv, KV, hd))
+    mask = dict(causal=causal, window=window)
+    first = ops.flash_attention(q, k, v, **mask)
+    o, lse = ops.flash_attention_lse(q, k, v, **mask)
+    o2, lse2 = ops.flash_attention_lse(q, k, v, **mask)
+    torch.cuda.synchronize()
+    assert torch.equal(first, ops.flash_attention(q, k, v, **mask))
+    assert torch.equal(o, first) and torch.equal(o2, o)
+    assert torch.equal(lse2, lse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,KV,hd,window", [
+    (8, 512, 14, 2, 64, 0), (2, 2048, 25, 5, 64, 1024),
+    (8, 512, 16, 16, 128, 0), (2, 2048, 25, 5, 64, 100)])
+def test_cuda_flash_attention_train_shapes_match_plain(card, B, S, H, KV, hd,
+                                                       window):
+    """The training forward with its lse at the train paths' attention
+    (qwen2_0_5b's, hymba_1_5b's band, deepseek_moe_16b's; and a band
+    narrower than a key tile): the output within the loose limit and
+    ``MEAN_TOL``, the lse within 1e-4 (1 + |plain|)."""
+    from repro_torch.kernels.flash_attention import flash_attention_lse_plain
+    q, k, v = _on(card, "bfloat16", 63, (B, S, H, hd), (B, S, KV, hd),
+                  (B, S, KV, hd))
+    o, lse = ops.flash_attention_lse(q, k, v, window=window)
+    want = flash_attention_plain(q, k, v, window=window)
+    _close(o, want, DTYPES["bfloat16"][1])
+    diff = (o.float() - want.float()).abs().mean()
+    assert diff <= MEAN_TOL[q.dtype] * want.float().abs().mean()
+    lse_want = flash_attention_lse_plain(q, k, window=window)
+    assert bool(((lse - lse_want).abs() <= 1e-4 * (1 + lse_want.abs())).all())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("S,length", DECODE_CASES)
 @pytest.mark.parametrize("hd", [64, 128])

@@ -1,7 +1,7 @@
 """The host side of K2's card tools, on the CPU: ``tools/k2_ab.py``'s shape
-list (every bf16 K2-backward case of ``chip_smoke.py``'s kernels phase)
-and its count of attended (query, key) pairs, from which it bounds each
-shape's operations; ``tools/k2_bits.py --compare``'s exit code, over all
+lists (every bf16 K2-backward case of ``chip_smoke.py``'s kernels phase,
+and with ``--forward`` every bf16 K2-forward case) and its count of
+attended (query, key) pairs, from which it bounds each shape's operations; ``tools/k2_bits.py --compare``'s exit code, over all
 cases or over the ``--kinds`` named."""
 import importlib.util
 import json
@@ -41,6 +41,28 @@ def test_k2_ab_times_every_bf16_backward_case_of_chip_smoke():
     for _, B, Sq, Skv, H, KV, hd, causal, window, off in got:
         assert H % KV == 0 and hd in (64, 128)
         assert not causal or (off or 0) + Sq <= Skv
+        assert not window or causal
+
+
+def test_k2_ab_forward_times_every_bf16_forward_case_of_chip_smoke():
+    """The served prefills, the training forward with its lse (qwen2_0_5b's,
+    hymba_1_5b's band, deepseek_moe_16b's) and the sequence shards, in
+    chip_smoke's order."""
+    smoke = k2_ab._load_smoke()
+    got = k2_ab.forward_cases(smoke)
+    assert [c[0] for c in got] == (["serve"] * len(smoke.K2_FWD_CASES)
+                                   + ["lse"] * len(smoke.K2_LSE_CASES)
+                                   + ["offset"] * len(smoke.K2_OFFSET_CASES))
+    lse = [c[1:] for c in got if c[0] == "lse"]
+    assert lse == [(8, 512, 512, 14, 2, 64, True, 0, None),
+                   (2, 2048, 2048, 25, 5, 64, True, 1024, None),
+                   (8, 512, 512, 16, 16, 128, True, 0, None)]
+    assert ("serve", 8, 1500, 1500, 20, 20, 64, False, 0, None) in got
+    assert ("serve", 2, 1800, 1800, 25, 5, 64, True, 1024, None) in got
+    for _, B, Sq, Skv, H, KV, hd, causal, window, off in got:
+        assert H % KV == 0 and hd in (64, 128)
+        assert not causal or (off or 0) + Sq <= Skv
+        assert not causal or off is not None or Sq == Skv
         assert not window or causal
 
 

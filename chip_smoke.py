@@ -723,8 +723,8 @@ def phase_build():
                    "flash_bwd_dkdv_wgmma_kernel<64,",
                    "flash_bwd_dq_wgmma_kernel<128,",
                    "flash_bwd_dkdv_wgmma_kernel<128,", "ssd_bwd_kernel",
-                   "ssd_bwd_wgmma_kernel", "ssd_bwd_tc_local_kernel",
-                   "ssd_bwd_tc_serial_kernel"):
+                   "ssd_bwd_wgmma_kernel", "ssd_bwd_reduce_kernel",
+                   "ssd_bwd_tc_local_kernel", "ssd_bwd_tc_serial_kernel"):
         mine = [r for name, r in ptxas.items() if kernel in name]
         if not mine or any(r.get("spill_stores") != 0 or
                            r.get("spill_loads") != 0 for r in mine):
@@ -811,6 +811,7 @@ def phase_kernels(torch, dev):
         flash_attention_lse_plain, flash_attention_plain)
     from repro_torch.kernels.ssd_scan import (SSD_BWD_ROUTE_LAUNCHES,
                                               SSD_ROUTE_LAUNCHES,
+                                              bwd_scratch_bytes,
                                               ssd_bwd_route, ssd_route,
                                               ssd_scan_bwd_plain,
                                               ssd_scan_plain)
@@ -1630,7 +1631,8 @@ def phase_kernels(torch, dev):
     # B^T)^T dy, (L o dy (x dt)^T)^T C and (L o dy (x dt)^T) B (triangles:
     # q (q + 1) each), and B G^T, (x dt) G, dy s0, the adjoint's update and
     # the states' (2 q P N each); no PyTorch call computes it (library:
-    # none)
+    # none).  Each record also has the scratch bytes a call writes and
+    # reads back (ssd_scan.bwd_scratch_bytes: per route, its layout)
     H = 64
     ssd_bwd_cases = [(torch.float32, 8, 512, False, 64, 128, 1.0),
                      (torch.bfloat16, 8, 512, False, 64, 128, 1.0),
@@ -1680,8 +1682,9 @@ def phase_kernels(torch, dev):
               tuple(g for g in got if g is not None),
               tuple(w for w in want if w is not None), n_bytes, n_ops, fns,
               relative=True, route=route,
-              extra=None if H == 64 else {"tensor_parallel": f"{H} of 64 "
-                                          "heads", "mesh": list(MESH)})
+              extra={"scratch_bytes": bwd_scratch_bytes(route, b, S, H, P, N),
+                     **({} if H == 64 else {"tensor_parallel": f"{H} of 64 "
+                                            "heads", "mesh": list(MESH)})})
         del x, BC, Bm, Cm, dy, init, dstate, args, got, want
         free(torch)
     del flush

@@ -50,6 +50,7 @@ SIGNATURES = {
     "ssd_scan_bwd": [_P] * 18 + [_I] * 10 + [_P],
     "ssd_scan_bwd_tc": [_P] * 20 + [_I] * 7 + [_P],
     "ssd_scan_bwd_rows": [],
+    "ssd_scan_bwd_max_clusters": [_I],
 }
 
 

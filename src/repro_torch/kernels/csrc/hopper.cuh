@@ -4,7 +4,8 @@
 // wgmma instructions at the widths the kernels use, the warp-level mma.sync
 // of 16 x 8 x 16 and the ldmatrix loads of its fragments,
 // register hand-over between warpgroups (setmaxnreg), and the cluster
-// barrier and distributed shared-memory reads that merge a cluster's
+// barrier, distributed shared-memory reads, mbarriers armed across a
+// cluster and bulk copies between its blocks that merge a cluster's
 // partial results.
 // On the host: a cluster launch, a kernel's shared-memory limit raised once
 // per device, and a TMA tensor map made per call with cuTensorMapEncodeTiled,
@@ -289,6 +290,50 @@ __device__ __forceinline__ void cluster_sync() {
       "barrier.cluster.wait.aligned;\n" ::: "memory");  // acquire by default
 }
 
+// Arrives once on the mbarrier at `bar`'s offset in the shared memory of
+// block `rank` of the cluster, with release at cluster scope.
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, uint32_t rank) {
+  uint32_t addr;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(addr) : "r"(smem_u32(bar)), "r"(rank));
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(addr)
+               : "memory");
+}
+
+// mbar_wait with acquire at cluster scope: what another block of the
+// cluster wrote before its arrive (or its copy's bytes) is visible after it.
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity) {
+  for (uint32_t n = 0;; ++n) {
+    uint32_t done;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (n == (1u << 26)) __trap();
+  }
+}
+
+// Copies `bytes` (a multiple of 16) of this block's shared memory at `src`
+// to the same offset as `dst` in block `rank`'s, by the bulk-copy engine;
+// the bytes complete the transactions of the mbarrier at `bar`'s offset
+// in block `rank`.  Thread writes to `src` need fence_proxy_async first.
+__device__ __forceinline__ void bulk_copy_cluster(void* dst, const void* src, uint32_t bytes,
+                                                  uint64_t* bar, uint32_t rank) {
+  uint32_t d, b;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(d) : "r"(smem_u32(dst)), "r"(rank));
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(b) : "r"(smem_u32(bar)), "r"(rank));
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];\n" ::"r"(d),
+      "r"(smem_u32(src)), "r"(bytes), "r"(b)
+      : "memory");
+}
+
 // Reads the float at the address `p` has in the shared memory of block
 // `rank` of the cluster.
 __device__ __forceinline__ float ld_dsmem_f32(const float* p, uint32_t rank) {
@@ -392,19 +437,20 @@ __device__ __forceinline__ void wgmma_ss_n8(float (&d)[4], uint64_t da, uint64_t
       : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
 }
 
-// D(64 x 64) (+)= A(64 x 16, shared) * B(16 x 64, shared); TB: B is MN-major.
-template <int TB>
+// D(64 x 64) (+)= A(64 x 16, shared) * B(16 x 64, shared); TB: B is MN-major,
+// TA: A is MN-major.
+template <int TB, int TA = 0>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, %35;\n}\n"
+      "%32, %33, p, 1, 1, %36, %35;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate), "n"(TB));
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TB), "n"(TA));
 }
 
 // D(64 x 128) (+)= A(64 x 16, shared) * B(16 x 128, shared); TA: A is MN-major,

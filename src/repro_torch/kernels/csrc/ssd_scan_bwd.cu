@@ -37,68 +37,86 @@
 // products per head and sub-chunk, the triangular ones halved): 0.028 ms
 // at the dense bf16 peak.  So bytes bound it, just.
 //
-// Two routes, two launches each, no atomics, so two runs give the same
-// bits: a kernel per (head or pair of heads, batch row) that recomputes the
-// sub-chunks' start states into a scratch and walks the sub-chunks in
-// reverse, then ssd_bwd_reduce_kernel (ssd_scan_bwd_reduce.cuh), which sums
-// the per-head (or per pair) dB and dC partials over the heads, and dA's
-// over the batch rows, in a fixed order, one thread an output element.  (The third route, bf16 at
+// Two routes here, two launches each, no atomics, so two runs give the
+// same bits: a kernel over the sub-chunks per (head or pair of heads, batch
+// row), then ssd_bwd_reduce_kernel (ssd_scan_bwd_reduce.cuh), which sums
+// the dB and dC partials over the heads, and dA's over the batch rows, in a
+// fixed order, one thread an output element.  (The third route, bf16 at
 // (50, 16), is chunk-parallel: ssd_scan_bwd_tc.cu.)
 //
-// (a) ssd_bwd_wgmma_kernel, bf16 at (64, 128), mamba2_1_3b's training scan:
-//   - One block per (pair of heads, batch row), a consumer warpgroup per
-//     head (256 threads): 256 blocks at the train shape, in two waves of
-//     one block per SM (220 KB of shared memory: two blocks do not fit).
-//     Thread 0 asks TMA for each step's tiles through one stage: x and dy
-//     of each head (4D maps, box 64 x 1 x 64), B and C (3D maps at the
-//     caller's strides), dt (a box of 4 heads, TMA's least 16 bytes); TMA
-//     fills rows past S with zeros, so a ragged last sub-chunk has dt = x =
-//     B = C = dy = 0 there.  The next step's load is issued when both
-//     warpgroups have done with the stage, so it overlaps the step's tail.
-//   - Pass 1 walks the sub-chunks in order with the state a wgmma
-//     accumulator (m64n128k16, register A), as ssd_wgmma_kernel carries it,
-//     and writes each start state to a scratch (b, H, nsub, P, N) fp32.
-//   - Pass 2 walks them in reverse with G, the 64 x 128 adjoint of the
-//     sub-chunk's end state, an fp32 accumulator in registers from the last
-//     sub-chunk to the first; its bf16 copy in shared memory is the operand
-//     of B G^T and (x dt w) G.  Per sub-chunk, every product a chain of
-//     m64 x {64, 128} x k16 wgmma, both operands from the TMA tiles or the
-//     A operand from registers (ldmatrix, .trans for the transposed ones):
-//     G's update by (exp(cum) o dy)^T C, issued first, while s0 is read
-//     from the scratch; dy x^T and C B^T (formed per head: the products are
-//     not what bounds it, and a hand-over between the warpgroups would cost
-//     a barrier and 16 KB); L o C B^T and L o dy (x dt)^T (stmatrix to bf16
-//     tiles, read back transposed by ldmatrix.trans); M = (C B^T) o L o dy
-//     (x dt)^T from the two fp32 accumulators, its row sums by quad
-//     shuffles and its column sums by shuffles and, across the warps,
-//     shared memory; dxdt = w (B G^T) + (L o C B^T)^T dy; dC = exp(cum) (dy
-//     s0) + (L o dy (x dt)^T) B; dB = (x dt w) G + (L o dy (x dt)^T)^T C.
-//     L needs one exp2 an element, from cum in log2 units.  dcum's reverse
-//     cumsum is a warp scan (shuffles), on warp 0.  dx leaves as bf16 pairs
-//     from the accumulator, ddt from the scan.
-//   - The pair's dB and dC are summed in the block (the second warpgroup
-//     hands its fp32 accumulator over in halves through 16 KB of shared
-//     memory, named barriers signalling full and empty), so the partials
-//     are (b, H / 2, S, N) fp32.
+// (a) ssd_bwd_wgmma_kernel, bf16 at (64, 128), mamba2_1_3b's training scan.
+//   The chunked form needs each sub-chunk's start state s0 and its end
+//   state's adjoint G together, so a design that walks the sub-chunks once
+//   each way stores every s0 (the design before this one: a (b, H, nsub, P,
+//   N) fp32 scratch, 134 MB at the train shape, ~0.54 GB of scratch traffic
+//   a call with the per-pair partials).  Here no state is stored: every
+//   term that reads s0 is formed in a forward pass, every term that reads G
+//   in a reverse one, and the two passes run at once as blocks of their own.
+//   - The split.  dC = (exp(cum) o dy) s0 + (L o dy xdt^T) B and dcum's
+//     state terms R = rowsum(M) + C.((exp(cum) o dy) s0) are the forward
+//     pass's; dx, dB = w xdt G + (L o dy xdt^T)^T C, dcum's other terms
+//     -colsum(M) - w xdt.(B G^T), G's update and d init_state the reverse
+//     pass's.  da, the reverse cumsum of dcum, is taken over the whole
+//     sequence from <dstate, s_final> on the last row: its sum over a later
+//     sub-chunk's rows is what the chunked form's <G, s_end> is (exact: a
+//     CPU test holds the split to the plain version to 1e-10 in fp64).  The
+//     reverse pass carries its share from sub-chunk to sub-chunk into ddt
+//     and dt da; the forward pass stores pre_t, R summed over the rows
+//     before t, (b, S, H), and tot, R's sum plus <dstate, s_final>, and its
+//     dt da share tot sum(dt) - sum(dt pre); the reduce adds A (tot - pre)
+//     to ddt.
+//   - One block per (pair of heads, batch row, pass), a warpgroup per head
+//     (256 threads, no producer warp, so ptxas allows 255 registers; no
+//     spill): 512 blocks at the train shape, one an SM (215 KB of shared
+//     memory).  Thread 0 asks TMA for each sub-chunk's tiles through one
+//     stage (x and dy of each head, B, C, dt of a box of 4 heads); TMA fills
+//     rows past S with zeros, so a ragged last sub-chunk has dt = x = B = C
+//     = dy = 0 there.  The next load is issued when both warpgroups are done
+//     with the stage, and lands during the step's merge.
+//   - Every product is a wgmma from shared memory (m64 x {64, 128} x k16, A
+//     transposed where it is read M-major): dy x^T and C B^T per head; L o
+//     C B^T and L o dy (x dt)^T to bf16 tiles (stmatrix); bf16(exp(cum) o dy)
+//     and bf16(x o dt w) (hi and lo in the forward pass) to tiles by an
+//     elementwise pass, the latter in the merge tile, which is free between
+//     merges.  Forward: (exp(cum) o dy) s0 with s0 hi and lo, in flight
+//     while the scores are masked, then S2 B into the same accumulator and
+//     the state's update s <- exp(cum_last) s + (x dt w)^T B in one wait.
+//     Reverse: G's update, the scores and B G^T (G hi and lo) issued
+//     together and in flight while the scores are masked; then dB and S1^T
+//     dy.  M's row sums by quad shuffles, its column sums by shuffles and,
+//     across the warps, shared memory; dcum's scans on warp 0.
+//   - dB and dC summed over the heads on chip: each warpgroup writes half
+//     its accumulator to a 32 KB merge tile and adds the other half to the
+//     other's (the pair); then a cluster of 2 blocks (two pairs of a batch
+//     row): the bulk-copy engine sends the half of the tile that the other
+//     block sums (16 KB) to its receive buffer, each block sums its half
+//     with what arrived and stores it in bf16: partials (b, H / 4, S, N)
+//     bf16.  mbarriers, not cluster barriers, say that the half has landed
+//     and that the other block has summed it, so the blocks are tied only
+//     pairwise.  Two blocks a cluster: the card holds 66 such clusters at
+//     once (every SM), against 30 of 4 and 15 of 8 (ssd_bwd_probe.py), and
+//     a wave of 120 SMs took the train shape to three waves.
 //   Rounding: only products' operands are bf16: L o C B^T, L o dy (x dt)^T,
-//   exp(cum) o dy, x o dt o w in dB, s0, and G in dB.  Two operands are a
-//   bf16 pair hi + lo (two products each): pass 1's x o dt o w and G in B
-//   G^T.  With one bf16 each, dA (a sum over every row whose terms cancel)
-//   missed 1e-2 of its largest value on a ragged S (a CPU model of these
-//   roundings, tests/test_torch_ssd_bwd.py); every sum, G, the states, the
-//   dcum terms and the reverse cumsum are fp32.
-//   Scratch at the train shape: states 134 MB, dB and dC partials 67 MB
-//   each, written once and read once, ~0.54 GB with the reduce's reads:
-//   five times the function's own bytes.  255 registers a thread (ptxas, no
-//   spill); shared memory 220 KB: the stage 65 KB, a head's G hi and lo, s0
-//   (16 KB each) and two 64 x 64 tiles (8 KB each), the hand-over 16 KB.
-//   What bounds it once it runs (one H100 80GB HBM3 at 700 W, chip_smoke.py
-//   and launch/ssd_bwd_probe.py time): 0.35 ms a call at the train shape,
-//   11x its byte bound.  About half of that is the scratch (the states
-//   ~0.083 ms, the partials' stores ~0.03, the reduce ~0.05, each timed
-//   as a copy without it: PERF.md §6); the rest is the sub-chunk chain, ~8 us a
-//   step of about nine dependent wgmma groups, two warpgroup barriers and
-//   two hand-overs; warp 0's serial dcum work costs nothing measurable.
+//   exp(cum) o dy (the same bf16 in G's update and in R: with dy s0 scaled
+//   after the product, dA missed 1e-2 of its largest value), x o dt o w in
+//   dB, G in dB, and the partials.  Three are a bf16 pair hi + lo (two
+//   products each): s0 in (exp(cum) o dy) s0, x o dt o w in the state's
+//   update and G in B G^T; with one bf16 each, dA (a sum over every row
+//   whose terms cancel) missed 1e-2 on a ragged S (a CPU model of these
+//   roundings, tests/test_torch_ssd_bwd.py).  The states, G, every dcum term
+//   and its sums are fp32.
+//   Scratch at the train shape: the partials 16.8 MB each, pre 1 MB,
+//   written once and read once: 69 MB (ssd_scan.py:bwd_scratch_bytes),
+//   against the function's own ~0.11 GB.
+//   Measured (one H100 80GB HBM3 at 700 W, launch/ssd_bwd_probe.py time
+//   against the parent in one call, PERF.md §6): 0.293 ms a call at the
+//   train shape (0.350 before), 9.2x its byte bound; 0.309 at (8, 449) from
+//   an initial state (0.352), 0.587 at (1, 4096) (1.026), 0.150 at a rank's
+//   H 32 (0.181).  What bounds it now is each block's sub-chunk chain: a
+//   reverse step is ~16,000 clocks of dependent phases
+//   (tools/ssd_bwd_trace.py), ~1,000 of them tensor work; the merge takes
+//   4,000-6,000, masking the scores ~2,700, the scores' and B G^T's wait
+//   ~2,500.
 //
 // (b) ssd_bwd_kernel, the CUDA cores in fp32: fp32 at either (P, N), the
 //   parity route.  (bf16 at (50, 16), hymba_1_5b's training scan, took it
@@ -474,29 +492,31 @@ constexpr int WP = 64, WN = 128;  // P, N of mamba2_1_3b
 constexpr int W_HEADS = 2;        // heads per block, a consumer warpgroup each
 constexpr int W_THREADS = W_HEADS * 128;
 constexpr int DT_HEADS = 4;       // heads in a dt box: 16 bytes, TMA's least
+constexpr int W_CLUSTER = 2;      // blocks (pairs of heads) a cluster sums dB, dC over
 constexpr int ATOM = BQ * 128;    // 64 rows of 64 bf16 (128-byte swizzle)
-// the stage: x and dy of each head, B, C, dt (pass 1 loads x, B and dt)
+// the stage: x and dy of each head, B, C, dt (both passes load all of it)
 constexpr int ST_X = 0, ST_DY = ST_X + W_HEADS * ATOM, ST_B = ST_DY + W_HEADS * ATOM,
               ST_C = ST_B + 2 * ATOM, ST_DT = ST_C + 2 * ATOM, DT_BYTES = BQ * DT_HEADS * 4,
               STAGE = ST_DT + DT_BYTES;
-constexpr int PASS1_BYTES = W_HEADS * ATOM + 2 * ATOM + DT_BYTES;
-// a head's tiles: G in bf16 (hi) and the bf16 of what that leaves (lo), s0
-// in bf16 (P x N each, two atoms), L o C B^T and L o dy (x dt)^T (64 x 64)
-constexpr int T_GHI = 0, T_GLO = 2 * ATOM, T_S0 = 4 * ATOM, T_S1 = 6 * ATOM, T_S2 = 7 * ATOM,
-              HEAD_TILES = 8 * ATOM;
-// half of a 64 x 128 fp32 accumulator, [16][128] float2: the pair's hand-over
-constexpr int PAIR_BYTES = BQ * WN * 4 / 2;
+// a head's tiles: a P x N matrix in bf16 (hi) and the bf16 of what that
+// leaves (lo), two atoms each: s0 in the forward pass, G in the reverse
+// one; L o C B^T and L o dy (x dt)^T (64 x 64)
+constexpr int T_HI = 0, T_LO = 2 * ATOM, T_S1 = 4 * ATOM, T_S2 = 5 * ATOM, HEAD_TILES = 6 * ATOM;
+// the pair's 64 x 128 fp32 sum of a sub-chunk's dB or dC, [32][128] float2
+// (thread t's d[2 k], d[2 k + 1] at [k][t]); the half of the other block's
+// that this block sums (its 16 slots k)
+constexpr int MERGE_BYTES = BQ * WN * 4, RECV_BYTES = MERGE_BYTES / 2;
 // a head's vectors (fp32): cum (log2 units), dt, exp(cum), w = exp(cum_last -
 // cum), exp(cum_last); dcum's row terms, x.dxdt, each warp's column sums of
-// M, and each warp's part of <G, s_end> for two sub-chunks
+// M, and each warp's part of <dstate, s_final>
 constexpr int V_C = 0, V_D = 64, V_EC = 128, V_W = 192, V_EL = 256, V_ROW = 260, V_XDX = 324,
               V_COL = 388, V_GS = 644, VEC = 656;
-constexpr int W_SMEM = 1024 + STAGE + W_HEADS * HEAD_TILES + PAIR_BYTES +
-                       W_HEADS * VEC * 4 + 2 * 8;
-// named barriers: 1 + wg a warpgroup's own; the pair's hand-over
-constexpr int BAR_PAIR_FULL = 3, BAR_PAIR_EMPTY = 4;
+constexpr int W_SMEM = 1024 + STAGE + W_HEADS * HEAD_TILES + MERGE_BYTES + RECV_BYTES +
+                       W_HEADS * VEC * 4 + 4 * 8;
+// named barriers: 1 + wg a warpgroup's own; the pair's sum
+constexpr int BAR_PAIR = 3;
 
-static_assert(STAGE % 1024 == 0 && HEAD_TILES % 1024 == 0 && PAIR_BYTES % 1024 == 0,
+static_assert(STAGE % 1024 == 0 && HEAD_TILES % 1024 == 0 && MERGE_BYTES % 1024 == 0,
               "tiles must stay 1024-byte aligned for the 128-byte swizzle");
 static_assert(W_SMEM <= 232448, "more shared memory than a block may have");
 
@@ -507,11 +527,9 @@ __device__ __forceinline__ int swz(int row, int col) {
   return (col / 64) * ATOM + row * 128 + ((((col % 64) / 8) ^ (row % 8)) << 4) + (col % 8) * 2;
 }
 
-
 // Accumulator layout of m64nNk16 in a warpgroup (hopper.cuh): thread t = 32
 // warp + lane, r = 16 warp + lane / 4, q = lane % 4, holds d[4 j + 2 hh + e] =
-// D[r + 8 hh][8 j + 2 q + e].  A register A fragment of k16 is a[2 c + hh] =
-// A[r + 8 hh][8 c + 2 q + {0, 1}].
+// D[r + 8 hh][8 j + 2 q + e].
 struct Lane {
   int warp, lane, q, r;
   __device__ Lane(int t) : warp(t / 32), lane(t % 32), q(t % 4), r(16 * (t / 32) + (t % 32) / 4) {}
@@ -529,39 +547,6 @@ struct Lane {
       hopper::stmatrix_x4(tile + swz(srow, 16 * k + scol), pk(d[8 * k], d[8 * k + 1]),
                           pk(d[8 * k + 2], d[8 * k + 3]), pk(d[8 * k + 4], d[8 * k + 5]),
                           pk(d[8 * k + 6], d[8 * k + 7]));
-  }
-  // the A fragments (64 x 64, k = 64) of a tile as stored, A[i][j] = tile[i][j]
-  __device__ __forceinline__ void frag(uint32_t (&a)[16], const unsigned char* tile) const {
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t u[4];
-      hopper::ldmatrix_x4(u, tile + swz(16 * warp + 8 * ((lane / 8) % 2) + lane % 8,
-                                        16 * kk + 8 * (lane / 16)));
-#pragma unroll
-      for (int c = 0; c < 4; ++c) a[4 * kk + c] = u[c];
-    }
-  }
-  // the A fragments of a tile transposed, A[i][j] = tile[j][i] (matrix m =
-  // lane / 8 of ldmatrix.trans: rows j of k-step kk, columns i of chunk 2
-  // warp + m % 2), each element j of a[4 kk + c] times scale[j] when given
-  __device__ __forceinline__ void frag_t(uint32_t (&a)[16], const unsigned char* tile,
-                                         const float* scale = nullptr) const {
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const int mi = lane / 8, jr = 16 * kk + 8 * (mi / 2) + lane % 8;
-      uint32_t u[4];
-      hopper::ldmatrix_x4_trans(u, tile + swz(jr, 8 * (2 * warp + mi % 2)));
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        if (scale) {
-          const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u[c]));
-          const float2 s = *reinterpret_cast<const float2*>(scale + 16 * kk + 8 * (c / 2) + 2 * q);
-          a[4 * kk + c] = hopper::pack_bf16(v.x * s.x, v.y * s.y);
-        } else {
-          a[4 * kk + c] = u[c];
-        }
-      }
-    }
   }
   // per row r + 8 hh: the sum over this thread's columns of d times the
   // tile's elements there (the quad's sum: quad_sum)
@@ -615,24 +600,26 @@ ssd_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
                      const __grid_constant__ CUtensorMap dtmap, const float* __restrict__ A,
                      const float* __restrict__ init, const float* __restrict__ dstate,
                      __nv_bfloat16* __restrict__ dx, float* __restrict__ ddt,
-                     float* __restrict__ dBp, float* __restrict__ dCp, float* __restrict__ dAh,
-                     float* __restrict__ dinit, float* __restrict__ states, int S, int H) {
+                     __nv_bfloat16* __restrict__ dBp, __nv_bfloat16* __restrict__ dCp,
+                     float* __restrict__ dAh, float* __restrict__ pre, float* __restrict__ tot,
+                     float* __restrict__ dinit, int S, int H) {
   using namespace hopper;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   unsigned char* stage = smem;
   const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
   unsigned char* tiles = smem + STAGE + wg * HEAD_TILES;
-  unsigned char* ghi = tiles + T_GHI;
-  unsigned char* glo = tiles + T_GLO;
-  unsigned char* s0t = tiles + T_S0;
+  unsigned char* hit = tiles + T_HI;
+  unsigned char* lot = tiles + T_LO;
   unsigned char* s1t = tiles + T_S1;
   unsigned char* s2t = tiles + T_S2;
-  float2* pair = reinterpret_cast<float2*>(smem + STAGE + W_HEADS * HEAD_TILES);
-  float* v = reinterpret_cast<float*>(smem + STAGE + W_HEADS * HEAD_TILES + PAIR_BYTES) + wg * VEC;
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGE + W_HEADS * HEAD_TILES + PAIR_BYTES +
-                                               W_HEADS * VEC * 4);
+  float* mt = reinterpret_cast<float*>(smem + STAGE + W_HEADS * HEAD_TILES);
+  float* recv = mt + MERGE_BYTES / 4;
+  float* v = recv + RECV_BYTES / 4 + wg * VEC;
+  uint64_t* full = reinterpret_cast<uint64_t*>(recv + RECV_BYTES / 4 + W_HEADS * VEC);
   uint64_t* empty = full + 1;
+  uint64_t* rcv = full + 2;    // the other block's half has landed in recv
+  uint64_t* rfree = full + 3;  // the other block has summed what this one sent
   const unsigned char* xs = stage + ST_X + wg * ATOM;
   const unsigned char* dys = stage + ST_DY + wg * ATOM;
   const unsigned char* bs = stage + ST_B;
@@ -640,33 +627,37 @@ ssd_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
 
   const int h0 = blockIdx.x * W_HEADS, b = blockIdx.y, h = h0 + wg;
   const size_t bh = (size_t)b * H + h;
-  const int nsub = (S + BQ - 1) / BQ, nsteps = 2 * nsub;
+  const int nsub = (S + BQ - 1) / BQ;
+  const bool rev = blockIdx.z == 1;  // the reverse pass's block, else the forward's
   const Lane ln(t);
   const int warp = ln.warp, lane = ln.lane, q = ln.q, r = ln.r;
   const float a = A[h], a2 = a * LOG2E;  // cum in log2 units
-  float* st_base = states + bh * (size_t)nsub * WP * WN;
+  // the cluster: W_CLUSTER blocks (pairs of heads) of batch row b,
+  // rank-ordered; its dB / dC partial is slot blockIdx.x / W_CLUSTER of (b,
+  // H / 4, S, N)
+  const int rank = (int)cluster_rank(), parts = gridDim.x / W_CLUSTER;
+  const size_t part_row = ((size_t)b * parts + blockIdx.x / W_CLUSTER) * S;
 
-  // step s < nsub: pass 1 over sub-chunk s; then pass 2 over the sub-chunks
-  // in reverse.  One stage: thread 0 loads the next step once both
-  // warpgroups have released this one.
+  // step s: sub-chunk s in the forward pass, nsub - 1 - s in the reverse
+  // one.  One stage: thread 0 loads the next step once both warpgroups have
+  // released this one.
   auto load = [&](int step) {
-    const bool p2 = step >= nsub;
-    const int row = (p2 ? nsteps - 1 - step : step) * BQ;
-    mbar_arrive_expect_tx(full, p2 ? STAGE : PASS1_BYTES);
+    const int row = (rev ? nsub - 1 - step : step) * BQ;
+    mbar_arrive_expect_tx(full, STAGE);
     for (int hh = 0; hh < W_HEADS; ++hh) {
       tma_load_4d(stage + ST_X + hh * ATOM, &xmap, full, 0, h0 + hh, row, b);
-      if (p2) tma_load_4d(stage + ST_DY + hh * ATOM, &dymap, full, 0, h0 + hh, row, b);
+      tma_load_4d(stage + ST_DY + hh * ATOM, &dymap, full, 0, h0 + hh, row, b);
     }
     for (int c = 0; c < 2; ++c) {
       tma_load_3d(stage + ST_B + c * ATOM, &bmap, full, 64 * c, row, b);
-      if (p2) tma_load_3d(stage + ST_C + c * ATOM, &cmap, full, 64 * c, row, b);
+      tma_load_3d(stage + ST_C + c * ATOM, &cmap, full, 64 * c, row, b);
     }
     tma_load_3d(stage + ST_DT, &dtmap, full, h0 - h0 % DT_HEADS, row, b);
   };
   auto release = [&](int step) {
     __syncwarp();
     if (lane == 0) mbar_arrive(empty);
-    if (threadIdx.x == 0 && step + 1 < nsteps) {
+    if (threadIdx.x == 0 && step + 1 < nsub) {
       mbar_wait(empty, step & 1);
       load(step + 1);
     }
@@ -690,51 +681,175 @@ ssd_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
         }
       }
       c1 += __shfl_sync(0xffffffffu, c0, 31);
-      const float cl = __shfl_sync(0xffffffffu, c1, 31);
+      const float cl2 = __shfl_sync(0xffffffffu, c1, 31);
       v[V_C + lane] = c0;
       v[V_C + lane + 32] = c1;
       v[V_D + lane] = d0;
       v[V_D + lane + 32] = d1;
       v[V_EC + lane] = ex2(c0);
       v[V_EC + lane + 32] = ex2(c1);
-      v[V_W + lane] = ex2(cl - c0);
-      v[V_W + lane + 32] = ex2(cl - c1);
-      if (lane == 0) v[V_EL] = ex2(cl);
+      v[V_W + lane] = ex2(cl2 - c0);
+      v[V_W + lane + 32] = ex2(cl2 - c1);
+      if (lane == 0) v[V_EL] = ex2(cl2);
     }
     named_bar_sync(1 + wg, 128);
   };
-  // the pair's sum of a 64 x 128 partial (dB or dC of this sub-chunk):
-  // the second warpgroup hands its half over, the first adds its own and
-  // stores the rows below S of (b, H / 2, S, N), one half at a time
-  auto pair_sum = [&](const float (&d)[64], float* out, int c0, int rows) {
+  // bf16(exp(cum) o dy) to s1t, in dy's layout (a swizzle permutes the
+  // 16-byte chunks of a row, so chunk c of either tile is row c / 8's): the
+  // operand of (exp(cum) o dy) s0 and, transposed, of G's update
+  auto scaled_dy = [&]() {
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      if (wg == 1) {
-        named_bar_sync(BAR_PAIR_EMPTY, W_THREADS);
+    for (int c = t; c < BQ * 8; c += 128) {
+      const uint4 u = *reinterpret_cast<const uint4*>(dys + 16 * c);
+      const float e = v[V_EC + c / 8];
+      const uint4 o = {scale_bf16x2(u.x, make_float2(e, e)), scale_bf16x2(u.y, make_float2(e, e)),
+                       scale_bf16x2(u.z, make_float2(e, e)), scale_bf16x2(u.w, make_float2(e, e))};
+      *reinterpret_cast<uint4*>(s1t + 16 * c) = o;
+    }
+  };
+  // bf16(x o dt w), and with `both` the bf16 of what that leaves, to this
+  // warpgroup's two atoms of the merge tile (free between merges), in x's
+  // layout: the A operand of the state's update (transposed, as hi + lo)
+  // and of (x o dt w) G (hi)
+  auto scaled_x = [&](bool both) {
+    unsigned char* xt = reinterpret_cast<unsigned char*>(mt) + wg * 2 * ATOM;
 #pragma unroll
-        for (int k = 0; k < 16; ++k)
-          pair[k * 128 + t] = make_float2(d[32 * half + 2 * k], d[32 * half + 2 * k + 1]);
-        named_bar_arrive(BAR_PAIR_FULL, W_THREADS);
-      } else {
-        named_bar_sync(BAR_PAIR_FULL, W_THREADS);
-        float* base = out + ((size_t)(b * (H / W_HEADS) + blockIdx.x) * S + c0) * WN;
+    for (int c = t; c < BQ * 8; c += 128) {
+      const uint4 u = *reinterpret_cast<const uint4*>(xs + 16 * c);
+      const float f = v[V_D + c / 8] * v[V_W + c / 8];
+      const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+      uint32_t hi[4], lo[4];
 #pragma unroll
-        for (int k = 0; k < 16; ++k) {
-          const int idx = 32 * half + 2 * k, j = idx / 4, hh = (idx / 2) % 2, i = r + 8 * hh;
-          const float2 o = pair[k * 128 + t];
-          if (i < rows)
-            *reinterpret_cast<float2*>(base + (size_t)i * WN + 8 * j + 2 * q) =
-                make_float2(d[idx] + o.x, d[idx + 1] + o.y);
+      for (int i = 0; i < 4; ++i) {
+        const float2 xv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+        hi[i] = pack_bf16(xv.x * f, xv.y * f);
+        lo[i] = pack_bf16_rest(xv.x * f, xv.y * f);
+      }
+      *reinterpret_cast<uint4*>(xt + 16 * c) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      if (both)
+        *reinterpret_cast<uint4*>(xt + ATOM + 16 * c) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    }
+  };
+  // dy x^T and C B^T of the stage's sub-chunk (both operands K-major), one
+  // wgmma group, committed
+  auto scores = [&](float (&dxa)[32], float (&cba)[32]) {
+    zero(dxa);
+    zero(cba);
+    fence_regs(dxa);
+    fence_regs(cba);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss_n64<0>(dxa, make_desc(dys + kk * 32, 16, 1024), make_desc(xs + kk * 32, 16, 1024),
+                      1);
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      const int off = (kk / 4) * ATOM + (kk % 4) * 32;
+      wgmma_ss_n64<0>(cba, make_desc(cs + off, 16, 1024), make_desc(bs + off, 16, 1024), 1);
+    }
+    wgmma_commit();
+  };
+  // L and the masks over the scores: dxa <- S2 = L o dy (x dt)^T, cba <- L o
+  // C B^T; M = S2 o C B^T below the diagonal, its row sums (the forward
+  // pass's dcum term) and each column's sum over this thread's rows, handed
+  // to col(column, sum) at once (the reverse pass's)
+  auto masks = [&](float (&dxa)[32], float (&cba)[32], float (&rowm)[2], auto col_sum) {
+    float ci[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) ci[hh] = v[V_C + r + 8 * hh];
+    rowm[0] = rowm[1] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 cj = *reinterpret_cast<const float2*>(v + V_C + 8 * j + 2 * q);
+      const float2 dj = *reinterpret_cast<const float2*>(v + V_D + 8 * j + 2 * q);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * j + 2 * q + e;
+        const float cc = e ? cj.y : cj.x, dd = e ? dj.y : dj.x;
+        float cs_ = 0.f;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int i = r + 8 * hh, idx = 4 * j + 2 * hh + e;
+          const float L = col <= i ? ex2(ci[hh] - cc) : 0.f;
+          const float s2 = L * dxa[idx] * dd;
+          const float m = col < i ? s2 * cba[idx] : 0.f;
+          rowm[hh] += m;
+          cs_ += m;
+          cba[idx] *= L;
+          dxa[idx] = s2;
         }
-        named_bar_arrive(BAR_PAIR_EMPTY, W_THREADS);
+        col_sum(col, cs_);
       }
     }
+  };
+  // The pair's sum of a 64 x 128 partial (dC or dB of the sub-chunk at row
+  // c0), then the cluster's, by every thread of the block: each warpgroup
+  // writes half of its accumulator to the merge tile and adds the other half
+  // to what the other wrote; then the bulk-copy engine sends the half of the
+  // tile that the other block sums (its 16 slots k) to that block's recv,
+  // and this block sums its own 16 slots with what the other sent (a + b is
+  // b + a: the rank order holds either way) and stores the rows below S in
+  // bf16 to the cluster's partial (b, H / 4, S, N).  No cluster barrier:
+  // mbarriers say that the other block's half has landed (rcv) and that it
+  // has summed what this block sent (rfree: each step waits for it before
+  // scaled_x writes the tile again).  The next step's load is in flight
+  // meanwhile.
+  int merges = 0;
+  auto tile_free = [&]() {
+    if (merges > 0) mbar_wait_cluster(rfree, (merges - 1) & 1);
+  };
+  auto merge = [&](const float (&d)[64], __nv_bfloat16* out, int c0, int rows) {
+    const int peer = rank ^ 1;
+    float2* m2 = reinterpret_cast<float2*>(mt);
+    named_bar_sync(BAR_PAIR, W_THREADS);  // both warpgroups' products have read their scaled_x
+    // the halves are chosen by branches, so that d is indexed by constants
+    // and stays in registers
+    auto put = [&](int k0) {
+#pragma unroll
+      for (int k = k0; k < k0 + 16; ++k) m2[k * 128 + t] = make_float2(d[2 * k], d[2 * k + 1]);
+    };
+    auto add = [&](int k0) {
+#pragma unroll
+      for (int k = k0; k < k0 + 16; ++k) {
+        const float2 o = m2[k * 128 + t];
+        m2[k * 128 + t] = make_float2(d[2 * k] + o.x, d[2 * k + 1] + o.y);
+      }
+    };
+    if (wg) put(0);
+    else put(16);
+    named_bar_sync(BAR_PAIR, W_THREADS);
+    if (wg) add(16);
+    else add(0);
+    fence_proxy_async();  // the copy reads the tile through the async proxy
+    named_bar_sync(BAR_PAIR, W_THREADS);
+    if (threadIdx.x == 0) bulk_copy_cluster(recv, mt + 16 * peer * 256, RECV_BYTES, rcv, peer);
+    mbar_wait_cluster(rcv, merges & 1);
+#pragma unroll
+    for (int e = threadIdx.x; e < 16 * 64; e += W_THREADS) {
+      const int k = 16 * rank + e / 64, tt = 2 * (e % 64);  // threads tt, tt + 1
+      const float4 a = *reinterpret_cast<const float4*>(mt + k * 256 + 2 * tt);
+      const float4 o = *reinterpret_cast<const float4*>(recv + (e / 64) * 256 + 2 * tt);
+      const int row = 16 * (tt / 32) + (tt % 32) / 4 + 8 * (k % 2);
+      const int col = 8 * (k / 2) + 2 * (tt % 4);
+      if (row < rows)
+        *reinterpret_cast<uint2*>(out + (part_row + c0 + row) * WN + col) =
+            make_uint2(pack_bf16(a.x + o.x, a.y + o.y), pack_bf16(a.z + o.z, a.w + o.w));
+    }
+    named_bar_sync(BAR_PAIR, W_THREADS);  // recv and the own half are read
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(rcv, RECV_BYTES);  // the next merge's
+      mbar_arrive_cluster(rfree, peer);
+    }
+    ++merges;
   };
 
   if (threadIdx.x == 0) {
     mbar_init(full, 1);
     mbar_init(empty, W_THREADS / 32);  // every warp of both warpgroups
+    mbar_init(rcv, 1);
+    mbar_init(rfree, 1);
     fence_barrier_init();
+    mbar_arrive_expect_tx(rcv, RECV_BYTES);  // the first merge's
   }
   __syncthreads();
   if (threadIdx.x == 0) {
@@ -745,185 +860,201 @@ ssd_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
     tma_prefetch_map(&dtmap);
     load(0);
   }
-  if (wg == 0) named_bar_arrive(BAR_PAIR_EMPTY, W_THREADS);  // the hand-over starts empty
+  cluster_sync();  // the other block's mbarriers are initialised
 
-  // ---- pass 1: the start state of every sub-chunk into the scratch, the
-  // state a wgmma accumulator: s <- exp(cum_last) s + (x o dt w)^T B, x o dt w
-  // rounded to bf16 twice (hi + lo: one bf16 would cost dA the fine limit)
-  float st[64];
-  if (init) ln.load_state(st, init + bh * WP * WN);
-  else zero(st);
-  for (int k = 0; k < nsub; ++k) {
-    mbar_wait(full, k & 1);
-    scan();
-    ln.store_state(st, st_base + (size_t)k * WP * WN);
-    uint32_t hi[16], lo[16];
+  if (!rev) {
+    // ---- the forward pass: s0, the sub-chunk's start state, an fp32 wgmma
+    // accumulator from init_state (or 0), its bf16 hi and lo in shared
+    // memory; per sub-chunk dC = (exp(cum) o dy) s0 + S2 B and dcum's terms
+    // that read the states, R = rowsum(M) + C.((exp(cum) o dy) s0); then
+    // s <- exp(cum_last) s + (x o dt w)^T B, x o dt w rounded to bf16 twice
+    // (hi + lo: one bf16 would cost dA the fine limit).  da's share of R is
+    // the sum of R over the rows from row t on, plus <dstate, s_final>: tot
+    // less pre_t, the sum over the rows before t (warp 0 carries it), and its
+    // dt da share tot sum(dt) - sum(dt pre); the reduce adds A (tot - pre) to
+    // the reverse pass's ddt
+    float st[64];
+    if (init) ln.load_state(st, init + bh * WP * WN);
+    else zero(st);
+    float run = 0.f, sdt = 0.f, sdtp = 0.f;  // warp 0: R's sum, sum(dt), sum(dt pre)
+    for (int k = 0; k < nsub; ++k) {
+      const int c0 = k * BQ, rows = min(BQ, S - c0);
+      ln.store_bf16(hit, st);  // while the stage loads
+      ln.store_bf16<true>(lot, st);
+      mbar_wait(full, k & 1);
+      scan();
+      scaled_dy();
+      tile_free();
+      scaled_x(true);
+      fence_proxy_async();
+      named_bar_sync(1 + wg, 128);
+      float rterm[2];
+      float acc[64];
+      {
+        float dxa[32], cba[32];
+        scores(dxa, cba);
+        // (exp(cum) o dy) s0, s0 as hi + lo
+        zero(acc);
+        fence_regs(acc);
+        wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const int mi = lane / 8, jr = 16 * kk + 8 * (mi / 2) + lane % 8;
-      uint32_t u[4];
-      ldmatrix_x4_trans(u, xs + swz(jr, 8 * (2 * warp + mi % 2)));
+        for (int kk = 0; kk < 8; ++kk)
+          wgmma_ss_n128<0, 1>(acc, make_desc(s1t + (kk % 4) * 32, 16, 1024),
+                              make_desc((kk < 4 ? hit : lot) + (kk % 4) * 2048, ATOM, 1024), 1);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(dxa);
+        fence_regs(cba);
+        float rowm[2];
+        masks(dxa, cba, rowm, [](int, float) {});
+        ln.store_bf16(s2t, dxa);
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int j = 16 * kk + 8 * (c / 2) + 2 * q;
-        const float2 xv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u[c]));
-        const float f0 = xv.x * v[V_D + j] * v[V_W + j], f1 = xv.y * v[V_D + j + 1] * v[V_W + j + 1];
-        hi[4 * kk + c] = pack_bf16(f0, f1);
-        lo[4 * kk + c] = pack_bf16_rest(f0, f1);
+        for (int hh = 0; hh < 2; ++hh) rterm[hh] = quad_sum(rowm[hh]);
       }
-    }
-    const float el = v[V_EL];
-#pragma unroll
-    for (int i = 0; i < 64; ++i) st[i] *= el;
-    fence_regs(st);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint32_t a4[4] = {hi[4 * kk], hi[4 * kk + 1], hi[4 * kk + 2], hi[4 * kk + 3]};
-      wgmma_rs_n128<1>(st, a4, make_desc(bs + kk * 2048, ATOM, 1024), 1);
-    }
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint32_t a4[4] = {lo[4 * kk], lo[4 * kk + 1], lo[4 * kk + 2], lo[4 * kk + 3]};
-      wgmma_rs_n128<1>(st, a4, make_desc(bs + kk * 2048, ATOM, 1024), 1);
-    }
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(st);
-    release(k);
-    named_bar_sync(1 + wg, 128);  // the vectors are read
-  }
-
-  // ---- pass 2: G, the adjoint of the sub-chunk's end state, an fp32
-  // accumulator from the last sub-chunk to the first; its bf16 hi and lo in
-  // shared memory for the products that read it.  <G, s_end> of each
-  // sub-chunk is formed one sub-chunk ahead, when its start state is read.
-  float g[64];
-  if (dstate) ln.load_state(g, dstate + bh * WP * WN);
-  else zero(g);
-  {
-    float s = 0.f;
-#pragma unroll
-    for (int i = 0; i < 64; ++i) s = fmaf(g[i], st[i], s);
-    s = warp_sum(s);
-    if (lane == 0) v[V_GS + 4 * ((nsub - 1) & 1) + warp] = s;
-  }
-  ln.store_bf16(ghi, g);
-  ln.store_bf16<true>(glo, g);
-  fence_proxy_async();
-  named_bar_sync(1 + wg, 128);
-
-  float dA_acc = 0.f;  // warp 0: this head's dt da over its rows
-  for (int k = nsub - 1; k >= 0; --k) {
-    const int step = nsteps - 1 - k, c0 = k * BQ, rows = min(BQ, S - c0);
-    mbar_wait(full, step & 1);
-    scan();
-    float ci[2], eci[2], wi[2], di[2];
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      ci[hh] = v[V_C + r + 8 * hh];
-      eci[hh] = v[V_EC + r + 8 * hh];
-      wi[hh] = v[V_W + r + 8 * hh];
-      di[hh] = v[V_D + r + 8 * hh];
-    }
-    float rterm[2];  // dcum's terms of rows r, r + 8
-
-    // (1) G <- exp(cum_last) G + (exp(cum) o dy)^T C, its start state's
-    // adjoint, while s0 is read from the scratch; then <G, s0> (the next
-    // sub-chunk's <G, s_end>) and s0 in bf16
-    {
-      uint32_t fa[16];
-      ln.frag_t(fa, dys, v + V_EC);
-      const float el = v[V_EL];
-#pragma unroll
-      for (int i = 0; i < 64; ++i) g[i] *= el;
-      fence_regs(g);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const uint32_t a4[4] = {fa[4 * kk], fa[4 * kk + 1], fa[4 * kk + 2], fa[4 * kk + 3]};
-        wgmma_rs_n128<1>(g, a4, make_desc(cs + kk * 2048, ATOM, 1024), 1);
-      }
-      wgmma_commit();
-      float sv[64];
-      ln.load_state(sv, st_base + (size_t)k * WP * WN);
+      fence_proxy_async();
+      named_bar_sync(1 + wg, 128);
       wgmma_wait<0>();
-      fence_regs(g);
-      float s = 0.f;
+      fence_regs(acc);
+      {
+        float cd[2];
+        ln.rowdot(cd, cs, acc);
 #pragma unroll
-      for (int i = 0; i < 64; ++i) s = fmaf(g[i], sv[i], s);
-      s = warp_sum(s);
-      if (lane == 0) v[V_GS + 4 * ((k + 1) & 1) + warp] = s;
-      ln.store_bf16(s0t, sv);
-    }
-
-    // DX = dy x^T and C B^T (both operands K-major); S1 = L o C B^T, S2 = L o
-    // DX o dt_j to bf16 tiles; M = L o C B^T o DX o dt_j below the diagonal,
-    // its row sums (dcum's first term) and column sums (its second)
-    {
-      float dxa[32], cba[32];
-      zero(dxa);
-      zero(cba);
-      fence_regs(dxa);
-      fence_regs(cba);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        wgmma_ss_n64<0>(dxa, make_desc(dys + kk * 32, 16, 1024), make_desc(xs + kk * 32, 16, 1024), 1);
-#pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
-        const int off = (kk / 4) * ATOM + (kk % 4) * 32;
-        wgmma_ss_n64<0>(cba, make_desc(cs + off, 16, 1024), make_desc(bs + off, 16, 1024), 1);
+        for (int hh = 0; hh < 2; ++hh) rterm[hh] += cd[hh];
       }
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(dxa);
-      fence_regs(cba);
-      float rowm[2] = {0.f, 0.f}, colm[16];
+      {  // dC = acc + S2 B; then the state's update, in flight through dC's merge
+        fence_regs(acc);
+        wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float2 cj = *reinterpret_cast<const float2*>(v + V_C + 8 * j + 2 * q);
-        const float2 dj = *reinterpret_cast<const float2*>(v + V_D + 8 * j + 2 * q);
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss_n128<0, 1>(acc, make_desc(s2t + kk * 32, 16, 1024),
+                              make_desc(bs + kk * 2048, ATOM, 1024), 1);
+        wgmma_commit();
+        const float el = v[V_EL];
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = 8 * j + 2 * q + e;
-          const float cc = e ? cj.y : cj.x, dd = e ? dj.y : dj.x;
-          float cs_ = 0.f;
+        for (int i = 0; i < 64; ++i) st[i] *= el;
+        fence_regs(st);
+        wgmma_fence();
+        const unsigned char* xt = reinterpret_cast<const unsigned char*>(mt) + wg * 2 * ATOM;
 #pragma unroll
-          for (int hh = 0; hh < 2; ++hh) {
-            const int i = r + 8 * hh, idx = 4 * j + 2 * hh + e;
-            const float L = col <= i ? ex2(ci[hh] - cc) : 0.f;
-            const float s2 = L * dxa[idx] * dd;
-            const float m = col < i ? s2 * cba[idx] : 0.f;
-            rowm[hh] += m;
-            cs_ += m;
-            cba[idx] *= L;
-            dxa[idx] = s2;
+        for (int kk = 0; kk < 8; ++kk)  // (x o dt w)^T hi, then lo, M-major from their tiles
+          wgmma_ss_n128<1, 1>(st, make_desc(xt + (kk / 4) * ATOM + (kk % 4) * 2048, ATOM, 1024),
+                              make_desc(bs + (kk % 4) * 2048, ATOM, 1024), 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
+        fence_regs(st);
+      }
+      if (q == 0) {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) v[V_ROW + r + 8 * hh] = rterm[hh];
+      }
+      release(k);  // the next step's load lands during dC's merge
+      merge(acc, dCp, c0, rows);
+      named_bar_sync(1 + wg, 128);  // R is whole, the vectors are read
+      if (warp == 0) {  // pre of rows lane, lane + 32: prefix sums, in order
+        float p[2] = {v[V_ROW + lane], v[V_ROW + lane + 32]};
+#pragma unroll
+        for (int off = 1; off < 32; off <<= 1) {
+          const float u0 = __shfl_up_sync(0xffffffffu, p[0], off);
+          const float u1 = __shfl_up_sync(0xffffffffu, p[1], off);
+          if (lane >= off) {
+            p[0] += u0;
+            p[1] += u1;
           }
-          colm[2 * j + e] = cs_;
+        }
+        const float first = __shfl_sync(0xffffffffu, p[0], 31);  // rows 0 .. 31
+        p[1] += first;
+        const float last = __shfl_sync(0xffffffffu, p[1], 31);
+        const float e0 = __shfl_up_sync(0xffffffffu, p[0], 1);  // inclusive to exclusive
+        const float e1 = __shfl_up_sync(0xffffffffu, p[1], 1);
+        p[0] = lane ? e0 : 0.f;
+        p[1] = lane ? e1 : first;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int i = lane + 32 * half;
+          const float e = run + p[half], d = v[V_D + i];
+          if (i < rows) pre[((size_t)b * S + c0 + i) * H + h] = e;
+          sdt += d;
+          sdtp = fmaf(d, e, sdtp);
+        }
+        run += last;
+      }
+    }
+    {  // tot = R's sum + <dstate, s_final>; the forward share of dt da
+      float s = 0.f;
+      if (dstate) {
+        float gd[64];
+        ln.load_state(gd, dstate + bh * WP * WN);
+#pragma unroll
+        for (int i = 0; i < 64; ++i) s = fmaf(gd[i], st[i], s);
+      }
+      s = warp_sum(s);
+      if (lane == 0) v[V_GS + warp] = s;
+      named_bar_sync(1 + wg, 128);
+      if (warp == 0) {
+        const float tt = run + (((v[V_GS] + v[V_GS + 1]) + v[V_GS + 2]) + v[V_GS + 3]);
+        sdt = warp_sum(sdt);
+        sdtp = warp_sum(sdtp);
+        if (lane == 0) {
+          tot[bh] = tt;
+          dAh[2 * bh] = fmaf(tt, sdt, -sdtp);
         }
       }
-      ln.store_bf16(s1t, cba);
-      ln.store_bf16(s2t, dxa);
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) rterm[hh] = quad_sum(rowm[hh]);
-#pragma unroll
-      for (int c = 0; c < 16; ++c) {
-        float x = colm[c];
-        x += __shfl_xor_sync(0xffffffffu, x, 4);
-        x += __shfl_xor_sync(0xffffffffu, x, 8);
-        x += __shfl_xor_sync(0xffffffffu, x, 16);
-        if (lane < 4) v[V_COL + 64 * warp + 8 * (c / 2) + 2 * q + c % 2] = x;
-      }
     }
+  } else {
+
+    // ---- the reverse pass: G, the adjoint of the sub-chunk's end state, an
+    // fp32 accumulator from dstate (or 0) back to d init_state; its bf16 hi
+    // and lo in shared memory for the products that read it.  da's share
+    // here is the sum of dcum's other terms, -colsum(M) - w xdt.(B G^T), from
+    // row t to the end, carried from sub-chunk to sub-chunk (warp 0): with the
+    // forward pass's share, the reverse cumsum of dcum over the whole
+    // sequence from <dstate, s_final>, whose sum over a later sub-chunk's rows
+    // is what the chunked form's <G, s_end> is.
+    float g[64];
+    float carry = 0.f;  // warp 0
+    if (dstate) ln.load_state(g, dstate + bh * WP * WN);
+    else zero(g);
+    ln.store_bf16(hit, g);
+    ln.store_bf16<true>(lot, g);
     fence_proxy_async();
     named_bar_sync(1 + wg, 128);
 
-    // (2) dxdt = w (B G^T) + S1^T dy, with dcum's term - w dt x.(B G^T);
-    // then dC = exp(cum) (dy s0) + S2 B, with exp(cum) C.(dy s0).  One
-    // chain after the other: both at once would not fit the registers.
-    float xdx[2];
-    {
+    float dA_acc = 0.f;  // warp 0: this head's dt da over its rows
+    for (int step = 0; step < nsub; ++step) {
+      const int k = nsub - 1 - step, c0 = k * BQ, rows = min(BQ, S - c0);
+      mbar_wait(full, step & 1);
+      scan();
+      tile_free();
+      scaled_x(false);
+      float wi[2], di[2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        wi[hh] = v[V_W + r + 8 * hh];
+        di[hh] = v[V_D + r + 8 * hh];
+      }
+      float rterm[2], xdx[2];
+
+      // G's update to the start state's adjoint, G <- exp(cum_last) G +
+      // (exp(cum) o dy)^T C, and B G^T (G's hi and lo, of the end state) in
+      // flight while the scores are formed and masked
+      scaled_dy();
+      fence_proxy_async();
+      named_bar_sync(1 + wg, 128);
+      {
+        const float el = v[V_EL];
+#pragma unroll
+        for (int i = 0; i < 64; ++i) g[i] *= el;
+      }
+      fence_regs(g);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)  // (exp(cum) o dy)^T from its tile, M-major
+        wgmma_ss_n128<1, 1>(g, make_desc(s1t + kk * 2048, ATOM, 1024),
+                            make_desc(cs + kk * 2048, ATOM, 1024), 1);
+      wgmma_commit();
+      float dxa[32], cba[32];
+      scores(dxa, cba);
       float bg[32];
       zero(bg);
       fence_regs(bg);
@@ -932,19 +1063,51 @@ ssd_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
       for (int kk = 0; kk < 16; ++kk) {  // G's hi, then its lo
         const int off = ((kk % 8) / 4) * ATOM + (kk % 4) * 32;
         wgmma_ss_n64<0>(bg, make_desc(bs + off, 16, 1024),
-                        make_desc((kk < 8 ? ghi : glo) + off, 16, 1024), 1);
+                        make_desc((kk < 8 ? hit : lot) + off, 16, 1024), 1);
       }
       wgmma_commit();
-      uint32_t fs[16];
-      ln.frag_t(fs, s1t);
-      wgmma_wait<0>();
+      wgmma_wait<1>();
+      fence_regs(g);
+      fence_regs(dxa);
+      fence_regs(cba);
+      {
+        float rowm[2];
+        masks(dxa, cba, rowm, [&](int col, float x) {  // over the warp's 16 rows
+          x += __shfl_xor_sync(0xffffffffu, x, 4);
+          x += __shfl_xor_sync(0xffffffffu, x, 8);
+          x += __shfl_xor_sync(0xffffffffu, x, 16);
+          if (lane < 4) v[V_COL + 64 * warp + col] = x;
+        });
+        ln.store_bf16(s1t, cba);
+        ln.store_bf16(s2t, dxa);
+      }
+      fence_proxy_async();
+      named_bar_sync(1 + wg, 128);
+
+      // dB = (x o dt w) G + S2^T C (G's hi), then dxdt = w (B G^T) + S1^T dy,
+      // in flight through dB's merge
+      float acc[64];
+      zero(acc);
+      fence_regs(acc);
+      wgmma_fence();
+      const unsigned char* xt = reinterpret_cast<const unsigned char*>(mt) + wg * 2 * ATOM;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)  // x o dt w from its tile
+        wgmma_ss_n128<0, 1>(acc, make_desc(xt + kk * 32, 16, 1024),
+                            make_desc(hit + kk * 2048, ATOM, 1024), 1);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)  // S2^T from its tile, M-major
+        wgmma_ss_n128<1, 1>(acc, make_desc(s2t + kk * 2048, ATOM, 1024),
+                            make_desc(cs + kk * 2048, ATOM, 1024), 1);
+      wgmma_commit();
+      wgmma_wait<1>();
       fence_regs(bg);
       {
         float xg[2];
         ln.rowdot(xg, xs, bg);
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
-          rterm[hh] -= wi[hh] * di[hh] * xg[hh];
+          rterm[hh] = -wi[hh] * di[hh] * xg[hh];
 #pragma unroll
           for (int j = 0; j < 8; ++j) {
             bg[4 * j + 2 * hh] *= wi[hh];
@@ -955,155 +1118,90 @@ ssd_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
       fence_regs(bg);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const uint32_t a4[4] = {fs[4 * kk], fs[4 * kk + 1], fs[4 * kk + 2], fs[4 * kk + 3]};
-        wgmma_rs_n64<1>(bg, a4, make_desc(dys + kk * 2048, ATOM, 1024), 1);
-      }
+      for (int kk = 0; kk < 4; ++kk)  // S1^T from its tile, M-major
+        wgmma_ss_n64<1, 1>(bg, make_desc(s1t + kk * 2048, ATOM, 1024),
+                           make_desc(dys + kk * 2048, ATOM, 1024), 1);
       wgmma_commit();
       wgmma_wait<0>();
+      fence_regs(acc);
       fence_regs(bg);
       ln.rowdot(xdx, xs, bg);
-      // dx = dt dxdt, rows below S
-      __nv_bfloat16* out = dx + (((size_t)b * S + c0) * H + h) * WP;
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int i = r + 8 * hh;
-        if (i < rows) {
-#pragma unroll
-          for (int j = 0; j < 8; ++j)
-            *reinterpret_cast<uint32_t*>(out + (size_t)i * H * WP + 8 * j + 2 * q) =
-                pack_bf16(di[hh] * bg[4 * j + 2 * hh], di[hh] * bg[4 * j + 2 * hh + 1]);
-        }
-      }
-    }
-    {
-      float acc[64];
-      zero(acc);
-      fence_regs(acc);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        wgmma_ss_n128<0, 1>(acc, make_desc(dys + kk * 32, 16, 1024),
-                            make_desc(s0t + kk * 2048, ATOM, 1024), 1);
-      wgmma_commit();
-      uint32_t f2[16];
-      ln.frag(f2, s2t);
-      wgmma_wait<0>();
-      fence_regs(acc);
-      {
-        float cd[2];
-        ln.rowdot(cd, cs, acc);
+      {  // dx = dt dxdt, rows below S
+        __nv_bfloat16* out = dx + (((size_t)b * S + c0) * H + h) * WP;
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
-          rterm[hh] += eci[hh] * cd[hh];
+          const int i = r + 8 * hh;
+          if (i < rows) {
 #pragma unroll
-          for (int j = 0; j < 16; ++j) {
-            acc[4 * j + 2 * hh] *= eci[hh];
-            acc[4 * j + 2 * hh + 1] *= eci[hh];
+            for (int j = 0; j < 8; ++j)
+              *reinterpret_cast<uint32_t*>(out + (size_t)i * H * WP + 8 * j + 2 * q) =
+                  pack_bf16(di[hh] * bg[4 * j + 2 * hh], di[hh] * bg[4 * j + 2 * hh + 1]);
           }
         }
       }
-      fence_regs(acc);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const uint32_t a4[4] = {f2[4 * kk], f2[4 * kk + 1], f2[4 * kk + 2], f2[4 * kk + 3]};
-        wgmma_rs_n128<1>(acc, a4, make_desc(bs + kk * 2048, ATOM, 1024), 1);
-      }
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(acc);
-      pair_sum(acc, dCp, c0, rows);
-    }
+      release(step);  // the next step's load lands during dB's merge
+      merge(acc, dBp, c0, rows);
 
-    // (3) dB = (x o dt w) G + S2^T C (G's bf16 hi), the stage's last reads
-    {
-      uint32_t fx[16], fs[16];
-      ln.frag(fx, xs);
+      // the start state's adjoint's bf16 hi and lo (the next sub-chunk's end
+      // state's); dcum, its reverse cumsum from the carry, ddt and dt da, in
+      // order, on warp 0
+      ln.store_bf16(hit, g);
+      ln.store_bf16<true>(lot, g);
+      if (q == 0) {
 #pragma unroll
-      for (int c = 0; c < 16; ++c) {  // a[2 c' + hh]: rows r + 8 hh
-        const float sc = di[c % 2] * wi[c % 2];
-        const float2 xv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&fx[c]));
-        fx[c] = pack_bf16(xv.x * sc, xv.y * sc);
-      }
-      ln.frag_t(fs, s2t);
-      float acc[64];
-      zero(acc);
-      fence_regs(acc);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const uint32_t a4[4] = {fx[4 * kk], fx[4 * kk + 1], fx[4 * kk + 2], fx[4 * kk + 3]};
-        wgmma_rs_n128<1>(acc, a4, make_desc(ghi + kk * 2048, ATOM, 1024), 1);
-      }
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const uint32_t a4[4] = {fs[4 * kk], fs[4 * kk + 1], fs[4 * kk + 2], fs[4 * kk + 3]};
-        wgmma_rs_n128<1>(acc, a4, make_desc(cs + kk * 2048, ATOM, 1024), 1);
-      }
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(acc);
-      release(step);
-      pair_sum(acc, dBp, c0, rows);
-    }
-
-    // (4) the new G's bf16 hi and lo; dcum, its reverse cumsum da, ddt and
-    // dt da, in order, on warp 0
-    ln.store_bf16(ghi, g);
-    ln.store_bf16<true>(glo, g);
-    if (q == 0) {
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        v[V_ROW + r + 8 * hh] = rterm[hh];
-        v[V_XDX + r + 8 * hh] = xdx[hh];
-      }
-    }
-    fence_proxy_async();
-    named_bar_sync(1 + wg, 128);
-    if (warp == 0) {
-      const float* gs = v + V_GS + 4 * (k & 1);
-      float dc[2];
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int i = lane + 32 * half;
-        dc[half] = v[V_ROW + i] - (((v[V_COL + i] + v[V_COL + 64 + i]) + v[V_COL + 128 + i]) +
-                                   v[V_COL + 192 + i]);
-      }
-      if (lane == 31) dc[1] += ((gs[0] + gs[1]) + gs[2]) + gs[3];  // <G, s_end> on row 63
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {  // suffix sums
-        const float u0 = __shfl_down_sync(0xffffffffu, dc[0], off);
-        const float u1 = __shfl_down_sync(0xffffffffu, dc[1], off);
-        if (lane + off < 32) {
-          dc[0] += u0;
-          dc[1] += u1;
+        for (int hh = 0; hh < 2; ++hh) {
+          v[V_ROW + r + 8 * hh] = rterm[hh];
+          v[V_XDX + r + 8 * hh] = xdx[hh];
         }
       }
-      dc[0] += __shfl_sync(0xffffffffu, dc[1], 0);
+      fence_proxy_async();
+      named_bar_sync(1 + wg, 128);
+      if (warp == 0) {
+        float dc[2];
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int i = lane + 32 * half;
-        if (i < rows) ddt[((size_t)b * S + c0 + i) * H + h] = fmaf(a, dc[half], v[V_XDX + i]);
-        dA_acc = fmaf(v[V_D + i], dc[half], dA_acc);
+        for (int half = 0; half < 2; ++half) {
+          const int i = lane + 32 * half;
+          dc[half] = v[V_ROW + i] -
+                     (((v[V_COL + i] + v[V_COL + 64 + i]) + v[V_COL + 128 + i]) + v[V_COL + 192 + i]);
+        }
+#pragma unroll
+        for (int off = 1; off < 32; off <<= 1) {  // suffix sums
+          const float u0 = __shfl_down_sync(0xffffffffu, dc[0], off);
+          const float u1 = __shfl_down_sync(0xffffffffu, dc[1], off);
+          if (lane + off < 32) {
+            dc[0] += u0;
+            dc[1] += u1;
+          }
+        }
+        dc[0] += __shfl_sync(0xffffffffu, dc[1], 0);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int i = lane + 32 * half;
+          dc[half] += carry;
+          if (i < rows) ddt[((size_t)b * S + c0 + i) * H + h] = fmaf(a, dc[half], v[V_XDX + i]);
+          dA_acc = fmaf(v[V_D + i], dc[half], dA_acc);
+        }
+        carry = __shfl_sync(0xffffffffu, dc[0], 0);
       }
     }
-  }
 
-  if (dinit) ln.store_state(g, dinit + bh * WP * WN);
-  if (warp == 0) {
-    dA_acc = warp_sum(dA_acc);
-    if (lane == 0) dAh[bh] = dA_acc;
+    if (dinit) ln.store_state(g, dinit + bh * WP * WN);
+    if (warp == 0) {
+      dA_acc = warp_sum(dA_acc);
+      if (lane == 0) dAh[2 * bh + 1] = dA_acc;
+    }
   }
-  if (wg == 1) named_bar_sync(BAR_PAIR_EMPTY, W_THREADS);  // the first warpgroup's last arrival
+  // no block leaves before the other has summed the last half it sent
+  mbar_wait_cluster(rfree, (merges - 1) & 1);
 }
 
 int launch_bwd_wgmma(const void* x, const void* dt, const void* A, const void* B, const void* C,
                      const void* dy, const void* init, const void* dstate, void* dx, void* ddt,
-                     void* dA, void* dB, void* dC, void* dinit, float* states, float* dBp,
-                     float* dCp, float* dAh, int nb, int S, int H, int b_sb, int b_ss, int c_sb,
+                     void* dA, void* dB, void* dC, void* dinit, float* pre, void* dBp,
+                     void* dCp, float* dAh, int nb, int S, int H, int b_sb, int b_ss, int c_sb,
                      int c_ss, cudaStream_t stream) {
   if (H % DT_HEADS != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int pairs = H / W_HEADS;  // a multiple of W_CLUSTER
   static hopper::SmemRaised raised;
   CUtensorMap xmap, dymap, bmap, cmap, dtmap;
   const uint64_t xdims[4] = {WP, (uint64_t)H, (uint64_t)S, (uint64_t)nb};
@@ -1123,32 +1221,57 @@ int launch_bwd_wgmma(const void* x, const void* dt, const void* A, const void* B
       !hopper::make_map(&dtmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, dt, 3, dtdims, dtstr, dtbox,
                         CU_TENSOR_MAP_SWIZZLE_NONE))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = hopper::allow_smem(ssd_bwd_wgmma_kernel, W_SMEM, raised);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ssd_bwd_wgmma_kernel<<<dim3(H / W_HEADS, nb), W_THREADS, W_SMEM, stream>>>(
+  float* tot = dAh + 2 * (size_t)nb * H;  // after dt da's two shares (b, H, 2)
+  cudaError_t err = hopper::launch_cluster(
+      ssd_bwd_wgmma_kernel, raised, dim3(pairs, nb, 2), W_THREADS, W_SMEM, W_CLUSTER, stream,
       xmap, dymap, bmap, cmap, dtmap, static_cast<const float*>(A),
       static_cast<const float*>(init), static_cast<const float*>(dstate),
-      static_cast<__nv_bfloat16*>(dx), static_cast<float*>(ddt), dBp, dCp, dAh,
-      static_cast<float*>(dinit), states, S, H);
-  err = cudaGetLastError();
+      static_cast<__nv_bfloat16*>(dx), static_cast<float*>(ddt),
+      static_cast<__nv_bfloat16*>(dBp), static_cast<__nv_bfloat16*>(dCp), dAh, pre, tot,
+      static_cast<float*>(dinit), S, H);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return launch_reduce<__nv_bfloat16>(dBp, dCp, dAh, dB, dC, dA, nb, S, H / W_HEADS, H, WN, 1,
-                                      stream);
+  return launch_reduce<__nv_bfloat16>(static_cast<const __nv_bfloat16*>(dBp),
+                                      static_cast<const __nv_bfloat16*>(dCp), dAh, dB, dC, dA,
+                                      nb, S, pairs / W_CLUSTER, H, WN, 2, stream, pre, tot, A,
+                                      ddt);
 }
 
 }  // namespace
 
-// The rows of a sub-chunk: the states scratch holds ceil(S / rows) (+ 1 on
-// the CUDA cores) states per (batch row, head).
+// The rows of a sub-chunk: the CUDA-core kernel's states scratch holds
+// ceil(S / rows) + 1 states per (batch row, head).
 extern "C" int ssd_scan_bwd_rows() { return BQ; }
+
+// How many clusters of `cl` blocks of the wgmma kernel the card holds at
+// once (cudaOccupancyMaxActiveClusters: whole clusters fit a GPC's SMs),
+// or -1 for a cluster it does not take.
+extern "C" int ssd_scan_bwd_max_clusters(int cl) {
+  static hopper::SmemRaised raised;
+  if (cl < 1 || cl > hopper::MAX_CLUSTER) return -1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cl);
+  cfg.blockDim = dim3(W_THREADS);
+  cfg.dynamicSmemBytes = W_SMEM;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cl;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  cudaError_t err = hopper::allow_smem(ssd_bwd_wgmma_kernel, W_SMEM, raised);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(&n, ssd_bwd_wgmma_kernel, &cfg);
+  return err == cudaSuccess ? n : -1;
+}
 
 // dtype: 0 = fp32, 1 = bf16 (x, B, C, dy, dx, dB, dC).  (P, N) = (64, 128),
 // or (50, 16) in fp32 (bf16 at (50, 16) is ssd_scan_bwd_tc's).  init, dstate
 // and dinit may be null (a zero initial state, a zero cotangent of the final
 // state, no d init).  bf16 at (64, 128) takes the wgmma kernel (H % 4 == 0,
-// 16-byte aligned pointers and B / C strides); its scratch, fp32: states (b,
-// H, nsub, P, N), nsub = ceil(S / ssd_scan_bwd_rows()), dBh and dCh (b, H /
-// 2, S, N), dAh (b, H).  fp32 takes the CUDA-core kernel; its scratch:
+// 16-byte aligned pointers and B / C strides); its scratch: states (b, S, H)
+// fp32 (pre), dBh and dCh (b, H / 4, S, N) bf16, dAh (b, H, 3) fp32 (dt da's
+// two shares, then tot).  fp32 takes the CUDA-core kernel; its scratch, fp32:
 // states (b, H, nsub + 1, P, N), dBh and dCh (b, H, S, N), dAh (b, H).
 // Returns the cudaError_t of the launches, or cudaErrorInvalidValue for what
 // the kernels do not take.
@@ -1168,7 +1291,9 @@ extern "C" int ssd_scan_bwd(const void* x, const void* dt, const void* A, const 
   x, dt, A, B, C, dy, init, dstate, dx, ddt, dA, dB, dC, dinit, st, pb, pc, pa, nb, S, H, b_sb, \
       b_ss, c_sb, c_ss, s
   if (P == WP && N == WN && dtype == 0) return launch_bwd<float, WP, WN>(SSD_BWD_ARGS);
-  if (P == WP && N == WN && dtype == 1) return launch_bwd_wgmma(SSD_BWD_ARGS);
+  if (P == WP && N == WN && dtype == 1)
+    return launch_bwd_wgmma(x, dt, A, B, C, dy, init, dstate, dx, ddt, dA, dB, dC, dinit, st,
+                            dBh, dCh, pa, nb, S, H, b_sb, b_ss, c_sb, c_ss, s);
   if (P == 50 && N == 16 && dtype == 0) return launch_bwd<float, 50, 16>(SSD_BWD_ARGS);
 #undef SSD_BWD_ARGS
   return static_cast<int>(cudaErrorInvalidValue);

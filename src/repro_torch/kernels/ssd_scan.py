@@ -29,9 +29,12 @@ yardstick on the card); ``ssd_scan_bwd_cuda`` launches the kernels of
 ``ssd_bwd_route``, and sums dB, dC and dA over the heads (or groups of
 heads), batch rows and sub-chunks in a fixed order, so two runs give the
 same bits.  bf16 at (64, 128) runs on the tensor cores (``"wgmma"``: TMA and
-wgmma, two heads a block, recomputing the states the forward carried and
-walking 64-row sub-chunks in reverse with the adjoint state in fp32
-registers); bf16 at (50, 16) on the tensor cores chunk-parallel (``"tc"``:
+wgmma, two heads a block, a forward pass over the 64-row sub-chunks that
+carries the state in fp32 registers and forms dC and dcum's state terms
+and, at the same time, a reverse pass that carries the adjoint state and
+forms dx, dB, ddt and dA, no states stored; dB and dC summed over a cluster of pairs of
+heads on chip, ``WGMMA_BWD_CLUSTER``); bf16 at (50, 16) on the tensor cores
+chunk-parallel (``"tc"``:
 mma.sync, the sub-chunks' local state and adjoint increments in parallel,
 one short elementwise pass that chains them, then every sub-chunk's
 gradients in parallel); fp32 at either shape on the CUDA cores in fp32
@@ -314,6 +317,38 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y, state
 
 
+# blocks (pairs of heads) of a batch row that sum their dB and dC in rank
+# order on chip in the "wgmma" backward (csrc/ssd_scan_bwd.cu:W_CLUSTER):
+# its partials that leave the chip are (b, H / 4, S, N) bf16.  Two: the
+# card holds 66 such clusters at once, every SM busy, against 30 of 4 and
+# 15 of 8 (ssd_bwd_probe.py prints the counts)
+WGMMA_BWD_CLUSTER = 2
+
+
+def bwd_scratch_bytes(route: str, b: int, S: int, H: int, P: int,
+                      N: int) -> int:
+    """The bytes of scratch one ``ssd_scan_bwd_cuda`` call writes and reads
+    back in device memory (each byte written once and read once), as its
+    route lays it out: on ``"wgmma"`` the dB and dC partials (b, H / (2
+    cluster), S, N) bf16, dcum's state terms summed over the rows before
+    each (b, S, H) and three (b, H) vectors fp32; on ``"simt"`` the states (b,
+    H, nsub + 1, P, N) and per-head partials; on ``"tc"`` the states and
+    adjoints, their decays and the partials per 4 heads."""
+    nsub = -(-S // 64)
+    f = 4
+    if route == "wgmma":
+        parts = H // (2 * WGMMA_BWD_CLUSTER)
+        return 2 * (2 * 2 * b * parts * S * N + f * (b * S * H + 3 * b * H))
+    elif route == "simt":
+        n = b * H * (nsub + 1) * P * N + 2 * b * H * S * N + b * H
+    elif route == "tc":
+        n = (b * H * (2 * nsub + 1) * P * N + 2 * b * H * nsub
+             + 2 * b * (H // DT_BOX_HEADS) * S * N)
+    else:
+        raise ValueError(f"ssd_scan_bwd: no route {route!r}")
+    return 2 * f * n
+
+
 @functools.lru_cache(maxsize=None)
 def bwd_rows() -> int:
     """The backward kernels' rows per sub-chunk: their scratch holds
@@ -328,9 +363,10 @@ def ssd_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     """(dx, ddt, dA, dB, dC, d init_state) of ``ssd_scan_cuda``, as
     ``ssd_scan_bwd_plain`` computes them, on the kernels that
     ``ssd_bwd_route`` picks: on ``"wgmma"`` and ``"simt"`` two launches of
-    ``csrc/ssd_scan_bwd.cu`` (the backward per head or pair of heads and
-    batch row, then the sum of dB, dC and dA over the heads and the batch
-    rows in a fixed order); on ``"tc"`` four of ``csrc/ssd_scan_bwd_tc.cu``
+    ``csrc/ssd_scan_bwd.cu`` (the backward per pair of heads and batch row,
+    in clusters of pairs, or per head and batch row, then the sum of dB,
+    dC and dA over the clusters or heads and the batch rows in a fixed
+    order); on ``"tc"`` four of ``csrc/ssd_scan_bwd_tc.cu``
     (the sub-chunks' local increments, the serial pass over them, the
     sub-chunks' gradients, the sums).  x,
     dt, A, dy, init_state and dstate contiguous; B and C may be views with
@@ -399,13 +435,19 @@ def ssd_scan_bwd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             decay.data_ptr(), dBp.data_ptr(), dCp.data_ptr(), dAp.data_ptr(),
             b, S, H, *bc_strides, stream), "ssd_scan_bwd")
     else:
-        # scratch: the sub-chunks' start states (on the CUDA cores also the
-        # final one), and dB / dC per pair of heads (wgmma) or per head
+        # scratch: on wgmma, which stores no states, dB / dC per cluster of
+        # pairs of heads, dcum's state terms summed over the rows before each
+        # (b, S, H) in the place of the states, dt da's forward and reverse
+        # shares and the terms' totals (b, H, 3); on simt the sub-chunks'
+        # start states and the final one, dB / dC and dt da per head
         wgmma = route == "wgmma"
-        states = torch.empty((b, H, nsub + (not wgmma), P, N), **f32)
-        dBh = torch.empty((b, H // 2 if wgmma else H, S, N), **f32)
+        states = torch.empty((b, S, H) if wgmma else (b, H, nsub + 1, P, N),
+                             **f32)
+        dBh = (torch.empty((b, H // (2 * WGMMA_BWD_CLUSTER), S, N),
+                           dtype=torch.bfloat16, device=x.device) if wgmma
+               else torch.empty((b, H, S, N), **f32))
         dCh = torch.empty_like(dBh)
-        dAh = torch.empty((b, H), **f32)
+        dAh = torch.empty((b, H, 3) if wgmma else (b, H), **f32)
         _build.check(lib.ssd_scan_bwd(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
             C.data_ptr(), dy.data_ptr(), ptr(init_state), ptr(dstate),

@@ -21,11 +21,18 @@ S 512; S 449 from an initial state with a final-state cotangent; b 1, S
 4096 with A times 1e-4), or with ``--heads hymba`` at hymba_1_5b's (P 50,
 N 16; the ``"tc"`` route: its train shape b 2, S 2048, H 64; S 1800 from
 an initial state with a cotangent; b 1, S 4096, A times 1e-4; a model
-rank's 32 heads at b 2, S 2048): the median of 20 CUDA-event timings of one
-call by ``scan_time.time_ms`` (the L2 cache flushed and the card kept busy
-ahead of each, as chip_smoke.py times its kernels), each launch's device
-time from ``torch.profiler`` over one call, and the largest error of the
-six gradients against the plain version, ``scan_time.rel_err``.  It
+rank's 32 heads at b 2, S 2048; mamba2's at b 8, S 512): the median of 20
+CUDA-event timings of one call by ``scan_time.time_ms`` (the L2 cache
+flushed and the card kept busy ahead of each, as chip_smoke.py times its
+kernels), each launch's device time from ``torch.profiler`` over one call,
+the largest error of the six gradients against the plain version,
+``scan_time.rel_err``, the scratch the call allocates beyond its outputs
+(``scratch_alloc_bytes``, the peak of ``torch.cuda`` allocations) and the
+scratch bytes it writes and reads back (``scratch_bytes``:
+``ssd_scan.bwd_scratch_bytes`` where the checkout has it, else twice the
+allocation, each byte written once and read once); first, how many
+clusters of 1, 2, 4 and 8 blocks of the wgmma kernel the card holds at once
+(``cudaOccupancyMaxActiveClusters``).  It
 imports the package by its absolute name, so it can time another
 checkout's copy of it (a variant of the kernel), with that checkout's
 ``src`` first on the path:
@@ -37,6 +44,7 @@ Prints one JSON object per case, with the card's name and power limit
 from __future__ import annotations
 
 import argparse
+import importlib
 import itertools
 import json
 import subprocess
@@ -90,7 +98,8 @@ def errors():
 # cotangent, scale of A)
 TIME_SHAPES = {
     "mamba2": ((64, 128), ((8, 512, 64, False, 1.0), (8, 449, 64, True, 1.0),
-                           (1, 4096, 64, True, 1e-4))),
+                           (1, 4096, 64, True, 1e-4),
+                           (8, 512, 32, False, 1.0))),
     "hymba": ((50, 16), ((2, 2048, 64, False, 1.0), (2, 1800, 64, True, 1.0),
                          (1, 4096, 64, True, 1e-4),
                          (2, 2048, 32, False, 1.0)))}
@@ -100,7 +109,7 @@ TIME_ITERS = 20
 def time_bf16(heads="mamba2"):
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import _build, ops
     from repro_torch.kernels.ssd_scan import (SSD_BWD_ROUTE_LAUNCHES,
                                               ssd_scan_bwd_plain)
     from repro_torch.launch.scan_time import rel_err, time_ms
@@ -111,6 +120,10 @@ def time_bf16(heads="mamba2"):
         return (torch.randn(shape, generator=gen, device="cuda") * scale
                 ).to(dtype)
 
+    lib = _build.load()
+    if heads == "mamba2" and hasattr(lib, "ssd_scan_bwd_max_clusters"):
+        yield {"case": "clusters", "max_active": {
+            cl: lib.ssd_scan_bwd_max_clusters(cl) for cl in (1, 2, 4, 8)}}
     for b, S, H, init, a_scale in shapes:
         bf = torch.bfloat16
         BC = randn(b, S, 2 * N, scale=0.5, dtype=bf)
@@ -121,8 +134,17 @@ def time_bf16(heads="mamba2"):
         kw = dict(init_state=randn(b, H, P, N) if init else None,
                   dstate=randn(b, H, P, N) if init else None)
         ops.reset_launches()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         got = ops.ssd_scan_bwd(*args, **kw)
+        torch.cuda.synchronize()
+        out = sum(g.numel() * g.element_size() for g in got if g is not None)
+        alloc = torch.cuda.max_memory_allocated() - base - out
         routes = dict(SSD_BWD_ROUTE_LAUNCHES)
+        route = next(r for r, n in routes.items() if n)
+        count = getattr(importlib.import_module("repro_torch.kernels.ssd_scan"),
+                        "bwd_scratch_bytes", None)  # the package's ssd_scan is ops
         want = ssd_scan_bwd_plain(*args, chunk=256, **kw)
         err = max(rel_err(g, w) for g, w in zip(got, want) if w is not None)
         del got, want
@@ -140,7 +162,9 @@ def time_bf16(heads="mamba2"):
                     e.time_range.elapsed_us() / 1e3
         yield {"case": "time", "shape": [b, S, H, P, N], "init_and_dstate": init,
                "a_scale": a_scale, "routes": routes, "max_rel_err": err,
-               "ms": ms, "launch_ms": launches}
+               "ms": ms, "launch_ms": launches, "scratch_alloc_bytes": alloc,
+               "scratch_bytes": (count(route, b, S, H, P, N) if count
+                                 else 2 * alloc)}
 
 
 def train(plain_backward: bool, arch="mamba2_1_3b", batch=8, seq=512,

@@ -1377,6 +1377,35 @@ def test_cuda_ssd_scan_bwd_is_deterministic(card, P, N, dtype):
         assert torch.equal(a, b)
 
 
+# (b, S, H, ends) of the wgmma route (bf16 at mamba2_1_3b's P 64, N 128):
+# H 4 (one cluster of two pairs a batch row), 8, 12, a rank's 32 and 64,
+# ragged S (65, 97, 449) and the train shape's S at a small batch, from both
+# ends (an initial state and a final-state cotangent) or from one
+SSD_BWD_WGMMA_CASES = [(2, 449, 4, "both"), (2, 97, 8, "both"),
+                       (1, 65, 12, "init"), (2, 449, 32, "both"),
+                       (2, 512, 32, "dstate"), (1, 97, 64, "init"),
+                       (2, 449, 64, "dstate"), (2, 512, 64, "both")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,S,H,ends", SSD_BWD_WGMMA_CASES)
+def test_cuda_ssd_scan_bwd_wgmma_heads(card, b, S, H, ends):
+    """The wgmma route at one to 16 clusters a batch row: dB and dC summed
+    over each cluster's pairs of heads on chip, the forward and reverse
+    passes' shares of da (the forward's from <dstate, s_final>, zero
+    without a cotangent), against the plain version; two calls give the
+    same bits."""
+    x, dt, A, B, C, init, dy, ds = _ssd_bwd_on(card, "bfloat16", 76 + S + H,
+                                               b, S, H, True, 64, 128)
+    init = init if ends in ("both", "init") else None
+    ds = ds if ends in ("both", "dstate") else None
+    first = _check_ssd_bwd(x, dt, A, B, C, init, dy, ds, "bfloat16")
+    second = ops.ssd_scan_bwd(x, dt, A, B, C, dy, init_state=init, dstate=ds)
+    torch.cuda.synchronize()
+    for a, b_ in zip(first, second):
+        assert (a is None and b_ is None) or torch.equal(a, b_)
+
+
 @pytest.mark.cuda
 def test_cuda_ssd_scan_bwd_rejects_what_it_does_not_take(card):
     """(P, N) the kernel does not take, a state dim that is not contiguous,

@@ -25,7 +25,8 @@ from repro_torch.kernels.flash_attention import (LOG2E,
                                                  flash_attention_bwd_plain,
                                                  flash_attention_lse_plain,
                                                  flash_attention_plain)
-from repro_torch.kernels.ssd_scan import ssd_bwd_route, ssd_scan_bwd_plain
+from repro_torch.kernels.ssd_scan import (WGMMA_BWD_CLUSTER, ssd_bwd_route,
+                                         ssd_scan_bwd_plain)
 
 torch.set_num_threads(2)
 
@@ -220,98 +221,158 @@ def _bf(t):
 
 
 def _wgmma_bwd_model(x, dt, A, B, C, dy, init_state=None, dstate=None,
-                     split=True):
-    """The arithmetic of ``csrc/ssd_scan_bwd.cu:ssd_bwd_wgmma_kernel`` in
-    plain torch: 64-row sub-chunks (zero rows past S), fp32 sums, states,
-    adjoint G, dcum terms and reverse cumsum, and bf16 rounding where the
-    kernel rounds a product's operand: L o C B^T and L o dy (x dt)^T,
-    exp(cum) o dy, x o dt o w (in dB), s0, and G (in dB); pass 1's x o dt o
-    w and G in B G^T as a bf16 pair hi + lo (``split``; one bf16 each
-    without it).  dB and dC summed over each pair of heads, then over the
-    pairs in order; dx, dB and dC rounded to bf16 at the end."""
+                     rounded=True, split=True):
+    """The arithmetic of ``csrc/ssd_scan_bwd.cu:ssd_bwd_wgmma_kernel`` (the
+    ``"wgmma"`` route) in plain torch, over 64-row sub-chunks (zero rows
+    past S).  da is the reverse cumsum of dcum over the whole sequence from
+    <dstate, s_final> (the last row's term), which needs no <G, s_end> per
+    sub-chunk; the kernel's two passes, which run at once, each sum a share:
+
+    1. the forward pass, in order, the state s0 carried from init_state (or
+       0): per sub-chunk dC ((exp(cum) o dy) s0 + (L o dy xdt^T) B) and
+       dcum's terms that read the states, R = rowsum(M) + C.((exp(cum) o
+       dy) s0); then s <- exp(cum_last) s + (x o dt w)^T B.  Its share of
+       da at row t is tot - pre_t: tot the sum of R over the sequence plus
+       <dstate, s_final>, pre_t R's sum over the rows before t; its share of
+       dA's sum of dt da is tot sum(dt) - sum(dt pre);
+    2. the reverse pass, the adjoint G carried from dstate (or 0): per
+       sub-chunk dx, dB (w xdt G + (L o dy xdt^T)^T C) and the other dcum
+       terms, -colsum(M) - w xdt.(B G^T), their reverse cumsum carried over
+       the sequence into ddt and dt da; G <- exp(cum_last) G + (exp(cum) o
+       dy)^T C;
+    3. the reduce adds A (tot - pre) to ddt.
+    dB and dC of each sub-chunk are summed over each pair of heads, then over
+    the ``WGMMA_BWD_CLUSTER`` pairs of a cluster in rank order, rounded to
+    bf16 (the partials the kernel stores), then over the clusters in order.
+
+    ``rounded``: fp32 with bf16 rounding where the kernel rounds a product's
+    operand (L o C B^T, L o dy (x dt)^T, exp(cum) o dy in both passes, x o
+    dt o w in dB, G in dB; s0 in (exp(cum) o dy) s0, x o dt o w in the
+    state's update and G in B G^T as a bf16 pair hi + lo, or one bf16 each
+    without ``split``), dx, dB and dC bf16 at the end; else fp64 with no
+    rounding, the decomposition alone.  The same bf16 exp(cum) o dy in the
+    adjoint's update and in R keeps the reverse cumsum's sum over later
+    sub-chunks equal to what <G, s_end> would be in the same roundings:
+    with dy s0 scaled by exp(cum) after the product instead, dA missed
+    1e-2 of its largest value."""
+    ct = torch.float32 if rounded else torch.float64
+    one = _bf if rounded else (lambda t: t)
+    pair = (lambda t: _bf(t) + _bf(t - _bf(t))) if rounded and split \
+        else one
     b, S, H, P = x.shape
     N = B.shape[-1]
     Q = 64
     nsub = -(-S // Q)
     pad = nsub * Q - S
-    x, dy = (F.pad(t.float(), (0, 0, 0, 0, 0, pad)) for t in (x, dy))
-    B, C = (F.pad(t.float(), (0, 0, 0, pad)) for t in (B, C))
-    dt = F.pad(dt.float(), (0, 0, 0, pad))
-    pair = (lambda t: _bf(t) + _bf(t - _bf(t))) if split else _bf
+    x, dy = (F.pad(t.to(ct), (0, 0, 0, 0, 0, pad)) for t in (x, dy))
+    B, C = (F.pad(t.to(ct), (0, 0, 0, pad)) for t in (B, C))
+    dt = F.pad(dt.to(ct), (0, 0, 0, pad))
+    A = A.to(ct)
+    cl = WGMMA_BWD_CLUSTER
     tril = torch.ones(Q, Q, dtype=torch.bool).tril()[None, :, :, None]
     strict = torch.ones(Q, Q, dtype=torch.bool).tril(-1)[None, :, :, None]
+    zero = torch.zeros((), dtype=ct)
 
-    def sub(k):  # rows, dt, cum, exp(cum), w, exp(cum_last) of sub-chunk k
+    def sub(k):  # rows, dt, exp(cum), w, exp(cum_last), L, C B^T, S2, M
         rows = slice(k * Q, (k + 1) * Q)
         d = dt[:, rows]
         cum = torch.cumsum(d * A, 1)
-        return (rows, d, cum, torch.exp(cum), torch.exp(cum[:, -1:] - cum),
-                torch.exp(cum[:, -1])[..., None, None])
+        L = torch.where(tril, torch.exp(cum[:, :, None] - cum[:, None]), zero)
+        CB = torch.einsum("bin,bjn->bij", C[:, rows], B[:, rows])[..., None]
+        S2 = L * torch.einsum("bihp,bjhp->bijh", dy[:, rows], x[:, rows]) * \
+            d[:, None]
+        return (rows, d, torch.exp(cum), torch.exp(cum[:, -1:] - cum),
+                torch.exp(cum[:, -1])[..., None, None], L, CB, S2,
+                torch.where(strict, S2 * CB, zero))
 
-    s = torch.zeros(b, H, P, N) if init_state is None else init_state.clone()
-    states = []
-    for k in range(nsub):  # pass 1
-        states.append(s)
-        rows, d, _, _, w, el = sub(k)
+    def heads(part):  # (b, Q, H, N): pairs, ranks in order, clusters
+        g = (part[:, :, 0::2] + part[:, :, 1::2]).reshape(b, Q, -1, cl, N)
+        t = g[..., 0, :]
+        for r in range(1, cl):
+            t = t + g[..., r, :]
+        t = one(t)
+        total = t[:, :, 0]
+        for i in range(1, t.shape[2]):
+            total = total + t[:, :, i]
+        return total
+
+    s = torch.zeros(b, H, P, N, dtype=ct) if init_state is None \
+        else init_state.to(ct)
+    R = torch.zeros(b, nsub * Q, H, dtype=ct)
+    dB, dC = (torch.zeros(b, nsub * Q, N, dtype=ct) for _ in range(2))
+    for k in range(nsub):  # 1. the forward pass
+        rows, d, ec, w, el, L, CB, S2, M = sub(k)
+        dys0 = torch.einsum("bihp,bhpn->bihn",
+                            one(dy[:, rows] * ec[..., None]), pair(s))
+        R[:, rows] = M.sum(2) + (C[:, rows, None] * dys0).sum(-1)
+        dC[:, rows] = heads(dys0 + torch.einsum("bijh,bjn->bihn", one(S2),
+                                                B[:, rows]))
         s = s * el + torch.einsum("bjhp,bjn->bhpn",
                                   pair(x[:, rows] * (d * w)[..., None]),
                                   B[:, rows])
-    G = torch.zeros(b, H, P, N) if dstate is None else dstate.clone()
-    gs = (G * s).sum((-1, -2))  # <G, s_end> of the last sub-chunk
+    G = torch.zeros(b, H, P, N, dtype=ct) if dstate is None \
+        else dstate.to(ct)
+    pre = torch.zeros_like(R)  # R summed over the rows before each row
+    run = torch.zeros(b, H, dtype=ct)
+    for k in range(nsub):
+        rows = slice(k * Q, (k + 1) * Q)
+        pre[:, rows] = run[:, None] + torch.cumsum(R[:, rows], 1) - R[:, rows]
+        run = run + R[:, rows].sum(1)
+    tot = run + (G * s).sum((-1, -2))  # with <dstate, s_final>
+    dA = tot * dt.sum(1) - (dt * pre).sum(1)
+    carry = torch.zeros(b, H, dtype=ct)
     dx, ddt = torch.zeros_like(x), torch.zeros_like(dt)
-    dB, dC = torch.zeros(b, nsub * Q, N), torch.zeros(b, nsub * Q, N)
-    dA = torch.zeros(b, H)
-    for k in reversed(range(nsub)):  # pass 2
-        rows, d, cum, ec, w, el = sub(k)
-        xk, dyk, Bk, Ck, s0 = x[:, rows], dy[:, rows], B[:, rows], \
-            C[:, rows], states[k]
-        L = torch.where(tril, torch.exp(cum[:, :, None] - cum[:, None]),
-                        torch.zeros(()))
-        Gb, Gp = _bf(G), pair(G)
-        G = G * el + torch.einsum("bihp,bin->bhpn", _bf(dyk * ec[..., None]),
-                                  Ck)
-        gs_next = (G * s0).sum((-1, -2))
-        CB = torch.einsum("bin,bjn->bij", Ck, Bk)[..., None]
-        S2 = L * torch.einsum("bihp,bjhp->bijh", dyk, xk) * d[:, None]
-        M = torch.where(strict, S2 * CB, torch.zeros(()))
-        S1b, S2b = _bf(L * CB), _bf(S2)
-        BG = torch.einsum("bin,bhpn->bihp", Bk, Gp)
-        dxdt = w[..., None] * BG + torch.einsum("bjih,bjhp->bihp", S1b, dyk)
-        dys0 = torch.einsum("bihp,bhpn->bihn", dyk, _bf(s0))
-        dCh = ec[..., None] * dys0 + torch.einsum("bijh,bjn->bihn", S2b, Bk)
-        dBh = torch.einsum("bihp,bhpn->bihn",
-                           _bf(xk * (d * w)[..., None]), Gb) + \
-            torch.einsum("bjih,bjn->bihn", S2b, Ck)
-        for out, part in ((dB, dBh), (dC, dCh)):
-            pairs = part[:, :, 0::2] + part[:, :, 1::2]
-            total = pairs[:, :, 0]
-            for i in range(1, H // 2):
-                total = total + pairs[:, :, i]
-            out[:, rows] = total
-        dcum = M.sum(2) - M.sum(1) + ec * (Ck[:, :, None] * dys0).sum(-1) - \
-            w * d * (xk * BG).sum(-1)
-        dcum[:, -1] += gs
-        da = torch.flip(torch.cumsum(torch.flip(dcum, [1]), 1), [1])
+    for k in reversed(range(nsub)):  # 2. the reverse pass
+        rows, d, ec, w, el, L, CB, S2, M = sub(k)
+        xk, dyk, Bk, Ck = x[:, rows], dy[:, rows], B[:, rows], C[:, rows]
+        BG = torch.einsum("bin,bhpn->bihp", Bk, pair(G))
+        dxdt = w[..., None] * BG + torch.einsum("bjih,bjhp->bihp",
+                                                one(L * CB), dyk)
+        dB[:, rows] = heads(
+            torch.einsum("bihp,bhpn->bihn", one(xk * (d * w)[..., None]),
+                         one(G)) +
+            torch.einsum("bjih,bjn->bihn", one(S2), Ck))
+        dcum = -M.sum(1) - w * d * (xk * BG).sum(-1)
+        da = torch.flip(torch.cumsum(torch.flip(dcum, [1]), 1), [1]) + \
+            carry[:, None]
+        carry = da[:, 0]
         dx[:, rows] = d[..., None] * dxdt
         ddt[:, rows] = (xk * dxdt).sum(-1) + A * da
         dA = dA + (d * da).sum(1)
-        gs = gs_next
+        G = G * el + torch.einsum("bihp,bin->bhpn",
+                                  one(dyk * ec[..., None]), Ck)
+    ddt = ddt + A * (tot[:, None] - pre)  # 3. the reduce
+    out = (dx[:, :S], ddt[:, :S], dA.sum(0), dB[:, :S], dC[:, :S],
+           None if init_state is None else G)
+    if not rounded:
+        return out
     bf = torch.bfloat16
-    return (dx[:, :S].to(bf), ddt[:, :S], dA.sum(0), dB[:, :S].to(bf),
-            dC[:, :S].to(bf), None if init_state is None else G)
+    return (out[0].to(bf), out[1], out[2], out[3].to(bf), out[4].to(bf),
+            out[5])
+
+
+def _wgmma_inputs(seed, b, S, H, a_scale, with_init, bf16=True):
+    """mamba2's heads (P 64, N 128): x, B, C and dy bf16-valued (B and C
+    halves of one tensor, as the card tests draw them) or fp64, A times
+    ``a_scale``, an initial state and a final-state cotangent or none (or
+    one of them: ``with_init`` "init" or "dstate")."""
+    x, dt, A, B, C, s0, dy, ds = (torch.tensor(a) for a in
+                                  _ssd_inputs(seed, b, S, H, 64, 128))
+    if bf16:
+        x, B, C, dy = (t.to(torch.bfloat16) for t in (x, B, C, dy))
+    else:
+        x, dt, A, B, C, s0, dy, ds = (t.double() for t in
+                                      (x, dt, A, B, C, s0, dy, ds))
+    init = s0 if with_init in (True, "init") else None
+    dstate = ds if with_init in (True, "dstate") else None
+    return x, dt, A * a_scale, B, C, dy, init, dstate
 
 
 def _wgmma_model_errors(seed, b, S, H, a_scale, with_init, split=True):
-    """Per gradient, max |model - plain| / max |plain|, the plain version in
-    fp64, on mamba2's heads (P 64, N 128) from bf16-valued x, B, C and dy
-    (B and C halves of one tensor, as the card tests draw them), A times
-    ``a_scale``, an initial state and a final-state cotangent or none."""
-    P, N = 64, 128
-    x, dt, A, B, C, s0, dy, ds = (torch.tensor(a) for a in
-                                  _ssd_inputs(seed, b, S, H, P, N))
-    x, B, C, dy = (t.to(torch.bfloat16) for t in (x, B, C, dy))
-    A = A * a_scale
-    init, dstate = (s0, ds) if with_init else (None, None)
+    """Per gradient, max |model - plain| / max |plain|: the bf16-rounded
+    model of the wgmma route against the plain version in fp64."""
+    x, dt, A, B, C, dy, init, dstate = _wgmma_inputs(seed, b, S, H, a_scale,
+                                                     with_init)
     got = _wgmma_bwd_model(x, dt, A, B, C, dy, init, dstate, split=split)
     d = lambda t: None if t is None else t.double()  # noqa: E731
     want = ssd_scan_bwd_plain(*(d(t) for t in (x, dt, A, B, C, dy)),
@@ -321,12 +382,38 @@ def _wgmma_model_errors(seed, b, S, H, a_scale, with_init, split=True):
             for name, g, w in zip(NAMES, got, want) if w is not None}
 
 
-# (b, S, H, A's scale, init): the long memory (A times 1e-4, the adjoint and
-# the states carried across 16 sub-chunks), ragged S (449 and 97 prime, 65
-# one row past a sub-chunk), with and without an initial state
+# (b, S, H, A's scale, init) of the wgmma route's model: the long memory (A
+# times 1e-4, the states, the adjoint and dcum's running sums carried across
+# 16 sub-chunks), ragged S (449 and 97 prime, 65 one row past a sub-chunk),
+# with an initial state and a final-state cotangent, one of them or none,
+# and H 8 and 32 (2 and 8 bf16 partials of the heads; 1 at H 4)
 WGMMA_MODEL_CASES = [(1, 1024, 4, 1e-4, True), (1, 1024, 4, 1e-4, False),
                      (2, 449, 4, 1.0, True), (2, 97, 4, 1.0, False),
-                     (2, 65, 4, 1.0, True), (1, 130, 8, 1.0, False)]
+                     (2, 65, 4, 1.0, True), (1, 130, 8, 1.0, False),
+                     (1, 97, 32, 1.0, True), (2, 65, 4, 1.0, "init"),
+                     (2, 97, 8, 1.0, "dstate")]
+
+
+@pytest.mark.parametrize("b,S,H,a_scale,with_init", WGMMA_MODEL_CASES)
+def test_wgmma_bwd_decomposition_is_exact(b, S, H, a_scale, with_init):
+    """The wgmma route's two passes without rounding, in fp64, equal
+    ``ssd_scan_bwd_plain`` in fp64 to 1e-10 of each gradient's largest
+    value: dC and dcum's state terms in the forward pass, dx, dB and the
+    rest in the reverse one, da one reverse cumsum over the sequence from
+    <dstate, s_final> in the place of a <G, s_end> per sub-chunk, split
+    into the two passes' shares, and the heads summed by pair, rank and
+    cluster change nothing but the order of the sums."""
+    args = _wgmma_inputs(S + H + 7, b, S, H, a_scale, with_init, False)
+    got = _wgmma_bwd_model(*args[:6], args[6], args[7], rounded=False)
+    want = ssd_scan_bwd_plain(*args[:6], chunk=256, init_state=args[6],
+                              dstate=args[7])
+    for name, g, w in zip(NAMES, got, want):
+        if w is None:
+            assert g is None, name
+            continue
+        assert g.dtype == torch.float64, name
+        err = (g - w).abs().max().item()
+        assert err <= 1e-10 * w.abs().max().item(), (name, err)
 
 
 @pytest.mark.parametrize("b,S,H,a_scale,with_init", WGMMA_MODEL_CASES)
@@ -341,12 +428,36 @@ def test_wgmma_bwd_rounding_keeps_the_fine_limit(b, S, H, a_scale, with_init):
 
 def test_wgmma_bwd_dA_needs_the_split_operands():
     """dA, a sum over every row whose terms cancel, is what bf16 operands
-    cost most: with pass 1's x o dt o w and G in B G^T rounded to one bf16
-    each, dA misses the 1e-2 limit at a ragged S of two sub-chunks, and
-    with each a bf16 pair (the kernel's) it keeps it."""
+    cost most: with s0 in (exp(cum) o dy) s0, the state update's x o dt w
+    and G in B G^T rounded to one bf16 each, dA misses the 1e-2 limit at a
+    ragged S of two sub-chunks, and with each a bf16 pair (the kernel's) it
+    keeps it."""
     split = _wgmma_model_errors(101, 2, 97, 4, 1.0, False)
     single = _wgmma_model_errors(101, 2, 97, 4, 1.0, False, split=False)
     assert split["dA"] < 1e-2 < single["dA"], (split, single)
+
+
+def test_wgmma_bwd_model_matches_jax_grad():
+    """The wgmma route's passes against jax.grad of the JAX package's
+    ``ssd_scan_ref`` at mamba2's (64, 128) on the same numpy inputs (ragged
+    S over two sub-chunks, H 8, an initial state and a final-state
+    cotangent): unrounded within SSD_GRAD_TOL, with the kernel's bf16
+    roundings (on bf16-valued inputs) within the card's 1e-2."""
+    b, S, H, P, N = 1, 97, 8, 64, 128
+    x, dt, A, B, C, s0, dy, ds = _ssd_inputs(37, b, S, H, P, N)
+    bfv = lambda a: torch.tensor(a).to(torch.bfloat16).float().numpy()  # noqa: E731,E501
+    x, B, C, dy = (bfv(a) for a in (x, B, C, dy))
+    want = _jax_grads(x, dt, A, B, C, s0, dy, ds, 16, True, True)
+    T = torch.tensor
+    exact = _wgmma_bwd_model(*(T(a).double() for a in (x, dt, A, B, C, dy)),
+                             T(s0).double(), T(ds).double(), rounded=False)
+    _assert_grads([g.float() for g in exact], want)
+    bf = torch.bfloat16
+    got = _wgmma_bwd_model(T(x).to(bf), T(dt), T(A), T(B).to(bf),
+                           T(C).to(bf), T(dy).to(bf), T(s0), T(ds))
+    for name, g, w in zip(NAMES, got, want):
+        err = np.abs(g.float().numpy() - w).max()
+        assert err < 1e-2 * np.abs(w).max(), (name, err)
 
 
 def _tc_bwd_model(x, dt, A, B, C, dy, init_state=None, dstate=None,

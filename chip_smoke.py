@@ -10,26 +10,33 @@ exits non-zero):
 2. build    -- nvcc builds the hand-written kernels of src/repro_torch; the
                SASS instruction counts of each kernel (cuobjdump), which
                must show wgmma (HGMMA) and TMA loads (UTMALDG) in the
-               prefill and decode matmul kernels, the bf16 flash and
-               decode attention kernels and the bf16 SSD scan kernel of
-               P 64, N 128, both kernels of K2's bf16 backward and K4's
-               bf16 backward kernel of P 64, N 128, and
+               prefill, decode and grouped decode matmul kernels, the bf16
+               flash and decode attention kernels and the bf16 SSD scan
+               kernel of P 64, N 128, both kernels of K2's bf16 backward
+               and K4's bf16 backward kernel of P 64, N 128, and
                tensor-core products (HMMA or HGMMA) and asynchronous loads
                (UTMALDG or LDGSTS) in the bf16 SSD scan kernel of P 50, N
                16; and each kernel's registers and spills from ptxas's
                report, with no spill allowed in either bf16 SSD scan
                kernel, in any instance of K2's bf16 forward kernel (hd 64
                and 128, band or not, lse or not) or of its two bf16
-               backward kernels, or in K4's backward kernels;
+               backward kernels, in K4's backward kernels, or in K1's
+               grouped decode kernel;
 3. kernels  -- each kernel against its plain PyTorch version on the card
                at the shapes of the serving paths of the nine served
                models (qwen2_0_5b, llama3_2_1b, qwen2_7b, qwen3_4b,
-               mamba2_1_3b, deepseek_moe_16b with its fp32 router,
-               internvl2_26b, hymba_1_5b, whisper_large_v3, each at its
-               served batch; whisper's flash attention not causal, its
-               encoder's at S 1500 and its cross-attention from 512 and 455
-               queries to 1500 keys, its decode attention over the 1500
-               slots of its cross cache; hymba's flash
+               mamba2_1_3b, deepseek_moe_16b with its fp32 router (y at
+               4, 2048 and 4096 rows, its training dx and dw at 4096, on
+               the "fp32" TMA ring kernel, one launch and one tensor, its
+               output, a call, two calls bit-equal) and its grouped
+               decode products also on the dispatch buffer its routing
+               makes of 4 tokens (two calls bit-equal, the empty experts'
+               outputs zero), internvl2_26b, hymba_1_5b,
+               whisper_large_v3, each at its served batch; whisper's flash
+               attention not causal, its encoder's at S 1500 and its
+               cross-attention from 512 and 455 queries to 1500 keys,
+               its decode attention over the 1500 slots of its cross
+               cache; hymba's flash
                attention under its window of 1024, at S 512 and at S 1800,
                past the window; its scan at P 50, N 16, bf16 on the
                tensor-core route "tc", fp32 on the CUDA cores, also at b 2,
@@ -147,8 +154,10 @@ exits non-zero):
                or more (the prefills') took the wgmma kernel and every one
                of fewer rows (the decode steps' and the prefill's
                unembedding) the wgmma decode kernel, every fp32 one (the MoE
-               router) the fp32 kernel, every grouped one its expected
-               grouped route, and every scan its model's scan kernel; the
+               router) the fp32 TMA ring kernel, every grouped one its
+               expected grouped route, and every scan its model's scan
+               kernel; K1's device ms a decode step by route (the graph's
+               replays, profiled); the
                graph's tokens against the same batch decoded eagerly
                through bundle.decode, all 32 of every request; a profile of
                one prefill and of four decode steps, eager and replayed
@@ -473,6 +482,18 @@ K1_TRAIN_PRODUCTS = {
                          (1600, 32256, False)],
     "deepseek_moe_16b_train": [(2048, 2048, False), (2048, 10944, False),
                                (10944, 2048, False)]}
+# deepseek_moe_16b's router, (K, N) = (d_model, n_experts), fp32 as the
+# JAX package keeps it: y at a decode step of its served batch (4 rows), a
+# prefill's 2048 rows and a train step's 4096 (8 x 512 tokens); its
+# training dx and dw at 4096 rows
+K1_ROUTER = (2048, 64)
+K1_ROUTER_ROWS = (4, 2048, 4096)
+# the grouped decode products (E, C, K, N): deepseek_moe_16b's experts at a
+# decode step of its served batch 4 (C = max(8, ceil(4 x 6 / 64 x 1.25)) =
+# 8), gate/up then down; llama4_maverick_400b_a17b's gate (128 experts, d
+# 5120, f 8192) at C 8
+K1_GROUPED_DECODE = [(64, 8, 2048, 1408), (64, 8, 1408, 2048),
+                     (128, 8, 5120, 8192)]
 
 
 def k1_train_operands(randn, M, K, N, tied, kind, dtype):
@@ -699,6 +720,7 @@ def phase_build():
               line.strip() for line in log.splitlines()
               if "warning" in line.lower() or "Performance" in line]})
     for kernel in ("matmul_wgmma_kernel", "matmul_decode_kernel",
+                   "matmul_grouped_decode_kernel",
                    "flash_wgmma_kernel", "decode_wgmma_kernel",
                    "ssd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
                    "flash_bwd_dkdv_wgmma_kernel", "ssd_bwd_wgmma_kernel"):
@@ -724,7 +746,8 @@ def phase_build():
                    "flash_bwd_dq_wgmma_kernel<128,",
                    "flash_bwd_dkdv_wgmma_kernel<128,", "ssd_bwd_kernel",
                    "ssd_bwd_wgmma_kernel", "ssd_bwd_reduce_kernel",
-                   "ssd_bwd_tc_local_kernel", "ssd_bwd_tc_serial_kernel"):
+                   "ssd_bwd_tc_local_kernel", "ssd_bwd_tc_serial_kernel",
+                   "matmul_grouped_decode_kernel"):
         mine = [r for name, r in ptxas.items() if kernel in name]
         if not mine or any(r.get("spill_stores") != 0 or
                            r.get("spill_loads") != 0 for r in mine):
@@ -800,6 +823,36 @@ def _kernel_name(mangled):
     return mangled
 
 
+def routed_decode_products(torch, randn, ops, tokens=4):
+    """deepseek_moe_16b's three grouped products of one MoE layer at a
+    decode step of ``tokens`` tokens, as the port's routing makes them
+    (``moe._local_moe`` on random weights, ``randn``'s): (x, w) of gate,
+    up and down, the dispatch buffer's empty experts' rows zero."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = get_config("deepseek_moe_16b")
+    d, E, f = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
+    bf16 = torch.bfloat16
+    x = randn(tokens, d, dtype=bf16)
+    router = randn(d, E, dtype=torch.float32, scale=d ** -0.5)
+    wg = randn(E, d, f, dtype=bf16, scale=d ** -0.5)
+    wu = randn(E, d, f, dtype=bf16, scale=d ** -0.5)
+    wd = randn(E, f, d, dtype=bf16, scale=f ** -0.5)
+    seen, grouped = [], ops.grouped_matmul
+
+    def record(a, b):
+        seen.append((a, b))
+        return grouped(a, b)
+
+    ops.grouped_matmul = record
+    try:
+        with torch.inference_mode():
+            moe._local_moe(cfg, x, router, wg, wu, wd)
+    finally:
+        ops.grouped_matmul = grouped
+    return seen
+
+
 def phase_kernels(torch, dev):
     import torch.nn.functional as F
     from repro_torch.kernels import ops
@@ -816,6 +869,7 @@ def phase_kernels(torch, dev):
                                               ssd_scan_bwd_plain,
                                               ssd_scan_plain)
     from repro_torch.kernels.streamed_matmul import (ROUTE_LAUNCHES,
+                                                     f32_plan_for,
                                                      grouped_matmul_plain,
                                                      grouped_route, k_splits,
                                                      matmul_plain,
@@ -939,15 +993,19 @@ def phase_kernels(torch, dev):
         """ops.matmul(x, w) on the card, called twice: the output (the two
         must be equal bit for bit), the route that took it, the wgmma
         route's plan (prefill_plan: the tile's width, the runs K was cut
-        into) and the bytes the call allocated beyond its output (a copy of
-        an operand would show)."""
+        into; the fp32 route's f32_plan_for: the tile's rows, the runs, and
+        the tensors the call allocated) and the bytes the call allocated
+        beyond its output (a copy of an operand would show)."""
         before = dict(ROUTE_LAUNCHES)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
+        count = torch.cuda.memory_stats()["allocation.all.allocated"]
         got = ops.matmul(x, w)
         torch.cuda.synchronize()
         extra_bytes = torch.cuda.max_memory_allocated() - base - got.nbytes
+        allocations = torch.cuda.memory_stats()[
+            "allocation.all.allocated"] - count
         route = [r for r, n in ROUTE_LAUNCHES.items() if n != before[r]]
         if len(route) != 1 or ROUTE_LAUNCHES[route[0]] != before[route[0]] + 1:
             raise AssertionError(f"matmul {tuple(x.shape)} @ {tuple(w.shape)}"
@@ -956,6 +1014,10 @@ def phase_kernels(torch, dev):
             raise AssertionError(f"matmul {tuple(x.shape)} @ {tuple(w.shape)}"
                                  ": two calls differ")
         M, K = x.shape
+        if route == ["fp32"]:
+            tile_m, runs, _ = f32_plan_for(M, w.shape[1], K, x.device)
+            return got, route[0], {"tile_m": tile_m, "k_runs": runs,
+                                   "allocations": allocations}, extra_bytes
         plan = (prefill_plan(1, M, w.shape[1], K, x.device)
                 if route == ["wgmma"] else (None, None, None))
         return got, route[0], {"tile_n": plan[0], "k_runs": plan[1]}, \
@@ -993,8 +1055,29 @@ def phase_kernels(torch, dev):
         for K, N in ((1280, 1280), (1280, 5120), (5120, 1280)):
             matmul_case(8 * 1500, K, N, False, dtype)
     # deepseek_moe_16b's router, fp32 as the JAX package keeps it
-    for M in (4, 2048):
-        matmul_case(M, 2048, 64, False, torch.float32)
+    # (K1_ROUTER): y at each of K1_ROUTER_ROWS rows (a decode step, a
+    # prefill, a train step), and at the train step's rows its dx = dy w^T
+    # (w read transposed) and dw = x^T dy (x^T read in place), each on the
+    # "fp32" TMA ring kernel: one launch a call, one tensor allocated, its
+    # output (no workspace, no copy), two calls bit-equal (k1_call),
+    # within TOL's fp32 limit of the plain version
+    K, N = K1_ROUTER
+    for M, kind in [(m, "fwd") for m in K1_ROUTER_ROWS] + [
+            (K1_ROUTER_ROWS[-1], "dx"), (K1_ROUTER_ROWS[-1], "dw")]:
+        a, b = k1_train_operands(randn, M, K, N, False, kind, torch.float32)
+        m, k_, n = a.shape[0], a.shape[1], b.shape[1]
+        got, route, plan, extra_bytes = k1_call(a, b)
+        if route != "fp32" or plan["allocations"] != 1:
+            raise AssertionError(f"router {kind} ({m}, {k_}, {n}): on {route}"
+                                 f", {plan.get('allocations')} tensors "
+                                 "allocated, not the output alone")
+        fns = (lambda: ops.matmul(a, b), lambda: matmul_plain(a, b),
+               lambda: torch.matmul(a, b))
+        check("streamed_matmul", ["router", kind, m, k_, n], torch.float32,
+              got, matmul_plain(a, b), 4 * (m * k_ + k_ * n + m * n),
+              2 * m * n * k_, fns, route=route,
+              extra={**plan, "x_read_in_place": kind == "dw"})
+        del a, b, got
     # a tensor-parallel rank's products in the mesh phase (deepseek_moe_16b
     # over MESH[1] model ranks, its data shard's MESH_TP_TOKENS rows): each
     # projection's column or row block and the unembedding's vocabulary
@@ -1048,8 +1131,8 @@ def phase_kernels(torch, dev):
     # cut over a cluster where the output tiles fall short of the SMs (its
     # run count per case, "k_runs"); every dw must read x in place, the
     # call allocating nothing beyond its output.  qwen2_0_5b's dx and dw in
-    # fp32 too (the fp32 kernel reads a contiguous x: the wrapper copies
-    # x^T).  bf16 under both limits, two calls bit-equal (k1_call)
+    # fp32 too, on the "fp32" TMA ring kernel (its dw also reads x^T in
+    # place).  bf16 under both limits, two calls bit-equal (k1_call)
     for dtype, paths in ((torch.bfloat16, list(K1_TRAIN_PRODUCTS)),
                          (torch.float32, ["qwen2_0_5b_train"])):
         es = torch.tensor([], dtype=dtype).element_size()
@@ -1062,8 +1145,8 @@ def phase_kernels(torch, dev):
                     m, k_, n = a.shape[0], a.shape[1], b.shape[1]
                     got, route, plan, extra_bytes = k1_call(a, b)
                     in_place = extra_bytes < a.numel() * es // 2
-                    if bf16 and (route != "wgmma" or (kind == "dw"
-                                                      and not in_place)):
+                    if route != ("wgmma" if bf16 else "fp32") or (
+                            kind == "dw" and not in_place):
                         raise AssertionError(
                             f"{path} {kind} ({m}, {k_}, {n}): on {route}, "
                             f"{extra_bytes} bytes beyond the output")
@@ -1107,6 +1190,10 @@ def phase_kernels(torch, dev):
             if ROUTE_LAUNCHES[route] != before + 1:
                 raise AssertionError(f"grouped ({E}, {C}, {K}, {N}): the "
                                      f"{route} kernel did not launch")
+            if dtype == torch.bfloat16 and not torch.equal(
+                    got, ops.grouped_matmul(x, w)):
+                raise AssertionError(f"grouped ({E}, {C}, {K}, {N}): two "
+                                     "calls differ")
             fns = (lambda: ops.grouped_matmul(x, w),
                    lambda: grouped_matmul_plain(x, w),
                    lambda: torch.bmm(x, w))
@@ -1117,6 +1204,36 @@ def phase_kernels(torch, dev):
                   else None, route=route)
             del x, w, got
             free(torch)
+
+    # the grouped decode of the dispatch buffer that the port's routing
+    # makes (moe._local_moe: deepseek_moe_16b's layer at a decode step of
+    # its served batch's 4 tokens, C 8, at most 24 of the 64 experts holding
+    # a row), beside the random buffers above: gate, up and down on
+    # "wgmma_grouped_decode", the empty experts' outputs exact zeros, two
+    # calls bit-equal
+    for what, (x, w) in zip(("gate", "up", "down"),
+                            routed_decode_products(torch, randn, ops)):
+        E, C, K = x.shape
+        N = w.shape[2]
+        empty = (x == 0).all(dim=2).all(dim=1)
+        before = ROUTE_LAUNCHES["wgmma_grouped_decode"]
+        got = ops.grouped_matmul(x, w)
+        if ROUTE_LAUNCHES["wgmma_grouped_decode"] != before + 1 or \
+                not torch.equal(got, ops.grouped_matmul(x, w)) or \
+                got[empty].any():
+            raise AssertionError(f"routed {what} ({E}, {C}, {K}, {N}): not one"
+                                 " launch on wgmma_grouped_decode, two calls "
+                                 "differ, or an empty expert's output is not "
+                                 "zero")
+        fns = (lambda: ops.grouped_matmul(x, w),
+               lambda: grouped_matmul_plain(x, w), lambda: torch.bmm(x, w))
+        check("streamed_matmul", ["grouped", "routed", what, E, C, K, N],
+              torch.bfloat16, got, grouped_matmul_plain(x, w),
+              2 * (E * C * K + E * K * N + E * C * N), 2 * E * C * N * K, fns,
+              fine=DECODE_FINE_TOL, route="wgmma_grouped_decode",
+              extra={"experts_with_rows": int((~empty).sum())})
+        del x, w, got
+    free(torch)
 
     # K1's grouped backward, as ops.grouped_matmul's autograd Function
     # calls it for y = x (E, C, K) @ w (E, K, N): dx = dy w^T, each
@@ -4048,7 +4165,10 @@ def phase_serve(torch, dev, model, lengths=None, max_seq=1024, path=None):
           "matmuls_fp32": made["fp32"],
           "matmuls_per_replay": seen_captured,
           "logits_finite": all_finite,
-          "first_tokens": reqs[0].out_tokens[:8], "profile": breakdown})
+          "first_tokens": reqs[0].out_tokens[:8],
+          "k1_device_ms_per_step_by_route":
+              breakdown["decode_graph"].get("k1_ms_per_step_by_route"),
+          "profile": breakdown})
     del eng, watched, params, bundle, eager
     free(torch)
     if any(len(r.out_tokens) != 32 for r in reqs):
@@ -4078,8 +4198,8 @@ def phase_serve(torch, dev, model, lengths=None, max_seq=1024, path=None):
                              "decode kernel")
     # the fp32 route takes the MoE routers and nothing else; the grouped
     # routes the expert products, on the route of their capacity
-    want = {"fp32": 0, "wgmma_grouped": 0, "wgmma_grouped_decode": 0,
-            "fp32_grouped": 0, **expect_routes}
+    want = {"fp32": 0, "fp32_unaligned": 0, "wgmma_grouped": 0,
+            "wgmma_grouped_decode": 0, "fp32_grouped": 0, **expect_routes}
     if {k: routes[k] for k in want} != want or made["fp32"] != want["fp32"]:
         raise AssertionError(f"routes {routes} (fp32 matmuls {made['fp32']})"
                              f" != the expected {want}: a router or an expert "
@@ -4144,6 +4264,36 @@ def eager_decode(torch, bundle, params, prompts, ecfg, new):
     return {"tokens": tokens, "step_ms": step_ms}
 
 
+def k1_route_of(name, names):
+    """The K1 route (``matmul_route`` / ``grouped_route``'s names) of a
+    kernel that a profile names (demangled, template arguments kept), or
+    None; ``names``: every kernel of the profile.  Also a tree before the
+    fp32 TMA ring kernel and the persistent grouped decode kernel (its fp32
+    products on the element-wise kernel and its reduce, its grouped decode
+    on matmul_decode_kernel<.., true>), so two trees compare."""
+    base, _, args = name.partition("<")
+    args = [a.strip() for a in args.rstrip(">").split(",")]
+    ring = any(n.startswith("matmul_f32_ring_kernel") for n in names)
+    if base == "matmul_wgmma_kernel":
+        return "wgmma_grouped" if args[2:3] == ["true"] else "wgmma"
+    if base == "matmul_decode_kernel":
+        return ("wgmma_grouped_decode" if args[2:3] == ["true"]
+                else "wgmma_decode")
+    if base == "matmul_grouped_decode_kernel":
+        return "wgmma_grouped_decode"
+    if base == "matmul_f32_ring_kernel":
+        return "fp32"
+    if base == "matmul_f32_kernel":
+        return ("fp32_grouped" if args[1:2] == ["true"]
+                else "fp32_unaligned" if ring else "fp32")
+    if base == "matmul_bf16_kernel":
+        return "wmma"
+    if base == "splitk_reduce_kernel":
+        return ("wmma" if "bfloat16" in name
+                else "fp32_unaligned" if ring else "fp32")
+    return None
+
+
 def profile_steps(torch, bundle, params, prompts, ecfg, decoder, n_decode=4):
     """torch.profiler over one prefill, ``n_decode`` eager decode steps and
     ``n_decode`` replays of the engine's captured step (``decoder``), all
@@ -4199,7 +4349,13 @@ def profile_steps(torch, bundle, params, prompts, ecfg, decoder, n_decode=4):
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
         port = {k: v / steps / 1e3 for k, v in by_name.items()
                 if re.match(r"(matmul|flash|decode|ssd)_\w*kernel", k)}
+        k1 = {}
+        for name, us in by_name.items():
+            route = k1_route_of(name, by_name)
+            if route:
+                k1[route] = k1.get(route, 0.0) + us / steps / 1e3
         return {"steps": steps, "wall_ms_per_step": wall_us / steps / 1e3,
+                "k1_ms_per_step_by_route": k1,
                 "device_busy_ms_per_step": busy / steps / 1e3,
                 "device_idle_share": (1 - busy / wall_us) if kern else None,
                 "kernels_seen": len(kern),

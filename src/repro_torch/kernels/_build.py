@@ -34,8 +34,12 @@ SIGNATURES = {
     "streamed_matmul_decode_tile": [],
     "streamed_matmul_prefill_max_clusters": [_I, _I],
     "streamed_matmul_grouped_wgmma": [_P, _P, _P] + [_I] * 10 + [_P],
-    "streamed_matmul_grouped_decode": [_P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                       _I, _P],
+    "streamed_matmul_f32": [_P, _P, _P] + [_I] * 8 + [_P],
+    "streamed_matmul_grouped_decode": [_P] * 4 + [_I] * 8 + [_P],
+    "streamed_matmul_grouped_decode_per_sm": [_I, _I],
+    "streamed_matmul_grouped_decode_step": [],
+    "streamed_matmul_grouped_decode_strip": [],
+    "streamed_matmul_grouped_decode_slot": [],
     "streamed_matmul_grouped_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "flash_attention": [_P] * 5 + [_I] * 10 + [_F, _I, _P],
     "flash_attention_bwd": [_P] * 10 + [_I] * 10 + [_F, _I, _P],

@@ -6,7 +6,8 @@
 // register hand-over between warpgroups (setmaxnreg), and the cluster
 // barrier, distributed shared-memory reads, mbarriers armed across a
 // cluster and bulk copies between its blocks that merge a cluster's
-// partial results.
+// partial results; flags in device memory that hand a partial result from
+// one resident block to another.
 // On the host: a cluster launch, a kernel's shared-memory limit raised once
 // per device, and a TMA tensor map made per call with cuTensorMapEncodeTiled,
 // fetched with dlsym from the libcuda that the CUDA runtime has already
@@ -266,6 +267,30 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 template <int R>
 __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+// ----------------------------------------------------- flags in device memory
+// A flag one block raises for another of the same launch (both resident):
+// the writer's earlier stores (its block's, ordered by a block barrier
+// before the release) are visible to the reader's block after its acquire
+// and a block barrier.
+__device__ __forceinline__ void flag_release(int* flag, int v) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;\n" ::"l"(flag), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ int flag_acquire(const int* flag) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n" : "=r"(v) : "l"(flag) : "memory");
+  return v;
+}
+
+// Waits until *flag == v; traps after 2^24 polls, seconds, rather than
+// hanging the card when the flag is never raised.
+__device__ __forceinline__ void flag_wait(const int* flag, int v) {
+  for (uint32_t n = 0; flag_acquire(flag) != v; ++n) {
+    if (n == (1u << 24)) __trap();
+    __nanosleep(128);
+  }
 }
 
 // ------------------------------------------------------------------ clusters
@@ -580,6 +605,18 @@ inline bool make_map_2d(CUtensorMap* map, const void* ptr, int cols, int rows, u
   const uint64_t dims[2] = {(uint64_t)cols, (uint64_t)rows}, strides[1] = {(uint64_t)cols * 2};
   const uint32_t box[2] = {box_cols, box_rows};
   return make_map_bf16(map, ptr, 2, dims, strides, box);
+}
+
+// The map of a row-major fp32 matrix of `rows` rows of `cols` elements, in
+// boxes of box_rows rows of box_cols elements: with the 128-byte swizzle
+// (box_cols 32, one swizzle row) or none (box_cols up to 256, a multiple
+// of 4).
+inline bool make_map_f32_2d(CUtensorMap* map, const void* ptr, int cols, int rows,
+                            uint32_t box_cols, uint32_t box_rows, bool swizzle) {
+  const uint64_t dims[2] = {(uint64_t)cols, (uint64_t)rows}, strides[1] = {(uint64_t)cols * 4};
+  const uint32_t box[2] = {box_cols, box_rows};
+  return make_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, ptr, 2, dims, strides, box,
+                  swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
 // The devices (a bit each) on which a kernel's dynamic shared-memory limit

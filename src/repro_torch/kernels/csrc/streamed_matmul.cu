@@ -78,18 +78,25 @@
 // split writes an fp32 partial tile to a workspace and a second pass sums
 // them.  The weight may be given transposed (w_t=1: w is the transpose of a
 // contiguous (N,K) array), so the tied unembedding reads the (vocab, d)
-// embedding table in place instead of copying it.  fp32 runs on the CUDA
-// cores (plain FMA tiles): it exists for parity runs, not for speed.
+// embedding table in place instead of copying it.
+// fp32 (matmul_f32_ring_kernel; the MoE router, which the JAX package
+// keeps in fp32, and every fp32 parity product): FFMA on the CUDA cores,
+// tiles shaped to M, operands staged by TMA in a ring, K split over a
+// cluster where the tiles fall short of the SMs, x^T read in place (its
+// header below).  fp32 that TMA cannot map (K % 4 != 0, a misaligned
+// tensor: matmul_f32_kernel) loads element by element and splits K over two
+// launches, as the wmma kernel does.
 // Grouped (the experts of an MoE layer, models/moe.py's _expert_ffn):
 // out (E, M, N) = x (E, M, K) @ w (E, K, N) per expert in one launch, where
-// a loop over experts would launch E times per projection.  The prefill,
-// decode and fp32 kernels each take a grid dimension over the experts
+// a loop over experts would launch E times per projection.  The prefill and
+// the element-wise fp32 kernels take a grid dimension over the experts
 // (template flag G); the bf16 tensor maps are rank 3, so a box stays inside
 // one expert and its ragged rows or k read zero, not the next expert's.  At
 // a decode step every expert's C = 8 capacity rows are a decode product of
 // its own, so the step reads every expert's weights once, as the JAX
-// capacity design does; the host's plan counts E x the column tiles before
-// it splits K.  A training step's backward is two more grouped products per
+// capacity design does: matmul_grouped_decode_kernel, persistent blocks
+// with equal shares of the (expert, column tile, k step) work (its header
+// below).  A training step's backward is two more grouped products per
 // projection (kernels/ops.py's _GroupedMatmul): dx = dy w^T, which reads
 // each expert's w in place as the transpose (w_t, as the tied unembedding
 // is read), and dw = x^T dy, which reads each expert's x in place as the
@@ -548,8 +555,7 @@ struct DecodeTiles {
   static constexpr int SMEM = D_STAGES * STAGE + PART + 2 * D_STAGES * 8 + 1024;
 };
 
-// G: a grouped product, as matmul_wgmma_kernel's, expert e = blockIdx.z.
-template <bool WT, int NG, bool G>
+template <bool WT, int NG>
 __global__ void __launch_bounds__(D_THREADS)
 matmul_decode_kernel(const __grid_constant__ CUtensorMap xmap,
                      const __grid_constant__ CUtensorMap wmap,
@@ -563,9 +569,8 @@ matmul_decode_kernel(const __grid_constant__ CUtensorMap xmap,
   uint64_t* full = reinterpret_cast<uint64_t*>(part + NG * 8 * D_PSTRIDE);
   uint64_t* empty = full + D_STAGES;
 
-  const int n0 = blockIdx.y * D_TILE, e = blockIdx.z;
+  const int n0 = blockIdx.y * D_TILE;
   const int i0 = blockIdx.x * steps_per_split;
-  out += (size_t)e * M * N;
   const int nsteps = min(steps_per_split, (K + D_TILE - 1) / D_TILE - i0);
   if (threadIdx.x == 0) {
     for (int s = 0; s < D_STAGES; ++s) {
@@ -587,12 +592,6 @@ matmul_decode_kernel(const __grid_constant__ CUtensorMap xmap,
         unsigned char* a = smem + s * T::STAGE;
         const int k0 = (i0 + i) * D_TILE;
         mbar_arrive_expect_tx(&full[s], T::STAGE);
-        if (G) {  // expert e's (N, K) (WT) or (K, N) rows, its x rows 0 .. 8 NG - 1
-          if (WT) tma_load_3d(a, &wmap, &full[s], k0, n0, e);
-          else tma_load_3d(a, &wmap, &full[s], n0, k0, e);
-          tma_load_3d(a + T::A_BYTES, &xmap, &full[s], k0, 0, e);
-          continue;
-        }
         if (WT) tma_load_2d(a, &wmap, &full[s], k0, n0);  // (N, K) rows: 64 n of 64 k
         else tma_load_2d(a, &wmap, &full[s], n0, k0);     // (K, N) rows: 64 k of 64 n
         tma_load_2d(a + T::A_BYTES, &xmap, &full[s], k0, 0);  // x rows 0 .. 8 NG - 1
@@ -660,30 +659,336 @@ matmul_decode_kernel(const __grid_constant__ CUtensorMap xmap,
   cluster_sync();
 }
 
-// Groups of 8 batch rows that the decode kernel runs for M rows (N = 8 per
+// Groups of 8 batch rows that the decode kernels run for M rows (N = 8 per
 // wgmma): 1, 2, 4 or 8.
 int row_groups(int M) { return M <= 8 ? 1 : M <= 16 ? 2 : M <= 32 ? 4 : 8; }
 
-template <bool WT, int NG, bool G>
-cudaError_t launch_decode(const CUtensorMap& xmap, const CUtensorMap& wmap, void* out, int E,
-                          int M, int N, int K, int splits, int steps_per_split, cudaStream_t s) {
+template <bool WT, int NG>
+cudaError_t launch_decode(const CUtensorMap& xmap, const CUtensorMap& wmap, void* out, int M,
+                          int N, int K, int splits, int steps_per_split, cudaStream_t s) {
   static hopper::SmemRaised raised;
-  const dim3 grid(splits, (N + D_TILE - 1) / D_TILE, E);
-  return hopper::launch_cluster(matmul_decode_kernel<WT, NG, G>, raised, grid, D_THREADS,
+  const dim3 grid(splits, (N + D_TILE - 1) / D_TILE);
+  return hopper::launch_cluster(matmul_decode_kernel<WT, NG>, raised, grid, D_THREADS,
                                 DecodeTiles<NG>::SMEM, splits, s, xmap, wmap,
                                 static_cast<__nv_bfloat16*>(out), M, N, K, steps_per_split);
 }
 
-template <bool WT, bool G>
+template <bool WT>
 cudaError_t launch_decode_groups(const CUtensorMap& xmap, const CUtensorMap& wmap, void* out,
-                                 int E, int M, int N, int K, int splits, int steps,
-                                 cudaStream_t s) {
+                                 int M, int N, int K, int splits, int steps, cudaStream_t s) {
   switch (row_groups(M)) {
-    case 1: return launch_decode<WT, 1, G>(xmap, wmap, out, E, M, N, K, splits, steps, s);
-    case 2: return launch_decode<WT, 2, G>(xmap, wmap, out, E, M, N, K, splits, steps, s);
-    case 4: return launch_decode<WT, 4, G>(xmap, wmap, out, E, M, N, K, splits, steps, s);
-    default: return launch_decode<WT, 8, G>(xmap, wmap, out, E, M, N, K, splits, steps, s);
+    case 1: return launch_decode<WT, 1>(xmap, wmap, out, M, N, K, splits, steps, s);
+    case 2: return launch_decode<WT, 2>(xmap, wmap, out, M, N, K, splits, steps, s);
+    case 4: return launch_decode<WT, 4>(xmap, wmap, out, M, N, K, splits, steps, s);
+    default: return launch_decode<WT, 8>(xmap, wmap, out, M, N, K, splits, steps, s);
   }
+}
+
+// ----------------------------------- bf16 grouped decode path, persistent
+// The experts of an MoE layer at a decode step (every expert's C < 64
+// capacity rows a decode product of its own, whatever they hold).  The work
+// is I = E x strips items, each one expert's GD_STRIP x 64 output columns
+// (its weight rows read 512 bytes at a time, not 128: fewer DRAM row
+// openings a byte; a strip's tiles past N neither loaded nor multiplied)
+// over its K in S = ceil(K / 64) steps.  G persistent blocks (all
+// resident: one an SM with a ring of about 200 KB, or two with half that,
+// BPS; the host picks G so that G divides I where a G near the slots does)
+// take R = I / G rounds of whole items, block b items b, b + G, ..., so the
+// blocks running at once also read neighbouring strips of the same
+// experts' rows, then an equal share of the last I - R G items' steps:
+// block b the tail steps Wt b / G .. Wt (b + 1) / G - 1 in the order
+// (item, k step), Wt = (I - R G) S.  So shares differ by at most one step
+// and no wave is left half full.  A block walks its items with one ring
+// (its phases carried across items), so the next item's weight tiles
+// stream in while the current one's epilogue runs, and reads its expert's
+// x rows with each step's weights, once an item and for all GD_STRIP
+// column tiles.  Where a share boundary cuts a tail item, the block that
+// holds the item's first step (its last item) adds the parts the following
+// blocks computed (each their first tail item, done right after the
+// rounds) in block order: each such block writes its fp32 part to its slot
+// of `parts` and raises its flag; the first block waits for the flags,
+// adds the parts, writes the bf16 output and lowers the flags for the next
+// call.  No atomics: two calls give the same bits.
+constexpr int GD_STRIP = 4;                   // 64-column tiles an item
+constexpr int GD_STEP = D_TILE;               // k a step
+constexpr int GD_SLOT = GD_STRIP * 8 * 4 * 128;  // floats of a part at 8 groups
+
+// BPS blocks an SM (1 or 2), each with a ring of about 200 / BPS KB
+template <int NG, int BPS>
+struct GroupedDecodeTiles {
+  static constexpr int A_BOX = D_TILE * D_TILE * 2;  // a 64 x 64 w box, 8 KB
+  static constexpr int A_BYTES = GD_STRIP * A_BOX;
+  static constexpr int STAGE = A_BYTES + NG * 8 * D_TILE * 2;  // and x's 8 NG rows
+  static constexpr int RING = 200 * 1024 / BPS;
+  static constexpr int STAGES = RING / STAGE < 12 ? RING / STAGE : 12;
+  static constexpr int SMEM = STAGES * STAGE + 2 * STAGES * 8 + 1024;
+};
+
+// Block b's walk: its R rounds of whole items, then its share of the
+// tail's steps.  next() gives the item and steps k0 .. k1 - 1 of position
+// p (0 .. length() - 1), the position after it p + k1 - k0.
+struct DecodeWalk {
+  long long items, rounds, tail_steps;
+  int S, b, G;
+
+  __device__ __forceinline__ DecodeWalk(int E, int strips, int S_, int b_, int G_)
+      : items((long long)E * strips), rounds(items / G_),
+        tail_steps((items - rounds * G_) * S_), S(S_), b(b_), G(G_) {}
+  // tail step at which block j's share starts
+  __device__ __forceinline__ long long tail_start(int j) const { return tail_steps * j / G; }
+  __device__ __forceinline__ long long length() const {
+    return rounds * S + tail_start(b + 1) - tail_start(b);
+  }
+  __device__ __forceinline__ void next(long long p, long long& item, int& k0, int& k1) const {
+    if (p < rounds * S) {
+      item = b + (p / S) * G;
+      k0 = 0;
+      k1 = S;
+      return;
+    }
+    const long long s = tail_start(b) + (p - rounds * S);
+    const long long t = s / S;
+    item = rounds * G + t;
+    k0 = (int)(s - t * S);
+    k1 = (int)min((long long)S, k0 + (tail_start(b + 1) - s));
+  }
+};
+
+template <bool WT, int NG, int BPS>
+__global__ void __launch_bounds__(D_THREADS, BPS)
+matmul_grouped_decode_kernel(const __grid_constant__ CUtensorMap xmap,
+                             const __grid_constant__ CUtensorMap wmap,
+                             __nv_bfloat16* __restrict__ out, float* __restrict__ parts,
+                             int* __restrict__ flags, int E, int M, int N, int K) {
+  using namespace hopper;
+  using T = GroupedDecodeTiles<NG, BPS>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + T::STAGES * T::STAGE);
+  uint64_t* empty = full + T::STAGES;
+
+  const int strips = (N + GD_STRIP * D_TILE - 1) / (GD_STRIP * D_TILE);
+  const int S = (K + GD_STEP - 1) / GD_STEP;
+  const int b = blockIdx.x, G = gridDim.x;
+  const DecodeWalk walk(E, strips, S, b, G);
+  const long long length = walk.length();
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < T::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);  // one arrival per consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp == 4) {  // producer warp: one thread issues every load
+    if (lane == 0) {
+      tma_prefetch_map(&xmap);
+      tma_prefetch_map(&wmap);
+      int it = 0;  // steps loaded so far, over every item: the ring's phase
+      for (long long p = 0; p < length;) {
+        long long item;
+        int k0, k1;
+        walk.next(p, item, k0, k1);
+        const int e = (int)(item / strips);
+        const int n0 = (int)(item % strips) * GD_STRIP * D_TILE;
+        const int valid = min(GD_STRIP, (N - n0 + D_TILE - 1) / D_TILE);  // tiles inside N
+        for (int k = k0; k < k1; ++k, ++it) {
+          const int st = it % T::STAGES;
+          if (it >= T::STAGES) mbar_wait(&empty[st], ((it / T::STAGES) + 1) & 1);
+          unsigned char* a = smem + st * T::STAGE;
+          const int kq = k * GD_STEP;
+          mbar_arrive_expect_tx(&full[st], valid * T::A_BOX + (T::STAGE - T::A_BYTES));
+          // expert e's (N, K) (WT) or (K, N) rows, a box a column tile
+          // inside N, and its x rows 0 .. 8 NG - 1
+#pragma unroll
+          for (int q = 0; q < GD_STRIP; ++q) {
+            if (q >= valid) break;
+            if (WT) tma_load_3d(a + q * T::A_BOX, &wmap, &full[st], kq, n0 + q * D_TILE, e);
+            else tma_load_3d(a + q * T::A_BOX, &wmap, &full[st], n0 + q * D_TILE, kq, e);
+          }
+          tma_load_3d(a + T::A_BYTES, &xmap, &full[st], kq, 0, e);
+        }
+        p += k1 - k0;
+      }
+    }
+    __syncwarp();
+    return;
+  }
+
+  // the consumer warpgroup
+  const int t = threadIdx.x;
+  int it = 0;
+  for (long long p = 0; p < length;) {
+    long long item;
+    int k0, k1;
+    walk.next(p, item, k0, k1);
+    const int e = (int)(item / strips);
+    const int n0 = (int)(item % strips) * GD_STRIP * D_TILE;
+    const int valid = min(GD_STRIP, (N - n0 + D_TILE - 1) / D_TILE);  // tiles inside N
+    float acc[GD_STRIP][NG][4];
+#pragma unroll
+    for (int q = 0; q < GD_STRIP; ++q)
+#pragma unroll
+      for (int g = 0; g < NG; ++g)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[q][g][i] = 0.f;
+    for (int k = k0; k < k1; ++k, ++it) {
+      const int st = it % T::STAGES;
+      mbar_wait(&full[st], (it / T::STAGES) & 1);
+      const unsigned char* a = smem + st * T::STAGE;
+      const unsigned char* xb = a + T::A_BYTES;
+#pragma unroll
+      for (int q = 0; q < GD_STRIP; ++q)
+#pragma unroll
+        for (int g = 0; g < NG; ++g) fence_regs(acc[q][g]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D_TILE / 16; ++kk)
+#pragma unroll
+        for (int q = 0; q < GD_STRIP; ++q) {
+          if (q >= valid) break;  // a tile past N: nothing loaded, nothing stored
+          const unsigned char* aq = a + q * T::A_BOX;
+          const uint64_t da = WT ? make_desc(aq + kk * 32, 16, 1024)
+                                 : make_desc(aq + kk * 2048, T::A_BOX, 1024);
+#pragma unroll
+          for (int g = 0; g < NG; ++g)
+            wgmma_ss_n8<WT ? 0 : 1, 0>(acc[q][g], da,
+                                       make_desc(xb + g * 1024 + kk * 32, 16, 1024), 1);
+        }
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous step's wgmmas are done: free its stage
+#pragma unroll
+      for (int q = 0; q < GD_STRIP; ++q)
+#pragma unroll
+        for (int g = 0; g < NG; ++g) fence_regs(acc[q][g]);
+      if (k > k0 && lane == 0) mbar_arrive(&empty[(it - 1) % T::STAGES]);
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int q = 0; q < GD_STRIP; ++q)
+#pragma unroll
+      for (int g = 0; g < NG; ++g) fence_regs(acc[q][g]);
+    if (lane == 0) mbar_arrive(&empty[(it - 1) % T::STAGES]);
+
+    if (k0 > 0) {
+      // the rest of an item an earlier block began: its part to this
+      // block's slot (each thread its own floats), then the flag
+      float* slot = parts + (size_t)b * GD_SLOT;
+#pragma unroll
+      for (int q = 0; q < GD_STRIP; ++q)
+#pragma unroll
+        for (int g = 0; g < NG; ++g)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            __stcg(slot + ((q * NG + g) * 4 + i) * 128 + t, acc[q][g][i]);
+      __threadfence();
+      named_bar_sync(1, 128);
+      if (t == 0) flag_release(&flags[b], 1);
+    } else {
+      if (k1 < S) {
+        // this block began a tail item and a share boundary cut it: add the
+        // parts of the blocks that hold its other steps, in block order
+        const long long item_end = (item - walk.rounds * G + 1) * S;  // in tail steps
+        for (int j = b + 1; j < G && walk.tail_start(j) < item_end; ++j) {
+          if (walk.tail_start(j + 1) == walk.tail_start(j)) continue;  // no steps
+          if (t == 0) flag_wait(&flags[j], 1);
+          named_bar_sync(1, 128);
+          const float* slot = parts + (size_t)j * GD_SLOT;
+#pragma unroll
+          for (int q = 0; q < GD_STRIP; ++q)
+#pragma unroll
+            for (int g = 0; g < NG; ++g)
+#pragma unroll
+              for (int i = 0; i < 4; ++i)
+                acc[q][g][i] += __ldcg(slot + ((q * NG + g) * 4 + i) * 128 + t);
+          if (t == 0) flags[j] = 0;  // lowered for the next call
+        }
+      }
+      // acc[q][g][2 h + c] =
+      //   out[e][8 g + 2 (lane % 4) + c][n0 + 64 q + 16 warp + lane / 4 + 8 h]
+      __nv_bfloat16* o = out + (size_t)e * M * N;
+      const int row = 2 * (lane % 4);
+#pragma unroll
+      for (int q = 0; q < GD_STRIP; ++q) {
+        const int col = n0 + q * D_TILE + 16 * warp + lane / 4;
+#pragma unroll
+        for (int g = 0; g < NG; ++g)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              const int r = 8 * g + row + c;
+              if (r < M && col + 8 * h < N)
+                o[(size_t)r * N + col + 8 * h] = __float2bfloat16(acc[q][g][2 * h + c]);
+            }
+      }
+    }
+    p += k1 - k0;
+  }
+}
+
+template <bool WT, int NG, int BPS>
+cudaError_t launch_grouped_decode(const CUtensorMap& xmap, const CUtensorMap& wmap, void* out,
+                                  void* scratch, int slots, int E, int M, int N, int K,
+                                  int blocks, cudaStream_t s) {
+  static hopper::SmemRaised raised;
+  float* parts = static_cast<float*>(scratch);
+  int* flags = reinterpret_cast<int*>(parts + (size_t)slots * GD_SLOT);
+  return hopper::launch_cluster(matmul_grouped_decode_kernel<WT, NG, BPS>, raised, dim3(blocks),
+                                D_THREADS, GroupedDecodeTiles<NG, BPS>::SMEM, 1, s, xmap, wmap,
+                                static_cast<__nv_bfloat16*>(out), parts, flags, E, M, N, K);
+}
+
+// Two blocks an SM take at most 16 rows (their registers hold no more
+// accumulators).
+template <bool WT, int BPS>
+cudaError_t launch_grouped_decode_groups(const CUtensorMap& xmap, const CUtensorMap& wmap,
+                                         void* out, void* scratch, int slots, int E, int M,
+                                         int N, int K, int blocks, cudaStream_t s) {
+  switch (row_groups(M)) {
+    case 1:
+      return launch_grouped_decode<WT, 1, BPS>(xmap, wmap, out, scratch, slots, E, M, N, K,
+                                               blocks, s);
+    case 2:
+      return launch_grouped_decode<WT, 2, BPS>(xmap, wmap, out, scratch, slots, E, M, N, K,
+                                               blocks, s);
+  }
+  if constexpr (BPS == 1) {
+    if (row_groups(M) == 4)
+      return launch_grouped_decode<WT, 4, 1>(xmap, wmap, out, scratch, slots, E, M, N, K,
+                                             blocks, s);
+    return launch_grouped_decode<WT, 8, 1>(xmap, wmap, out, scratch, slots, E, M, N, K,
+                                           blocks, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// The most grouped decode blocks (of M's row groups, BPS's ring) an SM
+// holds at once.
+template <int NG, int BPS>
+int grouped_decode_per_sm() {
+  static hopper::SmemRaised raised;
+  auto kernel = matmul_grouped_decode_kernel<false, NG, BPS>;
+  int n = 0;
+  if (hopper::allow_smem(kernel, GroupedDecodeTiles<NG, BPS>::SMEM, raised) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, D_THREADS,
+                                                    GroupedDecodeTiles<NG, BPS>::SMEM) !=
+          cudaSuccess)
+    return -1;
+  return n;
+}
+
+template <int BPS>
+int grouped_decode_per_sm_of(int M) {
+  switch (row_groups(M)) {
+    case 1: return grouped_decode_per_sm<1, BPS>();
+    case 2: return grouped_decode_per_sm<2, BPS>();
+  }
+  if constexpr (BPS == 1) return row_groups(M) == 4 ? grouped_decode_per_sm<4, 1>()
+                                                    : grouped_decode_per_sm<8, 1>();
+  return -1;
 }
 
 // The map of w, read in place in the boxes of box_k k by box_n output
@@ -750,7 +1055,10 @@ bool prefill_args_bad(int E, int M, int N, int K, int x_t, int w_t, int tile_n, 
          splits * steps_per_split < steps || max_blocks < 1;
 }
 
-// ---------------------------------------------------------------- fp32 path
+// ------------------------------------------- fp32 path, element-wise loads
+// fp32 what TMA cannot map (a stride not a multiple of 16 bytes, a
+// misaligned tensor) and the grouped fp32 products: 64 x 64 tiles loaded
+// element by element through shared memory, 4 x 4 FFMA a thread.
 constexpr int FBM = 64, FBN = 64, FBK = 16, FTHREADS = 256;
 
 // G: a grouped product, blockIdx.z the expert e of x (E, M, K), w (E, K, N)
@@ -829,6 +1137,283 @@ __global__ void splitk_reduce_kernel(const float* __restrict__ ws, T* __restrict
   }
 }
 
+// ------------------------------------------------------ fp32 path, TMA ring
+// fp32 products whose strides TMA maps (16-byte multiples) and whose
+// tensors are 16-byte aligned: deepseek_moe_16b's router (M 4 at a decode
+// step, 2048 at a prefill; K 2048, N 64) and its training dx (w read
+// transposed) and dw (x^T read in place), and every fp32 parity product.
+// True fp32: FFMA on the CUDA cores.  A block of 8 FFMA warps and a
+// producer warp owns a BM x BN output tile, BM shaped to M (8, 32, 64 or
+// 128 rows, so a decode step's 4 rows fill half a tile, not a 64th; BN 32
+// at 8 rows, so a narrow output still spreads its weight over twice the
+// SMs, 64 otherwise), and a run of K: the producer keeps a ring of 32-deep
+// stages filled by TMA (x and w tiles; a tile read along k, x row-major or
+// w transposed, in 128-byte swizzled rows, which spreads the threads'
+// float4 reads over the banks; one read along m or n in plain rows), with
+// a full and an empty mbarrier a stage; each FFMA thread owns TM x TN
+// outputs, reads four k of each operand a time and loads the next four
+// while it multiplies these; two blocks an SM (so clusters of 8 fit the SMs
+// of a GPC).  Where the output's tiles fall short of the SMs, K is cut into
+// runs, the blocks of a cluster (at most 8): each block writes its fp32
+// partial tile over its quiet ring, and after a cluster barrier sums its
+// share of the tile over every block's partial, in rank order, through
+// distributed shared memory.  One launch, no workspace, no atomics: two
+// calls give the same bits.  TMA zero-fills the ragged edges.
+constexpr int F_BK = 32;  // k a stage
+
+template <int BM>
+struct F32Tiles {
+  static constexpr int BN = BM == 8 ? 32 : 64;   // output columns a block
+  static constexpr int CONSUMERS = 256;          // 8 FFMA warps
+  static constexpr int THREADS = CONSUMERS + 32;  // and one producer warp
+  static constexpr int TY = BM == 8 ? 8 : 16;    // threads along m
+  static constexpr int TX = CONSUMERS / TY;      // threads along n: 32 or 16
+  static constexpr int TM = BM / TY;             // rows a thread: 1, 2, 4, 8
+  static constexpr int TN = BN / TX;             // columns a thread: 1 or 4
+  static constexpr int RING = 96 * 1024;         // two blocks an SM
+  static constexpr int A_BYTES = BM * F_BK * 4;
+  static constexpr int STAGE = A_BYTES + F_BK * BN * 4;
+  static constexpr int STAGES = RING / STAGE < 8 ? RING / STAGE : 8;
+  static constexpr int PSTRIDE = BN + 4;  // partial rows, padded against bank conflicts
+  static constexpr int SMEM = STAGES * STAGE + 2 * STAGES * 8 + 1024;
+  static_assert(BM * PSTRIDE * 4 <= STAGES * STAGE, "the partial tile fits the ring");
+  static_assert(A_BYTES % 1024 == 0 && STAGE % 1024 == 0, "swizzled tiles 1024-aligned");
+};
+
+// W consecutive floats of shared memory into registers, in the widest loads
+// their alignment allows (W floats from a W-aligned offset).
+template <int W>
+__device__ __forceinline__ void lds_run(float (&d)[W], const float* p) {
+  if constexpr (W % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < W / 4; ++q) {
+      const float4 v = reinterpret_cast<const float4*>(p)[q];
+      d[4 * q] = v.x;
+      d[4 * q + 1] = v.y;
+      d[4 * q + 2] = v.z;
+      d[4 * q + 3] = v.w;
+    }
+  } else if constexpr (W == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    d[0] = v.x;
+    d[1] = v.y;
+  } else {
+    d[0] = *p;
+  }
+}
+
+// The four k of float4 chunk c of row r of a 128-byte swizzled tile of
+// 32-float rows (TMA's 128-byte swizzle: chunk c of row r at c ^ (r % 8)).
+__device__ __forceinline__ void lds_swizzled(float (&d)[4], const float* tile, int r, int c) {
+  const float4 v = *reinterpret_cast<const float4*>(tile + r * F_BK + ((c ^ (r & 7)) << 2));
+  d[0] = v.x;
+  d[1] = v.y;
+  d[2] = v.z;
+  d[3] = v.w;
+}
+
+// Thread (ty, tx)'s operands of float4 chunk c (k 4 c .. 4 c + 3) of a
+// stage: a[i][kk] of its rows, b[j][kk] of its columns.
+template <int BM, bool XT, bool WT>
+__device__ __forceinline__ void f32_operands(float (&a)[F32Tiles<BM>::TM][4],
+                                             float (&b)[F32Tiles<BM>::TN][4],
+                                             const float* As, const float* Bs, int ty, int tx,
+                                             int c) {
+  using T = F32Tiles<BM>;
+  if (XT) {  // [32 k][BM m]: a run of TM rows a k
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      float v[T::TM];
+      lds_run<T::TM>(v, As + (4 * c + kk) * BM + ty * T::TM);
+#pragma unroll
+      for (int i = 0; i < T::TM; ++i) a[i][kk] = v[i];
+    }
+  } else {  // [BM m][32 k], swizzled: four k of a row
+#pragma unroll
+    for (int i = 0; i < T::TM; ++i) lds_swizzled(a[i], As, ty + T::TY * i, c);
+  }
+  if (WT) {  // [BN n][32 k], swizzled
+#pragma unroll
+    for (int j = 0; j < T::TN; ++j) lds_swizzled(b[j], Bs, tx + T::TX * j, c);
+  } else {  // [32 k][BN n]: a run of TN columns a k
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      float v[T::TN];
+      lds_run<T::TN>(v, Bs + (4 * c + kk) * T::BN + tx * T::TN);
+#pragma unroll
+      for (int j = 0; j < T::TN; ++j) b[j][kk] = v[j];
+    }
+  }
+}
+
+// Block (rank, tile_m, tile_n) of a grid (splits, M / BM, N / BN), clusters
+// of `splits` along x: output rows m0 .. m0 + BM - 1, columns n0 .. + BN -
+// 1, k steps rank x steps_per_split .. + steps_per_split - 1.  XT: x is
+// read as the transpose of a row-major (K, M) (dw = x^T dy); WT: w as the
+// transpose of a row-major (N, K) (dx = dy w^T).  FFMA thread (ty, tx)
+// owns rows ty + TY i (x^T: ty TM + i) and columns tx TN + j (w^T: tx + TX
+// j): each thread's reads of a tile read along k are rows 8 apart and stay
+// on separate banks, and a tile read along m or n gives it runs of floats.
+template <int BM, bool XT, bool WT>
+__global__ void __launch_bounds__(F32Tiles<BM>::THREADS, 2)
+matmul_f32_ring_kernel(const __grid_constant__ CUtensorMap xmap,
+                       const __grid_constant__ CUtensorMap wmap, float* __restrict__ out,
+                       int M, int N, int K, int steps_per_split) {
+  using namespace hopper;
+  using T = F32Tiles<BM>;
+  constexpr int TM = T::TM, TN = T::TN, BN = T::BN;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  float* part = reinterpret_cast<float*>(smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + T::STAGES * T::STAGE);
+  uint64_t* empty = full + T::STAGES;
+
+  const int splits = gridDim.x, rank = splits > 1 ? (int)cluster_rank() : 0;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.z * BN;
+  const int k_first = rank * steps_per_split;
+  const int nsteps = min(steps_per_split, (K + F_BK - 1) / F_BK - k_first);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < T::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], T::CONSUMERS / 32);  // one arrival per FFMA warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int ty = threadIdx.x / T::TX, tx = threadIdx.x % T::TX;
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+
+  if (warp == T::CONSUMERS / 32) {  // producer warp: one thread issues every load
+    if (lane == 0) {
+      tma_prefetch_map(&xmap);
+      tma_prefetch_map(&wmap);
+      for (int i = 0; i < nsteps; ++i) {
+        const int s = i % T::STAGES;
+        if (i >= T::STAGES) mbar_wait(&empty[s], ((i / T::STAGES) + 1) & 1);
+        unsigned char* a = smem + s * T::STAGE;
+        const int k0 = (k_first + i) * F_BK;
+        mbar_arrive_expect_tx(&full[s], T::STAGE);
+        if (XT) tma_load_2d(a, &xmap, &full[s], m0, k0);  // [32 k][BM m]
+        else tma_load_2d(a, &xmap, &full[s], k0, m0);     // [BM m][32 k], swizzled
+        if (WT) tma_load_2d(a + T::A_BYTES, &wmap, &full[s], k0, n0);  // [BN n][32 k], swizzled
+        else tma_load_2d(a + T::A_BYTES, &wmap, &full[s], n0, k0);     // [32 k][BN n]
+      }
+    }
+    __syncwarp();
+  } else {
+    for (int i = 0; i < nsteps; ++i) {
+      const int s = i % T::STAGES;
+      mbar_wait(&full[s], (i / T::STAGES) & 1);
+      const float* As = reinterpret_cast<const float*>(smem + s * T::STAGE);
+      const float* Bs = reinterpret_cast<const float*>(smem + s * T::STAGE + T::A_BYTES);
+      float a[2][TM][4], b[2][TN][4];  // chunk c's operands and chunk c + 1's
+      f32_operands<BM, XT, WT>(a[0], b[0], As, Bs, ty, tx, 0);
+#pragma unroll
+      for (int c = 0; c < F_BK / 4; ++c) {  // four k a time
+        if (c + 1 < F_BK / 4)
+          f32_operands<BM, XT, WT>(a[(c + 1) & 1], b[(c + 1) & 1], As, Bs, ty, tx, c + 1);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int r = 0; r < TM; ++r)
+#pragma unroll
+            for (int j = 0; j < TN; ++j)
+              acc[r][j] = fmaf(a[c & 1][r][kk], b[c & 1][j][kk], acc[r][j]);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+  }
+
+  const bool ffma = warp < T::CONSUMERS / 32;
+  if (splits == 1) {
+    if (!ffma) return;
+#pragma unroll
+    for (int r = 0; r < TM; ++r) {
+      const int gm = m0 + (XT ? ty * TM + r : ty + T::TY * r);
+      if (gm >= M) continue;
+      float* o = out + (size_t)gm * N + n0;
+      if (WT || TN == 1) {  // any N
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+          const int col = WT ? tx + T::TX * j : tx * TN + j;
+          if (n0 + col < N) o[col] = acc[r][j];
+        }
+      } else if (n0 + tx * TN < N) {  // N % 4 == 0: the thread's run lies inside
+        *reinterpret_cast<float4*>(o + tx * TN) =
+            make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+      }
+    }
+    return;
+  }
+
+  // K cut over the cluster: the partial tile over the ring, quiet once
+  // every FFMA warp is past its last stage
+  if (ffma) {
+    named_bar_sync(1, T::CONSUMERS);
+#pragma unroll
+    for (int r = 0; r < TM; ++r)
+#pragma unroll
+      for (int j = 0; j < TN; ++j)
+        part[(XT ? ty * TM + r : ty + T::TY * r) * T::PSTRIDE +
+             (WT ? tx + T::TX * j : tx * TN + j)] = acc[r][j];
+  }
+  __syncwarp();
+  cluster_sync();
+  // block `rank` sums every splits-th run of four columns over every
+  // block's partial, in rank order
+  for (int idx = rank * T::THREADS + threadIdx.x; idx < BM * (BN / 4);
+       idx += splits * T::THREADS) {
+    const int r = idx / (BN / 4), c = (idx % (BN / 4)) * 4;
+    const int gm = m0 + r, gn = n0 + c;
+    if (gm >= M || gn >= N) continue;
+    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int q = 0; q < MAX_CLUSTER; ++q) {
+      if (q >= splits) break;
+      const float4 v = ld_dsmem_f32x4(part + r * T::PSTRIDE + c, q);
+      sum.x += v.x;
+      sum.y += v.y;
+      sum.z += v.z;
+      sum.w += v.w;
+    }
+    float* o = out + (size_t)gm * N + gn;
+    if (N % 4 == 0) {
+      *reinterpret_cast<float4*>(o) = sum;
+    } else {
+      const float v[4] = {sum.x, sum.y, sum.z, sum.w};
+      for (int k = 0; k < 4 && gn + k < N; ++k) o[k] = v[k];
+    }
+  }
+  cluster_sync();
+}
+
+template <int BM, bool XT, bool WT>
+cudaError_t launch_f32(const CUtensorMap& xmap, const CUtensorMap& wmap, void* out, int M,
+                       int N, int K, int splits, int steps_per_split, cudaStream_t s) {
+  static hopper::SmemRaised raised;
+  constexpr int BN = F32Tiles<BM>::BN;
+  const dim3 grid(splits, (M + BM - 1) / BM, (N + BN - 1) / BN);
+  return hopper::launch_cluster(matmul_f32_ring_kernel<BM, XT, WT>, raised, grid,
+                                F32Tiles<BM>::THREADS, F32Tiles<BM>::SMEM, splits, s, xmap, wmap,
+                                static_cast<float*>(out), M, N, K, steps_per_split);
+}
+
+template <int BM>
+cudaError_t launch_f32_layout(int x_t, int w_t, const CUtensorMap& xmap, const CUtensorMap& wmap,
+                              void* out, int M, int N, int K, int splits, int steps,
+                              cudaStream_t s) {
+  if (x_t) return launch_f32<BM, true, false>(xmap, wmap, out, M, N, K, splits, steps, s);
+  if (w_t) return launch_f32<BM, false, true>(xmap, wmap, out, M, N, K, splits, steps, s);
+  return launch_f32<BM, false, false>(xmap, wmap, out, M, N, K, splits, steps, s);
+}
+
 }  // namespace
 
 // dtype: 0 = fp32, 1 = bf16.  w_t: 0 = w row-major (K, N); 1 = w is the
@@ -870,6 +1455,47 @@ extern "C" int streamed_matmul(const void* x, const void* w, void* out, void* ws
   else
     splitk_reduce_kernel<float><<<blocks, 256, 0, s>>>(wsf, static_cast<float*>(out), MN, splits);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The fp32 path of TMA's strides: x (M, K) row-major, or (x_t = 1) the
+// transpose of a row-major (K, M) read in place; w as streamed_matmul's w_t
+// (row-major when x_t = 1).  Output tiles of tile_m (8, 32, 64 or 128) rows
+// by 32 (tile_m 8) or 64 columns; K cut into `splits` (<= 8) runs of
+// steps_per_split 32-deep steps, each run non-empty, the blocks of a
+// cluster.  The caller routes here only when the strides TMA maps are
+// multiples of 16 bytes (K % 4 == 0 for a row-major x or a transposed w,
+// M % 4 == 0 for x^T, N % 4 == 0 for a row-major w) and x and w are 16-byte
+// aligned.  One launch, no workspace.  Returns the cudaError_t of the
+// launch, or cudaErrorInvalidValue for what the kernel does not take or a
+// tensor map refused.
+extern "C" int streamed_matmul_f32(const void* x, const void* w, void* out, int M, int N, int K,
+                                   int x_t, int w_t, int tile_m, int splits,
+                                   int steps_per_split, void* stream) {
+  const int steps = (K + F_BK - 1) / F_BK;
+  if (M < 1 || N < 1 || K < 1 || (x_t && w_t) || (!w_t && N % 4) ||
+      (tile_m != 8 && tile_m != 32 && tile_m != 64 && tile_m != 128) || splits < 1 ||
+      splits > hopper::MAX_CLUSTER || steps_per_split < 1 ||
+      (splits - 1) * steps_per_split >= steps || splits * steps_per_split < steps)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // x in [tile_m][32] swizzled boxes, or x^T in [32][tile_m]; w in [32][bn]
+  // boxes, or w^T in [bn][32] swizzled
+  const int bn = tile_m == 8 ? F32Tiles<8>::BN : F32Tiles<128>::BN;
+  CUtensorMap xmap, wmap;
+  if (!(x_t ? hopper::make_map_f32_2d(&xmap, x, M, K, tile_m, F_BK, false)
+            : hopper::make_map_f32_2d(&xmap, x, K, M, F_BK, tile_m, true)) ||
+      !(w_t ? hopper::make_map_f32_2d(&wmap, w, K, N, F_BK, bn, true)
+            : hopper::make_map_f32_2d(&wmap, w, N, K, bn, F_BK, false)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  const int per = steps_per_split;
+  switch (tile_m) {
+    case 8: err = launch_f32_layout<8>(x_t, w_t, xmap, wmap, out, M, N, K, splits, per, s); break;
+    case 32: err = launch_f32_layout<32>(x_t, w_t, xmap, wmap, out, M, N, K, splits, per, s); break;
+    case 64: err = launch_f32_layout<64>(x_t, w_t, xmap, wmap, out, M, N, K, splits, per, s); break;
+    default: err = launch_f32_layout<128>(x_t, w_t, xmap, wmap, out, M, N, K, splits, per, s);
+  }
+  return static_cast<int>(err);
 }
 
 // The prefill path: bf16 x (M, K) row-major, or (x_t = 1) the transpose of
@@ -955,16 +1581,16 @@ extern "C" int streamed_matmul_decode(const void* x, const void* w, void* out, i
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
-      w_t ? launch_decode_groups<true, false>(xmap, wmap, out, 1, M, N, K, splits,
-                                              steps_per_split, s)
-          : launch_decode_groups<false, false>(xmap, wmap, out, 1, M, N, K, splits,
-                                               steps_per_split, s));
+      w_t ? launch_decode_groups<true>(xmap, wmap, out, M, N, K, splits, steps_per_split, s)
+          : launch_decode_groups<false>(xmap, wmap, out, M, N, K, splits, steps_per_split, s));
 }
 
 // ------------------------------------------------------------- grouped
 // out (E, M, N) = x (E, M, K) @ w (E, K, N), one product per expert, x and
-// out row-major and contiguous, in one launch: the kernels above with a
-// grid dimension over the experts.  w is as streamed_matmul's w_t, per
+// out row-major and contiguous, in one launch: the prefill and element-wise
+// fp32 kernels above with a grid dimension over the experts, and at a
+// decode step the persistent grouped decode kernel.  w is as
+// streamed_matmul's w_t, per
 // expert: w_t = 0 a contiguous row-major (E, K, N); w_t = 1 the transpose
 // of a contiguous row-major (E, N, K) (an MoE backward's dx = dy w^T reads
 // the forward's w in place).  The bf16 maps are rank 3, (E, rows, cols)
@@ -1013,28 +1639,55 @@ extern "C" int streamed_matmul_grouped_wgmma(const void* x, const void* w, void*
       tma_out, static_cast<cudaStream_t>(stream)));
 }
 
-// 1 <= M < 64: the decode kernel per expert, K cut as streamed_matmul_decode's.
-extern "C" int streamed_matmul_grouped_decode(const void* x, const void* w, void* out, int E,
-                                              int M, int N, int K, int w_t, int splits,
-                                              int steps_per_split, void* stream) {
-  const int steps = (K + D_TILE - 1) / D_TILE;
-  if (E < 1 || E > 65535 || M < 1 || M >= 64 || N < 1 || K < 1 || splits < 1 ||
-      splits > hopper::MAX_CLUSTER || steps_per_split < 1 ||
-      (splits - 1) * steps_per_split >= steps || splits * steps_per_split < steps)
+// 1 <= M < 64: the persistent grouped decode kernel with the ring of
+// `bps` blocks an SM (1, or 2 for M <= 16), `blocks` blocks (at most the card holds at
+// once, streamed_matmul_grouped_decode_per_sm, and at most the steps),
+// `scratch` the parts and flags of `slots` >= blocks
+// blocks (slots x GD_SLOT floats, then slots ints, the flags zero between
+// calls: each call lowers the flags it raised).  A call must not run
+// beside another on the same scratch.
+extern "C" int streamed_matmul_grouped_decode(const void* x, const void* w, void* out,
+                                              void* scratch, int slots, int E, int M, int N,
+                                              int K, int w_t, int bps, int blocks,
+                                              void* stream) {
+  const long long W = (long long)E * ((N + GD_STRIP * D_TILE - 1) / (GD_STRIP * D_TILE)) *
+                      ((K + GD_STEP - 1) / GD_STEP);
+  if (E < 1 || E > 65535 || M < 1 || M >= 64 || N < 1 || K < 1 || (bps != 1 && bps != 2) ||
+      (bps == 2 && row_groups(M) > 2) || blocks < 1 || blocks > slots || blocks > W ||
+      scratch == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap xmap, wmap;
   if (!make_stack_map(&xmap, x, E, M, K, D_TILE, 8 * row_groups(M)) ||
       !make_w_stack_map(&wmap, w, E, N, K, w_t, D_TILE, D_TILE))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(
-      w_t ? launch_decode_groups<true, true>(xmap, wmap, out, E, M, N, K, splits,
-                                             steps_per_split, s)
-          : launch_decode_groups<false, true>(xmap, wmap, out, E, M, N, K, splits,
-                                              steps_per_split, s));
+  cudaError_t err;
+  if (bps == 1)
+    err = w_t ? launch_grouped_decode_groups<true, 1>(xmap, wmap, out, scratch, slots, E, M, N,
+                                                      K, blocks, s)
+              : launch_grouped_decode_groups<false, 1>(xmap, wmap, out, scratch, slots, E, M,
+                                                       N, K, blocks, s);
+  else
+    err = w_t ? launch_grouped_decode_groups<true, 2>(xmap, wmap, out, scratch, slots, E, M, N,
+                                                      K, blocks, s)
+              : launch_grouped_decode_groups<false, 2>(xmap, wmap, out, scratch, slots, E, M,
+                                                       N, K, blocks, s);
+  return static_cast<int>(err);
 }
 
-// fp32: the CUDA-core kernel per expert.
+// The most grouped decode blocks an SM holds at once for M rows and `bps`
+// (the ring of one block an SM, 1, or of two, 2), or -1.
+extern "C" int streamed_matmul_grouped_decode_per_sm(int M, int bps) {
+  return bps == 1 ? grouped_decode_per_sm_of<1>(M) : grouped_decode_per_sm_of<2>(M);
+}
+
+// The grouped decode kernel's k a step, its columns an item, and the
+// floats of a block's part.
+extern "C" int streamed_matmul_grouped_decode_step() { return GD_STEP; }
+extern "C" int streamed_matmul_grouped_decode_strip() { return GD_STRIP * D_TILE; }
+extern "C" int streamed_matmul_grouped_decode_slot() { return GD_SLOT; }
+
+// fp32: the element-wise CUDA-core kernel per expert.
 extern "C" int streamed_matmul_grouped_f32(const void* x, const void* w, void* out, int E,
                                            int M, int N, int K, int w_t, void* stream) {
   if (E < 1 || E > 65535 || M < 1 || N < 1 || K < 1)

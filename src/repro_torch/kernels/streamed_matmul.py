@@ -12,7 +12,10 @@ backward's transposed operand in place: w^T of dx = dy w^T, and x^T of
 dw = x^T dy (``reads_x_in_place``).  The bf16 prefill kernel's plan
 (``prefill_plan``) picks its tile width (``prefill_tile``) and, where the
 output's tiles fall short of the SMs, cuts K over a cluster of blocks
-(``prefill_k_plan``) that sum their partials in the same launch.
+(``prefill_k_plan``) that sum their partials in the same launch; the fp32
+kernel's (``f32_plan``) shapes its tile to M and cuts K the same way; the
+grouped decode kernel's persistent blocks take equal shares of the
+(expert, strip of columns, k step) work (``grouped_decode_schedule``).
 """
 from __future__ import annotations
 
@@ -32,21 +35,30 @@ PREFILL_TILE, PREFILL_WIDE, PREFILL_STEP = 128, 256, 64
 # blocks of a portable thread-block cluster, the most a split plan makes
 # (csrc/hopper.cuh's launch_cluster refuses more)
 MAX_CLUSTER = 8
+# the fp32 kernel's output tile: rows by M (``f32_tile_m``), columns by
+# the rows (``f32_tile_n``), and its k step
+F32_TILES_M, F32_STEP = (8, 32, 64, 128), 32
 # launches of matmul_cuda by route (see matmul_route), and of
 # grouped_matmul_cuda (see grouped_route)
 ROUTE_LAUNCHES: Dict[str, int] = {"wgmma": 0, "wgmma_decode": 0, "wmma": 0,
-                                  "fp32": 0, "wgmma_grouped": 0,
+                                  "fp32": 0, "fp32_unaligned": 0,
+                                  "wgmma_grouped": 0,
                                   "wgmma_grouped_decode": 0,
                                   "fp32_grouped": 0}
 
 
 def reads_x_in_place(M: int, N: int, K: int, w_t: int, dtype: torch.dtype,
-                     aligned: bool = True) -> bool:
-    """Whether the wgmma prefill kernel reads x^T in place: x given as the
-    transpose of a row-major (K, M) (a backward's dw = x^T dy), bf16, M >=
-    64, w row-major, and TMA's rules for x^T's rows along M and w's along N
-    (M % 8 == 0, N % 8 == 0, 16-byte aligned tensors).  K, the rows of
-    both, may be anything."""
+                     aligned: bool = True, grouped: bool = False) -> bool:
+    """Whether a kernel reads x^T in place: x given as the transpose of a
+    row-major (K, M) (a backward's dw = x^T dy), w row-major, under TMA's
+    rules for x^T's rows along M and w's along N (16-byte multiples) with
+    16-byte aligned tensors.  bf16: the wgmma prefill kernel, M >= 64, M % 8
+    == 0, N % 8 == 0 (one expert's too, ``grouped``).  fp32: the TMA ring
+    kernel, M % 4 == 0, N % 4 == 0, not grouped (the grouped fp32 kernel
+    reads a contiguous x).  K, the rows of both, may be anything."""
+    if dtype == torch.float32:
+        return not grouped and not w_t and M % 4 == 0 and N % 4 == 0 \
+            and aligned
     return (dtype == torch.bfloat16 and M >= WGMMA_MIN_M and not w_t
             and M % 8 == 0 and N % 8 == 0 and aligned)
 
@@ -60,16 +72,21 @@ def matmul_route(M: int, N: int, K: int, w_t: int, dtype: torch.dtype,
     aligned (``aligned``) go to a TMA and wgmma kernel: ``"wgmma"`` (the
     prefill kernel) for M >= 64, ``"wgmma_decode"`` (the decode kernel,
     operands swapped, split-K inside one launch) for M < 64.  ``"wmma"``
-    (mma.sync, split-K over two launches) takes any other bf16 product,
-    ``"fp32"`` fp32.  x_t = 1 (x the transpose of a row-major (K, M)) goes
-    to ``"wgmma"`` where ``reads_x_in_place``; any other x_t product is the
+    (mma.sync, split-K over two launches) takes any other bf16 product.
+    fp32 whose strides TMA maps (K % 4 == 0, and N % 4 == 0 when w is
+    row-major) with both tensors aligned goes to ``"fp32"`` (the TMA ring
+    kernel, split-K inside one launch), any other fp32 to
+    ``"fp32_unaligned"`` (element-wise loads, split-K over two launches).
+    x_t = 1 (x the transpose of a row-major (K, M)) goes to ``"wgmma"`` or
+    ``"fp32"`` where ``reads_x_in_place``; any other x_t product is the
     route of x's contiguous copy, which ``matmul_cuda`` makes.  A rule of
     shape, not a fallback: a kernel that fails raises.
     """
-    if dtype == torch.float32:
-        return "fp32"
     if x_t and reads_x_in_place(M, N, K, w_t, dtype, aligned):
-        return "wgmma"
+        return "fp32" if dtype == torch.float32 else "wgmma"
+    if dtype == torch.float32:
+        return ("fp32" if K % 4 == 0 and (w_t or N % 4 == 0) and aligned
+                else "fp32_unaligned")
     if (dtype == torch.bfloat16 and K % 8 == 0 and (w_t or N % 8 == 0)
             and aligned):
         return "wgmma" if M >= WGMMA_MIN_M else "wgmma_decode"
@@ -89,7 +106,7 @@ def grouped_route(E: int, M: int, N: int, K: int, dtype: torch.dtype,
     raises."""
     if dtype == torch.float32:
         return "fp32_grouped"
-    if x_t and reads_x_in_place(M, N, K, w_t, dtype, aligned):
+    if x_t and reads_x_in_place(M, N, K, w_t, dtype, aligned, grouped=True):
         return "wgmma_grouped"
     if (dtype == torch.bfloat16 and K % 8 == 0 and (w_t or N % 8 == 0)
             and aligned):
@@ -200,14 +217,160 @@ def prefill_plan(E: int, M: int, N: int, K: int, device: torch.device):
         lambda r: prefill_clusters(device, r, tile_n), tile_n))
 
 
-def decode_k_plan(N: int, K: int, n_sms: int, tile: int, groups: int = 1):
+def decode_k_plan(N: int, K: int, n_sms: int, tile: int):
     """(splits, k steps per split) of the decode kernel, whose blocks each
-    take ``tile`` output columns (of one of ``groups`` experts) and a range
-    of ``tile``-deep k steps (``decode_tile()``); where the column tiles are
-    fewer than about two per SM, K is cut into ranges that form a cluster
-    and sum their partials in the same launch."""
-    tiles = groups * -(-N // tile)
-    return cluster_runs(-(-K // tile), -(-2 * n_sms // tiles))
+    take ``tile`` output columns and a range of ``tile``-deep k steps
+    (``decode_tile()``); where the column tiles are fewer than about two
+    per SM, K is cut into ranges that form a cluster and sum their partials
+    in the same launch."""
+    return cluster_runs(-(-K // tile), -(-2 * n_sms // -(-N // tile)))
+
+
+def f32_tile_m(M: int) -> int:
+    """The fp32 kernel's tile rows for M rows: the fewest of
+    ``F32_TILES_M`` that hold M, 128 past it (a decode step's 4 rows take a
+    tile of 8)."""
+    return next((t for t in F32_TILES_M if M <= t), F32_TILES_M[-1])
+
+
+def f32_tile_n(tile_m: int) -> int:
+    """The fp32 kernel's tile columns: 32 at 8 rows (a decode step's narrow
+    output spreads its weight over twice the SMs), 64 otherwise."""
+    return 32 if tile_m == F32_TILES_M[0] else 64
+
+
+def f32_plan(M: int, N: int, K: int, n_sms: int):
+    """(tile rows, runs, k steps per run) of the fp32 kernel, whose blocks
+    each take a tile_m x ``f32_tile_n(tile_m)`` output tile and a run of
+    ``F32_STEP``-deep k steps.  tile_m is ``f32_tile_m(M)``, but 64 in
+    place of 128 where the 128-row tiles are fewer than two an SM.  Where
+    the tiles fall short of the SMs, K is cut into at most ``MAX_CLUSTER``
+    runs of at least 4 steps, the blocks of a cluster: as many as keep one
+    block an SM where the tiles reach a third of the SMs, two below (the
+    fastest plans of ``tools/k1_ab.py --set moe --sweep`` at the router's
+    shapes on an H100); otherwise one run."""
+    tile_m = f32_tile_m(M)
+    if tile_m == 128 and -(-M // 128) * -(-N // f32_tile_n(128)) < 2 * n_sms:
+        tile_m = 64
+    tiles = -(-M // tile_m) * -(-N // f32_tile_n(tile_m))
+    steps = -(-K // F32_STEP)
+    if tiles >= n_sms:
+        return tile_m, 1, steps
+    want = n_sms // tiles if 3 * tiles >= n_sms else 2 * n_sms // tiles
+    return (tile_m, *cluster_runs(steps, max(1, min(want, steps // 4))))
+
+
+# the grouped decode kernel's item, a strip of four 64-column tiles, and its
+# k step; its library says the same (``grouped_decode_step()``,
+# ``grouped_decode_strip()``)
+GROUPED_DECODE_STRIP, GROUPED_DECODE_STEP = 256, 64
+
+
+def grouped_decode_blocks(E: int, N: int, K: int, slots: int,
+                          strip: int = GROUPED_DECODE_STRIP,
+                          step: int = GROUPED_DECODE_STEP) -> int:
+    """The grouped decode kernel's persistent blocks: as many as the card
+    holds at once (``slots``), and no more than the E x ceil(N / strip) x
+    ceil(K / step) steps of the work, so that none is idle; where the
+    items outnumber the slots and one of the slots // 8 counts below the
+    slots divides them, the largest such, so that every block takes whole
+    items in rounds and none is left to the step-balanced tail."""
+    items, steps = E * -(-N // strip), -(-K // step)
+    if items > slots:  # a G near the slots that divides the items: no tail
+        for blocks in range(slots, slots - slots // 8 - 1, -1):
+            if items % blocks == 0:
+                return blocks
+    return max(1, min(slots, items * steps))
+
+
+def grouped_decode_schedule(E: int, N: int, K: int, blocks: int,
+                            strip: int = GROUPED_DECODE_STRIP,
+                            step: int = GROUPED_DECODE_STEP):
+    """What each of the grouped decode kernel's ``blocks`` (G) blocks
+    computes, as the kernel walks it: the I = E x strips items (expert,
+    strip of ``strip`` columns) of S = ceil(K / step) k steps each, R = I
+    // G rounds of whole items, block b items b, b + G, ... (the blocks
+    running at once on neighbouring strips of the same rows), then the
+    last I - R G items' Wt = (I - R G) S steps in the order (item, k
+    step), block b taking tail steps Wt b / G .. Wt (b + 1) / G - 1.  Each
+    block's list of (e, strip, k0, k1): the steps k0 .. k1 - 1 of one
+    expert's strip.  A tail item with k0 > 0 continues one the block
+    before began; that block adds its part."""
+    tiles, S = -(-N // strip), -(-K // step)
+    items = E * tiles
+    rounds = items // blocks
+    tail = (items - rounds * blocks) * S
+    out = []
+    for b in range(blocks):
+        mine = [divmod(b + r * blocks, tiles) + (0, S) for r in range(rounds)]
+        s, end = tail * b // blocks, tail * (b + 1) // blocks
+        while s < end:
+            t, k0 = divmod(s, S)
+            k1 = min(S, k0 + end - s)
+            mine.append(divmod(rounds * blocks + t, tiles) + (k0, k1))
+            s += k1 - k0
+        out.append(mine)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def grouped_decode_step() -> int:
+    """The grouped decode kernel's k a step, read once from the library."""
+    return _build.load().streamed_matmul_grouped_decode_step()
+
+
+@functools.lru_cache(maxsize=None)
+def grouped_decode_strip() -> int:
+    """The grouped decode kernel's columns an item, read once from the
+    library."""
+    return _build.load().streamed_matmul_grouped_decode_strip()
+
+
+# the grouped decode kernel's blocks an SM (its ring about 200 / that KB)
+# where M allows it (M <= 16; one above): two were faster than one at
+# every K1_GROUPED_DECODE shape (tools/k1_ab.py --set moe --sweep, H100)
+GROUPED_DECODE_BPS = 2
+
+
+@functools.lru_cache(maxsize=None)
+def grouped_decode_slots(device: torch.device, M: int, bps: int) -> int:
+    """The grouped decode blocks of M rows and ``bps``'s ring the card of
+    ``device`` holds at once (its SMs times the kernel's blocks an SM), at
+    most two an SM (the scratch's slots)."""
+    with torch.cuda.device(device):
+        per_sm = _build.load().streamed_matmul_grouped_decode_per_sm(M, bps)
+    if per_sm < 1:
+        raise RuntimeError("streamed_matmul: no grouped decode block fits an "
+                           "SM")
+    return sm_count(device) * min(per_sm, 2)
+
+
+@functools.lru_cache(maxsize=None)
+def grouped_decode_plan(E: int, M: int, N: int, K: int, device: torch.device):
+    """(blocks an SM's ring, blocks) of the grouped decode kernel on the
+    card of ``device``: ``GROUPED_DECODE_BPS`` where M <= 16 (else 1) and
+    ``grouped_decode_blocks`` over the slots; kept per shape."""
+    bps = GROUPED_DECODE_BPS if M <= 16 else 1
+    return bps, grouped_decode_blocks(E, N, K,
+                                      grouped_decode_slots(device, M, bps))
+
+
+@functools.lru_cache(maxsize=None)
+def grouped_decode_scratch(device: torch.device) -> torch.Tensor:
+    """The grouped decode kernel's parts and flags on ``device``: a slot of
+    fp32 floats and an int flag for each of two blocks an SM, the flags
+    zero.  Made once and kept (a captured decode graph holds its address);
+    each call lowers the flags it raises, so calls on one stream share it,
+    and calls on two streams at once must not."""
+    slot = _build.load().streamed_matmul_grouped_decode_slot()
+    slots = 2 * sm_count(device)
+    return torch.zeros(slots * (slot + 1), dtype=torch.int32, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def f32_plan_for(M: int, N: int, K: int, device: torch.device):
+    """``f32_plan`` on the SMs of ``device``, kept per shape."""
+    return f32_plan(M, N, K, sm_count(device))
 
 
 @functools.lru_cache(maxsize=None)
@@ -250,9 +413,11 @@ def matmul_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     wgmma kernel (M >= 64: prefill, K split over a cluster by
     ``prefill_k_plan``; M < 64: decode; one launch, no workspace), other
     bf16 to the wmma kernel (split-K where the output tiles are fewer than
-    the SMs), fp32 to the fp32 kernel.  Both w layouts are read in place,
-    and x^T where ``reads_x_in_place`` (the prefill kernel); any other x^T
-    is copied contiguous first.  Raises if the kernel fails to build or
+    the SMs), fp32 to the fp32 TMA ring kernel (tiles by M, K split over a
+    cluster by ``f32_plan``; one launch) or, where TMA cannot map it, the
+    element-wise one.  Both w layouts are read in place, and x^T where
+    ``reads_x_in_place`` (the bf16 prefill and fp32 kernels); any other
+    x^T is copied contiguous first.  Raises if the kernel fails to build or
     launch."""
     if not (x.is_cuda and w.device == x.device):
         raise ValueError(f"streamed_matmul: x on {x.device}, w on {w.device}")
@@ -288,6 +453,11 @@ def matmul_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         _build.check(lib.streamed_matmul_decode(
             x.data_ptr(), w.data_ptr(), out.data_ptr(), M, N, K, w_t, splits,
             per, stream), "streamed_matmul_decode")
+    elif route == "fp32":
+        tile_m, splits, per = f32_plan_for(M, N, K, x.device)
+        _build.check(lib.streamed_matmul_f32(
+            x.data_ptr(), w.data_ptr(), out.data_ptr(), M, N, K, x_t, w_t,
+            tile_m, splits, per, stream), "streamed_matmul_f32")
     else:
         splits = k_splits(M, N, K, sm_count(x.device))
         ws = torch.empty((splits, M, N) if splits > 1 else (0,),
@@ -306,10 +476,11 @@ def grouped_matmul_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     w^T), read in place; x^T in place where ``reads_x_in_place``, else
     copied contiguous first.  One launch of the kernel ``grouped_route``
     picks: bf16 with M >= 64 the wgmma kernel (K split over a cluster where
-    E x its tiles fall short of the SMs), M < 64 the wgmma decode kernel
-    (K split over a cluster where E x the column tiles are fewer than about
-    two per SM), fp32 the fp32 kernel; bf16 that TMA cannot take raises
-    ValueError.  Raises if the kernel fails to build or launch."""
+    E x its tiles fall short of the SMs), M < 64 the persistent grouped
+    decode kernel (equal shares of the steps, ``grouped_decode_schedule``;
+    its parts and flags in ``grouped_decode_scratch``), fp32 the fp32
+    kernel; bf16 that TMA cannot take raises ValueError.  Raises if the
+    kernel fails to build or launch."""
     if not (x.is_cuda and w.device == x.device):
         raise ValueError(f"grouped_matmul: x on {x.device}, w on {w.device}")
     if x.dtype not in DTYPE_CODES or w.dtype != x.dtype:
@@ -328,7 +499,8 @@ def grouped_matmul_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if K == 0:
         return out.zero_()
     aligned = _aligned(x, w)
-    if x_t and not reads_x_in_place(M, N, K, w_t, x.dtype, aligned):
+    if x_t and not reads_x_in_place(M, N, K, w_t, x.dtype, aligned,
+                                    grouped=True):
         x, x_t = x.contiguous(), 0
         aligned = _aligned(x, w)
     route = grouped_route(E, M, N, K, x.dtype, aligned, w_t, x_t)
@@ -341,11 +513,12 @@ def grouped_matmul_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
             tile_n, splits, per, sm_count(x.device), stream),
             "streamed_matmul_grouped_wgmma")
     elif route == "wgmma_grouped_decode":
-        splits, per = decode_k_plan(N, K, sm_count(x.device), decode_tile(),
-                                    groups=E)
+        scratch = grouped_decode_scratch(x.device)
+        bps, blocks = grouped_decode_plan(E, M, N, K, x.device)
         _build.check(lib.streamed_matmul_grouped_decode(
-            x.data_ptr(), w.data_ptr(), out.data_ptr(), E, M, N, K, w_t,
-            splits, per, stream), "streamed_matmul_grouped_decode")
+            x.data_ptr(), w.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+            2 * sm_count(x.device), E, M, N, K, w_t, bps, blocks, stream),
+            "streamed_matmul_grouped_decode")
     else:
         _build.check(lib.streamed_matmul_grouped_f32(
             x.data_ptr(), w.data_ptr(), out.data_ptr(), E, M, N, K, w_t,

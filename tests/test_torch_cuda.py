@@ -16,14 +16,18 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, streamed_matmul
 from repro_torch.kernels.decode_attention import decode_attention_plain
 from repro_torch.kernels.decode_attention import decode_tile as keys_per_tile
 from repro_torch.kernels.flash_attention import (MEAN_TOL,
                                                  flash_attention_plain)
 from repro_torch.kernels.ssd_scan import (SSD_ROUTE_LAUNCHES, ssd_route,
                                           ssd_scan_plain)
-from repro_torch.kernels.streamed_matmul import (ROUTE_LAUNCHES, decode_tile,
+from repro_torch.kernels.streamed_matmul import (GROUPED_DECODE_STEP,
+                                                 GROUPED_DECODE_STRIP,
+                                                 ROUTE_LAUNCHES, decode_tile,
+                                                 grouped_decode_step,
+                                                 grouped_decode_strip,
                                                  grouped_matmul_plain,
                                                  grouped_route, matmul_plain,
                                                  matmul_route, prefill_plan,
@@ -263,6 +267,16 @@ def _bf16_close_twice(fn, want):
     return got
 
 
+def _allocations(card, fn):
+    """Tensors fn() allocates on the card (the caching allocator's request
+    count), whatever block sizes it rounds them to."""
+    torch.cuda.synchronize(card)
+    before = torch.cuda.memory_stats(card)["allocation.all.allocated"]
+    fn()
+    torch.cuda.synchronize(card)
+    return torch.cuda.memory_stats(card)["allocation.all.allocated"] - before
+
+
 def _allocated_beyond(card, fn):
     """Bytes fn() allocates on the card beyond its output."""
     torch.cuda.synchronize(card)
@@ -421,6 +435,158 @@ def test_cuda_grouped_matmul_raises_where_tma_cannot_map(card, K, N):
         ops.grouped_matmul(x, w)
     assert ops.LAUNCHES["streamed_matmul"] == 0
     assert not any(ROUTE_LAUNCHES.values())
+
+
+# (M, K, N, kind) of the fp32 route at deepseek_moe_16b's router: its
+# forward x (M, 2048) @ w (2048, 64) at a decode step of 1, 4 and 63 rows,
+# at 64, and at a prefill's or train step's 2048 and 4096 (K 2020: ragged
+# against the 32-deep steps); its training dx = dy (4096, 64) @ w^T, w
+# (2048, 64) read transposed; its dw = x^T (2048, 4096) @ dy (4096, 64),
+# x (4096, 2048) read in place (4092 tokens: a ragged K)
+F32_ROUTER_CASES = [(M, 2048, 64, "fwd") for M in (1, 4, 63, 64, 2048, 4096)
+                    ] + [(4, 2020, 64, "fwd"), (2048, 2020, 64, "fwd"),
+                         (4096, 64, 2048, "dx"), (2048, 4096, 64, "dw"),
+                         (2048, 4092, 64, "dw"), (4, 64, 2048, "dx")]
+
+
+def _f32_operands(card, M, K, N, kind, seed):
+    """x (M, K) and w (K, N) of one fp32 product as the router's forward
+    (both row-major), dx (w the transpose of a row-major (N, K)) or dw (x
+    the transpose of a row-major (K, M)) gives them."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    x = torch.randn((K, M) if kind == "dw" else (M, K), generator=gen,
+                    device=card)
+    w = torch.randn((N, K) if kind == "dx" else (K, N), generator=gen,
+                    device=card) / K ** 0.5
+    return (x.t() if kind == "dw" else x), (w.t() if kind == "dx" else w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,kind", F32_ROUTER_CASES)
+def test_cuda_f32_route_at_the_router(card, M, K, N, kind):
+    """The fp32 TMA ring kernel, one launch on "fp32", one tensor
+    allocated, the output (no workspace, x^T read in place), within 2e-4
+    of the plain version, two calls equal bit for bit."""
+    x, w = _f32_operands(card, M, K, N, kind, M + K + N)
+    assert matmul_route(M, N, K, int(kind == "dx"), torch.float32,
+                        x_t=int(kind == "dw")) == "fp32"
+    ops.reset_launches()
+    assert _allocations(card, lambda: ops.matmul(x, w)) == 1
+    assert ROUTE_LAUNCHES == {r: int(r == "fp32") for r in ROUTE_LAUNCHES}
+    got = ops.matmul(x, w)
+    assert got.shape == (M, N) and got.dtype == torch.float32
+    assert torch.equal(got, ops.matmul(x, w))
+    _close(got, matmul_plain(x, w), DTYPES["float32"][1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", range(1, 9))
+@pytest.mark.parametrize("layout", ["x", "x_t", "w_t"])
+@pytest.mark.parametrize("M,tile_m", [(4, 8), (20, 32), (64, 64), (128, 128)])
+def test_cuda_f32_every_split_count(card, monkeypatch, M, tile_m, splits,
+                                    layout):
+    """Output tiles of each height (8 rows by 32 columns, 32, 64 or 128 by
+    64; N 60 for a transposed w, ragged) and K of ``splits`` 32-deep steps,
+    the last ragged, under the plan of ``splits`` runs of one step, one
+    cluster a tile, summed in the same launch; against the plain version,
+    two calls equal bit for bit."""
+    N, K = 60 if layout == "w_t" else 64, 32 * splits - 8
+    monkeypatch.setattr(streamed_matmul, "f32_plan_for",
+                        lambda *_: (tile_m, splits, 1))
+    kind = {"x": "fwd", "x_t": "dw", "w_t": "dx"}[layout]
+    x, w = _f32_operands(card, M, K, N, kind, splits)
+    ops.reset_launches()
+    got = ops.matmul(x, w)
+    assert ROUTE_LAUNCHES["fp32"] == 1
+    assert torch.equal(got, ops.matmul(x, w))
+    _close(got, matmul_plain(x, w), DTYPES["float32"][1])
+
+
+# (E, C, K, N, w_t) of the persistent grouped decode kernel: deepseek's
+# gate/up and down at a decode step of its served batch (C 8; whole
+# rounds), 67 experts of its gate (402 strips over 132 blocks: a tail of
+# cut strips, their parts handed between blocks), llama4_maverick's gate
+# (128 experts, C 8), capacities 1-63 ragged against the 8-row groups with
+# K and N ragged against the 64-deep steps, 64-wide column tiles and
+# 256-column strips (every strip cut, a step a block), and w transposed (a
+# backward's dx at C < 64)
+GROUPED_DECODE_CASES = [(64, 8, 2048, 1408, 0), (64, 8, 1408, 2048, 0),
+                        (67, 8, 2048, 1408, 0),
+                        (128, 8, 5120, 8192, 0)] + [
+    (8, C, 1000, 136, 0) for C in (1, 7, 9, 17, 33, 63)] + [
+    (8, 13, 1000, 136, 1), (64, 8, 2048, 1408, 1), (3, 8, 200, 72, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,C,K,N,w_t", GROUPED_DECODE_CASES)
+def test_cuda_grouped_decode_matches_plain(card, E, C, K, N, w_t):
+    """One launch on "wgmma_grouped_decode" against the plain version,
+    under both bf16 limits, two calls equal bit for bit, one tensor
+    allocated a call after the first (the output)."""
+    gen = torch.Generator(device=card).manual_seed(E + C + K + w_t)
+    x = torch.randn((E, C, K), generator=gen, device=card).to(torch.bfloat16)
+    w = (torch.randn((E, N, K) if w_t else (E, K, N), generator=gen,
+                     device=card) / K ** 0.5).to(torch.bfloat16)
+    w = w.transpose(1, 2) if w_t else w
+    assert grouped_route(E, C, N, K, torch.bfloat16, w_t=w_t) == \
+        "wgmma_grouped_decode"
+    ops.reset_launches()
+    got = _bf16_close_twice(lambda: ops.grouped_matmul(x, w),
+                            grouped_matmul_plain(x, w))
+    assert got.shape == (E, C, N)
+    assert ROUTE_LAUNCHES["wgmma_grouped_decode"] == 2
+    assert _allocations(card, lambda: ops.grouped_matmul(x, w)) == 1
+
+
+def _routed_decode_products(card, tokens=4):
+    """deepseek_moe_16b's three grouped products of one MoE layer at a
+    decode step of ``tokens`` tokens, as the port's routing makes them
+    (``moe._local_moe``: each token's top 6 of 64 experts, C 8): (x, w) of
+    gate, up and down, most experts' rows zero."""
+    cfg = get_config("deepseek_moe_16b")
+    gen = torch.Generator(device=card).manual_seed(tokens)
+    d, E, f = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
+
+    def rnd(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=gen, device=card) * scale
+                ).to(dtype)
+
+    x = rnd(tokens, d)
+    router = rnd(d, E, scale=d ** -0.5, dtype=torch.float32)
+    wg, wu = rnd(E, d, f, scale=d ** -0.5), rnd(E, d, f, scale=d ** -0.5)
+    wd = rnd(E, f, d, scale=f ** -0.5)
+    seen, grouped = [], ops.grouped_matmul
+
+    def record(a, b):
+        seen.append((a, b))
+        return grouped(a, b)
+
+    ops.grouped_matmul = record
+    try:
+        with torch.inference_mode():
+            moe._local_moe(cfg, x, router, wg, wu, wd)
+    finally:
+        ops.grouped_matmul = grouped
+    return seen
+
+
+@pytest.mark.cuda
+def test_cuda_grouped_decode_of_the_routed_buffer(card):
+    """The dispatch buffer of 4 routed tokens (at most 24 of 64 experts
+    hold a row, the rest zeros): each product on "wgmma_grouped_decode"
+    under both bf16 limits, two calls equal bit for bit, the empty
+    experts' outputs exact zeros."""
+    products = _routed_decode_products(card)
+    assert len(products) == 3
+    for x, w in products:
+        assert x.shape[:2] == (64, 8)
+        empty = (x == 0).all(dim=2).all(dim=1)
+        assert empty.sum() >= 40
+        ops.reset_launches()
+        got = _bf16_close_twice(lambda: ops.grouped_matmul(x, w),
+                                grouped_matmul_plain(x, w))
+        assert ROUTE_LAUNCHES["wgmma_grouped_decode"] == 2
+        assert not got[empty].any()
 
 
 @pytest.mark.cuda
@@ -754,7 +920,8 @@ def test_cuda_launches_are_counted(card):
     # merge their splits inside the launch, the grouped matmul runs every
     # expert in one
     assert ROUTE_LAUNCHES == {"wgmma": 0, "wgmma_decode": 1, "wmma": 0,
-                              "fp32": 0, "wgmma_grouped": 0,
+                              "fp32": 0, "fp32_unaligned": 0,
+                              "wgmma_grouped": 0,
                               "wgmma_grouped_decode": 1, "fp32_grouped": 0}
     assert SSD_ROUTE_LAUNCHES == {"wgmma": 1, "fp32": 0, "simt": 0, "tc": 0}
 
@@ -804,10 +971,13 @@ def test_cuda_decode_call_is_one_launch(card, call):
 
 @pytest.mark.cuda
 def test_cuda_split_plans_take_the_kernels_tiles(card):
-    """The CPU tests of the split plans give them 64-wide tiles: the tile
-    edge the built kernels report."""
+    """The CPU tests of the split plans give them 64-wide tiles and the
+    grouped decode schedule 256-column strips of 64-deep steps: what the
+    built kernels report."""
     assert decode_tile() == 64
     assert keys_per_tile() == 64
+    assert grouped_decode_step() == GROUPED_DECODE_STEP
+    assert grouped_decode_strip() == GROUPED_DECODE_STRIP
 
 
 @pytest.mark.cuda
@@ -1230,7 +1400,7 @@ def test_cuda_moe_train_two_steps_at_depth_2(card):
     # prefill kernel (d or f rows, C 60 deep, padded to 64)
     assert ROUTE_LAUNCHES == {
         "wgmma": 2 * (per_step - 4 - 12), "wgmma_decode": 0, "wmma": 0,
-        "fp32": 2 * 4, "wgmma_grouped": 2 * 3,
+        "fp32": 2 * 4, "fp32_unaligned": 0, "wgmma_grouped": 2 * 3,
         "wgmma_grouped_decode": 2 * 9, "fp32_grouped": 0}
     assert all(np.isfinite(losses)) and losses[1] < losses[0]
     assert int(state["step"]) == 2

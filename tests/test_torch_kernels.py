@@ -22,9 +22,16 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.decode_attention import (decode_attention_plain,
                                                   decode_split_plan)
 from repro_torch.kernels.ssd_scan import SSD_ROUTE_LAUNCHES, ssd_route
-from repro_torch.kernels.streamed_matmul import (MAX_CLUSTER, PREFILL_STEP,
+from repro_torch.kernels.streamed_matmul import (F32_STEP, F32_TILES_M,
+                                                 GROUPED_DECODE_STEP,
+                                                 GROUPED_DECODE_STRIP,
+                                                 MAX_CLUSTER, PREFILL_STEP,
                                                  PREFILL_TILE, PREFILL_WIDE,
-                                                 decode_k_plan, grouped_route,
+                                                 decode_k_plan, f32_plan,
+                                                 f32_tile_m, f32_tile_n,
+                                                 grouped_decode_blocks,
+                                                 grouped_decode_schedule,
+                                                 grouped_route,
                                                  k_splits, matmul_route,
                                                  WIDE_MAX_K, prefill_k_plan,
                                                  prefill_tile, reads_x_in_place)
@@ -446,6 +453,7 @@ def test_matmul_k_splits(M, K, N, splits):
     (8, 896, 896, 0, torch.bfloat16, True, "wgmma_decode"),  # decode step
     (8, 896, 152064, 1, torch.bfloat16, True, "wgmma_decode"),  # unembed
     (4096, 896, 896, 0, torch.float32, True, "fp32"),      # fp32 parity path
+    (4096, 898, 896, 0, torch.float32, True, "fp32_unaligned"),  # K % 4 != 0
     (100, 60, 40, 0, torch.bfloat16, True, "wmma"),        # K % 8 != 0
     (128, 64, 100, 0, torch.bfloat16, True, "wmma"),       # row-major N % 8
     (128, 64, 100, 1, torch.bfloat16, True, "wgmma"),      # transposed: any N
@@ -472,8 +480,13 @@ def test_matmul_route(M, K, N, w_t, dtype, aligned, route):
     (8, 896, 896, 0, False, "wmma"),              # misaligned
 ])
 def test_matmul_route_decode(M, K, N, w_t, aligned, route):
+    """bf16's decode route; fp32 at the same shapes takes the TMA ring
+    kernel where TMA maps its strides (K % 4 == 0, and N % 4 == 0 for a
+    row-major w; aligned) and the element-wise one otherwise."""
     assert matmul_route(M, N, K, w_t, torch.bfloat16, aligned) == route
-    assert matmul_route(M, N, K, w_t, torch.float32, aligned) == "fp32"
+    tma = K % 4 == 0 and (w_t or N % 4 == 0) and aligned
+    assert matmul_route(M, N, K, w_t, torch.float32, aligned) == (
+        "fp32" if tma else "fp32_unaligned")
 
 
 def _check_cover(splits, per, units):
@@ -608,7 +621,18 @@ def test_prefill_k_plan_property(E, M, N, K, n_sms):
     (2048, 4096, 64, 1, torch.bfloat16, True, False, "wgmma"),   # w transposed
     (56, 4096, 64, 0, torch.bfloat16, True, False, "wgmma_decode"),  # M < 64
     (896, 4096, 128, 0, torch.bfloat16, False, False, "wmma"),   # misaligned
-    (896, 4096, 128, 0, torch.float32, True, False, "fp32"),     # fp32: copy
+    (896, 4096, 128, 0, torch.float32, True, True, "fp32"),      # fp32 dw
+    (2048, 4096, 64, 0, torch.float32, True, True, "fp32"),      # router dw
+    (2048, 4095, 64, 0, torch.float32, True, True, "fp32"),      # K ragged
+    (4, 4096, 64, 0, torch.float32, True, True, "fp32"),         # M < 64
+    (2046, 4096, 64, 0, torch.float32, True, False, "fp32"),     # M % 4: copy
+    (2046, 4095, 64, 0, torch.float32, True, False,
+     "fp32_unaligned"),                                          # copy, K % 4
+    (2048, 4096, 62, 0, torch.float32, True, False,
+     "fp32_unaligned"),                                          # N % 4 != 0
+    (2048, 4096, 64, 1, torch.float32, True, False, "fp32"),     # w transposed
+    (2048, 4096, 64, 0, torch.float32, False, False,
+     "fp32_unaligned"),                                          # misaligned
 ])
 def test_matmul_route_with_x_transposed(M, K, N, w_t, dtype, aligned,
                                         in_place, route):
@@ -626,11 +650,134 @@ def test_matmul_route_with_x_transposed(M, K, N, w_t, dtype, aligned,
     (64, 2048, 15, 1408, torch.float32, "fp32_grouped"),
 ])
 def test_grouped_route_with_x_transposed(E, M, K, N, dtype, route):
+    """The grouped fp32 kernel reads x contiguous: its x^T is copied."""
+    assert reads_x_in_place(M, N, K, 0, dtype, grouped=True) == (
+        route == "wgmma_grouped")
     if route is None:
         with pytest.raises(ValueError, match="x transposed"):
             grouped_route(E, M, N, K, dtype, x_t=1)
     else:
         assert grouped_route(E, M, N, K, dtype, x_t=1) == route
+
+
+# (M, K, N, plan) of the fp32 kernel at 132 SMs: deepseek_moe_16b's router
+# (K 2048, N 64) at a decode step's 4 rows, a prefill's 2048 and a train
+# step's 4096, its training dx (w transposed: K 64, N 2048) and dw (x^T:
+# M 2048, K the 4096 tokens), and fp32 parity products that fill the SMs
+@pytest.mark.parametrize("M,K,N,plan", [
+    (4, 2048, 64, (8, 8, 8)),          # decode: 2 tiles of 8 x 32, 8 runs
+    (1, 2048, 64, (8, 8, 8)),
+    (63, 2048, 64, (64, 8, 8)),
+    (64, 2048, 64, (64, 8, 8)),
+    (2048, 2048, 64, (64, 8, 8)),      # prefill: 32 tiles x 8, two an SM
+    (4096, 2048, 64, (64, 2, 32)),     # train y: 64 tiles x 2, one an SM
+    (4096, 64, 2048, (128, 1, 2)),     # train dx: 1024 tiles of 128 rows
+    (2048, 4096, 64, (64, 8, 16)),     # train dw: 32 tiles x 8 runs
+    (4, 64, 2048, (8, 1, 2)),          # decode dx: 2 steps, no split
+    (8, 896, 152064, (8, 1, 28)),      # qwen2's unembedding: 4752 tiles
+    (4096, 896, 4864, (128, 1, 28)),
+    (20, 100, 100, (32, 1, 4)),        # 4 steps: too few to cut
+])
+def test_f32_plan(M, K, N, plan):
+    """The plan at 132 SMs, its cover of K's 32-deep steps, runs of at
+    least 4 steps, at most two blocks an SM when K is cut."""
+    assert f32_plan(M, N, K, n_sms=132) == plan
+    tile_m, runs, per = plan
+    steps = -(-K // F32_STEP)
+    _check_cover(runs, per, steps)
+    tiles = -(-M // tile_m) * -(-N // f32_tile_n(tile_m))
+    assert runs == 1 or (tiles * runs <= 2 * 132 and per >= 4)
+
+
+@settings(max_examples=300, deadline=None)
+@given(M=st.integers(1, 20000), N=st.integers(1, 200000),
+       K=st.integers(1, 70000), n_sms=st.sampled_from([1, 8, 66, 114, 132]))
+def test_f32_plan_property(M, N, K, n_sms):
+    """Every 32-deep k step in exactly one run, 1 to 8 runs (the blocks of
+    a portable cluster), none empty, a run cut only where each holds at
+    least 4 steps; one run where the tiles reach the SMs and never more
+    than two blocks an SM when K is cut; the tile's rows shaped to M (the
+    fewest of 8, 32, 64, 128 that hold it, 64 for 128 where those tiles are
+    few), so a short M's tile is at most half empty (M 4: 4 empty rows of
+    8)."""
+    tile_m, runs, per = f32_plan(M, N, K, n_sms)
+    steps = -(-K // F32_STEP)
+    _check_cover(runs, per, steps)
+    tiles = -(-M // tile_m) * -(-N // f32_tile_n(tile_m))
+    if tiles >= n_sms:
+        assert (runs, per) == (1, steps)
+    else:
+        assert tiles * runs <= 2 * n_sms
+    assert runs == 1 or per >= 4
+    assert tile_m in F32_TILES_M
+    assert tile_m == f32_tile_m(M) or (tile_m, f32_tile_m(M)) == (64, 128)
+    assert M > F32_TILES_M[-1] or M <= tile_m or tile_m == 64
+    assert M > F32_TILES_M[-1] or tile_m != f32_tile_m(M) or (
+        tile_m == F32_TILES_M[0] or 2 * M > tile_m
+        or tile_m == F32_TILES_M[1] and M > F32_TILES_M[0])
+
+
+def _check_schedule(E, N, K, blocks):
+    """Every (expert, strip of columns, k step) unit in exactly one block's
+    items; shares within one step of each other; each block's rounds of
+    whole items b, b + G, ... first, then its tail steps in the order
+    (item, k step), only its first tail item starting inside an item and
+    only its last ending inside one (so a cut item's first part is the last
+    item of the block before, which adds the rest)."""
+    tiles = -(-N // GROUPED_DECODE_STRIP)
+    S = -(-K // GROUPED_DECODE_STEP)
+    items = E * tiles
+    rounds = items // blocks
+    sched = grouped_decode_schedule(E, N, K, blocks)
+    assert len(sched) == blocks
+    units = [(e, t, k) for mine in sched for e, t, k0, k1 in mine
+             for k in range(k0, k1)]
+    assert sorted(units) == [(e, t, k) for e in range(E) for t in range(tiles)
+                             for k in range(S)]
+    shares = [sum(k1 - k0 for *_, k0, k1 in mine) for mine in sched]
+    assert max(shares) - min(shares) <= 1 and min(shares) >= 1
+    for b, mine in enumerate(sched):
+        whole, tail = mine[:rounds], mine[rounds:]
+        assert [e * tiles + t for e, t, *_ in whole] == [
+            b + r * blocks for r in range(rounds)]
+        assert all((k0, k1) == (0, S) for *_, k0, k1 in whole)
+        assert all(e * tiles + t >= rounds * blocks for e, t, *_ in tail)
+        assert all(0 <= k0 < k1 <= S for *_, k0, k1 in tail)
+        assert all(k0 == 0 for *_, k0, _ in tail[1:])
+        assert all(k1 == S for *_, k1 in tail[:-1])
+        if tail and tail[0][2] > 0:  # continues the tail of a block before
+            before = next(m for m in reversed(sched[:b]) if len(m) > rounds)
+            assert before[-1][:2] == tail[0][:2] and before[-1][3] < S
+    return sched
+
+
+# (E, N, K, slots, blocks, tail): deepseek_moe_16b's gate/up (384 strips)
+# and down (512) and llama4's gate (4096) at a decode step on 132 SMs (one
+# block an SM): 128 blocks take them in whole rounds; 67 experts' 402 strips
+# divide no count from 132 to 116: 132 blocks and a tail; work of fewer
+# steps than SMs (a block a step)
+@pytest.mark.parametrize("E,N,K,slots,blocks,tail", [
+    (64, 1408, 2048, 132, 128, False), (64, 2048, 1408, 132, 128, False),
+    (128, 8192, 5120, 132, 128, False), (67, 1408, 2048, 132, 132, True),
+    (1, 64, 256, 132, 4, True), (2, 136, 1000, 132, 32, True),
+])
+def test_grouped_decode_schedule(E, N, K, slots, blocks, tail):
+    assert grouped_decode_blocks(E, N, K, slots) == blocks
+    sched = _check_schedule(E, N, K, blocks)
+    S = -(-K // GROUPED_DECODE_STEP)
+    assert any(k1 - k0 < S for mine in sched for *_, k0, k1 in mine) == tail
+
+
+@settings(max_examples=200, deadline=None)
+@given(E=st.integers(1, 130), N=st.integers(1, 9000), K=st.integers(1, 9000),
+       slots=st.sampled_from([1, 7, 66, 132, 264]))
+def test_grouped_decode_schedule_property(E, N, K, slots):
+    """The persistent schedule at any shape and card: every (expert, strip
+    of columns, k step) to exactly one block, shares that differ by at most
+    one step, no block idle."""
+    blocks = grouped_decode_blocks(E, N, K, slots)
+    assert 1 <= blocks <= slots
+    _check_schedule(E, N, K, blocks)
 
 
 @pytest.mark.parametrize("K", [8, 64, 65, 896, 1000, 4864, 4096 * 4])

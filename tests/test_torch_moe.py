@@ -20,7 +20,9 @@ from repro.models import moe as ref_moe
 from repro_torch import convert
 from repro_torch.configs import get_config, reduce_for_smoke
 from repro_torch.kernels import ops
-from repro_torch.kernels.streamed_matmul import (ROUTE_LAUNCHES, decode_k_plan,
+from repro_torch.kernels.streamed_matmul import (ROUTE_LAUNCHES,
+                                                 grouped_decode_blocks,
+                                                 grouped_decode_schedule,
                                                  grouped_route)
 from repro_torch.models import build, common, lm, moe
 from repro_torch.models.blocks import block_init
@@ -90,17 +92,21 @@ def test_grouped_route(E, M, K, N, dtype, aligned, route):
 
 
 @pytest.mark.parametrize("E,K,N,plan", [
-    (64, 2048, 1408, (1, 32)),   # deepseek gate/up: 1408 column tiles
-    (64, 1408, 2048, (1, 22)),   # deepseek down
-    (1, 2048, 1408, (8, 4)),     # one expert: the 2-D plan
-    (2, 4096, 256, (8, 8)),      # few tiles: K split over a cluster
+    (64, 2048, 1408, (128, (96, 96))),  # gate/up: 384 strips of 32 steps
+    (64, 1408, 2048, (128, (88, 88))),  # down: 512 strips of 22 steps
+    (1, 2048, 1408, (132, (1, 2))),     # one expert: 6 strips x 32 steps
+    (2, 4096, 256, (128, (1, 1))),      # few strips: a step a block
 ])
 def test_grouped_decode_k_plan(E, K, N, plan):
-    """The grouped decode kernel counts every expert's column tiles before
-    it splits K; with one expert it is the 2-D kernel's plan."""
-    assert decode_k_plan(N, K, n_sms=132, tile=64, groups=E) == plan
-    if E == 1:
-        assert plan == decode_k_plan(N, K, n_sms=132, tile=64)
+    """The grouped decode kernel's persistent blocks at 132 SMs (one block
+    an SM; 128 where that count divides the strips) and their shares of
+    the E x 256-column strips x 64-deep k steps: within one step of each
+    other, whatever the experts."""
+    blocks, share = plan
+    assert grouped_decode_blocks(E, N, K, slots=132) == blocks
+    shares = [sum(k1 - k0 for *_, k0, k1 in items)
+              for items in grouped_decode_schedule(E, N, K, blocks)]
+    assert (min(shares), max(shares)) == share
 
 
 def test_reset_launches_zeroes_the_grouped_routes():
